@@ -1,0 +1,265 @@
+"""SchNet's CFConv on the card: kernel wrappers, their plain versions and
+the dispatcher (counterpart of ``geossl_tpu/ops/cfconv_pallas.py``).
+
+Each wrapper takes the plain PyTorch version for tensors on the CPU and
+launches its hand-written CUDA kernel (``csrc/``) for tensors on a CUDA
+device; anything else raises. There is no fallback from a kernel to the
+plain version. Each wrapper counts its launches in ``<wrapper>.launches``.
+
+Kernels (forward only; the backward kernels come with training):
+
+* ``cfconv_fused``     -> ``csrc/cfconv_fwd.cu`` (replaces ``_fwd_kernel``)
+* ``cfconv_fused_sym`` -> ``csrc/cfconv_fwd.cu`` in symmetric mode
+  (replaces ``_fwd_sym_kernel``)
+* ``schnet_stack``     -> ``csrc/schnet_stack.cu`` (replaces
+  ``_stack_kernel`` / ``schnet_stack_infer``)
+
+The kernels compute in plain f32 (no TF32); ``plain_precision()`` sets the
+matching PyTorch flags for the plain versions on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from geossl_tpu_torch.models.common import gaussian_smearing, shifted_softplus
+from geossl_tpu_torch.ops import _build
+
+# Largest N the whole-stack kernel accepts (as cfconv_pallas.STACK_MAX_N).
+STACK_MAX_N = 128
+# Feature width the kernels' register tiling is written for.
+KERNEL_F = 128
+# Dynamic shared memory a block may use on Hopper.
+_MAX_SMEM = 232448
+# The JAX package's TPU tiling first has a tile the symmetric kernel can skip
+# at N=256 (cfconv_pallas.sym_profitable); the port routes by the same rule.
+_SYM_MIN_N = 256
+
+
+def plain_precision() -> None:
+    """Full-f32 matmuls for the plain versions on the card, as the kernels
+    compute (no TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def sym_profitable(n: int) -> bool:
+    """True when the dispatcher takes the symmetric kernel at pair-grid size
+    ``n`` (the same sizes as the JAX package's dispatcher)."""
+    return n >= _SYM_MIN_N
+
+
+def sparse_auto(n: int, sparse) -> bool:
+    """Resolve a ``sparse`` knob ('auto' or a bool): 'auto' gates tiles from
+    N=128 up, as ``pallas_utils.sparse_auto`` does."""
+    if sparse == "auto":
+        return n >= 128
+    if isinstance(sparse, bool):
+        return sparse
+    raise ValueError(f"sparse must be 'auto' or a bool; got {sparse!r}")
+
+
+# -- plain versions -----------------------------------------------------------
+
+
+def cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start, stop, num_g):
+    """Plain CFConv: materializes the [B,N,N,F] filter tensor."""
+    rbf = gaussian_smearing(dist, start, stop, num_g)
+    w = shifted_softplus(rbf @ w1 + b1) @ w2 + b2
+    return torch.einsum("bijf,bij,bjf->bif", w, env, x)
+
+
+def schnet_stack_reference(dist, env, h0, stacked, start, stop, num_g):
+    """Plain whole-stack chain, the math of ``_stack_kernel`` (RBF hoisted,
+    lin1 without bias, residual ``h + lin(ssp(lin2(m)))``)."""
+    wl1, w1, b1, w2, b2, wa, ba, wb, bb = stacked
+    rbf = gaussian_smearing(dist, start, stop, num_g)
+    h = h0
+    for k in range(wl1.shape[0]):
+        x = h @ wl1[k]
+        w = shifted_softplus(rbf @ w1[k] + b1[k]) @ w2[k] + b2[k]
+        m = torch.einsum("bijf,bij,bjf->bif", w, env, x)
+        h = h + shifted_softplus(m @ wa[k] + ba[k]) @ wb[k] + bb[k]
+    return h
+
+
+# -- kernel wrappers ------------------------------------------------------------
+
+
+def _on_cpu(name: str, *tensors) -> bool:
+    """True for CPU tensors (plain version); False after checking that the
+    tensors are f32, contiguous and on one CUDA device (kernel)."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for t in tensors:
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous float32 "
+                             f"tensors (got {t.dtype}, contiguous="
+                             f"{t.is_contiguous()})")
+    return False
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _rbf_consts(start, stop, num_g):
+    delta = (stop - start) / (num_g - 1)
+    return float(start), float(delta), float(-0.5 / delta**2)
+
+
+def _check_raise(name, err):
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+
+
+def _smem_check(name, nbytes):
+    if nbytes > _MAX_SMEM:
+        raise ValueError(f"{name}: needs {nbytes} bytes of shared memory, "
+                         f"above the {_MAX_SMEM} a block may use")
+
+
+def _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                   symmetric, sparse):
+    b, ni, nj = dist.shape
+    f = x.shape[-1]
+    if f != KERNEL_F or w1.shape != (num_g, f) or w2.shape != (f, f) \
+            or b1.shape != (f,) or b2.shape != (f,):
+        raise ValueError(
+            f"cfconv_fwd: kernel takes F={KERNEL_F}, W1 [G,F], W2 [F,F]; got "
+            f"x {tuple(x.shape)}, W1 {tuple(w1.shape)}, W2 {tuple(w2.shape)}")
+    if env.shape != dist.shape or x.shape != (b, nj, f):
+        raise ValueError(f"cfconv_fwd: shapes dist {tuple(dist.shape)}, env "
+                         f"{tuple(env.shape)}, x {tuple(x.shape)} disagree")
+    if symmetric and ni != nj:
+        raise ValueError("cfconv_fwd: the symmetric mode needs a square grid")
+    smem = _build.kernel_fn("cfconv_fwd", "cfconv_fwd_smem_bytes",
+                            [ctypes.c_int, ctypes.c_int],
+                            ctypes.c_size_t)(num_g, nj)
+    _smem_check("cfconv_fwd", smem)
+    fn = _build.kernel_fn(
+        "cfconv_fwd", "cfconv_fwd",
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    alloc = torch.zeros if symmetric else torch.empty
+    out = alloc((b, ni, f), dtype=torch.float32, device=dist.device)
+    s0, delta, coeff = _rbf_consts(start, stop, num_g)
+    err = fn(*map(_ptr, (dist, env, x, w1, b1, w2, b2, out)), b, ni, nj, f,
+             num_g, s0, delta, coeff, int(symmetric), int(sparse),
+             _stream(dist))
+    _check_raise("cfconv_fwd", err)
+    return out
+
+
+def cfconv_fused(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                 sparse=False):
+    """m[b,i,f] = Σ_j env·(ssp(rbf(d)W1+b1)W2+b2)[f]·x[b,j,f]; [B,N,F].
+    ``sparse`` skips pair tiles whose env is all zero (same output)."""
+    if _on_cpu("cfconv_fwd", dist, env, x, w1, b1, w2, b2):
+        return cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start,
+                                      stop, num_g)
+    out = _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                         False, sparse)
+    cfconv_fused.launches += 1
+    return out
+
+
+cfconv_fused.launches = 0
+
+
+def cfconv_fused_sym(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                     sparse=False):
+    """Same output as :func:`cfconv_fused` for SYMMETRIC dist/env only: the
+    kernel computes the tiles on and above the diagonal and emits the
+    mirrored messages of the ones below."""
+    if _on_cpu("cfconv_fwd_sym", dist, env, x, w1, b1, w2, b2):
+        return cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start,
+                                      stop, num_g)
+    out = _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                         True, sparse)
+    cfconv_fused_sym.launches += 1
+    return out
+
+
+cfconv_fused_sym.launches = 0
+
+
+def cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g, symmetric=False,
+           sparse="auto", plain=False):
+    """Dispatcher, routed as ``cfconv_pallas.cfconv``: the symmetric kernel
+    when the caller guarantees symmetric dist/env and N is large enough,
+    else the plain-mode kernel; ``plain=True`` takes the plain version on any
+    device (the counterpart of ``use_pallas=False``)."""
+    if plain:
+        return cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start,
+                                      stop, num_g)
+    sp = sparse_auto(dist.shape[-1], sparse)
+    if symmetric and sym_profitable(dist.shape[-1]):
+        return cfconv_fused_sym(dist, env, x, w1, b1, w2, b2, start, stop,
+                                num_g, sp)
+    return cfconv_fused(dist, env, x, w1, b1, w2, b2, start, stop, num_g, sp)
+
+
+def schnet_stack(dist, env, h0, stacked, start, stop, num_g):
+    """Node features after all interaction blocks, [B,N,F] (inference).
+    ``stacked`` is the 9-tuple of per-block weight stacks (wl1 [L,F,F],
+    w1 [L,G,F], b1 [L,F], w2 [L,F,F], b2 [L,F], wa [L,F,F], ba [L,F],
+    wb [L,F,F], bb [L,F]). The kernel skips all-zero env tiles."""
+    b, n, _ = dist.shape
+    if n > STACK_MAX_N:
+        raise ValueError(f"schnet_stack: N={n} exceeds {STACK_MAX_N}; use "
+                         "the per-block path")
+    if _on_cpu("schnet_stack", dist, env, h0, *stacked):
+        return schnet_stack_reference(dist, env, h0, stacked, start, stop,
+                                      num_g)
+    f = h0.shape[-1]
+    n_layers = stacked[0].shape[0]
+    if f != KERNEL_F or stacked[1].shape != (n_layers, num_g, f):
+        raise ValueError(f"schnet_stack: kernel takes F={KERNEL_F} and W1 "
+                         f"[L,G,F]; got h0 {tuple(h0.shape)}, W1 "
+                         f"{tuple(stacked[1].shape)}")
+    smem = _build.kernel_fn("schnet_stack", "schnet_stack_smem_bytes",
+                            [ctypes.c_int, ctypes.c_int],
+                            ctypes.c_size_t)(n, num_g)
+    _smem_check("schnet_stack", smem)
+    fn = _build.kernel_fn(
+        "schnet_stack", "schnet_stack",
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+        + [ctypes.c_void_p])
+    out = torch.empty_like(h0)
+    s0, delta, coeff = _rbf_consts(start, stop, num_g)
+    err = fn(*map(_ptr, (dist, env, h0, *stacked, out)), b, n, f, num_g,
+             n_layers, s0, delta, coeff, _stream(dist))
+    _check_raise("schnet_stack", err)
+    schnet_stack.launches += 1
+    return out
+
+
+schnet_stack.launches = 0
+
+KERNEL_WRAPPERS = {
+    "cfconv_fwd": cfconv_fused,
+    "cfconv_fwd_sym": cfconv_fused_sym,
+    "schnet_stack": schnet_stack,
+}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0

@@ -1,0 +1,99 @@
+"""Weights in and out of the port (its own copy of the mapping in
+``geossl_tpu/utils/torch_import.py``).
+
+* ``schnet_state_dict_from_flax`` / ``head_state_dict_from_flax`` turn the
+  JAX package's param trees (numpy arrays, flax ``[in, out]`` kernels) into
+  the port's state_dicts (torch ``[out, in]`` weights, the reference's key
+  names), keeping the arrays' dtype.
+* ``load_torch_checkpoint`` reads a reference ``.pth``: a bare backbone
+  state_dict or ``{"model": ..., "graph_pred_linear": ...}``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+# keys a reference SchNet state_dict holds that are not parameters here: the
+# filter network registered a second time as the CFConv's ``nn`` and the
+# derived buffers (distance offsets, masses, the atomref initial value)
+_DERIVED = (".conv.nn.", "distance_expansion.", "atomic_mass",
+            "initial_atomref")
+
+
+def _t(a, transpose: bool = False) -> torch.Tensor:
+    a = np.asarray(a)
+    return torch.tensor(a.T if transpose else a)
+
+
+def _dense(tree, bias: bool = True) -> Dict[str, torch.Tensor]:
+    p = tree["Dense_0"]
+    out = {"weight": _t(p["kernel"], transpose=True)}
+    if bias:
+        out["bias"] = _t(p["bias"])
+    return out
+
+
+def schnet_state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """JAX ``models.SchNet`` params -> ``geossl_tpu_torch`` SchNet
+    state_dict (the layout of the JAX package's ``schnet_params_to_torch``)."""
+    sd = {"embedding.weight": _t(tree["Embed_0"]["embedding"])}
+    n = sum(1 for k in tree if k.startswith("InteractionBlock_"))
+    for k in range(n):
+        blk, p = tree[f"InteractionBlock_{k}"], f"interactions.{k}."
+        sd[p + "mlp.0.weight"] = _t(blk["filter_w1"], transpose=True)
+        sd[p + "mlp.0.bias"] = _t(blk["filter_b1"])
+        sd[p + "mlp.2.weight"] = _t(blk["filter_w2"], transpose=True)
+        sd[p + "mlp.2.bias"] = _t(blk["filter_b2"])
+        sd[p + "conv.lin1.weight"] = _dense(blk["Dense_0"], bias=False)["weight"]
+        for name, sub in (("conv.lin2.", "Dense_1"), ("lin.", "Dense_2")):
+            for kk, v in _dense(blk[sub]).items():
+                sd[p + name + kk] = v
+    for name, sub in (("lin1.", "Dense_0"), ("lin2.", "Dense_1"),
+                      ("dipole_lin.", "Dense_2")):
+        if sub in tree:
+            for kk, v in _dense(tree[sub]).items():
+                sd[name + kk] = v
+    if "atomref" in tree:
+        sd["atomref.weight"] = _t(tree["atomref"])
+    return sd
+
+
+def head_state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """JAX ``LinearHead`` params -> ``nn.Linear(emb, 1)`` state_dict."""
+    return _dense(tree["Dense_0"])
+
+
+def _backbone(sd: Dict) -> Dict[str, torch.Tensor]:
+    for key in ("state_dict", "model"):
+        if isinstance(sd.get(key), dict):
+            sd = sd[key]
+    for pre in ("module.", "molecule_model_3D."):
+        if sd and all(k.startswith(pre) for k in sd):
+            sd = {k[len(pre):]: v for k, v in sd.items()}
+    if not any(k.startswith("interactions.0.mlp.") for k in sd):
+        raise ValueError("state_dict is not a reference SchNet backbone "
+                         f"(keys: {sorted(sd)[:8]}...)")
+    return {k: v.float() for k, v in sd.items()
+            if not any(tag in k for tag in _DERIVED)}
+
+
+def load_torch_checkpoint(path: str) -> dict:
+    """``.pth`` -> ``{"model": state_dict[, "graph_pred_linear": head]
+    [, "y_mean", "y_std"]}``."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(raw, dict):
+        raise ValueError(f"{path}: expected a state_dict or a dict of them")
+    out = {}
+    head = raw.get("graph_pred_linear")
+    if isinstance(head, dict):
+        out["graph_pred_linear"] = {k: v.float() for k, v in head.items()}
+    for key in ("y_mean", "y_std"):
+        if key in raw:
+            out[key] = float(raw[key])
+    body = {k: v for k, v in raw.items()
+            if k not in ("graph_pred_linear", "y_mean", "y_std")}
+    out["model"] = _backbone(body)
+    return out
