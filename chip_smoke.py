@@ -12,35 +12,69 @@ Phases, in order; any failure exits non-zero and prints no result line:
    atomics differ), on real-geometry inputs with padding and empty tiles,
    occupancy gating on and off, at the bucket sizes and at a pad that is
    no multiple of the 8-atom tile.
-3. Main path: ``Predictor`` at full SchNet width (F=128, L=6, G=51,
-   cutoff 10, batch 128, buckets 32..512) with seeded random weights serves
-   a store that spans all five buckets (``predict`` and ``embed``), then a
-   ``max_neighbors=32`` Predictor serves it again. Launch counters are reset
-   just before and read just after; every kernel must have launched.
-   Outputs must be finite, and 8 molecules per bucket are held against the
-   plain path on the card.
-4. Measurements: mol/s per bucket (steady state, synchronized), then one
-   traced pass per bucket (torch.profiler: device busy time, the port's
-   kernels' share, idle share), and each kernel's time at the shape the
-   main path gives it, beside its plain version's time and its bound (f32
-   CUDA-core peak and HBM rate; the pairs with nonzero env, and with
-   symmetric dist/env each pair's filter once and the upper triangle read),
-   and ptxas's registers and spills per kernel.
+   The backward kernels (``cfconv_bwd``, ``ncsn_score_bwd``) and the NCSN
+   forward are held to their plain versions as well: per-pair and per-node
+   outputs elementwise with rtol 1e-4 and atol 1e-5 times the output's
+   largest magnitude (f32 sums over up to N terms in another order: the
+   error scales with the summands, not with the element), the head's du
+   and each kernel's weight gradients together by relative Frobenius norm
+   1e-3 and each weight gradient by 1e-2 (f32 sums over up to B*N^2 pair
+   terms that cancel; du and the head's weight gradients also see relu'
+   flip where a pre-activation lies within rounding of zero). ``cfconv_bwd``'s
+   denv is compared on occupied 8x8 tiles and must be zero on the others
+   (the occupancy contract of ``geossl_tpu/ops/pallas_utils.py``).
+3. Main paths, each with the launch counters reset just before and read
+   just after; every kernel of the path must have launched.
+   a. Serving: ``Predictor`` at full SchNet width (F=128, L=6, G=51,
+      cutoff 10, batch 128, buckets 32..512) with seeded random weights
+      serves a store that spans all five buckets (``predict`` and
+      ``embed``), then a ``max_neighbors=32`` Predictor serves it again.
+      Outputs must be finite, and 8 molecules per bucket are held against
+      the plain path on the card.
+   b. Training: ``train.pretrain_geossl.main`` (GeoSSL-DDM at the published
+      defaults: SchNet F=128, L=6, G=51, cutoff 10; batch 128, buckets
+      32/64/128; NCSN sigma 10 -> 0.01 over 50 levels, anneal 2; GeoSSL
+      sigma 0.3, masking 0.3; lr 5e-4) trains one epoch of a synthetic
+      Molecule3D store that fills the three buckets. Every loss must be
+      finite; ``model.pth`` must load into a ``Predictor`` that embeds
+      finite values. Then one full-width step per bucket with kernels is
+      held to the same step with the plain versions (the same injected
+      noise; loss rtol 1e-4, all gradients together by relative norm 1e-3
+      and each parameter's by 1e-2), and the symmetric CFConv and the stack
+      must refuse autograd. The comparisons run on a freshly seeded DDM
+      model: on the trained one, which differs from run to run in its last
+      digits, which pre-activations sit within rounding of a relu's kink
+      changes between runs, and in one of five runs kinks crossed by one
+      side only moved the head kernel's db_d2 by 1.7x its value.
+4. Measurements: serving mol/s per bucket (steady state, synchronized) and
+   one traced pass per bucket (torch.profiler: device busy time, the
+   port's kernels' share, idle share); training mol/s per bucket (median of
+   3 synchronized steps after a warm-up) and one traced step per bucket;
+   each kernel's time at the shape its path gives it, beside its plain
+   version's time and its bound (f32 CUDA-core peak and HBM rate; the
+   pairs with nonzero env or sel, and with symmetric dist/env each pair's
+   filter once and the upper triangle read), and ptxas's registers and
+   spills per kernel.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
 
 RTOL, ATOL = 1e-4, 1e-5
+# weight gradients, together (each tensor: 10x): relative Frobenius norm
+GRAD_RTOL = 1e-3
 # NVIDIA H100 SXM data sheet: f32 outside the tensor cores, HBM3 rate
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 SEED = 0
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def fail(msg):
@@ -105,6 +139,9 @@ KERNEL_ENTRIES = {
     "cfconv_fwd": ("cfconv_fwd", "_ZN6geossl17cfconv_fwd_kernelILb0E"),
     "cfconv_fwd_sym": ("cfconv_fwd", "_ZN6geossl17cfconv_fwd_kernelILb1E"),
     "schnet_stack": ("schnet_stack", "_ZN6geossl19schnet_stack_kernel"),
+    "cfconv_bwd": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernel"),
+    "ncsn_score_fwd": ("ncsn_score", "_ZN6geossl15ncsn_fwd_kernel"),
+    "ncsn_score_bwd": ("ncsn_score", "_ZN6geossl15ncsn_bwd_kernel"),
 }
 
 
@@ -144,13 +181,37 @@ def chunked(fn, batched, rest, chunk):
                       for s in range(0, b, chunk)])
 
 
+def chunked_sum(fn, batched, rest, chunk, n_cat):
+    """fn over slices of the batch dimension for a function whose first
+    ``n_cat`` outputs are per graph (concatenated) and the others sums over
+    the batch (added up): the plain backward versions."""
+    import torch
+
+    b = batched[0].shape[0]
+    parts = [fn(*(t[s:s + chunk] for t in batched), *rest)
+             for s in range(0, b, chunk)]
+    return tuple(torch.cat(col) if k < n_cat else sum(col)
+                 for k, col in enumerate(zip(*parts)))
+
+
+def tile_occupied(env, tile=8):
+    """[B,N,N] bool: the cell lies in an 8x8 tile with a nonzero env."""
+    import torch.nn.functional as F
+
+    b, n, m = env.shape
+    nz = F.pad((env != 0).float(), (0, -m % tile, 0, -n % tile))
+    occ = nz.view(b, nz.shape[1] // tile, tile, nz.shape[2] // tile, tile)
+    occ = occ.amax(dim=(2, 4)) > 0
+    return occ.repeat_interleave(tile, 1).repeat_interleave(tile, 2)[:, :n, :m]
+
+
 class Errors:
     """Largest |kernel - plain| seen per kernel, failing on a mismatch."""
 
     def __init__(self):
         self.max_abs = {}
 
-    def check(self, name, got, want, what):
+    def _note(self, name, got, want, what):
         import torch
 
         torch.cuda.synchronize()
@@ -159,10 +220,210 @@ class Errors:
                  f"{tuple(want.shape)} or non-finite output")
         err = (got - want).abs().max().item()
         self.max_abs[name] = max(self.max_abs.get(name, 0.0), err)
+        return err
+
+    def check_scaled(self, name, got, want, what):
+        """Elementwise, rtol RTOL and atol ATOL times max|want| (sums over
+        up to N terms)."""
+        err = self._note(name, got, want, what)
+        atol = ATOL * max(1.0, want.abs().max().item())
+        if not (got - want).abs().le(atol + RTOL * want.abs()).all():
+            fail(f"{name} {what}: max_abs_err {err:.3e} beyond rtol {RTOL} "
+                 f"atol {atol:.3e}")
+        print(f"parity {name} {what}: max_abs_err {err:.3e} (atol {atol:.2e})")
+
+    def check_norm(self, name, got, want, what, tol=GRAD_RTOL):
+        """Relative Frobenius norm (sums over many pairs that cancel)."""
+        err = self._note(name, got, want, what)
+        rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+        if rel > tol:
+            fail(f"{name} {what}: relative error {rel:.3e} beyond {tol}")
+        print(f"parity {name} {what}: rel_norm {rel:.3e} max_abs_err {err:.3e}")
+
+    def check(self, name, got, want, what):
+        import torch
+
+        err = self._note(name, got, want, what)
         if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
             fail(f"{name} {what}: max_abs_err {err:.3e} beyond rtol {RTOL} "
                  f"atol {ATOL}")
         print(f"parity {name} {what}: max_abs_err {err:.3e}")
+
+
+BWD_NAMES = ("ddist", "denv", "dx", "dW1", "db1", "dW2", "db2")
+
+
+def check_weight_grads(errs, kernel, got, want, names, what):
+    """A kernel's weight gradients: all together by relative norm
+    GRAD_RTOL, each by 10x that (a scalar bias such as db_d2 sums ~1e6
+    pair terms that cancel to a few parts in 1e3 of their scale)."""
+    import torch
+
+    for name, a, w in zip(names, got, want):
+        errs.check_norm(kernel, a, w, f"{what} {name}", tol=10 * GRAD_RTOL)
+    errs.check_norm(kernel, torch.cat([a.flatten() for a in got]),
+                    torch.cat([w.flatten() for w in want]),
+                    f"{what} all weight gradients")
+
+
+def check_cfconv_bwd(errs, dist, env, x, g, fw, G, cutoff, what, chunk=None):
+    """cfconv_bwd against its plain version, gating off and on."""
+    import torch
+
+    from geossl_tpu_torch.ops import cfconv as K
+
+    args = (0.0, cutoff, G)
+    if chunk is None:
+        want = K.cfconv_bwd_reference(dist, env, x, g, *fw, *args)
+    else:
+        want = chunked_sum(K.cfconv_bwd_reference, (dist, env, x, g),
+                           (*fw, *args), chunk, 3)
+    occ = tile_occupied(env)
+    for sp in (False, True):
+        got = K.cfconv_bwd(dist, env, x, g, *fw, *args, sp)
+        for k, (name, a, w) in enumerate(zip(BWD_NAMES, got, want)):
+            tag = f"{what} sparse={sp} {name}"
+            if name == "denv" and sp:
+                if (a[~occ] != 0).any():
+                    fail(f"cfconv_bwd {tag}: nonzero on an empty tile")
+                w = torch.where(occ, w, torch.zeros_like(w))
+            if k < 3:
+                errs.check_scaled("cfconv_bwd", a, w, tag)
+        check_weight_grads(errs, "cfconv_bwd", got[3:], want[3:],
+                           BWD_NAMES[3:], f"{what} sparse={sp}")
+
+
+def ncsn_inputs(ddm, batch, targs, seed):
+    """The head's kernel inputs on this batch as the training step makes
+    them: (dist of the perturbed view, noise, sel, sigma, u), the ten
+    weights and the anneal power."""
+    import torch
+
+    from geossl_tpu_torch.ops import geometry
+    from geossl_tpu_torch.train.pretrain_geossl import batch_views
+
+    gen = torch.Generator(batch.positions.device).manual_seed(seed)
+    pos2, sel = batch_views(targs, batch, gen)
+    head = ddm.NCSN_01
+    with torch.no_grad():
+        _, h1 = ddm.model(batch.atom_type, batch.positions, batch.node_mask)
+        u = head.out0_h(h1).contiguous()
+    d2, _ = geometry.pairwise_distances(pos2, batch.node_mask)
+    b = d2.shape[0]
+    level = torch.randint(0, head.num_noise_level, (b,), generator=gen,
+                          device=d2.device)
+    noise = torch.randn(d2.shape, generator=gen, device=d2.device)
+    weights = [w.detach() for w in head.head_weights()]
+    return ((d2.contiguous(), noise, sel.float(), head.sigmas[level], u),
+            weights, head.anneal_power)
+
+
+def check_ncsn(errs, grid, weights, anneal, what, chunk=None):
+    """ncsn_score_fwd/_bwd against their plain versions."""
+    import torch
+
+    from geossl_tpu_torch.ops import ncsn as NS
+
+    gen = torch.Generator(grid[0].device).manual_seed(SEED)
+    g_rows = torch.randn(grid[0].shape[:2], generator=gen,
+                         device=grid[0].device)
+    with torch.no_grad():
+        if chunk is None:
+            want_rows = NS.ncsn_score_loss_reference(*grid, *weights, anneal)
+            want = NS.ncsn_score_bwd_reference(*grid, g_rows, *weights,
+                                               anneal=anneal)
+        else:
+            want_rows = chunked(NS.ncsn_score_loss_reference, grid,
+                                (*weights, anneal), chunk)
+            want = chunked_sum(
+                lambda *a: NS.ncsn_score_bwd_reference(*a, anneal=anneal),
+                (*grid, g_rows), weights, chunk, 1)
+    errs.check_scaled("ncsn_score_fwd", NS.ncsn_score_fwd(
+        *grid, *weights, anneal=anneal), want_rows, f"{what} rows")
+    got = NS.ncsn_score_bwd(*grid, g_rows, *weights, anneal=anneal)
+    # du by norm too: relu' flips where a pre-activation lies within
+    # rounding of zero, and at the DDM shape (~65M relu decisions per call)
+    # a few always do, each moving some du elements by a whole term
+    errs.check_norm("ncsn_score_bwd", got[0], want[0], f"{what} du")
+    check_weight_grads(errs, "ncsn_score_bwd", got[1:], want[1:],
+                       ["d" + n for n in NS.WEIGHT_NAMES], what)
+    return g_rows
+
+
+def sub_batch(batch, sl):
+    from dataclasses import fields, replace
+
+    return replace(batch, **{f.name: getattr(batch, f.name)[sl]
+                             for f in fields(batch)
+                             if getattr(batch, f.name) is not None})
+
+
+def ddm_grads(ddm, batch, pos2, sel, draws, chunk=None):
+    """(loss, {name: gradient}) of one DDM step; ``chunk`` splits the batch
+    into graph chunks weighted by their share of the real graphs (the loss
+    is a mean over real graphs), for the plain versions' memory."""
+    ddm.zero_grad(set_to_none=True)
+    b = batch.batch_size
+    chunk = chunk or b
+    gm = batch.graph_mask
+    count = max(int(gm.sum()), 1)
+    total = 0.0
+    for s in range(0, b, chunk):
+        sl = slice(s, s + chunk)
+        c = int(gm[sl].sum())
+        if c == 0:
+            continue
+        loss = ddm(sub_batch(batch, sl), pos2[sl], sel[sl],
+                   tuple(t[sl] for t in draws)) * (c / count)
+        loss.backward()
+        total += loss.item()
+    return total, {n: p.grad.detach().clone()
+                   for n, p in ddm.named_parameters()}
+
+
+def step_parity(ddm, batch, targs, bucket):
+    """One full-width DDM step with kernels against the plain versions on
+    the card, with the same injected noise."""
+    import torch
+
+    from geossl_tpu_torch.train.pretrain_geossl import batch_views
+
+    gen = torch.Generator(batch.positions.device).manual_seed(SEED + bucket)
+    pos2, sel = batch_views(targs, batch, gen)
+    draws = []
+    for head in (ddm.NCSN_01, ddm.NCSN_02):
+        level = torch.randint(0, head.num_noise_level, (batch.batch_size,),
+                              generator=gen, device=sel.device)
+        draws += [head.sigmas[level],
+                  torch.randn(sel.shape, generator=gen, device=sel.device)]
+    loss_k, grads_k = ddm_grads(ddm, batch, pos2, sel, draws)
+    ddm.plain = True
+    loss_p, grads_p = ddm_grads(ddm, batch, pos2, sel, draws, chunk=16)
+    ddm.plain = False
+    if not abs(loss_k - loss_p) <= RTOL * abs(loss_p):
+        fail(f"DDM step bucket {bucket}: loss {loss_k} (kernels) vs {loss_p} "
+             "(plain)")
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    per = {n: rel(grads_k[n], grads_p[n]) for n in grads_p}
+    worst = max(per, key=per.get)
+    total = rel(torch.cat([g.flatten() for g in grads_k.values()]),
+                torch.cat([g.flatten() for g in grads_p.values()]))
+    if total > GRAD_RTOL or per[worst] > 10 * GRAD_RTOL:
+        fail(f"DDM step bucket {bucket}: gradients differ by relative norm "
+             f"{total:.3e} in all, {per[worst]:.3e} in {worst}")
+    print(f"step parity bucket {bucket}: loss {loss_k:.6f} vs {loss_p:.6f}, "
+          f"gradient rel_norm {total:.3e} in all {len(per)} tensors, worst "
+          f"{per[worst]:.3e} ({worst})")
+
+
+def refuses_grad(fn):
+    try:
+        fn()
+    except NotImplementedError as e:
+        return str(e)
+    return None
 
 
 def main():
@@ -176,14 +437,21 @@ def main():
         fail(f"geossl_tpu_torch is not importable ({e}); run from the repo root")
     import numpy as np
 
+    import math
+
     from geossl_tpu_torch.config import ModelConfig
     from geossl_tpu_torch.data.bucketing import assign_buckets, pack_batch
+    from geossl_tpu_torch.data.molecule3d import load_molecule3d
     from geossl_tpu_torch.data.store import MolStore
     from geossl_tpu_torch.data.synthetic import synthetic_lba, synthetic_molecule3d
     from geossl_tpu_torch.models.common import cosine_envelope
     from geossl_tpu_torch.ops import _build
     from geossl_tpu_torch.ops import cfconv as K
+    from geossl_tpu_torch.ops import ncsn as NS
+    from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
     from geossl_tpu_torch.serve import Predictor
+    from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.train import pretrain_geossl as PG
     from geossl_tpu_torch.train.common import make_backbone, make_head
 
     # -- 1. card and build --------------------------------------------------
@@ -267,19 +535,41 @@ def main():
                     errs.check(name, fn(dist, env, x, *fw, 0.0, cutoff, G, sp),
                                want, f"B=2 N={n} sparse={sp}")
 
-    # -- 3. main path -----------------------------------------------------------
-    K.reset_launch_counts()
+    # the backward kernels and the NCSN head, outside inference mode (the
+    # plain versions differentiate with autograd). Every check of a kernel
+    # against its plain version runs on this freshly seeded DDM model (the
+    # trained one differs from run to run in its last digits), so that which
+    # pre-activations sit within rounding of a relu's kink, where kernel and
+    # plain version may take different sides, is the same in every run.
+    targs = PG.build_parser().parse_args([])
+    ddm0 = PG.make_ddm(targs, cfg, torch.Generator().manual_seed(SEED)).to(dev)
+    gen_g = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        filt_g = model.interactions[0].filter_weights()
+    for b, n in ((32, 32), (128, 128), (128, 100)):
+        _, dist, env, _, x = layer0_inputs(model, first(b, 8), n)
+        dist, env, x = dist.clone(), env.clone(), x.clone()
+        g = torch.randn(x.shape, generator=gen_g).to(dev)
+        check_cfconv_bwd(errs, dist, env, x, g, filt_g, G, cutoff, f"B=8 N={n}")
+    for b in (32, 128):
+        batch = pack_batch([sorted_store.get(int(i)) for i in first(b, 8)],
+                           b).to(dev)
+        grid, weights, anneal = ncsn_inputs(ddm0, batch, targs, SEED)
+        check_ncsn(errs, grid, weights, anneal, f"B=8 N={b}")
+
+    # -- 3a. main path: serving ---------------------------------------------------
+    reset_launch_counts()
     t0 = time.time()
     preds = pred.predict(store)
     emb = pred.embed(store)
     preds_mn = pred_mn.predict(store)
     torch.cuda.synchronize()
-    launches = K.launch_counts()
-    print(f"main path: {len(store)} molecules x 3 passes in "
+    launches = launch_counts()
+    print(f"main path (serving): {len(store)} molecules x 3 passes in "
           f"{time.time() - t0:.2f} s (first call); launches {launches}")
-    for name, count in launches.items():
-        if count == 0:
-            fail(f"kernel {name} was not launched on the main path")
+    for name in ("cfconv_fwd", "cfconv_fwd_sym", "schnet_stack"):
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the serving path")
     if preds.shape != (len(store),) or emb.shape != (len(store), cfg.emb_dim):
         fail(f"output shapes {preds.shape}, {emb.shape}")
     for what, arr in (("predict", preds), ("embed", emb),
@@ -306,6 +596,61 @@ def main():
                     fail(f"embed bucket {b}: kernel path vs plain path")
             print(f"serve parity bucket {b}: {len(idx)} molecules agree with "
                   "the plain path (predict, embed, max_neighbors=32 predict)")
+
+    # -- 3b. main path: DDM pretraining ----------------------------------------------
+    out_dir = os.path.join(ROOT, "runs", "chip_smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    train_argv = ["--synthetic", "--synthetic_size", "1024",
+                  "--synthetic_max_atoms", "100", "--epochs", "1",
+                  "--output_model_dir", out_dir]
+    reset_launch_counts()
+    t0 = time.time()
+    ddm, losses = PG.main(train_argv)
+    torch.cuda.synchronize()
+    train_launches = launch_counts()
+    print(f"main path (training): {len(losses)} steps of one epoch in "
+          f"{time.time() - t0:.2f} s (first call); launches {train_launches}")
+    for name in ("cfconv_fwd", "cfconv_bwd", "ncsn_score_fwd", "ncsn_score_bwd"):
+        if train_launches[name] == 0:
+            fail(f"kernel {name} was not launched on the training path")
+    if not losses or not all(math.isfinite(v) for v in losses):
+        fail(f"training losses {losses}")
+    print(f"training losses: {losses}")
+    train_store = load_molecule3d("", synthetic=True, synthetic_size=1024,
+                                  synthetic_max_atoms=100)
+    train_buckets = (32, 64, 128)
+    tbucket = assign_buckets(train_store.num_atoms(), train_buckets)
+    if not all((tbucket == b).any() for b in train_buckets):
+        fail("the training store leaves a bucket empty")
+    emb_t = Predictor.from_checkpoint(
+        os.path.join(out_dir, "model.pth"), batch_size=128,
+        bucket_sizes=train_buckets).embed(train_store)
+    if emb_t.shape != (len(train_store), cfg.emb_dim) or \
+            not np.isfinite(emb_t).all():
+        fail(f"Predictor on model.pth: shape {emb_t.shape} or non-finite")
+    print(f"model.pth loads into a Predictor: {emb_t.shape[0]} finite embeddings")
+
+    def train_batch(b):
+        idx = np.nonzero(tbucket == b)[0][:128]
+        return pack_batch([train_store.get(int(i)) for i in idx], b, 128).to(dev)
+
+    for b in train_buckets:
+        step_parity(ddm0, train_batch(b), targs, b)
+    _, d256, e256, h256, x256 = layer0_inputs(model, first(256, 2), 256)
+    w_grad = [w.detach().clone().requires_grad_(True) for w in filt_g]
+    msg = refuses_grad(lambda: K.cfconv_fused_sym(
+        d256.clone(), e256.clone(), x256.clone(), *w_grad, 0.0, cutoff, G, True))
+    if msg is None or "#4" not in msg:
+        fail(f"cfconv_fused_sym under autograd on CUDA: {msg!r}")
+    print(f"grad guard cfconv_fwd_sym: {msg}")
+    with torch.no_grad():
+        stack_w = [t.clone().requires_grad_(True) for t in model.stacked_weights()]
+    _, d128, e128, h128, _ = layer0_inputs(model, first(128, 2), 128)
+    msg = refuses_grad(lambda: K.schnet_stack(
+        d128.clone(), e128.clone(), h128.clone(), stack_w, 0.0, cutoff, G))
+    if msg is None:
+        fail("schnet_stack under autograd on CUDA did not raise")
+    print(f"grad guard schnet_stack: {msg}")
 
     # -- 4. measurements -----------------------------------------------------------
     subs = {b: MolStore.from_records([sorted_store.get(int(i))
@@ -383,20 +728,106 @@ def main():
                             else "geossl_tpu/ops/cfconv_pallas.py:92",
                             ms, plain_ms, flops, nbytes))
 
+    kernels = [(*k, launches[k[0]]) for k in kernels]
+
+    opt, sched = common.make_optimizer_from_args(targs, ddm.parameters(), 100)
+    gen_t = torch.Generator(dev).manual_seed(SEED)
+    device_profile(lambda: PG.train_step(ddm, opt, sched, [train_batch(32)],
+                                         targs, gen_t))  # profiler start-up
+    for b in train_buckets:
+        batch = train_batch(b)
+        mols = int(batch.graph_mask.sum())
+
+        def step():
+            return PG.train_step(ddm, opt, sched, [batch], targs, gen_t)
+
+        step()  # warm-up
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        t = sorted(times)[1]
+        print("train: " + json.dumps({"bucket": b, "molecules": mols,
+                                      "s_per_step": t, "mol_per_s": mols / t}))
+        wall, busy, ours = device_profile(step)
+        print("train_profile: " + json.dumps({
+            "bucket": b, "traced_wall_s": wall, "device_busy_s": busy,
+            "port_kernels_s": ours, "other_device_s": busy - ours,
+            "idle_share": 1.0 - busy / wall}))
+
+    # the three training kernels at the DDM shape (B=128, N=128)
+    batch = train_batch(128)
+    F_, E_, H_ = 128, 128, 64
+    with torch.no_grad():
+        dist, adj = ddm0.model.geometry(batch.positions, batch.node_mask)
+        dist = dist.contiguous()
+        env = (cosine_envelope(dist, cutoff) * adj.float()).contiguous()
+        blk = ddm0.model.interactions[0]
+        x = blk.conv.lin1(ddm0.model.embedding(batch.atom_type)).contiguous()
+        fw = blk.filter_weights()
+    g = torch.randn(x.shape, generator=torch.Generator(dev).manual_seed(SEED),
+                    device=dev)
+    check_cfconv_bwd(errs, dist, env, x, g, fw, G, cutoff, "DDM B=128 N=128",
+                     chunk=4)
+    ms = cuda_time_ms(lambda: K.cfconv_bwd(dist, env, x, g, *fw, 0.0, cutoff,
+                                           G, True))
+    plain_ms = cuda_time_ms(lambda: chunked_sum(
+        K.cfconv_bwd_reference, (dist, env, x, g), (*fw, 0.0, cutoff, G), 4, 3),
+        reps=3, warmup=1)
+    nnz, filt_pairs, cells = pair_work(dist, env)
+    # filter recomputed once per needed pair; dW2, dh (2F^2 each), dW1,
+    # drbf (2GF each) and the elementwise qe/denv/dx terms per ordered pair
+    flops = filt_pairs * (2 * G * F_ + 2 * F_ * F_) \
+        + nnz * (4 * F_ * F_ + 4 * G * F_ + 6 * F_)
+    wsize = G * F_ + 2 * F_ + F_ * F_
+    nbytes = 4 * (2 * cells + 2 * dist.numel() + 3 * x.numel() + 2 * wsize)
+    kernels.append(("cfconv_bwd", "geossl_tpu_torch/ops/csrc/cfconv_bwd.cu",
+                    "geossl_tpu/ops/cfconv_pallas.py:150", ms, plain_ms, flops,
+                    nbytes, train_launches["cfconv_bwd"]))
+
+    grid, weights, anneal = ncsn_inputs(ddm0, batch, targs, SEED)
+    g_rows = check_ncsn(errs, grid, weights, anneal, "DDM B=128 N=128", chunk=16)
+    sel_pairs = int((grid[2] != 0).sum())
+    bsz, n = grid[0].shape[:2]
+    head_w = sum(w.numel() for w in weights)
+    fwd_pair = 2 * E_ * H_ + 8 * E_ + 2 * H_ + 10
+    for name, fn, plain, flops, nbytes, line in (
+            ("ncsn_score_fwd",
+             lambda: NS.ncsn_score_fwd(*grid, *weights, anneal=anneal),
+             lambda: chunked(NS.ncsn_score_loss_reference, grid,
+                             (*weights, anneal), 16),
+             sel_pairs * fwd_pair,
+             4 * (3 * grid[0].numel() + grid[4].numel() + bsz + head_w
+                  + bsz * n), 67),
+            ("ncsn_score_bwd",
+             lambda: NS.ncsn_score_bwd(*grid, g_rows, *weights, anneal=anneal),
+             lambda: chunked_sum(
+                 lambda *a: NS.ncsn_score_bwd_reference(*a, anneal=anneal),
+                 (*grid, g_rows), weights, 16, 1),
+             sel_pairs * (fwd_pair + 4 * E_ * H_ + 12 * E_ + 4 * H_),
+             4 * (3 * grid[0].numel() + 2 * grid[4].numel() + bsz
+                  + bsz * n + 2 * head_w), 135)):
+        kernels.append((name, "geossl_tpu_torch/ops/csrc/ncsn_score.cu",
+                        f"geossl_tpu/ops/ncsn_pallas.py:{line}",
+                        cuda_time_ms(fn), cuda_time_ms(plain, reps=3, warmup=1),
+                        flops, nbytes, train_launches[name]))
+
     table = []
-    for name, src, replaces, ms, plain_ms, flops, nbytes in kernels:
+    for name, src, replaces, ms, plain_ms, flops, nbytes, count in kernels:
         t_ops = flops / PEAK_F32_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         lib, entry = KERNEL_ENTRIES[name]
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs.max_abs[name],
+            "launches": count, "max_abs_err": errs.max_abs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "flop": flops, "bytes": nbytes,
             "ptxas": ptxas_usage(_build.build_log(lib), entry)})
         print(f"kernel {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
-              f"{max(t_ops, t_bytes):.3f} ms) at the serving shape")
+              f"{max(t_ops, t_bytes):.3f} ms) at its path's shape")
     print(card)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

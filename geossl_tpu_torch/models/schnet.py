@@ -12,6 +12,11 @@ package's ``[in, out]``.
 The radius graph is recomputed from the live positions every forward,
 ``readout='mean'`` divides by the true atom count, and the dipole branch is
 the JAX package's reconstruction (``dipole_readout``).
+
+``SchNet.forward`` is the training path: each block's CFConv goes through
+``ops/cfconv.cfconv``, differentiable on the card below N=256 (the
+``cfconv_fwd``/``cfconv_bwd`` kernels); ``fused_stack_apply`` is inference
+only.
 """
 
 from __future__ import annotations

@@ -4,15 +4,21 @@ the dispatcher (counterpart of ``geossl_tpu/ops/cfconv_pallas.py``).
 Each wrapper takes the plain PyTorch version for tensors on the CPU and
 launches its hand-written CUDA kernel (``csrc/``) for tensors on a CUDA
 device; anything else raises. There is no fallback from a kernel to the
-plain version. Each wrapper counts its launches in ``<wrapper>.launches``.
+plain version. Each wrapper counts its launches in ``<wrapper>.launches``
+(``ops/_launch.py``).
 
-Kernels (forward only; the backward kernels come with training):
+Kernels:
 
-* ``cfconv_fused``     -> ``csrc/cfconv_fwd.cu`` (replaces ``_fwd_kernel``)
+* ``cfconv_fused``     -> ``csrc/cfconv_fwd.cu`` (replaces ``_fwd_kernel``);
+  differentiable: its backward is ``cfconv_bwd``
+* ``cfconv_bwd``       -> ``csrc/cfconv_bwd.cu`` (replaces ``_bwd_kernel``)
 * ``cfconv_fused_sym`` -> ``csrc/cfconv_fwd.cu`` in symmetric mode
-  (replaces ``_fwd_sym_kernel``)
+  (replaces ``_fwd_sym_kernel``); no backward yet (``_bwd_sym_kernel``)
 * ``schnet_stack``     -> ``csrc/schnet_stack.cu`` (replaces
-  ``_stack_kernel`` / ``schnet_stack_infer``)
+  ``_stack_kernel`` / ``schnet_stack_infer``); inference only
+
+On a CUDA device the two without a backward raise under autograd instead
+of returning a tensor cut off from the graph.
 
 The kernels compute in plain f32 (no TF32); ``plain_precision()`` sets the
 matching PyTorch flags for the plain versions on the card.
@@ -23,16 +29,24 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from geossl_tpu_torch.models.common import gaussian_smearing, shifted_softplus
 from geossl_tpu_torch.ops import _build
+from geossl_tpu_torch.ops._launch import (
+    check_launch,
+    check_smem,
+    counted,
+    on_cpu,
+    ptr,
+    refuse_grad,
+    stream,
+)
 
 # Largest N the whole-stack kernel accepts (as cfconv_pallas.STACK_MAX_N).
 STACK_MAX_N = 128
 # Feature width the kernels' register tiling is written for.
 KERNEL_F = 128
-# Dynamic shared memory a block may use on Hopper.
-_MAX_SMEM = 232448
 # The JAX package's TPU tiling first has a tile the symmetric kernel can skip
 # at N=256 (cfconv_pallas.sym_profitable); the port routes by the same rule.
 _SYM_MIN_N = 256
@@ -71,6 +85,16 @@ def cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start, stop, num_g):
     return torch.einsum("bijf,bij,bjf->bif", w, env, x)
 
 
+def cfconv_bwd_reference(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g):
+    """Plain backward of :func:`cfconv_fused_reference` for the cotangent
+    ``g`` [B,N,F]: (ddist, denv, dx, dW1, db1, dW2, db2), by autograd."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True)
+               for t in (dist, env, x, w1, b1, w2, b2)]
+        out = cfconv_fused_reference(*ins, start, stop, num_g)
+        return torch.autograd.grad(out, ins, g)
+
+
 def schnet_stack_reference(dist, env, h0, stacked, start, stop, num_g):
     """Plain whole-stack chain, the math of ``_stack_kernel`` (RBF hoisted,
     lin1 without bias, residual ``h + lin(ssp(lin2(m)))``)."""
@@ -88,67 +112,35 @@ def schnet_stack_reference(dist, env, h0, stacked, start, stop, num_g):
 # -- kernel wrappers ------------------------------------------------------------
 
 
-def _on_cpu(name: str, *tensors) -> bool:
-    """True for CPU tensors (plain version); False after checking that the
-    tensors are f32, contiguous and on one CUDA device (kernel)."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {dev}")
-    for t in tensors:
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name}: the kernel takes contiguous float32 "
-                             f"tensors (got {t.dtype}, contiguous="
-                             f"{t.is_contiguous()})")
-    return False
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
 def _rbf_consts(start, stop, num_g):
     delta = (stop - start) / (num_g - 1)
     return float(start), float(delta), float(-0.5 / delta**2)
 
 
-def _check_raise(name, err):
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-
-
-def _smem_check(name, nbytes):
-    if nbytes > _MAX_SMEM:
-        raise ValueError(f"{name}: needs {nbytes} bytes of shared memory, "
-                         f"above the {_MAX_SMEM} a block may use")
+def _check_filter_shapes(name, dist, env, x, w1, b1, w2, b2, num_g):
+    b, _, nj = dist.shape
+    f = x.shape[-1]
+    if f != KERNEL_F or w1.shape != (num_g, f) or w2.shape != (f, f) \
+            or b1.shape != (f,) or b2.shape != (f,):
+        raise ValueError(
+            f"{name}: kernel takes F={KERNEL_F}, W1 [G,F], W2 [F,F]; got "
+            f"x {tuple(x.shape)}, W1 {tuple(w1.shape)}, W2 {tuple(w2.shape)}")
+    if env.shape != dist.shape or x.shape != (b, nj, f):
+        raise ValueError(f"{name}: shapes dist {tuple(dist.shape)}, env "
+                         f"{tuple(env.shape)}, x {tuple(x.shape)} disagree")
 
 
 def _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
                    symmetric, sparse):
     b, ni, nj = dist.shape
     f = x.shape[-1]
-    if f != KERNEL_F or w1.shape != (num_g, f) or w2.shape != (f, f) \
-            or b1.shape != (f,) or b2.shape != (f,):
-        raise ValueError(
-            f"cfconv_fwd: kernel takes F={KERNEL_F}, W1 [G,F], W2 [F,F]; got "
-            f"x {tuple(x.shape)}, W1 {tuple(w1.shape)}, W2 {tuple(w2.shape)}")
-    if env.shape != dist.shape or x.shape != (b, nj, f):
-        raise ValueError(f"cfconv_fwd: shapes dist {tuple(dist.shape)}, env "
-                         f"{tuple(env.shape)}, x {tuple(x.shape)} disagree")
+    _check_filter_shapes("cfconv_fwd", dist, env, x, w1, b1, w2, b2, num_g)
     if symmetric and ni != nj:
         raise ValueError("cfconv_fwd: the symmetric mode needs a square grid")
     smem = _build.kernel_fn("cfconv_fwd", "cfconv_fwd_smem_bytes",
                             [ctypes.c_int, ctypes.c_int],
                             ctypes.c_size_t)(num_g, nj)
-    _smem_check("cfconv_fwd", smem)
+    check_smem("cfconv_fwd", smem)
     fn = _build.kernel_fn(
         "cfconv_fwd", "cfconv_fwd",
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
@@ -156,44 +148,107 @@ def _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
     alloc = torch.zeros if symmetric else torch.empty
     out = alloc((b, ni, f), dtype=torch.float32, device=dist.device)
     s0, delta, coeff = _rbf_consts(start, stop, num_g)
-    err = fn(*map(_ptr, (dist, env, x, w1, b1, w2, b2, out)), b, ni, nj, f,
+    err = fn(*map(ptr, (dist, env, x, w1, b1, w2, b2, out)), b, ni, nj, f,
              num_g, s0, delta, coeff, int(symmetric), int(sparse),
-             _stream(dist))
-    _check_raise("cfconv_fwd", err)
+             stream(dist))
+    check_launch("cfconv_fwd", err)
     return out
 
 
+class _CFConv(torch.autograd.Function):
+    """``cfconv_fwd`` forward, ``cfconv_bwd`` backward (first order only:
+    the double backward that MD17 force training needs is not ported)."""
+
+    @staticmethod
+    def forward(ctx, dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                sparse):
+        ctx.save_for_backward(dist, env, x, w1, b1, w2, b2)
+        ctx.consts = (start, stop, num_g, sparse)
+        return _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop,
+                              num_g, False, sparse)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        dist, env, x, w1, b1, w2, b2 = ctx.saved_tensors
+        grads = cfconv_bwd(dist, env, x, g.contiguous(), w1, b1, w2, b2,
+                           *ctx.consts)
+        return (*grads, None, None, None, None)
+
+
+@counted("cfconv_fwd")
 def cfconv_fused(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
                  sparse=False):
     """m[b,i,f] = Σ_j env·(ssp(rbf(d)W1+b1)W2+b2)[f]·x[b,j,f]; [B,N,F].
-    ``sparse`` skips pair tiles whose env is all zero (same output)."""
-    if _on_cpu("cfconv_fwd", dist, env, x, w1, b1, w2, b2):
+    ``sparse`` skips pair tiles whose env is all zero (same output).
+    Differentiable on both devices (on CUDA through ``cfconv_bwd``)."""
+    if on_cpu("cfconv_fwd", dist, env, x, w1, b1, w2, b2):
         return cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start,
                                       stop, num_g)
-    out = _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
-                         False, sparse)
+    out = _CFConv.apply(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                        sparse)
     cfconv_fused.launches += 1
     return out
 
 
-cfconv_fused.launches = 0
+@counted("cfconv_bwd")
+def cfconv_bwd(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
+               sparse=False):
+    """Backward of :func:`cfconv_fused` for the cotangent ``g`` [B,N,F]:
+    (ddist, denv, dx, dW1, db1, dW2, db2). With ``sparse`` the kernel skips
+    8x8 tiles whose env is all zero and writes ddist = denv = 0 there (exact
+    downstream: env has value and slope zero on those pairs); elsewhere, and
+    on the CPU, denv is the true cotangent."""
+    if on_cpu("cfconv_bwd", dist, env, x, g, w1, b1, w2, b2):
+        return cfconv_bwd_reference(dist, env, x, g, w1, b1, w2, b2, start,
+                                    stop, num_g)
+    b, ni, nj = dist.shape
+    f = x.shape[-1]
+    _check_filter_shapes("cfconv_bwd", dist, env, x, w1, b1, w2, b2, num_g)
+    if g.shape != (b, ni, f) or num_g > 64:
+        raise ValueError(f"cfconv_bwd: kernel takes g [B,N,F] and G <= 64; "
+                         f"got g {tuple(g.shape)}, G={num_g}")
+    smem = _build.kernel_fn("cfconv_bwd", "cfconv_bwd_smem_bytes",
+                            [ctypes.c_int, ctypes.c_int],
+                            ctypes.c_size_t)(num_g, ni)
+    check_smem("cfconv_bwd", smem)
+    blocks = _build.kernel_fn("cfconv_bwd", "cfconv_bwd_blocks",
+                              [ctypes.c_int, ctypes.c_int])(b, nj)
+    fn = _build.kernel_fn(
+        "cfconv_bwd", "cfconv_bwd",
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+        + [ctypes.c_int, ctypes.c_void_p])
+    size = num_g * f + f + f * f + f
+    ddist, denv, dx = (torch.empty_like(t) for t in (dist, env, x))
+    part = torch.empty((blocks, size), dtype=torch.float32, device=dist.device)
+    wgrad = torch.empty(size, dtype=torch.float32, device=dist.device)
+    s0, delta, coeff = _rbf_consts(start, stop, num_g)
+    err = fn(*map(ptr, (dist, env, x, g, w1, b1, w2, b2, ddist, denv, dx,
+                        part, wgrad)),
+             b, ni, nj, f, num_g, s0, delta, coeff, int(sparse), stream(dist))
+    check_launch("cfconv_bwd", err)
+    cfconv_bwd.launches += 1
+    dw1, db1, dw2, db2 = torch.split(wgrad, [num_g * f, f, f * f, f])
+    return (ddist, denv, dx, dw1.view(num_g, f), db1, dw2.view(f, f), db2)
 
 
+@counted("cfconv_fwd_sym")
 def cfconv_fused_sym(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
                      sparse=False):
     """Same output as :func:`cfconv_fused` for SYMMETRIC dist/env only: the
     kernel computes the tiles on and above the diagonal and emits the
-    mirrored messages of the ones below."""
-    if _on_cpu("cfconv_fwd_sym", dist, env, x, w1, b1, w2, b2):
+    mirrored messages of the ones below. No gradient on CUDA yet."""
+    if on_cpu("cfconv_fwd_sym", dist, env, x, w1, b1, w2, b2):
         return cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start,
                                       stop, num_g)
+    refuse_grad("cfconv_fwd_sym", "its backward kernel (#4, cfconv_pallas."
+                "_bwd_sym_kernel) is not ported yet, so training on the card "
+                "takes pair grids below N=256 (buckets up to 128)",
+                dist, env, x, w1, b1, w2, b2)
     out = _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
                          True, sparse)
     cfconv_fused_sym.launches += 1
     return out
-
-
-cfconv_fused_sym.launches = 0
 
 
 def cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g, symmetric=False,
@@ -212,18 +267,22 @@ def cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g, symmetric=False,
     return cfconv_fused(dist, env, x, w1, b1, w2, b2, start, stop, num_g, sp)
 
 
+@counted("schnet_stack")
 def schnet_stack(dist, env, h0, stacked, start, stop, num_g):
-    """Node features after all interaction blocks, [B,N,F] (inference).
-    ``stacked`` is the 9-tuple of per-block weight stacks (wl1 [L,F,F],
-    w1 [L,G,F], b1 [L,F], w2 [L,F,F], b2 [L,F], wa [L,F,F], ba [L,F],
-    wb [L,F,F], bb [L,F]). The kernel skips all-zero env tiles."""
+    """Node features after all interaction blocks, [B,N,F] (inference only,
+    as ``schnet_stack_infer``). ``stacked`` is the 9-tuple of per-block
+    weight stacks (wl1 [L,F,F], w1 [L,G,F], b1 [L,F], w2 [L,F,F], b2 [L,F],
+    wa [L,F,F], ba [L,F], wb [L,F,F], bb [L,F]). The kernel skips all-zero
+    env tiles."""
     b, n, _ = dist.shape
     if n > STACK_MAX_N:
         raise ValueError(f"schnet_stack: N={n} exceeds {STACK_MAX_N}; use "
                          "the per-block path")
-    if _on_cpu("schnet_stack", dist, env, h0, *stacked):
+    if on_cpu("schnet_stack", dist, env, h0, *stacked):
         return schnet_stack_reference(dist, env, h0, stacked, start, stop,
                                       num_g)
+    refuse_grad("schnet_stack", "it is inference only; train through the "
+                "per-block path (SchNet.forward)", dist, env, h0, *stacked)
     f = h0.shape[-1]
     n_layers = stacked[0].shape[0]
     if f != KERNEL_F or stacked[1].shape != (n_layers, num_g, f):
@@ -233,33 +292,15 @@ def schnet_stack(dist, env, h0, stacked, start, stop, num_g):
     smem = _build.kernel_fn("schnet_stack", "schnet_stack_smem_bytes",
                             [ctypes.c_int, ctypes.c_int],
                             ctypes.c_size_t)(n, num_g)
-    _smem_check("schnet_stack", smem)
+    check_smem("schnet_stack", smem)
     fn = _build.kernel_fn(
         "schnet_stack", "schnet_stack",
         [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
         + [ctypes.c_void_p])
     out = torch.empty_like(h0)
     s0, delta, coeff = _rbf_consts(start, stop, num_g)
-    err = fn(*map(_ptr, (dist, env, h0, *stacked, out)), b, n, f, num_g,
-             n_layers, s0, delta, coeff, _stream(dist))
-    _check_raise("schnet_stack", err)
+    err = fn(*map(ptr, (dist, env, h0, *stacked, out)), b, n, f, num_g,
+             n_layers, s0, delta, coeff, stream(dist))
+    check_launch("schnet_stack", err)
     schnet_stack.launches += 1
     return out
-
-
-schnet_stack.launches = 0
-
-KERNEL_WRAPPERS = {
-    "cfconv_fwd": cfconv_fused,
-    "cfconv_fwd_sym": cfconv_fused_sym,
-    "schnet_stack": schnet_stack,
-}
-
-
-def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS.values():
-        fn.launches = 0

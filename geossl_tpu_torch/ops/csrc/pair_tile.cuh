@@ -1,5 +1,5 @@
 // Shared device code of the SchNet CFConv kernels (cfconv_fwd.cu,
-// schnet_stack.cu): the filter network of one 8x8 pair tile.
+// cfconv_bwd.cu, schnet_stack.cu): the filter network of one 8x8 pair tile.
 //
 // A block of 256 threads works on a tile of 8 receiving atoms i by 8 sending
 // atoms j (64 pairs) at feature width F = 128. Thread t owns 4 pairs and 8
@@ -33,6 +33,9 @@ constexpr int kPPT = 4;                  // 4 pairs per thread
 __device__ __forceinline__ float ssp(float v) {
   return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v))) - 0.693147180559945309f;
 }
+
+// ssp'(v) = sigmoid(v)
+__device__ __forceinline__ float sigm(float v) { return 1.f / (1.f + expf(-v)); }
 
 __device__ __forceinline__ int thread_fg() { return threadIdx.x & (kFG - 1); }
 __device__ __forceinline__ int thread_il() { return threadIdx.x >> 5; }
@@ -68,13 +71,16 @@ __device__ __forceinline__ void block_copy(float* dst, const float* __restrict__
 //   d_s   [64]        tile distances (row-major [il][jl]), in shared memory
 //   rbf_s [G][64]     scratch (RBF, pair index fastest)
 //   s_s   [64][kF]    scratch (hidden layer)
-//   W1_s  [G][kF], W2_s [kF][kF]  weights in shared memory; b1, b2 global.
+//   W1_s  [G][WS], W2_s [kF][WS]  weights in shared memory, row stride WS
+//         (kF, or padded so that column reads spread over the banks); b1, b2 global.
+//   sig_s [64][kF]     with kSig, also receives sigmoid(rbf W1 + b1) = ssp'
 // Every thread of the block must call it (it holds __syncthreads).
+template <int WS = kF, bool kSig = false>
 __device__ __forceinline__ void filter_tile(
     const float* d_s, float* rbf_s, float* s_s, const float* W1_s,
     const float* __restrict__ b1, const float* W2_s,
     const float* __restrict__ b2, int G, float start, float delta,
-    float coeff, float w[kPPT][kFPT]) {
+    float coeff, float w[kPPT][kFPT], float* sig_s = nullptr) {
   for (int idx = threadIdx.x; idx < kPairs * G; idx += kThreads) {
     const int g = idx / kPairs, p = idx - g * kPairs;
     const float diff = d_s[p] - (start + delta * (float)g);
@@ -95,7 +101,7 @@ __device__ __forceinline__ void filter_tile(
     const float4 a4 = ld4(rbf_s + g * kPairs + p0);
     const float a[kPPT] = {a4.x, a4.y, a4.z, a4.w};
     float b[kFPT];
-    load_feats(W1_s + g * kF, fg, b);
+    load_feats(W1_s + g * WS, fg, b);
 #pragma unroll
     for (int q = 0; q < kPPT; ++q)
 #pragma unroll
@@ -111,6 +117,13 @@ __device__ __forceinline__ void filter_tile(
         ssp(acc[q][2] + bias[2]), ssp(acc[q][3] + bias[3]));
     st4(row + kF / 2, ssp(acc[q][4] + bias[4]), ssp(acc[q][5] + bias[5]),
         ssp(acc[q][6] + bias[6]), ssp(acc[q][7] + bias[7]));
+    if (kSig) {
+      float* srow = sig_s + (p0 + q) * kF + fg * 4;
+      st4(srow, sigm(acc[q][0] + bias[0]), sigm(acc[q][1] + bias[1]),
+          sigm(acc[q][2] + bias[2]), sigm(acc[q][3] + bias[3]));
+      st4(srow + kF / 2, sigm(acc[q][4] + bias[4]), sigm(acc[q][5] + bias[5]),
+          sigm(acc[q][6] + bias[6]), sigm(acc[q][7] + bias[7]));
+    }
 #pragma unroll
     for (int k = 0; k < kFPT; ++k) acc[q][k] = 0.f;
   }
@@ -128,7 +141,7 @@ __device__ __forceinline__ void filter_tile(
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
       float b[kFPT];
-      load_feats(W2_s + (c + cc) * kF, fg, b);
+      load_feats(W2_s + (c + cc) * WS, fg, b);
 #pragma unroll
       for (int q = 0; q < kPPT; ++q)
 #pragma unroll

@@ -1,8 +1,8 @@
 """Weights in and out of the port (its own copy of the mapping in
 ``geossl_tpu/utils/torch_import.py``).
 
-* ``schnet_state_dict_from_flax`` / ``head_state_dict_from_flax`` turn the
-  JAX package's param trees (numpy arrays, flax ``[in, out]`` kernels) into
+* ``schnet_state_dict_from_flax`` / ``head_state_dict_from_flax`` /
+  ``ncsn_state_dict_from_flax`` turn the JAX package's param trees (numpy arrays, flax ``[in, out]`` kernels) into
   the port's state_dicts (torch ``[out, in]`` weights, the reference's key
   names), keeping the arrays' dtype.
 * ``load_torch_checkpoint`` reads a reference ``.pth``: a bare backbone
@@ -64,6 +64,15 @@ def schnet_state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
 def head_state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
     """JAX ``LinearHead`` params -> ``nn.Linear(emb, 1)`` state_dict."""
     return _dense(tree["Dense_0"])
+
+
+def ncsn_state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """JAX ``objectives.ncsn.NCSNv3`` params -> the port's ``NCSNv3``
+    state_dict: the ten head weights under their own names and shapes, and
+    ``out0_h`` as ``nn.Linear(emb, emb, bias=False)``."""
+    sd = {k: _t(v) for k, v in tree.items() if k != "out0_h"}
+    sd["out0_h.weight"] = _t(tree["out0_h"]["kernel"], transpose=True)
+    return sd
 
 
 def _backbone(sd: Dict) -> Dict[str, torch.Tensor]:

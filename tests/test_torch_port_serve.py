@@ -16,7 +16,7 @@ from geossl_tpu.serve import Predictor as JPredictor
 from geossl_tpu.train import common as jcommon
 from geossl_tpu_torch.config import ModelConfig, SchNetConfig
 from geossl_tpu_torch.data.store import MolRecord, MolStore
-from geossl_tpu_torch.ops import cfconv as tcf
+from geossl_tpu_torch.ops import _launch
 from geossl_tpu_torch.serve import Predictor, main
 from geossl_tpu_torch.train.common import make_backbone, make_head
 from geossl_tpu_torch.utils.torch_import import (
@@ -96,13 +96,14 @@ def test_cpu_tensors_launch_no_kernel():
     cfg = ModelConfig(emb_dim=16, schnet=SchNetConfig(**SMALL))
     gen = torch.Generator().manual_seed(2)
     state = {"model": make_backbone(cfg, gen).state_dict()}
-    tcf.reset_launch_counts()
+    _launch.reset_launch_counts()
     store = _store(4, 20, 140, seed=5)
     emb = Predictor(cfg, state, batch_size=2, bucket_sizes=(32, 64, 128, 256),
                     device="cpu").embed(store)
     assert np.isfinite(emb).all()
-    assert tcf.launch_counts() == {"cfconv_fwd": 0, "cfconv_fwd_sym": 0,
-                                   "schnet_stack": 0}
+    counts = _launch.launch_counts()
+    assert {"cfconv_fwd", "cfconv_fwd_sym", "schnet_stack"} <= set(counts)
+    assert set(counts.values()) == {0}
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
