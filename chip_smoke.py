@@ -23,6 +23,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    flip where a pre-activation lies within rounding of zero). ``cfconv_bwd``'s
    denv is compared on occupied 8x8 tiles and must be zero on the others
    (the occupancy contract of ``geossl_tpu/ops/pallas_utils.py``).
+   PaiNN's kernels likewise, at full width (F=128, R=20, cutoff 5):
+   ``painn_fwd`` elementwise at rtol 1e-4 / atol 1e-5; ``painn_bwd``'s
+   seven per-pair and per-node cotangents elementwise (scaled atol) and
+   dWk/dbk by relative norm, its five pair cotangents zero on empty tiles
+   with gating on; ``painn_stack`` (scaled atol) against the per-block
+   plain chain.
 3. Main paths, each with the launch counters reset just before and read
    just after; every kernel of the path must have launched.
    a. Serving: ``Predictor`` at full SchNet width (F=128, L=6, G=51,
@@ -30,7 +36,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
       serves a store that spans all five buckets (``predict`` and
       ``embed``), then a ``max_neighbors=32`` Predictor serves it again.
       Outputs must be finite, and 8 molecules per bucket are held against
-      the plain path on the card.
+      the plain path on the card. Then the same for a seeded full-width
+      PaiNN ``Predictor`` (F=128, 3 blocks, 20 RBF, cutoff 5, the halving
+      MLP head): ``painn_stack`` up to N=128, ``painn_fwd`` above.
    b. Training: ``train.pretrain_geossl.main`` (GeoSSL-DDM at the published
       defaults: SchNet F=128, L=6, G=51, cutoff 10; batch 128, buckets
       32/64/128; NCSN sigma 10 -> 0.01 over 50 levels, anneal 2; GeoSSL
@@ -41,7 +49,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
       held to the same step with the plain versions (the same injected
       noise; loss rtol 1e-4, all gradients together by relative norm 1e-3
       and each parameter's by 1e-2), and the symmetric CFConv and the stack
-      must refuse autograd. The comparisons run on a freshly seeded DDM
+      must refuse autograd. Then the same for PaiNN-DDM
+      (``--model_3d painn``: ``painn_fwd``/``painn_bwd`` in the backbone,
+      the clean geometry's radius graph as both views' pair mask), whose
+      whole-stack kernel must refuse autograd. The comparisons run on a
+      freshly seeded DDM
       model: on the trained one, which differs from run to run in its last
       digits, which pre-activations sit within rounding of a relu's kink
       changes between runs, and in one of five runs kinks crossed by one
@@ -49,7 +61,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
 4. Measurements: serving mol/s per bucket (steady state, synchronized) and
    one traced pass per bucket (torch.profiler: device busy time, the
    port's kernels' share, idle share); training mol/s per bucket (median of
-   3 synchronized steps after a warm-up) and one traced step per bucket;
+   3 synchronized steps after a warm-up) and one traced step per bucket,
+   for both backbones, and the kernels with the most device time at each
+   path's largest bucket;
    each kernel's time at the shape its path gives it, beside its plain
    version's time and its bound (f32 CUDA-core peak and HBM rate; the
    pairs with nonzero env or sel, and with symmetric dist/env each pair's
@@ -57,7 +71,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    spills per kernel.
 
 The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. The whole output is also written to
+``runs/chip_smoke.log``.
 """
 
 import json
@@ -80,6 +95,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+class _Tee:
+    """Writes to several streams: the console and the run's log file."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, s):
+        for st in self.streams:
+            st.write(s)
+        return len(s)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
 
 
 def cuda_time_ms(fn, reps=10, warmup=2):
@@ -118,6 +149,16 @@ def device_profile(fn):
     return wall, busy, ours
 
 
+def print_top_ops(fn, model_3d, path, bucket, top=6):
+    """The kernels with the most device time in one more traced call of fn
+    (the path's largest bucket: where the device is busiest)."""
+    from geossl_tpu_torch.utils.profiling import top_device_ops
+
+    ops = [[name, ms, count] for name, ms, count in top_device_ops(fn, top, 0)]
+    print("top_ops: " + json.dumps({"model": model_3d, "path": path,
+                                    "bucket": bucket, "ops_ms_calls": ops}))
+
+
 def pair_work(dist, env):
     """(ordered pairs with env != 0, pairs whose filter network the function
     needs, cells of dist and of env it must read) for this run's inputs. When
@@ -142,6 +183,9 @@ KERNEL_ENTRIES = {
     "cfconv_bwd": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernel"),
     "ncsn_score_fwd": ("ncsn_score", "_ZN6geossl15ncsn_fwd_kernel"),
     "ncsn_score_bwd": ("ncsn_score", "_ZN6geossl15ncsn_bwd_kernel"),
+    "painn_fwd": ("painn_fwd", "_ZN6geossl16painn_fwd_kernel"),
+    "painn_bwd": ("painn_bwd", "_ZN6geossl16painn_bwd_kernel"),
+    "painn_stack": ("painn_stack", "_ZN6geossl18painn_stack_kernel"),
 }
 
 
@@ -293,6 +337,122 @@ def check_cfconv_bwd(errs, dist, env, x, g, fw, G, cutoff, what, chunk=None):
                            BWD_NAMES[3:], f"{what} sparse={sp}")
 
 
+PAINN_BWD_NAMES = ("ddist", "dgate", "ddirx", "ddiry", "ddirz", "dx", "dmu",
+                   "dWk", "dbk")
+
+
+def painn_inputs(m, batch, seed=SEED, pair_mask=None):
+    """PaiNN's message-pass inputs on a packed batch: the five pair grids
+    (dist, gate, dir x/y/z), q0, block 0's x and a seeded mu of unit scale
+    (block 0's own mu is zero, which would test nothing)."""
+    import torch
+
+    with torch.no_grad():
+        dist, direction, gate = m.geometry(batch.positions, batch.node_mask,
+                                           pair_mask)
+        q0 = m.embed(batch.atom_type).contiguous()
+        x = m.interactions[0].interatomic_context_net(q0).contiguous()
+    gen = torch.Generator(x.device).manual_seed(seed)
+    mu = torch.randn(x.shape, generator=gen, device=x.device)
+    grids = (dist.contiguous(), gate.contiguous(),
+             *(direction[..., c].contiguous() for c in range(3)))
+    return grids, q0, x, mu
+
+
+def check_painn_bwd(errs, grids, x, mu, wk, bk, gq, gmu, cutoff, what,
+                    chunk=None):
+    """painn_bwd against its plain version, gating off and on: the seven
+    per-pair and per-node cotangents elementwise (scaled), dWk and dbk by
+    relative norm; with gating, the five pair cotangents must be zero on
+    empty 8x8 tiles (dgate is compared on the occupied ones)."""
+    import torch
+
+    from geossl_tpu_torch.ops import painn as P
+
+    def plain(d, g, a, b, c, xx, m, gq_, gmu_):
+        return P.painn_bwd_reference(d, g, a, b, c, xx, m, wk, bk, gq_, gmu_,
+                                     cutoff)
+
+    want = (plain(*grids, x, mu, gq, gmu) if chunk is None else
+            chunked_sum(plain, (*grids, x, mu, gq, gmu), (), chunk, 7))
+    occ = tile_occupied(grids[1])
+    for sp in (False, True):
+        got = P.painn_bwd(*grids, x, mu, wk, bk, gq, gmu, cutoff, sp)
+        for k, (name, a, w) in enumerate(zip(PAINN_BWD_NAMES[:7], got, want)):
+            tag = f"{what} sparse={sp} {name}"
+            if k < 5 and sp:
+                if (a[~occ] != 0).any():
+                    fail(f"painn_bwd {tag}: nonzero on an empty tile")
+                w = torch.where(occ, w, torch.zeros_like(w))
+            errs.check_scaled("painn_bwd", a, w, tag)
+        check_weight_grads(errs, "painn_bwd", got[7:], want[7:],
+                           PAINN_BWD_NAMES[7:], f"{what} sparse={sp}")
+
+
+def measure_serving(pred, subs, model_3d):
+    """Serving mol/s per bucket (median of 3 synchronized passes after a
+    warm-up) and one traced pass per bucket."""
+    device_profile(lambda: pred.predict(next(iter(subs.values()))))  # start-up
+    for b, sub in subs.items():
+        pred.predict(sub)  # warm-up
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pred.predict(sub)  # ends in a device-to-host copy: synchronized
+            times.append(time.perf_counter() - t0)
+        t = sorted(times)[1]
+        print("serve: " + json.dumps({"model": model_3d, "bucket": b,
+                                      "molecules": len(sub),
+                                      "batches": -(-len(sub) // 128),
+                                      "s_per_pass": t,
+                                      "mol_per_s": len(sub) / t}))
+        # a separate traced pass (the profiler slows the host side)
+        wall, busy, ours = device_profile(lambda: pred.predict(sub))
+        print("profile: " + json.dumps({
+            "model": model_3d, "bucket": b, "traced_wall_s": wall,
+            "device_busy_s": busy, "port_kernels_s": ours,
+            "other_device_s": busy - ours, "idle_share": 1.0 - busy / wall}))
+    print_top_ops(lambda: pred.predict(sub), model_3d, "serve", b)
+
+
+def measure_training(ddm, targs, batches, model_3d):
+    """Training mol/s per bucket (median of 3 synchronized steps after a
+    warm-up) and one traced step per bucket."""
+    import torch
+
+    from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    opt, sched = common.make_optimizer_from_args(targs, ddm.parameters(), 100)
+    gen_t = torch.Generator(batches[0].positions.device).manual_seed(SEED)
+    device_profile(lambda: PG.train_step(ddm, opt, sched, [batches[0]],
+                                         targs, gen_t))  # profiler start-up
+    for batch in batches:
+        b = batch.max_atoms
+        mols = int(batch.graph_mask.sum())
+
+        def step():
+            return PG.train_step(ddm, opt, sched, [batch], targs, gen_t)
+
+        step()  # warm-up
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        t = sorted(times)[1]
+        print("train: " + json.dumps({"model": model_3d, "bucket": b,
+                                      "molecules": mols, "s_per_step": t,
+                                      "mol_per_s": mols / t}))
+        wall, busy, ours = device_profile(step)
+        print("train_profile: " + json.dumps({
+            "model": model_3d, "bucket": b, "traced_wall_s": wall,
+            "device_busy_s": busy, "port_kernels_s": ours,
+            "other_device_s": busy - ours, "idle_share": 1.0 - busy / wall}))
+    print_top_ops(step, model_3d, "train", b)
+
+
 def ncsn_inputs(ddm, batch, targs, seed):
     """The head's kernel inputs on this batch as the training step makes
     them: (dist of the perturbed view, noise, sel, sigma, u), the ten
@@ -381,7 +541,7 @@ def ddm_grads(ddm, batch, pos2, sel, draws, chunk=None):
                    for n, p in ddm.named_parameters()}
 
 
-def step_parity(ddm, batch, targs, bucket):
+def step_parity(ddm, batch, targs, bucket, model_3d="SchNet"):
     """One full-width DDM step with kernels against the plain versions on
     the card, with the same injected noise."""
     import torch
@@ -401,8 +561,8 @@ def step_parity(ddm, batch, targs, bucket):
     loss_p, grads_p = ddm_grads(ddm, batch, pos2, sel, draws, chunk=16)
     ddm.plain = False
     if not abs(loss_k - loss_p) <= RTOL * abs(loss_p):
-        fail(f"DDM step bucket {bucket}: loss {loss_k} (kernels) vs {loss_p} "
-             "(plain)")
+        fail(f"{model_3d} DDM step bucket {bucket}: loss {loss_k} (kernels) "
+             f"vs {loss_p} (plain)")
     def rel(a, b):
         return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
@@ -411,9 +571,10 @@ def step_parity(ddm, batch, targs, bucket):
     total = rel(torch.cat([g.flatten() for g in grads_k.values()]),
                 torch.cat([g.flatten() for g in grads_p.values()]))
     if total > GRAD_RTOL or per[worst] > 10 * GRAD_RTOL:
-        fail(f"DDM step bucket {bucket}: gradients differ by relative norm "
-             f"{total:.3e} in all, {per[worst]:.3e} in {worst}")
-    print(f"step parity bucket {bucket}: loss {loss_k:.6f} vs {loss_p:.6f}, "
+        fail(f"{model_3d} DDM step bucket {bucket}: gradients differ by "
+             f"relative norm {total:.3e} in all, {per[worst]:.3e} in {worst}")
+    print(f"{model_3d} step parity bucket {bucket}: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f}, "
           f"gradient rel_norm {total:.3e} in all {len(per)} tensors, worst "
           f"{per[worst]:.3e} ({worst})")
 
@@ -435,6 +596,13 @@ def main():
         import geossl_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"geossl_tpu_torch is not importable ({e}); run from the repo root")
+    # the whole output also goes to runs/chip_smoke.log (git-ignored), for
+    # callers that keep only the end of the console output
+    log_dir = os.path.join(ROOT, "runs")
+    os.makedirs(log_dir, exist_ok=True)
+    log = open(os.path.join(log_dir, "chip_smoke.log"), "w")
+    sys.stdout = _Tee(sys.__stdout__, log)
+    sys.stderr = _Tee(sys.__stderr__, log)
     import numpy as np
 
     import math
@@ -447,7 +615,9 @@ def main():
     from geossl_tpu_torch.models.common import cosine_envelope
     from geossl_tpu_torch.ops import _build
     from geossl_tpu_torch.ops import cfconv as K
+    from geossl_tpu_torch.ops import geometry
     from geossl_tpu_torch.ops import ncsn as NS
+    from geossl_tpu_torch.ops import painn as P
     from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
     from geossl_tpu_torch.serve import Predictor
     from geossl_tpu_torch.train import common
@@ -495,6 +665,16 @@ def main():
     if missing:
         fail(f"store leaves buckets {missing} empty")
     G, cutoff = cfg.schnet.num_gaussians, cfg.schnet.cutoff
+    # PaiNN at its published width, seeded random weights and head
+    cfg_p = ModelConfig(model_3d="painn")
+    gen_p = torch.Generator().manual_seed(SEED)
+    state_p = {"model": make_backbone(cfg_p, gen_p).state_dict(),
+               "graph_pred_linear": make_head("painn", cfg_p.emb_dim,
+                                              gen_p).state_dict(),
+               "y_mean": 1.5, "y_std": 2.0}
+    pred_p = Predictor(cfg_p, state_p, batch_size=128, bucket_sizes=buckets)
+    model_p = pred_p.model
+    cut_p = cfg_p.painn.cutoff
 
     @torch.inference_mode()
     def layer0_inputs(m, idx, n, batch_size=None):
@@ -509,6 +689,10 @@ def main():
 
     def first(b, k):
         return np.nonzero(bucket_of == b)[0][:k]
+
+    def packed(idx, n, batch_size=None):
+        return pack_batch([sorted_store.get(int(i)) for i in idx], n,
+                          batch_size).to(dev)
 
     # -- 2. kernel parity -----------------------------------------------------
     errs = Errors()
@@ -557,6 +741,33 @@ def main():
         grid, weights, anneal = ncsn_inputs(ddm0, batch, targs, SEED)
         check_ncsn(errs, grid, weights, anneal, f"B=8 N={b}")
 
+    # PaiNN's kernels: the message pass and its backward at the buckets, a
+    # pad that is no multiple of 8 and N=256 (gating on and off), the whole
+    # stack against the per-block plain chain
+    with torch.no_grad():
+        wk_p, bk_p = model_p.filter_weights()[0]
+        stacked_p = model_p.stacked_weights()
+    gen_g = torch.Generator(dev).manual_seed(SEED)
+    for b, n, k in ((32, 32, 8), (128, 128, 8), (128, 100, 8), (256, 256, 2)):
+        grids, q0, x, mu = painn_inputs(model_p, packed(first(b, k), n))
+        with torch.no_grad():
+            want = P.painn_message_reference(*grids, x, mu, wk_p, bk_p, cut_p)
+            for sp in (False, True):
+                got = P.painn_message_fused(*grids, x, mu, wk_p, bk_p, cut_p, sp)
+                for name, a, w in zip(("dq", "dmu"), got, want):
+                    errs.check("painn_fwd", a, w,
+                               f"B={k} N={n} sparse={sp} {name}")
+        gq = torch.randn(q0.shape, generator=gen_g, device=dev)
+        gmu = torch.randn(mu.shape, generator=gen_g, device=dev)
+        check_painn_bwd(errs, grids, x, mu, wk_p, bk_p, gq, gmu, cut_p,
+                        f"B={k} N={n}")
+        if n <= P.STACK_MAX_N:
+            with torch.no_grad():
+                want = P.painn_stack_reference(*grids, q0, stacked_p, cut_p)
+                got = P.painn_stack_infer(*grids, q0, stacked_p, cut_p)
+            for name, a, w in zip(("q", "mu"), got, want):
+                errs.check_scaled("painn_stack", a, w, f"B={k} N={n} {name}")
+
     # -- 3a. main path: serving ---------------------------------------------------
     reset_launch_counts()
     t0 = time.time()
@@ -596,6 +807,40 @@ def main():
                     fail(f"embed bucket {b}: kernel path vs plain path")
             print(f"serve parity bucket {b}: {len(idx)} molecules agree with "
                   "the plain path (predict, embed, max_neighbors=32 predict)")
+
+    # -- 3a'. main path: PaiNN serving ------------------------------------------
+    reset_launch_counts()
+    t0 = time.time()
+    preds_p = pred_p.predict(store)
+    emb_p = pred_p.embed(store)
+    torch.cuda.synchronize()
+    launches_p = launch_counts()
+    print(f"main path (PaiNN serving): {len(store)} molecules x 2 passes in "
+          f"{time.time() - t0:.2f} s (first call); launches {launches_p}")
+    for name in ("painn_stack", "painn_fwd"):
+        if launches_p[name] == 0:
+            fail(f"kernel {name} was not launched on the PaiNN serving path")
+    if preds_p.shape != (len(store),) or \
+            emb_p.shape != (len(store), cfg_p.emb_dim):
+        fail(f"PaiNN output shapes {preds_p.shape}, {emb_p.shape}")
+    if not (np.isfinite(preds_p).all() and np.isfinite(emb_p).all()):
+        fail("PaiNN serving: non-finite output")
+    with torch.inference_mode():
+        for b in buckets:
+            idx = first(b, 8)
+            batch = packed(idx, b)
+            graph, _ = model_p(batch.atom_type, batch.positions,
+                               batch.node_mask, plain=True)
+            want_pred = (pred_p.head(graph) * pred_p.y_std
+                         + pred_p.y_mean).cpu().numpy()
+            graph = graph.cpu().numpy()
+            for what, got, want in (("predict", preds_p[idx], want_pred),
+                                    ("embed", emb_p[idx], graph)):
+                if not np.allclose(got, want, rtol=RTOL, atol=ATOL):
+                    fail(f"PaiNN {what} bucket {b}: kernel path vs plain "
+                         f"path, max_abs_err {np.abs(got - want).max():.3e}")
+            print(f"PaiNN serve parity bucket {b}: {len(idx)} molecules agree "
+                  "with the plain path (predict, embed)")
 
     # -- 3b. main path: DDM pretraining ----------------------------------------------
     out_dir = os.path.join(ROOT, "runs", "chip_smoke")
@@ -652,29 +897,65 @@ def main():
         fail("schnet_stack under autograd on CUDA did not raise")
     print(f"grad guard schnet_stack: {msg}")
 
+    # -- 3b'. main path: PaiNN-DDM pretraining -----------------------------------------
+    out_dir_p = os.path.join(ROOT, "runs", "chip_smoke_painn")
+    shutil.rmtree(out_dir_p, ignore_errors=True)
+    painn_argv = ["--model_3d", "painn"]
+    reset_launch_counts()
+    t0 = time.time()
+    ddm_p, losses_p = PG.main(train_argv[:-1] + [out_dir_p] + painn_argv)
+    torch.cuda.synchronize()
+    train_launches_p = launch_counts()
+    print(f"main path (PaiNN training): {len(losses_p)} steps of one epoch in "
+          f"{time.time() - t0:.2f} s (first call); launches {train_launches_p}")
+    for name in ("painn_fwd", "painn_bwd", "ncsn_score_fwd", "ncsn_score_bwd"):
+        if train_launches_p[name] == 0:
+            fail(f"kernel {name} was not launched on the PaiNN training path")
+    if not losses_p or not all(math.isfinite(v) for v in losses_p):
+        fail(f"PaiNN training losses {losses_p}")
+    print(f"PaiNN training losses: {losses_p}")
+    emb_tp = Predictor.from_checkpoint(
+        os.path.join(out_dir_p, "model.pth"), cfg_p, batch_size=128,
+        bucket_sizes=train_buckets).embed(train_store)
+    if emb_tp.shape != (len(train_store), cfg_p.emb_dim) or \
+            not np.isfinite(emb_tp).all():
+        fail(f"PaiNN Predictor on model.pth: shape {emb_tp.shape} or non-finite")
+    print(f"PaiNN model.pth loads into a Predictor: {emb_tp.shape[0]} finite "
+          "embeddings")
+    targs_p = PG.build_parser().parse_args(painn_argv)
+    ddm0_p = PG.make_ddm(targs_p, common.model_config_from_args(targs_p),
+                         torch.Generator().manual_seed(SEED)).to(dev)
+    for b in train_buckets:
+        step_parity(ddm0_p, train_batch(b), targs_p, b, "PaiNN")
+    with torch.no_grad():
+        stack_wp = [t.clone().requires_grad_(True)
+                    for t in model_p.stacked_weights()]
+    grids128, q128, _, _ = painn_inputs(model_p, packed(first(128, 2), 128))
+    msg = refuses_grad(lambda: P.painn_stack_infer(
+        *grids128, q128, stack_wp, cut_p))
+    if msg is None:
+        fail("painn_stack under autograd on CUDA did not raise")
+    print(f"grad guard painn_stack: {msg}")
+    x_g = torch.randn(2, 128, 3 * 128, device=dev, requires_grad=True)
+    mu_g = torch.randn(2, 128, 3 * 128, device=dev)
+    wk_g, bk_g = (t.detach() for t in model_p.filter_weights()[0])
+
+    def double_backward():
+        dq, _ = P.painn_message_fused(*grids128, x_g, mu_g, wk_g, bk_g, cut_p)
+        (gx,) = torch.autograd.grad(dq.sum(), x_g, create_graph=True)
+        gx.sum().backward()
+
+    msg = refuses_grad(double_backward)
+    if msg is None:
+        fail("a double backward through painn_fwd on CUDA did not raise")
+    print(f"grad guard painn_bwd (second order): {msg}")
+
     # -- 4. measurements -----------------------------------------------------------
     subs = {b: MolStore.from_records([sorted_store.get(int(i))
                                       for i in np.nonzero(bucket_of == b)[0]])
             for b in buckets}
-    device_profile(lambda: pred.predict(subs[32]))  # profiler start-up
-    for b, sub in subs.items():
-        pred.predict(sub)  # warm-up
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            pred.predict(sub)  # ends in a device-to-host copy: synchronized
-            times.append(time.perf_counter() - t0)
-        t = sorted(times)[1]
-        print("serve: " + json.dumps({"bucket": b, "molecules": len(sub),
-                                      "batches": -(-len(sub) // 128),
-                                      "s_per_pass": t,
-                                      "mol_per_s": len(sub) / t}))
-        # a separate traced pass (the profiler slows the host side)
-        wall, busy, ours = device_profile(lambda: pred.predict(sub))
-        print("profile: " + json.dumps({
-            "bucket": b, "traced_wall_s": wall, "device_busy_s": busy,
-            "port_kernels_s": ours, "other_device_s": busy - ours,
-            "idle_share": 1.0 - busy / wall}))
+    measure_serving(pred, subs, "schnet")
+    measure_serving(pred_p, subs, "painn")
 
     flop_pair = 2 * G * 128 + 2 * 128 * 128 + 2 * 128
     kernels = []
@@ -730,32 +1011,9 @@ def main():
 
     kernels = [(*k, launches[k[0]]) for k in kernels]
 
-    opt, sched = common.make_optimizer_from_args(targs, ddm.parameters(), 100)
-    gen_t = torch.Generator(dev).manual_seed(SEED)
-    device_profile(lambda: PG.train_step(ddm, opt, sched, [train_batch(32)],
-                                         targs, gen_t))  # profiler start-up
-    for b in train_buckets:
-        batch = train_batch(b)
-        mols = int(batch.graph_mask.sum())
-
-        def step():
-            return PG.train_step(ddm, opt, sched, [batch], targs, gen_t)
-
-        step()  # warm-up
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        t = sorted(times)[1]
-        print("train: " + json.dumps({"bucket": b, "molecules": mols,
-                                      "s_per_step": t, "mol_per_s": mols / t}))
-        wall, busy, ours = device_profile(step)
-        print("train_profile: " + json.dumps({
-            "bucket": b, "traced_wall_s": wall, "device_busy_s": busy,
-            "port_kernels_s": ours, "other_device_s": busy - ours,
-            "idle_share": 1.0 - busy / wall}))
+    tbatches = [train_batch(b) for b in train_buckets]
+    measure_training(ddm, targs, tbatches, "schnet")
+    measure_training(ddm_p, targs_p, tbatches, "painn")
 
     # the three training kernels at the DDM shape (B=128, N=128)
     batch = train_batch(128)
@@ -813,6 +1071,86 @@ def main():
                         f"geossl_tpu/ops/ncsn_pallas.py:{line}",
                         cuda_time_ms(fn), cuda_time_ms(plain, reps=3, warmup=1),
                         flops, nbytes, train_launches[name]))
+
+    # PaiNN: the stack at the N=128 serving bucket's first batch, the message
+    # pass and its backward at the DDM shape (B=128 of the N=128 bucket,
+    # the clean graph of view 1)
+    R_, L_ = cfg_p.painn.n_rbf, cfg_p.painn.n_interactions
+    # filter 2R*3F, message sums (dq 2F, dmu 12F), gating 3F
+    fwd_pair, fwd_elem = 2 * R_ * 3 * F_, 17 * F_
+    with torch.inference_mode():
+        batch = packed(first(128, 128), 128, 128)
+        grids, q0, _, _ = painn_inputs(model_p, batch)
+        got = P.painn_stack_infer(*grids, q0, stacked_p, cut_p)
+        want = chunked_sum(lambda *a: P.painn_stack_reference(
+            *a, stacked_p, cut_p), (*grids, q0), (), 32, 2)
+        for name, a, w in zip(("q", "mu"), got, want):
+            errs.check_scaled("painn_stack", a, w,
+                              f"serving B={q0.shape[0]} N=128 {name}")
+        ms = cuda_time_ms(lambda: P.painn_stack_infer(*grids, q0, stacked_p,
+                                                      cut_p))
+        plain_ms = cuda_time_ms(lambda: chunked_sum(
+            lambda *a: P.painn_stack_reference(*a, stacked_p, cut_p),
+            (*grids, q0), (), 32, 2), reps=3, warmup=1)
+        nnz, filt_pairs, cells = pair_work(grids[0], grids[1])
+        atoms = int(batch.node_mask.sum())
+        # per block: x-MLP 8F^2, mixing 12F^2, context MLP 10F^2 per atom
+        flops = L_ * (filt_pairs * fwd_pair + nnz * fwd_elem
+                      + atoms * 30 * F_ * F_)
+        nbytes = 4 * (5 * cells + q0.numel() + 4 * q0.numel()
+                      + sum(t.numel() for t in stacked_p))
+        kernels.append(("painn_stack", "geossl_tpu_torch/ops/csrc/painn_stack.cu",
+                        "geossl_tpu/ops/painn_pallas.py:829", ms, plain_ms,
+                        flops, nbytes, launches_p["painn_stack"]))
+
+    batch = train_batch(128)
+    m0 = ddm0_p.model
+    with torch.no_grad():
+        d1, pm = geometry.pairwise_distances(batch.positions, batch.node_mask)
+        clean = geometry.radius_adjacency(d1, pm, cut_p)
+        wk0, bk0 = m0.filter_weights()[0]
+    grids, q0, x, mu = painn_inputs(m0, batch, pair_mask=clean)
+    gen_d = torch.Generator(dev).manual_seed(SEED)
+    gq = torch.randn(q0.shape, generator=gen_d, device=dev)
+    gmu = torch.randn(mu.shape, generator=gen_d, device=dev)
+    check_painn_bwd(errs, grids, x, mu, wk0, bk0, gq, gmu, cut_p,
+                    "DDM B=128 N=128", chunk=8)
+    nnz, filt_pairs, cells = pair_work(grids[0], grids[1])
+    f3 = 3 * F_
+    with torch.no_grad():
+        fwd_args = (*grids, x, mu, wk0, bk0, cut_p, True)
+        want = chunked(lambda *a: torch.cat(P.painn_message_reference(
+            *a, wk0, bk0, cut_p), dim=-1), (*grids, x, mu), (), 16)
+        errs.check("painn_fwd", torch.cat(P.painn_message_fused(*fwd_args),
+                                          dim=-1), want, "DDM B=128 N=128")
+        for name, fn, plain, flops, nbytes, line in (
+                ("painn_fwd", lambda: P.painn_message_fused(*fwd_args),
+                 lambda: chunked(lambda *a: torch.cat(
+                     P.painn_message_reference(*a, wk0, bk0, cut_p), dim=-1),
+                     (*grids, x, mu), (), 16),
+                 filt_pairs * fwd_pair + nnz * fwd_elem,
+                 4 * (5 * cells + 2 * x.numel() + (R_ + 1) * f3
+                      + q0.numel() + mu.numel()), 86),
+                # filter recomputed, dWk/dbk and dphi once per needed pair;
+                # the elementwise D, M, dw, dx, dmu, ddir, dgate terms (~40F)
+                # per ordered pair
+                ("painn_bwd",
+                 lambda: P.painn_bwd(*grids, x, mu, wk0, bk0, gq, gmu, cut_p,
+                                     True),
+                 lambda: chunked_sum(
+                     lambda d, g, a, b_, c, xx, m, gq_, gmu_:
+                     P.painn_bwd_reference(d, g, a, b_, c, xx, m, wk0, bk0,
+                                           gq_, gmu_, cut_p),
+                     (*grids, x, mu, gq, gmu), (), 8, 7),
+                 filt_pairs * (2 * R_ * f3 + 2 * (R_ + 1) * f3 + 2 * R_ * f3)
+                 + nnz * 40 * F_,
+                 4 * (5 * cells + 5 * grids[0].numel() + 4 * x.numel()
+                      + q0.numel() + 2 * (R_ + 1) * f3), 164)):
+            kernels.append((name, f"geossl_tpu_torch/ops/csrc/{name}.cu",
+                            f"geossl_tpu/ops/painn_pallas.py:{line}",
+                            cuda_time_ms(fn), cuda_time_ms(plain, reps=3,
+                                                           warmup=1),
+                            flops, nbytes, train_launches_p[name]))
 
     table = []
     for name, src, replaces, ms, plain_ms, flops, nbytes, count in kernels:

@@ -1,8 +1,9 @@
 """Typed model configuration (counterpart of ``geossl_tpu/config.py``).
 
-Same defaults as the JAX package. ``use_pallas`` has no counterpart: the
-device of the tensors decides between kernel and plain version. The JAX
-options this port does not run yet raise ``NotImplementedError``.
+Same defaults as the JAX package, for both backbones (SchNet and PaiNN).
+``use_pallas`` has no counterpart: the device of the tensors decides
+between kernel and plain version. The JAX options this port does not run
+yet raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,10 +27,28 @@ class SchNetConfig:
 
 
 @dataclass(frozen=True)
+class PaiNNConfig:
+    """PaiNN hyperparameters (reference ``Geom3D/models/painn.py:125-142``,
+    CLI defaults ``examples/config.py:118-121``)."""
+
+    n_atom_basis: int = 128  # == emb_dim in the reference scripts
+    n_interactions: int = 3
+    n_rbf: int = 20
+    cutoff: float = 5.0
+    n_out: int = 1
+    readout: str = "add"  # {"mean", "add"}
+    max_z: int = 9  # node_class passed as max_z (pretrain_GeoSSL.py:39)
+    shared_interactions: bool = False
+    shared_filters: bool = False
+    epsilon: float = 1e-8
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    model_3d: str = "schnet"
+    model_3d: str = "schnet"  # {"schnet", "painn"}
     emb_dim: int = 128
     schnet: SchNetConfig = field(default_factory=SchNetConfig)
+    painn: PaiNNConfig = field(default_factory=PaiNNConfig)
     compute_dtype: str = "float32"
     filter_mxu: str = "f32"
     # keep each atom's k nearest in-cutoff neighbors (torch_cluster's
@@ -40,9 +59,7 @@ class ModelConfig:
     pair_axis: Optional[str] = None
 
     def __post_init__(self):
-        if self.model_3d == "painn":
-            raise NotImplementedError("PaiNN is not ported yet (ROADMAP.md)")
-        if self.model_3d != "schnet":
+        if self.model_3d not in ("schnet", "painn"):
             raise ValueError(f"model_3d must be 'schnet' or 'painn', "
                              f"got {self.model_3d!r}")
         if self.compute_dtype != "float32":
@@ -61,3 +78,7 @@ class ModelConfig:
         if self.max_neighbors is not None and self.max_neighbors <= 0:
             raise ValueError(f"max_neighbors must be positive or None, got "
                              f"{self.max_neighbors}")
+
+    @property
+    def backbone(self):
+        return self.schnet if self.model_3d == "schnet" else self.painn

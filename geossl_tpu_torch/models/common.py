@@ -1,5 +1,6 @@
-"""Shared model building blocks: RBF expansion, cosine envelope, shifted
-softplus and the reference-matching initializers (counterpart of
+"""Shared model building blocks: SchNet's RBF expansion, cosine envelope and
+shifted softplus, PaiNN's Gaussian RBF, cosine cutoff, ``Dense`` and
+halving-MLP head, and the reference-matching initializers (counterpart of
 ``geossl_tpu/models/common.py``).
 
 Initialization follows PyTorch semantics as the JAX package does:
@@ -49,6 +50,77 @@ def cosine_envelope(dist: torch.Tensor, cutoff: float) -> torch.Tensor:
     """SchNet's CFConv envelope, with no hard gate: callers mask by the
     adjacency."""
     return 0.5 * (torch.cos(dist * math.pi / cutoff) + 1.0)
+
+
+def jax_linspace(stop: float, num: int, dtype=torch.float32,
+                 device=None) -> torch.Tensor:
+    """``jnp.linspace(0, stop, num, dtype=dtype)`` as XLA compiles it, bit
+    for bit in f32: entry k is k * (stop * (1 / (num - 1))) in ``dtype``,
+    the last ``stop`` itself. (``torch.linspace`` differs from it by an ulp
+    on some f32 entries, which PaiNN's f32 offsets would carry into the f64
+    parity of the plain versions.)"""
+    one = torch.tensor(1.0, dtype=dtype)
+    unit = torch.tensor(stop, dtype=dtype) * (
+        one / torch.tensor(float(num - 1), dtype=dtype))
+    k = torch.arange(num - 1, dtype=dtype, device=device)
+    last = torch.tensor([stop], dtype=dtype, device=device)
+    return torch.cat([k * unit.to(device), last])
+
+
+def gaussian_rbf(dist: torch.Tensor, offsets: torch.Tensor,
+                 widths: torch.Tensor) -> torch.Tensor:
+    """PaiNN's Gaussian RBF with per-basis widths: exp(-0.5/w² (d - μ)²)."""
+    coeff = -0.5 / (widths * widths)
+    diff = dist[..., None] - offsets
+    return torch.exp(coeff * diff * diff)
+
+
+def cosine_cutoff(dist: torch.Tensor, cutoff: float) -> torch.Tensor:
+    """Behler cosine cutoff with the hard ``d < cutoff`` gate (PaiNN's; not
+    SchNet's :func:`cosine_envelope`, which has no gate)."""
+    env = 0.5 * (torch.cos(dist * math.pi / cutoff) + 1.0)
+    return env * (dist < cutoff).to(dist.dtype)
+
+
+class Dense(nn.Linear):
+    """Linear layer with an optional activation (the reference's
+    ``painn_utils.Dense``: state_dict keys ``weight``/``bias``)."""
+
+    def __init__(self, n_in: int, n_out: int, bias: bool = True,
+                 activation=None):
+        super().__init__(n_in, n_out, bias=bias)
+        self.activation = activation
+
+    def forward(self, x):
+        y = super().forward(x)
+        return y if self.activation is None else self.activation(y)
+
+
+def halving_mlp_dims(n_in: int, n_out: int, n_layers: int = 2) -> list:
+    """Layer widths of PaiNN's ``build_mlp`` with no hidden width given:
+    halving from ``n_in``, floored at ``n_out``."""
+    c, dims = n_in, []
+    for _ in range(n_layers):
+        dims.append(c)
+        c = max(n_out, c // 2)
+    dims.append(n_out)
+    return dims[1:]
+
+
+class HalvingMLP(nn.Sequential):
+    """PaiNN's output head (``create_output_layers``): Dense layers of
+    halving width, silu on all but the last; keys ``0.*``, ``1.*``, ..."""
+
+    def __init__(self, n_in: int, n_out: int, n_layers: int = 2,
+                 generator: Optional[torch.Generator] = None):
+        dims = halving_mlp_dims(n_in, n_out, n_layers)
+        widths = [n_in] + dims
+        layers = [Dense(a, b, activation=torch.nn.functional.silu
+                        if k < len(dims) - 1 else None)
+                  for k, (a, b) in enumerate(zip(widths[:-1], widths[1:]))]
+        super().__init__(*layers)
+        for lin in layers:
+            init_linear_(lin, generator)
 
 
 def xavier_uniform_(weight: torch.Tensor,

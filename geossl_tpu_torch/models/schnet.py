@@ -164,6 +164,10 @@ class SchNet(nn.Module):
         return dist, geometry.radius_adjacency(dist, pair_mask, self.cutoff,
                                                self.max_neighbors)
 
+    def filter_weights(self):
+        """Every block's ``filter_weights()``: the kernels' layouts."""
+        return [blk.filter_weights() for blk in self.interactions]
+
     def forward(self, atom_type, positions, node_mask, plain: bool = False,
                 filters=None):
         """``filters``: the blocks' ``filter_weights()``, made once by a

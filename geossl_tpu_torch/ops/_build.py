@@ -19,7 +19,8 @@ import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-SOURCES = ("cfconv_fwd", "cfconv_bwd", "ncsn_score", "schnet_stack")
+SOURCES = ("cfconv_fwd", "cfconv_bwd", "ncsn_score", "schnet_stack",
+           "painn_fwd", "painn_bwd", "painn_stack")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

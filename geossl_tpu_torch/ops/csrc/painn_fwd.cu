@@ -1,0 +1,147 @@
+// painn_fwd: PaiNN's inter-atomic message pass, forward, in one kernel.
+//
+//   w        = (phi(d) Wk + bk) * gate            [B,Ni,Nj,3F], never stored
+//   dq[i]    = sum_j wq xq_j
+//   dmu_c[i] = sum_j wr xr_j dir_c[i,j] + sum_j wm xm_j mu_c[j]
+//
+// Replaces geossl_tpu/ops/painn_pallas.py: _fwd_kernel (painn_message_fused
+// via _fwd_pallas). As there, the gated filter tensor stays on the chip: the
+// kernel reads dist, gate and the three direction grids [B,Ni,Nj], x and mu
+// [B,Nj,3F] and writes dq [B,Ni,F] and dmu [B,Ni,3F] (mu c-major).
+//
+// Bound on the H100: operations. The filter costs 2*R*3F FLOP per pair
+// (15.4k at R=20, F=128) and the three message sums ~14F more, against 20
+// bytes of pair grids per pair, far above the card's f32 ridge of ~20
+// FLOP/byte. The design cuts work rather than speeding the arithmetic: with
+// `sparse`, 8x8 tiles whose gate is all zero (out of cutoff, padding, empty
+// graph slots) are skipped. Plain f32 FMAs on the CUDA cores, no tensor
+// cores and no TF32.
+//
+// Work split, as cfconv_fwd.cu: one block per (graph, 8-row i tile); the
+// block loops over the 8-column j tiles (the TPU's sequential j grid axis)
+// and keeps its rows' sums (dq and the three dmu channels, 8 features each
+// per thread) in registers. Wk (R x 3F, 30 KB at R=20) is staged in shared
+// memory at the first computed tile, so a block of padding rows reads only
+// its gate. Each block flags its occupied tiles in one pass over its gate
+// rows before the loop.
+#include "painn_tile.cuh"
+
+namespace geossl {
+
+__global__ void __launch_bounds__(kThreads)
+painn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
+                 const float* __restrict__ dirx, const float* __restrict__ diry,
+                 const float* __restrict__ dirz, const float* __restrict__ x,
+                 const float* __restrict__ mu, const float* __restrict__ wk,
+                 const float* __restrict__ bk, float* __restrict__ dq,
+                 float* __restrict__ dmu, int ni, int nj, int R, float delta,
+                 float coeff, int sparse) {
+  extern __shared__ float4 smem_v4[];  // 16-byte aligned
+  float* smem = reinterpret_cast<float*>(smem_v4);
+  float* Wk_s = smem;                    // [R][kF3]
+  float* phi_s = Wk_s + R * kF3;         // [R][kPhiS]
+  float* xj_s = phi_s + R * kPhiS;       // [kTile][kF3]
+  float* muj_s = xj_s + kTile * kF3;     // [kTile][kF3]
+  float* pr_s = muj_s + kTile * kF3;     // [5][kPairs]
+  int* occ_s = (int*)(pr_s + 5 * kPairs);  // [ntj]
+
+  const int tid = threadIdx.x;
+  const int pi = blockIdx.x, b = blockIdx.y;
+  const int i0 = pi * kTile;
+  const size_t grid_off = (size_t)b * ni * nj;
+  const float* gate_b = gate + grid_off;
+  const float* x_b = x + (size_t)b * nj * kF3;
+  const float* mu_b = mu + (size_t)b * nj * kF3;
+
+  float aq[kFPT], am[3][kFPT];
+#pragma unroll
+  for (int k = 0; k < kFPT; ++k) {
+    aq[k] = 0.f;
+    am[0][k] = am[1][k] = am[2][k] = 0.f;
+  }
+
+  const int ntj = (nj + kTile - 1) / kTile;
+  if (sparse) {
+    for (int t = tid; t < ntj; t += kThreads) occ_s[t] = 0;
+    __syncthreads();
+    const int rows = min(kTile, ni - i0);
+    for (int idx = tid; idx < rows * nj; idx += kThreads) {
+      const int r = idx / nj, j = idx - r * nj;
+      if (gate_b[(size_t)(i0 + r) * nj + j] != 0.f) occ_s[j / kTile] = 1;
+    }
+    __syncthreads();
+  }
+
+  bool staged = false;
+  for (int pj = 0; pj < ntj; ++pj) {
+    if (sparse && !occ_s[pj]) continue;  // block-uniform
+    const int j0 = pj * kTile;
+    __syncthreads();  // the previous tile is done with pr_s, phi_s, xj_s, muj_s
+    if (tid < kPairs)
+      painn_load_pairs(pr_s, dist + grid_off, gate_b, dirx + grid_off,
+                       diry + grid_off, dirz + grid_off, i0 + tid / kTile,
+                       j0 + tid % kTile, ni, nj, tid);
+    if (!staged) {
+      block_copy(Wk_s, wk, R * kF3);
+      staged = true;
+    }
+    for (int idx = tid; idx < kTile * kF3; idx += kThreads) {
+      const int j = j0 + idx / kF3;
+      const size_t src = (size_t)j * kF3 + idx % kF3;
+      xj_s[idx] = j < nj ? x_b[src] : 0.f;
+      muj_s[idx] = j < nj ? mu_b[src] : 0.f;
+    }
+    __syncthreads();
+    painn_rbf(pr_s, phi_s, R, delta, coeff);
+    __syncthreads();
+    painn_tile_messages<kF3>(pr_s, phi_s, Wk_s, bk, R, xj_s, muj_s, aq, am);
+  }
+
+  // the two half-warps of a warp hold columns 0-3 and 4-7 of one row
+#pragma unroll
+  for (int k = 0; k < kFPT; ++k) {
+    aq[k] += __shfl_xor_sync(0xffffffffu, aq[k], 16);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) am[c][k] += __shfl_xor_sync(0xffffffffu, am[c][k], 16);
+  }
+  const int fg = thread_fg(), i = i0 + thread_il();
+  if ((tid & 16) == 0 && i < ni) {
+    float* dq_row = dq + ((size_t)b * ni + i) * kF;
+    float* dmu_row = dmu + ((size_t)b * ni + i) * kF3;
+#pragma unroll
+    for (int k = 0; k < kFPT; ++k) {
+      const int f = feat(fg, k);
+      dq_row[f] = aq[k];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) dmu_row[c * kF + f] = am[c][k];
+    }
+  }
+}
+
+static size_t smem_bytes(int R, int nj) {
+  return sizeof(float) * ((size_t)R * kF3 + (size_t)R * kPhiS + 2 * kTile * kF3 +
+                          5 * kPairs) +
+         sizeof(int) * (size_t)((nj + kTile - 1) / kTile);
+}
+
+}  // namespace geossl
+
+extern "C" size_t painn_fwd_smem_bytes(int R, int nj) { return geossl::smem_bytes(R, nj); }
+
+// Returns the cudaError_t of the launch (0 on success). F must be 128.
+extern "C" int painn_fwd(const float* dist, const float* gate, const float* dirx,
+                         const float* diry, const float* dirz, const float* x,
+                         const float* mu, const float* wk, const float* bk, float* dq,
+                         float* dmu, int B, int ni, int nj, int F, int R, float delta,
+                         float coeff, int sparse, void* stream) {
+  using namespace geossl;
+  if (F != kF || R < 2) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(R, nj);
+  cudaFuncSetAttribute(painn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  const dim3 grid((ni + kTile - 1) / kTile, B);
+  painn_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      dist, gate, dirx, diry, dirz, x, mu, wk, bk, dq, dmu, ni, nj, R, delta, coeff,
+      sparse);
+  return (int)cudaGetLastError();
+}

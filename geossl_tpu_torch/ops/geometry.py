@@ -28,6 +28,22 @@ def pairwise_distances(positions: torch.Tensor, node_mask: torch.Tensor):
     return dist, mask
 
 
+def pairwise_directions(positions: torch.Tensor, node_mask: torch.Tensor):
+    """``(dist [B,N,N], dir [B,N,N,3], pair_mask)`` with
+    ``dir[i, j] = (pos_i - pos_j) / d_ij`` (PaiNN's message from j into i).
+    Masked directions are 0 with zero gradient: the inverse distance is taken
+    of a safe input there."""
+    mask = pair_mask_from_nodes(node_mask)
+    diff = positions[:, :, None, :] - positions[:, None, :, :]
+    d2 = torch.sum(diff * diff, dim=-1)
+    d2_safe = torch.where(mask, d2, torch.ones_like(d2))
+    root = torch.sqrt(d2_safe)
+    zero = torch.zeros_like(d2)
+    dist = torch.where(mask, root, zero)
+    inv = torch.where(mask, 1.0 / root, zero)
+    return dist, diff * inv[..., None], mask
+
+
 def radius_adjacency(dist: torch.Tensor, pair_mask: torch.Tensor,
                      cutoff: float,
                      max_neighbors: Optional[int] = None) -> torch.Tensor:

@@ -1,16 +1,18 @@
-"""Batched inference on trained SchNet weights (counterpart of
+"""Batched inference on trained SchNet or PaiNN weights (counterpart of
 ``geossl_tpu/serve.py``).
 
 * :class:`Predictor` buckets and pads incoming molecules (every batch is
   padded to ``batch_size`` with empty graph slots), runs buckets up to
-  ``STACK_MAX_N`` atoms through the whole-stack kernel and larger ones
-  through the per-block CFConv kernels, and returns results in input order.
+  ``STACK_MAX_N`` = 128 atoms through the backbone's whole-stack kernel
+  (``schnet_stack`` / ``painn_stack``) and larger ones through its per-block
+  kernels (CFConv / the PaiNN message pass), and returns results in input
+  order.
   Each packed batch is uploaded once; all results come back in one
   device-to-host copy at the end of a pass.
 * ``predict`` (scalar property, denormalized with ``y_mean``/``y_std``) and
   ``embed`` (pooled graph representation).
-* CLI: ``python -m geossl_tpu_torch.serve --ckpt model.pth --input
-  store.npz --mode predict --output preds.csv``.
+* CLI: ``python -m geossl_tpu_torch.serve [--model_3d painn] --ckpt
+  model.pth --input store.npz --mode predict --output preds.csv``.
 
 Work runs on the CUDA device unless the caller passes ``device="cpu"``,
 where every kernel wrapper takes its plain PyTorch version.
@@ -28,8 +30,9 @@ import torch
 from geossl_tpu_torch.config import ModelConfig
 from geossl_tpu_torch.data.bucketing import assign_buckets, pack_batch
 from geossl_tpu_torch.data.store import MolStore
-from geossl_tpu_torch.models.schnet import fused_stack_apply
+from geossl_tpu_torch.models import painn, schnet
 from geossl_tpu_torch.ops.cfconv import STACK_MAX_N
+from geossl_tpu_torch.ops.painn import STACK_MAX_N as PAINN_STACK_MAX_N
 from geossl_tpu_torch.train.common import make_backbone, make_head
 
 
@@ -49,9 +52,10 @@ def _chunks(idx: np.ndarray, size: int):
 
 
 class Predictor:
-    """Batched prediction from a SchNet state: ``{"model": backbone
-    state_dict[, "graph_pred_linear": head state_dict][, "y_mean",
-    "y_std"]}``. Without a head only :meth:`embed` is available."""
+    """Batched prediction from a backbone state (``cfg.model_3d`` says
+    which): ``{"model": backbone state_dict[, "graph_pred_linear": head
+    state_dict][, "y_mean", "y_std"]}``. Without a head only :meth:`embed`
+    is available."""
 
     def __init__(self, cfg: ModelConfig, state: dict,
                  y_mean: Optional[float] = None, y_std: Optional[float] = None,
@@ -80,12 +84,19 @@ class Predictor:
         self.batch_size = batch_size
         self.bucket_sizes = tuple(sorted(bucket_sizes))
         self.spatial_sort = spatial_sort
-        # the stack kernel keeps h at one width
-        self._stackable = self.model.num_filters == self.model.hidden_channels
+        if cfg.model_3d == "painn":
+            self._stack_apply = painn.fused_stack_apply
+            self._stack_max_n = PAINN_STACK_MAX_N
+            self._stackable = True
+        else:
+            self._stack_apply = schnet.fused_stack_apply
+            self._stack_max_n = STACK_MAX_N
+            # the stack kernel keeps h at one width
+            self._stackable = (self.model.num_filters
+                               == self.model.hidden_channels)
         # the kernels' [in, out] weight layouts, made once for fixed weights
         with torch.no_grad():
-            self._filters = [blk.filter_weights()
-                             for blk in self.model.interactions]
+            self._filters = self.model.filter_weights()
             self._stacked = (self.model.stacked_weights() if self._stackable
                              else None)
 
@@ -124,8 +135,8 @@ class Predictor:
         """Pooled representation [B, F]: the whole-stack kernel up to
         STACK_MAX_N atoms, the per-block path above."""
         args = (batch.atom_type, batch.positions, batch.node_mask)
-        if self._stackable and batch.max_atoms <= STACK_MAX_N:
-            graph, _ = fused_stack_apply(self.model, *args,
+        if self._stackable and batch.max_atoms <= self._stack_max_n:
+            graph, _ = self._stack_apply(self.model, *args,
                                          stacked=self._stacked)
         else:
             graph, _ = self.model(*args, filters=self._filters)
@@ -182,6 +193,9 @@ def build_parser():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--ckpt", required=True, help="reference-format .pth")
+    p.add_argument("--model_3d", default="schnet", choices=["schnet", "painn"],
+                   help="the backbone of the checkpoint, at its default "
+                        "configuration")
     p.add_argument("--input", required=True, help=".npz MolStore")
     p.add_argument("--output", default="-", help="CSV path or - for stdout")
     p.add_argument("--mode", default="predict", choices=["predict", "embed"])
@@ -198,7 +212,8 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     pred = Predictor.from_checkpoint(
-        args.ckpt, batch_size=args.batch_size, bucket_sizes=args.bucket,
+        args.ckpt, ModelConfig(model_3d=args.model_3d),
+        batch_size=args.batch_size, bucket_sizes=args.bucket,
         spatial_sort=args.spatial_sort, device=args.device)
     store = load_input_store(args.input)
     rows = pred.predict(store) if args.mode == "predict" else pred.embed(store)

@@ -3,9 +3,10 @@ backbone and head construction, the drivers' common flags with the JAX
 package's names and defaults (one command line drives both packages),
 gradient accumulation groups, resume state, the metric log.
 
-Flags the port does not run yet raise ``NotImplementedError`` when set away
-from their defaults: multi-device and multi-host runs, ``--steps_per_call``
-(a TPU dispatch optimisation), ``--profile_dir``, bf16 compute and PaiNN.
+Both backbones are ported (``--model_3d schnet|painn``). Flags the port
+does not run yet raise ``NotImplementedError`` when set away from their
+defaults: multi-device and multi-host runs, ``--steps_per_call`` (a TPU
+dispatch optimisation), ``--profile_dir`` and bf16 compute.
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from geossl_tpu_torch.config import ModelConfig, SchNetConfig
-from geossl_tpu_torch.models.common import init_linear_
+from geossl_tpu_torch.config import ModelConfig, PaiNNConfig, SchNetConfig
+from geossl_tpu_torch.models.common import HalvingMLP, init_linear_
+from geossl_tpu_torch.models.painn import PaiNN
 from geossl_tpu_torch.models.schnet import SchNet
 from geossl_tpu_torch.train import checkpoints, optim
 
@@ -39,17 +41,49 @@ class LinearHead(nn.Linear):
         return super().forward(x)[..., 0]
 
 
+class PaiNNHead(HalvingMLP):
+    """``graph_pred_linear`` for PaiNN tasks: the backbone's
+    ``create_output_layers()`` halving silu MLP (emb -> emb/2 -> 1; keys
+    ``0.*``, ``1.*``), returning ``[B]``."""
+
+    def __init__(self, emb_dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(emb_dim, 1, generator=generator)
+
+    def forward(self, x):
+        return super().forward(x)[..., 0]
+
+
 def make_head(model_3d: str, emb_dim: int,
               generator: Optional[torch.Generator] = None) -> nn.Module:
-    if model_3d != "schnet":
-        raise NotImplementedError(f"{model_3d!r} heads are not ported yet")
-    return LinearHead(emb_dim, generator)
+    """The reference's per-backbone downstream head."""
+    if model_3d == "schnet":
+        return LinearHead(emb_dim, generator)
+    return PaiNNHead(emb_dim, generator)
 
 
 def make_backbone(cfg: ModelConfig,
-                  generator: Optional[torch.Generator] = None) -> SchNet:
-    s = cfg.schnet
+                  generator: Optional[torch.Generator] = None) -> nn.Module:
+    """SchNet or PaiNN for ``cfg``; ``forward(atom_type, positions,
+    node_mask, ...)`` -> (graph_repr [B,F], node_repr [B,N,F])."""
     sparse = {"auto": "auto", "on": True, "off": False}[cfg.sparse_tiles]
+    if cfg.model_3d == "painn":
+        p = cfg.painn
+        return PaiNN(
+            n_atom_basis=cfg.emb_dim,
+            n_interactions=p.n_interactions,
+            n_rbf=p.n_rbf,
+            cutoff=p.cutoff,
+            readout=p.readout,
+            max_neighbors=cfg.max_neighbors,
+            max_z=p.max_z,
+            shared_interactions=p.shared_interactions,
+            shared_filters=p.shared_filters,
+            epsilon=p.epsilon,
+            sparse=sparse,
+            generator=generator,
+        )
+    s = cfg.schnet
     return SchNet(
         hidden_channels=cfg.emb_dim,
         num_filters=s.num_filters,
@@ -165,6 +199,11 @@ def model_config_from_args(args) -> ModelConfig:
             num_interactions=args.num_interactions,
             num_gaussians=args.num_gaussians, cutoff=args.cutoff,
             readout=args.readout),
+        painn=PaiNNConfig(
+            n_atom_basis=args.emb_dim,
+            n_interactions=args.painn_n_interactions,
+            n_rbf=args.painn_n_rbf, cutoff=args.painn_radius_cutoff,
+            readout=args.painn_readout),
         compute_dtype=args.compute_dtype,
         filter_mxu=args.filter_mxu,
         max_neighbors=args.max_num_neighbors,

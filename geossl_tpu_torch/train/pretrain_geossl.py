@@ -1,4 +1,4 @@
-"""GeoSSL-DDM pretraining of SchNet (counterpart of
+"""GeoSSL-DDM pretraining of SchNet or PaiNN (counterpart of
 ``geossl_tpu/train/pretrain_geossl.py``; reference
 ``examples/pretrain_GeoSSL.py``), the port's training path.
 
@@ -11,10 +11,15 @@ then one Adam step. The backbone is saved as ``{"model": state_dict}`` in
 ``model.pth`` on the best epoch-mean loss and ``model_final.pth`` at the end
 (``pretrain_GeoSSL.py:48-65``), the checkpoint ``serve.Predictor`` loads.
 
-On CUDA (the default) the backbone's CFConv and the heads' per-pair chain
-run the port's kernels; ``--device cpu`` takes the plain versions. Only
-``--GeoSSL_option DDM`` with ``--model_3d schnet`` is ported; every bucket
-must be below 256 atoms on CUDA until the symmetric CFConv backward is.
+With ``--model_3d painn`` one radius graph, built from the clean geometry,
+is the pair mask of both views (``pretrain_GeoSSL.py:88-89``); distances and
+directions come from each view's live positions.
+
+On CUDA (the default) the backbone's message pass (CFConv, or PaiNN's) and
+the heads' per-pair chain run the port's kernels; ``--device cpu`` takes the
+plain versions. Only ``--GeoSSL_option DDM`` is ported; for SchNet every
+bucket must be below 256 atoms on CUDA until the symmetric CFConv backward
+is.
 
 Run: ``python -m geossl_tpu_torch.train.pretrain_geossl --synthetic --epochs 2``
 """
@@ -30,6 +35,7 @@ from torch import nn
 from geossl_tpu_torch.data.bucketing import BucketedLoader
 from geossl_tpu_torch.data.masking import make_bfs_transform
 from geossl_tpu_torch.data.molecule3d import load_molecule3d
+from geossl_tpu_torch.models.painn import PaiNN
 from geossl_tpu_torch.objectives.contrastive import l2_normalize, perturb_positions
 from geossl_tpu_torch.objectives.ncsn import NCSNv3
 from geossl_tpu_torch.objectives.pairs import pair_selection
@@ -72,7 +78,9 @@ def build_parser():
 class DDM(nn.Module):
     """The backbone and the two NCSN_version_03 heads, under the JAX
     package's top-level parameter names (``model``, ``NCSN_01``,
-    ``NCSN_02``). ``plain`` runs the plain versions on any device."""
+    ``NCSN_02``). ``plain`` runs the plain versions on any device. A PaiNN
+    backbone gets the clean geometry's radius graph as the pair mask of
+    both views."""
 
     def __init__(self, model: nn.Module, ncsn_01: NCSNv3, ncsn_02: NCSNv3,
                  normalize: bool = False, plain: bool = False):
@@ -98,11 +106,16 @@ class DDM(nn.Module):
         """The DDM loss of one batch. ``draws`` = (sigmas1, noise1, sigmas2,
         noise2) replaces the heads' draws from ``generator``."""
         z, mask = batch.atom_type, batch.node_mask
-        _, h1 = self.model(z, batch.positions, mask, plain=self.plain)
-        _, h2 = self.model(z, pos2, mask, plain=self.plain)
+        d1, pm = geometry.pairwise_distances(batch.positions, batch.node_mask)
+        kw = {"plain": self.plain}
+        if isinstance(self.model, PaiNN):
+            # cached clean-geometry radius graph (pretrain_GeoSSL.py:88-89)
+            kw["pair_mask"] = geometry.radius_adjacency(
+                d1, pm, self.model.cutoff, self.model.max_neighbors)
+        _, h1 = self.model(z, batch.positions, mask, **kw)
+        _, h2 = self.model(z, pos2, mask, **kw)
         if self.normalize:
             h1, h2 = l2_normalize(h1), l2_normalize(h2)
-        d1, _ = geometry.pairwise_distances(batch.positions, batch.node_mask)
         d2, _ = geometry.pairwise_distances(pos2, batch.node_mask)
         s1, n1, s2, n2 = draws if draws is not None else (None,) * 4
         # cross terms (pretrain_GeoSSL.py:207-208)
@@ -159,7 +172,7 @@ def main(argv=None):
         raise NotImplementedError("--gnn_2d_lr_scale applies to RR, which is "
                                   "not ported")
     common.check_ported_args(args)
-    cfg = common.model_config_from_args(args)  # raises for PaiNN
+    cfg = common.model_config_from_args(args)
     device = resolve_device(args.device)
     subset = None
     if args.dataset.startswith("Molecule3D_"):

@@ -1,12 +1,13 @@
 """Weights in and out of the port (its own copy of the mapping in
 ``geossl_tpu/utils/torch_import.py``).
 
-* ``schnet_state_dict_from_flax`` / ``head_state_dict_from_flax`` /
-  ``ncsn_state_dict_from_flax`` turn the JAX package's param trees (numpy arrays, flax ``[in, out]`` kernels) into
+* ``schnet_state_dict_from_flax`` / ``painn_state_dict_from_flax`` /
+  ``head_state_dict_from_flax`` / ``ncsn_state_dict_from_flax`` turn the
+  JAX package's param trees (numpy arrays, flax ``[in, out]`` kernels) into
   the port's state_dicts (torch ``[out, in]`` weights, the reference's key
   names), keeping the arrays' dtype.
-* ``load_torch_checkpoint`` reads a reference ``.pth``: a bare backbone
-  state_dict or ``{"model": ..., "graph_pred_linear": ...}``.
+* ``load_torch_checkpoint`` reads a reference ``.pth`` of either backbone:
+  a bare backbone state_dict or ``{"model": ..., "graph_pred_linear": ...}``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 # filter network registered a second time as the CFConv's ``nn`` and the
 # derived buffers (distance offsets, masses, the atomref initial value)
 _DERIVED = (".conv.nn.", "distance_expansion.", "atomic_mass",
-            "initial_atomref")
+            "initial_atomref", "radial_basis.", "cutoff_fn.")
 
 
 def _t(a, transpose: bool = False) -> torch.Tensor:
@@ -61,8 +62,41 @@ def schnet_state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def painn_state_dict_from_flax(tree, n_interactions=None
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX ``models.PaiNN`` params -> ``geossl_tpu_torch`` PaiNN state_dict
+    (the layout of the JAX package's ``painn_params_to_torch``). A
+    ``shared_interactions`` tree holds one block for all layers: pass
+    ``n_interactions`` to repeat it under every layer's keys."""
+    sd = {"embedding.weight": _t(tree["embedding"]),
+          "filter_net.weight": _t(tree["filter_kernel"], transpose=True),
+          "filter_net.bias": _t(tree["filter_bias"])}
+    shared = "PaiNNInteraction_shared" in tree
+    if shared and n_interactions is None:
+        raise ValueError("a shared_interactions tree needs n_interactions")
+    n = n_interactions or sum(1 for k in tree
+                              if k.startswith("PaiNNInteraction_"))
+    for k in range(n):
+        tag = "shared" if shared else k
+        blk, mix = tree[f"PaiNNInteraction_{tag}"], tree[f"PaiNNMixing_{tag}"]
+        i, m = f"interactions.{k}.interatomic_context_net.", f"mixing.{k}."
+        for j in range(2):
+            for kk, v in _dense(blk[f"Dense_{j}"]).items():
+                sd[f"{i}{j}.{kk}"] = v
+            for kk, v in _dense(mix[f"Dense_{j}"]).items():
+                sd[f"{m}intraatomic_context_net.{j}.{kk}"] = v
+        sd[m + "mu_channel_mix.weight"] = _dense(mix["mu_channel_mix"],
+                                                 bias=False)["weight"]
+    return sd
+
+
 def head_state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
-    """JAX ``LinearHead`` params -> ``nn.Linear(emb, 1)`` state_dict."""
+    """JAX ``LinearHead`` params -> ``nn.Linear(emb, 1)`` state_dict; JAX
+    ``PaiNNHead`` params -> the halving MLP's ``0.*``, ``1.*``, ..."""
+    if "HalvingMLP_0" in tree:
+        return {f"{name.split('_')[1]}.{kk}": v
+                for name, sub in tree["HalvingMLP_0"].items()
+                for kk, v in _dense(sub).items()}
     return _dense(tree["Dense_0"])
 
 
@@ -82,9 +116,10 @@ def _backbone(sd: Dict) -> Dict[str, torch.Tensor]:
     for pre in ("module.", "molecule_model_3D."):
         if sd and all(k.startswith(pre) for k in sd):
             sd = {k[len(pre):]: v for k, v in sd.items()}
-    if not any(k.startswith("interactions.0.mlp.") for k in sd):
-        raise ValueError("state_dict is not a reference SchNet backbone "
-                         f"(keys: {sorted(sd)[:8]}...)")
+    if not any(k.startswith(("interactions.0.mlp.", "filter_net."))
+               for k in sd):
+        raise ValueError("state_dict is neither a reference SchNet nor a "
+                         f"PaiNN backbone (keys: {sorted(sd)[:8]}...)")
     return {k: v.float() for k, v in sd.items()
             if not any(tag in k for tag in _DERIVED)}
 

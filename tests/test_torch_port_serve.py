@@ -3,6 +3,8 @@ weights (rtol 2e-5 / atol 1e-5 in f32, as tests/test_serve.py), plus the
 port's device rules: CUDA by default, raise without it, no kernel launch for
 CPU tensors."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -11,16 +13,18 @@ import jax
 import jax.numpy as jnp
 
 from geossl_tpu.config import ModelConfig as JModelConfig
+from geossl_tpu.config import PaiNNConfig as JPaiNNConfig
 from geossl_tpu.config import SchNetConfig as JSchNetConfig
 from geossl_tpu.serve import Predictor as JPredictor
 from geossl_tpu.train import common as jcommon
-from geossl_tpu_torch.config import ModelConfig, SchNetConfig
+from geossl_tpu_torch.config import ModelConfig, PaiNNConfig, SchNetConfig
 from geossl_tpu_torch.data.store import MolRecord, MolStore
 from geossl_tpu_torch.ops import _launch
 from geossl_tpu_torch.serve import Predictor, main
 from geossl_tpu_torch.train.common import make_backbone, make_head
 from geossl_tpu_torch.utils.torch_import import (
     head_state_dict_from_flax,
+    painn_state_dict_from_flax,
     schnet_state_dict_from_flax,
 )
 
@@ -68,6 +72,35 @@ def test_predict_and_embed_match_jax_predictor(max_neighbors):
     got, want = tpred.predict(store), jpred.predict(store)
     assert got.shape == (11,)
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5)
+    np.testing.assert_allclose(tpred.embed(store), jpred.embed(store),
+                               rtol=2e-5, atol=1e-5)
+
+
+def test_painn_predictor_matches_jax_predictor():
+    """PaiNN: the stack route (buckets up to 128) and the per-block route
+    (256) on the CPU against the JAX Predictor (use_pallas=False) on the
+    same weights, with the halving-MLP head."""
+    psmall = dict(n_interactions=2, n_rbf=8)
+    jcfg = JModelConfig(model_3d="painn", emb_dim=16,
+                        painn=JPaiNNConfig(n_atom_basis=16, **psmall))
+    tcfg = ModelConfig(model_3d="painn", emb_dim=16,
+                       painn=PaiNNConfig(n_atom_basis=16, **psmall))
+    module, _ = jcommon.make_backbone(jcfg)
+    rng = jax.random.PRNGKey(4)
+    params = {"model": jcommon.init_backbone(module, rng, n_max=64),
+              "graph_pred_linear": jcommon.PaiNNHead(16).init(
+                  rng, jnp.zeros((2, 16)))["params"]}
+    state = {"model": painn_state_dict_from_flax(params["model"]),
+             "graph_pred_linear": head_state_dict_from_flax(
+                 params["graph_pred_linear"])}
+    recs = [_store(7, 3, 60, seed=8).get(i) for i in range(7)] + \
+        [_store(2, 130, 160, seed=9, spread=1.5).get(i) for i in range(2)]
+    store = MolStore.from_records(recs)
+    kw = dict(y_mean=0.5, y_std=2.0, batch_size=4, bucket_sizes=(32, 64, 256))
+    jpred = JPredictor(jcfg, params, **kw)
+    tpred = Predictor(tcfg, state, device="cpu", **kw)
+    np.testing.assert_allclose(tpred.predict(store), jpred.predict(store),
+                               rtol=2e-5, atol=1e-5)
     np.testing.assert_allclose(tpred.embed(store), jpred.embed(store),
                                rtol=2e-5, atol=1e-5)
 
@@ -149,7 +182,7 @@ def test_headless_checkpoint_and_cli(tmp_path, capsys):
 
 
 def test_config_rejects_what_is_not_ported():
-    for kw in ({"model_3d": "painn"}, {"compute_dtype": "bfloat16"},
+    for kw in ({"compute_dtype": "bfloat16"},
                {"filter_mxu": "bf16"}, {"pair_axis": "pairs"}):
         with pytest.raises(NotImplementedError):
             ModelConfig(**kw)
@@ -159,3 +192,8 @@ def test_config_rejects_what_is_not_ported():
     assert (s.hidden_channels, s.num_filters, s.num_interactions,
             s.num_gaussians, s.cutoff, s.node_class, s.readout) == (
         128, 128, 6, 51, 10.0, 9, "mean")
+    p = ModelConfig(model_3d="painn").backbone
+    assert (p.n_atom_basis, p.n_interactions, p.n_rbf, p.cutoff, p.readout,
+            p.max_z, p.shared_interactions, p.shared_filters, p.epsilon) == (
+        128, 3, 20, 5.0, "add", 9, False, False, 1e-8)
+    assert dataclasses.asdict(p) == dataclasses.asdict(JPaiNNConfig())

@@ -1,16 +1,20 @@
-"""The DDM-SchNet training slice of geossl_tpu_torch against the JAX package
-on the CPU, where every kernel wrapper takes its plain version.
+"""The DDM training slices of geossl_tpu_torch (SchNet and PaiNN) against the
+JAX package on the CPU, where every kernel wrapper takes its plain version.
 
-* The slice as a whole, in f64 (real f64 on the JAX side, inside x64): the
-  DDM loss and every gradient on one batch at rtol 1e-10, then a 4-step Adam
-  trajectory with injected noise (losses and parameters at rtol 1e-10,
-  atol 1e-12). This is the training-parity contract of the slice.
+* The slice as a whole, in f64 (real f64 on the JAX side, inside x64), for
+  each backbone: the DDM loss and every gradient on one batch at rtol
+  1e-10, then a 4-step Adam trajectory with injected noise (losses and
+  parameters at rtol 1e-10, atol 1e-12). This is the training-parity
+  contract of the slices. PaiNN's JAX loss is built as ``pretrain_geossl``
+  builds it, with the clean geometry's radius graph as the pair mask of
+  both views, and its f32 casts read as f64 (``test_torch_port_painn.f64_casts``).
 * Pair selection, BFS masking and the loader's epoch order: exact.
 * The lr schedules against optax (f32 on the JAX side: rtol 1e-6); Adam
   with weight decay against optax in f64 (rtol 1e-10).
 * The driver CLI on the CPU, its checkpoint, resume and refusals.
 """
 
+import contextlib
 import os
 
 import jax
@@ -23,16 +27,18 @@ import torch
 from geossl_tpu.data import bucketing as jbucket
 from geossl_tpu.data import masking as jmask
 from geossl_tpu.data import synthetic as jsyn
+from geossl_tpu.models.painn import PaiNN as JPaiNN
 from geossl_tpu.models.schnet import SchNet as JSchNet
 from geossl_tpu.objectives.ncsn import NCSNv3 as JNCSNv3
 from geossl_tpu.objectives.pairs import pair_selection as jpair_selection
 from geossl_tpu.ops import geometry as jgeo
 from geossl_tpu.train import optim as joptim
-from geossl_tpu_torch.config import ModelConfig, SchNetConfig
+from geossl_tpu_torch.config import ModelConfig, PaiNNConfig, SchNetConfig
 from geossl_tpu_torch.data import bucketing as tbucket
 from geossl_tpu_torch.data import masking as tmask
 from geossl_tpu_torch.data.batch import DenseMolBatch
 from geossl_tpu_torch.data.store import MolStore
+from geossl_tpu_torch.models.painn import PaiNN
 from geossl_tpu_torch.models.schnet import SchNet
 from geossl_tpu_torch.objectives.ncsn import NCSNv3, sigma_ladder
 from geossl_tpu_torch.objectives.pairs import pair_selection
@@ -41,8 +47,10 @@ from geossl_tpu_torch.train import checkpoints, optim
 from geossl_tpu_torch.train import pretrain_geossl as PG
 from geossl_tpu_torch.utils.torch_import import (
     ncsn_state_dict_from_flax,
+    painn_state_dict_from_flax,
     schnet_state_dict_from_flax,
 )
+from tests import test_torch_port_painn as P
 from tests import test_torch_port_schnet as S
 
 EMB = 16
@@ -66,15 +74,28 @@ def _step_inputs(pos, mask, step):
     return pos2, draws
 
 
-@pytest.fixture(scope="module")
-def ddm_case():
+# per backbone: (JAX module, port module, flax tree -> port state_dict,
+# extra x64 context for the JAX side)
+_BACKBONES = {
+    "schnet": (lambda: JSchNet(**S.SMALL), lambda: SchNet(**S.SMALL),
+               schnet_state_dict_from_flax, contextlib.nullcontext),
+    "painn": (lambda: JPaiNN(**P.SMALL), lambda: PaiNN(**P.SMALL),
+              painn_state_dict_from_flax, P.f64_casts),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(_BACKBONES))
+def ddm_case(request):
+    model_3d = request.param
+    make_jax, make_port, to_port, jax_ctx = _BACKBONES[model_3d]
+    painn = model_3d == "painn"
     z, pos, mask = S.molecules(3, 16, seed=21, spread=1.2)
     mask[2] = False  # an empty graph slot
     z[2], pos[2] = 0, 0.0
     gm = mask.any(axis=1)
     n = pos.shape[1]
     sel = mask[:, :, None] & mask[:, None, :] & np.triu(np.ones((n, n), bool), 1)
-    jm = JSchNet(**S.SMALL)
+    jm = make_jax()
     head = JNCSNv3(emb_dim=EMB)
     with S.x64():
         k = jax.random.split(jax.random.PRNGKey(3), 3)
@@ -90,9 +111,13 @@ def ddm_case():
 
     def jax_loss(p, pos2, draws):
         zz, mm, gg = jnp.asarray(z), jnp.asarray(mask), jnp.asarray(gm)
-        _, h1 = jm.apply({"params": p["model"]}, zz, jnp.asarray(pos), mm)
-        _, h2 = jm.apply({"params": p["model"]}, zz, pos2, mm)
-        d1, _ = jgeo.pairwise_distances(jnp.asarray(pos), mm)
+        d1, pm = jgeo.pairwise_distances(jnp.asarray(pos), mm)
+        # PaiNN: the clean geometry's radius graph for both views
+        extra = ((jgeo.radius_adjacency(d1, pm, P.CUT),) if painn else ())
+        with jax_ctx():
+            _, h1 = jm.apply({"params": p["model"]}, zz, jnp.asarray(pos), mm,
+                             *extra)
+            _, h2 = jm.apply({"params": p["model"]}, zz, pos2, mm, *extra)
         d2, _ = jgeo.pairwise_distances(pos2, mm)
         s1, n1, s2, n2 = draws
         l1 = head.apply({"params": p["NCSN_01"]}, None, h1, d2,
@@ -102,9 +127,12 @@ def ddm_case():
         return (l1 + l2) / 2
 
     def port():
-        ddm = PG.DDM(SchNet(**S.SMALL), NCSNv3(emb_dim=EMB),
-                     NCSNv3(emb_dim=EMB)).double()
-        ddm.model.load_state_dict(schnet_state_dict_from_flax(params["model"]))
+        # PaiNN: the JAX loss runs the model's XLA path, whose port is
+        # plain=True (the kernels' plain versions use the kernels' RBF
+        # coefficient, ~1e-8 apart in f64)
+        ddm = PG.DDM(make_port(), NCSNv3(emb_dim=EMB), NCSNv3(emb_dim=EMB),
+                     plain=painn).double()
+        ddm.model.load_state_dict(to_port(params["model"]))
         for name in ("NCSN_01", "NCSN_02"):
             getattr(ddm, name).load_state_dict(
                 ncsn_state_dict_from_flax(params[name]))
@@ -115,7 +143,7 @@ def ddm_case():
                           node_mask=torch.from_numpy(mask),
                           graph_mask=torch.from_numpy(gm))
     return dict(params=params, jax_loss=jax_loss, port=port, batch=batch,
-                pos=pos, mask=mask, sel=torch.from_numpy(sel))
+                pos=pos, mask=mask, sel=torch.from_numpy(sel), to_port=to_port)
 
 
 def _port_loss(ddm, case, pos2, draws):
@@ -123,10 +151,9 @@ def _port_loss(ddm, case, pos2, draws):
                tuple(torch.from_numpy(np.asarray(d)) for d in draws))
 
 
-def _as_port_state(tree):
+def _as_port_state(tree, to_port):
     """A JAX param (or gradient) tree in the port's DDM state_dict names."""
-    sd = {f"model.{k}": v for k, v in schnet_state_dict_from_flax(
-        tree["model"]).items()}
+    sd = {f"model.{k}": v for k, v in to_port(tree["model"]).items()}
     for name in ("NCSN_01", "NCSN_02"):
         sd.update({f"{name}.{k}": v for k, v in
                    ncsn_state_dict_from_flax(tree[name]).items()})
@@ -143,7 +170,7 @@ def test_ddm_loss_and_every_gradient_match_jax_f64(ddm_case):
     loss = _port_loss(ddm, ddm_case, pos2, draws)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(want), rtol=1e-10)
-    grads = _as_port_state(jgrad)
+    grads = _as_port_state(jgrad, ddm_case["to_port"])
     named = dict(ddm.named_parameters())
     assert sorted(named) == sorted(grads)
     for name, p in named.items():
@@ -180,7 +207,7 @@ def test_ddm_adam_trajectory_matches_jax_f64(ddm_case):
         sched.step()
         got.append(loss.item())
     np.testing.assert_allclose(got, want, rtol=1e-10)
-    final = _as_port_state(params)
+    final = _as_port_state(params, ddm_case["to_port"])
     for name, p in ddm.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), final[name].numpy(),
                                    rtol=1e-10, atol=1e-12, err_msg=name)
@@ -319,16 +346,28 @@ def _train_argv(out, *extra):
             *TINY, *extra]
 
 
-def test_driver_cli_on_cpu_writes_model_pth_that_serves(tmp_path, capsys):
+_CLI_MODELS = {
+    "schnet": ([], ModelConfig(emb_dim=16, schnet=SchNetConfig(
+        hidden_channels=16, num_filters=16, num_interactions=2,
+        num_gaussians=8))),
+    "painn": (["--model_3d", "painn", "--painn_n_interactions", "2",
+               "--painn_n_rbf", "8"],
+              ModelConfig(model_3d="painn", emb_dim=16, painn=PaiNNConfig(
+                  n_atom_basis=16, n_interactions=2, n_rbf=8))),
+}
+
+
+@pytest.mark.parametrize("model_3d", sorted(_CLI_MODELS))
+def test_driver_cli_on_cpu_writes_model_pth_that_serves(tmp_path, capsys,
+                                                        model_3d):
+    flags, cfg = _CLI_MODELS[model_3d]
     ddm, losses = PG.main(_train_argv(tmp_path, "--epochs", "1",
-                                      "--log_file", str(tmp_path / "log.jsonl")))
+                                      "--log_file", str(tmp_path / "log.jsonl"),
+                                      *flags))
     assert len(losses) >= 2 and np.isfinite(losses).all()  # buckets 32, 64
     assert "Epoch: 1\tSSL Loss" in capsys.readouterr().out
     for name in ("model.pth", "model_final.pth", "state.pth", "log.jsonl"):
         assert os.path.exists(tmp_path / name), name
-    cfg = ModelConfig(emb_dim=16, schnet=SchNetConfig(
-        hidden_channels=16, num_filters=16, num_interactions=2,
-        num_gaussians=8))
     pred = Predictor.from_checkpoint(str(tmp_path / "model_final.pth"), cfg,
                                      device="cpu", bucket_sizes=(32, 64))
     store = jsyn.synthetic_molecule3d(16, max_atoms=40)
@@ -339,14 +378,15 @@ def test_driver_cli_on_cpu_writes_model_pth_that_serves(tmp_path, capsys):
             np.testing.assert_array_equal(v.numpy(),
                                           ddm.model.state_dict()[k].numpy())
     # resume runs only the epochs left
-    _, more = PG.main(_train_argv(tmp_path, "--epochs", "2", "--resume"))
+    _, more = PG.main(_train_argv(tmp_path, "--epochs", "2", "--resume",
+                                  *flags))
     assert "Resumed from" in capsys.readouterr().out
     assert len(more) == len(losses)  # one more epoch
 
 
 @pytest.mark.parametrize("extra,match", [
     (["--GeoSSL_option", "RR"], "only DDM"),
-    (["--model_3d", "painn"], "PaiNN"),
+    (["--GeoSSL_option", "InfoNCE"], "only DDM"),
     (["--steps_per_call", "2"], "steps_per_call"),
     (["--num_devices", "4"], "num_devices"),
 ])
