@@ -1131,9 +1131,10 @@ def main():
                  filt_pairs * fwd_pair + nnz * fwd_elem,
                  4 * (5 * cells + 2 * x.numel() + (R_ + 1) * f3
                       + q0.numel() + mu.numel()), 86),
-                # filter recomputed, dWk/dbk and dphi once per needed pair;
-                # the elementwise D, M, dw, dx, dmu, ddir, dgate terms (~40F)
-                # per ordered pair
+                # filter recomputed and dWk/dbk once per needed pair (both
+                # directions' dwg summed first); dphi = dwg Wk^T, which
+                # ddist needs in each direction, and the elementwise D, M,
+                # dw, dx, dmu, ddir, dgate terms (~40F) per ordered pair
                 ("painn_bwd",
                  lambda: P.painn_bwd(*grids, x, mu, wk0, bk0, gq, gmu, cut_p,
                                      True),
@@ -1142,8 +1143,8 @@ def main():
                      P.painn_bwd_reference(d, g, a, b_, c, xx, m, wk0, bk0,
                                            gq_, gmu_, cut_p),
                      (*grids, x, mu, gq, gmu), (), 8, 7),
-                 filt_pairs * (2 * R_ * f3 + 2 * (R_ + 1) * f3 + 2 * R_ * f3)
-                 + nnz * 40 * F_,
+                 filt_pairs * (2 * R_ * f3 + 2 * (R_ + 1) * f3)
+                 + nnz * (2 * R_ * f3 + 40 * F_),
                  4 * (5 * cells + 5 * grids[0].numel() + 4 * x.numel()
                       + q0.numel() + 2 * (R_ + 1) * f3), 164)):
             kernels.append((name, f"geossl_tpu_torch/ops/csrc/{name}.cu",

@@ -35,7 +35,6 @@ class PaiNNConfig:
     n_interactions: int = 3
     n_rbf: int = 20
     cutoff: float = 5.0
-    n_out: int = 1
     readout: str = "add"  # {"mean", "add"}
     max_z: int = 9  # node_class passed as max_z (pretrain_GeoSSL.py:39)
     shared_interactions: bool = False

@@ -263,17 +263,13 @@ def painn_bwd(dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu, cutoff,
 
 
 def painn_message(dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
-                  symmetric=False, sparse="auto", plain=False):
+                  symmetric=False, sparse="auto"):
     """Dispatcher, routed as ``painn_pallas.painn_message``: the plain-mode
-    kernel with occupancy gating from N=128 ('auto'); ``plain=True`` takes
-    the plain version on any device (the counterpart of
-    ``use_pallas=False``). ``symmetric=True`` (symmetric dist/gate and
-    antisymmetric directions) would take the symmetric kernel from N=256,
-    which is not ported: there it runs the plain version on the CPU and
-    raises on CUDA."""
+    kernel with occupancy gating from N=128 ('auto'). ``symmetric=True``
+    (symmetric dist/gate and antisymmetric directions) would take the
+    symmetric kernel from N=256, which is not ported: there it runs the
+    plain version on the CPU and raises on CUDA."""
     args = (dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff)
-    if plain:
-        return painn_message_reference(*args)
     n = dist.shape[-1]
     if symmetric and sym_profitable(n):  # painn_sym_profitable's sizes
         if dist.device.type == "cpu":

@@ -2,19 +2,12 @@
 counterpart of ``geossl_tpu/utils/profiling.py``'s trace capture).
 
 ``top_device_ops(fn)`` runs ``fn`` once under the profiler and returns the
-device kernels with the most time. Run as a script it profiles one
-GeoSSL-DDM step at the N=128 bucket (B=128, synthetic Molecule3D) and one
-serving pass at the N=512 bucket (synthetic LBA complexes), at the
-published width of the chosen backbone with seeded random weights:
-
-    python -m geossl_tpu_torch.utils.profiling --model_3d painn
-
-It needs a CUDA device and builds the kernels on first use.
+device kernels with the most time. ``chip_smoke.py`` prints its table for
+each backbone's training step and serving pass (the ``top_ops:`` lines).
+It needs a CUDA device.
 """
 
 from __future__ import annotations
-
-import argparse
 
 import torch
 
@@ -42,58 +35,3 @@ def top_device_ops(fn, top: int = 10, warmup: int = 3) -> list:
             us = e.self_cuda_time_total
         rows.append((e.key, us * 1e-3, e.count))
     return sorted(rows, key=lambda r: -r[1])[:top]
-
-
-def _print(title, rows):
-    print(f"== {title}")
-    for name, ms, count in rows:
-        print(f"{ms:10.3f} ms  {count:5d}x  {name[:90]}")
-
-
-def main(argv=None):
-    import numpy as np
-
-    from geossl_tpu_torch.config import ModelConfig
-    from geossl_tpu_torch.data.bucketing import assign_buckets, pack_batch
-    from geossl_tpu_torch.data.molecule3d import load_molecule3d
-    from geossl_tpu_torch.data.store import MolStore
-    from geossl_tpu_torch.data.synthetic import synthetic_lba
-    from geossl_tpu_torch.serve import Predictor
-    from geossl_tpu_torch.train import common
-    from geossl_tpu_torch.train import pretrain_geossl as PG
-
-    p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--model_3d", default="painn", choices=["schnet", "painn"])
-    p.add_argument("--top", type=int, default=25)
-    args = p.parse_args(argv)
-    dev = torch.device("cuda")
-    store = load_molecule3d("", synthetic=True, synthetic_size=1024,
-                            synthetic_max_atoms=100)
-    idx = np.nonzero(assign_buckets(store.num_atoms(), (32, 64, 128))
-                     == 128)[0][:128]
-    batch = pack_batch([store.get(int(i)) for i in idx], 128, 128).to(dev)
-    targs = PG.build_parser().parse_args(["--model_3d", args.model_3d])
-    cfg = common.model_config_from_args(targs)
-    ddm = PG.make_ddm(targs, cfg, torch.Generator().manual_seed(0)).to(dev)
-    opt, sched = common.make_optimizer_from_args(targs, ddm.parameters(), 100)
-    gen = torch.Generator(dev).manual_seed(0)
-    _print(f"{args.model_3d} DDM step, B=128 N=128", top_device_ops(
-        lambda: PG.train_step(ddm, opt, sched, [batch], targs, gen), args.top))
-
-    lba = synthetic_lba(32, seed=2, max_atoms=400)
-    recs = [lba.get(i) for i in range(len(lba))]
-    for r in recs:
-        r.y = None
-    big = MolStore.from_records([r for r in recs if r.num_atoms > 256])
-    cfg = ModelConfig(model_3d=args.model_3d)
-    g = torch.Generator().manual_seed(0)
-    state = {"model": common.make_backbone(cfg, g).state_dict(),
-             "graph_pred_linear": common.make_head(
-                 args.model_3d, cfg.emb_dim, g).state_dict()}
-    pred = Predictor(cfg, state, batch_size=128, bucket_sizes=(512,))
-    _print(f"{args.model_3d} serving, {len(big)} molecules at N=512",
-           top_device_ops(lambda: pred.predict(big), args.top))
-
-
-if __name__ == "__main__":
-    main()
