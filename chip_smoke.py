@@ -23,6 +23,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    flip where a pre-activation lies within rounding of zero). ``cfconv_bwd``'s
    denv is compared on occupied 8x8 tiles and must be zero on the others
    (the occupancy contract of ``geossl_tpu/ops/pallas_utils.py``).
+   ``cfconv_bwd_sym`` likewise on LBA complexes (N=256, N=512 and a pad
+   of 260), ddist and denv by its placement contract: the plain version's
+   true cotangents placed as ``ops/cfconv.place_sym_cotangent`` says (on
+   8x8 tiles above the diagonal the sum of a cell's and its mirror's, on
+   diagonal tiles the cell's own, below the diagonal and, with gating, on
+   empty tiles zero), elementwise with the scaled atol; dx elementwise.
    PaiNN's kernels likewise, at full width (F=128, R=20, cutoff 5):
    ``painn_fwd`` elementwise at rtol 1e-4 / atol 1e-5; ``painn_bwd``'s
    seven per-pair and per-node cotangents elementwise (scaled atol) and
@@ -48,8 +54,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
       finite values. Then one full-width step per bucket with kernels is
       held to the same step with the plain versions (the same injected
       noise; loss rtol 1e-4, all gradients together by relative norm 1e-3
-      and each parameter's by 1e-2), and the symmetric CFConv and the stack
-      must refuse autograd. Then the same for PaiNN-DDM
+      and each parameter's by 1e-2). A gradient must flow through the
+      symmetric CFConv (``cfconv_bwd_sym``) and a second order through it
+      must raise; the stack must refuse autograd. Then the same for PaiNN-DDM
       (``--model_3d painn``: ``painn_fwd``/``painn_bwd`` in the backbone,
       the clean geometry's radius graph as both views' pair mask), whose
       whole-stack kernel must refuse autograd. The comparisons run on a
@@ -58,12 +65,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
       digits, which pre-activations sit within rounding of a relu's kink
       changes between runs, and in one of five runs kinks crossed by one
       side only moved the head kernel's db_d2 by 1.7x its value.
+   c. Fine-tunes at N=512: ``train.finetune_lba.main`` at the published
+      settings (SchNet F=128, L=6, G=51, cutoff 10; batch 64, bucket 512,
+      lr 1e-4, Morton sort on) for 2 epochs of a synthetic LBA store of 160
+      complexes (2 training batches, 16 val and 16 test complexes) from the
+      DDM-SchNet ``model.pth`` of b: ``cfconv_fwd_sym`` and
+      ``cfconv_bwd_sym`` must launch, losses and metrics be finite, and the
+      written ``model.pth`` must give the run's best val MSE again under
+      ``--eval_only``. The same for ``train.finetune_lep.main`` at its
+      defaults (batch 16, bucket 512) for 1 epoch of 64 synthetic pairs,
+      and for 2 PaiNN LBA steps (``painn_fwd``/``painn_bwd`` at N=512)
+      from the DDM-PaiNN ``model.pth``. Then one full-width LBA-SchNet step
+      at N=512 with kernels is held to the same step with the plain
+      versions (in chunks of 4 graphs; tolerances as in b) on a freshly
+      seeded net.
 4. Measurements: serving mol/s per bucket (steady state, synchronized) and
    one traced pass per bucket (torch.profiler: device busy time, the
    port's kernels' share, idle share); training mol/s per bucket (median of
    3 synchronized steps after a warm-up) and one traced step per bucket,
    for both backbones, and the kernels with the most device time at each
-   path's largest bucket;
+   path's largest bucket; fine-tune complexes/s (LEP: pairs/s) at N=512,
+   one traced step and its top device kernels, for LBA and LEP;
    each kernel's time at the shape its path gives it, beside its plain
    version's time and its bound (f32 CUDA-core peak and HBM rate; the
    pairs with nonzero env or sel, and with symmetric dist/env each pair's
@@ -180,7 +202,8 @@ KERNEL_ENTRIES = {
     "cfconv_fwd": ("cfconv_fwd", "_ZN6geossl17cfconv_fwd_kernelILb0E"),
     "cfconv_fwd_sym": ("cfconv_fwd", "_ZN6geossl17cfconv_fwd_kernelILb1E"),
     "schnet_stack": ("schnet_stack", "_ZN6geossl19schnet_stack_kernel"),
-    "cfconv_bwd": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernel"),
+    "cfconv_bwd": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb0E"),
+    "cfconv_bwd_sym": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb1E"),
     "ncsn_score_fwd": ("ncsn_score", "_ZN6geossl15ncsn_fwd_kernel"),
     "ncsn_score_bwd": ("ncsn_score", "_ZN6geossl15ncsn_bwd_kernel"),
     "painn_fwd": ("painn_fwd", "_ZN6geossl16painn_fwd_kernel"),
@@ -337,6 +360,38 @@ def check_cfconv_bwd(errs, dist, env, x, g, fw, G, cutoff, what, chunk=None):
                            BWD_NAMES[3:], f"{what} sparse={sp}")
 
 
+def check_cfconv_bwd_sym(errs, dist, env, x, g, fw, G, cutoff, what,
+                         chunk=None):
+    """cfconv_bwd_sym against its plain version, gating off and on: ddist
+    and denv by the placement contract (``ops/cfconv.place_sym_cotangent``
+    of the plain, unplaced cotangents; with gating also zero on empty 8x8
+    tiles), elementwise with the scaled atol; dx elementwise; the weight
+    gradients by relative norm."""
+    import torch
+
+    from geossl_tpu_torch.ops import cfconv as K
+
+    args = (0.0, cutoff, G)
+    if chunk is None:
+        want = K.cfconv_bwd_sym_reference(dist, env, x, g, *fw, *args)
+    else:
+        want = chunked_sum(K.cfconv_bwd_sym_reference, (dist, env, x, g),
+                           (*fw, *args), chunk, 3)
+    want = (*(K.place_sym_cotangent(w) for w in want[:2]), *want[2:])
+    occ = tile_occupied(env)
+    for sp in (False, True):
+        got = K.cfconv_bwd_sym(dist, env, x, g, *fw, *args, sp)
+        for k, (name, a, w) in enumerate(zip(BWD_NAMES[:3], got, want)):
+            tag = f"{what} sparse={sp} {name}"
+            if k < 2 and sp:
+                if (a[~occ] != 0).any():
+                    fail(f"cfconv_bwd_sym {tag}: nonzero on an empty tile")
+                w = torch.where(occ, w, torch.zeros_like(w))
+            errs.check_scaled("cfconv_bwd_sym", a, w, tag)
+        check_weight_grads(errs, "cfconv_bwd_sym", got[3:], want[3:],
+                           BWD_NAMES[3:], f"{what} sparse={sp}")
+
+
 PAINN_BWD_NAMES = ("ddist", "dgate", "ddirx", "ddiry", "ddirz", "dx", "dmu",
                    "dWk", "dbk")
 
@@ -453,6 +508,41 @@ def measure_training(ddm, targs, batches, model_3d):
     print_top_ops(step, model_3d, "train", b)
 
 
+def measure_finetune(net, fargs, batch, loss_fn, task, items):
+    """Fine-tune throughput at N=512 (median of 3 synchronized optimizer
+    steps after a warm-up: ``items`` complexes, or LEP pairs, per step),
+    one traced step, and the step's top device kernels."""
+    import torch
+
+    from geossl_tpu_torch.train import common
+
+    opt, sched = common.make_optimizer_from_args(fargs, net.parameters(), 100)
+
+    def step():
+        return common.finetune_step(net, opt, sched, [batch], loss_fn)
+
+    device_profile(step)  # profiler start-up
+    step()  # warm-up
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t = sorted(times)[1]
+    model_3d = fargs.model_3d
+    print("finetune: " + json.dumps({"task": task, "model": model_3d,
+                                     "bucket": batch.max_atoms,
+                                     "items": items, "s_per_step": t,
+                                     "items_per_s": items / t}))
+    wall, busy, ours = device_profile(step)
+    print("finetune_profile: " + json.dumps({
+        "task": task, "model": model_3d, "bucket": batch.max_atoms,
+        "traced_wall_s": wall, "device_busy_s": busy, "port_kernels_s": ours,
+        "other_device_s": busy - ours, "idle_share": 1.0 - busy / wall}))
+    print_top_ops(step, model_3d, f"finetune_{task}", batch.max_atoms)
+
+
 def ncsn_inputs(ddm, batch, targs, seed):
     """The head's kernel inputs on this batch as the training step makes
     them: (dist of the perturbed view, noise, sel, sigma, u), the ten
@@ -518,14 +608,15 @@ def sub_batch(batch, sl):
                              if getattr(batch, f.name) is not None})
 
 
-def ddm_grads(ddm, batch, pos2, sel, draws, chunk=None):
-    """(loss, {name: gradient}) of one DDM step; ``chunk`` splits the batch
-    into graph chunks weighted by their share of the real graphs (the loss
-    is a mean over real graphs), for the plain versions' memory."""
-    ddm.zero_grad(set_to_none=True)
-    b = batch.batch_size
-    chunk = chunk or b
+def grads_in_chunks(module, batch, loss_of, chunk=None):
+    """(loss, {name: gradient}) of one step whose loss is a mean over the
+    real graphs; ``loss_of(sub_batch, sl)`` is the loss of the graphs in
+    slice ``sl``. ``chunk`` splits the batch into graph chunks weighted by
+    their share of the real graphs, for the plain versions' memory."""
+    module.zero_grad(set_to_none=True)
     gm = batch.graph_mask
+    b = gm.shape[0]
+    chunk = chunk or b
     count = max(int(gm.sum()), 1)
     total = 0.0
     for s in range(0, b, chunk):
@@ -533,12 +624,42 @@ def ddm_grads(ddm, batch, pos2, sel, draws, chunk=None):
         c = int(gm[sl].sum())
         if c == 0:
             continue
-        loss = ddm(sub_batch(batch, sl), pos2[sl], sel[sl],
-                   tuple(t[sl] for t in draws)) * (c / count)
+        loss = loss_of(sub_batch(batch, sl), sl) * (c / count)
         loss.backward()
         total += loss.item()
     return total, {n: p.grad.detach().clone()
-                   for n, p in ddm.named_parameters()}
+                   for n, p in module.named_parameters()}
+
+
+def ddm_grads(ddm, batch, pos2, sel, draws, chunk=None):
+    """``grads_in_chunks`` of one DDM step with injected noise."""
+    return grads_in_chunks(
+        ddm, batch, lambda sb, sl: ddm(sb, pos2[sl], sel[sl],
+                                       tuple(t[sl] for t in draws)), chunk)
+
+
+def check_step_parity(what, loss_k, grads_k, loss_p, grads_p):
+    """A step with kernels against the same step with the plain versions:
+    loss rtol RTOL, all gradients together by relative norm GRAD_RTOL and
+    each parameter's by 10x that."""
+    import torch
+
+    if not abs(loss_k - loss_p) <= RTOL * abs(loss_p):
+        fail(f"{what}: loss {loss_k} (kernels) vs {loss_p} (plain)")
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    per = {n: rel(grads_k[n], grads_p[n]) for n in grads_p}
+    worst = max(per, key=per.get)
+    total = rel(torch.cat([g.flatten() for g in grads_k.values()]),
+                torch.cat([g.flatten() for g in grads_p.values()]))
+    if total > GRAD_RTOL or per[worst] > 10 * GRAD_RTOL:
+        fail(f"{what}: gradients differ by relative norm {total:.3e} in all, "
+             f"{per[worst]:.3e} in {worst}")
+    print(f"{what}: loss {loss_k:.6f} vs {loss_p:.6f}, gradient rel_norm "
+          f"{total:.3e} in all {len(per)} tensors, worst {per[worst]:.3e} "
+          f"({worst})")
 
 
 def step_parity(ddm, batch, targs, bucket, model_3d="SchNet"):
@@ -560,23 +681,8 @@ def step_parity(ddm, batch, targs, bucket, model_3d="SchNet"):
     ddm.plain = True
     loss_p, grads_p = ddm_grads(ddm, batch, pos2, sel, draws, chunk=16)
     ddm.plain = False
-    if not abs(loss_k - loss_p) <= RTOL * abs(loss_p):
-        fail(f"{model_3d} DDM step bucket {bucket}: loss {loss_k} (kernels) "
-             f"vs {loss_p} (plain)")
-    def rel(a, b):
-        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
-
-    per = {n: rel(grads_k[n], grads_p[n]) for n in grads_p}
-    worst = max(per, key=per.get)
-    total = rel(torch.cat([g.flatten() for g in grads_k.values()]),
-                torch.cat([g.flatten() for g in grads_p.values()]))
-    if total > GRAD_RTOL or per[worst] > 10 * GRAD_RTOL:
-        fail(f"{model_3d} DDM step bucket {bucket}: gradients differ by "
-             f"relative norm {total:.3e} in all, {per[worst]:.3e} in {worst}")
-    print(f"{model_3d} step parity bucket {bucket}: loss {loss_k:.6f} vs "
-          f"{loss_p:.6f}, "
-          f"gradient rel_norm {total:.3e} in all {len(per)} tensors, worst "
-          f"{per[worst]:.3e} ({worst})")
+    check_step_parity(f"{model_3d} step parity bucket {bucket}", loss_k,
+                      grads_k, loss_p, grads_p)
 
 
 def refuses_grad(fn):
@@ -621,6 +727,9 @@ def main():
     from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
     from geossl_tpu_torch.serve import Predictor
     from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.data.bucketing import BucketedLoader
+    from geossl_tpu_torch.train import finetune_lba as FL
+    from geossl_tpu_torch.train import finetune_lep as FE
     from geossl_tpu_torch.train import pretrain_geossl as PG
     from geossl_tpu_torch.train.common import make_backbone, make_head
 
@@ -735,6 +844,14 @@ def main():
         dist, env, x = dist.clone(), env.clone(), x.clone()
         g = torch.randn(x.shape, generator=gen_g).to(dev)
         check_cfconv_bwd(errs, dist, env, x, g, filt_g, G, cutoff, f"B=8 N={n}")
+    # the symmetric backward on LBA complexes: the buckets of its path and
+    # a pad that is no multiple of the 8-atom tile
+    for b, n in ((256, 256), (512, 512), (256, 260)):
+        _, dist, env, _, x = layer0_inputs(model, first(b, 2), n)
+        dist, env, x = dist.clone(), env.clone(), x.clone()
+        g = torch.randn(x.shape, generator=gen_g).to(dev)
+        check_cfconv_bwd_sym(errs, dist, env, x, g, filt_g, G, cutoff,
+                             f"B=2 N={n}")
     for b in (32, 128):
         batch = pack_batch([sorted_store.get(int(i)) for i in first(b, 8)],
                            b).to(dev)
@@ -881,13 +998,35 @@ def main():
 
     for b in train_buckets:
         step_parity(ddm0, train_batch(b), targs, b)
-    _, d256, e256, h256, x256 = layer0_inputs(model, first(256, 2), 256)
-    w_grad = [w.detach().clone().requires_grad_(True) for w in filt_g]
-    msg = refuses_grad(lambda: K.cfconv_fused_sym(
-        d256.clone(), e256.clone(), x256.clone(), *w_grad, 0.0, cutoff, G, True))
-    if msg is None or "#4" not in msg:
-        fail(f"cfconv_fused_sym under autograd on CUDA: {msg!r}")
-    print(f"grad guard cfconv_fwd_sym: {msg}")
+    # the symmetric CFConv is differentiable on the card: a gradient flows
+    # through cfconv_bwd_sym to x and the filter weights; a second order
+    # raises
+    _, d256, e256, _, x256 = layer0_inputs(model, first(256, 2), 256)
+    d256, e256 = d256.clone(), e256.clone()
+    ins = [x256.clone().requires_grad_(True)] + \
+        [w.detach().clone().requires_grad_(True) for w in filt_g]
+    before = K.cfconv_bwd_sym.launches
+    K.cfconv_fused_sym(d256, e256, *ins, 0.0, cutoff, G,
+                       True).square().sum().backward()
+    torch.cuda.synchronize()
+    if K.cfconv_bwd_sym.launches != before + 1 or not all(
+            t.grad is not None and torch.isfinite(t.grad).all()
+            and t.grad.abs().sum() > 0 for t in ins):
+        fail("cfconv_fused_sym under autograd on CUDA: no finite nonzero "
+             "gradient through cfconv_bwd_sym")
+    print("gradient flows through cfconv_fwd_sym: cfconv_bwd_sym launched, "
+          "x and the filter weights get finite nonzero gradients")
+
+    def sym_double_backward():
+        xx = x256.clone().requires_grad_(True)
+        out = K.cfconv_fused_sym(d256, e256, xx, *filt_g, 0.0, cutoff, G, True)
+        (gx,) = torch.autograd.grad(out.square().sum(), xx, create_graph=True)
+        gx.sum().backward()
+
+    msg = refuses_grad(sym_double_backward)
+    if msg is None:
+        fail("a double backward through cfconv_fwd_sym on CUDA did not raise")
+    print(f"grad guard cfconv_bwd_sym (second order): {msg}")
     with torch.no_grad():
         stack_w = [t.clone().requires_grad_(True) for t in model.stacked_weights()]
     _, d128, e128, h128, _ = layer0_inputs(model, first(128, 2), 128)
@@ -949,6 +1088,74 @@ def main():
     if msg is None:
         fail("a double backward through painn_fwd on CUDA did not raise")
     print(f"grad guard painn_bwd (second order): {msg}")
+
+    # -- 3c. main path: the Atom3D fine-tunes at N=512 --------------------------
+    pretrained = os.path.join(out_dir, "model.pth")  # DDM-SchNet, phase 3b
+    lba_flags = ["--synthetic", "--synthetic_size", "160"]
+    lep_flags = ["--synthetic", "--synthetic_size", "64"]
+
+    def finetune_path(driver, task, flags, kernels, model_3d="schnet",
+                      pre=pretrained):
+        """driver.main from the pretrained model.pth (launch counts,
+        finite losses and metrics), then its model.pth under --eval_only."""
+        run_dir = os.path.join(ROOT, "runs", f"chip_smoke_{task}_{model_3d}")
+        shutil.rmtree(run_dir, ignore_errors=True)
+        reset_launch_counts()
+        t0 = time.time()
+        _, best, test, losses = driver.main(
+            flags + ["--model_3d", model_3d, "--input_model_file", pre,
+                     "--output_model_dir", run_dir])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"main path ({task} fine-tune, {model_3d}): {len(losses)} steps "
+              f"in {time.time() - t0:.2f} s (first call); launches {counts}")
+        for name in kernels:
+            if counts[name] == 0:
+                fail(f"kernel {name} was not launched on the {task} path")
+        if not losses or not all(math.isfinite(v) for v in losses) or \
+                not math.isfinite(best) or \
+                not all(math.isfinite(v) for v in test.values()):
+            fail(f"{task} {model_3d}: losses {losses}, best val {best}, "
+                 f"test {test}")
+        print(f"{task} {model_3d} losses: {losses}; best val {best}; test at "
+              f"best {test}")
+        _, val_e, _, _ = driver.main(
+            flags + ["--model_3d", model_3d, "--eval_only",
+                     "--input_model_file", os.path.join(run_dir, "model.pth")])
+        if not abs(val_e - best) <= RTOL * abs(best):
+            fail(f"{task} {model_3d}: model.pth under --eval_only reads val "
+                 f"{val_e}, the run's best was {best}")
+        print(f"{task} {model_3d}: model.pth reloads under --eval_only (val "
+              f"{val_e})")
+        return counts
+
+    lba_launches = finetune_path(FL, "lba", lba_flags + ["--epochs", "2"],
+                                 ("cfconv_fwd_sym", "cfconv_bwd_sym"))
+    finetune_path(FE, "lep", lep_flags + ["--epochs", "1"],
+                  ("cfconv_fwd_sym", "cfconv_bwd_sym"))
+    # PaiNN at N=512 from the DDM-PaiNN model.pth: painn_fwd/painn_bwd at a
+    # shape the DDM path does not give them
+    finetune_path(FL, "lba", lba_flags + ["--epochs", "1"],
+                  ("painn_fwd", "painn_bwd"), "painn",
+                  os.path.join(out_dir_p, "model.pth"))
+
+    # one full-width LBA-SchNet step at N=512 with kernels against the same
+    # step with the plain versions (in graph chunks), on a freshly seeded net
+    lba_args = FL.build_parser().parse_args(lba_flags)
+    lba_batch = next(iter(BucketedLoader(FL.load_splits(lba_args)[0], 64,
+                                         (512,), seed=SEED).epoch(1))).to(dev)
+    net0 = FL.make_net(lba_args, common.model_config_from_args(lba_args),
+                       torch.Generator().manual_seed(SEED)).to(dev)
+
+    def lba_loss(sb, sl):
+        return FL.loss_fn(net0, sb)
+
+    loss_k, grads_k = grads_in_chunks(net0, lba_batch, lba_loss)
+    net0.plain = True
+    loss_p, grads_p = grads_in_chunks(net0, lba_batch, lba_loss, chunk=4)
+    net0.plain = False
+    check_step_parity("LBA-SchNet step parity bucket 512", loss_k, grads_k,
+                      loss_p, grads_p)
 
     # -- 4. measurements -----------------------------------------------------------
     subs = {b: MolStore.from_records([sorted_store.get(int(i))
@@ -1014,6 +1221,16 @@ def main():
     tbatches = [train_batch(b) for b in train_buckets]
     measure_training(ddm, targs, tbatches, "schnet")
     measure_training(ddm_p, targs_p, tbatches, "painn")
+    measure_finetune(net0, lba_args, lba_batch, FL.loss_fn, "lba",
+                     int(lba_batch.graph_mask.sum()))
+    lep_args = FE.build_parser().parse_args(lep_flags)
+    lep_batch = next(iter(FE.DualLoader(
+        *FE.load_splits(lep_args)["train"], 16, (512,), shuffle=True,
+        seed=SEED).epoch(1))).to(dev)
+    lep_net = FE.make_net(lep_args, common.model_config_from_args(lep_args),
+                          torch.Generator().manual_seed(SEED)).to(dev)
+    measure_finetune(lep_net, lep_args, lep_batch, FE.loss_fn, "lep",
+                     int(lep_batch.active.graph_mask.sum()))
 
     # the three training kernels at the DDM shape (B=128, N=128)
     batch = train_batch(128)
@@ -1044,6 +1261,42 @@ def main():
     kernels.append(("cfconv_bwd", "geossl_tpu_torch/ops/csrc/cfconv_bwd.cu",
                     "geossl_tpu/ops/cfconv_pallas.py:150", ms, plain_ms, flops,
                     nbytes, train_launches["cfconv_bwd"]))
+
+    # the symmetric backward at the LBA shape (B=64, N=512, block 0 of a
+    # freshly seeded net)
+    with torch.no_grad():
+        m = net0.model
+        dist, adj = m.geometry(lba_batch.positions, lba_batch.node_mask)
+        dist = dist.contiguous()
+        env = (cosine_envelope(dist, cutoff) * adj.float()).contiguous()
+        blk = m.interactions[0]
+        x = blk.conv.lin1(m.embedding(lba_batch.atom_type)).contiguous()
+        fw = blk.filter_weights()
+    g = torch.randn(x.shape, generator=torch.Generator(dev).manual_seed(SEED),
+                    device=dev)
+    check_cfconv_bwd_sym(errs, dist, env, x, g, fw, G, cutoff,
+                         "LBA B=64 N=512", chunk=4)
+    ms = cuda_time_ms(lambda: K.cfconv_bwd_sym(dist, env, x, g, *fw, 0.0,
+                                               cutoff, G, True))
+    plain_ms = cuda_time_ms(lambda: chunked_sum(
+        K.cfconv_bwd_sym_reference, (dist, env, x, g), (*fw, 0.0, cutoff, G),
+        4, 3), reps=3, warmup=1)
+    # the kernel header's claim: all but dx (atomics) repeat bitwise
+    again = [K.cfconv_bwd_sym(dist, env, x, g, *fw, 0.0, cutoff, G, True)
+             for _ in range(2)]
+    print("cfconv_bwd_sym repeats bitwise: " + json.dumps(
+        {n: torch.equal(a, b) for n, a, b in zip(BWD_NAMES, *again)}))
+    nnz, filt_pairs, cells = pair_work(dist, env)
+    if cells == dist.numel():
+        fail("cfconv_bwd_sym: the LBA dist/env are not symmetric")
+    # per pair with env != 0 counted once (one triangle): the filter, dW2,
+    # dh, dW1 and drbf on the combined cotangent; per ordered pair the
+    # elementwise q/denv/dx terms
+    flops = filt_pairs * (6 * G * F_ + 6 * F_ * F_) + nnz * 6 * F_
+    nbytes = 4 * (2 * cells + 2 * dist.numel() + 3 * x.numel() + 2 * wsize)
+    kernels.append(("cfconv_bwd_sym", "geossl_tpu_torch/ops/csrc/cfconv_bwd.cu",
+                    "geossl_tpu/ops/cfconv_pallas.py:464", ms, plain_ms, flops,
+                    nbytes, lba_launches["cfconv_bwd_sym"]))
 
     grid, weights, anneal = ncsn_inputs(ddm0, batch, targs, SEED)
     g_rows = check_ncsn(errs, grid, weights, anneal, "DDM B=128 N=128", chunk=16)

@@ -40,3 +40,23 @@ class DenseMolBatch:
         return replace(self, **{
             f.name: getattr(self, f.name).to(device, non_blocking=non_blocking)
             for f in fields(self) if getattr(self, f.name) is not None})
+
+
+@dataclass
+class DualMolBatch:
+    """A padded batch of (active, inactive) structure pairs for LEP, both
+    towers at one padded width (reference
+    ``Geom3D/dataloaders/dataloaders_LEP.py:6-68``)."""
+
+    active: DenseMolBatch
+    inactive: DenseMolBatch
+    y: torch.Tensor  # [B] float binary labels
+
+    @property
+    def max_atoms(self) -> int:
+        return self.active.max_atoms
+
+    def to(self, device, non_blocking: bool = False) -> "DualMolBatch":
+        return DualMolBatch(self.active.to(device, non_blocking),
+                            self.inactive.to(device, non_blocking),
+                            self.y.to(device, non_blocking=non_blocking))

@@ -43,16 +43,23 @@ def assign_buckets(sizes: np.ndarray, bucket_sizes: Sequence[int]) -> np.ndarray
     return ladder[slot]
 
 
-def bucket_chunks(bucket_of, batch_size, rng):
-    """Per-bucket index chunks, shuffled within each bucket, with the
-    epoch's batch order shuffled across buckets (the reference DataLoader's
-    uniform shuffle in distribution)."""
+def bucket_chunks(bucket_of, batch_size, rng, shuffle=True, drop_last=False):
+    """Per-bucket index chunks. With ``shuffle`` each bucket is shuffled and
+    the epoch's batch order is shuffled across buckets (the reference
+    DataLoader's uniform shuffle in distribution); without it the chunks
+    keep store order, bucket by bucket. ``drop_last`` drops each bucket's
+    partial chunk."""
     chunks = []
     for bucket in np.unique(bucket_of):
-        idx = rng.permutation(np.where(bucket_of == bucket)[0])
+        idx = np.where(bucket_of == bucket)[0]
+        if shuffle:
+            idx = rng.permutation(idx)
         for s in range(0, len(idx), batch_size):
-            chunks.append((int(bucket), idx[s:s + batch_size]))
-    if len(chunks) > 1:
+            chunk = idx[s:s + batch_size]
+            if len(chunk) < batch_size and drop_last:
+                continue
+            chunks.append((int(bucket), chunk))
+    if shuffle and len(chunks) > 1:
         chunks = [chunks[i] for i in rng.permutation(len(chunks))]
     return chunks
 
@@ -91,19 +98,22 @@ def pack_batch(records: Sequence[MolRecord], n_max: int,
 class BucketedLoader:
     """Iterate a MolStore as padded batches: molecules go to the smallest
     bucket that fits, batches are same-bucket, and the epoch's batch order
-    is shuffled across buckets. One epoch is deterministic per
+    is shuffled across buckets (``shuffle=False``: store order, as the
+    fine-tunes' eval loaders). One epoch is deterministic per
     ``(seed, epoch)``: the same NumPy stream as the JAX package's loader
-    (shuffling, no dropped batches) feeds the shuffle and then the
-    transform (e.g. BFS masking)."""
+    (no dropped batches) feeds the shuffle and then the transform (e.g. BFS
+    masking)."""
 
     def __init__(self, store: MolStore, batch_size: int,
                  bucket_sizes: Sequence[int], seed: int = 0,
                  transform: Optional[Callable[[MolRecord, np.random.Generator],
-                                              MolRecord]] = None):
+                                              MolRecord]] = None,
+                 shuffle: bool = True):
         self.store = store
         self.batch_size = batch_size
         self.seed = seed
         self.transform = transform
+        self.shuffle = shuffle
         self._bucket_of = assign_buckets(store.num_atoms(), sorted(bucket_sizes))
 
     def __len__(self) -> int:
@@ -114,7 +124,7 @@ class BucketedLoader:
         """One epoch of batches (CPU tensors)."""
         rng = np.random.default_rng((self.seed, epoch))
         for bucket, chunk in bucket_chunks(self._bucket_of, self.batch_size,
-                                           rng):
+                                           rng, self.shuffle):
             records = [self.store.get(int(i)) for i in chunk]
             if self.transform is not None:
                 records = [self.transform(r, rng) for r in records]

@@ -67,6 +67,36 @@ class MolStore:
     def __getitem__(self, i: int) -> MolRecord:
         return self.get(i)
 
+    def select(self, indices) -> "MolStore":
+        """The store of the molecules ``indices``, in that order (the
+        splits' subsets), gathered from the flat arrays at once."""
+        idx = np.asarray(indices, np.int64)
+
+        def flat_gather(flat, offsets):
+            lens = offsets[idx + 1] - offsets[idx]
+            new_offsets = np.zeros(len(idx) + 1, np.int64)
+            np.cumsum(lens, out=new_offsets[1:])
+            # absolute element positions: start_i + (0..len_i-1) per record
+            starts = np.repeat(offsets[idx], lens)
+            within = np.arange(new_offsets[-1]) - np.repeat(new_offsets[:-1],
+                                                            lens)
+            return flat[starts + within], new_offsets
+
+        atom_type, offsets = flat_gather(self.atom_type, self.offsets)
+        positions, _ = flat_gather(self.positions, self.offsets)
+        chirality = forces = bond_index = bond_offsets = None
+        if self.chirality is not None:
+            chirality, _ = flat_gather(self.chirality, self.offsets)
+        if self.forces is not None:
+            forces, _ = flat_gather(self.forces, self.offsets)
+        if self.bond_index is not None:
+            bond_t, bond_offsets = flat_gather(self.bond_index.T,
+                                               self.bond_offsets)
+            bond_index = np.ascontiguousarray(bond_t.T)
+        y = None if self.y is None else self.y[idx]
+        return MolStore(atom_type, positions, offsets, chirality, bond_index,
+                        bond_offsets, y, forces)
+
     @staticmethod
     def from_records(records: List[MolRecord]) -> "MolStore":
         offsets = np.zeros(len(records) + 1, np.int64)

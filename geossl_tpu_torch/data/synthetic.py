@@ -79,3 +79,32 @@ def synthetic_lba(num_complexes: int = 64, seed: int = 2,
         rec.y = np.asarray([_geometry_label(rec)], np.float32)
         records.append(rec)
     return MolStore.from_records(records)
+
+
+def synthetic_lep(num_pairs: int = 48, seed: int = 3, max_atoms: int = 300):
+    """LEP stand-in: (active store, inactive store, labels). The balanced
+    labels are encoded in the geometry: an active's inactive conformation
+    stays compact, an inactive's spreads out."""
+    rng = np.random.default_rng(seed)
+    act, inact, labels = [], [], []
+    lo = min(80, max(2, max_atoms // 2))
+    for _ in range(num_pairs):
+        n = int(rng.integers(lo, max_atoms + 1))
+        a = _random_molecule(rng, n)
+        a.positions *= 2.0
+        label = float(rng.integers(0, 2))
+        spread = 0.2 if label > 0 else 2.0
+        b = MolRecord(
+            atom_type=a.atom_type.copy(),
+            positions=(a.positions + rng.normal(scale=spread,
+                                                size=a.positions.shape)
+                       ).astype(np.float32),
+            chirality=a.chirality.copy(),
+            bond_index=a.bond_index.copy())
+        a.y = np.asarray([label], np.float32)
+        b.y = np.asarray([label], np.float32)
+        act.append(a)
+        inact.append(b)
+        labels.append(label)
+    return (MolStore.from_records(act), MolStore.from_records(inact),
+            np.asarray(labels, np.float32))

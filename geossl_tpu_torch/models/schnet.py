@@ -14,9 +14,10 @@ The radius graph is recomputed from the live positions every forward,
 the JAX package's reconstruction (``dipole_readout``).
 
 ``SchNet.forward`` is the training path: each block's CFConv goes through
-``ops/cfconv.cfconv``, differentiable on the card below N=256 (the
-``cfconv_fwd``/``cfconv_bwd`` kernels); ``fused_stack_apply`` is inference
-only.
+``ops/cfconv.cfconv``, differentiable on the card at every N (below N=256
+the ``cfconv_fwd``/``cfconv_bwd`` kernels, from N=256 with symmetric
+dist/env their symmetric modes, ``cfconv_fwd_sym``/``cfconv_bwd_sym``);
+``fused_stack_apply`` is inference only.
 """
 
 from __future__ import annotations

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from geossl_tpu_torch.models.common import xavier_uniform_
+from geossl_tpu_torch.ops.geometry import graph_masked_mean
 from geossl_tpu_torch.ops.ncsn import (
     WEIGHT_NAMES,
     ncsn_score_loss,
@@ -36,14 +37,6 @@ def sigma_ladder(sigma_begin: float, sigma_end: float,
     """Geometric σ schedule (``NCSN.py:178-179``), float32."""
     return np.exp(np.linspace(math.log(sigma_begin), math.log(sigma_end),
                               num_noise_level)).astype(np.float32)
-
-
-def graph_masked_mean(per_graph: torch.Tensor,
-                      graph_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    if graph_mask is None:
-        return per_graph.mean()
-    gm = graph_mask.to(per_graph.dtype)
-    return torch.sum(per_graph * gm) / torch.clamp(gm.sum(), min=1.0)
 
 
 class NCSNv3(nn.Module):

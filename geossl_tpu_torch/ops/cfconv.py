@@ -13,12 +13,18 @@ Kernels:
   differentiable: its backward is ``cfconv_bwd``
 * ``cfconv_bwd``       -> ``csrc/cfconv_bwd.cu`` (replaces ``_bwd_kernel``)
 * ``cfconv_fused_sym`` -> ``csrc/cfconv_fwd.cu`` in symmetric mode
-  (replaces ``_fwd_sym_kernel``); no backward yet (``_bwd_sym_kernel``)
+  (replaces ``_fwd_sym_kernel``); differentiable: its backward is
+  ``cfconv_bwd_sym``
+* ``cfconv_bwd_sym``   -> ``csrc/cfconv_bwd.cu`` in symmetric mode
+  (replaces ``_bwd_sym_kernel``); ddist/denv come back placed
+  (:func:`place_sym_cotangent`)
 * ``schnet_stack``     -> ``csrc/schnet_stack.cu`` (replaces
-  ``_stack_kernel`` / ``schnet_stack_infer``); inference only
+  ``_stack_kernel`` / ``schnet_stack_infer``); inference only: it raises
+  under autograd on a CUDA device instead of returning a tensor cut off
+  from the graph
 
-On a CUDA device the two without a backward raise under autograd instead
-of returning a tensor cut off from the graph.
+The two CFConv Functions are first order only: a double backward on CUDA
+(MD17 force training) raises ``NotImplementedError``.
 
 The kernels compute in plain f32 (no TF32); ``plain_precision()`` sets the
 matching PyTorch flags for the plain versions on the card.
@@ -29,7 +35,6 @@ from __future__ import annotations
 import ctypes
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from geossl_tpu_torch.models.common import gaussian_smearing, shifted_softplus
 from geossl_tpu_torch.ops import _build
@@ -47,6 +52,8 @@ from geossl_tpu_torch.ops._launch import (
 STACK_MAX_N = 128
 # Feature width the kernels' register tiling is written for.
 KERNEL_F = 128
+# Side of the kernels' square pair tiles.
+KERNEL_TILE = 8
 # The JAX package's TPU tiling first has a tile the symmetric kernel can skip
 # at N=256 (cfconv_pallas.sym_profitable); the port routes by the same rule.
 _SYM_MIN_N = 256
@@ -93,6 +100,32 @@ def cfconv_bwd_reference(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g):
                for t in (dist, env, x, w1, b1, w2, b2)]
         out = cfconv_fused_reference(*ins, start, stop, num_g)
         return torch.autograd.grad(out, ins, g)
+
+
+def cfconv_bwd_sym_reference(dist, env, x, g, w1, b1, w2, b2, start, stop,
+                             num_g):
+    """Plain version of :func:`cfconv_bwd_sym`: the true, unplaced
+    cotangents (those of :func:`cfconv_bwd_reference`).
+    :func:`place_sym_cotangent` maps its ddist/denv to the kernel's
+    placement."""
+    return cfconv_bwd_reference(dist, env, x, g, w1, b1, w2, b2, start, stop,
+                                num_g)
+
+
+def place_sym_cotangent(c):
+    """The symmetric backward kernel's placement of a pair cotangent
+    ``c [..., N, N]``, with 8x8 tiles (pi, pj) of cells (i, j): a tile with
+    pj > pi holds ``c + c^T``, a diagonal tile ``c``, a tile with pj < pi
+    zero. (With occupancy gating the kernel also writes zero on tiles whose
+    env is all zero.) Exact for training when dist and env are symmetric
+    functions of the positions: every gradient upstream of them is the
+    same as with ``c``."""
+    n = c.shape[-1]
+    t = torch.arange(n, device=c.device) // KERNEL_TILE
+    upper = t[None, :] > t[:, None]
+    diag = t[None, :] == t[:, None]
+    return torch.where(upper, c + c.transpose(-1, -2),
+                       torch.where(diag, c, torch.zeros_like(c)))
 
 
 def schnet_stack_reference(dist, env, h0, stacked, start, stop, num_g):
@@ -155,9 +188,15 @@ def _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
     return out
 
 
+def _refuse_second_order(name: str) -> None:
+    if torch.is_grad_enabled():  # create_graph: a second order is asked
+        raise NotImplementedError(
+            f"{name} is first order only: the double backward that MD17 "
+            "force training needs is not ported")
+
+
 class _CFConv(torch.autograd.Function):
-    """``cfconv_fwd`` forward, ``cfconv_bwd`` backward (first order only:
-    the double backward that MD17 force training needs is not ported)."""
+    """``cfconv_fwd`` forward, ``cfconv_bwd`` backward (first order only)."""
 
     @staticmethod
     def forward(ctx, dist, env, x, w1, b1, w2, b2, start, stop, num_g,
@@ -168,11 +207,31 @@ class _CFConv(torch.autograd.Function):
                               num_g, False, sparse)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
-        dist, env, x, w1, b1, w2, b2 = ctx.saved_tensors
-        grads = cfconv_bwd(dist, env, x, g.contiguous(), w1, b1, w2, b2,
-                           *ctx.consts)
+        _refuse_second_order("cfconv_bwd")
+        grads = cfconv_bwd(*ctx.saved_tensors[:3], g.contiguous(),
+                           *ctx.saved_tensors[3:], *ctx.consts)
+        return (*grads, None, None, None, None)
+
+
+class _CFConvSym(torch.autograd.Function):
+    """``cfconv_fwd`` in symmetric mode forward, ``cfconv_bwd_sym``
+    backward (first order only; ddist/denv placed, exact upstream of
+    symmetric dist/env)."""
+
+    @staticmethod
+    def forward(ctx, dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                sparse):
+        ctx.save_for_backward(dist, env, x, w1, b1, w2, b2)
+        ctx.consts = (start, stop, num_g, sparse)
+        return _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop,
+                              num_g, True, sparse)
+
+    @staticmethod
+    def backward(ctx, g):
+        _refuse_second_order("cfconv_bwd_sym")
+        grads = cfconv_bwd_sym(*ctx.saved_tensors[:3], g.contiguous(),
+                               *ctx.saved_tensors[3:], *ctx.consts)
         return (*grads, None, None, None, None)
 
 
@@ -191,6 +250,42 @@ def cfconv_fused(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
     return out
 
 
+def _launch_cfconv_bwd(name, dist, env, x, g, w1, b1, w2, b2, start, stop,
+                       num_g, symmetric, sparse):
+    b, ni, nj = dist.shape
+    f = x.shape[-1]
+    _check_filter_shapes(name, dist, env, x, w1, b1, w2, b2, num_g)
+    if g.shape != (b, ni, f) or num_g > 64:
+        raise ValueError(f"{name}: kernel takes g [B,N,F] and G <= 64; "
+                         f"got g {tuple(g.shape)}, G={num_g}")
+    if symmetric and ni != nj:
+        raise ValueError(f"{name}: the symmetric mode needs a square grid")
+    smem = _build.kernel_fn("cfconv_bwd", "cfconv_bwd_smem_bytes",
+                            [ctypes.c_int] * 3,
+                            ctypes.c_size_t)(num_g, ni, int(symmetric))
+    check_smem(name, smem)
+    blocks = _build.kernel_fn("cfconv_bwd", "cfconv_bwd_blocks",
+                              [ctypes.c_int, ctypes.c_int])(b, nj)
+    fn = _build.kernel_fn(
+        "cfconv_bwd", "cfconv_bwd",
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    size = num_g * f + f + f * f + f
+    ddist, denv = torch.empty_like(dist), torch.empty_like(env)
+    # the symmetric mode adds every dx row with atomics
+    dx = (torch.zeros_like if symmetric else torch.empty_like)(x)
+    part = torch.empty((blocks, size), dtype=torch.float32, device=dist.device)
+    wgrad = torch.empty(size, dtype=torch.float32, device=dist.device)
+    s0, delta, coeff = _rbf_consts(start, stop, num_g)
+    err = fn(*map(ptr, (dist, env, x, g, w1, b1, w2, b2, ddist, denv, dx,
+                        part, wgrad)),
+             b, ni, nj, f, num_g, s0, delta, coeff, int(symmetric),
+             int(sparse), stream(dist))
+    check_launch(name, err)
+    dw1, db1, dw2, db2 = torch.split(wgrad, [num_g * f, f, f * f, f])
+    return (ddist, denv, dx, dw1.view(num_g, f), db1, dw2.view(f, f), db2)
+
+
 @counted("cfconv_bwd")
 def cfconv_bwd(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
                sparse=False):
@@ -202,34 +297,29 @@ def cfconv_bwd(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
     if on_cpu("cfconv_bwd", dist, env, x, g, w1, b1, w2, b2):
         return cfconv_bwd_reference(dist, env, x, g, w1, b1, w2, b2, start,
                                     stop, num_g)
-    b, ni, nj = dist.shape
-    f = x.shape[-1]
-    _check_filter_shapes("cfconv_bwd", dist, env, x, w1, b1, w2, b2, num_g)
-    if g.shape != (b, ni, f) or num_g > 64:
-        raise ValueError(f"cfconv_bwd: kernel takes g [B,N,F] and G <= 64; "
-                         f"got g {tuple(g.shape)}, G={num_g}")
-    smem = _build.kernel_fn("cfconv_bwd", "cfconv_bwd_smem_bytes",
-                            [ctypes.c_int, ctypes.c_int],
-                            ctypes.c_size_t)(num_g, ni)
-    check_smem("cfconv_bwd", smem)
-    blocks = _build.kernel_fn("cfconv_bwd", "cfconv_bwd_blocks",
-                              [ctypes.c_int, ctypes.c_int])(b, nj)
-    fn = _build.kernel_fn(
-        "cfconv_bwd", "cfconv_bwd",
-        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
-        + [ctypes.c_int, ctypes.c_void_p])
-    size = num_g * f + f + f * f + f
-    ddist, denv, dx = (torch.empty_like(t) for t in (dist, env, x))
-    part = torch.empty((blocks, size), dtype=torch.float32, device=dist.device)
-    wgrad = torch.empty(size, dtype=torch.float32, device=dist.device)
-    s0, delta, coeff = _rbf_consts(start, stop, num_g)
-    err = fn(*map(ptr, (dist, env, x, g, w1, b1, w2, b2, ddist, denv, dx,
-                        part, wgrad)),
-             b, ni, nj, f, num_g, s0, delta, coeff, int(sparse), stream(dist))
-    check_launch("cfconv_bwd", err)
+    out = _launch_cfconv_bwd("cfconv_bwd", dist, env, x, g, w1, b1, w2, b2,
+                             start, stop, num_g, False, sparse)
     cfconv_bwd.launches += 1
-    dw1, db1, dw2, db2 = torch.split(wgrad, [num_g * f, f, f * f, f])
-    return (ddist, denv, dx, dw1.view(num_g, f), db1, dw2.view(f, f), db2)
+    return out
+
+
+@counted("cfconv_bwd_sym")
+def cfconv_bwd_sym(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
+                   sparse=False):
+    """Backward of :func:`cfconv_fused_sym` for the cotangent ``g``
+    [B,N,F] and SYMMETRIC dist/env: (ddist, denv, dx, dW1, db1, dW2, db2).
+    On CUDA the kernel computes the 8x8 tiles on and above the diagonal
+    once and returns ddist/denv placed (:func:`place_sym_cotangent`; with
+    ``sparse`` also zero on tiles whose env is all zero); dx and the
+    weight gradients are the true ones. On the CPU all seven are the true
+    cotangents."""
+    if on_cpu("cfconv_bwd_sym", dist, env, x, g, w1, b1, w2, b2):
+        return cfconv_bwd_sym_reference(dist, env, x, g, w1, b1, w2, b2,
+                                        start, stop, num_g)
+    out = _launch_cfconv_bwd("cfconv_bwd_sym", dist, env, x, g, w1, b1, w2,
+                             b2, start, stop, num_g, True, sparse)
+    cfconv_bwd_sym.launches += 1
+    return out
 
 
 @counted("cfconv_fwd_sym")
@@ -237,16 +327,13 @@ def cfconv_fused_sym(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
                      sparse=False):
     """Same output as :func:`cfconv_fused` for SYMMETRIC dist/env only: the
     kernel computes the tiles on and above the diagonal and emits the
-    mirrored messages of the ones below. No gradient on CUDA yet."""
+    mirrored messages of the ones below. Differentiable on both devices (on
+    CUDA through ``cfconv_bwd_sym``)."""
     if on_cpu("cfconv_fwd_sym", dist, env, x, w1, b1, w2, b2):
         return cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start,
                                       stop, num_g)
-    refuse_grad("cfconv_fwd_sym", "its backward kernel (#4, cfconv_pallas."
-                "_bwd_sym_kernel) is not ported yet, so training on the card "
-                "takes pair grids below N=256 (buckets up to 128)",
-                dist, env, x, w1, b1, w2, b2)
-    out = _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
-                         True, sparse)
+    out = _CFConvSym.apply(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                           sparse)
     cfconv_fused_sym.launches += 1
     return out
 

@@ -1,7 +1,9 @@
 // cfconv_bwd: backward of SchNet's continuous-filter convolution in one
 // kernel (plus a small reduction launch for the weight gradients).
 //
-// Replaces geossl_tpu/ops/cfconv_pallas.py: _bwd_kernel (via _bwd_pallas).
+// Replaces geossl_tpu/ops/cfconv_pallas.py: _bwd_kernel (via _bwd_pallas)
+// and, with SYM, _bwd_sym_kernel (via _bwd_sym_pallas, the VJP of
+// cfconv_fused_sym).
 // For m[b,i,f] = sum_j env W[b,i,j,f] x[b,j,f] with W = ssp(rbf(d) W1 + b1) W2 + b2
 // and the cotangent g[b,i,f] it recomputes the filter of every pair tile and
 // emits all seven cotangents, as the TPU kernel does:
@@ -29,6 +31,25 @@
 // and a second launch sums the partials in block order (reduce.cuh): no
 // atomics, so the result is bitwise the same from run to run on one card.
 //
+// SYM (symmetric dist/env only, square grid), the port's symmetric scheme of
+// cfconv_fwd.cu: with square 8x8 tiles, tile (pi, pj) is computed iff
+// pi <= pj. Item pj walks i tiles 0..pj only, so its work is pj+1 tiles: the
+// items are ordered by descending pj (all graphs' last column first), which
+// spreads the long items over the persistent grid. On a computed tile with
+// pi < pj every cell's mirror lies in a skipped tile, so the tile carries it:
+//   q[i,j,f] = g[i,f] x[j,f] + x[i,f] g[j,f]   (the diagonal tile: first term)
+// goes through the filter chain once, and ddist/denv are written PLACED: a
+// cell of a tile pi < pj holds its own cotangent plus its mirror's, a
+// diagonal tile its own, a tile pi > pj (and, with `sparse`, an unoccupied
+// one) zero. That is exact for training, because dist and env are symmetric
+// functions of the positions. dx gets a j-indexed part (sum_i env W g_i, in
+// registers as above) and an i-indexed part from the mirrors
+// (dx[i] += sum_j env W g_j), which lands on rows that other items own: it is
+// summed over the tile's 8 columns in shared memory and added to dx with
+// global atomicAdd, and so is each item's j-indexed part (dx must be zero on
+// entry). So in SYM mode dx is summed in an order that changes from run to
+// run; ddist, denv and the weight gradients repeat bitwise.
+//
 // Pair tile layout: pair p = jl*8 + il (row = local j, column = local i), so
 // the 4 pairs a thread owns in filter_tile (pair_tile.cuh) share one j (its
 // warp) and the dx sum over i is a register sum plus one __shfl_xor(16).
@@ -45,6 +66,7 @@ constexpr int kWS = kF + 4;  // padded row stride of W1_s / W2_s
 // Floats of one block's partial weight gradients: [dW1 G*F][db1 F][dW2 F*F][db2 F]
 __host__ __device__ inline int wgrad_size(int G) { return G * kF + kF + kF * kF + kF; }
 
+template <bool SYM>
 __global__ void __launch_bounds__(kThreads, 1)
 cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
                   const float* __restrict__ x, const float* __restrict__ gr,
@@ -61,12 +83,15 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
   float* rbf_s = W2_s + kF * kWS;       // [G][kPairs]
   float* s_s = rbf_s + G * kPairs;      // [kPairs][kF] hidden ssp(pre1)
   float* sd_s = s_s + kPairs * kF;      // [kPairs][kF] ssp'(pre1), then dh
-  float* qe_s = sd_s + kPairs * kF;     // [kPairs][kF] env g_i x_j
+  float* qe_s = sd_s + kPairs * kF;     // [kPairs][kF] env q
   float* g_s = qe_s + kPairs * kF;      // [kTile][kF]  g rows of the i tile
   float* x_s = g_s + kTile * kF;        // [kTile][kF]  x rows of the j tile
   float* d_s = x_s + kTile * kF;        // [kPairs]
   float* e_s = d_s + kPairs;            // [kPairs]
-  int* occ_s = (int*)(e_s + kPairs);    // [nti] occupancy of the item's tiles
+  float* gj_s = e_s + kPairs;           // [kTile][kF]  SYM: g rows of the j tile
+  float* xi_s = gj_s + kTile * kF;      // [kTile][kF]  SYM: x rows of the i tile
+  float* mir_s = xi_s + kTile * kF;     // [kTile][kF]  SYM: i-indexed dx of the tile
+  int* occ_s = (int*)(SYM ? mir_s + kTile * kF : gj_s);  // [nti] occupancy
 
   const int tid = threadIdx.x;
   const int fg = tid & (kFG - 1), hw = tid >> 4;
@@ -96,22 +121,38 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
     for (int k = 0; k < kFPT; ++k) gw1[m][k] = 0.f;
 
   for (int item = blockIdx.x; item < B * ntj; item += gridDim.x) {
-    const int b = item / ntj, j0 = (item % ntj) * kTile;
+    // SYM: by descending pj (item length pj + 1), graphs interleaved
+    const int b = SYM ? item % B : item / ntj;
+    const int pj = SYM ? ntj - 1 - item / B : item % ntj;
+    const int j0 = pj * kTile;
+    // SYM: i tiles 0..pj are computed; rows from i_end on lie below the band
+    const int n_it = SYM ? pj + 1 : nti;
+    const int i_end = min(ni, n_it * kTile);
     const float* dist_b = dist + (size_t)b * ni * nj;
     const float* env_b = env + (size_t)b * ni * nj;
     const float* g_b = gr + (size_t)b * ni * kF;
     float* ddist_b = ddist + (size_t)b * ni * nj;
     float* denv_b = denv + (size_t)b * ni * nj;
 
-    __syncthreads();  // the previous item is done with x_s and occ_s
+    if (SYM) {  // the skipped tiles below the band hold zero
+      for (int idx = tid; idx < (ni - i_end) * kTile; idx += kThreads) {
+        const int i = i_end + idx / kTile, j = j0 + idx % kTile;
+        if (j < nj) {
+          ddist_b[(size_t)i * nj + j] = 0.f;
+          denv_b[(size_t)i * nj + j] = 0.f;
+        }
+      }
+    }
+    __syncthreads();  // the previous item is done with x_s, gj_s and occ_s
     for (int idx = tid; idx < kTile * kF; idx += kThreads) {
       const int j = j0 + idx / kF;
       x_s[idx] = j < nj ? x[((size_t)b * nj + j) * kF + idx % kF] : 0.f;
+      if (SYM) gj_s[idx] = j < nj ? g_b[(size_t)j * kF + idx % kF] : 0.f;
     }
     if (sparse) {
-      for (int t = tid; t < nti; t += kThreads) occ_s[t] = 0;
+      for (int t = tid; t < n_it; t += kThreads) occ_s[t] = 0;
       __syncthreads();
-      for (int idx = tid; idx < ni * kTile; idx += kThreads) {
+      for (int idx = tid; idx < i_end * kTile; idx += kThreads) {
         const int i = idx / kTile, j = j0 + idx % kTile;
         if (j < nj && env_b[(size_t)i * nj + j] != 0.f) occ_s[i / kTile] = 1;
       }
@@ -121,8 +162,9 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
     float dxa[kFPT];
 #pragma unroll
     for (int k = 0; k < kFPT; ++k) dxa[k] = 0.f;
+    bool any_tile = false;  // block-uniform: a tile of this item was computed
 
-    for (int pi = 0; pi < nti; ++pi) {
+    for (int pi = 0; pi < n_it; ++pi) {
       const int i0 = pi * kTile;
       if (sparse && !occ_s[pi]) {  // block-uniform
         if (tid < kPairs) {
@@ -134,6 +176,8 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
         }
         continue;
       }
+      any_tile = true;
+      const bool mirror = SYM && pi != pj;  // block-uniform
       __syncthreads();  // the previous tile is done with the tile scratch
       if (tid < kPairs) {
         const int i = i0 + (tid & 7), j = j0 + (tid >> 3);
@@ -144,6 +188,10 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
       for (int idx = tid; idx < kTile * kF; idx += kThreads) {
         const int i = i0 + idx / kF;
         g_s[idx] = i < ni ? g_b[(size_t)i * kF + idx % kF] : 0.f;
+        if (mirror) {
+          xi_s[idx] = i < ni ? x[((size_t)b * nj + i) * kF + idx % kF] : 0.f;
+          mir_s[idx] = 0.f;
+        }
       }
       __syncthreads();
 
@@ -154,21 +202,33 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
 
       // denv, dx, qe, db2 (pairs jl*8 + il0 + q, features feat(fg, k))
       {
-        float xv[kFPT];
+        float xv[kFPT], gjv[kFPT];
         load_feats(x_s + jl * kF, fg, xv);
+        if (mirror) load_feats(gj_s + jl * kF, fg, gjv);
         float den[kPPT];
 #pragma unroll
         for (int q = 0; q < kPPT; ++q) {
           const int p = jl * kTile + il0 + q;
           const float e = e_s[p];
-          float gv[kFPT], qe[kFPT];
+          float gv[kFPT], qv[kFPT];
           load_feats(g_s + (il0 + q) * kF, fg, gv);
-          float s = 0.f;
+#pragma unroll
+          for (int k = 0; k < kFPT; ++k) qv[k] = gv[k] * xv[k];
+          if (mirror) {
+            // the mirror cell (j, i): q += x_i g_j, and dx[i] += env W g_j
+            float xiv[kFPT];
+            load_feats(xi_s + (il0 + q) * kF, fg, xiv);
+#pragma unroll
+            for (int k = 0; k < kFPT; ++k) {
+              qv[k] = fmaf(xiv[k], gjv[k], qv[k]);
+              atomicAdd(&mir_s[(il0 + q) * kF + feat(fg, k)], e * w[q][k] * gjv[k]);
+            }
+          }
+          float s = 0.f, qe[kFPT];
 #pragma unroll
           for (int k = 0; k < kFPT; ++k) {
-            const float qv = gv[k] * xv[k];
-            s = fmaf(w[q][k], qv, s);
-            qe[k] = e * qv;
+            s = fmaf(w[q][k], qv[k], s);
+            qe[k] = e * qv[k];
             dxa[k] = fmaf(e * w[q][k], gv[k], dxa[k]);
             gb2[k] += qe[k];
           }
@@ -184,7 +244,14 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
           }
         }
       }
-      __syncthreads();  // qe_s and s_s complete
+      __syncthreads();  // qe_s, s_s and mir_s complete
+
+      if (mirror) {  // the tile's i-indexed dx: rows owned by other items
+        for (int idx = tid; idx < kTile * kF; idx += kThreads) {
+          const int i = i0 + idx / kF;
+          if (i < ni) atomicAdd(&dx[((size_t)b * nj + i) * kF + idx % kF], mir_s[idx]);
+        }
+      }
 
       // dW2 += s^T qe over the tile's 64 pairs
       for (int p = 0; p < kPairs; ++p) {
@@ -305,8 +372,14 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
 #pragma unroll
     for (int k = 0; k < kFPT; ++k) dxa[k] += __shfl_xor_sync(0xffffffffu, dxa[k], 16);
     if ((tid & 16) == 0 && j < nj) {
+      float* dx_j = dx + ((size_t)b * nj + j) * kF;
+      if (!SYM) {
 #pragma unroll
-      for (int k = 0; k < kFPT; ++k) dx[((size_t)b * nj + j) * kF + feat(fg, k)] = dxa[k];
+        for (int k = 0; k < kFPT; ++k) dx_j[feat(fg, k)] = dxa[k];
+      } else if (any_tile) {
+#pragma unroll
+        for (int k = 0; k < kFPT; ++k) atomicAdd(&dx_j[feat(fg, k)], dxa[k]);
+      }
     }
   }
 
@@ -347,15 +420,32 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
   }
 }
 
-static size_t smem_bytes(int G, int ni) {
+static size_t smem_bytes(int G, int ni, int symmetric) {
   return sizeof(float) * ((size_t)G * kWS + kF * kWS + G * kPairs + 3 * kPairs * kF +
-                          2 * kTile * kF + 2 * kPairs) +
+                          (symmetric ? 5 : 2) * kTile * kF + 2 * kPairs) +
          sizeof(int) * (size_t)((ni + kTile - 1) / kTile);
+}
+
+template <bool SYM>
+static cudaError_t launch(const float* dist, const float* env, const float* x,
+                          const float* g, const float* w1, const float* b1,
+                          const float* w2, const float* b2, float* ddist, float* denv,
+                          float* dx, float* part, int blocks, size_t smem, int B,
+                          int ni, int nj, int G, float start, float delta, float coeff,
+                          int sparse, cudaStream_t s) {
+  cudaFuncSetAttribute(cfconv_bwd_kernel<SYM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  cfconv_bwd_kernel<SYM><<<blocks, kThreads, smem, s>>>(dist, env, x, g, w1, b1, w2, b2,
+                                                        ddist, denv, dx, part, B, ni, nj,
+                                                        G, start, delta, coeff, sparse);
+  return cudaGetLastError();
 }
 
 }  // namespace geossl
 
-extern "C" size_t cfconv_bwd_smem_bytes(int G, int ni) { return geossl::smem_bytes(G, ni); }
+extern "C" size_t cfconv_bwd_smem_bytes(int G, int ni, int symmetric) {
+  return geossl::smem_bytes(G, ni, symmetric);
+}
 
 // Blocks of the persistent grid, i.e. rows of the partials buffer.
 extern "C" int cfconv_bwd_blocks(int B, int nj) {
@@ -365,24 +455,26 @@ extern "C" int cfconv_bwd_blocks(int B, int nj) {
 // Returns the cudaError_t of the launches (0 on success). `part` holds
 // cfconv_bwd_blocks(B, nj) rows of G*F + F + F*F + F floats; `wgrad` (same
 // row size) receives dW1 [G,F], db1 [F], dW2 [F,F], db2 [F]. F must be 128
-// and G at most 64.
+// and G at most 64. With `symmetric` (square grid only) ddist/denv are
+// placed as the header says and `dx` must be zero on entry.
 extern "C" int cfconv_bwd(const float* dist, const float* env, const float* x,
                           const float* g, const float* w1, const float* b1,
                           const float* w2, const float* b2, float* ddist,
                           float* denv, float* dx, float* part, float* wgrad,
                           int B, int ni, int nj, int F, int G, float start,
-                          float delta, float coeff, int sparse, void* stream) {
+                          float delta, float coeff, int symmetric, int sparse,
+                          void* stream) {
   using namespace geossl;
-  if (F != kF || G > 64 || G < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(G, ni);
+  if (F != kF || G > 64 || G < 1 || (symmetric && ni != nj))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(G, ni, symmetric);
   const int blocks = cfconv_bwd_blocks(B, nj);
   cudaStream_t s = (cudaStream_t)stream;
-  cudaFuncSetAttribute(cfconv_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  cfconv_bwd_kernel<<<blocks, kThreads, smem, s>>>(dist, env, x, g, w1, b1, w2, b2,
-                                                   ddist, denv, dx, part, B, ni, nj, G,
-                                                   start, delta, coeff, sparse);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      symmetric ? launch<true>(dist, env, x, g, w1, b1, w2, b2, ddist, denv, dx, part,
+                               blocks, smem, B, ni, nj, G, start, delta, coeff, sparse, s)
+                : launch<false>(dist, env, x, g, w1, b1, w2, b2, ddist, denv, dx, part,
+                                blocks, smem, B, ni, nj, G, start, delta, coeff, sparse, s);
   if (err != cudaSuccess) return (int)err;
   sum_partials(part, blocks, wgrad_size(G), wgrad, s);
   return (int)cudaGetLastError();

@@ -1,12 +1,14 @@
 """Shared driver plumbing (counterpart of ``geossl_tpu/train/common.py``):
 backbone and head construction, the drivers' common flags with the JAX
 package's names and defaults (one command line drives both packages),
-gradient accumulation groups, resume state, the metric log.
+gradient accumulation groups, resume state, the metric log, and the
+fine-tunes' epoch loop (``run_finetune``).
 
 Both backbones are ported (``--model_3d schnet|painn``). Flags the port
 does not run yet raise ``NotImplementedError`` when set away from their
 defaults: multi-device and multi-host runs, ``--steps_per_call`` (a TPU
-dispatch optimisation), ``--profile_dir`` and bf16 compute.
+dispatch optimisation), ``--profile_dir``, bf16 compute and the fine-tunes'
+``--pair_devices``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from geossl_tpu_torch.models.common import HalvingMLP, init_linear_
 from geossl_tpu_torch.models.painn import PaiNN
 from geossl_tpu_torch.models.schnet import SchNet
 from geossl_tpu_torch.train import checkpoints, optim
+from geossl_tpu_torch.utils.torch_import import load_torch_checkpoint
 
 
 class LinearHead(nn.Linear):
@@ -52,6 +55,21 @@ class PaiNNHead(HalvingMLP):
 
     def forward(self, x):
         return super().forward(x)[..., 0]
+
+
+class DualHead(nn.Linear):
+    """LEP's ``graph_pred_linear`` for both backbones: ``Linear(2·emb -> 1)``
+    on the two towers' concatenated representations
+    (``finetune_lep.py:34-45``, ``:194-206``), returning ``[B]``."""
+
+    def __init__(self, emb_dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(2 * emb_dim, 1)
+        init_linear_(self, generator)
+
+    def forward(self, repr_active, repr_inactive):
+        return super().forward(
+            torch.cat([repr_active, repr_inactive], dim=-1))[..., 0]
 
 
 def make_head(model_3d: str, emb_dim: int,
@@ -176,6 +194,7 @@ def check_ported_args(args) -> None:
         "--num_processes": args.num_processes != 1,
         "--steps_per_call": args.steps_per_call > 1,
         "--profile_dir": bool(args.profile_dir),
+        "--pair_devices": getattr(args, "pair_devices", 1) > 1,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -226,7 +245,7 @@ def accum_groups(batches, k: int):
     of padded width, or the end of the epoch, closes a group early)."""
     pending = []
     for b in batches:
-        if pending and b.atom_type.shape != pending[0].atom_type.shape:
+        if pending and b.max_atoms != pending[0].max_atoms:
             yield pending
             pending = []
         pending.append(b)
@@ -273,12 +292,13 @@ def train_state(modules: dict, opt, sched) -> dict:
             "opt": opt.state_dict(), "step": sched.last_epoch}
 
 
-def try_resume(args, modules: dict, opt, sched):
+def try_resume(args, modules: dict, opt, sched,
+               higher_is_better: bool = False):
     """Load ``state.pth`` under ``--resume``; returns (start_epoch,
-    best_metric, extra scalars)."""
+    best_metric, extra scalars); a fresh start's best is the worst value."""
     path = state_path(args)
     if not (args.resume and path and os.path.exists(path)):
-        return 1, float("inf"), {}
+        return 1, float("-inf" if higher_is_better else "inf"), {}
     state, last_epoch, best, extra = checkpoints.load_train_state(path)
     for k, m in modules.items():
         m.load_state_dict(state["modules"][k])
@@ -326,3 +346,113 @@ class MetricLogger:
             os.makedirs(d, exist_ok=True)
         with open(self.path, "a") as f:
             f.write(json.dumps(fields) + "\n")
+
+
+# -- fine-tunes -----------------------------------------------------------------
+
+
+def add_finetune_args(p: argparse.ArgumentParser):
+    """The flags both Atom3D fine-tunes add, the JAX drivers' names and
+    defaults."""
+    p.add_argument("--spatial_sort", default="on", choices=["on", "off"],
+                   help="Morton-reorder each complex's atoms once at load "
+                        "(outputs unchanged up to the order of f32 sums); "
+                        "gathers in-cutoff pairs into few tiles, so the "
+                        "occupancy-gated kernels skip more")
+    p.add_argument("--eval_only", action="store_true",
+                   help="skip training: evaluate --input_model_file (a "
+                        "fine-tuned checkpoint with its head) on the val and "
+                        "test splits and exit")
+    return p
+
+
+def load_input_model(args, net: nn.Module) -> bool:
+    """Load ``--input_model_file`` into ``net.model`` (a pretrain or a
+    fine-tuned ``.pth``) and, when the file has one, into
+    ``net.graph_pred_linear``; returns whether it had the head. With
+    ``--eval_only`` the head is required."""
+    has_head = False
+    if args.input_model_file:
+        ckpt = load_torch_checkpoint(args.input_model_file)
+        net.model.load_state_dict(ckpt["model"])
+        has_head = "graph_pred_linear" in ckpt
+        if has_head:  # a fine-tuned checkpoint: its head too
+            net.graph_pred_linear.load_state_dict(ckpt["graph_pred_linear"])
+        print(f"Loaded pretrained backbone from {args.input_model_file}")
+    if args.eval_only and not has_head:
+        raise SystemExit(
+            "--eval_only needs --input_model_file pointing at a FINE-TUNED "
+            "checkpoint (with graph_pred_linear; pretrain checkpoints carry "
+            "no head)")
+    return has_head
+
+
+def finetune_step(net: nn.Module, opt, sched, batches, loss_fn):
+    """One optimizer step over ``batches`` (gradients averaged over the
+    group, as ``--grad_accum`` does); returns the mean loss on the
+    device."""
+    opt.zero_grad(set_to_none=True)
+    total = 0.0
+    for batch in batches:
+        loss = loss_fn(net, batch)
+        (loss / len(batches)).backward()
+        total = total + loss.detach()
+    opt.step()
+    sched.step()
+    return total / len(batches)
+
+
+def run_finetune(args, net: nn.Module, loaders, loss_fn, evaluate,
+                 key: str, higher_is_better: bool, describe, device) -> dict:
+    """The fine-tunes' epoch loop, as the JAX drivers run it: an epoch of
+    optimizer steps, the plateau scheduler on the epoch's mean loss, val
+    and test metrics, ``model.pth`` (``model`` and ``graph_pred_linear``)
+    at the best val ``key``, the resume state and the metric log.
+
+    ``loaders`` = (train, val, test); ``loss_fn(net, batch)``;
+    ``evaluate(net, loader)`` -> {metric: float}; ``describe(val, test)``
+    -> the epoch line's metrics. Returns {"best", "best_epoch",
+    "best_test", "losses"} (every step's loss)."""
+    train, val_loader, test_loader = loaders
+    opt, sched = make_optimizer_from_args(
+        args, net.parameters(),
+        opt_steps_per_epoch(len(train), args.grad_accum))
+    mlog = MetricLogger(args.log_file)
+    start_epoch, best, extra = try_resume(args, {"net": net}, opt, sched,
+                                          higher_is_better)
+    plateau = make_plateau(args, extra)  # pops its keys from extra
+    best_epoch = int(extra.pop("best_epoch", -1))
+    best_test = extra  # the remaining keys: the test metrics at the best
+    history = []
+    for epoch in range(start_epoch, args.epochs + 1):
+        timer = EpochTimer()
+        losses = [finetune_step(net, opt, sched, [b.to(device) for b in group],
+                                loss_fn)
+                  for group in accum_groups(train.epoch(epoch),
+                                            args.grad_accum)]
+        losses = torch.stack(losses).tolist()  # one copy per epoch
+        history += losses
+        train_loss = sum(losses) / len(losses)
+        if plateau is not None:
+            optim.set_plateau_scale(sched, plateau.step(train_loss))
+        val, test = evaluate(net, val_loader), evaluate(net, test_loader)
+        print(f"Epoch: {epoch}\tLoss: {train_loss:.5f}\t{describe(val, test)}"
+              f"\tTime: {timer.elapsed():.3f}")
+        mlog.log(epoch=epoch, train_loss=train_loss,
+                 **{f"val_{k}": v for k, v in val.items()},
+                 **{f"test_{k}": v for k, v in test.items()},
+                 time_s=round(timer.elapsed(), 3))
+        if val[key] > best if higher_is_better else val[key] < best:
+            best, best_epoch, best_test = val[key], epoch, test
+            if args.output_model_dir:
+                checkpoints.save_checkpoint(
+                    os.path.join(args.output_model_dir, "model.pth"),
+                    {"model": net.model.state_dict(),
+                     "graph_pred_linear": net.graph_pred_linear.state_dict()})
+        maybe_save_state(args, {"net": net}, opt, sched, epoch, best,
+                         {"best_epoch": best_epoch, **best_test,
+                          **(plateau.state() if plateau else {})})
+    mlog.log(final=True, best_epoch=best_epoch, **{f"best_val_{key}": best},
+             **{f"test_{k}_at_best": v for k, v in best_test.items()})
+    return {"best": best, "best_epoch": best_epoch, "best_test": best_test,
+            "losses": history}

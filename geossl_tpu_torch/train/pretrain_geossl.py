@@ -17,9 +17,7 @@ directions come from each view's live positions.
 
 On CUDA (the default) the backbone's message pass (CFConv, or PaiNN's) and
 the heads' per-pair chain run the port's kernels; ``--device cpu`` takes the
-plain versions. Only ``--GeoSSL_option DDM`` is ported; for SchNet every
-bucket must be below 256 atoms on CUDA until the symmetric CFConv backward
-is.
+plain versions. Only ``--GeoSSL_option DDM`` is ported.
 
 Run: ``python -m geossl_tpu_torch.train.pretrain_geossl --synthetic --epochs 2``
 """

@@ -1,0 +1,74 @@
+"""Evaluation metrics of the fine-tunes in NumPy (the port's own copy of
+``geossl_tpu/utils/metrics.py``; reference ``examples/util.py:128-165`` and
+``finetune_lep.py:96-99``, which calls sklearn). Host side, on eval
+outputs."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def mse(y: np.ndarray, f: np.ndarray) -> float:
+    return float(np.mean((y - f) ** 2))
+
+
+def rmse(y: np.ndarray, f: np.ndarray) -> float:
+    return float(np.sqrt(mse(y, f)))
+
+
+def pearson(y: np.ndarray, f: np.ndarray) -> float:
+    return float(np.corrcoef(y, f)[0, 1])
+
+
+def _rankdata(x: np.ndarray) -> np.ndarray:
+    """Average ranks (ties share the mean rank), 1-based."""
+    order = np.argsort(x, kind="stable")
+    ranks = np.empty(len(x), float)
+    ranks[order] = np.arange(1, len(x) + 1)
+    sx = x[order]
+    i = 0
+    while i < len(sx):
+        j = i
+        while j + 1 < len(sx) and sx[j + 1] == sx[i]:
+            j += 1
+        if j > i:
+            ranks[order[i:j + 1]] = ranks[order[i:j + 1]].mean()
+        i = j + 1
+    return ranks
+
+
+def spearman(y: np.ndarray, f: np.ndarray) -> float:
+    return pearson(_rankdata(y), _rankdata(f))
+
+
+def roc_auc(labels: np.ndarray, scores: np.ndarray) -> float:
+    """ROC-AUC by the rank statistic (sklearn's value for binary labels,
+    ties by average ranks); NaN when one class is missing."""
+    labels = np.asarray(labels).astype(bool)
+    n_pos = int(labels.sum())
+    n_neg = len(labels) - n_pos
+    if n_pos == 0 or n_neg == 0:
+        return float("nan")
+    ranks = _rankdata(np.asarray(scores, float))
+    return float((ranks[labels].sum() - n_pos * (n_pos + 1) / 2)
+                 / (n_pos * n_neg))
+
+
+def pr_auc(labels: np.ndarray, scores: np.ndarray) -> float:
+    """Average precision (sklearn's ``average_precision_score``). Tied
+    scores form one threshold block, so the result does not depend on the
+    input order."""
+    labels = np.asarray(labels).astype(bool)
+    n_pos = int(labels.sum())
+    if n_pos == 0:
+        return float("nan")
+    scores = np.asarray(scores, float)
+    order = np.argsort(-scores, kind="stable")
+    scores, labels = scores[order], labels[order]
+    # the last index of each tie block is a threshold point
+    distinct = np.r_[scores[1:] != scores[:-1], True]
+    tp = np.cumsum(labels)[distinct]
+    n_at = np.arange(1, len(labels) + 1)[distinct]
+    precision = tp / n_at
+    recall = tp / n_pos
+    return float(np.sum(precision * np.diff(np.r_[0.0, recall])))

@@ -2,7 +2,8 @@
 ``geossl_tpu/utils/torch_import.py``).
 
 * ``schnet_state_dict_from_flax`` / ``painn_state_dict_from_flax`` /
-  ``head_state_dict_from_flax`` / ``ncsn_state_dict_from_flax`` turn the
+  ``head_state_dict_from_flax`` (every head, LEP's dual one too) /
+  ``ncsn_state_dict_from_flax`` turn the
   JAX package's param trees (numpy arrays, flax ``[in, out]`` kernels) into
   the port's state_dicts (torch ``[out, in]`` weights, the reference's key
   names), keeping the arrays' dtype.
@@ -91,8 +92,10 @@ def painn_state_dict_from_flax(tree, n_interactions=None
 
 
 def head_state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
-    """JAX ``LinearHead`` params -> ``nn.Linear(emb, 1)`` state_dict; JAX
-    ``PaiNNHead`` params -> the halving MLP's ``0.*``, ``1.*``, ..."""
+    """JAX ``LinearHead`` (or LEP's ``DualHead``, the same layout) params
+    -> ``nn.Linear(emb, 1)`` (``DualHead``'s ``Linear(2·emb, 1)``)
+    state_dict; JAX ``PaiNNHead`` params -> the halving MLP's ``0.*``,
+    ``1.*``, ..."""
     if "HalvingMLP_0" in tree:
         return {f"{name.split('_')[1]}.{kk}": v
                 for name, sub in tree["HalvingMLP_0"].items()

@@ -162,12 +162,12 @@ def test_ncsnv3_init_and_draws_are_seeded_and_reference_shaped():
 
 def test_refuse_grad_helper():
     w = torch.zeros(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="#4"):
-        _launch.refuse_grad("cfconv_fwd_sym", "its backward kernel (#4) is "
-                            "not ported", torch.zeros(2), w)
+    with pytest.raises(NotImplementedError, match="inference only"):
+        _launch.refuse_grad("schnet_stack", "it is inference only",
+                            torch.zeros(2), w)
     with torch.no_grad():
-        _launch.refuse_grad("cfconv_fwd_sym", "-", w)
-    _launch.refuse_grad("cfconv_fwd_sym", "-", torch.zeros(3))
+        _launch.refuse_grad("schnet_stack", "-", w)
+    _launch.refuse_grad("schnet_stack", "-", torch.zeros(3))
 
 
 def test_kernel_wrappers_refuse_other_devices():

@@ -257,3 +257,90 @@ def test_init_is_seeded_and_reference_shaped():
     assert torch.count_nonzero(sd["lin1.bias"]) == 0
     bound = (6.0 / (16 + 8)) ** 0.5
     assert sd["interactions.0.mlp.0.weight"].abs().max() <= bound
+
+
+def _fold(c):
+    """Both placements folded to one: c + c^T (JAX's tiles are not the
+    port's 8x8 ones; each places a pair's two cotangents in its own way)."""
+    return c + np.swapaxes(c, -1, -2)
+
+
+def test_cfconv_bwd_sym_plain_matches_pallas_interpret():
+    """The symmetric backward's plain version against JAX's #4
+    (``_cfconv_sym_bwd`` over ``_bwd_sym_pallas``, in interpret mode) at
+    N=256, f32: ddist/denv folded, dx and the weight gradients as they
+    are."""
+    d, e, x, w = _pair_inputs(1, 256, 13, np.float32)
+    g = np.random.default_rng(14).normal(size=x.shape).astype(np.float32)
+    want = jcf._cfconv_sym_bwd(*map(jnp.asarray, (d, e, x, *w, g)), 0.0, 5.0,
+                               8, "f32", False)
+    got = tcf.cfconv_bwd_sym(*map(torch.from_numpy, (d, e, x, g, *w)), 0.0,
+                             5.0, 8)
+    for k, (a, b) in enumerate(zip(got, want)):
+        a, b = a.numpy(), np.asarray(b)
+        if k < 2:
+            a, b = _fold(a), _fold(b)
+        np.testing.assert_allclose(a, b, rtol=1e-4,
+                                   atol=1e-5 * np.abs(b).max(), err_msg=str(k))
+
+
+def test_cfconv_sym_gradients_through_positions_match_jax():
+    """Gradients of a loss through positions -> dist -> env -> the
+    symmetric CFConv: the port (its plain version on the CPU) against
+    jax.grad of ``cfconv_fused_sym``, whose backward places ddist/denv."""
+    n = 256
+    z, pos, mask = molecules(1, n, seed=15, dtype=np.float32)
+    rng = np.random.default_rng(16)
+    x = rng.normal(size=(1, n, 16)).astype(np.float32)
+    w = [rng.normal(scale=s, size=shape).astype(np.float32) for shape, s in
+         (((8, 16), 0.5), ((16,), 0.1), ((16, 16), 0.3), ((16,), 0.1))]
+
+    def jax_loss(p, *a):
+        dd, pm = jgeo.pairwise_distances(p, jnp.asarray(mask))
+        env = 0.5 * (jnp.cos(dd * np.pi / 5.0) + 1.0) * (pm & (dd < 5.0))
+        return jnp.sum(jnp.tanh(jcf.cfconv_fused_sym(dd, env, *a, 0.0, 5.0, 8)))
+
+    want = jax.grad(jax_loss, argnums=tuple(range(6)))(
+        *map(jnp.asarray, (pos, x, *w)))
+    ins = [torch.from_numpy(a).requires_grad_(True) for a in (pos, x, *w)]
+    dd, pm = tgeo.pairwise_distances(ins[0], torch.from_numpy(mask))
+    env = 0.5 * (torch.cos(dd * np.pi / 5.0) + 1.0) * (pm & (dd < 5.0))
+    loss = torch.tanh(tcf.cfconv_fused_sym(dd, env, *ins[1:], 0.0, 5.0,
+                                           8)).sum()
+    got = torch.autograd.grad(loss, ins)
+    for name, a, b in zip(("pos", "x", "w1", "b1", "w2", "b2"), got, want):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4,
+                                   atol=1e-5 * np.abs(b).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_sym_placement_keeps_position_gradients_f64(gated):
+    """The port's 8x8 placement (``place_sym_cotangent``; with gating also
+    zero on tiles whose env is all zero, as the kernel writes), applied to
+    the plain cotangents, gives the same position gradient as the unplaced
+    ones: the contract chip_smoke.py holds the kernel to."""
+    import chip_smoke
+
+    z, pos, mask = molecules(2, 60, seed=17, spread=1.6)  # 60: a ragged tile
+    rng = np.random.default_rng(18)
+    x = torch.from_numpy(rng.normal(size=(2, 60, 16)))
+    g = torch.from_numpy(rng.normal(size=(2, 60, 16)))
+    w = [torch.from_numpy(rng.normal(scale=s, size=shape)) for shape, s in
+         (((8, 16), 0.5), ((16,), 0.1), ((16, 16), 0.3), ((16,), 0.1))]
+    p = torch.from_numpy(pos).requires_grad_(True)
+    dd, pm = tgeo.pairwise_distances(p, torch.from_numpy(mask))
+    env = 0.5 * (torch.cos(dd * np.pi / 5.0) + 1.0) * \
+        tgeo.radius_adjacency(dd, pm, 5.0)
+    ddist, denv = tcf.cfconv_bwd_sym_reference(
+        dd.detach(), env.detach(), x, g, *w, 0.0, 5.0, 8)[:2]
+    placed = [tcf.place_sym_cotangent(c) for c in (ddist, denv)]
+    if gated:
+        occ = chip_smoke.tile_occupied(env.detach())
+        assert not occ.all()
+        placed = [torch.where(occ, c, torch.zeros_like(c)) for c in placed]
+    assert not torch.equal(placed[1], denv)
+    want = torch.autograd.grad((dd, env), p, (ddist, denv), retain_graph=True)
+    got = torch.autograd.grad((dd, env), p, placed)
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=1e-12,
+                               atol=1e-12 * want[0].abs().max().item())
