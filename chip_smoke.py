@@ -78,7 +78,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
       from the DDM-PaiNN ``model.pth``. Then one full-width LBA-SchNet step
       at N=512 with kernels is held to the same step with the plain
       versions (in chunks of 4 graphs; tolerances as in b) on a freshly
-      seeded net.
+      seeded net. On the same batch of 64 complexes, a freshly seeded
+      full-width LBA-PaiNN net (F=128, 3 blocks, 20 RBF, cutoff 5): block
+      0's ``painn_fwd`` and ``painn_bwd`` against their plain versions (in
+      graph chunks; tolerances as in 2), then one LBA-PaiNN step against
+      the plain step (in chunks of 2 graphs; tolerances as in b).
 4. Measurements: serving mol/s per bucket (steady state, synchronized) and
    one traced pass per bucket (torch.profiler: device busy time, the
    port's kernels' share, idle share); training mol/s per bucket (median of
@@ -1155,6 +1159,41 @@ def main():
     loss_p, grads_p = grads_in_chunks(net0, lba_batch, lba_loss, chunk=4)
     net0.plain = False
     check_step_parity("LBA-SchNet step parity bucket 512", loss_k, grads_k,
+                      loss_p, grads_p)
+
+    # PaiNN at the same batch (B=64, N=512), a shape the DDM path does not
+    # give its kernels: painn_fwd/painn_bwd against their plain versions on
+    # block 0's inputs, then one LBA-PaiNN step against the plain step, on a
+    # freshly seeded net
+    lba_args_p = FL.build_parser().parse_args(lba_flags + ["--model_3d",
+                                                           "painn"])
+    cfg_lp = common.model_config_from_args(lba_args_p)
+    net0_p = FL.make_net(lba_args_p, cfg_lp,
+                         torch.Generator().manual_seed(SEED)).to(dev)
+    cut_lp = cfg_lp.painn.cutoff
+    grids, q0, x, mu = painn_inputs(net0_p.model, lba_batch)
+    with torch.no_grad():
+        wk0, bk0 = net0_p.model.filter_weights()[0]
+        want = chunked(lambda *a: torch.cat(P.painn_message_reference(
+            *a, wk0, bk0, cut_lp), dim=-1), (*grids, x, mu), (), 4)
+        for sp in (False, True):
+            errs.check("painn_fwd", torch.cat(P.painn_message_fused(
+                *grids, x, mu, wk0, bk0, cut_lp, sp), dim=-1), want,
+                f"LBA B=64 N=512 sparse={sp}")
+    gen_l = torch.Generator(dev).manual_seed(SEED)
+    gq = torch.randn(q0.shape, generator=gen_l, device=dev)
+    gmu = torch.randn(mu.shape, generator=gen_l, device=dev)
+    check_painn_bwd(errs, grids, x, mu, wk0, bk0, gq, gmu, cut_lp,
+                    "LBA B=64 N=512", chunk=2)
+
+    def lba_loss_p(sb, sl):
+        return FL.loss_fn(net0_p, sb)
+
+    loss_k, grads_k = grads_in_chunks(net0_p, lba_batch, lba_loss_p)
+    net0_p.plain = True
+    loss_p, grads_p = grads_in_chunks(net0_p, lba_batch, lba_loss_p, chunk=2)
+    net0_p.plain = False
+    check_step_parity("LBA-PaiNN step parity bucket 512", loss_k, grads_k,
                       loss_p, grads_p)
 
     # -- 4. measurements -----------------------------------------------------------

@@ -23,13 +23,13 @@ import torch
 from torch import nn
 
 from geossl_tpu_torch.models.common import xavier_uniform_
-from geossl_tpu_torch.ops.geometry import graph_masked_mean
 from geossl_tpu_torch.ops.ncsn import (
     WEIGHT_NAMES,
     ncsn_score_loss,
     ncsn_score_loss_reference,
     weight_shapes,
 )
+from geossl_tpu_torch.train.common import graph_masked_mean
 
 
 def sigma_ladder(sigma_begin: float, sigma_end: float,

@@ -64,6 +64,16 @@ def refuse_grad(name: str, missing: str, *tensors) -> None:
         raise NotImplementedError(f"{name} has no gradient: {missing}")
 
 
+def refuse_second_order(name: str) -> None:
+    """Raise ``NotImplementedError`` in the backward of a first-order
+    autograd Function when autograd asks it to build a graph (a double
+    backward, as MD17 force training takes)."""
+    if torch.is_grad_enabled():
+        raise NotImplementedError(
+            f"{name} is first order only: the double backward that MD17 "
+            "force training needs is not ported")
+
+
 def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 

@@ -45,6 +45,7 @@ from geossl_tpu_torch.ops._launch import (
     on_cpu,
     ptr,
     refuse_grad,
+    refuse_second_order,
     stream,
 )
 
@@ -188,51 +189,27 @@ def _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
     return out
 
 
-def _refuse_second_order(name: str) -> None:
-    if torch.is_grad_enabled():  # create_graph: a second order is asked
-        raise NotImplementedError(
-            f"{name} is first order only: the double backward that MD17 "
-            "force training needs is not ported")
-
-
 class _CFConv(torch.autograd.Function):
-    """``cfconv_fwd`` forward, ``cfconv_bwd`` backward (first order only)."""
+    """``cfconv_fwd`` forward, ``cfconv_bwd`` backward, or with ``symmetric``
+    both in symmetric mode (``cfconv_bwd_sym``: ddist/denv placed, exact
+    upstream of symmetric dist/env). First order only."""
 
     @staticmethod
     def forward(ctx, dist, env, x, w1, b1, w2, b2, start, stop, num_g,
-                sparse):
+                symmetric, sparse):
         ctx.save_for_backward(dist, env, x, w1, b1, w2, b2)
         ctx.consts = (start, stop, num_g, sparse)
+        ctx.symmetric = symmetric
         return _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop,
-                              num_g, False, sparse)
+                              num_g, symmetric, sparse)
 
     @staticmethod
     def backward(ctx, g):
-        _refuse_second_order("cfconv_bwd")
-        grads = cfconv_bwd(*ctx.saved_tensors[:3], g.contiguous(),
-                           *ctx.saved_tensors[3:], *ctx.consts)
-        return (*grads, None, None, None, None)
-
-
-class _CFConvSym(torch.autograd.Function):
-    """``cfconv_fwd`` in symmetric mode forward, ``cfconv_bwd_sym``
-    backward (first order only; ddist/denv placed, exact upstream of
-    symmetric dist/env)."""
-
-    @staticmethod
-    def forward(ctx, dist, env, x, w1, b1, w2, b2, start, stop, num_g,
-                sparse):
-        ctx.save_for_backward(dist, env, x, w1, b1, w2, b2)
-        ctx.consts = (start, stop, num_g, sparse)
-        return _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop,
-                              num_g, True, sparse)
-
-    @staticmethod
-    def backward(ctx, g):
-        _refuse_second_order("cfconv_bwd_sym")
-        grads = cfconv_bwd_sym(*ctx.saved_tensors[:3], g.contiguous(),
-                               *ctx.saved_tensors[3:], *ctx.consts)
-        return (*grads, None, None, None, None)
+        bwd = cfconv_bwd_sym if ctx.symmetric else cfconv_bwd
+        refuse_second_order(bwd.__name__)
+        grads = bwd(*ctx.saved_tensors[:3], g.contiguous(),
+                    *ctx.saved_tensors[3:], *ctx.consts)
+        return (*grads, None, None, None, None, None)
 
 
 @counted("cfconv_fwd")
@@ -245,7 +222,7 @@ def cfconv_fused(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
         return cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start,
                                       stop, num_g)
     out = _CFConv.apply(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
-                        sparse)
+                        False, sparse)
     cfconv_fused.launches += 1
     return out
 
@@ -332,8 +309,8 @@ def cfconv_fused_sym(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
     if on_cpu("cfconv_fwd_sym", dist, env, x, w1, b1, w2, b2):
         return cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start,
                                       stop, num_g)
-    out = _CFConvSym.apply(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
-                           sparse)
+    out = _CFConv.apply(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                        True, sparse)
     cfconv_fused_sym.launches += 1
     return out
 

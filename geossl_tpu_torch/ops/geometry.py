@@ -74,13 +74,3 @@ def readout(x: torch.Tensor, node_mask: torch.Tensor, kind: str) -> torch.Tensor
     if kind == "mean":
         return total / torch.clamp(torch.sum(m, dim=1), min=1.0)
     raise ValueError(f"unknown readout {kind!r}")
-
-
-def graph_masked_mean(per_graph: torch.Tensor,
-                      graph_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Mean of a per-graph loss over the real graphs (``graph_mask``); the
-    empty slots that pad a partial batch count for nothing."""
-    if graph_mask is None:
-        return per_graph.mean()
-    gm = graph_mask.to(per_graph.dtype)
-    return torch.sum(per_graph * gm) / torch.clamp(gm.sum(), min=1.0)

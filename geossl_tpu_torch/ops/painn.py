@@ -49,6 +49,7 @@ from geossl_tpu_torch.ops._launch import (
     on_cpu,
     ptr,
     refuse_grad,
+    refuse_second_order,
     stream,
 )
 from geossl_tpu_torch.ops.cfconv import KERNEL_F, sparse_auto, sym_profitable
@@ -196,10 +197,7 @@ class _PaiNNMessage(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gq, gmu):
-        if torch.is_grad_enabled():  # create_graph: a second order is asked
-            raise NotImplementedError(
-                "painn_bwd is first order only: the second-order path of "
-                "painn_pallas._painn_bwd (MD17 force training) is not ported")
+        refuse_second_order("painn_bwd")
         grads = painn_bwd(*ctx.saved_tensors, gq.contiguous(),
                           gmu.contiguous(), *ctx.consts)
         return (*grads, None, None)

@@ -31,6 +31,16 @@ from geossl_tpu_torch.train import checkpoints, optim
 from geossl_tpu_torch.utils.torch_import import load_torch_checkpoint
 
 
+def graph_masked_mean(per_graph: torch.Tensor,
+                      graph_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean of a per-graph loss over the real graphs (``graph_mask``); the
+    empty slots that pad a partial batch count for nothing."""
+    if graph_mask is None:
+        return per_graph.mean()
+    gm = graph_mask.to(per_graph.dtype)
+    return torch.sum(per_graph * gm) / torch.clamp(gm.sum(), min=1.0)
+
+
 class LinearHead(nn.Linear):
     """``graph_pred_linear`` for SchNet tasks: ``nn.Linear(emb, 1)``
     (``finetune_qm9.py:113``), returning ``[B]``."""

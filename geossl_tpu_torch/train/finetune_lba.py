@@ -29,7 +29,6 @@ from geossl_tpu_torch.data.lba import load_lba
 from geossl_tpu_torch.data.splitters import atom3d_lba_split, random_split
 from geossl_tpu_torch.data.synthetic import synthetic_lba
 from geossl_tpu_torch.data.transforms import spatial_sort_store
-from geossl_tpu_torch.ops.geometry import graph_masked_mean
 from geossl_tpu_torch.serve import resolve_device
 from geossl_tpu_torch.train import common
 from geossl_tpu_torch.utils import metrics
@@ -75,7 +74,7 @@ def make_net(args, cfg, generator: torch.Generator) -> LBANet:
 
 def loss_fn(net: LBANet, batch) -> torch.Tensor:
     per = (net(batch) - batch.y[:, 0]) ** 2  # MSE (finetune_lba.py:244)
-    return graph_masked_mean(per, batch.graph_mask)
+    return common.graph_masked_mean(per, batch.graph_mask)
 
 
 def make_evaluate(device):

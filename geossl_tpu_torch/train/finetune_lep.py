@@ -32,7 +32,6 @@ from geossl_tpu_torch.data.lep import load_lep
 from geossl_tpu_torch.data.splitters import random_split
 from geossl_tpu_torch.data.synthetic import synthetic_lep
 from geossl_tpu_torch.data.transforms import spatial_sort_store
-from geossl_tpu_torch.ops.geometry import graph_masked_mean
 from geossl_tpu_torch.serve import resolve_device
 from geossl_tpu_torch.train import common
 from geossl_tpu_torch.utils import metrics
@@ -110,7 +109,7 @@ def loss_fn(net: LEPNet, dual: DualMolBatch) -> torch.Tensor:
     ``optax.sigmoid_binary_cross_entropy``."""
     logits = net(dual)
     per = -dual.y * F.logsigmoid(logits) - (1.0 - dual.y) * F.logsigmoid(-logits)
-    return graph_masked_mean(per, dual.active.graph_mask)
+    return common.graph_masked_mean(per, dual.active.graph_mask)
 
 
 def make_evaluate(device):

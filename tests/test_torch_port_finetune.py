@@ -214,14 +214,14 @@ def test_synthetic_lep_matches_jax():
     np.testing.assert_array_equal(got[2], want[2])
 
 
-@pytest.mark.parametrize("shuffle,drop_last", [(True, False), (False, False),
-                                               (True, True), (False, True)])
-def test_bucket_chunks_match_jax(shuffle, drop_last):
+@pytest.mark.parametrize("shuffle,batch_size", [(True, 3), (False, 3),
+                                                (True, 4), (False, 4)])
+def test_bucket_chunks_match_jax(shuffle, batch_size):
     bucket_of = np.asarray([32, 64, 32, 32, 128, 64, 32, 64, 32, 128, 32])
-    got = tbucket.bucket_chunks(bucket_of, 3, np.random.default_rng(4),
-                                shuffle, drop_last)
-    want = jbucket.bucket_chunks(bucket_of, 3, np.random.default_rng(4),
-                                 shuffle, drop_last)
+    got = tbucket.bucket_chunks(bucket_of, batch_size,
+                                np.random.default_rng(4), shuffle)
+    want = jbucket.bucket_chunks(bucket_of, batch_size,
+                                 np.random.default_rng(4), shuffle)
     assert [b for b, _ in got] == [b for b, _ in want]
     for (_, g), (_, w) in zip(got, want):
         np.testing.assert_array_equal(g, w)

@@ -344,3 +344,16 @@ def test_sym_placement_keeps_position_gradients_f64(gated):
     got = torch.autograd.grad((dd, env), p, placed)
     np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=1e-12,
                                atol=1e-12 * want[0].abs().max().item())
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_cfconv_function_refuses_double_backward(symmetric):
+    """A backward asked to build a graph (MD17 forces) raises in both modes
+    of the CFConv Function, before its kernel would run."""
+    from types import SimpleNamespace
+
+    ctx = SimpleNamespace(symmetric=symmetric)
+    name = "cfconv_bwd_sym" if symmetric else "cfconv_bwd"
+    with torch.enable_grad(), pytest.raises(NotImplementedError,
+                                            match=f"{name} is first order"):
+        tcf._CFConv.backward(ctx, torch.zeros(1, 8, tcf.KERNEL_F))
