@@ -59,8 +59,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
       must raise; the stack must refuse autograd. Then the same for PaiNN-DDM
       (``--model_3d painn``: ``painn_fwd``/``painn_bwd`` in the backbone,
       the clean geometry's radius graph as both views' pair mask), whose
-      whole-stack kernel must refuse autograd. The comparisons run on a
-      freshly seeded DDM
+      whole-stack kernel must refuse autograd. Then one full-width
+      DDM-PaiNN step per bucket with both views through the differentiable
+      whole stack (``models/painn.stack_train_apply``: ``painn_stack_train``
+      forward, ``painn_bwd`` per block in the backward), held to the
+      per-block kernel step as above; a second order through it must
+      raise. The comparisons run on a freshly seeded DDM
       model: on the trained one, which differs from run to run in its last
       digits, which pre-activations sit within rounding of a relu's kink
       changes between runs, and in one of five runs kinks crossed by one
@@ -83,12 +87,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
       0's ``painn_fwd`` and ``painn_bwd`` against their plain versions (in
       graph chunks; tolerances as in 2), then one LBA-PaiNN step against
       the plain step (in chunks of 2 graphs; tolerances as in b).
+   d. The symmetric PaiNN pair on the same LBA-PaiNN inputs (B=64, N=512:
+      symmetric dist/gate, antisymmetric directions), entered at the op
+      level through ``painn_message(symmetric=True)``, since no driver
+      routes PaiNN through it: ``painn_fwd_sym`` against the plain version
+      and against ``painn_fwd`` (tolerances as ``painn_fwd``),
+      ``painn_bwd_sym`` against the plain cotangents placed
+      (``place_sym_cotangent``: ddist/dgate symmetric, the three ddir
+      antisymmetric; tolerances as ``painn_bwd``); then a scalar loss
+      through ``pairwise_directions``, the cosine-cutoff gate and the
+      symmetric pair, whose gradients to the positions, x, mu, Wk and bk
+      must match the same chain through ``painn_fwd``/``painn_bwd`` within
+      relative norm 1e-5 (the placement's real test: a sign error in the
+      direction terms passes every forward check).
 4. Measurements: serving mol/s per bucket (steady state, synchronized) and
    one traced pass per bucket (torch.profiler: device busy time, the
    port's kernels' share, idle share); training mol/s per bucket (median of
    3 synchronized steps after a warm-up) and one traced step per bucket,
    for both backbones, and the kernels with the most device time at each
-   path's largest bucket; fine-tune complexes/s (LEP: pairs/s) at N=512,
+   path's largest bucket; DDM-PaiNN mol/s per bucket through the stack and
+   through the per-block kernels (``train_stack:`` lines, median of 3
+   steps each, in turns); the symmetric pair's and the plain pair's kernel
+   times at the LBA shape (``painn_sym_vs_plain_kernels:``); fine-tune complexes/s (LEP: pairs/s) at N=512,
    one traced step and its top device kernels, for LBA and LEP;
    each kernel's time at the shape its path gives it, beside its plain
    version's time and its bound (f32 CUDA-core peak and HBM rate; the
@@ -96,7 +116,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    filter once and the upper triangle read), and ptxas's registers and
    spills per kernel.
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON (thirteen kernels,
+every Pallas kernel of the JAX package); the last line is
 ``{"ok": true, "device": {...}}``. The whole output is also written to
 ``runs/chip_smoke.log``.
 """
@@ -210,9 +231,12 @@ KERNEL_ENTRIES = {
     "cfconv_bwd_sym": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb1E"),
     "ncsn_score_fwd": ("ncsn_score", "_ZN6geossl15ncsn_fwd_kernel"),
     "ncsn_score_bwd": ("ncsn_score", "_ZN6geossl15ncsn_bwd_kernel"),
-    "painn_fwd": ("painn_fwd", "_ZN6geossl16painn_fwd_kernel"),
-    "painn_bwd": ("painn_bwd", "_ZN6geossl16painn_bwd_kernel"),
-    "painn_stack": ("painn_stack", "_ZN6geossl18painn_stack_kernel"),
+    "painn_fwd": ("painn_fwd", "_ZN6geossl16painn_fwd_kernelILb0E"),
+    "painn_fwd_sym": ("painn_fwd", "_ZN6geossl16painn_fwd_kernelILb1E"),
+    "painn_bwd": ("painn_bwd", "_ZN6geossl16painn_bwd_kernelILb0E"),
+    "painn_bwd_sym": ("painn_bwd", "_ZN6geossl16painn_bwd_kernelILb1E"),
+    "painn_stack": ("painn_stack", "_ZN6geossl18painn_stack_kernelILb0E"),
+    "painn_stack_train": ("painn_stack", "_ZN6geossl18painn_stack_kernelILb1E"),
 }
 
 
@@ -419,33 +443,45 @@ def painn_inputs(m, batch, seed=SEED, pair_mask=None):
 
 
 def check_painn_bwd(errs, grids, x, mu, wk, bk, gq, gmu, cutoff, what,
-                    chunk=None):
-    """painn_bwd against its plain version, gating off and on: the seven
-    per-pair and per-node cotangents elementwise (scaled), dWk and dbk by
-    relative norm; with gating, the five pair cotangents must be zero on
-    empty 8x8 tiles (dgate is compared on the occupied ones)."""
+                    chunk=None, symmetric=False, want=None):
+    """painn_bwd (with ``symmetric``, painn_bwd_sym) against its plain
+    version, gating off and on: the seven per-pair and per-node cotangents
+    elementwise (scaled), dWk and dbk by relative norm; with gating, the
+    five pair cotangents must be zero on empty 8x8 tiles (dgate is compared
+    on the occupied ones). painn_bwd_sym's pair cotangents are held to the
+    plain ones placed (``ops/cfconv.place_sym_cotangent``: ddist and dgate
+    symmetric, the three ddir antisymmetric). ``want``: the plain version's
+    output on these inputs, if made already. Returns it."""
     import torch
 
+    from geossl_tpu_torch.ops import cfconv as K
     from geossl_tpu_torch.ops import painn as P
 
     def plain(d, g, a, b, c, xx, m, gq_, gmu_):
         return P.painn_bwd_reference(d, g, a, b, c, xx, m, wk, bk, gq_, gmu_,
                                      cutoff)
 
-    want = (plain(*grids, x, mu, gq, gmu) if chunk is None else
-            chunked_sum(plain, (*grids, x, mu, gq, gmu), (), chunk, 7))
+    if want is None:
+        want = (plain(*grids, x, mu, gq, gmu) if chunk is None else
+                chunked_sum(plain, (*grids, x, mu, gq, gmu), (), chunk, 7))
+    name_k, bwd, ref = "painn_bwd", P.painn_bwd, want
+    if symmetric:
+        name_k, bwd = "painn_bwd_sym", P.painn_bwd_sym
+        ref = (*(K.place_sym_cotangent(w, antisymmetric=k >= 2)
+                 for k, w in enumerate(want[:5])), *want[5:])
     occ = tile_occupied(grids[1])
     for sp in (False, True):
-        got = P.painn_bwd(*grids, x, mu, wk, bk, gq, gmu, cutoff, sp)
-        for k, (name, a, w) in enumerate(zip(PAINN_BWD_NAMES[:7], got, want)):
+        got = bwd(*grids, x, mu, wk, bk, gq, gmu, cutoff, sp)
+        for k, (name, a, w) in enumerate(zip(PAINN_BWD_NAMES[:7], got, ref)):
             tag = f"{what} sparse={sp} {name}"
             if k < 5 and sp:
                 if (a[~occ] != 0).any():
-                    fail(f"painn_bwd {tag}: nonzero on an empty tile")
+                    fail(f"{name_k} {tag}: nonzero on an empty tile")
                 w = torch.where(occ, w, torch.zeros_like(w))
-            errs.check_scaled("painn_bwd", a, w, tag)
-        check_weight_grads(errs, "painn_bwd", got[7:], want[7:],
+            errs.check_scaled(name_k, a, w, tag)
+        check_weight_grads(errs, name_k, got[7:], ref[7:],
                            PAINN_BWD_NAMES[7:], f"{what} sparse={sp}")
+    return want
 
 
 def measure_serving(pred, subs, model_3d):
@@ -510,6 +546,47 @@ def measure_training(ddm, targs, batches, model_3d):
             "device_busy_s": busy, "port_kernels_s": ours,
             "other_device_s": busy - ours, "idle_share": 1.0 - busy / wall}))
     print_top_ops(step, model_3d, "train", b)
+
+
+def measure_stack_training(ddm, targs, batches):
+    """DDM-PaiNN mol/s per bucket through the differentiable whole stack
+    and through the per-block kernels (``train_step``), each the median of 3
+    synchronized optimizer steps after a warm-up, in turns."""
+    import torch
+
+    from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    opt, sched = common.make_optimizer_from_args(targs, ddm.parameters(), 100)
+    gen_t = torch.Generator(batches[0].positions.device).manual_seed(SEED)
+
+    def stack_step(batch):
+        opt.zero_grad(set_to_none=True)
+        pos2, sel = PG.batch_views(targs, batch, gen_t)
+        loss = ddm_stack_loss(ddm, batch, pos2, sel, generator=gen_t)
+        loss.backward()
+        opt.step()
+        sched.step()
+
+    def block_step(batch):
+        PG.train_step(ddm, opt, sched, [batch], targs, gen_t)
+
+    for batch in batches:
+        mols = int(batch.graph_mask.sum())
+        times = {"stack": [], "per_block": []}
+        for name, step in (("stack", stack_step), ("per_block", block_step)):
+            step(batch)  # warm-up
+        for _ in range(3):
+            for name, step in (("stack", stack_step), ("per_block", block_step)):
+                t0 = time.perf_counter()
+                step(batch)
+                torch.cuda.synchronize()
+                times[name].append(time.perf_counter() - t0)
+        med = {k: sorted(v)[1] for k, v in times.items()}
+        print("train_stack: " + json.dumps({
+            "model": "painn", "bucket": batch.max_atoms, "molecules": mols,
+            "s_per_step": med, "mol_per_s": {k: mols / v for k, v in
+                                            med.items()}}))
 
 
 def measure_finetune(net, fargs, batch, loss_fn, task, items):
@@ -651,13 +728,10 @@ def check_step_parity(what, loss_k, grads_k, loss_p, grads_p):
     if not abs(loss_k - loss_p) <= RTOL * abs(loss_p):
         fail(f"{what}: loss {loss_k} (kernels) vs {loss_p} (plain)")
 
-    def rel(a, b):
-        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
-
-    per = {n: rel(grads_k[n], grads_p[n]) for n in grads_p}
+    per = {n: rel_norm(grads_k[n], grads_p[n]) for n in grads_p}
     worst = max(per, key=per.get)
-    total = rel(torch.cat([g.flatten() for g in grads_k.values()]),
-                torch.cat([g.flatten() for g in grads_p.values()]))
+    total = rel_norm(torch.cat([g.flatten() for g in grads_k.values()]),
+                     torch.cat([g.flatten() for g in grads_p.values()]))
     if total > GRAD_RTOL or per[worst] > 10 * GRAD_RTOL:
         fail(f"{what}: gradients differ by relative norm {total:.3e} in all, "
              f"{per[worst]:.3e} in {worst}")
@@ -669,6 +743,38 @@ def check_step_parity(what, loss_k, grads_k, loss_p, grads_p):
 def step_parity(ddm, batch, targs, bucket, model_3d="SchNet"):
     """One full-width DDM step with kernels against the plain versions on
     the card, with the same injected noise."""
+    pos2, sel, draws = step_draws(ddm, batch, targs, bucket)
+    loss_k, grads_k = ddm_grads(ddm, batch, pos2, sel, draws)
+    ddm.plain = True
+    loss_p, grads_p = ddm_grads(ddm, batch, pos2, sel, draws, chunk=16)
+    ddm.plain = False
+    check_step_parity(f"{model_3d} step parity bucket {bucket}", loss_k,
+                      grads_k, loss_p, grads_p)
+
+
+def ddm_stack_loss(ddm, batch, pos2, sel, draws=None, generator=None):
+    """The DDM loss of ``DDM.forward`` with both views through the
+    differentiable whole stack (``models/painn.stack_train_apply``) and the
+    clean geometry's radius graph as their pair mask, as the JAX package's
+    ``experiments/kexp10.py`` builds it; the same NCSN heads."""
+    from geossl_tpu_torch.models.painn import stack_train_apply
+    from geossl_tpu_torch.ops import geometry
+
+    z, mask, m = batch.atom_type, batch.node_mask, ddm.model
+    d1, pm = geometry.pairwise_distances(batch.positions, mask)
+    pair_mask = geometry.radius_adjacency(d1, pm, m.cutoff, m.max_neighbors)
+    _, h1 = stack_train_apply(m, z, batch.positions, mask, pair_mask)
+    _, h2 = stack_train_apply(m, z, pos2, mask, pair_mask)
+    d2, _ = geometry.pairwise_distances(pos2, mask)
+    s1, n1, s2, n2 = draws if draws is not None else (None,) * 4
+    l1 = ddm.NCSN_01(h1, d2, sel, batch.graph_mask, s1, n1, generator)
+    l2 = ddm.NCSN_02(h2, d1, sel, batch.graph_mask, s2, n2, generator)
+    return (l1 + l2) / 2
+
+
+def step_draws(ddm, batch, targs, bucket):
+    """(pos2, sel, draws) of one DDM step, seeded by the bucket: the views
+    and each head's noise levels and noise."""
     import torch
 
     from geossl_tpu_torch.train.pretrain_geossl import batch_views
@@ -681,12 +787,11 @@ def step_parity(ddm, batch, targs, bucket, model_3d="SchNet"):
                               generator=gen, device=sel.device)
         draws += [head.sigmas[level],
                   torch.randn(sel.shape, generator=gen, device=sel.device)]
-    loss_k, grads_k = ddm_grads(ddm, batch, pos2, sel, draws)
-    ddm.plain = True
-    loss_p, grads_p = ddm_grads(ddm, batch, pos2, sel, draws, chunk=16)
-    ddm.plain = False
-    check_step_parity(f"{model_3d} step parity bucket {bucket}", loss_k,
-                      grads_k, loss_p, grads_p)
+    return pos2, sel, draws
+
+
+def rel_norm(a, b):
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
 def refuses_grad(fn):
@@ -722,7 +827,7 @@ def main():
     from geossl_tpu_torch.data.molecule3d import load_molecule3d
     from geossl_tpu_torch.data.store import MolStore
     from geossl_tpu_torch.data.synthetic import synthetic_lba, synthetic_molecule3d
-    from geossl_tpu_torch.models.common import cosine_envelope
+    from geossl_tpu_torch.models.common import cosine_cutoff, cosine_envelope
     from geossl_tpu_torch.ops import _build
     from geossl_tpu_torch.ops import cfconv as K
     from geossl_tpu_torch.ops import geometry
@@ -1093,6 +1198,51 @@ def main():
         fail("a double backward through painn_fwd on CUDA did not raise")
     print(f"grad guard painn_bwd (second order): {msg}")
 
+    # -- 3b''. main path: DDM-PaiNN through the differentiable whole stack -------
+    # both views through models/painn.stack_train_apply (painn_stack_train:
+    # the stack kernel saves the block boundaries, the backward runs
+    # painn_bwd per block), one full-width step per bucket on the freshly
+    # seeded DDM-PaiNN model, each held to the per-block kernel step
+    from geossl_tpu_torch.models.painn import stack_train_apply
+
+    draws_of = {b: step_draws(ddm0_p, train_batch(b), targs_p, b)
+                for b in train_buckets}
+    stack_grads = {}
+    reset_launch_counts()
+    t0 = time.time()
+    for b in train_buckets:
+        pos2, sel, draws = draws_of[b]
+        stack_grads[b] = grads_in_chunks(
+            ddm0_p, train_batch(b), lambda sb, sl: ddm_stack_loss(
+                ddm0_p, sb, pos2[sl], sel[sl], tuple(t[sl] for t in draws)))
+    torch.cuda.synchronize()
+    stack_launches = launch_counts()
+    print(f"main path (PaiNN training through the stack): one step per bucket "
+          f"in {time.time() - t0:.2f} s (first call); launches "
+          f"{stack_launches}")
+    for name in ("painn_stack_train", "painn_bwd", "ncsn_score_fwd",
+                 "ncsn_score_bwd"):
+        if stack_launches[name] == 0:
+            fail(f"kernel {name} was not launched on the stack training path")
+    if stack_launches["painn_fwd"] != 0:
+        fail("the stack training path ran the per-block forward")
+    for b in train_buckets:
+        pos2, sel, draws = draws_of[b]
+        loss_k, grads_k = ddm_grads(ddm0_p, train_batch(b), pos2, sel, draws)
+        check_step_parity(f"PaiNN stack step vs per-block step bucket {b}",
+                          *stack_grads[b], loss_k, grads_k)
+    q_g = q128.clone().requires_grad_(True)
+
+    def stack_double_backward():
+        q, _ = P.painn_stack_train(*grids128, q_g, model_p.stacked_weights(),
+                                   cut_p)
+        torch.autograd.grad(q.square().sum(), q_g, create_graph=True)
+
+    msg = refuses_grad(stack_double_backward)
+    if msg is None:
+        fail("a double backward through painn_stack_train on CUDA did not raise")
+    print(f"grad guard painn_stack_train (second order): {msg}")
+
     # -- 3c. main path: the Atom3D fine-tunes at N=512 --------------------------
     pretrained = os.path.join(out_dir, "model.pth")  # DDM-SchNet, phase 3b
     lba_flags = ["--synthetic", "--synthetic_size", "160"]
@@ -1183,8 +1333,8 @@ def main():
     gen_l = torch.Generator(dev).manual_seed(SEED)
     gq = torch.randn(q0.shape, generator=gen_l, device=dev)
     gmu = torch.randn(mu.shape, generator=gen_l, device=dev)
-    check_painn_bwd(errs, grids, x, mu, wk0, bk0, gq, gmu, cut_lp,
-                    "LBA B=64 N=512", chunk=2)
+    want_bwd_l = check_painn_bwd(errs, grids, x, mu, wk0, bk0, gq, gmu,
+                                 cut_lp, "LBA B=64 N=512", chunk=2)
 
     def lba_loss_p(sb, sl):
         return FL.loss_fn(net0_p, sb)
@@ -1195,6 +1345,73 @@ def main():
     net0_p.plain = False
     check_step_parity("LBA-PaiNN step parity bucket 512", loss_k, grads_k,
                       loss_p, grads_p)
+
+    # -- 3d. main path: the symmetric PaiNN pair at the LBA shape ----------------
+    # No driver of either package routes PaiNN through it (the JAX model
+    # passes symmetric=False), so the path enters at the op level, through
+    # the dispatcher: painn_message(symmetric=True) on block 0's inputs of
+    # the LBA-PaiNN batch (B=64, N=512: symmetric dist/gate, antisymmetric
+    # directions, no max_neighbors).
+    d_l, g_l = grids[0], grids[1]
+    if not (torch.equal(d_l, d_l.transpose(1, 2))
+            and torch.equal(g_l, g_l.transpose(1, 2))
+            and all(torch.equal(t, -t.transpose(1, 2)) for t in grids[2:])):
+        fail("the LBA-PaiNN pair grids are not (anti)symmetric")
+    with torch.no_grad():
+        got = torch.cat(P.painn_message(*grids, x, mu, wk0, bk0, cut_lp,
+                                        symmetric=True), dim=-1)
+        errs.check("painn_fwd_sym", got, want, "LBA B=64 N=512 dispatcher")
+        errs.check("painn_fwd_sym", got, torch.cat(P.painn_message_fused(
+            *grids, x, mu, wk0, bk0, cut_lp, True), dim=-1),
+            "LBA B=64 N=512 against painn_fwd")
+        for sp in (False, True):
+            errs.check("painn_fwd_sym", torch.cat(P.painn_message_fused_sym(
+                *grids, x, mu, wk0, bk0, cut_lp, sp), dim=-1), want,
+                f"LBA B=64 N=512 sparse={sp}")
+    check_painn_bwd(errs, grids, x, mu, wk0, bk0, gq, gmu, cut_lp,
+                    "LBA B=64 N=512", symmetric=True, want=want_bwd_l)
+
+    def pair_chain(op):
+        """Gradients to positions, x, mu, Wk and bk of a scalar loss through
+        pairwise_directions, the cosine-cutoff gate and ``op``."""
+        pos = lba_batch.positions.clone().requires_grad_(True)
+        ins = [t.clone().requires_grad_(True) for t in (x, mu, wk0, bk0)]
+        dist, direction, pm = geometry.pairwise_directions(
+            pos, lba_batch.node_mask)
+        gate = cosine_cutoff(dist, cut_lp) * \
+            geometry.radius_adjacency(dist, pm, cut_lp).float()
+        dq, dmu = op(dist, gate, *(direction[..., c].contiguous()
+                                   for c in range(3)), *ins, cut_lp)
+        loss = torch.tanh(dq).sum() + torch.tanh(dmu).sum()
+        return torch.autograd.grad(loss, [pos] + ins)
+
+    reset_launch_counts()
+    g_sym = pair_chain(lambda *a: P.painn_message(*a, symmetric=True))
+    torch.cuda.synchronize()
+    sym_launches = launch_counts()
+    print(f"main path (symmetric PaiNN pair, LBA B=64 N=512, forward and "
+          f"backward through the positions): launches {sym_launches}")
+    for name in ("painn_fwd_sym", "painn_bwd_sym"):
+        if sym_launches[name] == 0:
+            fail(f"kernel {name} was not launched on the symmetric pair's path")
+    g_ref = pair_chain(lambda *a: P.painn_message(*a))
+    for name, a, w in zip(("positions", "x", "mu", "Wk", "bk"), g_sym, g_ref):
+        rel = rel_norm(a, w)
+        if not torch.isfinite(a).all() or rel > 1e-5:
+            fail(f"symmetric pair chain d{name}: relative norm {rel:.3e} "
+                 "against the painn_fwd/painn_bwd chain (limit 1e-5)")
+        print(f"symmetric pair chain d{name}: rel_norm {rel:.3e} against the "
+              "painn_fwd/painn_bwd chain")
+    fwd_args = (*grids, x, mu, wk0, bk0, cut_lp, True)
+    bwd_args = (*grids, x, mu, wk0, bk0, gq, gmu, cut_lp, True)
+    sym_ms = {"painn_fwd": cuda_time_ms(lambda: P.painn_message_fused(*fwd_args)),
+              "painn_fwd_sym": cuda_time_ms(
+                  lambda: P.painn_message_fused_sym(*fwd_args)),
+              "painn_bwd": cuda_time_ms(lambda: P.painn_bwd(*bwd_args)),
+              "painn_bwd_sym": cuda_time_ms(lambda: P.painn_bwd_sym(*bwd_args))}
+    print("painn_sym_vs_plain_kernels: " + json.dumps(
+        {"shape": "LBA B=64 N=512", "ms": sym_ms}))
+    sym_case = (grids, x, mu, wk0, bk0, gq, gmu)
 
     # -- 4. measurements -----------------------------------------------------------
     subs = {b: MolStore.from_records([sorted_store.get(int(i))
@@ -1260,6 +1477,7 @@ def main():
     tbatches = [train_batch(b) for b in train_buckets]
     measure_training(ddm, targs, tbatches, "schnet")
     measure_training(ddm_p, targs_p, tbatches, "painn")
+    measure_stack_training(ddm0_p, targs_p, tbatches)
     measure_finetune(net0, lba_args, lba_batch, FL.loss_fn, "lba",
                      int(lba_batch.graph_mask.sum()))
     lep_args = FE.build_parser().parse_args(lep_flags)
@@ -1444,6 +1662,69 @@ def main():
                             cuda_time_ms(fn), cuda_time_ms(plain, reps=3,
                                                            warmup=1),
                             flops, nbytes, train_launches_p[name]))
+
+        # the differentiable stack's forward (save_residuals) on the same
+        # batch: view 1 of the DDM step at N=128, the clean graph
+        stacked0 = m0.stacked_weights()
+        got = P._launch_painn_stack("painn_stack_train", grids, q0, stacked0,
+                                    cut_p, m0.epsilon, True)
+        want = chunked_sum(lambda *a: P.painn_stack_reference(
+            *a, stacked0, cut_p, save_residuals=True), (*grids, q0), (), 32, 6)
+        for name, a, w in zip(("q", "mu", "qs", "mus", "qps", "mups"), got,
+                              want):
+            errs.check_scaled("painn_stack_train", a, w,
+                              f"DDM B=128 N=128 {name}")
+        atoms = int(batch.node_mask.sum())
+        kernels.append((
+            "painn_stack_train", "geossl_tpu_torch/ops/csrc/painn_stack.cu",
+            "geossl_tpu/ops/painn_pallas.py:829",
+            cuda_time_ms(lambda: P.painn_stack_train(*grids, q0, stacked0,
+                                                     cut_p)),
+            cuda_time_ms(lambda: chunked_sum(lambda *a: P.painn_stack_reference(
+                *a, stacked0, cut_p, save_residuals=True), (*grids, q0), (),
+                32, 6), reps=3, warmup=1),
+            L_ * (filt_pairs * fwd_pair + nnz * fwd_elem
+                  + atoms * 30 * F_ * F_),
+            # painn_stack's bytes, then qs, mus, qps, mups written
+            4 * (5 * cells + 5 * q0.numel()
+                 + sum(t.numel() for t in stacked0) + 8 * L_ * q0.numel()),
+            stack_launches["painn_stack_train"]))
+
+        # the symmetric pair at the LBA shape (phase 3d's inputs): each
+        # occupied unordered pair's filter once (pair_work: one triangle),
+        # the message sums per ordered pair; the backward's filter, dWk/dbk
+        # and dphi once per unordered pair, its elementwise terms per
+        # ordered pair
+        grids, x, mu, wk0, bk0, gq, gmu = sym_case
+        nnz, filt_pairs, cells = pair_work(grids[0], grids[1])
+        if cells == grids[0].numel():
+            fail("painn_fwd_sym: the LBA pair grids are not symmetric")
+        kernels.append((
+            "painn_fwd_sym", "geossl_tpu_torch/ops/csrc/painn_fwd.cu",
+            "geossl_tpu/ops/painn_pallas.py:435",
+            cuda_time_ms(lambda: P.painn_message_fused_sym(
+                *grids, x, mu, wk0, bk0, cut_lp, True)),
+            cuda_time_ms(lambda: chunked(lambda *a: torch.cat(
+                P.painn_message_fused_sym_reference(*a, wk0, bk0, cut_lp),
+                dim=-1), (*grids, x, mu), (), 4), reps=3, warmup=1),
+            filt_pairs * fwd_pair + nnz * fwd_elem,
+            4 * (5 * cells + 2 * x.numel() + (R_ + 1) * f3 + 4 * x.numel() // 3),
+            sym_launches["painn_fwd_sym"]))
+    kernels.append((
+        "painn_bwd_sym", "geossl_tpu_torch/ops/csrc/painn_bwd.cu",
+        "geossl_tpu/ops/painn_pallas.py:540",
+        cuda_time_ms(lambda: P.painn_bwd_sym(*grids, x, mu, wk0, bk0, gq, gmu,
+                                             cut_lp, True)),
+        cuda_time_ms(lambda: chunked_sum(
+            lambda d, g, a, b_, c, xx, m, gq_, gmu_:
+            P.painn_bwd_sym_reference(d, g, a, b_, c, xx, m, wk0, bk0, gq_,
+                                      gmu_, cut_lp),
+            (*grids, x, mu, gq, gmu), (), 2, 7), reps=2, warmup=1),
+        filt_pairs * (2 * R_ * f3 + 2 * (R_ + 1) * f3 + 2 * R_ * f3)
+        + nnz * 40 * F_,
+        4 * (5 * cells + 5 * grids[0].numel() + 4 * x.numel()
+             + x.numel() // 3 + 2 * (R_ + 1) * f3),
+        sym_launches["painn_bwd_sym"]))
 
     table = []
     for name, src, replaces, ms, plain_ms, flops, nbytes, count in kernels:

@@ -23,7 +23,9 @@ As in the JAX package:
 ``PaiNN.forward`` is the training path: each interaction's message pass
 goes through ``ops/painn.painn_message``, differentiable on the card (the
 ``painn_fwd``/``painn_bwd`` kernels); ``fused_stack_apply`` is inference
-only (``painn_stack``). ``plain=True`` runs the JAX model's XLA math on any
+only (``painn_stack``); ``stack_train_apply`` is the differentiable whole
+stack (``painn_stack_train``: the stack kernel forward, the per-block
+backward). ``plain=True`` runs the JAX model's XLA math on any
 device (its RBF width is the offsets' step rounded in the working dtype;
 the kernels', and their plain versions', is the exact step, as in the JAX
 package's kernels).
@@ -51,9 +53,11 @@ from geossl_tpu_torch.models.common import (
 )
 from geossl_tpu_torch.ops import geometry
 from geossl_tpu_torch.ops.painn import (
+    STACK_MAX_N,
     painn_message,
     painn_message_reference,
     painn_stack_infer,
+    painn_stack_train,
 )
 
 
@@ -235,5 +239,31 @@ def fused_stack_apply(model: PaiNN, atom_type, positions, node_mask,
     dirs = [direction[..., c].contiguous() for c in range(3)]
     stacked = model.stacked_weights() if stacked is None else stacked
     q, _ = painn_stack_infer(dist, gate.contiguous(), *dirs, q0.contiguous(),
+                             stacked, model.cutoff, model.epsilon)
+    return geometry.readout(q, node_mask, model.readout), q
+
+
+def stack_train_apply(model: PaiNN, atom_type, positions, node_mask,
+                      pair_mask=None):
+    """Differentiable forward with all interaction and mixing blocks in one
+    kernel launch (``ops/painn.painn_stack_train``; JAX
+    ``models/painn.stack_train_apply``): the stack kernel saves each block's
+    boundary values and the backward runs the per-block chain, with the
+    ``painn_bwd`` kernel for the message passes. Gradients flow to the
+    parameters and the positions. Returns ``(graph_repr, node_repr)``, as
+    ``model.forward``. Needs f32 positions and N <= STACK_MAX_N (the JAX
+    function's other refusal, a non-default ``pair_axis`` or compute dtype,
+    has no counterpart: the port's PaiNN has neither option)."""
+    if positions.dtype != torch.float32:
+        raise ValueError(f"stack_train_apply: positions must be float32 (got "
+                         f"{positions.dtype}); use model.forward")
+    if positions.shape[1] > STACK_MAX_N:
+        raise ValueError(f"stack_train_apply: N={positions.shape[1]} exceeds "
+                         f"{STACK_MAX_N}; use model.forward")
+    q0 = model.embed(atom_type).float()
+    dist, direction, gate = model.geometry(positions, node_mask, pair_mask)
+    dirs = [direction[..., c].contiguous() for c in range(3)]
+    stacked = [t.float() for t in model.stacked_weights()]
+    q, _ = painn_stack_train(dist, gate.contiguous(), *dirs, q0.contiguous(),
                              stacked, model.cutoff, model.epsilon)
     return geometry.readout(q, node_mask, model.readout), q

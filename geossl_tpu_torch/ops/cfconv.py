@@ -113,19 +113,22 @@ def cfconv_bwd_sym_reference(dist, env, x, g, w1, b1, w2, b2, start, stop,
                                 num_g)
 
 
-def place_sym_cotangent(c):
-    """The symmetric backward kernel's placement of a pair cotangent
+def place_sym_cotangent(c, antisymmetric=False):
+    """The symmetric backward kernels' placement of a pair cotangent
     ``c [..., N, N]``, with 8x8 tiles (pi, pj) of cells (i, j): a tile with
-    pj > pi holds ``c + c^T``, a diagonal tile ``c``, a tile with pj < pi
-    zero. (With occupancy gating the kernel also writes zero on tiles whose
-    env is all zero.) Exact for training when dist and env are symmetric
-    functions of the positions: every gradient upstream of them is the
-    same as with ``c``."""
+    pj > pi holds ``c + c^T`` (with ``antisymmetric``, ``c - c^T``), a
+    diagonal tile ``c``, a tile with pj < pi zero. (With occupancy gating
+    the kernels also write zero on tiles whose env or gate is all zero.)
+    Exact for training when the pair field is a symmetric (antisymmetric:
+    PaiNN's directions) function of the positions: every gradient upstream
+    of it is the same as with ``c``. Used by ``cfconv_bwd_sym`` and
+    ``ops/painn.painn_bwd_sym``."""
     n = c.shape[-1]
     t = torch.arange(n, device=c.device) // KERNEL_TILE
     upper = t[None, :] > t[:, None]
     diag = t[None, :] == t[:, None]
-    return torch.where(upper, c + c.transpose(-1, -2),
+    ct = c.transpose(-1, -2)
+    return torch.where(upper, c - ct if antisymmetric else c + ct,
                        torch.where(diag, c, torch.zeros_like(c)))
 
 

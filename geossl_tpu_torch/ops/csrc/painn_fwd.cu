@@ -5,7 +5,8 @@
 //   dmu_c[i] = sum_j wr xr_j dir_c[i,j] + sum_j wm xm_j mu_c[j]
 //
 // Replaces geossl_tpu/ops/painn_pallas.py: _fwd_kernel (painn_message_fused
-// via _fwd_pallas). As there, the gated filter tensor stays on the chip: the
+// via _fwd_pallas) and, with SYM, _fwd_sym_kernel (painn_message_fused_sym
+// via _fwd_sym_pallas). As there, the gated filter tensor stays on the chip: the
 // kernel reads dist, gate and the three direction grids [B,Ni,Nj], x and mu
 // [B,Nj,3F] and writes dq [B,Ni,F] and dmu [B,Ni,3F] (mu c-major).
 //
@@ -24,10 +25,22 @@
 // memory at the first computed tile, so a block of padding rows reads only
 // its gate. Each block flags its occupied tiles in one pass over its gate
 // rows before the loop.
+//
+// SYM (symmetric dist/gate, antisymmetric directions, square grid), the
+// scheme of cfconv_fwd.cu's SYM mode: tile (pi, pj) is computed iff
+// pi <= pj, so each filter is computed once per unordered pair of tiles.
+// A computed tile with pi < pj also emits the messages of its mirror tile
+// (pj, pi): the same filter, the direction terms negated
+// (painn_tile.cuh, MIRROR). Those land on the tile's j rows: summed over
+// the tile's 8 rows i in shared memory, then added to dq/dmu with global
+// atomicAdd, as is each block's own row sum. So dq and dmu must be zero on
+// entry and their summation order varies from run to run. The diagonal
+// tile holds both orders of its pairs and emits no mirror.
 #include "painn_tile.cuh"
 
 namespace geossl {
 
+template <bool SYM>
 __global__ void __launch_bounds__(kThreads)
 painn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
                  const float* __restrict__ dirx, const float* __restrict__ diry,
@@ -43,7 +56,10 @@ painn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
   float* xj_s = phi_s + R * kPhiS;       // [kTile][kF3]
   float* muj_s = xj_s + kTile * kF3;     // [kTile][kF3]
   float* pr_s = muj_s + kTile * kF3;     // [5][kPairs]
-  int* occ_s = (int*)(pr_s + 5 * kPairs);  // [ntj]
+  float* xi_s = pr_s + 5 * kPairs;       // [kTile][kF3]  SYM: x rows of the block
+  float* mui_s = xi_s + kTile * kF3;     // [kTile][kF3]  SYM: mu rows of the block
+  float* mir_s = mui_s + kTile * kF3;    // [kTile][kF4]  SYM: mirrored messages
+  int* occ_s = (int*)(SYM ? mir_s + kTile * kF4 : xi_s);  // [ntj]
 
   const int tid = threadIdx.x;
   const int pi = blockIdx.x, b = blockIdx.y;
@@ -60,23 +76,34 @@ painn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
     am[0][k] = am[1][k] = am[2][k] = 0.f;
   }
 
+  if (SYM) {
+    for (int idx = tid; idx < kTile * kF3; idx += kThreads) {
+      const int i = i0 + idx / kF3;
+      const size_t src = (size_t)i * kF3 + idx % kF3;
+      xi_s[idx] = i < ni ? x_b[src] : 0.f;
+      mui_s[idx] = i < ni ? mu_b[src] : 0.f;
+    }
+  }
+
   const int ntj = (nj + kTile - 1) / kTile;
+  const int jstart = SYM ? i0 : 0;
   if (sparse) {
     for (int t = tid; t < ntj; t += kThreads) occ_s[t] = 0;
     __syncthreads();
-    const int rows = min(kTile, ni - i0);
-    for (int idx = tid; idx < rows * nj; idx += kThreads) {
-      const int r = idx / nj, j = idx - r * nj;
+    const int rows = min(kTile, ni - i0), cols = nj - jstart;
+    for (int idx = tid; idx < rows * cols; idx += kThreads) {
+      const int r = idx / cols, j = jstart + idx - r * cols;
       if (gate_b[(size_t)(i0 + r) * nj + j] != 0.f) occ_s[j / kTile] = 1;
     }
     __syncthreads();
   }
 
   bool staged = false;
-  for (int pj = 0; pj < ntj; ++pj) {
+  for (int pj = SYM ? pi : 0; pj < ntj; ++pj) {
     if (sparse && !occ_s[pj]) continue;  // block-uniform
     const int j0 = pj * kTile;
-    __syncthreads();  // the previous tile is done with pr_s, phi_s, xj_s, muj_s
+    const bool mirror = SYM && pj != pi;  // block-uniform
+    __syncthreads();  // the previous tile is done with pr_s, phi_s, xj_s, muj_s, mir_s
     if (tid < kPairs)
       painn_load_pairs(pr_s, dist + grid_off, gate_b, dirx + grid_off,
                        diry + grid_off, dirz + grid_off, i0 + tid / kTile,
@@ -91,10 +118,26 @@ painn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
       xj_s[idx] = j < nj ? x_b[src] : 0.f;
       muj_s[idx] = j < nj ? mu_b[src] : 0.f;
     }
+    if (mirror)
+      for (int idx = tid; idx < kTile * kF4; idx += kThreads) mir_s[idx] = 0.f;
     __syncthreads();
     painn_rbf(pr_s, phi_s, R, delta, coeff);
     __syncthreads();
-    painn_tile_messages<kF3>(pr_s, phi_s, Wk_s, bk, R, xj_s, muj_s, aq, am);
+    if (!mirror) {
+      painn_tile_messages<kF3>(pr_s, phi_s, Wk_s, bk, R, xj_s, muj_s, aq, am);
+      continue;
+    }
+    painn_tile_messages<kF3, true>(pr_s, phi_s, Wk_s, bk, R, xj_s, muj_s, aq, am, xi_s,
+                                   mui_s, mir_s);
+    __syncthreads();  // mir_s complete
+    for (int idx = tid; idx < kTile * kF4; idx += kThreads) {
+      const int j = j0 + idx / kF4, t = idx % kF4;
+      if (j >= nj) continue;
+      if (t < kF)
+        atomicAdd(&dq[((size_t)b * ni + j) * kF + t], mir_s[idx]);
+      else
+        atomicAdd(&dmu[((size_t)b * ni + j) * kF3 + t - kF], mir_s[idx]);
+    }
   }
 
   // the two half-warps of a warp hold columns 0-3 and 4-7 of one row
@@ -111,37 +154,60 @@ painn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
 #pragma unroll
     for (int k = 0; k < kFPT; ++k) {
       const int f = feat(fg, k);
-      dq_row[f] = aq[k];
+      if (SYM) {
+        atomicAdd(&dq_row[f], aq[k]);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) dmu_row[c * kF + f] = am[c][k];
+        for (int c = 0; c < 3; ++c) atomicAdd(&dmu_row[c * kF + f], am[c][k]);
+      } else {
+        dq_row[f] = aq[k];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) dmu_row[c * kF + f] = am[c][k];
+      }
     }
   }
 }
 
-static size_t smem_bytes(int R, int nj) {
+static size_t smem_bytes(int R, int nj, int symmetric) {
   return sizeof(float) * ((size_t)R * kF3 + (size_t)R * kPhiS + 2 * kTile * kF3 +
-                          5 * kPairs) +
+                          5 * kPairs +
+                          (symmetric ? 2 * kTile * kF3 + kTile * kF4 : 0)) +
          sizeof(int) * (size_t)((nj + kTile - 1) / kTile);
+}
+
+template <bool SYM>
+static cudaError_t launch(const float* dist, const float* gate, const float* dirx,
+                          const float* diry, const float* dirz, const float* x,
+                          const float* mu, const float* wk, const float* bk, float* dq,
+                          float* dmu, int B, int ni, int nj, int R, float delta,
+                          float coeff, int sparse, size_t smem, cudaStream_t s) {
+  cudaFuncSetAttribute(painn_fwd_kernel<SYM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  const dim3 grid((ni + kTile - 1) / kTile, B);
+  painn_fwd_kernel<SYM><<<grid, kThreads, smem, s>>>(dist, gate, dirx, diry, dirz, x, mu,
+                                                     wk, bk, dq, dmu, ni, nj, R, delta,
+                                                     coeff, sparse);
+  return cudaGetLastError();
 }
 
 }  // namespace geossl
 
-extern "C" size_t painn_fwd_smem_bytes(int R, int nj) { return geossl::smem_bytes(R, nj); }
+extern "C" size_t painn_fwd_smem_bytes(int R, int nj, int symmetric) {
+  return geossl::smem_bytes(R, nj, symmetric);
+}
 
-// Returns the cudaError_t of the launch (0 on success). F must be 128.
+// Returns the cudaError_t of the launch (0 on success). F must be 128. With
+// `symmetric` (square grid only) dq and dmu must be zero on entry.
 extern "C" int painn_fwd(const float* dist, const float* gate, const float* dirx,
                          const float* diry, const float* dirz, const float* x,
                          const float* mu, const float* wk, const float* bk, float* dq,
                          float* dmu, int B, int ni, int nj, int F, int R, float delta,
-                         float coeff, int sparse, void* stream) {
+                         float coeff, int symmetric, int sparse, void* stream) {
   using namespace geossl;
-  if (F != kF || R < 2) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(R, nj);
-  cudaFuncSetAttribute(painn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  const dim3 grid((ni + kTile - 1) / kTile, B);
-  painn_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      dist, gate, dirx, diry, dirz, x, mu, wk, bk, dq, dmu, ni, nj, R, delta, coeff,
-      sparse);
-  return (int)cudaGetLastError();
+  if (F != kF || R < 2 || (symmetric && ni != nj)) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(R, nj, symmetric);
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(symmetric ? launch<true>(dist, gate, dirx, diry, dirz, x, mu, wk, bk, dq,
+                                        dmu, B, ni, nj, R, delta, coeff, sparse, smem, s)
+                         : launch<false>(dist, gate, dirx, diry, dirz, x, mu, wk, bk, dq,
+                                         dmu, B, ni, nj, R, delta, coeff, sparse, smem, s));
 }

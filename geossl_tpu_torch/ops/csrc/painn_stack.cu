@@ -2,7 +2,8 @@
 // (inference).
 //
 // Replaces geossl_tpu/ops/painn_pallas.py: _stack_kernel in inference mode
-// (painn_stack_infer via _stack_pallas). Per block k, with q and mu resident
+// (painn_stack_infer via _stack_pallas) and, with RES, in save_residuals
+// mode (painn_stack_train's forward). Per block k, with q and mu resident
 // across blocks (mu starts at zero):
 //   x      = silu(q Wd1 + bd1) Wd2 + bd2                      (x-MLP, 3F)
 //   q, mu += the message pass of painn_fwd.cu with Wk[k], bk[k]
@@ -33,6 +34,15 @@
 // messages and is updated in place. Phases per block, each closed by
 // __syncthreads: x-MLP, messages, mixing. Buffers written inside the kernel
 // are read through plain (coherent) loads.
+//
+// RES (save_residuals, the forward of the differentiable stack): the kernel
+// also writes the block boundaries that the backward resumes from, each
+// [B, L, N, F or 3F]: qs and mus (q and mu at block entry, mus[:, 0] = 0),
+// copied at the start of block k, and qps and mups (q and mu at mixing
+// entry), written while the mixing loads its row tiles: mu gets the block's
+// messages only there (the workspace sum above), so mups is that sum, and
+// q has had its messages added in place by then. ~4(F + 3F) N L floats per
+// graph more to write (0.2 GB at B=128, N=128, L=3).
 #include "painn_tile.cuh"
 
 namespace geossl {
@@ -56,6 +66,7 @@ __device__ __forceinline__ void rows_dense(const float* A, int lda,
 
 __device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
 
+template <bool RES>
 __global__ void __launch_bounds__(kThreads)
 painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
                    const float* __restrict__ dirx, const float* __restrict__ diry,
@@ -66,7 +77,9 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
                    const float* __restrict__ wmix, const float* __restrict__ w1,
                    const float* __restrict__ b1, const float* __restrict__ w2,
                    const float* __restrict__ b2, float* qo, float* muo, float* work,
-                   int n, int R, int L, float delta, float coeff, float eps) {
+                   float* __restrict__ qs, float* __restrict__ mus,
+                   float* __restrict__ qps, float* __restrict__ mups, int n, int R, int L,
+                   float delta, float coeff, float eps) {
   const int nt = (n + kTile - 1) / kTile;
   extern __shared__ float4 smem_v4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem_v4);
@@ -98,6 +111,12 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
 
   for (int l = 0; l < L; ++l) {
     __syncthreads();  // q and mu of the previous block are complete
+    // this block's slice of the residuals, [n][F] and [n][3F]
+    const size_t res_q = ((size_t)b * L + l) * n * kF, res_mu = 3 * res_q;
+    if (RES) {
+      for (int idx = tid; idx < n * kF; idx += kThreads) qs[res_q + idx] = q[idx];
+      for (int idx = tid; idx < n * kF3; idx += kThreads) mus[res_mu + idx] = mu[idx];
+    }
     block_copy(Wk_s, wk + (size_t)l * R * kF3, R * kF3);
     const float* Bk = bk + (size_t)l * kF3;
 
@@ -177,11 +196,16 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
       __syncthreads();  // the previous row tile is done with muj_s, a_s, h_s
       for (int idx = tid; idx < kTile * kF3; idx += kThreads) {
         const int i = r0 + idx / kF3, t = idx % kF3;
-        muj_s[idx] = i < n ? mu[(size_t)i * kF3 + t] + xw[(size_t)i * 2 * kF3 + kF3 + t] : 0.f;
+        const float v =
+            i < n ? mu[(size_t)i * kF3 + t] + xw[(size_t)i * 2 * kF3 + kF3 + t] : 0.f;
+        muj_s[idx] = v;
+        if (RES && i < n) mups[res_mu + (size_t)i * kF3 + t] = v;
       }
       for (int idx = tid; idx < kTile * kF; idx += kThreads) {
         const int i = r0 + idx / kF;
-        a_s[(idx / kF) * 2 * kF + idx % kF] = i < n ? q[(size_t)i * kF + idx % kF] : 0.f;
+        const float v = i < n ? q[(size_t)i * kF + idx % kF] : 0.f;
+        a_s[(idx / kF) * 2 * kF + idx % kF] = v;
+        if (RES && i < n) qps[res_q + (size_t)i * kF + idx % kF] = v;
       }
       __syncthreads();
       float v[3][4], w[3][4];
@@ -236,22 +260,34 @@ static size_t smem_bytes(int n, int R) {
 extern "C" size_t painn_stack_smem_bytes(int n, int R) { return geossl::smem_bytes(n, R); }
 
 // Returns the cudaError_t of the launch (0 on success). F must be 128 and
-// n <= 128. `work` holds B*n*6F floats of scratch.
+// n <= 128. `work` holds B*n*6F floats of scratch. With `save_residuals`,
+// qs/qps hold B*L*n*F floats and mus/mups B*L*n*3F each (else they are
+// not read and may be null).
 extern "C" int painn_stack(const float* dist, const float* gate, const float* dirx,
                            const float* diry, const float* dirz, const float* q0,
                            const float* wd1, const float* bd1, const float* wd2,
                            const float* bd2, const float* wk, const float* bk,
                            const float* wmix, const float* w1, const float* b1,
                            const float* w2, const float* b2, float* q, float* mu,
-                           float* work, int B, int n, int F, int R, int L, float delta,
-                           float coeff, float eps, void* stream) {
+                           float* work, float* qs, float* mus, float* qps, float* mups,
+                           int B, int n, int F, int R, int L, float delta, float coeff,
+                           float eps, int save_residuals, void* stream) {
   using namespace geossl;
   if (F != kF || R < 2 || n > 128) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(n, R);
-  cudaFuncSetAttribute(painn_stack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  painn_stack_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      dist, gate, dirx, diry, dirz, q0, wd1, bd1, wd2, bd2, wk, bk, wmix, w1, b1, w2, b2,
-      q, mu, work, n, R, L, delta, coeff, eps);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (save_residuals) {
+    cudaFuncSetAttribute(painn_stack_kernel<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    painn_stack_kernel<true><<<B, kThreads, smem, s>>>(
+        dist, gate, dirx, diry, dirz, q0, wd1, bd1, wd2, bd2, wk, bk, wmix, w1, b1, w2,
+        b2, q, mu, work, qs, mus, qps, mups, n, R, L, delta, coeff, eps);
+  } else {
+    cudaFuncSetAttribute(painn_stack_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    painn_stack_kernel<false><<<B, kThreads, smem, s>>>(
+        dist, gate, dirx, diry, dirz, q0, wd1, bd1, wd2, bd2, wk, bk, wmix, w1, b1, w2,
+        b2, q, mu, work, qs, mus, qps, mups, n, R, L, delta, coeff, eps);
+  }
   return (int)cudaGetLastError();
 }

@@ -56,6 +56,9 @@ __device__ __forceinline__ void painn_filter_chunk(const float* phi_s, const flo
   }
 }
 
+// Width of one row of mirrored messages: dq (F) then dmu (3F).
+constexpr int kF4 = 4 * kF;
+
 // Forward messages of one pair tile (tile layout p = il*8 + jl, rows i of
 // the block, columns j of the tile) added to this thread's sums:
 //   aq[k]     += sum_q gate wq xq_j
@@ -63,41 +66,68 @@ __device__ __forceinline__ void painn_filter_chunk(const float* phi_s, const flo
 // for its row il and features feat(fg, k); the two half-warps of a warp
 // hold columns 0-3 and 4-7 of the same row. xj_s / muj_s: the tile's 8
 // rows of x and mu (stride kF3). phi_s must hold the tile's RBF.
-template <int WS>
+//
+// MIRROR (painn_fwd.cu's symmetric mode, symmetric dist/gate and
+// antisymmetric directions): each cell also adds the messages of its mirror
+// cell (j, i), whose filter is the same and whose directions flip sign,
+// into row j of mir_s [kTile][kF4] (dq, then the three dmu channels):
+//   mir[j]        += gate wq xq_i
+//   mir[j][F + c] += gate (wr xr_i (-dir_c) + wm xm_i mu_c[i])
+// by shared-memory atomics (the 8 rows i of a column are 8 warps).
+// xi_s / mui_s: the block's 8 rows of x and mu.
+template <int WS, bool MIRROR = false>
 __device__ __forceinline__ void painn_tile_messages(const float* pr_s, const float* phi_s,
                                                     const float* Wk_s,
                                                     const float* __restrict__ bk, int R,
                                                     const float* xj_s, const float* muj_s,
-                                                    float aq[kFPT], float am[3][kFPT]) {
-  const int fg = thread_fg(), jl0 = thread_jl0();
-  const int p0 = thread_il() * kTile + jl0;
+                                                    float aq[kFPT], float am[3][kFPT],
+                                                    const float* xi_s = nullptr,
+                                                    const float* mui_s = nullptr,
+                                                    float* mir_s = nullptr) {
+  const int fg = thread_fg(), jl0 = thread_jl0(), il = thread_il();
+  const int p0 = il * kTile + jl0;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     float w[kPPT][kFPT];
     painn_filter_chunk<WS>(phi_s, Wk_s, bk, R, p0, fg, c, w);
+    float xiv[kFPT];
+    if (MIRROR) load_feats(xi_s + il * kF3 + c * kF, fg, xiv);
 #pragma unroll
     for (int q = 0; q < kPPT; ++q) {
       const int p = p0 + q;
       const float g = pr_s[kPairs + p];
       float xv[kFPT];
       load_feats(xj_s + (jl0 + q) * kF3 + c * kF, fg, xv);
+      float* mir_row = mir_s + (jl0 + q) * kF4;
       if (c == 0) {
 #pragma unroll
-        for (int k = 0; k < kFPT; ++k) aq[k] = fmaf(g * w[q][k], xv[k], aq[k]);
+        for (int k = 0; k < kFPT; ++k) {
+          aq[k] = fmaf(g * w[q][k], xv[k], aq[k]);
+          if (MIRROR) atomicAdd(&mir_row[feat(fg, k)], g * w[q][k] * xiv[k]);
+        }
       } else if (c == 1) {
 #pragma unroll
         for (int cc = 0; cc < 3; ++cc) {
           const float dc = pr_s[(2 + cc) * kPairs + p];
 #pragma unroll
-          for (int k = 0; k < kFPT; ++k) am[cc][k] = fmaf(g * w[q][k] * xv[k], dc, am[cc][k]);
+          for (int k = 0; k < kFPT; ++k) {
+            am[cc][k] = fmaf(g * w[q][k] * xv[k], dc, am[cc][k]);
+            if (MIRROR)
+              atomicAdd(&mir_row[kF + cc * kF + feat(fg, k)], -(g * w[q][k] * xiv[k]) * dc);
+          }
         }
       } else {
 #pragma unroll
         for (int cc = 0; cc < 3; ++cc) {
-          float mv[kFPT];
+          float mv[kFPT], miv[kFPT];
           load_feats(muj_s + (jl0 + q) * kF3 + cc * kF, fg, mv);
+          if (MIRROR) load_feats(mui_s + il * kF3 + cc * kF, fg, miv);
 #pragma unroll
-          for (int k = 0; k < kFPT; ++k) am[cc][k] = fmaf(g * w[q][k] * xv[k], mv[k], am[cc][k]);
+          for (int k = 0; k < kFPT; ++k) {
+            am[cc][k] = fmaf(g * w[q][k] * xv[k], mv[k], am[cc][k]);
+            if (MIRROR)
+              atomicAdd(&mir_row[kF + cc * kF + feat(fg, k)], g * w[q][k] * xiv[k] * miv[k]);
+          }
         }
       }
     }

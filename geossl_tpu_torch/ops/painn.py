@@ -20,17 +20,34 @@ device; anything else raises. Each counts its launches in
 
 Kernels:
 
-* ``painn_message_fused`` -> ``csrc/painn_fwd.cu`` (replaces ``_fwd_kernel``);
-  differentiable: its backward is ``painn_bwd``
-* ``painn_bwd``           -> ``csrc/painn_bwd.cu`` (replaces ``_bwd_kernel``);
-  first order only: the JAX package's second-order path (MD17 forces) is
-  not ported, and a double backward on CUDA raises NotImplementedError
-* ``painn_stack_infer``   -> ``csrc/painn_stack.cu`` (replaces
+* ``painn_message_fused``     -> ``csrc/painn_fwd.cu`` (replaces
+  ``_fwd_kernel``); differentiable: its backward is ``painn_bwd``
+* ``painn_bwd``               -> ``csrc/painn_bwd.cu`` (replaces
+  ``_bwd_kernel``)
+* ``painn_message_fused_sym`` -> ``csrc/painn_fwd.cu`` in symmetric mode
+  (replaces ``_fwd_sym_kernel``); differentiable: its backward is
+  ``painn_bwd_sym``
+* ``painn_bwd_sym``           -> ``csrc/painn_bwd.cu`` in symmetric mode
+  (replaces ``_bwd_sym_kernel``); the cotangents of dist, gate and the
+  three directions come back placed (``ops/cfconv.place_sym_cotangent``)
+* ``painn_stack_infer``       -> ``csrc/painn_stack.cu`` (replaces
   ``_stack_kernel`` in inference mode); raises under autograd on CUDA
+* ``painn_stack_train``       -> ``csrc/painn_stack.cu`` in save_residuals
+  mode (replaces ``_stack_kernel`` as ``painn_stack_train`` runs it);
+  differentiable: its backward runs the per-block chain, with ``painn_bwd``
+  for each message pass
 
-The symmetric pair (``_fwd_sym_kernel``/``_bwd_sym_kernel``) is not ported:
-``painn_message(symmetric=True)`` raises on CUDA where the JAX dispatcher
-would take it. The kernels compute in plain f32 (no TF32).
+The two message-pass Functions and the stack's are first order only: the
+JAX package's second-order path (MD17 forces) is not ported, and a double
+backward raises NotImplementedError. The kernels compute in plain f32 (no
+TF32).
+
+The symmetric pair is for symmetric dist/gate and antisymmetric directions
+only (dir[j, i] = -dir[i, j]): PaiNN's geometry gives them without
+``max_neighbors`` (a truncated neighbour list is asymmetric). The dispatcher
+trusts the caller, as the JAX one does. Its pair cotangents are exact only
+upstream of the positions (a gradient to dist, gate or a direction grid
+itself is the placed one).
 """
 
 from __future__ import annotations
@@ -103,6 +120,13 @@ def painn_bwd_reference(dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu,
         return torch.autograd.grad(out, ins, (gq, gmu))
 
 
+# The symmetric pair's plain versions are the plain pair's: the symmetric
+# kernels compute the same function, and painn_bwd_sym_reference returns the
+# true (unplaced) cotangents, as cfconv_bwd_sym_reference does.
+painn_message_fused_sym_reference = painn_message_reference
+painn_bwd_sym_reference = painn_bwd_reference
+
+
 def _xmlp(q, wd1, bd1, wd2, bd2):
     return F_.silu(q @ wd1 + bd1) @ wd2 + bd2
 
@@ -121,20 +145,27 @@ def _mixing(q, mu, wmix, w1, b1, w2, b2, epsilon):
 
 
 def painn_stack_reference(dist, gate, dirx, diry, dirz, q0, stacked, cutoff,
-                          epsilon=1e-8):
+                          epsilon=1e-8, save_residuals=False):
     """Plain whole-stack chain, the math of ``_stack_kernel``: per block the
-    x-MLP, the message pass, the mixing. Returns (q [B,N,F], mu [B,N,3F])."""
+    x-MLP, the message pass, the mixing. Returns (q [B,N,F], mu [B,N,3F]);
+    with ``save_residuals`` also (qs, mus, qps, mups) [B,L,N,F or 3F]: q and
+    mu at each block's entry and at its mixing's entry."""
     wd1, bd1, wd2, bd2, wk, bk, wmix, w1, b1, w2, b2 = stacked
     q = q0
     mu = torch.zeros(q0.shape[:2] + (3 * q0.shape[-1],), dtype=q0.dtype,
                      device=q0.device)
+    res = ([], [], [], [])
     for k in range(wd1.shape[0]):
         x = _xmlp(q, wd1[k], bd1[k], wd2[k], bd2[k])
         dq, dmu = painn_message_reference(dist, gate, dirx, diry, dirz, x, mu,
                                           wk[k], bk[k], cutoff)
+        for r, t in zip(res, (q, mu, q + dq, mu + dmu)):
+            r.append(t)
         q, mu = _mixing(q + dq, mu + dmu, wmix[k], w1[k], b1[k], w2[k], b2[k],
                         epsilon)
-    return q, mu
+    if not save_residuals:
+        return q, mu
+    return (q, mu, *(torch.stack(r, dim=1) for r in res))
 
 
 # -- kernel wrappers ------------------------------------------------------------
@@ -161,46 +192,54 @@ def _check(name, dist, gate, dirs, x, mu, wk, bk):
 
 
 def _launch_painn_fwd(dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
-                      sparse):
-    _check("painn_fwd", dist, gate, (dirx, diry, dirz), x, mu, wk, bk)
+                      symmetric, sparse):
+    name = "painn_fwd_sym" if symmetric else "painn_fwd"
+    _check(name, dist, gate, (dirx, diry, dirz), x, mu, wk, bk)
     b, ni, nj = dist.shape
+    if symmetric and ni != nj:
+        raise ValueError(f"{name}: the symmetric mode needs a square grid")
     num_r = wk.shape[0]
-    check_smem("painn_fwd", _build.kernel_fn(
-        "painn_fwd", "painn_fwd_smem_bytes", [ctypes.c_int, ctypes.c_int],
-        ctypes.c_size_t)(num_r, nj))
+    check_smem(name, _build.kernel_fn(
+        "painn_fwd", "painn_fwd_smem_bytes", [ctypes.c_int] * 3,
+        ctypes.c_size_t)(num_r, nj, int(symmetric)))
     fn = _build.kernel_fn(
         "painn_fwd", "painn_fwd",
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-        + [ctypes.c_int, ctypes.c_void_p])
-    dq = torch.empty((b, ni, KERNEL_F), dtype=torch.float32, device=dist.device)
-    dmu = torch.empty((b, ni, 3 * KERNEL_F), dtype=torch.float32,
-                      device=dist.device)
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    # the symmetric mode adds every output row with atomics
+    alloc = torch.zeros if symmetric else torch.empty
+    dq = alloc((b, ni, KERNEL_F), dtype=torch.float32, device=dist.device)
+    dmu = alloc((b, ni, 3 * KERNEL_F), dtype=torch.float32, device=dist.device)
     delta, coeff = _rbf_consts(cutoff, num_r)
     err = fn(*map(ptr, (dist, gate, dirx, diry, dirz, x, mu, wk, bk, dq, dmu)),
-             b, ni, nj, KERNEL_F, num_r, delta, coeff, int(sparse),
-             stream(dist))
-    check_launch("painn_fwd", err)
+             b, ni, nj, KERNEL_F, num_r, delta, coeff, int(symmetric),
+             int(sparse), stream(dist))
+    check_launch(name, err)
     return dq, dmu
 
 
 class _PaiNNMessage(torch.autograd.Function):
-    """``painn_fwd`` forward, ``painn_bwd`` backward (first order only: a
-    backward that builds a graph raises)."""
+    """``painn_fwd`` forward, ``painn_bwd`` backward, or with ``symmetric``
+    both in symmetric mode (``painn_bwd_sym``: the pair cotangents placed,
+    exact upstream of the positions). First order only: a backward that
+    builds a graph raises."""
 
     @staticmethod
     def forward(ctx, dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
-                sparse):
+                symmetric, sparse):
         ctx.save_for_backward(dist, gate, dirx, diry, dirz, x, mu, wk, bk)
         ctx.consts = (cutoff, sparse)
+        ctx.symmetric = symmetric
         return _launch_painn_fwd(dist, gate, dirx, diry, dirz, x, mu, wk, bk,
-                                 cutoff, sparse)
+                                 cutoff, symmetric, sparse)
 
     @staticmethod
     def backward(ctx, gq, gmu):
-        refuse_second_order("painn_bwd")
-        grads = painn_bwd(*ctx.saved_tensors, gq.contiguous(),
-                          gmu.contiguous(), *ctx.consts)
-        return (*grads, None, None)
+        bwd = painn_bwd_sym if ctx.symmetric else painn_bwd
+        refuse_second_order(bwd.__name__)
+        grads = bwd(*ctx.saved_tensors, gq.contiguous(), gmu.contiguous(),
+                    *ctx.consts)
+        return (*grads, None, None, None)
 
 
 @counted("painn_fwd")
@@ -212,9 +251,62 @@ def painn_message_fused(dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
     args = (dist, gate, dirx, diry, dirz, x, mu, wk, bk)
     if on_cpu("painn_fwd", *args):
         return painn_message_reference(*args, cutoff)
-    out = _PaiNNMessage.apply(*args, cutoff, sparse)
+    out = _PaiNNMessage.apply(*args, cutoff, False, sparse)
     painn_message_fused.launches += 1
     return out
+
+
+@counted("painn_fwd_sym")
+def painn_message_fused_sym(dist, gate, dirx, diry, dirz, x, mu, wk, bk,
+                            cutoff, sparse=False):
+    """Same output as :func:`painn_message_fused` for SYMMETRIC dist/gate
+    and ANTISYMMETRIC directions only: the kernel computes the 8x8 tiles on
+    and above the diagonal and emits the mirrored messages of the ones below
+    (direction terms negated). Differentiable on both devices (on CUDA
+    through ``painn_bwd_sym``, whose pair cotangents are placed)."""
+    args = (dist, gate, dirx, diry, dirz, x, mu, wk, bk)
+    if on_cpu("painn_fwd_sym", *args):
+        return painn_message_fused_sym_reference(*args, cutoff)
+    out = _PaiNNMessage.apply(*args, cutoff, True, sparse)
+    painn_message_fused_sym.launches += 1
+    return out
+
+
+def _launch_painn_bwd(name, dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq,
+                      gmu, cutoff, symmetric, sparse):
+    _check(name, dist, gate, (dirx, diry, dirz), x, mu, wk, bk)
+    b, ni, nj = dist.shape
+    num_r, f3 = wk.shape
+    if gq.shape != (b, ni, KERNEL_F) or gmu.shape != (b, ni, f3):
+        raise ValueError(f"{name}: cotangents gq {tuple(gq.shape)}, gmu "
+                         f"{tuple(gmu.shape)} do not match [B,Ni,F], [B,Ni,3F]")
+    if symmetric and ni != nj:
+        raise ValueError(f"{name}: the symmetric mode needs a square grid")
+    check_smem(name, _build.kernel_fn(
+        "painn_bwd", "painn_bwd_smem_bytes", [ctypes.c_int] * 3,
+        ctypes.c_size_t)(num_r, ni, int(symmetric)))
+    blocks = _build.kernel_fn("painn_bwd", "painn_bwd_blocks",
+                              [ctypes.c_int, ctypes.c_int])(b, nj)
+    fn = _build.kernel_fn(
+        "painn_bwd", "painn_bwd",
+        [ctypes.c_void_p] * 20 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    dev = dist.device
+    ddist, dgate, ddx, ddy, ddz = (torch.empty_like(dist) for _ in range(5))
+    # the symmetric mode adds every dx and dmu row with atomics
+    alloc = torch.zeros_like if symmetric else torch.empty_like
+    dx, dmu = alloc(x), alloc(mu)
+    size = (num_r + 1) * f3  # dWk rows, then dbk
+    part = torch.empty((blocks, size), dtype=torch.float32, device=dev)
+    wgrad = torch.empty(size, dtype=torch.float32, device=dev)
+    delta, coeff = _rbf_consts(cutoff, num_r)
+    err = fn(*map(ptr, (dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu,
+                        dx, dmu, ddist, dgate, ddx, ddy, ddz, part, wgrad)),
+             b, ni, nj, KERNEL_F, num_r, delta, coeff, int(symmetric),
+             int(sparse), stream(dist))
+    check_launch(name, err)
+    dwk, dbk = wgrad.view(num_r + 1, f3).split([num_r, 1])
+    return ddist, dgate, ddx, ddy, ddz, dx, dmu, dwk, dbk.view(f3)
 
 
 @counted("painn_bwd")
@@ -229,53 +321,94 @@ def painn_bwd(dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu, cutoff,
     args = (dist, gate, dirx, diry, dirz, x, mu, wk, bk)
     if on_cpu("painn_bwd", *args, gq, gmu):
         return painn_bwd_reference(*args, gq, gmu, cutoff)
-    _check("painn_bwd", dist, gate, (dirx, diry, dirz), x, mu, wk, bk)
-    b, ni, nj = dist.shape
-    num_r, f3 = wk.shape
-    if gq.shape != (b, ni, KERNEL_F) or gmu.shape != (b, ni, f3):
-        raise ValueError(f"painn_bwd: cotangents gq {tuple(gq.shape)}, gmu "
-                         f"{tuple(gmu.shape)} do not match [B,Ni,F], [B,Ni,3F]")
-    check_smem("painn_bwd", _build.kernel_fn(
-        "painn_bwd", "painn_bwd_smem_bytes", [ctypes.c_int, ctypes.c_int],
-        ctypes.c_size_t)(num_r, ni))
-    blocks = _build.kernel_fn("painn_bwd", "painn_bwd_blocks",
-                              [ctypes.c_int, ctypes.c_int])(b, nj)
-    fn = _build.kernel_fn(
-        "painn_bwd", "painn_bwd",
-        [ctypes.c_void_p] * 20 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-        + [ctypes.c_int, ctypes.c_void_p])
-    dev = dist.device
-    ddist, dgate, ddx, ddy, ddz = (torch.empty_like(dist) for _ in range(5))
-    dx, dmu = torch.empty_like(x), torch.empty_like(mu)
-    size = (num_r + 1) * f3  # dWk rows, then dbk
-    part = torch.empty((blocks, size), dtype=torch.float32, device=dev)
-    wgrad = torch.empty(size, dtype=torch.float32, device=dev)
-    delta, coeff = _rbf_consts(cutoff, num_r)
-    err = fn(*map(ptr, (*args, gq, gmu, dx, dmu, ddist, dgate, ddx, ddy, ddz,
-                        part, wgrad)),
-             b, ni, nj, KERNEL_F, num_r, delta, coeff, int(sparse), stream(dist))
-    check_launch("painn_bwd", err)
+    out = _launch_painn_bwd("painn_bwd", *args, gq, gmu, cutoff, False, sparse)
     painn_bwd.launches += 1
-    dwk, dbk = wgrad.view(num_r + 1, f3).split([num_r, 1])
-    return ddist, dgate, ddx, ddy, ddz, dx, dmu, dwk, dbk.view(f3)
+    return out
+
+
+@counted("painn_bwd_sym")
+def painn_bwd_sym(dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu,
+                  cutoff, sparse=False):
+    """Backward of :func:`painn_message_fused_sym` for the cotangents
+    (gq, gmu), SYMMETRIC dist/gate and ANTISYMMETRIC directions: (ddist,
+    dgate, ddirx, ddiry, ddirz, dx, dmu, dwk, dbk). On CUDA the kernel
+    computes the 8x8 tiles on and above the diagonal once and returns ddist
+    and dgate placed (``place_sym_cotangent(c)``) and the three ddir placed
+    antisymmetric (``place_sym_cotangent(c, antisymmetric=True)``); with
+    ``sparse`` they are also zero on tiles whose gate is all zero. dx, dmu
+    and the weight gradients are the true ones. On the CPU all nine are the
+    true cotangents."""
+    args = (dist, gate, dirx, diry, dirz, x, mu, wk, bk)
+    if on_cpu("painn_bwd_sym", *args, gq, gmu):
+        return painn_bwd_sym_reference(*args, gq, gmu, cutoff)
+    out = _launch_painn_bwd("painn_bwd_sym", *args, gq, gmu, cutoff, True,
+                            sparse)
+    painn_bwd_sym.launches += 1
+    return out
 
 
 def painn_message(dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
                   symmetric=False, sparse="auto"):
     """Dispatcher, routed as ``painn_pallas.painn_message``: the plain-mode
-    kernel with occupancy gating from N=128 ('auto'). ``symmetric=True``
-    (symmetric dist/gate and antisymmetric directions) would take the
-    symmetric kernel from N=256, which is not ported: there it runs the
-    plain version on the CPU and raises on CUDA."""
+    kernel with occupancy gating from N=128 ('auto'); with ``symmetric=True``
+    the symmetric kernel pair from N=256 (``sym_profitable``). The caller
+    guarantees what ``symmetric`` claims: dist and gate symmetric (no
+    ``max_neighbors`` truncation), the directions antisymmetric. Nothing
+    checks it; the pair cotangents are then placed, exact only upstream of
+    the positions."""
     args = (dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff)
     n = dist.shape[-1]
     if symmetric and sym_profitable(n):  # painn_sym_profitable's sizes
-        if dist.device.type == "cpu":
-            return painn_message_reference(*args)
-        raise NotImplementedError(
-            "painn_message(symmetric=True): the symmetric kernels (#10/#11, "
-            "painn_pallas._fwd_sym_kernel/_bwd_sym_kernel) are not ported")
+        return painn_message_fused_sym(*args, sparse_auto(n, sparse))
     return painn_message_fused(*args, sparse_auto(n, sparse))
+
+
+def _launch_painn_stack(name, pair, q0, stacked, cutoff, epsilon,
+                        save_residuals):
+    """The whole-stack kernel: (q, mu), then with ``save_residuals`` the
+    four residual stacks (qs, mus, qps, mups)."""
+    dist = pair[0]
+    b, n, _ = dist.shape
+    f = q0.shape[-1]
+    n_layers, num_r = stacked[4].shape[:2]
+    want = ((n_layers, f, f), (n_layers, f), (n_layers, f, 3 * f),
+            (n_layers, 3 * f), (n_layers, num_r, 3 * f), (n_layers, 3 * f),
+            (n_layers, f, 2 * f), (n_layers, 2 * f, f), (n_layers, f),
+            (n_layers, f, 3 * f), (n_layers, 3 * f))
+    got = tuple(tuple(t.shape) for t in stacked)
+    if f != KERNEL_F or got != want or not 2 <= num_r <= MAX_R \
+            or q0.shape != (b, n, f) or any(t.shape != dist.shape
+                                            for t in pair[1:]):
+        raise ValueError(f"{name}: kernel takes F={KERNEL_F} and the "
+                         f"weight stacks {want}; got q0 {tuple(q0.shape)}, "
+                         f"stacks {got}")
+    check_smem(name, _build.kernel_fn(
+        "painn_stack", "painn_stack_smem_bytes", [ctypes.c_int, ctypes.c_int],
+        ctypes.c_size_t)(n, num_r))
+    fn = _build.kernel_fn(
+        "painn_stack", "painn_stack",
+        [ctypes.c_void_p] * 24 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+        + [ctypes.c_int, ctypes.c_void_p])
+    dev = q0.device
+    q = torch.empty_like(q0)
+    mu = torch.empty((b, n, 3 * f), dtype=torch.float32, device=dev)
+    # x and the new messages of every block, per graph, owned by its block
+    work = torch.empty((b, n, 6 * f), dtype=torch.float32, device=dev)
+    res = [torch.empty((b, n_layers, n, w), dtype=torch.float32, device=dev)
+           for w in (f, 3 * f, f, 3 * f)] if save_residuals else []
+    res_ptrs = map(ptr, res) if save_residuals else [ctypes.c_void_p(None)] * 4
+    delta, coeff = _rbf_consts(cutoff, num_r)
+    err = fn(*map(ptr, (*pair, q0, *stacked, q, mu, work)), *res_ptrs, b, n,
+             f, num_r, n_layers, delta, coeff, float(epsilon),
+             int(save_residuals), stream(dist))
+    check_launch(name, err)
+    return (q, mu, *res)
+
+
+def _check_stack_n(name, n):
+    if n > STACK_MAX_N:
+        raise ValueError(f"{name}: N={n} exceeds {STACK_MAX_N}; use the "
+                         "per-block path")
 
 
 @counted("painn_stack")
@@ -287,42 +420,99 @@ def painn_stack_infer(dist, gate, dirx, diry, dirz, q0, stacked, cutoff,
     bd1 [L,F], wd2 [L,F,3F], bd2 [L,3F], wk [L,R,3F], bk [L,3F],
     wmix [L,F,2F], w1 [L,2F,F], b1 [L,F], w2 [L,F,3F], b2 [L,3F]). The
     kernel skips 8x8 tiles whose gate is all zero."""
-    b, n, _ = dist.shape
-    if n > STACK_MAX_N:
-        raise ValueError(f"painn_stack: N={n} exceeds {STACK_MAX_N}; use the "
-                         "per-block path")
+    _check_stack_n("painn_stack", dist.shape[-1])
     pair = (dist, gate, dirx, diry, dirz)
     if on_cpu("painn_stack", *pair, q0, *stacked):
         return painn_stack_reference(*pair, q0, stacked, cutoff, epsilon)
     refuse_grad("painn_stack", "it is inference only; train through the "
-                "per-block path (PaiNN.forward)", *pair, q0, *stacked)
-    f = q0.shape[-1]
-    n_layers, num_r = stacked[4].shape[:2]
-    want = ((n_layers, f, f), (n_layers, f), (n_layers, f, 3 * f),
-            (n_layers, 3 * f), (n_layers, num_r, 3 * f), (n_layers, 3 * f),
-            (n_layers, f, 2 * f), (n_layers, 2 * f, f), (n_layers, f),
-            (n_layers, f, 3 * f), (n_layers, 3 * f))
-    got = tuple(tuple(t.shape) for t in stacked)
-    if f != KERNEL_F or got != want or not 2 <= num_r <= MAX_R \
-            or q0.shape != (b, n, f) or any(t.shape != dist.shape
-                                            for t in pair[1:]):
-        raise ValueError(f"painn_stack: kernel takes F={KERNEL_F} and the "
-                         f"weight stacks {want}; got q0 {tuple(q0.shape)}, "
-                         f"stacks {got}")
-    check_smem("painn_stack", _build.kernel_fn(
-        "painn_stack", "painn_stack_smem_bytes", [ctypes.c_int, ctypes.c_int],
-        ctypes.c_size_t)(n, num_r))
-    fn = _build.kernel_fn(
-        "painn_stack", "painn_stack",
-        [ctypes.c_void_p] * 20 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
-        + [ctypes.c_void_p])
-    q = torch.empty_like(q0)
-    mu = torch.empty((b, n, 3 * f), dtype=torch.float32, device=q0.device)
-    # x and the new messages of every block, per graph, owned by its block
-    work = torch.empty((b, n, 6 * f), dtype=torch.float32, device=q0.device)
-    delta, coeff = _rbf_consts(cutoff, num_r)
-    err = fn(*map(ptr, (*pair, q0, *stacked, q, mu, work)), b, n, f, num_r,
-             n_layers, delta, coeff, float(epsilon), stream(dist))
-    check_launch("painn_stack", err)
+                "per-block path (PaiNN.forward) or painn_stack_train",
+                *pair, q0, *stacked)
+    q, mu = _launch_painn_stack("painn_stack", pair, q0, stacked, cutoff,
+                                epsilon, False)
     painn_stack_infer.launches += 1
     return q, mu
+
+
+def _vjp(fn, *inputs):
+    """(fn(*inputs) detached, vjp): vjp(cotangents) gives the cotangents of
+    ``inputs``, by autograd."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in inputs]
+        out = fn(*ins)
+    detached = (tuple(t.detach() for t in out) if isinstance(out, tuple)
+                else out.detach())
+    return detached, lambda cots: torch.autograd.grad(out, ins, cots)
+
+
+class _PaiNNStackTrain(torch.autograd.Function):
+    """The whole stack with its block boundaries saved (the ``painn_stack``
+    kernel in save_residuals mode on CUDA, ``painn_stack_reference`` on the
+    CPU); the backward is ``painn_pallas._stack_train_bwd``'s loop: per
+    block in reverse, the mixing's and the x-MLP's VJPs in plain PyTorch and
+    the message pass's through ``painn_bwd`` (the kernel on CUDA), which
+    recomputes the pair grid. mu0 is made inside (zeros): no cotangent.
+    First order only."""
+
+    @staticmethod
+    def forward(ctx, dist, gate, dirx, diry, dirz, q0, *rest):
+        *stacked, cutoff, epsilon, on_host = rest
+        pair = (dist, gate, dirx, diry, dirz)
+        if on_host:
+            q, mu, *res = painn_stack_reference(*pair, q0, stacked, cutoff,
+                                                epsilon, save_residuals=True)
+        else:
+            q, mu, *res = _launch_painn_stack("painn_stack_train", pair, q0,
+                                              stacked, cutoff, epsilon, True)
+        ctx.save_for_backward(*pair, *stacked, *res)
+        ctx.consts = (cutoff, epsilon)
+        return q, mu
+
+    @staticmethod
+    def backward(ctx, gq, gmu):
+        refuse_second_order("painn_stack_train")
+        cutoff, epsilon = ctx.consts
+        saved = ctx.saved_tensors
+        pair, stacked, (qs, mus, qps, mups) = saved[:5], saved[5:16], saved[16:]
+        wd1, bd1, wd2, bd2, wk, bk, wmix, w1, b1, w2, b2 = stacked
+        n_layers = wd1.shape[0]
+        sparse = sparse_auto(pair[0].shape[-1], "auto")
+        per_k = [[None] * n_layers for _ in range(11)]
+        gpair = [torch.zeros_like(t) for t in pair]
+        for k in reversed(range(n_layers)):
+            _, mix_vjp = _vjp(lambda *a: _mixing(*a, epsilon), qps[:, k],
+                              mups[:, k], wmix[k], w1[k], b1[k], w2[k], b2[k])
+            gqp, gmup, *gmix = mix_vjp((gq, gmu))
+            for i, g in zip(range(6, 11), gmix):
+                per_k[i][k] = g
+            x, xmlp_vjp = _vjp(_xmlp, qs[:, k], wd1[k], bd1[k], wd2[k], bd2[k])
+            *dpair, dx, dmu_in, dwk, dbk = painn_bwd(
+                *pair, x.contiguous(), mus[:, k].contiguous(), wk[k], bk[k],
+                gqp.contiguous(), gmup.contiguous(), cutoff, sparse)
+            for acc, d in zip(gpair, dpair):
+                acc += d
+            per_k[4][k], per_k[5][k] = dwk, dbk
+            gq_x, *gx = xmlp_vjp(dx)
+            for i, g in enumerate(gx):
+                per_k[i][k] = g
+            # the residual paths into the block's inputs
+            gq, gmu = gqp + gq_x, gmup + dmu_in
+        return (*gpair, gq, *(torch.stack(g) for g in per_k), None, None,
+                None)
+
+
+@counted("painn_stack_train")
+def painn_stack_train(dist, gate, dirx, diry, dirz, q0, stacked, cutoff,
+                      epsilon=1e-8):
+    """Differentiable whole-stack forward (``painn_pallas.painn_stack_train``,
+    the same contract as :func:`painn_stack_infer`): (q, mu). Gradients flow
+    to dist, gate, the three direction grids, q0 and the 11 weight stacks;
+    first order only. The backward's ``painn_bwd`` gates empty tiles from
+    N=128 ('auto'), which is exact downstream (its occupancy contract)."""
+    _check_stack_n("painn_stack_train", dist.shape[-1])
+    pair = (dist, gate, dirx, diry, dirz)
+    on_host = on_cpu("painn_stack_train", *pair, q0, *stacked)
+    out = _PaiNNStackTrain.apply(*pair, q0, *stacked, cutoff, epsilon,
+                                 on_host)
+    if not on_host:
+        painn_stack_train.launches += 1
+    return out

@@ -20,6 +20,7 @@ kernel wrapper takes its plain version.
 """
 
 import contextlib
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -346,13 +347,17 @@ def test_dispatch_rules_and_guards():
     with pytest.raises(ValueError, match="no kernel"):
         tpn.painn_message_fused(*meta, CUT)
     big = [torch.zeros(1, 256, 256, device="meta")] * 5
-    with pytest.raises(NotImplementedError, match="#10"):
+    # from N=256 the symmetric route takes the symmetric kernel pair
+    with pytest.raises(ValueError, match="painn_fwd_sym: no kernel"):
         tpn.painn_message(*big, torch.zeros(1, 256, 3 * F, device="meta"),
                           torch.zeros(1, 256, 3 * F, device="meta"), *meta[7:],
                           CUT, symmetric=True)
     g = torch.zeros(1, 8, F)
-    with torch.enable_grad(), pytest.raises(NotImplementedError, match="MD17"):
-        tpn._PaiNNMessage.backward(None, g, g)  # a double backward
+    for sym, name in ((False, "painn_bwd"), (True, "painn_bwd_sym")):
+        ctx = SimpleNamespace(symmetric=sym)  # a double backward, both modes
+        with torch.enable_grad(), pytest.raises(
+                NotImplementedError, match=f"{name} is first order.*MD17"):
+            tpn._PaiNNMessage.backward(ctx, g, g)
     model = PaiNN(**SMALL)
     with pytest.raises(ValueError, match="per-block"):
         tpn.painn_stack_infer(*big, torch.zeros(1, 256, F),
