@@ -35,7 +35,10 @@
 // the tile's 8 rows i in shared memory, then added to dq/dmu with global
 // atomicAdd, as is each block's own row sum. So dq and dmu must be zero on
 // entry and their summation order varies from run to run. The diagonal
-// tile holds both orders of its pairs and emits no mirror.
+// tile holds both orders of its pairs and emits no mirror. At the LBA shape
+// (B=64, N=512, cutoff 5) the symmetric function's bound is bytes, not
+// operations: the five pair grids' upper triangles outweigh the filters of
+// the few in-cutoff pairs.
 #include "painn_tile.cuh"
 
 namespace geossl {

@@ -159,10 +159,12 @@ def painn_stack_reference(dist, gate, dirx, diry, dirz, q0, stacked, cutoff,
         x = _xmlp(q, wd1[k], bd1[k], wd2[k], bd2[k])
         dq, dmu = painn_message_reference(dist, gate, dirx, diry, dirz, x, mu,
                                           wk[k], bk[k], cutoff)
-        for r, t in zip(res, (q, mu, q + dq, mu + dmu)):
-            r.append(t)
-        q, mu = _mixing(q + dq, mu + dmu, wmix[k], w1[k], b1[k], w2[k], b2[k],
-                        epsilon)
+        entry = (q, mu)
+        q, mu = q + dq, mu + dmu
+        if save_residuals:
+            for r, t in zip(res, (*entry, q, mu)):
+                r.append(t)
+        q, mu = _mixing(q, mu, wmix[k], w1[k], b1[k], w2[k], b2[k], epsilon)
     if not save_residuals:
         return q, mu
     return (q, mu, *(torch.stack(r, dim=1) for r in res))
