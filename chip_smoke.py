@@ -108,7 +108,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    path's largest bucket; DDM-PaiNN mol/s per bucket through the stack and
    through the per-block kernels (``train_stack:`` lines, median of 3
    steps each, in turns); the symmetric pair's and the plain pair's kernel
-   times at the LBA shape (``painn_sym_vs_plain_kernels:``); fine-tune complexes/s (LEP: pairs/s) at N=512,
+   times at the LBA shape (``painn_sym_vs_plain_kernels:``); fine-tune
+   complexes/s (LEP: pairs/s) at N=512,
    one traced step and its top device kernels, for LBA and LEP;
    each kernel's time at the shape its path gives it, beside its plain
    version's time and its bound (f32 CUDA-core peak and HBM rate; the
@@ -571,13 +572,14 @@ def measure_stack_training(ddm, targs, batches):
     def block_step(batch):
         PG.train_step(ddm, opt, sched, [batch], targs, gen_t)
 
+    steps = {"stack": stack_step, "per_block": block_step}
     for batch in batches:
         mols = int(batch.graph_mask.sum())
-        times = {"stack": [], "per_block": []}
-        for name, step in (("stack", stack_step), ("per_block", block_step)):
+        times = {name: [] for name in steps}
+        for step in steps.values():
             step(batch)  # warm-up
         for _ in range(3):
-            for name, step in (("stack", stack_step), ("per_block", block_step)):
+            for name, step in steps.items():
                 t0 = time.perf_counter()
                 step(batch)
                 torch.cuda.synchronize()

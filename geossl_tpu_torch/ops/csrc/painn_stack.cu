@@ -41,7 +41,7 @@
 // copied at the start of block k, and qps and mups (q and mu at mixing
 // entry), written while the mixing loads its row tiles: mu gets the block's
 // messages only there (the workspace sum above), so mups is that sum, and
-// q has had its messages added in place by then. ~4(F + 3F) N L floats per
+// q has had its messages added in place by then. 2(F + 3F) N L floats per
 // graph more to write (0.2 GB at B=128, N=128, L=3).
 #include "painn_tile.cuh"
 
