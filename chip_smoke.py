@@ -113,9 +113,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    one traced step and its top device kernels, for LBA and LEP;
    each kernel's time at the shape its path gives it, beside its plain
    version's time and its bound (f32 CUDA-core peak and HBM rate; the
-   pairs with nonzero env or sel, and with symmetric dist/env each pair's
-   filter once and the upper triangle read), and ptxas's registers and
-   spills per kernel.
+   pairs with nonzero env or sel, env read whole and the other pair grids
+   on its occupied 8x8 tiles; with symmetric dist/env each pair's filter
+   once and the upper triangle read), and ptxas's registers and spills per
+   kernel.
 
 The line before the last is the kernel table as JSON (thirteen kernels,
 every Pallas kernel of the JAX package); the last line is
@@ -209,18 +210,23 @@ def print_top_ops(fn, model_3d, path, bucket, top=6):
 
 def pair_work(dist, env):
     """(ordered pairs with env != 0, pairs whose filter network the function
-    needs, cells of dist and of env it must read) for this run's inputs. When
-    dist and env are symmetric, one filter serves both directions of a pair
-    and the upper triangle (diagonal included) holds all of dist and env."""
+    needs, cells of env it must read, cells of each other pair grid it must
+    read) for this run's inputs. env (PaiNN's gate) is read whole to find
+    the 8x8 tiles that hold a nonzero env; dist and the direction grids
+    only on those tiles. When dist and env are symmetric, one filter serves
+    both directions of a pair and the upper triangle (diagonal included)
+    holds all of each grid (the directions are antisymmetric)."""
     import torch
 
     nz = env != 0
     nnz = int(nz.sum())
+    occ = tile_occupied(env)
     b, n, _ = env.shape
     if torch.equal(env, env.transpose(1, 2)) and \
             torch.equal(dist, dist.transpose(1, 2)):
-        return nnz, int(torch.triu(nz).sum()), b * n * (n + 1) // 2
-    return nnz, nnz, b * n * n
+        return (nnz, int(torch.triu(nz).sum()), b * n * (n + 1) // 2,
+                int(torch.triu(occ).sum()))
+    return nnz, nnz, b * n * n, int(occ.sum())
 
 
 # kernel -> (library, mangled-name prefix of its entry function)
@@ -1441,11 +1447,11 @@ def main():
         plain_ms = cuda_time_ms(lambda: chunked(
             K.schnet_stack_reference, (dist, env, h0), (stacked, 0.0, cutoff, G),
             32), reps=3, warmup=1)
-        nnz, filt_pairs, cells = pair_work(dist, env)
+        nnz, filt_pairs, cells, tiles = pair_work(dist, env)
         atoms = int(batch.node_mask.sum())
         flops = L * (filt_pairs * (flop_pair - 2 * 128) + nnz * 2 * 128
                      + atoms * 3 * 2 * 128 * 128)
-        nbytes = 4 * (2 * cells + 2 * h0.numel()
+        nbytes = 4 * (cells + tiles + 2 * h0.numel()
                       + sum(t.numel() for t in stacked))
         kernels.append(("schnet_stack", "geossl_tpu_torch/ops/csrc/schnet_stack.cu",
                         "geossl_tpu/ops/cfconv_pallas.py:712", ms, plain_ms,
@@ -1463,11 +1469,11 @@ def main():
             plain_ms = cuda_time_ms(lambda: chunked(
                 K.cfconv_fused_reference, (dist, env, x), (*fw, 0.0, cutoff, G),
                 4), reps=3, warmup=1)
-            nnz, filt_pairs, cells = pair_work(dist, env)
+            nnz, filt_pairs, cells, tiles = pair_work(dist, env)
             if sym and cells == dist.numel():
                 fail(f"{name}: serving dist/env are not symmetric")
             flops = filt_pairs * (flop_pair - 2 * 128) + nnz * 2 * 128
-            nbytes = 4 * (2 * cells + 2 * x.numel()
+            nbytes = 4 * (cells + tiles + 2 * x.numel()
                           + sum(t.numel() for t in fw))
             kernels.append((name, "geossl_tpu_torch/ops/csrc/cfconv_fwd.cu",
                             "geossl_tpu/ops/cfconv_pallas.py:382" if sym
@@ -1510,13 +1516,13 @@ def main():
     plain_ms = cuda_time_ms(lambda: chunked_sum(
         K.cfconv_bwd_reference, (dist, env, x, g), (*fw, 0.0, cutoff, G), 4, 3),
         reps=3, warmup=1)
-    nnz, filt_pairs, cells = pair_work(dist, env)
+    nnz, filt_pairs, cells, tiles = pair_work(dist, env)
     # filter recomputed once per needed pair; dW2, dh (2F^2 each), dW1,
     # drbf (2GF each) and the elementwise qe/denv/dx terms per ordered pair
     flops = filt_pairs * (2 * G * F_ + 2 * F_ * F_) \
         + nnz * (4 * F_ * F_ + 4 * G * F_ + 6 * F_)
     wsize = G * F_ + 2 * F_ + F_ * F_
-    nbytes = 4 * (2 * cells + 2 * dist.numel() + 3 * x.numel() + 2 * wsize)
+    nbytes = 4 * (cells + tiles + 2 * dist.numel() + 3 * x.numel() + 2 * wsize)
     kernels.append(("cfconv_bwd", "geossl_tpu_torch/ops/csrc/cfconv_bwd.cu",
                     "geossl_tpu/ops/cfconv_pallas.py:150", ms, plain_ms, flops,
                     nbytes, train_launches["cfconv_bwd"]))
@@ -1545,14 +1551,14 @@ def main():
              for _ in range(2)]
     print("cfconv_bwd_sym repeats bitwise: " + json.dumps(
         {n: torch.equal(a, b) for n, a, b in zip(BWD_NAMES, *again)}))
-    nnz, filt_pairs, cells = pair_work(dist, env)
+    nnz, filt_pairs, cells, tiles = pair_work(dist, env)
     if cells == dist.numel():
         fail("cfconv_bwd_sym: the LBA dist/env are not symmetric")
     # per pair with env != 0 counted once (one triangle): the filter, dW2,
     # dh, dW1 and drbf on the combined cotangent; per ordered pair the
     # elementwise q/denv/dx terms
     flops = filt_pairs * (6 * G * F_ + 6 * F_ * F_) + nnz * 6 * F_
-    nbytes = 4 * (2 * cells + 2 * dist.numel() + 3 * x.numel() + 2 * wsize)
+    nbytes = 4 * (cells + tiles + 2 * dist.numel() + 3 * x.numel() + 2 * wsize)
     kernels.append(("cfconv_bwd_sym", "geossl_tpu_torch/ops/csrc/cfconv_bwd.cu",
                     "geossl_tpu/ops/cfconv_pallas.py:464", ms, plain_ms, flops,
                     nbytes, lba_launches["cfconv_bwd_sym"]))
@@ -1604,12 +1610,12 @@ def main():
         plain_ms = cuda_time_ms(lambda: chunked_sum(
             lambda *a: P.painn_stack_reference(*a, stacked_p, cut_p),
             (*grids, q0), (), 32, 2), reps=3, warmup=1)
-        nnz, filt_pairs, cells = pair_work(grids[0], grids[1])
+        nnz, filt_pairs, cells, tiles = pair_work(grids[0], grids[1])
         atoms = int(batch.node_mask.sum())
         # per block: x-MLP 8F^2, mixing 12F^2, context MLP 10F^2 per atom
         flops = L_ * (filt_pairs * fwd_pair + nnz * fwd_elem
                       + atoms * 30 * F_ * F_)
-        nbytes = 4 * (5 * cells + q0.numel() + 4 * q0.numel()
+        nbytes = 4 * (cells + 4 * tiles + q0.numel() + 4 * q0.numel()
                       + sum(t.numel() for t in stacked_p))
         kernels.append(("painn_stack", "geossl_tpu_torch/ops/csrc/painn_stack.cu",
                         "geossl_tpu/ops/painn_pallas.py:829", ms, plain_ms,
@@ -1627,7 +1633,7 @@ def main():
     gmu = torch.randn(mu.shape, generator=gen_d, device=dev)
     check_painn_bwd(errs, grids, x, mu, wk0, bk0, gq, gmu, cut_p,
                     "DDM B=128 N=128", chunk=8)
-    nnz, filt_pairs, cells = pair_work(grids[0], grids[1])
+    nnz, filt_pairs, cells, tiles = pair_work(grids[0], grids[1])
     f3 = 3 * F_
     with torch.no_grad():
         fwd_args = (*grids, x, mu, wk0, bk0, cut_p, True)
@@ -1641,7 +1647,7 @@ def main():
                      P.painn_message_reference(*a, wk0, bk0, cut_p), dim=-1),
                      (*grids, x, mu), (), 16),
                  filt_pairs * fwd_pair + nnz * fwd_elem,
-                 4 * (5 * cells + 2 * x.numel() + (R_ + 1) * f3
+                 4 * (cells + 4 * tiles + 2 * x.numel() + (R_ + 1) * f3
                       + q0.numel() + mu.numel()), 86),
                 # filter recomputed and dWk/dbk once per needed pair (both
                 # directions' dwg summed first); dphi = dwg Wk^T, which
@@ -1657,8 +1663,11 @@ def main():
                      (*grids, x, mu, gq, gmu), (), 8, 7),
                  filt_pairs * (2 * R_ * f3 + 2 * (R_ + 1) * f3)
                  + nnz * (2 * R_ * f3 + 40 * F_),
-                 4 * (5 * cells + 5 * grids[0].numel() + 4 * x.numel()
-                      + q0.numel() + 2 * (R_ + 1) * f3), 164)):
+                 # the pair grids read, the five pair cotangents written;
+                 # x, mu, gmu, gq read and dx, dmu written
+                 4 * (cells + 4 * tiles + 5 * grids[0].numel()
+                      + 5 * x.numel() + q0.numel() + 2 * (R_ + 1) * f3),
+                 164)):
             kernels.append((name, f"geossl_tpu_torch/ops/csrc/{name}.cu",
                             f"geossl_tpu/ops/painn_pallas.py:{line}",
                             cuda_time_ms(fn), cuda_time_ms(plain, reps=3,
@@ -1676,6 +1685,11 @@ def main():
                               want):
             errs.check_scaled("painn_stack_train", a, w,
                               f"DDM B=128 N=128 {name}")
+        # the wrapper's own (q, mu); the launcher above for the residuals
+        got = P.painn_stack_train(*grids, q0, stacked0, cut_p)
+        for name, a, w in zip(("q", "mu"), got, want):
+            errs.check_scaled("painn_stack_train", a, w,
+                              f"DDM B=128 N=128 wrapper {name}")
         atoms = int(batch.node_mask.sum())
         kernels.append((
             "painn_stack_train", "geossl_tpu_torch/ops/csrc/painn_stack.cu",
@@ -1688,7 +1702,7 @@ def main():
             L_ * (filt_pairs * fwd_pair + nnz * fwd_elem
                   + atoms * 30 * F_ * F_),
             # painn_stack's bytes, then qs, mus, qps, mups written
-            4 * (5 * cells + 5 * q0.numel()
+            4 * (cells + 4 * tiles + 5 * q0.numel()
                  + sum(t.numel() for t in stacked0) + 8 * L_ * q0.numel()),
             stack_launches["painn_stack_train"]))
 
@@ -1698,7 +1712,7 @@ def main():
         # and dphi once per unordered pair, its elementwise terms per
         # ordered pair
         grids, x, mu, wk0, bk0, gq, gmu = sym_case
-        nnz, filt_pairs, cells = pair_work(grids[0], grids[1])
+        nnz, filt_pairs, cells, tiles = pair_work(grids[0], grids[1])
         if cells == grids[0].numel():
             fail("painn_fwd_sym: the LBA pair grids are not symmetric")
         kernels.append((
@@ -1710,7 +1724,10 @@ def main():
                 P.painn_message_fused_sym_reference(*a, wk0, bk0, cut_lp),
                 dim=-1), (*grids, x, mu), (), 4), reps=3, warmup=1),
             filt_pairs * fwd_pair + nnz * fwd_elem,
-            4 * (5 * cells + 2 * x.numel() + (R_ + 1) * f3 + 4 * x.numel() // 3),
+            # gate's triangle, dist and the directions on its occupied upper
+            # tiles; x, mu read and dq, dmu written
+            4 * (cells + 4 * tiles + 2 * x.numel() + (R_ + 1) * f3
+                 + 4 * x.numel() // 3),
             sym_launches["painn_fwd_sym"]))
     kernels.append((
         "painn_bwd_sym", "geossl_tpu_torch/ops/csrc/painn_bwd.cu",
@@ -1724,7 +1741,8 @@ def main():
             (*grids, x, mu, gq, gmu), (), 2, 7), reps=2, warmup=1),
         filt_pairs * (2 * R_ * f3 + 2 * (R_ + 1) * f3 + 2 * R_ * f3)
         + nnz * 40 * F_,
-        4 * (5 * cells + 5 * grids[0].numel() + 4 * x.numel()
+        # as painn_bwd's, the pair grids on the upper triangle
+        4 * (cells + 4 * tiles + 5 * grids[0].numel() + 5 * x.numel()
              + x.numel() // 3 + 2 * (R_ + 1) * f3),
         sym_launches["painn_bwd_sym"]))
 

@@ -353,7 +353,11 @@ def painn_message(dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
                   symmetric=False, sparse="auto"):
     """Dispatcher, routed as ``painn_pallas.painn_message``: the plain-mode
     kernel with occupancy gating from N=128 ('auto'); with ``symmetric=True``
-    the symmetric kernel pair from N=256 (``sym_profitable``). The caller
+    the symmetric kernel pair from N=256 (``sym_profitable``, the JAX
+    package's threshold). On the H100 that route is currently slower than
+    the plain-mode pair (PERF.md §6: at B=64, N=512 the symmetric forward
+    takes about 2x and its backward about 1.2x the plain kernels' time),
+    and no caller in this package sets ``symmetric``. The caller
     guarantees what ``symmetric`` claims: dist and gate symmetric (no
     ``max_neighbors`` truncation), the directions antisymmetric. Nothing
     checks it; the pair cotangents are then placed, exact only upstream of
