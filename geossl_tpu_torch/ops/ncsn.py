@@ -17,7 +17,6 @@ from __future__ import annotations
 import ctypes
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from geossl_tpu_torch.ops import _build
 from geossl_tpu_torch.ops._launch import (
@@ -26,6 +25,7 @@ from geossl_tpu_torch.ops._launch import (
     counted,
     on_cpu,
     ptr,
+    refuse_second_order,
     stream,
 )
 
@@ -166,8 +166,8 @@ class _NCSNScore(torch.autograd.Function):
                               anneal=anneal)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g_rows):
+        refuse_second_order("ncsn_score_bwd")
         dist, noise, sel, sigma, u, *weights = ctx.saved_tensors
         grads = ncsn_score_bwd(dist, noise, sel, sigma, u,
                                g_rows.contiguous(), *weights,
