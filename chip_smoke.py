@@ -49,14 +49,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
       defaults: SchNet F=128, L=6, G=51, cutoff 10; batch 128, buckets
       32/64/128; NCSN sigma 10 -> 0.01 over 50 levels, anneal 2; GeoSSL
       sigma 0.3, masking 0.3; lr 5e-4) trains one epoch of a synthetic
-      Molecule3D store that fills the three buckets. Every loss must be
+      Molecule3D store that fills the three buckets, through the CFConv
+      pair that SchNet's dispatcher picks per bucket (the symmetric pair
+      from ``ops/cfconv.SCHNET_SYM_MIN_N`` up). Every loss must be
       finite; ``model.pth`` must load into a ``Predictor`` that embeds
-      finite values. Then one full-width step per bucket with kernels is
+      finite values. The same driver with ``--max_num_neighbors 32`` (a
+      graph that is not symmetric) trains a few steps through the
+      plain-mode ``cfconv_fwd``/``cfconv_bwd``. Then one full-width step
+      per bucket with kernels is
       held to the same step with the plain versions (the same injected
       noise; loss rtol 1e-4, all gradients together by relative norm 1e-3
       and each parameter's by 1e-2). A gradient must flow through the
       symmetric CFConv (``cfconv_bwd_sym``) and a second order through it
-      must raise; the stack must refuse autograd. Then the same for PaiNN-DDM
+      must raise, as through the NCSN head (``ncsn_score_loss``); the
+      stack must refuse autograd. Then the same for PaiNN-DDM
       (``--model_3d painn``: ``painn_fwd``/``painn_bwd`` in the backbone,
       the clean geometry's radius graph as both views' pair mask), whose
       whole-stack kernel must refuse autograd. Then one full-width
@@ -108,15 +114,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    path's largest bucket; DDM-PaiNN mol/s per bucket through the stack and
    through the per-block kernels (``train_stack:`` lines, median of 3
    steps each, in turns); the symmetric pair's and the plain pair's kernel
-   times at the LBA shape (``painn_sym_vs_plain_kernels:``); fine-tune
+   times at the LBA shape (``painn_sym_vs_plain_kernels:``) and, for the
+   CFConv, at the DDM buckets (B=128, N=32/64/128) and the LBA shape
+   (``cfconv_sym_vs_plain_kernels:``, forward and backward of each pair:
+   the measurement SchNet's route follows); fine-tune
    complexes/s (LEP: pairs/s) at N=512,
    one traced step and its top device kernels, for LBA and LEP;
    each kernel's time at the shape its path gives it, beside its plain
    version's time and its bound (f32 CUDA-core peak and HBM rate; the
    pairs with nonzero env or sel, env read whole and the other pair grids
    on its occupied 8x8 tiles; with symmetric dist/env each pair's filter
-   once and the upper triangle read), and ptxas's registers and spills per
-   kernel.
+   once and the upper triangle read; for the tensor-core CFConv backward,
+   ``bound_basis`` "tf32_tensor_core+f32": its products once at the TF32
+   tensor-core peak, its elementwise terms at the f32 peak), and ptxas's
+   registers and spills per kernel. The CFConv backward computes its
+   products in 3xTF32 on the tensor cores and is held to the same
+   tolerances as every other kernel.
 
 The line before the last is the kernel table as JSON (thirteen kernels,
 every Pallas kernel of the JAX package); the last line is
@@ -134,8 +147,10 @@ import time
 RTOL, ATOL = 1e-4, 1e-5
 # weight gradients, together (each tensor: 10x): relative Frobenius norm
 GRAD_RTOL = 1e-3
-# NVIDIA H100 SXM data sheet: f32 outside the tensor cores, HBM3 rate
+# NVIDIA H100 SXM data sheet: f32 outside the tensor cores, TF32 on the
+# tensor cores (dense), HBM3 rate
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 SEED = 0
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1089,7 +1104,12 @@ def main():
     train_launches = launch_counts()
     print(f"main path (training): {len(losses)} steps of one epoch in "
           f"{time.time() - t0:.2f} s (first call); launches {train_launches}")
-    for name in ("cfconv_fwd", "cfconv_bwd", "ncsn_score_fwd", "ncsn_score_bwd"):
+    # SchNet's dispatcher routes each bucket (symmetric dist/env) to the
+    # symmetric or the plain pair by its own threshold
+    ddm_cf = {k for b in (32, 64, 128) for k in (
+        ("cfconv_fwd_sym", "cfconv_bwd_sym") if K.sym_profitable(b)
+        else ("cfconv_fwd", "cfconv_bwd"))}
+    for name in (*sorted(ddm_cf), "ncsn_score_fwd", "ncsn_score_bwd"):
         if train_launches[name] == 0:
             fail(f"kernel {name} was not launched on the training path")
     if not losses or not all(math.isfinite(v) for v in losses):
@@ -1108,6 +1128,29 @@ def main():
             not np.isfinite(emb_t).all():
         fail(f"Predictor on model.pth: shape {emb_t.shape} or non-finite")
     print(f"model.pth loads into a Predictor: {emb_t.shape[0]} finite embeddings")
+
+    # -- 3b*. main path: DDM-SchNet on a max_num_neighbors graph --------------
+    # the truncated graph is not symmetric, so SchNet takes the plain-mode
+    # kernels at every bucket: a few steps of the same driver
+    out_dir_mn = os.path.join(ROOT, "runs", "chip_smoke_mn")
+    shutil.rmtree(out_dir_mn, ignore_errors=True)
+    reset_launch_counts()
+    t0 = time.time()
+    _, losses_mn = PG.main(["--synthetic", "--synthetic_size", "384",
+                            "--synthetic_max_atoms", "100", "--epochs", "1",
+                            "--max_num_neighbors", "32",
+                            "--output_model_dir", out_dir_mn])
+    torch.cuda.synchronize()
+    mn_launches = launch_counts()
+    print(f"main path (training, max_num_neighbors=32): {len(losses_mn)} "
+          f"steps in {time.time() - t0:.2f} s (first call); launches "
+          f"{mn_launches}")
+    for name in ("cfconv_fwd", "cfconv_bwd", "ncsn_score_fwd", "ncsn_score_bwd"):
+        if mn_launches[name] == 0:
+            fail(f"kernel {name} was not launched on the max_num_neighbors "
+                 "training path")
+    if not losses_mn or not all(math.isfinite(v) for v in losses_mn):
+        fail(f"max_num_neighbors training losses {losses_mn}")
 
     def train_batch(b):
         idx = np.nonzero(tbucket == b)[0][:128]
@@ -1144,6 +1187,21 @@ def main():
     if msg is None:
         fail("a double backward through cfconv_fwd_sym on CUDA did not raise")
     print(f"grad guard cfconv_bwd_sym (second order): {msg}")
+    # the NCSN head's Function is first order only as well
+    ngrid, nweights, nanneal = ncsn_inputs(
+        ddm0, pack_batch([sorted_store.get(int(i)) for i in first(32, 8)],
+                         32).to(dev), targs, SEED)
+
+    def ncsn_double_backward():
+        u = ngrid[4].clone().requires_grad_(True)
+        rows = NS.ncsn_score_loss(*ngrid[:4], u, *nweights, nanneal)
+        (gu,) = torch.autograd.grad(rows.sum(), u, create_graph=True)
+        gu.sum().backward()
+
+    msg = refuses_grad(ncsn_double_backward)
+    if msg is None:
+        fail("a double backward through ncsn_score_loss on CUDA did not raise")
+    print(f"grad guard ncsn_score_bwd (second order): {msg}")
     with torch.no_grad():
         stack_w = [t.clone().requires_grad_(True) for t in model.stacked_weights()]
     _, d128, e128, h128, _ = layer0_inputs(model, first(128, 2), 128)
@@ -1497,18 +1555,30 @@ def main():
     measure_finetune(lep_net, lep_args, lep_batch, FE.loss_fn, "lep",
                      int(lep_batch.active.graph_mask.sum()))
 
-    # the three training kernels at the DDM shape (B=128, N=128)
+    ddm_cases = {}
+
+    def ddm_case(b):
+        """Block 0's CFConv inputs on the DDM batch of bucket b (B=128, the
+        clean graph of view 1, the freshly seeded DDM model) and a seeded
+        cotangent."""
+        batch = train_batch(b)
+        with torch.no_grad():
+            dist, adj = ddm0.model.geometry(batch.positions, batch.node_mask)
+            dist = dist.contiguous()
+            env = (cosine_envelope(dist, cutoff) * adj.float()).contiguous()
+            blk = ddm0.model.interactions[0]
+            x = blk.conv.lin1(ddm0.model.embedding(batch.atom_type)).contiguous()
+            fw = blk.filter_weights()
+        g = torch.randn(x.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED))
+        return dist, env, x, g, fw
+
+    # the three training kernels at the DDM shape (B=128, N=128): the
+    # plain-mode CFConv backward on the clean graph (the shape of its PR 2-5
+    # measurements; the max_num_neighbors path launches it)
     batch = train_batch(128)
     F_, E_, H_ = 128, 128, 64
-    with torch.no_grad():
-        dist, adj = ddm0.model.geometry(batch.positions, batch.node_mask)
-        dist = dist.contiguous()
-        env = (cosine_envelope(dist, cutoff) * adj.float()).contiguous()
-        blk = ddm0.model.interactions[0]
-        x = blk.conv.lin1(ddm0.model.embedding(batch.atom_type)).contiguous()
-        fw = blk.filter_weights()
-    g = torch.randn(x.shape, generator=torch.Generator(dev).manual_seed(SEED),
-                    device=dev)
+    dist, env, x, g, fw = ddm_cases[128] = ddm_case(128)
     check_cfconv_bwd(errs, dist, env, x, g, fw, G, cutoff, "DDM B=128 N=128",
                      chunk=4)
     ms = cuda_time_ms(lambda: K.cfconv_bwd(dist, env, x, g, *fw, 0.0, cutoff,
@@ -1517,15 +1587,16 @@ def main():
         K.cfconv_bwd_reference, (dist, env, x, g), (*fw, 0.0, cutoff, G), 4, 3),
         reps=3, warmup=1)
     nnz, filt_pairs, cells, tiles = pair_work(dist, env)
-    # filter recomputed once per needed pair; dW2, dh (2F^2 each), dW1,
-    # drbf (2GF each) and the elementwise qe/denv/dx terms per ordered pair
-    flops = filt_pairs * (2 * G * F_ + 2 * F_ * F_) \
-        + nnz * (4 * F_ * F_ + 4 * G * F_ + 6 * F_)
+    # tensor-core products: the filter once per needed pair, dW2 and dh
+    # (2F^2 each), dW1 and drbf (2GF each) per ordered pair; on the CUDA
+    # cores the elementwise qe/denv/dx terms per ordered pair
+    flops = (filt_pairs * (2 * G * F_ + 2 * F_ * F_)
+             + nnz * (4 * F_ * F_ + 4 * G * F_), nnz * 6 * F_)
     wsize = G * F_ + 2 * F_ + F_ * F_
     nbytes = 4 * (cells + tiles + 2 * dist.numel() + 3 * x.numel() + 2 * wsize)
     kernels.append(("cfconv_bwd", "geossl_tpu_torch/ops/csrc/cfconv_bwd.cu",
                     "geossl_tpu/ops/cfconv_pallas.py:150", ms, plain_ms, flops,
-                    nbytes, train_launches["cfconv_bwd"]))
+                    nbytes, mn_launches["cfconv_bwd"]))
 
     # the symmetric backward at the LBA shape (B=64, N=512, block 0 of a
     # freshly seeded net)
@@ -1555,13 +1626,36 @@ def main():
     if cells == dist.numel():
         fail("cfconv_bwd_sym: the LBA dist/env are not symmetric")
     # per pair with env != 0 counted once (one triangle): the filter, dW2,
-    # dh, dW1 and drbf on the combined cotangent; per ordered pair the
-    # elementwise q/denv/dx terms
-    flops = filt_pairs * (6 * G * F_ + 6 * F_ * F_) + nnz * 6 * F_
+    # dh, dW1 and drbf on the combined cotangent (tensor cores); per ordered
+    # pair the elementwise q/denv/dx terms
+    flops = (filt_pairs * (6 * G * F_ + 6 * F_ * F_), nnz * 6 * F_)
     nbytes = 4 * (cells + tiles + 2 * dist.numel() + 3 * x.numel() + 2 * wsize)
     kernels.append(("cfconv_bwd_sym", "geossl_tpu_torch/ops/csrc/cfconv_bwd.cu",
                     "geossl_tpu/ops/cfconv_pallas.py:464", ms, plain_ms, flops,
                     nbytes, lba_launches["cfconv_bwd_sym"]))
+
+    # the symmetric pair against the plain pair, forward and backward, at the
+    # DDM buckets (B=128) and the LBA shape (B=64, N=512): the measurement
+    # that SchNet's route (ops/cfconv.SCHNET_SYM_MIN_N) follows
+    ddm_cases[512] = (dist, env, x, g, fw)
+    sym_vs = {}
+    for n in (*train_buckets, 512):
+        d_, e_, x_, g_, fw_ = ddm_cases.get(n) or ddm_case(n)
+        a_ = (*fw_, 0.0, cutoff, G, True)
+        with torch.no_grad():
+            r = {"cfconv_fwd": cuda_time_ms(lambda: K.cfconv_fused(d_, e_, x_, *a_)),
+                 "cfconv_fwd_sym": cuda_time_ms(
+                     lambda: K.cfconv_fused_sym(d_, e_, x_, *a_))}
+        r["cfconv_bwd"] = cuda_time_ms(lambda: K.cfconv_bwd(d_, e_, x_, g_, *a_))
+        r["cfconv_bwd_sym"] = cuda_time_ms(
+            lambda: K.cfconv_bwd_sym(d_, e_, x_, g_, *a_))
+        plain_pair = r["cfconv_fwd"] + r["cfconv_bwd"]
+        sym_pair = r["cfconv_fwd_sym"] + r["cfconv_bwd_sym"]
+        sym_vs[f"{'LBA' if n == 512 else 'DDM'} B={d_.shape[0]} N={n}"] = {
+            "ms": r, "plain_pair_ms": plain_pair, "sym_pair_ms": sym_pair,
+            "faster": "symmetric" if sym_pair < plain_pair else "plain",
+            "routed": "symmetric" if K.sym_profitable(n) else "plain"}
+    print("cfconv_sym_vs_plain_kernels: " + json.dumps(sym_vs))
 
     grid, weights, anneal = ncsn_inputs(ddm0, batch, targs, SEED)
     g_rows = check_ncsn(errs, grid, weights, anneal, "DDM B=128 N=128", chunk=16)
@@ -1748,7 +1842,13 @@ def main():
 
     table = []
     for name, src, replaces, ms, plain_ms, flops, nbytes, count in kernels:
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        if isinstance(flops, tuple):
+            # (tensor-core products, elementwise): each at its own peak, the
+            # two units working at once
+            t_ops = max(flops[0] / PEAK_TF32_FLOPS, flops[1] / PEAK_F32_FLOPS) * 1e3
+            basis, flops = "tf32_tensor_core+f32", sum(flops)
+        else:
+            t_ops, basis = flops / PEAK_F32_FLOPS * 1e3, "f32"
         t_bytes = nbytes / PEAK_BYTES * 1e3
         lib, entry = KERNEL_ENTRIES[name]
         table.append({
@@ -1756,6 +1856,7 @@ def main():
             "launches": count, "max_abs_err": errs.max_abs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_basis": basis,
             "library_ms": None, "flop": flops, "bytes": nbytes,
             "ptxas": ptxas_usage(_build.build_log(lib), entry)})
         print(f"kernel {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "

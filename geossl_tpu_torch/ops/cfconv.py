@@ -26,8 +26,13 @@ Kernels:
 The two CFConv Functions are first order only: a double backward on CUDA
 (MD17 force training) raises ``NotImplementedError``.
 
-The kernels compute in plain f32 (no TF32); ``plain_precision()`` sets the
-matching PyTorch flags for the plain versions on the card.
+The forward kernels compute in plain f32 on the CUDA cores; the backward
+kernel runs its tile products on the tensor cores in 3xTF32
+(``csrc/mma_tf32.cuh``), within f32 rounding of the plain version.
+``plain_precision()`` makes the plain versions' PyTorch matmuls full f32.
+SchNet's dispatcher takes the symmetric pair from ``SCHNET_SYM_MIN_N`` up,
+by the card's measurement; PaiNN keeps the JAX package's rule
+(``ops/painn.sym_profitable``).
 """
 
 from __future__ import annotations
@@ -55,22 +60,26 @@ STACK_MAX_N = 128
 KERNEL_F = 128
 # Side of the kernels' square pair tiles.
 KERNEL_TILE = 8
-# The JAX package's TPU tiling first has a tile the symmetric kernel can skip
-# at N=256 (cfconv_pallas.sym_profitable); the port routes by the same rule.
-_SYM_MIN_N = 256
+# SchNet takes the symmetric kernel pair from this N up. The JAX package's
+# TPU tiling first has a tile to skip at N=256 (cfconv_pallas.sym_profitable);
+# on the H100 the symmetric pair (forward + backward) is faster than the
+# plain pair at every DDM bucket from N=32 (chip_smoke.py's
+# `cfconv_sym_vs_plain_kernels:` line, PERF.md). PaiNN has its own rule
+# (ops/painn.py).
+SCHNET_SYM_MIN_N = 32
 
 
 def plain_precision() -> None:
-    """Full-f32 matmuls for the plain versions on the card, as the kernels
-    compute (no TF32)."""
+    """Full-f32 matmuls for the plain versions on the card (no single-pass
+    TF32), the precision the kernels keep."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
 
 def sym_profitable(n: int) -> bool:
-    """True when the dispatcher takes the symmetric kernel at pair-grid size
-    ``n`` (the same sizes as the JAX package's dispatcher)."""
-    return n >= _SYM_MIN_N
+    """True when SchNet's dispatcher takes the symmetric kernel pair at
+    pair-grid size ``n`` (symmetric dist/env given)."""
+    return n >= SCHNET_SYM_MIN_N
 
 
 def sparse_auto(n: int, sparse) -> bool:
@@ -241,14 +250,16 @@ def _launch_cfconv_bwd(name, dist, env, x, g, w1, b1, w2, b2, start, stop,
     if symmetric and ni != nj:
         raise ValueError(f"{name}: the symmetric mode needs a square grid")
     smem = _build.kernel_fn("cfconv_bwd", "cfconv_bwd_smem_bytes",
-                            [ctypes.c_int] * 3,
-                            ctypes.c_size_t)(num_g, ni, int(symmetric))
+                            [ctypes.c_int], ctypes.c_size_t)(ni)
     check_smem(name, smem)
     blocks = _build.kernel_fn("cfconv_bwd", "cfconv_bwd_blocks",
                               [ctypes.c_int, ctypes.c_int])(b, nj)
+    ws_ints = _build.kernel_fn("cfconv_bwd", "cfconv_bwd_ws_ints",
+                               [ctypes.c_int] * 3,
+                               ctypes.c_size_t)(b, ni, nj)
     fn = _build.kernel_fn(
         "cfconv_bwd", "cfconv_bwd",
-        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     size = num_g * f + f + f * f + f
     ddist, denv = torch.empty_like(dist), torch.empty_like(env)
@@ -256,9 +267,12 @@ def _launch_cfconv_bwd(name, dist, env, x, g, w1, b1, w2, b2, start, stop,
     dx = (torch.zeros_like if symmetric else torch.empty_like)(x)
     part = torch.empty((blocks, size), dtype=torch.float32, device=dist.device)
     wgrad = torch.empty(size, dtype=torch.float32, device=dist.device)
+    # tile flags, per-item tile counts and their prefix sums (the kernel's
+    # work list, made on the device)
+    ws = torch.empty(ws_ints, dtype=torch.int32, device=dist.device)
     s0, delta, coeff = _rbf_consts(start, stop, num_g)
     err = fn(*map(ptr, (dist, env, x, g, w1, b1, w2, b2, ddist, denv, dx,
-                        part, wgrad)),
+                        part, wgrad, ws)),
              b, ni, nj, f, num_g, s0, delta, coeff, int(symmetric),
              int(sparse), stream(dist))
     check_launch(name, err)
@@ -320,10 +334,11 @@ def cfconv_fused_sym(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
 
 def cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g, symmetric=False,
            sparse="auto", plain=False):
-    """Dispatcher, routed as ``cfconv_pallas.cfconv``: the symmetric kernel
-    when the caller guarantees symmetric dist/env and N is large enough,
-    else the plain-mode kernel; ``plain=True`` takes the plain version on any
-    device (the counterpart of ``use_pallas=False``)."""
+    """Dispatcher, as ``cfconv_pallas.cfconv``: the symmetric kernel pair
+    when the caller guarantees symmetric dist/env and N is at least
+    ``SCHNET_SYM_MIN_N`` (the JAX package waits for N=256), else the
+    plain-mode pair; ``plain=True`` takes the plain version on any device
+    (the counterpart of ``use_pallas=False``)."""
     if plain:
         return cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start,
                                       stop, num_g)

@@ -1,5 +1,5 @@
-// cfconv_bwd: backward of SchNet's continuous-filter convolution in one
-// kernel (plus a small reduction launch for the weight gradients).
+// cfconv_bwd: backward of SchNet's continuous-filter convolution on the
+// tensor cores, in 3xTF32.
 //
 // Replaces geossl_tpu/ops/cfconv_pallas.py: _bwd_kernel (via _bwd_pallas)
 // and, with SYM, _bwd_sym_kernel (via _bwd_sym_pallas, the VJP of
@@ -13,373 +13,604 @@
 //   db1 = sum dh, with qe[i,j,f] = env g[i,f] x[j,f]
 // The [B,N,N,F] tensors never leave the chip.
 //
-// Bound on the H100: operations. Per occupied pair it does the forward
-// filter (2GF + 2F^2) and four more products (dW2, dh: 2F^2 each; dW1,
-// drbf: 2GF each), ~137k FLOP at G=51, F=128, against 16 bytes of
-// dist/env/ddist/denv. As in the forward, the design removes work rather
-// than speeding the arithmetic: with `sparse`, 8x8 tiles whose envelope is
-// all zero are skipped (their ddist and denv are written as zero, the
-// occupancy contract of geossl_tpu/ops/pallas_utils.py: exact downstream,
-// since env has value and slope zero there). Plain f32 FMAs, no tensor cores.
+// Bound on the H100: operations. An 8x8 pair tile is one 64-row operand and
+// its six products are the filter (rbf[64xG] W1, ssp() W2), dh' = qe W2^T,
+// drbf = dh W1^T, dW2 += s^T qe and dW1 += rbf^T dh: ~170k FLOP per pair
+// (G = 51, F = 128) against 16 bytes of dist/env/ddist/denv. They run on
+// the tensor cores with mma.sync.m16n8k8 TF32 in 3xTF32 (mma_tf32.cuh:
+// each f32 operand split into TF32 hi + lo, lo*hi + hi*lo + hi*hi summed in
+// f32), which keeps the result within f32 rounding of the plain version:
+// chip_smoke.py holds it to rtol 1e-4 and atol 1e-5 x max|ref| for
+// ddist/denv/dx and 1e-3 relative norm for the weight gradients, the
+// tolerances of the f32 CUDA-core kernel it replaced. chip_smoke.py's bound
+// counts the products once at the TF32 tensor-core peak (495 TFLOP/s), the
+// elementwise terms at the f32 peak and the bytes at the HBM rate, and takes
+// the largest (`bound_basis`). mma.sync reaches about 315 TFLOP/s on the card
+// (utils/probe_cfconv_bwd.py); wgmma would reach more, but its TF32 form
+// reads both operands K-major from canonical shared-memory layouts, and four
+// of the six products read an operand transposed, so this kernel loads
+// mma.sync fragments from one swizzled copy of each matrix in either
+// orientation. The elementwise parts (RBF exp, ssp, sigmoid, qe, the
+// denv/ddist row sums, the dx sums) stay on the CUDA cores, with the fast
+// exp/log intrinsics (errors at f32 rounding of the values they feed).
 //
-// Work split. The TPU kernel accumulates dx over an inner sequential i axis
-// and the weight gradients over its whole grid. Here a persistent grid (one
-// block per SM, 1 block/SM by shared memory) walks the (graph, 8-column j
-// tile) items; a block loops over the i tiles of its item and keeps its dx
-// rows in registers, and keeps its share of dW1/db1/dW2/db2 in registers over
-// all its items. At the end each block writes its partial weight gradients,
-// and a second launch sums the partials in block order (reduce.cuh): no
-// atomics, so the result is bitwise the same from run to run on one card.
+// Work split. Three small launches come first: an occupancy pass (one block
+// per graph and 8-row band) marks the 8x8 tiles to compute (with `sparse`
+// those whose env is not all zero; with SYM only tiles pi <= pj), writes
+// ddist = denv = 0 on every other tile (the occupancy contract of
+// geossl_tpu/ops/pallas_utils.py: exact downstream, since env has value and
+// slope zero there) and counts each item's tiles; a one-block scan turns the
+// counts into prefix sums. The items are (graph, 8-column j tile). A
+// persistent grid (one block of 8 warps per SM: 255 registers a thread, and
+// shared memory for one block) splits the items into contiguous runs of
+// equal work by those prefix sums, on the device, with no host sync. A
+// block walks its items; for each it stages the item's x (and, SYM, g) rows,
+// then walks the item's computed i tiles with the next tile's dist/env/g/x
+// rows in flight (cp.async, double buffer) while the current tile's products
+// run. The item's dx rows are summed in shared memory; the weight gradients
+// stay in the warps' mma accumulators over all the block's tiles. At the end
+// each block writes its partial weight gradients and a last launch sums the
+// partials in block order (reduce.cuh). Cross-warp sums (denv, ddist, db1,
+// db2) are taken in a fixed order, so ddist, denv and the weight gradients
+// are bitwise the same from run to run on one card; so is dx in plain mode
+// (each item's rows are written by one block).
 //
 // SYM (symmetric dist/env only, square grid), the port's symmetric scheme of
-// cfconv_fwd.cu: with square 8x8 tiles, tile (pi, pj) is computed iff
-// pi <= pj. Item pj walks i tiles 0..pj only, so its work is pj+1 tiles: the
-// items are ordered by descending pj (all graphs' last column first), which
-// spreads the long items over the persistent grid. On a computed tile with
-// pi < pj every cell's mirror lies in a skipped tile, so the tile carries it:
+// cfconv_fwd.cu: tile (pi, pj) is computed iff pi <= pj. On a computed tile
+// with pi < pj every cell's mirror lies in a skipped tile, so the tile
+// carries it:
 //   q[i,j,f] = g[i,f] x[j,f] + x[i,f] g[j,f]   (the diagonal tile: first term)
 // goes through the filter chain once, and ddist/denv are written PLACED: a
 // cell of a tile pi < pj holds its own cotangent plus its mirror's, a
 // diagonal tile its own, a tile pi > pj (and, with `sparse`, an unoccupied
 // one) zero. That is exact for training, because dist and env are symmetric
-// functions of the positions. dx gets a j-indexed part (sum_i env W g_i, in
-// registers as above) and an i-indexed part from the mirrors
-// (dx[i] += sum_j env W g_j), which lands on rows that other items own: it is
-// summed over the tile's 8 columns in shared memory and added to dx with
-// global atomicAdd, and so is each item's j-indexed part (dx must be zero on
-// entry). So in SYM mode dx is summed in an order that changes from run to
-// run; ddist, denv and the weight gradients repeat bitwise.
+// functions of the positions. dx gets a j-indexed part (summed per item as
+// above) and an i-indexed part from the mirrors (dx[i] += sum_j env W g_j),
+// which lands on rows that other items own: it is summed over the tile's
+// rows in shared memory and added to dx with global atomicAdd, and so is
+// each item's j-indexed part (dx must be zero on entry). So in SYM mode dx
+// is summed in an order that changes from run to run.
 //
-// Pair tile layout: pair p = jl*8 + il (row = local j, column = local i), so
-// the 4 pairs a thread owns in filter_tile (pair_tile.cuh) share one j (its
-// warp) and the dx sum over i is a register sum plus one __shfl_xor(16).
-// W1 and W2 sit in shared memory with a padded row stride (kWS = 132), so
-// that the products reading them by column (dh = qe W2^T, drbf = dh W1^T)
-// spread over the banks.
+// Layout. Pair p = jl*8 + il of the tile is row p of every 64-row operand.
+// In the 64x128 products warp (wm, wn) owns rows 16*kMB*wm.. and columns
+// 32*wn..: lane (g, t) holds pairs (jl = 2*(kMB*wm + mb) + h, il = g), so a
+// sum over i is a sum over the 8 lanes of one t (rs_lanes) and a sum over f
+// a sum over t and then over the four column warps.
+#include "mma_tf32.cuh"
 #include "pair_tile.cuh"
 #include "reduce.cuh"
 
 namespace geossl {
 
-constexpr int kWS = kF + 4;  // padded row stride of W1_s / W2_s
+#ifdef GEOSSL_PROBE_WARPS  // timing probe: 16 warps of 128 registers each
+constexpr int kWarps = GEOSSL_PROBE_WARPS;
+#else
+constexpr int kWarps = 8;  // warps of the main kernel (255 registers each)
+#endif
+constexpr int kBT = 32 * kWarps;
+constexpr int kRB = kWarps / 4;      // warp rows over a 64-row product (4 column quarters)
+constexpr int kMB = 4 / kRB;         // 16-row blocks of a warp in a 64-row product
+constexpr int kGP = 64;              // G padded: rows of W1_s, columns of rbf_s
+constexpr int kRS = kF + 8;          // row stride of the 8-row tiles (bank spread)
+constexpr int kTR = kTile * kRS;     // floats of one 8-row tile
+constexpr int kOccThreads = 256;
+
+// shared memory of the main kernel, in floats
+constexpr int kOffW1 = 0;                         // [kGP][kF] swizzled
+constexpr int kOffW2 = kOffW1 + kGP * kF;         // [kF][kF] swizzled
+constexpr int kOffRbf = kOffW2 + kF * kF;         // [kPairs][kGP] swizzled
+constexpr int kOffS = kOffRbf + kPairs * kGP;     // [kPairs][kF] swizzled: s, then dh
+constexpr int kOffQe = kOffS + kPairs * kF;       // [kPairs][kF] swizzled: qe
+constexpr int kOffX = kOffQe + kPairs * kF;       // [8][kRS] x rows of the item
+constexpr int kOffGj = kOffX + kTR;               // [8][kRS] SYM: g rows of the item
+constexpr int kOffDx = kOffGj + kTR;              // [8][kRS] the item's dx rows
+constexpr int kOffMir = kOffDx + kTR;             // [8][kRS] SYM: the tile's i-indexed dx
+constexpr int kOffG = kOffMir + kTR;              // [2][8][kRS] g rows of the i tile
+constexpr int kOffXi = kOffG + 2 * kTR;           // [2][8][kRS] SYM: x rows of the i tile
+constexpr int kOffD = kOffXi + 2 * kTR;           // [2][64] dist, [il][jl]
+constexpr int kOffE = kOffD + 2 * kPairs;         // [2][64] env, [il][jl]
+constexpr int kOffB1 = kOffE + 2 * kPairs;        // [kF]
+constexpr int kOffB2 = kOffB1 + kF;               // [kF]
+constexpr int kOffDen = kOffB2 + kF;              // [4][64] denv partials
+constexpr int kOffDd = kOffDen + 4 * kPairs;      // [4][64] ddist partials
+constexpr int kSmemFloats = kOffDd + 4 * kPairs;  // then ints: misc[4], tile list [nti]
 
 // Floats of one block's partial weight gradients: [dW1 G*F][db1 F][dW2 F*F][db2 F]
 __host__ __device__ inline int wgrad_size(int G) { return G * kF + kF + kF * kF + kF; }
 
+// Sum over the 8 lanes of equal t (lane bits 2-4) of v[16*mb + 8*h + 2*nb + c]
+// (mb < MB, h < 2, nb < 4, c < 2), left in v[0 .. 2*MB) of lane (g, t):
+// v[i] is the sum of entry g * 2*MB + i.
+template <int HALF, int M>
+__device__ __forceinline__ void rs_step(float* v) {
+  const bool up = threadIdx.x & M;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = up ? v[i] : v[i + HALF], keep = up ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+  }
+}
+template <int MB>
+__device__ __forceinline__ void rs_lanes(float v[16 * MB]) {
+  rs_step<8 * MB, 16>(v);
+  rs_step<4 * MB, 8>(v);
+  rs_step<2 * MB, 4>(v);
+}
+
+// ssp(v) = softplus(v) - log 2 with the fast exp/log intrinsics: its
+// absolute error is a few 1e-8, f32 rounding at the scale of ssp.
+__device__ __forceinline__ float ssp_fast(float v) {
+  return fmaxf(v, 0.f) + __logf(1.f + __expf(-fabsf(v))) - 0.693147180559945309f;
+}
+
+// Sum over the 4 lanes of equal g (t = lane bits 0-1); every lane gets it.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Occupancy pass: block (pi, b) marks the computed tiles of its 8-row band,
+// counts them per item and writes ddist = denv = 0 on the others.
 template <bool SYM>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kOccThreads)
+cfconv_bwd_occ_kernel(const float* __restrict__ env, int* __restrict__ occ,
+                      int* __restrict__ cnt, float* __restrict__ ddist,
+                      float* __restrict__ denv, int ni, int nj, int sparse) {
+  extern __shared__ int flag_s[];  // [ntj]
+  const int tid = threadIdx.x, pi = blockIdx.x, b = blockIdx.y;
+  const int ntj = (nj + kTile - 1) / kTile, nti = (ni + kTile - 1) / kTile;
+  const int i0 = pi * kTile, rows = min(kTile, ni - i0);
+  const size_t base = ((size_t)b * ni + i0) * nj;
+  for (int t = tid; t < ntj; t += kOccThreads) flag_s[t] = !sparse;
+  __syncthreads();
+  if (sparse) {
+    const int js = SYM ? i0 : 0, w = nj - js;  // SYM: tiles left of the diagonal are skipped
+    for (int idx = tid; idx < rows * w; idx += kOccThreads) {
+      const int r = idx / w, j = js + idx - r * w;
+      if (env[base + (size_t)r * nj + j] != 0.f) flag_s[j / kTile] = 1;
+    }
+    __syncthreads();
+  }
+  for (int pj = tid; pj < ntj; pj += kOccThreads) {
+    const int on = (!SYM || pi <= pj) && flag_s[pj];
+    occ[((size_t)b * ntj + pj) * nti + pi] = on;
+    if (on) atomicAdd(&cnt[b * ntj + pj], 1);
+    flag_s[pj] = on;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < rows * nj; idx += kOccThreads) {
+    const int r = idx / nj, j = idx - r * nj;
+    if (!flag_s[j / kTile]) {
+      ddist[base + (size_t)r * nj + j] = 0.f;
+      denv[base + (size_t)r * nj + j] = 0.f;
+    }
+  }
+}
+
+// Exclusive prefix sums of the n item counts: pre[0..n], pre[n] the total.
+__global__ void __launch_bounds__(1024)
+cfconv_bwd_scan_kernel(const int* __restrict__ cnt, int* __restrict__ pre, int n) {
+  __shared__ int part_s[1024];
+  const int tid = threadIdx.x, per = (n + 1023) / 1024;
+  const int lo = min(n, tid * per), hi = min(n, lo + per);
+  int s = 0;
+  for (int i = lo; i < hi; ++i) s += cnt[i];
+  part_s[tid] = s;
+  __syncthreads();
+  for (int off = 1; off < 1024; off <<= 1) {
+    const int v = tid >= off ? part_s[tid - off] : 0;
+    __syncthreads();
+    part_s[tid] += v;
+    __syncthreads();
+  }
+  int run = part_s[tid] - s;
+  for (int i = lo; i < hi; ++i) {
+    pre[i] = run;
+    run += cnt[i];
+  }
+  if (tid == 1023) pre[n] = part_s[1023];
+}
+
+// First item whose block, by work, is >= k: item i goes to block
+// min(nb - 1, (pre[i] + pre[i+1]) * nb / (2 total)), the block holding the
+// middle of its work.
+__device__ int first_item(const int* __restrict__ pre, int n, int nb, int k) {
+  const long long t2 = 2LL * max(pre[n], 1);
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const long long key = min((long long)nb - 1,
+                              (long long)(pre[mid] + pre[mid + 1]) * nb / t2);
+    if (key >= k)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+template <bool SYM>
+__global__ void __launch_bounds__(kBT, 1)
 cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
                   const float* __restrict__ x, const float* __restrict__ gr,
                   const float* __restrict__ w1, const float* __restrict__ b1,
                   const float* __restrict__ w2, const float* __restrict__ b2,
+                  const int* __restrict__ occ, const int* __restrict__ pre,
                   float* __restrict__ ddist, float* __restrict__ denv,
                   float* __restrict__ dx, float* __restrict__ part, int B,
-                  int ni, int nj, int G, float start, float delta, float coeff,
-                  int sparse) {
+                  int ni, int nj, int G, float start, float delta, float coeff) {
   extern __shared__ float4 smem_v4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem_v4);
-  float* W1_s = smem;                   // [G][kWS]
-  float* W2_s = W1_s + G * kWS;         // [kF][kWS]
-  float* rbf_s = W2_s + kF * kWS;       // [G][kPairs]
-  float* s_s = rbf_s + G * kPairs;      // [kPairs][kF] hidden ssp(pre1)
-  float* sd_s = s_s + kPairs * kF;      // [kPairs][kF] ssp'(pre1), then dh
-  float* qe_s = sd_s + kPairs * kF;     // [kPairs][kF] env q
-  float* g_s = qe_s + kPairs * kF;      // [kTile][kF]  g rows of the i tile
-  float* x_s = g_s + kTile * kF;        // [kTile][kF]  x rows of the j tile
-  float* d_s = x_s + kTile * kF;        // [kPairs]
-  float* e_s = d_s + kPairs;            // [kPairs]
-  float* gj_s = e_s + kPairs;           // [kTile][kF]  SYM: g rows of the j tile
-  float* xi_s = gj_s + kTile * kF;      // [kTile][kF]  SYM: x rows of the i tile
-  float* mir_s = xi_s + kTile * kF;     // [kTile][kF]  SYM: i-indexed dx of the tile
-  int* occ_s = (int*)(SYM ? mir_s + kTile * kF : gj_s);  // [nti] occupancy
+  float* W1_s = smem + kOffW1;
+  float* W2_s = smem + kOffW2;
+  float* rbf_s = smem + kOffRbf;
+  float* s_s = smem + kOffS;
+  float* qe_s = smem + kOffQe;
+  float* x_s = smem + kOffX;
+  float* gj_s = smem + kOffGj;
+  float* dx_s = smem + kOffDx;
+  float* mir_s = smem + kOffMir;
+  float* b1_s = smem + kOffB1;
+  float* b2_s = smem + kOffB2;
+  float* den_p = smem + kOffDen;
+  float* dd_p = smem + kOffDd;
+  int* misc = reinterpret_cast<int*>(smem + kSmemFloats);  // [0] it0 [1] it1 [2] tiles
+  int* tl_s = misc + 4;                                    // the item's computed i tiles
 
-  const int tid = threadIdx.x;
-  const int fg = tid & (kFG - 1), hw = tid >> 4;
-  const int jl = tid >> 5, il0 = (hw & 1) * kPPT;  // this thread's j and first i
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // warp (wm, wn) owns rows 16*kMB*wm.. and columns 32*wn.. of the 64x128
+  // products: lane (g, t) holds pairs jl = 2*kMB*wm + 2*mb + h, il = g
+  const int wm = warp % kRB, wn = warp / kRB;
   const int ntj = (nj + kTile - 1) / kTile, nti = (ni + kTile - 1) / kTile;
+  const int n_items = B * ntj;
 
-  for (int idx = tid; idx < G * kF; idx += kThreads)
-    W1_s[(idx / kF) * kWS + idx % kF] = w1[idx];
-  for (int idx = tid; idx < kF * kF; idx += kThreads)
-    W2_s[(idx / kF) * kWS + idx % kF] = w2[idx];
+  for (int idx = tid; idx < kGP * kF; idx += kBT) {
+    const int r = idx / kF, c = idx % kF;
+    W1_s[swz_at(kF, r, c)] = r < G ? w1[idx] : 0.f;
+  }
+  for (int idx = tid; idx < kF * kF; idx += kBT)
+    W2_s[swz_at(kF, idx / kF, idx % kF)] = w2[idx];
+  for (int idx = tid; idx < kPairs * kGP; idx += kBT) rbf_s[idx] = 0.f;  // columns >= G stay 0
+  for (int idx = tid; idx < kTR; idx += kBT) mir_s[idx] = 0.f;
+  if (tid < kF) {
+    b1_s[tid] = b1[tid];
+    b2_s[tid] = b2[tid];
+  }
+  if (tid == 0) {
+    misc[0] = first_item(pre, n_items, gridDim.x, blockIdx.x);
+    misc[1] = first_item(pre, n_items, gridDim.x, blockIdx.x + 1);
+  }
+  __syncthreads();
+  const int it0 = misc[0], it1 = misc[1];
 
-  // this block's share of the weight gradients, over all its items
-  float gw2[kFPT][kFPT];  // dW2[feat(hw, a)][feat(fg, k)]
-  float gw1[4][kFPT];     // dW1[hw + 16 m][feat(fg, k)]   (G <= 64)
-  float gb1[kFPT];        // db1[fg + 16 k], summed over hw below
-  float gb2[kFPT];        // db2[feat(fg, k)], summed over hw below
+  // this block's share of the weight gradients, over all its tiles:
+  // dW2 rows 32*kMB*wm.., dW1 rows 16*kMB*wm..; columns 32*wn.. of both
+  float aw2[2 * kMB][4][4], aw1[kMB][4][4];
+  float db1a[2 * kMB], db2a[2 * kMB];
 #pragma unroll
-  for (int a = 0; a < kFPT; ++a) {
-    gb1[a] = 0.f;
-    gb2[a] = 0.f;
+  for (int i = 0; i < 2 * kMB; ++i) {
+    db1a[i] = db2a[i] = 0.f;
 #pragma unroll
-    for (int k = 0; k < kFPT; ++k) gw2[a][k] = 0.f;
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) aw2[i][nb][q] = 0.f;
   }
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
+  for (int mb = 0; mb < kMB; ++mb)
 #pragma unroll
-    for (int k = 0; k < kFPT; ++k) gw1[m][k] = 0.f;
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) aw1[mb][nb][q] = 0.f;
 
-  for (int item = blockIdx.x; item < B * ntj; item += gridDim.x) {
-    // SYM: by descending pj (item length pj + 1), graphs interleaved
-    const int b = SYM ? item % B : item / ntj;
-    const int pj = SYM ? ntj - 1 - item / B : item % ntj;
-    const int j0 = pj * kTile;
-    // SYM: i tiles 0..pj are computed; rows from i_end on lie below the band
+  for (int item = it0; item < it1; ++item) {
+    const int b = item / ntj, pj = item - b * ntj, j0 = pj * kTile;
     const int n_it = SYM ? pj + 1 : nti;
-    const int i_end = min(ni, n_it * kTile);
-    const float* dist_b = dist + (size_t)b * ni * nj;
-    const float* env_b = env + (size_t)b * ni * nj;
-    const float* g_b = gr + (size_t)b * ni * kF;
-    float* ddist_b = ddist + (size_t)b * ni * nj;
-    float* denv_b = denv + (size_t)b * ni * nj;
+    __syncthreads();  // the previous item is done with tl_s, x_s, gj_s and dx_s
+    if (warp == 0) {  // the item's computed i tiles, in order
+      const int* row = occ + (size_t)item * nti;
+      int n = 0;
+      for (int base = 0; base < n_it; base += 32) {
+        const bool on = base + lane < n_it && row[base + lane];
+        const unsigned m = __ballot_sync(0xffffffffu, on);
+        if (on) tl_s[n + __popc(m & ((1u << lane) - 1u))] = base + lane;
+        n += __popc(m);
+      }
+      if (lane == 0) misc[2] = n;
+    }
+    for (int idx = tid; idx < kTile * kF; idx += kBT) {
+      const int r = idx / kF, f = idx % kF, j = j0 + r;
+      x_s[r * kRS + f] = j < nj ? x[((size_t)b * nj + j) * kF + f] : 0.f;
+      if (SYM) gj_s[r * kRS + f] = j < nj ? gr[((size_t)b * ni + j) * kF + f] : 0.f;
+      dx_s[r * kRS + f] = 0.f;
+    }
+    __syncthreads();
+    const int n_t = misc[2];
 
-    if (SYM) {  // the skipped tiles below the band hold zero
-      for (int idx = tid; idx < (ni - i_end) * kTile; idx += kThreads) {
-        const int i = i_end + idx / kTile, j = j0 + idx % kTile;
-        if (j < nj) {
-          ddist_b[(size_t)i * nj + j] = 0.f;
-          denv_b[(size_t)i * nj + j] = 0.f;
+    // issues the cp.async loads of tile pi into buffer buf: dist/env, then
+    // the g rows and, SYM, the x rows of the i tile in 16-byte pieces
+    auto load_tile = [&](int pi, int buf) {
+      const int i0 = pi * kTile;
+      if (tid < 2 * kPairs) {
+        const int p = tid & (kPairs - 1), i = i0 + (p >> 3), j = j0 + (p & 7);
+        const bool in = i < ni && j < nj;
+        const float* src = tid < kPairs ? dist : env;
+        cp_async4(smem + (tid < kPairs ? kOffD : kOffE) + buf * kPairs + p,
+                  src + (in ? ((size_t)b * ni + i) * nj + j : 0), in);
+      }
+      for (int c = tid; c < (SYM ? 2 : 1) * kTile * kF / 4; c += kBT) {
+        const bool xrow = c >= kTile * kF / 4;
+        const int cc = c & (kTile * kF / 4 - 1), r = cc >> 5, f = (cc & 31) * 4, i = i0 + r;
+        const float* src = xrow ? x + (i < ni ? ((size_t)b * nj + i) * kF + f : 0)
+                                : gr + (i < ni ? ((size_t)b * ni + i) * kF + f : 0);
+        cp_async16(smem + (xrow ? kOffXi : kOffG) + buf * kTR + r * kRS + f, src, i < ni);
+      }
+      cp_async_commit();
+    };
+
+    if (n_t > 0) load_tile(tl_s[0], 0);
+    for (int k = 0; k < n_t; ++k) {
+      const int pi = tl_s[k], buf = k & 1, i0 = pi * kTile;
+      if (k + 1 < n_t) {
+        load_tile(tl_s[k + 1], buf ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // tile k's rows have landed
+      const float* d_t = smem + kOffD + buf * kPairs;
+      const float* e_t = smem + kOffE + buf * kPairs;
+      const float* g_t = smem + kOffG + buf * kTR;
+      const float* xi_t = smem + kOffXi + buf * kTR;
+      const bool mirror = SYM && pi != pj;  // block-uniform
+      float* ddist_b = ddist + (size_t)b * ni * nj;
+      float* denv_b = denv + (size_t)b * ni * nj;
+
+      // RBF of the tile's 64 pairs (row p = jl*8 + il)
+      for (int idx = tid; idx < kPairs * kGP; idx += kBT) {
+        const int p = idx / kGP, gg = idx % kGP;
+        if (gg < G) {
+          const float diff = d_t[(p & 7) * kTile + (p >> 3)] - (start + delta * (float)gg);
+          rbf_s[swz_at(kGP, p, gg)] = __expf(coeff * diff * diff);
         }
       }
-    }
-    __syncthreads();  // the previous item is done with x_s, gj_s and occ_s
-    for (int idx = tid; idx < kTile * kF; idx += kThreads) {
-      const int j = j0 + idx / kF;
-      x_s[idx] = j < nj ? x[((size_t)b * nj + j) * kF + idx % kF] : 0.f;
-      if (SYM) gj_s[idx] = j < nj ? g_b[(size_t)j * kF + idx % kF] : 0.f;
-    }
-    if (sparse) {
-      for (int t = tid; t < n_it; t += kThreads) occ_s[t] = 0;
       __syncthreads();
-      for (int idx = tid; idx < i_end * kTile; idx += kThreads) {
-        const int i = idx / kTile, j = j0 + idx % kTile;
-        if (j < nj && env_b[(size_t)i * nj + j] != 0.f) occ_s[i / kTile] = 1;
-      }
-      __syncthreads();
-    }
 
-    float dxa[kFPT];
+      // hidden s = ssp(rbf W1 + b1) into s_s
+      float acc[kMB][4][4];
 #pragma unroll
-    for (int k = 0; k < kFPT; ++k) dxa[k] = 0.f;
-    bool any_tile = false;  // block-uniform: a tile of this item was computed
-
-    for (int pi = 0; pi < n_it; ++pi) {
-      const int i0 = pi * kTile;
-      if (sparse && !occ_s[pi]) {  // block-uniform
-        if (tid < kPairs) {
-          const int i = i0 + (tid & 7), j = j0 + (tid >> 3);
-          if (i < ni && j < nj) {
-            ddist_b[(size_t)i * nj + j] = 0.f;
-            denv_b[(size_t)i * nj + j] = 0.f;
+      for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mb][nb][q] = 0.f;
+      if (G <= 56)
+        warp_tile_mma<kMB, 4, 56, false, false>(acc, rbf_s, kGP, 16 * kMB * wm, W1_s, kF, 32 * wn);
+      else
+        warp_tile_mma<kMB, 4, kGP, false, false>(acc, rbf_s, kGP, 16 * kMB * wm, W1_s, kF, 32 * wn);
+#pragma unroll
+      for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) {
+          const int c0 = 32 * wn + 8 * nb + 2 * t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float* a = acc[mb][nb] + 2 * h;
+            store2(s_s, kF, 16 * (kMB * wm + mb) + g + 8 * h, c0, ssp_fast(a[0] + b1_s[c0]),
+                   ssp_fast(a[1] + b1_s[c0 + 1]));
+            a[0] = a[1] = 0.f;
           }
         }
-        continue;
+      __syncthreads();
+
+      // the filter w = s W2 + b2, in registers
+      warp_tile_mma<kMB, 4, kF, false, false>(acc, s_s, kF, 16 * kMB * wm, W2_s, kF, 32 * wn);
+#pragma unroll
+      for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) {
+          const int c0 = 32 * wn + 8 * nb + 2 * t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            acc[mb][nb][2 * h] += b2_s[c0];
+            acc[mb][nb][2 * h + 1] += b2_s[c0 + 1];
+          }
+        }
+
+      // qe = env q into qe_s, denv partials, db2
+      {
+        float v[16 * kMB];
+#pragma unroll
+        for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int jl = 2 * (kMB * wm + mb) + h, row = 8 * jl + g;
+            const float e = e_t[g * kTile + jl];
+            float den = 0.f;
+#pragma unroll
+            for (int nb = 0; nb < 4; ++nb) {
+              const int c0 = 32 * wn + 8 * nb + 2 * t;
+              const float2 xj = *reinterpret_cast<const float2*>(x_s + jl * kRS + c0);
+              const float2 gi = *reinterpret_cast<const float2*>(g_t + g * kRS + c0);
+              float q0 = gi.x * xj.x, q1 = gi.y * xj.y;
+              if (mirror) {  // the mirror cell (j, i): q += x_i g_j
+                const float2 xi = *reinterpret_cast<const float2*>(xi_t + g * kRS + c0);
+                const float2 gj = *reinterpret_cast<const float2*>(gj_s + jl * kRS + c0);
+                q0 = fmaf(xi.x, gj.x, q0);
+                q1 = fmaf(xi.y, gj.y, q1);
+              }
+              den = fmaf(acc[mb][nb][2 * h], q0, fmaf(acc[mb][nb][2 * h + 1], q1, den));
+              v[16 * mb + 8 * h + 2 * nb] = e * q0;
+              v[16 * mb + 8 * h + 2 * nb + 1] = e * q1;
+              store2(qe_s, kF, row, c0, e * q0, e * q1);
+            }
+            den = quad_sum(den);
+            if (t == 0) den_p[wn * kPairs + row] = den;
+          }
+        rs_lanes<kMB>(v);
+#pragma unroll
+        for (int i = 0; i < 2 * kMB; ++i) db2a[i] += v[i];
       }
-      any_tile = true;
-      const bool mirror = SYM && pi != pj;  // block-uniform
-      __syncthreads();  // the previous tile is done with the tile scratch
+
+      // dx: the j rows' part (sum over i) into dx_s, SYM the mirrors' into mir_s
+      {
+        float v[16 * kMB], mv[4][2];
+#pragma unroll
+        for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int jl = 2 * (kMB * wm + mb) + h;
+            const float e = e_t[g * kTile + jl];
+#pragma unroll
+            for (int nb = 0; nb < 4; ++nb) {
+              const int c0 = 32 * wn + 8 * nb + 2 * t;
+              const float ew0 = e * acc[mb][nb][2 * h], ew1 = e * acc[mb][nb][2 * h + 1];
+              const float2 gi = *reinterpret_cast<const float2*>(g_t + g * kRS + c0);
+              v[16 * mb + 8 * h + 2 * nb] = ew0 * gi.x;
+              v[16 * mb + 8 * h + 2 * nb + 1] = ew1 * gi.y;
+              if (mirror) {
+                const float2 gj = *reinterpret_cast<const float2*>(gj_s + jl * kRS + c0);
+                const bool first = mb == 0 && h == 0;
+                mv[nb][0] = first ? ew0 * gj.x : fmaf(ew0, gj.x, mv[nb][0]);
+                mv[nb][1] = first ? ew1 * gj.y : fmaf(ew1, gj.y, mv[nb][1]);
+              }
+            }
+          }
+        rs_lanes<kMB>(v);
+#pragma unroll
+        for (int i = 0; i < 2 * kMB; i += 2) {  // entry g*2*kMB + i: c = 0, 1
+          const int e = g * 2 * kMB + i, nb = (e >> 1) & 3;
+          float2* d2 = reinterpret_cast<float2*>(
+              dx_s + (2 * kMB * wm + (e >> 3)) * kRS + 32 * wn + 8 * nb + 2 * t);
+          d2->x += v[i];
+          d2->y += v[i + 1];
+        }
+        if (mirror) {
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) {
+            const int c0 = 32 * wn + 8 * nb + 2 * t;
+            atomicAdd(mir_s + g * kRS + c0, mv[nb][0]);
+            atomicAdd(mir_s + g * kRS + c0 + 1, mv[nb][1]);
+          }
+        }
+      }
+      __syncthreads();  // qe_s, den_p and mir_s complete
+
+      if (tid < kPairs) {  // denv of pair p = jl*8 + il, column warps summed in order
+        const int i = i0 + (tid & 7), j = j0 + (tid >> 3);
+        const float s = den_p[tid] + den_p[kPairs + tid] + den_p[2 * kPairs + tid] +
+                        den_p[3 * kPairs + tid];
+        if (i < ni && j < nj) denv_b[(size_t)i * nj + j] = s;
+      }
+      if (mirror) {  // the tile's i-indexed dx: rows owned by other items
+        for (int idx = tid; idx < kTile * kF; idx += kBT) {
+          const int r = idx / kF, f = idx % kF, i = i0 + r;
+          if (i < ni) atomicAdd(&dx[((size_t)b * nj + i) * kF + f], mir_s[r * kRS + f]);
+          mir_s[r * kRS + f] = 0.f;
+        }
+      }
+
+      // dW2 += s^T qe
+      warp_tile_mma<2 * kMB, 4, kPairs, true, false, true>(aw2, s_s, kF, 32 * kMB * wm, qe_s,
+                                                           kF, 32 * wn);
+
+      // dh = (qe W2^T) ssp'(pre1), db1; ssp'(pre1) = sigmoid(pre1) =
+      // 1 - exp(-softplus(pre1)) = 1 - exp(-s) / 2 from s = softplus - log 2,
+      // which this thread's own fragment positions of s_s still hold (its
+      // absolute error is f32 rounding of s, ~6e-8)
+#pragma unroll
+      for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mb][nb][q] = 0.f;
+      warp_tile_mma<kMB, 4, kF, false, true>(acc, qe_s, kF, 16 * kMB * wm, W2_s, kF, 32 * wn);
+      {
+        float v[16 * kMB];
+#pragma unroll
+        for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float2 sv =
+                  load2(s_s, kF, 16 * (kMB * wm + mb) + g + 8 * h, 32 * wn + 8 * nb + 2 * t);
+              float* a = acc[mb][nb] + 2 * h;
+              a[0] *= fmaf(-0.5f, __expf(-sv.x), 1.f);
+              a[1] *= fmaf(-0.5f, __expf(-sv.y), 1.f);
+              v[16 * mb + 8 * h + 2 * nb] = a[0];
+              v[16 * mb + 8 * h + 2 * nb + 1] = a[1];
+            }
+        rs_lanes<kMB>(v);
+#pragma unroll
+        for (int i = 0; i < 2 * kMB; ++i) db1a[i] += v[i];
+      }
+      __syncthreads();  // dW2 is done with s_s
+#pragma unroll
+      for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            store2(s_s, kF, 16 * (kMB * wm + mb) + g + 8 * h, 32 * wn + 8 * nb + 2 * t,
+                   acc[mb][nb][2 * h], acc[mb][nb][2 * h + 1]);
+      __syncthreads();  // dh complete in s_s
+
+      // ddist = sum_g (dh W1^T)[g] rbf_g 2 coeff (d - off_g), columns 16*wn..
+      {
+        float ar[kMB][2][4];
+#pragma unroll
+        for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) ar[mb][nb][q] = 0.f;
+        warp_tile_mma<kMB, 2, kF, false, true>(ar, s_s, kF, 16 * kMB * wm, W1_s, kF, 16 * wn);
+#pragma unroll
+        for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = 16 * (kMB * wm + mb) + g + 8 * h;
+            const float d = d_t[(p & 7) * kTile + (p >> 3)];
+            float s = 0.f;
+#pragma unroll
+            for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const int gg = 16 * wn + 8 * nb + 2 * t + c;
+                if (gg < G) {
+                  const float diff = d - (start + delta * (float)gg);
+                  s = fmaf(ar[mb][nb][2 * h + c] * rbf_s[swz_at(kGP, p, gg)], 2.f * coeff * diff,
+                           s);
+                }
+              }
+            s = quad_sum(s);
+            if (t == 0) dd_p[wn * kPairs + p] = s;
+          }
+      }
+
+      // dW1 += rbf^T dh
+      warp_tile_mma<kMB, 4, kPairs, true, false>(aw1, rbf_s, kGP, 16 * kMB * wm, s_s, kF, 32 * wn);
+      __syncthreads();  // the tile's scratch is free; dd_p complete
+
       if (tid < kPairs) {
         const int i = i0 + (tid & 7), j = j0 + (tid >> 3);
-        const bool in = i < ni && j < nj;
-        d_s[tid] = in ? dist_b[(size_t)i * nj + j] : 0.f;
-        e_s[tid] = in ? env_b[(size_t)i * nj + j] : 0.f;
-      }
-      for (int idx = tid; idx < kTile * kF; idx += kThreads) {
-        const int i = i0 + idx / kF;
-        g_s[idx] = i < ni ? g_b[(size_t)i * kF + idx % kF] : 0.f;
-        if (mirror) {
-          xi_s[idx] = i < ni ? x[((size_t)b * nj + i) * kF + idx % kF] : 0.f;
-          mir_s[idx] = 0.f;
-        }
-      }
-      __syncthreads();
-
-      // forward filter of the tile: w in registers, s and ssp' in shared memory
-      float w[kPPT][kFPT];
-      filter_tile<kWS, true>(d_s, rbf_s, s_s, W1_s, b1, W2_s, b2, G, start,
-                             delta, coeff, w, sd_s);
-
-      // denv, dx, qe, db2 (pairs jl*8 + il0 + q, features feat(fg, k))
-      {
-        float xv[kFPT], gjv[kFPT];
-        load_feats(x_s + jl * kF, fg, xv);
-        if (mirror) load_feats(gj_s + jl * kF, fg, gjv);
-        float den[kPPT];
-#pragma unroll
-        for (int q = 0; q < kPPT; ++q) {
-          const int p = jl * kTile + il0 + q;
-          const float e = e_s[p];
-          float gv[kFPT], qv[kFPT];
-          load_feats(g_s + (il0 + q) * kF, fg, gv);
-#pragma unroll
-          for (int k = 0; k < kFPT; ++k) qv[k] = gv[k] * xv[k];
-          if (mirror) {
-            // the mirror cell (j, i): q += x_i g_j, and dx[i] += env W g_j
-            float xiv[kFPT];
-            load_feats(xi_s + (il0 + q) * kF, fg, xiv);
-#pragma unroll
-            for (int k = 0; k < kFPT; ++k) {
-              qv[k] = fmaf(xiv[k], gjv[k], qv[k]);
-              atomicAdd(&mir_s[(il0 + q) * kF + feat(fg, k)], e * w[q][k] * gjv[k]);
-            }
-          }
-          float s = 0.f, qe[kFPT];
-#pragma unroll
-          for (int k = 0; k < kFPT; ++k) {
-            s = fmaf(w[q][k], qv[k], s);
-            qe[k] = e * qv[k];
-            dxa[k] = fmaf(e * w[q][k], gv[k], dxa[k]);
-            gb2[k] += qe[k];
-          }
-          st4(qe_s + p * kF + fg * 4, qe[0], qe[1], qe[2], qe[3]);
-          st4(qe_s + p * kF + kF / 2 + fg * 4, qe[4], qe[5], qe[6], qe[7]);
-          den[q] = half_warp_sum(s);
-        }
-        if (fg == 0) {
-#pragma unroll
-          for (int q = 0; q < kPPT; ++q) {
-            const int i = i0 + il0 + q, j = j0 + jl;
-            if (i < ni && j < nj) denv_b[(size_t)i * nj + j] = den[q];
-          }
-        }
-      }
-      __syncthreads();  // qe_s, s_s and mir_s complete
-
-      if (mirror) {  // the tile's i-indexed dx: rows owned by other items
-        for (int idx = tid; idx < kTile * kF; idx += kThreads) {
-          const int i = i0 + idx / kF;
-          if (i < ni) atomicAdd(&dx[((size_t)b * nj + i) * kF + idx % kF], mir_s[idx]);
-        }
-      }
-
-      // dW2 += s^T qe over the tile's 64 pairs
-      for (int p = 0; p < kPairs; ++p) {
-        float sv[kFPT], qv[kFPT];
-        load_feats(s_s + p * kF, hw, sv);
-        load_feats(qe_s + p * kF, fg, qv);
-#pragma unroll
-        for (int a = 0; a < kFPT; ++a)
-#pragma unroll
-          for (int k = 0; k < kFPT; ++k) gw2[a][k] = fmaf(sv[a], qv[k], gw2[a][k]);
-      }
-
-      // dh = (qe W2^T) ssp'(pre1), features c = fg + 16k, written over sd_s
-      {
-        float dh[kPPT][kFPT];
-#pragma unroll
-        for (int q = 0; q < kPPT; ++q)
-#pragma unroll
-          for (int k = 0; k < kFPT; ++k) dh[q][k] = 0.f;
-        for (int f0 = 0; f0 < kF; f0 += 4) {
-          float a[kPPT][4];
-#pragma unroll
-          for (int q = 0; q < kPPT; ++q) {
-            const float4 v = ld4(qe_s + (jl * kTile + il0 + q) * kF + f0);
-            a[q][0] = v.x; a[q][1] = v.y; a[q][2] = v.z; a[q][3] = v.w;
-          }
-#pragma unroll
-          for (int k = 0; k < kFPT; ++k) {
-            const float4 wv = ld4(W2_s + (fg + 16 * k) * kWS + f0);
-#pragma unroll
-            for (int q = 0; q < kPPT; ++q)
-              dh[q][k] = fmaf(a[q][0], wv.x, fmaf(a[q][1], wv.y,
-                         fmaf(a[q][2], wv.z, fmaf(a[q][3], wv.w, dh[q][k]))));
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < kPPT; ++q) {
-          float* row = sd_s + (jl * kTile + il0 + q) * kF;
-#pragma unroll
-          for (int k = 0; k < kFPT; ++k) {
-            const float v = dh[q][k] * row[fg + 16 * k];
-            row[fg + 16 * k] = v;  // each element is read and written by one thread
-            gb1[k] += v;
-          }
-        }
-      }
-      __syncthreads();  // dh complete
-
-      // ddist = sum_g (dh W1^T)[g] rbf_g 2 coeff (d - off_g), g = fg + 16m
-      {
-        float dr[kPPT][4];
-#pragma unroll
-        for (int q = 0; q < kPPT; ++q)
-#pragma unroll
-          for (int m = 0; m < 4; ++m) dr[q][m] = 0.f;
-        for (int c0 = 0; c0 < kF; c0 += 4) {
-          float a[kPPT][4];
-#pragma unroll
-          for (int q = 0; q < kPPT; ++q) {
-            const float4 v = ld4(sd_s + (jl * kTile + il0 + q) * kF + c0);
-            a[q][0] = v.x; a[q][1] = v.y; a[q][2] = v.z; a[q][3] = v.w;
-          }
-#pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            const float4 wv = ld4(W1_s + min(fg + 16 * m, G - 1) * kWS + c0);
-#pragma unroll
-            for (int q = 0; q < kPPT; ++q)
-              dr[q][m] = fmaf(a[q][0], wv.x, fmaf(a[q][1], wv.y,
-                         fmaf(a[q][2], wv.z, fmaf(a[q][3], wv.w, dr[q][m]))));
-          }
-        }
-        float dd[kPPT];
-#pragma unroll
-        for (int q = 0; q < kPPT; ++q) {
-          const float d = d_s[jl * kTile + il0 + q];
-          float s = 0.f;
-#pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            const int g = fg + 16 * m;
-            if (g < G) {
-              const float diff = d - (start + delta * (float)g);
-              s = fmaf(dr[q][m] * expf(coeff * diff * diff), 2.f * coeff * diff, s);
-            }
-          }
-          dd[q] = half_warp_sum(s);
-        }
-        if (fg == 0) {
-#pragma unroll
-          for (int q = 0; q < kPPT; ++q) {
-            const int i = i0 + il0 + q, j = j0 + jl;
-            if (i < ni && j < nj) ddist_b[(size_t)i * nj + j] = dd[q];
-          }
-        }
-      }
-
-      // dW1 += rbf^T dh, rows g = hw + 16m
-      for (int p0 = 0; p0 < kPairs; p0 += 4) {
-        float r[4][4];
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const float4 v = ld4(rbf_s + min(hw + 16 * m, G - 1) * kPairs + p0);
-          r[m][0] = v.x; r[m][1] = v.y; r[m][2] = v.z; r[m][3] = v.w;
-        }
-#pragma unroll
-        for (int pp = 0; pp < 4; ++pp) {
-          float hv[kFPT];
-          load_feats(sd_s + (p0 + pp) * kF, fg, hv);
-#pragma unroll
-          for (int m = 0; m < 4; ++m)
-#pragma unroll
-            for (int k = 0; k < kFPT; ++k) gw1[m][k] = fmaf(r[m][pp], hv[k], gw1[m][k]);
-        }
+        const float s = dd_p[tid] + dd_p[kPairs + tid] + dd_p[2 * kPairs + tid] +
+                        dd_p[3 * kPairs + tid];
+        if (i < ni && j < nj) ddist_b[(size_t)i * nj + j] = s;
       }
     }
 
-    // dx rows: the two half-warps hold i 0-3 and 4-7 of every tile
-    const int j = j0 + jl;
-#pragma unroll
-    for (int k = 0; k < kFPT; ++k) dxa[k] += __shfl_xor_sync(0xffffffffu, dxa[k], 16);
-    if ((tid & 16) == 0 && j < nj) {
-      float* dx_j = dx + ((size_t)b * nj + j) * kF;
-      if (!SYM) {
-#pragma unroll
-        for (int k = 0; k < kFPT; ++k) dx_j[feat(fg, k)] = dxa[k];
-      } else if (any_tile) {
-#pragma unroll
-        for (int k = 0; k < kFPT; ++k) atomicAdd(&dx_j[feat(fg, k)], dxa[k]);
-      }
+    // the item's dx rows (j-indexed part); dx_s is complete after the last
+    // tile's final barrier
+    for (int idx = tid; idx < kTile * kF; idx += kBT) {
+      const int r = idx / kF, f = idx % kF, j = j0 + r;
+      if (j >= nj) continue;
+      float* dst = dx + ((size_t)b * nj + j) * kF + f;
+      if (!SYM)
+        *dst = dx_s[r * kRS + f];
+      else if (n_t > 0)
+        atomicAdd(dst, dx_s[r * kRS + f]);
     }
   }
 
@@ -390,29 +621,41 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
   float* pw2 = pb1 + kF;
   float* pb2 = pw2 + kF * kF;
 #pragma unroll
-  for (int a = 0; a < kFPT; ++a)
+  for (int nb = 0; nb < 4; ++nb) {
+    const int c0 = 32 * wn + 8 * nb + 2 * t;
 #pragma unroll
-    for (int k = 0; k < kFPT; ++k) pw2[feat(hw, a) * kF + feat(fg, k)] = gw2[a][k];
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const int g = hw + 16 * m;
-    if (g < G) {
+      for (int mb = 0; mb < 2 * kMB; ++mb) {
+        const int r = 16 * (2 * kMB * wm + mb) + g + 8 * h;
+        pw2[r * kF + c0] = aw2[mb][nb][2 * h];
+        pw2[r * kF + c0 + 1] = aw2[mb][nb][2 * h + 1];
+      }
 #pragma unroll
-      for (int k = 0; k < kFPT; ++k) pw1[g * kF + feat(fg, k)] = gw1[m][k];
+      for (int mb = 0; mb < kMB; ++mb) {
+        const int r = 16 * (kMB * wm + mb) + g + 8 * h;
+        if (r < G) {
+          pw1[r * kF + c0] = aw1[mb][nb][2 * h];
+          pw1[r * kF + c0 + 1] = aw1[mb][nb][2 * h + 1];
+        }
+      }
     }
   }
-  // db1 and db2: sum the 16 half-warps' copies in a fixed order
+  // db1 and db2: lane (g, t) holds entry g*2*kMB + i of its warp's rows,
+  // summed over il; add the 8 jl rows in order
   __syncthreads();  // the tile scratch is free
-  float* red_s = s_s;  // [16][2 kF]
+  float* red_s = qe_s;  // [8 jl][2 kF]
 #pragma unroll
-  for (int k = 0; k < kFPT; ++k) {
-    red_s[hw * 2 * kF + fg + 16 * k] = gb1[k];
-    red_s[hw * 2 * kF + kF + feat(fg, k)] = gb2[k];
+  for (int i = 0; i < 2 * kMB; ++i) {
+    const int e = g * 2 * kMB + i, c = 32 * wn + 8 * ((e >> 1) & 3) + 2 * t + (e & 1);
+    const int r = (2 * kMB * wm + (e >> 3)) * 2 * kF;
+    red_s[r + c] = db1a[i];
+    red_s[r + kF + c] = db2a[i];
   }
   __syncthreads();
-  for (int c = tid; c < 2 * kF; c += kThreads) {
+  for (int c = tid; c < 2 * kF; c += kBT) {
     float s = 0.f;
-    for (int h = 0; h < 16; ++h) s += red_s[h * 2 * kF + c];
+    for (int r = 0; r < 8; ++r) s += red_s[r * 2 * kF + c];
     if (c < kF)
       pb1[c] = s;
     else
@@ -420,61 +663,75 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
   }
 }
 
-static size_t smem_bytes(int G, int ni, int symmetric) {
-  return sizeof(float) * ((size_t)G * kWS + kF * kWS + G * kPairs + 3 * kPairs * kF +
-                          (symmetric ? 5 : 2) * kTile * kF + 2 * kPairs) +
-         sizeof(int) * (size_t)((ni + kTile - 1) / kTile);
+static size_t smem_bytes(int ni) {
+  return sizeof(float) * (size_t)kSmemFloats + sizeof(int) * (4 + (size_t)((ni + kTile - 1) / kTile));
 }
 
 template <bool SYM>
 static cudaError_t launch(const float* dist, const float* env, const float* x,
                           const float* g, const float* w1, const float* b1,
                           const float* w2, const float* b2, float* ddist, float* denv,
-                          float* dx, float* part, int blocks, size_t smem, int B,
-                          int ni, int nj, int G, float start, float delta, float coeff,
+                          float* dx, float* part, int* ws, int blocks, int B, int ni,
+                          int nj, int G, float start, float delta, float coeff,
                           int sparse, cudaStream_t s) {
+  const int ntj = (nj + kTile - 1) / kTile, nti = (ni + kTile - 1) / kTile;
+  const int n_items = B * ntj;
+  int* occ = ws;
+  int* cnt = occ + (size_t)n_items * nti;
+  int* pre = cnt + n_items;
+  cudaError_t err = cudaMemsetAsync(cnt, 0, sizeof(int) * (size_t)n_items, s);
+  if (err != cudaSuccess) return err;
+  cfconv_bwd_occ_kernel<SYM><<<dim3(nti, B), kOccThreads, sizeof(int) * ntj, s>>>(
+      env, occ, cnt, ddist, denv, ni, nj, sparse);
+  cfconv_bwd_scan_kernel<<<1, 1024, 0, s>>>(cnt, pre, n_items);
+  const size_t smem = smem_bytes(ni);
   cudaFuncSetAttribute(cfconv_bwd_kernel<SYM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  cfconv_bwd_kernel<SYM><<<blocks, kThreads, smem, s>>>(dist, env, x, g, w1, b1, w2, b2,
-                                                        ddist, denv, dx, part, B, ni, nj,
-                                                        G, start, delta, coeff, sparse);
+  cfconv_bwd_kernel<SYM><<<blocks, kBT, smem, s>>>(dist, env, x, g, w1, b1, w2, b2, occ, pre,
+                                                   ddist, denv, dx, part, B, ni, nj, G, start,
+                                                   delta, coeff);
   return cudaGetLastError();
 }
 
 }  // namespace geossl
 
-extern "C" size_t cfconv_bwd_smem_bytes(int G, int ni, int symmetric) {
-  return geossl::smem_bytes(G, ni, symmetric);
-}
+extern "C" size_t cfconv_bwd_smem_bytes(int ni) { return geossl::smem_bytes(ni); }
 
 // Blocks of the persistent grid, i.e. rows of the partials buffer.
 extern "C" int cfconv_bwd_blocks(int B, int nj) {
   return geossl::persistent_blocks(B * ((nj + geossl::kTile - 1) / geossl::kTile));
 }
 
+// Ints of the workspace: tile flags [B*ntj*nti], item counts [B*ntj] and
+// their prefix sums [B*ntj + 1].
+extern "C" size_t cfconv_bwd_ws_ints(int B, int ni, int nj) {
+  const size_t items = (size_t)B * ((nj + geossl::kTile - 1) / geossl::kTile);
+  return items * ((ni + geossl::kTile - 1) / geossl::kTile) + 2 * items + 1;
+}
+
 // Returns the cudaError_t of the launches (0 on success). `part` holds
 // cfconv_bwd_blocks(B, nj) rows of G*F + F + F*F + F floats; `wgrad` (same
-// row size) receives dW1 [G,F], db1 [F], dW2 [F,F], db2 [F]. F must be 128
-// and G at most 64. With `symmetric` (square grid only) ddist/denv are
-// placed as the header says and `dx` must be zero on entry.
+// row size) receives dW1 [G,F], db1 [F], dW2 [F,F], db2 [F]; `ws` holds
+// cfconv_bwd_ws_ints(B, ni, nj) ints. F must be 128 and G at most 64. With
+// `symmetric` (square grid only) ddist/denv are placed as the header says
+// and `dx` must be zero on entry.
 extern "C" int cfconv_bwd(const float* dist, const float* env, const float* x,
                           const float* g, const float* w1, const float* b1,
                           const float* w2, const float* b2, float* ddist,
-                          float* denv, float* dx, float* part, float* wgrad,
+                          float* denv, float* dx, float* part, float* wgrad, int* ws,
                           int B, int ni, int nj, int F, int G, float start,
                           float delta, float coeff, int symmetric, int sparse,
                           void* stream) {
   using namespace geossl;
-  if (F != kF || G > 64 || G < 1 || (symmetric && ni != nj))
+  if (F != kF || G > kGP || G < 1 || (symmetric && ni != nj))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(G, ni, symmetric);
   const int blocks = cfconv_bwd_blocks(B, nj);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err =
-      symmetric ? launch<true>(dist, env, x, g, w1, b1, w2, b2, ddist, denv, dx, part,
-                               blocks, smem, B, ni, nj, G, start, delta, coeff, sparse, s)
-                : launch<false>(dist, env, x, g, w1, b1, w2, b2, ddist, denv, dx, part,
-                                blocks, smem, B, ni, nj, G, start, delta, coeff, sparse, s);
+      symmetric ? launch<true>(dist, env, x, g, w1, b1, w2, b2, ddist, denv, dx, part, ws,
+                               blocks, B, ni, nj, G, start, delta, coeff, sparse, s)
+                : launch<false>(dist, env, x, g, w1, b1, w2, b2, ddist, denv, dx, part, ws,
+                                blocks, B, ni, nj, G, start, delta, coeff, sparse, s);
   if (err != cudaSuccess) return (int)err;
   sum_partials(part, blocks, wgrad_size(G), wgrad, s);
   return (int)cudaGetLastError();

@@ -69,10 +69,19 @@ from geossl_tpu_torch.ops._launch import (
     refuse_second_order,
     stream,
 )
-from geossl_tpu_torch.ops.cfconv import KERNEL_F, sparse_auto, sym_profitable
+from geossl_tpu_torch.ops.cfconv import KERNEL_F, sparse_auto
 
 # Largest N the whole-stack kernel accepts (as painn_pallas.STACK_MAX_N).
 STACK_MAX_N = 128
+# PaiNN takes the symmetric kernel pair from this N up, as the JAX package's
+# painn_pallas.painn_sym_profitable (its TPU tiling's first skippable tile).
+_SYM_MIN_N = 256
+
+
+def sym_profitable(n: int) -> bool:
+    """True when ``painn_message(symmetric=True)`` takes the symmetric kernel
+    pair at pair-grid size ``n``."""
+    return n >= _SYM_MIN_N
 # The backward kernel keeps the R filter rows and the bias row in one
 # 32-row thread layout.
 MAX_R = 31

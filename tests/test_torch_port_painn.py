@@ -336,7 +336,7 @@ def test_reference_pth_round_trip(tmp_path):
 def test_dispatch_rules_and_guards():
     assert tpn.STACK_MAX_N == jpp.STACK_MAX_N
     for n in (32, 64, 128, 256, 512, 1024):
-        assert tcf.sym_profitable(n) == jpp.painn_sym_profitable(n), n
+        assert tpn.sym_profitable(n) == jpp.painn_sym_profitable(n), n
     args = _pair_case(3, 24, seed=8, dtype=np.float32)
     t = list(map(torch.from_numpy, args))
     want = tpn.painn_message_reference(*t, CUT)

@@ -77,7 +77,7 @@ def _fold(c, antisymmetric):
 
 def test_sym_forward_matches_pallas_interpret():
     _, _, args = _sym_case(256, seed=1)
-    assert tcf.sym_profitable(256)
+    assert tpn.sym_profitable(256)
     want = jpp.painn_message_fused_sym(*map(jnp.asarray, args), CUT)
     got = tpn.painn_message(*map(torch.from_numpy, args), CUT, symmetric=True)
     for g, w in zip(got, want):

@@ -122,8 +122,12 @@ def test_cfconv_wrappers_match_pallas_interpret(n, kernel):
 
 
 def test_dispatch_rules_match_jax():
+    # SchNet's symmetric route: the JAX package's from N=256 up; below it the
+    # port's own, set by measurement on the H100 (ops/cfconv.SCHNET_SYM_MIN_N)
     for n in (32, 64, 128, 256, 512, 1024):
-        assert tcf.sym_profitable(n) == jcf.sym_profitable(n), n
+        if jcf.sym_profitable(n):
+            assert tcf.sym_profitable(n), n
+        assert tcf.sym_profitable(n) == (n >= tcf.SCHNET_SYM_MIN_N), n
     assert tcf.STACK_MAX_N == jcf.STACK_MAX_N
     with pytest.raises(ValueError, match="no kernel"):
         tcf.cfconv_fused(*(torch.zeros(1, 8, 8, device="meta"),) * 2,
