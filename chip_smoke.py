@@ -1574,8 +1574,8 @@ def main():
         return dist, env, x, g, fw
 
     # the three training kernels at the DDM shape (B=128, N=128): the
-    # plain-mode CFConv backward on the clean graph (the shape of its PR 2-5
-    # measurements; the max_num_neighbors path launches it)
+    # plain-mode CFConv backward on the clean graph (the shape it has always
+    # been timed at; the max_num_neighbors path launches it)
     batch = train_batch(128)
     F_, E_, H_ = 128, 128, 64
     dist, env, x, g, fw = ddm_cases[128] = ddm_case(128)
