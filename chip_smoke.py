@@ -22,7 +22,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    terms that cancel; du and the head's weight gradients also see relu'
    flip where a pre-activation lies within rounding of zero). ``cfconv_bwd``'s
    denv is compared on occupied 8x8 tiles and must be zero on the others
-   (the occupancy contract of ``geossl_tpu/ops/pallas_utils.py``).
+   (the occupancy contract of ``geossl_tpu/ops/pallas_utils.py``);
+   ``cfconv_bwd`` runs on the ``max_neighbors=32`` graph of its path (env
+   truncated, not symmetric), at B=8 and at the DDM shape (B=128, N=128).
    ``cfconv_bwd_sym`` likewise on LBA complexes (N=256, N=512 and a pad
    of 260), ddist and denv by its placement contract: the plain version's
    true cotangents placed as ``ops/cfconv.place_sym_cotangent`` says (on
@@ -49,15 +51,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
       defaults: SchNet F=128, L=6, G=51, cutoff 10; batch 128, buckets
       32/64/128; NCSN sigma 10 -> 0.01 over 50 levels, anneal 2; GeoSSL
       sigma 0.3, masking 0.3; lr 5e-4) trains one epoch of a synthetic
-      Molecule3D store that fills the three buckets, through the CFConv
-      pair that SchNet's dispatcher picks per bucket (the symmetric pair
-      from ``ops/cfconv.SCHNET_SYM_MIN_N`` up). Every loss must be
+      Molecule3D store that fills the three buckets, through the
+      symmetric CFConv pair (SchNet's dispatcher takes it whenever
+      dist/env are symmetric). Every loss must be
       finite; ``model.pth`` must load into a ``Predictor`` that embeds
       finite values. The same driver with ``--max_num_neighbors 32`` (a
       graph that is not symmetric) trains a few steps through the
       plain-mode ``cfconv_fwd``/``cfconv_bwd``. Then one full-width step
-      per bucket with kernels is
-      held to the same step with the plain versions (the same injected
+      per bucket with kernels, and one ``max_neighbors=32`` step at N=128,
+      is held to the same step with the plain versions (the same injected
       noise; loss rtol 1e-4, all gradients together by relative norm 1e-3
       and each parameter's by 1e-2). A gradient must flow through the
       symmetric CFConv (``cfconv_bwd_sym``) and a second order through it
@@ -117,7 +119,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    times at the LBA shape (``painn_sym_vs_plain_kernels:``) and, for the
    CFConv, at the DDM buckets (B=128, N=32/64/128) and the LBA shape
    (``cfconv_sym_vs_plain_kernels:``, forward and backward of each pair:
-   the measurement SchNet's route follows); fine-tune
+   the measurement SchNet's route follows; ``routed`` is the pair the
+   dispatcher picks), after ``cfconv_fwd_sym`` and ``cfconv_bwd_sym`` are
+   held to their plain versions on those DDM inputs (tolerances as in 2,
+   gating off and on); fine-tune
    complexes/s (LEP: pairs/s) at N=512,
    one traced step and its top device kernels, for LBA and LEP;
    each kernel's time at the shape its path gives it, beside its plain
@@ -968,11 +973,17 @@ def main():
     # plain version may take different sides, is the same in every run.
     targs = PG.build_parser().parse_args([])
     ddm0 = PG.make_ddm(targs, cfg, torch.Generator().manual_seed(SEED)).to(dev)
+    # the same, seeded alike, on the max_neighbors=32 graph: the plain-mode
+    # CFConv pair's training path
+    ddm0_mn = PG.make_ddm(targs, cfg_mn,
+                          torch.Generator().manual_seed(SEED)).to(dev)
     gen_g = torch.Generator().manual_seed(SEED)
     with torch.no_grad():
         filt_g = model.interactions[0].filter_weights()
+    # the plain-mode backward on the graph of its path (max_neighbors=32:
+    # env truncated, not symmetric)
     for b, n in ((32, 32), (128, 128), (128, 100)):
-        _, dist, env, _, x = layer0_inputs(model, first(b, 8), n)
+        _, dist, env, _, x = layer0_inputs(model_mn, first(b, 8), n)
         dist, env, x = dist.clone(), env.clone(), x.clone()
         g = torch.randn(x.shape, generator=gen_g).to(dev)
         check_cfconv_bwd(errs, dist, env, x, g, filt_g, G, cutoff, f"B=8 N={n}")
@@ -1104,12 +1115,9 @@ def main():
     train_launches = launch_counts()
     print(f"main path (training): {len(losses)} steps of one epoch in "
           f"{time.time() - t0:.2f} s (first call); launches {train_launches}")
-    # SchNet's dispatcher routes each bucket (symmetric dist/env) to the
-    # symmetric or the plain pair by its own threshold
-    ddm_cf = {k for b in (32, 64, 128) for k in (
-        ("cfconv_fwd_sym", "cfconv_bwd_sym") if K.sym_profitable(b)
-        else ("cfconv_fwd", "cfconv_bwd"))}
-    for name in (*sorted(ddm_cf), "ncsn_score_fwd", "ncsn_score_bwd"):
+    # SchNet's dispatcher routes symmetric dist/env to the symmetric pair
+    for name in ("cfconv_fwd_sym", "cfconv_bwd_sym", "ncsn_score_fwd",
+                 "ncsn_score_bwd"):
         if train_launches[name] == 0:
             fail(f"kernel {name} was not launched on the training path")
     if not losses or not all(math.isfinite(v) for v in losses):
@@ -1158,6 +1166,8 @@ def main():
 
     for b in train_buckets:
         step_parity(ddm0, train_batch(b), targs, b)
+    step_parity(ddm0_mn, train_batch(128), targs, 128,
+                "SchNet max_neighbors=32")
     # the symmetric CFConv is differentiable on the card: a gradient flows
     # through cfconv_bwd_sym to x and the filter weights; a second order
     # raises
@@ -1555,32 +1565,33 @@ def main():
     measure_finetune(lep_net, lep_args, lep_batch, FE.loss_fn, "lep",
                      int(lep_batch.active.graph_mask.sum()))
 
-    ddm_cases = {}
-
-    def ddm_case(b):
+    def ddm_case(b, ddm=ddm0):
         """Block 0's CFConv inputs on the DDM batch of bucket b (B=128, the
-        clean graph of view 1, the freshly seeded DDM model) and a seeded
+        clean graph of view 1, a freshly seeded DDM model: ``ddm0``'s graph
+        is symmetric, ``ddm0_mn``'s truncated to 32 neighbours) and a seeded
         cotangent."""
         batch = train_batch(b)
         with torch.no_grad():
-            dist, adj = ddm0.model.geometry(batch.positions, batch.node_mask)
+            dist, adj = ddm.model.geometry(batch.positions, batch.node_mask)
             dist = dist.contiguous()
             env = (cosine_envelope(dist, cutoff) * adj.float()).contiguous()
-            blk = ddm0.model.interactions[0]
-            x = blk.conv.lin1(ddm0.model.embedding(batch.atom_type)).contiguous()
+            blk = ddm.model.interactions[0]
+            x = blk.conv.lin1(ddm.model.embedding(batch.atom_type)).contiguous()
             fw = blk.filter_weights()
         g = torch.randn(x.shape, device=dev,
                         generator=torch.Generator(dev).manual_seed(SEED))
         return dist, env, x, g, fw
 
     # the three training kernels at the DDM shape (B=128, N=128): the
-    # plain-mode CFConv backward on the clean graph (the shape it has always
-    # been timed at; the max_num_neighbors path launches it)
+    # plain-mode CFConv backward on the graph of its path, the clean graph
+    # truncated to 32 neighbours (the max_num_neighbors run launches it)
     batch = train_batch(128)
     F_, E_, H_ = 128, 128, 64
-    dist, env, x, g, fw = ddm_cases[128] = ddm_case(128)
-    check_cfconv_bwd(errs, dist, env, x, g, fw, G, cutoff, "DDM B=128 N=128",
-                     chunk=4)
+    dist, env, x, g, fw = ddm_case(128, ddm0_mn)
+    if torch.equal(env, env.transpose(1, 2)):
+        fail("cfconv_bwd: the max_neighbors=32 graph came out symmetric")
+    check_cfconv_bwd(errs, dist, env, x, g, fw, G, cutoff,
+                     "DDM max_neighbors=32 B=128 N=128", chunk=4)
     ms = cuda_time_ms(lambda: K.cfconv_bwd(dist, env, x, g, *fw, 0.0, cutoff,
                                            G, True))
     plain_ms = cuda_time_ms(lambda: chunked_sum(
@@ -1634,14 +1645,34 @@ def main():
                     "geossl_tpu/ops/cfconv_pallas.py:464", ms, plain_ms, flops,
                     nbytes, lba_launches["cfconv_bwd_sym"]))
 
+    def routed(d_, e_, x_, fw_):
+        """The pair SchNet's dispatcher picks for symmetric dist/env."""
+        reset_launch_counts()
+        with torch.no_grad():
+            K.cfconv(d_, e_, x_, *fw_, 0.0, cutoff, G, symmetric=True)
+        return "symmetric" if launch_counts()["cfconv_fwd_sym"] else "plain"
+
     # the symmetric pair against the plain pair, forward and backward, at the
     # DDM buckets (B=128) and the LBA shape (B=64, N=512): the measurement
-    # that SchNet's route (ops/cfconv.SCHNET_SYM_MIN_N) follows
-    ddm_cases[512] = (dist, env, x, g, fw)
+    # that SchNet's route (symmetric at every N) follows. On the DDM inputs,
+    # the path the symmetric pair trains on, both symmetric kernels are held
+    # to their plain versions first (the LBA inputs are held above)
+    lba_case = (dist, env, x, g, fw)
     sym_vs = {}
     for n in (*train_buckets, 512):
-        d_, e_, x_, g_, fw_ = ddm_cases.get(n) or ddm_case(n)
+        d_, e_, x_, g_, fw_ = lba_case if n == 512 else ddm_case(n)
         a_ = (*fw_, 0.0, cutoff, G, True)
+        if n in train_buckets:
+            what = f"DDM B={d_.shape[0]} N={n}"
+            with torch.no_grad():
+                want = chunked(K.cfconv_fused_reference, (d_, e_, x_),
+                               (*fw_, 0.0, cutoff, G), 16)
+                for sp in (False, True):
+                    errs.check("cfconv_fwd_sym", K.cfconv_fused_sym(
+                        d_, e_, x_, *fw_, 0.0, cutoff, G, sp), want,
+                        f"{what} sparse={sp}")
+            check_cfconv_bwd_sym(errs, d_, e_, x_, g_, fw_, G, cutoff, what,
+                                 chunk=16)
         with torch.no_grad():
             r = {"cfconv_fwd": cuda_time_ms(lambda: K.cfconv_fused(d_, e_, x_, *a_)),
                  "cfconv_fwd_sym": cuda_time_ms(
@@ -1654,7 +1685,7 @@ def main():
         sym_vs[f"{'LBA' if n == 512 else 'DDM'} B={d_.shape[0]} N={n}"] = {
             "ms": r, "plain_pair_ms": plain_pair, "sym_pair_ms": sym_pair,
             "faster": "symmetric" if sym_pair < plain_pair else "plain",
-            "routed": "symmetric" if K.sym_profitable(n) else "plain"}
+            "routed": routed(d_, e_, x_, fw_)}
     print("cfconv_sym_vs_plain_kernels: " + json.dumps(sym_vs))
 
     grid, weights, anneal = ncsn_inputs(ddm0, batch, targs, SEED)

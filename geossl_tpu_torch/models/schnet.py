@@ -16,8 +16,8 @@ the JAX package's reconstruction (``dipole_readout``).
 ``SchNet.forward`` is the training path: each block's CFConv goes through
 ``ops/cfconv.cfconv``, differentiable on the card at every N (with
 symmetric dist/env, i.e. without ``max_neighbors``, the symmetric modes
-``cfconv_fwd_sym``/``cfconv_bwd_sym`` from ``SCHNET_SYM_MIN_N`` = 32 up,
-else the ``cfconv_fwd``/``cfconv_bwd`` kernels);
+``cfconv_fwd_sym``/``cfconv_bwd_sym`` at every N, else the
+``cfconv_fwd``/``cfconv_bwd`` kernels);
 ``fused_stack_apply`` is inference only.
 """
 

@@ -82,32 +82,6 @@ def build_all() -> dict:
     return reports
 
 
-def build_variant(name: str, defines) -> str:
-    """Compile source ``name`` with extra ``-D`` ``defines`` into a library
-    of its own under ``_build/`` and return its path. For timing probes
-    (``utils/probe_cfconv_bwd.py``): a variant with part of the kernel's
-    work switched off is timed, never used."""
-    nvcc = _nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tag = "-".join(d.lower() for d in defines) or "base"
-    out = os.path.join(BUILD_DIR, f"{name}-{tag}-{_digest()}.so")
-    if not os.path.exists(out):
-        cmd = [nvcc, *FLAGS, *(f"-D{d}" for d in defines), "-o", out,
-               os.path.join(CSRC, name + ".cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name} {defines}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-    return out
-
-
-def use_library(lib: str, path: str) -> None:
-    """Make the wrappers of library ``lib`` launch from ``path`` (a
-    :func:`build_variant` build) until it is called again."""
-    with _lock:
-        _libs[lib] = ctypes.CDLL(path)
-
-
 def build_log(name: str) -> str:
     """The compiler output kept beside library ``name`` when it was built
     (ptxas's register and spill report); empty if none was kept."""

@@ -30,9 +30,9 @@ The forward kernels compute in plain f32 on the CUDA cores; the backward
 kernel runs its tile products on the tensor cores in 3xTF32
 (``csrc/mma_tf32.cuh``), within f32 rounding of the plain version.
 ``plain_precision()`` makes the plain versions' PyTorch matmuls full f32.
-SchNet's dispatcher takes the symmetric pair from ``SCHNET_SYM_MIN_N`` up,
-by the card's measurement; PaiNN keeps the JAX package's rule
-(``ops/painn.sym_profitable``).
+SchNet's dispatcher takes the symmetric pair whenever dist/env are
+symmetric, at every N (the card's measurement); PaiNN keeps the JAX
+package's rule (``ops/painn.sym_profitable``).
 """
 
 from __future__ import annotations
@@ -60,13 +60,6 @@ STACK_MAX_N = 128
 KERNEL_F = 128
 # Side of the kernels' square pair tiles.
 KERNEL_TILE = 8
-# SchNet takes the symmetric kernel pair from this N up. The JAX package's
-# TPU tiling first has a tile to skip at N=256 (cfconv_pallas.sym_profitable);
-# on the H100 the symmetric pair (forward + backward) is faster than the
-# plain pair at every DDM bucket from N=32 (chip_smoke.py's
-# `cfconv_sym_vs_plain_kernels:` line, PERF.md). PaiNN has its own rule
-# (ops/painn.py).
-SCHNET_SYM_MIN_N = 32
 
 
 def plain_precision() -> None:
@@ -74,12 +67,6 @@ def plain_precision() -> None:
     TF32), the precision the kernels keep."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-
-def sym_profitable(n: int) -> bool:
-    """True when SchNet's dispatcher takes the symmetric kernel pair at
-    pair-grid size ``n`` (symmetric dist/env given)."""
-    return n >= SCHNET_SYM_MIN_N
 
 
 def sparse_auto(n: int, sparse) -> bool:
@@ -335,15 +322,18 @@ def cfconv_fused_sym(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
 def cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g, symmetric=False,
            sparse="auto", plain=False):
     """Dispatcher, as ``cfconv_pallas.cfconv``: the symmetric kernel pair
-    when the caller guarantees symmetric dist/env and N is at least
-    ``SCHNET_SYM_MIN_N`` (the JAX package waits for N=256), else the
-    plain-mode pair; ``plain=True`` takes the plain version on any device
-    (the counterpart of ``use_pallas=False``)."""
+    whenever the caller guarantees symmetric dist/env, else the plain-mode
+    pair; ``plain=True`` takes the plain version on any device (the
+    counterpart of ``use_pallas=False``). The JAX package waits for N=256
+    (``cfconv_pallas.sym_profitable``, its TPU tiling's first skippable
+    tile); on the H100 the symmetric pair (forward + backward) is faster
+    than the plain pair at every DDM bucket from N=32 and at N=512
+    (``chip_smoke.py``'s ``cfconv_sym_vs_plain_kernels:`` line, PERF.md)."""
     if plain:
         return cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start,
                                       stop, num_g)
     sp = sparse_auto(dist.shape[-1], sparse)
-    if symmetric and sym_profitable(dist.shape[-1]):
+    if symmetric:
         return cfconv_fused_sym(dist, env, x, w1, b1, w2, b2, start, stop,
                                 num_g, sp)
     return cfconv_fused(dist, env, x, w1, b1, w2, b2, start, stop, num_g, sp)

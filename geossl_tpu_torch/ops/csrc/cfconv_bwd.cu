@@ -25,8 +25,8 @@
 // tolerances of the f32 CUDA-core kernel it replaced. chip_smoke.py's bound
 // counts the products once at the TF32 tensor-core peak (495 TFLOP/s), the
 // elementwise terms at the f32 peak and the bytes at the HBM rate, and takes
-// the largest (`bound_basis`). mma.sync reaches about 315 TFLOP/s on the card
-// (utils/probe_cfconv_bwd.py); wgmma would reach more, but its TF32 form
+// the largest (`bound_basis`). mma.sync reaches about 315 TFLOP/s on an
+// H100 (PERF.md); wgmma would reach more, but its TF32 form
 // reads both operands K-major from canonical shared-memory layouts, and four
 // of the six products read an operand transposed, so this kernel loads
 // mma.sync fragments from one swizzled copy of each matrix in either
@@ -82,11 +82,7 @@
 
 namespace geossl {
 
-#ifdef GEOSSL_PROBE_WARPS  // timing probe: 16 warps of 128 registers each
-constexpr int kWarps = GEOSSL_PROBE_WARPS;
-#else
 constexpr int kWarps = 8;  // warps of the main kernel (255 registers each)
-#endif
 constexpr int kBT = 32 * kWarps;
 constexpr int kRB = kWarps / 4;      // warp rows over a 64-row product (4 column quarters)
 constexpr int kMB = 4 / kRB;         // 16-row blocks of a warp in a 64-row product

@@ -37,34 +37,16 @@ __device__ __forceinline__ int swz_at(int ld, int r, int c) { return r * ld + (c
 // x = hi + lo with hi TF32 (x's top 19 bits) and lo exact in f32; the mma
 // uses the top 19 bits of lo.
 __device__ __forceinline__ void split_tf32(uint32_t xb, uint32_t& hi, uint32_t& lo) {
-#ifdef GEOSSL_PROBE_NO_SPLIT  // timing probe only: operands unsplit, wrong sums
-  hi = lo = xb;
-#else
   hi = xb & 0xffffe000u;
   lo = __float_as_uint(__uint_as_float(xb) - __uint_as_float(hi));
-#endif
 }
 
 __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-#ifdef GEOSSL_PROBE_NO_MMA  // timing probe only: no tensor-core work, wrong sums
-  c[0] += __uint_as_float(a[0]) * __uint_as_float(b[0]);
-  c[1] += __uint_as_float(a[1]);
-  c[2] += __uint_as_float(a[2]);
-  c[3] += __uint_as_float(a[3]) + __uint_as_float(b[1]);
-  return;
-#endif
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-
-// The two small-term passes of 3xTF32 (lo*hi, hi*lo), before hi*hi.
-#ifdef GEOSSL_PROBE_ONE_PASS  // timing probe only: the hi*hi pass alone
-constexpr bool kSmallPasses = false;
-#else
-constexpr bool kSmallPasses = true;
-#endif
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -152,13 +134,9 @@ __device__ __forceinline__ void warp_tile_mma(float c[MB][NB][4], const float* A
         uint32_t ah[4], al[4];
         load_a(mb, k0, ah, al);
 #pragma unroll
-        for (int nb = 0; nb < NB; ++nb) {
-          if (kSmallPasses) mma_tf32(c[mb][nb], al, bh[nb]);
-        }
+        for (int nb = 0; nb < NB; ++nb) mma_tf32(c[mb][nb], al, bh[nb]);
 #pragma unroll
-        for (int nb = 0; nb < NB; ++nb) {
-          if (kSmallPasses) mma_tf32(c[mb][nb], ah, bl[nb]);
-        }
+        for (int nb = 0; nb < NB; ++nb) mma_tf32(c[mb][nb], ah, bl[nb]);
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb) mma_tf32(c[mb][nb], ah, bh[nb]);
       }
@@ -170,15 +148,11 @@ __device__ __forceinline__ void warp_tile_mma(float c[MB][NB][4], const float* A
 #pragma unroll
     for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        if (kSmallPasses) mma_tf32(c[mb][nb], al[mb], bh[nb]);
-      }
+      for (int nb = 0; nb < NB; ++nb) mma_tf32(c[mb][nb], al[mb], bh[nb]);
 #pragma unroll
     for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        if (kSmallPasses) mma_tf32(c[mb][nb], ah[mb], bl[nb]);
-      }
+      for (int nb = 0; nb < NB; ++nb) mma_tf32(c[mb][nb], ah[mb], bl[nb]);
 #pragma unroll
     for (int mb = 0; mb < MB; ++mb)
 #pragma unroll

@@ -82,6 +82,8 @@ def sym_profitable(n: int) -> bool:
     """True when ``painn_message(symmetric=True)`` takes the symmetric kernel
     pair at pair-grid size ``n``."""
     return n >= _SYM_MIN_N
+
+
 # The backward kernel keeps the R filter rows and the bias row in one
 # 32-row thread layout.
 MAX_R = 31

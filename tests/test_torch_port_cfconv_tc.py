@@ -157,10 +157,9 @@ def test_schnet_route_follows_its_threshold(monkeypatch, n):
                8, symmetric=True)
     tcf.cfconv(z, z, torch.zeros(1, n, 8), None, None, None, None, 0.0, 5.0,
                8, symmetric=False)
-    sym = n >= tcf.SCHNET_SYM_MIN_N
-    assert taken == ["cfconv_fused_sym" if sym else "cfconv_fused",
-                     "cfconv_fused"]
-    assert tcf.sym_profitable(n) == sym
+    # symmetric dist/env take the symmetric pair at every N (no threshold:
+    # it is the faster pair at every bucket on the H100)
+    assert taken == ["cfconv_fused_sym", "cfconv_fused"]
 
 
 @pytest.mark.parametrize("n", [32, 128, 256, 512])

@@ -122,12 +122,17 @@ def test_cfconv_wrappers_match_pallas_interpret(n, kernel):
 
 
 def test_dispatch_rules_match_jax():
-    # SchNet's symmetric route: the JAX package's from N=256 up; below it the
-    # port's own, set by measurement on the H100 (ops/cfconv.SCHNET_SYM_MIN_N)
+    # SchNet's symmetric route: the JAX package's from N=256 up
+    # (jcf.sym_profitable); on the H100, set by measurement, at every N (the
+    # meta tensors reach the picked wrapper's device check)
+    w = [torch.zeros(s, device="meta") for s in ((8, 16), (16,), (16, 16), (16,))]
     for n in (32, 64, 128, 256, 512, 1024):
-        if jcf.sym_profitable(n):
-            assert tcf.sym_profitable(n), n
-        assert tcf.sym_profitable(n) == (n >= tcf.SCHNET_SYM_MIN_N), n
+        z, x = torch.zeros(1, n, n, device="meta"), torch.zeros(1, n, 16, device="meta")
+        with pytest.raises(ValueError, match="cfconv_fwd_sym: no kernel"):
+            tcf.cfconv(z, z, x, *w, 0.0, 5.0, 8, symmetric=True)
+        with pytest.raises(ValueError, match="cfconv_fwd: no kernel"):
+            tcf.cfconv(z, z, x, *w, 0.0, 5.0, 8, symmetric=False)
+    assert [jcf.sym_profitable(n) for n in (128, 256)] == [False, True]
     assert tcf.STACK_MAX_N == jcf.STACK_MAX_N
     with pytest.raises(ValueError, match="no kernel"):
         tcf.cfconv_fused(*(torch.zeros(1, 8, 8, device="meta"),) * 2,
