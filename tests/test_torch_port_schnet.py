@@ -132,7 +132,6 @@ def test_dispatch_rules_match_jax():
             tcf.cfconv(z, z, x, *w, 0.0, 5.0, 8, symmetric=True)
         with pytest.raises(ValueError, match="cfconv_fwd: no kernel"):
             tcf.cfconv(z, z, x, *w, 0.0, 5.0, 8, symmetric=False)
-    assert [jcf.sym_profitable(n) for n in (128, 256)] == [False, True]
     assert tcf.STACK_MAX_N == jcf.STACK_MAX_N
     with pytest.raises(ValueError, match="no kernel"):
         tcf.cfconv_fused(*(torch.zeros(1, 8, 8, device="meta"),) * 2,
