@@ -35,8 +35,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``painn_fwd`` elementwise at rtol 1e-4 / atol 1e-5; ``painn_bwd``'s
    seven per-pair and per-node cotangents elementwise (scaled atol) and
    dWk/dbk by relative norm, its five pair cotangents zero on empty tiles
-   with gating on; ``painn_stack`` (scaled atol) against the per-block
-   plain chain.
+   with gating on (also on the DDM batch at N=128, a partial batch of 5
+   graphs in its 128 slots and the LBA batch at N=512; on the DDM batch two
+   launches must agree bitwise in every output); ``painn_stack`` (scaled
+   atol) against the per-block plain chain. ``schnet_stack`` elementwise
+   (rtol 1e-4, atol 1e-5) in its symmetric mode (default graph) and its
+   plain mode (``max_neighbors=32`` graph) at B=8, at serving's first batch
+   of buckets 32, 64 and 128 (128 slots), on a partial batch (5 graphs in
+   128 slots) and on one of very uneven graphs (60 of bucket 32 and 8 of
+   bucket 128 at N=128); a second launch must agree with the first at the
+   same tolerance (its messages are summed with atomics).
 3. Main paths, each with the launch counters reset just before and read
    just after; every kernel of the path must have launched.
    a. Serving: ``Predictor`` at full SchNet width (F=128, L=6, G=51,
@@ -46,7 +54,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
       Outputs must be finite, and 8 molecules per bucket are held against
       the plain path on the card. Then the same for a seeded full-width
       PaiNN ``Predictor`` (F=128, 3 blocks, 20 RBF, cutoff 5, the halving
-      MLP head): ``painn_stack`` up to N=128, ``painn_fwd`` above.
+      MLP head). Each backbone takes its whole-stack kernel up to its
+      ``serve.*_STACK_MAX_N`` (SchNet 128: ``schnet_stack``, symmetric
+      mode, and plain mode with ``max_neighbors``; PaiNN 32:
+      ``painn_stack``) and its per-block kernels above.
    b. Training: ``train.pretrain_geossl.main`` (GeoSSL-DDM at the published
       defaults: SchNet F=128, L=6, G=51, cutoff 10; batch 128, buckets
       32/64/128; NCSN sigma 10 -> 0.01 over 50 levels, anneal 2; GeoSSL
@@ -122,7 +133,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the measurement SchNet's route follows; ``routed`` is the pair the
    dispatcher picks), after ``cfconv_fwd_sym`` and ``cfconv_bwd_sym`` are
    held to their plain versions on those DDM inputs (tolerances as in 2,
-   gating off and on); fine-tune
+   gating off and on), and ``cfconv_fwd_sym``'s time, plain time, bound and
+   launches on its training path (``cfconv_fwd_sym_ddm:``); the serving
+   routes head to head at buckets 32, 64 and 128 (``serving_route:``: the
+   whole representation through the stack and through the per-block
+   kernels, and ``routed``, the Predictor's pick; the measurement that
+   ``serve.SCHNET_STACK_MAX_N`` / ``PAINN_STACK_MAX_N`` follow) and
+   ``schnet_stack``'s two modes at serving's N=128 (``schnet_stack_modes:``);
+   fine-tune
    complexes/s (LEP: pairs/s) at N=512,
    one traced step and its top device kernels, for LBA and LEP;
    each kernel's time at the shape its path gives it, beside its plain
@@ -131,10 +149,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    on its occupied 8x8 tiles; with symmetric dist/env each pair's filter
    once and the upper triangle read; for the tensor-core CFConv backward,
    ``bound_basis`` "tf32_tensor_core+f32": its products once at the TF32
-   tensor-core peak, its elementwise terms at the f32 peak), and ptxas's
-   registers and spills per kernel. The CFConv backward computes its
-   products in 3xTF32 on the tensor cores and is held to the same
-   tolerances as every other kernel.
+   tensor-core peak, its elementwise terms at the f32 peak; likewise
+   ``schnet_stack`` and ``painn_bwd``), and ptxas's registers and spills
+   per kernel. The CFConv backward, ``painn_bwd`` and ``schnet_stack``
+   compute their products in 3xTF32 on the tensor cores and are held to
+   the same tolerances as every other kernel.
 
 The line before the last is the kernel table as JSON (thirteen kernels,
 every Pallas kernel of the JAX package); the last line is
@@ -218,7 +237,7 @@ def device_profile(fn):
     return wall, busy, ours
 
 
-def print_top_ops(fn, model_3d, path, bucket, top=6):
+def print_top_ops(fn, model_3d, path, bucket, top=10):
     """The kernels with the most device time in one more traced call of fn
     (the path's largest bucket: where the device is busiest)."""
     from geossl_tpu_torch.utils.profiling import top_device_ops
@@ -253,14 +272,14 @@ def pair_work(dist, env):
 KERNEL_ENTRIES = {
     "cfconv_fwd": ("cfconv_fwd", "_ZN6geossl17cfconv_fwd_kernelILb0E"),
     "cfconv_fwd_sym": ("cfconv_fwd", "_ZN6geossl17cfconv_fwd_kernelILb1E"),
-    "schnet_stack": ("schnet_stack", "_ZN6geossl19schnet_stack_kernel"),
+    "schnet_stack": ("schnet_stack", "_ZN6geossl19schnet_stack_kernelILb1E"),
     "cfconv_bwd": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb0E"),
     "cfconv_bwd_sym": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb1E"),
     "ncsn_score_fwd": ("ncsn_score", "_ZN6geossl15ncsn_fwd_kernel"),
     "ncsn_score_bwd": ("ncsn_score", "_ZN6geossl15ncsn_bwd_kernel"),
     "painn_fwd": ("painn_fwd", "_ZN6geossl16painn_fwd_kernelILb0E"),
     "painn_fwd_sym": ("painn_fwd", "_ZN6geossl16painn_fwd_kernelILb1E"),
-    "painn_bwd": ("painn_bwd", "_ZN6geossl16painn_bwd_kernelILb0E"),
+    "painn_bwd": ("painn_bwd", "_ZN6geossl20painn_bwd_mma_kernel"),
     "painn_bwd_sym": ("painn_bwd", "_ZN6geossl16painn_bwd_kernelILb1E"),
     "painn_stack": ("painn_stack", "_ZN6geossl18painn_stack_kernelILb0E"),
     "painn_stack_train": ("painn_stack", "_ZN6geossl18painn_stack_kernelILb1E"),
@@ -535,6 +554,45 @@ def measure_serving(pred, subs, model_3d):
             "device_busy_s": busy, "port_kernels_s": ours,
             "other_device_s": busy - ours, "idle_share": 1.0 - busy / wall}))
     print_top_ops(lambda: pred.predict(sub), model_3d, "serve", b)
+
+
+def measure_serving_route(pred, batches, model_3d, stack_kernel):
+    """The Predictor's two routes head to head per bucket, on the bucket's
+    first batch of 128 slots: the whole representation (embedding to pooled
+    output) through the whole-stack kernel and through the per-block
+    kernels, CUDA-event timed, three rounds in turns (median and range of
+    the rounds). ``routed`` reads the Predictor's own pick (launch counters
+    around ``_graph_repr``); ``ok`` says that it is the faster route or that
+    the two ranges overlap."""
+    import torch
+
+    from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
+
+    out = {}
+    for b, batch in batches.items():
+        args = (batch.atom_type, batch.positions, batch.node_mask)
+        fns = {"stack": lambda: pred._stack_apply(pred.model, *args,
+                                                  stacked=pred._stacked),
+               "per_block": lambda: pred.model(*args, filters=pred._filters)}
+        times = {k: [] for k in fns}
+        with torch.inference_mode():
+            for _ in range(3):
+                for k, fn in fns.items():
+                    times[k].append(cuda_time_ms(fn, reps=5, warmup=1))
+            reset_launch_counts()
+            pred._graph_repr(batch)
+            torch.cuda.synchronize()
+        routed = "stack" if launch_counts()[stack_kernel] else "per_block"
+        med = {k: sorted(v)[1] for k, v in times.items()}
+        faster = min(med, key=med.get)
+        other = "stack" if routed == "per_block" else "per_block"
+        overlap = min(times[routed]) <= max(times[other])
+        out[b] = {"ms": med, "range_ms": {k: [min(v), max(v)]
+                                          for k, v in times.items()},
+                  "faster": faster, "routed": routed,
+                  "ok": routed == faster or overlap}
+    print("serving_route: " + json.dumps({"model": model_3d,
+                                          "buckets": out}))
 
 
 def measure_training(ddm, targs, batches, model_3d):
@@ -862,6 +920,7 @@ def main():
     from geossl_tpu_torch.ops import ncsn as NS
     from geossl_tpu_torch.ops import painn as P
     from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
+    from geossl_tpu_torch import serve
     from geossl_tpu_torch.serve import Predictor
     from geossl_tpu_torch.train import common
     from geossl_tpu_torch.data.bucketing import BucketedLoader
@@ -942,15 +1001,37 @@ def main():
 
     # -- 2. kernel parity -----------------------------------------------------
     errs = Errors()
+
+    def check_stack(idx, n, what, batch_size=None):
+        """schnet_stack in both modes against the plain stack: symmetric on
+        the default graph, plain mode on the max_neighbors=32 graph; then a
+        second launch against the first (its messages are summed with
+        atomics: the same tolerance)."""
+        for m, sym in ((model, True), (model_mn, False)):
+            _, dist, env, h0, _ = layer0_inputs(m, idx, n, batch_size)
+            tag = f"{what} symmetric={sym}"
+            want = chunked(K.schnet_stack_reference, (dist, env, h0),
+                           (stacked, 0.0, cutoff, G), 32)
+            got = K.schnet_stack(dist, env, h0, stacked, 0.0, cutoff, G, sym)
+            errs.check("schnet_stack", got, want, tag)
+            errs.check("schnet_stack", K.schnet_stack(
+                dist, env, h0, stacked, 0.0, cutoff, G, sym), got,
+                f"{tag} second launch")
+
     with torch.inference_mode():
         stacked = model.stacked_weights()
         # (bucket, pad): the buckets, plus a pad that is no multiple of the
-        # kernels' 8-atom tile (molecules of bucket 128 have <= 100 atoms)
+        # kernels' 8-atom tile (molecules of bucket 128 have <= 100 atoms);
+        # then serving's first batch of each stack bucket (128 slots), a
+        # partial batch (5 real graphs in 128 slots) and one of very uneven
+        # graphs (60 of bucket 32 and 8 of bucket 128, padded to 128 atoms)
         for b, n in ((32, 32), (128, 128), (128, 100)):
-            _, dist, env, h0, _ = layer0_inputs(model, first(b, 8), n)
-            want = K.schnet_stack_reference(dist, env, h0, stacked, 0.0, cutoff, G)
-            errs.check("schnet_stack", K.schnet_stack(dist, env, h0, stacked, 0.0,
-                                                      cutoff, G), want, f"B=8 N={n}")
+            check_stack(first(b, 8), n, f"B=8 N={n}")
+        for b in (32, 64, 128):
+            check_stack(first(b, 128), b, f"serving B=128 N={b}", 128)
+        check_stack(first(128, 5), 128, "partial B=128 (5 graphs) N=128", 128)
+        check_stack(np.concatenate([first(32, 60), first(128, 8)]), 128,
+                    "uneven B=128 (60 + 8 graphs) N=128", 128)
         filt = model.interactions[0].filter_weights()
         filt_mn = model_mn.interactions[0].filter_weights()
         for name, m, fw, fn, sizes in (
@@ -1495,6 +1576,9 @@ def main():
             for b in buckets}
     measure_serving(pred, subs, "schnet")
     measure_serving(pred_p, subs, "painn")
+    route_batches = {b: packed(first(b, 128), b, 128) for b in (32, 64, 128)}
+    measure_serving_route(pred, route_batches, "schnet", "schnet_stack")
+    measure_serving_route(pred_p, route_batches, "painn", "painn_stack")
 
     flop_pair = 2 * G * 128 + 2 * 128 * 128 + 2 * 128
     kernels = []
@@ -1503,22 +1587,30 @@ def main():
             """The bucket's first batch as the Predictor packs it."""
             return layer0_inputs(m, first(b, 128), b, batch_size=128)
 
-        # schnet_stack at the N=128 bucket's first batch, padded to 128 slots
+        # schnet_stack at the N=128 bucket's first batch, padded to 128
+        # slots, in the symmetric mode serving takes (held above); the plain
+        # mode's time on the max_neighbors=32 graph beside it
         batch, dist, env, h0, _ = serving_batch(model, 128)
         L = stacked[0].shape[0]
-        got = K.schnet_stack(dist, env, h0, stacked, 0.0, cutoff, G)
-        want = chunked(K.schnet_stack_reference, (dist, env, h0),
-                       (stacked, 0.0, cutoff, G), 32)
-        errs.check("schnet_stack", got, want, f"serving B={dist.shape[0]} N=128")
         ms = cuda_time_ms(lambda: K.schnet_stack(dist, env, h0, stacked, 0.0,
-                                                 cutoff, G))
+                                                 cutoff, G, True))
         plain_ms = cuda_time_ms(lambda: chunked(
             K.schnet_stack_reference, (dist, env, h0), (stacked, 0.0, cutoff, G),
             32), reps=3, warmup=1)
+        _, d_mn, e_mn, h_mn, _ = serving_batch(model_mn, 128)
+        print("schnet_stack_modes: " + json.dumps({
+            "shape": "serving B=128 N=128", "ms": {
+                "symmetric": ms, "plain_max_neighbors_32": cuda_time_ms(
+                    lambda: K.schnet_stack(d_mn, e_mn, h_mn, stacked, 0.0,
+                                           cutoff, G, False))}}))
         nnz, filt_pairs, cells, tiles = pair_work(dist, env)
+        if cells == dist.numel():
+            fail("schnet_stack: serving dist/env are not symmetric")
         atoms = int(batch.node_mask.sum())
-        flops = L * (filt_pairs * (flop_pair - 2 * 128) + nnz * 2 * 128
-                     + atoms * 3 * 2 * 128 * 128)
+        # tensor cores: the filter network once per needed pair and the
+        # three dense layers per atom; CUDA cores: the messages per pair
+        flops = (L * (filt_pairs * (flop_pair - 2 * 128)
+                      + atoms * 3 * 2 * 128 * 128), L * nnz * 2 * 128)
         nbytes = 4 * (cells + tiles + 2 * h0.numel()
                       + sum(t.numel() for t in stacked))
         kernels.append(("schnet_stack", "geossl_tpu_torch/ops/csrc/schnet_stack.cu",
@@ -1687,6 +1779,23 @@ def main():
             "faster": "symmetric" if sym_pair < plain_pair else "plain",
             "routed": routed(d_, e_, x_, fw_)}
     print("cfconv_sym_vs_plain_kernels: " + json.dumps(sym_vs))
+    # cfconv_fwd_sym on its training path (DDM B=128, N=128, the launches
+    # of the DDM-SchNet epoch), beside its serving row in the kernel table
+    d_, e_, x_, _, fw_ = ddm_case(128)
+    nnz, filt_pairs, cells, tiles = pair_work(d_, e_)
+    with torch.no_grad():
+        print("cfconv_fwd_sym_ddm: " + json.dumps({
+            "shape": "DDM B=128 N=128",
+            "ms": sym_vs["DDM B=128 N=128"]["ms"]["cfconv_fwd_sym"],
+            "plain_ms": cuda_time_ms(lambda: chunked(
+                K.cfconv_fused_reference, (d_, e_, x_), (*fw_, 0.0, cutoff, G),
+                16), reps=3, warmup=1),
+            "bound_ms": max((filt_pairs * (flop_pair - 2 * 128)
+                             + nnz * 2 * 128) / PEAK_F32_FLOPS,
+                            4 * (cells + tiles + 2 * x_.numel()
+                                 + sum(t.numel() for t in fw_))
+                            / PEAK_BYTES) * 1e3,
+            "launches": train_launches["cfconv_fwd_sym"]}))
 
     grid, weights, anneal = ncsn_inputs(ddm0, batch, targs, SEED)
     g_rows = check_ncsn(errs, grid, weights, anneal, "DDM B=128 N=128", chunk=16)
@@ -1715,21 +1824,22 @@ def main():
                         cuda_time_ms(fn), cuda_time_ms(plain, reps=3, warmup=1),
                         flops, nbytes, train_launches[name]))
 
-    # PaiNN: the stack at the N=128 serving bucket's first batch, the message
-    # pass and its backward at the DDM shape (B=128 of the N=128 bucket,
-    # the clean graph of view 1)
+    # PaiNN: the stack at the first batch of the one bucket it serves
+    # (serve.PAINN_STACK_MAX_N = 32), the message pass and its backward at
+    # the DDM shape (B=128 of the N=128 bucket, the clean graph of view 1)
     R_, L_ = cfg_p.painn.n_rbf, cfg_p.painn.n_interactions
     # filter 2R*3F, message sums (dq 2F, dmu 12F), gating 3F
     fwd_pair, fwd_elem = 2 * R_ * 3 * F_, 17 * F_
     with torch.inference_mode():
-        batch = packed(first(128, 128), 128, 128)
+        nb_p = serve.PAINN_STACK_MAX_N
+        batch = packed(first(nb_p, 128), nb_p, 128)
         grids, q0, _, _ = painn_inputs(model_p, batch)
         got = P.painn_stack_infer(*grids, q0, stacked_p, cut_p)
         want = chunked_sum(lambda *a: P.painn_stack_reference(
             *a, stacked_p, cut_p), (*grids, q0), (), 32, 2)
         for name, a, w in zip(("q", "mu"), got, want):
             errs.check_scaled("painn_stack", a, w,
-                              f"serving B={q0.shape[0]} N=128 {name}")
+                              f"serving B={q0.shape[0]} N={nb_p} {name}")
         ms = cuda_time_ms(lambda: P.painn_stack_infer(*grids, q0, stacked_p,
                                                       cut_p))
         plain_ms = cuda_time_ms(lambda: chunked_sum(
@@ -1758,6 +1868,24 @@ def main():
     gmu = torch.randn(mu.shape, generator=gen_d, device=dev)
     check_painn_bwd(errs, grids, x, mu, wk0, bk0, gq, gmu, cut_p,
                     "DDM B=128 N=128", chunk=8)
+    # no atomics in the plain mode: every output repeats bitwise
+    again = [P.painn_bwd(*grids, x, mu, wk0, bk0, gq, gmu, cut_p, True)
+             for _ in range(2)]
+    same = {n: torch.equal(a, b) for n, a, b in zip(PAINN_BWD_NAMES, *again)}
+    print("painn_bwd repeats bitwise: " + json.dumps(same))
+    if not all(same.values()):
+        fail(f"painn_bwd: outputs differ between two launches {same}")
+    # a partial batch: 5 real graphs in the 128 slots
+    idx5 = np.nonzero(tbucket == 128)[0][:5]
+    b5 = pack_batch([train_store.get(int(i)) for i in idx5], 128, 128).to(dev)
+    with torch.no_grad():
+        d5, pm5 = geometry.pairwise_distances(b5.positions, b5.node_mask)
+        clean5 = geometry.radius_adjacency(d5, pm5, cut_p)
+    grids5, q5, x5, mu5 = painn_inputs(m0, b5, pair_mask=clean5)
+    check_painn_bwd(errs, grids5, x5, mu5, wk0, bk0,
+                    torch.randn(q5.shape, generator=gen_d, device=dev),
+                    torch.randn(mu5.shape, generator=gen_d, device=dev), cut_p,
+                    "DDM partial B=128 (5 graphs) N=128", chunk=8)
     nnz, filt_pairs, cells, tiles = pair_work(grids[0], grids[1])
     f3 = 3 * F_
     with torch.no_grad():
@@ -1786,8 +1914,9 @@ def main():
                      P.painn_bwd_reference(d, g, a, b_, c, xx, m, wk0, bk0,
                                            gq_, gmu_, cut_p),
                      (*grids, x, mu, gq, gmu), (), 8, 7),
-                 filt_pairs * (2 * R_ * f3 + 2 * (R_ + 1) * f3)
-                 + nnz * (2 * R_ * f3 + 40 * F_),
+                 # tensor cores: the three products; CUDA cores: the rest
+                 (filt_pairs * (2 * R_ * f3 + 2 * (R_ + 1) * f3)
+                  + nnz * 2 * R_ * f3, nnz * 40 * F_),
                  # the pair grids read, the five pair cotangents written;
                  # x, mu, gmu, gq read and dx, dmu written
                  4 * (cells + 4 * tiles + 5 * grids[0].numel()

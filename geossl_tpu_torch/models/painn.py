@@ -73,12 +73,13 @@ class PaiNNInteraction(nn.Module):
         self.interatomic_context_net = nn.Sequential(
             Dense(f, f, activation=F_.silu), Dense(f, 3 * f))
 
-    def forward(self, q, mu, dist, gate, direction, wk, bk, plain=False):
-        """q [B,N,F]; mu [B,N,3,F]; dist/gate [B,N,N]; direction
-        [B,N,N,3]; wk [R,3F] and bk [3F] in the [in, out] layout."""
+    def forward(self, q, mu, dist, gate, dirs, wk, bk, plain=False):
+        """q [B,N,F]; mu [B,N,3,F]; dist/gate [B,N,N]; dirs the three
+        contiguous [B,N,N] direction planes (``direction_planes``, made once
+        per forward by the caller); wk [R,3F] and bk [3F] in the [in, out]
+        layout."""
         b, n, f = q.shape
         x = self.interatomic_context_net(q)
-        dirs = [direction[..., c].contiguous() for c in range(3)]
         mu_flat = mu.reshape(b, n, 3 * f)
         if plain:
             offsets = jax_linspace(self.cutoff, wk.shape[0], dist.dtype,
@@ -92,6 +93,12 @@ class PaiNNInteraction(nn.Module):
                                     self.cutoff, symmetric=False,
                                     sparse=self.sparse)
         return q + dq, mu + dmu.reshape(b, n, 3, f)
+
+
+def direction_planes(direction):
+    """The three contiguous [B,N,N] planes of ``direction [B,N,N,3]``, the
+    layout the message-pass kernels read."""
+    return [direction[..., c].contiguous() for c in range(3)]
 
 
 class PaiNNMixing(nn.Module):
@@ -202,9 +209,10 @@ class PaiNN(nn.Module):
         mu = torch.zeros(q.shape[:2] + (3, q.shape[-1]), dtype=q.dtype,
                          device=q.device)
         filters = self.filter_weights() if filters is None else filters
+        dirs = direction_planes(direction)  # once for all blocks
         for inter, mix, (wk, bk) in zip(self.interactions, self.mixing,
                                         filters):
-            q, mu = inter(q, mu, dist, gate, direction, wk, bk, plain=plain)
+            q, mu = inter(q, mu, dist, gate, dirs, wk, bk, plain=plain)
             q, mu = mix(q, mu)
         return geometry.readout(q, node_mask, self.readout), q
 
@@ -236,7 +244,7 @@ def fused_stack_apply(model: PaiNN, atom_type, positions, node_mask,
                          f"{positions.dtype}); use model.forward")
     q0 = model.embed(atom_type).float()
     dist, direction, gate = model.geometry(positions, node_mask)
-    dirs = [direction[..., c].contiguous() for c in range(3)]
+    dirs = direction_planes(direction)
     stacked = model.stacked_weights() if stacked is None else stacked
     q, _ = painn_stack_infer(dist, gate.contiguous(), *dirs, q0.contiguous(),
                              stacked, model.cutoff, model.epsilon)
@@ -262,7 +270,7 @@ def stack_train_apply(model: PaiNN, atom_type, positions, node_mask,
                          f"{STACK_MAX_N}; use model.forward")
     q0 = model.embed(atom_type).float()
     dist, direction, gate = model.geometry(positions, node_mask, pair_mask)
-    dirs = [direction[..., c].contiguous() for c in range(3)]
+    dirs = direction_planes(direction)
     stacked = [t.float() for t in model.stacked_weights()]
     q, _ = painn_stack_train(dist, gate.contiguous(), *dirs, q0.contiguous(),
                              stacked, model.cutoff, model.epsilon)

@@ -226,7 +226,14 @@ def fused_stack_apply(model: SchNet, atom_type, positions, node_mask,
     dist, adj = model.geometry(positions, node_mask)
     # env is the same for every block: computed once here
     env = cosine_envelope(dist, model.cutoff) * adj.to(dist.dtype)
-    stack = schnet_stack_reference if plain else schnet_stack
     stacked = model.stacked_weights() if stacked is None else stacked
-    h = stack(dist, env, h, stacked, 0.0, model.cutoff, model.num_gaussians)
+    if plain:
+        h = schnet_stack_reference(dist, env, h, stacked, 0.0, model.cutoff,
+                                   model.num_gaussians)
+    else:
+        # one filter per unordered pair unless max_neighbors truncates the
+        # graph (the rule of the per-block InteractionBlock)
+        h = schnet_stack(dist, env, h, stacked, 0.0, model.cutoff,
+                         model.num_gaussians,
+                         symmetric=model.max_neighbors is None)
     return model.output(h, atom_type, positions, node_mask)

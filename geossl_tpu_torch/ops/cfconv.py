@@ -21,14 +21,15 @@ Kernels:
 * ``schnet_stack``     -> ``csrc/schnet_stack.cu`` (replaces
   ``_stack_kernel`` / ``schnet_stack_infer``); inference only: it raises
   under autograd on a CUDA device instead of returning a tensor cut off
-  from the graph
+  from the graph; with ``symmetric`` one filter per unordered pair
 
 The two CFConv Functions are first order only: a double backward on CUDA
 (MD17 force training) raises ``NotImplementedError``.
 
-The forward kernels compute in plain f32 on the CUDA cores; the backward
-kernel runs its tile products on the tensor cores in 3xTF32
-(``csrc/mma_tf32.cuh``), within f32 rounding of the plain version.
+The CFConv forward kernels compute in plain f32 on the CUDA cores; the
+backward kernel and the whole stack run their tile products (the stack also
+its dense layers) on the tensor cores in 3xTF32 (``csrc/mma_tf32.cuh``),
+within f32 rounding of the plain version.
 ``plain_precision()`` makes the plain versions' PyTorch matmuls full f32.
 SchNet's dispatcher takes the symmetric pair whenever dist/env are
 symmetric, at every N (the card's measurement); PaiNN keeps the JAX
@@ -340,12 +341,15 @@ def cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g, symmetric=False,
 
 
 @counted("schnet_stack")
-def schnet_stack(dist, env, h0, stacked, start, stop, num_g):
+def schnet_stack(dist, env, h0, stacked, start, stop, num_g, symmetric=False):
     """Node features after all interaction blocks, [B,N,F] (inference only,
     as ``schnet_stack_infer``). ``stacked`` is the 9-tuple of per-block
     weight stacks (wl1 [L,F,F], w1 [L,G,F], b1 [L,F], w2 [L,F,F], b2 [L,F],
     wa [L,F,F], ba [L,F], wb [L,F,F], bb [L,F]). The kernel skips all-zero
-    env tiles."""
+    env tiles; with ``symmetric`` (the caller guarantees symmetric dist/env,
+    as for ``cfconv_fused_sym``) it computes one filter per unordered pair.
+    Its messages are summed with atomics, in an order that varies from run
+    to run (f32 rounding)."""
     b, n, _ = dist.shape
     if n > STACK_MAX_N:
         raise ValueError(f"schnet_stack: N={n} exceeds {STACK_MAX_N}; use "
@@ -357,22 +361,28 @@ def schnet_stack(dist, env, h0, stacked, start, stop, num_g):
                 "per-block path (SchNet.forward)", dist, env, h0, *stacked)
     f = h0.shape[-1]
     n_layers = stacked[0].shape[0]
-    if f != KERNEL_F or stacked[1].shape != (n_layers, num_g, f):
-        raise ValueError(f"schnet_stack: kernel takes F={KERNEL_F} and W1 "
-                         f"[L,G,F]; got h0 {tuple(h0.shape)}, W1 "
+    if f != KERNEL_F or stacked[1].shape != (n_layers, num_g, f) \
+            or num_g > 64:
+        raise ValueError(f"schnet_stack: kernel takes F={KERNEL_F}, G <= 64 "
+                         f"and W1 [L,G,F]; got h0 {tuple(h0.shape)}, W1 "
                          f"{tuple(stacked[1].shape)}")
     smem = _build.kernel_fn("schnet_stack", "schnet_stack_smem_bytes",
-                            [ctypes.c_int, ctypes.c_int],
-                            ctypes.c_size_t)(n, num_g)
+                            [ctypes.c_int], ctypes.c_size_t)(n)
     check_smem("schnet_stack", smem)
+    ws_ints = _build.kernel_fn("schnet_stack", "schnet_stack_ws_ints",
+                               [ctypes.c_int] * 2, ctypes.c_size_t)(b, n)
     fn = _build.kernel_fn(
         "schnet_stack", "schnet_stack",
-        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
-        + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+        + [ctypes.c_int, ctypes.c_void_p])
     out = torch.empty_like(h0)
+    # x and the messages of every block, and the work list and grid barrier
+    xbuf, mbuf = torch.empty_like(h0), torch.empty_like(h0)
+    ws = torch.empty(ws_ints, dtype=torch.int32, device=dist.device)
     s0, delta, coeff = _rbf_consts(start, stop, num_g)
-    err = fn(*map(ptr, (dist, env, h0, *stacked, out)), b, n, f, num_g,
-             n_layers, s0, delta, coeff, stream(dist))
+    err = fn(*map(ptr, (dist, env, h0, *stacked, out, xbuf, mbuf, ws)), b, n,
+             f, num_g, n_layers, s0, delta, coeff, int(symmetric),
+             stream(dist))
     check_launch("schnet_stack", err)
     schnet_stack.launches += 1
     return out

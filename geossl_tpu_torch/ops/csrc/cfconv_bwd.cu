@@ -34,7 +34,7 @@
 // denv/ddist row sums, the dx sums) stay on the CUDA cores, with the fast
 // exp/log intrinsics (errors at f32 rounding of the values they feed).
 //
-// Work split. Three small launches come first: an occupancy pass (one block
+// Work split. Three small launches come first (worklist.cuh): an occupancy pass (one block
 // per graph and 8-row band) marks the 8x8 tiles to compute (with `sparse`
 // those whose env is not all zero; with SYM only tiles pi <= pj), writes
 // ddist = denv = 0 on every other tile (the occupancy contract of
@@ -79,6 +79,7 @@
 #include "mma_tf32.cuh"
 #include "pair_tile.cuh"
 #include "reduce.cuh"
+#include "worklist.cuh"
 
 namespace geossl {
 
@@ -89,7 +90,6 @@ constexpr int kMB = 4 / kRB;         // 16-row blocks of a warp in a 64-row prod
 constexpr int kGP = 64;              // G padded: rows of W1_s, columns of rbf_s
 constexpr int kRS = kF + 8;          // row stride of the 8-row tiles (bank spread)
 constexpr int kTR = kTile * kRS;     // floats of one 8-row tile
-constexpr int kOccThreads = 256;
 
 // shared memory of the main kernel, in floats
 constexpr int kOffW1 = 0;                         // [kGP][kF] swizzled
@@ -113,117 +113,6 @@ constexpr int kSmemFloats = kOffDd + 4 * kPairs;  // then ints: misc[4], tile li
 
 // Floats of one block's partial weight gradients: [dW1 G*F][db1 F][dW2 F*F][db2 F]
 __host__ __device__ inline int wgrad_size(int G) { return G * kF + kF + kF * kF + kF; }
-
-// Sum over the 8 lanes of equal t (lane bits 2-4) of v[16*mb + 8*h + 2*nb + c]
-// (mb < MB, h < 2, nb < 4, c < 2), left in v[0 .. 2*MB) of lane (g, t):
-// v[i] is the sum of entry g * 2*MB + i.
-template <int HALF, int M>
-__device__ __forceinline__ void rs_step(float* v) {
-  const bool up = threadIdx.x & M;
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    const float send = up ? v[i] : v[i + HALF], keep = up ? v[i + HALF] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
-  }
-}
-template <int MB>
-__device__ __forceinline__ void rs_lanes(float v[16 * MB]) {
-  rs_step<8 * MB, 16>(v);
-  rs_step<4 * MB, 8>(v);
-  rs_step<2 * MB, 4>(v);
-}
-
-// ssp(v) = softplus(v) - log 2 with the fast exp/log intrinsics: its
-// absolute error is a few 1e-8, f32 rounding at the scale of ssp.
-__device__ __forceinline__ float ssp_fast(float v) {
-  return fmaxf(v, 0.f) + __logf(1.f + __expf(-fabsf(v))) - 0.693147180559945309f;
-}
-
-// Sum over the 4 lanes of equal g (t = lane bits 0-1); every lane gets it.
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Occupancy pass: block (pi, b) marks the computed tiles of its 8-row band,
-// counts them per item and writes ddist = denv = 0 on the others.
-template <bool SYM>
-__global__ void __launch_bounds__(kOccThreads)
-cfconv_bwd_occ_kernel(const float* __restrict__ env, int* __restrict__ occ,
-                      int* __restrict__ cnt, float* __restrict__ ddist,
-                      float* __restrict__ denv, int ni, int nj, int sparse) {
-  extern __shared__ int flag_s[];  // [ntj]
-  const int tid = threadIdx.x, pi = blockIdx.x, b = blockIdx.y;
-  const int ntj = (nj + kTile - 1) / kTile, nti = (ni + kTile - 1) / kTile;
-  const int i0 = pi * kTile, rows = min(kTile, ni - i0);
-  const size_t base = ((size_t)b * ni + i0) * nj;
-  for (int t = tid; t < ntj; t += kOccThreads) flag_s[t] = !sparse;
-  __syncthreads();
-  if (sparse) {
-    const int js = SYM ? i0 : 0, w = nj - js;  // SYM: tiles left of the diagonal are skipped
-    for (int idx = tid; idx < rows * w; idx += kOccThreads) {
-      const int r = idx / w, j = js + idx - r * w;
-      if (env[base + (size_t)r * nj + j] != 0.f) flag_s[j / kTile] = 1;
-    }
-    __syncthreads();
-  }
-  for (int pj = tid; pj < ntj; pj += kOccThreads) {
-    const int on = (!SYM || pi <= pj) && flag_s[pj];
-    occ[((size_t)b * ntj + pj) * nti + pi] = on;
-    if (on) atomicAdd(&cnt[b * ntj + pj], 1);
-    flag_s[pj] = on;
-  }
-  __syncthreads();
-  for (int idx = tid; idx < rows * nj; idx += kOccThreads) {
-    const int r = idx / nj, j = idx - r * nj;
-    if (!flag_s[j / kTile]) {
-      ddist[base + (size_t)r * nj + j] = 0.f;
-      denv[base + (size_t)r * nj + j] = 0.f;
-    }
-  }
-}
-
-// Exclusive prefix sums of the n item counts: pre[0..n], pre[n] the total.
-__global__ void __launch_bounds__(1024)
-cfconv_bwd_scan_kernel(const int* __restrict__ cnt, int* __restrict__ pre, int n) {
-  __shared__ int part_s[1024];
-  const int tid = threadIdx.x, per = (n + 1023) / 1024;
-  const int lo = min(n, tid * per), hi = min(n, lo + per);
-  int s = 0;
-  for (int i = lo; i < hi; ++i) s += cnt[i];
-  part_s[tid] = s;
-  __syncthreads();
-  for (int off = 1; off < 1024; off <<= 1) {
-    const int v = tid >= off ? part_s[tid - off] : 0;
-    __syncthreads();
-    part_s[tid] += v;
-    __syncthreads();
-  }
-  int run = part_s[tid] - s;
-  for (int i = lo; i < hi; ++i) {
-    pre[i] = run;
-    run += cnt[i];
-  }
-  if (tid == 1023) pre[n] = part_s[1023];
-}
-
-// First item whose block, by work, is >= k: item i goes to block
-// min(nb - 1, (pre[i] + pre[i+1]) * nb / (2 total)), the block holding the
-// middle of its work.
-__device__ int first_item(const int* __restrict__ pre, int n, int nb, int k) {
-  const long long t2 = 2LL * max(pre[n], 1);
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const long long key = min((long long)nb - 1,
-                              (long long)(pre[mid] + pre[mid + 1]) * nb / t2);
-    if (key >= k)
-      hi = mid;
-    else
-      lo = mid + 1;
-  }
-  return lo;
-}
 
 template <bool SYM>
 __global__ void __launch_bounds__(kBT, 1)
@@ -304,14 +193,7 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
     const int n_it = SYM ? pj + 1 : nti;
     __syncthreads();  // the previous item is done with tl_s, x_s, gj_s and dx_s
     if (warp == 0) {  // the item's computed i tiles, in order
-      const int* row = occ + (size_t)item * nti;
-      int n = 0;
-      for (int base = 0; base < n_it; base += 32) {
-        const bool on = base + lane < n_it && row[base + lane];
-        const unsigned m = __ballot_sync(0xffffffffu, on);
-        if (on) tl_s[n + __popc(m & ((1u << lane) - 1u))] = base + lane;
-        n += __popc(m);
-      }
+      const int n = item_tiles(occ + (size_t)item * nti, n_it, tl_s);
       if (lane == 0) misc[2] = n;
     }
     for (int idx = tid; idx < kTile * kF; idx += kBT) {
@@ -673,13 +555,10 @@ static cudaError_t launch(const float* dist, const float* env, const float* x,
   const int ntj = (nj + kTile - 1) / kTile, nti = (ni + kTile - 1) / kTile;
   const int n_items = B * ntj;
   int* occ = ws;
-  int* cnt = occ + (size_t)n_items * nti;
-  int* pre = cnt + n_items;
-  cudaError_t err = cudaMemsetAsync(cnt, 0, sizeof(int) * (size_t)n_items, s);
+  int* pre = occ + (size_t)n_items * nti + n_items;
+  ZeroGrids zero = {{ddist, denv}, 2};
+  cudaError_t err = make_worklist<SYM, false>(env, ws, zero, B, ni, nj, sparse, s);
   if (err != cudaSuccess) return err;
-  cfconv_bwd_occ_kernel<SYM><<<dim3(nti, B), kOccThreads, sizeof(int) * ntj, s>>>(
-      env, occ, cnt, ddist, denv, ni, nj, sparse);
-  cfconv_bwd_scan_kernel<<<1, 1024, 0, s>>>(cnt, pre, n_items);
   const size_t smem = smem_bytes(ni);
   cudaFuncSetAttribute(cfconv_bwd_kernel<SYM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
@@ -701,8 +580,8 @@ extern "C" int cfconv_bwd_blocks(int B, int nj) {
 // Ints of the workspace: tile flags [B*ntj*nti], item counts [B*ntj] and
 // their prefix sums [B*ntj + 1].
 extern "C" size_t cfconv_bwd_ws_ints(int B, int ni, int nj) {
-  const size_t items = (size_t)B * ((nj + geossl::kTile - 1) / geossl::kTile);
-  return items * ((ni + geossl::kTile - 1) / geossl::kTile) + 2 * items + 1;
+  return geossl::worklist_ints((size_t)B * ((nj + geossl::kTile - 1) / geossl::kTile),
+                               (ni + geossl::kTile - 1) / geossl::kTile);
 }
 
 // Returns the cudaError_t of the launches (0 on success). `part` holds

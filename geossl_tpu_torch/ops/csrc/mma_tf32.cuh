@@ -1,4 +1,4 @@
-// Tensor-core tile products in 3xTF32 for the CFConv backward (cfconv_bwd.cu).
+// Tensor-core tile products in 3xTF32 (cfconv_bwd.cu, painn_bwd.cu, schnet_stack.cu).
 //
 // A warp computes C[16*MB x 8*NB] += A[16*MB x K] B[K x 8*NB] with
 // mma.sync.m16n8k8 (TF32 inputs, f32 accumulators). Each f32 operand x is
@@ -35,10 +35,15 @@ __device__ __forceinline__ int swz(int r) { return ((r & 3) << 3) | (((r >> 2) &
 __device__ __forceinline__ int swz_at(int ld, int r, int c) { return r * ld + (c ^ swz(r)); }
 
 // x = hi + lo with hi TF32 (x's top 19 bits) and lo exact in f32; the mma
-// uses the top 19 bits of lo.
+// uses the top 19 bits of lo. kRound rounds both parts to nearest instead
+// (hi = x rounded to TF32, |lo| <= 2^-11 |x|; lo's bits are offset so that
+// the mma's cut of them rounds): two integer additions more, ~4x less
+// error per operand.
+template <bool kRound = false>
 __device__ __forceinline__ void split_tf32(uint32_t xb, uint32_t& hi, uint32_t& lo) {
-  hi = xb & 0xffffe000u;
+  hi = (kRound ? xb + 0x1000u : xb) & 0xffffe000u;
   lo = __float_as_uint(__uint_as_float(xb) - __uint_as_float(hi));
+  if (kRound) lo += 0x1000u;
 }
 
 __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
@@ -60,6 +65,27 @@ __device__ __forceinline__ void ldsm_x4(const float* p, uint32_t r[4]) {
                : "r"(smem_u32(p)));
 }
 
+// The three passes lo*hi, hi*lo, hi*hi of one k step over MB x NB blocks,
+// each pass over all blocks before the next, so that the mma of one block
+// do not wait on each other.
+template <int MB, int NB>
+__device__ __forceinline__ void mma_passes(float c[MB][NB][4], const uint32_t ah[MB][4],
+                                           const uint32_t al[MB][4], const uint32_t bh[NB][2],
+                                           const uint32_t bl[NB][2]) {
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) mma_tf32(c[mb][nb], al[mb], bh[nb]);
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) mma_tf32(c[mb][nb], ah[mb], bl[nb]);
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) mma_tf32(c[mb][nb], ah[mb], bh[nb]);
+}
+
 // The tile product of this warp: c[mb][nb] (16x8 blocks at rows m0 + 16 mb,
 // columns n0 + 8 nb) += A B over k in [0, K), with
 //   A[m][k] = MA(m, k) (kTA = false, ldmatrix) or MA(k, m) (kTA = true),
@@ -75,7 +101,16 @@ __device__ __forceinline__ void ldsm_x4(const float* p, uint32_t r[4]) {
 // at (k0 + t + 4u) ld + c0 + 8 (v ^ t) + (g ^ 4u); an ldmatrix row r0 + lr
 // (r0 % 8 == 0) has the swizzle of lr. Both are lane constants plus a
 // k-step term.
-template <int MB, int NB, int K, bool kTA, bool kTB, bool kBOuter = false>
+//
+// kPrecise: the operands are split with rounding (split_tf32<true>), and
+// each k step's three passes go into a zeroed fragment that is then added
+// to c on the CUDA cores (IEEE f32, round to nearest). The tensor core adds
+// to its accumulator with truncation, so a long chain of mma into one
+// accumulator drifts toward zero by up to an ulp of the running sum per
+// mma; this keeps that drift to the small per-step sum. Costs MB x NB x 4
+// registers and 4 additions per block and k step; schnet_stack.cu, whose
+// 5 L chained products compound every error, needs it (PERF.md).
+template <int MB, int NB, int K, bool kTA, bool kTB, bool kBOuter = false, bool kPrecise = false>
 __device__ __forceinline__ void warp_tile_mma(float c[MB][NB][4], const float* A, int lda, int m0,
                                               const float* B, int ldb, int n0) {
   static_assert(K % 8 == 0, "K is a multiple of 8");
@@ -103,12 +138,12 @@ __device__ __forceinline__ void warp_tile_mma(float c[MB][NB][4], const float* A
       v[3] = __float_as_uint(p[a_u + c1]);
     }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) split_tf32(v[q], ah[q], al[q]);
+    for (int q = 0; q < 4; ++q) split_tf32<kPrecise>(v[q], ah[q], al[q]);
   };
   auto load_b = [&](int nb, int k0, uint32_t bh[2], uint32_t bl[2]) {
     const float* p = B + k0 * ldb + b_l + ((8 * nb) ^ t8);
-    split_tf32(__float_as_uint(p[0]), bh[0], bl[0]);
-    split_tf32(__float_as_uint(p[b_u]), bh[1], bl[1]);
+    split_tf32<kPrecise>(__float_as_uint(p[0]), bh[0], bl[0]);
+    split_tf32<kPrecise>(__float_as_uint(p[b_u]), bh[1], bl[1]);
   };
 #pragma unroll 2
   for (int k0 = 0; k0 < K; k0 += 8) {
@@ -122,7 +157,7 @@ __device__ __forceinline__ void warp_tile_mma(float c[MB][NB][4], const float* A
         uint32_t w[4];
         ldsm_x4(B + b_l + 8 * nb * ldb + (k0 & ~31) + 8 * (((k0 >> 3) & 3) ^ (lr & 3)), w);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) split_tf32(w[q], bh[nb + q / 2][q % 2], bl[nb + q / 2][q % 2]);
+        for (int q = 0; q < 4; ++q) split_tf32<kPrecise>(w[q], bh[nb + q / 2][q % 2], bl[nb + q / 2][q % 2]);
       }
     } else {
 #pragma unroll
@@ -145,18 +180,24 @@ __device__ __forceinline__ void warp_tile_mma(float c[MB][NB][4], const float* A
     uint32_t ah[MB][4], al[MB][4];
 #pragma unroll
     for (int mb = 0; mb < MB; ++mb) load_a(mb, k0, ah[mb], al[mb]);
+    if (kPrecise) {  // this k step's passes summed apart, then added in f32
+      float d[MB][NB][4];
 #pragma unroll
-    for (int mb = 0; mb < MB; ++mb)
+      for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) mma_tf32(c[mb][nb], al[mb], bh[nb]);
+        for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-    for (int mb = 0; mb < MB; ++mb)
+          for (int q = 0; q < 4; ++q) d[mb][nb][q] = 0.f;
+      mma_passes<MB, NB>(d, ah, al, bh, bl);
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) mma_tf32(c[mb][nb], ah[mb], bl[nb]);
+      for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
-    for (int mb = 0; mb < MB; ++mb)
+        for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) mma_tf32(c[mb][nb], ah[mb], bh[nb]);
+          for (int q = 0; q < 4; ++q) c[mb][nb][q] += d[mb][nb][q];
+    } else {
+      mma_passes<MB, NB>(c, ah, al, bh, bl);
+    }
   }
 }
 
@@ -181,6 +222,31 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Sum over the 8 lanes of equal t (lane bits 2-4) of v[16*mb + 8*h + 2*nb + c]
+// (mb < MB, h < 2, nb < 4, c < 2), left in v[0 .. 2*MB) of lane (g, t):
+// v[i] is the sum of entry g * 2*MB + i.
+template <int HALF, int M>
+__device__ __forceinline__ void rs_step(float* v) {
+  const bool up = threadIdx.x & M;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = up ? v[i] : v[i + HALF], keep = up ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+  }
+}
+template <int MB>
+__device__ __forceinline__ void rs_lanes(float v[16 * MB]) {
+  rs_step<8 * MB, 16>(v);
+  rs_step<4 * MB, 8>(v);
+  rs_step<2 * MB, 4>(v);
+}
+
+// Sum over the 4 lanes of equal g (t = lane bits 0-1); every lane gets it.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 }  // namespace geossl

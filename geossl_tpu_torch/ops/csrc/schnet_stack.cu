@@ -1,175 +1,479 @@
-// schnet_stack: all L SchNet interaction blocks in one launch (inference).
+// schnet_stack: all L SchNet interaction blocks in one persistent launch
+// (inference), after an occupancy pass and a scan that make its work list.
 //
 // Replaces geossl_tpu/ops/cfconv_pallas.py: _stack_kernel (schnet_stack_infer).
-// Per block k, with h resident across blocks:
+// Per block k, with h carried across blocks:
 //   x = h Wl1[k]                                   (lin1, no bias)
 //   w = ssp(rbf(dist) W1[k] + b1[k]) W2[k] + b2[k]  (filter network)
 //   m[i] = sum_j env[i,j] w[i,j] x[j]
 //   h = h + ssp(m Wa[k] + ba[k]) Wb[k] + bb[k]      (lin2, act, lin)
 // env is computed once by the caller, as models/schnet.fused_stack_apply does.
 //
-// Bound on the H100: operations, as cfconv_fwd (~46k FLOP per pair and
-// block for the filter network, plus 6*F*F per atom and block for the three
-// dense layers), with f32 FMAs on the CUDA cores (no tensor cores, no TF32).
-// What the design does about it: one launch instead of L (h, x and the
-// filter tensor never go to device memory), and pair tiles whose envelope is
-// all zero (padding atoms, empty graph slots of a partial batch) are skipped:
-// the block flags its occupied tiles in one pass over env at the start.
-// Skipping a tile drops only exact zeros, so the result does not change.
+// Bound on the H100: operations. Per occupied pair and block the filter
+// network is ~46k FLOP (G = 51, F = 128) of tile products, against 8 bytes
+// of dist/env; the dense layers add 6*F*F per atom and block. Every product
+// runs on the tensor cores with mma.sync.m16n8k8 TF32 in 3xTF32
+// (mma_tf32.cuh: within f32 rounding of the plain version, as the CFConv
+// backward): per 8x8 pair tile (pair p = jl*8 + il as row p) rbf[64 x G->56]
+// W1 and ssp(.) W2, and per 64 atom rows h Wl1, m Wa and ssp(.) Wb. The
+// elementwise terms (RBF exp, ssp, the messages) stay on the CUDA cores
+// with the fast exp/log intrinsics. The filter tensor never leaves the
+// chip; h, x and m ([B,N,F] each, a few MB) live in L2 between phases.
 //
-// Work split: one block per graph (N <= 128). Shared memory holds x [N][F]
-// for the whole graph, this block's W1/W2 (restaged for each interaction
-// block) and the pair-tile scratch; h lives in `out`, which the block owns,
-// and is updated row tile by row tile after that tile's messages are
-// complete (x, made before the loop, is not touched by the update). The RBF
-// is recomputed per tile rather than hoisted, because [N*N, G] does not fit
-// in shared memory.
+// SYM (symmetric dist/env, the caller's guarantee, as cfconv_fwd_sym): one
+// filter per unordered pair. Only tiles pi <= pj are computed; a tile with
+// pi < pj adds w x_j to row i and w x_i to row j (every cell's mirror lies
+// in a skipped tile). Without SYM (a max_neighbors graph) every occupied
+// tile is computed and adds to its rows i only. Tiles whose env is all zero
+// (padding atoms, empty graph slots of a partial batch, out of cutoff) are
+// skipped: that drops only exact zeros.
+//
+// Work split. The pair tiles of the whole batch form one list, ordered by
+// (graph, 8-row i tile) and then j tile, made on the device (worklist.cuh);
+// a persistent grid of one 8-warp block per SM (cooperative launch: all
+// blocks resident) gives each block an equal run of tiles, whatever the mix
+// of graph sizes and however few graphs are real. The phases of each
+// interaction block are separated by grid barriers:
+//   dense:    over 64-row chunks of [B*N, F] (round-robin): h += ssp(m Wa +
+//             ba) Wb + bb (from the second block on), x = h Wl1, m = 0;
+//   messages: over the block's run of tiles: the filter, then m += the
+//             tile's messages, by global atomicAdd. A block sums its rows i
+//             over the consecutive tiles of one row tile in registers and
+//             adds them once per row tile; the mirrored rows j (SYM) are
+//             summed over the tile's 8 rows i in registers and added per
+//             tile. So m, and through it h, is summed in an order that
+//             changes from run to run (f32 rounding; chip_smoke.py checks
+//             that two launches agree within the kernel's tolerance).
+// A last dense phase applies the last block's update. Between phases the
+// data other blocks wrote is read through L2 (cp.async.cg, ld.global.cg).
+// Per tile, the next tile's dist/env and x rows load with cp.async (double
+// buffer) while the current tile's products run.
+#include "mma_tf32.cuh"
 #include "pair_tile.cuh"
+#include "worklist.cuh"
 
 namespace geossl {
 
-// y[f] for the 8 rows of a tile: thread (r = tid / 32, lane) computes
-// features f = lane + 32*k, k = 0..3, of sum_c A[r][c] W[c][f] (+ bias).
-__device__ __forceinline__ void rows_linear(const float* A, const float* __restrict__ W,
-                                            const float* __restrict__ bias, float y[4]) {
-  const int r = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int c = 0; c < kF; ++c) {
-    const float a = A[r * kF + c];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[k] = fmaf(a, W[c * kF + lane + 32 * k], acc[k]);
+constexpr int kSGP = 64;        // G padded: rows of W1_s, columns of rbf_s
+constexpr int kSRS = kF + 8;    // row stride of the 8-row x tiles (bank spread)
+constexpr int kRows = 64;       // atom rows per dense chunk
+// every product in mma_tf32.cuh's precise mode (rounded split, each k step
+// added in f32 on the CUDA cores): plain 3xTF32, compounded over the
+// stack's 5 L chained products, misses the plain version's tolerance
+// (PERF.md: worst error 8.9x the tolerance at the serving batch, N=128)
+constexpr bool kPrecise = true;
+// shared memory, in floats; the dense phase reuses W2_s as W_s and s_s as A_s
+constexpr int kOffW1 = 0;                          // [kSGP][kF] swizzled
+constexpr int kOffW2 = kOffW1 + kSGP * kF;         // [kF][kF] swizzled
+constexpr int kOffRbf = kOffW2 + kF * kF;          // [kPairs][kSGP] swizzled
+constexpr int kOffS = kOffRbf + kPairs * kSGP;     // [kPairs][kF] swizzled
+constexpr int kOffXj = kOffS + kPairs * kF;        // [2][8][kSRS] x rows of the j tile
+constexpr int kOffXi = kOffXj + 2 * kTile * kSRS;  // [8][kSRS] SYM: x rows of the i tile
+constexpr int kOffDE = kOffXi + kTile * kSRS;      // [2][2][64] dist, env, [il][jl]
+constexpr int kOffB = kOffDE + 4 * kPairs;         // [2][kF] b1, b2
+constexpr int kStackFloats = kOffB + 2 * kF;       // then ints: misc[4], tile list [nt]
+
+// A barrier across the whole (co-resident) grid: bar[0] counts arrivals,
+// bar[1] is the generation; both zero at launch.
+__device__ __forceinline__ void grid_sync(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned gen = atomicAdd(bar + 1, 0u);
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (atomicAdd(bar + 1, 0u) == gen) __nanosleep(64);
+    }
+    __threadfence();
   }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) y[k] = bias ? acc[k] + bias[lane + 32 * k] : acc[k];
+  __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
+// 64 rows x F floats from global (rows >= rows_end zero) into a swizzled
+// [64][kF] shared matrix, 16 bytes per cp.async (the swizzle moves aligned
+// groups of 4 floats).
+__device__ __forceinline__ void load_rows(float* A_s, const float* src, int r0, int rows_end) {
+  for (int c = threadIdx.x; c < kRows * kF / 4; c += kThreads) {
+    const int r = c / (kF / 4), f = (c % (kF / 4)) * 4;
+    const bool in = r0 + r < rows_end;
+    cp_async16(A_s + swz_at(kF, r, f), src + (in ? (size_t)(r0 + r) * kF + f : 0), in);
+  }
+}
+
+// W [kF][kF] from global into a swizzled shared matrix.
+__device__ __forceinline__ void load_weight(float* W_s, const float* __restrict__ w) {
+  for (int c = threadIdx.x; c < kF * kF / 4; c += kThreads) {
+    const int r = c / (kF / 4), f = (c % (kF / 4)) * 4;
+    cp_async16(W_s + swz_at(kF, r, f), w + r * kF + f, true);
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float acc[2][4][4]) {
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mb][nb][q] = 0.f;
+}
+
+template <bool SYM>
+__global__ void __launch_bounds__(kThreads, 1)
 schnet_stack_kernel(const float* __restrict__ dist, const float* __restrict__ env,
                     const float* __restrict__ h0, const float* __restrict__ wl1,
                     const float* __restrict__ w1, const float* __restrict__ b1,
                     const float* __restrict__ w2, const float* __restrict__ b2,
                     const float* __restrict__ wa, const float* __restrict__ ba,
                     const float* __restrict__ wb, const float* __restrict__ bb,
-                    float* __restrict__ out, int n, int G, int L, float start,
-                    float delta, float coeff) {
-  const int nt = (n + kTile - 1) / kTile;
+                    float* h, float* xb, float* mb_, const int* __restrict__ occ,
+                    const int* __restrict__ pre, unsigned* bar, int B, int n, int G,
+                    int L, float start, float delta, float coeff) {
   extern __shared__ float4 smem_v4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem_v4);
-  float* W1_s = smem;                   // [G][kF]
-  float* W2_s = W1_s + G * kF;          // [kF][kF]
-  float* rbf_s = W2_s + kF * kF;        // [kPairs][G]
-  float* s_s = rbf_s + kPairs * G;      // [kPairs][kF]
-  float* x_s = s_s + kPairs * kF;       // [nt*kTile][kF]
-  float* m_s = x_s + nt * kTile * kF;   // [kTile][kF]
-  float* t_s = m_s + kTile * kF;        // [kTile][kF]
-  float* d_s = t_s + kTile * kF;        // [kPairs]
-  float* e_s = d_s + kPairs;            // [kPairs]
-  int* occ_s = (int*)(e_s + kPairs);    // [nt][nt] tile occupancy
+  float* W1_s = smem + kOffW1;
+  float* W2_s = smem + kOffW2;
+  float* rbf_s = smem + kOffRbf;
+  float* s_s = smem + kOffS;
+  float* xi_s = smem + kOffXi;
+  float* b1_s = smem + kOffB;
+  float* b2_s = b1_s + kF;
+  int* misc = reinterpret_cast<int*>(smem + kStackFloats);  // [0] first item [1] tiles
+  int* tl_s = misc + 4;                                     // the item's computed j tiles
 
-  const int tid = threadIdx.x, b = blockIdx.x;
-  const int r = tid >> 5, lane = tid & 31;
-  const float* dist_b = dist + (size_t)b * n * n;
-  const float* env_b = env + (size_t)b * n * n;
-  float* h = out + (size_t)b * n * kF;  // h lives in the output rows
-  for (int idx = tid; idx < n * kF; idx += kThreads) h[idx] = h0[(size_t)b * n * kF + idx];
-  // env is the same for every block: flag the occupied tiles once
-  for (int t = tid; t < nt * nt; t += kThreads) occ_s[t] = 0;
-  __syncthreads();
-  for (int idx = tid; idx < n * n; idx += kThreads) {
-    const int i = idx / n, j = idx - i * n;
-    if (env_b[idx] != 0.f) occ_s[(i / kTile) * nt + j / kTile] = 1;
-  }
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // warp (wm, wn) owns rows 32*wm.. and columns 32*wn.. of every 64 x F product
+  const int wm = warp & 1, wn = warp >> 1;
+  const int nt = (n + kTile - 1) / kTile, n_items = B * nt, rows = B * n;
+  const int n_chunks = (rows + kRows - 1) / kRows;
 
-  const int fg = thread_fg(), il = thread_il();
-  for (int l = 0; l < L; ++l) {
-    const float* Wl1 = wl1 + (size_t)l * kF * kF;
-    const float* B1 = b1 + (size_t)l * kF;
-    const float* B2 = b2 + (size_t)l * kF;
-    const float* Wa = wa + (size_t)l * kF * kF;
-    const float* Ba = ba + (size_t)l * kF;
-    const float* Wb = wb + (size_t)l * kF * kF;
-    const float* Bb = bb + (size_t)l * kF;
-    __syncthreads();  // h of the previous block is complete
-    block_copy(W1_s, w1 + (size_t)l * G * kF, G * kF);
-    block_copy(W2_s, w2 + (size_t)l * kF * kF, kF * kF);
-    // x = h Wl1 (rows past n are zero)
-    for (int r0 = 0; r0 < nt * kTile; r0 += kTile) {
-      float y[4] = {0.f, 0.f, 0.f, 0.f};
-      if (r0 + r < n) {
-        const float* hr = h + (size_t)r0 * kF;
-        // rows_linear reads A[r * kF + c]; hr is the tile's first row
-        rows_linear(hr, Wl1, nullptr, y);
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) x_s[(r0 + r) * kF + lane + 32 * k] = y[k];
+  for (int idx = tid; idx < kPairs * kSGP; idx += kThreads) rbf_s[idx] = 0.f;  // columns >= G stay 0
+  // this block's run of tiles, and the item holding its first tile
+  const long long total = pre[n_items];
+  const int t_begin = (int)(total * blockIdx.x / gridDim.x);
+  const int t_end = (int)(total * (blockIdx.x + 1) / gridDim.x);
+  if (tid == 0) {
+    int lo = 0, hi = n_items - 1;  // the last item with pre[item] <= t_begin
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (pre[mid] <= t_begin)
+        lo = mid;
+      else
+        hi = mid - 1;
     }
+    misc[0] = lo;
+  }
+  __syncthreads();
+  const int item0 = misc[0];
 
-    for (int pi = 0; pi < nt; ++pi) {
-      const int i0 = pi * kTile;
-      float macc[kFPT];
+  for (int l = 0; l <= L; ++l) {
+    // -- dense phase: the update of block l - 1, then x = h Wl1[l], m = 0 ----
+    float* A_s = s_s;
+    float* W_s = W2_s;
+    for (int ch = blockIdx.x; ch < n_chunks; ch += gridDim.x) {
+      const int r0 = ch * kRows;
+      float acc[2][4][4];
+      __syncthreads();  // A_s and W_s are free
+      load_rows(A_s, l == 0 ? h0 : mb_, r0, rows);
+      if (l > 0) load_weight(W_s, wa + (size_t)(l - 1) * kF * kF);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (l > 0) {
+        // t = ssp(m Wa + ba), then h += t Wb + bb
+        const float* Ba = ba + (size_t)(l - 1) * kF;
+        const float* Bb = bb + (size_t)(l - 1) * kF;
+        zero_acc(acc);
+        warp_tile_mma<2, 4, kF, false, false, false, kPrecise>(acc, A_s, kF, 32 * wm, W_s, kF, 32 * wn);
+        __syncthreads();  // every warp is done with A_s and W_s
+        load_weight(W_s, wb + (size_t)(l - 1) * kF * kF);
+        cp_async_commit();
 #pragma unroll
-      for (int k = 0; k < kFPT; ++k) macc[k] = 0.f;
-      for (int pj = 0; pj < nt; ++pj) {
-        if (!occ_s[pi * nt + pj]) continue;  // block-uniform
+        for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int c0 = 32 * wn + 8 * nb + 2 * t;
+              store2(A_s, kF, 32 * wm + 16 * mb + 8 * hh + g, c0,
+                     ssp_fast(acc[mb][nb][2 * hh] + Ba[c0]),
+                     ssp_fast(acc[mb][nb][2 * hh + 1] + Ba[c0 + 1]));
+            }
+        cp_async_wait<0>();
+        __syncthreads();
+        zero_acc(acc);
+        warp_tile_mma<2, 4, kF, false, false, false, kPrecise>(acc, A_s, kF, 32 * wm, W_s, kF, 32 * wn);
+        __syncthreads();  // every warp is done with A_s and W_s
+        if (l < L) {
+          load_weight(W_s, wl1 + (size_t)l * kF * kF);
+          cp_async_commit();
+        }
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int r = 32 * wm + 16 * mb + 8 * hh + g, c0 = 32 * wn + 8 * nb + 2 * t;
+              if (r0 + r < rows) {
+                float2* hp = reinterpret_cast<float2*>(h + (size_t)(r0 + r) * kF + c0);
+                const float2 ho = __ldcg(hp);
+                const float2 hn = make_float2(ho.x + acc[mb][nb][2 * hh] + Bb[c0],
+                                              ho.y + acc[mb][nb][2 * hh + 1] + Bb[c0 + 1]);
+                *hp = hn;
+                store2(A_s, kF, r, c0, hn.x, hn.y);
+              } else {
+                store2(A_s, kF, r, c0, 0.f, 0.f);
+              }
+            }
+      } else {
+        // the first block's h is h0
+        for (int c = tid; c < kRows * kF / 4; c += kThreads) {
+          const int r = c / (kF / 4), f = (c % (kF / 4)) * 4;
+          if (r0 + r < rows)
+            *reinterpret_cast<float4*>(h + (size_t)(r0 + r) * kF + f) =
+                *reinterpret_cast<const float4*>(A_s + swz_at(kF, r, f));
+        }
+        load_weight(W_s, wl1);
+        cp_async_commit();
+      }
+      if (l == L) continue;
+      cp_async_wait<0>();
+      __syncthreads();  // Wl1 and the new h rows in shared memory
+      zero_acc(acc);
+      warp_tile_mma<2, 4, kF, false, false, false, kPrecise>(acc, A_s, kF, 32 * wm, W_s, kF, 32 * wn);
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int r = 32 * wm + 16 * mb + 8 * hh + g, c0 = 32 * wn + 8 * nb + 2 * t;
+            if (r0 + r < rows) {
+              const size_t o = (size_t)(r0 + r) * kF + c0;
+              *reinterpret_cast<float2*>(xb + o) = make_float2(acc[mb][nb][2 * hh],
+                                                               acc[mb][nb][2 * hh + 1]);
+              *reinterpret_cast<float2*>(mb_ + o) = make_float2(0.f, 0.f);
+            }
+          }
+    }
+    if (l == L) break;
+    grid_sync(bar);  // x and the zeroed m of every row are written
+
+    // -- message phase of block l over this block's run of tiles ------------
+    {
+      const float* W1 = w1 + (size_t)l * G * kF;
+      for (int c = tid; c < kSGP * kF / 4; c += kThreads) {
+        const int r = c / (kF / 4), f = (c % (kF / 4)) * 4;
+        cp_async16(W1_s + swz_at(kF, r, f), W1 + (r < G ? r * kF + f : 0), r < G);
+      }
+      load_weight(W2_s, w2 + (size_t)l * kF * kF);
+      cp_async_commit();
+      if (tid < kF) {
+        b1_s[tid] = b1[(size_t)l * kF + tid];
+        b2_s[tid] = b2[(size_t)l * kF + tid];
+      }
+    }
+    int tile = t_begin;
+    for (int item = item0; tile < t_end; ++item) {
+      const int k0 = tile - pre[item];
+      const int k1 = min(pre[item + 1] - pre[item], k0 + (t_end - tile));
+      tile += k1 - k0;
+      if (k1 <= k0) continue;
+      const int b = item / nt, pi = item - b * nt, i0 = pi * kTile;
+      __syncthreads();  // the previous item is done with tl_s and xi_s
+      if (warp == 0) item_tiles(occ + (size_t)item * nt, nt, tl_s);
+      if (SYM) {  // the x rows of the i tile
+        for (int c = tid; c < kTile * kF / 4; c += kThreads) {
+          const int r = c / (kF / 4), f = (c % (kF / 4)) * 4, i = i0 + r;
+          cp_async16(xi_s + r * kSRS + f, xb + (i < n ? ((size_t)b * n + i) * kF + f : 0), i < n);
+        }
+        cp_async_commit();
+      }
+      __syncthreads();  // tl_s complete
+
+      // issues the cp.async loads of tile pj into buffer buf: dist/env, then
+      // the x rows of the j tile
+      auto load_tile = [&](int pj, int buf) {
         const int j0 = pj * kTile;
-        __syncthreads();  // x_s complete; the previous tile is done with d_s/e_s
-        if (tid < kPairs) {
-          const int i = i0 + tid / kTile, j = j0 + tid % kTile;
+        if (tid < 2 * kPairs) {
+          const int p = tid & (kPairs - 1), i = i0 + (p >> 3), j = j0 + (p & 7);
           const bool in = i < n && j < n;
-          d_s[tid] = in ? dist_b[(size_t)i * n + j] : 0.f;
-          e_s[tid] = in ? env_b[(size_t)i * n + j] : 0.f;
+          cp_async4(smem + kOffDE + (2 * buf + (tid >= kPairs)) * kPairs + p,
+                    (tid < kPairs ? dist : env) + (in ? ((size_t)b * n + i) * n + j : 0), in);
+        }
+        for (int c = tid; c < kTile * kF / 4; c += kThreads) {
+          const int r = c / (kF / 4), f = (c % (kF / 4)) * 4, j = j0 + r;
+          cp_async16(smem + kOffXj + buf * kTile * kSRS + r * kSRS + f,
+                     xb + (j < n ? ((size_t)b * n + j) * kF + f : 0), j < n);
+        }
+        cp_async_commit();
+      };
+
+      // this lane's share of rows i (il = g), columns 32*wn + 8*nb + 2*t + c,
+      // summed over this warp's four jl of every tile of the run
+      float racc[4][2];
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) racc[nb][0] = racc[nb][1] = 0.f;
+
+      load_tile(tl_s[k0], 0);
+      for (int k = k0; k < k1; ++k) {
+        const int pj = tl_s[k], buf = (k - k0) & 1, j0 = pj * kTile;
+        cp_async_wait<0>();
+        __syncthreads();  // tile k's rows (and the weights, the x_i rows) have
+                          // landed; every warp is done with tile k - 1's buffer
+        if (k + 1 < k1) load_tile(tl_s[k + 1], buf ^ 1);
+        const float* d_t = smem + kOffDE + 2 * buf * kPairs;
+        const float* e_t = d_t + kPairs;
+        const float* xj_t = smem + kOffXj + buf * kTile * kSRS;
+
+        // RBF of the tile's 64 pairs (row p = jl*8 + il)
+        for (int idx = tid; idx < kPairs * kSGP; idx += kThreads) {
+          const int p = idx / kSGP, gg = idx % kSGP;
+          if (gg < G) {
+            const float diff = d_t[(p & 7) * kTile + (p >> 3)] - (start + delta * (float)gg);
+            rbf_s[swz_at(kSGP, p, gg)] = __expf(coeff * diff * diff);
+          }
         }
         __syncthreads();
-        float w[kPPT][kFPT], c[kFPT];
-        filter_tile(d_s, rbf_s, s_s, W1_s, B1, W2_s, B2, G, start, delta, coeff, w);
-        tile_message(e_s, x_s + (size_t)j0 * kF, w, c);
+
+        // hidden s = ssp(rbf W1 + b1) into s_s
+        float acc[2][4][4];
+        zero_acc(acc);
+        if (G <= 56)
+          warp_tile_mma<2, 4, 56, false, false, false, kPrecise>(acc, rbf_s, kSGP, 32 * wm, W1_s, kF, 32 * wn);
+        else
+          warp_tile_mma<2, 4, kSGP, false, false, false, kPrecise>(acc, rbf_s, kSGP, 32 * wm, W1_s, kF, 32 * wn);
 #pragma unroll
-        for (int k = 0; k < kFPT; ++k) macc[k] += c[k];
+        for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) {
+            const int c0 = 32 * wn + 8 * nb + 2 * t;
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              store2(s_s, kF, 32 * wm + 16 * mb + 8 * hh + g, c0,
+                     ssp_fast(acc[mb][nb][2 * hh] + b1_s[c0]),
+                     ssp_fast(acc[mb][nb][2 * hh + 1] + b1_s[c0 + 1]));
+          }
+        __syncthreads();
+
+        // the filter w = s W2 + b2, in registers; then the messages
+        zero_acc(acc);
+        warp_tile_mma<2, 4, kF, false, false, false, kPrecise>(acc, s_s, kF, 32 * wm, W2_s, kF, 32 * wn);
+        float v[32];
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int jl = 4 * wm + 2 * mb + hh;
+            const float e = e_t[g * kTile + jl];
+#pragma unroll
+            for (int nb = 0; nb < 4; ++nb) {
+              const int c0 = 32 * wn + 8 * nb + 2 * t;
+              const float ew0 = e * (acc[mb][nb][2 * hh] + b2_s[c0]);
+              const float ew1 = e * (acc[mb][nb][2 * hh + 1] + b2_s[c0 + 1]);
+              const float2 xj = *reinterpret_cast<const float2*>(xj_t + jl * kSRS + c0);
+              racc[nb][0] = fmaf(ew0, xj.x, racc[nb][0]);
+              racc[nb][1] = fmaf(ew1, xj.y, racc[nb][1]);
+              if (SYM) {
+                const float2 xi = *reinterpret_cast<const float2*>(xi_s + g * kSRS + c0);
+                v[16 * mb + 8 * hh + 2 * nb] = ew0 * xi.x;
+                v[16 * mb + 8 * hh + 2 * nb + 1] = ew1 * xi.y;
+              }
+            }
+          }
+        if (SYM && pi != pj) {  // block-uniform: the mirrored messages into rows j
+          rs_lanes<2>(v);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int e = 4 * g + q, j = j0 + 4 * wm + (e >> 3);
+            const int c = 32 * wn + 8 * ((e >> 1) & 3) + 2 * t + (e & 1);
+            if (j < n) atomicAdd(mb_ + ((size_t)b * n + j) * kF + c, v[q]);
+          }
+        }
       }
-      if ((tid & 16) == 0) {
+      // this warp's part of rows i over the run's tiles
+      const int i = i0 + g;
+      if (i < n) {
 #pragma unroll
-        for (int k = 0; k < kFPT; ++k) m_s[il * kF + feat(fg, k)] = macc[k];
-      }
-      __syncthreads();
-      float y[4];
-      rows_linear(m_s, Wa, Ba, y);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) t_s[r * kF + lane + 32 * k] = ssp(y[k]);
-      __syncthreads();
-      rows_linear(t_s, Wb, Bb, y);
-      if (i0 + r < n) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) h[(size_t)(i0 + r) * kF + lane + 32 * k] += y[k];
+        for (int nb = 0; nb < 4; ++nb) {
+          float* dst = mb_ + ((size_t)b * n + i) * kF + 32 * wn + 8 * nb + 2 * t;
+          atomicAdd(dst, racc[nb][0]);
+          atomicAdd(dst + 1, racc[nb][1]);
+        }
       }
     }
+    cp_async_wait<0>();  // a block with no tiles still staged the weights
+    grid_sync(bar);      // m of every row is complete
   }
 }
 
-static size_t smem_bytes(int n, int G) {
-  const int nt = (n + kTile - 1) / kTile;
-  return sizeof(float) * ((size_t)G * kF + kF * kF + kPairs * G + kPairs * kF +
-                          (size_t)nt * kTile * kF + 2 * kTile * kF + 2 * kPairs) +
-         sizeof(int) * (size_t)nt * nt;
+static size_t smem_bytes(int n) {
+  return sizeof(float) * (size_t)kStackFloats + sizeof(int) * (4 + (size_t)((n + kTile - 1) / kTile));
+}
+
+template <bool SYM>
+static cudaError_t launch(void** args, size_t smem, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(schnet_stack_kernel<SYM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, (const void*)schnet_stack_kernel<SYM>, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  // every block must be resident for the grid barriers: a cooperative launch
+  // refuses a grid that would not be
+  return cudaLaunchCooperativeKernel((const void*)schnet_stack_kernel<SYM>, dim3(sms * per_sm),
+                                     dim3(kThreads), args, smem, s);
 }
 
 }  // namespace geossl
 
-extern "C" size_t schnet_stack_smem_bytes(int n, int G) { return geossl::smem_bytes(n, G); }
+extern "C" size_t schnet_stack_smem_bytes(int n) { return geossl::smem_bytes(n); }
 
-// Returns the cudaError_t of the launch (0 on success). F must be 128.
+// Ints of the workspace: the work list over (graph, i tile) items
+// (worklist.cuh), then the grid barrier's two counters.
+extern "C" size_t schnet_stack_ws_ints(int B, int n) {
+  const int nt = (n + geossl::kTile - 1) / geossl::kTile;
+  return geossl::worklist_ints((size_t)B * nt, nt) + 2;
+}
+
+// Returns the cudaError_t of the launches (0 on success). F must be 128 and
+// G at most 64. `xbuf` and `mbuf` are [B, n, F] scratch, `ws` holds
+// schnet_stack_ws_ints(B, n) ints. With `symmetric` dist and env must be
+// symmetric (the header says why).
 extern "C" int schnet_stack(const float* dist, const float* env, const float* h0,
                             const float* wl1, const float* w1, const float* b1,
                             const float* w2, const float* b2, const float* wa,
                             const float* ba, const float* wb, const float* bb,
-                            float* out, int B, int n, int F, int G, int L,
-                            float start, float delta, float coeff, void* stream) {
+                            float* out, float* xbuf, float* mbuf, int* ws, int B, int n,
+                            int F, int G, int L, float start, float delta, float coeff,
+                            int symmetric, void* stream) {
   using namespace geossl;
-  if (F != kF) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(n, G);
-  cudaFuncSetAttribute(schnet_stack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  schnet_stack_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      dist, env, h0, wl1, w1, b1, w2, b2, wa, ba, wb, bb, out, n, G, L, start, delta,
-      coeff);
+  if (F != kF || G < 1 || G > kSGP || L < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nt = (n + kTile - 1) / kTile;
+  const size_t items = (size_t)B * nt;
+  int* occ = ws;
+  int* pre = occ + items * nt + items;
+  unsigned* bar = reinterpret_cast<unsigned*>(ws + worklist_ints(items, nt));
+  cudaError_t err = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned), s);
+  if (err != cudaSuccess) return (int)err;
+  ZeroGrids none = {{nullptr}, 0};
+  err = symmetric ? make_worklist<true, true>(env, ws, none, B, n, n, 1, s)
+                  : make_worklist<false, true>(env, ws, none, B, n, n, 1, s);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&dist, &env, &h0,  &wl1, &w1,  &b1,  &w2,  &b2, &wa,    &ba,    &wb,
+                  &bb,   &out, &xbuf, &mbuf, &occ, &pre, &bar, &B, &n,    &G,     &L,
+                  &start, &delta, &coeff};
+  const size_t smem = smem_bytes(n);
+  err = symmetric ? launch<true>(args, smem, s) : launch<false>(args, smem, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

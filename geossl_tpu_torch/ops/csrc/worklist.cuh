@@ -1,0 +1,149 @@
+// A work list of occupied 8x8 pair tiles, made on the device with no host
+// sync, shared by the persistent kernels (cfconv_bwd.cu, painn_bwd.cu,
+// schnet_stack.cu).
+//
+// An occupancy pass (one block per graph and 8-row band) flags the tiles to
+// compute (with `sparse` those whose env is not all zero; with SYM only the
+// tiles pi <= pj), writes zero on the other tiles of up to five pair grids
+// (a backward's pair cotangents: the occupancy contract of
+// geossl_tpu/ops/pallas_utils.py) and counts each item's tiles. An item is
+// (graph, 8-column j tile) with its tiles listed over pi, or, BY_ROW,
+// (graph, 8-row i tile) with its tiles listed over pj. A one-block scan turns
+// the counts into prefix sums, by which a persistent grid splits the work
+// into contiguous runs (first_item, or a kernel's own split by tile).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "pair_tile.cuh"
+
+namespace geossl {
+
+constexpr int kOccThreads = 256;
+
+// Up to five [B, ni, nj] grids to zero on the tiles that are not computed.
+struct ZeroGrids {
+  float* g[5];
+  int n;
+};
+
+// Block (pi, b) flags the computed tiles of its 8-row band: occ[item][tile]
+// with item (b, pj) and tile pi, or BY_ROW item (b, pi) and tile pj.
+template <bool SYM, bool BY_ROW>
+__global__ void __launch_bounds__(kOccThreads)
+tile_occ_kernel(const float* __restrict__ env, int* __restrict__ occ,
+                int* __restrict__ cnt, ZeroGrids zero, int ni, int nj, int sparse) {
+  extern __shared__ int flag_s[];  // [ntj]
+  const int tid = threadIdx.x, pi = blockIdx.x, b = blockIdx.y;
+  const int ntj = (nj + kTile - 1) / kTile, nti = (ni + kTile - 1) / kTile;
+  const int i0 = pi * kTile, rows = min(kTile, ni - i0);
+  const size_t base = ((size_t)b * ni + i0) * nj;
+  for (int t = tid; t < ntj; t += kOccThreads) flag_s[t] = !sparse;
+  __syncthreads();
+  if (sparse) {
+    const int js = SYM ? i0 : 0, w = nj - js;  // SYM: tiles left of the diagonal are skipped
+    for (int idx = tid; idx < rows * w; idx += kOccThreads) {
+      const int r = idx / w, j = js + idx - r * w;
+      if (env[base + (size_t)r * nj + j] != 0.f) flag_s[j / kTile] = 1;
+    }
+    __syncthreads();
+  }
+  for (int pj = tid; pj < ntj; pj += kOccThreads) {
+    const int on = (!SYM || pi <= pj) && flag_s[pj];
+    if (BY_ROW) {
+      occ[((size_t)b * nti + pi) * ntj + pj] = on;
+      if (on) atomicAdd(&cnt[b * nti + pi], 1);
+    } else {
+      occ[((size_t)b * ntj + pj) * nti + pi] = on;
+      if (on) atomicAdd(&cnt[b * ntj + pj], 1);
+    }
+    flag_s[pj] = on;
+  }
+  __syncthreads();
+  if (zero.n == 0) return;
+  for (int idx = tid; idx < rows * nj; idx += kOccThreads) {
+    const int r = idx / nj, j = idx - r * nj;
+    if (!flag_s[j / kTile]) {
+      for (int k = 0; k < zero.n; ++k) zero.g[k][base + (size_t)r * nj + j] = 0.f;
+    }
+  }
+}
+
+// Exclusive prefix sums of the n item counts: pre[0..n], pre[n] the total.
+__global__ void __launch_bounds__(1024)
+tile_scan_kernel(const int* __restrict__ cnt, int* __restrict__ pre, int n) {
+  __shared__ int part_s[1024];
+  const int tid = threadIdx.x, per = (n + 1023) / 1024;
+  const int lo = min(n, tid * per), hi = min(n, lo + per);
+  int s = 0;
+  for (int i = lo; i < hi; ++i) s += cnt[i];
+  part_s[tid] = s;
+  __syncthreads();
+  for (int off = 1; off < 1024; off <<= 1) {
+    const int v = tid >= off ? part_s[tid - off] : 0;
+    __syncthreads();
+    part_s[tid] += v;
+    __syncthreads();
+  }
+  int run = part_s[tid] - s;
+  for (int i = lo; i < hi; ++i) {
+    pre[i] = run;
+    run += cnt[i];
+  }
+  if (tid == 1023) pre[n] = part_s[1023];
+}
+
+// First item whose block, by work, is >= k: item i goes to block
+// min(nb - 1, (pre[i] + pre[i+1]) * nb / (2 total)), the block holding the
+// middle of its work. Items are never split between blocks.
+__device__ inline int first_item(const int* __restrict__ pre, int n, int nb, int k) {
+  const long long t2 = 2LL * max(pre[n], 1);
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const long long key = min((long long)nb - 1,
+                              (long long)(pre[mid] + pre[mid + 1]) * nb / t2);
+    if (key >= k)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+// Ints of a work list over `items` items of `tiles` tiles each: flags
+// [items * tiles], counts [items], prefix sums [items + 1].
+inline size_t worklist_ints(size_t items, size_t tiles) { return items * tiles + 2 * items + 1; }
+
+// The occupancy pass and the scan on stream s; ws holds worklist_ints ints.
+template <bool SYM, bool BY_ROW>
+inline cudaError_t make_worklist(const float* env, int* ws, ZeroGrids zero, int B, int ni,
+                                 int nj, int sparse, cudaStream_t s) {
+  const int ntj = (nj + kTile - 1) / kTile, nti = (ni + kTile - 1) / kTile;
+  const int items = B * (BY_ROW ? nti : ntj);
+  int* occ = ws;
+  int* cnt = occ + (size_t)items * (BY_ROW ? ntj : nti);
+  int* pre = cnt + items;
+  cudaError_t err = cudaMemsetAsync(cnt, 0, sizeof(int) * (size_t)items, s);
+  if (err != cudaSuccess) return err;
+  tile_occ_kernel<SYM, BY_ROW><<<dim3(nti, B), kOccThreads, sizeof(int) * ntj, s>>>(
+      env, occ, cnt, zero, ni, nj, sparse);
+  tile_scan_kernel<<<1, 1024, 0, s>>>(cnt, pre, items);
+  return cudaGetLastError();
+}
+
+// The item's computed tiles, in order, into tl_s (warp 0 only); returns
+// their number on every lane of warp 0. row: the item's flags.
+__device__ inline int item_tiles(const int* __restrict__ row, int n_t, int* tl_s) {
+  const int lane = threadIdx.x & 31;
+  int n = 0;
+  for (int base = 0; base < n_t; base += 32) {
+    const bool on = base + lane < n_t && row[base + lane];
+    const unsigned m = __ballot_sync(0xffffffffu, on);
+    if (on) tl_s[n + __popc(m & ((1u << lane) - 1u))] = base + lane;
+    n += __popc(m);
+  }
+  return n;
+}
+
+}  // namespace geossl

@@ -39,8 +39,10 @@ Kernels:
 
 The two message-pass Functions and the stack's are first order only: the
 JAX package's second-order path (MD17 forces) is not ported, and a double
-backward raises NotImplementedError. The kernels compute in plain f32 (no
-TF32).
+backward raises NotImplementedError. The kernels compute in plain f32 on
+the CUDA cores, but for ``painn_bwd``, whose three tile products run on the
+tensor cores in 3xTF32 (``csrc/mma_tf32.cuh``), within f32 rounding of the
+plain version.
 
 The symmetric pair is for symmetric dist/gate and antisymmetric directions
 only (dir[j, i] = -dir[i, j]): PaiNN's geometry gives them without
@@ -302,7 +304,7 @@ def _launch_painn_bwd(name, dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq,
                               [ctypes.c_int, ctypes.c_int])(b, nj)
     fn = _build.kernel_fn(
         "painn_bwd", "painn_bwd",
-        [ctypes.c_void_p] * 20 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+        [ctypes.c_void_p] * 21 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     dev = dist.device
     ddist, dgate, ddx, ddy, ddz = (torch.empty_like(dist) for _ in range(5))
@@ -312,9 +314,15 @@ def _launch_painn_bwd(name, dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq,
     size = (num_r + 1) * f3  # dWk rows, then dbk
     part = torch.empty((blocks, size), dtype=torch.float32, device=dev)
     wgrad = torch.empty(size, dtype=torch.float32, device=dev)
+    # the plain mode's work list, made on the device: tile flags, per-item
+    # tile counts and their prefix sums
+    ws = torch.empty(_build.kernel_fn(
+        "painn_bwd", "painn_bwd_ws_ints", [ctypes.c_int] * 3,
+        ctypes.c_size_t)(b, ni, nj), dtype=torch.int32, device=dev)
     delta, coeff = _rbf_consts(cutoff, num_r)
     err = fn(*map(ptr, (dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu,
-                        dx, dmu, ddist, dgate, ddx, ddy, ddz, part, wgrad)),
+                        dx, dmu, ddist, dgate, ddx, ddy, ddz, part, wgrad,
+                        ws)),
              b, ni, nj, KERNEL_F, num_r, delta, coeff, int(symmetric),
              int(sparse), stream(dist))
     check_launch(name, err)

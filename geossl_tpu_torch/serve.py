@@ -2,10 +2,10 @@
 ``geossl_tpu/serve.py``).
 
 * :class:`Predictor` buckets and pads incoming molecules (every batch is
-  padded to ``batch_size`` with empty graph slots), runs buckets up to
-  ``STACK_MAX_N`` = 128 atoms through the backbone's whole-stack kernel
-  (``schnet_stack`` / ``painn_stack``) and larger ones through its per-block
-  kernels (CFConv / the PaiNN message pass), and returns results in input
+  padded to ``batch_size`` with empty graph slots), runs each bucket through
+  the backbone's whole-stack kernel (``schnet_stack`` / ``painn_stack``) up
+  to the backbone's ``*_STACK_MAX_N`` and through its per-block kernels
+  (CFConv / the PaiNN message pass) above, and returns results in input
   order.
   Each packed batch is uploaded once; all results come back in one
   device-to-host copy at the end of a pass.
@@ -32,8 +32,15 @@ from geossl_tpu_torch.data.bucketing import assign_buckets, pack_batch
 from geossl_tpu_torch.data.store import MolStore
 from geossl_tpu_torch.models import painn, schnet
 from geossl_tpu_torch.ops.cfconv import STACK_MAX_N
-from geossl_tpu_torch.ops.painn import STACK_MAX_N as PAINN_STACK_MAX_N
 from geossl_tpu_torch.train.common import make_backbone, make_head
+
+# The largest bucket each backbone serves through its whole-stack kernel
+# (0: none; at most the kernels' STACK_MAX_N = 128), set on the H100 by
+# chip_smoke.py's ``serving_route:`` line (PERF.md): the stack is the faster
+# route for SchNet at N = 32, 64 and 128, for PaiNN at N = 32 only. The JAX
+# package's STACK_MAX_N (its choice on the TPU) does not route the port.
+SCHNET_STACK_MAX_N = 128
+PAINN_STACK_MAX_N = 32
 
 
 def resolve_device(device=None) -> torch.device:
@@ -90,10 +97,11 @@ class Predictor:
             self._stackable = True
         else:
             self._stack_apply = schnet.fused_stack_apply
-            self._stack_max_n = STACK_MAX_N
+            self._stack_max_n = SCHNET_STACK_MAX_N
             # the stack kernel keeps h at one width
             self._stackable = (self.model.num_filters
                                == self.model.hidden_channels)
+        self._stack_max_n = min(self._stack_max_n, STACK_MAX_N)
         # the kernels' [in, out] weight layouts, made once for fixed weights
         with torch.no_grad():
             self._filters = self.model.filter_weights()
@@ -131,11 +139,17 @@ class Predictor:
                 batch = pack_batch(records, int(b), self.batch_size)
                 yield chunk, batch.to(self.device)
 
+    def stack_route(self, n: int) -> bool:
+        """True when a batch padded to ``n`` atoms goes through the
+        whole-stack kernel (the backbone's ``*_STACK_MAX_N``), False when
+        through the per-block kernels."""
+        return self._stackable and n <= self._stack_max_n
+
     def _graph_repr(self, batch):
-        """Pooled representation [B, F]: the whole-stack kernel up to
-        STACK_MAX_N atoms, the per-block path above."""
+        """Pooled representation [B, F], by the route of
+        :meth:`stack_route`."""
         args = (batch.atom_type, batch.positions, batch.node_mask)
-        if self._stackable and batch.max_atoms <= self._stack_max_n:
+        if self.stack_route(batch.max_atoms):
             graph, _ = self._stack_apply(self.model, *args,
                                          stacked=self._stacked)
         else:

@@ -1,7 +1,8 @@
-"""The CFConv backward's tensor-core numerics and SchNet's symmetric route,
-on the CPU.
+"""The tensor-core kernels' numerics and SchNet's symmetric route, on the
+CPU.
 
-``ops/csrc/cfconv_bwd.cu`` runs its six tile products with
+``ops/csrc/cfconv_bwd.cu`` runs its six tile products (``painn_bwd.cu`` its
+three, ``schnet_stack.cu`` its filter and dense products) with
 ``mma.sync.m16n8k8`` in 3xTF32 (``csrc/mma_tf32.cuh``): each f32 operand is
 split into a TF32 high part (its top 19 bits) and the f32 remainder, whose
 top 19 bits the tensor core reads, and the product is
@@ -44,16 +45,20 @@ def tf32_round(x):
     return _float((_bits(x) + 0x1000) & 0xFFFFE000)
 
 
-def mma_product(a, b, passes):
+def mma_product(a, b, passes, split=None):
     """a [M,K] @ b [K,N] in f32 as mma.m16n8k8 computes it: per k-block of
     8 each pass's products summed exactly, the f32 accumulator rounded after
-    every pass. passes=3 is the kernel's 3xTF32, passes=1 one TF32 pass."""
+    every pass. passes=3 is the kernels' 3xTF32, passes=1 one TF32 pass.
+    ``split=tf32_round`` is the precise mode's split (``split_tf32<true>``:
+    both parts rounded to nearest); the default cuts both, as the CFConv
+    and PaiNN backward kernels do."""
     a, b = a.float(), b.float()
+    cut = split or tf32_trunc
     if passes == 1:
         terms = [(tf32_round(a), tf32_round(b))]
     else:
-        ah, bh = tf32_trunc(a), tf32_trunc(b)
-        terms = [(tf32_trunc(a - ah), bh), (ah, tf32_trunc(b - bh)), (ah, bh)]
+        ah, bh = cut(a), cut(b)
+        terms = [(cut(a - ah), bh), (ah, cut(b - bh)), (ah, bh)]
     c = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
     for k0 in range(0, a.shape[1], 8):
         ks = slice(k0, k0 + 8)
@@ -75,18 +80,42 @@ def _operands(rng, m, k, n, kind):
         pre = rng.normal(0.0, 1.5, (m, k))
         a = np.logaddexp(pre, 0.0) - np.log(2.0)
         b = rng.normal(0.0, 1.0 / np.sqrt(k), (k, n))
-    else:  # s^T qe: K runs over the tile's 64 pairs
+    elif kind == "sT_qe":  # K runs over the tile's 64 pairs
         pre = rng.normal(0.0, 1.5, (k, m))
         a = (np.logaddexp(pre, 0.0) - np.log(2.0)).T
         env = rng.uniform(0.0, 1.0, (k, 1))
         b = env * rng.normal(0.0, 1.0, (k, n)) * rng.normal(0.0, 1.0, (k, n))
+    elif kind in ("phi_wk", "phiT_dwg", "dwg_wkT"):
+        # painn_bwd's plain mode: [phi; 1] (R = 20 RBF rows, the bias row,
+        # zeros to 24 or 32), [Wk; bk] and the gated filter cotangent dwg
+        r = 20
+        delta = 5.0 / (r - 1)
+        phi = np.zeros((64, 32))
+        d = rng.uniform(0.5, 5.0, (64, 1))
+        phi[:, :r] = np.exp(-0.5 / delta**2 * (d - delta * np.arange(r)) ** 2)
+        phi[:, r] = 1.0
+        wk = np.zeros((32, 384))
+        wk[:r] = rng.normal(0.0, 1.0 / np.sqrt(r), (r, 384))
+        wk[r] = rng.normal(0.0, 0.1, 384)
+        dwg = (rng.uniform(0.0, 1.0, (64, 1)) * rng.normal(0.0, 1.0, (64, 384))
+               * rng.normal(0.0, 1.0, (64, 384)))
+        a, b = {"phi_wk": (phi[:, :k], wk[:k]),
+                "phiT_dwg": (phi.T[:m], dwg),
+                "dwg_wkT": (dwg, wk.T[:, :n])}[kind]
+    else:  # "dense": schnet_stack's h Wl1, m Wa, ssp(.) Wb over 64 atom rows
+        a = rng.normal(0.0, 1.0, (m, k))
+        b = rng.normal(0.0, 1.0 / np.sqrt(k), (k, n))
     return (torch.from_numpy(a.astype(np.float32)),
             torch.from_numpy(b.astype(np.float32)))
 
 
 @pytest.mark.parametrize("m,k,n,kind", [(64, 56, 128, "rbf_w1"),
                                         (64, 128, 128, "s_w2"),
-                                        (128, 64, 128, "sT_qe")])
+                                        (128, 64, 128, "sT_qe"),
+                                        (64, 24, 384, "phi_wk"),
+                                        (32, 64, 384, "phiT_dwg"),
+                                        (64, 384, 32, "dwg_wkT"),
+                                        (64, 128, 128, "dense")])
 def test_3xtf32_product_within_2e6_of_f64(m, k, n, kind):
     a, b = _operands(np.random.default_rng(m + k + n), m, k, n, kind)
     want = a.double() @ b.double()
@@ -96,6 +125,25 @@ def test_3xtf32_product_within_2e6_of_f64(m, k, n, kind):
     one = ((mma_product(a, b, passes=1).double() - want).norm()
            / want.norm()).item()
     assert one > 50 * rel  # the two small terms carry the f32 accuracy
+
+
+@pytest.mark.parametrize("m,k,n,kind", [(64, 56, 128, "rbf_w1"),
+                                        (64, 128, 128, "s_w2"),
+                                        (64, 128, 128, "dense")])
+def test_rounded_split_is_closer_to_f64(m, k, n, kind):
+    """schnet_stack's precise mode rounds both TF32 parts: at its tile
+    shapes that is within 6e-7 of the f64 product, closer than the cut
+    split (the rest of the mode, f32 accumulation of each k step, is what
+    the emulation already does)."""
+    a, b = _operands(np.random.default_rng(3 * m + k + n), m, k, n, kind)
+    want = a.double() @ b.double()
+
+    def rel(got):
+        return ((got.double() - want).norm() / want.norm()).item()
+
+    rounded = rel(mma_product(a, b, 3, split=tf32_round))
+    assert rounded < 6e-7, rounded
+    assert rounded < rel(mma_product(a, b, 3))
 
 
 def _ddist_rows(dh, w1, rbf, d, off, coeff, passes):
