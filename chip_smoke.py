@@ -280,7 +280,7 @@ KERNEL_ENTRIES = {
     "painn_fwd": ("painn_fwd", "_ZN6geossl16painn_fwd_kernelILb0E"),
     "painn_fwd_sym": ("painn_fwd", "_ZN6geossl16painn_fwd_kernelILb1E"),
     "painn_bwd": ("painn_bwd", "_ZN6geossl20painn_bwd_mma_kernel"),
-    "painn_bwd_sym": ("painn_bwd", "_ZN6geossl16painn_bwd_kernelILb1E"),
+    "painn_bwd_sym": ("painn_bwd", "_ZN6geossl20painn_bwd_sym_kernel"),
     "painn_stack": ("painn_stack", "_ZN6geossl18painn_stack_kernelILb0E"),
     "painn_stack_train": ("painn_stack", "_ZN6geossl18painn_stack_kernelILb1E"),
 }

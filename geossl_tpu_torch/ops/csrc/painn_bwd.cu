@@ -25,7 +25,7 @@
 // plain version, as the CFConv backward): per 8x8 tile, with pair
 // p = jl*8 + il as row p,
 //   w_raw [64 x 3F]  = [phi; 1]^T^T [Wk; bk]   K = R+1 padded to 24 (32 for R > 23)
-//   dphi  [64 x 32]  = dwg Wk^T                 K = 3F
+//   dphi  [64 x 32]  = dwg Wk^T                 K = 3F, in two halves
 //   [dWk; dbk] [32 x 3F] += [phi; 1] dwg        K = 64 pairs (precise mode)
 // phi is kept transposed ([r][p], a row of ones at r = R and zeros below),
 // and bk sits at row R of the staged Wk, so the bias rides in the products.
@@ -54,7 +54,7 @@
 // atomics: every output is bitwise the same from run to run on one card.
 //
 // SYM (symmetric dist/gate, antisymmetric directions, square grid;
-// painn_bwd_kernel<true>, plain f32 FMAs on the CUDA cores), the scheme of
+// painn_bwd_sym_kernel, plain f32 FMAs on the CUDA cores), the scheme of
 // cfconv_bwd.cu's SYM mode: tile (pi, pj) is computed iff
 // pi <= pj; item pj walks i tiles 0..pj, items by descending pj. On a tile
 // with pi < pj every cell (i, j) also carries its mirror (j, i), which has
@@ -365,26 +365,30 @@ painn_bwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
         }
       }
 
-      // ddist = sum_r (dwg Wk^T)[r] phi_r 2 coeff (d - delta r): warp w owns
-      // pairs 16*(w & 3).. and r 16*(w >> 2)..
+      // ddist = sum_r (dwg Wk^T)[r] phi_r 2 coeff (d - delta r), linear in
+      // dwg: warp w owns pairs 16*(w & 3).., all 32 r, and half the 3F
+      // columns of the product (192*(w >> 2)..), so that four
+      // accumulators per warp hide the mma latency; the two halves' ddist
+      // partials are summed in order below
       {
-        float ar[1][2][4];
+        float ar[1][4][4];
 #pragma unroll
-        for (int nb = 0; nb < 2; ++nb)
+        for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
           for (int q = 0; q < 4; ++q) ar[0][nb][q] = 0.f;
-        warp_tile_mma<1, 2, kF3, false, true>(ar, dwg_s, kF3, 16 * (warp & 3), Wk_s, kF3,
-                                              16 * (warp >> 2));
+        const int kh = (warp >> 2) * (kF3 / 2);
+        warp_tile_mma<1, 4, kF3 / 2, false, true>(ar, dwg_s + kh, kF3, 16 * (warp & 3),
+                                                  Wk_s + kh, kF3, 0);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int p = 16 * (warp & 3) + g + 8 * h;
           const float d = pr[(p & 7) * kTile + (p >> 3)];
           float s = 0.f;
 #pragma unroll
-          for (int nb = 0; nb < 2; ++nb)
+          for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
             for (int c = 0; c < 2; ++c) {
-              const int r = 16 * (warp >> 2) + 8 * nb + 2 * t + c;
+              const int r = 8 * nb + 2 * t + c;
               if (r < R) {
                 const float diff = d - delta * (float)r;
                 s = fmaf(ar[0][nb][2 * h + c] * phi_s[swz_at(kPairs, r, p)], 2.f * coeff * diff,
@@ -445,19 +449,18 @@ painn_bwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
 
 // -- symmetric mode: f32 FMAs on the CUDA cores ----------------------------------
 
-template <bool SYM>
 __global__ void __launch_bounds__(kThreads, 1)
-painn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
-                 const float* __restrict__ dirx, const float* __restrict__ diry,
-                 const float* __restrict__ dirz, const float* __restrict__ x,
-                 const float* __restrict__ mu, const float* __restrict__ wk,
-                 const float* __restrict__ bk, const float* __restrict__ gq,
-                 const float* __restrict__ gmu, float* __restrict__ dx,
-                 float* __restrict__ dmu_in, float* __restrict__ ddist,
-                 float* __restrict__ dgate, float* __restrict__ ddx,
-                 float* __restrict__ ddy, float* __restrict__ ddz,
-                 float* __restrict__ part, int B, int ni, int nj, int R, float delta,
-                 float coeff, int sparse) {
+painn_bwd_sym_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
+                     const float* __restrict__ dirx, const float* __restrict__ diry,
+                     const float* __restrict__ dirz, const float* __restrict__ x,
+                     const float* __restrict__ mu, const float* __restrict__ wk,
+                     const float* __restrict__ bk, const float* __restrict__ gq,
+                     const float* __restrict__ gmu, float* __restrict__ dx,
+                     float* __restrict__ dmu_in, float* __restrict__ ddist,
+                     float* __restrict__ dgate, float* __restrict__ ddx,
+                     float* __restrict__ ddy, float* __restrict__ ddz,
+                     float* __restrict__ part, int B, int ni, int nj, int R, float delta,
+                     float coeff, int sparse) {
   extern __shared__ float4 smem_v4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem_v4);
   float* Wk_s = smem;                      // [R][kWS3]
@@ -468,17 +471,17 @@ painn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
   float* gq_s = muj_s + kTile * kF3;       // [kTile][kF]   gq rows of the i tile
   float* gmu_s = gq_s + kTile * kF;        // [kTile][kF3]  gmu rows of the i tile
   float* pr_s = gmu_s + kTile * kF3;       // [5][kPairs]
-  float* xi_s = pr_s + 5 * kPairs;         // [kTile][kF3]  SYM: x rows of the i tile
-  float* gqj_s = xi_s + kTile * kF3;       // [kTile][kF]   SYM: gq rows of the j tile
-  float* gmuj_s = gqj_s + kTile * kF;      // [kTile][kF3]  SYM: gmu rows of the j tile
-  float* acc_s = gmuj_s + kTile * kF3;     // [5][kTile][kF] SYM: Q, U, T_0..2 of the i rows
-  int* occ_s = (int*)(SYM ? acc_s + 5 * kTile * kF : xi_s);  // [nti]
+  float* xi_s = pr_s + 5 * kPairs;         // [kTile][kF3]  x rows of the i tile
+  float* gqj_s = xi_s + kTile * kF3;       // [kTile][kF]   gq rows of the j tile
+  float* gmuj_s = gqj_s + kTile * kF;      // [kTile][kF3]  gmu rows of the j tile
+  float* acc_s = gmuj_s + kTile * kF3;     // [5][kTile][kF] Q, U, T_0..2 of the i rows
+  int* occ_s = (int*)(acc_s + 5 * kTile * kF);  // [nti]
 
   const int tid = threadIdx.x;
   const int fg = tid & (kFG - 1), hw = tid >> 4;
   const int jl = tid >> 5, il0 = (hw & 1) * kPPT;  // this thread's j and first i
   const int p0 = jl * kTile + il0;
-  const int ntj = (nj + kTile - 1) / kTile, nti = (ni + kTile - 1) / kTile;
+  const int ntj = (nj + kTile - 1) / kTile;
 
   for (int idx = tid; idx < R * kF3; idx += kThreads)
     Wk_s[(idx / kF3) * kWS3 + idx % kF3] = wk[idx];
@@ -494,19 +497,19 @@ painn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
       for (int k = 0; k < kFPT; ++k) gw[m][c][k] = 0.f;
 
   for (int item = blockIdx.x; item < B * ntj; item += gridDim.x) {
-    // SYM: by descending pj (item length pj + 1), graphs interleaved
-    const int b = SYM ? item % B : item / ntj;
-    const int pj = SYM ? ntj - 1 - item / B : item % ntj;
+    // by descending pj (item length pj + 1), graphs interleaved
+    const int b = item % B;
+    const int pj = ntj - 1 - item / B;
     const int j0 = pj * kTile;
-    // SYM: i tiles 0..pj are computed; rows from i_end on lie below the band
-    const int n_it = SYM ? pj + 1 : nti;
+    // i tiles 0..pj are computed; rows from i_end on lie below the band
+    const int n_it = pj + 1;
     const int i_end = min(ni, n_it * kTile);
     const size_t grid_off = (size_t)b * ni * nj;
     const float* gate_b = gate + grid_off;
     const float* gq_b = gq + (size_t)b * ni * kF;
     const float* gmu_b = gmu + (size_t)b * ni * kF3;
 
-    if (SYM) {  // the skipped tiles below the band hold zero
+    {  // the skipped tiles below the band hold zero
       for (int idx = tid; idx < (ni - i_end) * kTile; idx += kThreads) {
         const int i = i_end + idx / kTile, j = j0 + idx % kTile;
         if (j < nj) {
@@ -521,12 +524,10 @@ painn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
       const size_t src = ((size_t)b * nj + j) * kF3 + idx % kF3;
       xj_s[idx] = j < nj ? x[src] : 0.f;
       muj_s[idx] = j < nj ? mu[src] : 0.f;
-      if (SYM) {
-        gmuj_s[idx] = j < nj ? gmu_b[(size_t)j * kF3 + idx % kF3] : 0.f;
-        if (idx < kTile * kF) {
-          const int jj = j0 + idx / kF;
-          gqj_s[idx] = jj < nj ? gq_b[(size_t)jj * kF + idx % kF] : 0.f;
-        }
+      gmuj_s[idx] = j < nj ? gmu_b[(size_t)j * kF3 + idx % kF3] : 0.f;
+      if (idx < kTile * kF) {
+        const int jj = j0 + idx / kF;
+        gqj_s[idx] = jj < nj ? gq_b[(size_t)jj * kF + idx % kF] : 0.f;
       }
     }
     if (sparse) {
@@ -561,7 +562,7 @@ painn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
       any_tile = true;
       // a tile below the diagonal of the last tile row cannot be computed, so
       // every i row of a mirror tile is < ni
-      const bool mirror = SYM && pi != pj;  // block-uniform
+      const bool mirror = pi != pj;  // block-uniform
       __syncthreads();  // the previous tile is done with the tile scratch
       if (tid < kPairs)
         painn_load_pairs(pr_s, dist + grid_off, gate_b, dirx + grid_off,
@@ -606,7 +607,7 @@ painn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
               dw[k] = gv[k] * xv[k];
               dxa[0][k] = fmaf(g * w[q][k], gv[k], dxa[0][k]);
             }
-            if (SYM && mirror) {  // mirror: dw += xq_i gq_j, dx[i] += g wq gq_j
+            if (mirror) {  // mirror: dw += xq_i gq_j, dx[i] += g wq gq_j
               float xiv[kFPT], gjv[kFPT];
               load_feats(xi_s + il * kF3, fg, xiv);
               load_feats(gqj_s + jl * kF, fg, gjv);
@@ -649,7 +650,7 @@ painn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
               dw[k] = s[k] * xv[k];
               dxa[c][k] = fmaf(g * w[q][k], s[k], dxa[c][k]);
             }
-            if (SYM && mirror) {
+            if (mirror) {
               // the mirror cell (j, i): sb = DB (c == 1) or MB (c == 2)
               float xiv[kFPT], sb[kFPT];
               load_feats(xi_s + il * kF3 + c * kF, fg, xiv);
@@ -716,9 +717,9 @@ painn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
           }
         }
       }
-      __syncthreads();  // dwg_s (and, SYM, the mirror tiles) complete
+      __syncthreads();  // dwg_s and the mirror tiles complete
 
-      if (SYM && mirror) {
+      if (mirror) {
         // the tile's i-indexed dx and dmu: rows owned by other items
         for (int idx = tid; idx < kTile * kF3; idx += kThreads) {
           const int r = idx / kF3, t = idx % kF3, c = t / kF, f = t % kF;
@@ -810,10 +811,7 @@ painn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
       for (int c = 0; c < 3; ++c)
 #pragma unroll
         for (int k = 0; k < kFPT; ++k) {
-          if (!SYM) {
-            dx[row + c * kF + feat(fg, k)] = dxa[c][k];
-            dmu_in[row + c * kF + feat(fg, k)] = dma[c][k];
-          } else if (any_tile) {
+          if (any_tile) {
             atomicAdd(&dx[row + c * kF + feat(fg, k)], dxa[c][k]);
             atomicAdd(&dmu_in[row + c * kF + feat(fg, k)], dma[c][k]);
           }
@@ -883,9 +881,9 @@ extern "C" int painn_bwd(const float* dist, const float* gate, const float* dirx
   const int blocks = painn_bwd_blocks(B, nj);
   cudaStream_t s = (cudaStream_t)stream;
   if (symmetric) {
-    cudaFuncSetAttribute(painn_bwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(painn_bwd_sym_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-    painn_bwd_kernel<true><<<blocks, kThreads, smem, s>>>(
+    painn_bwd_sym_kernel<<<blocks, kThreads, smem, s>>>(
         dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu, dx, dmu_in, ddist, dgate, ddx,
         ddy, ddz, part, B, ni, nj, R, delta, coeff, sparse);
   } else {

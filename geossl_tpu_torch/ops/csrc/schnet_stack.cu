@@ -12,10 +12,13 @@
 // Bound on the H100: operations. Per occupied pair and block the filter
 // network is ~46k FLOP (G = 51, F = 128) of tile products, against 8 bytes
 // of dist/env; the dense layers add 6*F*F per atom and block. Every product
-// runs on the tensor cores with mma.sync.m16n8k8 TF32 in 3xTF32
-// (mma_tf32.cuh: within f32 rounding of the plain version, as the CFConv
-// backward): per 8x8 pair tile (pair p = jl*8 + il as row p) rbf[64 x G->56]
-// W1 and ssp(.) W2, and per 64 atom rows h Wl1, m Wa and ssp(.) Wb. The
+// runs on the tensor cores with mma.sync.m16n8k8 TF32 in 3xTF32, in
+// mma_tf32.cuh's precise mode (both TF32 parts rounded, each k step added
+// in f32 on the CUDA cores): the stack chains 5 L products, and the plain
+// split with the tensor core's truncating accumulation ends up to 9x
+// beyond the plain version's tolerance at the serving batch (PERF.md). Per
+// 8x8 pair tile (pair p = jl*8 + il as row p) rbf[64 x G->56] W1 and
+// ssp(.) W2, and per 64 atom rows h Wl1, m Wa and ssp(.) Wb. The
 // elementwise terms (RBF exp, ssp, the messages) stay on the CUDA cores
 // with the fast exp/log intrinsics. The filter tensor never leaves the
 // chip; h, x and m ([B,N,F] each, a few MB) live in L2 between phases.
@@ -57,10 +60,7 @@ namespace geossl {
 constexpr int kSGP = 64;        // G padded: rows of W1_s, columns of rbf_s
 constexpr int kSRS = kF + 8;    // row stride of the 8-row x tiles (bank spread)
 constexpr int kRows = 64;       // atom rows per dense chunk
-// every product in mma_tf32.cuh's precise mode (rounded split, each k step
-// added in f32 on the CUDA cores): plain 3xTF32, compounded over the
-// stack's 5 L chained products, misses the plain version's tolerance
-// (PERF.md: worst error 8.9x the tolerance at the serving batch, N=128)
+// every product in mma_tf32.cuh's precise mode (the header says why)
 constexpr bool kPrecise = true;
 // shared memory, in floats; the dense phase reuses W2_s as W_s and s_s as A_s
 constexpr int kOffW1 = 0;                          // [kSGP][kF] swizzled

@@ -31,11 +31,11 @@ from geossl_tpu_torch.config import ModelConfig
 from geossl_tpu_torch.data.bucketing import assign_buckets, pack_batch
 from geossl_tpu_torch.data.store import MolStore
 from geossl_tpu_torch.models import painn, schnet
-from geossl_tpu_torch.ops.cfconv import STACK_MAX_N
 from geossl_tpu_torch.train.common import make_backbone, make_head
 
 # The largest bucket each backbone serves through its whole-stack kernel
-# (0: none; at most the kernels' STACK_MAX_N = 128), set on the H100 by
+# (0: none; at most the kernels' shape limit, ops/cfconv.STACK_MAX_N =
+# ops/painn.STACK_MAX_N = 128), set on the H100 by
 # chip_smoke.py's ``serving_route:`` line (PERF.md): the stack is the faster
 # route for SchNet at N = 32, 64 and 128, for PaiNN at N = 32 only. The JAX
 # package's STACK_MAX_N (its choice on the TPU) does not route the port.
@@ -101,7 +101,6 @@ class Predictor:
             # the stack kernel keeps h at one width
             self._stackable = (self.model.num_filters
                                == self.model.hidden_channels)
-        self._stack_max_n = min(self._stack_max_n, STACK_MAX_N)
         # the kernels' [in, out] weight layouts, made once for fixed weights
         with torch.no_grad():
             self._filters = self.model.filter_weights()

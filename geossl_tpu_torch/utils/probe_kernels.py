@@ -32,8 +32,8 @@ STACK_W2 = ("warp_tile_mma<2, 4, kF, false, false, false, kPrecise>(acc, s_s, kF
             "32 * wm, W2_s, kF, 32 * wn);")
 BWD_FILT = ("  warp_tile_mma<2, 4, K, true, false>(acc, phi_s, kPairs, 32 * wm, Wk_s, kF3, "
             "c * kF + 32 * wn);")
-BWD_DPHI = ("warp_tile_mma<1, 2, kF3, false, true>(ar, dwg_s, kF3, 16 * (warp & 3), Wk_s, "
-            "kF3,\n                                              16 * (warp >> 2));")
+BWD_DPHI = ("warp_tile_mma<1, 4, kF3 / 2, false, true>(ar, dwg_s + kh, kF3, 16 * (warp & 3),"
+            "\n                                                  Wk_s + kh, kF3, 0);")
 BWD_DWK = ("warp_tile_mma<1, 4, kPairs, false, false, false, true>(\n            aw[q], phi_s, "
            "kPairs, 16 * (warp & 1), dwg_s, kF3, 96 * (warp >> 1) + 32 * q);")
 VARIANTS = {
@@ -41,6 +41,12 @@ VARIANTS = {
         "shipped": [],
         "plain_3xtf32": [("schnet_stack.cu", "constexpr bool kPrecise = true;",
                           "constexpr bool kPrecise = false;")],
+        "round_only": [("mma_tf32.cuh", "if (kPrecise) {  // this k step",
+                        "if (false) {  // this k step")],
+        "f32acc_only": [("mma_tf32.cuh",
+                         "hi = (kRound ? xb + 0x1000u : xb) & 0xffffe000u;",
+                         "hi = xb & 0xffffe000u;"),
+                        ("mma_tf32.cuh", "if (kRound) lo += 0x1000u;", "")],
         "no_filter_mma": [("schnet_stack.cu", STACK_W1, ";"),
                           ("schnet_stack.cu", STACK_W2, ";")],
         "no_mirror_atomics": [("schnet_stack.cu", "if (j < n) atomicAdd(mb_",
@@ -104,6 +110,7 @@ def stack_runner(lib, dist, env, h0, stacked):
 
     def go():
         assert fn(*args, b, n, 128, 51, 6, s0, delta, coeff, 1, st) == 0
+    go.out = out
     return go
 
 
@@ -160,6 +167,11 @@ def main():
     print(f"probe schnet_stack inputs: occupied tiles on and above the "
           f"diagonal {int(torch.triu(occ).sum())}")
     stack_in = (dist.contiguous(), env, h0, stacked)
+    K.plain_precision()
+    with torch.no_grad():
+        want = torch.cat([K.schnet_stack_reference(
+            stack_in[0][s:s + 32], env[s:s + 32], h0[s:s + 32], stacked, 0.0,
+            10.0, 51) for s in range(0, 128, 32)])
     # painn_bwd: the DDM batch
     store = load_molecule3d("", synthetic=True, synthetic_size=1024,
                             synthetic_max_atoms=100)
@@ -194,7 +206,16 @@ def main():
             for key, fn in runs.items():
                 times[key].append(time_ms(fn))
         for (kernel, name), v in times.items():
-            print(f"probe {kernel} {name}: {v[0]:.4f} / {v[1]:.4f} ms")
+            err = ""
+            if kernel == "schnet_stack":
+                # the output of the variant's last run against the plain
+                # stack: chip_smoke.py's elementwise test is
+                # |err| <= 1e-5 + 1e-4 |want|
+                out = runs[kernel, name].out
+                e = (out - want).abs()
+                err = (f" max_abs_err {e.max().item():.3e} worst/tolerance "
+                       f"{(e / (1e-5 + 1e-4 * want.abs())).max().item():.3f}")
+            print(f"probe {kernel} {name}: {v[0]:.4f} / {v[1]:.4f} ms{err}")
     finally:
         shutil.rmtree(tmp)
 
