@@ -142,7 +142,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``schnet_stack``'s two modes at serving's N=128 (``schnet_stack_modes:``);
    fine-tune
    complexes/s (LEP: pairs/s) at N=512,
-   one traced step and its top device kernels, for LBA and LEP;
+   one traced step and its top device kernels, for LBA (both backbones)
+   and LEP;
    each kernel's time at the shape its path gives it, beside its plain
    version's time and its bound (f32 CUDA-core peak and HBM rate; the
    pairs with nonzero env or sel, env read whole and the other pair grids
@@ -1647,6 +1648,8 @@ def main():
     measure_training(ddm_p, targs_p, tbatches, "painn")
     measure_stack_training(ddm0_p, targs_p, tbatches)
     measure_finetune(net0, lba_args, lba_batch, FL.loss_fn, "lba",
+                     int(lba_batch.graph_mask.sum()))
+    measure_finetune(net0_p, lba_args_p, lba_batch, FL.loss_fn, "lba",
                      int(lba_batch.graph_mask.sum()))
     lep_args = FE.build_parser().parse_args(lep_flags)
     lep_batch = next(iter(FE.DualLoader(
