@@ -15,27 +15,47 @@
 // several [B,N,N,E] tensors per direction; here only the [B,N,N] grids and
 // [B,N,E] node rows cross device memory.
 //
-// Bound on the H100: operations. The E -> E/2 product (2 E^2/2 FLOP per
-// pair, 16k at E=128) dominates, next to 16 bytes of dist/noise/sel per pair.
+// Bound on the H100: operations. Per selected pair the forward's E -> E/2
+// product costs 2 E H FLOP (16k at E=128); the backward recomputes it and
+// adds dl1 = dx2 W2^T and dW2 += l1^T dx2, 6 E H (49k) of products beside
+// ~3k of elementwise terms, against 16 bytes of dist/noise/sel per pair.
 // Tiles of 8x8 pairs whose `sel` is all zero are skipped: DDM's selection is
-// the strict upper triangle, so the tiles below the diagonal (and all padding)
-// cost nothing. Plain f32 FMAs, no tensor cores.
+// the strict upper triangle, so the tiles below the diagonal (and all
+// padding) cost nothing.
 //
-// Work split. Forward: one block per (graph, 8-row i tile), looping over the
-// j tiles and keeping its rows' sums in registers. Backward: a persistent
-// grid (one block per SM) walks the (graph, i tile) items. The i side of du
-// is summed in registers per item; the j side is written as per-i-tile
-// partials [B, nI, N, E] (as the TPU kernel does) and a second launch adds
-// them to du; the weight gradients are per-block partials summed by a third
-// launch (reduce.cuh). No atomics: bitwise the same from run to run on one
+// Forward (ncsn_fwd_kernel): plain f32 FMAs on the CUDA cores, one block per
+// (graph, 8-row i tile), looping over the j tiles and keeping its rows' sums
+// in registers. Thread layout (256 threads, 8x8 pair tile): thread t owns
+// the 4 pairs p = il*8 + jl0 + q (row il = t/32, columns jl0 =
+// ((t/16)%2)*4 + q) and either 8 features feat(fg, k) (fg = t%16) of the
+// E-wide layers or 4 outputs h = 4fg.. of the E/2-wide one.
+//
+// Backward (ncsn_bwd_kernel, then ncsn_du_kernel and reduce.cuh's sum):
+// - work list: the tiles where sel is not all zero, listed on the device
+//   (worklist.cuh, no host sync) in (graph, 8-row i tile) items; a
+//   persistent grid (one 8-warp block per SM) gives each block an equal run
+//   of the list;
+// - products: the recomputed l1 W2, dl1 = dx2 W2^T and dW2 += l1^T dx2 on
+//   the tensor cores with mma.sync.m16n8k8 TF32 in 3xTF32 (mma_tf32.cuh),
+//   dW2 in the precise mode, since it is summed over every tile of a run;
+//   the rest (the distance MLP, relu', the score, the vector weight
+//   gradients) on the CUDA cores; W2 staged once per block, swizzled;
+// - loads: the next tile's dist/noise/sel, row cotangents and u rows load
+//   with cp.async (double buffer) while the current tile runs;
+// - du: partials only where a tile is listed. The j side of each listed
+//   tile (its 8 rows j summed over the tile's rows i) goes to slot `list
+//   position`; the i side is summed in registers over the consecutive tiles
+//   of one row tile in a run and written once per (block, item) segment.
+//   ncsn_du_kernel then sums, per row, the i-side segments in list order and
+//   the j sides in order of the row tile that holds them;
+// - weight gradients: per-block partials in a fixed order, summed in block
+//   order by a last launch.
+// No atomics anywhere: the result is bitwise the same from run to run on one
 // card.
-//
-// Thread layout (256 threads, 8x8 pair tile): thread t owns the 4 pairs
-// p = il*8 + jl0 + q (row il = t/32, columns jl0 = ((t/16)%2)*4 + q) and
-// either 8 features e = feat(fg, k) / fg + 16k (fg = t%16) of the E-wide
-// layers or 4 outputs h = 4fg.. of the E/2-wide one.
+#include "mma_tf32.cuh"
 #include "pair_tile.cuh"
 #include "reduce.cuh"
+#include "worklist.cuh"
 
 namespace geossl {
 
@@ -53,8 +73,6 @@ constexpr int kOffWd1 = 0, kOffBd1 = kE, kOffWd2 = 2 * kE, kOffBd2 = 3 * kE,
               kOffWod = 3 * kE + 1, kOffBod = 4 * kE + 1, kOffW2 = 5 * kE + 1,
               kOffB2 = kOffW2 + kE * kH, kOffW3 = kOffB2 + kH, kOffB3 = kOffW3 + kH,
               kWgrad = kOffB3 + 1;
-// the per-half-warp vectors summed over the block at the end: all but w2
-constexpr int kVec = kWgrad - kE * kH;
 
 struct HeadSmem {
   float *W2;                          // [kE][kHS]
@@ -253,238 +271,429 @@ ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   if ((threadIdx.x & 31) == 0 && i < n) rows[(size_t)b * n + i] = racc;
 }
 
+// -- backward ------------------------------------------------------------------
+
+constexpr int kBS = kE + 8;  // row stride of the 8-row u tiles (bank spread)
+// shared memory of the backward, in floats
+constexpr int kBOffW2 = 0;                          // [kE][kH] swizzled
+constexpr int kBOffL1 = kBOffW2 + kE * kH;          // [kPairs][kE] swizzled: l1
+constexpr int kBOffDx2 = kBOffL1 + kPairs * kE;     // [kPairs][kH] swizzled: dx2
+constexpr int kBOffU = kBOffDx2 + kPairs * kH;      // [2][2][8][kBS] u rows: j tile, i tile
+constexpr int kBOffGrid = kBOffU + 4 * kTile * kBS; // [2][3][64] dist, noise, sel, [il][jl]
+constexpr int kBOffGi = kBOffGrid + 6 * kPairs;     // [2][8] the row cotangents g_i
+constexpr int kBOffVec = kBOffGi + 2 * kTile;       // wd1, bd1, wd2, wod, bod [kE]; b2, w3 [kH]
+constexpr int kBOffPair = kBOffVec + 5 * kE + 2 * kH;  // dp, demb [64]; sr [2][64]; ddemb [4][64]
+constexpr int kBwdFloats = kBOffPair + 8 * kPairs;
+// The per-tile du partials: the j side of every listed tile (its 8 rows j
+// summed over the tile's rows i), the i side of every (block, item) segment
+// of the runs (8 rows i summed over the segment's tiles), in two halves.
+constexpr int kTileRows = kTile * kE;  // floats of one 8-row partial
+
+// Backward of the head, per listed tile of the tile list (worklist.cuh:
+// the tiles where sel is not all zero, in (graph, 8-row i tile) items),
+// block k computing the run [run_begin(k), run_begin(k + 1)). Pair
+// p = jl*8 + il of a tile is row p of its 64-row operands. Per tile:
+//   1. dp, demb (CUDA cores), l1 = relu(u_i + u_j + demb w_od + b_od) into l1_s
+//   2. pre2 = l1 W2 (+ b2) on the tensor cores (3xTF32): warp (wq, wh) owns
+//      rows 16*wq.. and columns 32*wh.. of the 64 x H product; the score,
+//      ds = d loss / d score_raw, dx2 = relu'(pre2) ds w3 into dx2_s
+//   3. dW2 += l1^T dx2 (3xTF32, precise mode: summed over every tile of the
+//      run) and dl1 = (dx2 W2^T) relu'(l1) (3xTF32): warp (wm, wn) owns rows
+//      32*wm.. and columns 32*wn.. of the 64 x E product, lane (g, t) pairs
+//      (jl = 4*wm + 2*mb + h, il = g)
+//   4. the j side of du (dl1 summed over the tile's rows i) into
+//      dpart_j[tile]; the i side summed in registers over the segment's tiles;
+//      the vector weight gradients in registers
+//   5. the distance MLP's weight gradients (thread: one feature, 32 pairs)
+// Every sum is taken in a fixed order and nothing is added atomically.
 __global__ void __launch_bounds__(kThreads, 1)
 ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
                 const float* __restrict__ sel, const float* __restrict__ sigma,
                 const float* __restrict__ u, const float* __restrict__ grows,
-                HeadWeights W, float* __restrict__ du, float* __restrict__ partj,
-                float* __restrict__ part, int B, int n, float anneal) {
-  extern __shared__ float4 smem_v4[];
-  HeadSmem S;
-  float* dx2_s = carve(reinterpret_cast<float*>(smem_v4), S);  // [kPairs][kH]
-  float* dl1_s = dx2_s + kPairs * kH;                           // [kPairs][kE]
-  int* occ = (int*)(dl1_s + kPairs * kE);
+                HeadWeights W, const int* __restrict__ list,
+                const int* __restrict__ total_p, float* __restrict__ dpart_j,
+                float* __restrict__ dpart_i, float* __restrict__ part, int n,
+                float anneal) {
+  extern __shared__ float4 smem_v4[];  // 16-byte aligned
+  float* smem = reinterpret_cast<float*>(smem_v4);
+  float* W2_s = smem + kBOffW2;
+  float* l1_s = smem + kBOffL1;
+  float* dx2_s = smem + kBOffDx2;
+  float* wd1_s = smem + kBOffVec;
+  float* bd1_s = wd1_s + kE;
+  float* wd2_s = bd1_s + kE;
+  float* wod_s = wd2_s + kE;
+  float* bod_s = wod_s + kE;
+  float* b2_s = bod_s + kE;
+  float* w3_s = b2_s + kH;
+  float* dp_s = smem + kBOffPair;
+  float* demb_s = dp_s + kPairs;
+  float* sr_s = demb_s + kPairs;   // [2][64]
+  float* dde_s = sr_s + 2 * kPairs;  // [4][64]
 
-  const int tid = threadIdx.x, fg = thread_fg(), hw = tid >> 4;
-  const int il = thread_il(), jl0 = thread_jl0();
-  const int nti = (n + kTile - 1) / kTile, ntj = nti;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nt = (n + kTile - 1) / kTile;
+  const long long total = *total_p;
+  const int t_begin = run_begin(total, gridDim.x, blockIdx.x);
+  const int t_end = run_begin(total, gridDim.x, blockIdx.x + 1);
   const float bd2 = W.bd2[0], b3 = W.b3[0];
 
-  stage_weights(W, S);
-  // this block's share of the weight gradients over all its items
-  float gw2[kFPT][4];  // dW2[feat(hw, a)][4fg + hh]
-  float gwd1[kFPT], gbd1[kFPT], gwd2[kFPT], gwod[kFPT], gbod[kFPT];  // e = fg + 16k
-  float gb2[4], gw3[4];  // h = 4fg + hh
-  float gbd2 = 0.f, gb3 = 0.f;
-#pragma unroll
-  for (int k = 0; k < kFPT; ++k) {
-    gwd1[k] = gbd1[k] = gwd2[k] = gwod[k] = gbod[k] = 0.f;
-#pragma unroll
-    for (int hh = 0; hh < 4; ++hh) gw2[k][hh] = 0.f;
+  for (int c = tid; c < kE * kH / 4; c += kThreads) {
+    const int r = c / (kH / 4), f = (c % (kH / 4)) * 4;
+    cp_async16(W2_s + swz_at(kH, r, f), W.w2 + r * kH + f, true);
   }
-#pragma unroll
-  for (int hh = 0; hh < 4; ++hh) gb2[hh] = gw3[hh] = 0.f;
+  cp_async_commit();
+  if (tid < kE) {
+    wd1_s[tid] = W.wd1[tid];
+    bd1_s[tid] = W.bd1[tid];
+    wd2_s[tid] = W.wd2[tid];
+    wod_s[tid] = W.wod[tid];
+    bod_s[tid] = W.bod[tid];
+    if (tid < kH) {
+      b2_s[tid] = W.b2[tid];
+      w3_s[tid] = W.w3[tid];
+    }
+  }
 
-  for (int item = blockIdx.x; item < B * nti; item += gridDim.x) {
-    const int b = item / nti, pi = item % nti, i0 = pi * kTile;
-    const size_t grid_at = (size_t)b * n * n;
-    const float* u_b = u + (size_t)b * n * kE;
+  // this block's share of the weight gradients over its run
+  float gw2[2][4][4];  // dW2 rows 32*(warp&3) + 16*mb + 8*h + g, columns 32*(warp>>2) + 8*nb + 2*t + c
+  float gw3[4][2], gb2[4][2];  // columns h = 32*(warp>>2) + 8*nb + 2*t + c
+  float gwod[4][2], gbod[4][2];  // columns e = 32*(warp>>1) + 8*nb + 2*t + c
+  float racc[4][2];  // du rows i (il = g) of the segment, the same columns
+  float gwd1 = 0.f, gbd1 = 0.f, gwd2 = 0.f;  // feature tid & 127
+  float gb3 = 0.f, gbd2 = 0.f;
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      gw3[nb][c] = gb2[nb][c] = gwod[nb][c] = gbod[nb][c] = racc[nb][c] = 0.f;
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) gw2[mb][nb][q] = 0.f;
+  }
+
+  // issues the cp.async loads of listed tile v into buffer buf: dist,
+  // noise, sel, the row cotangents, and the u rows of its j and i tiles
+  auto load_tile = [&](int v, int buf) {
+    const int item = v / nt, pj = v - item * nt, b = item / nt;
+    const int i0 = (item - b * nt) * kTile, j0 = pj * kTile;
+    if (tid < 3 * kPairs) {
+      const int p = tid & (kPairs - 1), q = tid >> 6, i = i0 + (p >> 3), j = j0 + (p & 7);
+      const bool in = i < n && j < n;
+      const float* src = q == 0 ? dist : (q == 1 ? noise : sel);
+      cp_async4(smem + kBOffGrid + (3 * buf + q) * kPairs + p,
+                src + (in ? ((size_t)b * n + i) * n + j : 0), in);
+    } else if (tid < 3 * kPairs + kTile) {
+      const int i = i0 + tid - 3 * kPairs;
+      cp_async4(smem + kBOffGi + buf * kTile + tid - 3 * kPairs,
+                grows + (i < n ? (size_t)b * n + i : 0), i < n);
+    }
+    for (int c = tid; c < 2 * kTile * kE / 4; c += kThreads) {
+      const int side = c / (kTile * kE / 4), r = (c / (kE / 4)) % kTile;
+      const int f = (c % (kE / 4)) * 4, a = (side ? i0 : j0) + r;
+      cp_async16(smem + kBOffU + ((2 * buf + side) * kTile + r) * kBS + f,
+                 u + (a < n ? ((size_t)b * n + a) * kE + f : 0), a < n);
+    }
+    cp_async_commit();
+  };
+
+  int cur = t_begin < t_end ? list[t_begin] / nt : 0;  // the item racc sums
+  // writes this warp's half of the segment's i side to dpart_i and zeroes
+  // racc: segment (item cur, this block) is slot cur + blockIdx.x
+  auto flush = [&]() {
+    float* dst = dpart_i + ((size_t)(cur + blockIdx.x) * 2 + (warp & 1)) * kTileRows + g * kE;
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      *reinterpret_cast<float2*>(dst + 32 * (warp >> 1) + 8 * nb + 2 * t) =
+          make_float2(racc[nb][0], racc[nb][1]);
+      racc[nb][0] = racc[nb][1] = 0.f;
+    }
+  };
+
+  if (t_begin < t_end) load_tile(list[t_begin], 0);
+  for (int k = t_begin; k < t_end; ++k) {
+    const int v = list[k], item = v / nt, b = item / nt;
+    const int buf = (k - t_begin) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile k's data (and W2) have landed; every warp is
+                      // done with tile k - 1
+    if (k + 1 < t_end) load_tile(list[k + 1], buf ^ 1);
+    if (item != cur) {  // block-uniform: the run moves to the next row tile
+      flush();
+      cur = item;
+    }
+    const float* d_t = smem + kBOffGrid + 3 * buf * kPairs;  // [il][jl]
+    const float* nz_t = d_t + kPairs;
+    const float* sel_t = nz_t + kPairs;
+    const float* gi_t = smem + kBOffGi + buf * kTile;
+    const float* uj_t = smem + kBOffU + 2 * buf * kTile * kBS;
+    const float* ui_t = uj_t + kTile * kBS;
     const float sig = sigma[b], wsig = expf(anneal * logf(sig));
-    const int i = i0 + il;
-    const float gi = i < n ? grows[(size_t)b * n + i] : 0.f;
-    float* partj_b = partj + ((size_t)b * nti + pi) * n * kE;
 
-    __syncthreads();  // the previous item is done with ui and occ
-    load_rows(S.ui, u_b, i0, n);
-    sel_occupancy(occ, sel + grid_at, i0, n);
-
-    float dui[kFPT];  // du[i][fg + 16k], this half-warp's columns
-#pragma unroll
-    for (int k = 0; k < kFPT; ++k) dui[k] = 0.f;
-
-    for (int pj = 0; pj < ntj; ++pj) {
-      const int j0 = pj * kTile;
-      if (!occ[pj]) {  // block-uniform: no contribution to the j rows
-        for (int idx = tid; idx < kTile * kE; idx += kThreads) {
-          const int j = j0 + idx / kE;
-          if (j < n) partj_b[(size_t)j * kE + idx % kE] = 0.f;
-        }
-        continue;
-      }
-      __syncthreads();  // the previous tile is done with the tile scratch
-      load_tile(S, dist + grid_at, noise + grid_at, sel + grid_at, u_b, i0, j0, n);
-      __syncthreads();
-      float dp[kPPT], demb[kPPT], pre2[kPPT][4], sr[kPPT];
-      tile_forward(S, sig, bd2, b3, dp, demb, pre2, sr);
-
-      // d loss / d score_raw, then the last two layers
-      float ds[kPPT];
-#pragma unroll
-      for (int q = 0; q < kPPT; ++q) {
-        const int p = il * kTile + jl0 + q;
-        const float r = sr[q] / sig + S.nz[p] / sig;
-        ds[q] = r * (wsig * gi) * S.sel[p] / sig;
-      }
-      const float4 w3v = ld4(S.w3 + 4 * fg);
-      const float w3a[4] = {w3v.x, w3v.y, w3v.z, w3v.w};
-#pragma unroll
-      for (int q = 0; q < kPPT; ++q) {
-        float dx2[4];
-#pragma unroll
-        for (int hh = 0; hh < 4; ++hh) {
-          gw3[hh] = fmaf(fmaxf(pre2[q][hh], 0.f), ds[q], gw3[hh]);
-          dx2[hh] = pre2[q][hh] > 0.f ? ds[q] * w3a[hh] : 0.f;
-          gb2[hh] += dx2[hh];
-        }
-        st4(dx2_s + (il * kTile + jl0 + q) * kH + 4 * fg, dx2[0], dx2[1], dx2[2], dx2[3]);
-      }
-      if (fg == 0) gb3 += ds[0] + ds[1] + ds[2] + ds[3];
-      __syncthreads();  // dx2_s and l1 complete
-
-      // dW2 += l1^T dx2 over the tile's pairs
-      for (int p = 0; p < kPairs; ++p) {
-        float lv[kFPT];
-        load_feats(S.l1 + p * kE, hw, lv);
-        const float4 dv = ld4(dx2_s + p * kH + 4 * fg);
-#pragma unroll
-        for (int a = 0; a < kFPT; ++a) {
-          gw2[a][0] = fmaf(lv[a], dv.x, gw2[a][0]);
-          gw2[a][1] = fmaf(lv[a], dv.y, gw2[a][1]);
-          gw2[a][2] = fmaf(lv[a], dv.z, gw2[a][2]);
-          gw2[a][3] = fmaf(lv[a], dv.w, gw2[a][3]);
-        }
-      }
-
-      // dl1 = (dx2 W2^T) relu'(pre1), features e = fg + 16k
-      float dl1[kPPT][kFPT];
-#pragma unroll
-      for (int q = 0; q < kPPT; ++q)
-#pragma unroll
-        for (int k = 0; k < kFPT; ++k) dl1[q][k] = 0.f;
-      for (int h0 = 0; h0 < kH; h0 += 4) {
-        float a[kPPT][4];
-#pragma unroll
-        for (int q = 0; q < kPPT; ++q) {
-          const float4 v = ld4(dx2_s + (il * kTile + jl0 + q) * kH + h0);
-          a[q][0] = v.x; a[q][1] = v.y; a[q][2] = v.z; a[q][3] = v.w;
-        }
-#pragma unroll
-        for (int k = 0; k < kFPT; ++k) {
-          const float4 wv = ld4(S.W2 + (fg + 16 * k) * kHS + h0);
-#pragma unroll
-          for (int q = 0; q < kPPT; ++q)
-            dl1[q][k] = fmaf(a[q][0], wv.x, fmaf(a[q][1], wv.y,
-                        fmaf(a[q][2], wv.z, fmaf(a[q][3], wv.w, dl1[q][k]))));
-        }
-      }
-      float ddemb[kPPT];
-#pragma unroll
-      for (int q = 0; q < kPPT; ++q) {
-        const int p = il * kTile + jl0 + q;
-        float s = 0.f;
-#pragma unroll
-        for (int k = 0; k < kFPT; ++k) {
-          const int e = fg + 16 * k;
-          const float v = S.l1[p * kE + e] > 0.f ? dl1[q][k] : 0.f;
-          dl1_s[p * kE + e] = v;
-          dui[k] += v;
-          gwod[k] = fmaf(v, demb[q], gwod[k]);
-          gbod[k] += v;
-          s = fmaf(v, S.wod[e], s);
-        }
-        ddemb[q] = half_warp_sum(s);
-      }
-      // the distance MLP
-#pragma unroll
-      for (int k = 0; k < kFPT; ++k) {
-        const int e = fg + 16 * k;
-        const float wd1 = S.wd1[e], bd1 = S.bd1[e], wd2 = S.wd2[e];
-#pragma unroll
-        for (int q = 0; q < kPPT; ++q) {
-          const float t1 = fmaxf(fmaf(dp[q], wd1, bd1), 0.f);
-          gwd2[k] = fmaf(t1, ddemb[q], gwd2[k]);
-          const float dt1 = t1 > 0.f ? ddemb[q] * wd2 : 0.f;
-          gwd1[k] = fmaf(dt1, dp[q], gwd1[k]);
-          gbd1[k] += dt1;
-        }
-      }
-      if (fg == 0) gbd2 += ddemb[0] + ddemb[1] + ddemb[2] + ddemb[3];
-      __syncthreads();  // dl1_s complete
-
-      // j side of du: this i tile's partial sum over its 8 rows
-      for (int idx = tid; idx < kTile * kE; idx += kThreads) {
-        const int jl = idx / kE, e = idx % kE;
-        float s = 0.f;
-#pragma unroll
-        for (int r = 0; r < kTile; ++r) s += dl1_s[(r * kTile + jl) * kE + e];
-        if (j0 + jl < n) partj_b[(size_t)(j0 + jl) * kE + e] = s;
+    // 1. dp and demb: four threads per pair, features q + 4e'
+    {
+      const int p = tid >> 2, q = tid & 3, at = (p & 7) * kTile + (p >> 3);
+      const float dp = fmaf(nz_t[at], sig, d_t[at]);
+      float s = 0.f;
+#pragma unroll 8
+      for (int e = q; e < kE; e += 4) s = fmaf(fmaxf(fmaf(dp, wd1_s[e], bd1_s[e]), 0.f), wd2_s[e], s);
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if (q == 0) {
+        dp_s[p] = dp;
+        demb_s[p] = s + bd2;
       }
     }
+    __syncthreads();
+    for (int c = tid; c < kPairs * kE / 4; c += kThreads) {
+      const int p = c / (kE / 4), e = (c % (kE / 4)) * 4;
+      const float4 a = ld4(ui_t + (p & 7) * kBS + e), bj = ld4(uj_t + (p >> 3) * kBS + e);
+      const float4 wo = ld4(wod_s + e), bo = ld4(bod_s + e);
+      const float de = demb_s[p];
+      *reinterpret_cast<float4*>(l1_s + swz_at(kE, p, e)) =
+          make_float4(fmaxf(a.x + bj.x + fmaf(de, wo.x, bo.x), 0.f),
+                      fmaxf(a.y + bj.y + fmaf(de, wo.y, bo.y), 0.f),
+                      fmaxf(a.z + bj.z + fmaf(de, wo.z, bo.z), 0.f),
+                      fmaxf(a.w + bj.w + fmaf(de, wo.w, bo.w), 0.f));
+    }
+    __syncthreads();
 
-    // i side of du: the two half-warps hold columns 0-3 and 4-7 of each tile
+    // 2. pre2 = l1 W2 + b2; the score's partial sums over this warp's columns
+    const int wq = warp & 3, wh = warp >> 2;
+    float p2[1][4][4];
 #pragma unroll
-    for (int k = 0; k < kFPT; ++k) dui[k] += __shfl_xor_sync(0xffffffffu, dui[k], 16);
-    if ((tid & 16) == 0 && i < n) {
+    for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-      for (int k = 0; k < kFPT; ++k) du[((size_t)b * n + i) * kE + fg + 16 * k] = dui[k];
+      for (int q = 0; q < 4; ++q) p2[0][nb][q] = 0.f;
+    warp_tile_mma<1, 4, kE, false, false>(p2, l1_s, kE, 16 * wq, W2_s, kH, 32 * wh);
+    {
+      float sr[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int h = 32 * wh + 8 * nb + 2 * t + (q & 1);
+          p2[0][nb][q] += b2_s[h];
+          sr[q >> 1] = fmaf(fmaxf(p2[0][nb][q], 0.f), w3_s[h], sr[q >> 1]);
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float s = quad_sum(sr[hh]);
+        if (t == 0) sr_s[wh * kPairs + 16 * wq + 8 * hh + g] = s;
+      }
+    }
+    __syncthreads();
+    // ds = d loss / d score_raw per pair; dx2 = relu'(pre2) ds w3 into dx2_s
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int p = 16 * wq + 8 * hh + g, at = (p & 7) * kTile + (p >> 3);
+      const float r = (sr_s[p] + sr_s[kPairs + p] + b3) / sig + nz_t[at] / sig;
+      const float ds = r * (wsig * gi_t[p & 7]) * sel_t[at] / sig;
+      if (wh == 0 && t == 0) gb3 += ds;
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        const int h = 32 * wh + 8 * nb + 2 * t;
+        float dx[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float pre = p2[0][nb][2 * hh + c];
+          gw3[nb][c] = fmaf(fmaxf(pre, 0.f), ds, gw3[nb][c]);
+          dx[c] = pre > 0.f ? ds * w3_s[h + c] : 0.f;
+          gb2[nb][c] += dx[c];
+        }
+        store2(dx2_s, kH, p, h, dx[0], dx[1]);
+      }
+    }
+    __syncthreads();
+
+    // 3. dW2 += l1^T dx2 (precise: summed over the run), dl1 = dx2 W2^T
+    warp_tile_mma<2, 4, kPairs, true, false, false, true>(gw2, l1_s, kE, 32 * wq, dx2_s, kH,
+                                                          32 * wh);
+    const int wm = warp & 1, wn = warp >> 1;
+    float dl[2][4][4];
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dl[mb][nb][q] = 0.f;
+    warp_tile_mma<2, 4, kH, false, true>(dl, dx2_s, kH, 32 * wm, W2_s, kH, 32 * wn);
+
+    // 4. relu'(l1); du's i side (rows il = g), the vector weight gradients,
+    // ddemb's partial sums over this warp's columns; the j side per tile
+    float vj[32];
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int p = 32 * wm + 16 * mb + 8 * hh + g;
+        const float de = demb_s[p];
+        float s = 0.f;
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) {
+          const int e = 32 * wn + 8 * nb + 2 * t;
+          const float2 l1 = load2(l1_s, kE, p, e);
+          const float v0 = l1.x > 0.f ? dl[mb][nb][2 * hh] : 0.f;
+          const float v1 = l1.y > 0.f ? dl[mb][nb][2 * hh + 1] : 0.f;
+          racc[nb][0] += v0;
+          racc[nb][1] += v1;
+          gwod[nb][0] = fmaf(v0, de, gwod[nb][0]);
+          gwod[nb][1] = fmaf(v1, de, gwod[nb][1]);
+          gbod[nb][0] += v0;
+          gbod[nb][1] += v1;
+          s = fmaf(v0, wod_s[e], fmaf(v1, wod_s[e + 1], s));
+          vj[16 * mb + 8 * hh + 2 * nb] = v0;
+          vj[16 * mb + 8 * hh + 2 * nb + 1] = v1;
+        }
+        s = quad_sum(s);
+        if (t == 0) dde_s[wn * kPairs + p] = s;
+      }
+    rs_lanes<2>(vj);  // summed over the tile's 8 rows i
+    {
+      float* dst = dpart_j + (size_t)k * kTileRows;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int e = 4 * g + q, jl = 4 * wm + (e >> 3);
+        __stcg(dst + jl * kE + 32 * wn + 8 * ((e >> 1) & 3) + 2 * t + (e & 1), vj[q]);
+      }
+    }
+    __syncthreads();
+
+    // 5. the distance MLP: feature tid & 127 over pairs 32*(tid >> 7)..
+    {
+      const int e = tid & (kE - 1);
+      const float w1e = wd1_s[e], b1e = bd1_s[e], w2e = wd2_s[e];
+      for (int p = 32 * (tid >> 7); p < 32 * (tid >> 7) + 32; ++p) {
+        const float dd = dde_s[p] + dde_s[kPairs + p] + dde_s[2 * kPairs + p] +
+                         dde_s[3 * kPairs + p];
+        const float dp = dp_s[p];
+        const float t1 = fmaxf(fmaf(dp, w1e, b1e), 0.f);
+        gwd2 = fmaf(t1, dd, gwd2);
+        const float dt1 = t1 > 0.f ? dd * w2e : 0.f;
+        gwd1 = fmaf(dt1, dp, gwd1);
+        gbd1 += dt1;
+        if (e == 0) gbd2 += dd;
+      }
     }
   }
+  if (t_begin < t_end) flush();
 
-  // this block's partial weight gradients
+  // this block's partial weight gradients, each a sum in a fixed order
+  cp_async_wait<0>();  // a block with no tiles still staged W2
+  __syncthreads();     // the tile scratch is free
   float* out = part + (size_t)blockIdx.x * kWgrad;
+  {
+    const int wq = warp & 3, wh = warp >> 2;
 #pragma unroll
-  for (int a = 0; a < kFPT; ++a)
+    for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
-    for (int hh = 0; hh < 4; ++hh) out[kOffW2 + feat(hw, a) * kH + 4 * fg + hh] = gw2[a][hh];
-  // the vectors: sum the 16 half-warps' copies in a fixed order
-  __syncthreads();  // the tile scratch is free
-  float* red_s = S.l1;  // [16][kVec], vector offsets as in the output minus w2
-  float* mine = red_s + hw * kVec;
+      for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-  for (int k = 0; k < kFPT; ++k) {
-    const int e = fg + 16 * k;
-    mine[kOffWd1 + e] = gwd1[k];
-    mine[kOffBd1 + e] = gbd1[k];
-    mine[kOffWd2 + e] = gwd2[k];
-    mine[kOffWod + e] = gwod[k];
-    mine[kOffBod + e] = gbod[k];
+        for (int hh = 0; hh < 2; ++hh) {
+          const int e = 32 * wq + 16 * mb + 8 * hh + g, h = 32 * wh + 8 * nb + 2 * t;
+          *reinterpret_cast<float2*>(out + kOffW2 + e * kH + h) =
+              make_float2(gw2[mb][nb][2 * hh], gw2[mb][nb][2 * hh + 1]);
+        }
   }
+  // the vectors: over the 8 lanes of one t, then over the warps in order
+  float* red_s = l1_s;  // [4][kH] w3, [4][kH] b2, [2][kE] wod, [2][kE] bod,
+                        // [2][kE] wd1, bd1, wd2; [4] b3; [2] bd2
+  float* r_w3 = red_s;
+  float* r_b2 = r_w3 + 4 * kH;
+  float* r_wod = r_b2 + 4 * kH;
+  float* r_bod = r_wod + 2 * kE;
+  float* r_wd1 = r_bod + 2 * kE;
+  float* r_bd1 = r_wd1 + 2 * kE;
+  float* r_wd2 = r_bd1 + 2 * kE;
+  float* r_b3 = r_wd2 + 2 * kE;
+  float* r_bd2 = r_b3 + 4;
 #pragma unroll
-  for (int hh = 0; hh < 4; ++hh) {
-    mine[kOffB2 - kE * kH + 4 * fg + hh] = gb2[hh];
-    mine[kOffW3 - kE * kH + 4 * fg + hh] = gw3[hh];
-  }
-  if (fg == 0) {
-    mine[kOffBd2] = gbd2;
-    mine[kOffB3 - kE * kH] = gb3;
-  }
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float a[4] = {gw3[nb][c], gb2[nb][c], gwod[nb][c], gbod[nb][c]};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) a[q] += __shfl_xor_sync(0xffffffffu, a[q], off);
+      if (g == 0) {
+        const int h = 32 * (warp >> 2) + 8 * nb + 2 * t + c;
+        const int e = 32 * (warp >> 1) + 8 * nb + 2 * t + c;
+        r_w3[(warp & 3) * kH + h] = a[0];
+        r_b2[(warp & 3) * kH + h] = a[1];
+        r_wod[(warp & 1) * kE + e] = a[2];
+        r_bod[(warp & 1) * kE + e] = a[3];
+      }
+    }
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) gb3 += __shfl_xor_sync(0xffffffffu, gb3, off);
+  if (lane == 0 && warp < 4) r_b3[warp] = gb3;
+  r_wd1[tid] = gwd1;  // [tid >> 7][tid & 127]
+  r_bd1[tid] = gbd1;
+  r_wd2[tid] = gwd2;
+  if ((tid & (kE - 1)) == 0) r_bd2[tid >> 7] = gbd2;
   __syncthreads();
-  for (int c = tid; c < kVec; c += kThreads) {
-    float s = 0.f;
-    for (int h = 0; h < 16; ++h) s += red_s[h * kVec + c];
-    out[c < kOffW2 ? c : c + kE * kH] = s;
+  if (tid < kH) {
+    out[kOffW3 + tid] = r_w3[tid] + r_w3[kH + tid] + r_w3[2 * kH + tid] + r_w3[3 * kH + tid];
+    out[kOffB2 + tid] = r_b2[tid] + r_b2[kH + tid] + r_b2[2 * kH + tid] + r_b2[3 * kH + tid];
+  }
+  if (tid < kE) {
+    out[kOffWod + tid] = r_wod[tid] + r_wod[kE + tid];
+    out[kOffBod + tid] = r_bod[tid] + r_bod[kE + tid];
+    out[kOffWd1 + tid] = r_wd1[tid] + r_wd1[kE + tid];
+    out[kOffBd1 + tid] = r_bd1[tid] + r_bd1[kE + tid];
+    out[kOffWd2 + tid] = r_wd2[tid] + r_wd2[kE + tid];
+  }
+  if (tid == 0) {
+    out[kOffB3] = r_b3[0] + r_b3[1] + r_b3[2] + r_b3[3];
+    out[kOffBd2] = r_bd2[0] + r_bd2[1];
   }
 }
 
-// du[b,j,:] += sum over the i tiles of partj[b, it, j, :]
-__global__ void add_j_partials_kernel(const float* __restrict__ partj,
-                                      float* __restrict__ du, int B, int n, int nti) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t per_graph = (size_t)n * kE;
-  if (idx >= (size_t)B * per_graph) return;
-  const size_t b = idx / per_graph, r = idx % per_graph;
-  float s = du[idx];
-  for (int it = 0; it < nti; ++it) s += partj[(b * nti + it) * per_graph + r];
-  du[idx] = s;
+// du of rows i0.. of graph b (block (pi, b), one float4 a thread): the i
+// side's segment partials of item (b, pi) in list order, then the j sides
+// of the tiles (qi, pi) of graph b in order of qi. `blocks` is the grid of
+// ncsn_bwd_kernel.
+__global__ void __launch_bounds__(kThreads)
+ncsn_du_kernel(const float* __restrict__ dpart_j, const float* __restrict__ dpart_i,
+               const int* __restrict__ pre, const int* __restrict__ pos,
+               float* __restrict__ du, int n, int blocks) {
+  const int pi = blockIdx.x, b = blockIdx.y, nt = gridDim.x, item = b * nt + pi;
+  const int r = threadIdx.x >> 5, f = (threadIdx.x & 31) * 4;
+  const long long total = pre[gridDim.y * nt];
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto add = [&](const float* src) {
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(src + r * kE + f));
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  };
+  const int t0 = pre[item], t1 = pre[item + 1];
+  if (t1 > t0) {
+    // the blocks whose runs hold tiles t0 .. t1 - 1: from the last block
+    // starting at or before t0 (blocks with empty runs wrote nothing)
+    int k = (int)(((long long)(t0 + 1) * blocks + total - 1) / total) - 1;
+    for (; k < blocks && run_begin(total, blocks, k) < t1; ++k) {
+      if (run_begin(total, blocks, k + 1) == run_begin(total, blocks, k)) continue;
+      add(dpart_i + ((size_t)(item + k) * 2) * kTileRows);
+      add(dpart_i + ((size_t)(item + k) * 2 + 1) * kTileRows);
+    }
+  }
+  for (int qi = 0; qi < nt; ++qi) {
+    const int p = pos[((size_t)b * nt + qi) * nt + pi];
+    if (p >= 0) add(dpart_j + (size_t)p * kTileRows);
+  }
+  const int i = pi * kTile + r;
+  if (i < n) *reinterpret_cast<float4*>(du + ((size_t)b * n + i) * kE + f) = s;
 }
 
 static size_t fwd_smem_bytes(int n) {
   return sizeof(float) * (size_t)kHeadSmemFloats + sizeof(int) * (size_t)((n + kTile - 1) / kTile);
 }
-static size_t bwd_smem_bytes(int n) {
-  return sizeof(float) * (size_t)(kHeadSmemFloats + kPairs * kH + kPairs * kE) +
-         sizeof(int) * (size_t)((n + kTile - 1) / kTile);
-}
+static size_t bwd_smem_bytes() { return sizeof(float) * (size_t)kBwdFloats; }
 
 static HeadWeights head(const float* wd1, const float* bd1, const float* wd2,
                         const float* bd2, const float* wod, const float* bod,
@@ -496,7 +705,7 @@ static HeadWeights head(const float* wd1, const float* bd1, const float* wd2,
 }  // namespace geossl
 
 extern "C" size_t ncsn_fwd_smem_bytes(int n) { return geossl::fwd_smem_bytes(n); }
-extern "C" size_t ncsn_bwd_smem_bytes(int n) { return geossl::bwd_smem_bytes(n); }
+extern "C" size_t ncsn_bwd_smem_bytes() { return geossl::bwd_smem_bytes(); }
 extern "C" int ncsn_wgrad_size() { return geossl::kWgrad; }
 // Blocks of the backward's persistent grid, i.e. rows of its partials buffer.
 extern "C" int ncsn_bwd_blocks(int B, int n) {
@@ -524,32 +733,55 @@ extern "C" int ncsn_score_fwd(const float* dist, const float* noise, const float
   return (int)cudaGetLastError();
 }
 
+// Ints of the backward's workspace: the tile list over sel (worklist.cuh).
+extern "C" size_t ncsn_bwd_ws_ints(int B, int n) {
+  const int nt = (n + geossl::kTile - 1) / geossl::kTile;
+  return geossl::tile_list_ints((size_t)B * nt, nt);
+}
+
+// Floats of the backward's du partials: the j side of every tile that could
+// be listed, then the i side of every possible (block, item) segment.
+extern "C" size_t ncsn_bwd_dpart_floats(int B, int n) {
+  const size_t nt = (n + geossl::kTile - 1) / geossl::kTile, items = (size_t)B * nt;
+  return (items * nt + 2 * (items + (size_t)ncsn_bwd_blocks(B, n))) * geossl::kTileRows;
+}
+
 // Backward: du [B, n, E], and the ten weight gradients into `wgrad`
-// (ncsn_wgrad_size() floats, in the order of the offsets above). `partj`
-// holds B * ceil(n/8) * n * E floats, `part` ncsn_bwd_blocks(B, n) rows of
-// ncsn_wgrad_size() floats. Returns the cudaError_t of the launches.
+// (ncsn_wgrad_size() floats, in the order of the offsets above). `ws` holds
+// ncsn_bwd_ws_ints(B, n) ints, `dpart` ncsn_bwd_dpart_floats(B, n) floats
+// (written only where a tile or segment is listed), `part`
+// ncsn_bwd_blocks(B, n) rows of ncsn_wgrad_size() floats. Returns the
+// cudaError_t of the launches. No atomics: the result is the same from run
+// to run on one card.
 extern "C" int ncsn_score_bwd(const float* dist, const float* noise, const float* sel,
                               const float* sigma, const float* u, const float* grows,
                               const float* wd1, const float* bd1, const float* wd2,
                               const float* bd2, const float* wod, const float* bod,
                               const float* w2, const float* b2, const float* w3,
-                              const float* b3, float* du, float* partj, float* part,
-                              float* wgrad, int B, int n, int E, float anneal,
+                              const float* b3, float* du, float* dpart, float* part,
+                              float* wgrad, int* ws, int B, int n, int E, float anneal,
                               void* stream) {
   using namespace geossl;
   if (E != kE) return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem_bytes(n);
-  const int blocks = ncsn_bwd_blocks(B, n), nti = (n + kTile - 1) / kTile;
+  const size_t smem = bwd_smem_bytes();
+  const int blocks = ncsn_bwd_blocks(B, n), nt = (n + kTile - 1) / kTile, items = B * nt;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaFuncSetAttribute(ncsn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  ncsn_bwd_kernel<<<blocks, kThreads, smem, s>>>(
-      dist, noise, sel, sigma, u, grows,
-      head(wd1, bd1, wd2, bd2, wod, bod, w2, b2, w3, b3), du, partj, part, B, n, anneal);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = make_tile_list<false>(sel, ws, B, n, 1, s);
   if (err != cudaSuccess) return (int)err;
-  const size_t total = (size_t)B * n * kE;
-  add_j_partials_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(partj, du, B, n, nti);
+  const int* pre = ws + (size_t)items * nt + items;
+  const int* list = ws + worklist_ints(items, nt);
+  const int* pos = list + (size_t)items * nt;
+  float* dpart_j = dpart;
+  float* dpart_i = dpart + (size_t)items * nt * kTileRows;
+  err = cudaFuncSetAttribute(ncsn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ncsn_bwd_kernel<<<blocks, kThreads, smem, s>>>(
+      dist, noise, sel, sigma, u, grows, head(wd1, bd1, wd2, bd2, wod, bod, w2, b2, w3, b3),
+      list, pre + items, dpart_j, dpart_i, part, n, anneal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ncsn_du_kernel<<<dim3(nt, B), kThreads, 0, s>>>(dpart_j, dpart_i, pre, pos, du, n, blocks);
   sum_partials(part, blocks, kWgrad, wgrad, s);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // A work list of occupied 8x8 pair tiles, made on the device with no host
 // sync, shared by the persistent kernels (cfconv_bwd.cu, painn_bwd.cu,
-// schnet_stack.cu).
+// schnet_stack.cu, cfconv_fwd.cu's symmetric mode, ncsn_score.cu's
+// backward).
 //
 // An occupancy pass (one block per graph and 8-row band) flags the tiles to
 // compute (with `sparse` those whose env is not all zero; with SYM only the
@@ -130,6 +131,60 @@ inline cudaError_t make_worklist(const float* env, int* ws, ZeroGrids zero, int 
       env, occ, cnt, zero, ni, nj, sparse);
   tile_scan_kernel<<<1, 1024, 0, s>>>(cnt, pre, items);
   return cudaGetLastError();
+}
+
+// The listed tiles one by one (BY_ROW lists, e.g. cfconv_fwd.cu's symmetric
+// mode and ncsn_score.cu's backward): list[pre[item] + r] = item * n_t + the
+// item's r-th computed tile, and pos[item * n_t + t] = the list position of
+// tile t of the item, or -1 where it is not computed. One warp per item.
+__global__ void __launch_bounds__(kOccThreads)
+tile_list_kernel(const int* __restrict__ occ, const int* __restrict__ pre, int items,
+                 int n_t, int* __restrict__ list, int* __restrict__ pos) {
+  const int item = blockIdx.x * (kOccThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (item >= items) return;
+  const int* row = occ + (size_t)item * n_t;
+  int at = pre[item];
+  for (int base = 0; base < n_t; base += 32) {
+    const int t = base + lane;
+    const bool on = t < n_t && row[t];
+    const unsigned m = __ballot_sync(0xffffffffu, on);
+    const int p = at + __popc(m & ((1u << lane) - 1u));
+    if (on) list[p] = item * n_t + t;
+    if (t < n_t) pos[(size_t)item * n_t + t] = on ? p : -1;
+    at += __popc(m);
+  }
+}
+
+// Ints of a work list with its tile list (make_tile_list): the work list,
+// then list [items * tiles] and pos [items * tiles].
+inline size_t tile_list_ints(size_t items, size_t tiles) {
+  return worklist_ints(items, tiles) + 2 * items * tiles;
+}
+
+// make_worklist<SYM, true> over a square [B, n, n] grid, then the tile
+// list. ws holds tile_list_ints(B * nt, nt) ints: flags, counts, prefix
+// sums (pre[B * nt] is the number of listed tiles), list, pos.
+template <bool SYM>
+inline cudaError_t make_tile_list(const float* env, int* ws, int B, int n, int sparse,
+                                  cudaStream_t s) {
+  const int nt = (n + kTile - 1) / kTile, items = B * nt;
+  ZeroGrids none = {{nullptr}, 0};
+  cudaError_t err = make_worklist<SYM, true>(env, ws, none, B, n, n, sparse, s);
+  if (err != cudaSuccess) return err;
+  const int* occ = ws;
+  const int* pre = ws + (size_t)items * nt + items;
+  int* list = ws + worklist_ints(items, nt);
+  int* pos = list + (size_t)items * nt;
+  const int per = kOccThreads / 32;
+  tile_list_kernel<<<(items + per - 1) / per, kOccThreads, 0, s>>>(occ, pre, items, nt, list, pos);
+  return cudaGetLastError();
+}
+
+// The first tile of block k's run when `total` listed tiles are split into
+// equal runs over `blocks` blocks (lengths differ by at most one).
+__host__ __device__ inline int run_begin(long long total, int blocks, int k) {
+  return (int)(total * k / blocks);
 }
 
 // The item's computed tiles, in order, into tl_s (warp 0 only); returns

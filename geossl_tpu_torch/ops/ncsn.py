@@ -9,7 +9,10 @@ forward and ``ncsn_score_bwd`` (replaces ``_bwd_kernel``) backward, first
 order only. Gradients flow to the node projections ``u`` and the ten head
 weights; dist, noise, sel and sigma are data and get none.
 
-The kernels take emb = 128 only (``KERNEL_E``) and compute in plain f32.
+The kernels take emb = 128 only (``KERNEL_E``). The forward computes in
+plain f32 on the CUDA cores; the backward runs its three head products on the
+tensor cores in 3xTF32 (``csrc/mma_tf32.cuh``), within f32 rounding of the
+plain version, and sums everything in a fixed order (bitwise repeatable).
 """
 
 from __future__ import annotations
@@ -131,23 +134,27 @@ def ncsn_score_bwd(dist, noise, sel, sigma, u, g_rows, *weights, anneal):
         raise ValueError(f"ncsn_score_bwd: g_rows {tuple(g_rows.shape)}, "
                          f"want {(b, n)}")
     check_smem("ncsn_score_bwd", _build.kernel_fn(
-        "ncsn_score", "ncsn_bwd_smem_bytes", [ctypes.c_int],
-        ctypes.c_size_t)(n))
+        "ncsn_score", "ncsn_bwd_smem_bytes", [], ctypes.c_size_t)())
     blocks = _build.kernel_fn("ncsn_score", "ncsn_bwd_blocks",
                               [ctypes.c_int, ctypes.c_int])(b, n)
     size = _build.kernel_fn("ncsn_score", "ncsn_wgrad_size", [])()
+    ws_ints, dpart_floats = (_build.kernel_fn(
+        "ncsn_score", name, [ctypes.c_int] * 2, ctypes.c_size_t)(b, n)
+        for name in ("ncsn_bwd_ws_ints", "ncsn_bwd_dpart_floats"))
     fn = _build.kernel_fn(
         "ncsn_score", "ncsn_score_bwd",
-        [ctypes.c_void_p] * 20 + [ctypes.c_int] * 3
+        [ctypes.c_void_p] * 21 + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_void_p])
     dev = dist.device
-    n_it = -(-n // 8)
     du = torch.empty_like(u)
-    partj = torch.empty((b, n_it, n, KERNEL_E), dtype=torch.float32, device=dev)
+    # the work list (tile flags, counts, prefix sums, the tile list), the du
+    # partials of the listed tiles and the per-block weight gradients
+    ws = torch.empty(ws_ints, dtype=torch.int32, device=dev)
+    dpart = torch.empty(dpart_floats, dtype=torch.float32, device=dev)
     part = torch.empty((blocks, size), dtype=torch.float32, device=dev)
     wgrad = torch.empty(size, dtype=torch.float32, device=dev)
     err = fn(*map(ptr, (dist, noise, sel, sigma, u, g_rows, *weights, du,
-                        partj, part, wgrad)),
+                        dpart, part, wgrad, ws)),
              b, n, KERNEL_E, float(anneal), stream(dist))
     check_launch("ncsn_score_bwd", err)
     ncsn_score_bwd.launches += 1
