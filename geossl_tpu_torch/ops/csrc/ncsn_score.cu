@@ -593,8 +593,8 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int e = 32 * wq + 16 * mb + 8 * hh + g, h = 32 * wh + 8 * nb + 2 * t;
-          *reinterpret_cast<float2*>(out + kOffW2 + e * kH + h) =
-              make_float2(gw2[mb][nb][2 * hh], gw2[mb][nb][2 * hh + 1]);
+          out[kOffW2 + e * kH + h] = gw2[mb][nb][2 * hh];  // kOffW2 is odd
+          out[kOffW2 + e * kH + h + 1] = gw2[mb][nb][2 * hh + 1];
         }
   }
   // the vectors: over the 8 lanes of one t, then over the warps in order

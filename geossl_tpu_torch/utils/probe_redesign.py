@@ -112,7 +112,7 @@ def main():
     reports = _build.build_all()
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"ptxas {name}: {line.strip()}")
     K.plain_precision()
     cfg = ModelConfig()
