@@ -241,15 +241,17 @@ cfconv_fwd_sym_kernel(const float* __restrict__ dist, const float* __restrict__ 
     for (int nb = 0; nb < 4; ++nb) racc[nb][0] = racc[nb][1] = 0.f;
   };
 
-  load_tile(list[t_begin], 0);
+  int v = list[t_begin];
+  load_tile(v, 0);
   for (int k = t_begin; k < t_end; ++k) {
-    const int v = list[k], item = v / nt, pj = v - item * nt;
+    const int v_next = k + 1 < t_end ? list[k + 1] : 0;
+    const int item = v / nt, pj = v - item * nt;
     const int b = item / nt, pi = item - b * nt, j0 = pj * kTile;
     const int buf = (k - t_begin) & 1;
     cp_async_wait<0>();
     __syncthreads();  // tile k's rows (and the weights) have landed; every
                       // warp is done with tile k - 1's buffer
-    if (k + 1 < t_end) load_tile(list[k + 1], buf ^ 1);
+    if (k + 1 < t_end) load_tile(v_next, buf ^ 1);
     if (item != cur) {  // block-uniform: the run moves to the next row tile
       flush();
       cur = item;
@@ -332,6 +334,7 @@ cfconv_fwd_sym_kernel(const float* __restrict__ dist, const float* __restrict__ 
         if (j < n) atomicAdd(out + ((size_t)b * n + j) * kF + c, vm[q]);
       }
     }
+    v = v_next;
   }
   flush();
 }

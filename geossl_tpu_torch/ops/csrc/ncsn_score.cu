@@ -280,10 +280,12 @@ constexpr int kBOffL1 = kBOffW2 + kE * kH;          // [kPairs][kE] swizzled: l1
 constexpr int kBOffDx2 = kBOffL1 + kPairs * kE;     // [kPairs][kH] swizzled: dx2
 constexpr int kBOffU = kBOffDx2 + kPairs * kH;      // [2][2][8][kBS] u rows: j tile, i tile
 constexpr int kBOffGrid = kBOffU + 4 * kTile * kBS; // [2][3][64] dist, noise, sel, [il][jl]
-constexpr int kBOffGi = kBOffGrid + 6 * kPairs;     // [2][8] the row cotangents g_i
-constexpr int kBOffVec = kBOffGi + 2 * kTile;       // wd1, bd1, wd2, wod, bod [kE]; b2, w3 [kH]
-constexpr int kBOffPair = kBOffVec + 5 * kE + 2 * kH;  // dp, demb [64]; sr [2][64]; ddemb [4][64]
-constexpr int kBwdFloats = kBOffPair + 8 * kPairs;
+constexpr int kBOffGi = kBOffGrid + 6 * kPairs;     // [2][8] the row cotangents g_i, [2] sigma
+constexpr int kBOffVec = kBOffGi + 2 * kTile + 4;   // wd1, bd1, wd2, wod, bod [kE]; b2, w3 [kH]
+// per pair: dp [2][64], ddemb [2][4][64] (double: the distance MLP of a tile
+// runs in the next tile's iteration), demb [64], sr [2][64]
+constexpr int kBOffPair = kBOffVec + 5 * kE + 2 * kH;
+constexpr int kBwdFloats = kBOffPair + 13 * kPairs;
 // The per-tile du partials: the j side of every listed tile (its 8 rows j
 // summed over the tile's rows i), the i side of every (block, item) segment
 // of the runs (8 rows i summed over the segment's tiles), in two halves.
@@ -293,7 +295,8 @@ constexpr int kTileRows = kTile * kE;  // floats of one 8-row partial
 // the tiles where sel is not all zero, in (graph, 8-row i tile) items),
 // block k computing the run [run_begin(k), run_begin(k + 1)). Pair
 // p = jl*8 + il of a tile is row p of its 64-row operands. Per tile:
-//   1. dp, demb (CUDA cores), l1 = relu(u_i + u_j + demb w_od + b_od) into l1_s
+//   1. dp, demb, l1 = relu(u_i + u_j + demb w_od + b_od) into l1_s (CUDA
+//      cores; a warp per pair, a lane per 4 features)
 //   2. pre2 = l1 W2 (+ b2) on the tensor cores (3xTF32): warp (wq, wh) owns
 //      rows 16*wq.. and columns 32*wh.. of the 64 x H product; the score,
 //      ds = d loss / d score_raw, dx2 = relu'(pre2) ds w3 into dx2_s
@@ -304,7 +307,8 @@ constexpr int kTileRows = kTile * kE;  // floats of one 8-row partial
 //   4. the j side of du (dl1 summed over the tile's rows i) into
 //      dpart_j[tile]; the i side summed in registers over the segment's tiles;
 //      the vector weight gradients in registers
-//   5. the distance MLP's weight gradients (thread: one feature, 32 pairs)
+//   5. the distance MLP's weight gradients (thread: one feature, 32 pairs),
+//      in the next tile's iteration, after its first barrier
 // Every sum is taken in a fixed order and nothing is added atomically.
 __global__ void __launch_bounds__(kThreads, 1)
 ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
@@ -326,10 +330,10 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   float* bod_s = wod_s + kE;
   float* b2_s = bod_s + kE;
   float* w3_s = b2_s + kH;
-  float* dp_s = smem + kBOffPair;
-  float* demb_s = dp_s + kPairs;
-  float* sr_s = demb_s + kPairs;   // [2][64]
-  float* dde_s = sr_s + 2 * kPairs;  // [4][64]
+  float* dp_s = smem + kBOffPair;    // [2][64]
+  float* dde_s = dp_s + 2 * kPairs;  // [2][4][64]
+  float* demb_s = dde_s + 8 * kPairs;
+  float* sr_s = demb_s + kPairs;     // [2][64]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -389,6 +393,8 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
       const int i = i0 + tid - 3 * kPairs;
       cp_async4(smem + kBOffGi + buf * kTile + tid - 3 * kPairs,
                 grows + (i < n ? (size_t)b * n + i : 0), i < n);
+    } else if (tid == 3 * kPairs + kTile) {
+      cp_async4(smem + kBOffGi + 2 * kTile + buf, sigma + b, true);
     }
     for (int c = tid; c < 2 * kTile * kE / 4; c += kThreads) {
       const int side = c / (kTile * kE / 4), r = (c / (kE / 4)) % kTile;
@@ -412,51 +418,74 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
     }
   };
 
-  if (t_begin < t_end) load_tile(list[t_begin], 0);
+  // 5. the distance MLP of the tile in buffer pb: feature tid & 127 over
+  // pairs 32*(tid >> 7)..
+  auto dist_mlp = [&](int pb) {
+    const int e = tid & (kE - 1);
+    const float w1e = wd1_s[e], b1e = bd1_s[e], w2e = wd2_s[e];
+    const float* dd_t = dde_s + 4 * pb * kPairs;
+    for (int p = 32 * (tid >> 7); p < 32 * (tid >> 7) + 32; ++p) {
+      const float dd = dd_t[p] + dd_t[kPairs + p] + dd_t[2 * kPairs + p] + dd_t[3 * kPairs + p];
+      const float dp = dp_s[pb * kPairs + p];
+      const float t1 = fmaxf(fmaf(dp, w1e, b1e), 0.f);
+      gwd2 = fmaf(t1, dd, gwd2);
+      const float dt1 = t1 > 0.f ? dd * w2e : 0.f;
+      gwd1 = fmaf(dt1, dp, gwd1);
+      gbd1 += dt1;
+      if (e == 0) gbd2 += dd;
+    }
+  };
+
+  int v = t_begin < t_end ? list[t_begin] : 0;
+  if (t_begin < t_end) load_tile(v, 0);
   for (int k = t_begin; k < t_end; ++k) {
-    const int v = list[k], item = v / nt, b = item / nt;
+    const int v_next = k + 1 < t_end ? list[k + 1] : 0;
+    const int item = v / nt;
     const int buf = (k - t_begin) & 1;
     cp_async_wait<0>();
     __syncthreads();  // tile k's data (and W2) have landed; every warp is
-                      // done with tile k - 1
-    if (k + 1 < t_end) load_tile(list[k + 1], buf ^ 1);
+                      // done with tile k - 1 but its distance MLP
+    if (k + 1 < t_end) load_tile(v_next, buf ^ 1);
     if (item != cur) {  // block-uniform: the run moves to the next row tile
       flush();
       cur = item;
     }
+    if (k > t_begin) dist_mlp(buf ^ 1);
     const float* d_t = smem + kBOffGrid + 3 * buf * kPairs;  // [il][jl]
     const float* nz_t = d_t + kPairs;
     const float* sel_t = nz_t + kPairs;
     const float* gi_t = smem + kBOffGi + buf * kTile;
     const float* uj_t = smem + kBOffU + 2 * buf * kTile * kBS;
     const float* ui_t = uj_t + kTile * kBS;
-    const float sig = sigma[b], wsig = expf(anneal * logf(sig));
+    const float sig = smem[kBOffGi + 2 * kTile + buf], wsig = expf(anneal * logf(sig));
 
-    // 1. dp and demb: four threads per pair, features q + 4e'
+    // 1. per pair (warp w: pairs w, w + 8, ..) dp, demb = relu(dp w_d1 +
+    // b_d1) . w_d2 + b_d2 summed over the lanes' features 4*lane.., and l1
     {
-      const int p = tid >> 2, q = tid & 3, at = (p & 7) * kTile + (p >> 3);
-      const float dp = fmaf(nz_t[at], sig, d_t[at]);
-      float s = 0.f;
-#pragma unroll 8
-      for (int e = q; e < kE; e += 4) s = fmaf(fmaxf(fmaf(dp, wd1_s[e], bd1_s[e]), 0.f), wd2_s[e], s);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (q == 0) {
-        dp_s[p] = dp;
-        demb_s[p] = s + bd2;
-      }
-    }
-    __syncthreads();
-    for (int c = tid; c < kPairs * kE / 4; c += kThreads) {
-      const int p = c / (kE / 4), e = (c % (kE / 4)) * 4;
-      const float4 a = ld4(ui_t + (p & 7) * kBS + e), bj = ld4(uj_t + (p >> 3) * kBS + e);
+      const int e = 4 * lane;
+      const float4 w1v = ld4(wd1_s + e), b1v = ld4(bd1_s + e), w2v = ld4(wd2_s + e);
       const float4 wo = ld4(wod_s + e), bo = ld4(bod_s + e);
-      const float de = demb_s[p];
-      *reinterpret_cast<float4*>(l1_s + swz_at(kE, p, e)) =
-          make_float4(fmaxf(a.x + bj.x + fmaf(de, wo.x, bo.x), 0.f),
-                      fmaxf(a.y + bj.y + fmaf(de, wo.y, bo.y), 0.f),
-                      fmaxf(a.z + bj.z + fmaf(de, wo.z, bo.z), 0.f),
-                      fmaxf(a.w + bj.w + fmaf(de, wo.w, bo.w), 0.f));
+      for (int p = warp; p < kPairs; p += kThreads / 32) {
+        const int at = (p & 7) * kTile + (p >> 3);
+        const float dp = fmaf(nz_t[at], sig, d_t[at]);
+        float s = fmaxf(fmaf(dp, w1v.x, b1v.x), 0.f) * w2v.x;
+        s = fmaf(fmaxf(fmaf(dp, w1v.y, b1v.y), 0.f), w2v.y, s);
+        s = fmaf(fmaxf(fmaf(dp, w1v.z, b1v.z), 0.f), w2v.z, s);
+        s = fmaf(fmaxf(fmaf(dp, w1v.w, b1v.w), 0.f), w2v.w, s);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+        const float de = s + bd2;
+        if (lane == 0) {
+          dp_s[buf * kPairs + p] = dp;
+          demb_s[p] = de;
+        }
+        const float4 a = ld4(ui_t + (p & 7) * kBS + e), bj = ld4(uj_t + (p >> 3) * kBS + e);
+        *reinterpret_cast<float4*>(l1_s + swz_at(kE, p, e)) =
+            make_float4(fmaxf(a.x + bj.x + fmaf(de, wo.x, bo.x), 0.f),
+                        fmaxf(a.y + bj.y + fmaf(de, wo.y, bo.y), 0.f),
+                        fmaxf(a.z + bj.z + fmaf(de, wo.z, bo.z), 0.f),
+                        fmaxf(a.w + bj.w + fmaf(de, wo.w, bo.w), 0.f));
+      }
     }
     __syncthreads();
 
@@ -548,7 +577,7 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
           vj[16 * mb + 8 * hh + 2 * nb + 1] = v1;
         }
         s = quad_sum(s);
-        if (t == 0) dde_s[wn * kPairs + p] = s;
+        if (t == 0) dde_s[(4 * buf + wn) * kPairs + p] = s;
       }
     rs_lanes<2>(vj);  // summed over the tile's 8 rows i
     {
@@ -559,26 +588,13 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
         __stcg(dst + jl * kE + 32 * wn + 8 * ((e >> 1) & 3) + 2 * t + (e & 1), vj[q]);
       }
     }
-    __syncthreads();
-
-    // 5. the distance MLP: feature tid & 127 over pairs 32*(tid >> 7)..
-    {
-      const int e = tid & (kE - 1);
-      const float w1e = wd1_s[e], b1e = bd1_s[e], w2e = wd2_s[e];
-      for (int p = 32 * (tid >> 7); p < 32 * (tid >> 7) + 32; ++p) {
-        const float dd = dde_s[p] + dde_s[kPairs + p] + dde_s[2 * kPairs + p] +
-                         dde_s[3 * kPairs + p];
-        const float dp = dp_s[p];
-        const float t1 = fmaxf(fmaf(dp, w1e, b1e), 0.f);
-        gwd2 = fmaf(t1, dd, gwd2);
-        const float dt1 = t1 > 0.f ? dd * w2e : 0.f;
-        gwd1 = fmaf(dt1, dp, gwd1);
-        gbd1 += dt1;
-        if (e == 0) gbd2 += dd;
-      }
-    }
+    v = v_next;
   }
-  if (t_begin < t_end) flush();
+  if (t_begin < t_end) {
+    flush();
+    __syncthreads();  // the last tile's ddemb is complete
+    dist_mlp((t_end - 1 - t_begin) & 1);
+  }
 
   // this block's partial weight gradients, each a sum in a fixed order
   cp_async_wait<0>();  // a block with no tiles still staged W2
