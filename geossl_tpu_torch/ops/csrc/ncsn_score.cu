@@ -295,8 +295,7 @@ constexpr int kTileRows = kTile * kE;  // floats of one 8-row partial
 // the tiles where sel is not all zero, in (graph, 8-row i tile) items),
 // block k computing the run [run_begin(k), run_begin(k + 1)). Pair
 // p = jl*8 + il of a tile is row p of its 64-row operands. Per tile:
-//   1. dp, demb, l1 = relu(u_i + u_j + demb w_od + b_od) into l1_s (CUDA
-//      cores; a warp per pair, a lane per 4 features)
+//   1. dp, demb (CUDA cores), l1 = relu(u_i + u_j + demb w_od + b_od) into l1_s
 //   2. pre2 = l1 W2 (+ b2) on the tensor cores (3xTF32): warp (wq, wh) owns
 //      rows 16*wq.. and columns 32*wh.. of the 64 x H product; the score,
 //      ds = d loss / d score_raw, dx2 = relu'(pre2) ds w3 into dx2_s
@@ -459,33 +458,31 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
     const float* ui_t = uj_t + kTile * kBS;
     const float sig = smem[kBOffGi + 2 * kTile + buf], wsig = expf(anneal * logf(sig));
 
-    // 1. per pair (warp w: pairs w, w + 8, ..) dp, demb = relu(dp w_d1 +
-    // b_d1) . w_d2 + b_d2 summed over the lanes' features 4*lane.., and l1
+    // 1. dp and demb: four threads per pair, features q + 4e'; then l1
     {
-      const int e = 4 * lane;
-      const float4 w1v = ld4(wd1_s + e), b1v = ld4(bd1_s + e), w2v = ld4(wd2_s + e);
-      const float4 wo = ld4(wod_s + e), bo = ld4(bod_s + e);
-      for (int p = warp; p < kPairs; p += kThreads / 32) {
-        const int at = (p & 7) * kTile + (p >> 3);
-        const float dp = fmaf(nz_t[at], sig, d_t[at]);
-        float s = fmaxf(fmaf(dp, w1v.x, b1v.x), 0.f) * w2v.x;
-        s = fmaf(fmaxf(fmaf(dp, w1v.y, b1v.y), 0.f), w2v.y, s);
-        s = fmaf(fmaxf(fmaf(dp, w1v.z, b1v.z), 0.f), w2v.z, s);
-        s = fmaf(fmaxf(fmaf(dp, w1v.w, b1v.w), 0.f), w2v.w, s);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-        const float de = s + bd2;
-        if (lane == 0) {
-          dp_s[buf * kPairs + p] = dp;
-          demb_s[p] = de;
-        }
-        const float4 a = ld4(ui_t + (p & 7) * kBS + e), bj = ld4(uj_t + (p >> 3) * kBS + e);
-        *reinterpret_cast<float4*>(l1_s + swz_at(kE, p, e)) =
-            make_float4(fmaxf(a.x + bj.x + fmaf(de, wo.x, bo.x), 0.f),
-                        fmaxf(a.y + bj.y + fmaf(de, wo.y, bo.y), 0.f),
-                        fmaxf(a.z + bj.z + fmaf(de, wo.z, bo.z), 0.f),
-                        fmaxf(a.w + bj.w + fmaf(de, wo.w, bo.w), 0.f));
+      const int p = tid >> 2, q = tid & 3, at = (p & 7) * kTile + (p >> 3);
+      const float dp = fmaf(nz_t[at], sig, d_t[at]);
+      float s = 0.f;
+#pragma unroll 8
+      for (int e = q; e < kE; e += 4) s = fmaf(fmaxf(fmaf(dp, wd1_s[e], bd1_s[e]), 0.f), wd2_s[e], s);
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if (q == 0) {
+        dp_s[buf * kPairs + p] = dp;
+        demb_s[p] = s + bd2;
       }
+    }
+    __syncthreads();
+    for (int c = tid; c < kPairs * kE / 4; c += kThreads) {
+      const int p = c / (kE / 4), e = (c % (kE / 4)) * 4;
+      const float4 a = ld4(ui_t + (p & 7) * kBS + e), bj = ld4(uj_t + (p >> 3) * kBS + e);
+      const float4 wo = ld4(wod_s + e), bo = ld4(bod_s + e);
+      const float de = demb_s[p];
+      *reinterpret_cast<float4*>(l1_s + swz_at(kE, p, e)) =
+          make_float4(fmaxf(a.x + bj.x + fmaf(de, wo.x, bo.x), 0.f),
+                      fmaxf(a.y + bj.y + fmaf(de, wo.y, bo.y), 0.f),
+                      fmaxf(a.z + bj.z + fmaf(de, wo.z, bo.z), 0.f),
+                      fmaxf(a.w + bj.w + fmaf(de, wo.w, bo.w), 0.f));
     }
     __syncthreads();
 
