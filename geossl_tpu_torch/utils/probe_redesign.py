@@ -3,7 +3,7 @@ backward (``ncsn_score_bwd``) on the card at the shapes of their paths,
 through the public wrappers only, so that the same script times a checkout
 of an earlier tree (run it with that tree first on ``PYTHONPATH``):
 
-    python -m geossl_tpu_torch.utils.probe_redesign [--check] [--variants]
+    python -m geossl_tpu_torch.utils.probe_redesign [--check] [--variants] [--profile]
 
 Shapes: ``cfconv_fused_sym`` at the DDM batch (B=128, the clean graph of
 view 1, block 0 of a freshly seeded DDM-SchNet) of buckets 32/64/128 with
@@ -14,6 +14,8 @@ their plain versions first (chip_smoke.py's tolerances). ``--variants``
 builds text-patched copies of the sources (a scratch directory, never the
 shipped files), swaps each in under the wrapper and prints its time and
 its largest error against the plain version at the DDM shape.
+``--profile`` prints the device time of each launch of one call of either
+wrapper (``utils/profiling.top_device_ops``).
 """
 import argparse
 import ctypes
@@ -62,6 +64,20 @@ VARIANTS = {
         "dw2_plain_split": [("ncsn_score.cu",
                              "warp_tile_mma<2, 4, kPairs, true, false, false, true>(gw2",
                              "warp_tile_mma<2, 4, kPairs, true, false, false, false>(gw2")],
+        "p1_precise": [("ncsn_score.cu",
+                        "warp_tile_mma<1, 4, kE, false, false>(p2, l1_s",
+                        "warp_tile_mma<1, 4, kE, false, false, false, true>(p2, l1_s")],
+        "no_dist_mlp": [("ncsn_score.cu", "if (k > t_begin) dist_mlp(buf ^ 1);", ";")],
+        "no_demb_sum": [("ncsn_score.cu",
+                         "for (int e = q; e < kE; e += 4) s = fmaf(", "if (0) s = fmaf(")],
+        "no_l1_stage": [("ncsn_score.cu",
+                         "for (int c = tid; c < kPairs * kE / 4; c += kThreads) {\n"
+                         "      const int p = c / (kE / 4), e = (c % (kE / 4)) * 4;\n"
+                         "      const float4 a = ld4(ui_t",
+                         "for (int c = tid; c < 0; c += kThreads) {\n"
+                         "      const int p = c / (kE / 4), e = (c % (kE / 4)) * 4;\n"
+                         "      const float4 a = ld4(ui_t")],
+        "no_j_partials": [("ncsn_score.cu", "__stcg(dst + jl * kE", "if (k < 0) __stcg(dst + jl * kE")],
         "no_products": [
             ("ncsn_score.cu",
              "warp_tile_mma<1, 4, kE, false, false>(p2, l1_s, kE, 16 * wq, W2_s, kH, 32 * wh);",
@@ -106,6 +122,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--profile", action="store_true")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     dev = torch.device("cuda")
@@ -209,6 +226,14 @@ def main():
                                             "ms": t}))
 
     time_all("shipped")
+    if args.profile:
+        from geossl_tpu_torch.utils.profiling import top_device_ops
+
+        with torch.no_grad():
+            for name, fn in (("cfconv_fwd_sym DDM B=128 N=128", fwd("DDM B=128 N=128")),
+                             ("ncsn_score_bwd DDM B=128 N=128", bwd)):
+                ops = [[op, ms, count] for op, ms, count in top_device_ops(fn, 12, 0)]
+                print("probe_profile: " + json.dumps({"call": name, "ops_ms_calls": ops}))
     if args.variants:
         with tempfile.TemporaryDirectory() as tmp:
             libs = build_variants(tmp)
