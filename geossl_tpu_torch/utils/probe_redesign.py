@@ -69,7 +69,8 @@ VARIANTS = {
                         "warp_tile_mma<1, 4, kE, false, false, false, true>(p2, l1_s")],
         "no_dist_mlp": [("ncsn_score.cu", "if (k > t_begin) dist_mlp(buf ^ 1);", ";")],
         "no_demb_sum": [("ncsn_score.cu",
-                         "for (int e = q; e < kE; e += 4) s = fmaf(", "if (0) s = fmaf(")],
+                         "for (int e = q; e < kE; e += 4) s = fmaf(",
+                         "for (int e = q; e < 0; e += 4) s = fmaf(")],
         "no_l1_stage": [("ncsn_score.cu",
                          "for (int c = tid; c < kPairs * kE / 4; c += kThreads) {\n"
                          "      const int p = c / (kE / 4), e = (c % (kE / 4)) * 4;\n"
