@@ -282,8 +282,9 @@ constexpr int kBOffU = kBOffDx2 + kPairs * kH;      // [2][2][8][kBS] u rows: j 
 constexpr int kBOffGrid = kBOffU + 4 * kTile * kBS; // [2][3][64] dist, noise, sel, [il][jl]
 constexpr int kBOffGi = kBOffGrid + 6 * kPairs;     // [2][8] the row cotangents g_i, [2] sigma
 constexpr int kBOffVec = kBOffGi + 2 * kTile + 4;   // wd1, bd1, wd2, wod, bod [kE]; b2, w3 [kH]
-// per pair: dp [2][64], ddemb [2][4][64] (double: the distance MLP of a tile
-// runs in the next tile's iteration), demb [64], sr [2][64]
+// per pair: dp [2][64], ddemb's four column-warp partials [2][64][4] (double:
+// the distance MLP of a tile runs in the next tile's iteration), demb [64],
+// sr [2][64]
 constexpr int kBOffPair = kBOffVec + 5 * kE + 2 * kH;
 constexpr int kBwdFloats = kBOffPair + 13 * kPairs;
 // The per-tile du partials: the j side of every listed tile (its 8 rows j
@@ -330,7 +331,7 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   float* b2_s = bod_s + kE;
   float* w3_s = b2_s + kH;
   float* dp_s = smem + kBOffPair;    // [2][64]
-  float* dde_s = dp_s + 2 * kPairs;  // [2][4][64]
+  float* dde_s = dp_s + 2 * kPairs;  // [2][64][4]
   float* demb_s = dde_s + 8 * kPairs;
   float* sr_s = demb_s + kPairs;     // [2][64]
 
@@ -420,12 +421,15 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   // 5. the distance MLP of the tile in buffer pb: feature tid & 127 over
   // pairs 32*(tid >> 7)..
   auto dist_mlp = [&](int pb) {
-    const int e = tid & (kE - 1);
+    const int e = tid & (kE - 1), p0 = 32 * (tid >> 7);
     const float w1e = wd1_s[e], b1e = bd1_s[e], w2e = wd2_s[e];
-    const float* dd_t = dde_s + 4 * pb * kPairs;
-    for (int p = 32 * (tid >> 7); p < 32 * (tid >> 7) + 32; ++p) {
-      const float dd = dd_t[p] + dd_t[kPairs + p] + dd_t[2 * kPairs + p] + dd_t[3 * kPairs + p];
-      const float dp = dp_s[pb * kPairs + p];
+    const float4* dd_t = reinterpret_cast<const float4*>(dde_s) + pb * kPairs;
+    const float* dp_t = dp_s + pb * kPairs;
+#pragma unroll 8
+    for (int p = p0; p < p0 + 32; ++p) {
+      const float4 d4 = dd_t[p];
+      const float dd = d4.x + d4.y + d4.z + d4.w;
+      const float dp = dp_t[p];
       const float t1 = fmaxf(fmaf(dp, w1e, b1e), 0.f);
       gwd2 = fmaf(t1, dd, gwd2);
       const float dt1 = t1 > 0.f ? dd * w2e : 0.f;
@@ -458,13 +462,20 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
     const float* ui_t = uj_t + kTile * kBS;
     const float sig = smem[kBOffGi + 2 * kTile + buf], wsig = expf(anneal * logf(sig));
 
-    // 1. dp and demb: four threads per pair, features q + 4e'; then l1
+    // 1. dp and demb: four threads per pair, features 4*(q + 4m) + c; then l1
     {
       const int p = tid >> 2, q = tid & 3, at = (p & 7) * kTile + (p >> 3);
       const float dp = fmaf(nz_t[at], sig, d_t[at]);
       float s = 0.f;
-#pragma unroll 8
-      for (int e = q; e < kE; e += 4) s = fmaf(fmaxf(fmaf(dp, wd1_s[e], bd1_s[e]), 0.f), wd2_s[e], s);
+#pragma unroll
+      for (int m = 0; m < kE / 16; ++m) {
+        const int e = 4 * (q + 4 * m);
+        const float4 w1 = ld4(wd1_s + e), b1 = ld4(bd1_s + e), w2 = ld4(wd2_s + e);
+        s = fmaf(fmaxf(fmaf(dp, w1.x, b1.x), 0.f), w2.x, s);
+        s = fmaf(fmaxf(fmaf(dp, w1.y, b1.y), 0.f), w2.y, s);
+        s = fmaf(fmaxf(fmaf(dp, w1.z, b1.z), 0.f), w2.z, s);
+        s = fmaf(fmaxf(fmaf(dp, w1.w, b1.w), 0.f), w2.w, s);
+      }
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       s += __shfl_xor_sync(0xffffffffu, s, 2);
       if (q == 0) {
@@ -473,16 +484,20 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
       }
     }
     __syncthreads();
-    for (int c = tid; c < kPairs * kE / 4; c += kThreads) {
-      const int p = c / (kE / 4), e = (c % (kE / 4)) * 4;
-      const float4 a = ld4(ui_t + (p & 7) * kBS + e), bj = ld4(uj_t + (p >> 3) * kBS + e);
-      const float4 wo = ld4(wod_s + e), bo = ld4(bod_s + e);
-      const float de = demb_s[p];
-      *reinterpret_cast<float4*>(l1_s + swz_at(kE, p, e)) =
-          make_float4(fmaxf(a.x + bj.x + fmaf(de, wo.x, bo.x), 0.f),
-                      fmaxf(a.y + bj.y + fmaf(de, wo.y, bo.y), 0.f),
-                      fmaxf(a.z + bj.z + fmaf(de, wo.z, bo.z), 0.f),
-                      fmaxf(a.w + bj.w + fmaf(de, wo.w, bo.w), 0.f));
+    {  // warp w: pairs p = jl*8 + w (il = w), lane: features 4*lane..
+      const int e = 4 * lane;
+      const float4 a = ld4(ui_t + warp * kBS + e), wo = ld4(wod_s + e), bo = ld4(bod_s + e);
+#pragma unroll 4
+      for (int jl = 0; jl < kTile; ++jl) {
+        const int p = jl * kTile + warp;
+        const float4 bj = ld4(uj_t + jl * kBS + e);
+        const float de = demb_s[p];
+        *reinterpret_cast<float4*>(l1_s + swz_at(kE, p, e)) =
+            make_float4(fmaxf(a.x + bj.x + fmaf(de, wo.x, bo.x), 0.f),
+                        fmaxf(a.y + bj.y + fmaf(de, wo.y, bo.y), 0.f),
+                        fmaxf(a.z + bj.z + fmaf(de, wo.z, bo.z), 0.f),
+                        fmaxf(a.w + bj.w + fmaf(de, wo.w, bo.w), 0.f));
+      }
     }
     __syncthreads();
 
@@ -574,7 +589,7 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
           vj[16 * mb + 8 * hh + 2 * nb + 1] = v1;
         }
         s = quad_sum(s);
-        if (t == 0) dde_s[(4 * buf + wn) * kPairs + p] = s;
+        if (t == 0) dde_s[(buf * kPairs + p) * 4 + wn] = s;
       }
     rs_lanes<2>(vj);  // summed over the tile's 8 rows i
     {

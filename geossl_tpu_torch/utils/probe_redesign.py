@@ -68,16 +68,12 @@ VARIANTS = {
                         "warp_tile_mma<1, 4, kE, false, false>(p2, l1_s",
                         "warp_tile_mma<1, 4, kE, false, false, false, true>(p2, l1_s")],
         "no_dist_mlp": [("ncsn_score.cu", "if (k > t_begin) dist_mlp(buf ^ 1);", ";")],
-        "no_demb_sum": [("ncsn_score.cu",
-                         "for (int e = q; e < kE; e += 4) s = fmaf(",
-                         "for (int e = q; e < 0; e += 4) s = fmaf(")],
-        "no_l1_stage": [("ncsn_score.cu",
-                         "for (int c = tid; c < kPairs * kE / 4; c += kThreads) {\n"
-                         "      const int p = c / (kE / 4), e = (c % (kE / 4)) * 4;\n"
-                         "      const float4 a = ld4(ui_t",
-                         "for (int c = tid; c < 0; c += kThreads) {\n"
-                         "      const int p = c / (kE / 4), e = (c % (kE / 4)) * 4;\n"
-                         "      const float4 a = ld4(ui_t")],
+        "no_demb_sum": [("ncsn_score.cu", "for (int m = 0; m < kE / 16; ++m) {",
+                         "for (int m = 0; m < 0; ++m) {")],
+        "no_l1_stage": [("ncsn_score.cu", "for (int jl = 0; jl < kTile; ++jl) {\n"
+                         "        const int p = jl * kTile + warp;",
+                         "for (int jl = 0; jl < 0; ++jl) {\n"
+                         "        const int p = jl * kTile + warp;")],
         "no_j_partials": [("ncsn_score.cu", "__stcg(dst + jl * kE", "if (k < 0) __stcg(dst + jl * kE")],
         "no_products": [
             ("ncsn_score.cu",
