@@ -1,4 +1,5 @@
-// Tensor-core tile products in 3xTF32 (cfconv_bwd.cu, painn_bwd.cu, schnet_stack.cu).
+// Tensor-core tile products in 3xTF32 (cfconv_bwd.cu, painn_bwd.cu, schnet_stack.cu,
+// cfconv_fwd.cu's symmetric mode, ncsn_score.cu's backward).
 //
 // A warp computes C[16*MB x 8*NB] += A[16*MB x K] B[K x 8*NB] with
 // mma.sync.m16n8k8 (TF32 inputs, f32 accumulators). Each f32 operand x is
@@ -110,7 +111,13 @@ __device__ __forceinline__ void mma_passes(float c[MB][NB][4], const uint32_t ah
 // mma; this keeps that drift to the small per-step sum. Costs MB x NB x 4
 // registers and 4 additions per block and k step; schnet_stack.cu, whose
 // 5 L chained products compound every error, needs it (PERF.md).
-template <int MB, int NB, int K, bool kTA, bool kTB, bool kBOuter = false, bool kPrecise = false>
+//
+// kBLo > 0: B is stored split (split_b below, once for a matrix that many
+// products read): its TF32 high parts at B and the low parts kBLo floats
+// further, in the same layout, so that a k step loads B's fragments and
+// does not split them.
+template <int MB, int NB, int K, bool kTA, bool kTB, bool kBOuter = false, bool kPrecise = false,
+          int kBLo = 0>
 __device__ __forceinline__ void warp_tile_mma(float c[MB][NB][4], const float* A, int lda, int m0,
                                               const float* B, int ldb, int n0) {
   static_assert(K % 8 == 0, "K is a multiple of 8");
@@ -142,6 +149,13 @@ __device__ __forceinline__ void warp_tile_mma(float c[MB][NB][4], const float* A
   };
   auto load_b = [&](int nb, int k0, uint32_t bh[2], uint32_t bl[2]) {
     const float* p = B + k0 * ldb + b_l + ((8 * nb) ^ t8);
+    if (kBLo) {
+      bh[0] = __float_as_uint(p[0]);
+      bh[1] = __float_as_uint(p[b_u]);
+      bl[0] = __float_as_uint(p[kBLo]);
+      bl[1] = __float_as_uint(p[kBLo + b_u]);
+      return;
+    }
     split_tf32<kPrecise>(__float_as_uint(p[0]), bh[0], bl[0]);
     split_tf32<kPrecise>(__float_as_uint(p[b_u]), bh[1], bl[1]);
   };
@@ -155,7 +169,18 @@ __device__ __forceinline__ void warp_tile_mma(float c[MB][NB][4], const float* A
       for (int nb = 0; nb < NB; nb += 2) {
         // blocks: (rows n, cols k0), (n, k0 + 4), (n + 8, k0), (n + 8, k0 + 4)
         uint32_t w[4];
-        ldsm_x4(B + b_l + 8 * nb * ldb + (k0 & ~31) + 8 * (((k0 >> 3) & 3) ^ (lr & 3)), w);
+        const float* p = B + b_l + 8 * nb * ldb + (k0 & ~31) + 8 * (((k0 >> 3) & 3) ^ (lr & 3));
+        ldsm_x4(p, w);
+        if (kBLo) {
+          uint32_t wl[4];
+          ldsm_x4(p + kBLo, wl);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            bh[nb + q / 2][q % 2] = w[q];
+            bl[nb + q / 2][q % 2] = wl[q];
+          }
+          continue;
+        }
 #pragma unroll
         for (int q = 0; q < 4; ++q) split_tf32<kPrecise>(w[q], bh[nb + q / 2][q % 2], bl[nb + q / 2][q % 2]);
       }
@@ -199,6 +224,15 @@ __device__ __forceinline__ void warp_tile_mma(float c[MB][NB][4], const float* A
       mma_passes<MB, NB>(c, ah, al, bh, bl);
     }
   }
+}
+
+// An f32 value as warp_tile_mma's kBLo operands hold it: the high and the
+// low part of split_tf32<true> (rounded; what the precise mode passes).
+__device__ __forceinline__ void split_b(float x, float& hi, float& lo) {
+  uint32_t h, l;
+  split_tf32<true>(__float_as_uint(x), h, l);
+  hi = __uint_as_float(h);
+  lo = __uint_as_float(l);
 }
 
 // A C fragment pair (row r, columns c, c + 1; c even) of a swizzled matrix.

@@ -275,8 +275,9 @@ ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
 
 constexpr int kBS = kE + 8;  // row stride of the 8-row u tiles (bank spread)
 // shared memory of the backward, in floats
-constexpr int kBOffW2 = 0;                          // [kE][kH] swizzled
-constexpr int kBOffL1 = kBOffW2 + kE * kH;          // [kPairs][kE] swizzled: l1
+constexpr int kW2Lo = kE * kH;                      // the low parts' offset
+constexpr int kBOffW2 = 0;                          // [2][kE][kH] swizzled: W2 split, hi, lo
+constexpr int kBOffL1 = kBOffW2 + 2 * kE * kH;      // [kPairs][kE] swizzled: l1
 constexpr int kBOffDx2 = kBOffL1 + kPairs * kE;     // [kPairs][kH] swizzled: dx2
 constexpr int kBOffU = kBOffDx2 + kPairs * kH;      // [2][2][8][kBS] u rows: j tile, i tile
 constexpr int kBOffGrid = kBOffU + 4 * kTile * kBS; // [2][3][64] dist, noise, sel, [il][jl]
@@ -343,11 +344,18 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   const int t_end = run_begin(total, gridDim.x, blockIdx.x + 1);
   const float bd2 = W.bd2[0], b3 = W.b3[0];
 
+  // W2 split once into its TF32 parts: the B operand of l1 W2 and dx2 W2^T
   for (int c = tid; c < kE * kH / 4; c += kThreads) {
     const int r = c / (kH / 4), f = (c % (kH / 4)) * 4;
-    cp_async16(W2_s + swz_at(kH, r, f), W.w2 + r * kH + f, true);
+    const float4 w = *reinterpret_cast<const float4*>(W.w2 + r * kH + f);
+    float4 hi, lo;
+    split_b(w.x, hi.x, lo.x);
+    split_b(w.y, hi.y, lo.y);
+    split_b(w.z, hi.z, lo.z);
+    split_b(w.w, hi.w, lo.w);
+    *reinterpret_cast<float4*>(W2_s + swz_at(kH, r, f)) = hi;
+    *reinterpret_cast<float4*>(W2_s + kW2Lo + swz_at(kH, r, f)) = lo;
   }
-  cp_async_commit();
   if (tid < kE) {
     wd1_s[tid] = W.wd1[tid];
     bd1_s[tid] = W.bd1[tid];
@@ -365,7 +373,8 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   float gw3[4][2], gb2[4][2];  // columns h = 32*(warp>>2) + 8*nb + 2*t + c
   float gwod[4][2], gbod[4][2];  // columns e = 32*(warp>>1) + 8*nb + 2*t + c
   float racc[4][2];  // du rows i (il = g) of the segment, the same columns
-  float gwd1 = 0.f, gbd1 = 0.f, gwd2 = 0.f;  // feature tid & 127
+  // feature tid & 127: d w_d2, and d w_d1 and d b_d1 over w_d2
+  float gwd1 = 0.f, gbd1 = 0.f, gwd2 = 0.f;
   float gb3 = 0.f, gbd2 = 0.f;
 #pragma unroll
   for (int nb = 0; nb < 4; ++nb) {
@@ -420,9 +429,11 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
 
   // 5. the distance MLP of the tile in buffer pb: feature tid & 127 over
   // pairs 32*(tid >> 7)..
+  // (d b_d1 and d w_d1 are w_d2 times sum_p [t1 > 0] ddemb (dp); the sums
+  // are scaled once, at the end)
   auto dist_mlp = [&](int pb) {
     const int e = tid & (kE - 1), p0 = 32 * (tid >> 7);
-    const float w1e = wd1_s[e], b1e = bd1_s[e], w2e = wd2_s[e];
+    const float w1e = wd1_s[e], b1e = bd1_s[e];
     const float4* dd_t = reinterpret_cast<const float4*>(dde_s) + pb * kPairs;
     const float* dp_t = dp_s + pb * kPairs;
 #pragma unroll 8
@@ -430,11 +441,12 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
       const float4 d4 = dd_t[p];
       const float dd = d4.x + d4.y + d4.z + d4.w;
       const float dp = dp_t[p];
-      const float t1 = fmaxf(fmaf(dp, w1e, b1e), 0.f);
-      gwd2 = fmaf(t1, dd, gwd2);
-      const float dt1 = t1 > 0.f ? dd * w2e : 0.f;
-      gwd1 = fmaf(dt1, dp, gwd1);
-      gbd1 += dt1;
+      const float t1 = fmaf(dp, w1e, b1e);
+      if (t1 > 0.f) {
+        gwd2 = fmaf(t1, dd, gwd2);
+        gwd1 = fmaf(dd, dp, gwd1);
+        gbd1 += dd;
+      }
       if (e == 0) gbd2 += dd;
     }
   };
@@ -508,7 +520,8 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
     for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
       for (int q = 0; q < 4; ++q) p2[0][nb][q] = 0.f;
-    warp_tile_mma<1, 4, kE, false, false>(p2, l1_s, kE, 16 * wq, W2_s, kH, 32 * wh);
+    warp_tile_mma<1, 4, kE, false, false, false, true, kW2Lo>(p2, l1_s, kE, 16 * wq, W2_s, kH,
+                                                              32 * wh);
     {
       float sr[2] = {0.f, 0.f};
 #pragma unroll
@@ -560,7 +573,8 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
       for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
         for (int q = 0; q < 4; ++q) dl[mb][nb][q] = 0.f;
-    warp_tile_mma<2, 4, kH, false, true>(dl, dx2_s, kH, 32 * wm, W2_s, kH, 32 * wn);
+    warp_tile_mma<2, 4, kH, false, true, false, false, kW2Lo>(dl, dx2_s, kH, 32 * wm, W2_s, kH,
+                                                              32 * wn);
 
     // 4. relu'(l1); du's i side (rows il = g), the vector weight gradients,
     // ddemb's partial sums over this warp's columns; the j side per tile
@@ -609,8 +623,7 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   }
 
   // this block's partial weight gradients, each a sum in a fixed order
-  cp_async_wait<0>();  // a block with no tiles still staged W2
-  __syncthreads();     // the tile scratch is free
+  __syncthreads();  // the tile scratch is free
   float* out = part + (size_t)blockIdx.x * kWgrad;
   {
     const int wq = warp & 3, wh = warp >> 2;
@@ -658,8 +671,8 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
 #pragma unroll
   for (int off = 4; off < 32; off <<= 1) gb3 += __shfl_xor_sync(0xffffffffu, gb3, off);
   if (lane == 0 && warp < 4) r_b3[warp] = gb3;
-  r_wd1[tid] = gwd1;  // [tid >> 7][tid & 127]
-  r_bd1[tid] = gbd1;
+  r_wd1[tid] = gwd1 * wd2_s[tid & (kE - 1)];  // [tid >> 7][tid & 127]
+  r_bd1[tid] = gbd1 * wd2_s[tid & (kE - 1)];
   r_wd2[tid] = gwd2;
   if ((tid & (kE - 1)) == 0) r_bd2[tid >> 7] = gbd2;
   __syncthreads();

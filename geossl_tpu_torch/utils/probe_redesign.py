@@ -64,9 +64,9 @@ VARIANTS = {
         "dw2_plain_split": [("ncsn_score.cu",
                              "warp_tile_mma<2, 4, kPairs, true, false, false, true>(gw2",
                              "warp_tile_mma<2, 4, kPairs, true, false, false, false>(gw2")],
-        "p1_precise": [("ncsn_score.cu",
-                        "warp_tile_mma<1, 4, kE, false, false>(p2, l1_s",
-                        "warp_tile_mma<1, 4, kE, false, false, false, true>(p2, l1_s")],
+        "p1_plain_split": [("ncsn_score.cu",
+                            "warp_tile_mma<1, 4, kE, false, false, false, true, kW2Lo>(p2",
+                            "warp_tile_mma<1, 4, kE, false, false, false, false, kW2Lo>(p2")],
         "no_dist_mlp": [("ncsn_score.cu", "if (k > t_begin) dist_mlp(buf ^ 1);", ";")],
         "no_demb_sum": [("ncsn_score.cu", "for (int m = 0; m < kE / 16; ++m) {",
                          "for (int m = 0; m < 0; ++m) {")],
@@ -74,17 +74,18 @@ VARIANTS = {
                          "        const int p = jl * kTile + warp;",
                          "for (int jl = 0; jl < 0; ++jl) {\n"
                          "        const int p = jl * kTile + warp;")],
-        "no_j_partials": [("ncsn_score.cu", "__stcg(dst + jl * kE", "if (k < 0) __stcg(dst + jl * kE")],
         "no_products": [
             ("ncsn_score.cu",
-             "warp_tile_mma<1, 4, kE, false, false>(p2, l1_s, kE, 16 * wq, W2_s, kH, 32 * wh);",
+             "warp_tile_mma<1, 4, kE, false, false, false, true, kW2Lo>(p2, l1_s, kE, 16 * wq, "
+             "W2_s, kH,\n                                                              32 * wh);",
              ";"),
             ("ncsn_score.cu",
              "warp_tile_mma<2, 4, kPairs, true, false, false, true>(gw2, l1_s, kE, 32 * wq, "
              "dx2_s, kH,\n                                                          32 * wh);",
              ";"),
             ("ncsn_score.cu",
-             "warp_tile_mma<2, 4, kH, false, true>(dl, dx2_s, kH, 32 * wm, W2_s, kH, 32 * wn);",
+             "warp_tile_mma<2, 4, kH, false, true, false, false, kW2Lo>(dl, dx2_s, kH, 32 * wm, "
+             "W2_s, kH,\n                                                              32 * wn);",
              ";")],
     },
 }
