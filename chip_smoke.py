@@ -44,7 +44,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    of buckets 32, 64 and 128 (128 slots), on a partial batch (5 graphs in
    128 slots) and on one of very uneven graphs (60 of bucket 32 and 8 of
    bucket 128 at N=128); a second launch must agree with the first at the
-   same tolerance (its messages are summed with atomics).
+   same tolerance (its messages are summed with atomics). ``cfconv_fwd_sym``
+   likewise (rtol 1e-4, atol 1e-5, gating off and on) on that partial and
+   that uneven batch, a second launch against the first; and, in phase 4,
+   at the DDM buckets (B=128, N=32/64/128) and serving's N=512.
+   ``ncsn_score_bwd`` on the DDM batch (B=128, N=128) and on a partial batch
+   of 5 graphs in its 128 slots; on the DDM batch two launches must agree
+   bitwise in every output.
 3. Main paths, each with the launch counters reset just before and read
    just after; every kernel of the path must have launched.
    a. Serving: ``Predictor`` at full SchNet width (F=128, L=6, G=51,
@@ -151,10 +157,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    once and the upper triangle read; for the tensor-core CFConv backward,
    ``bound_basis`` "tf32_tensor_core+f32": its products once at the TF32
    tensor-core peak, its elementwise terms at the f32 peak; likewise
-   ``schnet_stack`` and ``painn_bwd``), and ptxas's registers and spills
-   per kernel. The CFConv backward, ``painn_bwd`` and ``schnet_stack``
-   compute their products in 3xTF32 on the tensor cores and are held to
-   the same tolerances as every other kernel.
+   ``schnet_stack``, ``painn_bwd``, ``cfconv_fwd_sym`` (also on the
+   ``cfconv_fwd_sym_ddm:`` line) and ``ncsn_score_bwd``), and ptxas's
+   registers and spills per kernel. Those kernels compute their products in
+   3xTF32 on the tensor cores and are held to the same tolerances as every
+   other kernel. The NCSN rows count their launches over both DDM epochs
+   (SchNet and PaiNN).
 
 The line before the last is the kernel table as JSON (thirteen kernels,
 every Pallas kernel of the JAX package); the last line is
@@ -271,8 +279,8 @@ def pair_work(dist, env):
 
 # kernel -> (library, mangled-name prefix of its entry function)
 KERNEL_ENTRIES = {
-    "cfconv_fwd": ("cfconv_fwd", "_ZN6geossl17cfconv_fwd_kernelILb0E"),
-    "cfconv_fwd_sym": ("cfconv_fwd", "_ZN6geossl17cfconv_fwd_kernelILb1E"),
+    "cfconv_fwd": ("cfconv_fwd", "_ZN6geossl17cfconv_fwd_kernelE"),
+    "cfconv_fwd_sym": ("cfconv_fwd", "_ZN6geossl21cfconv_fwd_sym_kernelE"),
     "schnet_stack": ("schnet_stack", "_ZN6geossl19schnet_stack_kernelILb1E"),
     "cfconv_bwd": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb0E"),
     "cfconv_bwd_sym": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb1E"),
@@ -1046,6 +1054,22 @@ def main():
                 for sp in (False, True):
                     errs.check(name, fn(dist, env, x, *fw, 0.0, cutoff, G, sp),
                                want, f"B=2 N={n} sparse={sp}")
+        # the symmetric kernel's work list on a partial batch (5 real graphs
+        # in 128 slots) and on very uneven graphs (60 of bucket 32 and 8 of
+        # bucket 128 at N=128); a second launch against the first (its
+        # messages are summed with atomics: the same tolerance)
+        for idx, what in ((first(128, 5), "partial B=128 (5 graphs) N=128"),
+                          (np.concatenate([first(32, 60), first(128, 8)]),
+                           "uneven B=128 (60 + 8 graphs) N=128")):
+            _, dist, env, _, x = layer0_inputs(model, idx, 128, 128)
+            want = chunked(K.cfconv_fused_reference, (dist, env, x),
+                           (*filt, 0.0, cutoff, G), 16)
+            for sp in (False, True):
+                got = K.cfconv_fused_sym(dist, env, x, *filt, 0.0, cutoff, G, sp)
+                errs.check("cfconv_fwd_sym", got, want, f"{what} sparse={sp}")
+                errs.check("cfconv_fwd_sym", K.cfconv_fused_sym(
+                    dist, env, x, *filt, 0.0, cutoff, G, sp), got,
+                    f"{what} sparse={sp} second launch")
 
     # the backward kernels and the NCSN head, outside inference mode (the
     # plain versions differentiate with autograd). Every check of a kernel
@@ -1622,10 +1646,11 @@ def main():
                 ("cfconv_fwd", model_mn, filt_mn, K.cfconv_fused, 256, False),
                 ("cfconv_fwd_sym", model, filt, K.cfconv_fused_sym, 512, True)):
             batch, dist, env, _, x = serving_batch(m, b)
-            got = fn(dist, env, x, *fw, 0.0, cutoff, G, True)
             want = chunked(K.cfconv_fused_reference, (dist, env, x),
                            (*fw, 0.0, cutoff, G), 4)
-            errs.check(name, got, want, f"serving B={dist.shape[0]} N={b}")
+            for sp in (False, True):
+                errs.check(name, fn(dist, env, x, *fw, 0.0, cutoff, G, sp), want,
+                           f"serving B={dist.shape[0]} N={b} sparse={sp}")
             ms = cuda_time_ms(lambda: fn(dist, env, x, *fw, 0.0, cutoff, G, True))
             plain_ms = cuda_time_ms(lambda: chunked(
                 K.cfconv_fused_reference, (dist, env, x), (*fw, 0.0, cutoff, G),
@@ -1633,7 +1658,10 @@ def main():
             nnz, filt_pairs, cells, tiles = pair_work(dist, env)
             if sym and cells == dist.numel():
                 fail(f"{name}: serving dist/env are not symmetric")
-            flops = filt_pairs * (flop_pair - 2 * 128) + nnz * 2 * 128
+            # the symmetric kernel runs the filter's two products on the
+            # tensor cores, the messages on the CUDA cores
+            flops = (filt_pairs * (flop_pair - 2 * 128), nnz * 2 * 128) if sym \
+                else filt_pairs * (flop_pair - 2 * 128) + nnz * 2 * 128
             nbytes = 4 * (cells + tiles + 2 * x.numel()
                           + sum(t.numel() for t in fw))
             kernels.append((name, "geossl_tpu_torch/ops/csrc/cfconv_fwd.cu",
@@ -1793,15 +1821,31 @@ def main():
             "plain_ms": cuda_time_ms(lambda: chunked(
                 K.cfconv_fused_reference, (d_, e_, x_), (*fw_, 0.0, cutoff, G),
                 16), reps=3, warmup=1),
-            "bound_ms": max((filt_pairs * (flop_pair - 2 * 128)
-                             + nnz * 2 * 128) / PEAK_F32_FLOPS,
+            # the filter's products at the TF32 tensor-core peak, the
+            # messages at the f32 peak, the bytes at the HBM rate
+            "bound_ms": max(filt_pairs * (flop_pair - 2 * 128) / PEAK_TF32_FLOPS,
+                            nnz * 2 * 128 / PEAK_F32_FLOPS,
                             4 * (cells + tiles + 2 * x_.numel()
                                  + sum(t.numel() for t in fw_))
                             / PEAK_BYTES) * 1e3,
+            "bound_basis": "tf32_tensor_core+f32",
             "launches": train_launches["cfconv_fwd_sym"]}))
 
     grid, weights, anneal = ncsn_inputs(ddm0, batch, targs, SEED)
     g_rows = check_ncsn(errs, grid, weights, anneal, "DDM B=128 N=128", chunk=16)
+    # no atomics: every output of the backward repeats bitwise
+    again = [NS.ncsn_score_bwd(*grid, g_rows, *weights, anneal=anneal)
+             for _ in range(2)]
+    same = [torch.equal(a, b) for a, b in zip(*again)]
+    print(f"ncsn_score_bwd repeats bitwise: {all(same)}")
+    if not all(same):
+        fail(f"ncsn_score_bwd: outputs differ between two launches {same}")
+    # its work list on a partial batch: 5 real graphs in the 128 slots
+    b5 = pack_batch([train_store.get(int(i))
+                     for i in np.nonzero(tbucket == 128)[0][:5]], 128, 128).to(dev)
+    grid5, weights5, anneal5 = ncsn_inputs(ddm0, b5, targs, SEED)
+    check_ncsn(errs, grid5, weights5, anneal5, "DDM partial B=128 (5 graphs) N=128",
+               chunk=16)
     sel_pairs = int((grid[2] != 0).sum())
     bsz, n = grid[0].shape[:2]
     head_w = sum(w.numel() for w in weights)
@@ -1814,18 +1858,23 @@ def main():
              sel_pairs * fwd_pair,
              4 * (3 * grid[0].numel() + grid[4].numel() + bsz + head_w
                   + bsz * n), 67),
+            # tensor cores: l1 W2 recomputed, dl1 = dx2 W2^T, dW2 += l1^T
+            # dx2; CUDA cores: the elementwise chain of both directions
             ("ncsn_score_bwd",
              lambda: NS.ncsn_score_bwd(*grid, g_rows, *weights, anneal=anneal),
              lambda: chunked_sum(
                  lambda *a: NS.ncsn_score_bwd_reference(*a, anneal=anneal),
                  (*grid, g_rows), weights, 16, 1),
-             sel_pairs * (fwd_pair + 4 * E_ * H_ + 12 * E_ + 4 * H_),
+             (sel_pairs * 6 * E_ * H_,
+              sel_pairs * (fwd_pair - 2 * E_ * H_ + 12 * E_ + 4 * H_)),
              4 * (3 * grid[0].numel() + 2 * grid[4].numel() + bsz
                   + bsz * n + 2 * head_w), 135)):
+        # launched by both DDM epochs' heads (SchNet and PaiNN)
         kernels.append((name, "geossl_tpu_torch/ops/csrc/ncsn_score.cu",
                         f"geossl_tpu/ops/ncsn_pallas.py:{line}",
                         cuda_time_ms(fn), cuda_time_ms(plain, reps=3, warmup=1),
-                        flops, nbytes, train_launches[name]))
+                        flops, nbytes,
+                        train_launches[name] + train_launches_p[name]))
 
     # PaiNN: the stack at the first batch of the one bucket it serves
     # (serve.PAINN_STACK_MAX_N = 32), the message pass and its backward at
