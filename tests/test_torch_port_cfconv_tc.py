@@ -2,14 +2,21 @@
 CPU.
 
 ``ops/csrc/cfconv_bwd.cu`` runs its six tile products (``painn_bwd.cu`` its
-three, ``schnet_stack.cu`` its filter and dense products) with
+three, ``schnet_stack.cu`` its filter and dense products, ``cfconv_fwd.cu``'s
+symmetric mode its two filter products, ``ncsn_score.cu``'s backward its three
+head products) with
 ``mma.sync.m16n8k8`` in 3xTF32 (``csrc/mma_tf32.cuh``): each f32 operand is
 split into a TF32 high part (its top 19 bits) and the f32 remainder, whose
 top 19 bits the tensor core reads, and the product is
 summed as lo*hi + hi*lo + hi*hi in f32, one k-block of 8 at a time. The
 emulation below does the same in PyTorch at the kernel's tile shapes, and
 shows why one TF32 pass would not do: it misses ``chip_smoke.py``'s
-tolerance on a ddist-like row sum that the three passes meet.
+tolerance on a ddist-like row sum that the three passes meet. ``mma_chain``
+also emulates the tensor core's truncating accumulator, which is what the
+precise mode is for: a sum over every tile of a run (the NCSN backward's
+dW2) drifts in the plain split and stays within f32 rounding in the precise
+mode, while the symmetric CFConv forward's two chained products meet their
+tolerance in the plain split.
 """
 
 import numpy as np
@@ -102,6 +109,16 @@ def _operands(rng, m, k, n, kind):
         a, b = {"phi_wk": (phi[:, :k], wk[:k]),
                 "phiT_dwg": (phi.T[:m], dwg),
                 "dwg_wkT": (dwg, wk.T[:, :n])}[kind]
+    elif kind in ("l1_w2", "dx2_w2t"):
+        # ncsn_score.cu's backward: l1 = relu(.) [64 pairs x E=128] against
+        # W2 [E x H=64], and dx2 = relu'(pre2) ds w3 [64 x H] against W2^T
+        w2 = rng.normal(0.0, 1.0 / np.sqrt(128), (128, 64))
+        if kind == "l1_w2":
+            a, b = np.maximum(rng.normal(0.2, 1.0, (m, k)), 0.0), w2
+        else:
+            ds = rng.normal(0.0, 1.0, (m, 1))
+            a = np.where(rng.normal(0.0, 1.0, (m, k)) > 0, ds * rng.normal(0.0, 0.2, (1, k)), 0.0)
+            b = w2.T
     else:  # "dense": schnet_stack's h Wl1, m Wa, ssp(.) Wb over 64 atom rows
         a = rng.normal(0.0, 1.0, (m, k))
         b = rng.normal(0.0, 1.0 / np.sqrt(k), (k, n))
@@ -115,7 +132,9 @@ def _operands(rng, m, k, n, kind):
                                         (64, 24, 384, "phi_wk"),
                                         (32, 64, 384, "phiT_dwg"),
                                         (64, 384, 32, "dwg_wkT"),
-                                        (64, 128, 128, "dense")])
+                                        (64, 128, 128, "dense"),
+                                        (64, 128, 64, "l1_w2"),
+                                        (64, 64, 128, "dx2_w2t")])
 def test_3xtf32_product_within_2e6_of_f64(m, k, n, kind):
     a, b = _operands(np.random.default_rng(m + k + n), m, k, n, kind)
     want = a.double() @ b.double()
@@ -129,12 +148,13 @@ def test_3xtf32_product_within_2e6_of_f64(m, k, n, kind):
 
 @pytest.mark.parametrize("m,k,n,kind", [(64, 56, 128, "rbf_w1"),
                                         (64, 128, 128, "s_w2"),
-                                        (64, 128, 128, "dense")])
+                                        (64, 128, 128, "dense"),
+                                        (64, 128, 64, "l1_w2")])
 def test_rounded_split_is_closer_to_f64(m, k, n, kind):
-    """schnet_stack's precise mode rounds both TF32 parts: at its tile
-    shapes that is within 6e-7 of the f64 product, closer than the cut
-    split (the rest of the mode, f32 accumulation of each k step, is what
-    the emulation already does)."""
+    """The precise mode (schnet_stack, the NCSN backward's l1 W2) rounds
+    both TF32 parts: at these tile shapes that is within 6e-7 of the f64
+    product, closer than the cut split (the rest of the mode, f32
+    accumulation of each k step, is what the emulation already does)."""
     a, b = _operands(np.random.default_rng(3 * m + k + n), m, k, n, kind)
     want = a.double() @ b.double()
 
@@ -144,6 +164,99 @@ def test_rounded_split_is_closer_to_f64(m, k, n, kind):
     rounded = rel(mma_product(a, b, 3, split=tf32_round))
     assert rounded < 6e-7, rounded
     assert rounded < rel(mma_product(a, b, 3))
+
+
+def trunc_f32(x):
+    """An f64 value to f32, rounded toward zero: how the tensor core adds a
+    product to its f32 accumulator."""
+    f = x.float()
+    over = f.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def mma_chain(pairs, precise):
+    """sum_t A_t @ B_t as ``warp_tile_mma`` chains it over a run of tiles
+    into one accumulator: 3xTF32 per k-block of 8, each pass added to the
+    accumulator with truncation; with ``precise`` both parts rounded
+    (``split_tf32<true>``) and each k step's three passes summed apart (with
+    truncation) and then added to the accumulator in f32, to nearest."""
+    cut = tf32_round if precise else tf32_trunc
+    c = None
+    for a, b in pairs:
+        a, b = a.float(), b.float()
+        ah, bh = cut(a), cut(b)
+        terms = [(cut(a - ah), bh), (ah, cut(b - bh)), (ah, bh)]
+        if c is None:
+            c = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+        for k0 in range(0, a.shape[1], 8):
+            ks = slice(k0, k0 + 8)
+            if precise:
+                d = torch.zeros_like(c)
+                for x, y in terms:
+                    d = trunc_f32(d.double() + x[:, ks].double() @ y[ks].double())
+                c = (c.double() + d.double()).float()
+            else:
+                for x, y in terms:
+                    c = trunc_f32(c.double() + x[:, ks].double() @ y[ks].double())
+    return c
+
+
+@pytest.mark.parametrize("tiles", [16, 64])
+def test_precise_mode_keeps_a_run_sum_of_dw2_at_f32(tiles):
+    """The NCSN backward sums dW2 += l1^T dx2 over every tile of a block's
+    run in one accumulator: the plain split's truncation drifts with the
+    number of tiles, the precise mode stays within f32 rounding (the card:
+    dW2 2.3e-5 from the plain version in the plain split, ~1e-6 precise,
+    PERF.md)."""
+    rng = np.random.default_rng(tiles)
+    pairs = []
+    for _ in range(tiles):
+        l1t, _ = _operands(rng, 64, 128, 64, "l1_w2")
+        dx2, _ = _operands(rng, 64, 64, 128, "dx2_w2t")
+        pairs.append((l1t.T.contiguous(), dx2))
+    want = sum(a.double() @ b.double() for a, b in pairs)
+
+    def rel(got):
+        return ((got.double() - want).norm() / want.norm()).item()
+
+    precise, plain = rel(mma_chain(pairs, True)), rel(mma_chain(pairs, False))
+    assert precise < 1e-6, precise
+    assert plain > 10 * precise
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_forward_filter_products_meet_the_tolerance_in_the_plain_split(seed):
+    """cfconv_fwd.cu's symmetric mode chains rbf[64 x G->56] W1, ssp and
+    W2 in the plain split and sums the messages of 13 tiles of a row: within
+    chip_smoke.py's rtol 1e-4 / atol 1e-5 of the f64 message at under half
+    the tolerance (the precise mode buys nothing it needs)."""
+    rng = np.random.default_rng(seed)
+    g_n, f, tiles = 51, 128, 13
+    delta = 10.0 / (g_n - 1)
+    off = np.linspace(0.0, 10.0, g_n)
+    w1 = np.zeros((56, f))
+    w1[:g_n] = rng.normal(0.0, 1.0 / np.sqrt(g_n), (g_n, f))
+    b1, b2 = rng.normal(0.0, 0.1, f), rng.normal(0.0, 0.1, f)
+    w2 = rng.normal(0.0, 1.0 / np.sqrt(f), (f, f))
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32))
+
+    want, got = np.zeros((8, f)), torch.zeros(8, f, dtype=torch.float32)
+    for _ in range(tiles):
+        d = rng.uniform(0.8, 10.0, (8, 8))
+        env, x = rng.uniform(0.0, 1.0, (8, 8)), rng.normal(0.0, 1.0, (8, f))
+        rbf = np.zeros((64, 56))
+        rbf[:, :g_n] = np.exp(-0.5 / delta**2 * (d.reshape(64, 1) - off) ** 2)
+        w = (np.logaddexp(rbf @ w1 + b1, 0.0) - np.log(2.0)) @ w2 + b2
+        want += np.einsum("ij,ijf,jf->if", env, w.reshape(8, 8, f), x)
+        h = mma_chain([(f32(rbf), f32(w1))], False) + f32(b1)
+        s = torch.logaddexp(h, torch.zeros_like(h)) - np.log(2.0)
+        wk = mma_chain([(s, f32(w2))], False) + f32(b2)
+        got += torch.einsum("ij,ijf,jf->if", f32(env), wk.view(8, 8, f), f32(x))
+    want = torch.from_numpy(want)
+    ratio = ((got.double() - want).abs() / (ATOL + RTOL * want.abs())).max().item()
+    assert ratio < 0.5, ratio
 
 
 def _ddist_rows(dh, w1, rbf, d, off, coeff, passes):

@@ -1,0 +1,225 @@
+"""The device work lists of the redesigned kernels, modelled in float64 on
+the CPU: the tile list of ``csrc/worklist.cuh`` (``make_tile_list``) and its
+split into equal runs (``run_begin``), the symmetric CFConv forward's runs
+with their mirrored messages (``csrc/cfconv_fwd.cu``), and the NCSN
+backward's du partials summed in list order (``csrc/ncsn_score.cu``:
+``ncsn_bwd_kernel`` writes them, ``ncsn_du_kernel`` sums them).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from geossl_tpu_torch.models.common import cosine_envelope
+from geossl_tpu_torch.ops import cfconv as tcf
+from geossl_tpu_torch.ops import ncsn as tns
+
+TILE = 8
+
+
+def tile_list(grid, sym, sparse=True):
+    """``make_tile_list`` on a [B, n, n] grid: items (graph, 8-row i tile)
+    in order, each listing its computed j tiles in order (with ``sym`` only
+    pj >= pi; with ``sparse`` only tiles holding a nonzero entry). Returns
+    the list of (b, pi, pj), pos {(b, pi, pj): list position} and the
+    prefix sums pre [B * nt + 1]."""
+    b_n, n, _ = grid.shape
+    nt = -(-n // TILE)
+    nz = np.zeros((b_n, nt * TILE, nt * TILE), bool)
+    nz[:, :n, :n] = np.asarray(grid) != 0
+    occ = nz.reshape(b_n, nt, TILE, nt, TILE).any(axis=(2, 4))
+    lst, pos, pre = [], {}, [0]
+    for b in range(b_n):
+        for pi in range(nt):
+            for pj in range(nt):
+                if (not sym or pi <= pj) and (occ[b, pi, pj] or not sparse):
+                    pos[b, pi, pj] = len(lst)
+                    lst.append((b, pi, pj))
+            pre.append(len(lst))
+    return lst, pos, pre
+
+
+def run_begin(total, blocks, k):
+    return total * k // blocks
+
+
+def runs(total, blocks):
+    return [range(run_begin(total, blocks, k), run_begin(total, blocks, k + 1))
+            for k in range(blocks)]
+
+
+def du_blocks(pre, item, blocks):
+    """The blocks ``ncsn_du_kernel`` reads the i-side segments of ``item``
+    from: from the last block starting at or before its first tile, while a
+    block starts before its end, skipping empty runs."""
+    total, t0, t1 = pre[-1], pre[item], pre[item + 1]
+    if t1 <= t0:
+        return []
+    k = -(-(t0 + 1) * blocks // total) - 1
+    out = []
+    while k < blocks and run_begin(total, blocks, k) < t1:
+        if run_begin(total, blocks, k + 1) > run_begin(total, blocks, k):
+            out.append(k)
+        k += 1
+    return out
+
+
+def _geometry(seed, sizes, n, cutoff=5.0):
+    """Symmetric dist/env [B, n, n] (f64) of random molecules with ``sizes``
+    atoms (0: an empty graph slot), padded to n."""
+    rng = np.random.default_rng(seed)
+    b_n = len(sizes)
+    pos = torch.from_numpy(rng.normal(scale=2.0, size=(b_n, n, 3)))
+    mask = torch.zeros(b_n, n, dtype=torch.bool)
+    for b, s in enumerate(sizes):
+        mask[b, :s] = True
+    dist = torch.cdist(pos, pos)
+    pm = mask[:, :, None] & mask[:, None, :] & ~torch.eye(n, dtype=torch.bool)
+    env = cosine_envelope(dist, cutoff) * pm
+    return torch.where(pm, dist, torch.zeros_like(dist)), env, mask
+
+
+@pytest.mark.parametrize("sizes,n,blocks,sym,sparse", [
+    ((20, 0, 13, 3), 24, 5, True, True),
+    ((20, 0, 13, 3), 24, 5, True, False),
+    ((30, 7, 0, 17, 30), 32, 132, False, True),
+    ((9,), 16, 2, True, True),
+])
+def test_runs_cover_each_listed_tile_once_and_evenly(sizes, n, blocks, sym, sparse):
+    _, env, _ = _geometry(len(sizes), sizes, n)
+    lst, pos, pre = tile_list(env, sym, sparse)
+    total, nt = len(lst), -(-n // TILE)
+    assert pre[-1] == total and all(pos[t] == i for i, t in enumerate(lst))
+    rs = runs(total, blocks)
+    covered = sorted(t for r in rs for t in r)
+    assert covered == list(range(total))  # each listed tile in one run
+    lengths = [len(r) for r in rs]
+    assert max(lengths) - min(lengths) <= 1
+    # the NCSN backward's i-side segments (block k, item): slot item + k is
+    # unique, below items + blocks, and the du pass finds exactly the blocks
+    # whose runs hold tiles of the item
+    segs = {(lst[t][0] * nt + lst[t][1], k) for k, r in enumerate(rs) for t in r}
+    slots = [item + k for item, k in segs]
+    assert len(set(slots)) == len(slots) and max(slots, default=0) < len(sizes) * nt + blocks
+    for item in range(len(sizes) * nt):
+        assert du_blocks(pre, item, blocks) == sorted(k for it, k in segs if it == item)
+
+
+def _filter(dist, w1, b1, w2, b2, cutoff, g):
+    rbf = tcf.gaussian_smearing(dist, 0.0, cutoff, g)
+    return tcf.shifted_softplus(rbf @ w1 + b1) @ w2 + b2
+
+
+@pytest.mark.parametrize("blocks,sparse", [(1, True), (7, True), (7, False), (132, True)])
+def test_symmetric_forward_runs_are_the_dense_message_f64(blocks, sparse):
+    """cfconv_fwd_sym_kernel's scheme: block k walks its run of the tile
+    list; rows i of a tile are summed in registers while the run stays in one
+    row tile and added when it moves on (and at the run's end); a tile with
+    pi < pj adds its mirrored messages w x_i to rows j. With symmetric
+    dist/env that is the dense message of the plain version."""
+    n, f, g, cutoff = 20, 16, 8, 5.0
+    dist, env, _ = _geometry(3, (20, 0, 11), n, cutoff)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(3, n, f)))
+    w1, w2 = (torch.from_numpy(rng.normal(scale=0.3, size=s)) for s in ((g, f), (f, f)))
+    b1, b2 = (torch.from_numpy(rng.normal(scale=0.3, size=f)) for _ in range(2))
+    want = tcf.cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, 0.0, cutoff, g)
+    lst, _, _ = tile_list(env, sym=True, sparse=sparse)
+    m = -(-n // TILE) * TILE  # padded to whole tiles, as the kernel's loads are
+    ew_all = torch.zeros(3, m, m, f, dtype=x.dtype)
+    ew_all[:, :n, :n] = env[..., None] * _filter(dist, w1, b1, w2, b2, cutoff, g)
+    xp = torch.zeros(3, m, f, dtype=x.dtype)
+    xp[:, :n] = x
+    got = torch.zeros(3, m, f, dtype=x.dtype)
+    for r in runs(len(lst), blocks):
+        cur, racc = None, None
+        for t in r:
+            b, pi, pj = lst[t]
+            if (b, pi) != cur:
+                if cur is not None:
+                    got[cur[0], TILE * cur[1]:TILE * cur[1] + TILE] += racc
+                cur, racc = (b, pi), torch.zeros(TILE, f, dtype=x.dtype)
+            i, j = slice(TILE * pi, TILE * pi + TILE), slice(TILE * pj, TILE * pj + TILE)
+            ew = ew_all[b, i, j]
+            racc += torch.einsum("ijf,jf->if", ew, xp[b, j])
+            if pi != pj:
+                got[b, j] += torch.einsum("ijf,if->jf", ew, xp[b, i])
+        if cur is not None:
+            got[cur[0], TILE * cur[1]:TILE * cur[1] + TILE] += racc
+    got = got[:, :n]
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+def _head(rng, emb):
+    shapes = tns.weight_shapes(emb)
+    return [torch.from_numpy(rng.normal(scale=0.5, size=s)) for s in shapes]
+
+
+def _dl1(dist, noise, sel, sigma, u, g_rows, weights, anneal):
+    """d rows / d pre1 [B, n, n, emb] for the cotangent g_rows: the masked
+    l1 gradient the kernel's du partials sum (the plain head's math)."""
+    w_d1, b_d1, w_d2, b_d2, w_od, b_od, w2, b2, w3, b3 = weights
+    used = sigma[:, None, None]
+    demb = torch.relu((dist + noise * used)[..., None] * w_d1[0] + b_d1) @ w_d2 + b_d2
+    pre1 = (u[:, :, None, :] + u[:, None, :, :] + demb @ w_od + b_od).detach()
+    pre1.requires_grad_(True)
+    x2 = torch.relu(torch.relu(pre1) @ w2 + b2)
+    scores = (x2 @ w3 + b3)[..., 0] / used
+    rows = (0.5 * (scores + noise / used) ** 2 * used**anneal * sel).sum(2)
+    (g,) = torch.autograd.grad(rows, pre1, g_rows)
+    return g
+
+
+@pytest.mark.parametrize("blocks", [3, 50])
+def test_ncsn_du_partials_in_list_order_are_the_reference_du_f64(blocks):
+    """ncsn_bwd_kernel writes, per listed tile (sel not all zero), the j side
+    of du (rows j summed over the tile's rows i) at its list position, and
+    per (block, item) segment the i side (rows i summed over the segment's
+    tiles, in two halves of the tile's columns) at slot item + block;
+    ncsn_du_kernel adds, per row, the item's segments in block order and
+    then the j sides of the tiles (qi, pi) in order of qi. On a batch with
+    padding and an empty graph slot that is the plain version's du."""
+    n, emb, anneal = 20, 8, 2.0
+    sizes = (17, 0, 12)
+    dist, _, mask = _geometry(5, sizes, n)
+    rng = np.random.default_rng(6)
+    pm = mask[:, :, None] & mask[:, None, :]
+    sel = (torch.triu(torch.ones(n, n, dtype=torch.bool), 1) & pm).double()
+    noise = torch.from_numpy(rng.normal(size=dist.shape))
+    sigma = torch.from_numpy(rng.uniform(0.1, 2.0, len(sizes)))
+    u = torch.from_numpy(rng.normal(size=(len(sizes), n, emb)))
+    g_rows = torch.from_numpy(rng.normal(size=(len(sizes), n)))
+    weights = _head(rng, emb)
+    want = tns.ncsn_score_bwd_reference(dist, noise, sel, sigma, u, g_rows, *weights,
+                                        anneal=anneal)[0]
+    dl1 = _dl1(dist, noise, sel, sigma, u, g_rows, weights, anneal)
+
+    lst, pos, pre = tile_list(sel, sym=False)
+    nt = -(-n // TILE)
+    pad = torch.zeros(len(sizes), nt * TILE, nt * TILE, emb, dtype=dl1.dtype)
+    pad[:, :n, :n] = dl1
+    part_j = {}  # list position -> [8 rows j, emb]
+    part_i = {}  # (slot, half) -> [8 rows i, emb]
+    for k, r in enumerate(runs(len(lst), blocks)):
+        for t in r:
+            b, pi, pj = lst[t]
+            tile = pad[b, TILE * pi:TILE * pi + TILE, TILE * pj:TILE * pj + TILE]
+            part_j[t] = tile.sum(0)
+            for half in (0, 1):
+                key = (b * nt + pi + k, half)
+                cols = tile[:, 4 * half:4 * half + 4].sum(1)
+                part_i[key] = part_i.get(key, 0) + cols
+    got = torch.zeros(len(sizes), nt * TILE, emb, dtype=dl1.dtype)
+    for b in range(len(sizes)):
+        for pi in range(nt):
+            item = b * nt + pi
+            s = torch.zeros(TILE, emb, dtype=dl1.dtype)
+            for k in du_blocks(pre, item, blocks):
+                s = s + part_i[item + k, 0]
+                s = s + part_i[item + k, 1]
+            for qi in range(nt):
+                if (b, qi, pi) in pos:
+                    s = s + part_j[pos[b, qi, pi]]
+            got[b, TILE * pi:TILE * pi + TILE] = s
+    torch.testing.assert_close(got[:, :n], want, rtol=1e-12, atol=1e-12)
+    assert not got[1].any()  # the empty slot
