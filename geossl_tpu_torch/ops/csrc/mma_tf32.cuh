@@ -113,11 +113,11 @@ __device__ __forceinline__ void mma_passes(float c[MB][NB][4], const uint32_t ah
 // 5 L chained products compound every error, needs it (PERF.md).
 //
 // kBLo > 0: B is stored split (split_b below, once for a matrix that many
-// warps or products read): its TF32 high parts at B and the low parts kBLo
-// floats further, in the same layout, so that a k step loads B's fragments
-// and does not split them. kALo > 0: the same for A.
+// products read): its TF32 high parts at B and the low parts kBLo floats
+// further, in the same layout, so that a k step loads B's fragments and
+// does not split them.
 template <int MB, int NB, int K, bool kTA, bool kTB, bool kBOuter = false, bool kPrecise = false,
-          int kBLo = 0, int kALo = 0>
+          int kBLo = 0>
 __device__ __forceinline__ void warp_tile_mma(float c[MB][NB][4], const float* A, int lda, int m0,
                                               const float* B, int ldb, int n0) {
   static_assert(K % 8 == 0, "K is a multiple of 8");
@@ -132,27 +132,18 @@ __device__ __forceinline__ void warp_tile_mma(float c[MB][NB][4], const float* A
   const int b_l = kTB ? (n0 + lr + 8 * (lq >> 1)) * ldb + 4 * ((lq & 1) ^ (lr >> 2))
                       : t * ldb + g + n0;
   const int b_u = kTB ? 0 : 4 * ldb + ((g ^ 4) - g);
-  // the fragment of A at p (+ kALo: its low parts, when A is stored split)
-  auto frag_a = [&](const float* p, uint32_t v[4], int mb, int k0) {
-    if (!kTA) {
-      ldsm_x4(p + a_l + 16 * mb * lda + (k0 & ~31) + 8 * (((k0 >> 3) & 3) ^ (lr & 3)), v);
-    } else {
-      const float* q = p + k0 * lda + a_l + 32 * (mb >> 1);
-      const int c0 = (16 * (mb & 1)) ^ t8, c1 = (16 * (mb & 1) + 8) ^ t8;
-      v[0] = __float_as_uint(q[c0]);
-      v[1] = __float_as_uint(q[c1]);
-      v[2] = __float_as_uint(q[a_u + c0]);
-      v[3] = __float_as_uint(q[a_u + c1]);
-    }
-  };
   auto load_a = [&](int mb, int k0, uint32_t ah[4], uint32_t al[4]) {
-    if (kALo) {
-      frag_a(A, ah, mb, k0);
-      frag_a(A + kALo, al, mb, k0);
-      return;
-    }
     uint32_t v[4];
-    frag_a(A, v, mb, k0);
+    if (!kTA) {
+      ldsm_x4(A + a_l + 16 * mb * lda + (k0 & ~31) + 8 * (((k0 >> 3) & 3) ^ (lr & 3)), v);
+    } else {
+      const float* p = A + k0 * lda + a_l + 32 * (mb >> 1);
+      const int c0 = (16 * (mb & 1)) ^ t8, c1 = (16 * (mb & 1) + 8) ^ t8;
+      v[0] = __float_as_uint(p[c0]);
+      v[1] = __float_as_uint(p[c1]);
+      v[2] = __float_as_uint(p[a_u + c0]);
+      v[3] = __float_as_uint(p[a_u + c1]);
+    }
 #pragma unroll
     for (int q = 0; q < 4; ++q) split_tf32<kPrecise>(v[q], ah[q], al[q]);
   };

@@ -36,16 +36,10 @@
 //   persistent grid (one 8-warp block per SM) gives each block an equal run
 //   of the list;
 // - products: the recomputed l1 W2, dl1 = dx2 W2^T and dW2 += l1^T dx2 on
-//   the tensor cores with mma.sync.m16n8k8 TF32 in 3xTF32 (mma_tf32.cuh).
-//   Their operands are split into TF32 parts once, where they are written
-//   (W2 once per block, l1 and dx2 once per tile), and not by every warp
-//   that reads them. l1 W2 runs in the precise mode: in the plain split its
-//   error moves relu'(pre2) off the plain version's side on ~1e-4 of the
-//   gradients' norm (PERF.md). dW2 is summed over every tile of a run, so
-//   each tile's product is added to that sum in f32 on the CUDA cores (the
-//   tensor core's truncating accumulator would drift). The rest (the
-//   distance MLP, relu', the score, the vector weight gradients) runs on
-//   the CUDA cores;
+//   the tensor cores with mma.sync.m16n8k8 TF32 in 3xTF32 (mma_tf32.cuh),
+//   dW2 in the precise mode, since it is summed over every tile of a run;
+//   the rest (the distance MLP, relu', the score, the vector weight
+//   gradients) on the CUDA cores; W2 staged once per block, swizzled;
 // - loads: the next tile's dist/noise/sel, row cotangents and u rows load
 //   with cp.async (double buffer) while the current tile runs;
 // - du: partials only where a tile is listed. The j side of each listed
@@ -281,16 +275,11 @@ ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
 
 constexpr int kBS = kE + 8;  // row stride of the 8-row u tiles (bank spread)
 // shared memory of the backward, in floats
-// W2, l1 and dx2 are stored split into their TF32 parts (mma_tf32.cuh's
-// split_b), each once, for all the warps and products that read them; the
-// low parts lie k*Lo floats after the high parts.
-constexpr int kW2Lo = kE * kH, kL1Lo = kPairs * kE, kDx2Lo = kPairs * kH;
-constexpr int kMS = kE + 4;                         // row stride of the relu'(l1) bytes
-constexpr int kBOffW2 = 0;                          // [2][kE][kH] swizzled: W2
-constexpr int kBOffL1 = kBOffW2 + 2 * kW2Lo;        // [2][kPairs][kE] swizzled: l1
-constexpr int kBOffDx2 = kBOffL1 + 2 * kL1Lo;       // [2][kPairs][kH] swizzled: dx2
-constexpr int kBOffMask = kBOffDx2 + 2 * kDx2Lo;    // [kPairs][kMS] bytes: l1 > 0
-constexpr int kBOffU = kBOffMask + kPairs * kMS / 4;  // [2][2][8][kBS] u rows: j tile, i tile
+constexpr int kW2Lo = kE * kH;                      // the low parts' offset
+constexpr int kBOffW2 = 0;                          // [2][kE][kH] swizzled: W2 split, hi, lo
+constexpr int kBOffL1 = kBOffW2 + 2 * kE * kH;      // [kPairs][kE] swizzled: l1
+constexpr int kBOffDx2 = kBOffL1 + kPairs * kE;     // [kPairs][kH] swizzled: dx2
+constexpr int kBOffU = kBOffDx2 + kPairs * kH;      // [2][2][8][kBS] u rows: j tile, i tile
 constexpr int kBOffGrid = kBOffU + 4 * kTile * kBS; // [2][3][64] dist, noise, sel, [il][jl]
 constexpr int kBOffGi = kBOffGrid + 6 * kPairs;     // [2][8] the row cotangents g_i, [2] sigma
 constexpr int kBOffVec = kBOffGi + 2 * kTile + 4;   // wd1, bd1, wd2, wod, bod [kE]; b2, w3 [kH]
@@ -309,12 +298,11 @@ constexpr int kTileRows = kTile * kE;  // floats of one 8-row partial
 // block k computing the run [run_begin(k), run_begin(k + 1)). Pair
 // p = jl*8 + il of a tile is row p of its 64-row operands. Per tile:
 //   1. dp, demb (CUDA cores), l1 = relu(u_i + u_j + demb w_od + b_od) into l1_s
-//   2. pre2 = l1 W2 (+ b2) on the tensor cores (3xTF32, precise mode: relu'
-//      of pre2 then takes the plain version's side): warp (wq, wh) owns
+//   2. pre2 = l1 W2 (+ b2) on the tensor cores (3xTF32): warp (wq, wh) owns
 //      rows 16*wq.. and columns 32*wh.. of the 64 x H product; the score,
 //      ds = d loss / d score_raw, dx2 = relu'(pre2) ds w3 into dx2_s
-//   3. dW2 += l1^T dx2 (3xTF32, each tile's product added to the run's sum
-//      in f32) and dl1 = (dx2 W2^T) relu'(l1) (3xTF32): warp (wm, wn) owns rows
+//   3. dW2 += l1^T dx2 (3xTF32, precise mode: summed over every tile of the
+//      run) and dl1 = (dx2 W2^T) relu'(l1) (3xTF32): warp (wm, wn) owns rows
 //      32*wm.. and columns 32*wn.. of the 64 x E product, lane (g, t) pairs
 //      (jl = 4*wm + 2*mb + h, il = g)
 //   4. the j side of du (dl1 summed over the tile's rows i) into
@@ -336,7 +324,6 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   float* W2_s = smem + kBOffW2;
   float* l1_s = smem + kBOffL1;
   float* dx2_s = smem + kBOffDx2;
-  unsigned char* mask_s = reinterpret_cast<unsigned char*>(smem + kBOffMask);
   float* wd1_s = smem + kBOffVec;
   float* bd1_s = wd1_s + kE;
   float* wd2_s = bd1_s + kE;
@@ -517,19 +504,11 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
         const int p = jl * kTile + warp;
         const float4 bj = ld4(uj_t + jl * kBS + e);
         const float de = demb_s[p];
-        const float4 l1 = make_float4(fmaxf(a.x + bj.x + fmaf(de, wo.x, bo.x), 0.f),
-                                      fmaxf(a.y + bj.y + fmaf(de, wo.y, bo.y), 0.f),
-                                      fmaxf(a.z + bj.z + fmaf(de, wo.z, bo.z), 0.f),
-                                      fmaxf(a.w + bj.w + fmaf(de, wo.w, bo.w), 0.f));
-        float4 hi, lo;
-        split_b(l1.x, hi.x, lo.x);
-        split_b(l1.y, hi.y, lo.y);
-        split_b(l1.z, hi.z, lo.z);
-        split_b(l1.w, hi.w, lo.w);
-        *reinterpret_cast<float4*>(l1_s + swz_at(kE, p, e)) = hi;
-        *reinterpret_cast<float4*>(l1_s + kL1Lo + swz_at(kE, p, e)) = lo;
-        *reinterpret_cast<uchar4*>(mask_s + p * kMS + e) =
-            make_uchar4(l1.x > 0.f, l1.y > 0.f, l1.z > 0.f, l1.w > 0.f);
+        *reinterpret_cast<float4*>(l1_s + swz_at(kE, p, e)) =
+            make_float4(fmaxf(a.x + bj.x + fmaf(de, wo.x, bo.x), 0.f),
+                        fmaxf(a.y + bj.y + fmaf(de, wo.y, bo.y), 0.f),
+                        fmaxf(a.z + bj.z + fmaf(de, wo.z, bo.z), 0.f),
+                        fmaxf(a.w + bj.w + fmaf(de, wo.w, bo.w), 0.f));
       }
     }
     __syncthreads();
@@ -541,8 +520,8 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
     for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
       for (int q = 0; q < 4; ++q) p2[0][nb][q] = 0.f;
-    warp_tile_mma<1, 4, kE, false, false, false, true, kW2Lo, kL1Lo>(p2, l1_s, kE, 16 * wq, W2_s,
-                                                                     kH, 32 * wh);
+    warp_tile_mma<1, 4, kE, false, false, false, true, kW2Lo>(p2, l1_s, kE, 16 * wq, W2_s, kH,
+                                                              32 * wh);
     {
       float sr[2] = {0.f, 0.f};
 #pragma unroll
@@ -578,34 +557,14 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
           dx[c] = pre > 0.f ? ds * w3_s[h + c] : 0.f;
           gb2[nb][c] += dx[c];
         }
-        float hi[2], lo[2];
-        split_b(dx[0], hi[0], lo[0]);
-        split_b(dx[1], hi[1], lo[1]);
-        store2(dx2_s, kH, p, h, hi[0], hi[1]);
-        store2(dx2_s + kDx2Lo, kH, p, h, lo[0], lo[1]);
+        store2(dx2_s, kH, p, h, dx[0], dx[1]);
       }
     }
     __syncthreads();
 
-    // 3. dW2 += l1^T dx2 (the tile's product, added to the run's sum in
-    // f32: precise, PERF.md), dl1 = dx2 W2^T
-    {
-      float t3[2][4][4];
-#pragma unroll
-      for (int mb = 0; mb < 2; ++mb)
-#pragma unroll
-        for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) t3[mb][nb][q] = 0.f;
-      warp_tile_mma<2, 4, kPairs, true, false, false, false, kDx2Lo, kL1Lo>(
-          t3, l1_s, kE, 32 * wq, dx2_s, kH, 32 * wh);
-#pragma unroll
-      for (int mb = 0; mb < 2; ++mb)
-#pragma unroll
-        for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) gw2[mb][nb][q] += t3[mb][nb][q];
-    }
+    // 3. dW2 += l1^T dx2 (precise: summed over the run), dl1 = dx2 W2^T
+    warp_tile_mma<2, 4, kPairs, true, false, false, true>(gw2, l1_s, kE, 32 * wq, dx2_s, kH,
+                                                          32 * wh);
     const int wm = warp & 1, wn = warp >> 1;
     float dl[2][4][4];
 #pragma unroll
@@ -614,8 +573,8 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
       for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
         for (int q = 0; q < 4; ++q) dl[mb][nb][q] = 0.f;
-    warp_tile_mma<2, 4, kH, false, true, false, false, kW2Lo, kDx2Lo>(dl, dx2_s, kH, 32 * wm,
-                                                                      W2_s, kH, 32 * wn);
+    warp_tile_mma<2, 4, kH, false, true, false, false, kW2Lo>(dl, dx2_s, kH, 32 * wm, W2_s, kH,
+                                                              32 * wn);
 
     // 4. relu'(l1); du's i side (rows il = g), the vector weight gradients,
     // ddemb's partial sums over this warp's columns; the j side per tile
@@ -630,9 +589,9 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
 #pragma unroll
         for (int nb = 0; nb < 4; ++nb) {
           const int e = 32 * wn + 8 * nb + 2 * t;
-          const uchar2 on = *reinterpret_cast<const uchar2*>(mask_s + p * kMS + e);
-          const float v0 = on.x ? dl[mb][nb][2 * hh] : 0.f;
-          const float v1 = on.y ? dl[mb][nb][2 * hh + 1] : 0.f;
+          const float2 l1 = load2(l1_s, kE, p, e);
+          const float v0 = l1.x > 0.f ? dl[mb][nb][2 * hh] : 0.f;
+          const float v1 = l1.y > 0.f ? dl[mb][nb][2 * hh + 1] : 0.f;
           racc[nb][0] += v0;
           racc[nb][1] += v1;
           gwod[nb][0] = fmaf(v0, de, gwod[nb][0]);

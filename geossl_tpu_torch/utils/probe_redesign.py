@@ -61,14 +61,12 @@ VARIANTS = {
                        "if (j < 0) atomicAdd(out")],
     },
     "ncsn_score": {
-        "p1_plain_accumulation": [
-            ("ncsn_score.cu", "warp_tile_mma<1, 4, kE, false, false, false, true, kW2Lo, kL1Lo>(p2",
-             "warp_tile_mma<1, 4, kE, false, false, false, false, kW2Lo, kL1Lo>(p2")],
-        "dw2_one_accumulator": [
-            ("ncsn_score.cu", "          t3, l1_s, kE, 32 * wq, dx2_s, kH, 32 * wh);",
-             "          gw2, l1_s, kE, 32 * wq, dx2_s, kH, 32 * wh);"),
-            ("ncsn_score.cu", "for (int q = 0; q < 4; ++q) gw2[mb][nb][q] += t3[mb][nb][q];",
-             "for (int q = 0; q < 4; ++q) ;")],
+        "dw2_plain_split": [("ncsn_score.cu",
+                             "warp_tile_mma<2, 4, kPairs, true, false, false, true>(gw2",
+                             "warp_tile_mma<2, 4, kPairs, true, false, false, false>(gw2")],
+        "p1_plain_split": [("ncsn_score.cu",
+                            "warp_tile_mma<1, 4, kE, false, false, false, true, kW2Lo>(p2",
+                            "warp_tile_mma<1, 4, kE, false, false, false, false, kW2Lo>(p2")],
         "no_dist_mlp": [("ncsn_score.cu", "if (k > t_begin) dist_mlp(buf ^ 1);", ";")],
         "no_demb_sum": [("ncsn_score.cu", "for (int m = 0; m < kE / 16; ++m) {",
                          "for (int m = 0; m < 0; ++m) {")],
@@ -78,16 +76,17 @@ VARIANTS = {
                          "        const int p = jl * kTile + warp;")],
         "no_products": [
             ("ncsn_score.cu",
-             "warp_tile_mma<1, 4, kE, false, false, false, true, kW2Lo, kL1Lo>(p2, l1_s, kE, "
-             "16 * wq, W2_s,\n                                                                     "
-             "kH, 32 * wh);", ";"),
+             "warp_tile_mma<1, 4, kE, false, false, false, true, kW2Lo>(p2, l1_s, kE, 16 * wq, "
+             "W2_s, kH,\n                                                              32 * wh);",
+             ";"),
             ("ncsn_score.cu",
-             "warp_tile_mma<2, 4, kPairs, true, false, false, false, kDx2Lo, kL1Lo>(\n"
-             "          t3, l1_s, kE, 32 * wq, dx2_s, kH, 32 * wh);", ";"),
+             "warp_tile_mma<2, 4, kPairs, true, false, false, true>(gw2, l1_s, kE, 32 * wq, "
+             "dx2_s, kH,\n                                                          32 * wh);",
+             ";"),
             ("ncsn_score.cu",
-             "warp_tile_mma<2, 4, kH, false, true, false, false, kW2Lo, kDx2Lo>(dl, dx2_s, kH, "
-             "32 * wm,\n                                                                      "
-             "W2_s, kH, 32 * wn);", ";")],
+             "warp_tile_mma<2, 4, kH, false, true, false, false, kW2Lo>(dl, dx2_s, kH, 32 * wm, "
+             "W2_s, kH,\n                                                              32 * wn);",
+             ";")],
     },
 }
 
