@@ -25,7 +25,6 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict = {}
-_fns: dict = {}  # (lib, fn, argtypes, restype) -> the declared entry
 _lock = threading.Lock()
 
 
@@ -95,12 +94,7 @@ def build_log(name: str) -> str:
 
 def kernel_fn(lib: str, fn: str, argtypes, restype=ctypes.c_int):
     """The C entry ``fn`` of library ``lib`` (built on first use), with its
-    argument and result types declared (once per loaded library: a wrapper's
-    host time counts at small shapes)."""
-    key = (lib, fn, tuple(argtypes), restype)
-    f = _fns.get(key)
-    if f is not None and f.lib is _libs.get(lib):
-        return f
+    argument and result types declared."""
     with _lock:
         if lib not in _libs:
             path = lib_path(lib)
@@ -110,6 +104,4 @@ def kernel_fn(lib: str, fn: str, argtypes, restype=ctypes.c_int):
     f = getattr(_libs[lib], fn)
     f.argtypes = list(argtypes)
     f.restype = restype
-    f.lib = _libs[lib]
-    _fns[key] = f
     return f

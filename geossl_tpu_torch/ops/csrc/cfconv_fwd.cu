@@ -45,6 +45,7 @@
 //   Both go to `out` by global atomicAdd, so `out` must be zero on entry and
 //   the summation order varies from run to run (f32 rounding; chip_smoke.py
 //   checks that two launches agree within the kernel's tolerance).
+#include "filter_mma.cuh"
 #include "mma_tf32.cuh"
 #include "pair_tile.cuh"
 #include "reduce.cuh"
@@ -138,8 +139,6 @@ cfconv_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
 
 // -- symmetric mode ------------------------------------------------------------
 
-constexpr int kSGP = 64;       // G padded: rows of W1_s, columns of rbf_s
-constexpr int kSRS = kF + 8;   // row stride of the 8-row x tiles (bank spread)
 // the two filter products in mma_tf32.cuh's plain 3xTF32 split (PERF.md:
 // the precise mode buys no error this kernel's tolerance needs)
 constexpr bool kSymPrecise = false;
@@ -176,8 +175,7 @@ cfconv_fwd_sym_kernel(const float* __restrict__ dist, const float* __restrict__ 
   float* b2_s = b1_s + kF;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;
+  const int g = lane >> 2, t = lane & 3, wn = warp >> 1;
   const int nt = (n + kTile - 1) / kTile;
   const long long total = *total_p;
   const int t_begin = run_begin(total, gridDim.x, blockIdx.x);
@@ -261,79 +259,11 @@ cfconv_fwd_sym_kernel(const float* __restrict__ dist, const float* __restrict__ 
     const float* xj_t = smem + kSOffX + 2 * buf * kTile * kSRS;
     const float* xi_t = xj_t + kTile * kSRS;
 
-    // RBF of the tile's 64 pairs (row p = jl*8 + il)
-    for (int idx = tid; idx < kPairs * kSGP; idx += kThreads) {
-      const int p = idx / kSGP, gg = idx % kSGP;
-      if (gg < G) {
-        const float diff = d_t[(p & 7) * kTile + (p >> 3)] - (start + delta * (float)gg);
-        rbf_s[swz_at(kSGP, p, gg)] = __expf(coeff * diff * diff);
-      }
-    }
-    __syncthreads();
-
-    // hidden s = ssp(rbf W1 + b1) into s_s
+    // the filter (filter_mma.cuh), then the messages
     float acc[2][4][4];
-#pragma unroll
-    for (int mb = 0; mb < 2; ++mb)
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mb][nb][q] = 0.f;
-    if (G <= 56)
-      warp_tile_mma<2, 4, 56, false, false, false, kSymPrecise>(acc, rbf_s, kSGP, 32 * wm, W1_s, kF, 32 * wn);
-    else
-      warp_tile_mma<2, 4, kSGP, false, false, false, kSymPrecise>(acc, rbf_s, kSGP, 32 * wm, W1_s, kF, 32 * wn);
-#pragma unroll
-    for (int mb = 0; mb < 2; ++mb)
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-        const int c0 = 32 * wn + 8 * nb + 2 * t;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
-          store2(s_s, kF, 32 * wm + 16 * mb + 8 * hh + g, c0,
-                 ssp_fast(acc[mb][nb][2 * hh] + b1_s[c0]),
-                 ssp_fast(acc[mb][nb][2 * hh + 1] + b1_s[c0 + 1]));
-      }
-    __syncthreads();
-
-    // the filter w = s W2 + b2, in registers; then the messages
-#pragma unroll
-    for (int mb = 0; mb < 2; ++mb)
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mb][nb][q] = 0.f;
-    warp_tile_mma<2, 4, kF, false, false, false, kSymPrecise>(acc, s_s, kF, 32 * wm, W2_s, kF, 32 * wn);
-    float vm[32];  // the mirrored messages w x_i of this lane's pairs
-#pragma unroll
-    for (int mb = 0; mb < 2; ++mb)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int jl = 4 * wm + 2 * mb + hh;
-        const float e = e_t[g * kTile + jl];
-#pragma unroll
-        for (int nb = 0; nb < 4; ++nb) {
-          const int c0 = 32 * wn + 8 * nb + 2 * t;
-          const float ew0 = e * (acc[mb][nb][2 * hh] + b2_s[c0]);
-          const float ew1 = e * (acc[mb][nb][2 * hh + 1] + b2_s[c0 + 1]);
-          const float2 xj = *reinterpret_cast<const float2*>(xj_t + jl * kSRS + c0);
-          const float2 xi = *reinterpret_cast<const float2*>(xi_t + g * kSRS + c0);
-          racc[nb][0] = fmaf(ew0, xj.x, racc[nb][0]);
-          racc[nb][1] = fmaf(ew1, xj.y, racc[nb][1]);
-          vm[16 * mb + 8 * hh + 2 * nb] = ew0 * xi.x;
-          vm[16 * mb + 8 * hh + 2 * nb + 1] = ew1 * xi.y;
-        }
-      }
-    if (pi != pj) {  // block-uniform: the mirrored messages into rows j,
-                     // summed over the tile's 8 rows i
-      rs_lanes<2>(vm);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int e = 4 * g + q, j = j0 + 4 * wm + (e >> 3);
-        const int c = 32 * wn + 8 * ((e >> 1) & 3) + 2 * t + (e & 1);
-        if (j < n) atomicAdd(out + ((size_t)b * n + j) * kF + c, vm[q]);
-      }
-    }
+    filter_tile_mma<kSymPrecise>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, start, delta, coeff, acc);
+    tile_messages<true>(acc, b2_s, e_t, xj_t, xi_t, racc, out + (size_t)b * n * kF, j0, n,
+                        pi != pj);
     v = v_next;
   }
   flush();

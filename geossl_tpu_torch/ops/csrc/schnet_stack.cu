@@ -18,7 +18,8 @@
 // split with the tensor core's truncating accumulation ends up to 9x
 // beyond the plain version's tolerance at the serving batch (PERF.md). Per
 // 8x8 pair tile (pair p = jl*8 + il as row p) rbf[64 x G->56] W1 and
-// ssp(.) W2, and per 64 atom rows h Wl1, m Wa and ssp(.) Wb. The
+// ssp(.) W2 (filter_mma.cuh, shared with cfconv_fwd.cu's symmetric mode),
+// and per 64 atom rows h Wl1, m Wa and ssp(.) Wb. The
 // elementwise terms (RBF exp, ssp, the messages) stay on the CUDA cores
 // with the fast exp/log intrinsics. The filter tensor never leaves the
 // chip; h, x and m ([B,N,F] each, a few MB) live in L2 between phases.
@@ -51,14 +52,13 @@
 // data other blocks wrote is read through L2 (cp.async.cg, ld.global.cg).
 // Per tile, the next tile's dist/env and x rows load with cp.async (double
 // buffer) while the current tile's products run.
+#include "filter_mma.cuh"
 #include "mma_tf32.cuh"
 #include "pair_tile.cuh"
 #include "worklist.cuh"
 
 namespace geossl {
 
-constexpr int kSGP = 64;        // G padded: rows of W1_s, columns of rbf_s
-constexpr int kSRS = kF + 8;    // row stride of the 8-row x tiles (bank spread)
 constexpr int kRows = 64;       // atom rows per dense chunk
 // every product in mma_tf32.cuh's precise mode (the header says why)
 constexpr bool kPrecise = true;
@@ -330,70 +330,11 @@ schnet_stack_kernel(const float* __restrict__ dist, const float* __restrict__ en
         const float* e_t = d_t + kPairs;
         const float* xj_t = smem + kOffXj + buf * kTile * kSRS;
 
-        // RBF of the tile's 64 pairs (row p = jl*8 + il)
-        for (int idx = tid; idx < kPairs * kSGP; idx += kThreads) {
-          const int p = idx / kSGP, gg = idx % kSGP;
-          if (gg < G) {
-            const float diff = d_t[(p & 7) * kTile + (p >> 3)] - (start + delta * (float)gg);
-            rbf_s[swz_at(kSGP, p, gg)] = __expf(coeff * diff * diff);
-          }
-        }
-        __syncthreads();
-
-        // hidden s = ssp(rbf W1 + b1) into s_s
+        // the filter (filter_mma.cuh), then the messages
         float acc[2][4][4];
-        zero_acc(acc);
-        if (G <= 56)
-          warp_tile_mma<2, 4, 56, false, false, false, kPrecise>(acc, rbf_s, kSGP, 32 * wm, W1_s, kF, 32 * wn);
-        else
-          warp_tile_mma<2, 4, kSGP, false, false, false, kPrecise>(acc, rbf_s, kSGP, 32 * wm, W1_s, kF, 32 * wn);
-#pragma unroll
-        for (int mb = 0; mb < 2; ++mb)
-#pragma unroll
-          for (int nb = 0; nb < 4; ++nb) {
-            const int c0 = 32 * wn + 8 * nb + 2 * t;
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh)
-              store2(s_s, kF, 32 * wm + 16 * mb + 8 * hh + g, c0,
-                     ssp_fast(acc[mb][nb][2 * hh] + b1_s[c0]),
-                     ssp_fast(acc[mb][nb][2 * hh + 1] + b1_s[c0 + 1]));
-          }
-        __syncthreads();
-
-        // the filter w = s W2 + b2, in registers; then the messages
-        zero_acc(acc);
-        warp_tile_mma<2, 4, kF, false, false, false, kPrecise>(acc, s_s, kF, 32 * wm, W2_s, kF, 32 * wn);
-        float v[32];
-#pragma unroll
-        for (int mb = 0; mb < 2; ++mb)
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int jl = 4 * wm + 2 * mb + hh;
-            const float e = e_t[g * kTile + jl];
-#pragma unroll
-            for (int nb = 0; nb < 4; ++nb) {
-              const int c0 = 32 * wn + 8 * nb + 2 * t;
-              const float ew0 = e * (acc[mb][nb][2 * hh] + b2_s[c0]);
-              const float ew1 = e * (acc[mb][nb][2 * hh + 1] + b2_s[c0 + 1]);
-              const float2 xj = *reinterpret_cast<const float2*>(xj_t + jl * kSRS + c0);
-              racc[nb][0] = fmaf(ew0, xj.x, racc[nb][0]);
-              racc[nb][1] = fmaf(ew1, xj.y, racc[nb][1]);
-              if (SYM) {
-                const float2 xi = *reinterpret_cast<const float2*>(xi_s + g * kSRS + c0);
-                v[16 * mb + 8 * hh + 2 * nb] = ew0 * xi.x;
-                v[16 * mb + 8 * hh + 2 * nb + 1] = ew1 * xi.y;
-              }
-            }
-          }
-        if (SYM && pi != pj) {  // block-uniform: the mirrored messages into rows j
-          rs_lanes<2>(v);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int e = 4 * g + q, j = j0 + 4 * wm + (e >> 3);
-            const int c = 32 * wn + 8 * ((e >> 1) & 3) + 2 * t + (e & 1);
-            if (j < n) atomicAdd(mb_ + ((size_t)b * n + j) * kF + c, v[q]);
-          }
-        }
+        filter_tile_mma<kPrecise>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, start, delta, coeff, acc);
+        tile_messages<SYM>(acc, b2_s, e_t, xj_t, xi_s, racc, mb_ + (size_t)b * n * kF, j0, n,
+                           pi != pj);
       }
       // this warp's part of rows i over the run's tiles
       const int i = i0 + g;

@@ -51,14 +51,13 @@ VARIANTS = {
         "precise": [("cfconv_fwd.cu", "constexpr bool kSymPrecise = false;",
                      "constexpr bool kSymPrecise = true;")],
         "no_filter_mma": [
-            ("cfconv_fwd.cu",
-             "      warp_tile_mma<2, 4, 56, false, false, false, kSymPrecise>(acc, rbf_s, "
-             "kSGP, 32 * wm, W1_s, kF, 32 * wn);", ";"),
-            ("cfconv_fwd.cu",
-             "    warp_tile_mma<2, 4, kF, false, false, false, kSymPrecise>(acc, s_s, kF, "
-             "32 * wm, W2_s, kF, 32 * wn);", ";")],
-        "no_mirror": [("cfconv_fwd.cu", "if (j < n) atomicAdd(out",
-                       "if (j < 0) atomicAdd(out")],
+            ("filter_mma.cuh",
+             "    warp_tile_mma<2, 4, 56, false, false, false, kPrecise>(acc, rbf_s, kSGP, 32 * wm, "
+             "W1_s, kF, 32 * wn);", "    ;"),
+            ("filter_mma.cuh",
+             "  warp_tile_mma<2, 4, kF, false, false, false, kPrecise>(acc, s_s, kF, 32 * wm, W2_s, "
+             "kF, 32 * wn);", ";")],
+        "no_mirror": [("filter_mma.cuh", "if (j < n) atomicAdd(m_b", "if (j < 0) atomicAdd(m_b")],
     },
     "ncsn_score": {
         "dw2_plain_split": [("ncsn_score.cu",
