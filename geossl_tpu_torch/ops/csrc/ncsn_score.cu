@@ -36,10 +36,14 @@
 //   persistent grid (one 8-warp block per SM) gives each block an equal run
 //   of the list;
 // - products: the recomputed l1 W2, dl1 = dx2 W2^T and dW2 += l1^T dx2 on
-//   the tensor cores with mma.sync.m16n8k8 TF32 in 3xTF32 (mma_tf32.cuh),
-//   dW2 in the precise mode, since it is summed over every tile of a run;
-//   the rest (the distance MLP, relu', the score, the vector weight
-//   gradients) on the CUDA cores; W2 staged once per block, swizzled;
+//   the tensor cores with mma.sync.m16n8k8 TF32 in 3xTF32 (mma_tf32.cuh).
+//   W2, the B operand of the first two, is split into its TF32 parts once
+//   per block. l1 W2 runs in the precise mode: in the plain split its error
+//   moves relu'(pre2) off the plain version's side several times as often
+//   (PERF.md). dW2 is summed over every tile of a run, so each tile's
+//   product is added to that sum in f32 on the CUDA cores (the tensor
+//   core's truncating accumulator would drift). The rest (the distance MLP,
+//   relu', the score, the vector weight gradients) runs on the CUDA cores;
 // - loads: the next tile's dist/noise/sel, row cotangents and u rows load
 //   with cp.async (double buffer) while the current tile runs;
 // - du: partials only where a tile is listed. The j side of each listed
@@ -301,8 +305,8 @@ constexpr int kTileRows = kTile * kE;  // floats of one 8-row partial
 //   2. pre2 = l1 W2 (+ b2) on the tensor cores (3xTF32): warp (wq, wh) owns
 //      rows 16*wq.. and columns 32*wh.. of the 64 x H product; the score,
 //      ds = d loss / d score_raw, dx2 = relu'(pre2) ds w3 into dx2_s
-//   3. dW2 += l1^T dx2 (3xTF32, precise mode: summed over every tile of the
-//      run) and dl1 = (dx2 W2^T) relu'(l1) (3xTF32): warp (wm, wn) owns rows
+//   3. dW2 += l1^T dx2 (3xTF32; each tile's product added to the run's sum
+//      in f32) and dl1 = (dx2 W2^T) relu'(l1) (3xTF32): warp (wm, wn) owns rows
 //      32*wm.. and columns 32*wn.. of the 64 x E product, lane (g, t) pairs
 //      (jl = 4*wm + 2*mb + h, il = g)
 //   4. the j side of du (dl1 summed over the tile's rows i) into
@@ -562,9 +566,25 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
     }
     __syncthreads();
 
-    // 3. dW2 += l1^T dx2 (precise: summed over the run), dl1 = dx2 W2^T
-    warp_tile_mma<2, 4, kPairs, true, false, false, true>(gw2, l1_s, kE, 32 * wq, dx2_s, kH,
-                                                          32 * wh);
+    // 3. dW2 += l1^T dx2: the tile's product, added to the run's sum in f32
+    // (the tensor core's truncating accumulator would drift over a run),
+    // then dl1 = dx2 W2^T
+    {
+      float t3[2][4][4];
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) t3[mb][nb][q] = 0.f;
+      warp_tile_mma<2, 4, kPairs, true, false>(t3, l1_s, kE, 32 * wq, dx2_s, kH, 32 * wh);
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) gw2[mb][nb][q] += t3[mb][nb][q];
+    }
     const int wm = warp & 1, wn = warp >> 1;
     float dl[2][4][4];
 #pragma unroll

@@ -60,9 +60,16 @@ VARIANTS = {
         "no_mirror": [("filter_mma.cuh", "if (j < n) atomicAdd(m_b", "if (j < 0) atomicAdd(m_b")],
     },
     "ncsn_score": {
-        "dw2_plain_split": [("ncsn_score.cu",
-                             "warp_tile_mma<2, 4, kPairs, true, false, false, true>(gw2",
-                             "warp_tile_mma<2, 4, kPairs, true, false, false, false>(gw2")],
+        "dw2_one_accumulator": [
+            ("ncsn_score.cu", "warp_tile_mma<2, 4, kPairs, true, false>(t3,",
+             "warp_tile_mma<2, 4, kPairs, true, false>(gw2,"),
+            ("ncsn_score.cu", "for (int q = 0; q < 4; ++q) gw2[mb][nb][q] += t3[mb][nb][q];",
+             "for (int q = 0; q < 4; ++q) ;")],
+        "dw2_precise_accumulator": [
+            ("ncsn_score.cu", "warp_tile_mma<2, 4, kPairs, true, false>(t3,",
+             "warp_tile_mma<2, 4, kPairs, true, false, false, true>(gw2,"),
+            ("ncsn_score.cu", "for (int q = 0; q < 4; ++q) gw2[mb][nb][q] += t3[mb][nb][q];",
+             "for (int q = 0; q < 4; ++q) ;")],
         "p1_plain_split": [("ncsn_score.cu",
                             "warp_tile_mma<1, 4, kE, false, false, false, true, kW2Lo>(p2",
                             "warp_tile_mma<1, 4, kE, false, false, false, false, kW2Lo>(p2")],
@@ -79,8 +86,7 @@ VARIANTS = {
              "W2_s, kH,\n                                                              32 * wh);",
              ";"),
             ("ncsn_score.cu",
-             "warp_tile_mma<2, 4, kPairs, true, false, false, true>(gw2, l1_s, kE, 32 * wq, "
-             "dx2_s, kH,\n                                                          32 * wh);",
+             "warp_tile_mma<2, 4, kPairs, true, false>(t3, l1_s, kE, 32 * wq, dx2_s, kH, 32 * wh);",
              ";"),
             ("ncsn_score.cu",
              "warp_tile_mma<2, 4, kH, false, true, false, false, kW2Lo>(dl, dx2_s, kH, 32 * wm, "
