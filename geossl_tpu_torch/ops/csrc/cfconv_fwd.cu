@@ -33,9 +33,12 @@
 //   8-warp block per SM) gives each block an equal run of it, whatever the
 //   mix of graph sizes and however few graphs are real;
 // - products: rbf[64 x G->56] W1 and ssp(.) W2 per tile on the tensor cores
-//   with mma.sync.m16n8k8 TF32 in 3xTF32 (mma_tf32.cuh), W1 and W2 staged
-//   once per block in its swizzled layout; the RBF exp, ssp and the
-//   messages stay on the CUDA cores with the fast exp/log intrinsics;
+//   with mma.sync.m16n8k8 TF32 in 3xTF32 (mma_tf32.cuh; the tile's filter
+//   and messages are filter_mma.cuh's, shared with schnet_stack.cu), in the
+//   plain split: one layer's two products stay within half the tolerance,
+//   and the precise mode costs 16% (PERF.md). W1 and W2 are staged once
+//   per block in the swizzled layout; the RBF exp, ssp and the messages
+//   stay on the CUDA cores with the fast exp/log intrinsics;
 // - loads: the next tile's dist/env and x rows (j and i tiles) load with
 //   cp.async (double buffer) while the current tile's products run, issued
 //   after the barrier that ends the previous tile;
@@ -139,8 +142,8 @@ cfconv_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
 
 // -- symmetric mode ------------------------------------------------------------
 
-// the two filter products in mma_tf32.cuh's plain 3xTF32 split (PERF.md:
-// the precise mode buys no error this kernel's tolerance needs)
+// the two filter products in mma_tf32.cuh's plain 3xTF32 split (the header
+// says why)
 constexpr bool kSymPrecise = false;
 // shared memory of the symmetric kernel, in floats
 constexpr int kSOffW1 = 0;                           // [kSGP][kF] swizzled
