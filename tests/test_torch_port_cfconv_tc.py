@@ -174,12 +174,14 @@ def trunc_f32(x):
     return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
 
 
-def mma_chain(pairs, precise):
+def mma_chain(pairs, precise, tile_sums=False):
     """sum_t A_t @ B_t as ``warp_tile_mma`` chains it over a run of tiles
     into one accumulator: 3xTF32 per k-block of 8, each pass added to the
     accumulator with truncation; with ``precise`` both parts rounded
     (``split_tf32<true>``) and each k step's three passes summed apart (with
-    truncation) and then added to the accumulator in f32, to nearest."""
+    truncation) and then added to the accumulator in f32, to nearest. With
+    ``tile_sums`` each tile's product goes into a zeroed accumulator that is
+    then added to the run's sum in f32 (the NCSN backward's dW2)."""
     cut = tf32_round if precise else tf32_trunc
     c = None
     for a, b in pairs:
@@ -188,6 +190,9 @@ def mma_chain(pairs, precise):
         terms = [(cut(a - ah), bh), (ah, cut(b - bh)), (ah, bh)]
         if c is None:
             c = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+        if tile_sums:
+            c = (c.double() + mma_chain([(a, b)], precise).double()).float()
+            continue
         for k0 in range(0, a.shape[1], 8):
             ks = slice(k0, k0 + 8)
             if precise:
@@ -204,10 +209,9 @@ def mma_chain(pairs, precise):
 @pytest.mark.parametrize("tiles", [16, 64])
 def test_precise_mode_keeps_a_run_sum_of_dw2_at_f32(tiles):
     """The NCSN backward sums dW2 += l1^T dx2 over every tile of a block's
-    run in one accumulator: the plain split's truncation drifts with the
-    number of tiles, the precise mode stays within f32 rounding (the card:
-    dW2 2.3e-5 from the plain version in the plain split, ~1e-6 precise,
-    PERF.md)."""
+    run: in one accumulator the plain split's truncation drifts with the
+    number of tiles; the precise mode, and the kernel's sums of each tile's
+    product added in f32, stay within f32 rounding."""
     rng = np.random.default_rng(tiles)
     pairs = []
     for _ in range(tiles):
@@ -222,6 +226,10 @@ def test_precise_mode_keeps_a_run_sum_of_dw2_at_f32(tiles):
     precise, plain = rel(mma_chain(pairs, True)), rel(mma_chain(pairs, False))
     assert precise < 1e-6, precise
     assert plain > 10 * precise
+    # what the kernel does: each tile's product (plain split, K = 64 pairs)
+    # added to the run's sum in f32
+    tiles_f32 = rel(mma_chain(pairs, False, tile_sums=True))
+    assert tiles_f32 < 1e-6 and plain > 10 * tiles_f32, tiles_f32
 
 
 @pytest.mark.parametrize("seed", [0, 1])
