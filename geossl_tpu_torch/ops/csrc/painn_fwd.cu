@@ -5,53 +5,265 @@
 //   dmu_c[i] = sum_j wr xr_j dir_c[i,j] + sum_j wm xm_j mu_c[j]
 //
 // Replaces geossl_tpu/ops/painn_pallas.py: _fwd_kernel (painn_message_fused
-// via _fwd_pallas) and, with SYM, _fwd_sym_kernel (painn_message_fused_sym
-// via _fwd_sym_pallas). As there, the gated filter tensor stays on the chip: the
-// kernel reads dist, gate and the three direction grids [B,Ni,Nj], x and mu
-// [B,Nj,3F] and writes dq [B,Ni,F] and dmu [B,Ni,3F] (mu c-major).
+// via _fwd_pallas), as painn_fwd_mma_kernel, and _fwd_sym_kernel
+// (painn_message_fused_sym via _fwd_sym_pallas), as painn_fwd_sym_kernel. As
+// there, the gated filter tensor stays on the chip: the kernels read dist,
+// gate and the three direction grids [B,Ni,Nj], x and mu [B,Nj,3F] and write
+// dq [B,Ni,F] and dmu [B,Ni,3F] (mu c-major).
 //
 // Bound on the H100: operations. The filter costs 2*R*3F FLOP per pair
 // (15.4k at R=20, F=128) and the three message sums ~14F more, against 20
-// bytes of pair grids per pair, far above the card's f32 ridge of ~20
-// FLOP/byte. The design cuts work rather than speeding the arithmetic: with
-// `sparse`, 8x8 tiles whose gate is all zero (out of cutoff, padding, empty
-// graph slots) are skipped. Plain f32 FMAs on the CUDA cores, no tensor
-// cores and no TF32.
+// bytes of pair grids per pair, far above the card's ridge. Both kernels
+// skip work: with `sparse`, 8x8 tiles whose gate is all zero (out of cutoff,
+// padding, empty graph slots).
 //
-// Work split, as cfconv_fwd.cu: one block per (graph, 8-row i tile); the
-// block loops over the 8-column j tiles (the TPU's sequential j grid axis)
-// and keeps its rows' sums (dq and the three dmu channels, 8 features each
-// per thread) in registers. Wk (R x 3F, 30 KB at R=20) is staged in shared
-// memory at the first computed tile, so a block of padding rows reads only
-// its gate. Each block flags its occupied tiles in one pass over its gate
-// rows before the loop.
+// Plain mode (painn_fwd_mma_kernel):
+// - work list: an occupancy pass and a scan make the list of computed tiles
+//   on the device (worklist.cuh, no host sync), in (graph, 8-row i tile)
+//   items, each with its j tiles. A persistent grid (one 8-warp block per
+//   SM) splits the items into contiguous runs of equal work by the prefix
+//   sums (first_item); items are never split, so each dq/dmu row is summed
+//   in registers by one block and written once, with no atomics: the output
+//   is bitwise the same from run to run on one card. The rows of an item
+//   with no listed tile (padding, empty graph slots, an all-zero gate under
+//   `sparse`) are written as zeros, spread over the grid;
+// - products: the filter w_raw = [phi; 1] [Wk; bk] of each tile, 64 pairs x
+//   3F, on the tensor cores with mma.sync.m16n8k8 TF32 in 3xTF32
+//   (painn_mma.cuh, shared with painn_bwd.cu), in the plain split: the
+//   filter feeds the messages linearly (no relu, no chained product), and
+//   that stays within half of chip_smoke.py's tolerance (PERF.md; the
+//   precise mode's errors and time are there too). [Wk; bk] is split into
+//   its TF32 parts once per block (warp_tile_mma's kBLo operand); the RBF's
+//   exp runs on the CUDA cores;
+// - messages: gating and the three message sums on the CUDA cores, in the
+//   mma fragments' layout. Pair p = jl*8 + il is row p, so lane (g, t) of
+//   warp (wm, wn) holds row il = g for the warp's four jl: the sum over j of
+//   a row stays in the lane's registers over all of an item's tiles, with no
+//   shuffle per tile, and the two warps wm are added once per item, through
+//   shared memory, in a fixed order;
+// - loads: the next listed tile's five pair grids and x/mu rows of its j
+//   tile load with cp.async (double buffer) while the current tile's
+//   products run, issued after the barrier that ends the current tile's
+//   predecessor.
 //
-// SYM (symmetric dist/gate, antisymmetric directions, square grid), the
-// scheme of cfconv_fwd.cu's SYM mode: tile (pi, pj) is computed iff
-// pi <= pj, so each filter is computed once per unordered pair of tiles.
-// A computed tile with pi < pj also emits the messages of its mirror tile
-// (pj, pi): the same filter, the direction terms negated
-// (painn_tile.cuh, MIRROR). Those land on the tile's j rows: summed over
-// the tile's 8 rows i in shared memory, then added to dq/dmu with global
-// atomicAdd, as is each block's own row sum. So dq and dmu must be zero on
-// entry and their summation order varies from run to run. The diagonal
-// tile holds both orders of its pairs and emits no mirror. At the LBA shape
-// (B=64, N=512, cutoff 5) the symmetric function's bound is bytes, not
-// operations: the five pair grids' upper triangles outweigh the filters of
-// the few in-cutoff pairs.
+// Symmetric mode (painn_fwd_sym_kernel; symmetric dist/gate, antisymmetric
+// directions, square grid), plain f32 FMAs on the CUDA cores, one block per
+// (graph, 8-row i tile), the scheme of cfconv_bwd.cu's SYM mode: tile (pi,
+// pj) is computed iff pi <= pj, so each filter is computed once per
+// unordered pair of tiles. A computed tile with pi < pj also emits the
+// messages of its mirror tile (pj, pi): the same filter, the direction terms
+// negated (painn_tile.cuh, MIRROR). Those land on the tile's j rows: summed
+// over the tile's 8 rows i in shared memory, then added to dq/dmu with
+// global atomicAdd, as is each block's own row sum. So dq and dmu must be
+// zero on entry and their summation order varies from run to run. The
+// diagonal tile holds both orders of its pairs and emits no mirror. At the
+// LBA shape (B=64, N=512, cutoff 5) the symmetric function's bound is bytes,
+// not operations: the five pair grids' upper triangles outweigh the filters
+// of the few in-cutoff pairs.
+#include "mma_tf32.cuh"
+#include "painn_mma.cuh"
 #include "painn_tile.cuh"
+#include "reduce.cuh"
+#include "worklist.cuh"
 
 namespace geossl {
 
-template <bool SYM>
+// -- plain mode: tensor-core filter ------------------------------------------------
+
+// the filter product in mma_tf32.cuh's plain 3xTF32 split (the header says why)
+constexpr bool kFwdPrecise = false;
+constexpr int kWkLo = kRP * kF3;  // the low parts' offset in Wk_s
+// shared memory of the plain-mode kernel, in floats
+constexpr int kFOffWk = 0;                          // [2][kRP][kF3] swizzled: [Wk; bk; 0] hi, lo
+constexpr int kFOffPhi = kFOffWk + 2 * kRP * kF3;   // [kRP][kPairs] swizzled: phi^T, row R = 1
+constexpr int kFOffX = kFOffPhi + kRP * kPairs;     // [2][2][8][kS3] x, mu rows of the j tile
+constexpr int kFOffPr = kFOffX + 4 * kTile * kS3;   // [2][5][64] dist, gate, dir x/y/z, [il][jl]
+constexpr int kFOffRed = kFOffPr + 2 * 5 * kPairs;  // [4][32][32] row sums of the warps wm = 1
+constexpr int kFwdFloats = kFOffRed + 4 * 32 * 32;
+
+// Block k runs items [first_item(k), first_item(k + 1)) of the tile list
+// (worklist.cuh: items (graph, 8-row i tile), each listing its j tiles), in
+// list order, i.e. listed tiles [pre[first], pre[last]).
+__global__ void __launch_bounds__(kThreads, 1)
+painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
+                     const float* __restrict__ dirx, const float* __restrict__ diry,
+                     const float* __restrict__ dirz, const float* __restrict__ x,
+                     const float* __restrict__ mu, const float* __restrict__ wk,
+                     const float* __restrict__ bk, float* __restrict__ dq,
+                     float* __restrict__ dmu, const int* __restrict__ pre,
+                     const int* __restrict__ list, int B, int ni, int nj, int R, float delta,
+                     float coeff) {
+  extern __shared__ float4 smem_v4[];  // 16-byte aligned
+  float* smem = reinterpret_cast<float*>(smem_v4);
+  float* Wk_s = smem + kFOffWk;
+  float* phi_s = smem + kFOffPhi;
+  float* red_s = smem + kFOffRed;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int ntj = (nj + kTile - 1) / kTile, nti = (ni + kTile - 1) / kTile;
+  const int n_items = B * nti;
+  const float* grids[5] = {dist, gate, dirx, diry, dirz};
+
+  // the rows of items with no listed tile hold zero (any block may write
+  // them: no other block does)
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    if (pre[item] != pre[item + 1]) continue;  // block-uniform
+    const int b = item / nti, i0 = (item - b * nti) * kTile;
+    for (int idx = tid; idx < kTile * (kF + kF3) / 4; idx += kThreads) {
+      const bool m = idx >= kTile * kF / 4;
+      const int c = m ? idx - kTile * kF / 4 : idx;
+      const int w4 = m ? kF3 / 4 : kF / 4, r = c / w4, f = (c % w4) * 4, i = i0 + r;
+      if (i < ni)
+        *reinterpret_cast<float4*>((m ? dmu : dq) + ((size_t)b * ni + i) * (m ? kF3 : kF) + f) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  const int t_begin = pre[first_item(pre, n_items, gridDim.x, blockIdx.x)];
+  const int t_end = pre[first_item(pre, n_items, gridDim.x, blockIdx.x + 1)];
+  if (t_begin >= t_end) return;  // block-uniform: no listed tile
+
+  painn_stage_filter<kWkLo>(Wk_s, phi_s, wk, bk, R);
+
+  // issues the cp.async loads of listed tile v into buffer buf: the five
+  // pair grids, then the x and mu rows of its j tile in 16-byte pieces
+  auto load_tile = [&](int v, int buf) {
+    const int item = v / ntj, pj = v - item * ntj, b = item / nti;
+    const int i0 = (item - b * nti) * kTile, j0 = pj * kTile;
+    for (int idx = tid; idx < 5 * kPairs; idx += kThreads) {
+      const int k = idx / kPairs, p = idx % kPairs, i = i0 + (p >> 3), j = j0 + (p & 7);
+      const bool in = i < ni && j < nj;
+      cp_async4(smem + kFOffPr + (buf * 5 + k) * kPairs + p,
+                grids[k] + (in ? ((size_t)b * ni + i) * nj + j : 0), in);
+    }
+    for (int c = tid; c < 2 * kTile * kF3 / 4; c += kThreads) {
+      const int side = c / (kTile * kF3 / 4), r = (c / (kF3 / 4)) % kTile;
+      const int f = (c % (kF3 / 4)) * 4, j = j0 + r;
+      cp_async16(smem + kFOffX + ((2 * buf + side) * kTile + r) * kS3 + f,
+                 (side ? mu : x) + (j < nj ? ((size_t)b * nj + j) * kF3 + f : 0), j < nj);
+    }
+    cp_async_commit();
+  };
+
+  // this lane's share of row il = g of the current item, columns 32*wn +
+  // 8*nb + 2*t + c of dq and of each dmu channel, summed over this warp's
+  // four jl of every tile of the item
+  float aq[4][2], am[3][4][2];
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) aq[nb][c] = am[0][nb][c] = am[1][nb][c] = am[2][nb][c] = 0.f;
+  int cur = list[t_begin] / ntj;  // the item whose rows the sums hold
+  // writes the rows of item `cur` (warps wm = 1 hand their sums to wm = 0
+  // through red_s) and zeroes the sums; every thread calls it
+  auto flush = [&]() {
+    float* red = red_s + (wn * 32 + lane) * 32;
+    if (wm == 1) {
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        st4(red + 8 * nb, aq[nb][0], aq[nb][1], am[0][nb][0], am[0][nb][1]);
+        st4(red + 8 * nb + 4, am[1][nb][0], am[1][nb][1], am[2][nb][0], am[2][nb][1]);
+      }
+    }
+    __syncthreads();
+    const int b = cur / nti, i = (cur - b * nti) * kTile + g;
+    if (wm == 0 && i < ni) {
+      float* q_row = dq + ((size_t)b * ni + i) * kF + 32 * wn + 2 * t;
+      float* m_row = dmu + ((size_t)b * ni + i) * kF3 + 32 * wn + 2 * t;
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        const float4 r0 = ld4(red + 8 * nb), r1 = ld4(red + 8 * nb + 4);
+        *reinterpret_cast<float2*>(q_row + 8 * nb) =
+            make_float2(aq[nb][0] + r0.x, aq[nb][1] + r0.y);
+        *reinterpret_cast<float2*>(m_row + 8 * nb) =
+            make_float2(am[0][nb][0] + r0.z, am[0][nb][1] + r0.w);
+        *reinterpret_cast<float2*>(m_row + kF + 8 * nb) =
+            make_float2(am[1][nb][0] + r1.x, am[1][nb][1] + r1.y);
+        *reinterpret_cast<float2*>(m_row + 2 * kF + 8 * nb) =
+            make_float2(am[2][nb][0] + r1.z, am[2][nb][1] + r1.w);
+      }
+    }
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) aq[nb][c] = am[0][nb][c] = am[1][nb][c] = am[2][nb][c] = 0.f;
+  };
+
+  int v = list[t_begin];
+  load_tile(v, 0);
+  for (int k = t_begin; k < t_end; ++k) {
+    const int v_next = k + 1 < t_end ? list[k + 1] : 0;
+    const int item = v / ntj, buf = (k - t_begin) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile k's data (and Wk) have landed; every warp is
+                      // done with tile k - 1's buffer, phi_s and red_s
+    if (k + 1 < t_end) load_tile(v_next, buf ^ 1);
+    if (item != cur) {  // block-uniform: the run moves to the next item
+      flush();
+      cur = item;
+    }
+    const float* pr = smem + kFOffPr + buf * 5 * kPairs;  // [5][il*8 + jl]
+    const float* xj = smem + kFOffX + 2 * buf * kTile * kS3;
+    const float* muj = xj + kTile * kS3;
+    painn_phi_tile(pr, phi_s, R, delta, coeff);
+    __syncthreads();  // phi_s complete
+
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float acc[2][4][4];
+      if (R < 24)
+        filter_chunk_mma<24, kFwdPrecise, kWkLo>(acc, phi_s, Wk_s, wm, wn, c);
+      else
+        filter_chunk_mma<kRP, kFwdPrecise, kWkLo>(acc, phi_s, Wk_s, wm, wn, c);
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int jl = 4 * wm + 2 * mb + h, at = g * kTile + jl;
+          const float gt = pr[kPairs + at];
+          const float* xr = xj + jl * kS3 + c * kF + 32 * wn + 2 * t;
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) {
+            const float2 xv = *reinterpret_cast<const float2*>(xr + 8 * nb);
+            const float wx0 = gt * acc[mb][nb][2 * h] * xv.x;
+            const float wx1 = gt * acc[mb][nb][2 * h + 1] * xv.y;
+            if (c == 0) {
+              aq[nb][0] += wx0;
+              aq[nb][1] += wx1;
+            } else {
+#pragma unroll
+              for (int cc = 0; cc < 3; ++cc) {
+                float2 s;
+                if (c == 1) {
+                  const float dc = pr[(2 + cc) * kPairs + at];
+                  s = make_float2(dc, dc);
+                } else {
+                  s = *reinterpret_cast<const float2*>(muj + jl * kS3 + cc * kF + 32 * wn +
+                                                       2 * t + 8 * nb);
+                }
+                am[cc][nb][0] = fmaf(wx0, s.x, am[cc][nb][0]);
+                am[cc][nb][1] = fmaf(wx1, s.y, am[cc][nb][1]);
+              }
+            }
+          }
+        }
+    }
+    v = v_next;
+  }
+  flush();
+}
+
+// -- symmetric mode: f32 FMAs on the CUDA cores --------------------------------------
+
 __global__ void __launch_bounds__(kThreads)
-painn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
-                 const float* __restrict__ dirx, const float* __restrict__ diry,
-                 const float* __restrict__ dirz, const float* __restrict__ x,
-                 const float* __restrict__ mu, const float* __restrict__ wk,
-                 const float* __restrict__ bk, float* __restrict__ dq,
-                 float* __restrict__ dmu, int ni, int nj, int R, float delta,
-                 float coeff, int sparse) {
+painn_fwd_sym_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
+                     const float* __restrict__ dirx, const float* __restrict__ diry,
+                     const float* __restrict__ dirz, const float* __restrict__ x,
+                     const float* __restrict__ mu, const float* __restrict__ wk,
+                     const float* __restrict__ bk, float* __restrict__ dq,
+                     float* __restrict__ dmu, int ni, int nj, int R, float delta,
+                     float coeff, int sparse) {
   extern __shared__ float4 smem_v4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem_v4);
   float* Wk_s = smem;                    // [R][kF3]
@@ -59,10 +271,10 @@ painn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
   float* xj_s = phi_s + R * kPhiS;       // [kTile][kF3]
   float* muj_s = xj_s + kTile * kF3;     // [kTile][kF3]
   float* pr_s = muj_s + kTile * kF3;     // [5][kPairs]
-  float* xi_s = pr_s + 5 * kPairs;       // [kTile][kF3]  SYM: x rows of the block
-  float* mui_s = xi_s + kTile * kF3;     // [kTile][kF3]  SYM: mu rows of the block
-  float* mir_s = mui_s + kTile * kF3;    // [kTile][kF4]  SYM: mirrored messages
-  int* occ_s = (int*)(SYM ? mir_s + kTile * kF4 : xi_s);  // [ntj]
+  float* xi_s = pr_s + 5 * kPairs;       // [kTile][kF3]  x rows of the block
+  float* mui_s = xi_s + kTile * kF3;     // [kTile][kF3]  mu rows of the block
+  float* mir_s = mui_s + kTile * kF3;    // [kTile][kF4]  mirrored messages
+  int* occ_s = (int*)(mir_s + kTile * kF4);  // [ntj]
 
   const int tid = threadIdx.x;
   const int pi = blockIdx.x, b = blockIdx.y;
@@ -79,33 +291,30 @@ painn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
     am[0][k] = am[1][k] = am[2][k] = 0.f;
   }
 
-  if (SYM) {
-    for (int idx = tid; idx < kTile * kF3; idx += kThreads) {
-      const int i = i0 + idx / kF3;
-      const size_t src = (size_t)i * kF3 + idx % kF3;
-      xi_s[idx] = i < ni ? x_b[src] : 0.f;
-      mui_s[idx] = i < ni ? mu_b[src] : 0.f;
-    }
+  for (int idx = tid; idx < kTile * kF3; idx += kThreads) {
+    const int i = i0 + idx / kF3;
+    const size_t src = (size_t)i * kF3 + idx % kF3;
+    xi_s[idx] = i < ni ? x_b[src] : 0.f;
+    mui_s[idx] = i < ni ? mu_b[src] : 0.f;
   }
 
   const int ntj = (nj + kTile - 1) / kTile;
-  const int jstart = SYM ? i0 : 0;
   if (sparse) {
     for (int t = tid; t < ntj; t += kThreads) occ_s[t] = 0;
     __syncthreads();
-    const int rows = min(kTile, ni - i0), cols = nj - jstart;
+    const int rows = min(kTile, ni - i0), cols = nj - i0;
     for (int idx = tid; idx < rows * cols; idx += kThreads) {
-      const int r = idx / cols, j = jstart + idx - r * cols;
+      const int r = idx / cols, j = i0 + idx - r * cols;
       if (gate_b[(size_t)(i0 + r) * nj + j] != 0.f) occ_s[j / kTile] = 1;
     }
     __syncthreads();
   }
 
   bool staged = false;
-  for (int pj = SYM ? pi : 0; pj < ntj; ++pj) {
+  for (int pj = pi; pj < ntj; ++pj) {
     if (sparse && !occ_s[pj]) continue;  // block-uniform
     const int j0 = pj * kTile;
-    const bool mirror = SYM && pj != pi;  // block-uniform
+    const bool mirror = pj != pi;  // block-uniform
     __syncthreads();  // the previous tile is done with pr_s, phi_s, xj_s, muj_s, mir_s
     if (tid < kPairs)
       painn_load_pairs(pr_s, dist + grid_off, gate_b, dirx + grid_off,
@@ -157,39 +366,18 @@ painn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
 #pragma unroll
     for (int k = 0; k < kFPT; ++k) {
       const int f = feat(fg, k);
-      if (SYM) {
-        atomicAdd(&dq_row[f], aq[k]);
+      atomicAdd(&dq_row[f], aq[k]);
 #pragma unroll
-        for (int c = 0; c < 3; ++c) atomicAdd(&dmu_row[c * kF + f], am[c][k]);
-      } else {
-        dq_row[f] = aq[k];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) dmu_row[c * kF + f] = am[c][k];
-      }
+      for (int c = 0; c < 3; ++c) atomicAdd(&dmu_row[c * kF + f], am[c][k]);
     }
   }
 }
 
 static size_t smem_bytes(int R, int nj, int symmetric) {
-  return sizeof(float) * ((size_t)R * kF3 + (size_t)R * kPhiS + 2 * kTile * kF3 +
-                          5 * kPairs +
-                          (symmetric ? 2 * kTile * kF3 + kTile * kF4 : 0)) +
+  if (!symmetric) return sizeof(float) * (size_t)kFwdFloats;
+  return sizeof(float) * ((size_t)R * kF3 + (size_t)R * kPhiS + 4 * kTile * kF3 + 5 * kPairs +
+                          kTile * kF4) +
          sizeof(int) * (size_t)((nj + kTile - 1) / kTile);
-}
-
-template <bool SYM>
-static cudaError_t launch(const float* dist, const float* gate, const float* dirx,
-                          const float* diry, const float* dirz, const float* x,
-                          const float* mu, const float* wk, const float* bk, float* dq,
-                          float* dmu, int B, int ni, int nj, int R, float delta,
-                          float coeff, int sparse, size_t smem, cudaStream_t s) {
-  cudaFuncSetAttribute(painn_fwd_kernel<SYM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  const dim3 grid((ni + kTile - 1) / kTile, B);
-  painn_fwd_kernel<SYM><<<grid, kThreads, smem, s>>>(dist, gate, dirx, diry, dirz, x, mu,
-                                                     wk, bk, dq, dmu, ni, nj, R, delta,
-                                                     coeff, sparse);
-  return cudaGetLastError();
 }
 
 }  // namespace geossl
@@ -198,19 +386,46 @@ extern "C" size_t painn_fwd_smem_bytes(int R, int nj, int symmetric) {
   return geossl::smem_bytes(R, nj, symmetric);
 }
 
-// Returns the cudaError_t of the launch (0 on success). F must be 128. With
-// `symmetric` (square grid only) dq and dmu must be zero on entry.
+// Ints of the plain mode's workspace: the tile list over the gate
+// (worklist.cuh), items (graph, 8-row i tile).
+extern "C" size_t painn_fwd_ws_ints(int B, int ni, int nj) {
+  using namespace geossl;
+  return tile_list_ints((size_t)B * ((ni + kTile - 1) / kTile), (nj + kTile - 1) / kTile);
+}
+
+// Returns the cudaError_t of the launches (0 on success). F must be 128 and
+// 2 <= R <= 31. Plain mode: `ws` holds painn_fwd_ws_ints(B, ni, nj) ints.
+// With `symmetric` (square grid only) dq and dmu must be zero on entry and
+// ws is not read.
 extern "C" int painn_fwd(const float* dist, const float* gate, const float* dirx,
                          const float* diry, const float* dirz, const float* x,
                          const float* mu, const float* wk, const float* bk, float* dq,
-                         float* dmu, int B, int ni, int nj, int F, int R, float delta,
+                         float* dmu, int* ws, int B, int ni, int nj, int F, int R, float delta,
                          float coeff, int symmetric, int sparse, void* stream) {
   using namespace geossl;
-  if (F != kF || R < 2 || (symmetric && ni != nj)) return (int)cudaErrorInvalidValue;
+  if (F != kF || R < 2 || R > kRP - 1 || (symmetric && ni != nj))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(R, nj, symmetric);
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(symmetric ? launch<true>(dist, gate, dirx, diry, dirz, x, mu, wk, bk, dq,
-                                        dmu, B, ni, nj, R, delta, coeff, sparse, smem, s)
-                         : launch<false>(dist, gate, dirx, diry, dirz, x, mu, wk, bk, dq,
-                                         dmu, B, ni, nj, R, delta, coeff, sparse, smem, s));
+  if (symmetric) {
+    cudaError_t err = cudaFuncSetAttribute(
+        painn_fwd_sym_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    painn_fwd_sym_kernel<<<dim3((ni + kTile - 1) / kTile, B), kThreads, smem, s>>>(
+        dist, gate, dirx, diry, dirz, x, mu, wk, bk, dq, dmu, ni, nj, R, delta, coeff, sparse);
+    return (int)cudaGetLastError();
+  }
+  const int nti = (ni + kTile - 1) / kTile, ntj = (nj + kTile - 1) / kTile;
+  const int items = B * nti;
+  cudaError_t err = make_tile_list<false>(gate, ws, B, ni, nj, sparse, s);
+  if (err != cudaSuccess) return (int)err;
+  const int* pre = ws + (size_t)items * ntj + items;
+  const int* list = ws + worklist_ints(items, ntj);
+  err = cudaFuncSetAttribute(painn_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  painn_fwd_mma_kernel<<<persistent_blocks(items), kThreads, smem, s>>>(
+      dist, gate, dirx, diry, dirz, x, mu, wk, bk, dq, dmu, pre, list, B, ni, nj, R, delta,
+      coeff);
+  return (int)cudaGetLastError();
 }

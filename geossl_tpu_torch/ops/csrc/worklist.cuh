@@ -1,7 +1,7 @@
 // A work list of occupied 8x8 pair tiles, made on the device with no host
 // sync, shared by the persistent kernels (cfconv_bwd.cu, painn_bwd.cu,
-// schnet_stack.cu, cfconv_fwd.cu's symmetric mode, ncsn_score.cu's
-// backward).
+// schnet_stack.cu, cfconv_fwd.cu's symmetric mode, painn_fwd.cu's plain
+// mode, ncsn_score.cu's forward and backward).
 //
 // An occupancy pass (one block per graph and 8-row band) flags the tiles to
 // compute (with `sparse` those whose env is not all zero; with SYM only the
@@ -133,8 +133,8 @@ inline cudaError_t make_worklist(const float* env, int* ws, ZeroGrids zero, int 
   return cudaGetLastError();
 }
 
-// The listed tiles one by one (BY_ROW lists, e.g. cfconv_fwd.cu's symmetric
-// mode and ncsn_score.cu's backward): list[pre[item] + r] = item * n_t + the
+// The listed tiles one by one (BY_ROW lists: cfconv_fwd.cu's symmetric
+// mode, painn_fwd.cu's plain mode, ncsn_score.cu): list[pre[item] + r] = item * n_t + the
 // item's r-th computed tile, and pos[item * n_t + t] = the list position of
 // tile t of the item, or -1 where it is not computed. One warp per item.
 __global__ void __launch_bounds__(kOccThreads)
@@ -162,29 +162,45 @@ inline size_t tile_list_ints(size_t items, size_t tiles) {
   return worklist_ints(items, tiles) + 2 * items * tiles;
 }
 
-// make_worklist<SYM, true> over a square [B, n, n] grid, then the tile
-// list. ws holds tile_list_ints(B * nt, nt) ints: flags, counts, prefix
-// sums (pre[B * nt] is the number of listed tiles), list, pos.
+// make_worklist<SYM, true> over a [B, ni, nj] grid, then the tile list.
+// With nti, ntj its 8-row and 8-column tiles, ws holds tile_list_ints(B *
+// nti, ntj) ints: flags, counts, prefix sums (pre[B * nti] is the number of
+// listed tiles), list, pos.
+template <bool SYM>
+inline cudaError_t make_tile_list(const float* env, int* ws, int B, int ni, int nj, int sparse,
+                                  cudaStream_t s) {
+  const int nti = (ni + kTile - 1) / kTile, ntj = (nj + kTile - 1) / kTile, items = B * nti;
+  ZeroGrids none = {{nullptr}, 0};
+  cudaError_t err = make_worklist<SYM, true>(env, ws, none, B, ni, nj, sparse, s);
+  if (err != cudaSuccess) return err;
+  const int* occ = ws;
+  const int* pre = ws + (size_t)items * ntj + items;
+  int* list = ws + worklist_ints(items, ntj);
+  int* pos = list + (size_t)items * ntj;
+  const int per = kOccThreads / 32;
+  tile_list_kernel<<<(items + per - 1) / per, kOccThreads, 0, s>>>(occ, pre, items, ntj, list,
+                                                                   pos);
+  return cudaGetLastError();
+}
+
+// The same over a square [B, n, n] grid.
 template <bool SYM>
 inline cudaError_t make_tile_list(const float* env, int* ws, int B, int n, int sparse,
                                   cudaStream_t s) {
-  const int nt = (n + kTile - 1) / kTile, items = B * nt;
-  ZeroGrids none = {{nullptr}, 0};
-  cudaError_t err = make_worklist<SYM, true>(env, ws, none, B, n, n, sparse, s);
-  if (err != cudaSuccess) return err;
-  const int* occ = ws;
-  const int* pre = ws + (size_t)items * nt + items;
-  int* list = ws + worklist_ints(items, nt);
-  int* pos = list + (size_t)items * nt;
-  const int per = kOccThreads / 32;
-  tile_list_kernel<<<(items + per - 1) / per, kOccThreads, 0, s>>>(occ, pre, items, nt, list, pos);
-  return cudaGetLastError();
+  return make_tile_list<SYM>(env, ws, B, n, n, sparse, s);
 }
 
 // The first tile of block k's run when `total` listed tiles are split into
 // equal runs over `blocks` blocks (lengths differ by at most one).
 __host__ __device__ inline int run_begin(long long total, int blocks, int k) {
   return (int)(total * k / blocks);
+}
+
+// The first block whose run (run_begin) may hold listed tile t0: the last
+// block starting at or before it. Blocks from there on hold the tiles t0..
+// while their runs start before the item's end (some runs may be empty).
+__host__ __device__ inline int first_run_block(int t0, long long total, int blocks) {
+  return (int)(((long long)(t0 + 1) * blocks + total - 1) / total) - 1;
 }
 
 // The item's computed tiles, in order, into tl_s (warp 0 only); returns

@@ -9,10 +9,11 @@ forward and ``ncsn_score_bwd`` (replaces ``_bwd_kernel``) backward, first
 order only. Gradients flow to the node projections ``u`` and the ten head
 weights; dist, noise, sel and sigma are data and get none.
 
-The kernels take emb = 128 only (``KERNEL_E``). The forward computes in
-plain f32 on the CUDA cores; the backward runs its three head products on the
-tensor cores in 3xTF32 (``csrc/mma_tf32.cuh``), within f32 rounding of the
-plain version, and sums everything in a fixed order (bitwise repeatable).
+The kernels take emb = 128 only (``KERNEL_E``). Both run the head's
+products on the tensor cores in 3xTF32 (``csrc/mma_tf32.cuh``; the forward
+l1 W2, the backward also dl1 and dW2), within f32 rounding of the plain
+version, over a tile list made on the device, and sum everything in a fixed
+order (bitwise repeatable).
 """
 
 from __future__ import annotations
@@ -107,15 +108,22 @@ def ncsn_score_fwd(dist, noise, sel, sigma, u, *weights, anneal):
     _check("ncsn_score_fwd", dist, noise, sel, sigma, u, weights)
     b, n, _ = dist.shape
     check_smem("ncsn_score_fwd", _build.kernel_fn(
-        "ncsn_score", "ncsn_fwd_smem_bytes", [ctypes.c_int],
-        ctypes.c_size_t)(n))
+        "ncsn_score", "ncsn_smem_bytes", [], ctypes.c_size_t)())
+    ws_ints, rpart_floats = (_build.kernel_fn(
+        "ncsn_score", name, [ctypes.c_int] * 2, ctypes.c_size_t)(b, n)
+        for name in ("ncsn_ws_ints", "ncsn_fwd_rpart_floats"))
     fn = _build.kernel_fn(
         "ncsn_score", "ncsn_score_fwd",
-        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 3
+        [ctypes.c_void_p] * 18 + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_void_p])
-    rows = torch.empty((b, n), dtype=torch.float32, device=dist.device)
-    err = fn(*map(ptr, (dist, noise, sel, sigma, u, *weights, rows)), b, n,
-             KERNEL_E, float(anneal), stream(dist))
+    dev = dist.device
+    rows = torch.empty((b, n), dtype=torch.float32, device=dev)
+    # the work list (tile flags, counts, prefix sums, the tile list) and the
+    # row sums' partials of each (block, row tile) segment
+    ws = torch.empty(ws_ints, dtype=torch.int32, device=dev)
+    rpart = torch.empty(rpart_floats, dtype=torch.float32, device=dev)
+    err = fn(*map(ptr, (dist, noise, sel, sigma, u, *weights, rows, rpart,
+                        ws)), b, n, KERNEL_E, float(anneal), stream(dist))
     check_launch("ncsn_score_fwd", err)
     ncsn_score_fwd.launches += 1
     return rows
@@ -134,13 +142,13 @@ def ncsn_score_bwd(dist, noise, sel, sigma, u, g_rows, *weights, anneal):
         raise ValueError(f"ncsn_score_bwd: g_rows {tuple(g_rows.shape)}, "
                          f"want {(b, n)}")
     check_smem("ncsn_score_bwd", _build.kernel_fn(
-        "ncsn_score", "ncsn_bwd_smem_bytes", [], ctypes.c_size_t)())
-    blocks = _build.kernel_fn("ncsn_score", "ncsn_bwd_blocks",
+        "ncsn_score", "ncsn_smem_bytes", [], ctypes.c_size_t)())
+    blocks = _build.kernel_fn("ncsn_score", "ncsn_blocks",
                               [ctypes.c_int, ctypes.c_int])(b, n)
     size = _build.kernel_fn("ncsn_score", "ncsn_wgrad_size", [])()
     ws_ints, dpart_floats = (_build.kernel_fn(
         "ncsn_score", name, [ctypes.c_int] * 2, ctypes.c_size_t)(b, n)
-        for name in ("ncsn_bwd_ws_ints", "ncsn_bwd_dpart_floats"))
+        for name in ("ncsn_ws_ints", "ncsn_bwd_dpart_floats"))
     fn = _build.kernel_fn(
         "ncsn_score", "ncsn_score_bwd",
         [ctypes.c_void_p] * 21 + [ctypes.c_int] * 3

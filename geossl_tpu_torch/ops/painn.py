@@ -40,9 +40,10 @@ Kernels:
 The two message-pass Functions and the stack's are first order only: the
 JAX package's second-order path (MD17 forces) is not ported, and a double
 backward raises NotImplementedError. The kernels compute in plain f32 on
-the CUDA cores, but for ``painn_bwd``, whose three tile products run on the
-tensor cores in 3xTF32 (``csrc/mma_tf32.cuh``), within f32 rounding of the
-plain version.
+the CUDA cores, but for ``painn_fwd`` and ``painn_bwd``, whose tile
+products (the filter; the backward also dWk and dphi) run on the tensor
+cores in 3xTF32 (``csrc/mma_tf32.cuh``, ``csrc/painn_mma.cuh``), within f32
+rounding of the plain version.
 
 The symmetric pair is for symmetric dist/gate and antisymmetric directions
 only (dir[j, i] = -dir[i, j]): PaiNN's geometry gives them without
@@ -219,14 +220,21 @@ def _launch_painn_fwd(dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
         ctypes.c_size_t)(num_r, nj, int(symmetric)))
     fn = _build.kernel_fn(
         "painn_fwd", "painn_fwd",
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    # the symmetric mode adds every output row with atomics
+    dev = dist.device
+    # the symmetric mode adds every output row with atomics; the plain mode
+    # writes each row once and takes a work list made on the device (tile
+    # flags, per-item counts and their prefix sums, the tile list)
     alloc = torch.zeros if symmetric else torch.empty
-    dq = alloc((b, ni, KERNEL_F), dtype=torch.float32, device=dist.device)
-    dmu = alloc((b, ni, 3 * KERNEL_F), dtype=torch.float32, device=dist.device)
+    dq = alloc((b, ni, KERNEL_F), dtype=torch.float32, device=dev)
+    dmu = alloc((b, ni, 3 * KERNEL_F), dtype=torch.float32, device=dev)
+    ws = None if symmetric else torch.empty(_build.kernel_fn(
+        "painn_fwd", "painn_fwd_ws_ints", [ctypes.c_int] * 3,
+        ctypes.c_size_t)(b, ni, nj), dtype=torch.int32, device=dev)
     delta, coeff = _rbf_consts(cutoff, num_r)
     err = fn(*map(ptr, (dist, gate, dirx, diry, dirz, x, mu, wk, bk, dq, dmu)),
+             ctypes.c_void_p(None) if ws is None else ptr(ws),
              b, ni, nj, KERNEL_F, num_r, delta, coeff, int(symmetric),
              int(sparse), stream(dist))
     check_launch(name, err)
