@@ -269,12 +269,13 @@ __device__ __forceinline__ void head_pre2(float p2[1][4][4], float* smem) {
 constexpr bool kFwdPrecise = false;
 
 // Forward of the head, per listed tile, block k computing the run
-// [run_begin(k), run_begin(k + 1)): steps 1 and 2 of the backward below,
-// then each pair's loss (warp 0: lane l holds pairs l and l + 32, both of
-// row il = l & 7) summed over the tile's columns by shuffles and over the
-// run's consecutive tiles of one item in registers. One 8-row partial per
-// (block, item) segment, at slot item + block (unique: both grow along the
-// list).
+// [run_begin(k), run_begin(k + 1)): steps 1 and 2 of the backward below;
+// each pair's loss follows at the barrier that opens the next tile (warp 0:
+// lane l holds pairs l and l + 32, both of row il = l & 7, their noise and
+// sel kept in registers), summed over the tile's columns by shuffles and
+// over the run's consecutive tiles of one item in registers. One 8-row
+// partial per (block, item) segment, at slot item + block (unique: both
+// grow along the list).
 __global__ void __launch_bounds__(kThreads, 1)
 ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
                 const float* __restrict__ sel, const float* __restrict__ sigma,
@@ -293,8 +294,25 @@ ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   const float bd2 = W.bd2[0], b3 = W.b3[0];
   stage_head(W, smem);
 
-  float racc = 0.f;  // warp 0: the loss of row il = lane & 7 over the segment
+  // warp 0: the loss of row il = lane & 7 over the segment, and the previous
+  // tile's sigma, noise and sel of pairs lane and lane + 32
+  float racc = 0.f, sig_p = 1.f, nz_p[2] = {0.f, 0.f}, sel_p[2] = {0.f, 0.f};
   int cur = list[t_begin] / nt;  // the item racc sums
+  // warp 0 adds the previous tile's loss (its score sums are complete in sr_s)
+  auto add_loss = [&]() {
+    if (warp != 0) return;
+    const float wsig = expf(anneal * logf(sig_p));
+    float s = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = lane + 32 * h;
+      const float r = (sr_s[p] + sr_s[kPairs + p] + b3) / sig_p + nz_p[h] / sig_p;
+      s += 0.5f * r * r * wsig * sel_p[h];
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 8);
+    s += __shfl_xor_sync(0xffffffffu, s, 16);
+    racc += s;
+  };
   auto flush = [&]() {
     if (warp == 0 && lane < kTile) rpart[(size_t)(cur + blockIdx.x) * kTile + lane] = racc;
     racc = 0.f;
@@ -306,8 +324,10 @@ ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
     const int v_next = k + 1 < t_end ? list[k + 1] : 0;
     const int item = v / nt, buf = (k - t_begin) & 1;
     cp_async_wait<0>();
-    __syncthreads();  // tile k's data (and the weights) have landed; every
-                      // warp is done with tile k - 1
+    __syncthreads();  // tile k's data (and the weights) have landed; tile k -
+                      // 1's score sums are complete; every warp is done with
+                      // tile k - 1's buffer
+    if (k > t_begin) add_loss();
     if (k + 1 < t_end)
       head_load_tile<false>(smem, v_next, buf ^ 1, nt, n, dist, noise, sel, sigma, u, nullptr);
     if (item != cur) {  // block-uniform: the run moves to the next row tile
@@ -315,28 +335,24 @@ ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
       cur = item;
     }
     const float sig = smem[kHOffGi + 2 * kTile + buf];
+    if (warp == 0) {
+      const float* nz_t = smem + kHOffGrid + (3 * buf + 1) * kPairs;  // [il][jl]
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = lane + 32 * h, at = (p & 7) * kTile + (p >> 3);
+        nz_p[h] = nz_t[at];
+        sel_p[h] = nz_t[kPairs + at];
+      }
+      sig_p = sig;
+    }
     head_l1(smem, buf, sig, bd2);
     __syncthreads();  // l1_s complete
     float p2[1][4][4];
     head_pre2<kFwdPrecise>(p2, smem);
-    __syncthreads();  // sr_s complete
-    if (warp == 0) {
-      const float* nz_t = smem + kHOffGrid + (3 * buf + 1) * kPairs;  // [il][jl]
-      const float* sel_t = nz_t + kPairs;
-      const float wsig = expf(anneal * logf(sig));
-      float s = 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = lane + 32 * h, at = (p & 7) * kTile + (p >> 3);
-        const float r = (sr_s[p] + sr_s[kPairs + p] + b3) / sig + nz_t[at] / sig;
-        s += 0.5f * r * r * wsig * sel_t[at];
-      }
-      s += __shfl_xor_sync(0xffffffffu, s, 8);
-      s += __shfl_xor_sync(0xffffffffu, s, 16);
-      racc += s;
-    }
     v = v_next;
   }
+  __syncthreads();  // the last tile's score sums are complete
+  add_loss();
   flush();
 }
 

@@ -148,7 +148,8 @@ painn_bwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
   const float* grids[5] = {dist, gate, dirx, diry, dirz};
   float* pair_out[4] = {dgate, ddx, ddy, ddz};
 
-  painn_stage_filter(Wk_s, phi_s, wk, bk, R);
+  painn_stage_wk(Wk_s, wk, bk, R);
+  painn_phi_const(phi_s, R);
   if (tid == 0) {
     misc[0] = first_item(pre, n_items, gridDim.x, blockIdx.x);
     misc[1] = first_item(pre, n_items, gridDim.x, blockIdx.x + 1);

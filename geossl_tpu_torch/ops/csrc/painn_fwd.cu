@@ -74,16 +74,20 @@ namespace geossl {
 constexpr bool kFwdPrecise = false;
 constexpr int kWkLo = kRP * kF3;  // the low parts' offset in Wk_s
 // shared memory of the plain-mode kernel, in floats
-constexpr int kFOffWk = 0;                          // [2][kRP][kF3] swizzled: [Wk; bk; 0] hi, lo
-constexpr int kFOffPhi = kFOffWk + 2 * kRP * kF3;   // [kRP][kPairs] swizzled: phi^T, row R = 1
-constexpr int kFOffX = kFOffPhi + kRP * kPairs;     // [2][2][8][kS3] x, mu rows of the j tile
-constexpr int kFOffPr = kFOffX + 4 * kTile * kS3;   // [2][5][64] dist, gate, dir x/y/z, [il][jl]
-constexpr int kFOffRed = kFOffPr + 2 * 5 * kPairs;  // [4][32][32] row sums of the warps wm = 1
+constexpr int kFOffWk = 0;                           // [2][kRP][kF3] swizzled: [Wk; bk; 0] hi, lo
+constexpr int kFOffPhi = kFOffWk + 2 * kRP * kF3;    // [2][kRP][kPairs] swizzled: phi^T, row R = 1
+constexpr int kFOffX = kFOffPhi + 2 * kRP * kPairs;  // [2][2][8][kS3] x, mu rows of the j tile
+constexpr int kFOffPr = kFOffX + 4 * kTile * kS3;    // [3][5][64] dist, gate, dir x/y/z, [il][jl]
+constexpr int kFOffRed = kFOffPr + 3 * 5 * kPairs;   // [4][32][32] row sums of the warps wm = 1
 constexpr int kFwdFloats = kFOffRed + 4 * 32 * 32;
 
 // Block k runs items [first_item(k), first_item(k + 1)) of the tile list
 // (worklist.cuh: items (graph, 8-row i tile), each listing its j tiles), in
-// list order, i.e. listed tiles [pre[first], pre[last]).
+// list order, i.e. listed tiles [pre[first], pre[last]). One barrier per
+// tile: the pair grids load two tiles ahead and the x/mu rows one tile ahead
+// (cp.async), and each tile's phi is made in the previous tile's iteration
+// (double buffer), so that the barrier that opens tile k finds its phi, its
+// rows and the next tile's grids in place.
 __global__ void __launch_bounds__(kThreads, 1)
 painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
                      const float* __restrict__ dirx, const float* __restrict__ diry,
@@ -96,7 +100,6 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
   extern __shared__ float4 smem_v4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem_v4);
   float* Wk_s = smem + kFOffWk;
-  float* phi_s = smem + kFOffPhi;
   float* red_s = smem + kFOffRed;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -124,26 +127,37 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
   const int t_end = pre[first_item(pre, n_items, gridDim.x, blockIdx.x + 1)];
   if (t_begin >= t_end) return;  // block-uniform: no listed tile
 
-  painn_stage_filter<kWkLo>(Wk_s, phi_s, wk, bk, R);
+  painn_stage_wk<kWkLo>(Wk_s, wk, bk, R);
+  painn_phi_const(smem + kFOffPhi, R);
+  painn_phi_const(smem + kFOffPhi + kRP * kPairs, R);
 
-  // issues the cp.async loads of listed tile v into buffer buf: the five
-  // pair grids, then the x and mu rows of its j tile in 16-byte pieces
-  auto load_tile = [&](int v, int buf) {
-    const int item = v / ntj, pj = v - item * ntj, b = item / nti;
+  // the cp.async loads of listed tile k: its five pair grids into buffer
+  // (k - t_begin) % 3, the x and mu rows of its j tile into buffer
+  // (k - t_begin) & 1 (16-byte pieces); the caller commits
+  auto load_grids = [&](int k) {
+    const int v = list[k], item = v / ntj, pj = v - item * ntj, b = item / nti;
     const int i0 = (item - b * nti) * kTile, j0 = pj * kTile;
+    float* dst = smem + kFOffPr + (k - t_begin) % 3 * 5 * kPairs;
     for (int idx = tid; idx < 5 * kPairs; idx += kThreads) {
-      const int k = idx / kPairs, p = idx % kPairs, i = i0 + (p >> 3), j = j0 + (p & 7);
+      const int q = idx / kPairs, p = idx % kPairs, i = i0 + (p >> 3), j = j0 + (p & 7);
       const bool in = i < ni && j < nj;
-      cp_async4(smem + kFOffPr + (buf * 5 + k) * kPairs + p,
-                grids[k] + (in ? ((size_t)b * ni + i) * nj + j : 0), in);
+      cp_async4(dst + idx, grids[q] + (in ? ((size_t)b * ni + i) * nj + j : 0), in);
     }
+  };
+  auto load_rows = [&](int k) {
+    const int v = list[k], item = v / ntj, pj = v - item * ntj, b = item / nti, j0 = pj * kTile;
+    float* dst = smem + kFOffX + (k - t_begin) % 2 * 2 * kTile * kS3;
     for (int c = tid; c < 2 * kTile * kF3 / 4; c += kThreads) {
       const int side = c / (kTile * kF3 / 4), r = (c / (kF3 / 4)) % kTile;
       const int f = (c % (kF3 / 4)) * 4, j = j0 + r;
-      cp_async16(smem + kFOffX + ((2 * buf + side) * kTile + r) * kS3 + f,
+      cp_async16(dst + (side * kTile + r) * kS3 + f,
                  (side ? mu : x) + (j < nj ? ((size_t)b * nj + j) * kF3 + f : 0), j < nj);
     }
-    cp_async_commit();
+  };
+  // phi of listed tile k into phi buffer (k - t_begin) & 1
+  auto make_phi = [&](int k) {
+    painn_phi_tile(smem + kFOffPr + (k - t_begin) % 3 * 5 * kPairs,
+                   smem + kFOffPhi + (k - t_begin) % 2 * kRP * kPairs, R, delta, coeff);
   };
 
   // this lane's share of row il = g of the current item, columns 32*wn +
@@ -189,33 +203,47 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
 #pragma unroll
       for (int c = 0; c < 2; ++c) aq[nb][c] = am[0][nb][c] = am[1][nb][c] = am[2][nb][c] = 0.f;
   };
+  // the filter of chunk c of the tile whose phi is phi_t
+  auto filter = [&](float acc[2][4][4], const float* phi_t, int c) {
+    if (R < 24)
+      filter_chunk_mma<24, kFwdPrecise, kWkLo>(acc, phi_t, Wk_s, wm, wn, c);
+    else
+      filter_chunk_mma<kRP, kFwdPrecise, kWkLo>(acc, phi_t, Wk_s, wm, wn, c);
+  };
 
-  int v = list[t_begin];
-  load_tile(v, 0);
+  // prologue: the grids of the first two tiles and the rows of the first,
+  // then the first tile's phi
+  load_grids(t_begin);
+  if (t_begin + 1 < t_end) load_grids(t_begin + 1);
+  load_rows(t_begin);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  make_phi(t_begin);
   for (int k = t_begin; k < t_end; ++k) {
-    const int v_next = k + 1 < t_end ? list[k + 1] : 0;
-    const int item = v / ntj, buf = (k - t_begin) & 1;
+    const int item = list[k] / ntj, q = k - t_begin;
     cp_async_wait<0>();
-    __syncthreads();  // tile k's data (and Wk) have landed; every warp is
-                      // done with tile k - 1's buffer, phi_s and red_s
-    if (k + 1 < t_end) load_tile(v_next, buf ^ 1);
+    __syncthreads();  // tile k's phi and rows, tile k + 1's grids (and Wk) are
+                      // in place; every warp is done with tile k - 1
+    if (k + 2 < t_end) load_grids(k + 2);
+    if (k + 1 < t_end) load_rows(k + 1);
+    cp_async_commit();
     if (item != cur) {  // block-uniform: the run moves to the next item
       flush();
       cur = item;
     }
-    const float* pr = smem + kFOffPr + buf * 5 * kPairs;  // [5][il*8 + jl]
-    const float* xj = smem + kFOffX + 2 * buf * kTile * kS3;
+    const float* pr = smem + kFOffPr + q % 3 * 5 * kPairs;  // [5][il*8 + jl]
+    const float* phi_t = smem + kFOffPhi + (q & 1) * kRP * kPairs;
+    const float* xj = smem + kFOffX + (q & 1) * 2 * kTile * kS3;
     const float* muj = xj + kTile * kS3;
-    painn_phi_tile(pr, phi_s, R, delta, coeff);
-    __syncthreads();  // phi_s complete
 
+    // chunk c + 1's products are in flight while chunk c's messages run
+    float acc[2][2][4][4];
+    filter(acc[0], phi_t, 0);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      float acc[2][4][4];
-      if (R < 24)
-        filter_chunk_mma<24, kFwdPrecise, kWkLo>(acc, phi_s, Wk_s, wm, wn, c);
-      else
-        filter_chunk_mma<kRP, kFwdPrecise, kWkLo>(acc, phi_s, Wk_s, wm, wn, c);
+      if (c < 2) filter(acc[(c + 1) & 1], phi_t, c + 1);
+      const float(*w)[4][4] = acc[c & 1];
 #pragma unroll
       for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
@@ -226,8 +254,8 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
 #pragma unroll
           for (int nb = 0; nb < 4; ++nb) {
             const float2 xv = *reinterpret_cast<const float2*>(xr + 8 * nb);
-            const float wx0 = gt * acc[mb][nb][2 * h] * xv.x;
-            const float wx1 = gt * acc[mb][nb][2 * h + 1] * xv.y;
+            const float wx0 = gt * w[mb][nb][2 * h] * xv.x;
+            const float wx1 = gt * w[mb][nb][2 * h + 1] * xv.y;
             if (c == 0) {
               aq[nb][0] += wx0;
               aq[nb][1] += wx1;
@@ -249,7 +277,7 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
           }
         }
     }
-    v = v_next;
+    if (k + 1 < t_end) make_phi(k + 1);  // its grids landed before this tile's barrier
   }
   flush();
 }

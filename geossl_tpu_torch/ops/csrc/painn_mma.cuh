@@ -22,14 +22,12 @@ namespace geossl {
 constexpr int kRP = 32;       // rows of Wk_s and phi_s: R filter rows, the bias row, zeros
 constexpr int kS3 = kF3 + 8;  // row stride of 8-row node tiles 3F wide (bank spread)
 
-// Stages [Wk; bk; 0] into Wk_s and the constant rows R.. of phi_s (ones at
-// R, zeros below). With kBLo > 0 Wk_s holds the TF32 parts of split_b: the
-// high parts, and the low parts kBLo floats further (warp_tile_mma's kBLo
-// operand). Every thread of the block calls it.
+// Stages [Wk; bk; 0] into Wk_s. With kBLo > 0 Wk_s holds the TF32 parts of
+// split_b: the high parts, and the low parts kBLo floats further
+// (warp_tile_mma's kBLo operand). Every thread of the block calls it.
 template <int kBLo = 0>
-__device__ __forceinline__ void painn_stage_filter(float* Wk_s, float* phi_s,
-                                                   const float* __restrict__ wk,
-                                                   const float* __restrict__ bk, int R) {
+__device__ __forceinline__ void painn_stage_wk(float* Wk_s, const float* __restrict__ wk,
+                                               const float* __restrict__ bk, int R) {
   for (int idx = threadIdx.x; idx < kRP * kF3; idx += kThreads) {
     const int r = idx / kF3, c = idx % kF3;
     const float v = r < R ? wk[idx] : (r == R ? bk[c] : 0.f);
@@ -42,6 +40,11 @@ __device__ __forceinline__ void painn_stage_filter(float* Wk_s, float* phi_s,
       Wk_s[swz_at(kF3, r, c)] = v;
     }
   }
+}
+
+// The constant rows R.. of phi_s: ones at R, zeros below. Every thread of
+// the block calls it.
+__device__ __forceinline__ void painn_phi_const(float* phi_s, int R) {
   for (int idx = threadIdx.x; idx < (kRP - R) * kPairs; idx += kThreads) {
     const int r = R + idx / kPairs, p = idx % kPairs;
     phi_s[swz_at(kPairs, r, p)] = r == R ? 1.f : 0.f;

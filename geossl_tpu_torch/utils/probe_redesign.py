@@ -57,10 +57,22 @@ VARIANTS = {
                            "  warp_tile_mma<2, 4, K, true, false, false, kPrecise, kBLo>(acc,",
                            "  if (kBLo == 0) warp_tile_mma<2, 4, K, true, false, false, "
                            "kPrecise, kBLo>(acc,")],
+        "serial_chunks": [("painn_fwd.cu",
+                           "      if (c < 2) filter(acc[(c + 1) & 1], phi_t, c + 1);",
+                           "      if (c > 0) filter(acc[c & 1], phi_t, c);")],
+        "dq_messages_only": [("painn_fwd.cu", "            if (c == 0) {\n              aq[nb][0]",
+                              "            if (c >= 0) {\n              aq[nb][0]")],
+        "no_phi": [("painn_fwd.cu", "    if (k + 1 < t_end) make_phi(k + 1);", "    ;")],
     },
     "ncsn_score": {
         "precise": [("ncsn_score.cu", "constexpr bool kFwdPrecise = false;",
                      "constexpr bool kFwdPrecise = true;")],
+        "no_product": [("ncsn_score.cu",
+                        "  warp_tile_mma<1, 4, kE, false, false, false, kPrecise, kW2Lo>(p2,",
+                        "  if (kPrecise) warp_tile_mma<1, 4, kE, false, false, false, kPrecise, "
+                        "kW2Lo>(p2,")],
+        "no_l1": [("ncsn_score.cu", "    head_l1(smem, buf, sig, bd2);\n    __syncthreads();  // l1_s",
+                   "    __syncthreads();  // l1_s")],
     },
 }
 

@@ -174,24 +174,27 @@ def trunc_f32(x):
     return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
 
 
-def mma_chain(pairs, precise, tile_sums=False):
+def mma_chain(pairs, precise, tile_sums=False, round_b=False):
     """sum_t A_t @ B_t as ``warp_tile_mma`` chains it over a run of tiles
     into one accumulator: 3xTF32 per k-block of 8, each pass added to the
     accumulator with truncation; with ``precise`` both parts rounded
     (``split_tf32<true>``) and each k step's three passes summed apart (with
     truncation) and then added to the accumulator in f32, to nearest. With
     ``tile_sums`` each tile's product goes into a zeroed accumulator that is
-    then added to the run's sum in f32 (the NCSN backward's dW2)."""
+    then added to the run's sum in f32 (the NCSN backward's dW2). With
+    ``round_b`` B's parts are rounded whatever the mode: B split once per
+    block (``split_b``, the kBLo operand of the PaiNN and NCSN forwards)."""
     cut = tf32_round if precise else tf32_trunc
+    cut_b = tf32_round if round_b else cut
     c = None
     for a, b in pairs:
         a, b = a.float(), b.float()
-        ah, bh = cut(a), cut(b)
-        terms = [(cut(a - ah), bh), (ah, cut(b - bh)), (ah, bh)]
+        ah, bh = cut(a), cut_b(b)
+        terms = [(cut(a - ah), bh), (ah, cut_b(b - bh)), (ah, bh)]
         if c is None:
             c = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
         if tile_sums:
-            c = (c.double() + mma_chain([(a, b)], precise).double()).float()
+            c = (c.double() + mma_chain([(a, b)], precise, round_b=round_b).double()).float()
             continue
         for k0 in range(0, a.shape[1], 8):
             ks = slice(k0, k0 + 8)
@@ -265,6 +268,92 @@ def test_forward_filter_products_meet_the_tolerance_in_the_plain_split(seed):
     want = torch.from_numpy(want)
     ratio = ((got.double() - want).abs() / (ATOL + RTOL * want.abs())).max().item()
     assert ratio < 0.5, ratio
+
+
+def _f32(a):
+    return torch.from_numpy(np.asarray(a, dtype=np.float32))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_painn_filter_in_the_plain_split_meets_the_forward_tolerance(seed):
+    """painn_fwd.cu's plain mode computes each tile's raw filter [phi; 1]
+    [Wk; bk] (64 x 24 . 24 x 384: R = 20 RBF rows, the bias row, zeros) in
+    the plain split, [Wk; bk] split into its rounded TF32 parts once per
+    block, gates it and sums the messages of a row's 12 tiles into dq and
+    the three dmu channels in f32: within half of chip_smoke.py's rtol 1e-4
+    / atol 1e-5 of the f64 messages."""
+    rng = np.random.default_rng(seed)
+    r, f, tiles, cutoff = 20, 128, 12, 5.0
+    delta = cutoff / (r - 1)
+    wk = np.zeros((24, 3 * f))
+    wk[:r] = rng.normal(0.0, 1.0 / np.sqrt(r), (r, 3 * f))
+    wk[r] = rng.uniform(-1.0, 1.0, 3 * f) / np.sqrt(r)
+    want, got = np.zeros((8, 4 * f)), torch.zeros(8, 4 * f, dtype=torch.float32)
+    for _ in range(tiles):
+        # pair p = jl*8 + il is row p; ~40% of the pairs within the cutoff
+        d = rng.uniform(0.8, 8.0, (8, 8))  # [jl, il]
+        gate = np.where(d < cutoff, 0.5 * (np.cos(np.pi * d / cutoff) + 1.0), 0.0)
+        dirs = rng.normal(size=(3, 8, 8))
+        dirs /= np.linalg.norm(dirs, axis=0)
+        x, mu = rng.normal(0.0, 1.0, (8, 3 * f)), rng.normal(0.0, 1.0, (8, 3 * f))
+        phi = np.zeros((64, 24))
+        phi[:, :r] = np.exp(-0.5 / delta**2 * (d.reshape(64, 1) - delta * np.arange(r)) ** 2)
+        phi[:, r] = 1.0
+        # gate, dirs, x and mu in f32 for both sides: the kernel's inputs
+        gate, dirs, x, mu = (np.asarray(_f32(a), dtype=np.float64) for a in (gate, dirs, x, mu))
+        w = (phi @ wk).reshape(8, 8, 3 * f) * gate[..., None]  # [jl, il, 3f]
+        want[:, :f] += np.einsum("jif,jf->if", w[..., :f], x[:, :f])
+        for c in range(3):
+            want[:, f * (c + 1):f * (c + 2)] += (
+                np.einsum("jif,jf,ji->if", w[..., f:2 * f], x[:, f:2 * f], dirs[c])
+                + np.einsum("jif,jf,jf->if", w[..., 2 * f:], x[:, 2 * f:], mu[:, c * f:(c + 1) * f]))
+        wr = mma_chain([(_f32(phi), _f32(wk))], False, round_b=True).view(8, 8, 3 * f)
+        wx = _f32(gate)[..., None] * wr * _f32(x)[:, None, :]  # gt w x, [jl, il, 3f]
+        got[:, :f] += wx[..., :f].sum(0)
+        for c in range(3):
+            got[:, f * (c + 1):f * (c + 2)] += (
+                (wx[..., f:2 * f] * _f32(dirs[c])[..., None]).sum(0)
+                + (wx[..., 2 * f:] * _f32(mu[:, c * f:(c + 1) * f])[:, None, :]).sum(0))
+    want = torch.from_numpy(want)
+    ratio = ((got.double() - want).abs() / (ATOL + RTOL * want.abs())).max().item()
+    assert ratio < 0.5, ratio
+
+
+def _ncsn_rows(sigma, precise, seed=0, tiles=12):
+    """Loss rows of 8 rows i over ``tiles`` tiles of 8 pairs j each, as
+    ncsn_score.cu's forward computes them (pre2 = l1 W2 per tile in 3xTF32,
+    W2 split once per block; the rest in f32), and in f64; anneal 2."""
+    rng = np.random.default_rng(seed)
+    e, h = 128, 64
+    w2 = rng.normal(0.0, 1.0 / np.sqrt(e), (e, h))
+    b2, w3 = rng.normal(0.0, 0.1, h), rng.normal(0.0, 1.0 / np.sqrt(h), h)
+    b3 = 0.1
+    want, got = np.zeros(8), torch.zeros(8, dtype=torch.float32)
+    sig = torch.tensor(sigma, dtype=torch.float32)
+    for _ in range(tiles):
+        l1 = np.asarray(_f32(np.maximum(rng.normal(0.2, 1.0, (64, e)), 0.0)), np.float64)
+        noise = np.asarray(_f32(rng.normal(size=64)), np.float64)
+        score = (np.maximum(l1 @ w2 + b2, 0.0) @ w3 + b3) / sigma
+        want += (0.5 * (score + noise / sigma) ** 2 * sigma**2).reshape(8, 8).sum(0)
+        pre2 = mma_chain([(_f32(l1), _f32(w2))], precise, round_b=True) + _f32(b2)
+        sr = (torch.relu(pre2) * _f32(w3)).sum(1) + b3
+        r = sr / sig + _f32(noise) / sig
+        got += (0.5 * r * r * sig * sig).view(8, 8).sum(0)
+    want = torch.from_numpy(want)
+    atol = ATOL * max(1.0, want.abs().max().item())
+    return ((got.double() - want).abs() / (atol + RTOL * want.abs())).max().item()
+
+
+@pytest.mark.parametrize("sigma", [0.01, 10.0])
+def test_ncsn_forward_rows_meet_the_tolerance_in_the_plain_split(sigma):
+    """The NCSN forward reads relu(l1 W2 + b2) as a value, and its loss
+    divides score_raw + noise by sigma: at the smallest and the largest
+    noise level both splits keep the rows within a tenth of chip_smoke.py's
+    row tolerance (rtol 1e-4, atol 1e-5 times the largest row) of f64, so
+    the forward ships the plain split; the precise mode is no further."""
+    plain, precise = _ncsn_rows(sigma, False), _ncsn_rows(sigma, True)
+    assert plain < 0.1, plain
+    assert precise < 0.1, precise
 
 
 def _ddist_rows(dh, w1, rbf, d, off, coeff, passes):

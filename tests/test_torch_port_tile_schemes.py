@@ -1,9 +1,12 @@
 """The device work lists of the redesigned kernels, modelled in float64 on
 the CPU: the tile list of ``csrc/worklist.cuh`` (``make_tile_list``) and its
-split into equal runs (``run_begin``), the symmetric CFConv forward's runs
-with their mirrored messages (``csrc/cfconv_fwd.cu``), and the NCSN
-backward's du partials summed in list order (``csrc/ncsn_score.cu``:
-``ncsn_bwd_kernel`` writes them, ``ncsn_du_kernel`` sums them).
+split into equal runs (``run_begin``) or into runs of whole items
+(``first_item``), the symmetric CFConv forward's runs with their mirrored
+messages (``csrc/cfconv_fwd.cu``), PaiNN's forward over runs of whole items
+(``csrc/painn_fwd.cu``), and the NCSN forward's row partials and backward's
+du partials summed in list order (``csrc/ncsn_score.cu``: ``ncsn_fwd_kernel``
+and ``ncsn_bwd_kernel`` write them, ``ncsn_rows_kernel`` and
+``ncsn_du_kernel`` sum them).
 """
 
 import numpy as np
@@ -13,6 +16,7 @@ import torch
 from geossl_tpu_torch.models.common import cosine_envelope
 from geossl_tpu_torch.ops import cfconv as tcf
 from geossl_tpu_torch.ops import ncsn as tns
+from geossl_tpu_torch.ops import painn as tpn
 
 TILE = 8
 
@@ -46,6 +50,21 @@ def run_begin(total, blocks, k):
 def runs(total, blocks):
     return [range(run_begin(total, blocks, k), run_begin(total, blocks, k + 1))
             for k in range(blocks)]
+
+
+def first_item(pre, blocks, k):
+    """``first_item``: the first item whose block, by work, is >= k (item i
+    goes to the block holding the middle of its work)."""
+    n = len(pre) - 1
+    t2 = 2 * max(pre[n], 1)
+    lo, hi = 0, n
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if min(blocks - 1, (pre[mid] + pre[mid + 1]) * blocks // t2) >= k:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
 
 
 def du_blocks(pre, item, blocks):
@@ -220,6 +239,133 @@ def test_ncsn_du_partials_in_list_order_are_the_reference_du_f64(blocks):
             for qi in range(nt):
                 if (b, qi, pi) in pos:
                     s = s + part_j[pos[b, qi, pi]]
+            got[b, TILE * pi:TILE * pi + TILE] = s
+    torch.testing.assert_close(got[:, :n], want, rtol=1e-12, atol=1e-12)
+    assert not got[1].any()  # the empty slot
+
+
+def _painn_case(seed, sizes, n, f=4, r=6, cutoff=5.0):
+    """PaiNN's message-pass inputs in f64: symmetric dist and gate (cosine
+    cutoff within the radius), antisymmetric directions, x and mu [B, n, 3f],
+    Wk [r, 3f] and bk."""
+    dist, gate, mask = _geometry(seed, sizes, n, cutoff)
+    rng = np.random.default_rng(seed + 1)
+    b_n = len(sizes)
+    v = torch.from_numpy(rng.normal(size=(b_n, n, n, 3)))
+    dirs = (v - v.transpose(1, 2)) * (gate != 0)[..., None]
+    x, mu = (torch.from_numpy(rng.normal(size=(b_n, n, 3 * f))) for _ in range(2))
+    wk = torch.from_numpy(rng.normal(scale=0.5, size=(r, 3 * f)))
+    bk = torch.from_numpy(rng.normal(scale=0.5, size=3 * f))
+    return (dist, gate, *(dirs[..., c].contiguous() for c in range(3)), x, mu, wk, bk,
+            cutoff), mask
+
+
+@pytest.mark.parametrize("blocks,sparse", [(1, True), (6, True), (6, False), (132, True)])
+def test_painn_forward_item_runs_write_each_row_once_f64(blocks, sparse):
+    """painn_fwd_mma_kernel's scheme: block k walks the listed tiles of its
+    items [first_item(k), first_item(k + 1)) in list order; a row's sums are
+    kept in two halves (the warps wm = 0, 1: columns jl 0-3 and 4-7 of every
+    tile) and added, half 0 then half 1, once when the run leaves the item;
+    the rows of items with no listed tile are written as zeros by block
+    item % blocks. On a batch with padding and an empty graph slot every
+    row is written exactly once and the result is the plain version's."""
+    args, _ = _painn_case(7, (20, 0, 13), 24)
+    dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff = args
+    want = torch.cat(tpn.painn_message_reference(*args), dim=-1)
+    b_n, n, f3 = x.shape
+    f = f3 // 3
+    nt = -(-n // TILE)
+    m = nt * TILE  # padded to whole tiles, as the kernel's loads are
+    # per pair and feature: the gated messages into dq and the three dmu
+    # channels, [B, i, j, 4f]
+    w = (tpn._rbf(dist, wk.shape[0], cutoff) @ wk + bk) * gate[..., None]
+    wq, wr, wm = w[..., :f], w[..., f:2 * f], w[..., 2 * f:]
+    msg = [wq * x[:, None, :, :f]]
+    for c, dc in enumerate((dirx, diry, dirz)):
+        msg.append(wr * x[:, None, :, f:2 * f] * dc[..., None]
+                   + wm * x[:, None, :, 2 * f:] * mu[:, None, :, c * f:(c + 1) * f])
+    pad = torch.zeros(b_n, m, m, 4 * f, dtype=x.dtype)
+    pad[:, :n, :n] = torch.cat(msg, dim=-1)
+    lst, _, pre = tile_list(gate, sym=False, sparse=sparse)
+    n_items = b_n * nt
+    got = torch.full((b_n, m, 4 * f), float("nan"), dtype=x.dtype)
+    writes = torch.zeros(b_n, m, dtype=torch.int64)
+
+    def write(item, rows):
+        b, pi = divmod(item, nt)
+        got[b, TILE * pi:TILE * pi + TILE] = rows
+        writes[b, TILE * pi:TILE * pi + TILE] += 1
+
+    for k in range(blocks):
+        for item in range(k, n_items, blocks):
+            if pre[item] == pre[item + 1]:
+                write(item, torch.zeros(TILE, 4 * f, dtype=x.dtype))
+        t0 = pre[first_item(pre, blocks, k)]
+        t1 = pre[first_item(pre, blocks, k + 1)]
+        cur, halves = None, None
+        for t in range(t0, t1):
+            b, pi, pj = lst[t]
+            item = b * nt + pi
+            if item != cur:
+                if cur is not None:
+                    write(cur, halves[0] + halves[1])
+                cur, halves = item, [torch.zeros(TILE, 4 * f, dtype=x.dtype) for _ in range(2)]
+            tile = pad[b, TILE * pi:TILE * pi + TILE, TILE * pj:TILE * pj + TILE]
+            halves[0] += tile[:, :4].sum(1)
+            halves[1] += tile[:, 4:].sum(1)
+        if cur is not None:
+            write(cur, halves[0] + halves[1])
+    assert (writes == 1).all()  # every row once, by one block
+    got = got[:, :n]
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    assert not got[1].any()  # the empty slot
+
+
+@pytest.mark.parametrize("blocks", [3, 50])
+def test_ncsn_forward_row_partials_are_the_reference_rows_f64(blocks):
+    """ncsn_fwd_kernel sums each pair's loss over the tile's columns and over
+    the consecutive tiles of one row tile in its run, and writes one 8-row
+    partial per (block, item) segment at slot item + block; ncsn_rows_kernel
+    adds, per row, the item's segments in block order (zero where the row
+    tile has no listed tile). On a batch with padding and an empty graph
+    slot that is the plain version's rows."""
+    n, emb, anneal = 20, 8, 2.0
+    sizes = (17, 0, 12)
+    dist, _, mask = _geometry(8, sizes, n)
+    rng = np.random.default_rng(9)
+    pm = mask[:, :, None] & mask[:, None, :]
+    sel = (torch.triu(torch.ones(n, n, dtype=torch.bool), 1) & pm).double()
+    noise = torch.from_numpy(rng.normal(size=dist.shape))
+    sigma = torch.from_numpy(rng.uniform(0.1, 2.0, len(sizes)))
+    u = torch.from_numpy(rng.normal(size=(len(sizes), n, emb)))
+    weights = _head(rng, emb)
+    want = tns.ncsn_score_loss_reference(dist, noise, sel, sigma, u, *weights, anneal)
+    # the per-pair loss: row sums of a one-hot sel are the pairs' losses
+    w_d1, b_d1, w_d2, b_d2, w_od, b_od, w2, b2, w3, b3 = weights
+    used = sigma[:, None, None]
+    demb = torch.relu((dist + noise * used)[..., None] * w_d1[0] + b_d1) @ w_d2 + b_d2
+    l1 = torch.relu(u[:, :, None, :] + u[:, None, :, :] + demb @ w_od + b_od)
+    score = (torch.relu(l1 @ w2 + b2) @ w3 + b3)[..., 0] / used
+    loss = 0.5 * (score + noise / used) ** 2 * used**anneal * sel
+
+    lst, _, pre = tile_list(sel, sym=False)
+    nt = -(-n // TILE)
+    pad = torch.zeros(len(sizes), nt * TILE, nt * TILE, dtype=loss.dtype)
+    pad[:, :n, :n] = loss
+    rpart = {}  # slot -> [8 rows]
+    for k, r in enumerate(runs(len(lst), blocks)):
+        for t in r:
+            b, pi, pj = lst[t]
+            slot = b * nt + pi + k
+            tile = pad[b, TILE * pi:TILE * pi + TILE, TILE * pj:TILE * pj + TILE]
+            rpart[slot] = rpart.get(slot, 0) + tile.sum(1)
+    got = torch.zeros(len(sizes), nt * TILE, dtype=loss.dtype)
+    for b in range(len(sizes)):
+        for pi in range(nt):
+            item = b * nt + pi
+            s = torch.zeros(TILE, dtype=loss.dtype)
+            for k in du_blocks(pre, item, blocks):
+                s = s + rpart[item + k]
             got[b, TILE * pi:TILE * pi + TILE] = s
     torch.testing.assert_close(got[:, :n], want, rtol=1e-12, atol=1e-12)
     assert not got[1].any()  # the empty slot
