@@ -286,8 +286,8 @@ KERNEL_ENTRIES = {
     "cfconv_bwd_sym": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb1E"),
     "ncsn_score_fwd": ("ncsn_score", "_ZN6geossl15ncsn_fwd_kernel"),
     "ncsn_score_bwd": ("ncsn_score", "_ZN6geossl15ncsn_bwd_kernel"),
-    "painn_fwd": ("painn_fwd", "_ZN6geossl16painn_fwd_kernelILb0E"),
-    "painn_fwd_sym": ("painn_fwd", "_ZN6geossl16painn_fwd_kernelILb1E"),
+    "painn_fwd": ("painn_fwd", "_ZN6geossl20painn_fwd_mma_kernelILi3E"),
+    "painn_fwd_sym": ("painn_fwd", "_ZN6geossl20painn_fwd_sym_kernel"),
     "painn_bwd": ("painn_bwd", "_ZN6geossl20painn_bwd_mma_kernel"),
     "painn_bwd_sym": ("painn_bwd", "_ZN6geossl20painn_bwd_sym_kernel"),
     "painn_stack": ("painn_stack", "_ZN6geossl18painn_stack_kernelILb0E"),
@@ -1840,22 +1840,33 @@ def main():
     print(f"ncsn_score_bwd repeats bitwise: {all(same)}")
     if not all(same):
         fail(f"ncsn_score_bwd: outputs differ between two launches {same}")
-    # its work list on a partial batch: 5 real graphs in the 128 slots
+    # both kernels' work lists on a partial batch: 5 real graphs in the 128
+    # slots
     b5 = pack_batch([train_store.get(int(i))
                      for i in np.nonzero(tbucket == 128)[0][:5]], 128, 128).to(dev)
     grid5, weights5, anneal5 = ncsn_inputs(ddm0, b5, targs, SEED)
     check_ncsn(errs, grid5, weights5, anneal5, "DDM partial B=128 (5 graphs) N=128",
                chunk=16)
+    # no atomics in the forward either: its rows repeat bitwise
+    for what, (g_, w_, a_) in (("DDM B=128 N=128", (grid, weights, anneal)),
+                               ("DDM partial B=128 (5 graphs) N=128",
+                                (grid5, weights5, anneal5))):
+        rows = [NS.ncsn_score_fwd(*g_, *w_, anneal=a_) for _ in range(2)]
+        print(f"ncsn_score_fwd {what} repeats bitwise: {torch.equal(*rows)}")
+        if not torch.equal(*rows):
+            fail(f"ncsn_score_fwd {what}: rows differ between two launches")
     sel_pairs = int((grid[2] != 0).sum())
     bsz, n = grid[0].shape[:2]
     head_w = sum(w.numel() for w in weights)
     fwd_pair = 2 * E_ * H_ + 8 * E_ + 2 * H_ + 10
     for name, fn, plain, flops, nbytes, line in (
+            # tensor cores: l1 W2; CUDA cores: the distance MLP, l1, the
+            # relu, w3, the score and the loss
             ("ncsn_score_fwd",
              lambda: NS.ncsn_score_fwd(*grid, *weights, anneal=anneal),
              lambda: chunked(NS.ncsn_score_loss_reference, grid,
                              (*weights, anneal), 16),
-             sel_pairs * fwd_pair,
+             (sel_pairs * 2 * E_ * H_, sel_pairs * (fwd_pair - 2 * E_ * H_)),
              4 * (3 * grid[0].numel() + grid[4].numel() + bsz + head_w
                   + bsz * n), 67),
             # tensor cores: l1 W2 recomputed, dl1 = dx2 W2^T, dW2 += l1^T
@@ -1938,22 +1949,80 @@ def main():
                     torch.randn(q5.shape, generator=gen_d, device=dev),
                     torch.randn(mu5.shape, generator=gen_d, device=dev), cut_p,
                     "DDM partial B=128 (5 graphs) N=128", chunk=8)
-    nnz, filt_pairs, cells, tiles = pair_work(grids[0], grids[1])
     f3 = 3 * F_
+
+    def painn_fwd_work(g_, x_):
+        """painn_fwd's (tensor-core, CUDA-core) operations and bytes on
+        these inputs: the filter once per needed pair on the tensor cores,
+        gating and the message sums per ordered pair; the gate read whole,
+        dist and the directions on its occupied tiles, x and mu read, dq
+        and dmu written."""
+        nnz_, filt_, cells_, tiles_ = pair_work(g_[0], g_[1])
+        return ((filt_ * fwd_pair, nnz_ * fwd_elem),
+                4 * (cells_ + 4 * tiles_ + 2 * x_.numel() + (R_ + 1) * f3
+                     + x_.numel() // 3 + x_.numel()))
+
+    # painn_fwd at every shape its paths give it: the DDM batches (B=128,
+    # the clean graph, gating as the dispatcher sets it: off at N=32/64, on
+    # at N=128) and the partial one, serving's first batch at N=128 and
+    # N=512, and an uneven one (60 graphs of bucket 32 and 8 of bucket 128
+    # at N=128): elementwise against the plain version, a second launch
+    # bitwise equal to the first (no atomics), its time and its bound; the
+    # LBA batch (B=64, N=512) was held in phase 3c and timed on the
+    # painn_sym_vs_plain_kernels line
+    fcases = []
+    with torch.no_grad():
+        for b in train_buckets:
+            bt = train_batch(b)
+            d_, pm_ = geometry.pairwise_distances(bt.positions, bt.node_mask)
+            g_, _, x_, mu_ = painn_inputs(
+                m0, bt, pair_mask=geometry.radius_adjacency(d_, pm_, cut_p))
+            fcases.append((f"DDM B=128 N={b}", g_, x_, mu_, wk0, bk0))
+    fcases.append(("DDM partial B=128 (5 graphs) N=128", grids5, x5, mu5, wk0,
+                   bk0))
+    for what, idx, b in (("serving B=128 N=128", first(128, 128), 128),
+                         ("serving B=128 N=512", first(512, 128), 512),
+                         ("uneven B=128 (60 + 8 graphs) N=128",
+                          np.concatenate([first(32, 60), first(128, 8)]), 128)):
+        g_, _, x_, mu_ = painn_inputs(model_p, packed(idx, b, 128))
+        fcases.append((what, g_, x_, mu_, wk_p, bk_p))
+    fwd_shapes = {}
+    with torch.no_grad():
+        for what, g_, x_, mu_, w_, b_ in fcases:
+            sp = K.sparse_auto(g_[0].shape[-1], "auto")
+            args_ = (*g_, x_, mu_, w_, b_, cut_p, sp)
+            got = torch.cat(P.painn_message_fused(*args_), dim=-1)
+            errs.check("painn_fwd", got, chunked(
+                lambda *a: torch.cat(P.painn_message_reference(
+                    *a, w_, b_, cut_p), dim=-1), (*g_, x_, mu_), (), 16),
+                f"{what} sparse={sp}")
+            if not torch.equal(got, torch.cat(P.painn_message_fused(*args_),
+                                              dim=-1)):
+                fail(f"painn_fwd {what}: outputs differ between two launches")
+            (t_ops, e_ops), nbytes = painn_fwd_work(g_, x_)
+            fwd_shapes[what] = {
+                "ms": cuda_time_ms(lambda: P.painn_message_fused(*args_)),
+                "bound_ms": max(t_ops / PEAK_TF32_FLOPS, e_ops / PEAK_F32_FLOPS,
+                                nbytes / PEAK_BYTES) * 1e3,
+                "sparse": sp}
+        (t_ops, e_ops), nbytes = painn_fwd_work(sym_case[0], sym_case[1])
+        fwd_shapes["LBA B=64 N=512"] = {
+            "ms": sym_ms["painn_fwd"],
+            "bound_ms": max(t_ops / PEAK_TF32_FLOPS, e_ops / PEAK_F32_FLOPS,
+                            nbytes / PEAK_BYTES) * 1e3, "sparse": True}
+    print("painn_fwd repeats bitwise at every shape above")
+    print("painn_fwd_shapes: " + json.dumps(fwd_shapes))
+
+    nnz, filt_pairs, cells, tiles = pair_work(grids[0], grids[1])
     with torch.no_grad():
         fwd_args = (*grids, x, mu, wk0, bk0, cut_p, True)
-        want = chunked(lambda *a: torch.cat(P.painn_message_reference(
-            *a, wk0, bk0, cut_p), dim=-1), (*grids, x, mu), (), 16)
-        errs.check("painn_fwd", torch.cat(P.painn_message_fused(*fwd_args),
-                                          dim=-1), want, "DDM B=128 N=128")
         for name, fn, plain, flops, nbytes, line in (
+                # tensor cores: the filter; CUDA cores: gating, the messages
                 ("painn_fwd", lambda: P.painn_message_fused(*fwd_args),
                  lambda: chunked(lambda *a: torch.cat(
                      P.painn_message_reference(*a, wk0, bk0, cut_p), dim=-1),
                      (*grids, x, mu), (), 16),
-                 filt_pairs * fwd_pair + nnz * fwd_elem,
-                 4 * (cells + 4 * tiles + 2 * x.numel() + (R_ + 1) * f3
-                      + q0.numel() + mu.numel()), 86),
+                 *painn_fwd_work(grids, x), 86),
                 # filter recomputed and dWk/dbk once per needed pair (both
                 # directions' dwg summed first); dphi = dwg Wk^T, which
                 # ddist needs in each direction, and the elementwise D, M,

@@ -72,11 +72,10 @@ namespace geossl {
 
 // the filter product in mma_tf32.cuh's plain 3xTF32 split (the header says why)
 constexpr bool kFwdPrecise = false;
-constexpr int kWkLo = kRP * kF3;  // the low parts' offset in Wk_s
 // shared memory of the plain-mode kernel, in floats
-constexpr int kFOffWk = 0;                           // [2][kRP][kF3] swizzled: [Wk; bk; 0] hi, lo
-constexpr int kFOffPhi = kFOffWk + 2 * kRP * kF3;    // [2][kRP][kPairs] swizzled: phi^T, row R = 1
-constexpr int kFOffX = kFOffPhi + 2 * kRP * kPairs;  // [2][2][8][kS3] x, mu rows of the j tile
+constexpr int kFOffWk = 0;                           // WkF (painn_mma.cuh)
+constexpr int kFOffPhi = kFOffWk + kWkFFloats;       // [2] phi buffers, fragment order
+constexpr int kFOffX = kFOffPhi + 2 * kPhiFFloats;   // [2][2][8][kS3] x, mu rows of the j tile
 constexpr int kFOffPr = kFOffX + 4 * kTile * kS3;    // [3][5][64] dist, gate, dir x/y/z, [il][jl]
 constexpr int kFOffRed = kFOffPr + 3 * 5 * kPairs;   // [4][32][32] row sums of the warps wm = 1
 constexpr int kFwdFloats = kFOffRed + 4 * 32 * 32;
@@ -85,9 +84,13 @@ constexpr int kFwdFloats = kFOffRed + 4 * 32 * 32;
 // (worklist.cuh: items (graph, 8-row i tile), each listing its j tiles), in
 // list order, i.e. listed tiles [pre[first], pre[last]). One barrier per
 // tile: the pair grids load two tiles ahead and the x/mu rows one tile ahead
-// (cp.async), and each tile's phi is made in the previous tile's iteration
-// (double buffer), so that the barrier that opens tile k finds its phi, its
-// rows and the next tile's grids in place.
+// (cp.async), and each tile's A fragments are made in the previous tile's
+// iteration (double buffer), so that the barrier that opens tile k finds
+// them, its rows and the next tile's grids in place. A warp loads its A
+// fragments once a tile; the k steps of chunk c + 1 are issued between the
+// four message groups of chunk c, so that the tensor cores and the CUDA
+// cores work at once. KS k steps: K = 8 KS >= R + 1.
+template <int KS>
 __global__ void __launch_bounds__(kThreads, 1)
 painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
                      const float* __restrict__ dirx, const float* __restrict__ diry,
@@ -99,7 +102,7 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
                      float coeff) {
   extern __shared__ float4 smem_v4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem_v4);
-  float* Wk_s = smem + kFOffWk;
+  const float* WkF = smem + kFOffWk;
   float* red_s = smem + kFOffRed;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -127,9 +130,7 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
   const int t_end = pre[first_item(pre, n_items, gridDim.x, blockIdx.x + 1)];
   if (t_begin >= t_end) return;  // block-uniform: no listed tile
 
-  painn_stage_wk<kWkLo>(Wk_s, wk, bk, R);
-  painn_phi_const(smem + kFOffPhi, R);
-  painn_phi_const(smem + kFOffPhi + kRP * kPairs, R);
+  painn_stage_wkf(smem + kFOffWk, wk, bk, R);
 
   // the cp.async loads of listed tile k: its five pair grids into buffer
   // (k - t_begin) % 3, the x and mu rows of its j tile into buffer
@@ -154,10 +155,12 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
                  (side ? mu : x) + (j < nj ? ((size_t)b * nj + j) * kF3 + f : 0), j < nj);
     }
   };
-  // phi of listed tile k into phi buffer (k - t_begin) & 1
+  // the A fragments of listed tile k into phi buffer (k - t_begin) & 1
   auto make_phi = [&](int k) {
-    painn_phi_tile(smem + kFOffPr + (k - t_begin) % 3 * 5 * kPairs,
-                   smem + kFOffPhi + (k - t_begin) % 2 * kRP * kPairs, R, delta, coeff);
+    const float* pr = smem + kFOffPr + (k - t_begin) % 3 * 5 * kPairs;
+    painn_phi_frags<KS, kFwdPrecise>(pr, pr + kPairs,
+                                     smem + kFOffPhi + (k - t_begin) % 2 * kPhiFFloats, R,
+                                     delta, coeff);
   };
 
   // this lane's share of row il = g of the current item, columns 32*wn +
@@ -203,16 +206,9 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
 #pragma unroll
       for (int c = 0; c < 2; ++c) aq[nb][c] = am[0][nb][c] = am[1][nb][c] = am[2][nb][c] = 0.f;
   };
-  // the filter of chunk c of the tile whose phi is phi_t
-  auto filter = [&](float acc[2][4][4], const float* phi_t, int c) {
-    if (R < 24)
-      filter_chunk_mma<24, kFwdPrecise, kWkLo>(acc, phi_t, Wk_s, wm, wn, c);
-    else
-      filter_chunk_mma<kRP, kFwdPrecise, kWkLo>(acc, phi_t, Wk_s, wm, wn, c);
-  };
 
   // prologue: the grids of the first two tiles and the rows of the first,
-  // then the first tile's phi
+  // then the first tile's A fragments
   load_grids(t_begin);
   if (t_begin + 1 < t_end) load_grids(t_begin + 1);
   load_rows(t_begin);
@@ -223,8 +219,8 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
   for (int k = t_begin; k < t_end; ++k) {
     const int item = list[k] / ntj, q = k - t_begin;
     cp_async_wait<0>();
-    __syncthreads();  // tile k's phi and rows, tile k + 1's grids (and Wk) are
-                      // in place; every warp is done with tile k - 1
+    __syncthreads();  // tile k's A fragments and rows, tile k + 1's grids (and
+                      // WkF) are in place; every warp is done with tile k - 1
     if (k + 2 < t_end) load_grids(k + 2);
     if (k + 1 < t_end) load_rows(k + 1);
     cp_async_commit();
@@ -233,49 +229,68 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
       cur = item;
     }
     const float* pr = smem + kFOffPr + q % 3 * 5 * kPairs;  // [5][il*8 + jl]
-    const float* phi_t = smem + kFOffPhi + (q & 1) * kRP * kPairs;
     const float* xj = smem + kFOffX + (q & 1) * 2 * kTile * kS3;
     const float* muj = xj + kTile * kS3;
+    uint32_t ah[KS][2][4], al[KS][2][4];
+    painn_load_a<KS>(smem + kFOffPhi + (q & 1) * kPhiFFloats, wm, ah, al);
 
-    // chunk c + 1's products are in flight while chunk c's messages run
+    // the gated filter of chunk c in acc[c & 1]
     float acc[2][2][4][4];
-    filter(acc[0], phi_t, 0);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      if (c < 2) filter(acc[(c + 1) & 1], phi_t, c + 1);
-      const float(*w)[4][4] = acc[c & 1];
+    for (int a = 0; a < 2; ++a)
 #pragma unroll
       for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int jl = 4 * wm + 2 * mb + h, at = g * kTile + jl;
-          const float gt = pr[kPairs + at];
-          const float* xr = xj + jl * kS3 + c * kF + 32 * wn + 2 * t;
+        for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-          for (int nb = 0; nb < 4; ++nb) {
-            const float2 xv = *reinterpret_cast<const float2*>(xr + 8 * nb);
-            const float wx0 = gt * w[mb][nb][2 * h] * xv.x;
-            const float wx1 = gt * w[mb][nb][2 * h + 1] * xv.y;
-            if (c == 0) {
-              aq[nb][0] += wx0;
-              aq[nb][1] += wx1;
-            } else {
+          for (int u = 0; u < 4; ++u) acc[a][mb][nb][u] = 0.f;
 #pragma unroll
-              for (int cc = 0; cc < 3; ++cc) {
-                float2 s;
-                if (c == 1) {
-                  const float dc = pr[(2 + cc) * kPairs + at];
-                  s = make_float2(dc, dc);
-                } else {
-                  s = *reinterpret_cast<const float2*>(muj + jl * kS3 + cc * kF + 32 * wn +
-                                                       2 * t + 8 * nb);
-                }
-                am[cc][nb][0] = fmaf(wx0, s.x, am[cc][nb][0]);
-                am[cc][nb][1] = fmaf(wx1, s.y, am[cc][nb][1]);
-              }
-            }
+    for (int ks = 0; ks < KS; ++ks)
+      painn_kstep<kFwdPrecise>(acc[0], ah[ks], al[ks], WkF, 0, wn, ks);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float(*w)[4][4] = acc[c & 1];
+      float(*wn1)[4][4] = acc[(c + 1) & 1];
+#pragma unroll
+      for (int grp = 0; grp < 4; ++grp) {
+        // a k step of chunk c + 1 before each message group of chunk c
+        if (c < 2 && grp < KS)
+          painn_kstep<kFwdPrecise>(wn1, ah[grp], al[grp], WkF, c + 1, wn, grp);
+        const int mb = grp >> 1, h = grp & 1, jl = 4 * wm + 2 * mb + h, at = g * kTile + jl;
+        const float* xr = xj + jl * kS3 + c * kF + 32 * wn + 2 * t;
+        float dc[3];
+        if (c == 1) {
+#pragma unroll
+          for (int cc = 0; cc < 3; ++cc) dc[cc] = pr[(2 + cc) * kPairs + at];
+        }
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) {
+          const float2 xv = *reinterpret_cast<const float2*>(xr + 8 * nb);
+          const float w0 = w[mb][nb][2 * h], w1 = w[mb][nb][2 * h + 1];
+          if (c == 0) {
+            aq[nb][0] = fmaf(w0, xv.x, aq[nb][0]);
+            aq[nb][1] = fmaf(w1, xv.y, aq[nb][1]);
+            continue;
+          }
+          const float wx0 = w0 * xv.x, wx1 = w1 * xv.y;
+#pragma unroll
+          for (int cc = 0; cc < 3; ++cc) {
+            const float2 s = c == 1 ? make_float2(dc[cc], dc[cc])
+                                    : *reinterpret_cast<const float2*>(
+                                          muj + jl * kS3 + cc * kF + 32 * wn + 2 * t + 8 * nb);
+            am[cc][nb][0] = fmaf(wx0, s.x, am[cc][nb][0]);
+            am[cc][nb][1] = fmaf(wx1, s.y, am[cc][nb][1]);
           }
         }
+      }
+      if (c < 2) {  // chunk c's filter is consumed: zero it for chunk c + 2
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) w[mb][nb][u] = 0.f;
+      }
     }
     if (k + 1 < t_end) make_phi(k + 1);  // its grids landed before this tile's barrier
   }
@@ -449,11 +464,11 @@ extern "C" int painn_fwd(const float* dist, const float* gate, const float* dirx
   if (err != cudaSuccess) return (int)err;
   const int* pre = ws + (size_t)items * ntj + items;
   const int* list = ws + worklist_ints(items, ntj);
-  err = cudaFuncSetAttribute(painn_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  auto kernel = R < 24 ? painn_fwd_mma_kernel<3> : painn_fwd_mma_kernel<kKS>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  painn_fwd_mma_kernel<<<persistent_blocks(items), kThreads, smem, s>>>(
-      dist, gate, dirx, diry, dirz, x, mu, wk, bk, dq, dmu, pre, list, B, ni, nj, R, delta,
-      coeff);
+  kernel<<<persistent_blocks(items), kThreads, smem, s>>>(dist, gate, dirx, diry, dirz, x, mu, wk,
+                                                          bk, dq, dmu, pre, list, B, ni, nj, R,
+                                                          delta, coeff);
   return (int)cudaGetLastError();
 }

@@ -1,17 +1,25 @@
-// The raw PaiNN filter of one 8x8 pair tile on the tensor cores, shared by
-// the plain modes of painn_fwd.cu and painn_bwd.cu.
+// The PaiNN filter of one 8x8 pair tile on the tensor cores, shared by the
+// plain modes of painn_fwd.cu and painn_bwd.cu.
 //
-// Pair p = jl*8 + il of the tile is row p of its 64-row operands. The RBF is
-// kept transposed, phi_s [kRP][kPairs] ([r][p]: R RBF rows, a row of ones at
-// r = R, zeros below), and the filter weights as Wk_s [kRP][kF3] (Wk, bk at
-// row R, zeros below), both swizzled (mma_tf32.cuh), so that the bias rides
-// in the product:
-//   w_raw [64 x 3F] = [phi; 1]^T [Wk; bk]    K = R+1 padded to 24 (32 for R > 23)
+// Pair p = jl*8 + il of the tile is row p of its 64-row operands, and the
+// bias rides in the product:
+//   w [64 x 3F] = [phi; 1] [Wk; bk]    K = R+1 padded to 24 (32 for R > 23)
 // in 3xTF32 with mma.sync.m16n8k8, one 128-wide chunk c (q, r, m) at a time.
 // Warp (wm, wn) = (warp & 1, warp >> 1) owns pairs 32*wm.. and features
 // 32*wn.. of a chunk, so lane (g, t) holds pairs (jl = 4*wm + 2*mb + h,
 // il = g) and features 32*wn + 8*nb + 2*t + c: a sum over the pairs of one
 // row i is a sum over the lane's (mb, h) and the two warps wm.
+//
+// Two forms of the operands:
+// - swizzled matrices for warp_tile_mma (painn_bwd.cu, which also reads
+//   them transposed): the RBF transposed, phi_s [kRP][kPairs] ([r][p]: R RBF
+//   rows, a row of ones at r = R, zeros below), and Wk_s [kRP][kF3] (Wk, bk
+//   at row R, zeros below);
+// - fragment order (painn_fwd.cu, which reads each operand one way only):
+//   every lane's mma fragments stored contiguously, split into their TF32
+//   parts once, so that a warp loads a k step's fragments with 128-bit loads
+//   and splits nothing in its loop. The forward folds the gate into the A
+//   rows ([phi; 1] gate), so that the product is the gated filter.
 #pragma once
 
 #include "mma_tf32.cuh"
@@ -62,6 +70,8 @@ __device__ __forceinline__ void painn_phi_tile(const float* d_t, float* phi_s, i
   }
 }
 
+// -- swizzled form --------------------------------------------------------------
+
 // w_raw of chunk c (columns c*F..) for this warp's 32 pairs x 32 features;
 // kPrecise and kBLo as warp_tile_mma's.
 template <int K, bool kPrecise = false, int kBLo = 0>
@@ -75,6 +85,119 @@ __device__ __forceinline__ void filter_chunk_mma(float acc[2][4][4], const float
       for (int q = 0; q < 4; ++q) acc[mb][nb][q] = 0.f;
   warp_tile_mma<2, 4, K, true, false, false, kPrecise, kBLo>(acc, phi_s, kPairs, 32 * wm, Wk_s,
                                                              kF3, c * kF + 32 * wn);
+}
+
+// -- fragment order --------------------------------------------------------------
+//
+// B = [Wk; bk; 0]: WkF [3 chunks][4 wn][kKS k steps][4 nb][32 lanes] float4
+// {b0 hi, b1 hi, b0 lo, b1 lo}, b0 = B[8 ks + t][128 c + 32 wn + 8 nb + g],
+// b1 four rows below (mma.m16n8k8's B fragment). A = [phi; 1] gate of a
+// tile: a buffer holds the high parts [4 blocks of 16 pairs][kKS][32 lanes]
+// float4 {a0, a1, a2, a3}, then the low parts in the same order, with a0 =
+// A[16 blk + g][8 ks + t], a1 eight rows below, a2 and a3 four columns
+// right of them (the A fragment).
+
+constexpr int kKS = kRP / 8;                 // k steps, at most
+constexpr int kWkFFloats = 3 * 4 * kKS * 4 * 32 * 4;
+constexpr int kPhiFLo = 4 * kKS * 32 * 4;    // the low parts' offset in a phi buffer
+constexpr int kPhiFFloats = 2 * kPhiFLo;
+
+// Stages WkF (split_b: both parts rounded). Every thread of the block calls it.
+__device__ __forceinline__ void painn_stage_wkf(float* WkF, const float* __restrict__ wk,
+                                                const float* __restrict__ bk, int R) {
+  for (int e = threadIdx.x; e < kWkFFloats / 4; e += kThreads) {
+    const int lane = e & 31, nb = (e >> 5) & 3, ks = (e >> 7) % kKS, cw = (e >> 7) / kKS;
+    const int k0 = 8 * ks + (lane & 3), n = 32 * cw + 8 * nb + (lane >> 2);  // cw = 4 c + wn
+    float v[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int k = k0 + 4 * u;
+      v[u] = k < R ? wk[k * kF3 + n] : (k == R ? bk[n] : 0.f);
+    }
+    float4 f;
+    split_b(v[0], f.x, f.z);
+    split_b(v[1], f.y, f.w);
+    reinterpret_cast<float4*>(WkF)[e] = f;
+  }
+}
+
+// The A fragments [phi; 1] gate of a tile into phi buffer phiF, split into
+// their TF32 parts (split_tf32<kRound>; the plain split truncates). d_t and
+// g_t: the tile's distances and gates [il][jl]. KS k steps (K = 8 KS >= R+1).
+// Every thread of the block calls it.
+template <int KS, bool kRound>
+__device__ __forceinline__ void painn_phi_frags(const float* d_t, const float* g_t, float* phiF,
+                                                int R, float delta, float coeff) {
+  for (int e = threadIdx.x; e < 4 * KS * 32; e += kThreads) {
+    const int lane = e & 31, ks = (e >> 5) % KS, blk = (e >> 5) / KS;
+    const int g = lane >> 2, t = lane & 3;
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int p = 16 * blk + g + 8 * (q & 1), r = 8 * ks + t + 4 * (q >> 1);
+      const int at = (p & 7) * kTile + (p >> 3);
+      const float gp = g_t[at], diff = d_t[at] - delta * (float)r;
+      const float v = r < R ? gp * __expf(coeff * diff * diff) : (r == R ? gp : 0.f);
+      split_tf32<kRound>(__float_as_uint(v), hi[q], lo[q]);
+    }
+    const int at4 = (blk * kKS + ks) * 32 + lane;
+    reinterpret_cast<uint4*>(phiF)[at4] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    reinterpret_cast<uint4*>(phiF + kPhiFLo)[at4] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// This warp's A fragments of a tile (its 32 pairs, blocks 2 wm + mb), all KS
+// k steps: loaded once, read by the three chunks.
+template <int KS>
+__device__ __forceinline__ void painn_load_a(const float* phiF, int wm, uint32_t ah[KS][2][4],
+                                             uint32_t al[KS][2][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb) {
+      const int at4 = ((2 * wm + mb) * kKS + ks) * 32 + lane;
+      const uint4 h = reinterpret_cast<const uint4*>(phiF)[at4];
+      const uint4 l = reinterpret_cast<const uint4*>(phiF + kPhiFLo)[at4];
+      ah[ks][mb][0] = h.x, ah[ks][mb][1] = h.y, ah[ks][mb][2] = h.z, ah[ks][mb][3] = h.w;
+      al[ks][mb][0] = l.x, al[ks][mb][1] = l.y, al[ks][mb][2] = l.z, al[ks][mb][3] = l.w;
+    }
+}
+
+// k step ks of chunk c for this warp's 2 x 4 blocks: acc += A B over k =
+// 8 ks.., the three passes of 3xTF32 (mma_tf32.cuh); with kPrecise they are
+// summed apart and added to acc in f32.
+template <bool kPrecise>
+__device__ __forceinline__ void painn_kstep(float acc[2][4][4], const uint32_t ah[2][4],
+                                            const uint32_t al[2][4], const float* WkF, int c,
+                                            int wn, int ks) {
+  const int lane = threadIdx.x & 31;
+  const float4* src = reinterpret_cast<const float4*>(WkF) + ((c * 4 + wn) * kKS + ks) * 128 + lane;
+  uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb) {
+    const float4 v = src[32 * nb];
+    bh[nb][0] = __float_as_uint(v.x), bh[nb][1] = __float_as_uint(v.y);
+    bl[nb][0] = __float_as_uint(v.z), bl[nb][1] = __float_as_uint(v.w);
+  }
+  if (!kPrecise) {
+    mma_passes<2, 4>(acc, ah, al, bh, bl);
+    return;
+  }
+  float d[2][4][4];
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) d[mb][nb][q] = 0.f;
+  mma_passes<2, 4>(d, ah, al, bh, bl);
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mb][nb][q] += d[mb][nb][q];
 }
 
 }  // namespace geossl

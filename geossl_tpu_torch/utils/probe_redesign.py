@@ -53,15 +53,16 @@ VARIANTS = {
     "painn_fwd": {
         "precise": [("painn_fwd.cu", "constexpr bool kFwdPrecise = false;",
                      "constexpr bool kFwdPrecise = true;")],
-        "no_filter_mma": [("painn_mma.cuh",
-                           "  warp_tile_mma<2, 4, K, true, false, false, kPrecise, kBLo>(acc,",
-                           "  if (kBLo == 0) warp_tile_mma<2, 4, K, true, false, false, "
-                           "kPrecise, kBLo>(acc,")],
-        "serial_chunks": [("painn_fwd.cu",
-                           "      if (c < 2) filter(acc[(c + 1) & 1], phi_t, c + 1);",
-                           "      if (c > 0) filter(acc[c & 1], phi_t, c);")],
-        "dq_messages_only": [("painn_fwd.cu", "            if (c == 0) {\n              aq[nb][0]",
-                              "            if (c >= 0) {\n              aq[nb][0]")],
+        "no_filter_mma": [("painn_mma.cuh", "    mma_passes<2, 4>(acc, ah, al, bh, bl);\n    return;",
+                           "    return;")],
+        "batched_ksteps": [("painn_fwd.cu",
+                            "        if (c < 2 && grp < KS)\n"
+                            "          painn_kstep<kFwdPrecise>(wn1, ah[grp], al[grp], WkF, c + 1, wn, grp);",
+                            "        if (c < 2 && grp == 0)\n"
+                            "          for (int ks = 0; ks < KS; ++ks)\n"
+                            "            painn_kstep<kFwdPrecise>(wn1, ah[ks], al[ks], WkF, c + 1, wn, ks);")],
+        "dq_messages_only": [("painn_fwd.cu", "          if (c == 0) {\n            aq[nb][0]",
+                              "          if (c >= 0) {\n            aq[nb][0]")],
         "no_phi": [("painn_fwd.cu", "    if (k + 1 < t_end) make_phi(k + 1);", "    ;")],
     },
     "ncsn_score": {
@@ -239,12 +240,32 @@ def main():
                 print(f"ncsn_score_fwd {case} repeats bitwise: "
                       f"{torch.equal(got, nfwd(case)())}")
 
+    # the kernels beside them that share their sources: the symmetric PaiNN
+    # forward at the LBA shape, painn_bwd and the NCSN backward at DDM N=128
+    gen = torch.Generator(dev).manual_seed(SEED)
+    grids_l, x_l, mu_l, wk_l, bk_l, c_l = cases["LBA B=64 N=512"]
+    grids_d, x_d, mu_d, wk_d, bk_d, c_d = cases["DDM B=128 N=128"]
+    gq = torch.randn(x_d.shape[:2] + (x_d.shape[-1] // 3,), generator=gen, device=dev)
+    gmu = torch.randn(mu_d.shape, generator=gen, device=dev)
+    grid_n, weights_n, anneal_n = ncsn["DDM B=128 N=128"]
+    g_rows = torch.randn(grid_n[0].shape[:2], generator=gen, device=dev)
+    others = {
+        "painn_fwd_sym LBA B=64 N=512": lambda: P.painn_message_fused_sym(
+            *grids_l, x_l, mu_l, wk_l, bk_l, c_l, True),
+        "painn_bwd DDM B=128 N=128": lambda: P.painn_bwd(
+            *grids_d, x_d, mu_d, wk_d, bk_d, gq, gmu, c_d, True),
+        "ncsn_score_bwd DDM B=128 N=128": lambda: NS.ncsn_score_bwd(
+            *grid_n, g_rows, *weights_n, anneal=anneal_n)}
+
     def time_all(tag):
         with torch.no_grad():
             t = {f"painn_fwd {case}": CS.cuda_time_ms(fwd(case), reps=args.reps)
                  for case in cases}
             t.update({f"ncsn_score_fwd {case}": CS.cuda_time_ms(nfwd(case), reps=args.reps)
                       for case in ncsn})
+            if tag == "shipped":
+                t.update({name: CS.cuda_time_ms(fn, reps=args.reps)
+                          for name, fn in others.items()})
         print("probe_times: " + json.dumps({"tree": args.tag, "variant": tag, "ms": t}))
 
     time_all("shipped")
