@@ -77,21 +77,21 @@ constexpr int kFOffWk = 0;                           // WkF (painn_mma.cuh)
 constexpr int kFOffPhi = kFOffWk + kWkFFloats;       // [2] phi buffers, fragment order
 constexpr int kFOffX = kFOffPhi + 2 * kPhiFFloats;   // [2][2][8][kS3] x, mu rows of the j tile
 constexpr int kFOffPr = kFOffX + 4 * kTile * kS3;    // [3][5][64] dist, gate, dir x/y/z, [il][jl]
-constexpr int kFOffRed = kFOffPr + 3 * 5 * kPairs;   // [4][32][32] row sums of the warps wm = 1
-constexpr int kFwdFloats = kFOffRed + 4 * 32 * 32;
+constexpr int kFOffRed = kFOffPr + 3 * 5 * kPairs;   // [8][32][16] row sums of the warps wm = 1
+constexpr int kFwdFloats = kFOffRed + 8 * 32 * 16;
 
 // Block k runs items [first_item(k), first_item(k + 1)) of the tile list
 // (worklist.cuh: items (graph, 8-row i tile), each listing its j tiles), in
-// list order, i.e. listed tiles [pre[first], pre[last]). One barrier per
-// tile: the pair grids load two tiles ahead and the x/mu rows one tile ahead
-// (cp.async), and each tile's A fragments are made in the previous tile's
-// iteration (double buffer), so that the barrier that opens tile k finds
-// them, its rows and the next tile's grids in place. A warp loads its A
-// fragments once a tile; the k steps of chunk c + 1 are issued between the
-// four message groups of chunk c, so that the tensor cores and the CUDA
-// cores work at once. KS k steps: K = 8 KS >= R + 1.
+// list order, i.e. listed tiles [pre[first], pre[last]), with 16 warps
+// (painn_mma.cuh's fragment order). One barrier per tile: the pair grids
+// load two tiles ahead and the x/mu rows one tile ahead (cp.async), and each
+// tile's A fragments are made in the previous tile's iteration (double
+// buffer), so that the barrier that opens tile k finds them, its rows and
+// the next tile's grids in place. A warp loads its A fragments once a tile;
+// the k steps of chunk c + 1 are issued between the four message groups of
+// chunk c. KS k steps: K = 8 KS >= R + 1.
 template <int KS>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kFwdThreads, 1)
 painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
                      const float* __restrict__ dirx, const float* __restrict__ diry,
                      const float* __restrict__ dirz, const float* __restrict__ x,
@@ -117,7 +117,7 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     if (pre[item] != pre[item + 1]) continue;  // block-uniform
     const int b = item / nti, i0 = (item - b * nti) * kTile;
-    for (int idx = tid; idx < kTile * (kF + kF3) / 4; idx += kThreads) {
+    for (int idx = tid; idx < kTile * (kF + kF3) / 4; idx += kFwdThreads) {
       const bool m = idx >= kTile * kF / 4;
       const int c = m ? idx - kTile * kF / 4 : idx;
       const int w4 = m ? kF3 / 4 : kF / 4, r = c / w4, f = (c % w4) * 4, i = i0 + r;
@@ -139,7 +139,7 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
     const int v = list[k], item = v / ntj, pj = v - item * ntj, b = item / nti;
     const int i0 = (item - b * nti) * kTile, j0 = pj * kTile;
     float* dst = smem + kFOffPr + (k - t_begin) % 3 * 5 * kPairs;
-    for (int idx = tid; idx < 5 * kPairs; idx += kThreads) {
+    for (int idx = tid; idx < 5 * kPairs; idx += kFwdThreads) {
       const int q = idx / kPairs, p = idx % kPairs, i = i0 + (p >> 3), j = j0 + (p & 7);
       const bool in = i < ni && j < nj;
       cp_async4(dst + idx, grids[q] + (in ? ((size_t)b * ni + i) * nj + j : 0), in);
@@ -148,7 +148,7 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
   auto load_rows = [&](int k) {
     const int v = list[k], item = v / ntj, pj = v - item * ntj, b = item / nti, j0 = pj * kTile;
     float* dst = smem + kFOffX + (k - t_begin) % 2 * 2 * kTile * kS3;
-    for (int c = tid; c < 2 * kTile * kF3 / 4; c += kThreads) {
+    for (int c = tid; c < 2 * kTile * kF3 / 4; c += kFwdThreads) {
       const int side = c / (kTile * kF3 / 4), r = (c / (kF3 / 4)) % kTile;
       const int f = (c % (kF3 / 4)) * 4, j = j0 + r;
       cp_async16(dst + (side * kTile + r) * kS3 + f,
@@ -163,22 +163,22 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
                                      delta, coeff);
   };
 
-  // this lane's share of row il = g of the current item, columns 32*wn +
+  // this lane's share of row il = g of the current item, columns 16*wn +
   // 8*nb + 2*t + c of dq and of each dmu channel, summed over this warp's
   // four jl of every tile of the item
-  float aq[4][2], am[3][4][2];
+  float aq[2][2], am[3][2][2];
 #pragma unroll
-  for (int nb = 0; nb < 4; ++nb)
+  for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
     for (int c = 0; c < 2; ++c) aq[nb][c] = am[0][nb][c] = am[1][nb][c] = am[2][nb][c] = 0.f;
   int cur = list[t_begin] / ntj;  // the item whose rows the sums hold
   // writes the rows of item `cur` (warps wm = 1 hand their sums to wm = 0
   // through red_s) and zeroes the sums; every thread calls it
   auto flush = [&]() {
-    float* red = red_s + (wn * 32 + lane) * 32;
+    float* red = red_s + (wn * 32 + lane) * 16;
     if (wm == 1) {
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
+      for (int nb = 0; nb < 2; ++nb) {
         st4(red + 8 * nb, aq[nb][0], aq[nb][1], am[0][nb][0], am[0][nb][1]);
         st4(red + 8 * nb + 4, am[1][nb][0], am[1][nb][1], am[2][nb][0], am[2][nb][1]);
       }
@@ -186,10 +186,10 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
     __syncthreads();
     const int b = cur / nti, i = (cur - b * nti) * kTile + g;
     if (wm == 0 && i < ni) {
-      float* q_row = dq + ((size_t)b * ni + i) * kF + 32 * wn + 2 * t;
-      float* m_row = dmu + ((size_t)b * ni + i) * kF3 + 32 * wn + 2 * t;
+      float* q_row = dq + ((size_t)b * ni + i) * kF + 16 * wn + 2 * t;
+      float* m_row = dmu + ((size_t)b * ni + i) * kF3 + 16 * wn + 2 * t;
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
+      for (int nb = 0; nb < 2; ++nb) {
         const float4 r0 = ld4(red + 8 * nb), r1 = ld4(red + 8 * nb + 4);
         *reinterpret_cast<float2*>(q_row + 8 * nb) =
             make_float2(aq[nb][0] + r0.x, aq[nb][1] + r0.y);
@@ -202,7 +202,7 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
       }
     }
 #pragma unroll
-    for (int nb = 0; nb < 4; ++nb)
+    for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
       for (int c = 0; c < 2; ++c) aq[nb][c] = am[0][nb][c] = am[1][nb][c] = am[2][nb][c] = 0.f;
   };
@@ -235,13 +235,13 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
     painn_load_a<KS>(smem + kFOffPhi + (q & 1) * kPhiFFloats, wm, ah, al);
 
     // the gated filter of chunk c in acc[c & 1]
-    float acc[2][2][4][4];
+    float acc[2][2][2][4];
 #pragma unroll
     for (int a = 0; a < 2; ++a)
 #pragma unroll
       for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
-        for (int nb = 0; nb < 4; ++nb)
+        for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
           for (int u = 0; u < 4; ++u) acc[a][mb][nb][u] = 0.f;
 #pragma unroll
@@ -249,22 +249,22 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
       painn_kstep<kFwdPrecise>(acc[0], ah[ks], al[ks], WkF, 0, wn, ks);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      float(*w)[4][4] = acc[c & 1];
-      float(*wn1)[4][4] = acc[(c + 1) & 1];
+      float(*w)[2][4] = acc[c & 1];
+      float(*wn1)[2][4] = acc[(c + 1) & 1];
 #pragma unroll
       for (int grp = 0; grp < 4; ++grp) {
         // a k step of chunk c + 1 before each message group of chunk c
         if (c < 2 && grp < KS)
           painn_kstep<kFwdPrecise>(wn1, ah[grp], al[grp], WkF, c + 1, wn, grp);
         const int mb = grp >> 1, h = grp & 1, jl = 4 * wm + 2 * mb + h, at = g * kTile + jl;
-        const float* xr = xj + jl * kS3 + c * kF + 32 * wn + 2 * t;
+        const float* xr = xj + jl * kS3 + c * kF + 16 * wn + 2 * t;
         float dc[3];
         if (c == 1) {
 #pragma unroll
           for (int cc = 0; cc < 3; ++cc) dc[cc] = pr[(2 + cc) * kPairs + at];
         }
 #pragma unroll
-        for (int nb = 0; nb < 4; ++nb) {
+        for (int nb = 0; nb < 2; ++nb) {
           const float2 xv = *reinterpret_cast<const float2*>(xr + 8 * nb);
           const float w0 = w[mb][nb][2 * h], w1 = w[mb][nb][2 * h + 1];
           if (c == 0) {
@@ -277,7 +277,7 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
           for (int cc = 0; cc < 3; ++cc) {
             const float2 s = c == 1 ? make_float2(dc[cc], dc[cc])
                                     : *reinterpret_cast<const float2*>(
-                                          muj + jl * kS3 + cc * kF + 32 * wn + 2 * t + 8 * nb);
+                                          muj + jl * kS3 + cc * kF + 16 * wn + 2 * t + 8 * nb);
             am[cc][nb][0] = fmaf(wx0, s.x, am[cc][nb][0]);
             am[cc][nb][1] = fmaf(wx1, s.y, am[cc][nb][1]);
           }
@@ -287,7 +287,7 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
 #pragma unroll
         for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
-          for (int nb = 0; nb < 4; ++nb)
+          for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
             for (int u = 0; u < 4; ++u) w[mb][nb][u] = 0.f;
       }
@@ -467,8 +467,8 @@ extern "C" int painn_fwd(const float* dist, const float* gate, const float* dirx
   auto kernel = R < 24 ? painn_fwd_mma_kernel<3> : painn_fwd_mma_kernel<kKS>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<persistent_blocks(items), kThreads, smem, s>>>(dist, gate, dirx, diry, dirz, x, mu, wk,
-                                                          bk, dq, dmu, pre, list, B, ni, nj, R,
-                                                          delta, coeff);
+  kernel<<<persistent_blocks(items), kFwdThreads, smem, s>>>(dist, gate, dirx, diry, dirz, x, mu,
+                                                             wk, bk, dq, dmu, pre, list, B, ni,
+                                                             nj, R, delta, coeff);
   return (int)cudaGetLastError();
 }

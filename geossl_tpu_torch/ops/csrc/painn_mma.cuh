@@ -5,21 +5,22 @@
 // bias rides in the product:
 //   w [64 x 3F] = [phi; 1] [Wk; bk]    K = R+1 padded to 24 (32 for R > 23)
 // in 3xTF32 with mma.sync.m16n8k8, one 128-wide chunk c (q, r, m) at a time.
-// Warp (wm, wn) = (warp & 1, warp >> 1) owns pairs 32*wm.. and features
-// 32*wn.. of a chunk, so lane (g, t) holds pairs (jl = 4*wm + 2*mb + h,
-// il = g) and features 32*wn + 8*nb + 2*t + c: a sum over the pairs of one
-// row i is a sum over the lane's (mb, h) and the two warps wm.
+// Warp (wm, wn) = (warp & 1, warp >> 1) owns pairs 32*wm.. of the tile and a
+// band of features of the chunk (32*wn.. with 8 warps, 16*wn.. with 16), so
+// lane (g, t) holds pairs (jl = 4*wm + 2*mb + h, il = g): a sum over the
+// pairs of one row i is a sum over the lane's (mb, h) and the two warps wm.
 //
 // Two forms of the operands:
 // - swizzled matrices for warp_tile_mma (painn_bwd.cu, which also reads
 //   them transposed): the RBF transposed, phi_s [kRP][kPairs] ([r][p]: R RBF
 //   rows, a row of ones at r = R, zeros below), and Wk_s [kRP][kF3] (Wk, bk
 //   at row R, zeros below);
-// - fragment order (painn_fwd.cu, which reads each operand one way only):
-//   every lane's mma fragments stored contiguously, split into their TF32
-//   parts once, so that a warp loads a k step's fragments with 128-bit loads
-//   and splits nothing in its loop. The forward folds the gate into the A
-//   rows ([phi; 1] gate), so that the product is the gated filter.
+// - fragment order (painn_fwd.cu, which reads each operand one way only, 16
+//   warps a block): every lane's mma fragments stored contiguously, split
+//   into their TF32 parts once, so that a warp loads a k step's fragments
+//   with 128-bit loads and splits nothing in its loop. The forward folds the
+//   gate into the A rows ([phi; 1] gate), so that the product is the gated
+//   filter.
 #pragma once
 
 #include "mma_tf32.cuh"
@@ -70,7 +71,7 @@ __device__ __forceinline__ void painn_phi_tile(const float* d_t, float* phi_s, i
   }
 }
 
-// -- swizzled form --------------------------------------------------------------
+// -- swizzled form (8 warps) ------------------------------------------------------
 
 // w_raw of chunk c (columns c*F..) for this warp's 32 pairs x 32 features;
 // kPrecise and kBLo as warp_tile_mma's.
@@ -89,25 +90,31 @@ __device__ __forceinline__ void filter_chunk_mma(float acc[2][4][4], const float
 
 // -- fragment order --------------------------------------------------------------
 //
-// B = [Wk; bk; 0]: WkF [3 chunks][4 wn][kKS k steps][4 nb][32 lanes] float4
-// {b0 hi, b1 hi, b0 lo, b1 lo}, b0 = B[8 ks + t][128 c + 32 wn + 8 nb + g],
-// b1 four rows below (mma.m16n8k8's B fragment). A = [phi; 1] gate of a
-// tile: a buffer holds the high parts [4 blocks of 16 pairs][kKS][32 lanes]
+// For a block of kFwdThreads threads, 16 warps (wm, wn) = (warp & 1,
+// warp >> 1): pairs 32*wm.. and features 16*wn.. of a chunk, so that lane
+// (g, t) holds pairs (jl = 4*wm + 2*mb + h, il = g) and features 16*wn +
+// 8*nb + 2*t + c (mb, nb, h, c < 2).
+//
+// B = [Wk; bk; 0]: WkF [3 chunks][16 groups of 8 features][kKS k steps][32
+// lanes] float4 {b0 hi, b1 hi, b0 lo, b1 lo}, b0 = B[8 ks + t][128 c + 8 grp
+// + g], b1 four rows below (mma.m16n8k8's B fragment). A = [phi; 1] gate of
+// a tile: a buffer holds the high parts [4 blocks of 16 pairs][kKS][32 lanes]
 // float4 {a0, a1, a2, a3}, then the low parts in the same order, with a0 =
-// A[16 blk + g][8 ks + t], a1 eight rows below, a2 and a3 four columns
-// right of them (the A fragment).
+// A[16 blk + g][8 ks + t], a1 eight rows below, a2 and a3 four columns right
+// of them (the A fragment).
 
+constexpr int kFwdThreads = 512;
 constexpr int kKS = kRP / 8;                 // k steps, at most
-constexpr int kWkFFloats = 3 * 4 * kKS * 4 * 32 * 4;
+constexpr int kWkFFloats = 3 * 16 * kKS * 32 * 4;
 constexpr int kPhiFLo = 4 * kKS * 32 * 4;    // the low parts' offset in a phi buffer
 constexpr int kPhiFFloats = 2 * kPhiFLo;
 
 // Stages WkF (split_b: both parts rounded). Every thread of the block calls it.
 __device__ __forceinline__ void painn_stage_wkf(float* WkF, const float* __restrict__ wk,
                                                 const float* __restrict__ bk, int R) {
-  for (int e = threadIdx.x; e < kWkFFloats / 4; e += kThreads) {
-    const int lane = e & 31, nb = (e >> 5) & 3, ks = (e >> 7) % kKS, cw = (e >> 7) / kKS;
-    const int k0 = 8 * ks + (lane & 3), n = 32 * cw + 8 * nb + (lane >> 2);  // cw = 4 c + wn
+  for (int e = threadIdx.x; e < kWkFFloats / 4; e += kFwdThreads) {
+    const int lane = e & 31, ks = (e >> 5) % kKS, cg = (e >> 5) / kKS;  // cg = 16 c + grp
+    const int k0 = 8 * ks + (lane & 3), n = 8 * cg + (lane >> 2);
     float v[2];
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
@@ -128,7 +135,7 @@ __device__ __forceinline__ void painn_stage_wkf(float* WkF, const float* __restr
 template <int KS, bool kRound>
 __device__ __forceinline__ void painn_phi_frags(const float* d_t, const float* g_t, float* phiF,
                                                 int R, float delta, float coeff) {
-  for (int e = threadIdx.x; e < 4 * KS * 32; e += kThreads) {
+  for (int e = threadIdx.x; e < 4 * KS * 32; e += kFwdThreads) {
     const int lane = e & 31, ks = (e >> 5) % KS, blk = (e >> 5) / KS;
     const int g = lane >> 2, t = lane & 3;
     uint32_t hi[4], lo[4];
@@ -164,38 +171,38 @@ __device__ __forceinline__ void painn_load_a(const float* phiF, int wm, uint32_t
     }
 }
 
-// k step ks of chunk c for this warp's 2 x 4 blocks: acc += A B over k =
+// k step ks of chunk c for this warp's 2 x 2 blocks: acc += A B over k =
 // 8 ks.., the three passes of 3xTF32 (mma_tf32.cuh); with kPrecise they are
 // summed apart and added to acc in f32.
 template <bool kPrecise>
-__device__ __forceinline__ void painn_kstep(float acc[2][4][4], const uint32_t ah[2][4],
+__device__ __forceinline__ void painn_kstep(float acc[2][2][4], const uint32_t ah[2][4],
                                             const uint32_t al[2][4], const float* WkF, int c,
                                             int wn, int ks) {
   const int lane = threadIdx.x & 31;
-  const float4* src = reinterpret_cast<const float4*>(WkF) + ((c * 4 + wn) * kKS + ks) * 128 + lane;
-  uint32_t bh[4][2], bl[4][2];
+  uint32_t bh[2][2], bl[2][2];
 #pragma unroll
-  for (int nb = 0; nb < 4; ++nb) {
-    const float4 v = src[32 * nb];
+  for (int nb = 0; nb < 2; ++nb) {
+    const float4 v = reinterpret_cast<const float4*>(
+        WkF)[((16 * c + 2 * wn + nb) * kKS + ks) * 32 + lane];
     bh[nb][0] = __float_as_uint(v.x), bh[nb][1] = __float_as_uint(v.y);
     bl[nb][0] = __float_as_uint(v.z), bl[nb][1] = __float_as_uint(v.w);
   }
   if (!kPrecise) {
-    mma_passes<2, 4>(acc, ah, al, bh, bl);
+    mma_passes<2, 2>(acc, ah, al, bh, bl);
     return;
   }
-  float d[2][4][4];
+  float d[2][2][4];
 #pragma unroll
   for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
-    for (int nb = 0; nb < 4; ++nb)
+    for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
       for (int q = 0; q < 4; ++q) d[mb][nb][q] = 0.f;
-  mma_passes<2, 4>(d, ah, al, bh, bl);
+  mma_passes<2, 2>(d, ah, al, bh, bl);
 #pragma unroll
   for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
-    for (int nb = 0; nb < 4; ++nb)
+    for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[mb][nb][q] += d[mb][nb][q];
 }

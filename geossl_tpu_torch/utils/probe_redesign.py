@@ -53,7 +53,7 @@ VARIANTS = {
     "painn_fwd": {
         "precise": [("painn_fwd.cu", "constexpr bool kFwdPrecise = false;",
                      "constexpr bool kFwdPrecise = true;")],
-        "no_filter_mma": [("painn_mma.cuh", "    mma_passes<2, 4>(acc, ah, al, bh, bl);\n    return;",
+        "no_filter_mma": [("painn_mma.cuh", "    mma_passes<2, 2>(acc, ah, al, bh, bl);\n    return;",
                            "    return;")],
         "batched_ksteps": [("painn_fwd.cu",
                             "        if (c < 2 && grp < KS)\n"
