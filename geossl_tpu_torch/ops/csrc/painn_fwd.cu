@@ -112,12 +112,20 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
   const int n_items = B * nti;
   const float* grids[5] = {dist, gate, dirx, diry, dirz};
 
-  // the rows of items with no listed tile hold zero (any block may write
-  // them: no other block does)
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    if (pre[item] != pre[item + 1]) continue;  // block-uniform
+  __shared__ int run_s[2];  // the first listed tiles of this block's run and the next one's
+
+  // warps 0 and 1 find the run; every warp writes zero to the rows of its
+  // items with no listed tile (any block may write them: no other block
+  // does), one item a warp at a time
+  if (warp < 2) {
+    const int it = first_item_warp(pre, n_items, gridDim.x, blockIdx.x + warp);
+    if (lane == 0) run_s[warp] = pre[it];
+  }
+  for (int item = blockIdx.x + gridDim.x * warp; item < n_items;
+       item += gridDim.x * (kFwdThreads / 32)) {
+    if (pre[item] != pre[item + 1]) continue;  // warp-uniform
     const int b = item / nti, i0 = (item - b * nti) * kTile;
-    for (int idx = tid; idx < kTile * (kF + kF3) / 4; idx += kFwdThreads) {
+    for (int idx = lane; idx < kTile * (kF + kF3) / 4; idx += 32) {
       const bool m = idx >= kTile * kF / 4;
       const int c = m ? idx - kTile * kF / 4 : idx;
       const int w4 = m ? kF3 / 4 : kF / 4, r = c / w4, f = (c % w4) * 4, i = i0 + r;
@@ -126,28 +134,28 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
             make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
-  const int t_begin = pre[first_item(pre, n_items, gridDim.x, blockIdx.x)];
-  const int t_end = pre[first_item(pre, n_items, gridDim.x, blockIdx.x + 1)];
+  __syncthreads();
+  const int t_begin = run_s[0], t_end = run_s[1];
   if (t_begin >= t_end) return;  // block-uniform: no listed tile
 
   painn_stage_wkf(smem + kFOffWk, wk, bk, R);
 
-  // the cp.async loads of listed tile k: its five pair grids into buffer
-  // (k - t_begin) % 3, the x and mu rows of its j tile into buffer
-  // (k - t_begin) & 1 (16-byte pieces); the caller commits
-  auto load_grids = [&](int k) {
-    const int v = list[k], item = v / ntj, pj = v - item * ntj, b = item / nti;
+  // the cp.async loads of the tile with list entry v: its five pair grids
+  // into grid buffer buf, the x and mu rows of its j tile into row buffer
+  // buf (16-byte pieces); the caller commits
+  auto load_grids = [&](int v, int buf) {
+    const int item = v / ntj, pj = v - item * ntj, b = item / nti;
     const int i0 = (item - b * nti) * kTile, j0 = pj * kTile;
-    float* dst = smem + kFOffPr + (k - t_begin) % 3 * 5 * kPairs;
+    float* dst = smem + kFOffPr + buf * 5 * kPairs;
     for (int idx = tid; idx < 5 * kPairs; idx += kFwdThreads) {
       const int q = idx / kPairs, p = idx % kPairs, i = i0 + (p >> 3), j = j0 + (p & 7);
       const bool in = i < ni && j < nj;
       cp_async4(dst + idx, grids[q] + (in ? ((size_t)b * ni + i) * nj + j : 0), in);
     }
   };
-  auto load_rows = [&](int k) {
-    const int v = list[k], item = v / ntj, pj = v - item * ntj, b = item / nti, j0 = pj * kTile;
-    float* dst = smem + kFOffX + (k - t_begin) % 2 * 2 * kTile * kS3;
+  auto load_rows = [&](int v, int buf) {
+    const int item = v / ntj, pj = v - item * ntj, b = item / nti, j0 = pj * kTile;
+    float* dst = smem + kFOffX + buf * 2 * kTile * kS3;
     for (int c = tid; c < 2 * kTile * kF3 / 4; c += kFwdThreads) {
       const int side = c / (kTile * kF3 / 4), r = (c / (kF3 / 4)) % kTile;
       const int f = (c % (kF3 / 4)) * 4, j = j0 + r;
@@ -155,11 +163,11 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
                  (side ? mu : x) + (j < nj ? ((size_t)b * nj + j) * kF3 + f : 0), j < nj);
     }
   };
-  // the A fragments of listed tile k into phi buffer (k - t_begin) & 1
-  auto make_phi = [&](int k) {
-    const float* pr = smem + kFOffPr + (k - t_begin) % 3 * 5 * kPairs;
-    painn_phi_frags<KS, kFwdPrecise>(pr, pr + kPairs,
-                                     smem + kFOffPhi + (k - t_begin) % 2 * kPhiFFloats, R,
+  // the A fragments of the q-th tile of the run (its grids in buffer q %
+  // 3) into phi buffer q & 1
+  auto make_phi = [&](int q) {
+    const float* pr = smem + kFOffPr + q % 3 * 5 * kPairs;
+    painn_phi_frags<KS, kFwdPrecise>(pr, pr + kPairs, smem + kFOffPhi + (q & 1) * kPhiFFloats, R,
                                      delta, coeff);
   };
 
@@ -171,7 +179,10 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
   for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
     for (int c = 0; c < 2; ++c) aq[nb][c] = am[0][nb][c] = am[1][nb][c] = am[2][nb][c] = 0.f;
-  int cur = list[t_begin] / ntj;  // the item whose rows the sums hold
+  // the list entries of tiles k .. k + 2, read a tile ahead of their use
+  int v0 = list[t_begin], v1 = t_begin + 1 < t_end ? list[t_begin + 1] : 0;
+  int v2 = t_begin + 2 < t_end ? list[t_begin + 2] : 0;
+  int cur = v0 / ntj;  // the item whose rows the sums hold
   // writes the rows of item `cur` (warps wm = 1 hand their sums to wm = 0
   // through red_s) and zeroes the sums; every thread calls it
   auto flush = [&]() {
@@ -209,20 +220,21 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
 
   // prologue: the grids of the first two tiles and the rows of the first,
   // then the first tile's A fragments
-  load_grids(t_begin);
-  if (t_begin + 1 < t_end) load_grids(t_begin + 1);
-  load_rows(t_begin);
+  load_grids(v0, 0);
+  if (t_begin + 1 < t_end) load_grids(v1, 1);
+  load_rows(v0, 0);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  make_phi(t_begin);
+  make_phi(0);
   for (int k = t_begin; k < t_end; ++k) {
-    const int item = list[k] / ntj, q = k - t_begin;
+    const int item = v0 / ntj, q = k - t_begin;
+    const int v3 = k + 3 < t_end ? list[k + 3] : 0;  // used in the next iteration
     cp_async_wait<0>();
     __syncthreads();  // tile k's A fragments and rows, tile k + 1's grids (and
                       // WkF) are in place; every warp is done with tile k - 1
-    if (k + 2 < t_end) load_grids(k + 2);
-    if (k + 1 < t_end) load_rows(k + 1);
+    if (k + 2 < t_end) load_grids(v2, (q + 2) % 3);
+    if (k + 1 < t_end) load_rows(v1, (q + 1) & 1);
     cp_async_commit();
     if (item != cur) {  // block-uniform: the run moves to the next item
       flush();
@@ -292,7 +304,10 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
             for (int u = 0; u < 4; ++u) w[mb][nb][u] = 0.f;
       }
     }
-    if (k + 1 < t_end) make_phi(k + 1);  // its grids landed before this tile's barrier
+    if (k + 1 < t_end) make_phi(q + 1);  // its grids landed before this tile's barrier
+    v0 = v1;
+    v1 = v2;
+    v2 = v3;
   }
   flush();
 }

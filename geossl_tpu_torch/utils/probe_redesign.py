@@ -69,10 +69,11 @@ VARIANTS = {
         "precise": [("ncsn_score.cu", "constexpr bool kFwdPrecise = false;",
                      "constexpr bool kFwdPrecise = true;")],
         "no_product": [("ncsn_score.cu",
-                        "  warp_tile_mma<1, 4, kE, false, false, false, kPrecise, kW2Lo>(p2,",
-                        "  if (kPrecise) warp_tile_mma<1, 4, kE, false, false, false, kPrecise, "
-                        "kW2Lo>(p2,")],
-        "no_l1": [("ncsn_score.cu", "    head_l1(smem, buf, sig, bd2);\n    __syncthreads();  // l1_s",
+                        "  warp_tile_mma<1, NB, kE, false, false, false, kPrecise, kW2Lo>(\n",
+                        "  if (kPrecise) warp_tile_mma<1, NB, kE, false, false, false, kPrecise, "
+                        "kW2Lo>(\n")],
+        "no_l1": [("ncsn_score.cu",
+                   "    head_l1<kFwdThreads>(smem, buf, sig, bd2);\n    __syncthreads();  // l1_s",
                    "    __syncthreads();  // l1_s")],
     },
 }
