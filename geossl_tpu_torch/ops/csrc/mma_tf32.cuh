@@ -117,13 +117,10 @@ __device__ __forceinline__ void mma_passes(float c[MB][NB][4], const uint32_t ah
 // products read): its TF32 high parts at B and the low parts kBLo floats
 // further, in the same layout, so that a k step loads B's fragments and
 // does not split them.
-//
-// nb0 (scalar B loads only): the warp's columns start at n0 + 8 nb0 with n0
-// a multiple of 32 and nb0 + NB <= 4, for a band of 8 or 16 columns.
 template <int MB, int NB, int K, bool kTA, bool kTB, bool kBOuter = false, bool kPrecise = false,
           int kBLo = 0>
 __device__ __forceinline__ void warp_tile_mma(float c[MB][NB][4], const float* A, int lda, int m0,
-                                              const float* B, int ldb, int n0, int nb0 = 0) {
+                                              const float* B, int ldb, int n0) {
   static_assert(K % 8 == 0, "K is a multiple of 8");
   static_assert(!kTB || NB % 2 == 0, "ldmatrix B needs pairs of n blocks");
   static_assert(kTB || NB <= 4, "scalar B loads cover 32 columns");
@@ -152,7 +149,7 @@ __device__ __forceinline__ void warp_tile_mma(float c[MB][NB][4], const float* A
     for (int q = 0; q < 4; ++q) split_tf32<kPrecise>(v[q], ah[q], al[q]);
   };
   auto load_b = [&](int nb, int k0, uint32_t bh[2], uint32_t bl[2]) {
-    const float* p = B + k0 * ldb + b_l + ((8 * (nb + nb0)) ^ t8);
+    const float* p = B + k0 * ldb + b_l + ((8 * nb) ^ t8);
     if (kBLo) {
       bh[0] = __float_as_uint(p[0]);
       bh[1] = __float_as_uint(p[b_u]);

@@ -96,12 +96,12 @@ constexpr int kHOffGi = kHOffGrid + 6 * kPairs;     // [2][8] the row cotangents
 constexpr int kHOffVec = kHOffGi + 2 * kTile + 4;   // wd1, bd1, wd2, wod, bod [kE]; b2, w3 [kH]
 // per pair: dp [2][64], ddemb's four column-warp partials [2][64][4] (double:
 // the backward's distance MLP of a tile runs in the next tile's iteration),
-// demb [64], sr [4][64] (the score's partial sums over 2 or 4 column bands)
+// demb [64], sr [2][64]
 constexpr int kHOffPair = kHOffVec + 5 * kE + 2 * kH;
 constexpr int kHOffDde = kHOffPair + 2 * kPairs;
 constexpr int kHOffDemb = kHOffDde + 8 * kPairs;
 constexpr int kHOffSr = kHOffDemb + kPairs;
-constexpr int kHeadFloats = kHOffSr + 4 * kPairs;
+constexpr int kHeadFloats = kHOffSr + 2 * kPairs;
 // The per-tile du partials: the j side of every listed tile (its 8 rows j
 // summed over the tile's rows i), the i side of every (block, item) segment
 // of the runs (8 rows i summed over the segment's tiles), in two halves.
@@ -109,13 +109,12 @@ constexpr int kTileRows = kTile * kE;  // floats of one 8-row partial
 
 // W2 split once into its TF32 parts (the B operand of l1 W2 and of the
 // backward's dx2 W2^T) and the head's vectors, into shared memory. Every
-// thread of the block (NT threads) calls it.
-template <int NT>
+// thread of the block calls it.
 __device__ __forceinline__ void stage_head(const HeadWeights& W, float* smem) {
   const int tid = threadIdx.x;
   float* W2_s = smem + kHOffW2;
   float* vec = smem + kHOffVec;
-  for (int c = tid; c < kE * kH / 4; c += NT) {
+  for (int c = tid; c < kE * kH / 4; c += kThreads) {
     const int r = c / (kH / 4), f = (c % (kH / 4)) * 4;
     const float4 w = *reinterpret_cast<const float4*>(W.w2 + r * kH + f);
     float4 hi, lo;
@@ -141,8 +140,8 @@ __device__ __forceinline__ void stage_head(const HeadWeights& W, float* smem) {
 
 // Issues the cp.async loads of listed tile v into buffer buf: dist, noise,
 // sel, sigma, with kGrows the row cotangents, and the u rows of its j and i
-// tiles; commits them as one group. NT threads call it.
-template <bool kGrows, int NT>
+// tiles; commits them as one group.
+template <bool kGrows>
 __device__ __forceinline__ void head_load_tile(float* smem, int v, int buf, int nt, int n,
                                                const float* __restrict__ dist,
                                                const float* __restrict__ noise,
@@ -166,7 +165,7 @@ __device__ __forceinline__ void head_load_tile(float* smem, int v, int buf, int 
   } else if (tid == 3 * kPairs + kTile) {
     cp_async4(smem + kHOffGi + 2 * kTile + buf, sigma + b, true);
   }
-  for (int c = tid; c < 2 * kTile * kE / 4; c += NT) {
+  for (int c = tid; c < 2 * kTile * kE / 4; c += kThreads) {
     const int side = c / (kTile * kE / 4), r = (c / (kE / 4)) % kTile;
     const int f = (c % (kE / 4)) * 4, a = (side ? i0 : j0) + r;
     cp_async16(smem + kHOffU + ((2 * buf + side) * kTile + r) * kBS + f,
@@ -175,15 +174,12 @@ __device__ __forceinline__ void head_load_tile(float* smem, int v, int buf, int 
   cp_async_commit();
 }
 
-// Step 1 of a tile in buffer buf, by a block of NT threads: dp and demb
-// (TPP = NT/64 threads per pair, features 4*(q + TPP m) + c) into dp_s[buf]
-// and demb_s, then l1 = relu(u_i + u_j + demb w_od + b_od) into l1_s (warp
-// w: pairs p = jl*8 + w % 8 of its share of the jl, lane: features
-// 4*lane..). Every thread calls it; it holds one barrier, and l1_s is
-// complete at the caller's next one.
-template <int NT>
+// Step 1 of a tile in buffer buf: dp and demb (four threads per pair,
+// features 4*(q + 4m) + c) into dp_s[buf] and demb_s, then l1 = relu(u_i +
+// u_j + demb w_od + b_od) into l1_s (warp w: pairs p = jl*8 + w, lane:
+// features 4*lane..). Every thread calls it; it holds one barrier, and l1_s
+// is complete at the caller's next one.
 __device__ __forceinline__ void head_l1(float* smem, int buf, float sig, float bd2) {
-  constexpr int kTPP = NT / kPairs, kJL = kTile * 256 / NT;  // jl per warp
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const float* d_t = smem + kHOffGrid + 3 * buf * kPairs;  // [il][jl]
   const float* nz_t = d_t + kPairs;
@@ -196,20 +192,20 @@ __device__ __forceinline__ void head_l1(float* smem, int buf, float sig, float b
   const float* bod_s = wod_s + kE;
   float* demb_s = smem + kHOffDemb;
   {
-    const int p = tid / kTPP, q = tid % kTPP, at = (p & 7) * kTile + (p >> 3);
+    const int p = tid >> 2, q = tid & 3, at = (p & 7) * kTile + (p >> 3);
     const float dp = fmaf(nz_t[at], sig, d_t[at]);
     float s = 0.f;
 #pragma unroll
-    for (int m = 0; m < kE / (4 * kTPP); ++m) {
-      const int e = 4 * (q + kTPP * m);
+    for (int m = 0; m < kE / 16; ++m) {
+      const int e = 4 * (q + 4 * m);
       const float4 w1 = ld4(wd1_s + e), b1 = ld4(bd1_s + e), w2 = ld4(wd2_s + e);
       s = fmaf(fmaxf(fmaf(dp, w1.x, b1.x), 0.f), w2.x, s);
       s = fmaf(fmaxf(fmaf(dp, w1.y, b1.y), 0.f), w2.y, s);
       s = fmaf(fmaxf(fmaf(dp, w1.z, b1.z), 0.f), w2.z, s);
       s = fmaf(fmaxf(fmaf(dp, w1.w, b1.w), 0.f), w2.w, s);
     }
-#pragma unroll
-    for (int off = 1; off < kTPP; off <<= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
     if (q == 0) {
       smem[kHOffPair + buf * kPairs + p] = dp;
       demb_s[p] = s + bd2;
@@ -219,11 +215,10 @@ __device__ __forceinline__ void head_l1(float* smem, int buf, float sig, float b
   {
     float* l1_s = smem + kHOffL1;
     const int e = 4 * lane;
-    const int il = warp & 7, j0 = (warp >> 3) * kJL;
-    const float4 a = ld4(ui_t + il * kBS + e), wo = ld4(wod_s + e), bo = ld4(bod_s + e);
+    const float4 a = ld4(ui_t + warp * kBS + e), wo = ld4(wod_s + e), bo = ld4(bod_s + e);
 #pragma unroll 4
-    for (int jl = j0; jl < j0 + kJL; ++jl) {
-      const int p = jl * kTile + il;
+    for (int jl = 0; jl < kTile; ++jl) {
+      const int p = jl * kTile + warp;
       const float4 bj = ld4(uj_t + jl * kBS + e);
       const float de = demb_s[p];
       *reinterpret_cast<float4*>(l1_s + swz_at(kE, p, e)) =
@@ -235,30 +230,29 @@ __device__ __forceinline__ void head_l1(float* smem, int buf, float sig, float b
   }
 }
 
-// Step 2, by a block of NT threads: pre2 = l1 W2 + b2 into p2 on the tensor
-// cores (3xTF32; kPrecise as warp_tile_mma's): warp (wq, wh) = (warp & 3,
-// warp >> 2) owns rows 16*wq.. and columns 8*NB*wh.. of the 64 x H product
-// (NB = 4 with 8 warps, 2 with 16); the score's partial sums relu(pre2) w3
-// over the warp's columns go to sr_s[wh][p]. l1_s must be complete.
-template <bool kPrecise, int NT, int NB = 1024 / NT>
-__device__ __forceinline__ void head_pre2(float p2[1][NB][4], float* smem) {
+// Step 2: pre2 = l1 W2 + b2 into p2 on the tensor cores (3xTF32; kPrecise
+// as warp_tile_mma's): warp (wq, wh) = (warp & 3, warp >> 2) owns rows
+// 16*wq.. and columns 32*wh.. of the 64 x H product; the score's partial
+// sums relu(pre2) w3 over the warp's columns go to sr_s[wh][p]. l1_s must be
+// complete.
+template <bool kPrecise>
+__device__ __forceinline__ void head_pre2(float p2[1][4][4], float* smem) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3, wq = warp & 3, wh = warp >> 2;
   const float* b2_s = smem + kHOffVec + 5 * kE;
   const float* w3_s = b2_s + kH;
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
+  for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
     for (int q = 0; q < 4; ++q) p2[0][nb][q] = 0.f;
-  const int col0 = 8 * NB * wh;  // the warp's columns: col0 = n0 + 8 nb0, n0 % 32 == 0
-  warp_tile_mma<1, NB, kE, false, false, false, kPrecise, kW2Lo>(
-      p2, smem + kHOffL1, kE, 16 * wq, smem + kHOffW2, kH, col0 & ~31, (col0 & 31) / 8);
+  warp_tile_mma<1, 4, kE, false, false, false, kPrecise, kW2Lo>(p2, smem + kHOffL1, kE, 16 * wq,
+                                                                smem + kHOffW2, kH, 32 * wh);
   float sr[2] = {0.f, 0.f};
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
+  for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int h = 8 * NB * wh + 8 * nb + 2 * t + (q & 1);
+      const int h = 32 * wh + 8 * nb + 2 * t + (q & 1);
       p2[0][nb][q] += b2_s[h];
       sr[q >> 1] = fmaf(fmaxf(p2[0][nb][q], 0.f), w3_s[h], sr[q >> 1]);
     }
@@ -273,10 +267,8 @@ __device__ __forceinline__ void head_pre2(float p2[1][NB][4], float* smem) {
 
 // the forward's l1 W2 in mma_tf32.cuh's plain split (the header says why)
 constexpr bool kFwdPrecise = false;
-// the forward's block: 16 warps (it needs under 128 registers a thread)
-constexpr int kFwdThreads = 512;
 
-// Forward of the head, per listed tile, block k (16 warps) computing the run
+// Forward of the head, per listed tile, block k computing the run
 // [run_begin(k), run_begin(k + 1)): steps 1 and 2 of the backward below;
 // each pair's loss follows at the barrier that opens the next tile (warp 0:
 // lane l holds pairs l and l + 32, both of row il = l & 7, their noise and
@@ -284,7 +276,7 @@ constexpr int kFwdThreads = 512;
 // over the run's consecutive tiles of one item in registers. One 8-row
 // partial per (block, item) segment, at slot item + block (unique: both
 // grow along the list).
-__global__ void __launch_bounds__(kFwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
                 const float* __restrict__ sel, const float* __restrict__ sigma,
                 const float* __restrict__ u, HeadWeights W, const int* __restrict__ list,
@@ -300,7 +292,7 @@ ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   const int t_end = run_begin(total, gridDim.x, blockIdx.x + 1);
   if (t_begin >= t_end) return;  // block-uniform: an empty run
   const float bd2 = W.bd2[0], b3 = W.b3[0];
-  stage_head<kFwdThreads>(W, smem);
+  stage_head(W, smem);
 
   // warp 0: the loss of row il = lane & 7 over the segment, and the previous
   // tile's sigma, noise and sel of pairs lane and lane + 32
@@ -314,8 +306,7 @@ ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int p = lane + 32 * h;
-      const float sr = sr_s[p] + sr_s[kPairs + p] + sr_s[2 * kPairs + p] + sr_s[3 * kPairs + p];
-      const float r = (sr + b3) / sig_p + nz_p[h] / sig_p;
+      const float r = (sr_s[p] + sr_s[kPairs + p] + b3) / sig_p + nz_p[h] / sig_p;
       s += 0.5f * r * r * wsig * sel_p[h];
     }
     s += __shfl_xor_sync(0xffffffffu, s, 8);
@@ -328,7 +319,7 @@ ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   };
 
   int v = list[t_begin];
-  head_load_tile<false, kFwdThreads>(smem, v, 0, nt, n, dist, noise, sel, sigma, u, nullptr);
+  head_load_tile<false>(smem, v, 0, nt, n, dist, noise, sel, sigma, u, nullptr);
   for (int k = t_begin; k < t_end; ++k) {
     const int v_next = k + 1 < t_end ? list[k + 1] : 0;
     const int item = v / nt, buf = (k - t_begin) & 1;
@@ -338,8 +329,7 @@ ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
                       // tile k - 1's buffer
     if (k > t_begin) add_loss();
     if (k + 1 < t_end)
-      head_load_tile<false, kFwdThreads>(smem, v_next, buf ^ 1, nt, n, dist, noise, sel, sigma, u,
-                                         nullptr);
+      head_load_tile<false>(smem, v_next, buf ^ 1, nt, n, dist, noise, sel, sigma, u, nullptr);
     if (item != cur) {  // block-uniform: the run moves to the next row tile
       flush();
       cur = item;
@@ -355,10 +345,10 @@ ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
       }
       sig_p = sig;
     }
-    head_l1<kFwdThreads>(smem, buf, sig, bd2);
+    head_l1(smem, buf, sig, bd2);
     __syncthreads();  // l1_s complete
-    float p2[1][2][4];
-    head_pre2<kFwdPrecise, kFwdThreads>(p2, smem);
+    float p2[1][4][4];
+    head_pre2<kFwdPrecise>(p2, smem);
     v = v_next;
   }
   __syncthreads();  // the last tile's score sums are complete
@@ -443,7 +433,7 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   const int t_end = run_begin(total, gridDim.x, blockIdx.x + 1);
   const float bd2 = W.bd2[0], b3 = W.b3[0];
 
-  stage_head<kThreads>(W, smem);
+  stage_head(W, smem);
 
   // this block's share of the weight gradients over its run
   float gw2[2][4][4];  // dW2 rows 32*(warp&3) + 16*mb + 8*h + g, columns 32*(warp>>2) + 8*nb + 2*t + c
@@ -467,7 +457,7 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   // the cp.async loads of listed tile v into buffer buf, with the row
   // cotangents
   auto load_tile = [&](int v, int buf) {
-    head_load_tile<true, kThreads>(smem, v, buf, nt, n, dist, noise, sel, sigma, u, grows);
+    head_load_tile<true>(smem, v, buf, nt, n, dist, noise, sel, sigma, u, grows);
   };
 
   int cur = t_begin < t_end ? list[t_begin] / nt : 0;  // the item racc sums
@@ -527,13 +517,13 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
     const float* gi_t = smem + kHOffGi + buf * kTile;
     const float sig = smem[kHOffGi + 2 * kTile + buf], wsig = expf(anneal * logf(sig));
 
-    head_l1<kThreads>(smem, buf, sig, bd2);  // 1. dp, demb, l1
+    head_l1(smem, buf, sig, bd2);  // 1. dp, demb, l1
     __syncthreads();
 
     // 2. pre2 = l1 W2 + b2; the score's partial sums over this warp's columns
     const int wq = warp & 3, wh = warp >> 2;
     float p2[1][4][4];
-    head_pre2<true, kThreads>(p2, smem);
+    head_pre2<true>(p2, smem);
     __syncthreads();
     // ds = d loss / d score_raw per pair; dx2 = relu'(pre2) ds w3 into dx2_s
 #pragma unroll
@@ -804,7 +794,7 @@ extern "C" int ncsn_score_fwd(const float* dist, const float* noise, const float
   err = cudaFuncSetAttribute(ncsn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ncsn_fwd_kernel<<<blocks, kFwdThreads, smem, s>>>(
+  ncsn_fwd_kernel<<<blocks, kThreads, smem, s>>>(
       dist, noise, sel, sigma, u, head(wd1, bd1, wd2, bd2, wod, bod, w2, b2, w3, b3), list,
       pre + items, rpart, n, anneal);
   err = cudaGetLastError();

@@ -171,14 +171,12 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
                                      delta, coeff);
   };
 
-  // this lane's share of row il = g of the current item, columns 16*wn +
-  // 8*nb + 2*t + c of dq and of each dmu channel, summed over this warp's
-  // four jl of every tile of the item
-  float aq[2][2], am[3][2][2];
+  // this lane's share of row il = g of the current item, features 16*wn +
+  // 4*t + u (u = 2*nb + c) of dq and of each dmu channel, summed over this
+  // warp's four jl of every tile of the item
+  float aq[4], am[3][4];
 #pragma unroll
-  for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) aq[nb][c] = am[0][nb][c] = am[1][nb][c] = am[2][nb][c] = 0.f;
+  for (int u = 0; u < 4; ++u) aq[u] = am[0][u] = am[1][u] = am[2][u] = 0.f;
   // the list entries of tiles k .. k + 2, read a tile ahead of their use
   int v0 = list[t_begin], v1 = t_begin + 1 < t_end ? list[t_begin + 1] : 0;
   int v2 = t_begin + 2 < t_end ? list[t_begin + 2] : 0;
@@ -188,34 +186,25 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
   auto flush = [&]() {
     float* red = red_s + (wn * 32 + lane) * 16;
     if (wm == 1) {
+      st4(red, aq[0], aq[1], aq[2], aq[3]);
 #pragma unroll
-      for (int nb = 0; nb < 2; ++nb) {
-        st4(red + 8 * nb, aq[nb][0], aq[nb][1], am[0][nb][0], am[0][nb][1]);
-        st4(red + 8 * nb + 4, am[1][nb][0], am[1][nb][1], am[2][nb][0], am[2][nb][1]);
-      }
+      for (int cc = 0; cc < 3; ++cc) st4(red + 4 + 4 * cc, am[cc][0], am[cc][1], am[cc][2], am[cc][3]);
     }
     __syncthreads();
     const int b = cur / nti, i = (cur - b * nti) * kTile + g;
     if (wm == 0 && i < ni) {
-      float* q_row = dq + ((size_t)b * ni + i) * kF + 16 * wn + 2 * t;
-      float* m_row = dmu + ((size_t)b * ni + i) * kF3 + 16 * wn + 2 * t;
+      const int f = 16 * wn + 4 * t;
+      const float4 r = ld4(red);
+      st4(dq + ((size_t)b * ni + i) * kF + f, aq[0] + r.x, aq[1] + r.y, aq[2] + r.z, aq[3] + r.w);
 #pragma unroll
-      for (int nb = 0; nb < 2; ++nb) {
-        const float4 r0 = ld4(red + 8 * nb), r1 = ld4(red + 8 * nb + 4);
-        *reinterpret_cast<float2*>(q_row + 8 * nb) =
-            make_float2(aq[nb][0] + r0.x, aq[nb][1] + r0.y);
-        *reinterpret_cast<float2*>(m_row + 8 * nb) =
-            make_float2(am[0][nb][0] + r0.z, am[0][nb][1] + r0.w);
-        *reinterpret_cast<float2*>(m_row + kF + 8 * nb) =
-            make_float2(am[1][nb][0] + r1.x, am[1][nb][1] + r1.y);
-        *reinterpret_cast<float2*>(m_row + 2 * kF + 8 * nb) =
-            make_float2(am[2][nb][0] + r1.z, am[2][nb][1] + r1.w);
+      for (int cc = 0; cc < 3; ++cc) {
+        const float4 rm = ld4(red + 4 + 4 * cc);
+        st4(dmu + ((size_t)b * ni + i) * kF3 + cc * kF + f, am[cc][0] + rm.x, am[cc][1] + rm.y,
+            am[cc][2] + rm.z, am[cc][3] + rm.w);
       }
     }
 #pragma unroll
-    for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) aq[nb][c] = am[0][nb][c] = am[1][nb][c] = am[2][nb][c] = 0.f;
+    for (int u = 0; u < 4; ++u) aq[u] = am[0][u] = am[1][u] = am[2][u] = 0.f;
   };
 
   // prologue: the grids of the first two tiles and the rows of the first,
@@ -269,29 +258,30 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
         if (c < 2 && grp < KS)
           painn_kstep<kFwdPrecise>(wn1, ah[grp], al[grp], WkF, c + 1, wn, grp);
         const int mb = grp >> 1, h = grp & 1, jl = 4 * wm + 2 * mb + h, at = g * kTile + jl;
-        const float* xr = xj + jl * kS3 + c * kF + 16 * wn + 2 * t;
-        float dc[3];
-        if (c == 1) {
+        const int f = c * kF + 16 * wn + 4 * t;  // this lane's four features
+        // the filter of pair (jl, il = g) at features f + u, u = 2*nb + c'
+        const float wv[4] = {w[mb][0][2 * h], w[mb][0][2 * h + 1], w[mb][1][2 * h],
+                             w[mb][1][2 * h + 1]};
+        const float4 x4 = ld4(xj + jl * kS3 + f);
+        const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+        if (c == 0) {
 #pragma unroll
-          for (int cc = 0; cc < 3; ++cc) dc[cc] = pr[(2 + cc) * kPairs + at];
-        }
+          for (int u = 0; u < 4; ++u) aq[u] = fmaf(wv[u], xv[u], aq[u]);
+        } else {
+          float wx[4];
 #pragma unroll
-        for (int nb = 0; nb < 2; ++nb) {
-          const float2 xv = *reinterpret_cast<const float2*>(xr + 8 * nb);
-          const float w0 = w[mb][nb][2 * h], w1 = w[mb][nb][2 * h + 1];
-          if (c == 0) {
-            aq[nb][0] = fmaf(w0, xv.x, aq[nb][0]);
-            aq[nb][1] = fmaf(w1, xv.y, aq[nb][1]);
-            continue;
-          }
-          const float wx0 = w0 * xv.x, wx1 = w1 * xv.y;
+          for (int u = 0; u < 4; ++u) wx[u] = wv[u] * xv[u];
 #pragma unroll
           for (int cc = 0; cc < 3; ++cc) {
-            const float2 s = c == 1 ? make_float2(dc[cc], dc[cc])
-                                    : *reinterpret_cast<const float2*>(
-                                          muj + jl * kS3 + cc * kF + 16 * wn + 2 * t + 8 * nb);
-            am[cc][nb][0] = fmaf(wx0, s.x, am[cc][nb][0]);
-            am[cc][nb][1] = fmaf(wx1, s.y, am[cc][nb][1]);
+            float s[4];
+            if (c == 1) {
+              s[0] = s[1] = s[2] = s[3] = pr[(2 + cc) * kPairs + at];
+            } else {
+              const float4 m4 = ld4(muj + jl * kS3 + cc * kF + 16 * wn + 4 * t);
+              s[0] = m4.x, s[1] = m4.y, s[2] = m4.z, s[3] = m4.w;
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u) am[cc][u] = fmaf(wx[u], s[u], am[cc][u]);
           }
         }
       }

@@ -91,19 +91,28 @@ __device__ __forceinline__ void filter_chunk_mma(float acc[2][4][4], const float
 // -- fragment order --------------------------------------------------------------
 //
 // For a block of kFwdThreads threads, 16 warps (wm, wn) = (warp & 1,
-// warp >> 1): pairs 32*wm.. and features 16*wn.. of a chunk, so that lane
-// (g, t) holds pairs (jl = 4*wm + 2*mb + h, il = g) and features 16*wn +
-// 8*nb + 2*t + c (mb, nb, h, c < 2).
+// warp >> 1): pairs 32*wm.. and features 16*wn.. of a chunk. The warp's 16
+// columns are permuted so that lane (g, t) holds pairs (jl = 4*wm + 2*mb +
+// h, il = g) and the four consecutive features 16*wn + 4*t + 2*nb + c (mb,
+// nb, h, c < 2): C column 8*nb + j (j < 8) of the warp's mma is feature
+// 16*wn + fwd_col(8*nb + j), so that a lane reads x and mu, and writes its
+// rows, 16 bytes at a time.
 //
-// B = [Wk; bk; 0]: WkF [3 chunks][16 groups of 8 features][kKS k steps][32
-// lanes] float4 {b0 hi, b1 hi, b0 lo, b1 lo}, b0 = B[8 ks + t][128 c + 8 grp
-// + g], b1 four rows below (mma.m16n8k8's B fragment). A = [phi; 1] gate of
+// B = [Wk; bk; 0]: WkF [3 chunks][16 groups of 8 columns][kKS k steps][32
+// lanes] float4 {b0 hi, b1 hi, b0 lo, b1 lo}, b0 = B[8 ks + t][128 c + 16
+// (grp / 2) + fwd_col(8 (grp % 2) + g)], b1 four rows below (mma.m16n8k8's
+// B fragment). A = [phi; 1] gate of
 // a tile: a buffer holds the high parts [4 blocks of 16 pairs][kKS][32 lanes]
 // float4 {a0, a1, a2, a3}, then the low parts in the same order, with a0 =
 // A[16 blk + g][8 ks + t], a1 eight rows below, a2 and a3 four columns right
 // of them (the A fragment).
 
 constexpr int kFwdThreads = 512;
+
+// The feature (within the warp's 16) of C column n = 8*nb + j.
+__host__ __device__ constexpr int fwd_col(int n) {
+  return 4 * ((n & 7) >> 1) + 2 * (n >> 3) + (n & 1);
+}
 constexpr int kKS = kRP / 8;                 // k steps, at most
 constexpr int kWkFFloats = 3 * 16 * kKS * 32 * 4;
 constexpr int kPhiFLo = 4 * kKS * 32 * 4;    // the low parts' offset in a phi buffer
@@ -114,7 +123,8 @@ __device__ __forceinline__ void painn_stage_wkf(float* WkF, const float* __restr
                                                 const float* __restrict__ bk, int R) {
   for (int e = threadIdx.x; e < kWkFFloats / 4; e += kFwdThreads) {
     const int lane = e & 31, ks = (e >> 5) % kKS, cg = (e >> 5) / kKS;  // cg = 16 c + grp
-    const int k0 = 8 * ks + (lane & 3), n = 8 * cg + (lane >> 2);
+    const int k0 = 8 * ks + (lane & 3);
+    const int n = 16 * (cg >> 1) + fwd_col(8 * (cg & 1) + (lane >> 2));
     float v[2];
 #pragma unroll
     for (int u = 0; u < 2; ++u) {

@@ -61,9 +61,7 @@ VARIANTS = {
                             "        if (c < 2 && grp == 0)\n"
                             "          for (int ks = 0; ks < KS; ++ks)\n"
                             "            painn_kstep<kFwdPrecise>(wn1, ah[ks], al[ks], WkF, c + 1, wn, ks);")],
-        "dq_messages_only": [("painn_fwd.cu", "          if (c == 0) {\n            aq[nb][0]",
-                              "          if (c >= 0) {\n            aq[nb][0]")],
-        "no_phi": [("painn_fwd.cu", "    if (k + 1 < t_end) make_phi(k + 1);", "    ;")],
+        "no_phi": [("painn_fwd.cu", "    if (k + 1 < t_end) make_phi(q + 1);", "    ;")],
     },
     "ncsn_score": {
         "precise": [("ncsn_score.cu", "constexpr bool kFwdPrecise = false;",

@@ -276,12 +276,12 @@ def _f32(a):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_painn_filter_in_the_plain_split_meets_the_forward_tolerance(seed):
-    """painn_fwd.cu's plain mode computes each tile's raw filter [phi; 1]
-    [Wk; bk] (64 x 24 . 24 x 384: R = 20 RBF rows, the bias row, zeros) in
-    the plain split, [Wk; bk] split into its rounded TF32 parts once per
-    block, gates it and sums the messages of a row's 12 tiles into dq and
-    the three dmu channels in f32: within half of chip_smoke.py's rtol 1e-4
-    / atol 1e-5 of the f64 messages."""
+    """painn_fwd.cu's plain mode computes each tile's gated filter [phi; 1]
+    gate [Wk; bk] (64 x 24 . 24 x 384: R = 20 RBF rows, the bias row, zeros;
+    the gate folded into the A rows) in the plain split, [Wk; bk] split into
+    its rounded TF32 parts once per block, and sums the messages of a row's
+    12 tiles into dq and the three dmu channels in f32: within half of
+    chip_smoke.py's rtol 1e-4 / atol 1e-5 of the f64 messages."""
     rng = np.random.default_rng(seed)
     r, f, tiles, cutoff = 20, 128, 12, 5.0
     delta = cutoff / (r - 1)
@@ -307,8 +307,9 @@ def test_painn_filter_in_the_plain_split_meets_the_forward_tolerance(seed):
             want[:, f * (c + 1):f * (c + 2)] += (
                 np.einsum("jif,jf,ji->if", w[..., f:2 * f], x[:, f:2 * f], dirs[c])
                 + np.einsum("jif,jf,jf->if", w[..., 2 * f:], x[:, 2 * f:], mu[:, c * f:(c + 1) * f]))
-        wr = mma_chain([(_f32(phi), _f32(wk))], False, round_b=True).view(8, 8, 3 * f)
-        wx = _f32(gate)[..., None] * wr * _f32(x)[:, None, :]  # gt w x, [jl, il, 3f]
+        a = _f32(phi) * _f32(gate).reshape(64, 1)  # the A rows, gated in f32
+        wg = mma_chain([(a, _f32(wk))], False, round_b=True).view(8, 8, 3 * f)
+        wx = wg * _f32(x)[:, None, :]  # w x, [jl, il, 3f]
         got[:, :f] += wx[..., :f].sum(0)
         for c in range(3):
             got[:, f * (c + 1):f * (c + 2)] += (
