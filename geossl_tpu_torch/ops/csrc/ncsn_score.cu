@@ -84,37 +84,17 @@ constexpr int kOffWd1 = 0, kOffBd1 = kE, kOffWd2 = 2 * kE, kOffBd2 = 3 * kE,
               kOffB2 = kOffW2 + kE * kH, kOffW3 = kOffB2 + kH, kOffB3 = kOffW3 + kH,
               kWgrad = kOffB3 + 1;
 
-constexpr int kBS = kE + 8;  // row stride of the 8-row u tiles (bank spread)
-// shared memory of both kernels, in floats
-constexpr int kW2Lo = kE * kH;                      // the low parts' offset
-constexpr int kHOffW2 = 0;                          // [2][kE][kH] swizzled: W2 split, hi, lo
-constexpr int kHOffL1 = kHOffW2 + 2 * kE * kH;      // [kPairs][kE] swizzled: l1
-constexpr int kHOffDx2 = kHOffL1 + kPairs * kE;     // [kPairs][kH] swizzled: dx2 (backward)
-constexpr int kHOffU = kHOffDx2 + kPairs * kH;      // [2][2][8][kBS] u rows: j tile, i tile
-constexpr int kHOffGrid = kHOffU + 4 * kTile * kBS; // [2][3][64] dist, noise, sel, [il][jl]
-constexpr int kHOffGi = kHOffGrid + 6 * kPairs;     // [2][8] the row cotangents g_i, [2] sigma
-constexpr int kHOffVec = kHOffGi + 2 * kTile + 4;   // wd1, bd1, wd2, wod, bod [kE]; b2, w3 [kH]
-// per pair: dp [2][64], ddemb's four column-warp partials [2][64][4] (double:
-// the backward's distance MLP of a tile runs in the next tile's iteration),
-// demb [64], sr [2][64]
-constexpr int kHOffPair = kHOffVec + 5 * kE + 2 * kH;
-constexpr int kHOffDde = kHOffPair + 2 * kPairs;
-constexpr int kHOffDemb = kHOffDde + 8 * kPairs;
-constexpr int kHOffSr = kHOffDemb + kPairs;
-constexpr int kHeadFloats = kHOffSr + 2 * kPairs;
-// The per-tile du partials: the j side of every listed tile (its 8 rows j
-// summed over the tile's rows i), the i side of every (block, item) segment
-// of the runs (8 rows i summed over the segment's tiles), in two halves.
-constexpr int kTileRows = kTile * kE;  // floats of one 8-row partial
+constexpr int kBS = kE + 8;     // row stride of the 8-row u tiles (bank spread)
+constexpr int kW2Lo = kE * kH;  // the low parts' offset of W2 split in shared memory
 
 // W2 split once into its TF32 parts (the B operand of l1 W2 and of the
-// backward's dx2 W2^T) and the head's vectors, into shared memory. Every
-// thread of the block calls it.
-__device__ __forceinline__ void stage_head(const HeadWeights& W, float* smem) {
+// backward's dx2 W2^T; swizzled, the low parts kW2Lo floats after the high
+// ones) and the head's vectors (wd1, bd1, wd2, wod, bod [kE]; b2, w3 [kH]),
+// into shared memory. Every thread of the block (NT threads) calls it.
+template <int NT = kThreads>
+__device__ __forceinline__ void stage_head(const HeadWeights& W, float* W2_s, float* vec) {
   const int tid = threadIdx.x;
-  float* W2_s = smem + kHOffW2;
-  float* vec = smem + kHOffVec;
-  for (int c = tid; c < kE * kH / 4; c += kThreads) {
+  for (int c = tid; c < kE * kH / 4; c += NT) {
     const int r = c / (kH / 4), f = (c % (kH / 4)) * 4;
     const float4 w = *reinterpret_cast<const float4*>(W.w2 + r * kH + f);
     float4 hi, lo;
@@ -138,145 +118,41 @@ __device__ __forceinline__ void stage_head(const HeadWeights& W, float* smem) {
   }
 }
 
-// Issues the cp.async loads of listed tile v into buffer buf: dist, noise,
-// sel, sigma, with kGrows the row cotangents, and the u rows of its j and i
-// tiles; commits them as one group.
-template <bool kGrows>
-__device__ __forceinline__ void head_load_tile(float* smem, int v, int buf, int nt, int n,
-                                               const float* __restrict__ dist,
-                                               const float* __restrict__ noise,
-                                               const float* __restrict__ sel,
-                                               const float* __restrict__ sigma,
-                                               const float* __restrict__ u,
-                                               const float* __restrict__ grows) {
-  const int tid = threadIdx.x;
-  const int item = v / nt, pj = v - item * nt, b = item / nt;
-  const int i0 = (item - b * nt) * kTile, j0 = pj * kTile;
-  if (tid < 3 * kPairs) {
-    const int p = tid & (kPairs - 1), q = tid >> 6, i = i0 + (p >> 3), j = j0 + (p & 7);
-    const bool in = i < n && j < n;
-    const float* src = q == 0 ? dist : (q == 1 ? noise : sel);
-    cp_async4(smem + kHOffGrid + (3 * buf + q) * kPairs + p,
-              src + (in ? ((size_t)b * n + i) * n + j : 0), in);
-  } else if (kGrows && tid < 3 * kPairs + kTile) {
-    const int i = i0 + tid - 3 * kPairs;
-    cp_async4(smem + kHOffGi + buf * kTile + tid - 3 * kPairs,
-              grows + (i < n ? (size_t)b * n + i : 0), i < n);
-  } else if (tid == 3 * kPairs + kTile) {
-    cp_async4(smem + kHOffGi + 2 * kTile + buf, sigma + b, true);
-  }
-  for (int c = tid; c < 2 * kTile * kE / 4; c += kThreads) {
-    const int side = c / (kTile * kE / 4), r = (c / (kE / 4)) % kTile;
-    const int f = (c % (kE / 4)) * 4, a = (side ? i0 : j0) + r;
-    cp_async16(smem + kHOffU + ((2 * buf + side) * kTile + r) * kBS + f,
-               u + (a < n ? ((size_t)b * n + a) * kE + f : 0), a < n);
-  }
-  cp_async_commit();
-}
-
-// Step 1 of a tile in buffer buf: dp and demb (four threads per pair,
-// features 4*(q + 4m) + c) into dp_s[buf] and demb_s, then l1 = relu(u_i +
-// u_j + demb w_od + b_od) into l1_s (warp w: pairs p = jl*8 + w, lane:
-// features 4*lane..). Every thread calls it; it holds one barrier, and l1_s
-// is complete at the caller's next one.
-__device__ __forceinline__ void head_l1(float* smem, int buf, float sig, float bd2) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const float* d_t = smem + kHOffGrid + 3 * buf * kPairs;  // [il][jl]
-  const float* nz_t = d_t + kPairs;
-  const float* uj_t = smem + kHOffU + 2 * buf * kTile * kBS;
-  const float* ui_t = uj_t + kTile * kBS;
-  const float* wd1_s = smem + kHOffVec;
-  const float* bd1_s = wd1_s + kE;
-  const float* wd2_s = bd1_s + kE;
-  const float* wod_s = wd2_s + kE;
-  const float* bod_s = wod_s + kE;
-  float* demb_s = smem + kHOffDemb;
-  {
-    const int p = tid >> 2, q = tid & 3, at = (p & 7) * kTile + (p >> 3);
-    const float dp = fmaf(nz_t[at], sig, d_t[at]);
-    float s = 0.f;
-#pragma unroll
-    for (int m = 0; m < kE / 16; ++m) {
-      const int e = 4 * (q + 4 * m);
-      const float4 w1 = ld4(wd1_s + e), b1 = ld4(bd1_s + e), w2 = ld4(wd2_s + e);
-      s = fmaf(fmaxf(fmaf(dp, w1.x, b1.x), 0.f), w2.x, s);
-      s = fmaf(fmaxf(fmaf(dp, w1.y, b1.y), 0.f), w2.y, s);
-      s = fmaf(fmaxf(fmaf(dp, w1.z, b1.z), 0.f), w2.z, s);
-      s = fmaf(fmaxf(fmaf(dp, w1.w, b1.w), 0.f), w2.w, s);
-    }
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (q == 0) {
-      smem[kHOffPair + buf * kPairs + p] = dp;
-      demb_s[p] = s + bd2;
-    }
-  }
-  __syncthreads();
-  {
-    float* l1_s = smem + kHOffL1;
-    const int e = 4 * lane;
-    const float4 a = ld4(ui_t + warp * kBS + e), wo = ld4(wod_s + e), bo = ld4(bod_s + e);
-#pragma unroll 4
-    for (int jl = 0; jl < kTile; ++jl) {
-      const int p = jl * kTile + warp;
-      const float4 bj = ld4(uj_t + jl * kBS + e);
-      const float de = demb_s[p];
-      *reinterpret_cast<float4*>(l1_s + swz_at(kE, p, e)) =
-          make_float4(fmaxf(a.x + bj.x + fmaf(de, wo.x, bo.x), 0.f),
-                      fmaxf(a.y + bj.y + fmaf(de, wo.y, bo.y), 0.f),
-                      fmaxf(a.z + bj.z + fmaf(de, wo.z, bo.z), 0.f),
-                      fmaxf(a.w + bj.w + fmaf(de, wo.w, bo.w), 0.f));
-    }
-  }
-}
-
-// Step 2: pre2 = l1 W2 + b2 into p2 on the tensor cores (3xTF32; kPrecise
-// as warp_tile_mma's): warp (wq, wh) = (warp & 3, warp >> 2) owns rows
-// 16*wq.. and columns 32*wh.. of the 64 x H product; the score's partial
-// sums relu(pre2) w3 over the warp's columns go to sr_s[wh][p]. l1_s must be
-// complete.
-template <bool kPrecise>
-__device__ __forceinline__ void head_pre2(float p2[1][4][4], float* smem) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, wq = warp & 3, wh = warp >> 2;
-  const float* b2_s = smem + kHOffVec + 5 * kE;
-  const float* w3_s = b2_s + kH;
-#pragma unroll
-  for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) p2[0][nb][q] = 0.f;
-  warp_tile_mma<1, 4, kE, false, false, false, kPrecise, kW2Lo>(p2, smem + kHOffL1, kE, 16 * wq,
-                                                                smem + kHOffW2, kH, 32 * wh);
-  float sr[2] = {0.f, 0.f};
-#pragma unroll
-  for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int h = 32 * wh + 8 * nb + 2 * t + (q & 1);
-      p2[0][nb][q] += b2_s[h];
-      sr[q >> 1] = fmaf(fmaxf(p2[0][nb][q], 0.f), w3_s[h], sr[q >> 1]);
-    }
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const float s = quad_sum(sr[hh]);
-    if (t == 0) smem[kHOffSr + wh * kPairs + 16 * wq + 8 * hh + g] = s;
-  }
-}
-
 // -- forward -------------------------------------------------------------------
 
 // the forward's l1 W2 in mma_tf32.cuh's plain split (the header says why)
 constexpr bool kFwdPrecise = false;
+// the forward's block: warps 0-7 run the tensor-core product (as the
+// backward's step 2), warps 8-11 the elementwise stages
+constexpr int kFwdThreads = 384;
+// shared memory of the forward, in floats
+constexpr int kFOffW2 = 0;                             // [2][kE][kH] swizzled: W2 split, hi, lo
+constexpr int kFOffL1 = kFOffW2 + 2 * kE * kH;         // [2][kPairs][kE] swizzled: l1 of two tiles
+constexpr int kFOffU = kFOffL1 + 2 * kPairs * kE;      // [2][2][8][kBS] u rows: j tile, i tile
+constexpr int kFOffGrid = kFOffU + 4 * kTile * kBS;    // [4][3][64] dist, noise, sel, [il][jl]
+constexpr int kFOffSig = kFOffGrid + 12 * kPairs;      // [4] sigma of the grid buffers
+constexpr int kFOffVec = kFOffSig + 4;                 // the head's vectors (stage_head)
+constexpr int kFOffDemb = kFOffVec + 5 * kE + 2 * kH;  // [2][64] demb
+constexpr int kFOffSr = kFOffDemb + 2 * kPairs;        // [2][2][64] score sums over column halves
+constexpr int kFwdFloats = kFOffSr + 4 * kPairs;
 
 // Forward of the head, per listed tile, block k computing the run
-// [run_begin(k), run_begin(k + 1)): steps 1 and 2 of the backward below;
-// each pair's loss follows at the barrier that opens the next tile (warp 0:
-// lane l holds pairs l and l + 32, both of row il = l & 7, their noise and
-// sel kept in registers), summed over the tile's columns by shuffles and
-// over the run's consecutive tiles of one item in registers. One 8-row
-// partial per (block, item) segment, at slot item + block (unique: both
-// grow along the list).
-__global__ void __launch_bounds__(kThreads, 1)
+// [run_begin(k), run_begin(k + 1)) of the tile list (items (graph, 8-row i
+// tile)) in a pipeline of one barrier a tile. In the iteration of tile k,
+// after its barrier:
+// - warps 0-7: pre2 = l1 W2 + b2 of tile k on the tensor cores (warp (wq,
+//   wh): rows 16*wq.., columns 32*wh..), relu, w3 and the score's partial
+//   sums over the warp's columns;
+// - warps 8-11: l1 of tile k + 1 (warp e: jl 2e, 2e + 1, lane: features
+//   4*lane..) and demb of tile k + 2 (two threads per pair); warp 8 also
+//   adds the loss of tile k - 1 (lane l: pairs l and l + 32 of row il = l &
+//   7, summed over the tile's columns by shuffles and over the run's
+//   consecutive tiles of one item in registers) and keeps tile k's noise,
+//   sel and sigma for it.
+// The cp.async loads run ahead: dist/noise/sel/sigma three tiles, the u
+// rows two tiles. One 8-row partial of the rows per (block, item) segment,
+// at slot item + block (unique: both grow along the list).
+__global__ void __launch_bounds__(kFwdThreads, 1)
 ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
                 const float* __restrict__ sel, const float* __restrict__ sigma,
                 const float* __restrict__ u, HeadWeights W, const int* __restrict__ list,
@@ -284,75 +160,196 @@ ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
                 float anneal) {
   extern __shared__ float4 smem_v4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem_v4);
-  const float* sr_s = smem + kHOffSr;
+  const float* vec = smem + kFOffVec;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int nt = (n + kTile - 1) / kTile;
   const long long total = *total_p;
   const int t_begin = run_begin(total, gridDim.x, blockIdx.x);
   const int t_end = run_begin(total, gridDim.x, blockIdx.x + 1);
   if (t_begin >= t_end) return;  // block-uniform: an empty run
   const float bd2 = W.bd2[0], b3 = W.b3[0];
-  stage_head(W, smem);
 
-  // warp 0: the loss of row il = lane & 7 over the segment, and the previous
-  // tile's sigma, noise and sel of pairs lane and lane + 32
+  // the cp.async loads of the tile with list entry v: dist, noise, sel and
+  // sigma into grid buffer buf; the u rows of its j and i tiles into row
+  // buffer buf
+  auto load_grids = [&](int v, int buf) {
+    const int item = v / nt, pj = v - item * nt, b = item / nt;
+    const int i0 = (item - b * nt) * kTile, j0 = pj * kTile;
+    if (tid < 3 * kPairs) {
+      const int p = tid & (kPairs - 1), q = tid >> 6, i = i0 + (p >> 3), j = j0 + (p & 7);
+      const bool in = i < n && j < n;
+      const float* src = q == 0 ? dist : (q == 1 ? noise : sel);
+      cp_async4(smem + kFOffGrid + (3 * buf + q) * kPairs + p,
+                src + (in ? ((size_t)b * n + i) * n + j : 0), in);
+    } else if (tid == 3 * kPairs) {
+      cp_async4(smem + kFOffSig + buf, sigma + b, true);
+    }
+  };
+  auto load_rows = [&](int v, int buf) {
+    const int item = v / nt, pj = v - item * nt, b = item / nt;
+    const int i0 = (item - b * nt) * kTile, j0 = pj * kTile;
+    for (int c = tid; c < 2 * kTile * kE / 4; c += kFwdThreads) {
+      const int side = c / (kTile * kE / 4), r = (c / (kE / 4)) % kTile;
+      const int f = (c % (kE / 4)) * 4, a = (side ? i0 : j0) + r;
+      cp_async16(smem + kFOffU + ((2 * buf + side) * kTile + r) * kBS + f,
+                 u + (a < n ? ((size_t)b * n + a) * kE + f : 0), a < n);
+    }
+  };
+  // warps 8-11: demb of the tile in grid buffer gb into demb buffer db
+  auto make_demb = [&](int gb, int db) {
+    const int e = tid - 8 * 32, p = e >> 1, half = e & 1, at = (p & 7) * kTile + (p >> 3);
+    const float* d_t = smem + kFOffGrid + 3 * gb * kPairs;
+    const float dp = fmaf(d_t[kPairs + at], smem[kFOffSig + gb], d_t[at]);
+    float s = 0.f;
+#pragma unroll 4
+    for (int m = 0; m < kE / 8; ++m) {
+      const int f = 4 * (half + 2 * m);
+      const float4 w1 = ld4(vec + f), b1 = ld4(vec + kE + f), w2 = ld4(vec + 2 * kE + f);
+      s = fmaf(fmaxf(fmaf(dp, w1.x, b1.x), 0.f), w2.x, s);
+      s = fmaf(fmaxf(fmaf(dp, w1.y, b1.y), 0.f), w2.y, s);
+      s = fmaf(fmaxf(fmaf(dp, w1.z, b1.z), 0.f), w2.z, s);
+      s = fmaf(fmaxf(fmaf(dp, w1.w, b1.w), 0.f), w2.w, s);
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    if (half == 0) smem[kFOffDemb + db * kPairs + p] = s + bd2;
+  };
+  // warps 8-11: l1 = relu(u_i + u_j + demb w_od + b_od) of the tile whose
+  // rows are in row buffer rb and demb in demb buffer db, into l1 buffer lb
+  auto make_l1 = [&](int rb, int db, int lb) {
+    const int f = 4 * lane;
+    const float* uj_t = smem + kFOffU + 2 * rb * kTile * kBS;
+    const float* ui_t = uj_t + kTile * kBS;
+    float* l1_s = smem + kFOffL1 + lb * kPairs * kE;
+    const float4 wo = ld4(vec + 3 * kE + f), bo = ld4(vec + 4 * kE + f);
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int jl = 2 * (warp - 8) + jj;
+      const float4 bj = ld4(uj_t + jl * kBS + f);
+#pragma unroll 4
+      for (int il = 0; il < kTile; ++il) {
+        const int p = jl * kTile + il;
+        const float4 a = ld4(ui_t + il * kBS + f);
+        const float de = smem[kFOffDemb + db * kPairs + p];
+        *reinterpret_cast<float4*>(l1_s + swz_at(kE, p, f)) =
+            make_float4(fmaxf(a.x + bj.x + fmaf(de, wo.x, bo.x), 0.f),
+                        fmaxf(a.y + bj.y + fmaf(de, wo.y, bo.y), 0.f),
+                        fmaxf(a.z + bj.z + fmaf(de, wo.z, bo.z), 0.f),
+                        fmaxf(a.w + bj.w + fmaf(de, wo.w, bo.w), 0.f));
+      }
+    }
+  };
+  // warps 0-7: pre2 of the tile in l1 buffer lb, the score sums into sr buffer sb
+  auto product = [&](int lb, int sb) {
+    const int wq = warp & 3, wh = warp >> 2;
+    float p2[1][4][4];
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) p2[0][nb][q] = 0.f;
+    warp_tile_mma<1, 4, kE, false, false, false, kFwdPrecise, kW2Lo>(
+        p2, smem + kFOffL1 + lb * kPairs * kE, kE, 16 * wq, smem + kFOffW2, kH, 32 * wh);
+    const float* b2_s = vec + 5 * kE;
+    const float* w3_s = b2_s + kH;
+    float sr[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int h = 32 * wh + 8 * nb + 2 * t + (q & 1);
+        sr[q >> 1] = fmaf(fmaxf(p2[0][nb][q] + b2_s[h], 0.f), w3_s[h], sr[q >> 1]);
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float s = quad_sum(sr[hh]);
+      if (t == 0) smem[kFOffSr + (2 * sb + wh) * kPairs + 16 * wq + 8 * hh + g] = s;
+    }
+  };
+
+  // warp 8: the loss of row il = lane & 7 over the segment, and the last
+  // product's tile's sigma, noise and sel of pairs lane and lane + 32
   float racc = 0.f, sig_p = 1.f, nz_p[2] = {0.f, 0.f}, sel_p[2] = {0.f, 0.f};
-  int cur = list[t_begin] / nt;  // the item racc sums
-  // warp 0 adds the previous tile's loss (its score sums are complete in sr_s)
-  auto add_loss = [&]() {
-    if (warp != 0) return;
+  auto keep_pairs = [&](int gb) {
+    const float* nz_t = smem + kFOffGrid + (3 * gb + 1) * kPairs;  // [il][jl]
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = lane + 32 * h, at = (p & 7) * kTile + (p >> 3);
+      nz_p[h] = nz_t[at];
+      sel_p[h] = nz_t[kPairs + at];
+    }
+    sig_p = smem[kFOffSig + gb];
+  };
+  auto add_loss = [&](int sb) {
     const float wsig = expf(anneal * logf(sig_p));
     float s = 0.f;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int p = lane + 32 * h;
-      const float r = (sr_s[p] + sr_s[kPairs + p] + b3) / sig_p + nz_p[h] / sig_p;
+      const float sr = smem[kFOffSr + 2 * sb * kPairs + p] + smem[kFOffSr + (2 * sb + 1) * kPairs + p];
+      const float r = (sr + b3) / sig_p + nz_p[h] / sig_p;
       s += 0.5f * r * r * wsig * sel_p[h];
     }
     s += __shfl_xor_sync(0xffffffffu, s, 8);
     s += __shfl_xor_sync(0xffffffffu, s, 16);
     racc += s;
   };
+  int cur = list[t_begin] / nt;  // the item racc sums
   auto flush = [&]() {
-    if (warp == 0 && lane < kTile) rpart[(size_t)(cur + blockIdx.x) * kTile + lane] = racc;
+    if (warp == 8 && lane < kTile) rpart[(size_t)(cur + blockIdx.x) * kTile + lane] = racc;
     racc = 0.f;
   };
 
-  int v = list[t_begin];
-  head_load_tile<false>(smem, v, 0, nt, n, dist, noise, sel, sigma, u, nullptr);
+  // the list entries of tiles k .. k + 3, read a tile ahead of their use
+  auto entry = [&](int k) { return k < t_end ? list[k] : 0; };
+  int v0 = entry(t_begin), v1 = entry(t_begin + 1), v2 = entry(t_begin + 2);
+  int v3 = entry(t_begin + 3);
+
+  // prologue: the grids of the first three tiles and the rows of the first
+  // two; then demb of the first two and l1 of the first
+  load_grids(v0, 0);
+  if (t_begin + 1 < t_end) load_grids(v1, 1);
+  if (t_begin + 2 < t_end) load_grids(v2, 2);
+  load_rows(v0, 0);
+  if (t_begin + 1 < t_end) load_rows(v1, 1);
+  cp_async_commit();
+  stage_head<kFwdThreads>(W, smem + kFOffW2, smem + kFOffVec);
+  cp_async_wait<0>();
+  __syncthreads();
+  if (warp >= 8) {
+    make_demb(0, 0);
+    if (t_begin + 1 < t_end) make_demb(1, 1);
+  }
+  __syncthreads();
+  if (warp >= 8) make_l1(0, 0, 0);
+
   for (int k = t_begin; k < t_end; ++k) {
-    const int v_next = k + 1 < t_end ? list[k + 1] : 0;
-    const int item = v / nt, buf = (k - t_begin) & 1;
+    const int q = k - t_begin, item = v0 / nt, v4 = entry(k + 4);
     cp_async_wait<0>();
-    __syncthreads();  // tile k's data (and the weights) have landed; tile k -
-                      // 1's score sums are complete; every warp is done with
-                      // tile k - 1's buffer
-    if (k > t_begin) add_loss();
-    if (k + 1 < t_end)
-      head_load_tile<false>(smem, v_next, buf ^ 1, nt, n, dist, noise, sel, sigma, u, nullptr);
+    __syncthreads();  // in place: tile k's l1, tile k + 1's demb and rows, tile
+                      // k + 2's grids, tile k - 1's score sums; every warp is
+                      // done with the buffers these loads overwrite
+    if (k + 3 < t_end) load_grids(v3, (q + 3) % 4);
+    if (k + 2 < t_end) load_rows(v2, (q + 2) & 1);
+    cp_async_commit();
+    if (warp == 8 && k > t_begin) add_loss((q - 1) & 1);
     if (item != cur) {  // block-uniform: the run moves to the next row tile
       flush();
       cur = item;
     }
-    const float sig = smem[kHOffGi + 2 * kTile + buf];
-    if (warp == 0) {
-      const float* nz_t = smem + kHOffGrid + (3 * buf + 1) * kPairs;  // [il][jl]
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = lane + 32 * h, at = (p & 7) * kTile + (p >> 3);
-        nz_p[h] = nz_t[at];
-        sel_p[h] = nz_t[kPairs + at];
-      }
-      sig_p = sig;
+    if (warp < 8) {
+      product(q & 1, q & 1);
+    } else {
+      if (warp == 8) keep_pairs(q % 4);
+      if (k + 1 < t_end) make_l1((q + 1) & 1, (q + 1) & 1, (q + 1) & 1);
+      if (k + 2 < t_end) make_demb((q + 2) % 4, q & 1);
     }
-    head_l1(smem, buf, sig, bd2);
-    __syncthreads();  // l1_s complete
-    float p2[1][4][4];
-    head_pre2<kFwdPrecise>(p2, smem);
-    v = v_next;
+    v0 = v1;
+    v1 = v2;
+    v2 = v3;
+    v3 = v4;
   }
   __syncthreads();  // the last tile's score sums are complete
-  add_loss();
+  if (warp == 8) add_loss((t_end - 1 - t_begin) & 1);
   flush();
 }
 
@@ -380,16 +377,32 @@ ncsn_rows_kernel(const float* __restrict__ rpart, const int* __restrict__ pre,
 
 // -- backward ------------------------------------------------------------------
 
+// shared memory of the backward, in floats
+constexpr int kBOffW2 = 0;                          // [2][kE][kH] swizzled: W2 split, hi, lo
+constexpr int kBOffL1 = kBOffW2 + 2 * kE * kH;      // [kPairs][kE] swizzled: l1
+constexpr int kBOffDx2 = kBOffL1 + kPairs * kE;     // [kPairs][kH] swizzled: dx2
+constexpr int kBOffU = kBOffDx2 + kPairs * kH;      // [2][2][8][kBS] u rows: j tile, i tile
+constexpr int kBOffGrid = kBOffU + 4 * kTile * kBS; // [2][3][64] dist, noise, sel, [il][jl]
+constexpr int kBOffGi = kBOffGrid + 6 * kPairs;     // [2][8] the row cotangents g_i, [2] sigma
+constexpr int kBOffVec = kBOffGi + 2 * kTile + 4;   // wd1, bd1, wd2, wod, bod [kE]; b2, w3 [kH]
+// per pair: dp [2][64], ddemb's four column-warp partials [2][64][4] (double:
+// the distance MLP of a tile runs in the next tile's iteration), demb [64],
+// sr [2][64]
+constexpr int kBOffPair = kBOffVec + 5 * kE + 2 * kH;
+constexpr int kBwdFloats = kBOffPair + 13 * kPairs;
+// The per-tile du partials: the j side of every listed tile (its 8 rows j
+// summed over the tile's rows i), the i side of every (block, item) segment
+// of the runs (8 rows i summed over the segment's tiles), in two halves.
+constexpr int kTileRows = kTile * kE;  // floats of one 8-row partial
+
 // Backward of the head, per listed tile of the tile list (worklist.cuh:
 // the tiles where sel is not all zero, in (graph, 8-row i tile) items),
 // block k computing the run [run_begin(k), run_begin(k + 1)). Pair
 // p = jl*8 + il of a tile is row p of its 64-row operands. Per tile:
-//   1. dp, demb (CUDA cores), l1 = relu(u_i + u_j + demb w_od + b_od) into
-//      l1_s (head_l1, shared with the forward)
-//   2. pre2 = l1 W2 (+ b2) on the tensor cores (3xTF32, precise mode;
-//      head_pre2): warp (wq, wh) owns rows 16*wq.. and columns 32*wh.. of
-//      the 64 x H product; the score, ds = d loss / d score_raw, dx2 =
-//      relu'(pre2) ds w3 into dx2_s
+//   1. dp, demb (CUDA cores), l1 = relu(u_i + u_j + demb w_od + b_od) into l1_s
+//   2. pre2 = l1 W2 (+ b2) on the tensor cores (3xTF32): warp (wq, wh) owns
+//      rows 16*wq.. and columns 32*wh.. of the 64 x H product; the score,
+//      ds = d loss / d score_raw, dx2 = relu'(pre2) ds w3 into dx2_s
 //   3. dW2 += l1^T dx2 (3xTF32; each tile's product added to the run's sum
 //      in f32) and dl1 = (dx2 W2^T) relu'(l1) (3xTF32): warp (wm, wn) owns rows
 //      32*wm.. and columns 32*wn.. of the 64 x E product, lane (g, t) pairs
@@ -410,20 +423,20 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
                 float anneal) {
   extern __shared__ float4 smem_v4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem_v4);
-  float* W2_s = smem + kHOffW2;
-  float* l1_s = smem + kHOffL1;
-  float* dx2_s = smem + kHOffDx2;
-  float* wd1_s = smem + kHOffVec;
+  float* W2_s = smem + kBOffW2;
+  float* l1_s = smem + kBOffL1;
+  float* dx2_s = smem + kBOffDx2;
+  float* wd1_s = smem + kBOffVec;
   float* bd1_s = wd1_s + kE;
   float* wd2_s = bd1_s + kE;
   float* wod_s = wd2_s + kE;
   float* bod_s = wod_s + kE;
   float* b2_s = bod_s + kE;
   float* w3_s = b2_s + kH;
-  float* dp_s = smem + kHOffPair;  // [2][64]
-  float* dde_s = smem + kHOffDde;  // [2][64][4]
-  float* demb_s = smem + kHOffDemb;
-  float* sr_s = smem + kHOffSr;    // [2][64]
+  float* dp_s = smem + kBOffPair;    // [2][64]
+  float* dde_s = dp_s + 2 * kPairs;  // [2][64][4]
+  float* demb_s = dde_s + 8 * kPairs;
+  float* sr_s = demb_s + kPairs;     // [2][64]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -433,7 +446,8 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   const int t_end = run_begin(total, gridDim.x, blockIdx.x + 1);
   const float bd2 = W.bd2[0], b3 = W.b3[0];
 
-  stage_head(W, smem);
+  // W2 split once into its TF32 parts: the B operand of l1 W2 and dx2 W2^T
+  stage_head(W, W2_s, wd1_s);
 
   // this block's share of the weight gradients over its run
   float gw2[2][4][4];  // dW2 rows 32*(warp&3) + 16*mb + 8*h + g, columns 32*(warp>>2) + 8*nb + 2*t + c
@@ -454,10 +468,31 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
       for (int q = 0; q < 4; ++q) gw2[mb][nb][q] = 0.f;
   }
 
-  // the cp.async loads of listed tile v into buffer buf, with the row
-  // cotangents
+  // issues the cp.async loads of listed tile v into buffer buf: dist,
+  // noise, sel, the row cotangents, and the u rows of its j and i tiles
   auto load_tile = [&](int v, int buf) {
-    head_load_tile<true>(smem, v, buf, nt, n, dist, noise, sel, sigma, u, grows);
+    const int item = v / nt, pj = v - item * nt, b = item / nt;
+    const int i0 = (item - b * nt) * kTile, j0 = pj * kTile;
+    if (tid < 3 * kPairs) {
+      const int p = tid & (kPairs - 1), q = tid >> 6, i = i0 + (p >> 3), j = j0 + (p & 7);
+      const bool in = i < n && j < n;
+      const float* src = q == 0 ? dist : (q == 1 ? noise : sel);
+      cp_async4(smem + kBOffGrid + (3 * buf + q) * kPairs + p,
+                src + (in ? ((size_t)b * n + i) * n + j : 0), in);
+    } else if (tid < 3 * kPairs + kTile) {
+      const int i = i0 + tid - 3 * kPairs;
+      cp_async4(smem + kBOffGi + buf * kTile + tid - 3 * kPairs,
+                grows + (i < n ? (size_t)b * n + i : 0), i < n);
+    } else if (tid == 3 * kPairs + kTile) {
+      cp_async4(smem + kBOffGi + 2 * kTile + buf, sigma + b, true);
+    }
+    for (int c = tid; c < 2 * kTile * kE / 4; c += kThreads) {
+      const int side = c / (kTile * kE / 4), r = (c / (kE / 4)) % kTile;
+      const int f = (c % (kE / 4)) * 4, a = (side ? i0 : j0) + r;
+      cp_async16(smem + kBOffU + ((2 * buf + side) * kTile + r) * kBS + f,
+                 u + (a < n ? ((size_t)b * n + a) * kE + f : 0), a < n);
+    }
+    cp_async_commit();
   };
 
   int cur = t_begin < t_end ? list[t_begin] / nt : 0;  // the item racc sums
@@ -512,18 +547,78 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
       cur = item;
     }
     if (k > t_begin) dist_mlp(buf ^ 1);
-    const float* nz_t = smem + kHOffGrid + (3 * buf + 1) * kPairs;  // [il][jl]
+    const float* d_t = smem + kBOffGrid + 3 * buf * kPairs;  // [il][jl]
+    const float* nz_t = d_t + kPairs;
     const float* sel_t = nz_t + kPairs;
-    const float* gi_t = smem + kHOffGi + buf * kTile;
-    const float sig = smem[kHOffGi + 2 * kTile + buf], wsig = expf(anneal * logf(sig));
+    const float* gi_t = smem + kBOffGi + buf * kTile;
+    const float* uj_t = smem + kBOffU + 2 * buf * kTile * kBS;
+    const float* ui_t = uj_t + kTile * kBS;
+    const float sig = smem[kBOffGi + 2 * kTile + buf], wsig = expf(anneal * logf(sig));
 
-    head_l1(smem, buf, sig, bd2);  // 1. dp, demb, l1
+    // 1. dp and demb: four threads per pair, features 4*(q + 4m) + c; then l1
+    {
+      const int p = tid >> 2, q = tid & 3, at = (p & 7) * kTile + (p >> 3);
+      const float dp = fmaf(nz_t[at], sig, d_t[at]);
+      float s = 0.f;
+#pragma unroll
+      for (int m = 0; m < kE / 16; ++m) {
+        const int e = 4 * (q + 4 * m);
+        const float4 w1 = ld4(wd1_s + e), b1 = ld4(bd1_s + e), w2 = ld4(wd2_s + e);
+        s = fmaf(fmaxf(fmaf(dp, w1.x, b1.x), 0.f), w2.x, s);
+        s = fmaf(fmaxf(fmaf(dp, w1.y, b1.y), 0.f), w2.y, s);
+        s = fmaf(fmaxf(fmaf(dp, w1.z, b1.z), 0.f), w2.z, s);
+        s = fmaf(fmaxf(fmaf(dp, w1.w, b1.w), 0.f), w2.w, s);
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if (q == 0) {
+        dp_s[buf * kPairs + p] = dp;
+        demb_s[p] = s + bd2;
+      }
+    }
+    __syncthreads();
+    {  // warp w: pairs p = jl*8 + w (il = w), lane: features 4*lane..
+      const int e = 4 * lane;
+      const float4 a = ld4(ui_t + warp * kBS + e), wo = ld4(wod_s + e), bo = ld4(bod_s + e);
+#pragma unroll 4
+      for (int jl = 0; jl < kTile; ++jl) {
+        const int p = jl * kTile + warp;
+        const float4 bj = ld4(uj_t + jl * kBS + e);
+        const float de = demb_s[p];
+        *reinterpret_cast<float4*>(l1_s + swz_at(kE, p, e)) =
+            make_float4(fmaxf(a.x + bj.x + fmaf(de, wo.x, bo.x), 0.f),
+                        fmaxf(a.y + bj.y + fmaf(de, wo.y, bo.y), 0.f),
+                        fmaxf(a.z + bj.z + fmaf(de, wo.z, bo.z), 0.f),
+                        fmaxf(a.w + bj.w + fmaf(de, wo.w, bo.w), 0.f));
+      }
+    }
     __syncthreads();
 
     // 2. pre2 = l1 W2 + b2; the score's partial sums over this warp's columns
     const int wq = warp & 3, wh = warp >> 2;
     float p2[1][4][4];
-    head_pre2<true>(p2, smem);
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) p2[0][nb][q] = 0.f;
+    warp_tile_mma<1, 4, kE, false, false, false, true, kW2Lo>(p2, l1_s, kE, 16 * wq, W2_s, kH,
+                                                              32 * wh);
+    {
+      float sr[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int h = 32 * wh + 8 * nb + 2 * t + (q & 1);
+          p2[0][nb][q] += b2_s[h];
+          sr[q >> 1] = fmaf(fmaxf(p2[0][nb][q], 0.f), w3_s[h], sr[q >> 1]);
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float s = quad_sum(sr[hh]);
+        if (t == 0) sr_s[wh * kPairs + 16 * wq + 8 * hh + g] = s;
+      }
+    }
     __syncthreads();
     // ds = d loss / d score_raw per pair; dx2 = relu'(pre2) ds w3 into dx2_s
 #pragma unroll
@@ -742,7 +837,11 @@ static HeadWeights head(const float* wd1, const float* bd1, const float* wd2,
 
 }  // namespace geossl
 
-extern "C" size_t ncsn_smem_bytes() { return sizeof(float) * (size_t)geossl::kHeadFloats; }
+// Shared memory of the larger of the two kernels' blocks.
+extern "C" size_t ncsn_smem_bytes() {
+  using namespace geossl;
+  return sizeof(float) * (size_t)(kFwdFloats > kBwdFloats ? kFwdFloats : kBwdFloats);
+}
 extern "C" int ncsn_wgrad_size() { return geossl::kWgrad; }
 // Blocks of either kernel's persistent grid, i.e. rows of the backward's
 // partials buffer.
@@ -784,7 +883,7 @@ extern "C" int ncsn_score_fwd(const float* dist, const float* noise, const float
                               float anneal, void* stream) {
   using namespace geossl;
   if (E != kE) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)kHeadFloats;
+  const size_t smem = sizeof(float) * (size_t)kFwdFloats;
   const int blocks = ncsn_blocks(B, n), nt = (n + kTile - 1) / kTile, items = B * nt;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = make_tile_list<false>(sel, ws, B, n, 1, s);
@@ -794,7 +893,7 @@ extern "C" int ncsn_score_fwd(const float* dist, const float* noise, const float
   err = cudaFuncSetAttribute(ncsn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ncsn_fwd_kernel<<<blocks, kThreads, smem, s>>>(
+  ncsn_fwd_kernel<<<blocks, kFwdThreads, smem, s>>>(
       dist, noise, sel, sigma, u, head(wd1, bd1, wd2, bd2, wod, bod, w2, b2, w3, b3), list,
       pre + items, rpart, n, anneal);
   err = cudaGetLastError();
@@ -821,7 +920,7 @@ extern "C" int ncsn_score_bwd(const float* dist, const float* noise, const float
                               void* stream) {
   using namespace geossl;
   if (E != kE) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)kHeadFloats;
+  const size_t smem = sizeof(float) * (size_t)kBwdFloats;
   const int blocks = ncsn_blocks(B, n), nt = (n + kTile - 1) / kTile, items = B * nt;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = make_tile_list<false>(sel, ws, B, n, 1, s);

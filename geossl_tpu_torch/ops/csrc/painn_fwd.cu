@@ -86,10 +86,11 @@ constexpr int kFwdFloats = kFOffRed + 8 * 32 * 16;
 // (painn_mma.cuh's fragment order). One barrier per tile: the pair grids
 // load two tiles ahead and the x/mu rows one tile ahead (cp.async), and each
 // tile's A fragments are made in the previous tile's iteration (double
-// buffer), so that the barrier that opens tile k finds them, its rows and
-// the next tile's grids in place. A warp loads its A fragments once a tile;
-// the k steps of chunk c + 1 are issued between the four message groups of
-// chunk c. KS k steps: K = 8 KS >= R + 1.
+// buffer, made while the tile's first products run), so that the barrier
+// that opens tile k finds them, its rows and the next tile's grids in place.
+// A warp loads its A fragments once a tile; the k steps of chunk c + 1 are
+// issued between the four message groups of chunk c. KS k steps: K = 8 KS >=
+// R + 1.
 template <int KS>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
@@ -137,8 +138,6 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
   __syncthreads();
   const int t_begin = run_s[0], t_end = run_s[1];
   if (t_begin >= t_end) return;  // block-uniform: no listed tile
-
-  painn_stage_wkf(smem + kFOffWk, wk, bk, R);
 
   // the cp.async loads of the tile with list entry v: its five pair grids
   // into grid buffer buf, the x and mu rows of its j tile into row buffer
@@ -213,6 +212,7 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
   if (t_begin + 1 < t_end) load_grids(v1, 1);
   load_rows(v0, 0);
   cp_async_commit();
+  painn_stage_wkf(smem + kFOffWk, wk, bk, R);  // while the first tile's loads fly
   cp_async_wait<0>();
   __syncthreads();
   make_phi(0);
@@ -248,6 +248,9 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks)
       painn_kstep<kFwdPrecise>(acc[0], ah[ks], al[ks], WkF, 0, wn, ks);
+    // the next tile's A fragments while chunk 0's products run (its grids
+    // landed before this tile's barrier)
+    if (k + 1 < t_end) make_phi(q + 1);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       float(*w)[2][4] = acc[c & 1];
@@ -294,7 +297,6 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
             for (int u = 0; u < 4; ++u) w[mb][nb][u] = 0.f;
       }
     }
-    if (k + 1 < t_end) make_phi(q + 1);  // its grids landed before this tile's barrier
     v0 = v1;
     v1 = v2;
     v2 = v3;
