@@ -50,7 +50,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    at the DDM buckets (B=128, N=32/64/128) and serving's N=512.
    ``ncsn_score_bwd`` on the DDM batch (B=128, N=128) and on a partial batch
    of 5 graphs in its 128 slots; on the DDM batch two launches must agree
-   bitwise in every output.
+   bitwise in every output. ``ncsn_score_fwd`` on the same two batches,
+   two launches bitwise equal on each. ``painn_fwd``, in phase 4, at every
+   shape its paths give it (rtol 1e-4, atol 1e-5; gating as the dispatcher
+   sets it): the DDM batches (B=128, N=32/64/128, the clean graph) and
+   their partial batch (5 graphs in 128 slots), serving's first batch at
+   N=128 and N=512, an uneven batch (60 graphs of bucket 32 and 8 of
+   bucket 128 at N=128), and the LBA batch (B=64, N=512, phase 3c), two
+   launches bitwise equal at each (``painn_fwd_shapes:``: its time and
+   bound at each).
 3. Main paths, each with the launch counters reset just before and read
    just after; every kernel of the path must have launched.
    a. Serving: ``Predictor`` at full SchNet width (F=128, L=6, G=51,
@@ -157,9 +165,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    once and the upper triangle read; for the tensor-core CFConv backward,
    ``bound_basis`` "tf32_tensor_core+f32": its products once at the TF32
    tensor-core peak, its elementwise terms at the f32 peak; likewise
-   ``schnet_stack``, ``painn_bwd``, ``cfconv_fwd_sym`` (also on the
-   ``cfconv_fwd_sym_ddm:`` line) and ``ncsn_score_bwd``), and ptxas's
-   registers and spills per kernel. Those kernels compute their products in
+   ``schnet_stack``, ``painn_fwd``, ``painn_bwd``, ``cfconv_fwd_sym`` (also
+   on the ``cfconv_fwd_sym_ddm:`` line), ``ncsn_score_fwd`` and
+   ``ncsn_score_bwd``), and ptxas's registers and spills per kernel. Those kernels compute their products in
    3xTF32 on the tensor cores and are held to the same tolerances as every
    other kernel. The NCSN rows count their launches over both DDM epochs
    (SchNet and PaiNN).

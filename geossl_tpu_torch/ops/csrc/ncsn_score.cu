@@ -85,25 +85,41 @@ constexpr int kOffWd1 = 0, kOffBd1 = kE, kOffWd2 = 2 * kE, kOffBd2 = 3 * kE,
               kWgrad = kOffB3 + 1;
 
 constexpr int kBS = kE + 8;     // row stride of the 8-row u tiles (bank spread)
-constexpr int kW2Lo = kE * kH;  // the low parts' offset of W2 split in shared memory
+constexpr int kW2Lo = kE * kH;  // the backward's offset of W2's low parts in shared memory
 
-// W2 split once into its TF32 parts (the B operand of l1 W2 and of the
-// backward's dx2 W2^T; swizzled, the low parts kW2Lo floats after the high
-// ones) and the head's vectors (wd1, bd1, wd2, wod, bod [kE]; b2, w3 [kH]),
-// into shared memory. Every thread of the block (NT threads) calls it.
-template <int NT = kThreads>
-__device__ __forceinline__ void stage_head(const HeadWeights& W, float* W2_s, float* vec) {
+// -- forward -------------------------------------------------------------------
+
+// the forward's l1 W2 in mma_tf32.cuh's plain split (the header says why)
+constexpr bool kFwdPrecise = false;
+// the forward's block: warps 0-7 run the tensor-core product (as the
+// backward's step 2), warps 8-11 the elementwise stages
+constexpr int kFwdThreads = 384;
+// shared memory of the forward, in floats
+constexpr int kFOffW2 = 0;                             // W2F: W2 in fragment order (below)
+constexpr int kFOffL1 = kFOffW2 + 2 * kE * kH;         // [2][kPairs][kE] swizzled: l1 of two tiles
+constexpr int kFOffU = kFOffL1 + 2 * kPairs * kE;      // [2][2][8][kBS] u rows: j tile, i tile
+constexpr int kFOffGrid = kFOffU + 4 * kTile * kBS;    // [4][3][64] dist, noise, sel, [il][jl]
+constexpr int kFOffSig = kFOffGrid + 12 * kPairs;      // [4] sigma of the grid buffers
+constexpr int kFOffVec = kFOffSig + 4;                 // the head's vectors (stage_head)
+constexpr int kFOffDemb = kFOffVec + 5 * kE + 2 * kH;  // [2][64] demb
+constexpr int kFOffSr = kFOffDemb + 2 * kPairs;        // [2][2][64] score sums over column halves
+constexpr int kFwdFloats = kFOffSr + 4 * kPairs;
+
+// The forward stages W2 in mma fragment order, split into its TF32 parts
+// (split_b): W2F [2 wh][16 k steps][4 nb][32 lanes] float4 {b0 hi, b1 hi,
+// b0 lo, b1 lo}, b0 = W2[8 ks + t][32 wh + 8 nb + g], b1 four rows below, so
+// that a warp loads a B fragment with one 128-bit load; and the head's
+// vectors (wd1, bd1, wd2, wod, bod [kE]; b2, w3 [kH]). Every thread of the
+// block calls it.
+__device__ __forceinline__ void stage_fwd_head(const HeadWeights& W, float* W2F, float* vec) {
   const int tid = threadIdx.x;
-  for (int c = tid; c < kE * kH / 4; c += NT) {
-    const int r = c / (kH / 4), f = (c % (kH / 4)) * 4;
-    const float4 w = *reinterpret_cast<const float4*>(W.w2 + r * kH + f);
-    float4 hi, lo;
-    split_b(w.x, hi.x, lo.x);
-    split_b(w.y, hi.y, lo.y);
-    split_b(w.z, hi.z, lo.z);
-    split_b(w.w, hi.w, lo.w);
-    *reinterpret_cast<float4*>(W2_s + swz_at(kH, r, f)) = hi;
-    *reinterpret_cast<float4*>(W2_s + kW2Lo + swz_at(kH, r, f)) = lo;
+  for (int e = tid; e < kE * kH / 2; e += kFwdThreads) {
+    const int lane = e & 31, nb = (e >> 5) & 3, ks = (e >> 7) & 15, wh = e >> 11;
+    const int k = 8 * ks + (lane & 3), h = 32 * wh + 8 * nb + (lane >> 2);
+    float4 f;
+    split_b(W.w2[k * kH + h], f.x, f.z);
+    split_b(W.w2[(k + 4) * kH + h], f.y, f.w);
+    reinterpret_cast<float4*>(W2F)[e] = f;
   }
   if (tid < kE) {
     vec[tid] = W.wd1[tid];
@@ -117,24 +133,6 @@ __device__ __forceinline__ void stage_head(const HeadWeights& W, float* W2_s, fl
     }
   }
 }
-
-// -- forward -------------------------------------------------------------------
-
-// the forward's l1 W2 in mma_tf32.cuh's plain split (the header says why)
-constexpr bool kFwdPrecise = false;
-// the forward's block: warps 0-7 run the tensor-core product (as the
-// backward's step 2), warps 8-11 the elementwise stages
-constexpr int kFwdThreads = 384;
-// shared memory of the forward, in floats
-constexpr int kFOffW2 = 0;                             // [2][kE][kH] swizzled: W2 split, hi, lo
-constexpr int kFOffL1 = kFOffW2 + 2 * kE * kH;         // [2][kPairs][kE] swizzled: l1 of two tiles
-constexpr int kFOffU = kFOffL1 + 2 * kPairs * kE;      // [2][2][8][kBS] u rows: j tile, i tile
-constexpr int kFOffGrid = kFOffU + 4 * kTile * kBS;    // [4][3][64] dist, noise, sel, [il][jl]
-constexpr int kFOffSig = kFOffGrid + 12 * kPairs;      // [4] sigma of the grid buffers
-constexpr int kFOffVec = kFOffSig + 4;                 // the head's vectors (stage_head)
-constexpr int kFOffDemb = kFOffVec + 5 * kE + 2 * kH;  // [2][64] demb
-constexpr int kFOffSr = kFOffDemb + 2 * kPairs;        // [2][2][64] score sums over column halves
-constexpr int kFwdFloats = kFOffSr + 4 * kPairs;
 
 // Forward of the head, per listed tile, block k computing the run
 // [run_begin(k), run_begin(k + 1)) of the tile list (items (graph, 8-row i
@@ -239,16 +237,49 @@ ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
       }
     }
   };
-  // warps 0-7: pre2 of the tile in l1 buffer lb, the score sums into sr buffer sb
+  // warps 0-7: pre2 of the tile in l1 buffer lb, the score sums into sr
+  // buffer sb: warp (wq, wh) = (warp & 3, warp >> 2) owns rows 16*wq.. and
+  // columns 32*wh..; a k step reads the A fragment with ldmatrix and splits
+  // it (mma_tf32.cuh's warp_tile_mma), B's four fragments with one 128-bit
+  // load each
   auto product = [&](int lb, int sb) {
-    const int wq = warp & 3, wh = warp >> 2;
+    const int wq = warp & 3, wh = warp >> 2, lr = lane & 7, lq = lane >> 3;
+    const float* A = smem + kFOffL1 + lb * kPairs * kE +
+                     (16 * wq + lr + 8 * (lq & 1)) * kE + 4 * ((lq >> 1) ^ (lr >> 2));
+    const float4* B = reinterpret_cast<const float4*>(smem + kFOffW2) + wh * 16 * 128 + lane;
     float p2[1][4][4];
 #pragma unroll
     for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
       for (int q = 0; q < 4; ++q) p2[0][nb][q] = 0.f;
-    warp_tile_mma<1, 4, kE, false, false, false, kFwdPrecise, kW2Lo>(
-        p2, smem + kFOffL1 + lb * kPairs * kE, kE, 16 * wq, smem + kFOffW2, kH, 32 * wh);
+#pragma unroll 2
+    for (int ks = 0; ks < kE / 8; ++ks) {
+      const int k0 = 8 * ks;
+      uint32_t v[4], ah[1][4], al[1][4], bh[4][2], bl[4][2];
+      ldsm_x4(A + (k0 & ~31) + 8 * (((k0 >> 3) & 3) ^ (lr & 3)), v);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split_tf32<kFwdPrecise>(v[q], ah[0][q], al[0][q]);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        const float4 f = B[ks * 128 + nb * 32];
+        bh[nb][0] = __float_as_uint(f.x), bh[nb][1] = __float_as_uint(f.y);
+        bl[nb][0] = __float_as_uint(f.z), bl[nb][1] = __float_as_uint(f.w);
+      }
+      if (!kFwdPrecise) {
+        mma_passes<1, 4>(p2, ah, al, bh, bl);
+        continue;
+      }
+      float d[1][4][4];  // the precise mode: each k step added in f32
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) d[0][nb][q] = 0.f;
+      mma_passes<1, 4>(d, ah, al, bh, bl);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) p2[0][nb][q] += d[0][nb][q];
+    }
     const float* b2_s = vec + 5 * kE;
     const float* w3_s = b2_s + kH;
     float sr[2] = {0.f, 0.f};
@@ -312,7 +343,7 @@ ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   load_rows(v0, 0);
   if (t_begin + 1 < t_end) load_rows(v1, 1);
   cp_async_commit();
-  stage_head<kFwdThreads>(W, smem + kFOffW2, smem + kFOffVec);
+  stage_fwd_head(W, smem + kFOffW2, smem + kFOffVec);
   cp_async_wait<0>();
   __syncthreads();
   if (warp >= 8) {
@@ -447,7 +478,28 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   const float bd2 = W.bd2[0], b3 = W.b3[0];
 
   // W2 split once into its TF32 parts: the B operand of l1 W2 and dx2 W2^T
-  stage_head(W, W2_s, wd1_s);
+  for (int c = tid; c < kE * kH / 4; c += kThreads) {
+    const int r = c / (kH / 4), f = (c % (kH / 4)) * 4;
+    const float4 w = *reinterpret_cast<const float4*>(W.w2 + r * kH + f);
+    float4 hi, lo;
+    split_b(w.x, hi.x, lo.x);
+    split_b(w.y, hi.y, lo.y);
+    split_b(w.z, hi.z, lo.z);
+    split_b(w.w, hi.w, lo.w);
+    *reinterpret_cast<float4*>(W2_s + swz_at(kH, r, f)) = hi;
+    *reinterpret_cast<float4*>(W2_s + kW2Lo + swz_at(kH, r, f)) = lo;
+  }
+  if (tid < kE) {
+    wd1_s[tid] = W.wd1[tid];
+    bd1_s[tid] = W.bd1[tid];
+    wd2_s[tid] = W.wd2[tid];
+    wod_s[tid] = W.wod[tid];
+    bod_s[tid] = W.bod[tid];
+    if (tid < kH) {
+      b2_s[tid] = W.b2[tid];
+      w3_s[tid] = W.w3[tid];
+    }
+  }
 
   // this block's share of the weight gradients over its run
   float gw2[2][4][4];  // dW2 rows 32*(warp&3) + 16*mb + 8*h + g, columns 32*(warp>>2) + 8*nb + 2*t + c

@@ -61,15 +61,16 @@ VARIANTS = {
                             "        if (c < 2 && grp == 0)\n"
                             "          for (int ks = 0; ks < KS; ++ks)\n"
                             "            painn_kstep<kFwdPrecise>(wn1, ah[ks], al[ks], WkF, c + 1, wn, ks);")],
+        "no_rows": [("painn_fwd.cu", "    if (k + 1 < t_end) load_rows(v1, (q + 1) & 1);", "    ;")],
+        "no_grids": [("painn_fwd.cu", "    if (k + 2 < t_end) load_grids(v2, (q + 2) % 3);",
+                      "    ;")],
         "no_phi": [("painn_fwd.cu", "    if (k + 1 < t_end) make_phi(q + 1);\n#pragma unroll\n    for (int c = 0", "#pragma unroll\n    for (int c = 0")],
     },
     "ncsn_score": {
         "precise": [("ncsn_score.cu", "constexpr bool kFwdPrecise = false;",
                      "constexpr bool kFwdPrecise = true;")],
-        "no_product": [("ncsn_score.cu",
-                        "    warp_tile_mma<1, 4, kE, false, false, false, kFwdPrecise, kW2Lo>(\n",
-                        "    if (kFwdPrecise) warp_tile_mma<1, 4, kE, false, false, false, "
-                        "kFwdPrecise, kW2Lo>(\n")],
+        "no_product": [("ncsn_score.cu", "        mma_passes<1, 4>(p2, ah, al, bh, bl);\n        continue;",
+                        "        continue;")],
         "no_elementwise": [("ncsn_score.cu", "      if (k + 1 < t_end) make_l1(",
                             "      if (k + 1 < 0) make_l1("),
                            ("ncsn_score.cu", "      if (k + 2 < t_end) make_demb(",
