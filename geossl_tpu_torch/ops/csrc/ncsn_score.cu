@@ -25,27 +25,30 @@
 //
 // Both directions walk the same device tile list: the tiles where sel is
 // not all zero, listed on the device (worklist.cuh, no host sync) in (graph,
-// 8-row i tile) items; a persistent grid (one 8-warp block per SM) gives
-// each block an equal run of the list. The weights are staged once per
-// block, W2 split into its TF32 parts (the B operand of the products). The
-// next tile's dist/noise/sel, sigma (and the backward's row cotangents) and
-// the u rows of its j and i tiles load with cp.async (double buffer) while
-// the current tile runs. No atomics anywhere: every output is bitwise the
-// same from run to run on one card.
+// 8-row i tile) items; a persistent grid (one block per SM) gives each block
+// an equal run of the list. The weights are staged once per block, W2 split
+// into its TF32 parts (the B operand of the products), and the next tiles'
+// dist/noise/sel, sigma (and the backward's row cotangents) and the u rows
+// of their j and i tiles load with cp.async while the current tile runs. No
+// atomics anywhere: every output is bitwise the same from run to run on one
+// card.
 //
-// Forward (ncsn_fwd_kernel, then ncsn_rows_kernel): per tile, dp, demb and
-// l1 on the CUDA cores, l1 into a swizzled tile; pre2 = l1 W2 on the tensor
-// cores with mma.sync.m16n8k8 TF32 in 3xTF32 (mma_tf32.cuh) in the plain
-// split: the forward reads relu(pre2) as a value, not its slope, and the
-// rows stay within a small share of chip_smoke.py's tolerance, at sigma =
-// 0.01 as at 10 (PERF.md has both splits' errors and times); relu, w3, the
-// score and the loss on the CUDA cores. The row sums: each pair's loss is
-// summed over the tile's 8 columns by shuffles and over the run's
-// consecutive tiles of one row tile in registers, then written once per
-// (block, item) segment; ncsn_rows_kernel adds each row's segments in block
-// order.
+// Forward (ncsn_fwd_kernel, then ncsn_rows_kernel), 12 warps in a pipeline
+// of one barrier a tile: warps 0-7 run pre2 = l1 W2 of tile k on the tensor
+// cores with mma.sync.m16n8k8 TF32 in 3xTF32 (mma_tf32.cuh; W2 stored in
+// mma fragment order) and the relu, w3 and score sums, while warps 8-11
+// make l1 of tile k + 1 and demb of tile k + 2 on the CUDA cores and sum
+// the loss of tile k - 1. l1 W2 runs in the plain split: the forward reads
+// relu(pre2) as a value, not its slope, and the rows stay at ~2% of
+// chip_smoke.py's row tolerance (the precise mode: ~0.3%, for more time;
+// PERF.md); on the CPU, the emulation holds both splits at sigma = 0.01
+// and 10. The row sums: each pair's loss is summed over the tile's 8
+// columns by shuffles and over the run's consecutive tiles of one row tile
+// in registers, then written once per (block, item) segment;
+// ncsn_rows_kernel adds each row's segments in block order.
 //
-// Backward (ncsn_bwd_kernel, then ncsn_du_kernel and reduce.cuh's sum):
+// Backward (ncsn_bwd_kernel, then ncsn_du_kernel and reduce.cuh's sum), 8
+// warps:
 // - products: the recomputed l1 W2, dl1 = dx2 W2^T and dW2 += l1^T dx2 on
 //   the tensor cores with mma.sync.m16n8k8 TF32 in 3xTF32 (mma_tf32.cuh).
 //   W2, the B operand of the first two, is split into its TF32 parts once

@@ -17,34 +17,40 @@
 // skip work: with `sparse`, 8x8 tiles whose gate is all zero (out of cutoff,
 // padding, empty graph slots).
 //
-// Plain mode (painn_fwd_mma_kernel):
+// Plain mode (painn_fwd_mma_kernel), one block of 16 warps per SM:
 // - work list: an occupancy pass and a scan make the list of computed tiles
 //   on the device (worklist.cuh, no host sync), in (graph, 8-row i tile)
-//   items, each with its j tiles. A persistent grid (one 8-warp block per
-//   SM) splits the items into contiguous runs of equal work by the prefix
-//   sums (first_item); items are never split, so each dq/dmu row is summed
-//   in registers by one block and written once, with no atomics: the output
-//   is bitwise the same from run to run on one card. The rows of an item
-//   with no listed tile (padding, empty graph slots, an all-zero gate under
-//   `sparse`) are written as zeros, spread over the grid;
-// - products: the filter w_raw = [phi; 1] [Wk; bk] of each tile, 64 pairs x
-//   3F, on the tensor cores with mma.sync.m16n8k8 TF32 in 3xTF32
+//   items, each with its j tiles. The persistent grid splits the items into
+//   contiguous runs of equal work by the prefix sums (first_item_warp);
+//   items are never split, so each dq/dmu row is summed in registers by one
+//   block and written once, with no atomics: the output is bitwise the same
+//   from run to run on one card. The rows of an item with no listed tile
+//   (padding, empty graph slots, an all-zero gate under `sparse`) are
+//   written as zeros, spread over the grid;
+// - products: the gated filter w = ([phi; 1] gate) [Wk; bk] of each tile, 64
+//   pairs x 3F, on the tensor cores with mma.sync.m16n8k8 TF32 in 3xTF32
 //   (painn_mma.cuh, shared with painn_bwd.cu), in the plain split: the
 //   filter feeds the messages linearly (no relu, no chained product), and
-//   that stays within half of chip_smoke.py's tolerance (PERF.md; the
-//   precise mode's errors and time are there too). [Wk; bk] is split into
-//   its TF32 parts once per block (warp_tile_mma's kBLo operand); the RBF's
-//   exp runs on the CUDA cores;
-// - messages: gating and the three message sums on the CUDA cores, in the
-//   mma fragments' layout. Pair p = jl*8 + il is row p, so lane (g, t) of
-//   warp (wm, wn) holds row il = g for the warp's four jl: the sum over j of
-//   a row stays in the lane's registers over all of an item's tiles, with no
+//   the errors stay at ~1% of chip_smoke.py's tolerance, as in the precise
+//   mode, which costs 10% more time (PERF.md). The operands are stored in
+//   mma fragment order, split into their TF32 parts once: [Wk; bk] once per
+//   block, the A rows [phi; 1] gate once per tile (the RBF's exp on the
+//   CUDA cores, folding the gate in); a warp loads its A fragments once a
+//   tile for the three 128-wide chunks and each B fragment with one 128-bit
+//   load;
+// - messages: the three message sums on the CUDA cores, in the mma
+//   fragments' layout. Pair p = jl*8 + il is row p, so lane (g, t) of warp
+//   (wm, wn) holds row il = g for the warp's four jl: the sum over j of a
+//   row stays in the lane's registers over all of an item's tiles, with no
 //   shuffle per tile, and the two warps wm are added once per item, through
-//   shared memory, in a fixed order;
-// - loads: the next listed tile's five pair grids and x/mu rows of its j
-//   tile load with cp.async (double buffer) while the current tile's
-//   products run, issued after the barrier that ends the current tile's
-//   predecessor.
+//   shared memory, in a fixed order. The warp's 16 filter columns are
+//   permuted so that a lane holds four consecutive features (16-byte x/mu
+//   loads and row stores). The k steps of chunk c + 1 are issued between the
+//   message groups of chunk c;
+// - loads: the pair grids two tiles ahead and the x/mu rows one tile ahead
+//   (cp.async), the next tile's A fragments made while the current tile's
+//   first products run, the list entries read a tile ahead: one barrier
+//   per tile.
 //
 // Symmetric mode (painn_fwd_sym_kernel; symmetric dist/gate, antisymmetric
 // directions, square grid), plain f32 FMAs on the CUDA cores, one block per
