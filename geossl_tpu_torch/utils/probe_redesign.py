@@ -270,6 +270,26 @@ def main():
         print("probe_times: " + json.dumps({"tree": args.tag, "variant": tag, "ms": t}))
 
     time_all("shipped")
+    # host time per call (enqueue only, the card not waited for) and the
+    # device time of each launch of one call, at the small DDM shapes
+    import time as _time
+
+    from geossl_tpu_torch.utils.profiling import top_device_ops
+
+    with torch.no_grad():
+        for case in ("DDM B=128 N=32", "DDM B=128 N=64"):
+            fn = fwd(case, sparse_auto(cases[case][0][0].shape[-1], "auto"))
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            t0 = _time.perf_counter()
+            for _ in range(20):
+                fn()
+            host = (_time.perf_counter() - t0) / 20 * 1e3
+            torch.cuda.synchronize()
+            ops = [[op[:40], ms, count] for op, ms, count in top_device_ops(fn, 8, 0)]
+            print("probe_host: " + json.dumps({"tree": args.tag, "case": case,
+                                               "host_ms_per_call": host, "device_ops": ops}))
     if args.profile:
         from geossl_tpu_torch.utils.profiling import top_device_ops
 
