@@ -1,6 +1,5 @@
 // Tensor-core tile products in 3xTF32 (cfconv_bwd.cu, painn_bwd.cu, schnet_stack.cu,
-// cfconv_fwd.cu's symmetric mode, painn_fwd.cu's plain mode through
-// painn_mma.cuh, ncsn_score.cu).
+// cfconv_fwd.cu's symmetric mode, painn_fwd.cu's plain mode, ncsn_score.cu).
 //
 // A warp computes C[16*MB x 8*NB] += A[16*MB x K] B[K x 8*NB] with
 // mma.sync.m16n8k8 (TF32 inputs, f32 accumulators). Each f32 operand x is

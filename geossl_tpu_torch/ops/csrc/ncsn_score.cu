@@ -40,7 +40,7 @@
 // make l1 of tile k + 1 and demb of tile k + 2 on the CUDA cores and sum
 // the loss of tile k - 1. l1 W2 runs in the plain split: the forward reads
 // relu(pre2) as a value, not its slope, and the rows stay at ~2% of
-// chip_smoke.py's row tolerance (the precise mode: ~0.3%, for more time;
+// chip_smoke.py's row tolerance (the precise mode: ~0.3%, for 6% more time;
 // PERF.md); on the CPU, the emulation holds both splits at sigma = 0.01
 // and 10. The row sums: each pair's loss is summed over the tile's 8
 // columns by shuffles and over the run's consecutive tiles of one row tile
@@ -92,8 +92,6 @@ constexpr int kW2Lo = kE * kH;  // the backward's offset of W2's low parts in sh
 
 // -- forward -------------------------------------------------------------------
 
-// the forward's l1 W2 in mma_tf32.cuh's plain split (the header says why)
-constexpr bool kFwdPrecise = false;
 // the forward's block: warps 0-7 run the tensor-core product (as the
 // backward's step 2), warps 8-11 the elementwise stages
 constexpr int kFwdThreads = 384;
@@ -261,27 +259,14 @@ ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
       uint32_t v[4], ah[1][4], al[1][4], bh[4][2], bl[4][2];
       ldsm_x4(A + (k0 & ~31) + 8 * (((k0 >> 3) & 3) ^ (lr & 3)), v);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) split_tf32<kFwdPrecise>(v[q], ah[0][q], al[0][q]);
+      for (int q = 0; q < 4; ++q) split_tf32(v[q], ah[0][q], al[0][q]);  // the plain split
 #pragma unroll
       for (int nb = 0; nb < 4; ++nb) {
         const float4 f = B[ks * 128 + nb * 32];
         bh[nb][0] = __float_as_uint(f.x), bh[nb][1] = __float_as_uint(f.y);
         bl[nb][0] = __float_as_uint(f.z), bl[nb][1] = __float_as_uint(f.w);
       }
-      if (!kFwdPrecise) {
-        mma_passes<1, 4>(p2, ah, al, bh, bl);
-        continue;
-      }
-      float d[1][4][4];  // the precise mode: each k step added in f32
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) d[0][nb][q] = 0.f;
-      mma_passes<1, 4>(d, ah, al, bh, bl);
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) p2[0][nb][q] += d[0][nb][q];
+      mma_passes<1, 4>(p2, ah, al, bh, bl);
     }
     const float* b2_s = vec + 5 * kE;
     const float* w3_s = b2_s + kH;

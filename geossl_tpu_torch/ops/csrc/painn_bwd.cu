@@ -83,7 +83,6 @@
 // and the five mirror tiles (227 KB at R=20; mu of the i rows is read from
 // global memory).
 #include "mma_tf32.cuh"
-#include "painn_mma.cuh"
 #include "painn_tile.cuh"
 #include "reduce.cuh"
 #include "worklist.cuh"
@@ -94,7 +93,9 @@ constexpr int kWS3 = kF3 + 4;  // SYM: padded row stride of Wk_s and dwg_s
 
 // -- plain mode: tensor-core products ------------------------------------------
 
-constexpr int kS1 = kF + 8;  // row stride of the 8-row node tiles F wide (bank spread)
+constexpr int kRP = 32;       // rows of Wk_s and phiT_s: R filter rows, the bias row, zeros
+constexpr int kS3 = kF3 + 8;  // row stride of the 8-row node tiles, 3F wide (bank spread)
+constexpr int kS1 = kF + 8;   // the same, F wide
 // shared memory of the plain-mode kernel, in floats
 constexpr int kOffWk = 0;                          // [kRP][kF3] swizzled: Wk, bk at row R
 constexpr int kOffPhi = kOffWk + kRP * kF3;        // [kRP][kPairs] swizzled: phi^T, row R = 1
@@ -111,6 +112,19 @@ constexpr int kMmaFloats = kOffDd + 2 * kPairs;    // then ints: misc[4], tile l
 
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
+}
+
+// w_raw of chunk c (columns c*F..) for this warp's 32 pairs x 32 features
+template <int K>
+__device__ __forceinline__ void filter_chunk_mma(float acc[2][4][4], const float* phi_s,
+                                                 const float* Wk_s, int wm, int wn, int c) {
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mb][nb][q] = 0.f;
+  warp_tile_mma<2, 4, K, true, false>(acc, phi_s, kPairs, 32 * wm, Wk_s, kF3, c * kF + 32 * wn);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -148,8 +162,14 @@ painn_bwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
   const float* grids[5] = {dist, gate, dirx, diry, dirz};
   float* pair_out[4] = {dgate, ddx, ddy, ddz};
 
-  painn_stage_wk(Wk_s, wk, bk, R);
-  painn_phi_const(phi_s, R);
+  for (int idx = tid; idx < kRP * kF3; idx += kThreads) {
+    const int r = idx / kF3, c = idx % kF3;
+    Wk_s[swz_at(kF3, r, c)] = r < R ? wk[idx] : (r == R ? bk[c] : 0.f);
+  }
+  for (int idx = tid; idx < (kRP - R) * kPairs; idx += kThreads) {
+    const int r = R + idx / kPairs, p = idx % kPairs;
+    phi_s[swz_at(kPairs, r, p)] = r == R ? 1.f : 0.f;
+  }
   if (tid == 0) {
     misc[0] = first_item(pre, n_items, gridDim.x, blockIdx.x);
     misc[1] = first_item(pre, n_items, gridDim.x, blockIdx.x + 1);
@@ -234,7 +254,12 @@ painn_bwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
       const float* gq_t = smem + kOffGq + buf * kTile * kS1;
       const float* gmu_t = smem + kOffGmu + buf * kTile * kS3;
 
-      painn_phi_tile(pr, phi_s, R, delta, coeff);  // phi^T of the tile's 64 pairs
+      // phi^T of the tile's 64 pairs (pair p = jl*8 + il)
+      for (int idx = tid; idx < R * kPairs; idx += kThreads) {
+        const int r = idx / kPairs, p = idx % kPairs;
+        const float diff = pr[(p & 7) * kTile + (p >> 3)] - delta * (float)r;
+        phi_s[swz_at(kPairs, r, p)] = __expf(coeff * diff * diff);
+      }
       __syncthreads();
 
       // per pair of this lane (q = 2 mb + h): dgate and ddir partial sums over its features

@@ -29,15 +29,14 @@
 //   written as zeros, spread over the grid;
 // - products: the gated filter w = ([phi; 1] gate) [Wk; bk] of each tile, 64
 //   pairs x 3F, on the tensor cores with mma.sync.m16n8k8 TF32 in 3xTF32
-//   (painn_mma.cuh, shared with painn_bwd.cu), in the plain split: the
-//   filter feeds the messages linearly (no relu, no chained product), and
-//   the errors stay at ~1% of chip_smoke.py's tolerance, as in the precise
-//   mode, which costs 10% more time (PERF.md). The operands are stored in
-//   mma fragment order, split into their TF32 parts once: [Wk; bk] once per
-//   block, the A rows [phi; 1] gate once per tile (the RBF's exp on the
-//   CUDA cores, folding the gate in); a warp loads its A fragments once a
-//   tile for the three 128-wide chunks and each B fragment with one 128-bit
-//   load;
+//   (mma_tf32.cuh) in the plain split: the filter feeds the messages
+//   linearly (no relu, no chained product), and the errors stay at ~1.4% of
+//   chip_smoke.py's tolerance (the precise mode: 1.2%, for 13% more time;
+//   PERF.md). The operands are stored in mma fragment order, split into
+//   their TF32 parts once: [Wk; bk] once per block, the A rows [phi; 1]
+//   gate once per tile (the RBF's exp on the CUDA cores, folding the gate
+//   in); a warp loads its A fragments once a tile for the three 128-wide
+//   chunks and each B fragment with one 128-bit load;
 // - messages: the three message sums on the CUDA cores, in the mma
 //   fragments' layout. Pair p = jl*8 + il is row p, so lane (g, t) of warp
 //   (wm, wn) holds row il = g for the warp's four jl: the sum over j of a
@@ -67,7 +66,6 @@
 // not operations: the five pair grids' upper triangles outweigh the filters
 // of the few in-cutoff pairs.
 #include "mma_tf32.cuh"
-#include "painn_mma.cuh"
 #include "painn_tile.cuh"
 #include "reduce.cuh"
 #include "worklist.cuh"
@@ -76,10 +74,124 @@ namespace geossl {
 
 // -- plain mode: tensor-core filter ------------------------------------------------
 
-// the filter product in mma_tf32.cuh's plain 3xTF32 split (the header says why)
-constexpr bool kFwdPrecise = false;
+constexpr int kRP = 32;       // K of the filter product at most: R RBF rows, the bias row, zeros
+constexpr int kS3 = kF3 + 8;  // row stride of the 8-row x/mu tiles (bank spread)
+
+// -- the filter's operands in mma fragment order --------------------------------
+//
+// For a block of kFwdThreads threads, 16 warps (wm, wn) = (warp & 1,
+// warp >> 1): pairs 32*wm.. and features 16*wn.. of a chunk. The warp's 16
+// columns are permuted so that lane (g, t) holds pairs (jl = 4*wm + 2*mb +
+// h, il = g) and the four consecutive features 16*wn + 4*t + 2*nb + c (mb,
+// nb, h, c < 2): C column 8*nb + j (j < 8) of the warp's mma is feature
+// 16*wn + fwd_col(8*nb + j), so that a lane reads x and mu, and writes its
+// rows, 16 bytes at a time.
+//
+// B = [Wk; bk; 0]: WkF [3 chunks][16 groups of 8 columns][kKS k steps][32
+// lanes] float4 {b0 hi, b1 hi, b0 lo, b1 lo}, b0 = B[8 ks + t][128 c + 16
+// (grp / 2) + fwd_col(8 (grp % 2) + g)], b1 four rows below (mma.m16n8k8's
+// B fragment), split once per block. A = [phi; 1] gate of a tile (the
+// gate folded in, so that the product is the gated filter): a buffer holds
+// the high parts [4 blocks of 16 pairs][kKS][32 lanes] float4 {a0, a1, a2,
+// a3}, then the low parts in the same order, with a0 = A[16 blk + g][8 ks +
+// t], a1 eight rows below, a2 and a3 four columns right of them (the A
+// fragment). Both parts are split once, so that a warp loads a k step's
+// fragments with 128-bit loads and splits nothing in its loop.
+
+constexpr int kFwdThreads = 512;
+
+// The feature (within the warp's 16) of C column n = 8*nb + j.
+__host__ __device__ constexpr int fwd_col(int n) {
+  return 4 * ((n & 7) >> 1) + 2 * (n >> 3) + (n & 1);
+}
+constexpr int kKS = kRP / 8;                 // k steps, at most
+constexpr int kWkFFloats = 3 * 16 * kKS * 32 * 4;
+constexpr int kPhiFLo = 4 * kKS * 32 * 4;    // the low parts' offset in a phi buffer
+constexpr int kPhiFFloats = 2 * kPhiFLo;
+
+// Stages WkF (split_b: both parts rounded). Every thread of the block calls it.
+__device__ __forceinline__ void painn_stage_wkf(float* WkF, const float* __restrict__ wk,
+                                                const float* __restrict__ bk, int R) {
+  for (int e = threadIdx.x; e < kWkFFloats / 4; e += kFwdThreads) {
+    const int lane = e & 31, ks = (e >> 5) % kKS, cg = (e >> 5) / kKS;  // cg = 16 c + grp
+    const int k0 = 8 * ks + (lane & 3);
+    const int n = 16 * (cg >> 1) + fwd_col(8 * (cg & 1) + (lane >> 2));
+    float v[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int k = k0 + 4 * u;
+      v[u] = k < R ? wk[k * kF3 + n] : (k == R ? bk[n] : 0.f);
+    }
+    float4 f;
+    split_b(v[0], f.x, f.z);
+    split_b(v[1], f.y, f.w);
+    reinterpret_cast<float4*>(WkF)[e] = f;
+  }
+}
+
+// The A fragments [phi; 1] gate of a tile into phi buffer phiF, split into
+// their TF32 parts (split_tf32: the plain split). d_t and g_t: the tile's
+// distances and gates [il][jl]. KS k steps (K = 8 KS >= R+1). Every thread
+// of the block calls it.
+template <int KS>
+__device__ __forceinline__ void painn_phi_frags(const float* d_t, const float* g_t, float* phiF,
+                                                int R, float delta, float coeff) {
+  for (int e = threadIdx.x; e < 4 * KS * 32; e += kFwdThreads) {
+    const int lane = e & 31, ks = (e >> 5) % KS, blk = (e >> 5) / KS;
+    const int g = lane >> 2, t = lane & 3;
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int p = 16 * blk + g + 8 * (q & 1), r = 8 * ks + t + 4 * (q >> 1);
+      const int at = (p & 7) * kTile + (p >> 3);
+      const float gp = g_t[at], diff = d_t[at] - delta * (float)r;
+      const float v = r < R ? gp * __expf(coeff * diff * diff) : (r == R ? gp : 0.f);
+      split_tf32(__float_as_uint(v), hi[q], lo[q]);
+    }
+    const int at4 = (blk * kKS + ks) * 32 + lane;
+    reinterpret_cast<uint4*>(phiF)[at4] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    reinterpret_cast<uint4*>(phiF + kPhiFLo)[at4] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// This warp's A fragments of a tile (its 32 pairs, blocks 2 wm + mb), all KS
+// k steps: loaded once, read by the three chunks.
+template <int KS>
+__device__ __forceinline__ void painn_load_a(const float* phiF, int wm, uint32_t ah[KS][2][4],
+                                             uint32_t al[KS][2][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb) {
+      const int at4 = ((2 * wm + mb) * kKS + ks) * 32 + lane;
+      const uint4 h = reinterpret_cast<const uint4*>(phiF)[at4];
+      const uint4 l = reinterpret_cast<const uint4*>(phiF + kPhiFLo)[at4];
+      ah[ks][mb][0] = h.x, ah[ks][mb][1] = h.y, ah[ks][mb][2] = h.z, ah[ks][mb][3] = h.w;
+      al[ks][mb][0] = l.x, al[ks][mb][1] = l.y, al[ks][mb][2] = l.z, al[ks][mb][3] = l.w;
+    }
+}
+
+// k step ks of chunk c for this warp's 2 x 2 blocks: acc += A B over k =
+// 8 ks.., the three passes of 3xTF32 (mma_tf32.cuh).
+__device__ __forceinline__ void painn_kstep(float acc[2][2][4], const uint32_t ah[2][4],
+                                            const uint32_t al[2][4], const float* WkF, int c,
+                                            int wn, int ks) {
+  const int lane = threadIdx.x & 31;
+  uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb) {
+    const float4 v = reinterpret_cast<const float4*>(
+        WkF)[((16 * c + 2 * wn + nb) * kKS + ks) * 32 + lane];
+    bh[nb][0] = __float_as_uint(v.x), bh[nb][1] = __float_as_uint(v.y);
+    bl[nb][0] = __float_as_uint(v.z), bl[nb][1] = __float_as_uint(v.w);
+  }
+  mma_passes<2, 2>(acc, ah, al, bh, bl);
+}
+
+
 // shared memory of the plain-mode kernel, in floats
-constexpr int kFOffWk = 0;                           // WkF (painn_mma.cuh)
+constexpr int kFOffWk = 0;                           // WkF (above)
 constexpr int kFOffPhi = kFOffWk + kWkFFloats;       // [2] phi buffers, fragment order
 constexpr int kFOffX = kFOffPhi + 2 * kPhiFFloats;   // [2][2][8][kS3] x, mu rows of the j tile
 constexpr int kFOffPr = kFOffX + 4 * kTile * kS3;    // [3][5][64] dist, gate, dir x/y/z, [il][jl]
@@ -89,7 +201,7 @@ constexpr int kFwdFloats = kFOffRed + 8 * 32 * 16;
 // Block k runs items [first_item(k), first_item(k + 1)) of the tile list
 // (worklist.cuh: items (graph, 8-row i tile), each listing its j tiles), in
 // list order, i.e. listed tiles [pre[first], pre[last]), with 16 warps
-// (painn_mma.cuh's fragment order). One barrier per tile: the pair grids
+// (the fragment order above). One barrier per tile: the pair grids
 // load two tiles ahead and the x/mu rows one tile ahead (cp.async), and each
 // tile's A fragments are made in the previous tile's iteration (double
 // buffer, made while the tile's first products run), so that the barrier
@@ -172,7 +284,7 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
   // 3) into phi buffer q & 1
   auto make_phi = [&](int q) {
     const float* pr = smem + kFOffPr + q % 3 * 5 * kPairs;
-    painn_phi_frags<KS, kFwdPrecise>(pr, pr + kPairs, smem + kFOffPhi + (q & 1) * kPhiFFloats, R,
+    painn_phi_frags<KS>(pr, pr + kPairs, smem + kFOffPhi + (q & 1) * kPhiFFloats, R,
                                      delta, coeff);
   };
 
@@ -253,7 +365,7 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
           for (int u = 0; u < 4; ++u) acc[a][mb][nb][u] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks)
-      painn_kstep<kFwdPrecise>(acc[0], ah[ks], al[ks], WkF, 0, wn, ks);
+      painn_kstep(acc[0], ah[ks], al[ks], WkF, 0, wn, ks);
     // the next tile's A fragments while chunk 0's products run (its grids
     // landed before this tile's barrier)
     if (k + 1 < t_end) make_phi(q + 1);
@@ -265,7 +377,7 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
       for (int grp = 0; grp < 4; ++grp) {
         // a k step of chunk c + 1 before each message group of chunk c
         if (c < 2 && grp < KS)
-          painn_kstep<kFwdPrecise>(wn1, ah[grp], al[grp], WkF, c + 1, wn, grp);
+          painn_kstep(wn1, ah[grp], al[grp], WkF, c + 1, wn, grp);
         const int mb = grp >> 1, h = grp & 1, jl = 4 * wm + 2 * mb + h, at = g * kTile + jl;
         const int f = c * kF + 16 * wn + 4 * t;  // this lane's four features
         // the filter of pair (jl, il = g) at features f + u, u = 2*nb + c'

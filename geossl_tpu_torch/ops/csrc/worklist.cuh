@@ -3,8 +3,8 @@
 // schnet_stack.cu, cfconv_fwd.cu's symmetric mode, painn_fwd.cu's plain
 // mode, ncsn_score.cu's forward and backward).
 //
-// An occupancy pass (one block per graph and 8-row band; for the tile list,
-// one warp per item) flags the tiles to compute (with `sparse` those whose
+// An occupancy pass (one block per graph and 8-row band; BY_ROW, one warp
+// per item) flags the tiles to compute (with `sparse` those whose
 // env is not all zero; with SYM only the tiles pi <= pj), writes zero on the
 // other tiles of up to five pair grids (a backward's pair cotangents: the
 // occupancy contract of geossl_tpu/ops/pallas_utils.py) and counts each
@@ -30,8 +30,8 @@ struct ZeroGrids {
 };
 
 // Block (pi, b) flags the computed tiles of its 8-row band: occ[item][tile]
-// with item (b, pj) and tile pi, or BY_ROW item (b, pi) and tile pj.
-template <bool SYM, bool BY_ROW>
+// with item (b, pj) and tile pi.
+template <bool SYM>
 __global__ void __launch_bounds__(kOccThreads)
 tile_occ_kernel(const float* __restrict__ env, int* __restrict__ occ,
                 int* __restrict__ cnt, ZeroGrids zero, int ni, int nj, int sparse) {
@@ -52,13 +52,8 @@ tile_occ_kernel(const float* __restrict__ env, int* __restrict__ occ,
   }
   for (int pj = tid; pj < ntj; pj += kOccThreads) {
     const int on = (!SYM || pi <= pj) && flag_s[pj];
-    if (BY_ROW) {
-      occ[((size_t)b * nti + pi) * ntj + pj] = on;
-      if (on) atomicAdd(&cnt[b * nti + pi], 1);
-    } else {
-      occ[((size_t)b * ntj + pj) * nti + pi] = on;
-      if (on) atomicAdd(&cnt[b * ntj + pj], 1);
-    }
+    occ[((size_t)b * ntj + pj) * nti + pi] = on;
+    if (on) atomicAdd(&cnt[b * ntj + pj], 1);
     flag_s[pj] = on;
   }
   __syncthreads();
@@ -69,6 +64,35 @@ tile_occ_kernel(const float* __restrict__ env, int* __restrict__ occ,
       for (int k = 0; k < zero.n; ++k) zero.g[k][base + (size_t)r * nj + j] = 0.f;
     }
   }
+}
+
+// The same flags for BY_ROW items (b, pi), tiles pj, with no grids to zero:
+// one warp per item, its lanes over the item's j tiles, the item's count
+// written once (no atomics, no memset).
+template <bool SYM>
+__global__ void __launch_bounds__(kOccThreads)
+row_occ_kernel(const float* __restrict__ env, int* __restrict__ occ, int* __restrict__ cnt,
+               int items, int ni, int nj, int sparse) {
+  const int item = blockIdx.x * (kOccThreads / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (item >= items) return;
+  const int nti = (ni + kTile - 1) / kTile, ntj = (nj + kTile - 1) / kTile;
+  const int b = item / nti, pi = item - b * nti, i0 = pi * kTile, rows = min(kTile, ni - i0);
+  const float* base = env + ((size_t)b * ni + i0) * nj;
+  int n = 0;
+  for (int t0 = 0; t0 < ntj; t0 += 32) {
+    const int pj = t0 + lane;
+    bool on = pj < ntj && (!SYM || pi <= pj);
+    if (on && sparse) {
+      const int j0 = pj * kTile, cols = min(kTile, nj - j0);
+      bool any = false;
+      for (int r = 0; r < rows; ++r)
+        for (int c = 0; c < cols; ++c) any |= base[(size_t)r * nj + j0 + c] != 0.f;
+      on = any;
+    }
+    if (pj < ntj) occ[(size_t)item * ntj + pj] = on;
+    n += __popc(__ballot_sync(0xffffffffu, on));
+  }
+  if (lane == 0) cnt[item] = n;
 }
 
 // Exclusive prefix sums of the n item counts: pre[0..n], pre[n] the total.
@@ -138,6 +162,7 @@ __device__ inline int first_item_warp(const int* __restrict__ pre, int n, int nb
 inline size_t worklist_ints(size_t items, size_t tiles) { return items * tiles + 2 * items + 1; }
 
 // The occupancy pass and the scan on stream s; ws holds worklist_ints ints.
+// BY_ROW lists zero no grids (zero.n must be 0).
 template <bool SYM, bool BY_ROW>
 inline cudaError_t make_worklist(const float* env, int* ws, ZeroGrids zero, int B, int ni,
                                  int nj, int sparse, cudaStream_t s) {
@@ -146,10 +171,17 @@ inline cudaError_t make_worklist(const float* env, int* ws, ZeroGrids zero, int 
   int* occ = ws;
   int* cnt = occ + (size_t)items * (BY_ROW ? ntj : nti);
   int* pre = cnt + items;
-  cudaError_t err = cudaMemsetAsync(cnt, 0, sizeof(int) * (size_t)items, s);
-  if (err != cudaSuccess) return err;
-  tile_occ_kernel<SYM, BY_ROW><<<dim3(nti, B), kOccThreads, sizeof(int) * ntj, s>>>(
-      env, occ, cnt, zero, ni, nj, sparse);
+  if (BY_ROW) {
+    if (zero.n != 0) return cudaErrorInvalidValue;
+    const int per = kOccThreads / 32;
+    row_occ_kernel<SYM><<<(items + per - 1) / per, kOccThreads, 0, s>>>(env, occ, cnt, items,
+                                                                       ni, nj, sparse);
+  } else {
+    cudaError_t err = cudaMemsetAsync(cnt, 0, sizeof(int) * (size_t)items, s);
+    if (err != cudaSuccess) return err;
+    tile_occ_kernel<SYM><<<dim3(nti, B), kOccThreads, sizeof(int) * ntj, s>>>(
+        env, occ, cnt, zero, ni, nj, sparse);
+  }
   tile_scan_kernel<<<1, 1024, 0, s>>>(cnt, pre, items);
   return cudaGetLastError();
 }
@@ -183,51 +215,20 @@ inline size_t tile_list_ints(size_t items, size_t tiles) {
   return worklist_ints(items, tiles) + 2 * items * tiles;
 }
 
-// The occupancy pass of make_tile_list: one warp per item (graph, 8-row i
-// tile), its lanes over the item's j tiles (the flags as tile_occ_kernel's,
-// BY_ROW), the item's count written once: no memset, no atomics, and a
-// warp's worth of work where tile_occ_kernel gives a block.
-template <bool SYM>
-__global__ void __launch_bounds__(kOccThreads)
-row_occ_kernel(const float* __restrict__ env, int* __restrict__ occ, int* __restrict__ cnt,
-               int items, int ni, int nj, int sparse) {
-  const int item = blockIdx.x * (kOccThreads / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (item >= items) return;
-  const int nti = (ni + kTile - 1) / kTile, ntj = (nj + kTile - 1) / kTile;
-  const int b = item / nti, pi = item - b * nti, i0 = pi * kTile, rows = min(kTile, ni - i0);
-  const float* base = env + ((size_t)b * ni + i0) * nj;
-  int n = 0;
-  for (int t0 = 0; t0 < ntj; t0 += 32) {
-    const int pj = t0 + lane;
-    bool on = pj < ntj && (!SYM || pi <= pj);
-    if (on && sparse) {
-      const int j0 = pj * kTile, cols = min(kTile, nj - j0);
-      bool any = false;
-      for (int r = 0; r < rows; ++r)
-        for (int c = 0; c < cols; ++c) any |= base[(size_t)r * nj + j0 + c] != 0.f;
-      on = any;
-    }
-    if (pj < ntj) occ[(size_t)item * ntj + pj] = on;
-    n += __popc(__ballot_sync(0xffffffffu, on));
-  }
-  if (lane == 0) cnt[item] = n;
-}
-
-// A BY_ROW work list over a [B, ni, nj] grid (row_occ_kernel and the scan),
-// then the tile list. With nti, ntj its 8-row and 8-column tiles, ws holds
-// tile_list_ints(B * nti, ntj) ints: flags, counts, prefix sums (pre[B *
-// nti] is the number of listed tiles), list, pos.
+// make_worklist<SYM, true> over a [B, ni, nj] grid, then the tile list.
+// With nti, ntj its 8-row and 8-column tiles, ws holds tile_list_ints(B *
+// nti, ntj) ints: flags, counts, prefix sums (pre[B * nti] is the number of
+// listed tiles), list, pos.
 template <bool SYM>
 inline cudaError_t make_tile_list(const float* env, int* ws, int B, int ni, int nj, int sparse,
                                   cudaStream_t s) {
   const int nti = (ni + kTile - 1) / kTile, ntj = (nj + kTile - 1) / kTile, items = B * nti;
+  ZeroGrids none = {{nullptr}, 0};
+  cudaError_t err = make_worklist<SYM, true>(env, ws, none, B, ni, nj, sparse, s);
+  if (err != cudaSuccess) return err;
+  const int* occ = ws;
+  const int* pre = ws + (size_t)items * ntj + items;
   const int per = kOccThreads / 32;
-  int* occ = ws;
-  int* cnt = occ + (size_t)items * ntj;
-  int* pre = cnt + items;
-  row_occ_kernel<SYM><<<(items + per - 1) / per, kOccThreads, 0, s>>>(env, occ, cnt, items, ni,
-                                                                     nj, sparse);
-  tile_scan_kernel<<<1, 1024, 0, s>>>(cnt, pre, items);
   int* list = ws + worklist_ints(items, ntj);
   int* pos = list + (size_t)items * ntj;
   tile_list_kernel<<<(items + per - 1) / per, kOccThreads, 0, s>>>(occ, pre, items, ntj, list,

@@ -42,8 +42,8 @@ JAX package's second-order path (MD17 forces) is not ported, and a double
 backward raises NotImplementedError. The kernels compute in plain f32 on
 the CUDA cores, but for ``painn_fwd`` and ``painn_bwd``, whose tile
 products (the filter; the backward also dWk and dphi) run on the tensor
-cores in 3xTF32 (``csrc/mma_tf32.cuh``, ``csrc/painn_mma.cuh``), within f32
-rounding of the plain version.
+cores in 3xTF32 (``csrc/mma_tf32.cuh``), within f32 rounding of the plain
+version.
 
 The symmetric pair is for symmetric dist/gate and antisymmetric directions
 only (dir[j, i] = -dir[i, j]): PaiNN's geometry gives them without
