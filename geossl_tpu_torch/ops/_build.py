@@ -25,7 +25,6 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict = {}
-_fns: dict = {}  # (lib, fn, argtypes, restype) -> the declared C entry
 _lock = threading.Lock()
 
 
@@ -95,30 +94,14 @@ def build_log(name: str) -> str:
 
 def kernel_fn(lib: str, fn: str, argtypes, restype=ctypes.c_int):
     """The C entry ``fn`` of library ``lib`` (built on first use), with its
-    argument and result types declared (once: a wrapper calls this on every
-    launch, and declaring the types again costs host time)."""
-    key = (lib, fn, tuple(argtypes), restype)
-    f = _fns.get(key)
-    if f is not None and _libs.get(lib) is f.lib:
-        return f.entry
+    argument and result types declared."""
     with _lock:
         if lib not in _libs:
             path = lib_path(lib)
             if not os.path.exists(path):
                 build_all()
             _libs[lib] = ctypes.CDLL(path)
-    # a fresh pointer to the entry, so that declarations of one name with
-    # other types do not overwrite each other
-    entry = ctypes.CFUNCTYPE(restype, *argtypes)((fn, _libs[lib]))
-    _fns[key] = _Entry(_libs[lib], entry)
-    return entry
-
-
-class _Entry:
-    """A declared C entry and the library handle it was resolved in (a
-    library swapped in under the same name is resolved again)."""
-
-    __slots__ = ("lib", "entry")
-
-    def __init__(self, lib, entry):
-        self.lib, self.entry = lib, entry
+    f = getattr(_libs[lib], fn)
+    f.argtypes = list(argtypes)
+    f.restype = restype
+    return f

@@ -315,7 +315,7 @@ extern "C" int cfconv_fwd(const float* dist, const float* env, const float* x,
     return (int)cudaGetLastError();
   }
   const int nt = (ni + kTile - 1) / kTile, items = B * nt;
-  cudaError_t err = make_tile_list<true>(env, ws, B, ni, sparse, s);
+  cudaError_t err = make_tile_list<true>(env, ws, B, ni, ni, sparse, s);
   if (err != cudaSuccess) return (int)err;
   const int* total = ws + (size_t)items * nt + 2 * items;  // pre[items]
   const int* list = ws + worklist_ints(items, nt);

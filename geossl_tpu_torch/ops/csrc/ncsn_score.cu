@@ -926,7 +926,7 @@ extern "C" int ncsn_score_fwd(const float* dist, const float* noise, const float
   const size_t smem = sizeof(float) * (size_t)kFwdFloats;
   const int blocks = ncsn_blocks(B, n), nt = (n + kTile - 1) / kTile, items = B * nt;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = make_tile_list<false>(sel, ws, B, n, 1, s);
+  cudaError_t err = make_tile_list<false>(sel, ws, B, n, n, 1, s);
   if (err != cudaSuccess) return (int)err;
   const int* pre = ws + (size_t)items * nt + items;
   const int* list = ws + worklist_ints(items, nt);
@@ -963,7 +963,7 @@ extern "C" int ncsn_score_bwd(const float* dist, const float* noise, const float
   const size_t smem = sizeof(float) * (size_t)kBwdFloats;
   const int blocks = ncsn_blocks(B, n), nt = (n + kTile - 1) / kTile, items = B * nt;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = make_tile_list<false>(sel, ws, B, n, 1, s);
+  cudaError_t err = make_tile_list<false>(sel, ws, B, n, n, 1, s);
   if (err != cudaSuccess) return (int)err;
   const int* pre = ws + (size_t)items * nt + items;
   const int* list = ws + worklist_ints(items, nt);

@@ -21,7 +21,7 @@
 // - work list: an occupancy pass and a scan make the list of computed tiles
 //   on the device (worklist.cuh, no host sync), in (graph, 8-row i tile)
 //   items, each with its j tiles. The persistent grid splits the items into
-//   contiguous runs of equal work by the prefix sums (first_item_warp);
+//   contiguous runs of equal work by the prefix sums (first_item);
 //   items are never split, so each dq/dmu row is summed in registers by one
 //   block and written once, with no atomics: the output is bitwise the same
 //   from run to run on one card. The rows of an item with no listed tile
@@ -236,10 +236,8 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
   // warps 0 and 1 find the run; every warp writes zero to the rows of its
   // items with no listed tile (any block may write them: no other block
   // does), one item a warp at a time
-  if (warp < 2) {
-    const int it = first_item_warp(pre, n_items, gridDim.x, blockIdx.x + warp);
-    if (lane == 0) run_s[warp] = pre[it];
-  }
+  if (warp < 2 && lane == 0)
+    run_s[warp] = pre[first_item(pre, n_items, gridDim.x, blockIdx.x + warp)];
   for (int item = blockIdx.x + gridDim.x * warp; item < n_items;
        item += gridDim.x * (kFwdThreads / 32)) {
     if (pre[item] != pre[item + 1]) continue;  // warp-uniform
@@ -302,6 +300,7 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
   // through red_s) and zeroes the sums; every thread calls it
   auto flush = [&]() {
     float* red = red_s + (wn * 32 + lane) * 16;
+    __syncthreads();  // the warps wm = 0 are done reading red_s (the previous flush)
     if (wm == 1) {
       st4(red, aq[0], aq[1], aq[2], aq[3]);
 #pragma unroll

@@ -137,26 +137,6 @@ __device__ inline int first_item(const int* __restrict__ pre, int n, int nb, int
   return lo;
 }
 
-// first_item by the 32 lanes of a warp (every lane gets it): a 32-way
-// search, each round one pair of loads per lane, ~log32(n) rounds where
-// first_item takes log2(n) dependent loads.
-__device__ inline int first_item_warp(const int* __restrict__ pre, int n, int nb, int k) {
-  const int lane = threadIdx.x & 31;
-  const long long t2 = 2LL * max(pre[n], 1);
-  int lo = 0, hi = n;  // the answer lies in [lo, hi]
-  while (lo < hi) {
-    const int m = lo + (int)((long long)(hi - lo) * lane / 32);  // m < hi
-    const long long key = min((long long)nb - 1, (long long)(pre[m] + pre[m + 1]) * nb / t2);
-    const unsigned hit = __ballot_sync(0xffffffffu, key >= k);
-    const int f = hit ? __ffs(hit) - 1 : 32;  // the first probe at or past the answer
-    const int m_lo = f > 0 ? __shfl_sync(0xffffffffu, m, f - 1) : lo - 1;
-    const int m_hi = f < 32 ? __shfl_sync(0xffffffffu, m, f) : hi;
-    lo = m_lo + 1;
-    hi = m_hi;
-  }
-  return lo;
-}
-
 // Ints of a work list over `items` items of `tiles` tiles each: flags
 // [items * tiles], counts [items], prefix sums [items + 1].
 inline size_t worklist_ints(size_t items, size_t tiles) { return items * tiles + 2 * items + 1; }
@@ -234,13 +214,6 @@ inline cudaError_t make_tile_list(const float* env, int* ws, int B, int ni, int 
   tile_list_kernel<<<(items + per - 1) / per, kOccThreads, 0, s>>>(occ, pre, items, ntj, list,
                                                                    pos);
   return cudaGetLastError();
-}
-
-// The same over a square [B, n, n] grid.
-template <bool SYM>
-inline cudaError_t make_tile_list(const float* env, int* ws, int B, int n, int sparse,
-                                  cudaStream_t s) {
-  return make_tile_list<SYM>(env, ws, B, n, n, sparse, s);
 }
 
 // The first tile of block k's run when `total` listed tiles are split into
