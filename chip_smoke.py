@@ -38,7 +38,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    with gating on (also on the DDM batch at N=128, a partial batch of 5
    graphs in its 128 slots and the LBA batch at N=512; on the DDM batch two
    launches must agree bitwise in every output); ``painn_stack`` (scaled
-   atol) against the per-block plain chain. ``schnet_stack`` elementwise
+   atol) against the per-block plain chain, and in phase 4 at serving's first
+   batch of buckets 32, 64 and 128 (128 slots, whatever the route) and on a
+   partial batch (5 graphs in 128 slots), two launches bitwise equal at each
+   (``painn_stack_shapes:``: its time and bounds at each);
+   ``painn_stack_train``'s six outputs (q, mu and the four residual stacks)
+   at the DDM batch, two launches bitwise equal. ``schnet_stack`` elementwise
    (rtol 1e-4, atol 1e-5) in its symmetric mode (default graph) and its
    plain mode (``max_neighbors=32`` graph) at B=8, at serving's first batch
    of buckets 32, 64 and 128 (128 slots), on a partial batch (5 graphs in
@@ -48,6 +53,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    likewise (rtol 1e-4, atol 1e-5, gating off and on) on that partial and
    that uneven batch, a second launch against the first; and, in phase 4,
    at the DDM buckets (B=128, N=32/64/128) and serving's N=512.
+   ``cfconv_fwd`` (rtol 1e-4, atol 1e-5, gating off and on) on the
+   ``max_neighbors=32`` graph at B=2 (N=128, 256 and a pad of 100), in
+   phase 4 at serving's N=256 (two launches bitwise equal) and on the DDM
+   batch at N=128 (``cfconv_fwd_ddm:``: two launches bitwise equal, its
+   time, bounds and launches on the ``max_num_neighbors`` training path).
    ``ncsn_score_bwd`` on the DDM batch (B=128, N=128) and on a partial batch
    of 5 graphs in its 128 slots; on the DDM batch two launches must agree
    bitwise in every output. ``ncsn_score_fwd`` on the same two batches,
@@ -165,9 +175,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    once and the upper triangle read; for the tensor-core CFConv backward,
    ``bound_basis`` "tf32_tensor_core+f32": its products once at the TF32
    tensor-core peak, its elementwise terms at the f32 peak; likewise
-   ``schnet_stack``, ``painn_fwd``, ``painn_bwd``, ``cfconv_fwd_sym`` (also
-   on the ``cfconv_fwd_sym_ddm:`` line), ``ncsn_score_fwd`` and
-   ``ncsn_score_bwd``), and ptxas's registers and spills per kernel. Those kernels compute their products in
+   ``cfconv_fwd``, ``schnet_stack``, ``painn_fwd``, ``painn_bwd``,
+   ``painn_stack``, ``painn_stack_train``, ``cfconv_fwd_sym`` (also on the
+   ``cfconv_fwd_sym_ddm:`` line), ``ncsn_score_fwd`` and
+   ``ncsn_score_bwd``; ``bound_ms_f32`` beside it counts every operation at
+   the f32 peak), and ptxas's registers and spills per kernel. Those kernels compute their products in
    3xTF32 on the tensor cores and are held to the same tolerances as every
    other kernel. The NCSN rows count their launches over both DDM epochs
    (SchNet and PaiNN).
@@ -298,8 +310,8 @@ KERNEL_ENTRIES = {
     "painn_fwd_sym": ("painn_fwd", "_ZN6geossl20painn_fwd_sym_kernel"),
     "painn_bwd": ("painn_bwd", "_ZN6geossl20painn_bwd_mma_kernel"),
     "painn_bwd_sym": ("painn_bwd", "_ZN6geossl20painn_bwd_sym_kernel"),
-    "painn_stack": ("painn_stack", "_ZN6geossl18painn_stack_kernelILb0E"),
-    "painn_stack_train": ("painn_stack", "_ZN6geossl18painn_stack_kernelILb1E"),
+    "painn_stack": ("painn_stack", "_ZN6geossl18painn_stack_kernelILb0ELi3E"),
+    "painn_stack_train": ("painn_stack", "_ZN6geossl18painn_stack_kernelILb1ELi3E"),
 }
 
 
@@ -1657,8 +1669,15 @@ def main():
             want = chunked(K.cfconv_fused_reference, (dist, env, x),
                            (*fw, 0.0, cutoff, G), 4)
             for sp in (False, True):
-                errs.check(name, fn(dist, env, x, *fw, 0.0, cutoff, G, sp), want,
+                got = fn(dist, env, x, *fw, 0.0, cutoff, G, sp)
+                errs.check(name, got, want,
                            f"serving B={dist.shape[0]} N={b} sparse={sp}")
+                # the plain mode writes each row once: two launches agree
+                # bitwise
+                if not sym and not torch.equal(got, fn(dist, env, x, *fw, 0.0,
+                                                       cutoff, G, sp)):
+                    fail(f"{name} serving N={b} sparse={sp}: outputs differ "
+                         "between two launches")
             ms = cuda_time_ms(lambda: fn(dist, env, x, *fw, 0.0, cutoff, G, True))
             plain_ms = cuda_time_ms(lambda: chunked(
                 K.cfconv_fused_reference, (dist, env, x), (*fw, 0.0, cutoff, G),
@@ -1666,10 +1685,9 @@ def main():
             nnz, filt_pairs, cells, tiles = pair_work(dist, env)
             if sym and cells == dist.numel():
                 fail(f"{name}: serving dist/env are not symmetric")
-            # the symmetric kernel runs the filter's two products on the
-            # tensor cores, the messages on the CUDA cores
-            flops = (filt_pairs * (flop_pair - 2 * 128), nnz * 2 * 128) if sym \
-                else filt_pairs * (flop_pair - 2 * 128) + nnz * 2 * 128
+            # both modes run the filter's two products on the tensor cores,
+            # the messages on the CUDA cores
+            flops = (filt_pairs * (flop_pair - 2 * 128), nnz * 2 * 128)
             nbytes = 4 * (cells + tiles + 2 * x.numel()
                           + sum(t.numel() for t in fw))
             kernels.append((name, "geossl_tpu_torch/ops/csrc/cfconv_fwd.cu",
@@ -1739,6 +1757,33 @@ def main():
     kernels.append(("cfconv_bwd", "geossl_tpu_torch/ops/csrc/cfconv_bwd.cu",
                     "geossl_tpu/ops/cfconv_pallas.py:150", ms, plain_ms, flops,
                     nbytes, mn_launches["cfconv_bwd"]))
+    # the plain-mode forward on the same graph (its training path: the
+    # max_num_neighbors run above launches it), held to its plain version,
+    # two launches bitwise equal, its time, bound and launches
+    with torch.no_grad():
+        got = K.cfconv_fused(dist, env, x, *fw, 0.0, cutoff, G, True)
+        errs.check("cfconv_fwd", got, chunked(
+            K.cfconv_fused_reference, (dist, env, x), (*fw, 0.0, cutoff, G), 4),
+            "DDM max_neighbors=32 B=128 N=128 sparse=True")
+        if not torch.equal(got, K.cfconv_fused(dist, env, x, *fw, 0.0, cutoff,
+                                                G, True)):
+            fail("cfconv_fwd DDM max_neighbors=32: outputs differ between two "
+                 "launches")
+        t_ops = filt_pairs * (flop_pair - 2 * 128)
+        e_ops = nnz * 2 * 128
+        nbytes = 4 * (cells + tiles + 2 * x.numel() + sum(t.numel() for t in fw))
+        print("cfconv_fwd_ddm: " + json.dumps({
+            "shape": "DDM max_neighbors=32 B=128 N=128",
+            "ms": cuda_time_ms(lambda: K.cfconv_fused(dist, env, x, *fw, 0.0,
+                                                      cutoff, G, True)),
+            "plain_ms": cuda_time_ms(lambda: chunked(
+                K.cfconv_fused_reference, (dist, env, x), (*fw, 0.0, cutoff, G),
+                4), reps=3, warmup=1),
+            "bound_ms": max(t_ops / PEAK_TF32_FLOPS, e_ops / PEAK_F32_FLOPS,
+                            nbytes / PEAK_BYTES) * 1e3,
+            "bound_ms_f32": max((t_ops + e_ops) / PEAK_F32_FLOPS,
+                                nbytes / PEAK_BYTES) * 1e3,
+            "launches": mn_launches["cfconv_fwd"]}))
 
     # the symmetric backward at the LBA shape (B=64, N=512, block 0 of a
     # freshly seeded net)
@@ -1895,37 +1940,74 @@ def main():
                         flops, nbytes,
                         train_launches[name] + train_launches_p[name]))
 
-    # PaiNN: the stack at the first batch of the one bucket it serves
-    # (serve.PAINN_STACK_MAX_N = 32), the message pass and its backward at
-    # the DDM shape (B=128 of the N=128 bucket, the clean graph of view 1)
+    # PaiNN: the stack at serving's first batch of buckets 32, 64 and 128
+    # (128 slots) whatever the route, and on a partial batch (5 graphs in 128
+    # slots); the kernel table's row at N=32. The message pass and its
+    # backward at the DDM shape (B=128 of the N=128 bucket, the clean graph
+    # of view 1)
     R_, L_ = cfg_p.painn.n_rbf, cfg_p.painn.n_interactions
     # filter 2R*3F, message sums (dq 2F, dmu 12F), gating 3F
     fwd_pair, fwd_elem = 2 * R_ * 3 * F_, 17 * F_
+
+    def stack_work(grids_, q0_, atoms_, stacked_, residuals):
+        """painn_stack's (tensor-core, CUDA-core) operations and bytes on
+        these inputs: per block the filter once per needed pair and the dense
+        layers (x-MLP 8F^2, mixing 12F^2, context MLP 10F^2 per atom) on the
+        tensor cores; the message sums and gating per ordered pair and the
+        elementwise dense terms (~20F per atom) on the CUDA cores; the gate
+        read whole, dist and the directions on its occupied tiles, q0 read,
+        q and mu written (and with ``residuals`` qs, mus, qps, mups)."""
+        nnz_, filt_, cells_, tiles_ = pair_work(grids_[0], grids_[1])
+        t_ops = L_ * (filt_ * fwd_pair + atoms_ * 30 * F_ * F_)
+        e_ops = L_ * (nnz_ * fwd_elem + atoms_ * 20 * F_)
+        nbytes_ = 4 * (cells_ + 4 * tiles_ + 5 * q0_.numel()
+                       + sum(t.numel() for t in stacked_)
+                       + (8 * L_ * q0_.numel() if residuals else 0))
+        return (t_ops, e_ops), nbytes_
+
+    def bounds(ops, nbytes_):
+        """(tensor-core basis, f32 basis) bound in ms."""
+        t_ops, e_ops = ops
+        return (max(t_ops / PEAK_TF32_FLOPS, e_ops / PEAK_F32_FLOPS,
+                    nbytes_ / PEAK_BYTES) * 1e3,
+                max((t_ops + e_ops) / PEAK_F32_FLOPS, nbytes_ / PEAK_BYTES) * 1e3)
+
+    stack_shapes = {}
     with torch.inference_mode():
-        nb_p = serve.PAINN_STACK_MAX_N
-        batch = packed(first(nb_p, 128), nb_p, 128)
-        grids, q0, _, _ = painn_inputs(model_p, batch)
-        got = P.painn_stack_infer(*grids, q0, stacked_p, cut_p)
-        want = chunked_sum(lambda *a: P.painn_stack_reference(
-            *a, stacked_p, cut_p), (*grids, q0), (), 32, 2)
-        for name, a, w in zip(("q", "mu"), got, want):
-            errs.check_scaled("painn_stack", a, w,
-                              f"serving B={q0.shape[0]} N={nb_p} {name}")
-        ms = cuda_time_ms(lambda: P.painn_stack_infer(*grids, q0, stacked_p,
-                                                      cut_p))
+        for what, idx, nb in (
+                ("serving B=128 N=32", first(32, 128), 32),
+                ("serving B=128 N=64", first(64, 128), 64),
+                ("serving B=128 N=128", first(128, 128), 128),
+                ("partial B=128 (5 graphs) N=128", first(128, 5), 128)):
+            batch = packed(idx, nb, 128)
+            grids, q0, _, _ = painn_inputs(model_p, batch)
+            got = P.painn_stack_infer(*grids, q0, stacked_p, cut_p)
+            want = chunked_sum(lambda *a: P.painn_stack_reference(
+                *a, stacked_p, cut_p), (*grids, q0), (), 32, 2)
+            for name, a, w in zip(("q", "mu"), got, want):
+                errs.check_scaled("painn_stack", a, w, f"{what} {name}")
+            # no atomics: two launches agree bitwise
+            if not all(torch.equal(a, b_) for a, b_ in zip(
+                    got, P.painn_stack_infer(*grids, q0, stacked_p, cut_p))):
+                fail(f"painn_stack {what}: outputs differ between two launches")
+            ops, nbytes = stack_work(grids, q0, int(batch.node_mask.sum()),
+                                     stacked_p, False)
+            bound_tc, bound_f32 = bounds(ops, nbytes)
+            stack_shapes[what] = {
+                "ms": cuda_time_ms(lambda: P.painn_stack_infer(
+                    *grids, q0, stacked_p, cut_p)),
+                "bound_ms": bound_tc, "bound_ms_f32": bound_f32}
+            if nb == 32 and "partial" not in what:
+                row = (grids, q0, ops, nbytes, stack_shapes[what]["ms"])
+        print("painn_stack repeats bitwise at every shape above")
+        print("painn_stack_shapes: " + json.dumps(stack_shapes))
+        grids, q0, ops, nbytes, ms = row
         plain_ms = cuda_time_ms(lambda: chunked_sum(
             lambda *a: P.painn_stack_reference(*a, stacked_p, cut_p),
             (*grids, q0), (), 32, 2), reps=3, warmup=1)
-        nnz, filt_pairs, cells, tiles = pair_work(grids[0], grids[1])
-        atoms = int(batch.node_mask.sum())
-        # per block: x-MLP 8F^2, mixing 12F^2, context MLP 10F^2 per atom
-        flops = L_ * (filt_pairs * fwd_pair + nnz * fwd_elem
-                      + atoms * 30 * F_ * F_)
-        nbytes = 4 * (cells + 4 * tiles + q0.numel() + 4 * q0.numel()
-                      + sum(t.numel() for t in stacked_p))
         kernels.append(("painn_stack", "geossl_tpu_torch/ops/csrc/painn_stack.cu",
                         "geossl_tpu/ops/painn_pallas.py:829", ms, plain_ms,
-                        flops, nbytes, launches_p["painn_stack"]))
+                        ops, nbytes, launches_p["painn_stack"]))
 
     batch = train_batch(128)
     m0 = ddm0_p.model
@@ -2068,6 +2150,11 @@ def main():
                               want):
             errs.check_scaled("painn_stack_train", a, w,
                               f"DDM B=128 N=128 {name}")
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, P._launch_painn_stack(
+                "painn_stack_train", grids, q0, stacked0, cut_p, m0.epsilon,
+                True))):
+            fail("painn_stack_train: outputs differ between two launches")
+        print("painn_stack_train repeats bitwise (q, mu, qs, mus, qps, mups)")
         # the wrapper's own (q, mu); the launcher above for the residuals
         got = P.painn_stack_train(*grids, q0, stacked0, cut_p)
         for name, a, w in zip(("q", "mu"), got, want):
@@ -2082,11 +2169,7 @@ def main():
             cuda_time_ms(lambda: chunked_sum(lambda *a: P.painn_stack_reference(
                 *a, stacked0, cut_p, save_residuals=True), (*grids, q0), (),
                 32, 6), reps=3, warmup=1),
-            L_ * (filt_pairs * fwd_pair + nnz * fwd_elem
-                  + atoms * 30 * F_ * F_),
-            # painn_stack's bytes, then qs, mus, qps, mups written
-            4 * (cells + 4 * tiles + 5 * q0.numel()
-                 + sum(t.numel() for t in stacked0) + 8 * L_ * q0.numel()),
+            *stack_work(grids, q0, atoms, stacked0, True),
             stack_launches["painn_stack_train"]))
 
         # the symmetric pair at the LBA shape (phase 3d's inputs): each
@@ -2139,6 +2222,7 @@ def main():
         else:
             t_ops, basis = flops / PEAK_F32_FLOPS * 1e3, "f32"
         t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_f32 = flops / PEAK_F32_FLOPS * 1e3
         lib, entry = KERNEL_ENTRIES[name]
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -2146,6 +2230,7 @@ def main():
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_basis": basis,
+            "bound_ms_f32": max(t_f32, t_bytes),
             "library_ms": None, "flop": flops, "bytes": nbytes,
             "ptxas": ptxas_usage(_build.build_log(lib), entry)})
         print(f"kernel {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "

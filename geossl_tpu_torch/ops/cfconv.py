@@ -26,11 +26,10 @@ Kernels:
 The two CFConv Functions are first order only: a double backward on CUDA
 (MD17 force training) raises ``NotImplementedError``.
 
-The plain-mode forward (``cfconv_fused``) computes in plain f32 on the
-CUDA cores; the symmetric forward, the backward kernels and the whole stack
-run their tile products (the stack also its dense layers) on the tensor
-cores in 3xTF32 (``csrc/mma_tf32.cuh``), within f32 rounding of the plain
-version.
+Every kernel runs its tile products (the stack also its dense layers) on
+the tensor cores in 3xTF32 (``csrc/mma_tf32.cuh``), within f32 rounding of
+the plain version. The plain-mode forward writes each output row once (no
+atomics): two launches give bitwise the same output.
 ``plain_precision()`` makes the plain versions' PyTorch matmuls full f32.
 SchNet's dispatcher takes the symmetric pair whenever dist/env are
 symmetric, at every N (the card's measurement); PaiNN keeps the JAX
@@ -175,27 +174,24 @@ def _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
                          f"and G <= 64; got dist {tuple(dist.shape)}, "
                          f"G={num_g}")
     smem = _build.kernel_fn("cfconv_fwd", "cfconv_fwd_smem_bytes",
-                            [ctypes.c_int] * 3,
-                            ctypes.c_size_t)(num_g, nj, int(symmetric))
+                            [ctypes.c_int] * 2,
+                            ctypes.c_size_t)(num_g, int(symmetric))
     check_smem("cfconv_fwd", smem)
     fn = _build.kernel_fn(
         "cfconv_fwd", "cfconv_fwd",
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    # the symmetric mode adds every row with atomics, after making its
-    # work list (tile flags, counts, prefix sums, the tile list) on the
-    # device
-    if symmetric:
-        out = torch.zeros((b, ni, f), dtype=torch.float32, device=dist.device)
-        ws_ints = _build.kernel_fn("cfconv_fwd", "cfconv_fwd_ws_ints",
-                                   [ctypes.c_int] * 2, ctypes.c_size_t)(b, ni)
-        ws = torch.empty(ws_ints, dtype=torch.int32, device=dist.device)
-    else:
-        out = torch.empty((b, ni, f), dtype=torch.float32, device=dist.device)
-        ws = None
+    # both modes make their work list on the device (tile flags, counts,
+    # prefix sums, the tile list); the symmetric mode adds every row with
+    # atomics, the plain mode writes each row once
+    alloc = torch.zeros if symmetric else torch.empty
+    out = alloc((b, ni, f), dtype=torch.float32, device=dist.device)
+    ws_ints = _build.kernel_fn("cfconv_fwd", "cfconv_fwd_ws_ints",
+                               [ctypes.c_int] * 3,
+                               ctypes.c_size_t)(b, ni, nj)
+    ws = torch.empty(ws_ints, dtype=torch.int32, device=dist.device)
     s0, delta, coeff = _rbf_consts(start, stop, num_g)
-    err = fn(*map(ptr, (dist, env, x, w1, b1, w2, b2, out)),
-             None if ws is None else ptr(ws), b, ni, nj, f,
+    err = fn(*map(ptr, (dist, env, x, w1, b1, w2, b2, out, ws)), b, ni, nj, f,
              num_g, s0, delta, coeff, int(symmetric), int(sparse),
              stream(dist))
     check_launch("cfconv_fwd", err)

@@ -13,15 +13,35 @@
 // envelope is all zero (out of cutoff, padding, empty graph slots) when
 // `sparse` is set, and the symmetric kernel the tiles below the diagonal.
 //
-// Plain mode (cfconv_fwd_kernel, a max_neighbors graph): plain f32 FMA on
-// the CUDA cores from shared memory with a 4x8 register tile per thread
-// (pair_tile.cuh), one block per (graph, 8-row i tile). The block loops
-// over the 8-column j tiles, which takes the place of the TPU's sequential
-// j grid axis, and keeps its rows' sums in registers. W1 and W2 are staged
-// in shared memory once per block, at its first computed tile. Each block
-// finds its own occupied tiles in one pass over its env rows before the
-// loop (the TPU kernels got flags from a separate occupancy pass by scalar
-// prefetch).
+// Plain mode (cfconv_fwd_kernel, a max_neighbors graph: dist/env need not
+// be symmetric, and the grid may be a rectangular stripe ni != nj): the
+// symmetric mode's machinery below without the mirror.
+// - work list: the occupancy pass and scan make the list of computed tiles
+//   on the device (worklist.cuh's make_tile_list, items (graph, 8-row i
+//   tile) listing their j tiles), and a persistent grid (one 8-warp block
+//   per SM) takes equal runs of it (run_begin). Runs of whole items
+//   (first_item) would leave a small batch to its longest item: serving's
+//   N=256 batch (11 complexes in 128 slots, 2,358 tiles) has items of up
+//   to 17 tiles, and the longest run of whole items held 31 tiles against
+//   a mean of 18. A block sums the rows of each item in registers over its
+//   run's tiles of it; an item that lies whole in the run is written to
+//   `out` there, an item that a run boundary splits is written as 8-row
+//   partials (at most two per block, its run's first and last item), which
+//   a second launch (cfconv_fwd_join_kernel) adds up in block order. So
+//   each output row is written once, with no atomics, and the output is
+//   bitwise the same from run to run on one card. The rows of an item with
+//   no listed tile (padding, empty graph slots, all-zero env under
+//   `sparse`) are written as zeros, spread over the grid;
+// - products: both filter products of each tile on the tensor cores in the
+//   plain 3xTF32 split (filter_mma.cuh, as the symmetric mode), W1 and W2
+//   staged once per block; any G: the first product runs in k steps of 32
+//   above G = 64 (its padded rows zero), and above G = 64 the hidden layer
+//   reuses the RBF's shared memory (one barrier more per tile);
+// - loads: the next tile's dist/env and x rows with cp.async (double
+//   buffer) while the current tile's products run;
+// - rows: lane (g, t) of warp (wm, wn) sums row il = g over the warp's four
+//   jl of each tile; the two warps wm add their halves once per item (or
+//   item part), through shared memory, in a fixed order.
 //
 // Symmetric mode (cfconv_fwd_sym_kernel; dist/env symmetric, the caller's
 // guarantee): one filter per unordered pair. With square 8x8 tiles only
@@ -56,95 +76,206 @@
 
 namespace geossl {
 
-__global__ void __launch_bounds__(kThreads)
+// both modes' filter products in mma_tf32.cuh's plain 3xTF32 split (the
+// header says why)
+constexpr bool kPrecise = false;
+
+// shared memory of the plain-mode kernel, in floats; then W1 [gp][kF], the
+// RBF [kPairs][gp] and the hidden layer [kPairs][kF] (at G > 64 the hidden
+// layer takes the RBF's place), all swizzled
+constexpr int kPOffW2 = 0;                          // [kF][kF] swizzled
+constexpr int kPOffX = kPOffW2 + kF * kF;           // [2][8][kSRS] x rows of the j tile
+constexpr int kPOffDE = kPOffX + 2 * kTile * kSRS;  // [2][2][64] dist, env, [il][jl]
+constexpr int kPOffB = kPOffDE + 4 * kPairs;        // [2][kF] b1, b2
+constexpr int kPOffRed = kPOffB + 2 * kF;           // [4][32][8] row sums of the warps wm = 1
+constexpr int kPOffW1 = kPOffRed + 4 * 32 * 8;
+
+// G padded: kSGP, or a multiple of 32 above it.
+__host__ __device__ inline int padded_g(int G) { return G <= kSGP ? kSGP : (G + 31) / 32 * 32; }
+
+// Block k runs listed tiles [run_begin(k), run_begin(k + 1)) of the tile
+// list (worklist.cuh: items (graph, 8-row i tile), each listing its j
+// tiles), in list order. One barrier per tile opens it (the tile's loads
+// landed, every warp done with the previous one), then filter_tile_mma's
+// two. An item that lies whole in the run goes to `out`; the run's first
+// and last item, where a run boundary splits them, go to this block's
+// partial slots 0 and 1 of `part` [blocks][2][8][kF].
+__global__ void __launch_bounds__(kThreads, 1)
 cfconv_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
                   const float* __restrict__ x, const float* __restrict__ w1,
                   const float* __restrict__ b1, const float* __restrict__ w2,
-                  const float* __restrict__ b2, float* __restrict__ out, int ni,
-                  int nj, int G, float start, float delta, float coeff,
-                  int sparse) {
+                  const float* __restrict__ b2, float* __restrict__ out,
+                  float* __restrict__ part, const int* __restrict__ pre,
+                  const int* __restrict__ list, int B, int ni, int nj, int G, float start,
+                  float delta, float coeff) {
   extern __shared__ float4 smem_v4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem_v4);
-  float* W1_s = smem;                   // [G][kF]
-  float* W2_s = W1_s + G * kF;          // [kF][kF]
-  float* rbf_s = W2_s + kF * kF;        // [kPairs][G]
-  float* s_s = rbf_s + kPairs * G;      // [kPairs][kF]
-  float* xj_s = s_s + kPairs * kF;      // [kTile][kF]
-  float* d_s = xj_s + kTile * kF;       // [kPairs]
-  float* e_s = d_s + kPairs;            // [kPairs]
-  int* occ_s = (int*)(e_s + kPairs);    // [ntj] tile occupancy of this row block
+  const int gp = padded_g(G);
+  float* W2_s = smem + kPOffW2;
+  float* b1_s = smem + kPOffB;
+  float* b2_s = b1_s + kF;
+  float* red_s = smem + kPOffRed;
+  float* W1_s = smem + kPOffW1;
+  float* rbf_s = W1_s + gp * kF;
+  float* s_s = gp == kSGP ? rbf_s + kPairs * gp : rbf_s;
 
-  const int tid = threadIdx.x;
-  const int pi = blockIdx.x, b = blockIdx.y;
-  const int i0 = pi * kTile;
-  const float* dist_b = dist + (size_t)b * ni * nj;
-  const float* env_b = env + (size_t)b * ni * nj;
-  const float* x_b = x + (size_t)b * nj * kF;
-  float* out_b = out + (size_t)b * ni * kF;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, wm = warp & 1, wn = warp >> 1;
+  const int ntj = (nj + kTile - 1) / kTile, nti = (ni + kTile - 1) / kTile;
+  const int n_items = B * nti;
 
-  const int fg = thread_fg(), il = thread_il();
-  float macc[kFPT];
-#pragma unroll
-  for (int k = 0; k < kFPT; ++k) macc[k] = 0.f;
-
-  // occupancy: one coalesced pass over this block's env rows flags the
-  // tiles with a nonzero entry, so an empty tile costs no further read
-  const int ntj = (nj + kTile - 1) / kTile;
-  if (sparse) {
-    for (int t = tid; t < ntj; t += kThreads) occ_s[t] = 0;
-    __syncthreads();
-    const int rows = min(kTile, ni - i0), cols = nj;
-    for (int idx = tid; idx < rows * cols; idx += kThreads) {
-      const int r = idx / cols, j = idx - r * cols;
-      if (env_b[(size_t)(i0 + r) * nj + j] != 0.f) occ_s[j / kTile] = 1;
+  // every warp writes zero to the rows of its items with no listed tile
+  // (any block may write them: no other block does), one item a warp at a
+  // time
+  for (int item = blockIdx.x + gridDim.x * warp; item < n_items;
+       item += gridDim.x * (kThreads / 32)) {
+    if (pre[item] != pre[item + 1]) continue;  // warp-uniform
+    const int b = item / nti, i0 = (item - b * nti) * kTile;
+    for (int idx = lane; idx < kTile * kF / 4; idx += 32) {
+      const int r = idx / (kF / 4), f = (idx % (kF / 4)) * 4, i = i0 + r;
+      if (i < ni)
+        *reinterpret_cast<float4*>(out + ((size_t)b * ni + i) * kF + f) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    __syncthreads();
   }
+  const long long total = pre[n_items];
+  const int t_begin = run_begin(total, gridDim.x, blockIdx.x);
+  const int t_end = run_begin(total, gridDim.x, blockIdx.x + 1);
+  if (t_begin >= t_end) return;  // block-uniform: an empty run
 
-  // the weights are staged at the first tile computed: a block whose rows
-  // are all padding (an empty graph slot) reads nothing but its envelope
-  bool staged = false;
-  for (int pj = 0; pj < ntj; ++pj) {
-    if (sparse && !occ_s[pj]) continue;  // block-uniform
-    const int j0 = pj * kTile;
-    __syncthreads();  // the previous tile is done with d_s/e_s/xj_s
-    if (tid < kPairs) {
-      const int i = i0 + tid / kTile, j = j0 + tid % kTile;
+  // the weights, once per block (W1's rows >= G zero; the RBF's padding
+  // columns zero where the hidden layer does not take its place)
+  for (int c = tid; c < gp * kF / 4; c += kThreads) {
+    const int r = c / (kF / 4), f = (c % (kF / 4)) * 4;
+    cp_async16(W1_s + swz_at(kF, r, f), w1 + (r < G ? r * kF + f : 0), r < G);
+  }
+  for (int c = tid; c < kF * kF / 4; c += kThreads) {
+    const int r = c / (kF / 4), f = (c % (kF / 4)) * 4;
+    cp_async16(W2_s + swz_at(kF, r, f), w2 + r * kF + f, true);
+  }
+  cp_async_commit();
+  if (tid < kF) {
+    b1_s[tid] = b1[tid];
+    b2_s[tid] = b2[tid];
+  }
+  if (s_s != rbf_s)
+    for (int idx = tid; idx < kPairs * gp; idx += kThreads) rbf_s[idx] = 0.f;
+
+  // issues the cp.async loads of listed tile v into buffer buf: dist/env,
+  // then the x rows of its j tile
+  auto load_tile = [&](int v, int buf) {
+    const int item = v / ntj, pj = v - item * ntj, b = item / nti;
+    const int i0 = (item - b * nti) * kTile, j0 = pj * kTile;
+    if (tid < 2 * kPairs) {
+      const int p = tid & (kPairs - 1), i = i0 + (p >> 3), j = j0 + (p & 7);
       const bool in = i < ni && j < nj;
-      d_s[tid] = in ? dist_b[(size_t)i * nj + j] : 0.f;
-      e_s[tid] = in ? env_b[(size_t)i * nj + j] : 0.f;
+      cp_async4(smem + kPOffDE + (2 * buf + (tid >= kPairs)) * kPairs + p,
+                (tid < kPairs ? dist : env) + (in ? ((size_t)b * ni + i) * nj + j : 0), in);
     }
-    if (!staged) {
-      block_copy(W1_s, w1, G * kF);
-      block_copy(W2_s, w2, kF * kF);
-      staged = true;
+    for (int c = tid; c < kTile * kF / 4; c += kThreads) {
+      const int r = c / (kF / 4), f = (c % (kF / 4)) * 4, j = j0 + r;
+      cp_async16(smem + kPOffX + buf * kTile * kSRS + r * kSRS + f,
+                 x + (j < nj ? ((size_t)b * nj + j) * kF + f : 0), j < nj);
     }
-    for (int idx = tid; idx < kTile * kF; idx += kThreads) {
-      const int j = j0 + idx / kF;
-      xj_s[idx] = j < nj ? x_b[(size_t)j * kF + idx % kF] : 0.f;
+    cp_async_commit();
+  };
+
+  // this lane's share of row il = g of the current item, columns 32*wn +
+  // 8*nb + 2*t + c, summed over this warp's four jl of every tile of the item
+  float racc[4][2];
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb) racc[nb][0] = racc[nb][1] = 0.f;
+  const int first = list[t_begin] / ntj;  // the run's first item
+  int cur = first;                         // the item whose rows racc holds
+  // writes the rows of item `cur` (warps wm = 1 hand their sums to wm = 0
+  // through red_s): to `out` if the item lies whole in the run, else to
+  // partial slot 0 (the run's first item) or 1 (its last); zeroes the sums.
+  // Every thread calls it.
+  auto flush = [&]() {
+    float* red = red_s + (wn * 32 + lane) * 8;
+    __syncthreads();  // the warps wm = 0 are done reading red_s (the previous flush)
+    if (wm == 1) {
+      st4(red, racc[0][0], racc[0][1], racc[1][0], racc[1][1]);
+      st4(red + 4, racc[2][0], racc[2][1], racc[3][0], racc[3][1]);
     }
     __syncthreads();
-
-    float w[kPPT][kFPT], c[kFPT];
-    filter_tile(d_s, rbf_s, s_s, W1_s, b1, W2_s, b2, G, start, delta, coeff, w);
-    tile_message(e_s, xj_s, w, c);
+    const int b = cur / nti, i = (cur - b * nti) * kTile + g;
+    const bool whole = pre[cur] >= t_begin && pre[cur + 1] <= t_end;
+    if (wm == 0 && (i < ni || !whole)) {
+      const float4 r0 = ld4(red), r1 = ld4(red + 4);
+      const float r[4][2] = {{r0.x, r0.y}, {r0.z, r0.w}, {r1.x, r1.y}, {r1.z, r1.w}};
+      float* dst = whole ? out + ((size_t)b * ni + i) * kF
+                         : part + (((size_t)blockIdx.x * 2 + (cur != first)) * kTile + g) * kF;
+      dst += 32 * wn + 2 * t;
 #pragma unroll
-    for (int k = 0; k < kFPT; ++k) macc[k] += c[k];
-  }
-
-  // lanes 0-15 of each warp hold their row's sums (lanes 16-31 the same)
-  const int i = i0 + il;
-  if ((tid & 16) == 0 && i < ni) {
+      for (int nb = 0; nb < 4; ++nb)
+        *reinterpret_cast<float2*>(dst + 8 * nb) =
+            make_float2(racc[nb][0] + r[nb][0], racc[nb][1] + r[nb][1]);
+    }
 #pragma unroll
-    for (int k = 0; k < kFPT; ++k) out_b[(size_t)i * kF + feat(fg, k)] = macc[k];
+    for (int nb = 0; nb < 4; ++nb) racc[nb][0] = racc[nb][1] = 0.f;
+  };
+
+  int v = list[t_begin];
+  load_tile(v, 0);
+  for (int k = t_begin; k < t_end; ++k) {
+    const int v_next = k + 1 < t_end ? list[k + 1] : 0;
+    const int item = v / ntj, j0 = (v - item * ntj) * kTile;
+    const int buf = (k - t_begin) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile k's rows (and the weights) have landed; every
+                      // warp is done with tile k - 1's buffer
+    if (k + 1 < t_end) load_tile(v_next, buf ^ 1);
+    if (item != cur) {  // block-uniform: the run moves to the next item
+      flush();
+      cur = item;
+    }
+    const float* d_t = smem + kPOffDE + 2 * buf * kPairs;
+    const float* e_t = d_t + kPairs;
+    const float* xj_t = smem + kPOffX + buf * kTile * kSRS;
+
+    // the filter (filter_mma.cuh), then the messages of rows i
+    float acc[2][4][4];
+    filter_tile_mma<kPrecise>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, gp, start, delta, coeff,
+                                   acc);
+    tile_messages<false>(acc, b2_s, e_t, xj_t, nullptr, racc, nullptr, j0, nj, false);
+    v = v_next;
   }
+  flush();
+}
+
+// The items that a run boundary splits: block k (k >= 1) takes the item
+// holding listed tile run_begin(k) when the boundary lies inside it and is
+// its first boundary, and writes its rows as the sum of the partials of the
+// blocks whose runs hold its tiles, in block order (slot 0 where the item
+// is the block's first, else slot 1).
+__global__ void __launch_bounds__(kThreads)
+cfconv_fwd_join_kernel(float* __restrict__ out, const float* __restrict__ part,
+                       const int* __restrict__ pre, const int* __restrict__ list, int B,
+                       int ni, int nj, int blocks) {
+  const int k = blockIdx.x, ntj = (nj + kTile - 1) / kTile, nti = (ni + kTile - 1) / kTile;
+  const long long total = pre[B * nti];
+  const int t = run_begin(total, blocks, k);
+  if (k == 0 || t >= total) return;
+  const int item = list[t] / ntj, t0 = pre[item], t1 = pre[item + 1];
+  if (t == t0 || run_begin(total, blocks, k - 1) > t0) return;  // not split here first
+  const int r = threadIdx.x / (kF / 4), f = (threadIdx.x % (kF / 4)) * 4;  // 8 rows x 32 float4
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int j = first_run_block(t0, total, blocks); j < blocks; ++j) {
+    const int rb = run_begin(total, blocks, j);
+    if (rb >= t1) break;
+    if (run_begin(total, blocks, j + 1) == rb) continue;  // an empty run
+    const int slot = list[rb] / ntj != item;
+    const float4 v = *reinterpret_cast<const float4*>(
+        part + (((size_t)j * 2 + slot) * kTile + r) * kF + f);
+    s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+  }
+  const int b = item / nti, i = (item - b * nti) * kTile + r;
+  if (i < ni) *reinterpret_cast<float4*>(out + ((size_t)b * ni + i) * kF + f) = s;
 }
 
 // -- symmetric mode ------------------------------------------------------------
 
-// the two filter products in mma_tf32.cuh's plain 3xTF32 split (the header
-// says why)
-constexpr bool kSymPrecise = false;
 // shared memory of the symmetric kernel, in floats
 constexpr int kSOffW1 = 0;                           // [kSGP][kF] swizzled
 constexpr int kSOffW2 = kSOffW1 + kSGP * kF;         // [kF][kF] swizzled
@@ -264,7 +395,7 @@ cfconv_fwd_sym_kernel(const float* __restrict__ dist, const float* __restrict__ 
 
     // the filter (filter_mma.cuh), then the messages
     float acc[2][4][4];
-    filter_tile_mma<kSymPrecise>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, start, delta, coeff, acc);
+    filter_tile_mma<kPrecise>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, kSGP, start, delta, coeff, acc);
     tile_messages<true>(acc, b2_s, e_t, xj_t, xi_t, racc, out + (size_t)b * n * kF, j0, n,
                         pi != pj);
     v = v_next;
@@ -272,57 +403,74 @@ cfconv_fwd_sym_kernel(const float* __restrict__ dist, const float* __restrict__ 
   flush();
 }
 
-static size_t smem_bytes(int G, int nj, int symmetric) {
+static size_t smem_bytes(int G, int symmetric) {
   if (symmetric) return sizeof(float) * (size_t)kSymFloats;
-  return sizeof(float) * ((size_t)G * kF + kF * kF + kPairs * G + kPairs * kF +
-                          kTile * kF + 2 * kPairs) +
-         sizeof(int) * (size_t)((nj + kTile - 1) / kTile);
+  const int gp = padded_g(G);
+  const int hidden = gp == kSGP ? kPairs * (gp + kF) : kPairs * (gp > kF ? gp : kF);
+  return sizeof(float) * ((size_t)kPOffW1 + (size_t)gp * kF + hidden);
+}
+
+extern "C" size_t cfconv_fwd_smem_bytes(int G, int symmetric) {
+  return geossl::smem_bytes(G, symmetric);
+}
+
+// The tile list's ints, rounded up to whole 16-byte groups.
+static size_t list_ints(int B, int ni, int nj) {
+  const size_t n = tile_list_ints((size_t)B * ((ni + kTile - 1) / kTile), (nj + kTile - 1) / kTile);
+  return (n + 3) / 4 * 4;
 }
 
 }  // namespace geossl
 
-extern "C" size_t cfconv_fwd_smem_bytes(int G, int nj, int symmetric) {
-  return geossl::smem_bytes(G, nj, symmetric);
+// Ints of the workspace: the tile list over env (worklist.cuh), items
+// (graph, 8-row i tile), then the plain mode's partials [blocks][2][8][F]
+// (floats).
+extern "C" size_t cfconv_fwd_ws_ints(int B, int ni, int nj) {
+  using namespace geossl;
+  const int blocks =
+      persistent_blocks(B * ((ni + kTile - 1) / kTile) * ((nj + kTile - 1) / kTile));
+  return list_ints(B, ni, nj) + (size_t)blocks * 2 * kTile * kF;
 }
 
-// Ints of the symmetric mode's workspace: the tile list (worklist.cuh).
-extern "C" size_t cfconv_fwd_ws_ints(int B, int n) {
-  const int nt = (n + geossl::kTile - 1) / geossl::kTile;
-  return geossl::tile_list_ints((size_t)B * nt, nt);
-}
-
-// Returns the cudaError_t of the launches (0 on success). F must be 128.
-// With symmetric != 0: dist/env symmetric and square, G <= 64, `out` zero
-// on entry, `ws` holding cfconv_fwd_ws_ints(B, ni) ints; otherwise ws is
-// not read.
+// Returns the cudaError_t of the launches (0 on success). F must be 128;
+// `ws` holds cfconv_fwd_ws_ints(B, ni, nj) ints. With symmetric != 0:
+// dist/env symmetric and square, G <= 64, `out` zero on entry; otherwise
+// any G whose shared memory fits (cfconv_fwd_smem_bytes), every row of
+// `out` written.
 extern "C" int cfconv_fwd(const float* dist, const float* env, const float* x,
                           const float* w1, const float* b1, const float* w2,
                           const float* b2, float* out, int* ws, int B, int ni, int nj,
                           int F, int G, float start, float delta, float coeff,
                           int symmetric, int sparse, void* stream) {
   using namespace geossl;
-  if (F != kF || (symmetric && (ni != nj || G < 1 || G > kSGP)))
+  if (F != kF || G < 1 || (symmetric && (ni != nj || G > kSGP)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(G, nj, symmetric);
+  const size_t smem = smem_bytes(G, symmetric);
   cudaStream_t s = (cudaStream_t)stream;
+  const int nti = (ni + kTile - 1) / kTile, ntj = (nj + kTile - 1) / kTile, items = B * nti;
+  cudaError_t err = symmetric ? make_tile_list<true>(env, ws, B, ni, nj, sparse, s)
+                              : make_tile_list<false>(env, ws, B, ni, nj, sparse, s);
+  if (err != cudaSuccess) return (int)err;
+  const int* pre = ws + (size_t)items * ntj + items;
+  const int* list = ws + worklist_ints(items, ntj);
   if (!symmetric) {
-    cudaError_t err = cudaFuncSetAttribute(
-        cfconv_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = cudaFuncSetAttribute(cfconv_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((ni + kTile - 1) / kTile, B);
-    cfconv_fwd_kernel<<<grid, kThreads, smem, s>>>(dist, env, x, w1, b1, w2, b2, out, ni,
-                                                   nj, G, start, delta, coeff, sparse);
+    const int blocks = persistent_blocks(items * ntj);
+    float* part = reinterpret_cast<float*>(ws + list_ints(B, ni, nj));
+    cfconv_fwd_kernel<<<blocks, kThreads, smem, s>>>(dist, env, x, w1, b1, w2, b2, out, part,
+                                                     pre, list, B, ni, nj, G, start, delta,
+                                                     coeff);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    cfconv_fwd_join_kernel<<<blocks, kThreads, 0, s>>>(out, part, pre, list, B, ni, nj, blocks);
     return (int)cudaGetLastError();
   }
-  const int nt = (ni + kTile - 1) / kTile, items = B * nt;
-  cudaError_t err = make_tile_list<true>(env, ws, B, ni, ni, sparse, s);
-  if (err != cudaSuccess) return (int)err;
-  const int* total = ws + (size_t)items * nt + 2 * items;  // pre[items]
-  const int* list = ws + worklist_ints(items, nt);
   err = cudaFuncSetAttribute(cfconv_fwd_sym_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  cfconv_fwd_sym_kernel<<<persistent_blocks(items * nt), kThreads, smem, s>>>(
-      dist, env, x, w1, b1, w2, b2, out, list, total, ni, G, start, delta, coeff);
+  cfconv_fwd_sym_kernel<<<persistent_blocks(items * ntj), kThreads, smem, s>>>(
+      dist, env, x, w1, b1, w2, b2, out, list, pre + items, ni, G, start, delta, coeff);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 // The filter network and the messages of one 8x8 pair tile on the tensor
 // cores, shared by the kernels that walk a list of pair tiles with a block of
-// 8 warps (schnet_stack.cu's message phase, cfconv_fwd.cu's symmetric mode).
+// 8 warps (schnet_stack.cu's message phase, both modes of cfconv_fwd.cu).
 //
 // Pair p = jl*8 + il of the tile is row p of its 64-row operands. Warp
 // (wm, wn) = (warp & 1, warp >> 1) owns rows 32*wm.. and columns 32*wn.. of
@@ -13,28 +13,38 @@
 
 namespace geossl {
 
-constexpr int kSGP = 64;      // G padded: rows of W1_s, columns of rbf_s
+constexpr int kSGP = 64;      // G padded (G <= 64): rows of W1_s, columns of rbf_s
 constexpr int kSRS = kF + 8;  // row stride of the 8-row x tiles (bank spread)
 
 // acc = ssp(rbf(d) W1 + b1) W2 of the tile (b2 not added), in 3xTF32
 // (kPrecise: mma_tf32.cuh's precise mode), with the RBF exp and ssp on the
 // CUDA cores (fast intrinsics). d_t: the tile's distances [il][jl]; rbf_s
-// [kPairs][kSGP] scratch whose columns >= G are zero; s_s [kPairs][kF]
-// scratch for the hidden layer; W1_s [kSGP][kF] (rows >= G zero) and W2_s
-// [kF][kF]; all swizzled. Every thread of the block calls it (it holds two
-// barriers; rbf_s and s_s are free on entry).
+// [kPairs][gp] scratch; s_s [kPairs][kF] scratch for the hidden layer;
+// W1_s [gp][kF] (rows >= G zero) and W2_s [kF][kF]; all swizzled. gp, the
+// padded G: kSGP, or a multiple of 32 above it (the first product then runs
+// in k steps of 32). rbf_s's columns >= G must be zero, but where s_s is
+// rbf_s (a kernel short of shared memory): then the hidden layer overwrites
+// the RBF after a barrier, and the RBF pass writes the padding's zeros
+// itself. Every thread of the block calls it (it holds two barriers, three
+// with s_s == rbf_s; rbf_s and s_s are free on entry).
 template <bool kPrecise>
 __device__ __forceinline__ void filter_tile_mma(const float* d_t, float* rbf_s, float* s_s,
                                                 const float* W1_s, const float* W2_s,
-                                                const float* b1_s, int G, float start,
+                                                const float* b1_s, int G, int gp, float start,
                                                 float delta, float coeff, float acc[2][4][4]) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, wm = warp & 1, wn = warp >> 1;
-  for (int idx = tid; idx < kPairs * kSGP; idx += kThreads) {
-    const int p = idx / kSGP, gg = idx % kSGP;
-    if (gg < G) {
-      const float diff = d_t[(p & 7) * kTile + (p >> 3)] - (start + delta * (float)gg);
-      rbf_s[swz_at(kSGP, p, gg)] = __expf(coeff * diff * diff);
+  const bool alias = s_s == rbf_s;
+  const int gw = alias ? gp : G;  // the columns the RBF pass writes
+  for (int idx = tid; idx < kPairs * gp; idx += kThreads) {
+    const int p = idx / gp, gg = idx % gp;
+    if (gg < gw) {
+      float v = 0.f;
+      if (gg < G) {
+        const float diff = d_t[(p & 7) * kTile + (p >> 3)] - (start + delta * (float)gg);
+        v = __expf(coeff * diff * diff);
+      }
+      rbf_s[swz_at(gp, p, gg)] = v;
     }
   }
   __syncthreads();
@@ -46,10 +56,16 @@ __device__ __forceinline__ void filter_tile_mma(const float* d_t, float* rbf_s, 
     for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[mb][nb][q] = 0.f;
-  if (G <= 56)
-    warp_tile_mma<2, 4, 56, false, false, false, kPrecise>(acc, rbf_s, kSGP, 32 * wm, W1_s, kF, 32 * wn);
-  else
-    warp_tile_mma<2, 4, kSGP, false, false, false, kPrecise>(acc, rbf_s, kSGP, 32 * wm, W1_s, kF, 32 * wn);
+  if (G <= 56) {
+    warp_tile_mma<2, 4, 56, false, false, false, kPrecise>(acc, rbf_s, gp, 32 * wm, W1_s, kF, 32 * wn);
+  } else if (gp == kSGP) {
+    warp_tile_mma<2, 4, kSGP, false, false, false, kPrecise>(acc, rbf_s, gp, 32 * wm, W1_s, kF, 32 * wn);
+  } else {
+    for (int k0 = 0; k0 < gp; k0 += 32)
+      warp_tile_mma<2, 4, 32, false, false, false, kPrecise>(acc, rbf_s + k0, gp, 32 * wm,
+                                                             W1_s + k0 * kF, kF, 32 * wn);
+  }
+  if (alias) __syncthreads();  // every warp is done with the RBF
 #pragma unroll
   for (int mb = 0; mb < 2; ++mb)
 #pragma unroll

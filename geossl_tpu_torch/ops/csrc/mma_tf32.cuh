@@ -1,5 +1,6 @@
 // Tensor-core tile products in 3xTF32 (cfconv_bwd.cu, painn_bwd.cu, schnet_stack.cu,
-// cfconv_fwd.cu's symmetric mode, painn_fwd.cu's plain mode, ncsn_score.cu).
+// painn_stack.cu, both modes of cfconv_fwd.cu, painn_fwd.cu's plain mode,
+// ncsn_score.cu).
 //
 // A warp computes C[16*MB x 8*NB] += A[16*MB x K] B[K x 8*NB] with
 // mma.sync.m16n8k8 (TF32 inputs, f32 accumulators). Each f32 operand x is
@@ -110,7 +111,8 @@ __device__ __forceinline__ void mma_passes(float c[MB][NB][4], const uint32_t ah
 // accumulator drifts toward zero by up to an ulp of the running sum per
 // mma; this keeps that drift to the small per-step sum. Costs MB x NB x 4
 // registers and 4 additions per block and k step; schnet_stack.cu, whose
-// 5 L chained products compound every error, needs it (PERF.md).
+// 5 L chained products compound every error, needs it (PERF.md), and so do
+// painn_stack.cu's dense layers.
 //
 // kBLo > 0: B is stored split (split_b below, once for a matrix that many
 // products read): its TF32 high parts at B and the low parts kBLo floats

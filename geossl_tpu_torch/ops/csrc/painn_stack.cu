@@ -1,9 +1,9 @@
-// painn_stack: all L PaiNN interaction and mixing blocks in one launch
-// (inference).
+// painn_stack: all L PaiNN interaction and mixing blocks in one persistent
+// launch, after an occupancy pass and a scan that make its work list.
 //
 // Replaces geossl_tpu/ops/painn_pallas.py: _stack_kernel in inference mode
 // (painn_stack_infer via _stack_pallas) and, with RES, in save_residuals
-// mode (painn_stack_train's forward). Per block k, with q and mu resident
+// mode (painn_stack_train's forward). Per block k, with q and mu carried
 // across blocks (mu starts at zero):
 //   x      = silu(q Wd1 + bd1) Wd2 + bd2                      (x-MLP, 3F)
 //   q, mu += the message pass of painn_fwd.cu with Wk[k], bk[k]
@@ -14,60 +14,137 @@
 // The gate and directions are computed once by the caller, as
 // models/painn.fused_stack_apply does.
 //
-// Bound on the H100: operations: per block ~17k FLOP per occupied pair (the
-// filter and the message sums, as painn_fwd) plus ~30 F^2 per atom for the
-// dense layers (x-MLP 8F^2, mixing 12F^2, context MLP 10F^2). What the
-// design does about it: one launch instead of 3L+, the filters never go to
-// device memory, and 8x8 tiles whose gate is all zero (padding, empty graph
-// slots, pairs beyond the cutoff) are skipped, flagged once per graph.
-// Plain f32 FMAs, no tensor cores and no TF32; the dense layers read their
-// weights from global memory (L2), coalesced across each warp.
+// Bound on the H100: operations. Per block ~17k FLOP per occupied pair (the
+// filter, 2*R*3F, and the message sums, as painn_fwd) and 30 F^2 per atom
+// for the dense layers (x-MLP 8F^2, mixing 12F^2, context MLP 10F^2).
+// Every product runs on the tensor cores with mma.sync.m16n8k8 TF32 in
+// 3xTF32 (mma_tf32.cuh): the elementwise terms (RBF, silu, vn, the message
+// sums, the gated updates) stay on the CUDA cores.
 //
-// Work split: one block per graph (N <= 128). The state does not fit in
-// shared memory at N = 128 (q 64 KB, mu 192 KB, x 192 KB), so q and mu live
-// in the outputs and x and the new messages in a workspace [N][6F], all
-// owned by the block. The message pass of a row tile reads the OLD mu of
-// every column, while other row tiles finish at different times: so the
-// messages go to the workspace and are added to mu in the mixing phase,
-// after a __syncthreads that closes the message phase (the JAX kernel
-// computes the whole dmu array before adding it). q is not read by the
-// messages and is updated in place. Phases per block, each closed by
-// __syncthreads: x-MLP, messages, mixing. Buffers written inside the kernel
-// are read through plain (coherent) loads.
+// Work split, after schnet_stack.cu: one cooperative launch of one 16-warp
+// block per SM (every block resident), its phases separated by grid
+// barriers (worklist.cuh's grid_sync):
+//   dense 0:  q = q0, mu = 0, x = the x-MLP of block 0;
+//   messages k (k < L): over this block's run of the tile list;
+//   dense k+1: the mixing of block k, then, on the same rows (q just
+//             written), the x-MLP of block k + 1 (fusing the two saves a
+//             grid barrier per block); dense L is the last mixing only.
+// - Work list: the occupancy pass and scan over the gate (worklist.cuh's
+//   make_tile_list, items (graph, 8-row i tile) listing their j tiles with
+//   a nonzero gate), made once per launch: the gate is the same for every
+//   block. The grid splits it into runs of whole items (first_item).
+// - Messages: painn_mma.cuh's painn_fwd_items, the tile body of painn_fwd's
+//   plain mode as it is (16 warps at 128 registers: the stack keeps its
+//   block size and budget): the gated filter ([phi; 1] gate) [Wk; bk] on
+//   the tensor cores in the plain split (it feeds the message sums
+//   linearly; tests/test_torch_port_cfconv_tc.py emulates the stack's
+//   splits through L = 3 blocks), operands in mma fragment order, grids
+//   and rows loaded ahead with cp.async, each row summed in registers over
+//   its item and written once (no atomics: the stack's output is bitwise
+//   the same from run to run on one card). A message pass reads x and the
+//   OLD mu of every column, while other blocks' runs finish at other
+//   times, so its dq and dmu go to workspaces that the next dense phase
+//   adds (the JAX kernel computes the whole dmu before adding it).
+// - Dense phases: over 64-row chunks of [B*N, .] (round-robin over the
+//   blocks), each product [64 x 128] x [128 x 128] per warp 16 rows x 32
+//   columns, in the precise mode (rounded split, each k step added in f32:
+//   the stack chains six products a block, 18 in all, and the plain split's
+//   truncating accumulation drifts beyond the tolerance; the test above
+//   shows it). Weights are staged in shared memory as 128 x 128 pieces in
+//   two slots (cp.async; Wmix as its v and w halves, W1 as its q and vn
+//   halves, W2 and Wd2 as three column slices), the next piece loading
+//   while the current one's product runs where a slot is free. The mixing
+//   loads mu'_c = mu_c + dmu_c one channel at a time, keeps sum_c v_c^2 and
+//   sum_c v_c w_c in registers and w_c in the chunk's rows of the x
+//   workspace (block k's x is consumed by then; each thread reads back
+//   what it wrote); the context MLP's hidden layer and the new q stay in
+//   shared memory for the x-MLP of the next block.
+// - Rows with no tile (padding atoms, the empty graph slots of a partial
+//   batch) go through the dense layers as every other row: their messages
+//   are zero, their x-MLP and mixing are not (the reference computes them).
+// Data other blocks wrote in an earlier phase is read through L2
+// (cp.async.cg, ld.global.cg).
 //
 // RES (save_residuals, the forward of the differentiable stack): the kernel
 // also writes the block boundaries that the backward resumes from, each
 // [B, L, N, F or 3F]: qs and mus (q and mu at block entry, mus[:, 0] = 0),
-// copied at the start of block k, and qps and mups (q and mu at mixing
-// entry), written while the mixing loads its row tiles: mu gets the block's
-// messages only there (the workspace sum above), so mups is that sum, and
-// q has had its messages added in place by then. 2(F + 3F) N L floats per
-// graph more to write (0.2 GB at B=128, N=128, L=3).
-#include "painn_tile.cuh"
+// where the dense phase writes the new q and mu, and qps and mups (q + dq
+// and mu + dmu at mixing entry), where the mixing loads them.
+#include "painn_mma.cuh"
 
 namespace geossl {
 
-// y[k] = (A[r] W)[lane + 32k] (+ bias) for row r = tid / 32 of an 8-row
-// tile: A in shared memory (row stride lda), W [IN][OUT] in global memory.
-template <int IN, int OUT>
-__device__ __forceinline__ void rows_dense(const float* A, int lda,
-                                           const float* __restrict__ W,
-                                           const float* __restrict__ bias,
-                                           float y[OUT / 32]) {
-  const int r = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 0; k < OUT / 32; ++k) y[k] = bias ? bias[lane + 32 * k] : 0.f;
-  for (int c = 0; c < IN; ++c) {
-    const float a = A[r * lda + c];
-#pragma unroll
-    for (int k = 0; k < OUT / 32; ++k) y[k] = fmaf(a, W[(size_t)c * OUT + lane + 32 * k], y[k]);
-  }
-}
+constexpr int kDRows = 64;  // atom rows per dense chunk
+// the dense products in mma_tf32.cuh's precise mode (the header says why)
+constexpr bool kDensePrecise = true;
+// shared memory of the dense phases, in floats: two 128 x 128 weight slots
+// and three 64 x 128 row buffers, all swizzled; the message phases use the
+// same memory as painn_fwd_items lays it out
+constexpr int kDW0 = 0;
+constexpr int kDW1 = kDW0 + kF * kF;
+constexpr int kDP = kDW1 + kF * kF;
+constexpr int kDQ = kDP + kDRows * kF;
+constexpr int kDS = kDQ + kDRows * kF;
+constexpr int kDenseFloats = kDS + kDRows * kF;
+constexpr int kStackFloats = kDenseFloats > kFwdFloats ? kDenseFloats : kFwdFloats;
 
 __device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
 
-template <bool RES>
-__global__ void __launch_bounds__(kThreads)
+// Row `row` of [B*n, .] as a row of a residual stack [B, L, n, .] at block l.
+__device__ __forceinline__ size_t res_row(int row, int n, int L, int l) {
+  return ((size_t)(row / n) * L + l) * n + row % n;
+}
+
+// The 128 x 128 piece (rows r0.., columns c0..) of a weight matrix with
+// row length ld into a swizzled shared matrix (cp.async; the caller commits).
+__device__ __forceinline__ void stage_piece(float* W_s, const float* __restrict__ w, int ld,
+                                            int r0, int c0) {
+  for (int c = threadIdx.x; c < kF * kF / 4; c += kFwdThreads) {
+    const int r = c / (kF / 4), f = (c % (kF / 4)) * 4;
+    cp_async16(W_s + swz_at(kF, r, f), w + (size_t)(r0 + r) * ld + c0 + f, true);
+  }
+}
+
+// A_s = rows r0.. of (a + b)[:, c0 .. c0 + 127] (b may be null) of [rows,
+// ld] matrices read through L2, rows >= rows_end zero; with res, the values
+// also go to the residual stack res [B, L, n, ld] at block l.
+__device__ __forceinline__ void load_chunk(float* A_s, const float* a, const float* b, int ld,
+                                           int c0, int r0, int rows_end, float* res, int n,
+                                           int L, int l) {
+  for (int c = threadIdx.x; c < kDRows * kF / 4; c += kFwdThreads) {
+    const int r = c / (kF / 4), f = (c % (kF / 4)) * 4, row = r0 + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < rows_end) {
+      const size_t o = (size_t)row * ld + c0 + f;
+      v = __ldcg(reinterpret_cast<const float4*>(a + o));
+      if (b) {
+        const float4 u = __ldcg(reinterpret_cast<const float4*>(b + o));
+        v = make_float4(v.x + u.x, v.y + u.y, v.z + u.z, v.w + u.w);
+      }
+      if (res) *reinterpret_cast<float4*>(res + res_row(row, n, L, l) * ld + c0 + f) = v;
+    }
+    *reinterpret_cast<float4*>(A_s + swz_at(kF, r, f)) = v;
+  }
+}
+
+// acc = this warp's 16 rows x 32 columns of A_s W_s (64 x 128 by 128 x 128)
+// added to acc: rows 16 (warp & 3) + g (+ 8), columns 32 (warp >> 2) + 8 nb
+// + 2 t (+ 1), as acc[0][nb][0, 1] (and [2, 3] eight rows below).
+__device__ __forceinline__ void dense_mma(float acc[1][4][4], const float* A_s, const float* W_s) {
+  const int warp = threadIdx.x >> 5;
+  warp_tile_mma<1, 4, kF, false, false, false, kDensePrecise>(acc, A_s, kF, 16 * (warp & 3), W_s,
+                                                              kF, 32 * (warp >> 2));
+}
+
+__device__ __forceinline__ void zero_acc(float acc[1][4][4]) {
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[0][nb][q] = 0.f;
+}
+
+template <bool RES, int KS>
+__global__ void __launch_bounds__(kFwdThreads, 1)
 painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
                    const float* __restrict__ dirx, const float* __restrict__ diry,
                    const float* __restrict__ dirz, const float* __restrict__ q0,
@@ -76,218 +153,324 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
                    const float* __restrict__ wk, const float* __restrict__ bk,
                    const float* __restrict__ wmix, const float* __restrict__ w1,
                    const float* __restrict__ b1, const float* __restrict__ w2,
-                   const float* __restrict__ b2, float* qo, float* muo, float* work,
-                   float* __restrict__ qs, float* __restrict__ mus,
-                   float* __restrict__ qps, float* __restrict__ mups, int n, int R, int L,
+                   const float* __restrict__ b2, float* q, float* mu, float* work, float* qs,
+                   float* mus, float* qps, float* mups, const int* __restrict__ pre,
+                   const int* __restrict__ list, unsigned* bar, int B, int n, int R, int L,
                    float delta, float coeff, float eps) {
-  const int nt = (n + kTile - 1) / kTile;
   extern __shared__ float4 smem_v4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem_v4);
-  float* Wk_s = smem;                    // [R][kF3]
-  float* phi_s = Wk_s + R * kF3;         // [R][kPhiS]
-  float* xj_s = phi_s + R * kPhiS;       // [kTile][kF3]
-  float* muj_s = xj_s + kTile * kF3;     // [kTile][kF3]
-  float* a_s = muj_s + kTile * kF3;      // [kTile][2kF]  dense-layer inputs
-  float* h_s = a_s + kTile * 2 * kF;     // [kTile][kF]   hidden layer
-  float* pr_s = h_s + kTile * kF;        // [5][kPairs]
-  int* occ_s = (int*)(pr_s + 5 * kPairs);  // [nt][nt]
+  float* W0 = smem + kDW0;
+  float* W1 = smem + kDW1;
+  float* P = smem + kDP;
+  float* Q = smem + kDQ;
+  float* S = smem + kDS;
 
-  const int tid = threadIdx.x, b = blockIdx.x;
-  const int r = tid >> 5, lane = tid & 31;
-  const size_t grid_off = (size_t)b * n * n;
-  const float* gate_b = gate + grid_off;
-  float* q = qo + (size_t)b * n * kF;      // [n][kF]
-  float* mu = muo + (size_t)b * n * kF3;   // [n][kF3]
-  float* xw = work + (size_t)b * n * 2 * kF3;  // [n][2 kF3]: x, then new messages
-  for (int idx = tid; idx < n * kF; idx += kThreads) q[idx] = q0[(size_t)b * n * kF + idx];
-  for (int idx = tid; idx < n * kF3; idx += kThreads) mu[idx] = 0.f;
-  // the gate is the same for every block: flag the occupied tiles once
-  for (int t = tid; t < nt * nt; t += kThreads) occ_s[t] = 0;
-  __syncthreads();
-  for (int idx = tid; idx < n * n; idx += kThreads) {
-    const int i = idx / n, j = idx - i * n;
-    if (gate_b[idx] != 0.f) occ_s[(i / kTile) * nt + j / kTile] = 1;
-  }
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int dm = 16 * (warp & 3), dn = 32 * (warp >> 2);  // this warp's part of a product
+  const int rows = B * n, n_chunks = (rows + kDRows - 1) / kDRows;
+  // workspaces: x [rows][3F] (also the mixing's w_c), the messages dq
+  // [rows][F] and dmu [rows][3F]
+  float* xw = work;
+  float* dqw = xw + (size_t)rows * kF3;
+  float* dmuw = dqw + (size_t)rows * kF;
 
-  for (int l = 0; l < L; ++l) {
-    __syncthreads();  // q and mu of the previous block are complete
-    // this block's slice of the residuals, [n][F] and [n][3F]
-    const size_t res_q = ((size_t)b * L + l) * n * kF, res_mu = 3 * res_q;
-    if (RES) {
-      for (int idx = tid; idx < n * kF; idx += kThreads) qs[res_q + idx] = q[idx];
-      for (int idx = tid; idx < n * kF3; idx += kThreads) mus[res_mu + idx] = mu[idx];
-    }
-    block_copy(Wk_s, wk + (size_t)l * R * kF3, R * kF3);
-    const float* Bk = bk + (size_t)l * kF3;
-
-    // x-MLP, 8 rows at a time: x = silu(q Wd1 + bd1) Wd2 + bd2
-    for (int r0 = 0; r0 < n; r0 += kTile) {
-      const int row = r0 + r;
-      __syncthreads();  // the previous row tile is done with a_s, h_s
-      for (int idx = tid; idx < kTile * kF; idx += kThreads) {
-        const int i = r0 + idx / kF;
-        a_s[idx] = i < n ? q[(size_t)i * kF + idx % kF] : 0.f;
-      }
-      __syncthreads();
-      float y[4];
-      rows_dense<kF, kF>(a_s, kF, wd1 + (size_t)l * kF * kF, bd1 + (size_t)l * kF, y);
+  for (int l = 0; l <= L; ++l) {
+    for (int ch = blockIdx.x; ch < n_chunks; ch += gridDim.x) {
+      const int r0 = ch * kDRows;
+      if (l == 0) {
+        // q = q0 (into S for the x-MLP), mu = 0
+        __syncthreads();  // the previous chunk is done with S and the slots
+        stage_piece(W1, wd1, kF, 0, 0);
+        cp_async_commit();
+        load_chunk(S, q0, nullptr, kF, 0, r0, rows, RES ? qs : nullptr, n, L, 0);
+        for (int c = tid; c < kDRows * (kF + kF3) / 4; c += kFwdThreads) {
+          const bool m = c >= kDRows * kF / 4;
+          const int cc = m ? c - kDRows * kF / 4 : c;
+          const int w4 = m ? kF3 / 4 : kF / 4, r = cc / w4, f = (cc % w4) * 4, row = r0 + r;
+          if (row >= rows) continue;
+          if (!m) {
+            *reinterpret_cast<float4*>(q + (size_t)row * kF + f) =
+                *reinterpret_cast<const float4*>(q0 + (size_t)row * kF + f);
+          } else {
+            const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+            *reinterpret_cast<float4*>(mu + (size_t)row * kF3 + f) = z;
+            if (RES) *reinterpret_cast<float4*>(mus + res_row(row, n, L, 0) * kF3 + f) = z;
+          }
+        }
+      } else {
+        // -- the mixing of block lm ----------------------------------------
+        const int lm = l - 1;
+        const float* Wmix = wmix + (size_t)lm * kF * 2 * kF;  // [F][2F]
+        const float* Wc1 = w1 + (size_t)lm * 2 * kF * kF;     // [2F][F]
+        const float* Wc2 = w2 + (size_t)lm * kF * kF3;        // [F][3F]
+        const float* Bc1 = b1 + (size_t)lm * kF;
+        const float* Bc2 = b2 + (size_t)lm * kF3;
+        float vn2[4][4], vw[4][4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) h_s[r * kF + lane + 32 * k] = silu(y[k]);
-      __syncwarp();  // row r of h_s is this warp's
-      float x[12];
-      rows_dense<kF, kF3>(h_s, kF, wd2 + (size_t)l * kF * kF3, bd2 + (size_t)l * kF3, x);
-      if (row < n) {
+        for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-        for (int k = 0; k < 12; ++k) xw[(size_t)row * 2 * kF3 + lane + 32 * k] = x[k];
-      }
-    }
-    __syncthreads();  // x is complete and no thread reads q until the mixing
-
-    // messages from the old mu: q += dq in place, dmu into the workspace
-    for (int pi = 0; pi < nt; ++pi) {
-      const int i0 = pi * kTile;
-      float aq[kFPT], am[3][kFPT];
+          for (int q4 = 0; q4 < 4; ++q4) vn2[nb][q4] = vw[nb][q4] = 0.f;
+        __syncthreads();  // the previous chunk is done with the slots and buffers
+        stage_piece(W0, Wmix, 2 * kF, 0, 0);   // the v half
+        stage_piece(W1, Wmix, 2 * kF, 0, kF);  // the w half
+        cp_async_commit();
+        // per channel (P, Q, P): mu'_c = mu_c + dmu_c, then v_c and w_c
+        for (int c = 0; c < 3; ++c) {
+          float* A = (c & 1) ? Q : P;  // every warp is done with channel c - 2's
+          load_chunk(A, mu, dmuw, kF3, c * kF, r0, rows, RES ? mups : nullptr, n, L, lm);
+          cp_async_wait<0>();
+          __syncthreads();
+          float v[1][4][4], w[1][4][4];
+          zero_acc(v);
+          zero_acc(w);
+          dense_mma(v, A, W0);
+          dense_mma(w, A, W1);
 #pragma unroll
-      for (int k = 0; k < kFPT; ++k) {
-        aq[k] = 0.f;
-        am[0][k] = am[1][k] = am[2][k] = 0.f;
-      }
-      for (int pj = 0; pj < nt; ++pj) {
-        if (!occ_s[pi * nt + pj]) continue;  // block-uniform
-        const int j0 = pj * kTile;
-        __syncthreads();  // x is complete; the previous tile is done with the scratch
-        if (tid < kPairs)
-          painn_load_pairs(pr_s, dist + grid_off, gate_b, dirx + grid_off,
-                           diry + grid_off, dirz + grid_off, i0 + tid / kTile,
-                           j0 + tid % kTile, n, n, tid);
-        for (int idx = tid; idx < kTile * kF3; idx += kThreads) {
-          const int j = j0 + idx / kF3, t = idx % kF3;
-          xj_s[idx] = j < n ? xw[(size_t)j * 2 * kF3 + t] : 0.f;
-          muj_s[idx] = j < n ? mu[(size_t)j * kF3 + t] : 0.f;
+          for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int row = r0 + dm + g + 8 * hh, col = dn + 8 * nb + 2 * t;
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float vv = v[0][nb][2 * hh + e], ww = w[0][nb][2 * hh + e];
+                vn2[nb][2 * hh + e] += vv * vv;
+                vw[nb][2 * hh + e] += vv * ww;
+              }
+              if (row < rows)  // w_c into the chunk's x rows; read back below
+                *reinterpret_cast<float2*>(xw + (size_t)row * kF3 + c * kF + col) =
+                    make_float2(w[0][nb][2 * hh], w[0][nb][2 * hh + 1]);
+            }
+        }
+        // context MLP: hidden = silu([q', vn] W1 + b1), q' = q + dq
+        __syncthreads();  // channel 2's products are done with the slots and Q
+        stage_piece(W0, Wc1, kF, 0, 0);   // the q' half
+        stage_piece(W1, Wc1, kF, kF, 0);  // the vn half
+        cp_async_commit();
+        load_chunk(Q, q, dqw, kF, 0, r0, rows, RES ? qps : nullptr, n, L, lm);
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            store2(S, kF, dm + g + 8 * hh, dn + 8 * nb + 2 * t, sqrtf(vn2[nb][2 * hh] + eps),
+                   sqrtf(vn2[nb][2 * hh + 1] + eps));
+        cp_async_wait<0>();
+        __syncthreads();
+        {
+          float h[1][4][4];
+          zero_acc(h);
+          dense_mma(h, Q, W0);
+          dense_mma(h, S, W1);
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int col = dn + 8 * nb + 2 * t;
+              store2(P, kF, dm + g + 8 * hh, col, silu(h[0][nb][2 * hh] + Bc1[col]),
+                     silu(h[0][nb][2 * hh + 1] + Bc1[col + 1]));
+            }
+        }
+        // q = q' + a + s * sum_c v_c w_c (the a and s slices of W2)
+        __syncthreads();  // the hidden layer is complete; S and the slots are free
+        stage_piece(W0, Wc2, kF3, 0, 0);       // a
+        stage_piece(W1, Wc2, kF3, 0, 2 * kF);  // s
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        {
+          float a[1][4][4], qa[4][4];
+          zero_acc(a);
+          dense_mma(a, P, W0);
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int col = dn + 8 * nb + 2 * t;
+              const float2 qp = load2(Q, kF, dm + g + 8 * hh, col);
+              qa[nb][2 * hh] = qp.x + (a[0][nb][2 * hh] + Bc2[col]);
+              qa[nb][2 * hh + 1] = qp.y + (a[0][nb][2 * hh + 1] + Bc2[col + 1]);
+            }
+          zero_acc(a);
+          dense_mma(a, P, W1);
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int r = dm + g + 8 * hh, row = r0 + r, col = dn + 8 * nb + 2 * t;
+              const float q_x = qa[nb][2 * hh] + (a[0][nb][2 * hh] + Bc2[2 * kF + col]) *
+                                                     vw[nb][2 * hh];
+              const float q_y = qa[nb][2 * hh + 1] +
+                                (a[0][nb][2 * hh + 1] + Bc2[2 * kF + col + 1]) * vw[nb][2 * hh + 1];
+              store2(S, kF, r, col, q_x, q_y);  // the next x-MLP's input
+              if (row < rows) {
+                *reinterpret_cast<float2*>(q + (size_t)row * kF + col) = make_float2(q_x, q_y);
+                if (RES && l < L)
+                  *reinterpret_cast<float2*>(qs + res_row(row, n, L, l) * kF + col) =
+                      make_float2(q_x, q_y);
+              }
+            }
+        }
+        // mu_c = mu'_c + g * w_c (the g slice of W2)
+        __syncthreads();  // every warp is done with the slots
+        stage_piece(W0, Wc2, kF3, 0, kF);  // g
+        cp_async_commit();
+        if (l < L) {
+          stage_piece(W1, wd1 + (size_t)l * kF * kF, kF, 0, 0);  // the x-MLP's Wd1
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
         }
         __syncthreads();
-        painn_rbf(pr_s, phi_s, R, delta, coeff);
-        __syncthreads();
-        painn_tile_messages<kF3>(pr_s, phi_s, Wk_s, Bk, R, xj_s, muj_s, aq, am);
-      }
+        {
+          float a[1][4][4];
+          zero_acc(a);
+          dense_mma(a, P, W0);
 #pragma unroll
-      for (int k = 0; k < kFPT; ++k) {
-        aq[k] += __shfl_xor_sync(0xffffffffu, aq[k], 16);
+          for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-        for (int c = 0; c < 3; ++c) am[c][k] += __shfl_xor_sync(0xffffffffu, am[c][k], 16);
-      }
-      const int fg = thread_fg(), i = i0 + thread_il();
-      if ((tid & 16) == 0 && i < n) {
+            for (int hh = 0; hh < 2; ++hh) {
+              const int row = r0 + dm + g + 8 * hh, col = dn + 8 * nb + 2 * t;
+              if (row >= rows) continue;
+              const float g_x = a[0][nb][2 * hh] + Bc2[kF + col];
+              const float g_y = a[0][nb][2 * hh + 1] + Bc2[kF + col + 1];
 #pragma unroll
-        for (int k = 0; k < kFPT; ++k) {
-          const int f = feat(fg, k);
-          q[(size_t)i * kF + f] += aq[k];
-#pragma unroll
-          for (int c = 0; c < 3; ++c) xw[(size_t)i * 2 * kF3 + kF3 + c * kF + f] = am[c][k];
+              for (int c = 0; c < 3; ++c) {
+                const size_t o = (size_t)row * kF3 + c * kF + col;
+                const float2 m = __ldcg(reinterpret_cast<const float2*>(mu + o));
+                const float2 d = __ldcg(reinterpret_cast<const float2*>(dmuw + o));
+                const float2 wc = *reinterpret_cast<const float2*>(xw + o);  // this thread's
+                const float2 mn = make_float2((m.x + d.x) + g_x * wc.x, (m.y + d.y) + g_y * wc.y);
+                *reinterpret_cast<float2*>(mu + o) = mn;
+                if (RES && l < L)
+                  *reinterpret_cast<float2*>(mus + res_row(row, n, L, l) * kF3 + c * kF + col) = mn;
+              }
+            }
         }
       }
-    }
-    __syncthreads();  // every row's messages are complete
-
-    // mixing, 8 rows at a time (thread: row r, features f = lane + 32k)
-    const float* Wmix = wmix + (size_t)l * kF * 2 * kF;
-    for (int r0 = 0; r0 < n; r0 += kTile) {
-      const int row = r0 + r;
-      __syncthreads();  // the previous row tile is done with muj_s, a_s, h_s
-      for (int idx = tid; idx < kTile * kF3; idx += kThreads) {
-        const int i = r0 + idx / kF3, t = idx % kF3;
-        const float v =
-            i < n ? mu[(size_t)i * kF3 + t] + xw[(size_t)i * 2 * kF3 + kF3 + t] : 0.f;
-        muj_s[idx] = v;
-        if (RES && i < n) mups[res_mu + (size_t)i * kF3 + t] = v;
-      }
-      for (int idx = tid; idx < kTile * kF; idx += kThreads) {
-        const int i = r0 + idx / kF;
-        const float v = i < n ? q[(size_t)i * kF + idx % kF] : 0.f;
-        a_s[(idx / kF) * 2 * kF + idx % kF] = v;
-        if (RES && i < n) qps[res_q + (size_t)i * kF + idx % kF] = v;
-      }
+      if (l == L) continue;
+      // -- the x-MLP of block l: x = silu(q Wd1 + bd1) Wd2 + bd2, q in S ------
+      const float* Wd2 = wd2 + (size_t)l * kF * kF3;
+      const float* Bd1 = bd1 + (size_t)l * kF;
+      const float* Bd2 = bd2 + (size_t)l * kF3;
+      __syncthreads();  // S is complete; every warp is done with W0
+      stage_piece(W0, Wd2, kF3, 0, 0);
+      cp_async_commit();
+      cp_async_wait<1>();  // Wd1 (in W1) has landed
       __syncthreads();
-      float v[3][4], w[3][4];
+      {
+        float h[1][4][4];
+        zero_acc(h);
+        dense_mma(h, S, W1);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        float y[8];
-        rows_dense<kF, 2 * kF>(muj_s + c * kF, kF3, Wmix, nullptr, y);
+        for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          v[c][k] = y[k];
-          w[c][k] = y[4 + k];
-        }
+          for (int hh = 0; hh < 2; ++hh) {
+            const int col = dn + 8 * nb + 2 * t;
+            store2(P, kF, dm + g + 8 * hh, col, silu(h[0][nb][2 * hh] + Bd1[col]),
+                   silu(h[0][nb][2 * hh + 1] + Bd1[col + 1]));
+          }
       }
-      float vw[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float vn = sqrtf(v[0][k] * v[0][k] + v[1][k] * v[1][k] + v[2][k] * v[2][k] + eps);
-        a_s[r * 2 * kF + kF + lane + 32 * k] = vn;
-        vw[k] = v[0][k] * w[0][k] + v[1][k] * w[1][k] + v[2][k] * w[2][k];
-      }
-      __syncwarp();  // row r of a_s is this warp's
-      float y[4];
-      rows_dense<2 * kF, kF>(a_s, 2 * kF, w1 + (size_t)l * 2 * kF * kF, b1 + (size_t)l * kF, y);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) h_s[r * kF + lane + 32 * k] = silu(y[k]);
-      __syncwarp();
-      float x2[12];
-      rows_dense<kF, kF3>(h_s, kF, w2 + (size_t)l * kF * kF3, b2 + (size_t)l * kF3, x2);
-      if (row < n) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int f = lane + 32 * k;
-          q[(size_t)row * kF + f] = a_s[r * 2 * kF + f] + x2[k] + x2[8 + k] * vw[k];
-#pragma unroll
-          for (int c = 0; c < 3; ++c)
-            mu[(size_t)row * kF3 + c * kF + f] = muj_s[r * kF3 + c * kF + f] + x2[4 + k] * w[c][k];
+      // Wd2's three column slices: W0, W1, W0
+      for (int k = 0; k < 3; ++k) {
+        __syncthreads();  // the hidden layer is complete; the slot for slice k + 1 is free
+        if (k < 2) {
+          stage_piece((k & 1) ? W0 : W1, Wd2, kF3, 0, (k + 1) * kF);
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
         }
+        __syncthreads();
+        float a[1][4][4];
+        zero_acc(a);
+        dense_mma(a, P, (k & 1) ? W1 : W0);
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = r0 + dm + g + 8 * hh, col = k * kF + dn + 8 * nb + 2 * t;
+            if (row < rows)
+              *reinterpret_cast<float2*>(xw + (size_t)row * kF3 + col) = make_float2(
+                  a[0][nb][2 * hh] + Bd2[col], a[0][nb][2 * hh + 1] + Bd2[col + 1]);
+          }
       }
     }
+    if (l == L) break;
+    grid_sync(bar);  // x and mu of every row are written
+    painn_fwd_items<KS>(smem, dist, gate, dirx, diry, dirz, xw, mu, wk + (size_t)l * R * kF3,
+                        bk + (size_t)l * kF3, dqw, dmuw, pre, list, B, n, n, R, delta, coeff);
+    grid_sync(bar);  // dq and dmu of every row are written
   }
 }
 
-static size_t smem_bytes(int n, int R) {
-  const int nt = (n + kTile - 1) / kTile;
-  return sizeof(float) * ((size_t)R * kF3 + (size_t)R * kPhiS + 2 * kTile * kF3 +
-                          3 * kTile * kF + 5 * kPairs) +
-         sizeof(int) * (size_t)nt * nt;
+template <bool RES, int KS>
+static cudaError_t launch(void** args, cudaStream_t s) {
+  const auto kernel = painn_stack_kernel<RES, KS>;
+  const size_t smem = sizeof(float) * (size_t)kStackFloats;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)kernel, kFwdThreads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  // every block must be resident for the grid barriers: a cooperative launch
+  // refuses a grid that would not be
+  return cudaLaunchCooperativeKernel((const void*)kernel, dim3(sms * per_sm), dim3(kFwdThreads),
+                                     args, smem, s);
 }
 
 }  // namespace geossl
 
-extern "C" size_t painn_stack_smem_bytes(int n, int R) { return geossl::smem_bytes(n, R); }
+extern "C" size_t painn_stack_smem_bytes() { return sizeof(float) * (size_t)geossl::kStackFloats; }
 
-// Returns the cudaError_t of the launch (0 on success). F must be 128 and
-// n <= 128. `work` holds B*n*6F floats of scratch. With `save_residuals`,
-// qs/qps hold B*L*n*F floats and mus/mups B*L*n*3F each (else they are
-// not read and may be null).
+// Ints of the workspace: the tile list over the gate (worklist.cuh), then
+// the grid barrier's two counters.
+extern "C" size_t painn_stack_ws_ints(int B, int n) {
+  const int nt = (n + geossl::kTile - 1) / geossl::kTile;
+  return geossl::tile_list_ints((size_t)B * nt, nt) + 2;
+}
+
+// Returns the cudaError_t of the launches (0 on success). F must be 128,
+// 2 <= R <= 31, n <= 128, L >= 1. `work` holds B*n*7F floats of scratch,
+// `ws` painn_stack_ws_ints(B, n) ints. With `save_residuals`, qs/qps hold
+// B*L*n*F floats and mus/mups B*L*n*3F each (else they are not read and
+// may be null).
 extern "C" int painn_stack(const float* dist, const float* gate, const float* dirx,
                            const float* diry, const float* dirz, const float* q0,
                            const float* wd1, const float* bd1, const float* wd2,
                            const float* bd2, const float* wk, const float* bk,
                            const float* wmix, const float* w1, const float* b1,
                            const float* w2, const float* b2, float* q, float* mu,
-                           float* work, float* qs, float* mus, float* qps, float* mups,
+                           float* work, float* qs, float* mus, float* qps, float* mups, int* ws,
                            int B, int n, int F, int R, int L, float delta, float coeff,
                            float eps, int save_residuals, void* stream) {
   using namespace geossl;
-  if (F != kF || R < 2 || n > 128) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(n, R);
+  if (F != kF || R < 2 || R > kRP - 1 || n < 1 || n > 128 || L < 1 || B < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (save_residuals) {
-    cudaFuncSetAttribute(painn_stack_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    painn_stack_kernel<true><<<B, kThreads, smem, s>>>(
-        dist, gate, dirx, diry, dirz, q0, wd1, bd1, wd2, bd2, wk, bk, wmix, w1, b1, w2,
-        b2, q, mu, work, qs, mus, qps, mups, n, R, L, delta, coeff, eps);
-  } else {
-    cudaFuncSetAttribute(painn_stack_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    painn_stack_kernel<false><<<B, kThreads, smem, s>>>(
-        dist, gate, dirx, diry, dirz, q0, wd1, bd1, wd2, bd2, wk, bk, wmix, w1, b1, w2,
-        b2, q, mu, work, qs, mus, qps, mups, n, R, L, delta, coeff, eps);
-  }
+  const int nt = (n + kTile - 1) / kTile;
+  const size_t items = (size_t)B * nt;
+  unsigned* bar = reinterpret_cast<unsigned*>(ws + tile_list_ints(items, nt));
+  cudaError_t err = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned), s);
+  if (err != cudaSuccess) return (int)err;
+  err = make_tile_list<false>(gate, ws, B, n, n, 1, s);
+  if (err != cudaSuccess) return (int)err;
+  const int* pre = ws + items * nt + items;
+  const int* list = ws + worklist_ints(items, nt);
+  void* args[] = {&dist, &gate, &dirx, &diry, &dirz, &q0,  &wd1, &bd1,  &wd2,  &bd2,
+                  &wk,   &bk,   &wmix, &w1,   &b1,   &w2,  &b2,  &q,    &mu,   &work,
+                  &qs,   &mus,  &qps,  &mups, &pre,  &list, &bar, &B,   &n,    &R,
+                  &L,    &delta, &coeff, &eps};
+  const bool ks3 = R < 24;
+  if (save_residuals)
+    err = ks3 ? launch<true, 3>(args, s) : launch<true, kKS>(args, s);
+  else
+    err = ks3 ? launch<false, 3>(args, s) : launch<false, kKS>(args, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

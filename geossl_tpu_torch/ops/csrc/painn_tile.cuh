@@ -1,6 +1,6 @@
-// Shared device code of the PaiNN kernels (painn_fwd.cu, painn_bwd.cu,
-// painn_stack.cu): the RBF and gated filters of one 8x8 pair tile and the
-// forward message sums over it.
+// Shared device code of the PaiNN kernels on the CUDA cores (painn_fwd.cu's
+// symmetric mode, painn_bwd.cu; painn_mma.cuh takes kF3 from here): the RBF
+// and gated filters of one 8x8 pair tile and the forward message sums over it.
 //
 // Thread layout as pair_tile.cuh: 256 threads on a tile of 64 pairs, thread
 // t owns 4 consecutive pairs p0..p0+3 and the 8 features feat(fg, k) of

@@ -73,25 +73,6 @@ constexpr int kOffDE = kOffXi + kTile * kSRS;      // [2][2][64] dist, env, [il]
 constexpr int kOffB = kOffDE + 4 * kPairs;         // [2][kF] b1, b2
 constexpr int kStackFloats = kOffB + 2 * kF;       // then ints: misc[4], tile list [nt]
 
-// A barrier across the whole (co-resident) grid: bar[0] counts arrivals,
-// bar[1] is the generation; both zero at launch.
-__device__ __forceinline__ void grid_sync(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned gen = atomicAdd(bar + 1, 0u);
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (atomicAdd(bar + 1, 0u) == gen) __nanosleep(64);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 // 64 rows x F floats from global (rows >= rows_end zero) into a swizzled
 // [64][kF] shared matrix, 16 bytes per cp.async (the swizzle moves aligned
 // groups of 4 floats).
@@ -332,7 +313,7 @@ schnet_stack_kernel(const float* __restrict__ dist, const float* __restrict__ en
 
         // the filter (filter_mma.cuh), then the messages
         float acc[2][4][4];
-        filter_tile_mma<kPrecise>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, start, delta, coeff, acc);
+        filter_tile_mma<kPrecise>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, kSGP, start, delta, coeff, acc);
         tile_messages<SYM>(acc, b2_s, e_t, xj_t, xi_s, racc, mb_ + (size_t)b * n * kF, j0, n,
                            pi != pj);
       }

@@ -1,7 +1,8 @@
 // A work list of occupied 8x8 pair tiles, made on the device with no host
 // sync, shared by the persistent kernels (cfconv_bwd.cu, painn_bwd.cu,
-// schnet_stack.cu, cfconv_fwd.cu's symmetric mode, painn_fwd.cu's plain
-// mode, ncsn_score.cu's forward and backward).
+// schnet_stack.cu, painn_stack.cu, both modes of cfconv_fwd.cu, painn_fwd.cu's
+// plain mode, ncsn_score.cu's forward and backward), and the grid barrier of
+// the cooperative ones.
 //
 // An occupancy pass (one block per graph and 8-row band; BY_ROW, one warp
 // per item) flags the tiles to compute (with `sparse` those whose
@@ -67,8 +68,9 @@ tile_occ_kernel(const float* __restrict__ env, int* __restrict__ occ,
 }
 
 // The same flags for BY_ROW items (b, pi), tiles pj, with no grids to zero:
-// one warp per item, its lanes over the item's j tiles, the item's count
-// written once (no atomics, no memset).
+// one warp per item, its lanes over 32 consecutive columns (four tiles) at
+// a time, so that each load of the item's env rows is coalesced; the
+// item's count written once (no atomics, no memset).
 template <bool SYM>
 __global__ void __launch_bounds__(kOccThreads)
 row_occ_kernel(const float* __restrict__ env, int* __restrict__ occ, int* __restrict__ cnt,
@@ -79,18 +81,22 @@ row_occ_kernel(const float* __restrict__ env, int* __restrict__ occ, int* __rest
   const int b = item / nti, pi = item - b * nti, i0 = pi * kTile, rows = min(kTile, ni - i0);
   const float* base = env + ((size_t)b * ni + i0) * nj;
   int n = 0;
-  for (int t0 = 0; t0 < ntj; t0 += 32) {
-    const int pj = t0 + lane;
-    bool on = pj < ntj && (!SYM || pi <= pj);
-    if (on && sparse) {
-      const int j0 = pj * kTile, cols = min(kTile, nj - j0);
-      bool any = false;
-      for (int r = 0; r < rows; ++r)
-        for (int c = 0; c < cols; ++c) any |= base[(size_t)r * nj + j0 + c] != 0.f;
-      on = any;
+  for (int c0 = 0; c0 < ntj * kTile; c0 += 32) {
+    const int j = c0 + lane;
+    bool any = j < nj && (!SYM || j / kTile >= pi);
+    if (any && sparse) {
+      bool nz = false;
+      for (int r = 0; r < rows; ++r) nz |= base[(size_t)r * nj + j] != 0.f;
+      any = nz;
     }
-    if (pj < ntj) occ[(size_t)item * ntj + pj] = on;
-    n += __popc(__ballot_sync(0xffffffffu, on));
+    const unsigned m = __ballot_sync(0xffffffffu, any);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // tile c0 / 8 + k: lanes 8k .. 8k + 7
+      const int pj = c0 / kTile + k;
+      const bool on = pj < ntj && ((m >> (8 * k)) & 0xffu) != 0;
+      n += on;
+      if (lane == k && pj < ntj) occ[(size_t)item * ntj + pj] = on;
+    }
   }
   if (lane == 0) cnt[item] = n;
 }
@@ -135,6 +141,26 @@ __device__ inline int first_item(const int* __restrict__ pre, int n, int nb, int
       lo = mid + 1;
   }
   return lo;
+}
+
+// A barrier across the whole (co-resident) grid of a cooperative launch
+// (schnet_stack.cu, painn_stack.cu): bar[0] counts arrivals,
+// bar[1] is the generation; both zero at launch.
+__device__ __forceinline__ void grid_sync(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned gen = atomicAdd(bar + 1, 0u);
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (atomicAdd(bar + 1, 0u) == gen) __nanosleep(64);
+    }
+    __threadfence();
+  }
+  __syncthreads();
 }
 
 // Ints of a work list over `items` items of `tiles` tiles each: flags

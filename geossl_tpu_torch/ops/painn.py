@@ -39,11 +39,13 @@ Kernels:
 
 The two message-pass Functions and the stack's are first order only: the
 JAX package's second-order path (MD17 forces) is not ported, and a double
-backward raises NotImplementedError. The kernels compute in plain f32 on
-the CUDA cores, but for ``painn_fwd`` and ``painn_bwd``, whose tile
-products (the filter; the backward also dWk and dphi) run on the tensor
-cores in 3xTF32 (``csrc/mma_tf32.cuh``), within f32 rounding of the plain
-version.
+backward raises NotImplementedError. ``painn_fwd``, ``painn_bwd`` and
+``painn_stack`` run their products (the filter; the backward also dWk and
+dphi; the stack also its dense layers) on the tensor cores in 3xTF32
+(``csrc/mma_tf32.cuh``), within f32 rounding of the plain version; the
+symmetric pair computes in plain f32 on the CUDA cores. The stack is one
+cooperative launch over a work list made on the device, its rows written
+without atomics: two launches give bitwise the same output.
 
 The symmetric pair is for symmetric dist/gate and antisymmetric directions
 only (dir[j, i] = -dir[i, j]): PaiNN's geometry gives them without
@@ -416,23 +418,27 @@ def _launch_painn_stack(name, pair, q0, stacked, cutoff, epsilon,
                          f"weight stacks {want}; got q0 {tuple(q0.shape)}, "
                          f"stacks {got}")
     check_smem(name, _build.kernel_fn(
-        "painn_stack", "painn_stack_smem_bytes", [ctypes.c_int, ctypes.c_int],
-        ctypes.c_size_t)(n, num_r))
+        "painn_stack", "painn_stack_smem_bytes", [], ctypes.c_size_t)())
     fn = _build.kernel_fn(
         "painn_stack", "painn_stack",
-        [ctypes.c_void_p] * 24 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+        [ctypes.c_void_p] * 25 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
         + [ctypes.c_int, ctypes.c_void_p])
     dev = q0.device
     q = torch.empty_like(q0)
     mu = torch.empty((b, n, 3 * f), dtype=torch.float32, device=dev)
-    # x and the new messages of every block, per graph, owned by its block
-    work = torch.empty((b, n, 6 * f), dtype=torch.float32, device=dev)
+    # x [B*N, 3F] (the mixing's scratch too) and the messages dq [B*N, F]
+    # and dmu [B*N, 3F] of every block; the work list over the gate and the
+    # grid barrier
+    work = torch.empty(b * n * 7 * f, dtype=torch.float32, device=dev)
+    ws = torch.empty(_build.kernel_fn(
+        "painn_stack", "painn_stack_ws_ints", [ctypes.c_int] * 2,
+        ctypes.c_size_t)(b, n), dtype=torch.int32, device=dev)
     res = [torch.empty((b, n_layers, n, w), dtype=torch.float32, device=dev)
            for w in (f, 3 * f, f, 3 * f)] if save_residuals else []
     res_ptrs = map(ptr, res) if save_residuals else [ctypes.c_void_p(None)] * 4
     delta, coeff = _rbf_consts(cutoff, num_r)
-    err = fn(*map(ptr, (*pair, q0, *stacked, q, mu, work)), *res_ptrs, b, n,
-             f, num_r, n_layers, delta, coeff, float(epsilon),
+    err = fn(*map(ptr, (*pair, q0, *stacked, q, mu, work)), *res_ptrs, ptr(ws),
+             b, n, f, num_r, n_layers, delta, coeff, float(epsilon),
              int(save_residuals), stream(dist))
     check_launch(name, err)
     return (q, mu, *res)

@@ -37,10 +37,10 @@ from geossl_tpu_torch.train.common import make_backbone, make_head
 # (0: none; at most the kernels' shape limit, ops/cfconv.STACK_MAX_N =
 # ops/painn.STACK_MAX_N = 128), set on the H100 by
 # chip_smoke.py's ``serving_route:`` line (PERF.md): the stack is the faster
-# route for SchNet at N = 32, 64 and 128, for PaiNN at N = 32 only. The JAX
-# package's STACK_MAX_N (its choice on the TPU) does not route the port.
+# route for both backbones at N = 32, 64 and 128. The JAX package's
+# STACK_MAX_N (its choice on the TPU) does not route the port.
 SCHNET_STACK_MAX_N = 128
-PAINN_STACK_MAX_N = 32
+PAINN_STACK_MAX_N = 128
 
 
 def resolve_device(device=None) -> torch.device:

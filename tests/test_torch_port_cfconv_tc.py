@@ -2,9 +2,9 @@
 CPU.
 
 ``ops/csrc/cfconv_bwd.cu`` runs its six tile products (``painn_bwd.cu`` its
-three, ``schnet_stack.cu`` its filter and dense products, ``cfconv_fwd.cu``'s
-symmetric mode its two filter products, ``ncsn_score.cu``'s backward its three
-head products) with
+three, ``schnet_stack.cu`` and ``painn_stack.cu`` their filter and dense
+products, ``cfconv_fwd.cu`` its two filter products, ``ncsn_score.cu``'s
+backward its three head products) with
 ``mma.sync.m16n8k8`` in 3xTF32 (``csrc/mma_tf32.cuh``): each f32 operand is
 split into a TF32 high part (its top 19 bits) and the f32 remainder, whose
 top 19 bits the tensor core reads, and the product is
@@ -16,7 +16,8 @@ also emulates the tensor core's truncating accumulator, which is what the
 precise mode is for: a sum over every tile of a run (the NCSN backward's
 dW2) drifts in the plain split and stays within f32 rounding in the precise
 mode, while the symmetric CFConv forward's two chained products meet their
-tolerance in the plain split.
+tolerance in the plain split; so does the PaiNN stack's chain of 18 dense
+products in the precise mode, and not in the plain split.
 """
 
 import numpy as np
@@ -431,3 +432,98 @@ def test_painn_route_is_unchanged(monkeypatch, n):
     # the JAX package's rule (painn_pallas.painn_sym_profitable): from N=256
     assert taken == ["painn_message_fused_sym" if n >= 256
                      else "painn_message_fused"]
+
+
+def _painn_stack_case(seed, b_n=8, n=32, f=128, r=20, layers=3, cutoff=5.0):
+    """Molecule-like PaiNN stack inputs at full width, f32 values in f64:
+    the five pair grids (cosine-cutoff gate, unit directions), q0 and the
+    11 weight stacks."""
+    rng = np.random.default_rng(seed)
+    pos = rng.normal(scale=1.6, size=(b_n, n, 3))
+    d = np.linalg.norm(pos[:, :, None] - pos[:, None], axis=-1)
+    eye = np.eye(n, dtype=bool)[None]
+    gate = np.where((d < cutoff) & ~eye, 0.5 * (np.cos(np.pi * d / cutoff) + 1.0), 0.0)
+    vec = (pos[:, None] - pos[:, :, None]) / np.where(eye, 1.0, d)[..., None]
+    grids = [d, gate] + [np.where(eye, 0.0, vec[..., c]) for c in range(3)]
+
+    def w(*shape):
+        return rng.normal(0.0, 1.0 / np.sqrt(shape[-2]), shape)
+
+    def bias(*shape):
+        return rng.normal(0.0, 0.1, shape)
+
+    stacked = [w(layers, f, f), bias(layers, f), w(layers, f, 3 * f), bias(layers, 3 * f),
+               w(layers, r, 3 * f), bias(layers, 3 * f), w(layers, f, 2 * f),
+               w(layers, 2 * f, f), bias(layers, f), w(layers, f, 3 * f), bias(layers, 3 * f)]
+
+    def f64(a):
+        return torch.from_numpy(np.asarray(_f32(a), dtype=np.float64))
+
+    return [f64(g) for g in grids], f64(rng.normal(size=(b_n, n, f))), [f64(s) for s in stacked]
+
+
+def _painn_stack_emulated(grids, q0, stacked, dense_precise, cutoff=5.0, eps=1e-8):
+    """painn_stack.cu's arithmetic in f32: each dense product [rows x 128] x
+    [128 x 128] in 3xTF32 (``dense_precise``: the precise mode, else the
+    plain split), the gated filter [phi; 1] gate [Wk; bk] in the plain split
+    with [Wk; bk] split once (rounded), everything else in f32."""
+    d, gate, dx, dy, dz = (g.float() for g in grids)
+    wd1, bd1, wd2, bd2, wk, bk, wmix, w1, b1, w2, b2 = (s.float() for s in stacked)
+    b_n, n, f = q0.shape
+    r = wk.shape[1]
+    delta = cutoff / (r - 1)
+
+    def mm(*pairs):
+        return mma_chain(list(pairs), dense_precise)
+
+    silu = torch.nn.functional.silu
+    phi = torch.exp((-0.5 / delta**2) * (d[..., None] - delta * torch.arange(r)) ** 2)
+    a = torch.cat([phi, torch.ones_like(phi[..., :1]), torch.zeros_like(phi[..., :3])], -1)
+    a = (a * gate[..., None]).reshape(-1, r + 4)
+    q, mu = q0.float().reshape(-1, f), torch.zeros(b_n * n, 3 * f)
+    for k in range(wd1.shape[0]):
+        x = mm((silu(mm((q, wd1[k])) + bd1[k]), wd2[k])) + bd2[k]
+        wkb = torch.cat([wk[k], bk[k][None], torch.zeros(3, 3 * f)])
+        w = mma_chain([(a, wkb)], False, round_b=True).view(b_n, n, n, 3 * f)
+        wx = w * x.view(b_n, 1, n, 3 * f)
+        muv = mu.view(b_n, 1, n, 3 * f)
+        dmu = torch.cat([(wx[..., f:2 * f] * dc[..., None]).sum(2)
+                         + (wx[..., 2 * f:] * muv[..., c * f:c * f + f]).sum(2)
+                         for c, dc in enumerate((dx, dy, dz))], -1)
+        qp, mup = q + wx[..., :f].sum(2).reshape(-1, f), mu + dmu.reshape(-1, 3 * f)
+        v = [mm((mup[:, c * f:c * f + f], wmix[k][:, :f])) for c in range(3)]
+        ws = [mm((mup[:, c * f:c * f + f], wmix[k][:, f:])) for c in range(3)]
+        vn = torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2] + eps)
+        h = silu(mm((qp, w1[k][:f]), (vn, w1[k][f:])) + b1[k])
+        sv = mm((h, w2[k][:, 2 * f:])) + b2[k][2 * f:]
+        q = (qp + (mm((h, w2[k][:, :f])) + b2[k][:f])) \
+            + sv * (v[0] * ws[0] + v[1] * ws[1] + v[2] * ws[2])
+        gv = mm((h, w2[k][:, f:2 * f])) + b2[k][f:2 * f]
+        mu = torch.cat([mup[:, c * f:c * f + f] + gv * ws[c] for c in range(3)], -1)
+    return q.view(b_n, n, f), mu.view(b_n, n, 3 * f)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_painn_stack_needs_the_precise_mode_for_its_dense_layers(seed):
+    """painn_stack.cu chains six dense products per block through L = 3
+    blocks (F = 128) and the gated filter of each message pass. On 8 graphs
+    of 32 atoms the precise mode for the dense layers, with the filter in
+    the plain split, stays within a quarter of chip_smoke.py's stack
+    tolerance (rtol 1e-4, atol 1e-5 times the largest magnitude) of the f64
+    stack; the plain split's truncating accumulation in the dense layers
+    misses it (the filter's plain split feeds the messages linearly and
+    costs nothing there)."""
+    grids, q0, stacked = _painn_stack_case(seed)
+    want = tpn.painn_stack_reference(*grids, q0, stacked, 5.0)
+
+    def ratio(got):
+        out = 0.0
+        for g, w in zip(got, want):
+            atol = ATOL * max(1.0, w.abs().max().item())
+            out = max(out, ((g.double() - w).abs() / (atol + RTOL * w.abs())).max().item())
+        return out
+
+    precise = ratio(_painn_stack_emulated(grids, q0, stacked, True))
+    assert precise < 0.25, precise
+    plain = ratio(_painn_stack_emulated(grids, q0, stacked, False))
+    assert plain > 1.0, plain

@@ -77,8 +77,9 @@ def test_predict_and_embed_match_jax_predictor(max_neighbors):
 
 
 def test_painn_predictor_matches_jax_predictor():
-    """PaiNN: the stack route (bucket 32, ``serve.PAINN_STACK_MAX_N``) and
-    the per-block route (64, 256) on the CPU against the JAX Predictor
+    """PaiNN: the stack route (buckets 32 and 64, up to
+    ``serve.PAINN_STACK_MAX_N``) and the per-block route (256) on the CPU
+    against the JAX Predictor
     (use_pallas=False) on the same weights, with the halving-MLP head."""
     psmall = dict(n_interactions=2, n_rbf=8)
     jcfg = JModelConfig(model_3d="painn", emb_dim=16,

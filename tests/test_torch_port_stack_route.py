@@ -47,11 +47,10 @@ def _state(cfg, seed=0):
 
 
 def test_constants_are_the_measured_routes():
-    """The chip's serving_route: line: SchNet's stack is the faster route at
-    every stack bucket, PaiNN's at N=32 only; both within the kernels'
-    shape limit."""
+    """The chip's serving_route: line: each backbone's stack is the faster
+    route at every stack bucket; both within the kernels' shape limit."""
     assert serve.SCHNET_STACK_MAX_N == 128
-    assert serve.PAINN_STACK_MAX_N == 32
+    assert serve.PAINN_STACK_MAX_N == 128
     assert max(serve.SCHNET_STACK_MAX_N, serve.PAINN_STACK_MAX_N) \
         <= tcf.STACK_MAX_N
 

@@ -2,11 +2,13 @@
 the CPU: the tile list of ``csrc/worklist.cuh`` (``make_tile_list``) and its
 split into equal runs (``run_begin``) or into runs of whole items
 (``first_item``), the symmetric CFConv forward's runs with their mirrored
-messages (``csrc/cfconv_fwd.cu``), PaiNN's forward over runs of whole items
-(``csrc/painn_fwd.cu``), and the NCSN forward's row partials and backward's
-du partials summed in list order (``csrc/ncsn_score.cu``: ``ncsn_fwd_kernel``
-and ``ncsn_bwd_kernel`` write them, ``ncsn_rows_kernel`` and
-``ncsn_du_kernel`` sum them).
+messages and the plain CFConv forward's equal runs with their split items'
+partials (``csrc/cfconv_fwd.cu``), PaiNN's forward over runs of whole items
+(``csrc/painn_fwd.cu``), the PaiNN stack's phases (``csrc/painn_stack.cu``),
+and the NCSN forward's row partials and backward's du partials summed in
+list order (``csrc/ncsn_score.cu``: ``ncsn_fwd_kernel`` and
+``ncsn_bwd_kernel`` write them, ``ncsn_rows_kernel`` and ``ncsn_du_kernel``
+sum them).
 """
 
 import numpy as np
@@ -22,20 +24,20 @@ TILE = 8
 
 
 def tile_list(grid, sym, sparse=True):
-    """``make_tile_list`` on a [B, n, n] grid: items (graph, 8-row i tile)
+    """``make_tile_list`` on a [B, ni, nj] grid: items (graph, 8-row i tile)
     in order, each listing its computed j tiles in order (with ``sym`` only
     pj >= pi; with ``sparse`` only tiles holding a nonzero entry). Returns
     the list of (b, pi, pj), pos {(b, pi, pj): list position} and the
-    prefix sums pre [B * nt + 1]."""
-    b_n, n, _ = grid.shape
-    nt = -(-n // TILE)
-    nz = np.zeros((b_n, nt * TILE, nt * TILE), bool)
-    nz[:, :n, :n] = np.asarray(grid) != 0
-    occ = nz.reshape(b_n, nt, TILE, nt, TILE).any(axis=(2, 4))
+    prefix sums pre [B * nti + 1]."""
+    b_n, ni, nj = grid.shape
+    nti, ntj = -(-ni // TILE), -(-nj // TILE)
+    nz = np.zeros((b_n, nti * TILE, ntj * TILE), bool)
+    nz[:, :ni, :nj] = np.asarray(grid) != 0
+    occ = nz.reshape(b_n, nti, TILE, ntj, TILE).any(axis=(2, 4))
     lst, pos, pre = [], {}, [0]
     for b in range(b_n):
-        for pi in range(nt):
-            for pj in range(nt):
+        for pi in range(nti):
+            for pj in range(ntj):
                 if (not sym or pi <= pj) and (occ[b, pi, pj] or not sparse):
                     pos[b, pi, pj] = len(lst)
                     lst.append((b, pi, pj))
@@ -369,3 +371,256 @@ def test_ncsn_forward_row_partials_are_the_reference_rows_f64(blocks):
             got[b, TILE * pi:TILE * pi + TILE] = s
     torch.testing.assert_close(got[:, :n], want, rtol=1e-12, atol=1e-12)
     assert not got[1].any()  # the empty slot
+
+
+def first_run_block(t0, total, blocks):
+    """``first_run_block``: the last block whose run starts at or before
+    listed tile t0."""
+    return ((t0 + 1) * blocks + total - 1) // total - 1
+
+
+def _max_neighbors_case(seed, sizes, n, k=6, f=16, g=8, cutoff=5.0):
+    """A max_neighbors-like CFConv input in f64: each row keeps its k nearest
+    in-cutoff neighbours (env not symmetric), x [B, n, f] and the filter
+    weights."""
+    dist, env, _ = _geometry(seed, sizes, n, cutoff)
+    d = torch.where(env != 0, dist, torch.full_like(dist, float("inf")))
+    kth = d.sort(-1).values[..., k - 1:k]
+    env = torch.where(d <= kth, env, torch.zeros_like(env))
+    rng = np.random.default_rng(seed + 1)
+    x = torch.from_numpy(rng.normal(size=(len(sizes), n, f)))
+    w1, w2 = (torch.from_numpy(rng.normal(scale=0.3, size=s)) for s in ((g, f), (f, f)))
+    b1, b2 = (torch.from_numpy(rng.normal(scale=0.3, size=f)) for _ in range(2))
+    return dist, env, x, (w1, b1, w2, b2)
+
+
+@pytest.mark.parametrize("blocks,sparse,stripe", [
+    (1, True, None), (7, True, None), (7, False, None), (132, True, None),
+    (7, True, (8, 20)), (50, True, (3, 17))])
+def test_cfconv_plain_forward_equal_runs_write_each_row_once_f64(blocks, sparse, stripe):
+    """cfconv_fwd_kernel's scheme on a max_neighbors graph (env not
+    symmetric; with ``stripe`` the rows r0:r1 only, ni != nj): block k walks
+    listed tiles [run_begin(k), run_begin(k + 1)); a row's sums are kept in
+    two halves (the warps wm = 0, 1: columns jl 0-3 and 4-7) and added, half
+    0 then half 1, when the run leaves its item; an item whole in the run is
+    written there, the run's first and last item, where a run boundary
+    splits them, go to the block's partial slots 0 and 1, and
+    cfconv_fwd_join_kernel adds an item's partials in block order (block k
+    takes the item of run_begin(k) at its first boundary inside it); the
+    rows of items with no listed tile are written as zeros. Every row is
+    written exactly once and the result is the plain version's."""
+    n, g, cutoff = 20, 8, 5.0
+    dist, env, x, fw = _max_neighbors_case(11, (20, 0, 11), n, g=g, cutoff=cutoff)
+    if stripe is not None:
+        dist, env = dist[:, stripe[0]:stripe[1]], env[:, stripe[0]:stripe[1]]
+    want = tcf.cfconv_fused_reference(dist, env, x, *fw, 0.0, cutoff, g)
+    b_n, ni, nj = dist.shape
+    f = x.shape[-1]
+    nti, ntj = -(-ni // TILE), -(-nj // TILE)
+    ew = torch.zeros(b_n, nti * TILE, ntj * TILE, f, dtype=x.dtype)
+    ew[:, :ni, :nj] = env[..., None] * _filter(dist, *fw, cutoff, g)
+    xp = torch.zeros(b_n, ntj * TILE, f, dtype=x.dtype)
+    xp[:, :nj] = x
+    lst, _, pre = tile_list(env, sym=False, sparse=sparse)
+    total = len(lst)
+    got = torch.full((b_n, nti * TILE, f), float("nan"), dtype=x.dtype)
+    writes = torch.zeros(b_n, nti * TILE, dtype=torch.int64)
+
+    def item_of(t):
+        return lst[t][0] * nti + lst[t][1]
+
+    def write(item, rows):
+        b, pi = divmod(item, nti)
+        got[b, TILE * pi:TILE * pi + TILE] = rows
+        writes[b, TILE * pi:TILE * pi + TILE] += 1
+
+    part = {}
+    for k in range(blocks):
+        for item in range(k, b_n * nti, blocks):
+            if pre[item] == pre[item + 1]:
+                write(item, torch.zeros(TILE, f, dtype=x.dtype))
+        t0, t1 = run_begin(total, blocks, k), run_begin(total, blocks, k + 1)
+        if t0 >= t1:
+            continue
+        first, cur, halves = item_of(t0), None, None
+
+        def flush():
+            rows = halves[0] + halves[1]
+            if pre[cur] >= t0 and pre[cur + 1] <= t1:
+                write(cur, rows)
+            else:
+                part[k, int(cur != first)] = rows
+
+        for t in range(t0, t1):
+            b, pi, pj = lst[t]
+            if b * nti + pi != cur:
+                if cur is not None:
+                    flush()
+                cur = b * nti + pi
+                halves = [torch.zeros(TILE, f, dtype=x.dtype) for _ in range(2)]
+            tile = ew[b, TILE * pi:TILE * pi + TILE, TILE * pj:TILE * pj + TILE] \
+                * xp[b, None, TILE * pj:TILE * pj + TILE]
+            halves[0] += tile[:, :4].sum(1)
+            halves[1] += tile[:, 4:].sum(1)
+        flush()
+    for k in range(1, blocks):
+        t = run_begin(total, blocks, k)
+        if t >= total:
+            continue
+        item = item_of(t)
+        ta, tb = pre[item], pre[item + 1]
+        if t == ta or run_begin(total, blocks, k - 1) > ta:
+            continue
+        s = torch.zeros(TILE, f, dtype=x.dtype)
+        for j in range(first_run_block(ta, total, blocks), blocks):
+            rb = run_begin(total, blocks, j)
+            if rb >= tb:
+                break
+            if run_begin(total, blocks, j + 1) > rb:
+                s = s + part[j, int(item_of(rb) != item)]
+        write(item, s)
+    assert (writes[:, :ni] == 1).all()  # every row once
+    torch.testing.assert_close(got[:, :ni], want, rtol=1e-12, atol=1e-12)
+    assert not got[1].any()  # the empty slot
+
+
+def _painn_stack_case(seed, sizes, n, f=4, r=6, layers=3):
+    """The stack's inputs in f64: the pair grids of ``_painn_case``, q0 [B,
+    n, f] and the 11 weight stacks."""
+    args, mask = _painn_case(seed, sizes, n, f, r)
+    rng = np.random.default_rng(seed + 2)
+
+    def w(*shape):
+        return torch.from_numpy(rng.normal(scale=1.0 / np.sqrt(shape[-2]), size=shape))
+
+    def bias(*shape):
+        return torch.from_numpy(rng.normal(scale=0.3, size=shape))
+
+    stacked = (w(layers, f, f), bias(layers, f), w(layers, f, 3 * f), bias(layers, 3 * f),
+               w(layers, r, 3 * f), bias(layers, 3 * f), w(layers, f, 2 * f),
+               w(layers, 2 * f, f), bias(layers, f), w(layers, f, 3 * f), bias(layers, 3 * f))
+    q0 = torch.from_numpy(rng.normal(size=(len(sizes), n, f)))
+    return args[:5], q0, stacked, args[-1]
+
+
+@pytest.mark.parametrize("blocks,sparse,save", [
+    (1, True, False), (5, True, True), (5, False, True), (132, True, False)])
+def test_painn_stack_phases_are_the_reference_f64(blocks, sparse, save):
+    """painn_stack_kernel's phases: dense 0 (q = q0, mu = 0, block 0's
+    x-MLP) over 64-row chunks of [B*N, .] round-robin over the blocks; then
+    per block k the message pass over runs of whole items (first_item), from
+    x and the OLD mu into workspaces dq, dmu (each row written once, empty
+    items' rows zero), and dense k + 1: per channel mu'_c = mu_c + dmu_c, v_c
+    and w_c (w_c kept in the chunk's rows of the x workspace), the context
+    MLP from q' = q + dq, the new q and mu, then block k + 1's x-MLP into
+    the x workspace. Residuals where the kernel writes them: qs, mus at
+    dense 0 and with each new q, mu; qps, mups as the mixing loads them. On
+    a batch with padding and an empty graph slot that is the plain stack,
+    with and without save_residuals."""
+    grids, q0, stacked, cutoff = _painn_stack_case(12, (20, 0, 13), 24)
+    eps = 1e-8
+    want = tpn.painn_stack_reference(*grids, q0, stacked, cutoff, eps, save_residuals=save)
+    wd1, bd1, wd2, bd2, wk, bk, wmix, w1, b1, w2, b2 = stacked
+    b_n, n, f = q0.shape
+    layers, rows, chunk = wd1.shape[0], b_n * n, 64
+    nt = -(-n // TILE)
+    m = nt * TILE
+    silu = torch.nn.functional.silu
+
+    def nan(*shape):
+        return torch.full(shape, float("nan"), dtype=q0.dtype)
+
+    q, mu = nan(rows, f), nan(rows, 3 * f)
+    xw, dqw, dmuw = nan(rows, 3 * f), nan(rows, f), nan(rows, 3 * f)
+    res = {k: nan(b_n, layers, n, w) for k, w in (("qs", f), ("mus", 3 * f),
+                                                  ("qps", f), ("mups", 3 * f))}
+
+    def put(name, rs, l, v):
+        for r, row in zip(range(rs.start, rs.stop), v):
+            res[name][r // n, l, r % n] = row
+
+    lst, _, pre = tile_list(grids[1], sym=False, sparse=sparse)
+    n_items = b_n * nt
+    for l in range(layers + 1):
+        done = torch.zeros(rows, dtype=torch.int64)
+        for k in range(blocks):
+            for ch in range(k, -(-rows // chunk), blocks):
+                rs = slice(ch * chunk, min(ch * chunk + chunk, rows))
+                done[rs] += 1
+                if l == 0:
+                    s = q0.reshape(rows, f)[rs]
+                    q[rs], mu[rs] = s, 0.0
+                    put("qs", rs, 0, s)
+                    put("mus", rs, 0, torch.zeros(rs.stop - rs.start, 3 * f))
+                else:
+                    lm = l - 1
+                    vn2, vw = 0.0, 0.0
+                    put("mups", rs, lm, mu[rs] + dmuw[rs])  # as each channel loads
+                    for c in range(3):
+                        cs = slice(c * f, c * f + f)
+                        mup = mu[rs, cs] + dmuw[rs, cs]
+                        v, w = mup @ wmix[lm][:, :f], mup @ wmix[lm][:, f:]
+                        vn2, vw = vn2 + v * v, vw + v * w
+                        xw[rs, cs] = w
+                    qp = q[rs] + dqw[rs]
+                    put("qps", rs, lm, qp)
+                    h = silu(qp @ w1[lm][:f] + torch.sqrt(vn2 + eps) @ w1[lm][f:] + b1[lm])
+                    s = (qp + (h @ w2[lm][:, :f] + b2[lm][:f])) \
+                        + (h @ w2[lm][:, 2 * f:] + b2[lm][2 * f:]) * vw
+                    q[rs] = s
+                    gv = h @ w2[lm][:, f:2 * f] + b2[lm][f:2 * f]
+                    mu[rs] = torch.cat([(mu[rs, c * f:c * f + f] + dmuw[rs, c * f:c * f + f])
+                                        + gv * xw[rs, c * f:c * f + f] for c in range(3)], -1)
+                    if l < layers:
+                        put("qs", rs, l, q[rs])
+                        put("mus", rs, l, mu[rs])
+                if l < layers:
+                    xw[rs] = silu(s @ wd1[l] + bd1[l]) @ wd2[l] + bd2[l]
+        assert (done == 1).all()  # every row once per dense phase
+        if l == layers:
+            break
+        # the message pass of block l from x and the OLD mu, rows written once
+        dqw[:], dmuw[:] = float("nan"), float("nan")
+        msg = torch.zeros(b_n, m, m, 4 * f, dtype=q0.dtype)
+        dq, dmu = tpn.painn_message_reference(*grids, xw.view(b_n, n, 3 * f),
+                                              mu.view(b_n, n, 3 * f), wk[l], bk[l], cutoff)
+        # per pair: the reference's messages split by pair (dq, dmu are their sums)
+        w3 = (tpn._rbf(grids[0], wk.shape[1], cutoff) @ wk[l] + bk[l]) * grids[1][..., None]
+        xv, muv = xw.view(b_n, n, 3 * f), mu.view(b_n, n, 3 * f)
+        wx = w3 * xv[:, None]
+        parts = [wx[..., :f]] + [wx[..., f:2 * f] * dc[..., None]
+                                 + wx[..., 2 * f:] * muv[:, None, :, c * f:c * f + f]
+                                 for c, dc in enumerate(grids[2:])]
+        msg[:, :n, :n] = torch.cat(parts, -1)
+        torch.testing.assert_close(msg.sum(2)[:, :n], torch.cat([dq, dmu], -1),
+                                   rtol=1e-12, atol=1e-12)
+        for k in range(blocks):
+            for item in range(k, n_items, blocks):
+                if pre[item] == pre[item + 1]:
+                    b, pi = divmod(item, nt)
+                    for i in range(TILE * pi, min(TILE * pi + TILE, n)):
+                        dqw[b * n + i], dmuw[b * n + i] = 0.0, 0.0
+            cur, acc = None, None
+
+            def flush():
+                b, pi = divmod(cur, nt)
+                for i in range(TILE * pi, min(TILE * pi + TILE, n)):
+                    assert torch.isnan(dqw[b * n + i]).all()  # written once
+                    dqw[b * n + i] = acc[i - TILE * pi, :f]
+                    dmuw[b * n + i] = acc[i - TILE * pi, f:]
+
+            for t in range(pre[first_item(pre, blocks, k)], pre[first_item(pre, blocks, k + 1)]):
+                b, pi, pj = lst[t]
+                if b * nt + pi != cur:
+                    if cur is not None:
+                        flush()
+                    cur, acc = b * nt + pi, torch.zeros(TILE, 4 * f, dtype=q0.dtype)
+                acc += msg[b, TILE * pi:TILE * pi + TILE, TILE * pj:TILE * pj + TILE].sum(1)
+            if cur is not None:
+                flush()
+        assert not torch.isnan(dqw).any() and not torch.isnan(dmuw).any()
+    got = (q.view(b_n, n, f), mu.view(b_n, n, 3 * f))
+    if save:
+        got = got + tuple(res[k] for k in ("qs", "mus", "qps", "mups"))
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-12, atol=1e-12)
