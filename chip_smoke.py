@@ -310,8 +310,10 @@ KERNEL_ENTRIES = {
     "painn_fwd_sym": ("painn_fwd", "_ZN6geossl20painn_fwd_sym_kernel"),
     "painn_bwd": ("painn_bwd", "_ZN6geossl20painn_bwd_mma_kernel"),
     "painn_bwd_sym": ("painn_bwd", "_ZN6geossl20painn_bwd_sym_kernel"),
-    "painn_stack": ("painn_stack", "_ZN6geossl18painn_stack_kernelILb0ELi3E"),
-    "painn_stack_train": ("painn_stack", "_ZN6geossl18painn_stack_kernelILb1ELi3E"),
+    # the stack at the shapes of its rows: serving N=32 (32-row dense
+    # chunks), DDM N=128 (64-row chunks)
+    "painn_stack": ("painn_stack", "_ZN6geossl18painn_stack_kernelILb0ELi3ELi32E"),
+    "painn_stack_train": ("painn_stack", "_ZN6geossl18painn_stack_kernelILb1ELi3ELi64E"),
 }
 
 

@@ -92,9 +92,9 @@ __device__ __forceinline__ void mma_passes(float c[MB][NB][4], const uint32_t ah
 // columns n0 + 8 nb) += A B over k in [0, K), with
 //   A[m][k] = MA(m, k) (kTA = false, ldmatrix) or MA(k, m) (kTA = true),
 //   B[k][n] = MB_(k, n) (kTB = false) or MB_(n, k) (kTB = true, ldmatrix),
-// both swizzled shared-memory matrices; K, m0 and n0 multiples of 8, and
-// m0 (kTA) and n0 (!kTB, then NB <= 4) multiples of 32. NB must be even
-// when kTB. A k step splits all its fragments and then issues the three
+// both swizzled shared-memory matrices; K, m0 and n0 multiples of 8, m0 a
+// multiple of 32 when kTA, and when !kTB the columns n0 .. n0 + 8 NB within
+// one aligned group of 32 (NB <= 4). NB must be even when kTB. A k step splits all its fragments and then issues the three
 // passes over all MB x NB blocks; with kBOuter it splits the A fragments
 // one 16-row block at a time (fewer live registers when MB is large).
 //
@@ -132,7 +132,9 @@ __device__ __forceinline__ void warp_tile_mma(float c[MB][NB][4], const float* A
                       : (m0 + lr + 8 * (lq & 1)) * lda + 4 * ((lq >> 1) ^ (lr >> 2));
   const int a_u = kTA ? 4 * lda + ((g ^ 4) - g) : 0;  // row + 4 (t-on-rows loads)
   const int b_l = kTB ? (n0 + lr + 8 * (lq >> 1)) * ldb + 4 * ((lq & 1) ^ (lr >> 2))
-                      : t * ldb + g + n0;
+                      : t * ldb + g + (n0 & ~31);
+  // !kTB: n0's 8-column block within its group of 32 (zero when NB = 4)
+  const int nbo = kTB || NB == 4 ? 0 : (n0 >> 3) & 3;
   const int b_u = kTB ? 0 : 4 * ldb + ((g ^ 4) - g);
   auto load_a = [&](int mb, int k0, uint32_t ah[4], uint32_t al[4]) {
     uint32_t v[4];
@@ -150,7 +152,7 @@ __device__ __forceinline__ void warp_tile_mma(float c[MB][NB][4], const float* A
     for (int q = 0; q < 4; ++q) split_tf32<kPrecise>(v[q], ah[q], al[q]);
   };
   auto load_b = [&](int nb, int k0, uint32_t bh[2], uint32_t bl[2]) {
-    const float* p = B + k0 * ldb + b_l + ((8 * nb) ^ t8);
+    const float* p = B + k0 * ldb + b_l + ((8 * (nb + nbo)) ^ t8);
     if (kBLo) {
       bh[0] = __float_as_uint(p[0]);
       bh[1] = __float_as_uint(p[b_u]);

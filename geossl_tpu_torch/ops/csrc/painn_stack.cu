@@ -45,9 +45,10 @@
 //   OLD mu of every column, while other blocks' runs finish at other
 //   times, so its dq and dmu go to workspaces that the next dense phase
 //   adds (the JAX kernel computes the whole dmu before adding it).
-// - Dense phases: over 64-row chunks of [B*N, .] (round-robin over the
-//   blocks), each product [64 x 128] x [128 x 128] per warp 16 rows x 32
-//   columns, in the precise mode (rounded split, each k step added in f32:
+// - Dense phases: over chunks of 64 rows of [B*N, .] (32 rows when a
+//   batch is small, launch() says when; round-robin over the blocks), each
+//   product [64 x 128] x [128 x 128] per warp 16 rows x 32 columns (32 rows:
+//   16 x 16), in the precise mode (rounded split, each k step added in f32:
 //   the stack chains six products a block, 18 in all, and the plain split's
 //   truncating accumulation drifts beyond the tolerance; the test above
 //   shows it). Weights are staged in shared memory as 128 x 128 pieces in
@@ -74,7 +75,7 @@
 
 namespace geossl {
 
-constexpr int kDRows = 64;  // atom rows per dense chunk
+constexpr int kDRows = 64;  // atom rows per dense chunk, at most
 // the dense products in mma_tf32.cuh's precise mode (the header says why)
 constexpr bool kDensePrecise = true;
 // shared memory of the dense phases, in floats: two 128 x 128 weight slots
@@ -105,13 +106,14 @@ __device__ __forceinline__ void stage_piece(float* W_s, const float* __restrict_
   }
 }
 
-// A_s = rows r0.. of (a + b)[:, c0 .. c0 + 127] (b may be null) of [rows,
-// ld] matrices read through L2, rows >= rows_end zero; with res, the values
-// also go to the residual stack res [B, L, n, ld] at block l.
+// A_s = ROWS rows r0.. of (a + b)[:, c0 .. c0 + 127] (b may be null) of
+// [rows, ld] matrices read through L2, rows >= rows_end zero; with res, the
+// values also go to the residual stack res [B, L, n, ld] at block l.
+template <int ROWS>
 __device__ __forceinline__ void load_chunk(float* A_s, const float* a, const float* b, int ld,
                                            int c0, int r0, int rows_end, float* res, int n,
                                            int L, int l) {
-  for (int c = threadIdx.x; c < kDRows * kF / 4; c += kFwdThreads) {
+  for (int c = threadIdx.x; c < ROWS * kF / 4; c += kFwdThreads) {
     const int r = c / (kF / 4), f = (c % (kF / 4)) * 4, row = r0 + r;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row < rows_end) {
@@ -127,23 +129,28 @@ __device__ __forceinline__ void load_chunk(float* A_s, const float* a, const flo
   }
 }
 
-// acc = this warp's 16 rows x 32 columns of A_s W_s (64 x 128 by 128 x 128)
-// added to acc: rows 16 (warp & 3) + g (+ 8), columns 32 (warp >> 2) + 8 nb
-// + 2 t (+ 1), as acc[0][nb][0, 1] (and [2, 3] eight rows below).
-__device__ __forceinline__ void dense_mma(float acc[1][4][4], const float* A_s, const float* W_s) {
-  const int warp = threadIdx.x >> 5;
-  warp_tile_mma<1, 4, kF, false, false, false, kDensePrecise>(acc, A_s, kF, 16 * (warp & 3), W_s,
-                                                              kF, 32 * (warp >> 2));
-}
-
-__device__ __forceinline__ void zero_acc(float acc[1][4][4]) {
+// A chunk of ROWS = 16 RG rows (RG = 4 or 2): warp w owns rows 16 (w % RG)
+// and columns 8 RG (w / RG) of each ROWS x 128 product, RG blocks of 8.
+template <int ROWS>
+struct Dense {
+  static constexpr int RG = ROWS / 16, NB = RG;
+  // acc += A_s W_s (ROWS x 128 by 128 x 128) at this warp's rows dm + g (+ 8)
+  // and columns dn + 8 nb + 2 t (+ 1), as acc[0][nb][0, 1] (and [2, 3])
+  static __device__ __forceinline__ void mma(float acc[1][NB][4], const float* A_s,
+                                             const float* W_s) {
+    const int warp = threadIdx.x >> 5;
+    warp_tile_mma<1, NB, kF, false, false, false, kDensePrecise>(
+        acc, A_s, kF, 16 * (warp % RG), W_s, kF, 8 * NB * (warp / RG));
+  }
+  static __device__ __forceinline__ void zero(float acc[1][NB][4]) {
 #pragma unroll
-  for (int nb = 0; nb < 4; ++nb)
+    for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[0][nb][q] = 0.f;
-}
+      for (int q = 0; q < 4; ++q) acc[0][nb][q] = 0.f;
+  }
+};
 
-template <bool RES, int KS>
+template <bool RES, int KS, int ROWS>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
                    const float* __restrict__ dirx, const float* __restrict__ diry,
@@ -167,8 +174,10 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int dm = 16 * (warp & 3), dn = 32 * (warp >> 2);  // this warp's part of a product
-  const int rows = B * n, n_chunks = (rows + kDRows - 1) / kDRows;
+  using D = Dense<ROWS>;
+  constexpr int NB = D::NB;
+  const int dm = 16 * (warp % D::RG), dn = 8 * NB * (warp / D::RG);  // this warp's part
+  const int rows = B * n, n_chunks = (rows + ROWS - 1) / ROWS;
   // workspaces: x [rows][3F] (also the mixing's w_c), the messages dq
   // [rows][F] and dmu [rows][3F]
   float* xw = work;
@@ -177,16 +186,16 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
 
   for (int l = 0; l <= L; ++l) {
     for (int ch = blockIdx.x; ch < n_chunks; ch += gridDim.x) {
-      const int r0 = ch * kDRows;
+      const int r0 = ch * ROWS;
       if (l == 0) {
         // q = q0 (into S for the x-MLP), mu = 0
         __syncthreads();  // the previous chunk is done with S and the slots
         stage_piece(W1, wd1, kF, 0, 0);
         cp_async_commit();
-        load_chunk(S, q0, nullptr, kF, 0, r0, rows, RES ? qs : nullptr, n, L, 0);
-        for (int c = tid; c < kDRows * (kF + kF3) / 4; c += kFwdThreads) {
-          const bool m = c >= kDRows * kF / 4;
-          const int cc = m ? c - kDRows * kF / 4 : c;
+        load_chunk<ROWS>(S, q0, nullptr, kF, 0, r0, rows, RES ? qs : nullptr, n, L, 0);
+        for (int c = tid; c < ROWS * (kF + kF3) / 4; c += kFwdThreads) {
+          const bool m = c >= ROWS * kF / 4;
+          const int cc = m ? c - ROWS * kF / 4 : c;
           const int w4 = m ? kF3 / 4 : kF / 4, r = cc / w4, f = (cc % w4) * 4, row = r0 + r;
           if (row >= rows) continue;
           if (!m) {
@@ -206,9 +215,9 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
         const float* Wc2 = w2 + (size_t)lm * kF * kF3;        // [F][3F]
         const float* Bc1 = b1 + (size_t)lm * kF;
         const float* Bc2 = b2 + (size_t)lm * kF3;
-        float vn2[4][4], vw[4][4];
+        float vn2[NB][4], vw[NB][4];
 #pragma unroll
-        for (int nb = 0; nb < 4; ++nb)
+        for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
           for (int q4 = 0; q4 < 4; ++q4) vn2[nb][q4] = vw[nb][q4] = 0.f;
         __syncthreads();  // the previous chunk is done with the slots and buffers
@@ -218,16 +227,16 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
         // per channel (P, Q, P): mu'_c = mu_c + dmu_c, then v_c and w_c
         for (int c = 0; c < 3; ++c) {
           float* A = (c & 1) ? Q : P;  // every warp is done with channel c - 2's
-          load_chunk(A, mu, dmuw, kF3, c * kF, r0, rows, RES ? mups : nullptr, n, L, lm);
+          load_chunk<ROWS>(A, mu, dmuw, kF3, c * kF, r0, rows, RES ? mups : nullptr, n, L, lm);
           cp_async_wait<0>();
           __syncthreads();
-          float v[1][4][4], w[1][4][4];
-          zero_acc(v);
-          zero_acc(w);
-          dense_mma(v, A, W0);
-          dense_mma(w, A, W1);
+          float v[1][NB][4], w[1][NB][4];
+          D::zero(v);
+          D::zero(w);
+          D::mma(v, A, W0);
+          D::mma(w, A, W1);
 #pragma unroll
-          for (int nb = 0; nb < 4; ++nb)
+          for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
               const int row = r0 + dm + g + 8 * hh, col = dn + 8 * nb + 2 * t;
@@ -247,9 +256,9 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
         stage_piece(W0, Wc1, kF, 0, 0);   // the q' half
         stage_piece(W1, Wc1, kF, kF, 0);  // the vn half
         cp_async_commit();
-        load_chunk(Q, q, dqw, kF, 0, r0, rows, RES ? qps : nullptr, n, L, lm);
+        load_chunk<ROWS>(Q, q, dqw, kF, 0, r0, rows, RES ? qps : nullptr, n, L, lm);
 #pragma unroll
-        for (int nb = 0; nb < 4; ++nb)
+        for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh)
             store2(S, kF, dm + g + 8 * hh, dn + 8 * nb + 2 * t, sqrtf(vn2[nb][2 * hh] + eps),
@@ -257,12 +266,12 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
         cp_async_wait<0>();
         __syncthreads();
         {
-          float h[1][4][4];
-          zero_acc(h);
-          dense_mma(h, Q, W0);
-          dense_mma(h, S, W1);
+          float h[1][NB][4];
+          D::zero(h);
+          D::mma(h, Q, W0);
+          D::mma(h, S, W1);
 #pragma unroll
-          for (int nb = 0; nb < 4; ++nb)
+          for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
               const int col = dn + 8 * nb + 2 * t;
@@ -278,11 +287,11 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
         cp_async_wait<0>();
         __syncthreads();
         {
-          float a[1][4][4], qa[4][4];
-          zero_acc(a);
-          dense_mma(a, P, W0);
+          float a[1][NB][4], qa[NB][4];
+          D::zero(a);
+          D::mma(a, P, W0);
 #pragma unroll
-          for (int nb = 0; nb < 4; ++nb)
+          for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
               const int col = dn + 8 * nb + 2 * t;
@@ -290,10 +299,10 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
               qa[nb][2 * hh] = qp.x + (a[0][nb][2 * hh] + Bc2[col]);
               qa[nb][2 * hh + 1] = qp.y + (a[0][nb][2 * hh + 1] + Bc2[col + 1]);
             }
-          zero_acc(a);
-          dense_mma(a, P, W1);
+          D::zero(a);
+          D::mma(a, P, W1);
 #pragma unroll
-          for (int nb = 0; nb < 4; ++nb)
+          for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
               const int r = dm + g + 8 * hh, row = r0 + r, col = dn + 8 * nb + 2 * t;
@@ -323,11 +332,11 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
         }
         __syncthreads();
         {
-          float a[1][4][4];
-          zero_acc(a);
-          dense_mma(a, P, W0);
+          float a[1][NB][4];
+          D::zero(a);
+          D::mma(a, P, W0);
 #pragma unroll
-          for (int nb = 0; nb < 4; ++nb)
+          for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
               const int row = r0 + dm + g + 8 * hh, col = dn + 8 * nb + 2 * t;
@@ -359,11 +368,11 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
       cp_async_wait<1>();  // Wd1 (in W1) has landed
       __syncthreads();
       {
-        float h[1][4][4];
-        zero_acc(h);
-        dense_mma(h, S, W1);
+        float h[1][NB][4];
+        D::zero(h);
+        D::mma(h, S, W1);
 #pragma unroll
-        for (int nb = 0; nb < 4; ++nb)
+        for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             const int col = dn + 8 * nb + 2 * t;
@@ -382,11 +391,11 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
           cp_async_wait<0>();
         }
         __syncthreads();
-        float a[1][4][4];
-        zero_acc(a);
-        dense_mma(a, P, (k & 1) ? W1 : W0);
+        float a[1][NB][4];
+        D::zero(a);
+        D::mma(a, P, (k & 1) ? W1 : W0);
 #pragma unroll
-        for (int nb = 0; nb < 4; ++nb)
+        for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             const int row = r0 + dm + g + 8 * hh, col = k * kF + dn + 8 * nb + 2 * t;
@@ -404,16 +413,21 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
   }
 }
 
+// The dense phases take 32-row chunks when all of them fit in one round
+// over the grid (one block per SM): a small batch then keeps every SM busy
+// (serving's N=32 batch: 128 chunks of 32 rows against 64 of 64); above
+// that, 64-row chunks stage each weight piece for twice the rows.
 template <bool RES, int KS>
-static cudaError_t launch(void** args, cudaStream_t s) {
-  const auto kernel = painn_stack_kernel<RES, KS>;
+static cudaError_t launch(void** args, int rows, cudaStream_t s) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const auto kernel = (rows + 31) / 32 <= sms ? painn_stack_kernel<RES, KS, 32>
+                                              : painn_stack_kernel<RES, KS, 64>;
   const size_t smem = sizeof(float) * (size_t)kStackFloats;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)kernel, kFwdThreads,
                                                       smem);
   if (err != cudaSuccess) return err;
@@ -467,10 +481,11 @@ extern "C" int painn_stack(const float* dist, const float* gate, const float* di
                   &qs,   &mus,  &qps,  &mups, &pre,  &list, &bar, &B,   &n,    &R,
                   &L,    &delta, &coeff, &eps};
   const bool ks3 = R < 24;
+  const int rows = B * n;
   if (save_residuals)
-    err = ks3 ? launch<true, 3>(args, s) : launch<true, kKS>(args, s);
+    err = ks3 ? launch<true, 3>(args, rows, s) : launch<true, kKS>(args, rows, s);
   else
-    err = ks3 ? launch<false, 3>(args, s) : launch<false, kKS>(args, s);
+    err = ks3 ? launch<false, 3>(args, rows, s) : launch<false, kKS>(args, rows, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

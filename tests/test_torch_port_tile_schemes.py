@@ -503,11 +503,12 @@ def _painn_stack_case(seed, sizes, n, f=4, r=6, layers=3):
     return args[:5], q0, stacked, args[-1]
 
 
-@pytest.mark.parametrize("blocks,sparse,save", [
-    (1, True, False), (5, True, True), (5, False, True), (132, True, False)])
-def test_painn_stack_phases_are_the_reference_f64(blocks, sparse, save):
+@pytest.mark.parametrize("blocks,sparse,save,chunk", [
+    (1, True, False, 64), (5, True, True, 32), (5, False, True, 64), (132, True, False, 32)])
+def test_painn_stack_phases_are_the_reference_f64(blocks, sparse, save, chunk):
     """painn_stack_kernel's phases: dense 0 (q = q0, mu = 0, block 0's
-    x-MLP) over 64-row chunks of [B*N, .] round-robin over the blocks; then
+    x-MLP) over chunks of 64 or 32 rows of [B*N, .] round-robin over the
+    blocks; then
     per block k the message pass over runs of whole items (first_item), from
     x and the OLD mu into workspaces dq, dmu (each row written once, empty
     items' rows zero), and dense k + 1: per channel mu'_c = mu_c + dmu_c, v_c
@@ -522,7 +523,7 @@ def test_painn_stack_phases_are_the_reference_f64(blocks, sparse, save):
     want = tpn.painn_stack_reference(*grids, q0, stacked, cutoff, eps, save_residuals=save)
     wd1, bd1, wd2, bd2, wk, bk, wmix, w1, b1, w2, b2 = stacked
     b_n, n, f = q0.shape
-    layers, rows, chunk = wd1.shape[0], b_n * n, 64
+    layers, rows = wd1.shape[0], b_n * n
     nt = -(-n // TILE)
     m = nt * TILE
     silu = torch.nn.functional.silu
