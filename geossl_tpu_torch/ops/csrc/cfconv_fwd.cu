@@ -236,8 +236,12 @@ cfconv_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
 
     // the filter (filter_mma.cuh), then the messages of rows i
     float acc[2][4][4];
-    filter_tile_mma<kPrecise>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, gp, start, delta, coeff,
-                                   acc);
+    if (gp == kSGP)
+      filter_tile_mma<kPrecise>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, kSGP, start, delta, coeff,
+                                acc);
+    else  // the hidden layer in the RBF's place
+      filter_tile_mma<kPrecise, true>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, gp, start, delta,
+                                      coeff, acc);
     tile_messages<false>(acc, b2_s, e_t, xj_t, nullptr, racc, nullptr, j0, nj, false);
     v = v_next;
   }

@@ -22,20 +22,19 @@ constexpr int kSRS = kF + 8;  // row stride of the 8-row x tiles (bank spread)
 // [kPairs][gp] scratch; s_s [kPairs][kF] scratch for the hidden layer;
 // W1_s [gp][kF] (rows >= G zero) and W2_s [kF][kF]; all swizzled. gp, the
 // padded G: kSGP, or a multiple of 32 above it (the first product then runs
-// in k steps of 32). rbf_s's columns >= G must be zero, but where s_s is
-// rbf_s (a kernel short of shared memory): then the hidden layer overwrites
-// the RBF after a barrier, and the RBF pass writes the padding's zeros
-// itself. Every thread of the block calls it (it holds two barriers, three
-// with s_s == rbf_s; rbf_s and s_s are free on entry).
-template <bool kPrecise>
+// in k steps of 32). rbf_s's columns >= G must be zero, but with kAlias,
+// where s_s is rbf_s (a kernel short of shared memory): then the hidden
+// layer overwrites the RBF after a barrier, and the RBF pass writes the
+// padding's zeros itself. Every thread of the block calls it (it holds two
+// barriers, three with kAlias; rbf_s and s_s are free on entry).
+template <bool kPrecise, bool kAlias = false>
 __device__ __forceinline__ void filter_tile_mma(const float* d_t, float* rbf_s, float* s_s,
                                                 const float* W1_s, const float* W2_s,
                                                 const float* b1_s, int G, int gp, float start,
                                                 float delta, float coeff, float acc[2][4][4]) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, wm = warp & 1, wn = warp >> 1;
-  const bool alias = s_s == rbf_s;
-  const int gw = alias ? gp : G;  // the columns the RBF pass writes
+  const int gw = kAlias ? gp : G;  // the columns the RBF pass writes
   for (int idx = tid; idx < kPairs * gp; idx += kThreads) {
     const int p = idx / gp, gg = idx % gp;
     if (gg < gw) {
@@ -65,7 +64,7 @@ __device__ __forceinline__ void filter_tile_mma(const float* d_t, float* rbf_s, 
       warp_tile_mma<2, 4, 32, false, false, false, kPrecise>(acc, rbf_s + k0, gp, 32 * wm,
                                                              W1_s + k0 * kF, kF, 32 * wn);
   }
-  if (alias) __syncthreads();  // every warp is done with the RBF
+  if (kAlias) __syncthreads();  // every warp is done with the RBF
 #pragma unroll
   for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
