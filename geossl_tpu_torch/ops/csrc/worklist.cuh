@@ -68,9 +68,8 @@ tile_occ_kernel(const float* __restrict__ env, int* __restrict__ occ,
 }
 
 // The same flags for BY_ROW items (b, pi), tiles pj, with no grids to zero:
-// one warp per item, its lanes over 32 consecutive columns (four tiles) at
-// a time, so that each load of the item's env rows is coalesced; the
-// item's count written once (no atomics, no memset).
+// one warp per item, its lanes over the item's j tiles, the item's count
+// written once (no atomics, no memset).
 template <bool SYM>
 __global__ void __launch_bounds__(kOccThreads)
 row_occ_kernel(const float* __restrict__ env, int* __restrict__ occ, int* __restrict__ cnt,
@@ -81,22 +80,18 @@ row_occ_kernel(const float* __restrict__ env, int* __restrict__ occ, int* __rest
   const int b = item / nti, pi = item - b * nti, i0 = pi * kTile, rows = min(kTile, ni - i0);
   const float* base = env + ((size_t)b * ni + i0) * nj;
   int n = 0;
-  for (int c0 = 0; c0 < ntj * kTile; c0 += 32) {
-    const int j = c0 + lane;
-    bool any = j < nj && (!SYM || j / kTile >= pi);
-    if (any && sparse) {
-      bool nz = false;
-      for (int r = 0; r < rows; ++r) nz |= base[(size_t)r * nj + j] != 0.f;
-      any = nz;
+  for (int t0 = 0; t0 < ntj; t0 += 32) {
+    const int pj = t0 + lane;
+    bool on = pj < ntj && (!SYM || pi <= pj);
+    if (on && sparse) {
+      const int j0 = pj * kTile, cols = min(kTile, nj - j0);
+      bool any = false;
+      for (int r = 0; r < rows; ++r)
+        for (int c = 0; c < cols; ++c) any |= base[(size_t)r * nj + j0 + c] != 0.f;
+      on = any;
     }
-    const unsigned m = __ballot_sync(0xffffffffu, any);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {  // tile c0 / 8 + k: lanes 8k .. 8k + 7
-      const int pj = c0 / kTile + k;
-      const bool on = pj < ntj && ((m >> (8 * k)) & 0xffu) != 0;
-      n += on;
-      if (lane == k && pj < ntj) occ[(size_t)item * ntj + pj] = on;
-    }
+    if (pj < ntj) occ[(size_t)item * ntj + pj] = on;
+    n += __popc(__ballot_sync(0xffffffffu, on));
   }
   if (lane == 0) cnt[item] = n;
 }
