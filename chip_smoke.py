@@ -41,9 +41,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    atol) against the per-block plain chain, and in phase 4 at serving's first
    batch of buckets 32, 64 and 128 (128 slots, whatever the route) and on a
    partial batch (5 graphs in 128 slots), two launches bitwise equal at each
-   (``painn_stack_shapes:``: its time and bounds at each);
-   ``painn_stack_train``'s six outputs (q, mu and the four residual stacks)
-   at the DDM batch, two launches bitwise equal. ``schnet_stack`` elementwise
+   (``painn_stack_shapes:``: its time and bounds at each, and the kernel
+   instance it ran, by rows per dense chunk, with ptxas's registers and
+   spills); ``painn_stack_train``'s six outputs (q, mu and the four
+   residual stacks) at the DDM batch, two launches bitwise equal
+   (``painn_stack_train_instances:``: the instance each DDM bucket's step
+   runs, with its ptxas). ``schnet_stack`` elementwise
    (rtol 1e-4, atol 1e-5) in its symmetric mode (default graph) and its
    plain mode (``max_neighbors=32`` graph) at B=8, at serving's first batch
    of buckets 32, 64 and 128 (128 slots), on a partial batch (5 graphs in
@@ -54,7 +57,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    that uneven batch, a second launch against the first; and, in phase 4,
    at the DDM buckets (B=128, N=32/64/128) and serving's N=512.
    ``cfconv_fwd`` (rtol 1e-4, atol 1e-5, gating off and on) on the
-   ``max_neighbors=32`` graph at B=2 (N=128, 256 and a pad of 100), in
+   ``max_neighbors=32`` graph at B=2 (N=128, 256 and a pad of 100; at
+   N=128 and 256 also with G=100 Gaussians, above the 64 whose RBF and
+   hidden layer fit side by side, two launches bitwise equal), in
    phase 4 at serving's N=256 (two launches bitwise equal) and on the DDM
    batch at N=128 (``cfconv_fwd_ddm:``: two launches bitwise equal, its
    time, bounds and launches on the ``max_num_neighbors`` training path).
@@ -310,11 +315,32 @@ KERNEL_ENTRIES = {
     "painn_fwd_sym": ("painn_fwd", "_ZN6geossl20painn_fwd_sym_kernel"),
     "painn_bwd": ("painn_bwd", "_ZN6geossl20painn_bwd_mma_kernel"),
     "painn_bwd_sym": ("painn_bwd", "_ZN6geossl20painn_bwd_sym_kernel"),
-    # the stack at the shapes of its rows: serving N=32 (32-row dense
-    # chunks), DDM N=128 (64-row chunks)
-    "painn_stack": ("painn_stack", "_ZN6geossl18painn_stack_kernelILb0ELi3ELi32E"),
-    "painn_stack_train": ("painn_stack", "_ZN6geossl18painn_stack_kernelILb1ELi3ELi64E"),
+    # the stack: the instance its row's shape runs (stack_instance)
+    "painn_stack": ("painn_stack", None),
+    "painn_stack_train": ("painn_stack", None),
 }
+
+
+def stack_instance(b, n, res):
+    """(rows per dense chunk, mangled-name prefix) of the painn_stack_kernel
+    instance that a launch over b graphs of n atoms runs on this card (the
+    library's own rule; KS = 3: R = 20), with ``res`` the residual mode."""
+    import ctypes
+
+    from geossl_tpu_torch.ops import _build
+
+    rows = _build.kernel_fn("painn_stack", "painn_stack_chunk_rows",
+                            [ctypes.c_int] * 2)(b, n)
+    return rows, f"_ZN6geossl18painn_stack_kernelILb{int(res)}ELi3ELi{rows}E"
+
+
+def stack_ptxas(b, n, res):
+    """{"chunk_rows", "ptxas"} of the instance stack_instance names."""
+    from geossl_tpu_torch.ops import _build
+
+    rows, entry = stack_instance(b, n, res)
+    return {"chunk_rows": rows,
+            "ptxas": ptxas_usage(_build.build_log("painn_stack"), entry)}
 
 
 def ptxas_usage(log, prefix):
@@ -1076,6 +1102,22 @@ def main():
                 for sp in (False, True):
                     errs.check(name, fn(dist, env, x, *fw, 0.0, cutoff, G, sp),
                                want, f"B=2 N={n} sparse={sp}")
+        # the plain mode above G = 64 (the first product in k steps of 32,
+        # the hidden layer in the RBF's place): G = 100 on the same
+        # max_neighbors graphs, a second launch against the first
+        g_big = 100
+        fw_big = ((torch.randn(g_big, cfg.emb_dim, generator=torch.Generator().manual_seed(SEED))
+                   / 10).to(dev), *filt_mn[1:])
+        for b, n in ((128, 128), (256, 256)):
+            _, dist, env, _, x = layer0_inputs(model_mn, first(b, 2), n)
+            want = K.cfconv_fused_reference(dist, env, x, *fw_big, 0.0, cutoff, g_big)
+            for sp in (False, True):
+                got = K.cfconv_fused(dist, env, x, *fw_big, 0.0, cutoff, g_big, sp)
+                errs.check("cfconv_fwd", got, want, f"B=2 N={n} G={g_big} sparse={sp}")
+                if not torch.equal(got, K.cfconv_fused(dist, env, x, *fw_big, 0.0,
+                                                       cutoff, g_big, sp)):
+                    fail(f"cfconv_fwd B=2 N={n} G={g_big} sparse={sp}: outputs "
+                         "differ between two launches")
         # the symmetric kernel's work list on a partial batch (5 real graphs
         # in 128 slots) and on very uneven graphs (60 of bucket 32 and 8 of
         # bucket 128 at N=128); a second launch against the first (its
@@ -1435,6 +1477,8 @@ def main():
         loss_k, grads_k = ddm_grads(ddm0_p, train_batch(b), pos2, sel, draws)
         check_step_parity(f"PaiNN stack step vs per-block step bucket {b}",
                           *stack_grads[b], loss_k, grads_k)
+    print("painn_stack_train_instances: " + json.dumps(
+        {f"B=128 N={b}": stack_ptxas(128, b, True) for b in train_buckets}))
     q_g = q128.clone().requires_grad_(True)
 
     def stack_double_backward():
@@ -1629,6 +1673,7 @@ def main():
 
     flop_pair = 2 * G * 128 + 2 * 128 * 128 + 2 * 128
     kernels = []
+    stack_shape = {}  # stack kernel -> (B, N, residual mode) of its row
     with torch.inference_mode():
         def serving_batch(m, b):
             """The bucket's first batch as the Predictor packs it."""
@@ -1998,7 +2043,8 @@ def main():
             stack_shapes[what] = {
                 "ms": cuda_time_ms(lambda: P.painn_stack_infer(
                     *grids, q0, stacked_p, cut_p)),
-                "bound_ms": bound_tc, "bound_ms_f32": bound_f32}
+                "bound_ms": bound_tc, "bound_ms_f32": bound_f32,
+                **stack_ptxas(q0.shape[0], nb, False)}
             if nb == 32 and "partial" not in what:
                 row = (grids, q0, ops, nbytes, stack_shapes[what]["ms"])
         print("painn_stack repeats bitwise at every shape above")
@@ -2007,6 +2053,7 @@ def main():
         plain_ms = cuda_time_ms(lambda: chunked_sum(
             lambda *a: P.painn_stack_reference(*a, stacked_p, cut_p),
             (*grids, q0), (), 32, 2), reps=3, warmup=1)
+        stack_shape["painn_stack"] = (q0.shape[0], q0.shape[1], False)
         kernels.append(("painn_stack", "geossl_tpu_torch/ops/csrc/painn_stack.cu",
                         "geossl_tpu/ops/painn_pallas.py:829", ms, plain_ms,
                         ops, nbytes, launches_p["painn_stack"]))
@@ -2163,6 +2210,7 @@ def main():
             errs.check_scaled("painn_stack_train", a, w,
                               f"DDM B=128 N=128 wrapper {name}")
         atoms = int(batch.node_mask.sum())
+        stack_shape["painn_stack_train"] = (q0.shape[0], q0.shape[1], True)
         kernels.append((
             "painn_stack_train", "geossl_tpu_torch/ops/csrc/painn_stack.cu",
             "geossl_tpu/ops/painn_pallas.py:829",
@@ -2226,6 +2274,8 @@ def main():
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_f32 = flops / PEAK_F32_FLOPS * 1e3
         lib, entry = KERNEL_ENTRIES[name]
+        if entry is None:  # the stack: the instance of the row's shape
+            entry = stack_instance(*stack_shape[name])[1]
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": count, "max_abs_err": errs.max_abs[name],

@@ -187,8 +187,8 @@ def _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
     alloc = torch.zeros if symmetric else torch.empty
     out = alloc((b, ni, f), dtype=torch.float32, device=dist.device)
     ws_ints = _build.kernel_fn("cfconv_fwd", "cfconv_fwd_ws_ints",
-                               [ctypes.c_int] * 3,
-                               ctypes.c_size_t)(b, ni, nj)
+                               [ctypes.c_int] * 4,
+                               ctypes.c_size_t)(b, ni, nj, int(symmetric))
     ws = torch.empty(ws_ints, dtype=torch.int32, device=dist.device)
     s0, delta, coeff = _rbf_consts(start, stop, num_g)
     err = fn(*map(ptr, (dist, env, x, w1, b1, w2, b2, out, ws)), b, ni, nj, f,

@@ -23,7 +23,8 @@
 //   (first_item) would leave a small batch to its longest item: serving's
 //   N=256 batch (11 complexes in 128 slots, 2,358 tiles) has items of up
 //   to 17 tiles, and the longest run of whole items held 31 tiles against
-//   a mean of 18. A block sums the rows of each item in registers over its
+//   a mean of 18 (measured: 0.30 against 0.20 ms there, and slower at
+//   every full batch timed; PERF.md). A block sums the rows of each item in registers over its
 //   run's tiles of it; an item that lies whole in the run is written to
 //   `out` there, an item that a run boundary splits is written as 8-row
 //   partials (at most two per block, its run's first and last item), which
@@ -427,17 +428,18 @@ static size_t list_ints(int B, int ni, int nj) {
 }  // namespace geossl
 
 // Ints of the workspace: the tile list over env (worklist.cuh), items
-// (graph, 8-row i tile), then the plain mode's partials [blocks][2][8][F]
-// (floats).
-extern "C" size_t cfconv_fwd_ws_ints(int B, int ni, int nj) {
+// (graph, 8-row i tile), then in the plain mode its partials
+// [blocks][2][8][F] (floats).
+extern "C" size_t cfconv_fwd_ws_ints(int B, int ni, int nj, int symmetric) {
   using namespace geossl;
+  if (symmetric) return list_ints(B, ni, nj);
   const int blocks =
       persistent_blocks(B * ((ni + kTile - 1) / kTile) * ((nj + kTile - 1) / kTile));
   return list_ints(B, ni, nj) + (size_t)blocks * 2 * kTile * kF;
 }
 
 // Returns the cudaError_t of the launches (0 on success). F must be 128;
-// `ws` holds cfconv_fwd_ws_ints(B, ni, nj) ints. With symmetric != 0:
+// `ws` holds cfconv_fwd_ws_ints(B, ni, nj, symmetric) ints. With symmetric != 0:
 // dist/env symmetric and square, G <= 64, `out` zero on entry; otherwise
 // any G whose shared memory fits (cfconv_fwd_smem_bytes), every row of
 // `out` written.

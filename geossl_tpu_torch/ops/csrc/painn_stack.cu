@@ -413,17 +413,27 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
   }
 }
 
-// The dense phases take 32-row chunks when all of them fit in one round
-// over the grid (one block per SM): a small batch then keeps every SM busy
-// (serving's N=32 batch: 128 chunks of 32 rows against 64 of 64); above
-// that, 64-row chunks stage each weight piece for twice the rows.
-template <bool RES, int KS>
-static cudaError_t launch(void** args, int rows, cudaStream_t s) {
-  int dev = 0, sms = 0, per_sm = 0;
+// Rows per dense chunk: 32 when all of a batch's chunks fit in one round
+// over the grid (one block per SM), so that a small batch keeps every SM
+// busy (serving's N=32 batch: 128 chunks of 32 rows against 64 of 64);
+// above that 64, which stage each weight piece for twice the rows (a
+// partial batch at N=128, 16,384 rows, ~5% faster than in 32-row chunks;
+// PERF.md).
+static int chunk_rows(int rows, int sms) { return (rows + 31) / 32 <= sms ? 32 : 64; }
+
+static int sm_count() {
+  int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const auto kernel = (rows + 31) / 32 <= sms ? painn_stack_kernel<RES, KS, 32>
-                                              : painn_stack_kernel<RES, KS, 64>;
+  return sms;
+}
+
+template <bool RES, int KS>
+static cudaError_t launch(void** args, int rows, cudaStream_t s) {
+  const int sms = sm_count();
+  int per_sm = 0;
+  const auto kernel = chunk_rows(rows, sms) == 32 ? painn_stack_kernel<RES, KS, 32>
+                                                  : painn_stack_kernel<RES, KS, 64>;
   const size_t smem = sizeof(float) * (size_t)kStackFloats;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -441,6 +451,12 @@ static cudaError_t launch(void** args, int rows, cudaStream_t s) {
 }  // namespace geossl
 
 extern "C" size_t painn_stack_smem_bytes() { return sizeof(float) * (size_t)geossl::kStackFloats; }
+
+// Rows per dense chunk of a launch over B graphs of n atoms on the current
+// device (32 or 64: the kernel instance that launch runs).
+extern "C" int painn_stack_chunk_rows(int B, int n) {
+  return geossl::chunk_rows(B * n, geossl::sm_count());
+}
 
 // Ints of the workspace: the tile list over the gate (worklist.cuh), then
 // the grid barrier's two counters.
