@@ -85,8 +85,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
       PaiNN ``Predictor`` (F=128, 3 blocks, 20 RBF, cutoff 5, the halving
       MLP head). Each backbone takes its whole-stack kernel up to its
       ``serve.*_STACK_MAX_N`` (SchNet 128: ``schnet_stack``, symmetric
-      mode, and plain mode with ``max_neighbors``; PaiNN 32:
-      ``painn_stack``) and its per-block kernels above.
+      mode, and plain mode with ``max_neighbors``; PaiNN 128:
+      ``painn_stack``) and its per-block kernels above; a bucket's last,
+      partial chunk is packed to its count rounded up to 8 slots.
    b. Training: ``train.pretrain_geossl.main`` (GeoSSL-DDM at the published
       defaults: SchNet F=128, L=6, G=51, cutoff 10; batch 128, buckets
       32/64/128; NCSN sigma 10 -> 0.01 over 50 levels, anneal 2; GeoSSL
@@ -148,6 +149,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
       must match the same chain through ``painn_fwd``/``painn_bwd`` within
       relative norm 1e-5 (the placement's real test: a sign error in the
       direction terms passes every forward check).
+   e. The QM9 fine-tune at bucket 32: ``train.finetune_qm9.main`` at the
+      published protocol (``scripts/finetune_qm9.sh``: batch 128, lr 5e-4
+      cosine, MAE loss; task mu; buckets 32/64/128) for 1 epoch of 4,096
+      synthetic QM9 molecules (3-29 atoms; split
+      ``qm9_random_customized_01``: 3,443 train, 313 val, 340 test), once
+      per backbone at full width from the DDM ``model.pth`` of b:
+      ``cfconv_fwd_sym``/``cfconv_bwd_sym`` (SchNet) and
+      ``painn_fwd``/``painn_bwd`` (PaiNN) must launch, losses and MAEs be
+      finite. The best ``model.pth`` (with ``y_mean``/``y_std``) is served
+      by ``Predictor.from_checkpoint``, through ``schnet_stack`` /
+      ``painn_stack``, and its test predictions held to the driver's
+      ``evaluation_best.npz`` (made by the per-block kernels) within rtol
+      1e-4 and atol 1e-5 times y_std; one step with kernels on a freshly
+      seeded net is held to the plain step (tolerances as in b). Then the
+      ``qm9:`` line (train mol/s, median of 3 untraced steps; eval mol/s
+      over the val split; one traced step's device ms, port-kernel ms and
+      idle share) and, for SchNet, a ``top_ops:`` line that also lists
+      the elementwise ``cos`` kernel: the envelope must be made once per
+      forward (one ``cos`` launch per step).
 4. Measurements: serving mol/s per bucket (steady state, synchronized) and
    one traced pass per bucket (torch.profiler: device busy time, the
    port's kernels' share, idle share); training mol/s per bucket (median of
@@ -190,7 +210,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (SchNet and PaiNN).
 
 The line before the last is the kernel table as JSON (thirteen kernels,
-every Pallas kernel of the JAX package); the last line is
+every Pallas kernel of the JAX package; ``qm9_launches``: each kernel's
+launches over both QM9 epochs of phase 3e); the last line is
 ``{"ok": true, "device": {...}}``. The whole output is also written to
 ``runs/chip_smoke.log``.
 """
@@ -271,14 +292,21 @@ def device_profile(fn):
     return wall, busy, ours
 
 
-def print_top_ops(fn, model_3d, path, bucket, top=10):
+def print_top_ops(fn, model_3d, path, bucket, top=10, also=None):
     """The kernels with the most device time in one more traced call of fn
-    (the path's largest bucket: where the device is busiest)."""
+    (the path's largest bucket: where the device is busiest), and those
+    whose name ``also(name)`` picks wherever they rank; returns the
+    picked ones."""
     from geossl_tpu_torch.utils.profiling import top_device_ops
 
-    ops = [[name, ms, count] for name, ms, count in top_device_ops(fn, top, 0)]
+    rows = top_device_ops(fn, None, 0)
+    picked = [[name, ms, count] for name, ms, count in rows
+              if also is not None and also(name)]
+    ops = [[name, ms, count] for name, ms, count in rows[:top]]
+    ops += [r for r in picked if r not in ops]
     print("top_ops: " + json.dumps({"model": model_3d, "path": path,
                                     "bucket": bucket, "ops_ms_calls": ops}))
+    return picked
 
 
 def pair_work(dist, env):
@@ -933,6 +961,150 @@ def step_draws(ddm, batch, targs, bucket):
     return pos2, sel, draws
 
 
+# The QM9 fine-tune at the published protocol (scripts/finetune_qm9.sh:
+# batch 128, lr 5e-4 cosine, MAE loss; task mu; buckets 32/64/128), cut to
+# 4,096 synthetic molecules (QM9 has 130,831) and 1 epoch (1000 published)
+QM9_FLAGS = ["--synthetic", "--synthetic_size", "4096", "--epochs", "1",
+             "--batch_size", "128", "--lr", "5e-4", "--loss", "mae",
+             "--task", "mu"]
+
+
+def is_cos_kernel(name):
+    """torch's elementwise cos kernel (SchNet's envelope), not acos/cosh."""
+    return "cos_kernel" in name and "acos" not in name and "cosh" not in name
+
+
+def qm9_path(dev, model_3d, pretrained, kernels, stack_kernel):
+    """Phase 3e for one backbone: ``finetune_qm9.main`` for one epoch from
+    the DDM ``model.pth`` (launch counts, finite losses and MAEs), its best
+    ``model.pth`` served by a ``Predictor`` (through ``stack_kernel``) to
+    the driver's ``evaluation_best.npz`` test predictions, one step with
+    kernels held to the plain step on a freshly seeded net, and the
+    ``qm9:`` line (and, for SchNet, the ``top_ops:`` line with the
+    envelope's cos). Returns the path's launch counts."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from geossl_tpu_torch.data.bucketing import BucketedLoader, assign_buckets
+    from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
+    from geossl_tpu_torch.serve import Predictor
+    from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.train import finetune_qm9 as FQ
+
+    run_dir = os.path.join(ROOT, "runs", f"chip_smoke_qm9_{model_3d}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = QM9_FLAGS + ["--model_3d", model_3d, "--input_model_file",
+                        pretrained, "--output_model_dir", run_dir,
+                        "--device", str(dev)]
+    reset_launch_counts()
+    t0 = time.time()
+    _, best, test_mae, losses = FQ.main(argv)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"main path (qm9 fine-tune, {model_3d}): {len(losses)} steps and "
+          f"one val/test pass in {time.time() - t0:.2f} s (first call); "
+          f"launches {counts}")
+    for name in kernels:
+        if counts[name] == 0:
+            fail(f"kernel {name} was not launched on the QM9 {model_3d} path")
+    if not losses or not all(math.isfinite(v) for v in losses) or \
+            not math.isfinite(best) or not math.isfinite(test_mae):
+        fail(f"qm9 {model_3d}: losses {losses}, best val MAE {best}, test "
+             f"MAE {test_mae}")
+    print(f"qm9 {model_3d} losses: {losses}; best val MAE {best}; test MAE "
+          f"{test_mae}")
+
+    # the best model.pth served: the stack route at bucket 32, held to the
+    # driver's own test predictions (the per-block kernels made those);
+    # atol scaled by y_std, which multiplies the head's output
+    args = FQ.build_parser().parse_args(argv)
+    cfg = common.model_config_from_args(args)
+    buckets = common.buckets(args)
+    splits, mean, std = FQ.load_splits(args)
+    test = splits[2]
+    ev = np.load(os.path.join(run_dir, "evaluation_best.npz"))
+    bucket_of = assign_buckets(test.num_atoms(), buckets)
+    order = np.concatenate([np.nonzero(bucket_of == b)[0]
+                            for b in np.unique(bucket_of)])
+    pred = Predictor.from_checkpoint(os.path.join(run_dir, "model.pth"), cfg,
+                                     batch_size=args.batch_size,
+                                     bucket_sizes=buckets, device=dev)
+    reset_launch_counts()
+    served = pred.predict(test)[order]
+    torch.cuda.synchronize()
+    if launch_counts()[stack_kernel] == 0:
+        fail(f"qm9 {model_3d}: serving model.pth did not launch {stack_kernel}")
+    want = ev["test_pred"]
+    err = float(np.abs(served - want).max())
+    if served.shape != want.shape or \
+            not np.allclose(served, want, rtol=RTOL, atol=ATOL * std):
+        fail(f"qm9 {model_3d}: served test predictions vs the driver's, "
+             f"max_abs_err {err:.3e} (rtol {RTOL}, atol {ATOL * std:.2e})")
+    print(f"qm9 {model_3d}: model.pth served through {stack_kernel} to the "
+          f"driver's {len(want)} test predictions, max_abs_err {err:.3e} "
+          f"(rtol {RTOL}, atol {ATOL * std:.2e})")
+
+    # one step with kernels against the plain step, on a freshly seeded net
+    # and the first training batch (bucket 32, 128 molecules)
+    net = FQ.make_net(args, cfg, torch.Generator().manual_seed(SEED)).to(dev)
+    loss_fn = FQ.make_loss_fn(args.loss, mean, std)
+    train = BucketedLoader(splits[0], args.batch_size, buckets, seed=SEED)
+    batch = next(iter(train.epoch(1))).to(dev)
+    loss_k, grads_k = grads_in_chunks(net, batch,
+                                      lambda sb, sl: loss_fn(net, sb))
+    net.plain = True
+    loss_p, grads_p = grads_in_chunks(net, batch,
+                                      lambda sb, sl: loss_fn(net, sb), chunk=32)
+    net.plain = False
+    check_step_parity(f"QM9-{model_3d} step parity bucket "
+                      f"{batch.max_atoms}", loss_k, grads_k, loss_p, grads_p)
+
+    # throughput: optimizer steps and eval passes, untraced (median of 3
+    # after a warm-up), then one traced step
+    opt, sched = common.make_optimizer_from_args(args, net.parameters(), 100)
+    mols = int(batch.graph_mask.sum())
+
+    def step():
+        return common.finetune_step(net, opt, sched, [batch], loss_fn)
+
+    evaluate = FQ.Evaluator(dev, mean, std)
+    val_loader = BucketedLoader(splits[1], args.batch_size, buckets,
+                                shuffle=False)
+
+    def median_s(fn):
+        fn()  # warm-up
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[1]
+
+    device_profile(step)  # profiler start-up
+    train_s, eval_s = median_s(step), median_s(lambda: evaluate(net, val_loader))
+    wall, busy, ours = device_profile(step)
+    print("qm9: " + json.dumps({
+        "model": model_3d, "bucket": batch.max_atoms, "molecules": mols,
+        "epoch_steps": len(losses), "s_per_step": train_s,
+        "train_mol_per_s": mols / train_s, "eval_molecules": len(splits[1]),
+        "eval_mol_per_s": len(splits[1]) / eval_s,
+        "device_ms_per_step": busy * 1e3, "port_kernels_ms": ours * 1e3,
+        "other_device_ms": (busy - ours) * 1e3, "traced_wall_ms": wall * 1e3,
+        "idle_share": 1.0 - busy / wall}))
+    if model_3d == "schnet":
+        cos = print_top_ops(step, model_3d, "finetune_qm9", batch.max_atoms,
+                            also=is_cos_kernel)
+        calls = sum(count for _, _, count in cos)
+        if calls != 1:
+            fail(f"qm9 schnet: the step's forward launched {calls} cos "
+                 "kernels (the envelope is made once per forward)")
+        print("qm9 schnet: one cos kernel per forward (the envelope)")
+    return counts
+
+
 def rel_norm(a, b):
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
@@ -970,7 +1142,7 @@ def main():
     from geossl_tpu_torch.data.molecule3d import load_molecule3d
     from geossl_tpu_torch.data.store import MolStore
     from geossl_tpu_torch.data.synthetic import synthetic_lba, synthetic_molecule3d
-    from geossl_tpu_torch.models.common import cosine_cutoff, cosine_envelope
+    from geossl_tpu_torch.models.common import cosine_cutoff
     from geossl_tpu_torch.ops import _build
     from geossl_tpu_torch.ops import cfconv as K
     from geossl_tpu_torch.ops import geometry
@@ -1044,7 +1216,7 @@ def main():
         batch = pack_batch([sorted_store.get(int(i)) for i in idx], n,
                            batch_size).to(dev)
         dist, adj = m.geometry(batch.positions, batch.node_mask)
-        env = cosine_envelope(dist, m.cutoff) * adj.float()
+        env = m.envelope(dist, adj)
         h0 = m.embedding(batch.atom_type)
         x = m.interactions[0].conv.lin1(h0)
         return batch, dist.contiguous(), env.contiguous(), h0.contiguous(), x.contiguous()
@@ -1661,6 +1833,19 @@ def main():
         {"shape": "LBA B=64 N=512", "ms": sym_ms}))
     sym_case = (grids, x, mu, wk0, bk0, gq, gmu)
 
+    # -- 3e. main path: the QM9 fine-tune at bucket 32 ---------------------------
+    # each kernel's launches over both backbones' epochs (the kernel
+    # table's qm9_launches)
+    qm9_launches = {}
+    for model_3d, pre, path_kernels, stack_kernel in (
+            ("schnet", pretrained, ("cfconv_fwd_sym", "cfconv_bwd_sym"),
+             "schnet_stack"),
+            ("painn", os.path.join(out_dir_p, "model.pth"),
+             ("painn_fwd", "painn_bwd"), "painn_stack")):
+        for name, n in qm9_path(dev, model_3d, pre, path_kernels,
+                                stack_kernel).items():
+            qm9_launches[name] = qm9_launches.get(name, 0) + n
+
     # -- 4. measurements -----------------------------------------------------------
     subs = {b: MolStore.from_records([sorted_store.get(int(i))
                                       for i in np.nonzero(bucket_of == b)[0]])
@@ -1770,7 +1955,7 @@ def main():
         with torch.no_grad():
             dist, adj = ddm.model.geometry(batch.positions, batch.node_mask)
             dist = dist.contiguous()
-            env = (cosine_envelope(dist, cutoff) * adj.float()).contiguous()
+            env = ddm.model.envelope(dist, adj).contiguous()
             blk = ddm.model.interactions[0]
             x = blk.conv.lin1(ddm.model.embedding(batch.atom_type)).contiguous()
             fw = blk.filter_weights()
@@ -1838,7 +2023,7 @@ def main():
         m = net0.model
         dist, adj = m.geometry(lba_batch.positions, lba_batch.node_mask)
         dist = dist.contiguous()
-        env = (cosine_envelope(dist, cutoff) * adj.float()).contiguous()
+        env = m.envelope(dist, adj).contiguous()
         blk = m.interactions[0]
         x = blk.conv.lin1(m.embedding(lba_batch.atom_type)).contiguous()
         fw = blk.filter_weights()
@@ -2278,7 +2463,8 @@ def main():
             entry = stack_instance(*stack_shape[name])[1]
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": count, "max_abs_err": errs.max_abs[name],
+            "launches": count, "qm9_launches": qm9_launches.get(name, 0),
+            "max_abs_err": errs.max_abs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_basis": basis,

@@ -1,8 +1,8 @@
-"""Dataset splits as index arrays (the port's own copy of ``random_split``
-and ``atom3d_lba_split`` from ``geossl_tpu/data/splitters.py``; reference
-``examples/splitters.py``). Each returns (train_idx, valid_idx, test_idx)
-over a store. The QM9, MD17, scaffold and identity splits come with their
-drivers."""
+"""Dataset splits as index arrays (the port's own copy of the QM9 splits,
+``random_split`` and ``atom3d_lba_split`` from
+``geossl_tpu/data/splitters.py``; reference ``examples/splitters.py``). Each
+returns (train_idx, valid_idx, test_idx) over a store. The MD17, scaffold
+and identity splits come with their drivers."""
 
 from __future__ import annotations
 
@@ -13,6 +13,37 @@ from typing import Tuple
 import numpy as np
 
 Split = Tuple[np.ndarray, np.ndarray, np.ndarray]
+
+# QM9's molecules after the 3054 uncharacterized ones are skipped
+QM9_SIZE = 133885 - 3054
+
+
+def qm9_random_customized_01(num_mols: int, seed: int = 0) -> Split:
+    """The split of every published QM9 result (``splitters.py:253-306``):
+    one ``np.random.RandomState(seed)`` permutation, 110k train / 10k valid
+    / the rest test; a smaller (synthetic) store keeps the same shares of
+    QM9's 130,831 molecules."""
+    all_idx = np.random.RandomState(seed).permutation(num_mols)
+    if num_mols >= QM9_SIZE:
+        n_train, n_valid = 110000, 10000
+    else:
+        n_train = max(int(num_mols * 110000 / QM9_SIZE), 1)
+        n_valid = max(int(num_mols * 10000 / QM9_SIZE), 1)
+    return (all_idx[:n_train], all_idx[n_train:n_train + n_valid],
+            all_idx[n_train + n_valid:])
+
+
+def qm9_random_customized_02(num_mols: int, seed: int = 0) -> Split:
+    """100k train / 10% test / the rest valid (``splitters.py:309-358``)."""
+    all_idx = np.random.RandomState(seed).permutation(num_mols)
+    if num_mols >= QM9_SIZE:
+        n_train, n_test = 100000, int(0.1 * QM9_SIZE)
+    else:
+        n_train = max(int(num_mols * 100000 / QM9_SIZE), 1)
+        n_test = int(0.1 * num_mols)
+    n_valid = num_mols - n_train - n_test
+    return (all_idx[:n_train], all_idx[n_train:n_train + n_valid],
+            all_idx[n_train + n_valid:])
 
 
 def random_split(num_mols: int, frac_train: float = 0.8,

@@ -7,8 +7,10 @@ The reference reads protein structures through Bio.PDB + atom3d
 and ligands through RDKit's ``SDMolSupplier`` with ``sanitize=False,
 removeHs=False`` (``datasets_LBA.py:188``). The downstream pipeline only
 needs element symbols, coordinates and residue identity, so these are small
-fixed-width/record parsers over plain Python and NumPy. The Molecule3D SDF
-parser (bonds included) is not ported yet.
+fixed-width/record parsers over plain Python and NumPy. ``parse_sdf_mol``
+reads one V2000 molecule with its bonds (QM9's ``gdb9.sdf`` through
+``data/featurize.sdf_block_to_arrays``), ``iter_sdf_blocks`` streams a
+multi-molecule file.
 """
 
 from __future__ import annotations
@@ -17,6 +19,18 @@ from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+# Element symbol -> atomic number (H..Rn). Enough for every organic /
+# biomolecular dataset here; unknown symbols map to the vocab's mask token
+# downstream (featurize.atomic_number_to_index).
+_SYMBOLS = (
+    "H He Li Be B C N O F Ne Na Mg Al Si P S Cl Ar K Ca Sc Ti V Cr Mn Fe Co "
+    "Ni Cu Zn Ga Ge As Se Br Kr Rb Sr Y Zr Nb Mo Tc Ru Rh Pd Ag Cd In Sn Sb "
+    "Te I Xe Cs Ba La Ce Pr Nd Pm Sm Eu Gd Tb Dy Ho Er Tm Yb Lu Hf Ta W Re "
+    "Os Ir Pt Au Hg Tl Pb Bi Po At Rn"
+).split()
+SYMBOL_TO_Z = {s: i + 1 for i, s in enumerate(_SYMBOLS)}
+
 
 @dataclass
 class PDBStructure:
@@ -186,6 +200,60 @@ def _parse_sdf_v3000(lines: List[str]) -> Tuple[List[str], np.ndarray]:
             elements.append(parts[3].capitalize())
             coords.append((float(parts[4]), float(parts[5]), float(parts[6])))
     return elements, np.asarray(coords, np.float32).reshape(-1, 3)
+
+
+def iter_sdf_blocks(path: str):
+    """Stream molecule blocks (the text up to each ``$$$$``) from an SDF
+    file without loading the whole file."""
+    buf: List[str] = []
+    with open(path, errors="replace") as f:
+        for line in f:
+            if line.startswith("$$$$"):
+                yield "".join(buf)
+                buf = []
+            else:
+                buf.append(line)
+    if any(line.strip() for line in buf):
+        yield "".join(buf)
+
+
+def parse_sdf_mol(text: str) -> Tuple[List[str], np.ndarray, np.ndarray]:
+    """One SDF molecule -> (elements, coords [N,3], bonds [E,3] 0-based
+    (i, j, order)). V2000 with bonds; a V3000 block gives its atoms and no
+    bonds.
+
+    Compared to the reference's sanitizing RDKit parse
+    (``datasets_Molecule3D.py:61-75``), this reads the file as written:
+    kekulized bond orders (no aromaticity perception) and no chirality
+    tags. The workloads consume only atom types, positions and bond
+    topology, which are the same.
+    """
+    lines = text.splitlines()
+    if len(lines) < 4:
+        raise ValueError("SDF too short")
+    counts = lines[3].ljust(39)
+    if "V3000" in counts:
+        elements, coords = _parse_sdf_v3000(lines)
+        return elements, coords, np.zeros((0, 3), np.int32)
+    n_atoms = int(counts[0:3])
+    n_bonds = int(counts[3:6])
+    elements: List[str] = []
+    coords = np.zeros((n_atoms, 3), np.float32)
+    for i in range(n_atoms):
+        line = lines[4 + i].ljust(69)
+        coords[i] = (float(line[0:10]), float(line[10:20]), float(line[20:30]))
+        elements.append(line[31:34].strip().capitalize())
+    bonds = np.zeros((n_bonds, 3), np.int32)
+    for e in range(n_bonds):
+        line = lines[4 + n_atoms + e].ljust(12)
+        i, j = int(line[0:3]) - 1, int(line[3:6]) - 1
+        if not (0 <= i < n_atoms and 0 <= j < n_atoms):
+            # an out-of-range endpoint would poison every consumer of the
+            # topology
+            raise ValueError(f"SDF bond {e} references atom {max(i, j) + 1} "
+                             f"of {n_atoms}")
+        bonds[e] = (i, j, int(line[6:9]))
+    return elements, coords, bonds
 
 
 def parse_index_refined(text: str) -> Dict[str, float]:

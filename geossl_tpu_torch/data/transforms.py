@@ -1,5 +1,11 @@
-"""Spatial sorting of molecules (the port's copy of ``morton_order`` and
-``spatial_sort_store`` from ``geossl_tpu/data/transforms.py``).
+"""Per-molecule transforms (the port's copy of ``random_rotation_matrix``,
+``random_rotation_transform``, ``morton_order`` and ``spatial_sort_store``
+from ``geossl_tpu/data/transforms.py``).
+
+``random_rotation_transform`` is QM9's ``--use_rotation_transform``
+augmentation (``MoleculeDatasetQM9.get``, ``datasets_QM9.py:139-140``): a
+uniform random rotation of the conformer, drawn from the loader's
+generator in the order the JAX loader draws it.
 
 Sorting atoms along a 3D Morton curve makes spatially near atoms index-near,
 which gathers the in-cutoff pairs into few tiles of the dense pair grid and
@@ -13,6 +19,31 @@ from __future__ import annotations
 import numpy as np
 
 from geossl_tpu_torch.data.store import MolRecord, MolStore
+
+
+def random_rotation_matrix(rng: np.random.Generator) -> np.ndarray:
+    """Uniform random rotation: QR of a Gaussian matrix, signs fixed (the
+    Haar measure)."""
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    q *= np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] *= -1
+    return q
+
+
+def random_rotation_transform(record: MolRecord,
+                              rng: np.random.Generator) -> MolRecord:
+    """The record with its positions (and forces) rotated by one draw of
+    :func:`random_rotation_matrix`."""
+    rot = random_rotation_matrix(rng).astype(np.float32)
+    return MolRecord(
+        atom_type=record.atom_type,
+        positions=record.positions @ rot.T,
+        chirality=record.chirality,
+        bond_index=record.bond_index,
+        y=record.y,
+        forces=None if record.forces is None else record.forces @ rot.T,
+    )
 
 
 def morton_order(positions: np.ndarray, bits: int = 10) -> np.ndarray:

@@ -83,10 +83,12 @@ class InteractionBlock(nn.Module):
         return (l0.weight.t().contiguous(), l0.bias, l2.weight.t().contiguous(),
                 l2.bias)
 
-    def forward(self, h, dist, adj, plain: bool = False, filt=None):
-        """``filt``: this block's ``filter_weights()`` made once by a caller
-        whose weights are fixed (the Predictor); made here when None."""
-        env = cosine_envelope(dist, self.cutoff) * adj.to(dist.dtype)
+    def forward(self, h, dist, env, plain: bool = False, filt=None):
+        """``env``: the cosine envelope on the radius graph
+        (``SchNet.envelope``), the same for every block, so the caller makes
+        it once. ``filt``: this block's ``filter_weights()`` made once by a
+        caller whose weights are fixed (the Predictor); made here when
+        None."""
         x = self.conv.lin1(h)
         filt = self.filter_weights() if filt is None else filt
         m = cfconv(dist, env, x, *filt, 0.0, self.cutoff,
@@ -166,6 +168,11 @@ class SchNet(nn.Module):
         return dist, geometry.radius_adjacency(dist, pair_mask, self.cutoff,
                                                self.max_neighbors)
 
+    def envelope(self, dist, adj):
+        """The cosine cutoff envelope on the radius graph ``adj``, [B,N,N]:
+        every block's pair weights, made once per forward."""
+        return cosine_envelope(dist, self.cutoff) * adj.to(dist.dtype)
+
     def filter_weights(self):
         """Every block's ``filter_weights()``: the kernels' layouts."""
         return [blk.filter_weights() for blk in self.interactions]
@@ -176,9 +183,10 @@ class SchNet(nn.Module):
         caller whose weights are fixed; made per block when None."""
         h = self.embedding(atom_type)
         dist, adj = self.geometry(positions, node_mask)
+        env = self.envelope(dist, adj)
         filters = filters or [None] * len(self.interactions)
         for block, filt in zip(self.interactions, filters):
-            h = h + block(h, dist, adj, plain=plain, filt=filt)
+            h = h + block(h, dist, env, plain=plain, filt=filt)
         return self.output(h, atom_type, positions, node_mask)
 
     def output(self, h, atom_type, positions, node_mask):
@@ -224,8 +232,7 @@ def fused_stack_apply(model: SchNet, atom_type, positions, node_mask,
                          f"{positions.dtype}); use model.forward")
     h = model.embedding(atom_type).float()
     dist, adj = model.geometry(positions, node_mask)
-    # env is the same for every block: computed once here
-    env = cosine_envelope(dist, model.cutoff) * adj.to(dist.dtype)
+    env = model.envelope(dist, adj)
     stacked = model.stacked_weights() if stacked is None else stacked
     if plain:
         h = schnet_stack_reference(dist, env, h, stacked, 0.0, model.cutoff,

@@ -59,6 +59,14 @@ from geossl_tpu_torch.ops._launch import (
 STACK_MAX_N = 128
 # Feature width the kernels' register tiling is written for.
 KERNEL_F = 128
+# Largest Gaussian count of the symmetric forward, both backwards and the
+# stack (their RBF tile is padded to 64 columns, csrc/filter_mma.cuh kSGP,
+# csrc/cfconv_bwd.cu kGP).
+KERNEL_MAX_G = 64
+# Largest Gaussian count of the plain-mode forward: the largest G whose
+# shared memory (cfconv_fwd_smem_bytes: G padded to a multiple of 32 above
+# 64) fits a block's 227 KB.
+PLAIN_FWD_MAX_G = 192
 # Side of the kernels' square pair tiles.
 KERNEL_TILE = 8
 
@@ -169,9 +177,9 @@ def _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
     b, ni, nj = dist.shape
     f = x.shape[-1]
     _check_filter_shapes("cfconv_fwd", dist, env, x, w1, b1, w2, b2, num_g)
-    if symmetric and (ni != nj or num_g > 64):
+    if symmetric and (ni != nj or num_g > KERNEL_MAX_G):
         raise ValueError("cfconv_fwd: the symmetric mode needs a square grid "
-                         f"and G <= 64; got dist {tuple(dist.shape)}, "
+                         f"and G <= {KERNEL_MAX_G}; got dist {tuple(dist.shape)}, "
                          f"G={num_g}")
     smem = _build.kernel_fn("cfconv_fwd", "cfconv_fwd_smem_bytes",
                             [ctypes.c_int] * 2,
@@ -241,8 +249,9 @@ def _launch_cfconv_bwd(name, dist, env, x, g, w1, b1, w2, b2, start, stop,
     b, ni, nj = dist.shape
     f = x.shape[-1]
     _check_filter_shapes(name, dist, env, x, w1, b1, w2, b2, num_g)
-    if g.shape != (b, ni, f) or num_g > 64:
-        raise ValueError(f"{name}: kernel takes g [B,N,F] and G <= 64; "
+    if g.shape != (b, ni, f) or num_g > KERNEL_MAX_G:
+        raise ValueError(f"{name}: kernel takes g [B,N,F] and G <= "
+                         f"{KERNEL_MAX_G}; "
                          f"got g {tuple(g.shape)}, G={num_g}")
     if symmetric and ni != nj:
         raise ValueError(f"{name}: the symmetric mode needs a square grid")
@@ -371,8 +380,9 @@ def schnet_stack(dist, env, h0, stacked, start, stop, num_g, symmetric=False):
     f = h0.shape[-1]
     n_layers = stacked[0].shape[0]
     if f != KERNEL_F or stacked[1].shape != (n_layers, num_g, f) \
-            or num_g > 64:
-        raise ValueError(f"schnet_stack: kernel takes F={KERNEL_F}, G <= 64 "
+            or num_g > KERNEL_MAX_G:
+        raise ValueError(f"schnet_stack: kernel takes F={KERNEL_F}, "
+                         f"G <= {KERNEL_MAX_G} "
                          f"and W1 [L,G,F]; got h0 {tuple(h0.shape)}, W1 "
                          f"{tuple(stacked[1].shape)}")
     smem = _build.kernel_fn("schnet_stack", "schnet_stack_smem_bytes",

@@ -1,8 +1,11 @@
 """Batched inference on trained SchNet or PaiNN weights (counterpart of
 ``geossl_tpu/serve.py``).
 
-* :class:`Predictor` buckets and pads incoming molecules (every batch is
-  padded to ``batch_size`` with empty graph slots), runs each bucket through
+* :class:`Predictor` buckets and pads incoming molecules (a full chunk
+  fills ``batch_size`` graph slots; a partial one is packed to its own
+  count rounded up to a multiple of 8: the port compiles nothing, so
+  unlike the JAX package's static shapes it need not pad a small bucket to
+  ``batch_size``), runs each bucket through
   the backbone's whole-stack kernel (``schnet_stack`` / ``painn_stack``) up
   to the backbone's ``*_STACK_MAX_N`` and through its per-block kernels
   (CFConv / the PaiNN message pass) above, and returns results in input
@@ -31,7 +34,11 @@ from geossl_tpu_torch.config import ModelConfig
 from geossl_tpu_torch.data.bucketing import assign_buckets, pack_batch
 from geossl_tpu_torch.data.store import MolStore
 from geossl_tpu_torch.models import painn, schnet
-from geossl_tpu_torch.train.common import make_backbone, make_head
+from geossl_tpu_torch.train.common import (
+    check_kernel_limits,
+    make_backbone,
+    make_head,
+)
 
 # The largest bucket each backbone serves through its whole-stack kernel
 # (0: none; at most the kernels' shape limit, ops/cfconv.STACK_MAX_N =
@@ -53,9 +60,21 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+# A partial chunk is packed to its count rounded up to a multiple of this,
+# so that a pass sees few batch shapes (and later CUDA graphs few graphs).
+SLOT_MULTIPLE = 8
+
+
 def _chunks(idx: np.ndarray, size: int):
     for s in range(0, len(idx), size):
         yield idx[s:s + size]
+
+
+def batch_slots(count: int, batch_size: int) -> int:
+    """Graph slots of a packed chunk of ``count`` molecules: ``count``
+    rounded up to a multiple of ``SLOT_MULTIPLE``, at most
+    ``batch_size``."""
+    return min(batch_size, -(-count // SLOT_MULTIPLE) * SLOT_MULTIPLE)
 
 
 class Predictor:
@@ -74,6 +93,21 @@ class Predictor:
                              f"{spatial_sort!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.batch_size = batch_size
+        self.bucket_sizes = tuple(sorted(bucket_sizes))
+        self.spatial_sort = spatial_sort
+        if cfg.model_3d == "painn":
+            self._stack_apply = painn.fused_stack_apply
+            self._stack_max_n = PAINN_STACK_MAX_N
+            self._stackable = True
+        else:
+            self._stack_apply = schnet.fused_stack_apply
+            self._stack_max_n = SCHNET_STACK_MAX_N
+            # the stack kernel keeps h at one width
+            self._stackable = cfg.schnet.num_filters == cfg.emb_dim
+        routes = [self.stack_route(n) for n in self.bucket_sizes]
+        check_kernel_limits(cfg, self.device, backward=False,
+                            per_block=not all(routes), stack=any(routes))
         # the initial draw is overwritten by the state
         init = torch.Generator().manual_seed(0)
         self.model = make_backbone(cfg, init)
@@ -88,19 +122,6 @@ class Predictor:
                             else y_mean)
         self.y_std = float(state.get("y_std", 1.0) if y_std is None
                            else y_std)
-        self.batch_size = batch_size
-        self.bucket_sizes = tuple(sorted(bucket_sizes))
-        self.spatial_sort = spatial_sort
-        if cfg.model_3d == "painn":
-            self._stack_apply = painn.fused_stack_apply
-            self._stack_max_n = PAINN_STACK_MAX_N
-            self._stackable = True
-        else:
-            self._stack_apply = schnet.fused_stack_apply
-            self._stack_max_n = SCHNET_STACK_MAX_N
-            # the stack kernel keeps h at one width
-            self._stackable = (self.model.num_filters
-                               == self.model.hidden_channels)
         # the kernels' [in, out] weight layouts, made once for fixed weights
         with torch.no_grad():
             self._filters = self.model.filter_weights()
@@ -130,12 +151,14 @@ class Predictor:
         return spatial_sort_store(store)
 
     def _batches(self, store: MolStore):
-        """Yield (indices, batch on the device); one shape per bucket."""
+        """Yield (indices, batch on the device), each chunk in
+        :func:`batch_slots` graph slots."""
         bucket_of = assign_buckets(store.num_atoms(), self.bucket_sizes)
         for b in np.unique(bucket_of):
             for chunk in _chunks(np.nonzero(bucket_of == b)[0], self.batch_size):
                 records = [store.get(int(i)) for i in chunk]
-                batch = pack_batch(records, int(b), self.batch_size)
+                batch = pack_batch(records, int(b),
+                                   batch_slots(len(chunk), self.batch_size))
                 yield chunk, batch.to(self.device)
 
     def stack_route(self, n: int) -> bool:

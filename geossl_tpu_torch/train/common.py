@@ -27,6 +27,9 @@ from geossl_tpu_torch.config import ModelConfig, PaiNNConfig, SchNetConfig
 from geossl_tpu_torch.models.common import HalvingMLP, init_linear_
 from geossl_tpu_torch.models.painn import PaiNN
 from geossl_tpu_torch.models.schnet import SchNet
+from geossl_tpu_torch.ops import cfconv as cfconv_ops
+from geossl_tpu_torch.ops import ncsn as ncsn_ops
+from geossl_tpu_torch.ops import painn as painn_ops
 from geossl_tpu_torch.train import checkpoints, optim
 from geossl_tpu_torch.utils.torch_import import load_torch_checkpoint
 
@@ -219,6 +222,87 @@ def use_kernels(args) -> bool:
     return args.use_pallas != "off"
 
 
+# -- the kernels' limits ----------------------------------------------------------
+
+
+def kernel_limit_errors(cfg: ModelConfig, *, backward: bool,
+                        per_block: bool = True, stack: bool = False,
+                        ncsn: bool = False) -> list:
+    """Each setting of ``cfg`` that a CUDA kernel of the named routes would
+    refuse at its first launch, as one line naming the flag and the limit:
+    the per-block kernels (``backward``: and their backwards), the backbone's
+    whole-stack kernel, DDM's NCSN head kernels. Empty when they all fit."""
+    errors = []
+
+    def need(ok, flag, value, limit):
+        if not ok:
+            errors.append(f"--{flag} {value}: {limit}")
+
+    f = cfconv_ops.KERNEL_F
+    if cfg.model_3d == "painn":
+        r = cfg.painn.n_rbf
+        if per_block or stack:
+            need(cfg.emb_dim == f, "emb_dim", cfg.emb_dim,
+                 f"the PaiNN kernels take {f} only (ops/cfconv.KERNEL_F)")
+            need(2 <= r <= painn_ops.MAX_R, "painn_n_rbf", r,
+                 f"the PaiNN kernels take 2 to {painn_ops.MAX_R} "
+                 "(ops/painn_ops.MAX_R)")
+    else:
+        s = cfg.schnet
+        g, g_max = s.num_gaussians, cfconv_ops.KERNEL_MAX_G
+        if per_block:
+            need(s.num_filters == f, "num_filters", s.num_filters,
+                 f"the CFConv kernels take {f} only (ops/cfconv.KERNEL_F)")
+            if cfg.max_neighbors is None or backward:
+                need(g <= g_max, "num_gaussians", g,
+                     f"the symmetric CFConv forward and both CFConv "
+                     f"backwards take at most {g_max} "
+                     "(ops/cfconv_ops.KERNEL_MAX_G)")
+            else:
+                g_plain = cfconv_ops.PLAIN_FWD_MAX_G
+                need(g <= g_plain, "num_gaussians", g,
+                     f"the plain-mode CFConv forward takes at most {g_plain} "
+                     "(ops/cfconv_ops.PLAIN_FWD_MAX_G)")
+        # the stack serves only when h keeps one width (num_filters = emb)
+        if stack and s.num_filters == cfg.emb_dim:
+            need(s.num_filters == f, "num_filters", s.num_filters,
+                 f"schnet_stack takes {f} only (ops/cfconv.KERNEL_F)")
+            need(g <= g_max, "num_gaussians", g,
+                 f"schnet_stack takes at most {g_max} "
+                 "(ops/cfconv_ops.KERNEL_MAX_G)")
+    if ncsn:
+        e = ncsn_ops.KERNEL_E
+        need(cfg.emb_dim == e, "emb_dim", cfg.emb_dim,
+             f"the NCSN head kernels take {e} only (ops/ncsn.KERNEL_E)")
+    return list(dict.fromkeys(errors))
+
+
+def check_kernel_limits(cfg: ModelConfig, device: torch.device,
+                        **routes) -> None:
+    """Raise ``ValueError`` at startup, before anything is allocated, when
+    ``device`` is CUDA and a kernel of ``routes`` (:func:`kernel_limit_errors`)
+    would refuse ``cfg`` at its first launch. The CPU runs every setting."""
+    if device.type != "cuda":
+        return
+    errors = kernel_limit_errors(cfg, **routes)
+    if errors:
+        raise ValueError(
+            "these settings exceed the CUDA kernels' limits: "
+            + "; ".join(errors) + " (the CPU runs them: --device cpu; a "
+            "driver also with --use_pallas off)")
+
+
+def check_driver_limits(args, cfg: ModelConfig, device: torch.device,
+                        ncsn: bool = False) -> None:
+    """:func:`check_kernel_limits` for a driver: its per-block kernels, with
+    their backwards unless ``--eval_only``; nothing under ``--use_pallas
+    off``."""
+    if use_kernels(args):
+        check_kernel_limits(cfg, device,
+                            backward=not getattr(args, "eval_only", False),
+                            ncsn=ncsn)
+
+
 def model_config_from_args(args) -> ModelConfig:
     return ModelConfig(
         model_3d=args.model_3d,
@@ -376,12 +460,13 @@ def add_finetune_args(p: argparse.ArgumentParser):
     return p
 
 
-def load_input_model(args, net: nn.Module) -> bool:
+def load_input_model(args, net: nn.Module) -> dict:
     """Load ``--input_model_file`` into ``net.model`` (a pretrain or a
     fine-tuned ``.pth``) and, when the file has one, into
-    ``net.graph_pred_linear``; returns whether it had the head. With
-    ``--eval_only`` the head is required."""
-    has_head = False
+    ``net.graph_pred_linear``; returns the loaded checkpoint
+    (``utils/torch_import.load_torch_checkpoint``; empty without the
+    flag). With ``--eval_only`` the head is required."""
+    ckpt, has_head = {}, False
     if args.input_model_file:
         ckpt = load_torch_checkpoint(args.input_model_file)
         net.model.load_state_dict(ckpt["model"])
@@ -394,7 +479,7 @@ def load_input_model(args, net: nn.Module) -> bool:
             "--eval_only needs --input_model_file pointing at a FINE-TUNED "
             "checkpoint (with graph_pred_linear; pretrain checkpoints carry "
             "no head)")
-    return has_head
+    return ckpt
 
 
 def finetune_step(net: nn.Module, opt, sched, batches, loss_fn):
@@ -412,17 +497,28 @@ def finetune_step(net: nn.Module, opt, sched, batches, loss_fn):
     return total / len(batches)
 
 
+def model_tree(net: nn.Module, extra: Optional[dict] = None) -> dict:
+    """A fine-tuned ``.pth``: ``model`` and ``graph_pred_linear`` (the
+    reference's keys) and the ``extra`` entries."""
+    return {"model": net.model.state_dict(),
+            "graph_pred_linear": net.graph_pred_linear.state_dict(),
+            **(extra or {})}
+
+
 def run_finetune(args, net: nn.Module, loaders, loss_fn, evaluate,
-                 key: str, higher_is_better: bool, describe, device) -> dict:
+                 key: str, higher_is_better: bool, describe, device,
+                 ckpt_extra: Optional[dict] = None, on_best=None) -> dict:
     """The fine-tunes' epoch loop, as the JAX drivers run it: an epoch of
     optimizer steps, the plateau scheduler on the epoch's mean loss, val
-    and test metrics, ``model.pth`` (``model`` and ``graph_pred_linear``)
-    at the best val ``key``, the resume state and the metric log.
+    and test metrics, ``model.pth`` (:func:`model_tree` with
+    ``ckpt_extra``) at the best val ``key``, the resume state and the metric
+    log.
 
     ``loaders`` = (train, val, test); ``loss_fn(net, batch)``;
     ``evaluate(net, loader)`` -> {metric: float}; ``describe(val, test)``
-    -> the epoch line's metrics. Returns {"best", "best_epoch",
-    "best_test", "losses"} (every step's loss)."""
+    -> the epoch line's metrics; ``on_best()`` runs after each new best's
+    ``model.pth`` (with ``--output_model_dir``). Returns {"best",
+    "best_epoch", "best_test", "losses"} (every step's loss)."""
     train, val_loader, test_loader = loaders
     opt, sched = make_optimizer_from_args(
         args, net.parameters(),
@@ -457,8 +553,9 @@ def run_finetune(args, net: nn.Module, loaders, loss_fn, evaluate,
             if args.output_model_dir:
                 checkpoints.save_checkpoint(
                     os.path.join(args.output_model_dir, "model.pth"),
-                    {"model": net.model.state_dict(),
-                     "graph_pred_linear": net.graph_pred_linear.state_dict()})
+                    model_tree(net, ckpt_extra))
+                if on_best is not None:
+                    on_best()
         maybe_save_state(args, {"net": net}, opt, sched, epoch, best,
                          {"best_epoch": best_epoch, **best_test,
                           **(plateau.state() if plateau else {})})

@@ -158,9 +158,10 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     common.check_ported_args(args)
     device = resolve_device(args.device)
+    cfg = common.model_config_from_args(args)
+    common.check_driver_limits(args, cfg, device)
     splits = load_splits(args)
-    net = make_net(args, common.model_config_from_args(args),
-                   torch.Generator().manual_seed(args.seed))
+    net = make_net(args, cfg, torch.Generator().manual_seed(args.seed))
     common.load_input_model(args, net)
     net.to(device)
     loaders = [DualLoader(*splits[k], args.batch_size, common.buckets(args),

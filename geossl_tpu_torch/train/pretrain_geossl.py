@@ -172,6 +172,7 @@ def main(argv=None):
     common.check_ported_args(args)
     cfg = common.model_config_from_args(args)
     device = resolve_device(args.device)
+    common.check_driver_limits(args, cfg, device, ncsn=True)
     subset = None
     if args.dataset.startswith("Molecule3D_"):
         subset = int(args.dataset.split("_")[-1])

@@ -1,11 +1,15 @@
 """Evaluation metrics of the fine-tunes in NumPy (the port's own copy of
-``geossl_tpu/utils/metrics.py``; reference ``examples/util.py:128-165`` and
-``finetune_lep.py:96-99``, which calls sklearn). Host side, on eval
-outputs."""
+``geossl_tpu/utils/metrics.py``; reference ``examples/util.py:128-165``,
+``finetune_lep.py:96-99``, which calls sklearn, and
+``finetune_qm9.py:20-21``, the MAE). Host side, on eval outputs."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def mae(y: np.ndarray, f: np.ndarray) -> float:
+    return float(np.mean(np.abs(y - f)))
 
 
 def mse(y: np.ndarray, f: np.ndarray) -> float:

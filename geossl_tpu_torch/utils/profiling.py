@@ -14,7 +14,7 @@ import torch
 
 def top_device_ops(fn, top: int = 10, warmup: int = 3) -> list:
     """[(kernel, device ms, calls)] of one call of ``fn`` after ``warmup``
-    calls, the ``top`` largest by device time. Only the device's own events
+    calls, the ``top`` largest by device time (``None``: all). Only the device's own events
     are counted (the host operators that launch them would count each
     kernel's time a second time)."""
     from torch.autograd import DeviceType
