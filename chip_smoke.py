@@ -274,7 +274,10 @@ def cuda_time_ms(fn, reps=10, warmup=2):
 
 def device_profile(fn):
     """(wall s, device busy s, port kernels s) of one call of fn under
-    torch.profiler; busy sums every device activity (kernels and copies)."""
+    torch.profiler; busy sums every device activity (kernels and copies),
+    not the user annotations on the device's timeline (Adam's
+    ``Optimizer.step`` range spans its own kernels: counting it would count
+    them twice)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -285,7 +288,8 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not e.is_user_annotation]
     busy = sum(e.time_range.elapsed_us() for e in dev) * 1e-6
     ours = sum(e.time_range.elapsed_us() for e in dev
                if "geossl::" in e.name) * 1e-6

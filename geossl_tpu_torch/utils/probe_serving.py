@@ -7,7 +7,9 @@ Serves ``chip_smoke.py``'s store (512 synthetic Molecule3D molecules and 32
 synthetic LBA complexes, buckets 32..512) with seeded full-width SchNet and
 PaiNN Predictors, per bucket: the graph slots a pass packs, the median
 host time of 5 passes after a warm-up (each ends in its device-to-host
-copy) and the device busy time of one traced pass. Prints one
+copy), the host time of its two first steps alone (the Morton sort,
+``_maybe_sort``; packing and uploading every chunk, ``_batches``; median
+of 5 each) and the device busy time of one traced pass. Prints one
 ``serving_probe:`` JSON line per backbone and bucket. Uses only the
 Predictor's public surface and ``_batches``, so it runs against an earlier
 tree put first on ``PYTHONPATH``. Needs a CUDA device.
@@ -70,18 +72,32 @@ def main(argv=None):
                 pred.predict(sub)
                 times.append(time.perf_counter() - t0)
             t = sorted(times)[2]
+
+            def median_s(fn):
+                runs = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    runs.append(time.perf_counter() - t0)
+                return sorted(runs)[2]
+
+            sort_s = median_s(lambda: pred._maybe_sort(sub))
+            pack_s = median_s(lambda: list(pred._batches(sub)))
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 pred.predict(sub)
                 torch.cuda.synchronize()
             busy = sum(e.time_range.elapsed_us() for e in prof.events()
-                       if e.device_type == DeviceType.CUDA) * 1e-3
+                       if e.device_type == DeviceType.CUDA
+                       and not e.is_user_annotation) * 1e-3
             print("serving_probe: " + json.dumps({
                 "tag": args.tag, "tree": geossl_tpu_torch.__file__,
                 "model": model_3d, "bucket": b, "molecules": len(sub),
                 "slots_per_pass": slots, "s_per_pass": t,
-                "mol_per_s": len(sub) / t, "device_busy_ms": busy}),
+                "mol_per_s": len(sub) / t, "sort_s": sort_s,
+                "pack_upload_s": pack_s, "device_busy_ms": busy}),
                 flush=True)
 
 

@@ -14,9 +14,11 @@ import torch
 
 def top_device_ops(fn, top: int = 10, warmup: int = 3) -> list:
     """[(kernel, device ms, calls)] of one call of ``fn`` after ``warmup``
-    calls, the ``top`` largest by device time (``None``: all). Only the device's own events
-    are counted (the host operators that launch them would count each
-    kernel's time a second time)."""
+    calls, the ``top`` largest by device time (``None``: all). Only the
+    device's own events are counted (the host operators that launch them
+    would count each kernel's time a second time), and not the user
+    annotations on its timeline (Adam's ``Optimizer.step`` range spans its
+    kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -28,7 +30,7 @@ def top_device_ops(fn, top: int = 10, warmup: int = 3) -> list:
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
