@@ -246,7 +246,7 @@ def kernel_limit_errors(cfg: ModelConfig, *, backward: bool,
                  f"the PaiNN kernels take {f} only (ops/cfconv.KERNEL_F)")
             need(2 <= r <= painn_ops.MAX_R, "painn_n_rbf", r,
                  f"the PaiNN kernels take 2 to {painn_ops.MAX_R} "
-                 "(ops/painn_ops.MAX_R)")
+                 "(ops/painn.MAX_R)")
     else:
         s = cfg.schnet
         g, g_max = s.num_gaussians, cfconv_ops.KERNEL_MAX_G
@@ -257,19 +257,19 @@ def kernel_limit_errors(cfg: ModelConfig, *, backward: bool,
                 need(g <= g_max, "num_gaussians", g,
                      f"the symmetric CFConv forward and both CFConv "
                      f"backwards take at most {g_max} "
-                     "(ops/cfconv_ops.KERNEL_MAX_G)")
+                     "(ops/cfconv.KERNEL_MAX_G)")
             else:
                 g_plain = cfconv_ops.PLAIN_FWD_MAX_G
                 need(g <= g_plain, "num_gaussians", g,
                      f"the plain-mode CFConv forward takes at most {g_plain} "
-                     "(ops/cfconv_ops.PLAIN_FWD_MAX_G)")
+                     "(ops/cfconv.PLAIN_FWD_MAX_G)")
         # the stack serves only when h keeps one width (num_filters = emb)
         if stack and s.num_filters == cfg.emb_dim:
             need(s.num_filters == f, "num_filters", s.num_filters,
                  f"schnet_stack takes {f} only (ops/cfconv.KERNEL_F)")
             need(g <= g_max, "num_gaussians", g,
                  f"schnet_stack takes at most {g_max} "
-                 "(ops/cfconv_ops.KERNEL_MAX_G)")
+                 "(ops/cfconv.KERNEL_MAX_G)")
     if ncsn:
         e = ncsn_ops.KERNEL_E
         need(cfg.emb_dim == e, "emb_dim", cfg.emb_dim,

@@ -56,6 +56,7 @@ from geossl_tpu_torch.data import structio as tstructio
 from geossl_tpu_torch.data import transforms as ttrans
 from geossl_tpu_torch.data.batch import DenseMolBatch
 from geossl_tpu_torch.data.store import MolStore
+from geossl_tpu_torch.data.synthetic import synthetic_qm9
 from geossl_tpu_torch.models import schnet as tschnet
 from geossl_tpu_torch.models.painn import PaiNN
 from geossl_tpu_torch.models.schnet import SchNet
@@ -512,8 +513,13 @@ def test_schnet_makes_the_envelope_once_per_forward(monkeypatch):
     assert len(calls) == 2
 
 
-@pytest.mark.parametrize("model_3d", ["schnet", "painn"])
-def test_serving_packs_partial_chunks_to_multiples_of_8(monkeypatch, model_3d):
+@pytest.mark.parametrize("model_3d,batch_size", [("schnet", 16),
+                                                 ("painn", 16),
+                                                 ("schnet", 128)])
+def test_serving_packs_partial_chunks_to_multiples_of_8(monkeypatch, model_3d,
+                                                        batch_size):
+    """Each bucket's last chunk in ceil8(count) slots; the predictions of
+    the batch_size-slot packing (128 by default) on the CPU."""
     cfg = ModelConfig(model_3d=model_3d, emb_dim=EMB,
                       schnet=SchNetConfig(hidden_channels=EMB, num_filters=EMB,
                                           num_interactions=2, num_gaussians=8),
@@ -523,31 +529,27 @@ def test_serving_packs_partial_chunks_to_multiples_of_8(monkeypatch, model_3d):
     state = {"model": common.make_backbone(cfg, gen).state_dict(),
              "graph_pred_linear": common.make_head(model_3d, EMB,
                                                    gen).state_dict()}
-    store = tsyn_store(45)
-    kw = dict(batch_size=16, bucket_sizes=(16, 32), device="cpu")
-    pred = serve.Predictor(cfg, state, **kw)
+    store = synthetic_qm9(45, seed=7)
+    pred = serve.Predictor(cfg, state, batch_size=batch_size,
+                           bucket_sizes=(16, 32), device="cpu")
     sizes = store.num_atoms()
     want = {}
     for b, n in ((16, int((sizes <= 16).sum())), (32, int((sizes > 16).sum()))):
-        full, rest = divmod(n, 16)
-        want[b] = [16] * full + ([-(-rest // 8) * 8] if rest else [])
+        full, rest = divmod(n, batch_size)
+        want[b] = [batch_size] * full + ([-(-rest // 8) * 8] if rest else [])
     got = {}
     for chunk, batch in pred._batches(store):
         got.setdefault(batch.max_atoms, []).append(batch.batch_size)
         assert batch.batch_size >= len(chunk)
-    assert got == want and any(s % 16 for s in sum(got.values(), []))
+    assert got == want and any(s % batch_size for s in sum(got.values(), []))
     assert serve.batch_slots(5, 128) == 8 and serve.batch_slots(8, 128) == 8
     assert serve.batch_slots(127, 128) == 128 and serve.batch_slots(9, 10) == 10
     packed = pred.predict(store)
     monkeypatch.setattr(serve, "batch_slots", lambda count, size: size)
+    # the same per-graph arithmetic (bitwise here; CPU matmuls may block
+    # rows by the batch's size, so within f32 rounding)
     np.testing.assert_allclose(packed, pred.predict(store), rtol=1e-6,
                                atol=1e-7)
-
-
-def tsyn_store(n):
-    from geossl_tpu_torch.data.synthetic import synthetic_qm9
-
-    return synthetic_qm9(n, seed=7)
 
 
 def _cfg(model_3d="schnet", emb=128, filters=128, g=51, r=20, max_nb=None):
