@@ -103,9 +103,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
       is held to the same step with the plain versions (the same injected
       noise; loss rtol 1e-4, all gradients together by relative norm 1e-3
       and each parameter's by 1e-2). A gradient must flow through the
-      symmetric CFConv (``cfconv_bwd_sym``) and a second order through it
-      must raise, as through the NCSN head (``ncsn_score_loss``); the
-      stack must refuse autograd. Then the same for PaiNN-DDM
+      symmetric CFConv (``cfconv_bwd_sym``); a second order through the
+      NCSN head (``ncsn_score_loss``) must raise; the stack must refuse
+      autograd. Then the same for PaiNN-DDM
       (``--model_3d painn``: ``painn_fwd``/``painn_bwd`` in the backbone,
       the clean geometry's radius graph as both views' pair mask), whose
       whole-stack kernel must refuse autograd. Then one full-width
@@ -113,7 +113,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
       whole stack (``models/painn.stack_train_apply``: ``painn_stack_train``
       forward, ``painn_bwd`` per block in the backward), held to the
       per-block kernel step as above; a second order through it must
-      raise. The comparisons run on a freshly seeded DDM
+      raise (the JAX package has none either). The comparisons run on a freshly seeded DDM
       model: on the trained one, which differs from run to run in its last
       digits, which pre-activations sit within rounding of a relu's kink
       changes between runs, and in one of five runs kinks crossed by one
@@ -168,6 +168,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
       idle share) and, for SchNet, a ``top_ops:`` line that also lists
       the elementwise ``cos`` kernel: the envelope must be made once per
       forward (one ``cos`` launch per step).
+   f. The MD17 energy+force fine-tune at bucket 32:
+      ``train.finetune_md17.main`` at the published protocol
+      (``submit_finetune_md17_schnet.sh``: train batch 5, eval batch 128,
+      lr 5e-4, loss 0.05 L1(E) + 0.95 L1(F), forces -dE/dpos through the
+      model with a double backward) for 1 epoch of 2,400 synthetic frames
+      of aspirin's 21 atoms (split ``md17_split``: 1000 train, 1000 val,
+      400 test), once per backbone at full width from the DDM
+      ``model.pth`` of b: ``cfconv_fwd_sym``/``cfconv_bwd_sym`` (SchNet)
+      and ``painn_fwd``/``painn_bwd`` (PaiNN) must launch, losses and E/F
+      MAEs be finite. One step on a freshly seeded net must launch the
+      forward kernel once per block and the backward kernel twice (the
+      force, then the loss's backward through it; the second order runs
+      as autograd over the plain backward) and nothing else, and is held
+      to the plain step (tolerances as in b). The best ``model.pth``
+      through ``Predictor.predict_forces`` (the per-block kernels and
+      their backwards, nothing else) on the test split: energies and
+      forces held to the plain path on the same weights within rtol 1e-4
+      and atol 1e-5 times their largest magnitude. Then the ``md17:``
+      line (train frames/s, median of 3 untraced steps; eval and
+      predict_forces frames/s; one traced step's device ms, port-kernel
+      ms and idle share; the E/F MAEs) and its ``top_ops:`` line. Last,
+      the four second orders (``cfconv_bwd``, ``cfconv_bwd_sym``,
+      ``painn_bwd``, ``painn_bwd_sym``'s) at the MD17 shape: a force
+      loss's gradients to the positions and block 0's inputs through each
+      kernel Function (its forward once, its backward twice) against
+      autograd through the plain chain, elementwise at rtol 1e-4 and
+      atol 1e-5 times each tensor's largest magnitude.
 4. Measurements: serving mol/s per bucket (steady state, synchronized) and
    one traced pass per bucket (torch.profiler: device busy time, the
    port's kernels' share, idle share); training mol/s per bucket (median of
@@ -211,7 +238,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 The line before the last is the kernel table as JSON (thirteen kernels,
 every Pallas kernel of the JAX package; ``qm9_launches``: each kernel's
-launches over both QM9 epochs of phase 3e); the last line is
+launches over both QM9 epochs of phase 3e; ``md17_launches``: each
+kernel's launches in one MD17 training step of phase 3f, both backbones;
+``second_order``: how a backward kernel's Function is differentiated); the
+last line is
 ``{"ok": true, "device": {...}}``. The whole output is also written to
 ``runs/chip_smoke.log``.
 """
@@ -232,6 +262,10 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 SEED = 0
+# the backward kernels whose Function takes a double backward, and how
+SECOND_ORDER = dict.fromkeys(
+    ("cfconv_bwd", "cfconv_bwd_sym", "painn_bwd", "painn_bwd_sym"),
+    "autograd over the plain backward (the JAX package's XLA *_bwd_bwd)")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1077,16 +1111,6 @@ def qm9_path(dev, model_3d, pretrained, kernels, stack_kernel):
     val_loader = BucketedLoader(splits[1], args.batch_size, buckets,
                                 shuffle=False)
 
-    def median_s(fn):
-        fn()  # warm-up
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        return sorted(times)[1]
-
     device_profile(step)  # profiler start-up
     train_s, eval_s = median_s(step), median_s(lambda: evaluate(net, val_loader))
     wall, busy, ours = device_profile(step)
@@ -1107,6 +1131,281 @@ def qm9_path(dev, model_3d, pretrained, kernels, stack_kernel):
                  "kernels (the envelope is made once per forward)")
         print("qm9 schnet: one cos kernel per forward (the envelope)")
     return counts
+
+
+def median_s(fn):
+    """Median of 3 synchronized calls of fn after a warm-up, seconds."""
+    import torch
+
+    fn()  # warm-up
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[1]
+
+
+# MD17 at the published protocol (scripts/finetune/
+# submit_finetune_md17_schnet.sh: train batch 5, eval batch 128, lr 5e-4,
+# loss 0.05 L1(E) + 0.95 L1(F); task aspirin), cut to 2,400 synthetic frames
+# of aspirin's 21 atoms (split 1000/1000/400; aspirin has 211,762 frames)
+# and 1 epoch (1000 published), at bucket 32
+MD17_FLAGS = ["--synthetic", "--synthetic_size", "2400", "--epochs", "1",
+              "--task", "aspirin", "--bucket", "32"]
+
+
+def plain_forces(pred, store, chunk=128):
+    """(energies [M], forces [sum_N, 3]) of the Predictor's weights through
+    the plain versions (``model.forward(plain=True)`` and autograd), chunk
+    by chunk in store order; every molecule has its bucket's atoms or
+    fewer."""
+    import torch
+
+    from geossl_tpu_torch.data.bucketing import pack_batch
+    from geossl_tpu_torch.train import finetune_md17 as FM
+    from geossl_tpu_torch.train.finetune_lba import LBANet
+
+    net = LBANet(pred.model, pred.head, plain=True)
+    es, fs = [], []
+    for s in range(0, len(store), chunk):
+        recs = [store.get(i) for i in range(s, min(s + chunk, len(store)))]
+        batch = pack_batch(recs, pred.bucket_sizes[0]).to(pred.device)
+        e, f = FM.energy_and_force(net, batch)
+        es.append(e.detach() * pred.y_std + pred.y_mean)
+        fs.append(f[batch.node_mask])
+    return torch.cat(es), torch.cat(fs)
+
+
+def check_forces(what, got, want):
+    """predict_forces against the plain path: rtol RTOL, atol ATOL times
+    the largest |want| (forces sum over every block's pair terms)."""
+    import torch
+
+    got = torch.as_tensor(got, device=want.device)
+    err = (got - want).abs().max().item()
+    atol = ATOL * want.abs().max().item()
+    if got.shape != want.shape or not torch.isfinite(got).all() or \
+            not (got - want).abs().le(atol + RTOL * want.abs()).all():
+        fail(f"{what}: max_abs_err {err:.3e} beyond rtol {RTOL} atol "
+             f"{atol:.3e} (shapes {tuple(got.shape)}, {tuple(want.shape)})")
+    print(f"{what}: max_abs_err {err:.3e} (rtol {RTOL}, atol {atol:.3e})")
+
+
+def second_order_chain(op, pair_of, pos, mask, ins):
+    """Gradients to the positions and ``ins`` of a force loss through
+    ``op(*pair_of(pos, mask), *ins)``: E = sum tanh(messages), F =
+    -dE/dpos with a graph, loss = E + sum F^2 (the MD17 step's double
+    backward through one op)."""
+    import torch
+
+    pos = pos.detach().clone().requires_grad_(True)
+    ins = [t.detach().clone().requires_grad_(True) for t in ins]
+    out = op(*pair_of(pos, mask), *ins)
+    out = torch.cat(out, -1) if isinstance(out, tuple) else out
+    e = torch.tanh(out).sum()
+    (grad,) = torch.autograd.grad(e, pos, create_graph=True)
+    loss = e + (grad * grad).sum()
+    return torch.autograd.grad(loss, [pos] + ins)
+
+
+def check_second_orders(batch, net_s, net_p):
+    """The four second orders (#2, #4, #9, #11's: autograd over the plain
+    backward) on the card at MD17's training shape, block 0's inputs of
+    each backbone: the force loss's gradients through each kernel Function
+    against autograd through the plain chain, each tensor elementwise at
+    rtol RTOL and atol ATOL times its largest magnitude."""
+    import torch
+
+    from geossl_tpu_torch.ops import cfconv as K
+    from geossl_tpu_torch.ops import painn as P
+    from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
+
+    m = net_s.model
+    blk = m.interactions[0]
+    g, cut = m.num_gaussians, m.cutoff
+    with torch.no_grad():
+        x = blk.conv.lin1(m.embedding(batch.atom_type))
+
+    def schnet_pair(pos, mask):
+        dist, adj = m.geometry(pos, mask)
+        return dist, m.envelope(dist, adj)
+
+    p = net_p.model
+    wk, bk = p.filter_weights()[0]
+    with torch.no_grad():
+        xp = p.interactions[0].interatomic_context_net(p.embed(batch.atom_type))
+        gen = torch.Generator(xp.device).manual_seed(SEED)
+        mu = 0.1 * torch.randn(xp.shape, generator=gen, device=xp.device)
+
+    def painn_pair(pos, mask):
+        dist, direction, gate = p.geometry(pos, mask)
+        return (dist, gate, *(direction[..., c].contiguous() for c in range(3)))
+
+    cases = [
+        ("cfconv_bwd", "cfconv_fwd", schnet_pair, (x, *blk.filter_weights()),
+         lambda *a: K.cfconv_fused(*a, 0.0, cut, g),
+         lambda *a: K.cfconv_fused_reference(*a, 0.0, cut, g)),
+        ("cfconv_bwd_sym", "cfconv_fwd_sym", schnet_pair,
+         (x, *blk.filter_weights()),
+         lambda *a: K.cfconv_fused_sym(*a, 0.0, cut, g),
+         lambda *a: K.cfconv_fused_reference(*a, 0.0, cut, g)),
+        ("painn_bwd", "painn_fwd", painn_pair, (xp, mu, wk, bk),
+         lambda *a: P.painn_message_fused(*a, p.cutoff),
+         lambda *a: P.painn_message_reference(*a, p.cutoff)),
+        ("painn_bwd_sym", "painn_fwd_sym", painn_pair, (xp, mu, wk, bk),
+         lambda *a: P.painn_message_fused_sym(*a, p.cutoff),
+         lambda *a: P.painn_message_reference(*a, p.cutoff)),
+    ]
+    names = ("positions", "x", "W1/mu", "b1/Wk", "W2/bk", "b2")
+    for bwd, fwd, pair_of, ins, op, ref in cases:
+        reset_launch_counts()
+        got = second_order_chain(op, pair_of, batch.positions,
+                                 batch.node_mask, ins)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if (counts[fwd], counts[bwd]) != (1, 2):
+            fail(f"second order through {fwd}: launches {fwd} "
+                 f"{counts[fwd]}, {bwd} {counts[bwd]} (want 1 and 2)")
+        want = second_order_chain(ref, pair_of, batch.positions,
+                                  batch.node_mask, ins)
+        errs = []
+        for name, a, w in zip(names, got, want):
+            err = (a - w).abs().max().item()
+            atol = ATOL * w.abs().max().item()
+            errs.append(f"{name} {err:.2e}")
+            if not torch.isfinite(a).all() or \
+                    not (a - w).abs().le(atol + RTOL * w.abs()).all():
+                fail(f"second order of {bwd} at MD17 B={x.shape[0]} N="
+                     f"{x.shape[1]}: d{name} max_abs_err {err:.3e} beyond "
+                     f"rtol {RTOL} atol {atol:.3e}")
+        print(f"second order of {bwd} (MD17 B={x.shape[0]} N={x.shape[1]}, "
+              f"{fwd} once, {bwd} twice): max_abs_err " + ", ".join(errs))
+
+
+def md17_path(dev, model_3d, pretrained, kernels):
+    """Phase 3f for one backbone: ``finetune_md17.main`` for one epoch from
+    the DDM ``model.pth`` (launch counts, finite losses and MAEs), one step
+    on a freshly seeded net (the forward kernel once per block, the
+    backward kernel twice) held to the plain step, the best ``model.pth``
+    through ``Predictor.predict_forces`` on the test split against the
+    plain path's energies and forces, and the ``md17:`` line. Returns
+    (the step's launch counts, the seeded net, its first batch)."""
+    import math
+
+    import torch
+
+    from geossl_tpu_torch.data.bucketing import BucketedLoader
+    from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
+    from geossl_tpu_torch.serve import Predictor
+    from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.train import finetune_md17 as FM
+
+    run_dir = os.path.join(ROOT, "runs", f"chip_smoke_md17_{model_3d}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = MD17_FLAGS + ["--model_3d", model_3d, "--input_model_file",
+                         pretrained, "--output_model_dir", run_dir,
+                         "--device", str(dev)]
+    reset_launch_counts()
+    t0 = time.time()
+    _, best, (test_e, test_f), losses = FM.main(argv)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"main path (md17 fine-tune, {model_3d}): {len(losses)} steps and "
+          f"one val/test pass in {time.time() - t0:.2f} s (first call); "
+          f"launches {counts}")
+    for name in kernels:
+        if counts[name] == 0:
+            fail(f"kernel {name} was not launched on the MD17 {model_3d} path")
+    if not losses or not all(math.isfinite(v) for v in losses) or \
+            not all(math.isfinite(v) for v in (best, test_e, test_f)):
+        fail(f"md17 {model_3d}: losses {losses[:4]}..., best val F MAE "
+             f"{best}, test E/F MAE {test_e}/{test_f}")
+    print(f"md17 {model_3d}: {len(losses)} finite losses, first "
+          f"{losses[:3]}, last {losses[-3:]}; best val F MAE {best}; test "
+          f"E/F MAE {test_e}/{test_f}")
+
+    # one step on a freshly seeded net and the first training batch (5
+    # frames at bucket 32): its launches, then the plain step
+    args = FM.build_parser().parse_args(argv)
+    cfg = common.model_config_from_args(args)
+    buckets = common.buckets(args)
+    splits = FM.load_splits(args)
+    n_blocks = (cfg.schnet.num_interactions if model_3d == "schnet"
+                else cfg.painn.n_interactions)
+    net = FM.make_net(args, cfg, torch.Generator().manual_seed(SEED)).to(dev)
+    loss_fn = FM.make_loss_fn(args.md17_energy_coeff, args.md17_force_coeff)
+    train = BucketedLoader(splits[0], args.MD17_train_batch_size, buckets,
+                           seed=SEED, with_forces=True)
+    batch = next(iter(train.epoch(1))).to(dev)
+    reset_launch_counts()
+    loss_k, grads_k = grads_in_chunks(net, batch,
+                                      lambda sb, sl: loss_fn(net, sb))
+    torch.cuda.synchronize()
+    step_counts = {k: v for k, v in launch_counts().items() if v}
+    fwd, bwd = kernels
+    if step_counts != {fwd: n_blocks, bwd: 2 * n_blocks}:
+        fail(f"md17 {model_3d}: one step launched {step_counts}; want {fwd} "
+             f"{n_blocks} and {bwd} {2 * n_blocks} times")
+    print(f"md17 {model_3d} step launches: {step_counts} ({n_blocks} blocks: "
+          "the forward once, the backward for the force and again in the "
+          "loss's backward)")
+    net.plain = True
+    loss_p, grads_p = grads_in_chunks(net, batch,
+                                      lambda sb, sl: loss_fn(net, sb))
+    net.plain = False
+    check_step_parity(f"MD17-{model_3d} step parity bucket "
+                      f"{batch.max_atoms}", loss_k, grads_k, loss_p, grads_p)
+
+    # the best model.pth served: energies and forces of the test split
+    # through predict_forces (per-block kernels and their backwards)
+    # against the plain path on the same weights
+    test = splits[2]
+    pred = Predictor.from_checkpoint(os.path.join(run_dir, "model.pth"), cfg,
+                                     batch_size=args.eval_batch_size,
+                                     bucket_sizes=buckets, device=dev)
+    reset_launch_counts()
+    energies, forces = pred.predict_forces(test)
+    torch.cuda.synchronize()
+    served = {k: v for k, v in launch_counts().items() if v}
+    if set(served) != set(kernels):
+        fail(f"md17 {model_3d}: predict_forces launched {served}; want "
+             f"{kernels} only")
+    e_p, f_p = plain_forces(pred, test)
+    check_forces(f"md17 {model_3d} predict_forces: {len(test)} test energies",
+                 energies, e_p)
+    check_forces(f"md17 {model_3d} predict_forces: {forces.shape[0]} test "
+                 "atoms' forces", forces, f_p)
+
+    # throughput: optimizer steps and eval passes, untraced, then one
+    # traced step
+    opt, sched = common.make_optimizer_from_args(args, net.parameters(), 100)
+    frames = int(batch.graph_mask.sum())
+
+    def step():
+        return common.finetune_step(net, opt, sched, [batch], loss_fn)
+
+    evaluate = FM.make_evaluate(dev)
+    val_loader = BucketedLoader(splits[1], args.eval_batch_size, buckets,
+                                shuffle=False, with_forces=True)
+    device_profile(step)  # profiler start-up
+    train_s = median_s(step)
+    eval_s = median_s(lambda: evaluate(net, val_loader))
+    serve_s = median_s(lambda: pred.predict_forces(test))
+    wall, busy, ours = device_profile(step)
+    print("md17: " + json.dumps({
+        "model": model_3d, "bucket": batch.max_atoms, "frames": frames,
+        "epoch_steps": len(losses), "s_per_step": train_s,
+        "train_frames_per_s": frames / train_s,
+        "eval_frames": len(splits[1]), "eval_frames_per_s":
+        len(splits[1]) / eval_s, "predict_forces_frames_per_s":
+        len(test) / serve_s, "device_ms_per_step": busy * 1e3,
+        "port_kernels_ms": ours * 1e3, "other_device_ms": (busy - ours) * 1e3,
+        "traced_wall_ms": wall * 1e3, "idle_share": 1.0 - busy / wall,
+        "best_val_f_mae": best, "test_e_mae": test_e, "test_f_mae": test_f}))
+    print_top_ops(step, model_3d, "finetune_md17", batch.max_atoms)
+    return step_counts, net, batch
 
 
 def rel_norm(a, b):
@@ -1532,18 +1831,8 @@ def main():
              "gradient through cfconv_bwd_sym")
     print("gradient flows through cfconv_fwd_sym: cfconv_bwd_sym launched, "
           "x and the filter weights get finite nonzero gradients")
-
-    def sym_double_backward():
-        xx = x256.clone().requires_grad_(True)
-        out = K.cfconv_fused_sym(d256, e256, xx, *filt_g, 0.0, cutoff, G, True)
-        (gx,) = torch.autograd.grad(out.square().sum(), xx, create_graph=True)
-        gx.sum().backward()
-
-    msg = refuses_grad(sym_double_backward)
-    if msg is None:
-        fail("a double backward through cfconv_fwd_sym on CUDA did not raise")
-    print(f"grad guard cfconv_bwd_sym (second order): {msg}")
-    # the NCSN head's Function is first order only as well
+    # the NCSN head's Function is first order only (so is the JAX
+    # package's); the CFConv and PaiNN second orders are held in phase 3f
     ngrid, nweights, nanneal = ncsn_inputs(
         ddm0, pack_batch([sorted_store.get(int(i)) for i in first(32, 8)],
                          32).to(dev), targs, SEED)
@@ -1606,19 +1895,6 @@ def main():
     if msg is None:
         fail("painn_stack under autograd on CUDA did not raise")
     print(f"grad guard painn_stack: {msg}")
-    x_g = torch.randn(2, 128, 3 * 128, device=dev, requires_grad=True)
-    mu_g = torch.randn(2, 128, 3 * 128, device=dev)
-    wk_g, bk_g = (t.detach() for t in model_p.filter_weights()[0])
-
-    def double_backward():
-        dq, _ = P.painn_message_fused(*grids128, x_g, mu_g, wk_g, bk_g, cut_p)
-        (gx,) = torch.autograd.grad(dq.sum(), x_g, create_graph=True)
-        gx.sum().backward()
-
-    msg = refuses_grad(double_backward)
-    if msg is None:
-        fail("a double backward through painn_fwd on CUDA did not raise")
-    print(f"grad guard painn_bwd (second order): {msg}")
 
     # -- 3b''. main path: DDM-PaiNN through the differentiable whole stack -------
     # both views through models/painn.stack_train_apply (painn_stack_train:
@@ -1849,6 +2125,19 @@ def main():
         for name, n in qm9_path(dev, model_3d, pre, path_kernels,
                                 stack_kernel).items():
             qm9_launches[name] = qm9_launches.get(name, 0) + n
+
+    # -- 3f. main path: the MD17 energy+force fine-tune at bucket 32 ------------
+    # each kernel's launches per training step (the kernel table's
+    # md17_launches), then the four second orders at the MD17 shape
+    md17_launches, md17_nets = {}, {}
+    for model_3d, pre, path_kernels in (
+            ("schnet", pretrained, ("cfconv_fwd_sym", "cfconv_bwd_sym")),
+            ("painn", os.path.join(out_dir_p, "model.pth"),
+             ("painn_fwd", "painn_bwd"))):
+        step_counts, md17_nets[model_3d], md17_batch = md17_path(
+            dev, model_3d, pre, path_kernels)
+        md17_launches.update(step_counts)
+    check_second_orders(md17_batch, md17_nets["schnet"], md17_nets["painn"])
 
     # -- 4. measurements -----------------------------------------------------------
     subs = {b: MolStore.from_records([sorted_store.get(int(i))
@@ -2468,6 +2757,8 @@ def main():
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": count, "qm9_launches": qm9_launches.get(name, 0),
+            "md17_launches": md17_launches.get(name, 0),
+            "second_order": SECOND_ORDER.get(name),
             "max_abs_err": errs.max_abs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",

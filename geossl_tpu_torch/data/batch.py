@@ -6,6 +6,8 @@
 * ``node_mask  [B, N] bool``  True for real atoms
 * ``graph_mask [B] bool``     True for real graphs, False for the empty slots
   that pad a partial batch
+* ``forces     [B, N, 3] float32`` MD17's force labels, 0 on padding (only
+  when the loader packs them)
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ class DenseMolBatch:
     node_mask: torch.Tensor
     y: Optional[torch.Tensor] = None  # [B, T]
     graph_mask: Optional[torch.Tensor] = None  # [B]
+    forces: Optional[torch.Tensor] = None  # [B, N, 3]
 
     @property
     def batch_size(self) -> int:

@@ -61,9 +61,11 @@ def bucket_chunks(bucket_of, batch_size, rng, shuffle=True):
 
 
 def pack_batch(records: Sequence[MolRecord], n_max: int,
-               batch_size: Optional[int] = None) -> DenseMolBatch:
+               batch_size: Optional[int] = None,
+               with_forces: bool = False) -> DenseMolBatch:
     """Pad molecules into one DenseMolBatch of CPU tensors;
-    ``batch_size > len(records)`` adds empty graph slots."""
+    ``batch_size > len(records)`` adds empty graph slots. ``with_forces``
+    packs the records' forces too (zeros where a record has none)."""
     b = batch_size or len(records)
     if len(records) > b:
         raise ValueError(f"{len(records)} records exceed batch_size {b}")
@@ -72,6 +74,7 @@ def pack_batch(records: Sequence[MolRecord], n_max: int,
     node_mask = np.zeros((b, n_max), bool)
     graph_mask = np.zeros((b,), bool)
     ys = None
+    forces = np.zeros((b, n_max, 3), np.float32) if with_forces else None
     for i, r in enumerate(records):
         n = r.num_atoms
         atom_type[i, :n] = r.atom_type
@@ -82,12 +85,15 @@ def pack_batch(records: Sequence[MolRecord], n_max: int,
             if ys is None:
                 ys = np.zeros((b, np.atleast_1d(r.y).shape[0]), np.float32)
             ys[i] = np.atleast_1d(r.y)
+        if with_forces and r.forces is not None:
+            forces[i, :n] = r.forces
     return DenseMolBatch(
         atom_type=torch.from_numpy(atom_type).long(),
         positions=torch.from_numpy(positions),
         node_mask=torch.from_numpy(node_mask),
         y=None if ys is None else torch.from_numpy(ys),
         graph_mask=torch.from_numpy(graph_mask),
+        forces=None if forces is None else torch.from_numpy(forces),
     )
 
 
@@ -98,18 +104,21 @@ class BucketedLoader:
     fine-tunes' eval loaders). One epoch is deterministic per
     ``(seed, epoch)``: the same NumPy stream as the JAX package's loader
     (no dropped batches) feeds the shuffle and then the transform (e.g. BFS
-    masking)."""
+    masking). ``with_forces`` packs MD17's forces into each batch (the JAX
+    loader's flag, which also turns its C++ packer off; the port packs in
+    NumPy either way)."""
 
     def __init__(self, store: MolStore, batch_size: int,
                  bucket_sizes: Sequence[int], seed: int = 0,
                  transform: Optional[Callable[[MolRecord, np.random.Generator],
                                               MolRecord]] = None,
-                 shuffle: bool = True):
+                 shuffle: bool = True, with_forces: bool = False):
         self.store = store
         self.batch_size = batch_size
         self.seed = seed
         self.transform = transform
         self.shuffle = shuffle
+        self.with_forces = with_forces
         self._bucket_of = assign_buckets(store.num_atoms(), sorted(bucket_sizes))
 
     def __len__(self) -> int:
@@ -124,4 +133,5 @@ class BucketedLoader:
             records = [self.store.get(int(i)) for i in chunk]
             if self.transform is not None:
                 records = [self.transform(r, rng) for r in records]
-            yield pack_batch(records, bucket, self.batch_size)
+            yield pack_batch(records, bucket, self.batch_size,
+                             self.with_forces)

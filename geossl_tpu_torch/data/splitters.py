@@ -1,8 +1,8 @@
 """Dataset splits as index arrays (the port's own copy of the QM9 splits,
 ``random_split`` and ``atom3d_lba_split`` from
 ``geossl_tpu/data/splitters.py``; reference ``examples/splitters.py``). Each
-returns (train_idx, valid_idx, test_idx) over a store. The MD17, scaffold
-and identity splits come with their drivers."""
+returns (train_idx, valid_idx, test_idx) over a store. The MD17 split is
+``md17_split``; the scaffold and identity splits come with their drivers."""
 
 from __future__ import annotations
 
@@ -58,6 +58,21 @@ def random_split(num_mols: int, frac_train: float = 0.8,
     n_valid = int(frac_valid * num_mols)
     return (all_idx[:n_train], all_idx[n_train:n_train + n_valid],
             all_idx[n_train + n_valid:])
+
+
+def md17_split(num_frames: int, train_size: int = 1000,
+               valid_size: int = 1000, seed: int = 42) -> Split:
+    """Shuffled 1000 train / 1000 valid / the rest test
+    (``datasets_MD17.py:78-82``, sizes ``finetune_md17.py:171``): one
+    ``np.random.RandomState(seed)`` permutation; a store of at most
+    ``train_size + valid_size`` frames (a synthetic one) is cut 40% / 30% /
+    the rest instead."""
+    ids = np.random.RandomState(seed).permutation(num_frames)
+    if num_frames <= train_size + valid_size:
+        train_size = max(1, int(num_frames * 0.4))
+        valid_size = max(1, int(num_frames * 0.3))
+    return (ids[:train_size], ids[train_size:train_size + valid_size],
+            ids[train_size + valid_size:])
 
 
 def atom3d_lba_split(data_root: str, year: int = 2020) -> Split:

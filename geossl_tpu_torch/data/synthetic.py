@@ -66,6 +66,34 @@ def synthetic_molecule3d(num_molecules: int = 512, seed: int = 1,
                          max_atoms=max_atoms)
 
 
+def synthetic_md17(num_frames: int = 128, n_atoms: int = 21,
+                   seed: int = 0) -> MolStore:
+    """MD17 stand-in: one molecule in many perturbed frames, with the energy
+    sum_pairs exp(-d/2) and its analytic forces -dE/dpos (consistent with
+    the force the drivers take by autograd)."""
+    rng = np.random.default_rng(seed)
+    template = _random_molecule(rng, n_atoms)
+    records = []
+    for _ in range(num_frames):
+        pos = template.positions + rng.normal(
+            scale=0.1, size=(n_atoms, 3)).astype(np.float32)
+        diff = pos[:, None] - pos[None, :]
+        d = np.linalg.norm(diff, axis=-1)
+        np.fill_diagonal(d, 1.0)
+        e_pair = np.exp(-d / 2.0)
+        np.fill_diagonal(e_pair, 0.0)
+        energy = 0.5 * float(e_pair.sum())
+        # dE/dpos_i = sum_j (-1/2) exp(-d/2) (pos_i - pos_j) / d
+        grad = ((-0.5 * e_pair / d)[..., None] * diff).sum(axis=1)
+        records.append(MolRecord(
+            atom_type=template.atom_type.copy(), positions=pos,
+            chirality=template.chirality.copy(),
+            bond_index=template.bond_index.copy(),
+            y=np.asarray([energy], np.float32),
+            forces=(-grad).astype(np.float32)))
+    return MolStore.from_records(records)
+
+
 def synthetic_lba(num_complexes: int = 64, seed: int = 2,
                   max_atoms: int = 400) -> MolStore:
     """LBA stand-in: large pocket+ligand complexes with logKd-like labels."""

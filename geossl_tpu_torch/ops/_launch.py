@@ -67,11 +67,11 @@ def refuse_grad(name: str, missing: str, *tensors) -> None:
 def refuse_second_order(name: str) -> None:
     """Raise ``NotImplementedError`` in the backward of a first-order
     autograd Function when autograd asks it to build a graph (a double
-    backward, as MD17 force training takes)."""
+    backward)."""
     if torch.is_grad_enabled():
         raise NotImplementedError(
-            f"{name} is first order only: the double backward that MD17 "
-            "force training needs is not ported")
+            f"{name} is first order only: it has no double backward (nor "
+            "has its counterpart in the JAX package)")
 
 
 def ptr(t):

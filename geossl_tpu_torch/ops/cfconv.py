@@ -23,8 +23,11 @@ Kernels:
   under autograd on a CUDA device instead of returning a tensor cut off
   from the graph; with ``symmetric`` one filter per unordered pair
 
-The two CFConv Functions are first order only: a double backward on CUDA
-(MD17 force training) raises ``NotImplementedError``.
+The two CFConv Functions take a double backward (MD17's force training):
+their backward is itself a Function (``_CFConvBwd``) whose forward launches
+the backward kernel and whose backward is :func:`cfconv_bwd_bwd` /
+:func:`cfconv_bwd_sym_bwd`, autograd over the plain backward, as the JAX
+package's XLA ``_cfconv_bwd_bwd`` / ``_cfconv_sym_bwd_bwd``.
 
 Every kernel runs its tile products (the stack also its dense layers) on
 the tensor cores in 3xTF32 (``csrc/mma_tf32.cuh``), within f32 rounding of
@@ -51,7 +54,6 @@ from geossl_tpu_torch.ops._launch import (
     on_cpu,
     ptr,
     refuse_grad,
-    refuse_second_order,
     stream,
 )
 
@@ -137,6 +139,32 @@ def place_sym_cotangent(c, antisymmetric=False):
                        torch.where(diag, c, torch.zeros_like(c)))
 
 
+def second_order(reference, primals, n_first, cts, pair_places=()):
+    """The VJP of a plain first-order backward, the second order of the
+    kernels' Functions (``jax.vjp`` of ``ref_grads`` in the JAX package's
+    ``*_bwd_bwd``). ``reference(*primals[:n_first])`` is the plain forward
+    and ``primals[n_first:]`` its output cotangents; the first-order
+    backward is autograd over it, its outputs the cotangents of
+    ``primals[:n_first]``; ``pair_places`` maps some of those outputs'
+    indices to ``place_sym_cotangent``'s ``antisymmetric`` flag (a
+    symmetric kernel's placed pair cotangents), so that the placement's
+    transpose reaches ``cts``. Returns the cotangents of ``primals``, zeros
+    where nothing flows; differentiable in turn when grad mode is on."""
+    outer = torch.is_grad_enabled()
+    with torch.enable_grad():
+        ins = [t if outer and t.requires_grad
+               else t.detach().requires_grad_(True) for t in primals]
+        out = reference(*ins[:n_first])
+        first = list(torch.autograd.grad(out, ins[:n_first], ins[n_first:],
+                                         create_graph=True))
+        for k, anti in dict(pair_places).items():
+            first[k] = place_sym_cotangent(first[k], anti)
+        grads = torch.autograd.grad(first, ins, cts, allow_unused=True,
+                                    create_graph=outer)
+    return tuple(torch.zeros_like(t) if d is None else d
+                 for t, d in zip(primals, grads))
+
+
 def schnet_stack_reference(dist, env, h0, stacked, start, stop, num_g):
     """Plain whole-stack chain, the math of ``_stack_kernel`` (RBF hoisted,
     lin1 without bias, residual ``h + lin(ssp(lin2(m)))``)."""
@@ -209,7 +237,8 @@ def _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
 class _CFConv(torch.autograd.Function):
     """``cfconv_fwd`` forward, ``cfconv_bwd`` backward, or with ``symmetric``
     both in symmetric mode (``cfconv_bwd_sym``: ddist/denv placed, exact
-    upstream of symmetric dist/env). First order only."""
+    upstream of symmetric dist/env). The backward runs through
+    ``_CFConvBwd``, so a double backward reaches the second order."""
 
     @staticmethod
     def forward(ctx, dist, env, x, w1, b1, w2, b2, start, stop, num_g,
@@ -222,11 +251,57 @@ class _CFConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        bwd = cfconv_bwd_sym if ctx.symmetric else cfconv_bwd
-        refuse_second_order(bwd.__name__)
-        grads = bwd(*ctx.saved_tensors[:3], g.contiguous(),
-                    *ctx.saved_tensors[3:], *ctx.consts)
+        saved = ctx.saved_tensors
+        grads = _CFConvBwd.apply(*saved[:3], g.contiguous(), *saved[3:],
+                                 *ctx.consts, ctx.symmetric)
         return (*grads, None, None, None, None, None)
+
+
+class _CFConvBwd(torch.autograd.Function):
+    """The first-order backward as a differentiable function of (dist, env,
+    x, g, W1, b1, W2, b2): its forward is the ``cfconv_bwd`` kernel (with
+    ``symmetric``, ``cfconv_bwd_sym``), its backward :func:`cfconv_bwd_bwd`
+    (:func:`cfconv_bwd_sym_bwd`). It runs only where the forward ran the
+    kernel, so its tensors are on the card."""
+
+    @staticmethod
+    def forward(ctx, dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
+                sparse, symmetric):
+        ctx.save_for_backward(dist, env, x, g, w1, b1, w2, b2)
+        ctx.consts = (start, stop, num_g)
+        ctx.symmetric = symmetric
+        bwd = cfconv_bwd_sym if symmetric else cfconv_bwd
+        return bwd(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
+                   sparse)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        second = cfconv_bwd_sym_bwd if ctx.symmetric else cfconv_bwd_bwd
+        grads = second(*ctx.saved_tensors, cts, *ctx.consts)
+        return (*grads, None, None, None, None, None)
+
+
+def cfconv_bwd_bwd(dist, env, x, g, w1, b1, w2, b2, cts, start, stop, num_g,
+                   _places=()):
+    """Second order of :func:`cfconv_bwd`: for the cotangents ``cts`` of its
+    seven outputs, the cotangents of (dist, env, x, g, W1, b1, W2, b2), by
+    autograd over :func:`cfconv_fused_reference` (JAX
+    ``cfconv_pallas._cfconv_bwd_bwd``). Materializes the [B,N,N,F] filter
+    grid."""
+    d = second_order(lambda *a: cfconv_fused_reference(*a, start, stop, num_g),
+                     (dist, env, x, w1, b1, w2, b2, g), 7, cts, _places)
+    return (*d[:3], d[7], *d[3:7])
+
+
+def cfconv_bwd_sym_bwd(dist, env, x, g, w1, b1, w2, b2, cts, start, stop,
+                       num_g):
+    """Second order of :func:`cfconv_bwd_sym`, whose ddist/denv come back
+    placed: :func:`cfconv_bwd_bwd` with the placement's transpose applied to
+    the ddist/denv cotangents (JAX ``cfconv_pallas._cfconv_sym_bwd_bwd``).
+    The two agree on the symmetric cotangents a chain through the positions
+    gives."""
+    return cfconv_bwd_bwd(dist, env, x, g, w1, b1, w2, b2, cts, start, stop,
+                          num_g, {0: False, 1: False})
 
 
 @counted("cfconv_fwd")

@@ -37,9 +37,14 @@ Kernels:
   differentiable: its backward runs the per-block chain, with ``painn_bwd``
   for each message pass
 
-The two message-pass Functions and the stack's are first order only: the
-JAX package's second-order path (MD17 forces) is not ported, and a double
-backward raises NotImplementedError. ``painn_fwd``, ``painn_bwd`` and
+The two message-pass Functions take a double backward (MD17's force
+training): their backward is itself a Function (``_PaiNNBwd``) whose
+forward launches the backward kernel and whose backward is
+:func:`painn_bwd_bwd` / :func:`painn_bwd_sym_bwd`, autograd over the plain
+backward, as the JAX package's XLA ``_painn_bwd_bwd`` /
+``_painn_sym_bwd_bwd``. The stack's Function is first order only, as the
+JAX package's: a double backward through it raises NotImplementedError.
+``painn_fwd``, ``painn_bwd`` and
 ``painn_stack`` run their products (the filter; the backward also dWk and
 dphi; the stack also its dense layers) on the tensor cores in 3xTF32
 (``csrc/mma_tf32.cuh``), within f32 rounding of the plain version; the
@@ -74,7 +79,7 @@ from geossl_tpu_torch.ops._launch import (
     refuse_second_order,
     stream,
 )
-from geossl_tpu_torch.ops.cfconv import KERNEL_F, sparse_auto
+from geossl_tpu_torch.ops.cfconv import KERNEL_F, second_order, sparse_auto
 
 # Largest N the whole-stack kernel accepts (as painn_pallas.STACK_MAX_N).
 STACK_MAX_N = 128
@@ -246,8 +251,8 @@ def _launch_painn_fwd(dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
 class _PaiNNMessage(torch.autograd.Function):
     """``painn_fwd`` forward, ``painn_bwd`` backward, or with ``symmetric``
     both in symmetric mode (``painn_bwd_sym``: the pair cotangents placed,
-    exact upstream of the positions). First order only: a backward that
-    builds a graph raises."""
+    exact upstream of the positions). The backward runs through
+    ``_PaiNNBwd``, so a double backward reaches the second order."""
 
     @staticmethod
     def forward(ctx, dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
@@ -260,11 +265,57 @@ class _PaiNNMessage(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gq, gmu):
-        bwd = painn_bwd_sym if ctx.symmetric else painn_bwd
-        refuse_second_order(bwd.__name__)
-        grads = bwd(*ctx.saved_tensors, gq.contiguous(), gmu.contiguous(),
-                    *ctx.consts)
+        grads = _PaiNNBwd.apply(*ctx.saved_tensors, gq.contiguous(),
+                                gmu.contiguous(), *ctx.consts, ctx.symmetric)
         return (*grads, None, None, None)
+
+
+class _PaiNNBwd(torch.autograd.Function):
+    """The first-order backward as a differentiable function of (dist, gate,
+    dirx, diry, dirz, x, mu, Wk, bk, gq, gmu): its forward is the
+    ``painn_bwd`` kernel (with ``symmetric``, ``painn_bwd_sym``), its
+    backward :func:`painn_bwd_bwd` (:func:`painn_bwd_sym_bwd`). It runs only
+    where the forward ran the kernel, so its tensors are on the card."""
+
+    @staticmethod
+    def forward(ctx, dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu,
+                cutoff, sparse, symmetric):
+        args = (dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu)
+        ctx.save_for_backward(*args)
+        ctx.cutoff = cutoff
+        ctx.symmetric = symmetric
+        bwd = painn_bwd_sym if symmetric else painn_bwd
+        return bwd(*args, cutoff, sparse)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        second = painn_bwd_sym_bwd if ctx.symmetric else painn_bwd_bwd
+        grads = second(*ctx.saved_tensors, cts, ctx.cutoff)
+        return (*grads, None, None, None)
+
+
+def painn_bwd_bwd(dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu, cts,
+                  cutoff, _places=()):
+    """Second order of :func:`painn_bwd`: for the cotangents ``cts`` of its
+    nine outputs, the cotangents of (dist, gate, dirx, diry, dirz, x, mu,
+    Wk, bk, gq, gmu), by autograd over :func:`painn_message_reference` (JAX
+    ``painn_pallas._painn_bwd_bwd``). Materializes the [B,N,N,3F] filter
+    grid."""
+    return second_order(lambda *a: painn_message_reference(*a, cutoff),
+                        (dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq,
+                         gmu), 9, cts, _places)
+
+
+def painn_bwd_sym_bwd(dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu,
+                      cts, cutoff):
+    """Second order of :func:`painn_bwd_sym`, whose pair cotangents come back
+    placed: :func:`painn_bwd_bwd` with the placement's transpose applied to
+    the cotangents of ddist and dgate and, antisymmetric, of the three ddir
+    (JAX ``painn_pallas._painn_sym_bwd_bwd``). The two agree on the
+    (anti)symmetric cotangents a chain through the positions gives."""
+    return painn_bwd_bwd(dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu,
+                         cts, cutoff,
+                         {0: False, 1: False, 2: True, 3: True, 4: True})
 
 
 @counted("painn_fwd")

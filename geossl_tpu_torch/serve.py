@@ -12,10 +12,13 @@
   order.
   Each packed batch is uploaded once; all results come back in one
   device-to-host copy at the end of a pass.
-* ``predict`` (scalar property, denormalized with ``y_mean``/``y_std``) and
-  ``embed`` (pooled graph representation).
+* ``predict`` (scalar property, denormalized with ``y_mean``/``y_std``),
+  ``embed`` (pooled graph representation) and ``predict_forces`` (MD17:
+  energies and forces ``-dE/dpos``, through the per-block kernels and
+  their first-order backwards at every bucket).
 * CLI: ``python -m geossl_tpu_torch.serve [--model_3d painn] --ckpt
-  model.pth --input store.npz --mode predict --output preds.csv``.
+  model.pth --input store.npz --mode predict|embed|forces --output
+  preds.csv``.
 
 Work runs on the CUDA device unless the caller passes ``device="cpu"``,
 where every kernel wrapper takes its plain PyTorch version.
@@ -112,12 +115,14 @@ class Predictor:
         init = torch.Generator().manual_seed(0)
         self.model = make_backbone(cfg, init)
         self.model.load_state_dict(state["model"])
-        self.model.to(self.device).eval()
+        # serving trains nothing: only predict_forces' positions take a
+        # gradient
+        self.model.to(self.device).eval().requires_grad_(False)
         self.head = None
         if state.get("graph_pred_linear") is not None:
             self.head = make_head(cfg.model_3d, cfg.emb_dim, init)
             self.head.load_state_dict(state["graph_pred_linear"])
-            self.head.to(self.device).eval()
+            self.head.to(self.device).eval().requires_grad_(False)
         self.y_mean = float(state.get("y_mean", 0.0) if y_mean is None
                             else y_mean)
         self.y_std = float(state.get("y_std", 1.0) if y_std is None
@@ -214,6 +219,38 @@ class Predictor:
 
         return self._run(store, fn, 1)[:, 0]
 
+    def predict_forces(self, store: MolStore):
+        """(energies [M], forces [sum_N, 3]): the denormalized prediction E
+        and ``-dE/dpos`` (MD17), in the store's order and flat atom layout
+        (no spatial sort). Every bucket goes through the per-block kernels,
+        whose first-order backwards give the position gradient (the
+        whole-stack kernels have none); no graph is kept for a second
+        order."""
+        self._require_head()
+        check_kernel_limits(self.cfg, self.device, backward=True)
+        energies = np.zeros(len(store), np.float32)
+        forces = np.zeros((int(store.offsets[-1]), 3), np.float32)
+        if len(store) == 0:
+            return energies, forces
+        idx, es, fs = [], [], []
+        for chunk, batch in self._batches(store):
+            pos = batch.positions.requires_grad_(True)
+            graph, _ = self.model(batch.atom_type, pos, batch.node_mask,
+                                  filters=self._filters)
+            e = self.head(graph) * self.y_std + self.y_mean
+            (grad,) = torch.autograd.grad(e.sum(), pos)
+            idx.append(chunk)
+            es.append(e.detach()[:len(chunk)])
+            fs.append(-grad[batch.node_mask])  # real atoms, molecule order
+        idx = np.concatenate(idx)
+        # one device-to-host copy of each; the atoms of the molecules idx
+        # land at their flat offsets
+        energies[idx] = torch.cat(es).cpu().numpy()
+        lens = store.offsets[idx + 1] - store.offsets[idx]
+        firsts = np.repeat(store.offsets[idx] - (np.cumsum(lens) - lens), lens)
+        forces[firsts + np.arange(lens.sum())] = torch.cat(fs).cpu().numpy()
+        return energies, forces
+
 
 # -- CLI -----------------------------------------------------------------------
 
@@ -234,7 +271,10 @@ def build_parser():
                         "configuration")
     p.add_argument("--input", required=True, help=".npz MolStore")
     p.add_argument("--output", default="-", help="CSV path or - for stdout")
-    p.add_argument("--mode", default="predict", choices=["predict", "embed"])
+    p.add_argument("--mode", default="predict",
+                   choices=["predict", "embed", "forces"],
+                   help="forces: one row per molecule, its index, energy "
+                        "and its atoms' forces (x,y,z joined by ';')")
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--bucket", type=int, nargs="+",
                    default=[32, 64, 128, 256, 512])
@@ -252,12 +292,20 @@ def main(argv=None):
         batch_size=args.batch_size, bucket_sizes=args.bucket,
         spatial_sort=args.spatial_sort, device=args.device)
     store = load_input_store(args.input)
-    rows = pred.predict(store) if args.mode == "predict" else pred.embed(store)
+    if args.mode == "forces":
+        rows, forces = pred.predict_forces(store)
+    else:
+        rows = (pred.predict if args.mode == "predict" else pred.embed)(store)
     out = sys.stdout if args.output == "-" else open(args.output, "w")
     try:
         for i, v in enumerate(rows):
             if args.mode == "predict":
                 out.write(f"{i},{v}\n")
+            elif args.mode == "forces":
+                s, t = store.offsets[i], store.offsets[i + 1]
+                fx = ";".join(f"{a:.6g},{b:.6g},{c:.6g}"
+                              for a, b, c in forces[s:t])
+                out.write(f"{i},{v},{fx}\n")
             else:
                 out.write(",".join([str(i)] + [f"{x:.6g}" for x in v]) + "\n")
     finally:

@@ -76,3 +76,23 @@ def pr_auc(labels: np.ndarray, scores: np.ndarray) -> float:
     precision = tp / n_at
     recall = tp / n_pos
     return float(np.sum(precision * np.diff(np.r_[0.0, recall])))
+
+
+# -- OC20-style energy and force metrics (``util.py:187-223``) ----------------
+# ``fixed_masks`` is 1.0 for the FREE atoms, [B, N]; forces are [B, N, 3].
+
+
+def energy_mae(pred_e: np.ndarray, e: np.ndarray) -> float:
+    """Sum-reduced L1 on energies (``util.py:189-190``)."""
+    return float(np.abs(np.asarray(pred_e) - np.asarray(e)).sum())
+
+
+def force_mae(pred_f: np.ndarray, f: np.ndarray,
+              fixed_masks: np.ndarray) -> float:
+    """Per-structure normalized, free-atom masked L1 force sum
+    (``util.py:192-196``): each atom's |df| summed over xyz, divided by its
+    structure's free-atom count, summed over the free atoms."""
+    m = np.asarray(fixed_masks, float)
+    n_free = m.sum(axis=-1, keepdims=True)
+    per_atom = np.abs(np.asarray(pred_f) - np.asarray(f)).sum(axis=-1)
+    return float((per_atom / n_free)[m.astype(bool)].sum())

@@ -352,12 +352,15 @@ def test_dispatch_rules_and_guards():
         tpn.painn_message(*big, torch.zeros(1, 256, 3 * F, device="meta"),
                           torch.zeros(1, 256, 3 * F, device="meta"), *meta[7:],
                           CUT, symmetric=True)
-    g = torch.zeros(1, 8, F)
+    gq, gmu = (torch.zeros(3, 24, w, device="meta") for w in (F, 3 * F))
     for sym, name in ((False, "painn_bwd"), (True, "painn_bwd_sym")):
-        ctx = SimpleNamespace(symmetric=sym)  # a double backward, both modes
+        # a double backward, both modes: its backward Function launches the
+        # kernel or raises, with no plain fallback
+        ctx = SimpleNamespace(symmetric=sym, saved_tensors=meta,
+                              consts=(CUT, False))
         with torch.enable_grad(), pytest.raises(
-                NotImplementedError, match=f"{name} is first order.*MD17"):
-            tpn._PaiNNMessage.backward(ctx, g, g)
+                ValueError, match=f"{name}: no kernel for device meta"):
+            tpn._PaiNNMessage.backward(ctx, gq, gmu)
     model = PaiNN(**SMALL)
     with pytest.raises(ValueError, match="per-block"):
         tpn.painn_stack_infer(*big, torch.zeros(1, 256, F),

@@ -287,5 +287,6 @@ def test_stack_train_refuses_second_order():
     pair, q0, stacked = _stack_inputs(np.float32)
     q0 = q0.clone().requires_grad_(True)
     q, _ = tpn.painn_stack_train(*pair, q0, stacked, CUT)
-    with pytest.raises(NotImplementedError, match="MD17"):
+    with pytest.raises(NotImplementedError,
+                       match="painn_stack_train is first order"):
         torch.autograd.grad(q.square().sum(), q0, create_graph=True)

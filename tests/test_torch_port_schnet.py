@@ -356,12 +356,18 @@ def test_sym_placement_keeps_position_gradients_f64(gated):
 
 @pytest.mark.parametrize("symmetric", [False, True])
 def test_cfconv_function_refuses_double_backward(symmetric):
-    """A backward asked to build a graph (MD17 forces) raises in both modes
-    of the CFConv Function, before its kernel would run."""
+    """A backward asked to build a graph (MD17 forces) goes through the
+    backward Function in both modes of the CFConv Function, which launches
+    the kernel or raises: on a device without one it refuses, with no plain
+    fallback."""
     from types import SimpleNamespace
 
-    ctx = SimpleNamespace(symmetric=symmetric)
+    f = tcf.KERNEL_F
+    saved = [torch.zeros(s, device="meta") for s in
+             ((1, 8, 8), (1, 8, 8), (1, 8, f), (8, f), (f,), (f, f), (f,))]
+    ctx = SimpleNamespace(symmetric=symmetric, saved_tensors=saved,
+                          consts=(0.0, 5.0, 8, False))
     name = "cfconv_bwd_sym" if symmetric else "cfconv_bwd"
-    with torch.enable_grad(), pytest.raises(NotImplementedError,
-                                            match=f"{name} is first order"):
-        tcf._CFConv.backward(ctx, torch.zeros(1, 8, tcf.KERNEL_F))
+    with torch.enable_grad(), pytest.raises(
+            ValueError, match=f"{name}: no kernel for device meta"):
+        tcf._CFConv.backward(ctx, torch.zeros(1, 8, f, device="meta"))
