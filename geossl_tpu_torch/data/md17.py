@@ -1,5 +1,6 @@
-"""MD17 dataset builder (the port's copy of ``geossl_tpu/data/md17.py``;
-reference ``Geom3D/datasets/datasets_MD17.py:16-82``).
+"""The MD17 dataset: its build from the raw npz and its cache (the port's
+copy of ``geossl_tpu/data/md17.py``; reference
+``Geom3D/datasets/datasets_MD17.py:16-82``).
 
 Raw input: ``md17_<task>.npz`` or ``<task>_dft.npz`` (quantum-machine.org)
 under ``<root>/raw``, with per-frame positions ``R``, energies ``E``, forces
