@@ -195,6 +195,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
       kernel Function (its forward once, its backward twice) against
       autograd through the plain chain, elementwise at rtol 1e-4 and
       atol 1e-5 times each tensor's largest magnitude.
+   g. The pretraining objectives beyond DDM, per backbone at full width
+      (SchNet F=128, L=6, G=51; PaiNN's defaults): ``pretrain_geossl``'s
+      InfoNCE, EBM_NCE and RR and ``pretrain_baselines``' supervised,
+      charge, distance, torsion, infograph and contextpred, at the drivers'
+      defaults. First, for each, one step at bucket 128 (B=128, the DDM
+      training batch) of a freshly seeded module with kernels against the
+      same step with the plain versions, the same seeded draws (the
+      perturbed view; charge's, torsion's and contextpred's draws) and
+      weights; the plain step runs its backbones in chunks of 16 graphs
+      under activation checkpointing (the contrastive losses couple the
+      whole batch, so the step is not split); tolerances as in b, and
+      RR's BatchNorm statistics after the step elementwise at rtol 1e-4 /
+      atol 1e-5. Then contextpred's substruct and context node masks on
+      that batch (holes in the middle of a graph, not a prefix of its
+      atoms): ``cfconv_fwd_sym``/``cfconv_bwd_sym`` and
+      ``painn_fwd``/``painn_bwd`` on block 0's inputs under each mask
+      against their plain versions (tolerances as in 2; dist/env and
+      dist/gate must stay symmetric), one ``contextpred_masks:`` line.
+      Then each driver's ``main()`` for one epoch of 256 synthetic
+      Molecule3D molecules (buckets 32/64/128, batch 128): the backbone's
+      kernel pair must launch, losses be finite and ``model.pth`` be
+      served by a ``Predictor``; then its module's step at bucket 128:
+      each kernel's launches per step, the median of 3 synchronized steps,
+      one traced step (device ms, port-kernel ms, idle share), one
+      ``pretrain:`` line per objective and backbone with the card's name
+      and power limit.
 4. Measurements: serving mol/s per bucket (steady state, synchronized) and
    one traced pass per bucket (torch.profiler: device busy time, the
    port's kernels' share, idle share); training mol/s per bucket (median of
@@ -240,6 +266,8 @@ The line before the last is the kernel table as JSON (thirteen kernels,
 every Pallas kernel of the JAX package; ``qm9_launches``: each kernel's
 launches over both QM9 epochs of phase 3e; ``md17_launches``: each
 kernel's launches in one MD17 training step of phase 3f, both backbones;
+``pretrain_launches``: each kernel's launches in one step at bucket 128 of
+each objective of phase 3g, per ``<backbone>/<objective>``;
 ``second_order``: how a backward kernel's Function is differentiated); the
 last line is
 ``{"ok": true, "device": {...}}``. The whole output is also written to
@@ -256,6 +284,8 @@ import time
 RTOL, ATOL = 1e-4, 1e-5
 # weight gradients, together (each tensor: 10x): relative Frobenius norm
 GRAD_RTOL = 1e-3
+# a gradient that is zero in exact arithmetic: its norm against the whole's
+ZERO_GRAD_RTOL = 1e-5
 # NVIDIA H100 SXM data sheet: f32 outside the tensor cores, TF32 on the
 # tensor cores (dense), HBM3 rate
 PEAK_F32_FLOPS = 67e12
@@ -928,16 +958,28 @@ def ddm_grads(ddm, batch, pos2, sel, draws, chunk=None):
                                        tuple(t[sl] for t in draws)), chunk)
 
 
-def check_step_parity(what, loss_k, grads_k, loss_p, grads_p):
+def check_step_parity(what, loss_k, grads_k, loss_p, grads_p, zero_grad=()):
     """A step with kernels against the same step with the plain versions:
     loss rtol RTOL, all gradients together by relative norm GRAD_RTOL and
-    each parameter's by 10x that."""
+    each parameter's by 10x that. ``zero_grad`` names parameters whose
+    gradient is zero in exact arithmetic (both sides compute rounding
+    noise, whose relative difference means nothing): each side's norm must
+    stay below ZERO_GRAD_RTOL of the whole gradient's instead."""
     import torch
 
     if not abs(loss_k - loss_p) <= RTOL * abs(loss_p):
         fail(f"{what}: loss {loss_k} (kernels) vs {loss_p} (plain)")
 
-    per = {n: rel_norm(grads_k[n], grads_p[n]) for n in grads_p}
+    whole = torch.cat([g.flatten() for g in grads_p.values()]).norm().item()
+    for n in zero_grad:
+        size = max(grads_k[n].norm().item(), grads_p[n].norm().item()) / whole
+        if size > ZERO_GRAD_RTOL:
+            fail(f"{what}: {n}, zero in exact arithmetic, has a gradient of "
+                 f"{size:.3e} of the whole's norm")
+        print(f"{what}: {n} (zero in exact arithmetic): gradient norm "
+              f"{size:.3e} of the whole's")
+    per = {n: rel_norm(grads_k[n], grads_p[n]) for n in grads_p
+           if n not in zero_grad}
     worst = max(per, key=per.get)
     total = rel_norm(torch.cat([g.flatten() for g in grads_k.values()]),
                      torch.cat([g.flatten() for g in grads_p.values()]))
@@ -1406,6 +1448,369 @@ def md17_path(dev, model_3d, pretrained, kernels):
         "best_val_f_mae": best, "test_e_mae": test_e, "test_f_mae": test_f}))
     print_top_ops(step, model_3d, "finetune_md17", batch.max_atoms)
     return step_counts, net, batch
+
+
+# Phase 3g: the pretraining objectives beyond DDM (pretrain_geossl's
+# InfoNCE, EBM_NCE and RR; pretrain_baselines' six), per backbone at full
+# width: each driver for one short epoch over PRETRAIN_STORE synthetic
+# Molecule3D molecules (buckets 32/64/128, batch 128), and one step per
+# objective at bucket 128 (B=128) with kernels against the plain step
+PRETRAIN_RUNS = (("geossl", "InfoNCE"), ("geossl", "EBM_NCE"),
+                 ("geossl", "RR"), ("baseline", "supervised"),
+                 ("baseline", "charge"), ("baseline", "distance"),
+                 ("baseline", "torsion"), ("baseline", "infograph"),
+                 ("baseline", "contextpred"))
+PRETRAIN_STORE = 256
+PATH_KERNELS = {"schnet": ("cfconv_fwd_sym", "cfconv_bwd_sym"),
+                "painn": ("painn_fwd", "painn_bwd")}
+
+
+def pretrain_args(driver, objective, model_3d):
+    """The driver's parsed flags for ``objective`` at its defaults."""
+    from geossl_tpu_torch.train import pretrain_baselines as PB
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    flags = ["--model_3d", model_3d]
+    if driver == "geossl":
+        return PG.build_parser().parse_args(["--GeoSSL_option", objective,
+                                             *flags])
+    return PB.build_parser(objective).parse_args(flags)
+
+
+def objective_net(driver, objective, model_3d, store, dev):
+    """The driver's module for ``objective``, freshly seeded, on ``dev``."""
+    import torch
+
+    from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.train import pretrain_baselines as PB
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    args = pretrain_args(driver, objective, model_3d)
+    cfg = common.model_config_from_args(args)
+    gen = torch.Generator().manual_seed(SEED)
+    if driver == "geossl":
+        return PG.make_graph_ssl(args, cfg, gen).to(dev)
+    return PB.make_baseline(objective, args, cfg, store,
+                            common.buckets(args)[-1], gen).to(dev)
+
+
+def objective_draws(net, batch):
+    """The step's random draws, seeded: the perturbed view (GeoSSL), or the
+    baseline's one draw (charge's uniforms, torsion's, contextpred's
+    centres; none for the others)."""
+    import torch
+
+    from geossl_tpu_torch.objectives import contrastive, contextpred
+    from geossl_tpu_torch.train.pretrain_baselines import Baseline
+
+    gen = torch.Generator(batch.positions.device).manual_seed(SEED)
+    dev = batch.positions.device
+    if not isinstance(net, Baseline):
+        return contrastive.perturb_positions(gen, batch.positions, 0.0, 0.3)
+    b, n = batch.node_mask.shape
+    if net.objective == "charge":
+        return torch.rand((b, n), generator=gen, device=dev)
+    if net.objective == "torsion":
+        return torch.rand((b, net.hparams["num_triples"], 3), generator=gen,
+                          device=dev)
+    if net.objective == "contextpred":
+        return contextpred.sample_centers(gen, batch.node_mask).argmax(-1)
+    return None
+
+
+class backbones_in_chunks:
+    """Within the block, the module's backbones (``model``, contextpred's
+    ``context_model``) run in graph chunks under activation checkpointing:
+    the plain versions' [B,N,N,F] grids of one chunk live at a time. The
+    step's math is unchanged (a chunk's graphs never meet in a backbone)."""
+
+    def __init__(self, net, chunk):
+        self.mods = [m for m in (getattr(net, "model", None),
+                                 getattr(net, "context_model", None))
+                     if m is not None]
+        self.chunk = chunk
+
+    def __enter__(self):
+        import torch
+        from torch.utils.checkpoint import checkpoint
+
+        def chunked(m):
+            def forward(atom_type, positions, node_mask, pair_mask=None,
+                        plain=False):
+                outs = []
+                for s in range(0, atom_type.shape[0], self.chunk):
+                    sl = slice(s, s + self.chunk)
+                    kw = {"plain": plain}
+                    if pair_mask is not None:
+                        kw["pair_mask"] = pair_mask[sl]
+                    outs.append(checkpoint(
+                        lambda z, p, mk, kw=kw: type(m).forward(m, z, p, mk,
+                                                                **kw),
+                        atom_type[sl], positions[sl], node_mask[sl],
+                        use_reentrant=False))
+                return tuple(torch.cat(parts) for parts in zip(*outs))
+            return forward
+
+        for m in self.mods:
+            m.forward = chunked(m)
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            del m.forward
+
+
+def zero_grad_params(net):
+    """The parameters of ``net`` whose gradient is zero in exact
+    arithmetic: RR's biases before each AutoEncoder's BatchNorm (it removes
+    them), and, with the targets detached and SchNet's mean readout, the
+    backbone's last bias (it shifts every graph representation alike, which
+    the BatchNorm removes)."""
+    from geossl_tpu_torch.models.schnet import SchNet
+
+    if getattr(net, "option", None) != "RR":
+        return ()
+    names = ["AE_01.fc_layers.0.bias", "AE_02.fc_layers.0.bias"]
+    if (isinstance(net.model, SchNet) and net.model.readout == "mean"
+            and net.AE_01.detach_target and net.AE_02.detach_target):
+        names.append("model.lin2.bias")
+    return tuple(names)
+
+
+def objective_parity(net, batch, what):
+    """One step of ``net`` at this batch with kernels against the same step
+    with the plain versions (its backbones in chunks of 16 graphs), the
+    same draws and weights: the loss and every gradient
+    (``check_step_parity``), and the buffers the step updates (RR's
+    BatchNorm statistics) elementwise at rtol RTOL / atol ATOL."""
+    import contextlib
+
+    import torch
+
+    from geossl_tpu_torch.train.pretrain_baselines import Baseline
+
+    draw = objective_draws(net, batch)
+    before = {k: v.clone() for k, v in net.named_buffers()}
+    results = []
+    for plain in (False, True):
+        for k, v in net.named_buffers():
+            v.copy_(before[k])
+        net.zero_grad(set_to_none=True)
+        net.plain = plain
+        with (backbones_in_chunks(net, 16) if plain
+              else contextlib.nullcontext()):
+            loss, _ = (net(batch, draw=draw) if isinstance(net, Baseline)
+                       else net(batch, draw))
+            loss.backward()
+        results.append((loss.item(), {n: p.grad.detach().clone()
+                                      for n, p in net.named_parameters()},
+                        {k: v.clone() for k, v in net.named_buffers()}))
+    net.plain = False
+    (loss_k, grads_k, bufs_k), (loss_p, grads_p, bufs_p) = results
+    check_step_parity(what, loss_k, grads_k, loss_p, grads_p,
+                      zero_grad_params(net))
+    for k in bufs_p:
+        if torch.equal(bufs_p[k], before[k]):
+            fail(f"{what}: the step left buffer {k} unchanged")
+        if not torch.allclose(bufs_k[k], bufs_p[k], rtol=RTOL, atol=ATOL):
+            err = (bufs_k[k] - bufs_p[k]).abs().max().item()
+            fail(f"{what}: buffer {k} differs by {err:.3e} (kernels vs plain)")
+    if bufs_p:
+        err = max((bufs_k[k] - bufs_p[k]).abs().max().item() for k in bufs_p)
+        print(f"{what}: {len(bufs_p)} BatchNorm statistics after the step, "
+              f"max_abs_err {err:.3e}")
+
+
+def check_holed_masks(errs, net_s, net_p, batch):
+    """#3/#4 (SchNet) and #8/#9 (PaiNN), forward and backward, against their
+    plain versions on block 0's inputs under contextpred's substruct and
+    context node masks (the driver's defaults, this batch's centres): holes
+    in the middle of a graph. dist and env (PaiNN: dist and gate) must stay
+    symmetric for the symmetric CFConv pair. Prints ``contextpred_masks:``."""
+    from dataclasses import replace
+
+    import torch
+
+    from geossl_tpu_torch.objectives import contextpred as C
+    from geossl_tpu_torch.ops import cfconv as K
+    from geossl_tpu_torch.ops import geometry
+    from geossl_tpu_torch.ops import painn as P
+
+    mine, errs_all = Errors(), errs
+    errs = mine  # this check's own largest errors, for its line
+    hp = net_s.hparams
+    k = hp["context_hops"]
+    l1, l2 = k - 1, k - 1 + hp["context_csize"]
+    mask = batch.node_mask
+    dist, pm = geometry.pairwise_distances(batch.positions, mask)
+    adj = geometry.radius_adjacency(dist, pm, hp["context_bond_cutoff"])
+    centers = C.sample_centers(None, mask, objective_draws(net_s, batch))
+    hops = C.hop_distances(adj, centers, l2)
+    sub, ctx, ov = C.context_masks(hops, mask, k, l1, l2)
+    n = mask.shape[1]
+    line = {"batch": f"B={mask.shape[0]} N={n}", "real_atoms":
+            int(mask.sum()), "overlap_graphs": int((ov.sum(-1) > 0).sum())}
+    gen = torch.Generator(mask.device).manual_seed(SEED)
+    m_s, m_p = net_s.model, net_p.model
+    for name, hole in (("substruct", sub), ("context", ctx)):
+        prefix = torch.arange(n, device=mask.device) < hole.sum(-1, keepdim=True)
+        holed = int((hole != prefix).any(-1).sum())
+        if holed == 0:
+            fail(f"contextpred {name} mask: no graph has a hole")
+        with torch.no_grad():
+            d, a = m_s.geometry(batch.positions, hole)
+            env = m_s.envelope(d, a).contiguous()
+            d = d.contiguous()
+            x = m_s.interactions[0].conv.lin1(
+                m_s.embedding(batch.atom_type)).contiguous()
+            fw = m_s.interactions[0].filter_weights()
+        if not (torch.equal(d, d.transpose(1, 2))
+                and torch.equal(env, env.transpose(1, 2))):
+            fail(f"contextpred {name} mask: dist/env not symmetric")
+        cut, G = m_s.cutoff, m_s.num_gaussians
+        with torch.no_grad():
+            want = chunked(K.cfconv_fused_reference, (d, env, x),
+                           (*fw, 0.0, cut, G), 16)
+            for sp in (False, True):
+                errs.check("cfconv_fwd_sym", K.cfconv_fused_sym(
+                    d, env, x, *fw, 0.0, cut, G, sp), want,
+                    f"contextpred {name} mask sparse={sp}")
+        gx = torch.randn(x.shape, generator=gen, device=x.device)
+        check_cfconv_bwd_sym(errs, d, env, x, gx, fw, G, cut,
+                             f"contextpred {name} mask", chunk=16)
+        grids, q0, xp, mu = painn_inputs(m_p, replace(batch, node_mask=hole))
+        if not (torch.equal(grids[0], grids[0].transpose(1, 2))
+                and torch.equal(grids[1], grids[1].transpose(1, 2))):
+            fail(f"contextpred {name} mask: PaiNN dist/gate not symmetric")
+        with torch.no_grad():
+            wk, bk = m_p.filter_weights()[0]
+            want = chunked(lambda *t: torch.cat(P.painn_message_reference(
+                *t, wk, bk, m_p.cutoff), dim=-1), (*grids, xp, mu), (), 16)
+            for sp in (False, True):
+                errs.check("painn_fwd", torch.cat(P.painn_message_fused(
+                    *grids, xp, mu, wk, bk, m_p.cutoff, sp), dim=-1), want,
+                    f"contextpred {name} mask sparse={sp}")
+        gq = torch.randn(q0.shape, generator=gen, device=q0.device)
+        gmu = torch.randn(mu.shape, generator=gen, device=q0.device)
+        check_painn_bwd(errs, grids, xp, mu, wk, bk, gq, gmu, m_p.cutoff,
+                        f"contextpred {name} mask", chunk=8)
+        line[name] = {"atoms": int(hole.sum()), "holed_graphs": holed,
+                      "schnet_pairs": int((env != 0).sum()),
+                      "painn_pairs": int((grids[1] != 0).sum())}
+    line["max_abs_err"] = mine.max_abs
+    for k, v in mine.max_abs.items():
+        errs_all.max_abs[k] = max(errs_all.max_abs.get(k, 0.0), v)
+    print("contextpred_masks: " + json.dumps(line))
+
+
+def pretrain_driver(dev, driver, objective, model_3d, batch, card):
+    """One driver ``main()`` for one epoch on the card (the path kernels
+    launched, finite losses, ``model.pth`` served by a Predictor), then its
+    module's steps at ``batch`` (bucket 128): launches per step, median step
+    ms, one traced step; prints the ``pretrain:`` line. Returns the step's
+    launch counts."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from geossl_tpu_torch.data.synthetic import synthetic_molecule3d
+    from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
+    from geossl_tpu_torch.serve import Predictor
+    from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.train import pretrain_baselines as PB
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    run_dir = os.path.join(ROOT, "runs",
+                           f"chip_smoke_pretrain_{model_3d}_{objective}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    flags = ["--synthetic", "--synthetic_size", str(PRETRAIN_STORE),
+             "--synthetic_max_atoms", "100", "--epochs", "1",
+             "--output_model_dir", run_dir, "--model_3d", model_3d]
+    reset_launch_counts()
+    t0 = time.time()
+    if driver == "geossl":
+        module, losses = PG.main(["--GeoSSL_option", objective, *flags])
+    else:
+        module, losses = PB.main([objective, *flags])
+    torch.cuda.synchronize()
+    epoch_s = time.time() - t0
+    counts = launch_counts()
+    for name in PATH_KERNELS[model_3d]:
+        if counts[name] == 0:
+            fail(f"kernel {name} was not launched on the {objective} "
+                 f"{model_3d} path")
+    if not losses or not all(math.isfinite(v) for v in losses):
+        fail(f"pretrain {objective} {model_3d}: losses {losses}")
+    args = pretrain_args(driver, objective, model_3d)
+    cfg = common.model_config_from_args(args)
+    emb = Predictor.from_checkpoint(
+        os.path.join(run_dir, "model.pth"), cfg, batch_size=128,
+        bucket_sizes=common.buckets(args), device=dev).embed(synthetic_molecule3d(
+            64, seed=3, max_atoms=100))
+    if emb.shape != (64, cfg.emb_dim) or not np.isfinite(emb).all():
+        fail(f"pretrain {objective} {model_3d}: model.pth served shape "
+             f"{emb.shape} or non-finite")
+
+    opt, sched = common.make_optimizer_from_args(args, module.parameters(),
+                                                 100)
+    loss_of = (PG.loss_of(module, args) if driver == "geossl"
+               else lambda b, g: module(b, g))
+    gen = torch.Generator(dev).manual_seed(SEED)
+
+    def step():
+        return common.pretrain_step(module, opt, sched, [batch],
+                                    lambda b: loss_of(b, gen))
+
+    step()  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    step()
+    torch.cuda.synchronize()
+    per_step = {k: v for k, v in launch_counts().items() if v}
+    step_s = median_s(step)
+    device_profile(step)  # profiler start-up
+    wall, busy, ours = device_profile(step)
+    print("pretrain: " + json.dumps({
+        "objective": objective, "model": model_3d, "bucket": batch.max_atoms,
+        "molecules": int(batch.graph_mask.sum()), "epoch_steps": len(losses),
+        "epoch_s_first_call": epoch_s, "step_ms": step_s * 1e3,
+        "mol_per_s": int(batch.graph_mask.sum()) / step_s,
+        "device_ms_per_step": busy * 1e3, "port_kernels_ms": ours * 1e3,
+        "traced_wall_ms": wall * 1e3, "idle_share": 1.0 - busy / wall,
+        "launches_per_step": per_step,
+        "epoch_launches": {k: v for k, v in counts.items() if v},
+        "card": card}))
+    return per_step
+
+
+def pretrain_path(errs, dev, card, batch_of):
+    """Phase 3g: per backbone, every objective's step parity at bucket 128,
+    the holed-mask kernel checks, every driver's epoch and its
+    ``pretrain:`` line. Returns {"<model>/<objective>": launches per
+    step}."""
+    from geossl_tpu_torch.data.molecule3d import load_molecule3d
+
+    store = load_molecule3d("", synthetic=True,
+                            synthetic_size=PRETRAIN_STORE,
+                            synthetic_max_atoms=100)
+    batch = batch_of(128)
+    nets = {}
+    for model_3d in ("schnet", "painn"):
+        for driver, objective in PRETRAIN_RUNS:
+            net = objective_net(driver, objective, model_3d, store, dev)
+            objective_parity(net, batch, f"pretrain {objective}-{model_3d} "
+                             "step parity bucket 128")
+            nets[model_3d, objective] = net
+    check_holed_masks(errs, nets["schnet", "contextpred"],
+                      nets["painn", "contextpred"], batch)
+    del nets
+    launches = {}
+    for model_3d in ("schnet", "painn"):
+        for driver, objective in PRETRAIN_RUNS:
+            launches[f"{model_3d}/{objective}"] = pretrain_driver(
+                dev, driver, objective, model_3d, batch, card)
+    return launches
 
 
 def rel_norm(a, b):
@@ -2139,6 +2544,13 @@ def main():
         md17_launches.update(step_counts)
     check_second_orders(md17_batch, md17_nets["schnet"], md17_nets["painn"])
 
+    # -- 3g. main path: the pretraining objectives beyond DDM -----------------
+    # per backbone: InfoNCE, EBM_NCE, RR and the six baselines, each step at
+    # bucket 128 held to its plain step, contextpred's holed node masks at
+    # the kernel level, each driver's epoch (the kernel table's
+    # pretrain_launches: each kernel's launches per step)
+    pretrain_launches = pretrain_path(errs, dev, card, train_batch)
+
     # -- 4. measurements -----------------------------------------------------------
     subs = {b: MolStore.from_records([sorted_store.get(int(i))
                                       for i in np.nonzero(bucket_of == b)[0]])
@@ -2758,6 +3170,8 @@ def main():
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": count, "qm9_launches": qm9_launches.get(name, 0),
             "md17_launches": md17_launches.get(name, 0),
+            "pretrain_launches": {run: per_step.get(name, 0) for run, per_step
+                                  in pretrain_launches.items()},
             "second_order": SECOND_ORDER.get(name),
             "max_abs_err": errs.max_abs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),

@@ -10,7 +10,9 @@ graph over the selected pairs, mean over the real graphs.
 The parameters carry the JAX package's flax names (``w_d1, b_d1, w_d2,
 b_d2, w_od, b_od, w2, b2, w3, b3``, ``out0_h``) and its shapes and init
 bounds, so ``utils/torch_import.ncsn_state_dict_from_flax`` carries a JAX
-head across. NCSNv1/v2 are not ported.
+head across. ``NCSNv1``/``NCSNv2`` (no driver calls them) are plain
+PyTorch with the JAX package's layers: ``utils/torch_import
+.ncsn_v1_state_dict_from_flax`` / ``ncsn_v2_state_dict_from_flax``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from geossl_tpu_torch.models.common import xavier_uniform_
+from geossl_tpu_torch.models.common import (
+    gaussian_smearing,
+    init_linear_,
+    xavier_uniform_,
+)
 from geossl_tpu_torch.ops.ncsn import (
     WEIGHT_NAMES,
     ncsn_score_loss,
@@ -39,7 +45,127 @@ def sigma_ladder(sigma_begin: float, sigma_end: float,
                               num_noise_level)).astype(np.float32)
 
 
-class NCSNv3(nn.Module):
+class _NCSNBase(nn.Module):
+    """The σ ladder, the draws and the annealed loss the three heads share
+    (``NCSN.py:183-212``)."""
+
+    def __init__(self, emb_dim: int, sigma_begin: float, sigma_end: float,
+                 num_noise_level: int, anneal_power: float):
+        super().__init__()
+        self.emb_dim = emb_dim
+        self.num_noise_level = num_noise_level
+        self.anneal_power = float(anneal_power)
+        self.register_buffer("sigmas", torch.from_numpy(sigma_ladder(
+            sigma_begin, sigma_end, num_noise_level)), persistent=False)
+
+    def draws(self, dist, sigmas=None, noise=None,
+              generator: Optional[torch.Generator] = None,
+              sigma_dtype=None):
+        """(σ [B], ε [B,N,N]): a noise level per graph from the ladder, then
+        ε ~ N(0, 1); or ``sigmas`` / ``noise`` when given (both or neither).
+        ε takes ``dist``'s dtype, σ ``sigma_dtype`` (default: the same)."""
+        if (sigmas is None) != (noise is None):
+            raise ValueError("supply sigmas and noise together")
+        sigma_dtype = sigma_dtype or dist.dtype
+        dev = dist.device
+        if sigmas is None:
+            level = torch.randint(0, self.num_noise_level, (dist.shape[0],),
+                                  generator=generator, device=dev)
+            return (self.sigmas.to(sigma_dtype)[level],
+                    torch.randn(dist.shape, generator=generator,
+                                dtype=dist.dtype, device=dev))
+        return (torch.as_tensor(sigmas, dtype=sigma_dtype, device=dev),
+                torch.as_tensor(noise, dtype=dist.dtype, device=dev))
+
+    def annealed_loss(self, scores, target, sel_mask, used, graph_mask):
+        """½(score − target)²·σ^anneal on the selected pairs, summed per
+        graph, mean over the real graphs (``NCSN.py:208-212``)."""
+        per_pair = 0.5 * (scores - target) ** 2 * used ** self.anneal_power
+        per_pair = per_pair * sel_mask.to(per_pair.dtype)
+        return graph_masked_mean(per_pair.sum(dim=(1, 2)), graph_mask)
+
+
+class _MLP(nn.Module):
+    """The reference's ``MultiLayerPerceptron`` (``NCSN.py:9-43``): Linear
+    layers in ``layers``, relu between them."""
+
+    def __init__(self, dims, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.layers = nn.ModuleList(nn.Linear(a, b)
+                                    for a, b in zip(dims[:-1], dims[1:]))
+        for lin in self.layers:
+            init_linear_(lin, generator)
+
+    def forward(self, x):
+        for k, lin in enumerate(self.layers):
+            x = lin(x) if k == 0 else lin(torch.relu(x))
+        return x
+
+
+class NCSNv1(_NCSNBase):
+    """``NCSN_version_01`` (``NCSN.py:46-95``): scores from the MLP
+    (emb -> emb -> emb/2 -> 1) of h_i ⊙ h_j. ``forward`` as
+    :class:`NCSNv3`'s; σ is drawn in float32, as the JAX head draws it."""
+
+    def __init__(self, emb_dim: int = 128, sigma_begin: float = 10.0,
+                 sigma_end: float = 0.01, num_noise_level: int = 50,
+                 anneal_power: float = 2.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(emb_dim, sigma_begin, sigma_end, num_noise_level,
+                         anneal_power)
+        self.output_mlp = _MLP([emb_dim, emb_dim, emb_dim // 2, 1], generator)
+
+    def forward(self, node_feat, dist, sel_mask, graph_mask=None, sigmas=None,
+                noise=None, generator: Optional[torch.Generator] = None):
+        used, noise = self.draws(dist, sigmas, noise, generator,
+                                 sigma_dtype=torch.float32)
+        used = used[:, None, None]
+        perturbed = dist + noise * used
+        target = -(perturbed - dist) / used ** 2
+        hprod = node_feat[:, :, None, :] * node_feat[:, None, :, :]
+        scores = self.output_mlp(hprod)[..., 0] / used
+        return self.annealed_loss(scores, target, sel_mask, used, graph_mask)
+
+
+class NCSNv2(_NCSNBase):
+    """``NCSN_version_02`` (``NCSN.py:110-166``): the perturbed distance
+    Gaussian-smeared (51 gaussians over [0, 10]) and embedded by an MLP
+    (51 -> emb -> emb); the output MLP's first layer factored as the JAX
+    package factors it, ``out0_h`` per node and ``out0_d`` on the distance
+    embedding, then emb -> emb/2 -> 1. σ is drawn in float32."""
+
+    NUM_GAUSSIANS = 51
+
+    def __init__(self, emb_dim: int = 128, sigma_begin: float = 10.0,
+                 sigma_end: float = 0.01, num_noise_level: int = 50,
+                 anneal_power: float = 2.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(emb_dim, sigma_begin, sigma_end, num_noise_level,
+                         anneal_power)
+        self.distance_mlp = _MLP([self.NUM_GAUSSIANS, emb_dim, emb_dim],
+                                 generator)
+        self.out0_h = nn.Linear(emb_dim, emb_dim, bias=False)
+        self.out0_d = nn.Linear(emb_dim, emb_dim)
+        self.output_mlp = _MLP([emb_dim, emb_dim // 2, 1], generator)
+        init_linear_(self.out0_h, generator)
+        init_linear_(self.out0_d, generator)
+
+    def forward(self, node_feat, dist, sel_mask, graph_mask=None, sigmas=None,
+                noise=None, generator: Optional[torch.Generator] = None):
+        used, noise = self.draws(dist, sigmas, noise, generator,
+                                 sigma_dtype=torch.float32)
+        used = used[:, None, None]
+        perturbed = dist + noise * used
+        target = -(perturbed - dist) / used ** 2
+        demb = self.distance_mlp(gaussian_smearing(perturbed, 0.0, 10.0,
+                                                   self.NUM_GAUSSIANS))
+        u = self.out0_h(node_feat)
+        x = torch.relu(u[:, :, None, :] + u[:, None, :, :] + self.out0_d(demb))
+        scores = self.output_mlp(x)[..., 0] / used
+        return self.annealed_loss(scores, target, sel_mask, used, graph_mask)
+
+
+class NCSNv3(_NCSNBase):
     """``forward(node_feat [B,N,F], dist [B,N,N], sel_mask [B,N,N],
     graph_mask [B] | None, sigmas=None, noise=None, generator=None)`` ->
     scalar loss. The output MLP's first layer is factored as in the JAX
@@ -55,13 +181,9 @@ class NCSNv3(nn.Module):
                  sigma_end: float = 0.01, num_noise_level: int = 50,
                  anneal_power: float = 2.0, use_kernel: bool = False,
                  generator: Optional[torch.Generator] = None):
-        super().__init__()
-        self.emb_dim = emb_dim
-        self.num_noise_level = num_noise_level
-        self.anneal_power = float(anneal_power)
+        super().__init__(emb_dim, sigma_begin, sigma_end, num_noise_level,
+                         anneal_power)
         self.use_kernel = use_kernel
-        self.register_buffer("sigmas", torch.from_numpy(sigma_ladder(
-            sigma_begin, sigma_end, num_noise_level)), persistent=False)
         for name, shape in zip(WEIGHT_NAMES, weight_shapes(emb_dim)):
             self.register_parameter(name, nn.Parameter(torch.zeros(shape)))
         self.out0_h = nn.Linear(emb_dim, emb_dim, bias=False)
@@ -85,23 +207,12 @@ class NCSNv3(nn.Module):
 
     def forward(self, node_feat, dist, sel_mask, graph_mask=None, sigmas=None,
                 noise=None, generator: Optional[torch.Generator] = None):
-        if (sigmas is None) != (noise is None):
-            raise ValueError("supply sigmas and noise together")
-        b = node_feat.shape[0]
         # σ and ε follow dist's dtype (at least f32), as in the JAX package
         dtype = torch.promote_types(torch.float32, dist.dtype)
-        dev = dist.device
-        if sigmas is None:
-            level = torch.randint(0, self.num_noise_level, (b,),
-                                  generator=generator, device=dev)
-            used = self.sigmas.to(dtype)[level]
-            noise = torch.randn(dist.shape, generator=generator, dtype=dtype,
-                                device=dev)
-        else:
-            used = torch.as_tensor(sigmas, dtype=dtype, device=dev)
-            noise = torch.as_tensor(noise, dtype=dtype, device=dev)
+        dist = dist.to(dtype)
+        used, noise = self.draws(dist, sigmas, noise, generator)
         u = self.out0_h(node_feat)
-        args = (dist.to(dtype), noise, sel_mask.to(dtype), used, u,
+        args = (dist, noise, sel_mask.to(dtype), used, u,
                 *self.head_weights(), self.anneal_power)
         rows = (ncsn_score_loss(*args) if self.use_kernel
                 else ncsn_score_loss_reference(*args))

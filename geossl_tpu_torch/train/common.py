@@ -412,6 +412,72 @@ def maybe_save_state(args, modules: dict, opt, sched, epoch: int,
                                      epoch, best_metric, extra)
 
 
+# -- pretraining ---------------------------------------------------------------
+
+
+def pretrain_step(module: nn.Module, opt, sched, batches,
+                  loss_of) -> torch.Tensor:
+    """One optimizer step over ``batches`` (gradients averaged over the
+    group, as ``--grad_accum`` does); ``loss_of(batch)`` -> (loss,
+    accuracy). Returns [mean loss, mean accuracy] on the device."""
+    opt.zero_grad(set_to_none=True)
+    total = 0.0
+    for batch in batches:
+        loss, acc = loss_of(batch)
+        (loss / len(batches)).backward()
+        total = total + torch.stack([loss.detach(),
+                                     acc.detach().to(loss.dtype)])
+    opt.step()
+    sched.step()
+    return total / len(batches)
+
+
+def run_pretrain(args, module: nn.Module, key: str, opt, sched, loader,
+                 loss_of, device, labels=("Loss", "Acc")) -> list:
+    """The pretraining drivers' epoch loop, as the JAX drivers run it: an
+    epoch of :func:`pretrain_step` with a generator seeded per epoch
+    (``loss_of(batch, generator)``), the plateau scheduler on the epoch's
+    mean loss, ``model.pth`` (``{"model": module.model.state_dict()}``) at
+    the best mean loss and ``model_final.pth`` at the end, the epoch line
+    (``labels``: the names of its loss and accuracy), the metric log and
+    the resume state (``module`` under ``key``). Returns every step's
+    loss."""
+    saver = checkpoints.BestModelSaver(args.output_model_dir)
+    mlog = MetricLogger(args.log_file)
+    start_epoch, best, extra = try_resume(args, {key: module}, opt, sched)
+    plateau = make_plateau(args, extra)
+    saver.best_metric = best
+    history = []
+    for epoch in range(start_epoch, args.epochs + 1):
+        timer = EpochTimer()
+        generator = torch.Generator(device).manual_seed(
+            hash((args.seed + 1, epoch)) % (2**31))
+        steps = [pretrain_step(module, opt, sched,
+                               [b.to(device) for b in group],
+                               lambda b: loss_of(b, generator))
+                 for group in accum_groups(loader.epoch(epoch),
+                                           args.grad_accum)]
+        steps = torch.stack(steps).tolist()  # one device-to-host copy
+        history += [loss for loss, _ in steps]
+        mean_loss = sum(loss for loss, _ in steps) / len(steps)
+        mean_acc = sum(acc for _, acc in steps) / len(steps)
+        if plateau is not None:
+            optim.set_plateau_scale(sched, plateau.step(mean_loss))
+        saved = saver.maybe_save_best(
+            mean_loss, lambda: {"model": module.model.state_dict()})
+        print(f"Epoch: {epoch}\t{labels[0]}: {mean_loss:.5f}\t{labels[1]}: "
+              f"{mean_acc:.5f}\tTime: {timer.elapsed():.3f}"
+              + ("\t[saved best]" if saved else ""))
+        mlog.log(epoch=epoch, loss=mean_loss, acc=mean_acc,
+                 time_s=round(timer.elapsed(), 3), saved_best=saved)
+        maybe_save_state(args, {key: module}, opt, sched, epoch,
+                         saver.best_metric,
+                         plateau.state() if plateau else None)
+    saver.save_final({"model": module.model.state_dict()})
+    mlog.log(final=True, best_loss=saver.best_metric, epochs=args.epochs)
+    return history
+
+
 # -- run records ---------------------------------------------------------------
 
 

@@ -13,12 +13,19 @@ JAX package's optax schedule at count g:
 * ``StepLR``; ``None`` and ``ReduceLROnPlateau`` constant, the latter scaled
   by a :class:`PlateauController` between epochs (:func:`set_plateau_scale`).
 
-Per-group lr factors (``scale_by_group``, RR only) are not ported.
+Per-group lr factors, the counterpart of the JAX package's
+``scale_by_group`` (RR's AutoEncoders): :func:`param_groups` gives each named
+module a torch parameter group at ``lr · factor``; the ``LambdaLR``
+multiplies every group by the same schedule factor, which is exact for the
+multiplicative schedules and is refused, as in the JAX package, under
+``CosineAnnealingWarmRestarts`` and ``ReduceLROnPlateau`` (their floors are
+anchored per group).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -67,11 +74,33 @@ class _Schedule:
         return self.sched(step) / self.lr * self.scale
 
 
+def param_groups(modules: dict, lr: float,
+                 factors: Optional[dict] = None) -> list:
+    """One torch parameter group per entry of ``modules`` (name -> module),
+    group ``name`` at ``lr · factors[name]`` (default 1): the JAX package's
+    ``scale_by_group`` on its top-level parameter names."""
+    factors = factors or {}
+    return [{"params": list(m.parameters()), "lr": lr * factors.get(k, 1.0)}
+            for k, m in modules.items()]
+
+
 def make_optimizer(params, lr: float, epochs: int, steps_per_epoch: int,
                    weight_decay: float = 0.0,
                    scheduler: str = "CosineAnnealingLR", min_lr: float = 0.0,
                    decay_factor: float = 0.5, decay_step_size: int = 100):
-    """(Adam, LambdaLR); call ``sched.step()`` after every ``opt.step()``."""
+    """(Adam, LambdaLR); call ``sched.step()`` after every ``opt.step()``.
+    ``params``: parameters, or parameter groups (:func:`param_groups`)
+    whose ``lr`` each schedule multiplies."""
+    params = list(params)
+    if any(isinstance(g, dict) and g.get("lr", lr) != lr for g in params) \
+            and scheduler in ("CosineAnnealingWarmRestarts",
+                              "ReduceLROnPlateau"):
+        # torch anchors these schedules' floors (eta_min / min_lr) per group
+        # base lr; one multiplier for every group cannot reproduce that
+        raise ValueError(
+            f"per-group lr factors are not torch-exact under {scheduler} "
+            "(anchored eta_min/min_lr floors); use CosineAnnealingLR, "
+            "StepLR, or None")
     factor = _Schedule(lr_schedule(scheduler, lr, epochs, steps_per_epoch,
                                    min_lr, decay_factor, decay_step_size), lr)
     opt = torch.optim.Adam(params, lr=lr, weight_decay=weight_decay)

@@ -1,14 +1,27 @@
-"""GeoSSL-DDM pretraining of SchNet or PaiNN (counterpart of
-``geossl_tpu/train/pretrain_geossl.py``; reference
+"""GeoSSL pretraining of SchNet or PaiNN: DDM, InfoNCE, EBM-NCE and RR
+(counterpart of ``geossl_tpu/train/pretrain_geossl.py``; reference
 ``examples/pretrain_GeoSSL.py``), the port's training path.
 
 Per step, as the JAX step: view 1 is the clean geometry, view 2 the
 positions plus N(mu, sigma); BFS atom masking on every batch
-(``--GeoSSL_atom_masking_ratio``); the node latents of each view are scored
-against the *other* view's pairwise distances by two NCSN_version_03 heads,
-``l1 = NCSN_01(h1, d2)``, ``l2 = NCSN_02(h2, d1)``, loss ``(l1 + l2) / 2``,
-then one Adam step. The backbone is saved as ``{"model": state_dict}`` in
-``model.pth`` on the best epoch-mean loss and ``model_final.pth`` at the end
+(``--GeoSSL_atom_masking_ratio``); both views go through the one backbone.
+Then, per ``--GeoSSL_option``:
+
+* **DDM** (``:179-212``): the node latents of each view are scored against
+  the *other* view's pairwise distances by two NCSN_version_03 heads,
+  ``l1 = NCSN_01(h1, d2)``, ``l2 = NCSN_02(h2, d1)``, loss ``(l1 + l2) / 2``.
+* **InfoNCE** (``:141-176``): symmetric cross entropy over the B×B
+  similarities of the graph representations / ``--T``.
+* **EBM_NCE** (``:103-138``): BCE on the positive dot products against
+  ``--CL_neg_samples`` cyclic-shift negatives.
+* **RR** (``:77-100``): two AutoEncoders (``AE_01``, ``AE_02``) reconstruct
+  each view's graph representation from the other's; the mean of the two.
+  ``--gnn_2d_lr_scale`` runs them at that lr (an absolute lr, the
+  reference's param-group quirk, times the schedule's factor).
+
+``--normalize`` l2-normalises the latents the loss reads. Then one Adam
+step. The backbone is saved as ``{"model": state_dict}`` in ``model.pth``
+on the best epoch-mean loss and ``model_final.pth`` at the end
 (``pretrain_GeoSSL.py:48-65``), the checkpoint ``serve.Predictor`` loads.
 
 With ``--model_3d painn`` one radius graph, built from the clean geometry,
@@ -16,8 +29,8 @@ is the pair mask of both views (``pretrain_GeoSSL.py:88-89``); distances and
 directions come from each view's live positions.
 
 On CUDA (the default) the backbone's message pass (CFConv, or PaiNN's) and
-the heads' per-pair chain run the port's kernels; ``--device cpu`` takes the
-plain versions. Only ``--GeoSSL_option DDM`` is ported.
+DDM's per-pair head chain run the port's kernels; ``--device cpu`` takes
+the plain versions.
 
 Run: ``python -m geossl_tpu_torch.train.pretrain_geossl --synthetic --epochs 2``
 """
@@ -34,12 +47,18 @@ from geossl_tpu_torch.data.bucketing import BucketedLoader
 from geossl_tpu_torch.data.masking import make_bfs_transform
 from geossl_tpu_torch.data.molecule3d import load_molecule3d
 from geossl_tpu_torch.models.painn import PaiNN
-from geossl_tpu_torch.objectives.contrastive import l2_normalize, perturb_positions
+from geossl_tpu_torch.objectives.autoencoder import AutoEncoder
+from geossl_tpu_torch.objectives.contrastive import (
+    dual_infonce_loss,
+    ebm_nce_loss,
+    l2_normalize,
+    perturb_positions,
+)
 from geossl_tpu_torch.objectives.ncsn import NCSNv3
 from geossl_tpu_torch.objectives.pairs import pair_selection
 from geossl_tpu_torch.ops import geometry
 from geossl_tpu_torch.serve import resolve_device
-from geossl_tpu_torch.train import checkpoints, common, optim
+from geossl_tpu_torch.train import common, optim
 
 
 def build_parser():
@@ -60,9 +79,14 @@ def build_parser():
     p.add_argument("--SM_anneal_power", type=float, default=2.0)
     p.add_argument("--distance_sample_ratio", type=float, default=1.0)
     p.add_argument("--gnn_2d_lr_scale", type=float, default=None,
-                   help="RR only (not ported)")
+                   help="RR only: ABSOLUTE lr for the two AutoEncoder heads "
+                        "(torch param-group quirk, pretrain_GeoSSL.py:335-337"
+                        " — the group lr is the scale itself, NOT lr*scale; "
+                        "reference default 1.0). Default: AE heads train at "
+                        "--lr like everything else")
     p.add_argument("--T", type=float, default=0.1)
-    p.add_argument("--CL_neg_samples", type=int, default=1)
+    p.add_argument("--CL_neg_samples", type=int, default=1,
+                   help="cyclic-shift negatives per positive for EBM_NCE")
     p.add_argument("--normalize", action="store_true")
     p.add_argument("--AE_loss", default="l2", choices=["l1", "l2", "cosine"])
     p.add_argument("--detach_target", dest="detach_target",
@@ -71,6 +95,21 @@ def build_parser():
                    action="store_false")
     p.set_defaults(lr=5e-4, epochs=100)
     return p
+
+
+def encode_views(model: nn.Module, batch, pos2, plain: bool = False):
+    """((g1, h1), (g2, h2), d1): both views through ``model``, and the clean
+    view's pairwise distances. A PaiNN backbone gets the clean geometry's
+    radius graph as the pair mask of both views
+    (``pretrain_GeoSSL.py:88-89``)."""
+    z, mask = batch.atom_type, batch.node_mask
+    d1, pm = geometry.pairwise_distances(batch.positions, mask)
+    kw = {"plain": plain}
+    if isinstance(model, PaiNN):
+        kw["pair_mask"] = geometry.radius_adjacency(
+            d1, pm, model.cutoff, model.max_neighbors)
+    return (model(z, batch.positions, mask, **kw), model(z, pos2, mask, **kw),
+            d1)
 
 
 class DDM(nn.Module):
@@ -103,15 +142,7 @@ class DDM(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """The DDM loss of one batch. ``draws`` = (sigmas1, noise1, sigmas2,
         noise2) replaces the heads' draws from ``generator``."""
-        z, mask = batch.atom_type, batch.node_mask
-        d1, pm = geometry.pairwise_distances(batch.positions, batch.node_mask)
-        kw = {"plain": self.plain}
-        if isinstance(self.model, PaiNN):
-            # cached clean-geometry radius graph (pretrain_GeoSSL.py:88-89)
-            kw["pair_mask"] = geometry.radius_adjacency(
-                d1, pm, self.model.cutoff, self.model.max_neighbors)
-        _, h1 = self.model(z, batch.positions, mask, **kw)
-        _, h2 = self.model(z, pos2, mask, **kw)
+        (_, h1), (_, h2), d1 = encode_views(self.model, batch, pos2, self.plain)
         if self.normalize:
             h1, h2 = l2_normalize(h1), l2_normalize(h2)
         d2, _ = geometry.pairwise_distances(pos2, batch.node_mask)
@@ -120,6 +151,45 @@ class DDM(nn.Module):
         l1 = self.NCSN_01(h1, d2, sel, batch.graph_mask, s1, n1, generator)
         l2 = self.NCSN_02(h2, d1, sel, batch.graph_mask, s2, n2, generator)
         return (l1 + l2) / 2
+
+
+class GraphSSL(nn.Module):
+    """InfoNCE, EBM_NCE or RR on the two views' graph representations:
+    the backbone under the JAX package's name ``model`` and, for RR, the
+    AutoEncoders ``AE_01`` (view 1 -> view 2) and ``AE_02`` (2 -> 1), whose
+    BatchNorm statistics are buffers carried from step to step. ``forward``
+    returns (loss, accuracy); RR's accuracy is 0, as the JAX driver's."""
+
+    def __init__(self, model: nn.Module, option: str, temperature: float = 0.1,
+                 num_neg: int = 1, normalize: bool = False,
+                 ae_01: Optional[AutoEncoder] = None,
+                 ae_02: Optional[AutoEncoder] = None, plain: bool = False):
+        super().__init__()
+        if option not in ("InfoNCE", "EBM_NCE", "RR"):
+            raise ValueError(f"GraphSSL: unknown option {option!r}")
+        if (option == "RR") != (ae_01 is not None and ae_02 is not None):
+            raise ValueError("GraphSSL: RR, and RR only, takes ae_01 and ae_02")
+        self.model = model
+        self.option = option
+        self.temperature = temperature
+        self.num_neg = num_neg
+        self.normalize = normalize
+        self.plain = plain
+        if option == "RR":
+            self.AE_01 = ae_01
+            self.AE_02 = ae_02
+
+    def forward(self, batch, pos2):
+        (g1, _), (g2, _), _ = encode_views(self.model, batch, pos2, self.plain)
+        if self.normalize:
+            g1, g2 = l2_normalize(g1), l2_normalize(g2)
+        gm = batch.graph_mask
+        if self.option == "InfoNCE":
+            return dual_infonce_loss(g1, g2, self.temperature, gm)
+        if self.option == "EBM_NCE":
+            return ebm_nce_loss(g1, g2, gm, num_neg=self.num_neg)
+        loss = (self.AE_01(g1, g2, gm) + self.AE_02(g2, g1, gm)) / 2
+        return loss, torch.zeros((), device=loss.device)
 
 
 def make_ddm(args, cfg, generator: torch.Generator) -> DDM:
@@ -133,11 +203,21 @@ def make_ddm(args, cfg, generator: torch.Generator) -> DDM:
                plain=not common.use_kernels(args))
 
 
+def make_graph_ssl(args, cfg, generator: torch.Generator) -> GraphSSL:
+    """The backbone and, for RR, the two AutoEncoders, drawn from
+    ``generator`` in that order."""
+    model = common.make_backbone(cfg, generator)
+    aes = ([AutoEncoder(args.emb_dim, args.AE_loss, args.detach_target,
+                        generator) for _ in range(2)]
+           if args.GeoSSL_option == "RR" else [None, None])
+    return GraphSSL(model, args.GeoSSL_option, args.T, args.CL_neg_samples,
+                    args.normalize, *aes, plain=not common.use_kernels(args))
+
+
 def batch_views(args, batch, generator):
     """(perturbed positions, pair selection) of one batch, drawn from
     ``generator`` in this order."""
-    pos2 = perturb_positions(generator, batch.positions, args.GeoSSL_mu,
-                             args.GeoSSL_sigma)
+    pos2 = view_positions(args, batch, generator)
     option = "permutation" if args.SM_noise_type == "random" else "combination"
     ratio = args.distance_sample_ratio
     sel = pair_selection(batch.node_mask, option, ratio,
@@ -145,34 +225,53 @@ def batch_views(args, batch, generator):
     return pos2, sel
 
 
-def train_step(ddm: DDM, opt, sched, batches, args, generator) -> torch.Tensor:
+def view_positions(args, batch, generator):
+    """View 2: the positions plus N(``GeoSSL_mu``, ``GeoSSL_sigma``)."""
+    return perturb_positions(generator, batch.positions, args.GeoSSL_mu,
+                             args.GeoSSL_sigma)
+
+
+def loss_of(module: nn.Module, args):
+    """``(batch, generator)`` -> (loss, accuracy) of ``module`` (a
+    :class:`DDM` or a :class:`GraphSSL`), its draws from the generator."""
+    if isinstance(module, DDM):
+        def ddm_loss(batch, generator):
+            loss = module(batch, *batch_views(args, batch, generator),
+                          generator=generator)
+            return loss, torch.zeros((), device=loss.device)
+        return ddm_loss
+    return lambda batch, generator: module(
+        batch, view_positions(args, batch, generator))
+
+
+def train_step(ddm: nn.Module, opt, sched, batches, args,
+               generator) -> torch.Tensor:
     """One optimizer step over ``batches`` (gradients averaged over the
-    group, as ``--grad_accum`` does); returns the mean loss on the device."""
-    opt.zero_grad(set_to_none=True)
-    total = 0.0
-    for batch in batches:
-        pos2, sel = batch_views(args, batch, generator)
-        loss = ddm(batch, pos2, sel, generator=generator)
-        (loss / len(batches)).backward()
-        total = total + loss.detach()
-    opt.step()
-    sched.step()
-    return total / len(batches)
+    group, as ``--grad_accum`` does); returns the mean loss on the device.
+    ``ddm``: a :class:`DDM` or a :class:`GraphSSL`."""
+    fn = loss_of(ddm, args)
+    return common.pretrain_step(ddm, opt, sched, batches,
+                                lambda b: fn(b, generator))[0]
 
 
 def main(argv=None):
-    """Train; returns (the DDM module, every step's loss as floats)."""
+    """Train; returns (the DDM or GraphSSL module, every step's loss as
+    floats)."""
     args = build_parser().parse_args(argv)
-    if args.GeoSSL_option != "DDM":
-        raise NotImplementedError(f"--GeoSSL_option {args.GeoSSL_option}: "
-                                  "only DDM is ported (ROADMAP.md queue 1)")
+    option = args.GeoSSL_option
+    group_lr = None
     if args.gnn_2d_lr_scale is not None:
-        raise NotImplementedError("--gnn_2d_lr_scale applies to RR, which is "
-                                  "not ported")
+        if option != "RR":
+            raise SystemExit("--gnn_2d_lr_scale only applies to the RR "
+                             "AutoEncoder heads (GeoSSL_option=RR)")
+        # the reference's quirk: the AE groups' lr is the scale itself
+        # (pretrain_GeoSSL.py:335-337), a factor on the base lr here
+        f = args.gnn_2d_lr_scale / args.lr
+        group_lr = {"AE_01": f, "AE_02": f}
     common.check_ported_args(args)
     cfg = common.model_config_from_args(args)
     device = resolve_device(args.device)
-    common.check_driver_limits(args, cfg, device, ncsn=True)
+    common.check_driver_limits(args, cfg, device, ncsn=option == "DDM")
     subset = None
     if args.dataset.startswith("Molecule3D_"):
         subset = int(args.dataset.split("_")[-1])
@@ -184,50 +283,25 @@ def main(argv=None):
     if args.GeoSSL_atom_masking_ratio > 0:
         transform = make_bfs_transform(args.GeoSSL_atom_masking_ratio)
 
-    ddm = make_ddm(args, cfg, torch.Generator().manual_seed(args.seed))
+    generator = torch.Generator().manual_seed(args.seed)
+    module = (make_ddm(args, cfg, generator) if option == "DDM"
+              else make_graph_ssl(args, cfg, generator))
     if args.input_model_file:
         from geossl_tpu_torch.utils.torch_import import load_torch_checkpoint
 
-        ddm.model.load_state_dict(load_torch_checkpoint(args.input_model_file)["model"])
-    ddm.to(device)
+        module.model.load_state_dict(
+            load_torch_checkpoint(args.input_model_file)["model"])
+    module.to(device)
     loader = BucketedLoader(store, args.batch_size, common.buckets(args),
                             seed=args.seed, transform=transform)
+    params = (module.parameters() if group_lr is None else optim.param_groups(
+        dict(module.named_children()), args.lr, group_lr))
     opt, sched = common.make_optimizer_from_args(
-        args, ddm.parameters(),
-        common.opt_steps_per_epoch(len(loader), args.grad_accum))
-
-    saver = checkpoints.BestModelSaver(args.output_model_dir)
-    mlog = common.MetricLogger(args.log_file)
-    start_epoch, best, extra = common.try_resume(args, {"ddm": ddm}, opt, sched)
-    plateau = common.make_plateau(args, extra)
-    saver.best_metric = best
-    history = []
-    for epoch in range(start_epoch, args.epochs + 1):
-        timer = common.EpochTimer()
-        generator = torch.Generator(device).manual_seed(
-            hash((args.seed + 1, epoch)) % (2**31))
-        losses = [train_step(ddm, opt, sched, [b.to(device) for b in group],
-                             args, generator)
-                  for group in common.accum_groups(loader.epoch(epoch),
-                                                   args.grad_accum)]
-        # one device-to-host copy per epoch
-        losses = torch.stack(losses).tolist()
-        history += losses
-        mean_loss = sum(losses) / len(losses)
-        if plateau is not None:
-            optim.set_plateau_scale(sched, plateau.step(mean_loss))
-        saved = saver.maybe_save_best(
-            mean_loss, lambda: {"model": ddm.model.state_dict()})
-        print(f"Epoch: {epoch}\tSSL Loss: {mean_loss:.5f}\tSSL Acc: 0.00000"
-              f"\tTime: {timer.elapsed():.3f}" + ("\t[saved best]" if saved else ""))
-        mlog.log(epoch=epoch, loss=mean_loss, acc=0.0,
-                 time_s=round(timer.elapsed(), 3), saved_best=saved)
-        common.maybe_save_state(args, {"ddm": ddm}, opt, sched, epoch,
-                                saver.best_metric,
-                                plateau.state() if plateau else None)
-    saver.save_final({"model": ddm.model.state_dict()})
-    mlog.log(final=True, best_loss=saver.best_metric, epochs=args.epochs)
-    return ddm, history
+        args, params, common.opt_steps_per_epoch(len(loader), args.grad_accum))
+    history = common.run_pretrain(
+        args, module, "ddm" if option == "DDM" else "ssl", opt, sched, loader,
+        loss_of(module, args), device, labels=("SSL Loss", "SSL Acc"))
+    return module, history
 
 
 if __name__ == "__main__":

@@ -2,11 +2,16 @@
 ``geossl_tpu/utils/torch_import.py``).
 
 * ``schnet_state_dict_from_flax`` / ``painn_state_dict_from_flax`` /
-  ``head_state_dict_from_flax`` (every head, LEP's dual one too) /
-  ``ncsn_state_dict_from_flax`` turn the
-  JAX package's param trees (numpy arrays, flax ``[in, out]`` kernels) into
-  the port's state_dicts (torch ``[out, in]`` weights, the reference's key
-  names), keeping the arrays' dtype.
+  ``head_state_dict_from_flax`` (every head, LEP's dual one too, and the
+  charge and torsion heads) / ``ncsn_state_dict_from_flax`` (and the
+  ``_v1_``/``_v2_`` heads) / ``autoencoder_state_dict_from_flax`` (with its
+  ``batch_stats``) / ``distance_head_state_dict_from_flax`` /
+  ``infograph_state_dict_from_flax`` turn the JAX package's param trees
+  (numpy arrays, flax ``[in, out]`` kernels) into the port's state_dicts
+  (torch ``[out, in]`` weights, the reference's key names), keeping the
+  arrays' dtype. ``baseline_state_dict_from_flax`` carries a whole
+  baseline-pretraining tree (``model``, ``head`` or contextpred's second
+  backbone ``context_model``) through them.
 * ``load_torch_checkpoint`` reads a reference ``.pth`` of either backbone:
   a bare backbone state_dict or ``{"model": ..., "graph_pred_linear": ...}``.
 """
@@ -30,12 +35,17 @@ def _t(a, transpose: bool = False) -> torch.Tensor:
     return torch.tensor(a.T if transpose else a)
 
 
-def _dense(tree, bias: bool = True) -> Dict[str, torch.Tensor]:
-    p = tree["Dense_0"]
+def _linear(p, bias: bool = True) -> Dict[str, torch.Tensor]:
+    """A flax ``nn.Dense``'s params -> ``nn.Linear``'s."""
     out = {"weight": _t(p["kernel"], transpose=True)}
     if bias:
         out["bias"] = _t(p["bias"])
     return out
+
+
+def _dense(tree, bias: bool = True) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``Dense`` wrapper (one ``nn.Dense`` inside)."""
+    return _linear(tree["Dense_0"], bias)
 
 
 def schnet_state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
@@ -109,6 +119,78 @@ def ncsn_state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
     ``out0_h`` as ``nn.Linear(emb, emb, bias=False)``."""
     sd = {k: _t(v) for k, v in tree.items() if k != "out0_h"}
     sd["out0_h.weight"] = _t(tree["out0_h"]["kernel"], transpose=True)
+    return sd
+
+
+def _mlp(tree, prefix: str) -> Dict[str, torch.Tensor]:
+    """A flax ``MLP``'s ``Dense_k`` layers -> ``{prefix}layers.{k}.*``."""
+    return {f"{prefix}layers.{k}.{kk}": v
+            for k in range(len(tree))
+            for kk, v in _linear(tree[f"Dense_{k}"]).items()}
+
+
+def ncsn_v1_state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """JAX ``NCSNv1`` params -> the port's ``NCSNv1`` (``output_mlp``)."""
+    return _mlp(tree["MLP_0"], "output_mlp.")
+
+
+def ncsn_v2_state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """JAX ``NCSNv2`` params -> the port's ``NCSNv2``: ``distance_mlp``
+    (``MLP_0``), ``out0_h``, ``out0_d`` and ``output_mlp`` (``MLP_1``)."""
+    sd = {**_mlp(tree["MLP_0"], "distance_mlp."),
+          **_mlp(tree["MLP_1"], "output_mlp."),
+          "out0_h.weight": _t(tree["out0_h"]["kernel"], transpose=True)}
+    sd.update({f"out0_d.{k}": v for k, v in _linear(tree["out0_d"]).items()})
+    return sd
+
+
+def autoencoder_state_dict_from_flax(params, batch_stats=None
+                                     ) -> Dict[str, torch.Tensor]:
+    """JAX ``AutoEncoder`` params (and its ``batch_stats``) -> the port's
+    ``AutoEncoder``: ``fc_layers.0`` (``Dense_0``), ``fc_layers.1``
+    (``MaskedBatchNorm_0``: scale as ``weight``, its running mean and
+    variance) and ``fc_layers.3`` (``Dense_1``)."""
+    bn = params["MaskedBatchNorm_0"]
+    sd = {"fc_layers.1.weight": _t(bn["scale"]),
+          "fc_layers.1.bias": _t(bn["bias"])}
+    for k, sub in ((0, "Dense_0"), (3, "Dense_1")):
+        sd.update({f"fc_layers.{k}.{kk}": v
+                   for kk, v in _linear(params[sub]).items()})
+    if batch_stats is not None:
+        stats = batch_stats["MaskedBatchNorm_0"]
+        sd["fc_layers.1.running_mean"] = _t(stats["mean"])
+        sd["fc_layers.1.running_var"] = _t(stats["var"])
+    return sd
+
+
+def distance_head_state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """JAX ``DistancePredictor`` params (one ``kernel`` [2F, 1]) -> the
+    port's ``DistancePredictor`` (``nn.Linear(2F, 1)``)."""
+    return {"weight": _t(tree["kernel"], transpose=True),
+            "bias": _t(tree["bias"])}
+
+
+def infograph_state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """JAX ``InfoGraphDiscriminator`` params -> the port's (``weight``
+    [H, H] in the same orientation: ``summary @ weight``)."""
+    return {"weight": _t(tree["weight"])}
+
+
+def baseline_state_dict_from_flax(objective: str, tree, model_3d: str
+                                  ) -> Dict[str, torch.Tensor]:
+    """A JAX ``pretrain_baselines`` param tree -> the port's ``Baseline``
+    state_dict: ``model`` (and contextpred's ``context_model``) through the
+    backbone's converter, ``head`` through its own."""
+    backbone = (painn_state_dict_from_flax if model_3d == "painn"
+                else schnet_state_dict_from_flax)
+    head = {"distance": distance_head_state_dict_from_flax,
+            "infograph": infograph_state_dict_from_flax}.get(
+                objective, head_state_dict_from_flax)
+    sd = {}
+    for name, conv in (("model", backbone), ("context_model", backbone),
+                       ("head", head)):
+        if name in tree:
+            sd.update({f"{name}.{k}": v for k, v in conv(tree[name]).items()})
     return sd
 
 

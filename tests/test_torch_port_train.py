@@ -385,14 +385,22 @@ def test_driver_cli_on_cpu_writes_model_pth_that_serves(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--GeoSSL_option", "RR"], "only DDM"),
-    (["--GeoSSL_option", "InfoNCE"], "only DDM"),
+    (["--profile_dir", "trace"], "profile_dir"),
+    (["--num_processes", "2"], "num_processes"),
     (["--steps_per_call", "2"], "steps_per_call"),
     (["--num_devices", "4"], "num_devices"),
 ])
 def test_driver_refuses_unported_paths(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         PG.main(_train_argv(tmp_path, "--epochs", "1", *extra))
+
+
+@pytest.mark.parametrize("option", ["DDM", "InfoNCE", "EBM_NCE"])
+def test_driver_refuses_lr_scale_without_rr(tmp_path, option):
+    """As the JAX driver: a SystemExit naming the RR AutoEncoder heads."""
+    with pytest.raises(SystemExit, match="only applies to the RR"):
+        PG.main(_train_argv(tmp_path, "--epochs", "1", "--GeoSSL_option",
+                            option, "--gnn_2d_lr_scale", "1.0"))
 
 
 def test_driver_runs_on_cuda_by_default(tmp_path, monkeypatch):
