@@ -221,6 +221,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
       one traced step (device ms, port-kernel ms, idle share), one
       ``pretrain:`` line per objective and backbone with the card's name
       and power limit.
+   h. The rest of serving, per backbone at full width. First the custom
+      ops' host cost: ``cfconv_fwd`` (symmetric, one graph of 32 atoms)
+      through its ``torch.library`` op and through the launch code, five
+      rounds in turns (``custom_op_overhead:``; eager calls run the launch
+      code directly, ``ops/_launch.launch``: the route above 5 us).
+      ``Predictor.predict_pairs`` on 64 synthetic LEP pairs at bucket 512
+      and one 128x512 pair from phase 3c's LEP-SchNet ``model.pth`` (PaiNN:
+      the DDM-PaiNN backbone with a seeded dual head), held to the same
+      pairs through the plain versions at rtol 1e-4 / atol 1e-5·max: the
+      probabilities, and the logits of both towers through the route and
+      through the plain versions on the same packed chunks (a seeded head
+      may saturate the sigmoid) (``pairs:`` lines). Then ``export.seal`` of phase 3e's QM9
+      ``model.pth`` over the ladder (32, 128, 512) in predict, embed and
+      forces, and of the LEP checkpoint in pairs over [512];
+      ``SealedPredictor.load``; each mode on the serving store (pairs on
+      the 64 pairs) held to the live Predictor at the same tolerance; the
+      port's kernels counted by the profiler in one live and one sealed
+      pass per mode, which must agree (the serving kernels of the
+      backbone's route must run inside the programs); a 128x512 pair must
+      raise (not sealed); ``sealed:`` lines (export s, artifact MB, load
+      s, first and steady pass against the live Predictor). Last, ``serve``
+      on an ``.sdf`` that the phase writes, from the QM9-SchNet
+      ``model.pth`` and from its artifact, against ``predict`` on the same
+      file.
 4. Measurements: serving mol/s per bucket (steady state, synchronized) and
    one traced pass per bucket (torch.profiler: device busy time, the
    port's kernels' share, idle share); training mol/s per bucket (median of
@@ -268,7 +292,10 @@ launches over both QM9 epochs of phase 3e; ``md17_launches``: each
 kernel's launches in one MD17 training step of phase 3f, both backbones;
 ``pretrain_launches``: each kernel's launches in one step at bucket 128 of
 each objective of phase 3g, per ``<backbone>/<objective>``;
-``second_order``: how a backward kernel's Function is differentiated); the
+``pairs_launches``: each kernel's launches in phase 3h's first live pairs
+pass, per backbone; ``sealed_launches``: each kernel's launches inside the
+sealed programs over phase 3h's sealed passes (the profiler's count), per
+backbone; ``second_order``: how a backward kernel's Function is differentiated); the
 last line is
 ``{"ok": true, "device": {...}}``. The whole output is also written to
 ``runs/chip_smoke.log``.
@@ -724,16 +751,17 @@ def measure_serving_route(pred, batches, model_3d, stack_kernel):
     out = {}
     for b, batch in batches.items():
         args = (batch.atom_type, batch.positions, batch.node_mask)
+        filters, stacked = pred._prep
         fns = {"stack": lambda: pred._stack_apply(pred.model, *args,
-                                                  stacked=pred._stacked),
-               "per_block": lambda: pred.model(*args, filters=pred._filters)}
+                                                  stacked=stacked),
+               "per_block": lambda: pred.model(*args, filters=filters)}
         times = {k: [] for k in fns}
         with torch.inference_mode():
             for _ in range(3):
                 for k, fn in fns.items():
                     times[k].append(cuda_time_ms(fn, reps=5, warmup=1))
             reset_launch_counts()
-            pred._graph_repr(batch)
+            pred._graph_repr(pred._prep, *args)
             torch.cuda.synchronize()
         routed = "stack" if launch_counts()[stack_kernel] else "per_block"
         med = {k: sorted(v)[1] for k, v in times.items()}
@@ -1813,6 +1841,342 @@ def pretrain_path(errs, dev, card, batch_of):
     return launches
 
 
+# -- Phase 3h: the rest of serving -------------------------------------------
+# LEP pair serving at bucket 512 (and one mixed 128x512 pair), sealed
+# artifacts over the ladder (32, 128, 512) in all four modes (pairs over
+# [512]) held to the live Predictor, the kernels counted inside the sealed
+# programs by the profiler, .sdf input through the CLI, and the custom ops'
+# host cost per launch
+SEAL_LADDER = (32, 128, 512)
+# each serving kernel's entry function, as the profiler names it
+# (demangled): the sealed programs must run these and no plain version
+SEALED_KERNELS = {"schnet_stack": "schnet_stack_kernel",
+                  "cfconv_fwd_sym": "cfconv_fwd_sym_kernel",
+                  "cfconv_bwd_sym": "cfconv_bwd_kernel<true",
+                  "painn_stack": "painn_stack_kernel<false",
+                  "painn_fwd": "painn_fwd_mma_kernel",
+                  "painn_bwd": "painn_bwd_mma_kernel"}
+# the serving kernels each backbone's sealed passes must run
+SEALED_PATH = {"schnet": ("schnet_stack", "cfconv_fwd_sym", "cfconv_bwd_sym"),
+               "painn": ("painn_stack", "painn_fwd", "painn_bwd")}
+# the index-coded atom types' element symbols (8, unknown: a symbol the
+# featurizer does not know)
+SDF_SYMBOLS = ("H", "C", "N", "O", "F", "P", "S", "Cl", "Xx")
+
+
+def kernel_calls(fn):
+    """{kernel name: launches} of the port's kernels (``geossl::``) in one
+    traced call of fn."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "geossl::" in e.name:
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return calls
+
+
+def by_table_name(calls):
+    """{table kernel: launches} from ``kernel_calls``' names."""
+    return {k: sum(c for name, c in calls.items() if sub in name)
+            for k, sub in SEALED_KERNELS.items()}
+
+
+def host_us_per_call(fn, reps=400):
+    """Host microseconds per call of fn, issued back to back (the device
+    runs behind: a small launch keeps it from setting the pace)."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def custom_op_overhead(dev):
+    """The host cost of a launch through its custom op against the launch
+    code called directly: ``cfconv_fwd`` in symmetric mode on one graph of
+    32 atoms (a device time of a few microseconds), five rounds in turns;
+    prints the ``custom_op_overhead:`` line and returns the median extra
+    microseconds per launch."""
+    import math
+
+    import torch
+
+    from geossl_tpu_torch.ops import _launch
+    from geossl_tpu_torch.ops import cfconv as K
+
+    gen = torch.Generator(dev).manual_seed(SEED)
+    pos = torch.randn((1, 32, 3), generator=gen, device=dev) * 2.0
+    dist = torch.cdist(pos, pos).contiguous()
+    env = (0.5 * (torch.cos(dist * math.pi / 10.0) + 1.0)).contiguous()
+    x = torch.randn((1, 32, 128), generator=gen, device=dev)
+    w1, b1 = (torch.randn(s, generator=gen, device=dev) * 0.1
+              for s in ((51, 128), (128,)))
+    w2, b2 = (torch.randn(s, generator=gen, device=dev) * 0.1
+              for s in ((128, 128), (128,)))
+    args = (dist, env, x, w1, b1, w2, b2, 0.0, 10.0, 51, True, False)
+    op = _launch.OPS["cfconv_fwd"]
+    # the symmetric mode sums with atomics: the same within f32 rounding
+    if not torch.allclose(op(*args), K._launch_cfconv(*args), rtol=RTOL,
+                          atol=ATOL):
+        fail("custom_op_overhead: the op and the launch code disagree")
+    rounds = {"direct": [], "op": []}
+    for _ in range(5):
+        rounds["direct"].append(host_us_per_call(
+            lambda: K._launch_cfconv(*args)))
+        rounds["op"].append(host_us_per_call(lambda: op(*args)))
+    med = {k: sorted(v)[2] for k, v in rounds.items()}
+    extra = med["op"] - med["direct"]
+    # eager calls run the launch code directly (ops/_launch.launch): the
+    # route for an op that adds more than 5 us a launch
+    print("custom_op_overhead: " + json.dumps({
+        "kernel": "cfconv_fwd_sym", "shape": "B=1 N=32",
+        "direct_us": med["direct"], "op_us": med["op"], "extra_us": extra,
+        "rounds_us": rounds, "eager_route": "direct",
+        "route_follows": extra > 5.0}))
+    return extra
+
+
+def write_sdf(path, store, idx):
+    """The molecules ``idx`` of ``store`` as V2000 SDF blocks (no bonds;
+    index-coded atom types as their element symbols)."""
+    with open(path, "w") as f:
+        for i in idx:
+            r = store.get(int(i))
+            f.write(f"mol{i}\n  chip_smoke\n\n{r.num_atoms:3d}  0  0  0  0  0"
+                    "  0  0  0  0999 V2000\n")
+            for t, (x, y, z) in zip(r.atom_type, r.positions):
+                f.write(f"{x:10.4f}{y:10.4f}{z:10.4f} "
+                        f"{SDF_SYMBOLS[int(t)]:<3} 0  0  0  0  0  0  0  0"
+                        "  0  0  0  0\n")
+            f.write("M  END\n$$$$\n")
+
+
+def pair_logits(pred, active, inactive, idx, chunk=4):
+    """(kernel logits, plain logits) of the pairs ``idx`` (one bucket
+    pair), both towers through the Predictor's route and through
+    ``model(plain=True)`` on the same packed chunks of ``chunk`` pairs; the
+    stores as the Predictor sorts them. The logits, not only the
+    probabilities: a seeded head may saturate the sigmoid."""
+    import numpy as np
+    import torch
+
+    from geossl_tpu_torch.data.bucketing import assign_buckets
+
+    na = assign_buckets(active.num_atoms(), pred.bucket_sizes)
+    ni = assign_buckets(inactive.num_atoms(), pred.bucket_sizes)
+    if len(set(zip(na[idx], ni[idx]))) != 1:
+        fail("pair_logits: the pairs span several bucket pairs")
+    got, want = [], []
+    with torch.inference_mode():
+        for s in range(0, len(idx), chunk):
+            part = idx[s:s + chunk]
+            towers = [pred._pack(st, part, int(nb[part[0]]), len(part))
+                      for st, nb in ((active, na), (inactive, ni))]
+            args = [t for tw in towers
+                    for t in (tw.atom_type, tw.positions, tw.node_mask)]
+            got.append(pred._pair_logit_fn(pred._prep, *args).cpu().numpy())
+            graphs = [pred.model(t.atom_type, t.positions, t.node_mask,
+                                 plain=True)[0] for t in towers]
+            want.append(pred.head(*graphs).cpu().numpy())
+    return np.concatenate(got), np.concatenate(want)
+
+
+def check_close(what, got, want):
+    """Elementwise within rtol RTOL and atol ATOL times max|want|."""
+    import numpy as np
+
+    atol = ATOL * max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max())
+    if got.shape != want.shape or not np.isfinite(got).all() or \
+            not (np.abs(got - want) <= atol + RTOL * np.abs(want)).all():
+        fail(f"{what}: max_abs_err {err:.3e} beyond rtol {RTOL} atol "
+             f"{atol:.3e} (shapes {got.shape}, {want.shape})")
+    return err
+
+
+def serving_rest_path(dev, card, single, dual, serve_store):
+    """Phase 3h for both backbones. ``single[model_3d]`` / ``dual[model_3d]``
+    are checkpoint paths with a single head / LEP's dual head at full width;
+    ``serve_store`` is the serving store (molecules of 3–100 atoms and LBA
+    complexes of up to 512). Returns ({model_3d: pairs launches},
+    {model_3d: {kernel: sealed launches}})."""
+    import numpy as np
+    import torch
+
+    from geossl_tpu_torch import serve
+    from geossl_tpu_torch.config import ModelConfig
+    from geossl_tpu_torch.data.store import MolStore
+    from geossl_tpu_torch.data.synthetic import synthetic_lep
+    from geossl_tpu_torch.export import SealedPredictor, seal
+    from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
+    from geossl_tpu_torch.serve import Predictor
+
+    custom_op_overhead(dev)
+    # 64 LEP pairs at bucket 512 (both conformations 257-512 atoms) and one
+    # mixed pair: an active of 65-128 atoms against an inactive at 512
+    act, inact, _ = synthetic_lep(256, seed=5, max_atoms=512)
+    sizes = act.num_atoms()
+    big = np.nonzero(sizes > 256)[0][:64]
+    small = np.nonzero((sizes > 64) & (sizes <= 128))[0][:1]
+    if len(big) < 64 or len(small) < 1:
+        fail("phase 3h: the synthetic LEP draw lacks pairs at 512 or 128")
+    active = act.select(np.concatenate([big, small]))
+    inactive = inact.select(np.concatenate([big, big[:1]]))
+    mixed = len(big)  # the last pair: 128 x 512
+    work = os.path.join(ROOT, "runs", "chip_smoke_serve")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    pairs_launches, sealed_launches = {}, {}
+    for model_3d in ("schnet", "painn"):
+        cfg = ModelConfig(model_3d=model_3d)
+        # -- pairs: live, against the plain versions ----------------------
+        pred_d = Predictor.from_checkpoint(dual[model_3d], cfg)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        probs = pred_d.predict_pairs(active, inactive)
+        first_s = time.perf_counter() - t0
+        pairs_launches[model_3d] = {k: v for k, v in launch_counts().items()
+                                    if v}
+        for name in SEALED_PATH[model_3d][1:2]:
+            if pairs_launches[model_3d].get(name, 0) == 0:
+                fail(f"pairs {model_3d}: kernel {name} was not launched")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pred_d.predict_pairs(active, inactive)
+            times.append(time.perf_counter() - t0)
+        steady = sorted(times)[1]
+        sa, si = pred_d._maybe_sort(active), pred_d._maybe_sort(inactive)
+        idx = np.arange(len(active))
+        logits = [pair_logits(pred_d, sa, si, part)
+                  for part in (idx[:mixed], idx[mixed:])]
+        got_l, want_l = (np.concatenate(x) for x in zip(*logits))
+        err_l = check_close(f"pair logits {model_3d} vs plain", got_l, want_l)
+        want = 1.0 / (1.0 + np.exp(-want_l.astype(np.float64)))
+        err = check_close(f"pairs {model_3d} vs plain", probs, want)
+        print("pairs: " + json.dumps({
+            "model": model_3d, "pairs": len(active),
+            "buckets": {"512x512": mixed, "128x512": 1},
+            "first_pass_s": first_s, "steady_pass_s": steady,
+            "pairs_per_s": len(active) / steady,
+            "logit_range": [float(want_l.min()), float(want_l.max())],
+            "max_abs_err_vs_plain": {"logit": err_l, "probability": err},
+            "launches": pairs_launches[model_3d], "card": card}))
+        # -- sealed artifacts: all four modes ---------------------------------
+        pred_s = Predictor.from_checkpoint(single[model_3d], cfg,
+                                           bucket_sizes=SEAL_LADDER)
+        pred_l = Predictor.from_checkpoint(dual[model_3d], cfg,
+                                           bucket_sizes=SEAL_LADDER)
+        path_s = os.path.join(work, f"{model_3d}.sealed")
+        path_l = os.path.join(work, f"{model_3d}_lep.sealed")
+        t0 = time.perf_counter()
+        sizes_s = seal(pred_s, path_s, modes=("predict", "embed", "forces"))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sizes_l = seal(pred_l, path_l, modes=("pairs",), pair_buckets=(512,))
+        export_l = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sealed = SealedPredictor.load(path_s)
+        sealed_l = SealedPredictor.load(path_l)
+        load_s = time.perf_counter() - t0
+        store = serve_store
+        modes = {
+            "predict": (lambda p: p.predict(store)),
+            "embed": (lambda p: p.embed(store)),
+            "forces": (lambda p: np.concatenate(
+                [a.reshape(-1) for a in p.predict_forces(store)])),
+        }
+        report = {"model": model_3d, "card": card,
+                  "export_s": {"predict_embed_forces": export_s,
+                               "pairs": export_l},
+                  "programs": len(sizes_s) + len(sizes_l),
+                  "artifact_mb": {"single": os.path.getsize(path_s) / 1e6,
+                                  "lep": os.path.getsize(path_l) / 1e6},
+                  "load_s": load_s, "modes": {}}
+        counts = {}
+        for mode, run in [*modes.items(),
+                          ("pairs", None)]:
+            if mode == "pairs":
+                live_p, sealed_p = pred_l, sealed_l
+                sub = [i for i in range(len(active)) if i != mixed]
+
+                def run(p, sub=sub):
+                    return p.predict_pairs(active.select(sub),
+                                           inactive.select(sub))
+            else:
+                live_p, sealed_p = pred_s, sealed
+            t0 = time.perf_counter()
+            got = run(sealed_p)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            want = run(live_p)
+            err = check_close(f"sealed {model_3d} {mode} vs live", got, want)
+            laps = {"live": [], "sealed": []}
+            for _ in range(3):
+                for k, p in (("live", live_p), ("sealed", sealed_p)):
+                    t0 = time.perf_counter()
+                    run(p)
+                    torch.cuda.synchronize()
+                    laps[k].append(time.perf_counter() - t0)
+            live_calls = by_table_name(kernel_calls(lambda: run(live_p)))
+            sealed_calls = by_table_name(kernel_calls(lambda: run(sealed_p)))
+            if sealed_calls != live_calls:
+                fail(f"sealed {model_3d} {mode}: kernels {sealed_calls}, the "
+                     f"live route runs {live_calls}")
+            for k, v in sealed_calls.items():
+                counts[k] = counts.get(k, 0) + v
+            report["modes"][mode] = {
+                "max_abs_err_vs_live": err, "first_pass_s": first,
+                "steady_pass_s": {k: sorted(v)[1] for k, v in laps.items()},
+                "kernels": {k: v for k, v in sealed_calls.items() if v}}
+        for name in SEALED_PATH[model_3d]:
+            if counts.get(name, 0) == 0:
+                fail(f"sealed {model_3d}: kernel {name} never ran inside the "
+                     "sealed programs")
+        try:
+            sealed_l.predict_pairs(active.select([mixed]),
+                                   inactive.select([mixed]))
+            fail("sealed pairs: a 128x512 pair outside the sealed [512] "
+                 "pair ladder did not raise")
+        except ValueError as e:
+            if "pairs_128x512" not in str(e):
+                raise
+        sealed_launches[model_3d] = {k: v for k, v in counts.items() if v}
+        print("sealed: " + json.dumps(report))
+    # -- .sdf input through the CLI, live and sealed --------------------------
+    sdf = os.path.join(work, "mols.sdf")
+    write_sdf(sdf, serve_store, range(0, len(serve_store), 37))
+    from_sdf = serve.store_from_sdf(sdf)
+    live = Predictor.from_checkpoint(single["schnet"], ModelConfig(),
+                                     bucket_sizes=SEAL_LADDER)
+    want = live.predict(from_sdf)
+    for ckpt in (single["schnet"], os.path.join(work, "schnet.sealed")):
+        csv = os.path.join(work, "preds.csv")
+        serve.main(["--ckpt", ckpt, "--input", sdf, "--output", csv,
+                    "--bucket", *map(str, SEAL_LADDER)])
+        rows = [line.split(",") for line in open(csv).read().splitlines()]
+        got = np.asarray([float(r[1]) for r in rows], np.float32)
+        check_close(f"serve --input .sdf --ckpt {os.path.basename(ckpt)}",
+                    got, want)
+    print("sdf: " + json.dumps({"molecules": len(from_sdf),
+                                "atoms": int(from_sdf.offsets[-1]),
+                                "served": ["pth", "sealed"]}))
+    return pairs_launches, sealed_launches
+
+
 def rel_norm(a, b):
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
@@ -2551,6 +2915,27 @@ def main():
     # pretrain_launches: each kernel's launches per step)
     pretrain_launches = pretrain_path(errs, dev, card, train_batch)
 
+    # -- 3h. main path: the rest of serving -----------------------------------
+    # LEP pairs from phase 3c's LEP-SchNet model.pth (PaiNN: the DDM-PaiNN
+    # backbone with a seeded dual head), sealed artifacts of phase 3e's
+    # QM9 model.pth per backbone and of the LEP checkpoints, .sdf input,
+    # the custom ops' host cost (the kernel table's pairs_launches and
+    # sealed_launches)
+    lep_painn = os.path.join(ROOT, "runs", "chip_smoke_lep_painn.pth")
+    torch.save({
+        "model": torch.load(os.path.join(out_dir_p, "model.pth"),
+                            weights_only=True)["model"],
+        "graph_pred_linear": common.DualHead(
+            cfg_p.emb_dim, torch.Generator().manual_seed(SEED)).state_dict()},
+        lep_painn)
+    pairs_launches, sealed_launches = serving_rest_path(
+        dev, card,
+        {m: os.path.join(ROOT, "runs", f"chip_smoke_qm9_{m}", "model.pth")
+         for m in ("schnet", "painn")},
+        {"schnet": os.path.join(ROOT, "runs", "chip_smoke_lep_schnet",
+                                "model.pth"), "painn": lep_painn},
+        store)
+
     # -- 4. measurements -----------------------------------------------------------
     subs = {b: MolStore.from_records([sorted_store.get(int(i))
                                       for i in np.nonzero(bucket_of == b)[0]])
@@ -3172,6 +3557,10 @@ def main():
             "md17_launches": md17_launches.get(name, 0),
             "pretrain_launches": {run: per_step.get(name, 0) for run, per_step
                                   in pretrain_launches.items()},
+            "pairs_launches": {m: c.get(name, 0)
+                               for m, c in pairs_launches.items()},
+            "sealed_launches": {m: c.get(name, 0)
+                                for m, c in sealed_launches.items()},
             "second_order": SECOND_ORDER.get(name),
             "max_abs_err": errs.max_abs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),

@@ -5,11 +5,23 @@ shared-memory checks, and the launch counters.
 Each wrapper is registered with :func:`counted`, which gives it a
 ``launches`` attribute; the wrapper adds one where it launches its kernel,
 and nowhere else. :func:`launch_counts` reads every registered wrapper.
+
+Every kernel launch is also a ``torch.library`` custom op in the
+``geossl_torch`` namespace (:data:`OPS`), so that ``torch.export`` can
+capture it (``export.py``'s sealed programs). Each op's CUDA
+implementation is the launch code, its CPU implementation the wrapper's
+plain version, and its fake implementation gives the output shapes. Eager
+calls run the launch code directly and go through the op only while
+exporting (:func:`launch`): on the H100's host the op's dispatch adds
+about 37 us to a launch, above the 5 us a launch may add
+(``chip_smoke.py``'s ``custom_op_overhead:`` line, PERF.md). Both routes
+run the same kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -17,6 +29,10 @@ import torch
 MAX_SMEM = 232448
 
 _WRAPPERS: dict = {}
+# the namespace of the kernels' custom ops
+NAMESPACE = "geossl_torch"
+# op name -> the custom op
+OPS: dict = {}
 
 
 def counted(name: str):
@@ -26,6 +42,54 @@ def counted(name: str):
         _WRAPPERS[name] = fn
         return fn
     return register
+
+
+def kernel_op(name: str, fake, plain):
+    """Register the launch function it decorates as custom op
+    ``geossl_torch::<name>`` on CUDA, with ``plain`` (the same signature;
+    its outputs made contiguous, as the kernel's are) as its CPU
+    implementation and ``fake`` as its fake one. The decorated
+    function is left as it is (eager calls run it directly); the op is
+    ``OPS[name]`` and ``fn.op``. The signature's annotations give the op's
+    schema; the op mutates none of its inputs."""
+    def register(fn):
+        op = torch.library.custom_op(f"{NAMESPACE}::{name}", fn,
+                                     mutates_args=(), device_types="cuda")
+        op.register_kernel("cpu")(lambda *args: _contiguous(plain(*args)))
+        op.register_fake(fake)
+        OPS[name] = fn.op = op
+        return fn
+    return register
+
+
+def fresh_thread(fn, *args):
+    """``fn(*args)`` on a thread of its own. An op's kernel runs below
+    autograd (its dispatch keys are excluded on the calling thread), so the
+    plain backwards, which are autograd over the plain forward, run in a
+    thread with the default dispatch state."""
+    with ThreadPoolExecutor(1) as pool:
+        return pool.submit(fn, *args).result()
+
+
+def flat(tensors):
+    """The tensors flattened into one (a backward op's weight gradients:
+    an op's outputs may not be views of one buffer)."""
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _contiguous(out):
+    """The plain version's outputs in the kernels' contiguous layout."""
+    if isinstance(out, (tuple, list)):
+        return tuple(t.contiguous() for t in out)
+    return out.contiguous()
+
+
+def launch(fn, *args):
+    """Launch kernel function ``fn`` (registered by :func:`kernel_op`):
+    through its custom op while ``torch.export`` traces, else directly."""
+    if torch.compiler.is_exporting():
+        return fn.op(*args)
+    return fn(*args)
 
 
 def launch_counts() -> dict:

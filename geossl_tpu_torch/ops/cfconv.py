@@ -37,13 +37,20 @@ atomics): two launches give bitwise the same output.
 SchNet's dispatcher takes the symmetric pair whenever dist/env are
 symmetric, at every N (the card's measurement); PaiNN keeps the JAX
 package's rule (``ops/painn.sym_profitable``).
+
+Each launch is also a custom op (``ops/_launch.kernel_op``):
+``geossl_torch::cfconv_fwd`` (both forward modes), ``cfconv_bwd`` (both
+backward modes; the weight gradients as one flat tensor) and
+``schnet_stack``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence
 
 import torch
+from torch import Tensor
 
 from geossl_tpu_torch.models.common import gaussian_smearing, shifted_softplus
 from geossl_tpu_torch.ops import _build
@@ -51,6 +58,10 @@ from geossl_tpu_torch.ops._launch import (
     check_launch,
     check_smem,
     counted,
+    flat,
+    fresh_thread,
+    kernel_op,
+    launch,
     on_cpu,
     ptr,
     refuse_grad,
@@ -200,8 +211,22 @@ def _check_filter_shapes(name, dist, env, x, w1, b1, w2, b2, num_g):
                          f"{tuple(env.shape)}, x {tuple(x.shape)} disagree")
 
 
-def _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
-                   symmetric, sparse):
+def _cfconv_fwd_fake(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                     symmetric, sparse):
+    return x.new_empty((dist.shape[0], dist.shape[1], x.shape[-1]))
+
+
+def _cfconv_fwd_plain(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                      symmetric, sparse):
+    return cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start, stop,
+                                  num_g)
+
+
+@kernel_op("cfconv_fwd", _cfconv_fwd_fake, _cfconv_fwd_plain)
+def _launch_cfconv(dist: Tensor, env: Tensor, x: Tensor, w1: Tensor,
+                   b1: Tensor, w2: Tensor, b2: Tensor, start: float,
+                   stop: float, num_g: int, symmetric: bool,
+                   sparse: bool) -> Tensor:
     b, ni, nj = dist.shape
     f = x.shape[-1]
     _check_filter_shapes("cfconv_fwd", dist, env, x, w1, b1, w2, b2, num_g)
@@ -246,8 +271,9 @@ class _CFConv(torch.autograd.Function):
         ctx.save_for_backward(dist, env, x, w1, b1, w2, b2)
         ctx.consts = (start, stop, num_g, sparse)
         ctx.symmetric = symmetric
-        return _launch_cfconv(dist, env, x, w1, b1, w2, b2, start, stop,
-                              num_g, symmetric, sparse)
+        return launch(_launch_cfconv, dist, env, x, w1, b1, w2,
+                      b2, float(start), float(stop), num_g, symmetric,
+                      bool(sparse))
 
     @staticmethod
     def backward(ctx, g):
@@ -319,8 +345,35 @@ def cfconv_fused(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
     return out
 
 
-def _launch_cfconv_bwd(name, dist, env, x, g, w1, b1, w2, b2, start, stop,
-                       num_g, symmetric, sparse):
+def _cfconv_bwd_fake(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
+                     symmetric, sparse):
+    f = x.shape[-1]
+    return (torch.empty_like(dist), torch.empty_like(env), torch.empty_like(x),
+            x.new_empty((num_g * f + f + f * f + f,)))
+
+
+def _cfconv_bwd_plain(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
+                      symmetric, sparse):
+    ddist, denv, dx, *wgrads = fresh_thread(
+        cfconv_bwd_reference, dist, env, x, g, w1, b1, w2, b2, start, stop,
+        num_g)
+    return ddist, denv, dx, flat(wgrads)
+
+
+def _split_wgrad(wgrad, num_g, f):
+    """(dW1 [G,F], db1, dW2 [F,F], db2) from the kernel's flat weight
+    gradient."""
+    dw1, db1, dw2, db2 = torch.split(wgrad, [num_g * f, f, f * f, f])
+    return dw1.view(num_g, f), db1, dw2.view(f, f), db2
+
+
+@kernel_op("cfconv_bwd", _cfconv_bwd_fake, _cfconv_bwd_plain)
+def _launch_cfconv_bwd(dist: Tensor, env: Tensor, x: Tensor, g: Tensor,
+                       w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
+                       start: float, stop: float, num_g: int, symmetric: bool,
+                       sparse: bool) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """(ddist, denv, dx, the flat weight gradient dW1|db1|dW2|db2)."""
+    name = "cfconv_bwd_sym" if symmetric else "cfconv_bwd"
     b, ni, nj = dist.shape
     f = x.shape[-1]
     _check_filter_shapes(name, dist, env, x, w1, b1, w2, b2, num_g)
@@ -357,8 +410,7 @@ def _launch_cfconv_bwd(name, dist, env, x, g, w1, b1, w2, b2, start, stop,
              b, ni, nj, f, num_g, s0, delta, coeff, int(symmetric),
              int(sparse), stream(dist))
     check_launch(name, err)
-    dw1, db1, dw2, db2 = torch.split(wgrad, [num_g * f, f, f * f, f])
-    return (ddist, denv, dx, dw1.view(num_g, f), db1, dw2.view(f, f), db2)
+    return ddist, denv, dx, wgrad
 
 
 @counted("cfconv_bwd")
@@ -372,10 +424,11 @@ def cfconv_bwd(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
     if on_cpu("cfconv_bwd", dist, env, x, g, w1, b1, w2, b2):
         return cfconv_bwd_reference(dist, env, x, g, w1, b1, w2, b2, start,
                                     stop, num_g)
-    out = _launch_cfconv_bwd("cfconv_bwd", dist, env, x, g, w1, b1, w2, b2,
-                             start, stop, num_g, False, sparse)
+    *out, wgrad = launch(_launch_cfconv_bwd, dist, env, x, g,
+                         w1, b1, w2, b2, float(start), float(stop), num_g,
+                         False, bool(sparse))
     cfconv_bwd.launches += 1
-    return out
+    return (*out, *_split_wgrad(wgrad, num_g, x.shape[-1]))
 
 
 @counted("cfconv_bwd_sym")
@@ -391,10 +444,11 @@ def cfconv_bwd_sym(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
     if on_cpu("cfconv_bwd_sym", dist, env, x, g, w1, b1, w2, b2):
         return cfconv_bwd_sym_reference(dist, env, x, g, w1, b1, w2, b2,
                                         start, stop, num_g)
-    out = _launch_cfconv_bwd("cfconv_bwd_sym", dist, env, x, g, w1, b1, w2,
-                             b2, start, stop, num_g, True, sparse)
+    *out, wgrad = launch(_launch_cfconv_bwd, dist, env, x, g,
+                         w1, b1, w2, b2, float(start), float(stop), num_g,
+                         True, bool(sparse))
     cfconv_bwd_sym.launches += 1
-    return out
+    return (*out, *_split_wgrad(wgrad, num_g, x.shape[-1]))
 
 
 @counted("cfconv_fwd_sym")
@@ -452,6 +506,27 @@ def schnet_stack(dist, env, h0, stacked, start, stop, num_g, symmetric=False):
                                       num_g)
     refuse_grad("schnet_stack", "it is inference only; train through the "
                 "per-block path (SchNet.forward)", dist, env, h0, *stacked)
+    out = launch(_launch_schnet_stack, dist, env, h0,
+                 list(stacked), float(start), float(stop), num_g,
+                 bool(symmetric))
+    schnet_stack.launches += 1
+    return out
+
+
+def _schnet_stack_fake(dist, env, h0, stacked, start, stop, num_g, symmetric):
+    return torch.empty_like(h0)
+
+
+def _schnet_stack_plain(dist, env, h0, stacked, start, stop, num_g,
+                        symmetric):
+    return schnet_stack_reference(dist, env, h0, stacked, start, stop, num_g)
+
+
+@kernel_op("schnet_stack", _schnet_stack_fake, _schnet_stack_plain)
+def _launch_schnet_stack(dist: Tensor, env: Tensor, h0: Tensor,
+                         stacked: Sequence[Tensor], start: float, stop: float,
+                         num_g: int, symmetric: bool) -> Tensor:
+    b, n, _ = dist.shape
     f = h0.shape[-1]
     n_layers = stacked[0].shape[0]
     if f != KERNEL_F or stacked[1].shape != (n_layers, num_g, f) \
@@ -478,5 +553,4 @@ def schnet_stack(dist, env, h0, stacked, start, stop, num_g, symmetric=False):
              f, num_g, n_layers, s0, delta, coeff, int(symmetric),
              stream(dist))
     check_launch("schnet_stack", err)
-    schnet_stack.launches += 1
     return out

@@ -14,19 +14,29 @@ products on the tensor cores in 3xTF32 (``csrc/mma_tf32.cuh``; the forward
 l1 W2, the backward also dl1 and dW2), within f32 rounding of the plain
 version, over a tile list made on the device, and sum everything in a fixed
 order (bitwise repeatable).
+
+Each launch is also a custom op (``ops/_launch.kernel_op``):
+``geossl_torch::ncsn_score_fwd`` and ``ncsn_score_bwd`` (the weight
+gradients as one flat tensor).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence
 
 import torch
+from torch import Tensor
 
 from geossl_tpu_torch.ops import _build
 from geossl_tpu_torch.ops._launch import (
     check_launch,
     check_smem,
     counted,
+    flat,
+    fresh_thread,
+    kernel_op,
+    launch,
     on_cpu,
     ptr,
     refuse_second_order,
@@ -106,6 +116,25 @@ def ncsn_score_fwd(dist, noise, sel, sigma, u, *weights, anneal):
         return ncsn_score_loss_reference(dist, noise, sel, sigma, u, *weights,
                                          anneal)
     _check("ncsn_score_fwd", dist, noise, sel, sigma, u, weights)
+    rows = launch(_launch_ncsn_fwd, dist, noise, sel, sigma,
+                  u, list(weights), float(anneal))
+    ncsn_score_fwd.launches += 1
+    return rows
+
+
+def _ncsn_fwd_fake(dist, noise, sel, sigma, u, weights, anneal):
+    return dist.new_empty(dist.shape[:2])
+
+
+def _ncsn_fwd_plain(dist, noise, sel, sigma, u, weights, anneal):
+    return ncsn_score_loss_reference(dist, noise, sel, sigma, u, *weights,
+                                     anneal)
+
+
+@kernel_op("ncsn_score_fwd", _ncsn_fwd_fake, _ncsn_fwd_plain)
+def _launch_ncsn_fwd(dist: Tensor, noise: Tensor, sel: Tensor, sigma: Tensor,
+                     u: Tensor, weights: Sequence[Tensor],
+                     anneal: float) -> Tensor:
     b, n, _ = dist.shape
     check_smem("ncsn_score_fwd", _build.kernel_fn(
         "ncsn_score", "ncsn_smem_bytes", [], ctypes.c_size_t)())
@@ -125,7 +154,6 @@ def ncsn_score_fwd(dist, noise, sel, sigma, u, *weights, anneal):
     err = fn(*map(ptr, (dist, noise, sel, sigma, u, *weights, rows, rpart,
                         ws)), b, n, KERNEL_E, float(anneal), stream(dist))
     check_launch("ncsn_score_fwd", err)
-    ncsn_score_fwd.launches += 1
     return rows
 
 
@@ -141,6 +169,31 @@ def ncsn_score_bwd(dist, noise, sel, sigma, u, g_rows, *weights, anneal):
     if g_rows.shape != (b, n):
         raise ValueError(f"ncsn_score_bwd: g_rows {tuple(g_rows.shape)}, "
                          f"want {(b, n)}")
+    du, wgrad = launch(_launch_ncsn_bwd, dist, noise, sel,
+                       sigma, u, g_rows, list(weights), float(anneal))
+    ncsn_score_bwd.launches += 1
+    sizes = [w.numel() for w in weights]
+    return (du, *(g.view(w.shape) for g, w in
+                  zip(torch.split(wgrad, sizes), weights)))
+
+
+def _ncsn_bwd_fake(dist, noise, sel, sigma, u, g_rows, weights, anneal):
+    return torch.empty_like(u), u.new_empty((sum(w.numel() for w in weights),))
+
+
+def _ncsn_bwd_plain(dist, noise, sel, sigma, u, g_rows, weights, anneal):
+    du, *grads = fresh_thread(
+        lambda: ncsn_score_bwd_reference(dist, noise, sel, sigma, u, g_rows,
+                                         *weights, anneal=anneal))
+    return du, flat(grads)
+
+
+@kernel_op("ncsn_score_bwd", _ncsn_bwd_fake, _ncsn_bwd_plain)
+def _launch_ncsn_bwd(dist: Tensor, noise: Tensor, sel: Tensor, sigma: Tensor,
+                     u: Tensor, g_rows: Tensor, weights: Sequence[Tensor],
+                     anneal: float) -> tuple[Tensor, Tensor]:
+    """(du, the flat weight gradient in ``WEIGHT_NAMES`` order)."""
+    b, n, _ = dist.shape
     check_smem("ncsn_score_bwd", _build.kernel_fn(
         "ncsn_score", "ncsn_smem_bytes", [], ctypes.c_size_t)())
     blocks = _build.kernel_fn("ncsn_score", "ncsn_blocks",
@@ -165,10 +218,7 @@ def ncsn_score_bwd(dist, noise, sel, sigma, u, g_rows, *weights, anneal):
                         dpart, part, wgrad, ws)),
              b, n, KERNEL_E, float(anneal), stream(dist))
     check_launch("ncsn_score_bwd", err)
-    ncsn_score_bwd.launches += 1
-    sizes = [w.numel() for w in weights]
-    return (du, *(g.view(w.shape) for g, w in
-                  zip(torch.split(wgrad, sizes), weights)))
+    return du, wgrad
 
 
 class _NCSNScore(torch.autograd.Function):

@@ -58,14 +58,21 @@ only (dir[j, i] = -dir[i, j]): PaiNN's geometry gives them without
 trusts the caller, as the JAX one does. Its pair cotangents are exact only
 upstream of the positions (a gradient to dist, gate or a direction grid
 itself is the placed one).
+
+Each launch is also a custom op (``ops/_launch.kernel_op``):
+``geossl_torch::painn_fwd`` and ``painn_bwd`` (both modes; the backward's
+weight gradients as one flat tensor), ``painn_stack`` (inference) and
+``painn_stack_train`` (save_residuals).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F_
+from torch import Tensor
 
 from geossl_tpu_torch.models.common import jax_linspace
 from geossl_tpu_torch.ops import _build
@@ -73,6 +80,10 @@ from geossl_tpu_torch.ops._launch import (
     check_launch,
     check_smem,
     counted,
+    flat,
+    fresh_thread,
+    kernel_op,
+    launch,
     on_cpu,
     ptr,
     refuse_grad,
@@ -214,8 +225,24 @@ def _check(name, dist, gate, dirs, x, mu, wk, bk):
                          f"{tuple(x.shape)}, mu {tuple(mu.shape)} disagree")
 
 
-def _launch_painn_fwd(dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
-                      symmetric, sparse):
+def _painn_fwd_fake(dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
+                    symmetric, sparse):
+    b, ni = dist.shape[:2]
+    f3 = x.shape[-1]
+    return x.new_empty((b, ni, f3 // 3)), x.new_empty((b, ni, f3))
+
+
+def _painn_fwd_plain(dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
+                     symmetric, sparse):
+    return painn_message_reference(dist, gate, dirx, diry, dirz, x, mu, wk, bk,
+                                   cutoff)
+
+
+@kernel_op("painn_fwd", _painn_fwd_fake, _painn_fwd_plain)
+def _launch_painn_fwd(dist: Tensor, gate: Tensor, dirx: Tensor, diry: Tensor,
+                      dirz: Tensor, x: Tensor, mu: Tensor, wk: Tensor,
+                      bk: Tensor, cutoff: float, symmetric: bool,
+                      sparse: bool) -> tuple[Tensor, Tensor]:
     name = "painn_fwd_sym" if symmetric else "painn_fwd"
     _check(name, dist, gate, (dirx, diry, dirz), x, mu, wk, bk)
     b, ni, nj = dist.shape
@@ -260,8 +287,9 @@ class _PaiNNMessage(torch.autograd.Function):
         ctx.save_for_backward(dist, gate, dirx, diry, dirz, x, mu, wk, bk)
         ctx.consts = (cutoff, sparse)
         ctx.symmetric = symmetric
-        return _launch_painn_fwd(dist, gate, dirx, diry, dirz, x, mu, wk, bk,
-                                 cutoff, symmetric, sparse)
+        return launch(_launch_painn_fwd, dist, gate, dirx, diry,
+                      dirz, x, mu, wk, bk, float(cutoff), symmetric,
+                      bool(sparse))
 
     @staticmethod
     def backward(ctx, gq, gmu):
@@ -348,8 +376,36 @@ def painn_message_fused_sym(dist, gate, dirx, diry, dirz, x, mu, wk, bk,
     return out
 
 
-def _launch_painn_bwd(name, dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq,
-                      gmu, cutoff, symmetric, sparse):
+def _painn_bwd_fake(dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu,
+                    cutoff, symmetric, sparse):
+    return (*(torch.empty_like(dist) for _ in range(5)), torch.empty_like(x),
+            torch.empty_like(mu), wk.new_empty(((wk.shape[0] + 1) * wk.shape[1],)))
+
+
+def _painn_bwd_plain(dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu,
+                     cutoff, symmetric, sparse):
+    *grads, dwk, dbk = fresh_thread(painn_bwd_reference, dist, gate, dirx,
+                                    diry, dirz, x, mu, wk, bk, gq, gmu, cutoff)
+    return (*grads, flat((dwk, dbk)))
+
+
+def _split_wgrad(wgrad, wk):
+    """(dWk [R,3F], dbk [3F]) from the kernel's flat weight gradient."""
+    num_r, f3 = wk.shape
+    dwk, dbk = wgrad.view(num_r + 1, f3).split([num_r, 1])
+    return dwk, dbk.view(f3)
+
+
+@kernel_op("painn_bwd", _painn_bwd_fake, _painn_bwd_plain)
+def _launch_painn_bwd(dist: Tensor, gate: Tensor, dirx: Tensor, diry: Tensor,
+                      dirz: Tensor, x: Tensor, mu: Tensor, wk: Tensor,
+                      bk: Tensor, gq: Tensor, gmu: Tensor, cutoff: float,
+                      symmetric: bool, sparse: bool
+                      ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor,
+                                 Tensor, Tensor, Tensor]:
+    """(ddist, dgate, ddirx, ddiry, ddirz, dx, dmu, the flat weight
+    gradient dWk|dbk)."""
+    name = "painn_bwd_sym" if symmetric else "painn_bwd"
     _check(name, dist, gate, (dirx, diry, dirz), x, mu, wk, bk)
     b, ni, nj = dist.shape
     num_r, f3 = wk.shape
@@ -387,8 +443,7 @@ def _launch_painn_bwd(name, dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq,
              b, ni, nj, KERNEL_F, num_r, delta, coeff, int(symmetric),
              int(sparse), stream(dist))
     check_launch(name, err)
-    dwk, dbk = wgrad.view(num_r + 1, f3).split([num_r, 1])
-    return ddist, dgate, ddx, ddy, ddz, dx, dmu, dwk, dbk.view(f3)
+    return ddist, dgate, ddx, ddy, ddz, dx, dmu, wgrad
 
 
 @counted("painn_bwd")
@@ -403,9 +458,10 @@ def painn_bwd(dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu, cutoff,
     args = (dist, gate, dirx, diry, dirz, x, mu, wk, bk)
     if on_cpu("painn_bwd", *args, gq, gmu):
         return painn_bwd_reference(*args, gq, gmu, cutoff)
-    out = _launch_painn_bwd("painn_bwd", *args, gq, gmu, cutoff, False, sparse)
+    *out, wgrad = launch(_launch_painn_bwd, *args, gq, gmu,
+                         float(cutoff), False, bool(sparse))
     painn_bwd.launches += 1
-    return out
+    return (*out, *_split_wgrad(wgrad, wk))
 
 
 @counted("painn_bwd_sym")
@@ -423,10 +479,10 @@ def painn_bwd_sym(dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu,
     args = (dist, gate, dirx, diry, dirz, x, mu, wk, bk)
     if on_cpu("painn_bwd_sym", *args, gq, gmu):
         return painn_bwd_sym_reference(*args, gq, gmu, cutoff)
-    out = _launch_painn_bwd("painn_bwd_sym", *args, gq, gmu, cutoff, True,
-                            sparse)
+    *out, wgrad = launch(_launch_painn_bwd, *args, gq, gmu,
+                         float(cutoff), True, bool(sparse))
     painn_bwd_sym.launches += 1
-    return out
+    return (*out, *_split_wgrad(wgrad, wk))
 
 
 def painn_message(dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
@@ -447,6 +503,55 @@ def painn_message(dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
     if symmetric and sym_profitable(n):  # painn_sym_profitable's sizes
         return painn_message_fused_sym(*args, sparse_auto(n, sparse))
     return painn_message_fused(*args, sparse_auto(n, sparse))
+
+
+def _painn_stack_fake(dist, gate, dirx, diry, dirz, q0, stacked, cutoff,
+                      epsilon):
+    b, n, f = q0.shape
+    return torch.empty_like(q0), q0.new_empty((b, n, 3 * f))
+
+
+def _painn_stack_train_fake(dist, gate, dirx, diry, dirz, q0, stacked, cutoff,
+                            epsilon):
+    b, n, f = q0.shape
+    n_layers = stacked[0].shape[0]
+    return (*_painn_stack_fake(dist, gate, dirx, diry, dirz, q0, stacked,
+                               cutoff, epsilon),
+            *(q0.new_empty((b, n_layers, n, w)) for w in (f, 3 * f, f, 3 * f)))
+
+
+def _painn_stack_plain(dist, gate, dirx, diry, dirz, q0, stacked, cutoff,
+                       epsilon):
+    return painn_stack_reference(dist, gate, dirx, diry, dirz, q0, stacked,
+                                 cutoff, epsilon)
+
+
+def _painn_stack_train_plain(dist, gate, dirx, diry, dirz, q0, stacked,
+                             cutoff, epsilon):
+    return painn_stack_reference(dist, gate, dirx, diry, dirz, q0, stacked,
+                                 cutoff, epsilon, save_residuals=True)
+
+
+@kernel_op("painn_stack", _painn_stack_fake, _painn_stack_plain)
+def _launch_painn_stack_infer(dist: Tensor, gate: Tensor, dirx: Tensor,
+                              diry: Tensor, dirz: Tensor, q0: Tensor,
+                              stacked: Sequence[Tensor], cutoff: float,
+                              epsilon: float) -> tuple[Tensor, Tensor]:
+    return _launch_painn_stack("painn_stack", (dist, gate, dirx, diry, dirz),
+                               q0, stacked, cutoff, epsilon, False)
+
+
+@kernel_op("painn_stack_train", _painn_stack_train_fake,
+           _painn_stack_train_plain)
+def _launch_painn_stack_train(dist: Tensor, gate: Tensor, dirx: Tensor,
+                              diry: Tensor, dirz: Tensor, q0: Tensor,
+                              stacked: Sequence[Tensor], cutoff: float,
+                              epsilon: float
+                              ) -> tuple[Tensor, Tensor, Tensor, Tensor,
+                                         Tensor, Tensor]:
+    return _launch_painn_stack("painn_stack_train",
+                               (dist, gate, dirx, diry, dirz), q0, stacked,
+                               cutoff, epsilon, True)
 
 
 def _launch_painn_stack(name, pair, q0, stacked, cutoff, epsilon,
@@ -517,8 +622,8 @@ def painn_stack_infer(dist, gate, dirx, diry, dirz, q0, stacked, cutoff,
     refuse_grad("painn_stack", "it is inference only; train through the "
                 "per-block path (PaiNN.forward) or painn_stack_train",
                 *pair, q0, *stacked)
-    q, mu = _launch_painn_stack("painn_stack", pair, q0, stacked, cutoff,
-                                epsilon, False)
+    q, mu = launch(_launch_painn_stack_infer, *pair, q0,
+                   list(stacked), float(cutoff), float(epsilon))
     painn_stack_infer.launches += 1
     return q, mu
 
@@ -551,8 +656,8 @@ class _PaiNNStackTrain(torch.autograd.Function):
             q, mu, *res = painn_stack_reference(*pair, q0, stacked, cutoff,
                                                 epsilon, save_residuals=True)
         else:
-            q, mu, *res = _launch_painn_stack("painn_stack_train", pair, q0,
-                                              stacked, cutoff, epsilon, True)
+            q, mu, *res = launch(_launch_painn_stack_train, *pair, q0,
+                                 list(stacked), float(cutoff), float(epsilon))
         ctx.save_for_backward(*pair, *stacked, *res)
         ctx.consts = (cutoff, epsilon)
         return q, mu

@@ -13,11 +13,24 @@
   Each packed batch is uploaded once; all results come back in one
   device-to-host copy at the end of a pass.
 * ``predict`` (scalar property, denormalized with ``y_mean``/``y_std``),
-  ``embed`` (pooled graph representation) and ``predict_forces`` (MD17:
+  ``embed`` (pooled graph representation), ``predict_forces`` (MD17:
   energies and forces ``-dE/dpos``, through the per-block kernels and
-  their first-order backwards at every bucket).
+  their first-order backwards at every bucket) and ``predict_pairs`` (LEP
+  dual-tower probabilities: pairs grouped by (bucket_active,
+  bucket_inactive), both towers by the route of their own bucket).
+* The pass logic (bucketing, packing into :func:`batch_slots`, input
+  order, the one fetch) calls four per-batch functions, ``_embed_fn``,
+  ``_predict_fn``, ``_energy_forces_fn`` and ``_pair_logit_fn``; the
+  sealed artifacts' ``export.SealedPredictor`` replaces them by exported
+  programs.
+* Checkpoints: the port's or the reference's ``.pth``/``.pt``, or a JAX
+  ``model[_final].ckpt`` (``utils/torch_import.load_model_state``). A
+  ``graph_pred_linear.weight`` of shape ``[1, 2·emb]`` is LEP's
+  ``DualHead``, any other head the backbone's single head.
+* Input: an ``.npz`` MolStore or a raw ``.sdf`` file (:func:`store_from_sdf`).
 * CLI: ``python -m geossl_tpu_torch.serve [--model_3d painn] --ckpt
-  model.pth --input store.npz --mode predict|embed|forces --output
+  model.pth|model.ckpt|m.sealed --input store.npz|mols.sdf --mode
+  predict|embed|forces|pairs [--input_inactive inactive.npz] --output
   preds.csv``.
 
 Work runs on the CUDA device unless the caller passes ``device="cpu"``,
@@ -35,9 +48,10 @@ import torch
 
 from geossl_tpu_torch.config import ModelConfig
 from geossl_tpu_torch.data.bucketing import assign_buckets, pack_batch
-from geossl_tpu_torch.data.store import MolStore
+from geossl_tpu_torch.data.store import MolRecord, MolStore
 from geossl_tpu_torch.models import painn, schnet
 from geossl_tpu_torch.train.common import (
+    DualHead,
     check_kernel_limits,
     make_backbone,
     make_head,
@@ -80,11 +94,167 @@ def batch_slots(count: int, batch_size: int) -> int:
     return min(batch_size, -(-count // SLOT_MULTIPLE) * SLOT_MULTIPLE)
 
 
-class Predictor:
+def head_kind(state: dict, emb_dim: int) -> Optional[str]:
+    """None (no head), 'dual' (LEP's ``DualHead``: ``graph_pred_linear.
+    weight`` of shape [1, 2·emb]) or 'single' (the backbone's own head)."""
+    head = state.get("graph_pred_linear")
+    if head is None:
+        return None
+    weight = head.get("weight")
+    if weight is not None and tuple(weight.shape) == (1, 2 * emb_dim):
+        return "dual"
+    return "single"
+
+
+class _Passes:
+    """The pass logic shared by :class:`Predictor` and the sealed
+    ``export.SealedPredictor``: bucketing, packing, input order and the one
+    device-to-host copy per pass, around the per-batch functions
+    ``_embed_fn``, ``_predict_fn``, ``_energy_forces_fn`` and
+    ``_pair_logit_fn`` (each takes ``self._prep`` and the packed tensors).
+    A subclass sets ``device``, ``batch_size``, ``bucket_sizes``,
+    ``spatial_sort``, ``emb_dim``, ``head_kind`` ('single', 'dual' or None)
+    and ``_prep``."""
+
+    def _maybe_sort(self, store: MolStore) -> MolStore:
+        if self.spatial_sort == "off" or len(store) == 0:
+            return store
+        if self.spatial_sort == "auto" and int(store.num_atoms().max()) < 128:
+            return store
+        from geossl_tpu_torch.data.transforms import spatial_sort_store
+
+        return spatial_sort_store(store)
+
+    def _pack(self, store: MolStore, chunk, n: int, slots: int):
+        """The molecules ``chunk`` of ``store`` padded to ``n`` atoms in
+        ``slots`` graph slots, on the device."""
+        return pack_batch([store.get(int(i)) for i in chunk], n,
+                          slots).to(self.device)
+
+    def _batches(self, store: MolStore):
+        """Yield (indices, batch on the device), each chunk in
+        :func:`batch_slots` graph slots."""
+        bucket_of = assign_buckets(store.num_atoms(), self.bucket_sizes)
+        for b in np.unique(bucket_of):
+            for chunk in _chunks(np.nonzero(bucket_of == b)[0], self.batch_size):
+                yield chunk, self._pack(store, chunk, int(b),
+                                        batch_slots(len(chunk),
+                                                    self.batch_size))
+
+    @torch.inference_mode()
+    def _run(self, store: MolStore, fn, width: int) -> np.ndarray:
+        store = self._maybe_sort(store)
+        out = np.zeros((len(store), width), np.float32)
+        if len(store) == 0:
+            return out
+        idx, results = [], []
+        for chunk, batch in self._batches(store):
+            idx.append(chunk)
+            res = fn(self._prep, batch.atom_type, batch.positions,
+                     batch.node_mask)
+            results.append(res[: len(chunk)].reshape(len(chunk), width))
+        # one device-to-host copy for the whole pass
+        out[np.concatenate(idx)] = torch.cat(results).cpu().numpy()
+        return out
+
+    def _require_head(self, want: str = "single"):
+        """Raise unless the head is of kind ``want`` ('single': predict and
+        forces; 'dual': predict_pairs)."""
+        if self.head_kind is None:
+            raise ValueError(
+                "checkpoint has no 'graph_pred_linear' head: this is a "
+                "backbone-only checkpoint; use embed(), or load a fine-tune "
+                "checkpoint for predict()")
+        if self.head_kind != want:
+            raise ValueError(
+                "the checkpoint's head is LEP's dual head (graph_pred_linear "
+                "[1, 2*emb]): use predict_pairs()" if self.head_kind == "dual" else
+                "predict_pairs needs LEP's dual head (graph_pred_linear "
+                "[1, 2*emb]); this checkpoint has a single-tower head: use "
+                "predict()")
+
+    def _check_forces(self):
+        """Raise when forces cannot be served (a hook for subclasses)."""
+
+    # -- public API ---------------------------------------------------------------
+
+    def embed(self, store: MolStore) -> np.ndarray:
+        """Pooled graph representations, [M, emb], input order."""
+        return self._run(store, self._embed_fn, self.emb_dim)
+
+    def predict(self, store: MolStore) -> np.ndarray:
+        """Scalar predictions (denormalized), [M], input order."""
+        self._require_head()
+        return self._run(store, self._predict_fn, 1)[:, 0]
+
+    def predict_forces(self, store: MolStore):
+        """(energies [M], forces [sum_N, 3]): the denormalized prediction E
+        and ``-dE/dpos`` (MD17), in the store's order and flat atom layout
+        (no spatial sort). Every bucket goes through the per-block kernels,
+        whose first-order backwards give the position gradient (the
+        whole-stack kernels have none); no graph is kept for a second
+        order."""
+        self._require_head()
+        self._check_forces()
+        energies = np.zeros(len(store), np.float32)
+        forces = np.zeros((int(store.offsets[-1]), 3), np.float32)
+        if len(store) == 0:
+            return energies, forces
+        idx, es, fs = [], [], []
+        for chunk, batch in self._batches(store):
+            e, f = self._energy_forces_fn(self._prep, batch.atom_type,
+                                          batch.positions, batch.node_mask)
+            idx.append(chunk)
+            es.append(e[:len(chunk)])
+            fs.append(f[batch.node_mask])  # real atoms, molecule order
+        idx = np.concatenate(idx)
+        # one device-to-host copy of each; the atoms of the molecules idx
+        # land at their flat offsets
+        energies[idx] = torch.cat(es).cpu().numpy()
+        lens = store.offsets[idx + 1] - store.offsets[idx]
+        firsts = np.repeat(store.offsets[idx] - (np.cumsum(lens) - lens), lens)
+        forces[firsts + np.arange(lens.sum())] = torch.cat(fs).cpu().numpy()
+        return energies, forces
+
+    @torch.inference_mode()
+    def predict_pairs(self, active: MolStore, inactive: MolStore) -> np.ndarray:
+        """LEP dual-tower probabilities, [M], input order: pair i is
+        ``active[i]`` against ``inactive[i]``. Pairs are grouped by
+        (bucket_active, bucket_inactive) and cut into chunks of
+        ``batch_size``; each tower takes the route of its own bucket."""
+        self._require_head("dual")
+        if len(active) != len(inactive):
+            raise ValueError(f"store lengths differ: {len(active)} vs "
+                             f"{len(inactive)}")
+        out = np.zeros(len(active), np.float32)
+        if len(active) == 0:
+            return out
+        active, inactive = self._maybe_sort(active), self._maybe_sort(inactive)
+        na = assign_buckets(active.num_atoms(), self.bucket_sizes)
+        ni = assign_buckets(inactive.num_atoms(), self.bucket_sizes)
+        keys = na.astype(np.int64) * (max(self.bucket_sizes) + 1) + ni
+        idx, results = [], []
+        for k in np.unique(keys):
+            for chunk in _chunks(np.nonzero(keys == k)[0], self.batch_size):
+                slots = batch_slots(len(chunk), self.batch_size)
+                ba = self._pack(active, chunk, int(na[chunk[0]]), slots)
+                bi = self._pack(inactive, chunk, int(ni[chunk[0]]), slots)
+                logit = self._pair_logit_fn(
+                    self._prep, ba.atom_type, ba.positions, ba.node_mask,
+                    bi.atom_type, bi.positions, bi.node_mask)
+                idx.append(chunk)
+                results.append(torch.sigmoid(logit[:len(chunk)]))
+        # one device-to-host copy for the whole pass
+        out[np.concatenate(idx)] = torch.cat(results).cpu().numpy()
+        return out
+
+
+class Predictor(_Passes):
     """Batched prediction from a backbone state (``cfg.model_3d`` says
     which): ``{"model": backbone state_dict[, "graph_pred_linear": head
     state_dict][, "y_mean", "y_std"]}``. Without a head only :meth:`embed`
-    is available."""
+    is available; with LEP's dual head only :meth:`embed` and
+    :meth:`predict_pairs`."""
 
     def __init__(self, cfg: ModelConfig, state: dict,
                  y_mean: Optional[float] = None, y_std: Optional[float] = None,
@@ -96,6 +266,7 @@ class Predictor:
                              f"{spatial_sort!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.emb_dim = cfg.emb_dim
         self.batch_size = batch_size
         self.bucket_sizes = tuple(sorted(bucket_sizes))
         self.spatial_sort = spatial_sort
@@ -118,53 +289,34 @@ class Predictor:
         # serving trains nothing: only predict_forces' positions take a
         # gradient
         self.model.to(self.device).eval().requires_grad_(False)
+        self.head_kind = head_kind(state, cfg.emb_dim)
         self.head = None
-        if state.get("graph_pred_linear") is not None:
-            self.head = make_head(cfg.model_3d, cfg.emb_dim, init)
+        if self.head_kind is not None:
+            self.head = (DualHead(cfg.emb_dim, init)
+                         if self.head_kind == "dual"
+                         else make_head(cfg.model_3d, cfg.emb_dim, init))
             self.head.load_state_dict(state["graph_pred_linear"])
             self.head.to(self.device).eval().requires_grad_(False)
         self.y_mean = float(state.get("y_mean", 0.0) if y_mean is None
                             else y_mean)
         self.y_std = float(state.get("y_std", 1.0) if y_std is None
                            else y_std)
-        # the kernels' [in, out] weight layouts, made once for fixed weights
+        # the kernels' [in, out] weight layouts, made once for fixed
+        # weights: (per-block filter weights, whole-stack weights or None)
         with torch.no_grad():
-            self._filters = self.model.filter_weights()
-            self._stacked = (self.model.stacked_weights() if self._stackable
-                             else None)
+            self._prep = (self.model.filter_weights(),
+                          self.model.stacked_weights() if self._stackable
+                          else None)
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: Optional[ModelConfig] = None,
                         **kw) -> "Predictor":
-        """Load a reference-format torch ``.pth``/``.pt``."""
-        if not path.endswith((".pth", ".pt")):
-            raise ValueError(f"{path!r}: only torch .pth/.pt checkpoints load "
-                             "here (msgpack .ckpt loading is not ported yet)")
-        from geossl_tpu_torch.utils.torch_import import load_torch_checkpoint
+        """Load a torch ``.pth``/``.pt`` or a JAX ``.ckpt`` of
+        ``cfg.model_3d``'s backbone."""
+        from geossl_tpu_torch.utils.torch_import import load_model_state
 
-        return cls(cfg or ModelConfig(), load_torch_checkpoint(path), **kw)
-
-    # -- internals --------------------------------------------------------------
-
-    def _maybe_sort(self, store: MolStore) -> MolStore:
-        if self.spatial_sort == "off" or len(store) == 0:
-            return store
-        if self.spatial_sort == "auto" and int(store.num_atoms().max()) < 128:
-            return store
-        from geossl_tpu_torch.data.transforms import spatial_sort_store
-
-        return spatial_sort_store(store)
-
-    def _batches(self, store: MolStore):
-        """Yield (indices, batch on the device), each chunk in
-        :func:`batch_slots` graph slots."""
-        bucket_of = assign_buckets(store.num_atoms(), self.bucket_sizes)
-        for b in np.unique(bucket_of):
-            for chunk in _chunks(np.nonzero(bucket_of == b)[0], self.batch_size):
-                records = [store.get(int(i)) for i in chunk]
-                batch = pack_batch(records, int(b),
-                                   batch_slots(len(chunk), self.batch_size))
-                yield chunk, batch.to(self.device)
+        cfg = cfg or ModelConfig()
+        return cls(cfg, load_model_state(path, cfg), **kw)
 
     def stack_route(self, n: int) -> bool:
         """True when a batch padded to ``n`` atoms goes through the
@@ -172,134 +324,135 @@ class Predictor:
         through the per-block kernels."""
         return self._stackable and n <= self._stack_max_n
 
-    def _graph_repr(self, batch):
+    def _graph_repr(self, prep, atom_type, positions, node_mask):
         """Pooled representation [B, F], by the route of
         :meth:`stack_route`."""
-        args = (batch.atom_type, batch.positions, batch.node_mask)
-        if self.stack_route(batch.max_atoms):
-            graph, _ = self._stack_apply(self.model, *args,
-                                         stacked=self._stacked)
+        filters, stacked = prep
+        args = (atom_type, positions, node_mask)
+        if self.stack_route(atom_type.shape[1]):
+            graph, _ = self._stack_apply(self.model, *args, stacked=stacked)
         else:
-            graph, _ = self.model(*args, filters=self._filters)
+            graph, _ = self.model(*args, filters=filters)
         return graph
 
-    @torch.inference_mode()
-    def _run(self, store: MolStore, fn, width: int) -> np.ndarray:
-        store = self._maybe_sort(store)
-        out = np.zeros((len(store), width), np.float32)
-        if len(store) == 0:
-            return out
-        idx, results = [], []
-        for chunk, batch in self._batches(store):
-            idx.append(chunk)
-            results.append(fn(batch)[: len(chunk)].reshape(len(chunk), width))
-        # one device-to-host copy for the whole pass
-        out[np.concatenate(idx)] = torch.cat(results).cpu().numpy()
-        return out
-
-    def _require_head(self):
-        if self.head is None:
-            raise ValueError(
-                "checkpoint has no 'graph_pred_linear' head: this is a "
-                "backbone-only checkpoint; use embed(), or load a fine-tune "
-                "checkpoint for predict()")
-
-    # -- public API ---------------------------------------------------------------
-
-    def embed(self, store: MolStore) -> np.ndarray:
-        """Pooled graph representations, [M, emb], input order."""
-        return self._run(store, self._graph_repr, self.cfg.emb_dim)
-
-    def predict(self, store: MolStore) -> np.ndarray:
-        """Scalar predictions (denormalized), [M], input order."""
-        self._require_head()
-
-        def fn(batch):
-            return self.head(self._graph_repr(batch)) * self.y_std + self.y_mean
-
-        return self._run(store, fn, 1)[:, 0]
-
-    def predict_forces(self, store: MolStore):
-        """(energies [M], forces [sum_N, 3]): the denormalized prediction E
-        and ``-dE/dpos`` (MD17), in the store's order and flat atom layout
-        (no spatial sort). Every bucket goes through the per-block kernels,
-        whose first-order backwards give the position gradient (the
-        whole-stack kernels have none); no graph is kept for a second
-        order."""
-        self._require_head()
+    def _check_forces(self):
         check_kernel_limits(self.cfg, self.device, backward=True)
-        energies = np.zeros(len(store), np.float32)
-        forces = np.zeros((int(store.offsets[-1]), 3), np.float32)
-        if len(store) == 0:
-            return energies, forces
-        idx, es, fs = [], [], []
-        for chunk, batch in self._batches(store):
-            pos = batch.positions.requires_grad_(True)
-            graph, _ = self.model(batch.atom_type, pos, batch.node_mask,
-                                  filters=self._filters)
+
+    # -- per-batch functions (export.seal exports them) ---------------------------
+
+    def _embed_fn(self, prep, atom_type, positions, node_mask):
+        return self._graph_repr(prep, atom_type, positions, node_mask)
+
+    def _predict_fn(self, prep, atom_type, positions, node_mask):
+        graph = self._graph_repr(prep, atom_type, positions, node_mask)
+        return self.head(graph) * self.y_std + self.y_mean
+
+    def _energy_forces_fn(self, prep, atom_type, positions, node_mask):
+        """(E [B], forces -dE/dpos [B,N,3]) through the per-block kernels."""
+        with torch.enable_grad():
+            pos = positions.detach().requires_grad_(True)
+            graph, _ = self.model(atom_type, pos, node_mask, filters=prep[0])
             e = self.head(graph) * self.y_std + self.y_mean
             (grad,) = torch.autograd.grad(e.sum(), pos)
-            idx.append(chunk)
-            es.append(e.detach()[:len(chunk)])
-            fs.append(-grad[batch.node_mask])  # real atoms, molecule order
-        idx = np.concatenate(idx)
-        # one device-to-host copy of each; the atoms of the molecules idx
-        # land at their flat offsets
-        energies[idx] = torch.cat(es).cpu().numpy()
-        lens = store.offsets[idx + 1] - store.offsets[idx]
-        firsts = np.repeat(store.offsets[idx] - (np.cumsum(lens) - lens), lens)
-        forces[firsts + np.arange(lens.sum())] = torch.cat(fs).cpu().numpy()
-        return energies, forces
+        return e.detach(), -grad
+
+    def _pair_logit_fn(self, prep, za, pa, ma, zi, pi, mi):
+        return self.head(self._graph_repr(prep, za, pa, ma),
+                                self._graph_repr(prep, zi, pi, mi))
 
 
 # -- CLI -----------------------------------------------------------------------
 
 
+def store_from_sdf(path: str) -> MolStore:
+    """A multi-molecule SDF file as a MolStore (atom types, positions,
+    chirality, bond_index), through the dependency-free parser
+    (``data/structio.iter_sdf_blocks``, ``data/featurize.
+    sdf_block_to_arrays``). An unparseable block raises with its index:
+    prediction i must mean input i."""
+    from geossl_tpu_torch.data.featurize import sdf_block_to_arrays
+    from geossl_tpu_torch.data.structio import iter_sdf_blocks
+
+    records = []
+    for i, block in enumerate(iter_sdf_blocks(path)):
+        try:
+            arrays = sdf_block_to_arrays(block)[0]
+        except (ValueError, IndexError) as e:
+            raise ValueError(f"unparseable SDF block #{i} in {path}") from e
+        records.append(MolRecord(
+            atom_type=arrays["atom_type"], positions=arrays["positions"],
+            chirality=arrays["chirality"], bond_index=arrays["bond_index"]))
+    return MolStore.from_records(records)
+
+
 def load_input_store(path: str) -> MolStore:
+    """An ``.npz`` MolStore cache, or a raw ``.sdf`` file."""
     if path.endswith(".npz"):
         return MolStore.load(path)
-    raise ValueError(f"unsupported input {path!r} (want a .npz MolStore; "
-                     ".sdf input is not ported yet)")
+    if path.endswith(".sdf"):
+        return store_from_sdf(path)
+    raise ValueError(f"unsupported input {path!r} (want .npz or .sdf)")
 
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--ckpt", required=True, help="reference-format .pth")
+    p.add_argument("--ckpt", required=True,
+                   help="torch .pth/.pt, JAX model[_final].ckpt, or a "
+                        "sealed artifact (.sealed, export.py)")
     p.add_argument("--model_3d", default="schnet", choices=["schnet", "painn"],
                    help="the backbone of the checkpoint, at its default "
                         "configuration")
-    p.add_argument("--input", required=True, help=".npz MolStore")
+    p.add_argument("--input", required=True, help=".npz MolStore or .sdf")
+    p.add_argument("--input_inactive", default=None,
+                   help="the second (inactive-conformation) store for "
+                        "--mode pairs: LEP dual-tower serving")
     p.add_argument("--output", default="-", help="CSV path or - for stdout")
     p.add_argument("--mode", default="predict",
-                   choices=["predict", "embed", "forces"],
+                   choices=["predict", "embed", "forces", "pairs"],
                    help="forces: one row per molecule, its index, energy "
-                        "and its atoms' forces (x,y,z joined by ';')")
+                        "and its atoms' forces (x,y,z joined by ';'); "
+                        "pairs: one probability per (active, inactive) pair")
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--bucket", type=int, nargs="+",
                    default=[32, 64, 128, 256, 512])
     p.add_argument("--spatial_sort", default="auto",
                    choices=["auto", "on", "off"])
     p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu for the plain versions")
+                   help="cuda (default) or cpu for the plain versions (a "
+                        "sealed artifact runs on the device it was sealed "
+                        "for)")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    pred = Predictor.from_checkpoint(
-        args.ckpt, ModelConfig(model_3d=args.model_3d),
-        batch_size=args.batch_size, bucket_sizes=args.bucket,
-        spatial_sort=args.spatial_sort, device=args.device)
+    if args.mode == "pairs" and not args.input_inactive:
+        # before --output is opened: open(..., "w") would truncate an
+        # existing results file
+        raise SystemExit("--mode pairs needs --input_inactive")
+    if args.ckpt.endswith(".sealed"):
+        # the programs, weights and batching knobs all come from the
+        # artifact
+        from geossl_tpu_torch.export import SealedPredictor
+
+        pred = SealedPredictor.load(args.ckpt)
+    else:
+        pred = Predictor.from_checkpoint(
+            args.ckpt, ModelConfig(model_3d=args.model_3d),
+            batch_size=args.batch_size, bucket_sizes=args.bucket,
+            spatial_sort=args.spatial_sort, device=args.device)
     store = load_input_store(args.input)
     if args.mode == "forces":
         rows, forces = pred.predict_forces(store)
+    elif args.mode == "pairs":
+        rows = pred.predict_pairs(store, load_input_store(args.input_inactive))
     else:
         rows = (pred.predict if args.mode == "predict" else pred.embed)(store)
     out = sys.stdout if args.output == "-" else open(args.output, "w")
     try:
         for i, v in enumerate(rows):
-            if args.mode == "predict":
+            if args.mode in ("predict", "pairs"):
                 out.write(f"{i},{v}\n")
             elif args.mode == "forces":
                 s, t = store.offsets[i], store.offsets[i + 1]

@@ -6,8 +6,11 @@ The backbone checkpoint is the reference's transfer contract
 ``model.pth`` on the best epoch-mean train loss and ``model_final.pth`` at
 the end; ``serve.Predictor.from_checkpoint`` and the reference load it as
 it is. The resume state (model, heads, optimizer, schedule, epoch, best
-metric, driver scalars) is one ``state.pth``. The JAX package's msgpack
-``.ckpt`` format is not ported.
+metric, driver scalars) is one ``state.pth``. ``load_checkpoint`` also
+reads the JAX package's msgpack ``.ckpt`` files (``utils/flax_msgpack``:
+the tree of numpy arrays that the JAX drivers wrote;
+``utils/torch_import.state_from_flax`` turns it into the port's
+state_dicts). The port writes only ``.pth``.
 """
 
 from __future__ import annotations
@@ -34,6 +37,12 @@ def save_checkpoint(path: str, tree: Dict[str, Any]) -> None:
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
+    """A ``.pth`` tree on the CPU, or a JAX ``.ckpt`` tree (numpy arrays and
+    scalars, flax's layout)."""
+    if path.endswith(".ckpt"):
+        from geossl_tpu_torch.utils import flax_msgpack
+
+        return flax_msgpack.load(path)
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

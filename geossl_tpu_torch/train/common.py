@@ -31,7 +31,7 @@ from geossl_tpu_torch.ops import cfconv as cfconv_ops
 from geossl_tpu_torch.ops import ncsn as ncsn_ops
 from geossl_tpu_torch.ops import painn as painn_ops
 from geossl_tpu_torch.train import checkpoints, optim
-from geossl_tpu_torch.utils.torch_import import load_torch_checkpoint
+from geossl_tpu_torch.utils.torch_import import load_model_state
 
 
 def graph_masked_mean(per_graph: torch.Tensor,
@@ -528,13 +528,14 @@ def add_finetune_args(p: argparse.ArgumentParser):
 
 def load_input_model(args, net: nn.Module) -> dict:
     """Load ``--input_model_file`` into ``net.model`` (a pretrain or a
-    fine-tuned ``.pth``) and, when the file has one, into
-    ``net.graph_pred_linear``; returns the loaded checkpoint
-    (``utils/torch_import.load_torch_checkpoint``; empty without the
-    flag). With ``--eval_only`` the head is required."""
+    fine-tuned ``.pth``, or a JAX ``.ckpt`` of ``--model_3d``'s backbone)
+    and, when the file has one, into ``net.graph_pred_linear``; returns the
+    loaded checkpoint (``utils/torch_import.load_model_state``; empty
+    without the flag). With ``--eval_only`` the head is required."""
     ckpt, has_head = {}, False
     if args.input_model_file:
-        ckpt = load_torch_checkpoint(args.input_model_file)
+        ckpt = load_model_state(args.input_model_file,
+                                model_config_from_args(args))
         net.model.load_state_dict(ckpt["model"])
         has_head = "graph_pred_linear" in ckpt
         if has_head:  # a fine-tuned checkpoint: its head too

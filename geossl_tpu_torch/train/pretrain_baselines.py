@@ -259,10 +259,10 @@ def run(objective: str, args):
     net = make_baseline(objective, args, cfg, store, buckets[-1],
                         torch.Generator().manual_seed(args.seed))
     if args.input_model_file:
-        from geossl_tpu_torch.utils.torch_import import load_torch_checkpoint
+        from geossl_tpu_torch.utils.torch_import import load_model_state
 
         net.model.load_state_dict(
-            load_torch_checkpoint(args.input_model_file)["model"])
+            load_model_state(args.input_model_file, cfg)["model"])
     net.to(device)
     loader = BucketedLoader(store, args.batch_size, buckets, seed=args.seed)
     opt, sched = common.make_optimizer_from_args(

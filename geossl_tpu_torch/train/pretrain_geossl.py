@@ -287,10 +287,10 @@ def main(argv=None):
     module = (make_ddm(args, cfg, generator) if option == "DDM"
               else make_graph_ssl(args, cfg, generator))
     if args.input_model_file:
-        from geossl_tpu_torch.utils.torch_import import load_torch_checkpoint
+        from geossl_tpu_torch.utils.torch_import import load_model_state
 
         module.model.load_state_dict(
-            load_torch_checkpoint(args.input_model_file)["model"])
+            load_model_state(args.input_model_file, cfg)["model"])
     module.to(device)
     loader = BucketedLoader(store, args.batch_size, common.buckets(args),
                             seed=args.seed, transform=transform)

@@ -14,6 +14,10 @@
   backbone ``context_model``) through them.
 * ``load_torch_checkpoint`` reads a reference ``.pth`` of either backbone:
   a bare backbone state_dict or ``{"model": ..., "graph_pred_linear": ...}``.
+* ``state_from_flax`` turns a JAX ``.ckpt`` tree (``train/checkpoints.
+  load_checkpoint``) into the same ``{"model", "graph_pred_linear"?,
+  "y_mean"?, "y_std"?}`` state; ``load_model_state`` reads either file kind
+  by its extension.
 """
 
 from __future__ import annotations
@@ -226,3 +230,57 @@ def load_torch_checkpoint(path: str) -> dict:
             if k not in ("graph_pred_linear", "y_mean", "y_std")}
     out["model"] = _backbone(body)
     return out
+
+
+def backbone_kind(tree) -> str:
+    """'schnet' or 'painn': the backbone a JAX param tree holds, by its
+    keys."""
+    if "Embed_0" in tree or "InteractionBlock_0" in tree:
+        return "schnet"
+    if "filter_kernel" in tree or any(k.startswith("PaiNNInteraction_")
+                                      for k in tree):
+        return "painn"
+    raise ValueError("the checkpoint's 'model' tree is neither a SchNet nor "
+                     f"a PaiNN backbone (keys: {sorted(tree)[:8]}...)")
+
+
+def state_from_flax(tree, cfg) -> dict:
+    """A JAX checkpoint tree (``{"model": backbone[, "graph_pred_linear":
+    head][, "y_mean", "y_std"], ...}``) -> ``{"model": state_dict[,
+    "graph_pred_linear": head state_dict][, "y_mean", "y_std"]}`` for a
+    backbone of ``cfg``. Raises when the tree holds the other backbone than
+    ``cfg.model_3d``; the other keys that pretraining checkpoints carry
+    (objective heads, statistics) are ignored, as the JAX loaders ignore
+    them."""
+    kind = backbone_kind(tree["model"])
+    if kind != cfg.model_3d:
+        raise ValueError(f"the checkpoint holds a {kind} backbone, but the "
+                         f"configuration asks for model_3d={cfg.model_3d!r}")
+    if kind == "painn":
+        shared = "PaiNNInteraction_shared" in tree["model"]
+        model = painn_state_dict_from_flax(
+            tree["model"], cfg.painn.n_interactions if shared else None)
+    else:
+        model = schnet_state_dict_from_flax(tree["model"])
+    out = {"model": model}
+    if isinstance(tree.get("graph_pred_linear"), dict):
+        out["graph_pred_linear"] = head_state_dict_from_flax(
+            tree["graph_pred_linear"])
+    for key in ("y_mean", "y_std"):
+        if key in tree:
+            out[key] = float(tree[key])
+    return out
+
+
+def load_model_state(path: str, cfg) -> dict:
+    """A JAX ``.ckpt`` (through :func:`state_from_flax`) or a reference
+    ``.pth``/``.pt`` (:func:`load_torch_checkpoint`) -> the state a
+    Predictor or a fine-tune's ``--input_model_file`` loads."""
+    if path.endswith(".ckpt"):
+        from geossl_tpu_torch.train.checkpoints import load_checkpoint
+
+        return state_from_flax(load_checkpoint(path), cfg)
+    if path.endswith((".pth", ".pt")):
+        return load_torch_checkpoint(path)
+    raise ValueError(f"{path!r}: want a JAX .ckpt or a torch .pth/.pt "
+                     "checkpoint")

@@ -22,7 +22,8 @@ from geossl_tpu_torch.data.store import MolStore as TMolStore
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STORE_FIELDS = ("atom_type", "positions", "offsets", "chirality", "bond_index",
                 "bond_offsets", "y", "forces")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "geossl_tpu")
+# msgpack too: the card's machine has none (utils/flax_msgpack reads .ckpt)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "geossl_tpu")
 
 
 def assert_same_store(a, b):
@@ -94,7 +95,9 @@ def _forbidden(module: str) -> bool:
 
 
 def test_port_import_leaves_jax_out():
-    code = ("import sys, geossl_tpu_torch.serve, geossl_tpu_torch.ops.cfconv; "
+    code = ("import sys, geossl_tpu_torch.serve, geossl_tpu_torch.ops.cfconv, "
+            "geossl_tpu_torch.export, geossl_tpu_torch.__main__, "
+            "geossl_tpu_torch.utils.flax_msgpack; "
             "print(' '.join(sorted(sys.modules)))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

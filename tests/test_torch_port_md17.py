@@ -259,11 +259,9 @@ def test_sym_second_orders_apply_the_placements_transpose():
 
 
 def _split_like_kernel(grads, k):
-    """The weight gradients from k on as views of one flat buffer, as the
-    kernels' launchers return them."""
-    flat = torch.cat([t.reshape(-1) for t in grads[k:]])
-    views = torch.split(flat, [t.numel() for t in grads[k:]])
-    return (*grads[:k], *(v.view(t.shape) for v, t in zip(views, grads[k:])))
+    """The weight gradients from k on as one flat buffer, as the kernels'
+    launchers return them."""
+    return (*grads[:k], torch.cat([t.reshape(-1) for t in grads[k:]]))
 
 
 def kernel_stand_ins(monkeypatch):
@@ -278,7 +276,7 @@ def kernel_stand_ins(monkeypatch):
         return tcf.cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start,
                                           stop, num_g)
 
-    def bwd_cf(name, dist, env, x, g, w1, b1, w2, b2, start, stop, num_g, sym,
+    def bwd_cf(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g, sym,
                sparse):
         out = list(tcf.cfconv_bwd_reference(dist, env, x, g, w1, b1, w2, b2,
                                             start, stop, num_g))
@@ -291,7 +289,7 @@ def kernel_stand_ins(monkeypatch):
         return tpn.painn_message_reference(dist, gate, dirx, diry, dirz, x, mu,
                                            wk, bk, cutoff)
 
-    def bwd_pn(name, *args):
+    def bwd_pn(*args):
         *args, cutoff, sym, sparse = args
         out = list(tpn.painn_bwd_reference(*args, cutoff))
         if sym:

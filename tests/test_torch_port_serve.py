@@ -163,8 +163,8 @@ def test_headless_checkpoint_and_cli(tmp_path, capsys):
     assert pred.embed(store).shape == (3, 128)
     with pytest.raises(ValueError, match="backbone-only"):
         pred.predict(store)
-    with pytest.raises(ValueError, match="msgpack"):
-        Predictor.from_checkpoint(str(tmp_path / "model.ckpt"), device="cpu")
+    with pytest.raises(ValueError, match="want a JAX .ckpt or a torch"):
+        Predictor.from_checkpoint(str(tmp_path / "model.bin"), device="cpu")
 
     full = str(tmp_path / "finetuned.pth")
     torch.save({"model": backbone, "graph_pred_linear": head, "y_mean": 1.0,
