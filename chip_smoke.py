@@ -237,8 +237,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
       forces, and of the LEP checkpoint in pairs over [512];
       ``SealedPredictor.load``; each mode on the serving store (pairs on
       the 64 pairs) held to the live Predictor at the same tolerance; the
-      port's kernels counted by the profiler in one live and one sealed
-      pass per mode, which must agree (the serving kernels of the
+      port's kernels counted by the profiler in a live and a sealed pass
+      per mode (each kernel's largest count over three traced passes: the
+      profiler may drop a record), which must agree (the serving kernels of the
       backbone's route must run inside the programs); a 128x512 pair must
       raise (not sealed); ``sealed:`` lines (export s, artifact MB, load
       s, first and steady pass against the live Predictor). Last, ``serve``
@@ -1888,6 +1889,14 @@ def by_table_name(calls):
             for k, sub in SEALED_KERNELS.items()}
 
 
+def table_kernel_calls(fn, tries=3):
+    """``by_table_name(kernel_calls(fn))``, each kernel's largest count over
+    ``tries`` traced calls: the profiler may drop a kernel's record (one
+    of six went missing in one run), it never adds one."""
+    runs = [by_table_name(kernel_calls(fn)) for _ in range(tries)]
+    return {k: max(r[k] for r in runs) for k in SEALED_KERNELS}
+
+
 def host_us_per_call(fn, reps=400):
     """Host microseconds per call of fn, issued back to back (the device
     runs behind: a small launch keeps it from setting the pace)."""
@@ -2131,8 +2140,8 @@ def serving_rest_path(dev, card, single, dual, serve_store):
                     run(p)
                     torch.cuda.synchronize()
                     laps[k].append(time.perf_counter() - t0)
-            live_calls = by_table_name(kernel_calls(lambda: run(live_p)))
-            sealed_calls = by_table_name(kernel_calls(lambda: run(sealed_p)))
+            live_calls = table_kernel_calls(lambda: run(live_p))
+            sealed_calls = table_kernel_calls(lambda: run(sealed_p))
             if sealed_calls != live_calls:
                 fail(f"sealed {model_3d} {mode}: kernels {sealed_calls}, the "
                      f"live route runs {live_calls}")
