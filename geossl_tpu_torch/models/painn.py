@@ -22,7 +22,9 @@ As in the JAX package:
 
 ``PaiNN.forward`` is the training path: each interaction's message pass
 goes through ``ops/painn.painn_message``, differentiable on the card (the
-``painn_fwd``/``painn_bwd`` kernels); ``fused_stack_apply`` is inference
+``painn_fwd``/``painn_bwd`` kernels; from N=256, when the pair grids are
+symmetric, i.e. without ``max_neighbors`` or a caller's ``pair_mask``, the
+symmetric pair ``painn_fwd_sym``/``painn_bwd_sym``); ``fused_stack_apply`` is inference
 only (``painn_stack``); ``stack_train_apply`` is the differentiable whole
 stack (``painn_stack_train``: the stack kernel forward, the per-block
 backward). ``plain=True`` runs the JAX model's XLA math on any
@@ -73,11 +75,14 @@ class PaiNNInteraction(nn.Module):
         self.interatomic_context_net = nn.Sequential(
             Dense(f, f, activation=F_.silu), Dense(f, 3 * f))
 
-    def forward(self, q, mu, dist, gate, dirs, wk, bk, plain=False):
+    def forward(self, q, mu, dist, gate, dirs, wk, bk, plain=False,
+                symmetric=False):
         """q [B,N,F]; mu [B,N,3,F]; dist/gate [B,N,N]; dirs the three
         contiguous [B,N,N] direction planes (``direction_planes``, made once
         per forward by the caller); wk [R,3F] and bk [3F] in the [in, out]
-        layout."""
+        layout. ``symmetric``: the caller guarantees dist and gate symmetric
+        and the directions antisymmetric, so the dispatcher may take the
+        symmetric kernel pair (``ops/painn.painn_message``)."""
         b, n, f = q.shape
         x = self.interatomic_context_net(q)
         mu_flat = mu.reshape(b, n, 3 * f)
@@ -90,7 +95,7 @@ class PaiNNInteraction(nn.Module):
                                               bk, self.cutoff, phi=phi)
         else:
             dq, dmu = painn_message(dist, gate, *dirs, x, mu_flat, wk, bk,
-                                    self.cutoff, symmetric=False,
+                                    self.cutoff, symmetric=symmetric,
                                     sparse=self.sparse)
         return q + dq, mu + dmu.reshape(b, n, 3, f)
 
@@ -210,9 +215,13 @@ class PaiNN(nn.Module):
                          device=q.device)
         filters = self.filter_weights() if filters is None else filters
         dirs = direction_planes(direction)  # once for all blocks
+        # the radius graph of the live positions is symmetric; a truncated
+        # neighbour list or a caller's pair mask may not be
+        symmetric = self.max_neighbors is None and pair_mask is None
         for inter, mix, (wk, bk) in zip(self.interactions, self.mixing,
                                         filters):
-            q, mu = inter(q, mu, dist, gate, dirs, wk, bk, plain=plain)
+            q, mu = inter(q, mu, dist, gate, dirs, wk, bk, plain=plain,
+                          symmetric=symmetric)
             q, mu = mix(q, mu)
         return geometry.readout(q, node_mask, self.readout), q
 

@@ -1,6 +1,6 @@
 // PaiNN's gated filter and forward message sums on the tensor cores, over a
-// block's run of whole items of a device tile list: the plain mode of
-// painn_fwd.cu (painn_fwd_mma_kernel) and the message phase of each
+// block's run of whole items of a device tile list: both modes of
+// painn_fwd.cu (painn_fwd_mma_kernel<KS, SYM>) and the message phase of each
 // interaction block of painn_stack.cu. painn_fwd.cu's header describes the
 // design: operands in mma fragment order ([Wk; bk] split once per call, the
 // gated A rows [phi; 1] gate once per tile), the filter in 3xTF32's plain
@@ -9,13 +9,15 @@
 // one tile ahead (cp.async), one barrier per tile.
 //
 // painn_fwd_items takes a block of kFwdThreads threads (16 warps, at most 128
-// registers each) and kFwdFloats floats of shared memory at `smem`; x and mu
-// are read with cp.async.cg (through L2), so a persistent kernel may call it
-// on buffers that other blocks wrote before a grid barrier.
+// registers each) and kFwdFloats floats of shared memory at `smem`
+// (kFwdSymFloats with SYM); x and mu are read with cp.async.cg (through L2),
+// so a persistent kernel may call it on buffers that other blocks wrote
+// before a grid barrier.
 #pragma once
 
 #include "mma_tf32.cuh"
-#include "painn_tile.cuh"
+#include "pair_tile.cuh"
+#include "reduce.cuh"
 #include "worklist.cuh"
 
 namespace geossl {
@@ -135,6 +137,58 @@ __device__ __forceinline__ void painn_kstep(float acc[2][2][4], const uint32_t a
   mma_passes<2, 2>(acc, ah, al, bh, bl);
 }
 
+// SYM: the messages of a mirror tile to its j rows, after chunk c = 0 (dq
+// from wq = acc[0]) or c = 2 (the three dmu channels from wr = acc[1] and
+// wm = acc[0]): for this lane's row il = g of the i tile (xi_s: the item's
+// x rows, then its mu rows) and its pairs jl = jw + 2 mb + h, features f =
+// 16 wn + 4 t + u, summed over the 8 lanes of one t (rs_lanes) and added
+// to rows j = j0 + jl of graph b, two features per lane.
+__device__ __forceinline__ void painn_mirror_rows(int c, float acc[2][2][2][4],
+                                                  const float* xi_s, const float* pr, float* dq,
+                                                  float* dmu, int b, int ni, int nj, int jw,
+                                                  int wn) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, f = 16 * wn + 4 * t;
+  // after rs_lanes, entries 2 g, 2 g + 1: pair mb = g >> 2, h = (g >> 1) & 1,
+  // features f + 2 (g & 1) + (0, 1)
+  const int j = jw + 2 * (g >> 2) + ((g >> 1) & 1), fo = f + 2 * (g & 1);
+  const float* xrow = xi_s + g * kS3;
+  // the filter of pair (mb, h) at features f + u, u = 2*nb + c'
+  auto wv = [&](int a, int mb, int h, int u) { return acc[a][mb][u >> 1][2 * h + (u & 1)]; };
+  if (c == 0) {
+    const float4 xq = ld4(xrow + f);
+    const float xv[4] = {xq.x, xq.y, xq.z, xq.w};
+    float v[16];
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[8 * mb + 4 * h + u] = wv(0, mb, h, u) * xv[u];
+    rs_lanes<1>(v);
+    if (j < nj) atomic_add2(dq + ((size_t)b * ni + j) * kF + fo, v[0], v[1]);
+    return;
+  }
+  const float4 xr4 = ld4(xrow + kF + f), xm4 = ld4(xrow + 2 * kF + f);
+  const float xr[4] = {xr4.x, xr4.y, xr4.z, xr4.w}, xm[4] = {xm4.x, xm4.y, xm4.z, xm4.w};
+#pragma unroll
+  for (int cc = 0; cc < 3; ++cc) {
+    const float4 m4 = ld4(xrow + kTile * kS3 + cc * kF + f);
+    const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+    float v[16];
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float dc = pr[(2 + cc) * kPairs + g * kTile + (jw & 7) + 2 * mb + h];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          v[8 * mb + 4 * h + u] = fmaf(wv(0, mb, h, u) * xm[u], mv[u], -(wv(1, mb, h, u) * xr[u]) * dc);
+      }
+    rs_lanes<1>(v);
+    if (j < nj) atomic_add2(dmu + ((size_t)b * ni + j) * kF3 + cc * kF + fo, v[0], v[1]);
+  }
+}
+
 // shared memory of painn_fwd_items, in floats
 constexpr int kFOffWk = 0;                           // WkF (above)
 constexpr int kFOffPhi = kFOffWk + kWkFFloats;       // [2] phi buffers, fragment order
@@ -142,6 +196,8 @@ constexpr int kFOffX = kFOffPhi + 2 * kPhiFFloats;   // [2][2][8][kS3] x, mu row
 constexpr int kFOffPr = kFOffX + 4 * kTile * kS3;    // [3][5][64] dist, gate, dir x/y/z, [il][jl]
 constexpr int kFOffRed = kFOffPr + 3 * 5 * kPairs;   // [8][32][16] row sums of the warps wm = 1
 constexpr int kFwdFloats = kFOffRed + 8 * 32 * 16;
+constexpr int kFOffXi = kFwdFloats;                  // SYM: [2][8][kS3] x, mu rows of the item
+constexpr int kFwdSymFloats = kFOffXi + 2 * kTile * kS3;
 
 // Block k runs items [first_item(k), first_item(k + 1)) of the tile list
 // (worklist.cuh: items (graph, 8-row i tile), each listing its j tiles), in
@@ -154,7 +210,22 @@ constexpr int kFwdFloats = kFOffRed + 8 * 32 * 16;
 // A warp loads its A fragments once a tile; the k steps of chunk c + 1 are
 // issued between the four message groups of chunk c. KS k steps: K = 8 KS >=
 // R + 1.
-template <int KS>
+//
+// SYM (painn_fwd.cu's symmetric mode: a tile list of the tiles pi <= pj,
+// symmetric dist/gate, antisymmetric directions, square grid): a tile with
+// pi < pj also emits the messages of its mirror tile (pj, pi), which has
+// the same gated filter and the direction terms negated, to the tile's j
+// rows:
+//   dq[j]    += sum_i wq xq_i
+//   dmu_c[j] += sum_i (wr xr_i (-dir_c[i,j]) + wm xm_i mu_c[i])
+// with the item's x and mu rows (the i tile) staged once per item. A lane
+// holds il = g, so these sums over i are sums over the 8 lanes of one t
+// (rs_lanes), taken once per tile (the q sums after chunk 0, the three
+// channels' after chunk 2, whose r filter stays in its accumulators) and
+// added to dq/dmu with float2 atomics; the item's own rows are added with
+// float4 atomics when it ends. dq and dmu must be zero on entry, and their
+// summation order varies from run to run.
+template <int KS, bool SYM = false>
 __device__ __forceinline__ void painn_fwd_items(
     float* smem, const float* __restrict__ dist, const float* __restrict__ gate,
     const float* __restrict__ dirx, const float* __restrict__ diry,
@@ -179,8 +250,8 @@ __device__ __forceinline__ void painn_fwd_items(
   // does), one item a warp at a time
   if (warp < 2 && lane == 0)
     run_s[warp] = pre[first_item(pre, n_items, gridDim.x, blockIdx.x + warp)];
-  for (int item = blockIdx.x + gridDim.x * warp; item < n_items;
-       item += gridDim.x * (kFwdThreads / 32)) {
+  for (int item = blockIdx.x + gridDim.x * warp; item < (SYM ? 0 : n_items);
+       item += gridDim.x * (kFwdThreads / 32)) {  // SYM: zero on entry
     if (pre[item] != pre[item + 1]) continue;  // warp-uniform
     const int b = item / nti, i0 = (item - b * nti) * kTile;
     for (int idx = lane; idx < kTile * (kF + kF3) / 4; idx += 32) {
@@ -227,6 +298,21 @@ __device__ __forceinline__ void painn_fwd_items(
                                      delta, coeff);
   };
 
+  // SYM: the x and mu rows of item `it` (its i tile) into the row buffer,
+  // zeros past ni; the caller syncs
+  auto load_irows = [&](int it) {
+    const int b = it / nti, i0 = (it - b * nti) * kTile;
+    float* dst = smem + kFOffXi;
+    for (int c = tid; c < 2 * kTile * kF3 / 4; c += kFwdThreads) {
+      const int side = c / (kTile * kF3 / 4), r = (c / (kF3 / 4)) % kTile;
+      const int f = (c % (kF3 / 4)) * 4, i = i0 + r;
+      const float4 v = i < ni ? __ldcg(reinterpret_cast<const float4*>(
+                                    (side ? mu : x) + ((size_t)b * nj + i) * kF3 + f))
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(dst + (side * kTile + r) * kS3 + f) = v;
+    }
+  };
+
   // this lane's share of row il = g of the current item, features 16*wn +
   // 4*t + u (u = 2*nb + c) of dq and of each dmu channel, summed over this
   // warp's four jl of every tile of the item
@@ -252,12 +338,20 @@ __device__ __forceinline__ void painn_fwd_items(
     if (wm == 0 && i < ni) {
       const int f = 16 * wn + 4 * t;
       const float4 r = ld4(red);
-      st4(dq + ((size_t)b * ni + i) * kF + f, aq[0] + r.x, aq[1] + r.y, aq[2] + r.z, aq[3] + r.w);
+      float* row_q = dq + ((size_t)b * ni + i) * kF + f;
+      if (SYM)  // mirrors of other items' tiles land on these rows too
+        atomic_add4(row_q, make_float4(aq[0] + r.x, aq[1] + r.y, aq[2] + r.z, aq[3] + r.w));
+      else
+        st4(row_q, aq[0] + r.x, aq[1] + r.y, aq[2] + r.z, aq[3] + r.w);
 #pragma unroll
       for (int cc = 0; cc < 3; ++cc) {
         const float4 rm = ld4(red + 4 + 4 * cc);
-        st4(dmu + ((size_t)b * ni + i) * kF3 + cc * kF + f, am[cc][0] + rm.x, am[cc][1] + rm.y,
-            am[cc][2] + rm.z, am[cc][3] + rm.w);
+        float* row_m = dmu + ((size_t)b * ni + i) * kF3 + cc * kF + f;
+        if (SYM)
+          atomic_add4(row_m, make_float4(am[cc][0] + rm.x, am[cc][1] + rm.y, am[cc][2] + rm.z,
+                                         am[cc][3] + rm.w));
+        else
+          st4(row_m, am[cc][0] + rm.x, am[cc][1] + rm.y, am[cc][2] + rm.z, am[cc][3] + rm.w);
       }
     }
 #pragma unroll
@@ -270,6 +364,7 @@ __device__ __forceinline__ void painn_fwd_items(
   if (t_begin + 1 < t_end) load_grids(v1, 1);
   load_rows(v0, 0);
   cp_async_commit();
+  if (SYM) load_irows(cur);
   painn_stage_wkf(smem + kFOffWk, wk, bk, R);  // while the first tile's loads fly
   cp_async_wait<0>();
   __syncthreads();
@@ -286,7 +381,14 @@ __device__ __forceinline__ void painn_fwd_items(
     if (item != cur) {  // block-uniform: the run moves to the next item
       flush();
       cur = item;
+      if (SYM) {
+        load_irows(cur);
+        __syncthreads();
+      }
     }
+    // SYM: a tile above the diagonal carries its mirror (block-uniform)
+    const int pj = v0 - item * ntj;
+    const bool mirror = SYM && pj != item % nti;
     const float* pr = smem + kFOffPr + q % 3 * 5 * kPairs;  // [5][il*8 + jl]
     const float* xj = smem + kFOffX + (q & 1) * 2 * kTile * kS3;
     const float* muj = xj + kTile * kS3;
@@ -346,7 +448,10 @@ __device__ __forceinline__ void painn_fwd_items(
           }
         }
       }
-      if (c < 2) {  // chunk c's filter is consumed: zero it for chunk c + 2
+      if (mirror && c != 1)
+        painn_mirror_rows(c, acc, smem + kFOffXi, pr, dq, dmu, item / nti, ni, nj,
+                          pj * kTile + 4 * wm, wn);
+      if (c == 0) {  // chunk 0's filter is consumed: zero it for chunk 2
 #pragma unroll
         for (int mb = 0; mb < 2; ++mb)
 #pragma unroll

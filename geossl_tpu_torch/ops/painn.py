@@ -258,17 +258,17 @@ def _launch_painn_fwd(dist: Tensor, gate: Tensor, dirx: Tensor, diry: Tensor,
         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     dev = dist.device
     # the symmetric mode adds every output row with atomics; the plain mode
-    # writes each row once and takes a work list made on the device (tile
+    # writes each row once. Both take a work list made on the device (tile
     # flags, per-item counts and their prefix sums, the tile list)
     alloc = torch.zeros if symmetric else torch.empty
     dq = alloc((b, ni, KERNEL_F), dtype=torch.float32, device=dev)
     dmu = alloc((b, ni, 3 * KERNEL_F), dtype=torch.float32, device=dev)
-    ws = None if symmetric else torch.empty(_build.kernel_fn(
+    ws = torch.empty(_build.kernel_fn(
         "painn_fwd", "painn_fwd_ws_ints", [ctypes.c_int] * 3,
         ctypes.c_size_t)(b, ni, nj), dtype=torch.int32, device=dev)
     delta, coeff = _rbf_consts(cutoff, num_r)
-    err = fn(*map(ptr, (dist, gate, dirx, diry, dirz, x, mu, wk, bk, dq, dmu)),
-             ctypes.c_void_p(None) if ws is None else ptr(ws),
+    err = fn(*map(ptr, (dist, gate, dirx, diry, dirz, x, mu, wk, bk, dq, dmu,
+                        ws)),
              b, ni, nj, KERNEL_F, num_r, delta, coeff, int(symmetric),
              int(sparse), stream(dist))
     check_launch(name, err)
@@ -431,8 +431,8 @@ def _launch_painn_bwd(dist: Tensor, gate: Tensor, dirx: Tensor, diry: Tensor,
     size = (num_r + 1) * f3  # dWk rows, then dbk
     part = torch.empty((blocks, size), dtype=torch.float32, device=dev)
     wgrad = torch.empty(size, dtype=torch.float32, device=dev)
-    # the plain mode's work list, made on the device: tile flags, per-item
-    # tile counts and their prefix sums
+    # the work list, made on the device: tile flags, per-item tile counts
+    # and their prefix sums
     ws = torch.empty(_build.kernel_fn(
         "painn_bwd", "painn_bwd_ws_ints", [ctypes.c_int] * 3,
         ctypes.c_size_t)(b, ni, nj), dtype=torch.int32, device=dev)
