@@ -127,23 +127,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
       written ``model.pth`` must give the run's best val MSE again under
       ``--eval_only``. The same for ``train.finetune_lep.main`` at its
       defaults (batch 16, bucket 512) for 1 epoch of 64 synthetic pairs,
-      and for 2 PaiNN LBA steps (``painn_fwd``/``painn_bwd`` at N=512)
-      from the DDM-PaiNN ``model.pth``. Then one full-width LBA-SchNet step
+      and for 2 PaiNN LBA steps (``painn_fwd_sym``/``painn_bwd_sym`` at
+      N=512: PaiNN's route from N=256) from the DDM-PaiNN ``model.pth``. Then one full-width LBA-SchNet step
       at N=512 with kernels is held to the same step with the plain
       versions (in chunks of 4 graphs; tolerances as in b) on a freshly
       seeded net. On the same batch of 64 complexes, a freshly seeded
       full-width LBA-PaiNN net (F=128, 3 blocks, 20 RBF, cutoff 5): block
       0's ``painn_fwd`` and ``painn_bwd`` against their plain versions (in
-      graph chunks; tolerances as in 2), then one LBA-PaiNN step against
-      the plain step (in chunks of 2 graphs; tolerances as in b).
+      graph chunks; tolerances as in 2), then one LBA-PaiNN step (through
+      the symmetric pair, its route) against the plain step (in chunks of
+      2 graphs; tolerances as in b).
    d. The symmetric PaiNN pair on the same LBA-PaiNN inputs (B=64, N=512:
-      symmetric dist/gate, antisymmetric directions), entered at the op
-      level through ``painn_message(symmetric=True)``, since no driver
-      routes PaiNN through it: ``painn_fwd_sym`` against the plain version
-      and against ``painn_fwd`` (tolerances as ``painn_fwd``),
+      symmetric dist/gate, antisymmetric directions), through the
+      dispatcher ``painn_message(symmetric=True)`` and the wrappers, and on
+      a serving-like partial batch at N=256 (the store's 11 molecules of
+      that bucket in 128 graph slots): ``painn_fwd_sym`` against the plain
+      version and against ``painn_fwd`` (tolerances as ``painn_fwd``),
       ``painn_bwd_sym`` against the plain cotangents placed
       (``place_sym_cotangent``: ddist/dgate symmetric, the three ddir
-      antisymmetric; tolerances as ``painn_bwd``); then a scalar loss
+      antisymmetric; tolerances as ``painn_bwd``), gating off and on, and
+      a second launch of each against the first (the five pair
+      cotangents and dWk/dbk bitwise; dq, dmu, dx and dmu, summed with
+      atomics, within the same tolerances); then a scalar loss
       through ``pairwise_directions``, the cosine-cutoff gate and the
       symmetric pair, whose gradients to the positions, x, mu, Wk and bk
       must match the same chain through ``painn_fwd``/``painn_bwd`` within
@@ -254,7 +259,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    path's largest bucket; DDM-PaiNN mol/s per bucket through the stack and
    through the per-block kernels (``train_stack:`` lines, median of 3
    steps each, in turns); the symmetric pair's and the plain pair's kernel
-   times at the LBA shape (``painn_sym_vs_plain_kernels:``) and, for the
+   times at the LBA shape and the LBA-PaiNN step's device ms through each
+   route (``painn_sym_vs_plain_kernels:``; ``routed`` is the pair PaiNN's
+   dispatcher picks there, the measurement its route follows) and, for the
    CFConv, at the DDM buckets (B=128, N=32/64/128) and the LBA shape
    (``cfconv_sym_vs_plain_kernels:``, forward and backward of each pair:
    the measurement SchNet's route follows; ``routed`` is the pair the
@@ -279,6 +286,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``bound_basis`` "tf32_tensor_core+f32": its products once at the TF32
    tensor-core peak, its elementwise terms at the f32 peak; likewise
    ``cfconv_fwd``, ``schnet_stack``, ``painn_fwd``, ``painn_bwd``,
+   ``painn_fwd_sym``, ``painn_bwd_sym``,
    ``painn_stack``, ``painn_stack_train``, ``cfconv_fwd_sym`` (also on the
    ``cfconv_fwd_sym_ddm:`` line), ``ncsn_score_fwd`` and
    ``ncsn_score_bwd``; ``bound_ms_f32`` beside it counts every operation at
@@ -435,10 +443,10 @@ KERNEL_ENTRIES = {
     "cfconv_bwd_sym": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb1E"),
     "ncsn_score_fwd": ("ncsn_score", "_ZN6geossl15ncsn_fwd_kernel"),
     "ncsn_score_bwd": ("ncsn_score", "_ZN6geossl15ncsn_bwd_kernel"),
-    "painn_fwd": ("painn_fwd", "_ZN6geossl20painn_fwd_mma_kernelILi3E"),
-    "painn_fwd_sym": ("painn_fwd", "_ZN6geossl20painn_fwd_sym_kernel"),
-    "painn_bwd": ("painn_bwd", "_ZN6geossl20painn_bwd_mma_kernel"),
-    "painn_bwd_sym": ("painn_bwd", "_ZN6geossl20painn_bwd_sym_kernel"),
+    "painn_fwd": ("painn_fwd", "_ZN6geossl20painn_fwd_mma_kernelILi3ELb0E"),
+    "painn_fwd_sym": ("painn_fwd", "_ZN6geossl20painn_fwd_mma_kernelILi3ELb1E"),
+    "painn_bwd": ("painn_bwd", "_ZN6geossl20painn_bwd_mma_kernelILb0E"),
+    "painn_bwd_sym": ("painn_bwd", "_ZN6geossl20painn_bwd_mma_kernelILb1E"),
     # the stack: the instance its row's shape runs (stack_instance)
     "painn_stack": ("painn_stack", None),
     "painn_stack_train": ("painn_stack", None),
@@ -709,6 +717,43 @@ def check_painn_bwd(errs, grids, x, mu, wk, bk, gq, gmu, cutoff, what,
         check_weight_grads(errs, name_k, got[7:], ref[7:],
                            PAINN_BWD_NAMES[7:], f"{what} sparse={sp}")
     return want
+
+
+def check_painn_sym(errs, grids, x, mu, wk, bk, gq, gmu, cutoff, what,
+                    want_fwd=None, want_bwd=None):
+    """The symmetric PaiNN pair on symmetric grids against its plain
+    versions, gating off and on (``painn_fwd_sym`` elementwise,
+    ``painn_bwd_sym`` through ``check_painn_bwd``), then a second launch of
+    each against the first: the five pair cotangents and dWk/dbk bitwise,
+    the rows summed with atomics (dq, dmu; dx, dmu) within the tolerances.
+    ``want_fwd`` / ``want_bwd``: the plain versions' outputs, if made."""
+    import torch
+
+    from geossl_tpu_torch.ops import painn as P
+
+    with torch.no_grad():
+        if want_fwd is None:
+            want_fwd = chunked(lambda *a: torch.cat(P.painn_message_reference(
+                *a, wk, bk, cutoff), dim=-1), (*grids, x, mu), (), 4)
+        for sp in (False, True):
+            got = torch.cat(P.painn_message_fused_sym(
+                *grids, x, mu, wk, bk, cutoff, sp), dim=-1)
+            errs.check("painn_fwd_sym", got, want_fwd, f"{what} sparse={sp}")
+            errs.check("painn_fwd_sym", torch.cat(P.painn_message_fused_sym(
+                *grids, x, mu, wk, bk, cutoff, sp), dim=-1), got,
+                f"{what} sparse={sp} second launch")
+    check_painn_bwd(errs, grids, x, mu, wk, bk, gq, gmu, cutoff, what,
+                    chunk=8, symmetric=True, want=want_bwd)
+    one, two = (P.painn_bwd_sym(*grids, x, mu, wk, bk, gq, gmu, cutoff, True)
+                for _ in range(2))
+    for k, (name, a, b) in enumerate(zip(PAINN_BWD_NAMES, one, two)):
+        if k in (5, 6):
+            errs.check_scaled("painn_bwd_sym", b, a, f"{what} {name} second "
+                              "launch")
+        elif not torch.equal(a, b):
+            fail(f"painn_bwd_sym {what}: {name} differs between two launches")
+    print(f"painn_bwd_sym {what}: pair cotangents and weight gradients "
+          "repeat bitwise")
 
 
 def measure_serving(pred, subs, model_3d):
@@ -1855,11 +1900,16 @@ SEALED_KERNELS = {"schnet_stack": "schnet_stack_kernel",
                   "cfconv_fwd_sym": "cfconv_fwd_sym_kernel",
                   "cfconv_bwd_sym": "cfconv_bwd_kernel<true",
                   "painn_stack": "painn_stack_kernel<false",
-                  "painn_fwd": "painn_fwd_mma_kernel",
-                  "painn_bwd": "painn_bwd_mma_kernel"}
-# the serving kernels each backbone's sealed passes must run
+                  "painn_fwd": "painn_fwd_mma_kernel<3, false",
+                  "painn_bwd": "painn_bwd_mma_kernel<false",
+                  "painn_fwd_sym": "painn_fwd_mma_kernel<3, true",
+                  "painn_bwd_sym": "painn_bwd_mma_kernel<true"}
+# the serving kernels each backbone's sealed passes must run (PaiNN at
+# N=512 through its symmetric pair; its forces at N <= 128 through the
+# plain pair)
 SEALED_PATH = {"schnet": ("schnet_stack", "cfconv_fwd_sym", "cfconv_bwd_sym"),
-               "painn": ("painn_stack", "painn_fwd", "painn_bwd")}
+               "painn": ("painn_stack", "painn_fwd_sym", "painn_bwd_sym",
+                         "painn_fwd", "painn_bwd")}
 # the index-coded atom types' element symbols (8, unknown: a symbol the
 # featurizer does not know)
 SDF_SYMBOLS = ("H", "C", "N", "O", "F", "P", "S", "Cl", "Xx")
@@ -2500,7 +2550,7 @@ def main():
     launches_p = launch_counts()
     print(f"main path (PaiNN serving): {len(store)} molecules x 2 passes in "
           f"{time.time() - t0:.2f} s (first call); launches {launches_p}")
-    for name in ("painn_stack", "painn_fwd"):
+    for name in ("painn_stack", "painn_fwd_sym"):
         if launches_p[name] == 0:
             fail(f"kernel {name} was not launched on the PaiNN serving path")
     if preds_p.shape != (len(store),) or \
@@ -2765,11 +2815,11 @@ def main():
                                  ("cfconv_fwd_sym", "cfconv_bwd_sym"))
     finetune_path(FE, "lep", lep_flags + ["--epochs", "1"],
                   ("cfconv_fwd_sym", "cfconv_bwd_sym"))
-    # PaiNN at N=512 from the DDM-PaiNN model.pth: painn_fwd/painn_bwd at a
-    # shape the DDM path does not give them
-    finetune_path(FL, "lba", lba_flags + ["--epochs", "1"],
-                  ("painn_fwd", "painn_bwd"), "painn",
-                  os.path.join(out_dir_p, "model.pth"))
+    # PaiNN at N=512 from the DDM-PaiNN model.pth: its route there is the
+    # symmetric pair
+    lba_launches_p = finetune_path(FL, "lba", lba_flags + ["--epochs", "1"],
+                                   ("painn_fwd_sym", "painn_bwd_sym"), "painn",
+                                   os.path.join(out_dir_p, "model.pth"))
 
     # one full-width LBA-SchNet step at N=512 with kernels against the same
     # step with the plain versions (in graph chunks), on a freshly seeded net
@@ -2825,11 +2875,11 @@ def main():
                       loss_p, grads_p)
 
     # -- 3d. main path: the symmetric PaiNN pair at the LBA shape ----------------
-    # No driver of either package routes PaiNN through it (the JAX model
-    # passes symmetric=False), so the path enters at the op level, through
-    # the dispatcher: painn_message(symmetric=True) on block 0's inputs of
-    # the LBA-PaiNN batch (B=64, N=512: symmetric dist/gate, antisymmetric
-    # directions, no max_neighbors).
+    # PaiNN's route from N=256 (painn_message(symmetric=True) when the pair
+    # grids are symmetric): block 0's inputs of the LBA-PaiNN batch (B=64,
+    # N=512: symmetric dist/gate, antisymmetric directions, no
+    # max_neighbors) through the dispatcher and the wrappers, then a
+    # serving-like partial batch at N=256 (11 molecules in 128 graph slots)
     d_l, g_l = grids[0], grids[1]
     if not (torch.equal(d_l, d_l.transpose(1, 2))
             and torch.equal(g_l, g_l.transpose(1, 2))
@@ -2842,12 +2892,17 @@ def main():
         errs.check("painn_fwd_sym", got, torch.cat(P.painn_message_fused(
             *grids, x, mu, wk0, bk0, cut_lp, True), dim=-1),
             "LBA B=64 N=512 against painn_fwd")
-        for sp in (False, True):
-            errs.check("painn_fwd_sym", torch.cat(P.painn_message_fused_sym(
-                *grids, x, mu, wk0, bk0, cut_lp, sp), dim=-1), want,
-                f"LBA B=64 N=512 sparse={sp}")
-    check_painn_bwd(errs, grids, x, mu, wk0, bk0, gq, gmu, cut_lp,
-                    "LBA B=64 N=512", symmetric=True, want=want_bwd_l)
+    check_painn_sym(errs, grids, x, mu, wk0, bk0, gq, gmu, cut_lp,
+                    "LBA B=64 N=512", want, want_bwd_l)
+    g256, q256, x256, mu256 = painn_inputs(model_p,
+                                           packed(first(256, 11), 256, 128))
+    if int((g256[1].flatten(1) != 0).any(1).sum()) != 11:
+        fail("the N=256 partial batch does not hold 11 graphs in 128 slots")
+    gen_s = torch.Generator(dev).manual_seed(SEED + 1)
+    check_painn_sym(errs, g256, x256, mu256, wk_p, bk_p,
+                    torch.randn(q256.shape, generator=gen_s, device=dev),
+                    torch.randn(mu256.shape, generator=gen_s, device=dev),
+                    cut_p, "serving partial B=128 (11 graphs) N=256")
 
     def pair_chain(op):
         """Gradients to positions, x, mu, Wk and bk of a scalar loss through
@@ -2872,7 +2927,7 @@ def main():
     for name in ("painn_fwd_sym", "painn_bwd_sym"):
         if sym_launches[name] == 0:
             fail(f"kernel {name} was not launched on the symmetric pair's path")
-    g_ref = pair_chain(lambda *a: P.painn_message(*a))
+    g_ref = pair_chain(lambda *a: P.painn_message_fused(*a, True))
     for name, a, w in zip(("positions", "x", "mu", "Wk", "bk"), g_sym, g_ref):
         rel = rel_norm(a, w)
         if not torch.isfinite(a).all() or rel > 1e-5:
@@ -2887,8 +2942,29 @@ def main():
                   lambda: P.painn_message_fused_sym(*fwd_args)),
               "painn_bwd": cuda_time_ms(lambda: P.painn_bwd(*bwd_args)),
               "painn_bwd_sym": cuda_time_ms(lambda: P.painn_bwd_sym(*bwd_args))}
+    # the LBA-PaiNN step (forward and backward of the loss, every block)
+    # through each route: device busy ms of one traced step, three steps
+    # each, in turns; the plain route by lifting the symmetric pair's N
+    params_p = [t for t in net0_p.parameters() if t.requires_grad]
+
+    def lba_step_p():
+        torch.autograd.grad(FL.loss_fn(net0_p, lba_batch), params_p)
+
+    keep = P._SYM_MIN_N
+    step_ms = {"symmetric": [], "plain": []}
+    for _ in range(3):
+        for route in ("symmetric", "plain"):
+            P._SYM_MIN_N = keep if route == "symmetric" else 1 << 30
+            lba_step_p()
+            step_ms[route].append(device_profile(lba_step_p)[1] * 1e3)
+    P._SYM_MIN_N = keep
+    routed = "symmetric" if P.sym_profitable(lba_batch.positions.shape[1]) \
+        else "plain"
     print("painn_sym_vs_plain_kernels: " + json.dumps(
-        {"shape": "LBA B=64 N=512", "ms": sym_ms}))
+        {"shape": "LBA B=64 N=512", "ms": sym_ms,
+         "lba_painn_step_device_ms": {k: sorted(v)[1]
+                                      for k, v in step_ms.items()},
+         "lba_painn_step_device_ms_runs": step_ms, "routed": routed}))
     sym_case = (grids, x, mu, wk0, bk0, gq, gmu)
 
     # -- 3e. main path: the QM9 fine-tune at bucket 32 ---------------------------
@@ -3506,11 +3582,12 @@ def main():
             *stack_work(grids, q0, atoms, stacked0, True),
             stack_launches["painn_stack_train"]))
 
-        # the symmetric pair at the LBA shape (phase 3d's inputs): each
-        # occupied unordered pair's filter once (pair_work: one triangle),
-        # the message sums per ordered pair; the backward's filter, dWk/dbk
-        # and dphi once per unordered pair, its elementwise terms per
-        # ordered pair
+        # the symmetric pair at the LBA shape (phase 3d's inputs), on the
+        # tensor-core basis of the other rows: each occupied unordered
+        # pair's filter once (pair_work: one triangle) at the TF32 peak, the
+        # message sums per ordered pair at the f32 peak; the backward's
+        # filter, dWk/dbk and dphi once per unordered pair (the placed pair
+        # cotangents), its elementwise terms per ordered pair
         grids, x, mu, wk0, bk0, gq, gmu = sym_case
         nnz, filt_pairs, cells, tiles = pair_work(grids[0], grids[1])
         if cells == grids[0].numel():
@@ -3523,12 +3600,12 @@ def main():
             cuda_time_ms(lambda: chunked(lambda *a: torch.cat(
                 P.painn_message_fused_sym_reference(*a, wk0, bk0, cut_lp),
                 dim=-1), (*grids, x, mu), (), 4), reps=3, warmup=1),
-            filt_pairs * fwd_pair + nnz * fwd_elem,
+            (filt_pairs * fwd_pair, nnz * fwd_elem),
             # gate's triangle, dist and the directions on its occupied upper
             # tiles; x, mu read and dq, dmu written
             4 * (cells + 4 * tiles + 2 * x.numel() + (R_ + 1) * f3
                  + 4 * x.numel() // 3),
-            sym_launches["painn_fwd_sym"]))
+            lba_launches_p["painn_fwd_sym"]))
     kernels.append((
         "painn_bwd_sym", "geossl_tpu_torch/ops/csrc/painn_bwd.cu",
         "geossl_tpu/ops/painn_pallas.py:540",
@@ -3539,12 +3616,12 @@ def main():
             P.painn_bwd_sym_reference(d, g, a, b_, c, xx, m, wk0, bk0, gq_,
                                       gmu_, cut_lp),
             (*grids, x, mu, gq, gmu), (), 2, 7), reps=2, warmup=1),
-        filt_pairs * (2 * R_ * f3 + 2 * (R_ + 1) * f3 + 2 * R_ * f3)
-        + nnz * 40 * F_,
+        (filt_pairs * (2 * R_ * f3 + 2 * (R_ + 1) * f3 + 2 * R_ * f3),
+         nnz * 40 * F_),
         # as painn_bwd's, the pair grids on the upper triangle
         4 * (cells + 4 * tiles + 5 * grids[0].numel() + 5 * x.numel()
              + x.numel() // 3 + 2 * (R_ + 1) * f3),
-        sym_launches["painn_bwd_sym"]))
+        lba_launches_p["painn_bwd_sym"]))
 
     table = []
     for name, src, replaces, ms, plain_ms, flops, nbytes, count in kernels:

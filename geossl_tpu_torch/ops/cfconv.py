@@ -35,8 +35,8 @@ the plain version. The plain-mode forward writes each output row once (no
 atomics): two launches give bitwise the same output.
 ``plain_precision()`` makes the plain versions' PyTorch matmuls full f32.
 SchNet's dispatcher takes the symmetric pair whenever dist/env are
-symmetric, at every N (the card's measurement); PaiNN keeps the JAX
-package's rule (``ops/painn.sym_profitable``).
+symmetric, at every N (the card's measurement); PaiNN's takes its
+symmetric pair from N=256 (``ops/painn.sym_profitable``).
 
 Each launch is also a custom op (``ops/_launch.kernel_op``):
 ``geossl_torch::cfconv_fwd`` (both forward modes), ``cfconv_bwd`` (both

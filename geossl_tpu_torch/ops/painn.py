@@ -44,13 +44,14 @@ forward launches the backward kernel and whose backward is
 backward, as the JAX package's XLA ``_painn_bwd_bwd`` /
 ``_painn_sym_bwd_bwd``. The stack's Function is first order only, as the
 JAX package's: a double backward through it raises NotImplementedError.
-``painn_fwd``, ``painn_bwd`` and
-``painn_stack`` run their products (the filter; the backward also dWk and
+Every kernel runs its products (the filter; the backwards also dWk and
 dphi; the stack also its dense layers) on the tensor cores in 3xTF32
-(``csrc/mma_tf32.cuh``), within f32 rounding of the plain version; the
-symmetric pair computes in plain f32 on the CUDA cores. The stack is one
-cooperative launch over a work list made on the device, its rows written
-without atomics: two launches give bitwise the same output.
+(``csrc/mma_tf32.cuh``), within f32 rounding of the plain version, over a
+work list made on the device. The symmetric pair is the plain pair's
+kernels in their ``SYM`` mode: one filter per unordered pair of 8x8
+tiles, the mirror tile's messages added with atomics. The stack is one
+cooperative launch, its rows written without atomics: two launches give
+bitwise the same output.
 
 The symmetric pair is for symmetric dist/gate and antisymmetric directions
 only (dir[j, i] = -dir[i, j]): PaiNN's geometry gives them without
@@ -94,8 +95,10 @@ from geossl_tpu_torch.ops.cfconv import KERNEL_F, second_order, sparse_auto
 
 # Largest N the whole-stack kernel accepts (as painn_pallas.STACK_MAX_N).
 STACK_MAX_N = 128
-# PaiNN takes the symmetric kernel pair from this N up, as the JAX package's
-# painn_pallas.painn_sym_profitable (its TPU tiling's first skippable tile).
+# PaiNN takes the symmetric kernel pair from this N up (the JAX package's
+# painn_pallas.painn_sym_profitable threshold). On the H100 the pair beats
+# the plain pair at the LBA shape (B=64, N=512; PERF.md §6, PR 15), so
+# PaiNN.forward asks for it whenever its pair grids are symmetric.
 _SYM_MIN_N = 256
 
 
@@ -490,14 +493,14 @@ def painn_message(dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
     """Dispatcher, routed as ``painn_pallas.painn_message``: the plain-mode
     kernel with occupancy gating from N=128 ('auto'); with ``symmetric=True``
     the symmetric kernel pair from N=256 (``sym_profitable``, the JAX
-    package's threshold). On the H100 that route is currently slower than
-    the plain-mode pair (PERF.md §6: at B=64, N=512 the symmetric forward
-    takes about 2x and its backward about 1.2x the plain kernels' time),
-    and no caller in this package sets ``symmetric``. The caller
-    guarantees what ``symmetric`` claims: dist and gate symmetric (no
-    ``max_neighbors`` truncation), the directions antisymmetric. Nothing
-    checks it; the pair cotangents are then placed, exact only upstream of
-    the positions."""
+    package's threshold). On the H100 that pair's forward and backward
+    together beat the plain pair's at the LBA shape (PERF.md §6, PR 15),
+    and ``PaiNN.forward`` sets ``symmetric`` when its pair grids are
+    symmetric (no ``max_neighbors``, no caller's ``pair_mask``); the JAX
+    model does not (its TPU measured the pair at 0.96x). The caller
+    guarantees what ``symmetric`` claims: dist and gate symmetric, the
+    directions antisymmetric. Nothing checks it; the pair cotangents are
+    then placed, exact only upstream of the positions."""
     args = (dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff)
     n = dist.shape[-1]
     if symmetric and sym_profitable(n):  # painn_sym_profitable's sizes
