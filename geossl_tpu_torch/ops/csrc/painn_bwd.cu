@@ -723,8 +723,7 @@ static cudaError_t launch(const float* dist, const float* gate, const float* dir
 
 }  // namespace geossl
 
-extern "C" size_t painn_bwd_smem_bytes(int R, int ni, int symmetric) {
-  (void)R;
+extern "C" size_t painn_bwd_smem_bytes(int ni, int symmetric) {
   return geossl::smem_bytes(ni, symmetric);
 }
 

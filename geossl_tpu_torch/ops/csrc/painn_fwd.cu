@@ -94,10 +94,7 @@ static size_t smem_bytes(int symmetric) {
 
 }  // namespace geossl
 
-extern "C" size_t painn_fwd_smem_bytes(int R, int nj, int symmetric) {
-  (void)R, (void)nj;
-  return geossl::smem_bytes(symmetric);
-}
+extern "C" size_t painn_fwd_smem_bytes(int symmetric) { return geossl::smem_bytes(symmetric); }
 
 // Ints of the workspace (both modes): the tile list over the gate
 // (worklist.cuh), items (graph, 8-row i tile).

@@ -253,8 +253,8 @@ def _launch_painn_fwd(dist: Tensor, gate: Tensor, dirx: Tensor, diry: Tensor,
         raise ValueError(f"{name}: the symmetric mode needs a square grid")
     num_r = wk.shape[0]
     check_smem(name, _build.kernel_fn(
-        "painn_fwd", "painn_fwd_smem_bytes", [ctypes.c_int] * 3,
-        ctypes.c_size_t)(num_r, nj, int(symmetric)))
+        "painn_fwd", "painn_fwd_smem_bytes", [ctypes.c_int],
+        ctypes.c_size_t)(int(symmetric)))
     fn = _build.kernel_fn(
         "painn_fwd", "painn_fwd",
         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
@@ -418,8 +418,8 @@ def _launch_painn_bwd(dist: Tensor, gate: Tensor, dirx: Tensor, diry: Tensor,
     if symmetric and ni != nj:
         raise ValueError(f"{name}: the symmetric mode needs a square grid")
     check_smem(name, _build.kernel_fn(
-        "painn_bwd", "painn_bwd_smem_bytes", [ctypes.c_int] * 3,
-        ctypes.c_size_t)(num_r, ni, int(symmetric)))
+        "painn_bwd", "painn_bwd_smem_bytes", [ctypes.c_int] * 2,
+        ctypes.c_size_t)(ni, int(symmetric)))
     blocks = _build.kernel_fn("painn_bwd", "painn_bwd_blocks",
                               [ctypes.c_int, ctypes.c_int])(b, nj)
     fn = _build.kernel_fn(
