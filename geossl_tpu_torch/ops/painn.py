@@ -97,7 +97,7 @@ from geossl_tpu_torch.ops.cfconv import KERNEL_F, second_order, sparse_auto
 STACK_MAX_N = 128
 # PaiNN takes the symmetric kernel pair from this N up (the JAX package's
 # painn_pallas.painn_sym_profitable threshold). On the H100 the pair beats
-# the plain pair at the LBA shape (B=64, N=512; PERF.md §6, PR 15), so
+# the plain pair at the LBA shape (B=64, N=512; PERF.md §6), so
 # PaiNN.forward asks for it whenever its pair grids are symmetric.
 _SYM_MIN_N = 256
 
@@ -494,7 +494,7 @@ def painn_message(dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
     kernel with occupancy gating from N=128 ('auto'); with ``symmetric=True``
     the symmetric kernel pair from N=256 (``sym_profitable``, the JAX
     package's threshold). On the H100 that pair's forward and backward
-    together beat the plain pair's at the LBA shape (PERF.md §6, PR 15),
+    together beat the plain pair's at the LBA shape (PERF.md §6),
     and ``PaiNN.forward`` sets ``symmetric`` when its pair grids are
     symmetric (no ``max_neighbors``, no caller's ``pair_mask``); the JAX
     model does not (its TPU measured the pair at 0.96x). The caller
