@@ -251,6 +251,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
       on an ``.sdf`` that the phase writes, from the QM9-SchNet
       ``model.pth`` and from its artifact, against ``predict`` on the same
       file.
+   i. The host runtime. ``packer:``: the C++ packer (``native/``) bitwise
+      against the NumPy pack on a QM9 store at bucket 32 (B=128) and a
+      Molecule3D stand-in at 32/64/128; the fused BFS pack's kept count,
+      kept atoms in order and in no more pieces than the bond graph has,
+      and the per-record BFS mask's relabelled bonds; ms per batch of each
+      packer (host clock). ``graph_parity:``: per ported driver step and
+      backbone (QM9 and DDM at bucket 32, MD17 at batch 5, LBA at 16
+      complexes and LEP at 16 pairs of bucket 512; DDM with its device
+      generator), two calls
+      of 8 steps replayed through CUDA graphs (``train/common.ChainStep``)
+      against 16 eager steps from the same weights on the same batches:
+      losses and every parameter by relative norm (1e-3 in all, 1e-2
+      each). ``profile_dir:``: one ``pretrain_geossl --profile_dir
+      --steps_per_call 8`` epoch on 256 molecules; the trace must exist and
+      not be empty. ``host_runtime:``: QM9-SchNet/PaiNN and DDM-SchNet/
+      PaiNN at bucket 32 (B=128), MD17-SchNet/PaiNN at batch 5, each in
+      three modes over epochs of 16 steps: (a) the parent's loop (NumPy
+      packing and BFS, a blocking upload from pageable memory, eager
+      steps), (b) the C++ packer and ``parallel/mesh.prefetch`` (pinned,
+      non-blocking uploads), eager steps, (c) (b) with ``--steps_per_call
+      8`` as CUDA graphs; step ms (median of 3 untraced epochs after a
+      warm-up epoch), device busy ms per step and the idle share of one
+      traced epoch.
 4. Measurements: serving mol/s per bucket (steady state, synchronized) and
    one traced pass per bucket (torch.profiler: device busy time, the
    port's kernels' share, idle share); training mol/s per bucket (median of
@@ -2039,11 +2062,13 @@ def pair_logits(pred, active, inactive, idx, chunk=4):
     if len(set(zip(na[idx], ni[idx]))) != 1:
         fail("pair_logits: the pairs span several bucket pairs")
     got, want = [], []
+    packers = [(pred._packer(st), nb) for st, nb in ((active, na),
+                                                     (inactive, ni))]
     with torch.inference_mode():
         for s in range(0, len(idx), chunk):
             part = idx[s:s + chunk]
-            towers = [pred._pack(st, part, int(nb[part[0]]), len(part))
-                      for st, nb in ((active, na), (inactive, ni))]
+            towers = [pack(part, int(nb[part[0]]), len(part))
+                      for pack, nb in packers]
             args = [t for tw in towers
                     for t in (tw.atom_type, tw.positions, tw.node_mask)]
             got.append(pred._pair_logit_fn(pred._prep, *args).cpu().numpy())
@@ -2234,6 +2259,447 @@ def serving_rest_path(dev, card, single, dual, serve_store):
                                 "atoms": int(from_sdf.offsets[-1]),
                                 "served": ["pth", "sealed"]}))
     return pairs_launches, sealed_launches
+
+
+# -- Phase 3i: the host runtime ---------------------------------------------
+# The C++ packer against the NumPy pack, the drivers' loops in three modes
+# (the parent's loop: NumPy packing, a blocking pageable upload, eager steps;
+# the C++ packer and prefetch, eager; and both with --steps_per_call 8 as
+# CUDA graphs), graph-replayed steps against eager steps, and one
+# pretrain_geossl --profile_dir epoch
+
+HOST_STEPS = 16  # steps per timed epoch: two calls of 8 in mode (c)
+HOST_K = 8  # --steps_per_call in mode (c) and in the graph parity checks
+HOST_MODES = ("a_parent_loop", "b_native_prefetch", "c_graphs_k8")
+# graph_parity: a parameter beyond 10x GRAD_RTOL must stay within this many
+# times the eager run-to-run spread of the same parameter
+NOISE_FACTOR = 10
+
+
+def components(n, bond_index, keep=None):
+    """Connected components of the bond graph on atoms ``keep`` (all n by
+    default)."""
+    import numpy as np
+
+    keep = np.arange(n) if keep is None else keep
+    parent = {int(i): int(i) for i in keep}
+
+    def root(i):
+        while parent[i] != i:
+            parent[i] = parent[parent[i]]
+            i = parent[i]
+        return i
+
+    for a, b in zip(*bond_index):
+        if int(a) in parent and int(b) in parent:
+            parent[root(int(a))] = root(int(b))
+    return len({root(i) for i in parent})
+
+
+def packer_check(card):
+    """The ``packer:`` line: the C++ packer bitwise against the NumPy pack
+    (QM9 at bucket 32, B=128; DDM's Molecule3D stand-in at 32/64/128), the
+    fused BFS pack's invariants and the per-record BFS mask's relabelled
+    bonds, and ms per batch of each."""
+    import numpy as np
+
+    from geossl_tpu_torch.data.bucketing import assign_buckets, pack_batch
+    from geossl_tpu_torch.data.masking import apply_bfs_mask
+    from geossl_tpu_torch.data.synthetic import synthetic_molecule3d, synthetic_qm9
+    from geossl_tpu_torch.native import packing
+
+    t0 = time.time()
+    packing.load()
+    build_s = time.time() - t0
+    out = {"card": card, "build_s": build_s, "batches": []}
+    stores = {"qm9": (synthetic_qm9(1024, seed=3), (32,)),
+              "ddm": (synthetic_molecule3d(1024, seed=4, max_atoms=100),
+                      (32, 64, 128))}
+    ratio = 0.3
+    for name, (store, ladder) in stores.items():
+        flat = packing.StoreArrays(store, bonds=name == "ddm")
+        bucket_of = assign_buckets(store.num_atoms(), ladder)
+        for b in ladder:
+            idx = np.nonzero(bucket_of == b)[0][:128]
+            native = packing.pack_batch_from_store(flat, idx, b, 128)
+            plain = pack_batch([store.get(int(i)) for i in idx], b, 128)
+            for got, want, what in zip(
+                    native, (plain.atom_type.numpy(), plain.positions.numpy(),
+                             plain.node_mask.numpy(), plain.graph_mask.numpy(),
+                             plain.y.numpy()),
+                    ("atom_type", "positions", "node_mask", "graph_mask", "y")):
+                if not np.array_equal(np.asarray(got, want.dtype), want):
+                    fail(f"packer {name} bucket {b}: native {what} differs "
+                         "from the NumPy pack")
+            row = {"store": name, "bucket": b, "molecules": len(idx),
+                   "native_ms": cuda_free_ms(lambda: packing.pack_batch_from_store(
+                       flat, idx, b, 128)),
+                   "numpy_ms": cuda_free_ms(lambda: pack_batch(
+                       [store.get(int(i)) for i in idx], b, 128))}
+            if name == "ddm":
+                rng = np.random.default_rng(SEED)
+                at, pos, nm, gm, _ = packing.pack_batch_bfs_from_store(
+                    flat, idx, b, 128, ratio, rng)
+                for slot, i in enumerate(idx):
+                    rec = store.get(int(i))
+                    n, kept = rec.num_atoms, int(nm[slot].sum())
+                    want_n = n if n <= 1 else min(n, int(n * (1 - ratio)) + 1)
+                    if kept != want_n or not nm[slot, :kept].all():
+                        fail(f"packer: fused BFS kept {kept} of {n} atoms "
+                             f"(want {want_n}), molecule {i}")
+                    # the kept atoms, by their positions, in atom order
+                    where = {tuple(p): k for k, p in enumerate(
+                        rec.positions.tolist())}
+                    keep = np.asarray([where[tuple(p)] for p in
+                                       pos[slot, :kept].tolist()])
+                    if (np.diff(keep) <= 0).any() or not np.array_equal(
+                            at[slot, :kept], rec.atom_type[keep]):
+                        fail(f"packer: fused BFS atoms of molecule {i} are "
+                             "not an ordered subset")
+                    if components(n, rec.bond_index, keep) > \
+                            components(n, rec.bond_index):
+                        fail(f"packer: fused BFS of molecule {i} keeps more "
+                             "pieces than its bond graph has")
+                    # the per-record mask (native bfs_subgraph): bonds
+                    # relabelled onto the kept atoms
+                    sub = apply_bfs_mask(rec, rng, ratio)
+                    sub_keep = [where[tuple(p)] for p in
+                                sub.positions.tolist()]
+                    orig = {(int(a), int(c)) for a, c in zip(*rec.bond_index)}
+                    mapped = {(sub_keep[a], sub_keep[c])
+                              for a, c in zip(*sub.bond_index)}
+                    kept_set = set(sub_keep)
+                    if mapped != {(a, c) for a, c in orig
+                                  if a in kept_set and c in kept_set}:
+                        fail(f"packer: BFS mask of molecule {i}: relabelled "
+                             "bonds are not the kept atoms' bonds")
+                row["bfs_native_ms"] = cuda_free_ms(
+                    lambda: packing.pack_batch_bfs_from_store(
+                        flat, idx, b, 128, ratio, np.random.default_rng(1)))
+                row["bfs_numpy_ms"] = cuda_free_ms(lambda: pack_batch(
+                    [numpy_bfs(store.get(int(i)), ratio) for i in idx],
+                    b, 128))
+            out["batches"].append(row)
+    print("packer: " + json.dumps(out))
+
+
+def numpy_bfs(rec, ratio, rng=None):
+    """The record path's BFS mask with the NumPy BFS (the parent's)."""
+    import numpy as np
+
+    os.environ["GEOSSL_NO_NATIVE"] = "1"
+    try:
+        from geossl_tpu_torch.data.masking import apply_bfs_mask
+
+        return apply_bfs_mask(rec, rng or np.random.default_rng(2), ratio)
+    finally:
+        del os.environ["GEOSSL_NO_NATIVE"]
+
+
+def cuda_free_ms(fn, reps=20):
+    """Median host ms of ``fn`` over ``reps`` calls after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[reps // 2] * 1e3
+
+
+def host_path(dev, name):
+    """(trainee, body, generator, loader factory, reseed) of one path of
+    ``host_runtime:`` at full width with seeded weights: QM9 and DDM at
+    bucket 32 (B=128), MD17 at batch 5. ``loader(native)`` makes a loader
+    of HOST_STEPS batches with the C++ packer on or off (MD17 packs its
+    forces in NumPy either way, as the JAX loader does)."""
+    import numpy as np
+    import torch
+
+    from geossl_tpu_torch.data.bucketing import BucketedLoader
+    from geossl_tpu_torch.data.masking import make_bfs_transform
+    from geossl_tpu_torch.data.synthetic import (
+        synthetic_md17, synthetic_molecule3d, synthetic_qm9)
+    from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.train import finetune_md17 as FM
+    from geossl_tpu_torch.train import finetune_qm9 as FQ
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    task, model_3d = name.split("-")
+    model_3d = model_3d.lower()
+    gen = torch.Generator().manual_seed(SEED)
+    generator = None
+    if task == "QM9":
+        args = FQ.build_parser().parse_args(
+            ["--model_3d", model_3d, "--lr", "5e-4", "--bucket", "32"])
+        store = synthetic_qm9(128 * HOST_STEPS, seed=5)
+        store.y = np.ascontiguousarray(store.y[:, :1])
+        mean, std = float(store.y.mean()), float(store.y.std())
+        net = FQ.make_net(args, common.model_config_from_args(args),
+                          gen).to(dev)
+        body = common.finetune_body(net, FQ.make_loss_fn("mae", mean, std))
+        batch, kw = 128, {}
+    elif task == "MD17":
+        args = FM.build_parser().parse_args(
+            ["--model_3d", model_3d, "--bucket", "32"])
+        store = synthetic_md17(5 * HOST_STEPS, seed=6)
+        net = FM.make_net(args, common.model_config_from_args(args),
+                          gen).to(dev)
+        body = common.finetune_body(net, FM.make_loss_fn(0.05, 0.95))
+        batch, kw = 5, {"with_forces": True}
+    else:
+        args = PG.build_parser().parse_args(
+            ["--model_3d", model_3d, "--bucket", "32"])
+        store = synthetic_molecule3d(128 * HOST_STEPS, seed=7, max_atoms=32)
+        net = PG.make_ddm(args, common.model_config_from_args(args),
+                          gen).to(dev)
+        generator = torch.Generator(dev).manual_seed(SEED)
+        loss = PG.loss_of(net, args)
+        body = common.pretrain_body(lambda b: loss(b, generator))
+        batch, kw = 128, {"transform": make_bfs_transform(0.3)}
+    opt, sched = common.make_optimizer_from_args(args, net.parameters(),
+                                                 HOST_STEPS)
+
+    def loader(native):
+        if native:
+            return BucketedLoader(store, batch, (32,), seed=SEED, **kw)
+        os.environ["GEOSSL_NO_NATIVE"] = "1"
+        try:
+            return BucketedLoader(store, batch, (32,), seed=SEED, **kw)
+        finally:
+            del os.environ["GEOSSL_NO_NATIVE"]
+
+    return net, opt, sched, body, generator, loader
+
+
+def host_epochs(dev, name, mode, state):
+    """fn() running one epoch of path ``name`` in ``mode``; ``state`` keeps
+    the path's trainee across modes."""
+    import torch
+
+    from geossl_tpu_torch.parallel.mesh import prefetch
+    from geossl_tpu_torch.train import common
+
+    net, opt, sched, body, generator, make_loader = state
+    loader = make_loader(mode != "a_parent_loop")
+    chain = None
+    if mode == "c_graphs_k8":
+        chain = common.ChainStep(opt, sched, body, dev, [net], generator)
+    epoch = [0]
+
+    def run():
+        epoch[0] += 1
+        if generator is not None:
+            generator.manual_seed(SEED + epoch[0])
+        if mode == "a_parent_loop":
+            # the parent's loop: NumPy packing and BFS, a blocking upload
+            # from pageable memory, eager steps
+            os.environ["GEOSSL_NO_NATIVE"] = "1"
+            try:
+                out = [common.optimizer_step(opt, sched, body,
+                                             [b.to(dev)])[None]
+                       for b in loader.epoch(epoch[0])]
+            finally:
+                del os.environ["GEOSSL_NO_NATIVE"]
+        elif chain is None:
+            out = [common.optimizer_step(opt, sched, body, [b])[None]
+                   for b in prefetch(loader.epoch(epoch[0]), dev)]
+        else:
+            out = [chain(g) for g in common.accum_groups(
+                prefetch(loader.epoch(epoch[0]), dev), HOST_K)]
+        losses = torch.cat(out)
+        torch.cuda.synchronize()
+        if len(losses) != HOST_STEPS or not torch.isfinite(losses).all():
+            fail(f"host_runtime {name} {mode}: {len(losses)} steps, "
+                 f"losses {losses.tolist()}")
+    return run
+
+
+def host_runtime_path(dev, card):
+    """The ``host_runtime:`` lines: per path and mode, step ms (median of 3
+    untraced epochs of HOST_STEPS steps, after a warm-up epoch), device busy
+    ms per step and the idle share of one traced epoch."""
+    rows = []
+    for name in ("QM9-SchNet", "QM9-PaiNN", "MD17-SchNet", "MD17-PaiNN",
+                 "DDM-SchNet", "DDM-PaiNN"):
+        state = host_path(dev, name)
+        modes = {}
+        for mode in HOST_MODES:
+            run = host_epochs(dev, name, mode, state)
+            t0 = time.perf_counter()
+            run()  # warm-up: graph captures, pinned blocks, profiler
+            first_s = time.perf_counter() - t0
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                runs.append((time.perf_counter() - t0) * 1e3 / HOST_STEPS)
+            wall, busy, ours = device_profile(run)
+            modes[mode] = {
+                "step_ms": sorted(runs)[1], "step_ms_runs": runs,
+                "first_epoch_s": first_s,
+                "device_busy_ms": busy * 1e3 / HOST_STEPS,
+                "traced_step_ms": wall * 1e3 / HOST_STEPS,
+                "idle_share": 1.0 - busy / wall}
+        row = {"path": name, "batch": 5 if name.startswith("MD17") else 128,
+               "bucket": 32, "steps_per_epoch": HOST_STEPS, "k": HOST_K,
+               "card": card, "modes": modes}
+        print("host_runtime: " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def snapshot(module):
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def graph_parity_path(dev):
+    """``graph_parity:``: per ported driver step and backbone (QM9, MD17,
+    DDM with its device generator, LBA, LEP), two calls of HOST_K graph-replayed
+    steps (``common.ChainStep``) against 2·HOST_K eager steps from the same
+    state on the same batches through the same optimizer (Adam made
+    capturable, as the graphs run it): the losses, all parameters together
+    by relative norm GRAD_RTOL and each parameter by 10x that. The eager
+    steps of the drivers' ``--steps_per_call 1`` path (Adam as constructed:
+    the step size and bias corrections in f64 on the host, not in f32 on
+    the device) run twice beside them: once against the graphs (losses and
+    all parameters at GRAD_RTOL, each parameter reported), and once more
+    for the kernels' own run-to-run spread; the graphs run twice too, for
+    theirs (atomic sums, whose order varies with the launches' timing and
+    which Adam amplifies in a parameter whose gradient is a sum of
+    cancelling terms, as NCSN's biases are: one term of random sign per
+    pair). A parameter beyond 10x GRAD_RTOL passes only within
+    NOISE_FACTOR times the larger of the two spreads."""
+    import torch
+
+    from geossl_tpu_torch.data.bucketing import BucketedLoader
+    from geossl_tpu_torch.data.synthetic import synthetic_lba, synthetic_lep
+    from geossl_tpu_torch.train import common, optim
+    from geossl_tpu_torch.train import finetune_lba as FL
+    from geossl_tpu_torch.train import finetune_lep as FE
+
+    def side(name):
+        task, model_3d = name.split("-")
+        if task not in ("LBA", "LEP"):
+            net, opt, sched, body, gen, make_loader = host_path(dev, name)
+            return net, opt, sched, body, gen, make_loader(True)
+        driver = FL if task == "LBA" else FE
+        args = driver.build_parser().parse_args(
+            ["--model_3d", model_3d.lower(), "--batch_size", "16"])
+        net = driver.make_net(args, common.model_config_from_args(args),
+                              torch.Generator().manual_seed(SEED)).to(dev)
+        opt, sched = common.make_optimizer_from_args(
+            args, net.parameters(), 2 * HOST_K)
+        if task == "LBA":
+            loader = BucketedLoader(synthetic_lba(16 * 2 * HOST_K, seed=2,
+                                                  max_atoms=400),
+                                    16, (512,), seed=SEED)
+        else:
+            loader = FE.DualLoader(*synthetic_lep(16 * 2 * HOST_K, seed=3),
+                                   16, (512,), shuffle=True, seed=SEED)
+        return (net, opt, sched, common.finetune_body(net, driver.loss_fn),
+                None, loader)
+
+    def flat(net):
+        return torch.cat([p.detach().flatten() for p in net.parameters()])
+
+    def compare(a, b):
+        pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+        per = {k: rel_norm(pb[k].detach(), pa[k].detach()) for k in pa}
+        return per, rel_norm(flat(b), flat(a))
+
+    rows = []
+    cases = [f"{t}-{m}" for t in ("QM9", "MD17", "DDM", "LBA", "LEP")
+             for m in ("SchNet", "PaiNN")]
+    for name in cases:
+        same, plain_a, plain_b, graph, graph_b = (side(name)
+                                                  for _ in range(5))
+        optim.make_capturable(same[1])
+        batches = [b.to(dev) for b in same[5].epoch(1)][:2 * HOST_K]
+        if len(batches) != 2 * HOST_K:
+            fail(f"graph_parity {name}: {len(batches)} batches")
+        init = snapshot(same[0])
+        losses = []
+        for net, opt, sched, body, gen, _ in (same, plain_a, plain_b, graph,
+                                              graph_b):
+            net.load_state_dict(init)
+            if gen is not None:
+                gen.manual_seed(SEED + 11)
+            if net in (graph[0], graph_b[0]):
+                chain = common.ChainStep(opt, sched, body, dev, [net], gen)
+                out = [chain(batches[s:s + HOST_K])
+                       for s in range(0, len(batches), HOST_K)]
+            else:
+                out = [common.optimizer_step(opt, sched, body, [b])[None]
+                       for b in batches]
+            losses.append(torch.cat(out).reshape(len(batches), -1)[:, 0])
+        torch.cuda.synchronize()
+        per, total = compare(same[0], graph[0])
+        spread_e, spread_total = compare(plain_a[0], plain_b[0])
+        spread_g, spread_total_g = compare(graph[0], graph_b[0])
+        spread = {k: max(spread_e[k], spread_g[k]) for k in spread_e}
+        per_plain, total_plain = compare(plain_a[0], graph[0])
+        worst = max(per, key=per.get)
+        worst_plain = max(per_plain, key=per_plain.get)
+        beyond = {k: [per[k], spread[k]] for k in per if per[k] > 10 * GRAD_RTOL}
+        row = {"path": name, "steps": len(batches), "k": HOST_K,
+               "loss_rel_norm": rel_norm(losses[3], losses[0]),
+               "param_rel_norm": total, "worst_param": [worst, per[worst]],
+               "beyond_10x_grad_rtol": beyond,
+               "vs_plain_adam": {
+                   "loss_rel_norm": rel_norm(losses[3], losses[1]),
+                   "param_rel_norm": total_plain,
+                   "worst_param": [worst_plain, per_plain[worst_plain],
+                                   spread[worst_plain]]},
+               "eager_spread": {"loss_rel_norm": rel_norm(losses[2], losses[1]),
+                                "param_rel_norm": spread_total},
+               "graph_spread": {"loss_rel_norm": rel_norm(losses[4], losses[3]),
+                                "param_rel_norm": spread_total_g},
+               "params_moved_rel_norm": rel_norm(
+                   flat(same[0]), torch.cat([init[k].flatten()
+                                             for k in dict(same[0].named_parameters())])),
+               "losses_eager": losses[0].tolist()[:4],
+               "losses_graphs": losses[3].tolist()[:4]}
+        print("graph_parity: " + json.dumps(row))
+        bad = [k for k, (d, sp) in beyond.items() if d > NOISE_FACTOR * sp]
+        if not torch.isfinite(losses[3]).all() \
+                or row["loss_rel_norm"] > GRAD_RTOL or total > GRAD_RTOL \
+                or bad or row["vs_plain_adam"]["loss_rel_norm"] > GRAD_RTOL \
+                or total_plain > GRAD_RTOL:
+            fail(f"graph_parity {name}: graph-replayed steps differ from "
+                 f"eager steps (losses {row['loss_rel_norm']:.3e}, "
+                 f"parameters {total:.3e}, beyond the eager spread: {bad}; "
+                 f"against plain Adam: {row['vs_plain_adam']})")
+        rows.append(row)
+    return rows
+
+
+def profile_dir_check(dev):
+    """``profile_dir:``: one ``pretrain_geossl --profile_dir`` epoch on a cut
+    store (256 molecules) at full width; the trace must exist and not be
+    empty."""
+    import contextlib
+    import io
+
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    trace_dir = os.path.join(ROOT, "runs", "chip_smoke_profile")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        PG.main(["--synthetic", "--synthetic_size", "256", "--epochs", "1",
+                 "--device", str(dev), "--profile_dir", trace_dir,
+                 "--steps_per_call", str(HOST_K)])
+    path = os.path.join(trace_dir, "trace.json")
+    said = f"profiler trace written to {trace_dir}" in out.getvalue()
+    size = os.path.getsize(path) if os.path.exists(path) else 0
+    print("profile_dir: " + json.dumps({"trace": path, "bytes": size,
+                                         "printed": said,
+                                         "s": time.time() - t0}))
+    if not size or not said:
+        fail(f"profile_dir: no trace at {path} ({size} bytes; printed "
+             f"{said})")
 
 
 def rel_norm(a, b):
@@ -3020,6 +3486,16 @@ def main():
         {"schnet": os.path.join(ROOT, "runs", "chip_smoke_lep_schnet",
                                 "model.pth"), "painn": lep_painn},
         store)
+
+    # -- 3i. the host runtime -------------------------------------------------------
+    # the C++ packer against the NumPy pack (packer:), graph-replayed steps
+    # against eager steps (graph_parity:), one pretrain_geossl
+    # --profile_dir epoch (profile_dir:), and the drivers' loops in three
+    # modes (host_runtime:)
+    packer_check(card)
+    graph_parity_path(dev)
+    profile_dir_check(dev)
+    host_runtime_path(dev, card)
 
     # -- 4. measurements -----------------------------------------------------------
     subs = {b: MolStore.from_records([sorted_store.get(int(i))

@@ -44,6 +44,13 @@ class DenseMolBatch:
             f.name: getattr(self, f.name).to(device, non_blocking=non_blocking)
             for f in fields(self) if getattr(self, f.name) is not None})
 
+    def pin_memory(self) -> "DenseMolBatch":
+        """The batch in page-locked host memory, from which ``to(cuda,
+        non_blocking=True)`` copies without the host waiting."""
+        return replace(self, **{
+            f.name: getattr(self, f.name).pin_memory()
+            for f in fields(self) if getattr(self, f.name) is not None})
+
 
 @dataclass
 class DualMolBatch:
@@ -63,3 +70,7 @@ class DualMolBatch:
         return DualMolBatch(self.active.to(device, non_blocking),
                             self.inactive.to(device, non_blocking),
                             self.y.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "DualMolBatch":
+        return DualMolBatch(self.active.pin_memory(),
+                            self.inactive.pin_memory(), self.y.pin_memory())

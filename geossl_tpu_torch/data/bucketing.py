@@ -1,9 +1,16 @@
-"""Bucketing and padding of molecules into fixed-shape batches (NumPy; the
-port's copy of ``pick_bucket``, ``assign_buckets``, ``bucket_chunks``,
-``pack_batch`` and ``BucketedLoader`` from ``geossl_tpu/data/bucketing.py``,
-without the C++ packer). Every batch is ``[batch_size, n_max]`` for a bucket
-size ``n_max``; a partial batch is padded with empty graph slots flagged by
-``graph_mask``.
+"""Bucketing and padding of molecules into fixed-shape batches (the port's
+copy of ``pick_bucket``, ``assign_buckets``, ``bucket_chunks``,
+``find_native_packer``, ``pack_batch`` and ``BucketedLoader`` from
+``geossl_tpu/data/bucketing.py``). Every batch is ``[batch_size, n_max]``
+for a bucket size ``n_max``; a partial batch is padded with empty graph
+slots flagged by ``graph_mask``.
+
+The loader packs through the C++ host runtime (``native/packing``) where
+the JAX package's loader does: straight from the store's flat arrays when
+there is no transform or the transform is the BFS mask (fused in C++), and
+``with_forces`` is off. :func:`pack_batch` (NumPy) is the plain version: it
+packs the record path (other transforms, MD17's forces) and everything
+under ``GEOSSL_NO_NATIVE=1``.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import torch
 
 from geossl_tpu_torch.data.batch import DenseMolBatch
 from geossl_tpu_torch.data.store import MolRecord, MolStore
+from geossl_tpu_torch.native import packing
 
 
 def pick_bucket(n: int, bucket_sizes: Sequence[int]) -> int:
@@ -58,6 +66,27 @@ def bucket_chunks(bucket_of, batch_size, rng, shuffle=True):
     if shuffle and len(chunks) > 1:
         chunks = [chunks[i] for i in rng.permutation(len(chunks))]
     return chunks
+
+
+def find_native_packer():
+    """The C++ packer (``native/packing``, built and loaded here on first
+    use; a failed build raises), or None under ``GEOSSL_NO_NATIVE=1``."""
+    if not packing.enabled():
+        return None
+    packing.load()
+    return packing
+
+
+def native_batch(packed) -> DenseMolBatch:
+    """The DenseMolBatch of the native packer's arrays (atom types as
+    int64, as :func:`pack_batch` gives them)."""
+    at, pos, nm, gm, y = packed
+    return DenseMolBatch(
+        atom_type=torch.from_numpy(at).long(),
+        positions=torch.from_numpy(pos),
+        node_mask=torch.from_numpy(nm),
+        y=None if y is None else torch.from_numpy(y),
+        graph_mask=torch.from_numpy(gm))
 
 
 def pack_batch(records: Sequence[MolRecord], n_max: int,
@@ -105,8 +134,12 @@ class BucketedLoader:
     ``(seed, epoch)``: the same NumPy stream as the JAX package's loader
     (no dropped batches) feeds the shuffle and then the transform (e.g. BFS
     masking). ``with_forces`` packs MD17's forces into each batch (the JAX
-    loader's flag, which also turns its C++ packer off; the port packs in
-    NumPy either way)."""
+    loader's flag, which also turns the C++ packer off). Without a
+    transform, or with the BFS mask (a transform that carries
+    ``bfs_mask_ratio``), and without forces, the C++ packer packs straight
+    from the store (the fused BFS pack draws one seed per batch from the
+    epoch's stream, as the JAX package's default path does); otherwise each
+    record goes through the transform and :func:`pack_batch`."""
 
     def __init__(self, store: MolStore, batch_size: int,
                  bucket_sizes: Sequence[int], seed: int = 0,
@@ -120,6 +153,16 @@ class BucketedLoader:
         self.shuffle = shuffle
         self.with_forces = with_forces
         self._bucket_of = assign_buckets(store.num_atoms(), sorted(bucket_sizes))
+        self._bfs_ratio = getattr(transform, "bfs_mask_ratio", None)
+        self._native = None
+        # a store without bonds masks per record, as the JAX loader does
+        if (transform is None or (self._bfs_ratio is not None
+                                  and store.bond_index is not None)) \
+                and not with_forces:
+            self._native = find_native_packer()
+        if self._native is not None:
+            self._flat = self._native.StoreArrays(
+                store, bonds=self._bfs_ratio is not None)
 
     def __len__(self) -> int:
         _, counts = np.unique(self._bucket_of, return_counts=True)
@@ -130,6 +173,15 @@ class BucketedLoader:
         rng = np.random.default_rng((self.seed, epoch))
         for bucket, chunk in bucket_chunks(self._bucket_of, self.batch_size,
                                            rng, self.shuffle):
+            if self._native is not None:
+                if self._bfs_ratio is not None:
+                    yield native_batch(self._native.pack_batch_bfs_from_store(
+                        self._flat, chunk, bucket, self.batch_size,
+                        self._bfs_ratio, rng))
+                else:
+                    yield native_batch(self._native.pack_batch_from_store(
+                        self._flat, chunk, bucket, self.batch_size))
+                continue
             records = [self.store.get(int(i)) for i in chunk]
             if self.transform is not None:
                 records = [self.transform(r, rng) for r in records]

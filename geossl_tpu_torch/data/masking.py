@@ -1,12 +1,15 @@
 """BFS subgraph masking, GeoSSL's atom-masking augmentation (the port's
-NumPy copy of ``geossl_tpu/data/masking.py``; reference
+copy of ``geossl_tpu/data/masking.py``; reference
 ``Geom3D/datasets/datasets_3D.py:24-67``).
 
 Keep a random BFS tree of ``int(N·(1-mask_ratio)) + 1`` nodes over the bond
 graph, restarting from a random unvisited node when the frontier empties;
-drop everything else and relabel. Runs on the host per molecule; the same
-``numpy.random.Generator`` state gives the same subgraph as the JAX
-package's NumPy path.
+drop everything else and relabel. Runs on the host per molecule: through
+the C++ runtime's ``bfs_subgraph`` (one seed drawn from the
+``numpy.random.Generator``), as the JAX package's default path does, or,
+under ``GEOSSL_NO_NATIVE=1``, through the NumPy :func:`bfs_subgraph_indices`
+(the JAX package's NumPy path, the same draws). The two draw differently;
+each equals its JAX counterpart.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from geossl_tpu_torch.data.store import MolRecord
+from geossl_tpu_torch.native import packing
 
 
 def bfs_subgraph_indices(rng: np.random.Generator, num_nodes: int,
@@ -51,8 +55,9 @@ def apply_bfs_mask(record: MolRecord, rng: np.random.Generator,
     """The BFS-sampled induced subgraph of ``record``, relabeled."""
     if mask_ratio <= 0 or record.num_atoms <= 1:
         return record
-    keep = bfs_subgraph_indices(rng, record.num_atoms, record.bond_index,
-                                mask_ratio)
+    bfs = (packing.bfs_subgraph_indices if packing.enabled()
+           else bfs_subgraph_indices)
+    keep = bfs(rng, record.num_atoms, record.bond_index, mask_ratio)
     relabel = -np.ones(record.num_atoms, np.int64)
     relabel[keep] = np.arange(len(keep))
     bond = record.bond_index
@@ -71,9 +76,12 @@ def apply_bfs_mask(record: MolRecord, rng: np.random.Generator,
 
 
 def make_bfs_transform(mask_ratio: float):
-    """Loader transform applying BFS masking (``pretrain_GeoSSL.py:296``)."""
+    """Loader transform applying BFS masking (``pretrain_GeoSSL.py:296``).
+    It carries ``bfs_mask_ratio``, so that ``BucketedLoader`` runs the fused
+    C++ BFS mask and pack instead of this per-record path."""
 
     def transform(record: MolRecord, rng: np.random.Generator) -> MolRecord:
         return apply_bfs_mask(record, rng, mask_ratio)
 
+    transform.bfs_mask_ratio = mask_ratio
     return transform

@@ -12,11 +12,14 @@ Raw inputs, pre-downloaded into ``<root>/raw`` (no session has network):
   that a ``smiles_drop_file`` lists (one 0-based raw row per line; the
   reference finds them with RDKit, which the port does not use).
 
-It reads the CSVs with the ``csv`` module and the molecules with the
-per-block SDF parser (``data/featurize.sdf_block_to_arrays``): the JAX
-package's path without RDKit and without its C++ scanner, the same store.
-The result is cached as ``<root>/processed/qm9_store.npz``, the file the
-JAX package writes and reads.
+It reads the CSVs with the ``csv`` module and the molecules with the C++
+runtime's SDF scanner (``native/packing.scan_sdf_file``), parsing each
+block the scanner rejects (V3000, exponent coordinates) from its byte span
+with the per-block parser (``data/featurize.sdf_block_to_arrays``): the JAX
+package's path without RDKit. Under ``GEOSSL_NO_NATIVE=1`` every block goes
+through the per-block parser; the store is the same either way. The result
+is cached as ``<root>/processed/qm9_store.npz``, the file the JAX package
+writes and reads.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from geossl_tpu_torch.data.featurize import (
 )
 from geossl_tpu_torch.data.store import MolRecord, MolStore
 from geossl_tpu_torch.data.structio import iter_sdf_blocks
+from geossl_tpu_torch.native import packing
 
 TARGET_FIELDS = [
     "mu", "alpha", "homo", "lumo", "gap", "r2", "zpve",
@@ -101,16 +105,38 @@ def _iter_qm9_arrays(raw: str, skip=frozenset()):
         bc = np.bincount(atom_type, minlength=9)
         return {ATOMIC_NUM_LIST[i]: int(c) for i, c in enumerate(bc[:8]) if c}
 
-    for i, block in enumerate(iter_sdf_blocks(os.path.join(raw, "gdb9.sdf"))):
-        if i in skip:
-            yield None, None
-            continue
+    def parse_block(block):
         try:
             arrays, _ = sdf_block_to_arrays(block)
         except (ValueError, IndexError):
-            yield None, None
-            continue
-        yield arrays, counts_from_indices(arrays["atom_type"])
+            return None, None
+        return arrays, counts_from_indices(arrays["atom_type"])
+
+    path = os.path.join(raw, "gdb9.sdf")
+    if not packing.enabled():
+        for i, block in enumerate(iter_sdf_blocks(path)):
+            yield (None, None) if i in skip else parse_block(block)
+        return
+    ok, at, pos, aoff, bidx, _, boff, byte_off = packing.scan_sdf_file(path)
+    with open(path, "rb") as fh:
+        for k in range(len(ok)):
+            if k in skip:
+                yield None, None
+            elif not ok[k]:
+                # a block the scanner rejects, from its byte span
+                fh.seek(byte_off[k])
+                text = fh.read(byte_off[k + 1] - byte_off[k]).decode(
+                    errors="replace")
+                yield parse_block("".join(
+                    line for line in text.splitlines(keepends=True)
+                    if not line.startswith("$$$$")))
+            else:
+                s, e = aoff[k], aoff[k + 1]
+                yield (dict(atom_type=at[s:e], positions=pos[s:e],
+                            chirality=np.zeros(e - s, np.int32),
+                            bond_index=np.ascontiguousarray(
+                                bidx[:, boff[k]:boff[k + 1]])),
+                       counts_from_indices(at[s:e]))
 
 
 def build_qm9(root: str, calculate_thermo: bool = True,

@@ -58,13 +58,14 @@ def jax_linspace(stop: float, num: int, dtype=torch.float32,
     for bit in f32: entry k is k * (stop * (1 / (num - 1))) in ``dtype``,
     the last ``stop`` itself. (``torch.linspace`` differs from it by an ulp
     on some f32 entries, which PaiNN's f32 offsets would carry into the f64
-    parity of the plain versions.)"""
-    one = torch.tensor(1.0, dtype=dtype)
-    unit = torch.tensor(stop, dtype=dtype) * (
-        one / torch.tensor(float(num - 1), dtype=dtype))
+    parity of the plain versions.) The step is rounded on the host and
+    nothing is copied to the device, so a CUDA graph can capture it."""
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    unit = np_dtype.type(stop) * (np_dtype.type(1.0)
+                                  / np_dtype.type(num - 1))
     k = torch.arange(num - 1, dtype=dtype, device=device)
-    last = torch.tensor([stop], dtype=dtype, device=device)
-    return torch.cat([k * unit.to(device), last])
+    last = torch.full((1,), stop, dtype=dtype, device=device)
+    return torch.cat([k * float(unit), last])
 
 
 def gaussian_rbf(dist: torch.Tensor, offsets: torch.Tensor,

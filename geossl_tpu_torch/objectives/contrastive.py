@@ -45,8 +45,8 @@ def _bce_logits(logits: torch.Tensor, labels: torch.Tensor,
 def _masked_frac(pred_ok: torch.Tensor, weights: Optional[torch.Tensor]):
     """(fraction, count) without weights; (weighted hits, weight) with."""
     if weights is None:
-        return pred_ok.float().mean(), torch.tensor(
-            float(pred_ok.shape[0]), device=pred_ok.device)
+        return pred_ok.float().mean(), torch.full(
+            (), float(pred_ok.shape[0]), device=pred_ok.device)
     w = weights.float()
     return torch.sum(pred_ok * w), w.sum()
 

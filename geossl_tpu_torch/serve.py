@@ -47,7 +47,12 @@ import numpy as np
 import torch
 
 from geossl_tpu_torch.config import ModelConfig
-from geossl_tpu_torch.data.bucketing import assign_buckets, pack_batch
+from geossl_tpu_torch.data.bucketing import (
+    assign_buckets,
+    find_native_packer,
+    native_batch,
+    pack_batch,
+)
 from geossl_tpu_torch.data.store import MolRecord, MolStore
 from geossl_tpu_torch.models import painn, schnet
 from geossl_tpu_torch.train.common import (
@@ -125,21 +130,38 @@ class _Passes:
 
         return spatial_sort_store(store)
 
-    def _pack(self, store: MolStore, chunk, n: int, slots: int):
-        """The molecules ``chunk`` of ``store`` padded to ``n`` atoms in
-        ``slots`` graph slots, on the device."""
-        return pack_batch([store.get(int(i)) for i in chunk], n,
-                          slots).to(self.device)
+    def _packer(self, store: MolStore):
+        """``pack(chunk, n, slots)``: the molecules ``chunk`` of ``store``
+        padded to ``n`` atoms in ``slots`` graph slots, on the device. The
+        C++ packer packs straight from the store's flat arrays (converted
+        once per pass), NumPy's ``pack_batch`` under ``GEOSSL_NO_NATIVE=1``
+        (the same arrays); on CUDA the batch is uploaded from pinned memory
+        without waiting for the copy."""
+        native = find_native_packer()
+        flat = None if native is None else native.StoreArrays(store)
+        cuda = torch.device(self.device).type == "cuda"
+
+        def pack(chunk, n: int, slots: int):
+            if native is None:
+                batch = pack_batch([store.get(int(i)) for i in chunk], n,
+                                   slots)
+            else:
+                batch = native_batch(native.pack_batch_from_store(
+                    flat, chunk, n, slots))
+            if cuda:
+                return batch.pin_memory().to(self.device, non_blocking=True)
+            return batch.to(self.device)
+        return pack
 
     def _batches(self, store: MolStore):
         """Yield (indices, batch on the device), each chunk in
         :func:`batch_slots` graph slots."""
         bucket_of = assign_buckets(store.num_atoms(), self.bucket_sizes)
+        pack = self._packer(store)
         for b in np.unique(bucket_of):
             for chunk in _chunks(np.nonzero(bucket_of == b)[0], self.batch_size):
-                yield chunk, self._pack(store, chunk, int(b),
-                                        batch_slots(len(chunk),
-                                                    self.batch_size))
+                yield chunk, pack(chunk, int(b),
+                                  batch_slots(len(chunk), self.batch_size))
 
     @torch.inference_mode()
     def _run(self, store: MolStore, fn, width: int) -> np.ndarray:
@@ -234,11 +256,12 @@ class _Passes:
         ni = assign_buckets(inactive.num_atoms(), self.bucket_sizes)
         keys = na.astype(np.int64) * (max(self.bucket_sizes) + 1) + ni
         idx, results = [], []
+        pack_a, pack_i = self._packer(active), self._packer(inactive)
         for k in np.unique(keys):
             for chunk in _chunks(np.nonzero(keys == k)[0], self.batch_size):
                 slots = batch_slots(len(chunk), self.batch_size)
-                ba = self._pack(active, chunk, int(na[chunk[0]]), slots)
-                bi = self._pack(inactive, chunk, int(ni[chunk[0]]), slots)
+                ba = pack_a(chunk, int(na[chunk[0]]), slots)
+                bi = pack_i(chunk, int(ni[chunk[0]]), slots)
                 logit = self._pair_logit_fn(
                     self._prep, ba.atom_type, ba.positions, ba.node_mask,
                     bi.atom_type, bi.positions, bi.node_mask)

@@ -1,19 +1,24 @@
 """Shared driver plumbing (counterpart of ``geossl_tpu/train/common.py``):
 backbone and head construction, the drivers' common flags with the JAX
 package's names and defaults (one command line drives both packages),
-gradient accumulation groups, resume state, the metric log, and the
-fine-tunes' epoch loop (``run_finetune``).
+gradient accumulation groups, several optimizer steps per call
+(:class:`ChainStep`, ``--steps_per_call``: CUDA graphs on the card), resume
+state, the metric log, and the epoch loops (``run_pretrain``,
+``run_finetune``), which take their batches through
+``parallel/mesh.prefetch``.
 
 Both backbones are ported (``--model_3d schnet|painn``). Flags the port
 does not run yet raise ``NotImplementedError`` when set away from their
-defaults: multi-device and multi-host runs, ``--steps_per_call`` (a TPU
-dispatch optimisation), ``--profile_dir``, bf16 compute and the fine-tunes'
-``--pair_devices``.
+defaults: multi-device and multi-host runs, the fine-tunes'
+``--pair_devices``, and ``--steps_per_call`` / ``--profile_dir`` in the
+drivers that do not list them as ported (:func:`check_ported_args`).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -30,7 +35,9 @@ from geossl_tpu_torch.models.schnet import SchNet
 from geossl_tpu_torch.ops import cfconv as cfconv_ops
 from geossl_tpu_torch.ops import ncsn as ncsn_ops
 from geossl_tpu_torch.ops import painn as painn_ops
+from geossl_tpu_torch.parallel.mesh import prefetch
 from geossl_tpu_torch.train import checkpoints, optim
+from geossl_tpu_torch.utils import profiling
 from geossl_tpu_torch.utils.torch_import import load_model_state
 
 
@@ -183,7 +190,9 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--filter_mxu", default="f32", choices=["f32", "bf16"])
     p.add_argument("--log_file", default="",
                    help="append one JSON line of metrics per epoch")
-    p.add_argument("--profile_dir", default="")
+    p.add_argument("--profile_dir", default="",
+                   help="pretrain_geossl: write a torch.profiler trace of the "
+                        "first epoch into this directory")
     p.add_argument("--use_pallas", default="auto", choices=["auto", "on", "off"],
                    help="the port's kernels: auto/on run them on CUDA, off "
                         "takes the plain versions on any device")
@@ -192,15 +201,19 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--grad_accum", type=int, default=1,
                    help="average gradients over k same-shape loader batches "
                         "before each optimizer step")
-    p.add_argument("--steps_per_call", type=int, default=1)
+    p.add_argument("--steps_per_call", type=int, default=1,
+                   help="k optimizer steps per call, as one CUDA graph replay "
+                        "on the card (the fine-tunes and pretrain_geossl)")
     p.add_argument("--ckpt_every", type=int, default=1)
     p.add_argument("--resume", action="store_true",
                    help="resume from <output_model_dir>/state.pth if present")
     return p
 
 
-def check_ported_args(args) -> None:
-    """Raise for the flags whose paths the port does not run yet."""
+def check_ported_args(args, ported=()) -> None:
+    """Raise for the flags whose paths the port does not run yet;
+    ``ported`` names those of ``--steps_per_call`` and ``--profile_dir``
+    that the calling driver runs. Then :func:`check_chain_args`."""
     unported = {
         "--num_devices": args.num_devices not in (None, 1),
         "--coordinator_address": args.coordinator_address is not None,
@@ -209,13 +222,28 @@ def check_ported_args(args) -> None:
         "--profile_dir": bool(args.profile_dir),
         "--pair_devices": getattr(args, "pair_devices", 1) > 1,
     }
-    bad = [k for k, v in unported.items() if v]
+    bad = [k for k, v in unported.items() if v and k not in ported]
     if bad:
         raise NotImplementedError(
-            f"{', '.join(bad)}: not ported yet (ROADMAP.md queue 1); the port "
-            "runs one device, one process, one optimizer step per call")
+            f"{', '.join(bad)}: not ported yet for this driver (ROADMAP.md "
+            "queue 1); the port runs one device and one process")
     if args.grad_accum < 1:
         raise ValueError(f"--grad_accum must be >= 1, got {args.grad_accum}")
+    if args.steps_per_call < 1:
+        raise ValueError(
+            f"--steps_per_call must be >= 1, got {args.steps_per_call}")
+    check_chain_args(args)
+
+
+def check_chain_args(args) -> None:
+    """``--grad_accum`` and ``--steps_per_call`` both consume groups of
+    loader batches; refuse the mix, as the JAX drivers do."""
+    if getattr(args, "grad_accum", 1) > 1 and \
+            getattr(args, "steps_per_call", 1) > 1:
+        raise SystemExit(
+            "--grad_accum fuses loader batches into ONE optimizer step; "
+            "--steps_per_call fuses optimizer steps into one call — "
+            "pick one")
 
 
 def use_kernels(args) -> bool:
@@ -381,9 +409,11 @@ def state_path(args) -> str:
 
 def train_state(modules: dict, opt, sched) -> dict:
     """Everything a resume needs. The lr schedule is a function of the step
-    count, so its step is saved, not the LambdaLR."""
+    count, so its step is saved, not the LambdaLR. The optimizer state is
+    saved in its eager form, which runs with and without CUDA graphs
+    load alike (``optim.portable_state_dict``)."""
     return {"modules": {k: m.state_dict() for k, m in modules.items()},
-            "opt": opt.state_dict(), "step": sched.last_epoch}
+            "opt": optim.portable_state_dict(opt), "step": sched.last_epoch}
 
 
 def try_resume(args, modules: dict, opt, sched,
@@ -415,21 +445,167 @@ def maybe_save_state(args, modules: dict, opt, sched, epoch: int,
 # -- pretraining ---------------------------------------------------------------
 
 
+def optimizer_step(opt, sched, body, batches) -> torch.Tensor:
+    """One optimizer step: ``body(batches)`` leaves the group's gradients
+    in ``.grad`` and returns its outputs; then Adam and the schedule."""
+    opt.zero_grad(set_to_none=True)
+    out = body(batches)
+    opt.step()
+    sched.step()
+    return out
+
+
+def pretrain_body(loss_of):
+    """``body(batches)`` for :func:`optimizer_step`: the gradients of the
+    group's mean loss (as ``--grad_accum`` averages them); ``loss_of(batch)``
+    -> (loss, accuracy). Returns [mean loss, mean accuracy] on the device."""
+    def body(batches):
+        total = 0.0
+        for batch in batches:
+            loss, acc = loss_of(batch)
+            (loss / len(batches)).backward()
+            total = total + torch.stack([loss.detach(),
+                                         acc.detach().to(loss.dtype)])
+        return total / len(batches)
+    return body
+
+
 def pretrain_step(module: nn.Module, opt, sched, batches,
                   loss_of) -> torch.Tensor:
     """One optimizer step over ``batches`` (gradients averaged over the
     group, as ``--grad_accum`` does); ``loss_of(batch)`` -> (loss,
     accuracy). Returns [mean loss, mean accuracy] on the device."""
-    opt.zero_grad(set_to_none=True)
-    total = 0.0
-    for batch in batches:
-        loss, acc = loss_of(batch)
-        (loss / len(batches)).backward()
-        total = total + torch.stack([loss.detach(),
-                                     acc.detach().to(loss.dtype)])
-    opt.step()
-    sched.step()
-    return total / len(batches)
+    return optimizer_step(opt, sched, pretrain_body(loss_of), batches)
+
+
+# -- several optimizer steps per call -------------------------------------------
+
+
+def _map_batch(fn, batch):
+    """``batch`` (a batch dataclass, possibly nested) with ``fn`` applied
+    to each tensor."""
+    if batch is None or isinstance(batch, torch.Tensor):
+        return None if batch is None else fn(batch)
+    return dataclasses.replace(batch, **{
+        f.name: _map_batch(fn, getattr(batch, f.name))
+        for f in dataclasses.fields(batch)})
+
+
+def _leaves(batch) -> list:
+    """The tensors of a batch dataclass, in field order."""
+    if batch is None or isinstance(batch, torch.Tensor):
+        return [] if batch is None else [batch]
+    return [t for f in dataclasses.fields(batch)
+            for t in _leaves(getattr(batch, f.name))]
+
+
+class ChainStep:
+    """``--steps_per_call k``: a call runs one optimizer step per batch of a
+    group of up to k same-shape batches (:func:`accum_groups`) and returns
+    their outputs stacked, [kk, ...]: the card's counterpart of the JAX
+    package's ``make_chain_step`` (k steps in one dispatch). The trajectory
+    is k eager steps' (:func:`optimizer_step` with ``body``).
+
+    On CUDA a call is one CUDA graph replay. A graph per (batch shapes,
+    group length kk) is captured on first use: kk whole steps (zeroed
+    gradients, ``body``'s forward and backward through the kernels'
+    autograd Functions, Adam) reading kk static batch slots, into which a
+    call copies its batches. All graphs share one memory pool. Adam is made
+    capturable (``optim.make_capturable``); each step in a graph copies its
+    lr from a device table that a call writes before the replay with the
+    schedule's lrs for those steps, plateau scale included, and the
+    schedule then moves kk steps on. ``generator`` (the steps' device
+    draws) is registered with each graph, so that a replay draws what kk
+    eager steps would. The first capture of a shape is preceded by one
+    forward and backward on the capture stream (kernel builds and loads,
+    cuBLAS workspaces), after which the parameters, the buffers of
+    ``modules``, the generator and the zeroed gradients are as before. A
+    capture that fails raises: nothing falls back to eager steps on the
+    card. Launch counters count the captures, not the replays.
+
+    On other devices the steps run eagerly, one by one.
+    """
+
+    def __init__(self, opt, sched, body, device, modules=(), generator=None):
+        self.opt, self.sched, self.body = opt, sched, body
+        self.device = torch.device(device)
+        self.modules = list(modules)
+        self.generator = generator
+        self._graphs: dict = {}
+        self._warm: set = set()
+        self._stream = self._pool = None
+
+    def __call__(self, group) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return torch.stack([optimizer_step(self.opt, self.sched,
+                                               self.body, [b])
+                                for b in group])
+        key = (len(group),
+               tuple((tuple(t.shape), t.dtype) for t in _leaves(group[0])))
+        graph, slots, lrs, out = self._graphs.get(key) or self._capture(
+            group, key)
+        for slot, batch in zip(slots, group):
+            for dst, src in zip(_leaves(slot), _leaves(batch)):
+                dst.copy_(src, non_blocking=True)
+        # a fresh pinned block per call: the caching host allocator keeps it
+        # until its copy is done
+        lrs.copy_(torch.tensor(optim.scheduled_lrs(self.sched, len(group)),
+                               dtype=torch.float32).pin_memory(),
+                  non_blocking=True)
+        graph.replay()
+        optim.advance(self.sched, len(group))
+        return out.clone()  # before the next replay overwrites it
+
+    def _buffers(self):
+        return [b for m in self.modules for b in m.buffers()]
+
+    def _warm_up(self, batch) -> None:
+        gen_state = None if self.generator is None else \
+            self.generator.get_state()
+        saved = [b.detach().clone() for b in self._buffers()]
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
+            self.body([batch])
+            self.opt.zero_grad(set_to_none=False)
+            with torch.no_grad():
+                for b, v in zip(self._buffers(), saved):
+                    b.copy_(v)
+        torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        if gen_state is not None:
+            self.generator.set_state(gen_state)
+
+    def _capture(self, group, key):
+        if self._stream is None:
+            optim.make_capturable(self.opt)
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        if key[1] not in self._warm:
+            self._warm_up(group[0])
+            self._warm.add(key[1])
+        slots = [_map_batch(torch.clone, b) for b in group]
+        lrs = torch.zeros((len(group), len(self.opt.param_groups)),
+                          dtype=torch.float32, device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        # thread_local: a prefetch thread may pin and upload the next batches
+        # while this thread captures
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                              capture_error_mode="thread_local"):
+            outs = []
+            for i, slot in enumerate(slots):
+                # the static .grad tensors zeroed in one launch, not one
+                # each (zero_grad's default)
+                torch._foreach_zero_([p.grad for pg in self.opt.param_groups
+                                      for p in pg["params"]
+                                      if p.grad is not None])
+                for g, pg in enumerate(self.opt.param_groups):
+                    pg["lr"].copy_(lrs[i, g])
+                outs.append(self.body([slot]))
+                self.opt.step()
+            out = torch.stack(outs)
+        self._graphs[key] = (graph, slots, lrs, out)
+        return self._graphs[key]
 
 
 def run_pretrain(args, module: nn.Module, key: str, opt, sched, loader,
@@ -448,16 +624,29 @@ def run_pretrain(args, module: nn.Module, key: str, opt, sched, loader,
     plateau = make_plateau(args, extra)
     saver.best_metric = best
     history = []
+    # one generator, reseeded per epoch (a CUDA graph keeps drawing from the
+    # generator registered with it)
+    generator = torch.Generator(device)
+    body = pretrain_body(lambda b: loss_of(b, generator))
+    chain = None
+    if args.steps_per_call > 1:
+        chain = ChainStep(opt, sched, body, device, [module], generator)
     for epoch in range(start_epoch, args.epochs + 1):
         timer = EpochTimer()
-        generator = torch.Generator(device).manual_seed(
-            hash((args.seed + 1, epoch)) % (2**31))
-        steps = [pretrain_step(module, opt, sched,
-                               [b.to(device) for b in group],
-                               lambda b: loss_of(b, generator))
-                 for group in accum_groups(loader.epoch(epoch),
-                                           args.grad_accum)]
-        steps = torch.stack(steps).tolist()  # one device-to-host copy
+        generator.manual_seed(hash((args.seed + 1, epoch)) % (2**31))
+        tracing = (profiling.trace(args.profile_dir,
+                                   cuda=device.type == "cuda")
+                   if args.profile_dir and epoch == start_epoch
+                   else contextlib.nullcontext())
+        with tracing:
+            batches = prefetch(loader.epoch(epoch), device)
+            if chain is not None:
+                steps = [chain(group) for group in
+                         accum_groups(batches, args.steps_per_call)]
+            else:
+                steps = [optimizer_step(opt, sched, body, group)[None]
+                         for group in accum_groups(batches, args.grad_accum)]
+            steps = torch.cat(steps).tolist()  # one device-to-host copy
         history += [loss for loss, _ in steps]
         mean_loss = sum(loss for loss, _ in steps) / len(steps)
         mean_acc = sum(acc for _, acc in steps) / len(steps)
@@ -468,6 +657,8 @@ def run_pretrain(args, module: nn.Module, key: str, opt, sched, loader,
         print(f"Epoch: {epoch}\t{labels[0]}: {mean_loss:.5f}\t{labels[1]}: "
               f"{mean_acc:.5f}\tTime: {timer.elapsed():.3f}"
               + ("\t[saved best]" if saved else ""))
+        if args.profile_dir and epoch == start_epoch:
+            print(f"profiler trace written to {args.profile_dir}")
         mlog.log(epoch=epoch, loss=mean_loss, acc=mean_acc,
                  time_s=round(timer.elapsed(), 3), saved_best=saved)
         maybe_save_state(args, {key: module}, opt, sched, epoch,
@@ -549,19 +740,25 @@ def load_input_model(args, net: nn.Module) -> dict:
     return ckpt
 
 
+def finetune_body(net: nn.Module, loss_fn):
+    """``body(batches)`` for :func:`optimizer_step`: the gradients of the
+    group's mean ``loss_fn(net, batch)`` (as ``--grad_accum`` averages
+    them); returns the mean loss on the device."""
+    def body(batches):
+        total = 0.0
+        for batch in batches:
+            loss = loss_fn(net, batch)
+            (loss / len(batches)).backward()
+            total = total + loss.detach()
+        return total / len(batches)
+    return body
+
+
 def finetune_step(net: nn.Module, opt, sched, batches, loss_fn):
     """One optimizer step over ``batches`` (gradients averaged over the
     group, as ``--grad_accum`` does); returns the mean loss on the
     device."""
-    opt.zero_grad(set_to_none=True)
-    total = 0.0
-    for batch in batches:
-        loss = loss_fn(net, batch)
-        (loss / len(batches)).backward()
-        total = total + loss.detach()
-    opt.step()
-    sched.step()
-    return total / len(batches)
+    return optimizer_step(opt, sched, finetune_body(net, loss_fn), batches)
 
 
 def model_tree(net: nn.Module, extra: Optional[dict] = None) -> dict:
@@ -597,13 +794,20 @@ def run_finetune(args, net: nn.Module, loaders, loss_fn, evaluate,
     best_epoch = int(extra.pop("best_epoch", -1))
     best_test = extra  # the remaining keys: the test metrics at the best
     history = []
+    body = finetune_body(net, loss_fn)
+    chain = None
+    if args.steps_per_call > 1:
+        chain = ChainStep(opt, sched, body, device, [net])
     for epoch in range(start_epoch, args.epochs + 1):
         timer = EpochTimer()
-        losses = [finetune_step(net, opt, sched, [b.to(device) for b in group],
-                                loss_fn)
-                  for group in accum_groups(train.epoch(epoch),
-                                            args.grad_accum)]
-        losses = torch.stack(losses).tolist()  # one copy per epoch
+        batches = prefetch(train.epoch(epoch), device)
+        if chain is not None:
+            losses = [chain(group) for group in
+                      accum_groups(batches, args.steps_per_call)]
+        else:
+            losses = [optimizer_step(opt, sched, body, group)[None]
+                      for group in accum_groups(batches, args.grad_accum)]
+        losses = torch.cat(losses).tolist()  # one copy per epoch
         history += losses
         train_loss = sum(losses) / len(losses)
         if plateau is not None:

@@ -13,6 +13,8 @@ atoms, so the bucket is 512: SchNet runs the symmetric CFConv kernels
 message-pass kernels. ``--input_model_file`` takes the ``model.pth`` that
 ``pretrain_geossl`` writes (backbone only) or a fine-tuned one (with its
 head). On CUDA by default; ``--device cpu`` takes the plain versions.
+``--steps_per_call k`` runs k optimizer steps per call, as one CUDA graph
+replay on the card (``common.ChainStep``).
 
 Run: ``python -m geossl_tpu_torch.train.finetune_lba --synthetic --epochs 3``
 """
@@ -29,6 +31,7 @@ from geossl_tpu_torch.data.lba import load_lba
 from geossl_tpu_torch.data.splitters import atom3d_lba_split, random_split
 from geossl_tpu_torch.data.synthetic import synthetic_lba
 from geossl_tpu_torch.data.transforms import spatial_sort_store
+from geossl_tpu_torch.parallel.mesh import prefetch
 from geossl_tpu_torch.serve import resolve_device
 from geossl_tpu_torch.train import common
 from geossl_tpu_torch.utils import metrics
@@ -81,8 +84,7 @@ def make_evaluate(device):
     @torch.no_grad()
     def evaluate(net: LBANet, loader) -> dict:
         preds, trues, masks = [], [], []
-        for batch in loader.epoch(0):
-            batch = batch.to(device)
+        for batch in prefetch(loader.epoch(0), device):
             preds.append(net(batch))
             trues.append(batch.y[:, 0])
             masks.append(batch.graph_mask)
@@ -121,7 +123,7 @@ def main(argv=None):
     the best val MSE, the test metrics at the best epoch, every step's
     loss). Under ``--eval_only``: (net, val MSE, test metrics, [])."""
     args = build_parser().parse_args(argv)
-    common.check_ported_args(args)
+    common.check_ported_args(args, ported=("--steps_per_call",))
     device = resolve_device(args.device)
     cfg = common.model_config_from_args(args)
     common.check_driver_limits(args, cfg, device)

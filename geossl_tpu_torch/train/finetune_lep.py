@@ -11,7 +11,9 @@ LEP ships pre-split by protein (train/val/test); the synthetic stand-in is
 split at random here. Pairs are bucketed by the larger of their two atom
 counts, so both towers of a batch share one padded width: the structures
 are capped at 400 atoms, the bucket is 512. On CUDA by default;
-``--device cpu`` takes the plain versions.
+``--device cpu`` takes the plain versions. ``--steps_per_call k`` runs k
+optimizer steps per call, as one CUDA graph replay on the card
+(``common.ChainStep``; both towers' batches are its static slots).
 
 Run: ``python -m geossl_tpu_torch.train.finetune_lep --synthetic --epochs 3``
 """
@@ -27,11 +29,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from geossl_tpu_torch.data.batch import DualMolBatch
-from geossl_tpu_torch.data.bucketing import assign_buckets, bucket_chunks, pack_batch
+from geossl_tpu_torch.data.bucketing import (
+    assign_buckets,
+    bucket_chunks,
+    find_native_packer,
+    native_batch,
+    pack_batch,
+)
 from geossl_tpu_torch.data.lep import load_lep
 from geossl_tpu_torch.data.splitters import random_split
 from geossl_tpu_torch.data.synthetic import synthetic_lep
 from geossl_tpu_torch.data.transforms import spatial_sort_store
+from geossl_tpu_torch.parallel.mesh import prefetch
 from geossl_tpu_torch.serve import resolve_device
 from geossl_tpu_torch.train import common
 from geossl_tpu_torch.utils import metrics
@@ -42,7 +51,8 @@ class DualLoader:
     collate ``dataloaders_LEP.py:6-68``): pairs are bucketed by
     max(active, inactive) atom count, both towers of a batch are packed at
     that bucket's width, and the training order interleaves buckets as
-    ``BucketedLoader`` does (``shuffle=False``: store order)."""
+    ``BucketedLoader`` does (``shuffle=False``: store order). Both towers
+    pack through the C++ packer (NumPy under ``GEOSSL_NO_NATIVE=1``)."""
 
     def __init__(self, active, inactive, labels, batch_size, bucket_sizes,
                  shuffle, seed=0):
@@ -54,6 +64,18 @@ class DualLoader:
         self.shuffle, self.seed = shuffle, seed
         sizes = np.maximum(active.num_atoms(), inactive.num_atoms())
         self._bucket_of = assign_buckets(sizes, sorted(bucket_sizes))
+        self._native = find_native_packer()
+        if self._native is not None:
+            self._flat = [self._native.StoreArrays(s)
+                          for s in (active, inactive)]
+
+    def _pack(self, tower: int, chunk, n_max: int):
+        if self._native is not None:
+            return native_batch(self._native.pack_batch_from_store(
+                self._flat[tower], chunk, n_max, self.batch_size))
+        store = (self.active, self.inactive)[tower]
+        return pack_batch([store.get(int(i)) for i in chunk], n_max,
+                          self.batch_size)
 
     def __len__(self) -> int:
         _, counts = np.unique(self._bucket_of, return_counts=True)
@@ -63,9 +85,7 @@ class DualLoader:
         rng = np.random.default_rng((self.seed, epoch))
         for bucket, chunk in bucket_chunks(self._bucket_of, self.batch_size,
                                            rng, self.shuffle):
-            a, b = (pack_batch([s.get(int(i)) for i in chunk], bucket,
-                               self.batch_size)
-                    for s in (self.active, self.inactive))
+            a, b = (self._pack(t, chunk, bucket) for t in (0, 1))
             y = np.zeros((self.batch_size,), np.float32)
             y[:len(chunk)] = self.labels[chunk]
             yield DualMolBatch(active=a, inactive=b, y=torch.from_numpy(y))
@@ -116,8 +136,7 @@ def make_evaluate(device):
     @torch.no_grad()
     def evaluate(net: LEPNet, loader: DualLoader) -> dict:
         scores, trues, masks = [], [], []
-        for dual in loader.epoch(0):
-            dual = dual.to(device)
+        for dual in prefetch(loader.epoch(0), device):
             scores.append(net(dual))
             trues.append(dual.y)
             masks.append(dual.active.graph_mask)
@@ -156,7 +175,7 @@ def main(argv=None):
     the best val ROC-AUC, the test metrics at the best epoch, every step's
     loss). Under ``--eval_only``: (net, val ROC-AUC, test metrics, [])."""
     args = build_parser().parse_args(argv)
-    common.check_ported_args(args)
+    common.check_ported_args(args, ported=("--steps_per_call",))
     device = resolve_device(args.device)
     cfg = common.model_config_from_args(args)
     common.check_driver_limits(args, cfg, device)

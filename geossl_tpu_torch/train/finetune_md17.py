@@ -24,6 +24,9 @@ that ``pretrain_geossl`` writes (backbone only) or a fine-tuned one (with
 its head); ``--eval_only`` evaluates a fine-tuned one. The net is the LBA
 driver's (``LBANet``: the backbone and its head, here predicting the
 energy). On CUDA by default; ``--device cpu`` takes the plain versions.
+``--steps_per_call k`` runs k optimizer steps per call, as one CUDA graph
+replay on the card (``common.ChainStep``: the double backward's small
+launches replayed, not dispatched one by one).
 
 Run: ``python -m geossl_tpu_torch.train.finetune_md17 --synthetic --epochs 3``
 """
@@ -40,6 +43,7 @@ import torch
 from geossl_tpu_torch.data.bucketing import BucketedLoader
 from geossl_tpu_torch.data.md17 import MD17_TASKS, load_md17
 from geossl_tpu_torch.data.splitters import md17_split
+from geossl_tpu_torch.parallel.mesh import prefetch
 from geossl_tpu_torch.serve import resolve_device
 from geossl_tpu_torch.train import checkpoints, common
 from geossl_tpu_torch.train.finetune_lba import LBANet, make_net
@@ -92,8 +96,7 @@ def make_evaluate(device):
     with a NaN component left out."""
     def evaluate(net: LBANet, loader) -> dict:
         e_err, f_err = [], []
-        for batch in loader.epoch(0):
-            batch = batch.to(device)
+        for batch in prefetch(loader.epoch(0), device):
             e, f = energy_and_force(net, batch)
             gm = batch.graph_mask
             nm = batch.node_mask & gm[:, None]
@@ -125,7 +128,7 @@ def main(argv=None):
     step's loss). Under ``--eval_only``: (net, val F MAE, test (E, F) MAEs,
     [])."""
     args = build_parser().parse_args(argv)
-    common.check_ported_args(args)
+    common.check_ported_args(args, ported=("--steps_per_call",))
     device = resolve_device(args.device)
     cfg = common.model_config_from_args(args)
     # evaluation takes forces too: the backward kernels run either way

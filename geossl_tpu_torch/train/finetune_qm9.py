@@ -18,7 +18,8 @@ PaiNN (``--model_3d painn``) its message-pass kernels (``painn_fwd``/
 ``pretrain_geossl`` writes (backbone only) or a fine-tuned one (with its
 head); ``--eval_only`` evaluates a fine-tuned one with its own
 ``y_mean``/``y_std``. On CUDA by default; ``--device cpu`` takes the plain
-versions.
+versions. ``--steps_per_call k`` runs k optimizer steps per call, as one
+CUDA graph replay on the card (``common.ChainStep``).
 
 Run: ``python -m geossl_tpu_torch.train.finetune_qm9 --synthetic --task mu --epochs 3``
 """
@@ -35,6 +36,7 @@ from geossl_tpu_torch.data.bucketing import BucketedLoader
 from geossl_tpu_torch.data.qm9 import TARGET_FIELDS, load_qm9
 from geossl_tpu_torch.data.splitters import qm9_random_customized_01
 from geossl_tpu_torch.data.transforms import random_rotation_transform
+from geossl_tpu_torch.parallel.mesh import prefetch
 from geossl_tpu_torch.serve import resolve_device
 from geossl_tpu_torch.train import checkpoints, common
 from geossl_tpu_torch.train.finetune_lba import LBANet
@@ -97,8 +99,7 @@ class Evaluator:
     @torch.no_grad()
     def __call__(self, net: QM9Net, loader) -> dict:
         preds, trues, masks = [], [], []
-        for batch in loader.epoch(0):
-            batch = batch.to(self.device)
+        for batch in prefetch(loader.epoch(0), self.device):
             preds.append(predict(net, batch, self.mean, self.std))
             trues.append(batch.y[:, 0])
             masks.append(batch.graph_mask)
@@ -125,7 +126,7 @@ def load_splits(args):
     mean = float(splits[0].y[:, task_id].mean())
     std = float(splits[0].y[:, task_id].std())
     for s in splits:
-        s.y = s.y[:, task_id:task_id + 1]
+        s.y = np.ascontiguousarray(s.y[:, task_id:task_id + 1])
     return splits, mean, std
 
 
@@ -134,7 +135,7 @@ def main(argv=None):
     the best val MAE, the test MAE at the best epoch, every step's loss).
     Under ``--eval_only``: (net, val MAE, test MAE, [])."""
     args = build_parser().parse_args(argv)
-    common.check_ported_args(args)
+    common.check_ported_args(args, ported=("--steps_per_call",))
     device = resolve_device(args.device)
     cfg = common.model_config_from_args(args)
     common.check_driver_limits(args, cfg, device)

@@ -107,13 +107,95 @@ def make_optimizer(params, lr: float, epochs: int, steps_per_epoch: int,
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
 
 
+def _set_lr(group: dict, lr: float) -> None:
+    """Write a group's lr; in place where it is a device tensor (a CUDA
+    graph reads it at that address)."""
+    if isinstance(group["lr"], torch.Tensor):
+        group["lr"].fill_(lr)
+    else:
+        group["lr"] = lr
+
+
 def set_plateau_scale(sched: torch.optim.lr_scheduler.LambdaLR,
                       scale: float) -> None:
     """Run from the next optimizer step on at ``lr · scale`` (the JAX
     package's ``scale_by_plateau`` stage)."""
     for factor, group in zip(sched.lr_lambdas, sched.optimizer.param_groups):
         factor.scale = scale
-        group["lr"] = group["initial_lr"] * factor(sched.last_epoch)
+        _set_lr(group, group["initial_lr"] * factor(sched.last_epoch))
+
+
+# -- several steps per call (--steps_per_call, train/common.ChainStep) --------
+
+
+def scheduled_lrs(sched: torch.optim.lr_scheduler.LambdaLR,
+                  count: int) -> list:
+    """[count][groups]: each group's lr at the next ``count`` optimizer
+    steps, the lrs that ``count`` eager steps, each followed by
+    ``sched.step()``, would run at (the plateau scale included)."""
+    t = sched.last_epoch
+    return [[base * lam(t + i) for base, lam in zip(sched.base_lrs,
+                                                    sched.lr_lambdas)]
+            for i in range(count)]
+
+
+def advance(sched: torch.optim.lr_scheduler.LambdaLR, count: int) -> None:
+    """``count`` calls of ``sched.step()`` in one: the step count moves on
+    and each group's lr becomes the next step's."""
+    sched.last_epoch += count
+    for base, lam, group in zip(sched.base_lrs, sched.lr_lambdas,
+                                sched.optimizer.param_groups):
+        _set_lr(group, base * lam(sched.last_epoch))
+
+
+def _scalar_dtype() -> torch.dtype:
+    # the dtype Adam keeps its step count in
+    return (torch.float64 if torch.get_default_dtype() == torch.float64
+            else torch.float32)
+
+
+def make_capturable(opt: torch.optim.Adam) -> None:
+    """Ready Adam for CUDA graph capture: ``capturable`` on, the fused
+    implementation (one kernel for all parameters where the foreach path
+    launches several: 0.14-0.29 ms less device time per step at bucket 32,
+    PERF.md §6, PR 16), each group's lr a device tensor (a graph reads it
+    there, where a Python float would be baked in), and the state made now
+    (a capture must not make it: its zeros would be replayed)."""
+    for group in opt.param_groups:
+        group["capturable"] = True
+        group["foreach"], group["fused"] = False, True
+        params = group["params"]
+        if not isinstance(group["lr"], torch.Tensor):
+            group["lr"] = torch.tensor(float(group["lr"]),
+                                       dtype=torch.float32,
+                                       device=params[0].device)
+        for p in params:
+            state = opt.state[p]
+            if not state:
+                state["step"] = torch.zeros((), dtype=_scalar_dtype(),
+                                            device=p.device)
+                state["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                if group["amsgrad"]:
+                    state["max_exp_avg_sq"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+            else:
+                state["step"] = state["step"].to(p.device)
+
+
+def portable_state_dict(opt: torch.optim.Adam) -> dict:
+    """``opt.state_dict()`` in the eager form (lr a float, ``capturable``
+    and ``fused`` off, each step count on the CPU), which a run with or
+    without CUDA graphs loads alike."""
+    sd = opt.state_dict()
+    groups = [{**g, "lr": float(g["lr"]), "capturable": False,
+               "fused": None, "foreach": None}
+              for g in sd["param_groups"]]
+    state = {k: ({**v, "step": v["step"].detach().cpu()} if "step" in v
+                 else v) for k, v in sd["state"].items()}
+    return {"state": state, "param_groups": groups}
 
 
 class PlateauController:

@@ -30,7 +30,11 @@ directions come from each view's live positions.
 
 On CUDA (the default) the backbone's message pass (CFConv, or PaiNN's) and
 DDM's per-pair head chain run the port's kernels; ``--device cpu`` takes
-the plain versions.
+the plain versions. Batches come from the C++ packer (the fused BFS mask
+and pack) through ``parallel/mesh.prefetch``; ``--steps_per_call k`` runs k
+steps per call as one CUDA graph replay on the card (the steps' draws from
+one device generator, reseeded per epoch and registered with the graphs);
+``--profile_dir`` writes a ``torch.profiler`` trace of the first epoch.
 
 Run: ``python -m geossl_tpu_torch.train.pretrain_geossl --synthetic --epochs 2``
 """
@@ -268,7 +272,7 @@ def main(argv=None):
         # (pretrain_GeoSSL.py:335-337), a factor on the base lr here
         f = args.gnn_2d_lr_scale / args.lr
         group_lr = {"AE_01": f, "AE_02": f}
-    common.check_ported_args(args)
+    common.check_ported_args(args, ported=("--steps_per_call", "--profile_dir"))
     cfg = common.model_config_from_args(args)
     device = resolve_device(args.device)
     common.check_driver_limits(args, cfg, device, ncsn=option == "DDM")

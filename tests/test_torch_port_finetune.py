@@ -229,17 +229,29 @@ def test_bucket_chunks_match_jax(shuffle, batch_size):
 
 @pytest.mark.parametrize("shuffle", [True, False])
 def test_dual_loader_batches_match_jax(monkeypatch, shuffle):
-    """Batch for batch, against the JAX DualLoader's NumPy path (its C++
-    packer switched off)."""
+    """Batch for batch, on both packages' NumPy paths (the JAX DualLoader's
+    C++ packer switched off; the port's by ``GEOSSL_NO_NATIVE``)."""
     from geossl_tpu.native import packing
 
     monkeypatch.setattr(packing, "available", lambda: False)
+    monkeypatch.setenv("GEOSSL_NO_NATIVE", "1")
+    _check_dual_loader(shuffle)
+
+
+@pytest.mark.parametrize("shuffle", [True, False])
+def test_dual_loader_batches_match_jax_native(shuffle):
+    """Batch for batch, on both packages' default paths (the C++ packer)."""
+    _check_dual_loader(shuffle)
+
+
+def _check_dual_loader(shuffle):
     act, inact, labels = jsyn.synthetic_lep(11, max_atoms=70)
     jl = jlep_driver.DualLoader(act, inact, labels, 4, (32, 64, 128),
                                 shuffle=shuffle, seed=5)
     tl = FE.DualLoader(*(MolStore(s.atom_type, s.positions, s.offsets)
                          for s in (act, inact)), labels, 4, (32, 64, 128),
                        shuffle=shuffle, seed=5)
+    assert (tl._native is None) == (jl._native is None)
     assert len(tl) == len(jl)
     jbs, tbs = list(jl.epoch(2)), list(tl.epoch(2))
     assert len(jbs) == len(tbs) > 1
@@ -482,7 +494,7 @@ def test_finetune_cli_on_cpu(tmp_path, capsys, pretrained, task):
 
 
 @pytest.mark.parametrize("task,extra", [("lba", ["--pair_devices", "2"]),
-                                        ("lep", ["--steps_per_call", "2"])])
+                                        ("lep", ["--num_processes", "2"])])
 def test_finetune_cli_refuses_unported_paths(tmp_path, task, extra):
     driver, _, size = _DRIVERS[task]
     with pytest.raises(NotImplementedError, match=extra[0]):

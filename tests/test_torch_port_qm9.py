@@ -165,10 +165,12 @@ def test_sdf_parsers_and_featurizer_match_jax(tmp_path):
 @pytest.mark.parametrize("native", [True, False], ids=["jax_native", "jax_blocks"])
 @pytest.mark.parametrize("drop", [None, "4\n"], ids=["keep", "drop"])
 def test_build_qm9_matches_jax(tmp_path, monkeypatch, native, drop):
-    """The port's build (csv module, per-block parser) against the JAX
-    build on the C++ scanner's path and on its per-block path."""
+    """The port's build against the JAX build, each on its C++ scanner's
+    path (``native``) and each on its per-block path (the JAX package's
+    scanner switched off; the port's by ``GEOSSL_NO_NATIVE``)."""
     if not native:
         monkeypatch.setattr(packing, "available", lambda: False)
+        monkeypatch.setenv("GEOSSL_NO_NATIVE", "1")
     roots = [str(tmp_path / name) for name in ("jax", "port")]
     for r in roots:
         _write_raw(r)
@@ -484,8 +486,8 @@ def test_qm9_cli_rotation_and_refusals(tmp_path, pretrained, monkeypatch):
     with pytest.raises(SystemExit, match="FINE-TUNED"):
         FQ.main(_argv(tmp_path / "e", "--eval_only", "--input_model_file",
                       pretrained["schnet"]))
-    with pytest.raises(NotImplementedError, match="--steps_per_call"):
-        FQ.main(_argv(tmp_path, "--steps_per_call", "2"))
+    with pytest.raises(SystemExit, match="pick one"):
+        FQ.main(_argv(tmp_path, "--steps_per_call", "2", "--grad_accum", "2"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = [a for a in _argv(tmp_path, "--epochs", "1")
             if a not in ("--device", "cpu")]

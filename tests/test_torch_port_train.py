@@ -250,11 +250,26 @@ def test_bfs_masking_matches_jax_numpy_path():
 
 
 def test_loader_epochs_match_jax_numpy_path(monkeypatch):
-    """BFS-masked epochs, batch for batch (the JAX package's NumPy path:
-    its C++ packer switched off)."""
+    """BFS-masked epochs, batch for batch, on both packages' NumPy paths
+    (the JAX package's C++ packer switched off; the port's by
+    ``GEOSSL_NO_NATIVE``)."""
     from geossl_tpu.native import packing
 
     monkeypatch.setattr(packing, "available", lambda: False)
+    monkeypatch.setenv("GEOSSL_NO_NATIVE", "1")
+    _check_loader_epochs()
+
+
+def test_loader_epochs_match_jax_native_path():
+    """BFS-masked epochs, batch for batch, on both packages' default paths:
+    the fused C++ BFS mask and pack (one seed per batch)."""
+    from geossl_tpu.native import packing
+
+    assert packing.available()
+    _check_loader_epochs()
+
+
+def _check_loader_epochs():
     jstore = jsyn.synthetic_molecule3d(40, seed=4, max_atoms=70)
     tstore = MolStore(jstore.atom_type, jstore.positions, jstore.offsets,
                       jstore.chirality, jstore.bond_index, jstore.bond_offsets,
@@ -263,6 +278,7 @@ def test_loader_epochs_match_jax_numpy_path(monkeypatch):
                                 transform=jmask.make_bfs_transform(0.3))
     tl = tbucket.BucketedLoader(tstore, 8, (32, 64, 128), seed=5,
                                 transform=tmask.make_bfs_transform(0.3))
+    assert (tl._native is None) == (jl._native is None)
     assert len(tl) == len(jl)
     for epoch in (1, 2):
         jbs, tbs = list(jl.epoch(epoch)), list(tl.epoch(epoch))
@@ -385,9 +401,8 @@ def test_driver_cli_on_cpu_writes_model_pth_that_serves(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--profile_dir", "trace"], "profile_dir"),
+    (["--coordinator_address", "localhost:1"], "coordinator_address"),
     (["--num_processes", "2"], "num_processes"),
-    (["--steps_per_call", "2"], "steps_per_call"),
     (["--num_devices", "4"], "num_devices"),
 ])
 def test_driver_refuses_unported_paths(tmp_path, extra, match):
