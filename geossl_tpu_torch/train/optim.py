@@ -157,7 +157,7 @@ def _scalar_dtype() -> torch.dtype:
 def make_capturable(opt: torch.optim.Adam) -> None:
     """Ready Adam for CUDA graph capture: ``capturable`` on, the fused
     implementation (one kernel for all parameters where the foreach path
-    launches several: 0.14-0.29 ms less device time per step at bucket 32,
+    launches several: 0.13-0.45 ms less device time per step at bucket 32,
     PERF.md §6, PR 16), each group's lr a device tensor (a graph reads it
     there, where a Python float would be baked in), and the state made now
     (a capture must not make it: its zeros would be replayed)."""

@@ -200,12 +200,13 @@ def ddm_schnet():
     jm, head = JSchNet(**S.SMALL), JNCSNv3(emb_dim=EMB)
     with S.x64():
         k = jax.random.split(jax.random.PRNGKey(5), 3)
-        params = {"model": jm.init(k[0], jnp.asarray(z),
-                                   jnp.asarray(pos, jnp.float32),
-                                   jnp.asarray(mask))["params"]}
+        params = {"model": jax.jit(jm.init)(
+            k[0], jnp.asarray(z), jnp.asarray(pos, jnp.float32),
+            jnp.asarray(mask))["params"]}
         h = jnp.zeros((3, n, EMB))
+        init_head = jax.jit(head.init)
         for name, key in (("NCSN_01", k[1]), ("NCSN_02", k[2])):
-            params[name] = head.init(key, key, h, jnp.ones((3, n, n)),
+            params[name] = init_head(key, key, h, jnp.ones((3, n, n)),
                                      jnp.asarray(sel))["params"]
         params = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64),
                                         params)
@@ -375,9 +376,12 @@ def test_check_chain_args_refuses_grad_accum_with_steps_per_call():
 
 def test_profile_dir_writes_a_trace_of_the_first_epoch(tmp_path, capsys):
     trace_dir = tmp_path / "trace"
-    PG.main(T._train_argv(tmp_path / "out", "--epochs", "2",
-                          "--steps_per_call", "2", "--profile_dir",
-                          str(trace_dir)))
+    PG.main(["--device", "cpu", "--synthetic", "--synthetic_size", "8",
+             "--synthetic_max_atoms", "20", "--emb_dim", "16",
+             "--num_filters", "16", "--num_interactions", "2",
+             "--num_gaussians", "8", "--batch_size", "8", "--epochs", "2",
+             "--steps_per_call", "2", "--profile_dir", str(trace_dir),
+             "--output_model_dir", str(tmp_path / "out")])
     out = capsys.readouterr().out
     assert out.count(f"profiler trace written to {trace_dir}") == 1
     path = trace_dir / "trace.json"
@@ -407,18 +411,28 @@ def test_pretrain_baselines_still_refuses_steps_per_call(tmp_path):
                  str(tmp_path)])
 
 
-def test_lep_chain_runs_the_single_steps_trajectory(tmp_path):
-    """LEP's DualMolBatch through ChainStep (eager on the CPU): the
-    driver's losses with --steps_per_call 3 equal its single steps'."""
+def test_lep_dual_batches_run_the_single_steps_trajectory():
+    """LEP's DualMolBatch (two towers, nested) through ChainStep, eager on
+    the CPU: three steps in one call equal three single steps."""
+    from geossl_tpu_torch.data.synthetic import synthetic_lep
     from geossl_tpu_torch.train import finetune_lep as FE
 
-    argv = ["--device", "cpu", "--synthetic", "--synthetic_size", "40",
-            "--emb_dim", "16", "--num_filters", "16", "--num_interactions",
-            "2", "--num_gaussians", "8", "--batch_size", "4", "--bucket",
-            "256", "--epochs", "1"]
-    _, _, _, single = FE.main(argv + ["--output_model_dir",
-                                      str(tmp_path / "a")])
-    _, _, _, chained = FE.main(argv + ["--output_model_dir",
-                                       str(tmp_path / "b"),
-                                       "--steps_per_call", "3"])
-    assert len(single) > 3 and chained == single
+    args = FE.build_parser().parse_args(
+        ["--emb_dim", "16", "--num_filters", "16", "--num_interactions",
+         "2", "--num_gaussians", "8"])
+    cfg = common.model_config_from_args(args)
+    nets = [FE.make_net(args, cfg, torch.Generator().manual_seed(0))
+            for _ in range(2)]
+    loader = FE.DualLoader(*synthetic_lep(12, max_atoms=20), 4, (32,),
+                           shuffle=True, seed=1)
+    batches = list(loader.epoch(1))
+    assert len(batches) == 3
+
+    def body_of(net):
+        return common.finetune_body(net, FE.loss_fn)
+
+    single, _, _ = _port_chain(nets[0], body_of, 1, batches)
+    chained, _, _ = _port_chain(nets[1], body_of, 3, batches)
+    assert torch.equal(single, chained)
+    for p, q in zip(nets[0].parameters(), nets[1].parameters()):
+        assert torch.equal(p, q)
