@@ -274,6 +274,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
       8`` as CUDA graphs; step ms (median of 3 untraced epochs after a
       warm-up epoch), device busy ms per step and the idle share of one
       traced epoch.
+   j. Multi-device running (``parallel:``), on the one card. (a) Two gloo
+      ranks share it: ``pretrain_geossl --num_devices 2 --dist_backend
+      gloo`` (the launcher's spawn) trains one full-width DDM-SchNet epoch
+      of 2 steps at bucket 128; its epoch loss (rtol 1e-4) and backbone
+      (relative norm 1e-3 in all; a parameter beyond 1e-2 only within 10x
+      the spread of two one-process runs) are held to the one-process run.
+      (b) Pair parallelism: ``finetune_lba --pair_devices 2 --dist_backend
+      gloo`` (the launcher's spawn: two gloo ranks on a (data 1, pair 2)
+      mesh) trains one LBA step per backbone at B=64, N=512 (each rank's
+      message passes on its j-stripe [64, 512, 256] through the plain-mode
+      kernels #1/#2, #8/#9; no symmetric or stack kernel may launch); its
+      loss and first-step gradients (from its ``state.pth``) are held to
+      the one-process run of the same command line as in 3b; the four
+      stripe kernels held to their plain versions at [64, 512, 256]
+      (gating off and on) and timed there and on the whole grid
+      (``stripe_kernels:``, with the card; their rows on the kernels line
+      carry ``pair_launches`` and ``stripe``).
+      The three launchers of (a) and (b) run at once, beside (a) and (b)'s
+      one-process runs (their seconds are so measured); the script ends
+      them, ranks included, if it stops first.
+      (c) An NCCL group of one rank: ``graph_parity:``'s check for QM9-PaiNN
+      and DDM-SchNet with the mesh's collectives in every step, the
+      gradient all_reduce captured in the CUDA graphs
+      (``parallel nccl_graph_parity:``).
 4. Measurements: serving mol/s per bucket (steady state, synchronized) and
    one traced pass per bucket (torch.profiler: device busy time, the
    port's kernels' share, idle share); training mol/s per bucket (median of
@@ -327,7 +351,10 @@ each objective of phase 3g, per ``<backbone>/<objective>``;
 ``pairs_launches``: each kernel's launches in phase 3h's first live pairs
 pass, per backbone; ``sealed_launches``: each kernel's launches inside the
 sealed programs over phase 3h's sealed passes (the profiler's count), per
-backbone; ``second_order``: how a backward kernel's Function is differentiated); the
+backbone; ``pair_launches`` and ``stripe``: each kernel's launches in
+phase 3j's pair runs (rank 0's: the step and both evaluations) and its row
+at the stripe shape; ``second_order``: how
+a backward kernel's Function is differentiated); the
 last line is
 ``{"ok": true, "device": {...}}``. The whole output is also written to
 ``runs/chip_smoke.log``.
@@ -2553,7 +2580,7 @@ def snapshot(module):
     return {k: v.detach().clone() for k, v in module.state_dict().items()}
 
 
-def graph_parity_path(dev):
+def graph_parity_path(dev, cases=None, label="graph_parity"):
     """``graph_parity:``: per ported driver step and backbone (QM9, MD17,
     DDM with its device generator, LBA, LEP), two calls of HOST_K graph-replayed
     steps (``common.ChainStep``) against 2·HOST_K eager steps from the same
@@ -2609,8 +2636,8 @@ def graph_parity_path(dev):
         return per, rel_norm(flat(b), flat(a))
 
     rows = []
-    cases = [f"{t}-{m}" for t in ("QM9", "MD17", "DDM", "LBA", "LEP")
-             for m in ("SchNet", "PaiNN")]
+    cases = cases or [f"{t}-{m}" for t in ("QM9", "MD17", "DDM", "LBA", "LEP")
+                      for m in ("SchNet", "PaiNN")]
     for name in cases:
         same, plain_a, plain_b, graph, graph_b = (side(name)
                                                   for _ in range(5))
@@ -2660,18 +2687,396 @@ def graph_parity_path(dev):
                                              for k in dict(same[0].named_parameters())])),
                "losses_eager": losses[0].tolist()[:4],
                "losses_graphs": losses[3].tolist()[:4]}
-        print("graph_parity: " + json.dumps(row))
+        print(f"{label}: " + json.dumps(row))
         bad = [k for k, (d, sp) in beyond.items() if d > NOISE_FACTOR * sp]
         if not torch.isfinite(losses[3]).all() \
                 or row["loss_rel_norm"] > GRAD_RTOL or total > GRAD_RTOL \
                 or bad or row["vs_plain_adam"]["loss_rel_norm"] > GRAD_RTOL \
                 or total_plain > GRAD_RTOL:
-            fail(f"graph_parity {name}: graph-replayed steps differ from "
+            fail(f"{label} {name}: graph-replayed steps differ from "
                  f"eager steps (losses {row['loss_rel_norm']:.3e}, "
                  f"parameters {total:.3e}, beyond the eager spread: {bad}; "
                  f"against plain Adam: {row['vs_plain_adam']})")
         rows.append(row)
     return rows
+
+
+# -- 3j. parallel -----------------------------------------------------------------
+
+PAIR_STRIPE = 256  # each rank's j-stripe of the LBA grid (N=512, D=2)
+
+
+def _nccl_world1(rank, port):
+    """An NCCL process group of one rank on the card: ``graph_parity:``'s
+    check of graph-replayed steps against eager steps for two paths, with
+    the mesh's collectives in every step (the gradient all_reduce captured
+    in each CUDA graph). Exits non-zero on a mismatch (``fail``)."""
+    import torch
+
+    from geossl_tpu_torch.ops import cfconv as K
+    from geossl_tpu_torch.parallel import mesh as pmesh
+    from geossl_tpu_torch.parallel import multihost
+
+    dev = torch.device("cuda", 0)
+    K.plain_precision()
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0, device=dev)
+    mesh = pmesh.make_mesh(1, dev)
+    if mesh is None or torch.distributed.get_backend() != "nccl":
+        fail("parallel: no NCCL mesh of one rank")
+    graph_parity_path(dev, ("QM9-PaiNN", "DDM-SchNet"),
+                      label="parallel nccl_graph_parity")
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(fn, nprocs, *args):
+    """``fn(rank, *args)`` in ``nprocs`` fresh processes (spawn), joined; a
+    failed one ends the others and fails the run."""
+    import torch
+
+    try:
+        torch.multiprocessing.start_processes(fn, args=args, nprocs=nprocs,
+                                              join=True, start_method="spawn")
+    except Exception as e:  # the child printed its own failure
+        fail(f"parallel: {fn.__name__} failed ({type(e).__name__}: {e})")
+
+
+PRETRAIN = "geossl_tpu_torch.train.pretrain_geossl"
+FINETUNE_LBA = "geossl_tpu_torch.train.finetune_lba"
+# (a): one full-width DDM-SchNet epoch of 2 steps at bucket 128
+DDM_FLAGS = ["--synthetic", "--synthetic_size", "256", "--synthetic_max_atoms",
+             "100", "--bucket", "128", "--batch_size", "128", "--epochs", "1",
+             "--seed", str(SEED)]
+# the launcher runs' flags: two gloo ranks sharing the card
+TWO_GLOO = ["--dist_backend", "gloo"]
+_LAUNCHED = []  # the launcher processes phase 3j started
+
+
+def lba_flags(model_3d):
+    """(b): one LBA step at B=64, N=512 (a train split of 64 of 80
+    synthetic complexes), no weight decay."""
+    return ["--model_3d", model_3d, "--synthetic", "--synthetic_size", "80",
+            "--batch_size", "64", "--bucket", "512", "--epochs", "1",
+            "--decay", "0", "--seed", str(SEED)]
+
+
+def driver_start(module, tag, argv, launcher=False):
+    """``module``'s ``main(argv)`` (a driver), writing into
+    ``runs/chip_smoke_parallel_<tag>`` with a ``--log_file`` there: run to
+    its end in this process, or (``launcher``) started as ``python -m
+    <module>`` in a session of its own, whose launcher starts the ranks
+    (``train/common.start_ranks``). Returns the job for
+    :func:`driver_wait`."""
+    import importlib
+
+    out = os.path.join(ROOT, "runs", f"chip_smoke_parallel_{tag}")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    argv = argv + ["--output_model_dir", out, "--log_file",
+                   os.path.join(out, "log.jsonl")]
+    t0, proc = time.time(), None
+    if launcher:
+        with open(os.path.join(out, "output.txt"), "w") as f:
+            proc = subprocess.Popen([sys.executable, "-m", module, *argv],
+                                    cwd=ROOT, stdout=f,
+                                    stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+        _LAUNCHED.append(proc)
+    else:
+        importlib.import_module(module).main(argv)
+    return module, argv, proc, out, t0
+
+
+def driver_wait(job):
+    """(the log's first line, the output directory, the seconds since the
+    job started) of a :func:`driver_start` job, once it has ended; fails
+    the run if the launcher failed or ran 600 s."""
+    module, argv, proc, out, t0 = job
+    if proc is not None:
+        try:
+            rc = proc.wait(timeout=max(1.0, 600 - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            rc = "killed after 600 s"
+        if rc != 0:
+            with open(os.path.join(out, "output.txt")) as f:
+                tail = f.read()[-4000:]
+            fail(f"parallel: {module} {' '.join(argv)} exited {rc}: {tail}")
+    seconds = time.time() - t0
+    with open(os.path.join(out, "log.jsonl")) as f:
+        return json.loads(f.readline()), out, seconds
+
+
+def stop_launched():
+    """End every launcher phase 3j started, with its ranks (each launcher
+    leads a session of its own)."""
+    import signal
+
+    for proc in _LAUNCHED:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def ddm_two_ranks(two):
+    """(a) ``two``: the job of ``pretrain_geossl --num_devices 2
+    --dist_backend gloo`` (:func:`driver_start`: two gloo ranks sharing the
+    card, the launcher's spawn) on DDM_FLAGS, held to two one-process runs
+    of the same command line without ``--num_devices``: the epoch loss at
+    RTOL, the backbone's parameters together by relative norm GRAD_RTOL,
+    each beyond 10x that only within NOISE_FACTOR times the two one-process
+    runs' own spread (the kernels' atomics)."""
+    import torch
+
+    def run(job):
+        line, out, seconds = driver_wait(job)
+        return line["loss"], torch.load(os.path.join(
+            out, "model_final.pth"))["model"], seconds
+
+    loss_a, a, _ = run(driver_start(PRETRAIN, "one_a", DDM_FLAGS))
+    loss_b, b, _ = run(driver_start(PRETRAIN, "one_b", DDM_FLAGS))
+    loss_2, two, seconds = run(two)
+    per = {k: rel_norm(two[k].float(), a[k].float()) for k in a}
+    spread = {k: rel_norm(b[k].float(), a[k].float()) for k in a}
+    total = rel_norm(torch.cat([two[k].flatten() for k in a]).float(),
+                     torch.cat([a[k].flatten() for k in a]).float())
+    beyond = {k: [per[k], spread[k]] for k in per if per[k] > 10 * GRAD_RTOL}
+    row = {"path": "DDM-SchNet two gloo ranks on one card", "steps": 2,
+           "bucket": 128, "loss_one": loss_a, "loss_one_again": loss_b,
+           "loss_two_ranks": loss_2, "param_rel_norm": total,
+           "one_process_spread": rel_norm(
+               torch.cat([b[k].flatten() for k in a]).float(),
+               torch.cat([a[k].flatten() for k in a]).float()),
+           "beyond_10x_grad_rtol": beyond, "two_rank_seconds": seconds,
+           "two_rank_seconds_beside": "phase 3j's other launchers"}
+    print("parallel ddm_two_ranks: " + json.dumps(row))
+    bad = [k for k, (d, sp) in beyond.items() if d > NOISE_FACTOR * sp]
+    if not abs(loss_2 - loss_a) <= RTOL * abs(loss_a) or total > GRAD_RTOL \
+            or bad:
+        fail(f"parallel: two ranks differ from one process (loss {loss_2} vs "
+             f"{loss_a}, parameters {total:.3e}, beyond the spread: {bad})")
+
+
+def lba_pair_step(dev, model_3d, pair):
+    """(b) ``pair``: the job of ``finetune_lba --pair_devices 2
+    --dist_backend gloo`` (:func:`driver_start`: two gloo ranks sharing the
+    card on a (data 1, pair 2) mesh, the launcher's spawn) on
+    ``lba_flags(model_3d)``: one full-width LBA step at B=64, N=512 whose
+    stripes run the plain-mode pair kernels, held to the same command line
+    in one process without ``--pair_devices`` (the symmetric routes) as
+    ``check_step_parity`` holds a step: the epoch loss (its one step's) and
+    the first step's gradients, read from each run's ``state.pth`` (Adam's
+    first moment after one step is (1 - beta1) times the gradient). Returns
+    rank 0's launches over the pair run (the log line's ``launches``: the
+    step and both evaluations)."""
+    import torch
+
+    from geossl_tpu_torch.train import checkpoints, common
+    from geossl_tpu_torch.train import finetune_lba as FL
+
+    def first_step(job):
+        line, out, seconds = driver_wait(job)
+        opt = checkpoints.load_train_state(
+            os.path.join(out, "state.pth"))[0]["opt"]
+        group = opt["param_groups"][0]
+        return line, [(opt["state"][i]["exp_avg"] / (1 - group["betas"][0]))
+                      .to(dev) for i in group["params"]], seconds
+
+    flags = lba_flags(model_3d)
+    one, grads_one, _ = first_step(driver_start(
+        FINETUNE_LBA, f"lba_{model_3d}_one", flags))
+    two, grads_two, seconds = first_step(pair)
+    # the parameters' names, in the order the driver gave them to Adam
+    args = FL.build_parser().parse_args(flags)
+    names = [n for n, _ in FL.make_net(
+        args, common.model_config_from_args(args),
+        torch.Generator().manual_seed(SEED)).named_parameters()]
+    if len(names) != len(grads_one):
+        fail(f"parallel: LBA-{model_3d}'s state.pth holds {len(grads_one)} "
+             f"moments for {len(names)} parameters")
+    print(f"parallel: finetune_lba --model_3d {model_3d} --pair_devices 2 "
+          f"ran in {seconds:.1f} s (spawn and kernel loads included, beside "
+          "phase 3j's other launchers)")
+    check_step_parity(f"parallel pair step LBA-{model_3d} B=64 N=512 "
+                      "(finetune_lba --pair_devices 2 vs one process)",
+                      two["train_loss"], dict(zip(names, grads_two)),
+                      one["train_loss"], dict(zip(names, grads_one)))
+    used = two["launches"]
+    print(f"parallel pair run LBA-{model_3d}: rank 0's launches {used}")
+    want = ("cfconv_fwd", "cfconv_bwd") if model_3d == "schnet" else \
+        ("painn_fwd", "painn_bwd")
+    if any(not used.get(k) for k in want) or any(
+            k.endswith("_sym") or "stack" in k for k in used):
+        fail(f"parallel: the {model_3d} pair run launched {used}, not the "
+             f"plain-mode pair {want} alone")
+    return {k: used[k] for k in want}
+
+
+def parallel_path(dev, card, errs, lba_batch, nets, G, cutoff, cut_p):
+    """Phase 3j, ``parallel:``. (a) :func:`ddm_two_ranks`. (b)
+    :func:`lba_pair_step` for each backbone; and the plain-mode kernels
+    #1/#2 (``cfconv_fwd``, ``cfconv_bwd``) and #8/#9 (``painn_fwd``,
+    ``painn_bwd``) held to their plain versions at the stripe shape
+    [64, 512, 256] (block 0's inputs of ``nets`` on ``lba_batch``, each
+    rank's stripe), timed there and on the whole grid (``stripe_kernels:``;
+    a row's ``ms`` and ``bound_ms`` are its slower stripe's). (c)
+    :func:`_nccl_world1`. Returns (the pair runs' launches per kernel, both
+    backbones, from rank 0; each stripe kernel's row)."""
+    import torch
+
+    from geossl_tpu_torch.ops import cfconv as K
+    from geossl_tpu_torch.ops import painn as P
+
+    t_all = time.time()
+    # the launchers first: they run beside the one-process runs
+    jobs = {"ddm": driver_start(PRETRAIN, "two", DDM_FLAGS + [
+        "--num_devices", "2"] + TWO_GLOO, launcher=True)}
+    for model_3d in nets:
+        jobs[model_3d] = driver_start(
+            FINETUNE_LBA, f"lba_{model_3d}_pair", lba_flags(model_3d) + [
+                "--pair_devices", "2"] + TWO_GLOO, launcher=True)
+    pair_launches = {}
+    try:
+        ddm_two_ranks(jobs["ddm"])
+        for model_3d in nets:
+            pair_launches.update(lba_pair_step(dev, model_3d, jobs[model_3d]))
+    finally:
+        stop_launched()
+
+    # the stripe kernels at [64, 512, 256] against their plain versions, on
+    # each rank's stripe (a complex's atoms come first, its padding last:
+    # the second stripe holds fewer real pairs)
+    n = lba_batch.atom_type.shape[1]
+    sp = K.sparse_auto(n, "auto")
+    gen = torch.Generator(dev).manual_seed(SEED)
+    with torch.no_grad():
+        m = nets["schnet"].model
+        dist, adj = m.geometry(lba_batch.positions, lba_batch.node_mask)
+        env = m.envelope(dist, adj)
+        blk = m.interactions[0]
+        x = blk.conv.lin1(m.embedding(lba_batch.atom_type))
+        fw = blk.filter_weights()
+        mp = nets["painn"].model
+        wk, bk = mp.filter_weights()[0]
+    grids, q0, xp, mu = painn_inputs(mp, lba_batch)
+    full = (dist.contiguous(), env.contiguous(), x.contiguous())
+    full_p = (*grids, xp, mu)
+    g = torch.randn((x.shape[0], n, x.shape[-1]), generator=gen, device=dev)
+    gq = torch.randn(q0.shape, generator=gen, device=dev)
+    gmu = torch.randn((xp.shape[0], n, xp.shape[-1]), generator=gen,
+                      device=dev)
+    F_ = x.shape[-1]
+    wsize = G * F_ + 2 * F_ + F_ * F_
+    flop_pair = 2 * G * F_ + 2 * F_ * F_ + 2 * F_
+    R_, f3 = wk.shape
+    whole = {
+        "cfconv_fwd": lambda: K.cfconv_fused(*full, *fw, 0.0, cutoff, G, sp),
+        "cfconv_bwd": lambda: K.cfconv_bwd(*full, g, *fw, 0.0, cutoff, G, sp),
+        "painn_fwd": lambda: P.painn_message_fused(*full_p, wk, bk, cut_p, sp),
+        "painn_bwd": lambda: P.painn_bwd(*full_p, wk, bk, gq, gmu, cut_p, sp)}
+    stripe = {k: {"full_grid_shape": list(dist.shape), "sparse": sp,
+                  "full_grid_ms": cuda_time_ms(fn),
+                  "pair_launches": pair_launches.get(k, 0), "by_stripe": []}
+              for k, fn in whole.items()}
+    for j0 in range(0, n, PAIR_STRIPE):
+        j = slice(j0, j0 + PAIR_STRIPE)
+        ds, es, xs = (t.contiguous() for t in (dist[:, :, j], env[:, :, j],
+                                                x[:, j]))
+        gs = tuple(t[:, :, j].contiguous() for t in grids)
+        xps, mus = xp[:, j].contiguous(), mu[:, j].contiguous()
+        what = f"LBA stripe j={j0}:{j0 + ds.shape[-1]} {list(ds.shape)}"
+        with torch.no_grad():
+            want = chunked(K.cfconv_fused_reference, (ds, es, xs),
+                           (*fw, 0.0, cutoff, G), 4)
+            for s in (False, True):
+                errs.check("cfconv_fwd", K.cfconv_fused(
+                    ds, es, xs, *fw, 0.0, cutoff, G, s), want,
+                    f"{what} sparse={s}")
+            want = chunked(lambda *a: torch.cat(P.painn_message_reference(
+                *a, wk, bk, cut_p), dim=-1), (*gs, xps, mus), (), 4)
+            for s in (False, True):
+                errs.check("painn_fwd", torch.cat(P.painn_message_fused(
+                    *gs, xps, mus, wk, bk, cut_p, s), dim=-1), want,
+                    f"{what} sparse={s}")
+        check_cfconv_bwd(errs, ds, es, xs, g, fw, G, cutoff, what, chunk=4)
+        check_painn_bwd(errs, gs, xps, mus, wk, bk, gq, gmu, cut_p, what,
+                        chunk=2)
+        nnz, filt_pairs, cells, tiles = pair_work(ds, es)
+        nnz_p, filt_p, cells_p, tiles_p = pair_work(gs[0], gs[1])
+        rows = {
+            "cfconv_fwd": (
+                lambda: K.cfconv_fused(ds, es, xs, *fw, 0.0, cutoff, G, sp),
+                lambda: chunked(K.cfconv_fused_reference, (ds, es, xs),
+                                (*fw, 0.0, cutoff, G), 4),
+                (filt_pairs * (flop_pair - 2 * F_), nnz * 2 * F_),
+                # env read, dist on its occupied tiles, x read, the
+                # messages written, the filter weights
+                4 * (cells + tiles + xs.numel() + g.numel() + wsize)),
+            "cfconv_bwd": (
+                lambda: K.cfconv_bwd(ds, es, xs, g, *fw, 0.0, cutoff, G, sp),
+                lambda: chunked_sum(K.cfconv_bwd_reference, (ds, es, xs, g),
+                                    (*fw, 0.0, cutoff, G), 4, 3),
+                (filt_pairs * (2 * G * F_ + 2 * F_ * F_)
+                 + nnz * (4 * F_ * F_ + 4 * G * F_), nnz * 6 * F_),
+                # as the forward, and ddist/denv written, g read, dx
+                # written, the weight gradients written
+                4 * (cells + tiles + 2 * ds.numel() + 2 * xs.numel()
+                     + g.numel() + 2 * wsize)),
+            "painn_fwd": (
+                lambda: P.painn_message_fused(*gs, xps, mus, wk, bk, cut_p,
+                                              sp),
+                lambda: chunked(lambda *a: torch.cat(
+                    P.painn_message_reference(*a, wk, bk, cut_p), dim=-1),
+                    (*gs, xps, mus), (), 4),
+                # the filter per needed pair on the tensor cores; gating
+                # and the message sums (~8F per ordered pair) on the CUDA
+                # cores
+                (filt_p * 2 * R_ * f3, nnz_p * 8 * (f3 // 3)),
+                # the gate whole, dist and the directions on its occupied
+                # tiles, x and mu read, dq and dmu written
+                4 * (cells_p + 4 * tiles_p + xps.numel() + mus.numel()
+                     + gq.numel() + gmu.numel() + (R_ + 1) * f3)),
+            "painn_bwd": (
+                lambda: P.painn_bwd(*gs, xps, mus, wk, bk, gq, gmu, cut_p,
+                                    sp),
+                lambda: chunked_sum(
+                    lambda d, gt, a, b_, c, xx, mm, gq_, gmu_:
+                    P.painn_bwd_reference(d, gt, a, b_, c, xx, mm, wk, bk,
+                                          gq_, gmu_, cut_p),
+                    (*gs, xps, mus, gq, gmu), (), 2, 7),
+                (filt_p * (2 * R_ * f3 + 2 * (R_ + 1) * f3)
+                 + nnz_p * 2 * R_ * f3, nnz_p * 40 * (f3 // 3)),
+                4 * (cells_p + 4 * tiles_p + 5 * gs[0].numel()
+                     + 2 * xps.numel() + 2 * mus.numel() + gq.numel()
+                     + gmu.numel() + 2 * (R_ + 1) * f3)),
+        }
+        for name, (fn, plain, flops, nbytes) in rows.items():
+            t_ops = max(flops[0] / PEAK_TF32_FLOPS,
+                        flops[1] / PEAK_F32_FLOPS) * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            with torch.no_grad():
+                stripe[name]["by_stripe"].append({
+                    "j": [j0, j0 + ds.shape[-1]], "shape": list(ds.shape),
+                    "ms": cuda_time_ms(fn),
+                    "plain_ms": cuda_time_ms(plain, reps=2, warmup=1),
+                    "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes"})
+    for row in stripe.values():
+        # the row's shape: the slower stripe's (the pair step waits for it)
+        row.update(max(row["by_stripe"], key=lambda r: r["ms"]))
+    print("stripe_kernels: " + json.dumps(stripe))
+
+    # (c) NCCL at world size 1: graph-replayed steps with the collectives
+    t0 = time.time()
+    spawn(_nccl_world1, 1, free_port())
+    print(f"parallel: NCCL world 1 graph parity in {time.time() - t0:.1f} s")
+    print(f"parallel: phase 3j in {time.time() - t_all:.1f} s")
+    return pair_launches, stripe
 
 
 def profile_dir_check(dev):
@@ -3497,6 +3902,11 @@ def main():
     profile_dir_check(dev)
     host_runtime_path(dev, card)
 
+    # -- 3j. parallel: gloo ranks sharing the card, pair stripes, NCCL graphs
+    pair_launches, stripe_rows = parallel_path(
+        dev, card, errs, lba_batch, {"schnet": net0, "painn": net0_p}, G,
+        cutoff, cut_lp)
+
     # -- 4. measurements -----------------------------------------------------------
     subs = {b: MolStore.from_records([sorted_store.get(int(i))
                                       for i in np.nonzero(bucket_of == b)[0]])
@@ -4123,6 +4533,8 @@ def main():
                                for m, c in pairs_launches.items()},
             "sealed_launches": {m: c.get(name, 0)
                                 for m, c in sealed_launches.items()},
+            "pair_launches": pair_launches.get(name, 0),
+            "stripe": stripe_rows.get(name),
             "second_order": SECOND_ORDER.get(name),
             "max_abs_err": errs.max_abs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),

@@ -3,7 +3,7 @@
 Same defaults as the JAX package, for both backbones (SchNet and PaiNN).
 ``use_pallas`` has no counterpart: the device of the tensors decides
 between kernel and plain version. The JAX options this port does not run
-yet raise ``NotImplementedError``.
+yet (bfloat16, ``filter_mxu='bf16'``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,6 +55,8 @@ class ModelConfig:
     max_neighbors: Optional[int] = None
     # occupancy-gated pair tiles: "auto" from N=128 up, "on", "off"
     sparse_tiles: str = "auto"
+    # pair-grid model parallelism: "pair" runs each message pass on this
+    # rank's j-stripe of the pair grid (parallel/pair_parallel.py)
     pair_axis: Optional[str] = None
 
     def __post_init__(self):
@@ -68,9 +70,6 @@ class ModelConfig:
         if self.filter_mxu != "f32":
             raise NotImplementedError(
                 f"filter_mxu={self.filter_mxu!r}: the kernels compute in f32")
-        if self.pair_axis is not None:
-            raise NotImplementedError("pair-axis model parallelism is not "
-                                      "ported yet (ROADMAP.md)")
         if self.sparse_tiles not in ("auto", "on", "off"):
             raise ValueError(f"sparse_tiles must be 'auto', 'on' or 'off', "
                              f"got {self.sparse_tiles!r}")

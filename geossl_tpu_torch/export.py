@@ -137,6 +137,9 @@ def seal(pred: Predictor, path: str,
     bad = [m for m in modes if m not in ALL_MODES]
     if bad:
         raise ValueError(f"unknown modes {bad}; choose from {ALL_MODES}")
+    if pred.num_devices > 1:
+        raise ValueError("sealing a multi-device Predictor is not supported; "
+                         "build it with num_devices=None")
     for m in modes:
         if _MODE_FN[m][1] is not None:
             pred._require_head(_MODE_FN[m][1])

@@ -54,24 +54,30 @@ from geossl_tpu_torch.models.common import (
     normal_,
 )
 from geossl_tpu_torch.ops import geometry
+from geossl_tpu_torch.ops.cfconv import sparse_auto
 from geossl_tpu_torch.ops.painn import (
     STACK_MAX_N,
     painn_message,
+    painn_message_fused,
     painn_message_reference,
     painn_stack_infer,
     painn_stack_train,
 )
+from geossl_tpu_torch.parallel import pair_parallel
 
 
 class PaiNNInteraction(nn.Module):
     """Inter-atomic message block: the x-MLP, then the message pass with
     this layer's slice of the filter network."""
 
-    def __init__(self, n_atom_basis: int, cutoff: float, sparse="auto"):
+    def __init__(self, n_atom_basis: int, cutoff: float, sparse="auto",
+                 pair_axis: Optional[str] = None):
         super().__init__()
         f = n_atom_basis
         self.cutoff = cutoff
         self.sparse = sparse
+        # pair-grid model parallelism (parallel/pair_parallel.py)
+        self.pair_axis = pair_axis
         self.interatomic_context_net = nn.Sequential(
             Dense(f, f, activation=F_.silu), Dense(f, 3 * f))
 
@@ -86,7 +92,10 @@ class PaiNNInteraction(nn.Module):
         b, n, f = q.shape
         x = self.interatomic_context_net(q)
         mu_flat = mu.reshape(b, n, 3 * f)
-        if plain:
+        if self.pair_axis is not None:
+            dq, dmu = self._pair_sharded_message(dist, gate, dirs, x, mu_flat,
+                                                 wk, bk, plain)
+        elif plain:
             offsets = jax_linspace(self.cutoff, wk.shape[0], dist.dtype,
                                    dist.device)
             widths = torch.abs(offsets[1] - offsets[0]) * torch.ones_like(offsets)
@@ -98,6 +107,27 @@ class PaiNNInteraction(nn.Module):
                                     self.cutoff, symmetric=symmetric,
                                     sparse=self.sparse)
         return q + dq, mu + dmu.reshape(b, n, 3, f)
+
+    def _pair_sharded_message(self, dist, gate, dirs, x, mu_flat, wk, bk,
+                              plain):
+        """The message pass on this rank's j-stripe of the pair grid, (dq,
+        dmu) summed over the pair group (JAX ``PaiNNInteraction`` with
+        ``pair_axis``): the plain-mode kernels on the ``[B, N, N/D]`` stripe
+        (a stripe is not symmetric), gated on the full grid's N, or with
+        ``plain`` the plain version with the kernels' RBF, as JAX's stripe
+        path."""
+        n = dist.shape[-1]
+        j0, nloc = pair_parallel.local_stripe(n)
+        args = (*(pair_parallel.stripe(t, j0, nloc, 2)
+                  for t in (dist, gate, *dirs)),
+                pair_parallel.stripe(x, j0, nloc, 1),
+                pair_parallel.stripe(mu_flat, j0, nloc, 1), wk, bk,
+                self.cutoff)
+        if plain:
+            dq, dmu = painn_message_reference(*args)
+        else:
+            dq, dmu = painn_message_fused(*args, sparse_auto(n, self.sparse))
+        return pair_parallel.pair_sum(dq), pair_parallel.pair_sum(dmu)
 
 
 def direction_planes(direction):
@@ -136,7 +166,7 @@ class PaiNN(nn.Module):
                  max_neighbors: Optional[int] = None, max_z: int = 9,
                  shared_interactions: bool = False,
                  shared_filters: bool = False, epsilon: float = 1e-8,
-                 sparse="auto",
+                 sparse="auto", pair_axis: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         f = n_atom_basis
@@ -154,13 +184,13 @@ class PaiNN(nn.Module):
             n_rbf, 3 * f if shared_filters else n_interactions * 3 * f)
         if shared_interactions:
             # one module repeated, as the reference's ModuleList([m] * L)
-            inter = PaiNNInteraction(f, cutoff, sparse)
+            inter = PaiNNInteraction(f, cutoff, sparse, pair_axis)
             mix = PaiNNMixing(f, epsilon)
             self.interactions = nn.ModuleList([inter] * n_interactions)
             self.mixing = nn.ModuleList([mix] * n_interactions)
         else:
             self.interactions = nn.ModuleList(
-                PaiNNInteraction(f, cutoff, sparse)
+                PaiNNInteraction(f, cutoff, sparse, pair_axis)
                 for _ in range(n_interactions))
             self.mixing = nn.ModuleList(PaiNNMixing(f, epsilon)
                                         for _ in range(n_interactions))
@@ -241,6 +271,12 @@ class PaiNN(nn.Module):
         return tuple(torch.stack(c).contiguous() for c in cols)
 
 
+def _check_stackable(name: str, model: PaiNN) -> None:
+    """The whole-stack kernels run the whole pair grid on one device."""
+    if any(inter.pair_axis is not None for inter in model.interactions):
+        raise ValueError(f"{name}: default config only (no pair_axis)")
+
+
 def fused_stack_apply(model: PaiNN, atom_type, positions, node_mask,
                       stacked=None):
     """Inference-only forward with all interaction and mixing blocks in one
@@ -248,6 +284,7 @@ def fused_stack_apply(model: PaiNN, atom_type, positions, node_mask,
     ``model.forward`` with the kernels' RBF. Needs f32 positions and
     N <= STACK_MAX_N. ``stacked`` is ``model.stacked_weights()`` made once
     by a caller whose weights are fixed; made here when None."""
+    _check_stackable("fused_stack_apply", model)
     if positions.dtype != torch.float32:
         raise ValueError(f"fused_stack_apply: positions must be float32 (got "
                          f"{positions.dtype}); use model.forward")
@@ -268,9 +305,9 @@ def stack_train_apply(model: PaiNN, atom_type, positions, node_mask,
     boundary values and the backward runs the per-block chain, with the
     ``painn_bwd`` kernel for the message passes. Gradients flow to the
     parameters and the positions. Returns ``(graph_repr, node_repr)``, as
-    ``model.forward``. Needs f32 positions and N <= STACK_MAX_N (the JAX
-    function's other refusal, a non-default ``pair_axis`` or compute dtype,
-    has no counterpart: the port's PaiNN has neither option)."""
+    ``model.forward``. Needs f32 positions, N <= STACK_MAX_N and no
+    ``pair_axis`` (as the JAX function)."""
+    _check_stackable("stack_train_apply", model)
     if positions.dtype != torch.float32:
         raise ValueError(f"stack_train_apply: positions must be float32 (got "
                          f"{positions.dtype}); use model.forward")

@@ -38,9 +38,13 @@ from geossl_tpu_torch.models.common import (
 from geossl_tpu_torch.ops import geometry
 from geossl_tpu_torch.ops.cfconv import (
     cfconv,
+    cfconv_fused,
+    cfconv_fused_reference,
     schnet_stack,
     schnet_stack_reference,
+    sparse_auto,
 )
+from geossl_tpu_torch.parallel import pair_parallel
 
 # True masses for the index-coded vocab (H C N O F P S Cl, ?=0)
 _ATOMIC_MASSES = (1.008, 12.011, 14.007, 15.999, 18.998, 30.974, 32.06,
@@ -63,7 +67,7 @@ class InteractionBlock(nn.Module):
 
     def __init__(self, hidden_channels: int, num_filters: int,
                  num_gaussians: int, cutoff: float, symmetric: bool = True,
-                 sparse="auto"):
+                 sparse="auto", pair_axis: Optional[str] = None):
         super().__init__()
         self.num_gaussians = num_gaussians
         self.cutoff = cutoff
@@ -71,6 +75,10 @@ class InteractionBlock(nn.Module):
         # truncated adjacency is not): lets the kernel skip mirrored tiles
         self.symmetric = symmetric
         self.sparse = sparse
+        # pair-grid model parallelism: each rank convolves its j-stripe of
+        # the pair grid and the stripes' messages are summed
+        # (parallel/pair_parallel.py)
+        self.pair_axis = pair_axis
         self.mlp = nn.Sequential(nn.Linear(num_gaussians, num_filters),
                                  ShiftedSoftplus(),
                                  nn.Linear(num_filters, num_filters))
@@ -91,10 +99,30 @@ class InteractionBlock(nn.Module):
         None."""
         x = self.conv.lin1(h)
         filt = self.filter_weights() if filt is None else filt
-        m = cfconv(dist, env, x, *filt, 0.0, self.cutoff,
-                   self.num_gaussians, symmetric=self.symmetric,
-                   sparse=self.sparse, plain=plain)
+        if self.pair_axis is not None:
+            m = self._pair_sharded_conv(dist, env, x, filt, plain)
+        else:
+            m = cfconv(dist, env, x, *filt, 0.0, self.cutoff,
+                       self.num_gaussians, symmetric=self.symmetric,
+                       sparse=self.sparse, plain=plain)
         return self.lin(shifted_softplus(self.conv.lin2(m)))
+
+    def _pair_sharded_conv(self, dist, env, x, filt, plain):
+        """CFConv on this rank's j-stripe of the pair grid, the stripes'
+        messages summed over the pair group (JAX ``_pair_sharded_conv``).
+        Node tensors are whole on every rank; the stripe ``[B, N, N/D]``
+        runs the plain-mode kernels (a stripe is not symmetric), gated on
+        the full grid's N, or with ``plain`` the plain version."""
+        j0, nloc = pair_parallel.local_stripe(dist.shape[-1])
+        args = (pair_parallel.stripe(dist, j0, nloc, 2),
+                pair_parallel.stripe(env, j0, nloc, 2),
+                pair_parallel.stripe(x, j0, nloc, 1), *filt, 0.0, self.cutoff,
+                self.num_gaussians)
+        if plain:
+            m = cfconv_fused_reference(*args)
+        else:
+            m = cfconv_fused(*args, sparse_auto(dist.shape[-2], self.sparse))
+        return pair_parallel.pair_sum(m)
 
 
 def dipole_readout(q, atom_type, positions, node_mask):
@@ -122,6 +150,7 @@ class SchNet(nn.Module):
                  mean: Optional[float] = None, std: Optional[float] = None,
                  atomref: Optional[Sequence[float]] = None,
                  dipole: bool = False, sparse="auto",
+                 pair_axis: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.hidden_channels = hidden_channels
@@ -137,7 +166,7 @@ class SchNet(nn.Module):
         self.interactions = nn.ModuleList(
             InteractionBlock(hidden_channels, num_filters, num_gaussians,
                              cutoff, symmetric=max_neighbors is None,
-                             sparse=sparse)
+                             sparse=sparse, pair_axis=pair_axis)
             for _ in range(num_interactions))
         self.lin1 = nn.Linear(hidden_channels, hidden_channels)
         self.lin2 = nn.Linear(hidden_channels, hidden_channels)

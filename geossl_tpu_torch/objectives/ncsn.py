@@ -69,13 +69,21 @@ class _NCSNBase(nn.Module):
         sigma_dtype = sigma_dtype or dist.dtype
         dev = dist.device
         if sigmas is None:
-            level = torch.randint(0, self.num_noise_level, (dist.shape[0],),
-                                  generator=generator, device=dev)
-            return (self.sigmas.to(sigma_dtype)[level],
-                    torch.randn(dist.shape, generator=generator,
-                                dtype=dist.dtype, device=dev))
+            return self.sample(dist.shape, dist.dtype, dev, generator,
+                               sigma_dtype)
         return (torch.as_tensor(sigmas, dtype=sigma_dtype, device=dev),
                 torch.as_tensor(noise, dtype=dist.dtype, device=dev))
+
+    def sample(self, shape, dtype, device,
+               generator: Optional[torch.Generator] = None, sigma_dtype=None):
+        """(σ [B], ε ``shape`` [B,N,N]) drawn from ``generator``: a noise
+        level per graph from the ladder, then ε ~ N(0, 1) in ``dtype``; σ in
+        ``sigma_dtype`` (default: ``dtype``)."""
+        level = torch.randint(0, self.num_noise_level, (shape[0],),
+                              generator=generator, device=device)
+        return (self.sigmas.to(sigma_dtype or dtype)[level],
+                torch.randn(shape, generator=generator, dtype=dtype,
+                            device=device))
 
     def annealed_loss(self, scores, target, sel_mask, used, graph_mask):
         """½(score − target)²·σ^anneal on the selected pairs, summed per
@@ -207,6 +215,14 @@ class NCSNv3(_NCSNBase):
 
     def forward(self, node_feat, dist, sel_mask, graph_mask=None, sigmas=None,
                 noise=None, generator: Optional[torch.Generator] = None):
+        return graph_masked_mean(
+            self.per_graph(node_feat, dist, sel_mask, sigmas, noise,
+                           generator), graph_mask)
+
+    def per_graph(self, node_feat, dist, sel_mask, sigmas=None, noise=None,
+                  generator: Optional[torch.Generator] = None):
+        """The annealed loss summed per graph over the selected pairs, [B]
+        (``forward`` is its mean over the real graphs)."""
         # σ and ε follow dist's dtype (at least f32), as in the JAX package
         dtype = torch.promote_types(torch.float32, dist.dtype)
         dist = dist.to(dtype)
@@ -216,4 +232,4 @@ class NCSNv3(_NCSNBase):
                 *self.head_weights(), self.anneal_power)
         rows = (ncsn_score_loss(*args) if self.use_kernel
                 else ncsn_score_loss_reference(*args))
-        return graph_masked_mean(rows.sum(dim=1), graph_mask)
+        return rows.sum(dim=1)

@@ -1,2 +1,4 @@
-"""Host-device overlap for the drivers (``mesh.prefetch``); the port's
-counterpart of ``geossl_tpu/parallel/``."""
+"""Multi-device running and host-device overlap (counterpart of
+``geossl_tpu/parallel/``): the data mesh and the batch prefetch
+(``mesh``), multi-process start-up (``multihost``) and pair-grid
+parallelism (``pair_parallel``)."""

@@ -34,7 +34,12 @@
   preds.csv``.
 
 Work runs on the CUDA device unless the caller passes ``device="cpu"``,
-where every kernel wrapper takes its plain PyTorch version.
+where every kernel wrapper takes its plain PyTorch version. With
+``num_devices=n`` (``serve --num_devices n``) one process serves on n
+devices (``cuda:0`` .. ``cuda:n-1``; n copies on the CPU): the weights are
+made once on each, each packed batch is split over them by rows and the
+rows come back in order; the batch size is rounded up to a multiple of n,
+as the JAX package's data mesh does.
 """
 
 from __future__ import annotations
@@ -283,11 +288,16 @@ class Predictor(_Passes):
                  y_mean: Optional[float] = None, y_std: Optional[float] = None,
                  batch_size: int = 128,
                  bucket_sizes: Sequence[int] = (32, 64, 128, 256, 512),
-                 spatial_sort: str = "auto", device=None):
+                 spatial_sort: str = "auto", device=None,
+                 num_devices: Optional[int] = None):
         if spatial_sort not in ("auto", "on", "off"):
             raise ValueError(f"spatial_sort must be auto/on/off, got "
                              f"{spatial_sort!r}")
         self.device = resolve_device(device)
+        self.num_devices = num_devices or 1
+        devices = self._devices(self.num_devices)
+        self.device = devices[0]
+        batch_size += (-batch_size) % self.num_devices
         self.cfg = cfg
         self.emb_dim = cfg.emb_dim
         self.batch_size = batch_size
@@ -330,6 +340,49 @@ class Predictor(_Passes):
             self._prep = (self.model.filter_weights(),
                           self.model.stacked_weights() if self._stackable
                           else None)
+        # one single-device Predictor per further device; this one is the
+        # first device's
+        self._replicas = [self] + [
+            Predictor(cfg, state, self.y_mean, self.y_std, batch_size,
+                      bucket_sizes, spatial_sort, device=d)
+            for d in devices[1:]]
+        if self.num_devices > 1:
+            for name in ("_embed_fn", "_predict_fn", "_energy_forces_fn",
+                         "_pair_logit_fn"):
+                setattr(self, name, self._spread(getattr(Predictor, name)))
+
+    def _devices(self, n: int) -> list:
+        """The ``n`` devices of a multi-device Predictor: ``cuda:0`` ..
+        ``cuda:n-1`` on CUDA (in range of the cards, as JAX's mesh), n
+        times the CPU."""
+        if n == 1:
+            return [self.device]
+        cards = torch.cuda.device_count() if self.device.type == "cuda" \
+            else None
+        if n < 1 or cards is not None and n > cards:
+            raise ValueError(f"--num_devices {n} out of range: this process "
+                             f"sees {cards} device(s)")
+        if cards is not None:
+            return [torch.device("cuda", k) for k in range(n)]
+        return [self.device] * n
+
+    def _spread(self, fn):
+        """Per-batch function ``fn`` over the replicas: each takes its
+        share of the batch's rows (the first rows the first device's), and
+        the results come back in row order on the first device."""
+        def spread(prep, *tensors):
+            outs = []
+            for rep, *part in zip(self._replicas, *(
+                    torch.tensor_split(t, len(self._replicas))
+                    for t in tensors)):
+                if part[0].shape[0]:
+                    outs.append(fn(rep, rep._prep, *(
+                        t.to(rep.device, non_blocking=True) for t in part)))
+            if isinstance(outs[0], tuple):
+                return tuple(torch.cat([o[k].to(self.device) for o in outs])
+                             for k in range(len(outs[0])))
+            return torch.cat([o.to(self.device) for o in outs])
+        return spread
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: Optional[ModelConfig] = None,
@@ -445,6 +498,9 @@ def build_parser():
                    help="cuda (default) or cpu for the plain versions (a "
                         "sealed artifact runs on the device it was sealed "
                         "for)")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="serve on this many devices from one process "
+                        "(default: one device)")
     return p
 
 
@@ -464,7 +520,8 @@ def main(argv=None):
         pred = Predictor.from_checkpoint(
             args.ckpt, ModelConfig(model_3d=args.model_3d),
             batch_size=args.batch_size, bucket_sizes=args.bucket,
-            spatial_sort=args.spatial_sort, device=args.device)
+            spatial_sort=args.spatial_sort, device=args.device,
+            num_devices=args.num_devices)
     store = load_input_store(args.input)
     if args.mode == "forces":
         rows, forces = pred.predict_forces(store)

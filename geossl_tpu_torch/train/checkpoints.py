@@ -20,6 +20,8 @@ from typing import Any, Dict
 
 import torch
 
+from geossl_tpu_torch.parallel import multihost
+
 
 def _cpu(tree):
     if isinstance(tree, dict):
@@ -29,7 +31,10 @@ def _cpu(tree):
 
 def save_checkpoint(path: str, tree: Dict[str, Any]) -> None:
     """Write ``tree`` (state_dicts and scalars) with its tensors on the CPU;
-    a killed job never leaves a torn file."""
+    a killed job never leaves a torn file. On a mesh rank 0 writes and the
+    other ranks write nothing."""
+    if not multihost.is_main():
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
     torch.save(_cpu(tree), tmp)

@@ -1,17 +1,23 @@
 """Shared driver plumbing (counterpart of ``geossl_tpu/train/common.py``):
 backbone and head construction, the drivers' common flags with the JAX
 package's names and defaults (one command line drives both packages),
-gradient accumulation groups, several optimizer steps per call
-(:class:`ChainStep`, ``--steps_per_call``: CUDA graphs on the card), resume
-state, the metric log, and the epoch loops (``run_pretrain``,
-``run_finetune``), which take their batches through
+multi-device and multi-host start-up (:func:`start_ranks`,
+:func:`setup_platform`), gradient accumulation groups, several optimizer
+steps per call (:class:`ChainStep`, ``--steps_per_call``: CUDA graphs on
+the card), resume state, the metric log, and the epoch loops
+(``run_pretrain``, ``run_finetune``), which take their batches through
 ``parallel/mesh.prefetch``.
 
-Both backbones are ported (``--model_3d schnet|painn``). Flags the port
-does not run yet raise ``NotImplementedError`` when set away from their
-defaults: multi-device and multi-host runs, the fine-tunes'
-``--pair_devices``, and ``--steps_per_call`` / ``--profile_dir`` in the
-drivers that do not list them as ported (:func:`check_ported_args`).
+Both backbones are ported (``--model_3d schnet|painn``). ``--num_devices N``
+starts N ranks on this host (``torch.multiprocessing``, spawn), one per
+device; ``--coordinator_address/--num_processes/--process_id`` start this
+host's ranks of a multi-host run; a rank started by ``torchrun`` (its
+``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` environment) joins as it is. Each
+rank runs the driver on its rows of every global batch
+(``parallel/mesh.py``). Flags the port does not run yet raise
+``NotImplementedError`` when set away from their defaults:
+``--steps_per_call`` / ``--profile_dir`` in the drivers that do not list
+them as ported (:func:`check_ported_args`).
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ import dataclasses
 import json
 import math
 import os
+import socket
+import sys
 import time
 from typing import Optional
 
@@ -35,6 +43,9 @@ from geossl_tpu_torch.models.schnet import SchNet
 from geossl_tpu_torch.ops import cfconv as cfconv_ops
 from geossl_tpu_torch.ops import ncsn as ncsn_ops
 from geossl_tpu_torch.ops import painn as painn_ops
+from geossl_tpu_torch.ops._launch import launch_counts
+from geossl_tpu_torch.parallel import mesh as pmesh
+from geossl_tpu_torch.parallel import multihost
 from geossl_tpu_torch.parallel.mesh import prefetch
 from geossl_tpu_torch.train import checkpoints, optim
 from geossl_tpu_torch.utils import profiling
@@ -119,6 +130,7 @@ def make_backbone(cfg: ModelConfig,
             shared_filters=p.shared_filters,
             epsilon=p.epsilon,
             sparse=sparse,
+            pair_axis=cfg.pair_axis,
             generator=generator,
         )
     s = cfg.schnet
@@ -132,6 +144,7 @@ def make_backbone(cfg: ModelConfig,
         readout=s.readout,
         max_neighbors=cfg.max_neighbors,
         sparse=sparse,
+        pair_axis=cfg.pair_axis,
         generator=generator,
     )
 
@@ -169,11 +182,21 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--synthetic_max_atoms", type=int, default=29)
     p.add_argument("--output_model_dir", default="")
     p.add_argument("--input_model_file", default="")
-    p.add_argument("--num_devices", type=int, default=None)
-    p.add_argument("--coordinator_address", default=None)
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="data parallelism: one rank per device, started on "
+                        "this host (default: one device, one process)")
+    p.add_argument("--coordinator_address", default=None,
+                   help="host:port of rank 0: this host starts its ranks of "
+                        "a multi-host run (with --num_processes hosts, this "
+                        "one --process_id)")
     p.add_argument("--num_processes", type=int, default=1)
     p.add_argument("--process_id", type=int, default=0)
-    p.add_argument("--local_device_count", type=int, default=None)
+    p.add_argument("--local_device_count", type=int, default=None,
+                   help="ranks this host starts in a multi-host run "
+                        "(default: its cards; one on the CPU)")
+    p.add_argument("--dist_backend", default="auto", choices=["auto", "gloo"],
+                   help="the ranks' collectives: auto is NCCL on CUDA and gloo "
+                        "on the CPU; gloo on CUDA lets ranks share a card")
     p.add_argument("--bucket", type=int, nargs="+", default=[32, 64, 128])
     p.add_argument("--num_filters", type=int, default=128)
     p.add_argument("--num_interactions", type=int, default=6)
@@ -215,18 +238,14 @@ def check_ported_args(args, ported=()) -> None:
     ``ported`` names those of ``--steps_per_call`` and ``--profile_dir``
     that the calling driver runs. Then :func:`check_chain_args`."""
     unported = {
-        "--num_devices": args.num_devices not in (None, 1),
-        "--coordinator_address": args.coordinator_address is not None,
-        "--num_processes": args.num_processes != 1,
         "--steps_per_call": args.steps_per_call > 1,
         "--profile_dir": bool(args.profile_dir),
-        "--pair_devices": getattr(args, "pair_devices", 1) > 1,
     }
     bad = [k for k, v in unported.items() if v and k not in ported]
     if bad:
         raise NotImplementedError(
             f"{', '.join(bad)}: not ported yet for this driver (ROADMAP.md "
-            "queue 1); the port runs one device and one process")
+            "queue 1)")
     if args.grad_accum < 1:
         raise ValueError(f"--grad_accum must be >= 1, got {args.grad_accum}")
     if args.steps_per_call < 1:
@@ -248,6 +267,156 @@ def check_chain_args(args) -> None:
 
 def use_kernels(args) -> bool:
     return args.use_pallas != "off"
+
+
+# -- ranks ------------------------------------------------------------------------
+
+
+def in_rank() -> bool:
+    """True in a process started as one rank of a run (by
+    :func:`start_ranks` or by ``torchrun``: ``RANK`` and ``WORLD_SIZE`` are
+    set)."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def mesh_devices(args) -> int:
+    """The ranks a single-host command line asks for: ``--num_devices``
+    times ``--pair_devices``."""
+    return (args.num_devices or 1) * getattr(args, "pair_devices", 1)
+
+
+def host_devices(args) -> int:
+    """The devices this host offers its ranks: its cards on CUDA (any
+    number of ranks with ``--dist_backend gloo``, which lets ranks share a
+    card), its cores on the CPU."""
+    if torch.device(args.device).type == "cuda" and args.dist_backend != "gloo":
+        return torch.cuda.device_count()
+    return os.cpu_count() or 1
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(local_rank: int, module: str, argv: list, env: dict,
+               first: int, threads: int) -> None:
+    """One rank: its environment, its share of the host's CPU threads, then
+    the driver's ``main(argv)``."""
+    import importlib
+
+    os.environ.update(env, RANK=str(first + local_rank),
+                      LOCAL_RANK=str(local_rank))
+    torch.set_num_threads(threads)
+    importlib.import_module(module).main(argv)
+
+
+def start_ranks(args, argv, module: str) -> bool:
+    """The launcher: when this command line asks for more than one device
+    (``--num_devices``, ``--pair_devices``) or for a multi-host run
+    (``--coordinator_address``), start this host's ranks, each running
+    ``module``'s ``main(argv)`` in a process of its own (``torch
+    .multiprocessing``, spawn), wait for them and return True; a rank that
+    fails ends the others and raises here. False in a rank (or under
+    ``torchrun``) and for a one-device run: the caller runs the driver.
+
+    A JAX process with L local devices is one launcher here that starts L
+    ranks: rank ``process_id * L + l``, world size ``num_processes * L``
+    (``--local_device_count`` L, default the host's cards, one on the
+    CPU)."""
+    if in_rank():
+        return False
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if args.coordinator_address is None and args.num_processes != 1:
+        raise ValueError(f"--num_processes {args.num_processes} needs "
+                         "--coordinator_address (host:port of rank 0)")
+    if args.coordinator_address is not None:
+        if args.num_processes < 2:
+            raise ValueError(f"--coordinator_address: multi-host needs "
+                             f"num_processes >= 2, got {args.num_processes}")
+        if not 0 <= args.process_id < args.num_processes:
+            raise ValueError(f"process_id {args.process_id} out of range "
+                             f"[0, {args.num_processes})")
+        local = args.local_device_count or (
+            torch.cuda.device_count()
+            if torch.device(args.device).type == "cuda" else 1)
+        if local < 1:
+            raise ValueError(f"--local_device_count {local}: this host has "
+                             "no device to start a rank on")
+        world, first = args.num_processes * local, args.process_id * local
+        host, port = args.coordinator_address.rsplit(":", 1)
+    else:
+        local = mesh_devices(args)
+        if local == 1 and args.num_devices in (None, 1):
+            return False
+        if args.num_devices is not None and args.num_devices < 1 or \
+                local > host_devices(args):
+            raise ValueError(
+                f"--num_devices {args.num_devices} out of range: this "
+                f"process sees {host_devices(args)} device(s)"
+                + (f" ({local} ranks with --pair_devices)"
+                   if local != (args.num_devices or 1) else ""))
+        world, first, host, port = local, 0, "127.0.0.1", str(_free_port())
+    env = {"WORLD_SIZE": str(world), "LOCAL_WORLD_SIZE": str(local),
+           "MASTER_ADDR": host, "MASTER_PORT": port}
+    threads = max(1, torch.get_num_threads() // local)
+    torch.multiprocessing.start_processes(
+        _rank_main, args=(module, argv, env, first, threads), nprocs=local,
+        join=True, start_method="spawn")
+    return True
+
+
+def setup_platform(args):
+    """The counterpart of JAX's ``setup_platform``: in a rank, join the
+    process group (before the first CUDA use) and make the run's mesh (a
+    ``(data, pair)`` mesh with ``--pair_devices``); otherwise no mesh.
+    Returns (mesh or None, this rank's device). Refuses ``--steps_per_call``
+    above 1 with gloo ranks on CUDA, whose collectives a CUDA graph cannot
+    capture."""
+    # serve imports this module
+    from geossl_tpu_torch.serve import resolve_device
+
+    if not in_rank():
+        return pmesh.make_mesh(args.num_devices), resolve_device(args.device)
+    world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = pmesh.rank_device("cuda")
+    backend = multihost.backend_for(device, args.dist_backend)
+    if backend == "gloo" and device.type == "cuda" and world > 1 \
+            and getattr(args, "steps_per_call", 1) > 1:
+        raise SystemExit(
+            "--steps_per_call > 1 replays CUDA graphs, which cannot capture "
+            "gloo collectives: run NCCL ranks (one card each) or "
+            "--steps_per_call 1")
+    multihost.initialize(
+        f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}", world,
+        rank, device=device, backend=backend)
+    pair = getattr(args, "pair_devices", 1)
+    if pair > 1:
+        from geossl_tpu_torch.parallel.pair_parallel import make_pair_mesh
+
+        num_data = world // pair
+        if args.num_devices not in (None, num_data) or num_data * pair != world:
+            raise ValueError(f"--num_devices {args.num_devices} x "
+                             f"--pair_devices {pair} != the {world} ranks")
+        return make_pair_mesh(pair, num_data, device), device
+    return pmesh.make_mesh(args.num_devices, device), device
+
+
+def round_batch_to_mesh(batch_size: int, mesh) -> int:
+    """Pad the batch size up to a multiple of the mesh's ranks, so that
+    every rank gets whole rows (JAX's ``round_batch_to_mesh``)."""
+    return batch_size if mesh is None else \
+        batch_size + (-batch_size) % mesh.size
+
+
+def host_agreement(name: str, value: float) -> None:
+    """``multihost.assert_host_agreement`` on the current mesh's device."""
+    mesh = pmesh.current()
+    if mesh is not None:
+        multihost.assert_host_agreement(name, value, mesh.device)
 
 
 # -- the kernels' limits ----------------------------------------------------------
@@ -421,6 +590,11 @@ def try_resume(args, modules: dict, opt, sched,
     """Load ``state.pth`` under ``--resume``; returns (start_epoch,
     best_metric, extra scalars); a fresh start's best is the worst value."""
     path = state_path(args)
+    if args.resume and path:
+        # the resume decision must agree across ranks: without a shared
+        # filesystem only rank 0 has state.pth, and a split (rank 0 at epoch
+        # N+1, the others at 1) would deadlock the collectives
+        host_agreement("resume checkpoint exists", float(os.path.exists(path)))
     if not (args.resume and path and os.path.exists(path)):
         return 1, float("-inf" if higher_is_better else "inf"), {}
     state, last_epoch, best, extra = checkpoints.load_train_state(path)
@@ -445,14 +619,30 @@ def maybe_save_state(args, modules: dict, opt, sched, epoch: int,
 # -- pretraining ---------------------------------------------------------------
 
 
+def params_of(opt) -> list:
+    return [p for pg in opt.param_groups for p in pg["params"]]
+
+
 def optimizer_step(opt, sched, body, batches) -> torch.Tensor:
     """One optimizer step: ``body(batches)`` leaves the group's gradients
-    in ``.grad`` and returns its outputs; then Adam and the schedule."""
+    in ``.grad`` and returns its outputs; on a mesh they are summed over
+    the ranks; then Adam and the schedule."""
     opt.zero_grad(set_to_none=True)
     out = body(batches)
+    pmesh.all_reduce_grads(params_of(opt), pmesh.current())
     opt.step()
     sched.step()
     return out
+
+
+def backward_share(loss: torch.Tensor, group_len: int) -> None:
+    """Backward of this rank's share of one batch's loss in a group of
+    ``group_len`` (``--grad_accum``): the global batch's loss over the group
+    length, and on a mesh over the world size (the ranks' gradients are
+    then summed: ``mesh.all_reduce_grads``)."""
+    scale = pmesh.loss_scale(pmesh.current())
+    share = loss / group_len
+    (share if scale == 1 else share / scale).backward()
 
 
 def pretrain_body(loss_of):
@@ -463,7 +653,7 @@ def pretrain_body(loss_of):
         total = 0.0
         for batch in batches:
             loss, acc = loss_of(batch)
-            (loss / len(batches)).backward()
+            backward_share(loss, len(batches))
             total = total + torch.stack([loss.detach(),
                                          acc.detach().to(loss.dtype)])
         return total / len(batches)
@@ -479,16 +669,6 @@ def pretrain_step(module: nn.Module, opt, sched, batches,
 
 
 # -- several optimizer steps per call -------------------------------------------
-
-
-def _map_batch(fn, batch):
-    """``batch`` (a batch dataclass, possibly nested) with ``fn`` applied
-    to each tensor."""
-    if batch is None or isinstance(batch, torch.Tensor):
-        return None if batch is None else fn(batch)
-    return dataclasses.replace(batch, **{
-        f.name: _map_batch(fn, getattr(batch, f.name))
-        for f in dataclasses.fields(batch)})
 
 
 def _leaves(batch) -> list:
@@ -521,7 +701,9 @@ class ChainStep:
     cuBLAS workspaces), after which the parameters, the buffers of
     ``modules``, the generator and the zeroed gradients are as before. A
     capture that fails raises: nothing falls back to eager steps on the
-    card. Launch counters count the captures, not the replays.
+    card. Launch counters count the captures, not the replays. On a mesh
+    each step's gradient all_reduce is in the graph (NCCL: gloo's cannot be
+    captured, and ``setup_platform`` refuses it).
 
     On other devices the steps run eagerly, one by one.
     """
@@ -582,7 +764,7 @@ class ChainStep:
         if key[1] not in self._warm:
             self._warm_up(group[0])
             self._warm.add(key[1])
-        slots = [_map_batch(torch.clone, b) for b in group]
+        slots = [pmesh.map_batch(torch.clone, b) for b in group]
         lrs = torch.zeros((len(group), len(self.opt.param_groups)),
                           dtype=torch.float32, device=self.device)
         graph = torch.cuda.CUDAGraph()
@@ -602,6 +784,8 @@ class ChainStep:
                 for g, pg in enumerate(self.opt.param_groups):
                     pg["lr"].copy_(lrs[i, g])
                 outs.append(self.body([slot]))
+                # NCCL's all_reduce is captured with the step
+                pmesh.all_reduce_grads(params_of(self.opt), pmesh.current())
                 self.opt.step()
             out = torch.stack(outs)
         self._graphs[key] = (graph, slots, lrs, out)
@@ -621,6 +805,8 @@ def run_pretrain(args, module: nn.Module, key: str, opt, sched, loader,
     saver = checkpoints.BestModelSaver(args.output_model_dir)
     mlog = MetricLogger(args.log_file)
     start_epoch, best, extra = try_resume(args, {key: module}, opt, sched)
+    host_agreement("start epoch", start_epoch)
+    host_agreement("loader length", len(loader))
     plateau = make_plateau(args, extra)
     saver.best_metric = best
     history = []
@@ -681,14 +867,14 @@ class EpochTimer:
 
 
 class MetricLogger:
-    """One JSON line per epoch appended to ``--log_file`` (off when the path
-    is empty); non-finite floats become null."""
+    """One JSON line per epoch appended to ``--log_file`` by rank 0 (off
+    when the path is empty); non-finite floats become null."""
 
     def __init__(self, path: str = ""):
         self.path = path
 
     def log(self, **fields) -> None:
-        if not self.path:
+        if not self.path or not multihost.is_main():
             return
         fields = {k: (None if isinstance(v, float) and not math.isfinite(v)
                       else v) for k, v in fields.items()}
@@ -748,7 +934,7 @@ def finetune_body(net: nn.Module, loss_fn):
         total = 0.0
         for batch in batches:
             loss = loss_fn(net, batch)
-            (loss / len(batches)).backward()
+            backward_share(loss, len(batches))
             total = total + loss.detach()
         return total / len(batches)
     return body
@@ -776,7 +962,8 @@ def run_finetune(args, net: nn.Module, loaders, loss_fn, evaluate,
     optimizer steps, the plateau scheduler on the epoch's mean loss, val
     and test metrics, ``model.pth`` (:func:`model_tree` with
     ``ckpt_extra``) at the best val ``key``, the resume state and the metric
-    log.
+    log (each epoch's line with the kernels this process has launched so
+    far: ``launches``, by wrapper name).
 
     ``loaders`` = (train, val, test); ``loss_fn(net, batch)``;
     ``evaluate(net, loader)`` -> {metric: float}; ``describe(val, test)``
@@ -790,6 +977,8 @@ def run_finetune(args, net: nn.Module, loaders, loss_fn, evaluate,
     mlog = MetricLogger(args.log_file)
     start_epoch, best, extra = try_resume(args, {"net": net}, opt, sched,
                                           higher_is_better)
+    host_agreement("start epoch", start_epoch)
+    host_agreement("loader length", len(train))
     plateau = make_plateau(args, extra)  # pops its keys from extra
     best_epoch = int(extra.pop("best_epoch", -1))
     best_test = extra  # the remaining keys: the test metrics at the best
@@ -818,14 +1007,15 @@ def run_finetune(args, net: nn.Module, loaders, loss_fn, evaluate,
         mlog.log(epoch=epoch, train_loss=train_loss,
                  **{f"val_{k}": v for k, v in val.items()},
                  **{f"test_{k}": v for k, v in test.items()},
-                 time_s=round(timer.elapsed(), 3))
+                 time_s=round(timer.elapsed(), 3),
+                 launches={k: v for k, v in launch_counts().items() if v})
         if val[key] > best if higher_is_better else val[key] < best:
             best, best_epoch, best_test = val[key], epoch, test
             if args.output_model_dir:
                 checkpoints.save_checkpoint(
                     os.path.join(args.output_model_dir, "model.pth"),
                     model_tree(net, ckpt_extra))
-                if on_best is not None:
+                if on_best is not None and multihost.is_main():
                     on_best()
         maybe_save_state(args, {"net": net}, opt, sched, epoch, best,
                          {"best_epoch": best_epoch, **best_test,

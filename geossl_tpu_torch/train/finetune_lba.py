@@ -22,6 +22,7 @@ Run: ``python -m geossl_tpu_torch.train.finetune_lba --synthetic --epochs 3``
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 from torch import nn
@@ -31,8 +32,9 @@ from geossl_tpu_torch.data.lba import load_lba
 from geossl_tpu_torch.data.splitters import atom3d_lba_split, random_split
 from geossl_tpu_torch.data.synthetic import synthetic_lba
 from geossl_tpu_torch.data.transforms import spatial_sort_store
+from geossl_tpu_torch.parallel import mesh as pmesh
 from geossl_tpu_torch.parallel.mesh import prefetch
-from geossl_tpu_torch.serve import resolve_device
+from geossl_tpu_torch.parallel.pair_parallel import PAIR_AXIS
 from geossl_tpu_torch.train import common
 from geossl_tpu_torch.utils import metrics
 
@@ -46,8 +48,12 @@ def build_parser():
                    choices=["random", "atom3d_lba_split30"])
     common.add_finetune_args(p)
     p.add_argument("--pair_devices", type=int, default=1,
-                   help="pair-grid model parallelism (not ported: the port "
-                        "runs one device)")
+                   help="shard the [B,N,N] pair grid over this many devices "
+                        "per data-parallel replica (pair-grid model "
+                        "parallelism, parallel/pair_parallel.py): "
+                        "num_devices*pair_devices ranks and bucket %% "
+                        "pair_devices == 0; the stripes run the plain-mode "
+                        "kernels")
     p.set_defaults(lr=1e-4, epochs=300, batch_size=64, bucket=[512])
     return p
 
@@ -55,7 +61,10 @@ def build_parser():
 class LBANet(nn.Module):
     """The backbone and its per-backbone head under the JAX package's
     top-level names (``model``, ``graph_pred_linear``); ``forward(batch)``
-    -> the predicted logKd [B]. ``plain`` runs the plain versions."""
+    -> the predicted logKd [B] of a (global) batch: on a mesh each rank
+    predicts its rows (:meth:`rows_forward`) and the predictions are
+    gathered (``parallel/mesh.sharded``). ``plain`` runs the plain
+    versions."""
 
     def __init__(self, model: nn.Module, head: nn.Module, plain: bool = False):
         super().__init__()
@@ -64,6 +73,9 @@ class LBANet(nn.Module):
         self.plain = plain
 
     def forward(self, batch):
+        return pmesh.sharded(self.rows_forward, batch)
+
+    def rows_forward(self, batch):
         graph, _ = self.model(batch.atom_type, batch.positions,
                               batch.node_mask, plain=self.plain)
         return self.graph_pred_linear(graph)
@@ -121,17 +133,36 @@ def load_splits(args):
 def main(argv=None):
     """Fine-tune (or, with ``--eval_only``, evaluate); returns (the net,
     the best val MSE, the test metrics at the best epoch, every step's
-    loss). Under ``--eval_only``: (net, val MSE, test metrics, [])."""
+    loss). Under ``--eval_only``: (net, val MSE, test metrics, []). None
+    in a launcher that started the ranks (``common.start_ranks``).
+
+    ``--pair_devices K``: a ``(data, pair)`` mesh of ``num_devices`` x K
+    ranks, the backbone built with ``pair_axis`` (each rank's message
+    passes on its j-stripe of the pair grid)."""
     args = build_parser().parse_args(argv)
     common.check_ported_args(args, ported=("--steps_per_call",))
-    device = resolve_device(args.device)
+    if args.pair_devices < 1:
+        raise ValueError(f"--pair_devices must be >= 1, got "
+                         f"{args.pair_devices}")
+    for n in common.buckets(args):
+        if n % args.pair_devices:
+            raise ValueError(
+                f"--pair_devices {args.pair_devices}: pair_axis sharding "
+                f"needs N % axis_size == 0; got N={n}, axis {PAIR_AXIS!r} "
+                f"size {args.pair_devices}")
+    if common.start_ranks(args, argv, "geossl_tpu_torch.train.finetune_lba"):
+        return None
+    mesh, device = common.setup_platform(args)
     cfg = common.model_config_from_args(args)
+    if args.pair_devices > 1:
+        cfg = dataclasses.replace(cfg, pair_axis=PAIR_AXIS)
     common.check_driver_limits(args, cfg, device)
     splits = load_splits(args)
     net = make_net(args, cfg, torch.Generator().manual_seed(args.seed))
     common.load_input_model(args, net)
-    net.to(device)
-    loaders = [BucketedLoader(s, args.batch_size, common.buckets(args),
+    pmesh.put_replicated(mesh, net.to(device))
+    bs = common.round_batch_to_mesh(args.batch_size, mesh)
+    loaders = [BucketedLoader(s, bs, common.buckets(args),
                               seed=args.seed, shuffle=(i == 0))
                for i, s in enumerate(splits)]
     evaluate = make_evaluate(device)

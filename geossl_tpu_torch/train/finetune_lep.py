@@ -40,8 +40,8 @@ from geossl_tpu_torch.data.lep import load_lep
 from geossl_tpu_torch.data.splitters import random_split
 from geossl_tpu_torch.data.synthetic import synthetic_lep
 from geossl_tpu_torch.data.transforms import spatial_sort_store
+from geossl_tpu_torch.parallel import mesh as pmesh
 from geossl_tpu_torch.parallel.mesh import prefetch
-from geossl_tpu_torch.serve import resolve_device
 from geossl_tpu_torch.train import common
 from geossl_tpu_torch.utils import metrics
 
@@ -102,8 +102,9 @@ def build_parser():
 
 class LEPNet(nn.Module):
     """The shared backbone and the dual head under the JAX package's names
-    (``model``, ``graph_pred_linear``); ``forward(dual)`` -> logits [B].
-    ``plain`` runs the plain versions."""
+    (``model``, ``graph_pred_linear``); ``forward(dual)`` -> logits [B]
+    of a (global) batch, on a mesh each rank's rows gathered
+    (``parallel/mesh.sharded``). ``plain`` runs the plain versions."""
 
     def __init__(self, model: nn.Module, head: nn.Module, plain: bool = False):
         super().__init__()
@@ -112,6 +113,9 @@ class LEPNet(nn.Module):
         self.plain = plain
 
     def forward(self, dual: DualMolBatch):
+        return pmesh.sharded(self.rows_forward, dual)
+
+    def rows_forward(self, dual: DualMolBatch):
         towers = [self.model(t.atom_type, t.positions, t.node_mask,
                              plain=self.plain)[0]
                   for t in (dual.active, dual.inactive)]
@@ -173,17 +177,21 @@ def load_splits(args) -> dict:
 def main(argv=None):
     """Fine-tune (or, with ``--eval_only``, evaluate); returns (the net,
     the best val ROC-AUC, the test metrics at the best epoch, every step's
-    loss). Under ``--eval_only``: (net, val ROC-AUC, test metrics, [])."""
+    loss). Under ``--eval_only``: (net, val ROC-AUC, test metrics, []).
+    None in a launcher that started the ranks (``common.start_ranks``)."""
     args = build_parser().parse_args(argv)
     common.check_ported_args(args, ported=("--steps_per_call",))
-    device = resolve_device(args.device)
+    if common.start_ranks(args, argv, "geossl_tpu_torch.train.finetune_lep"):
+        return None
+    mesh, device = common.setup_platform(args)
     cfg = common.model_config_from_args(args)
     common.check_driver_limits(args, cfg, device)
     splits = load_splits(args)
     net = make_net(args, cfg, torch.Generator().manual_seed(args.seed))
     common.load_input_model(args, net)
-    net.to(device)
-    loaders = [DualLoader(*splits[k], args.batch_size, common.buckets(args),
+    pmesh.put_replicated(mesh, net.to(device))
+    bs = common.round_batch_to_mesh(args.batch_size, mesh)
+    loaders = [DualLoader(*splits[k], bs, common.buckets(args),
                           shuffle=(k == "train"), seed=args.seed)
                for k in ("train", "val", "test")]
     evaluate = make_evaluate(device)

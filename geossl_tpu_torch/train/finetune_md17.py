@@ -43,8 +43,8 @@ import torch
 from geossl_tpu_torch.data.bucketing import BucketedLoader
 from geossl_tpu_torch.data.md17 import MD17_TASKS, load_md17
 from geossl_tpu_torch.data.splitters import md17_split
+from geossl_tpu_torch.parallel import mesh as pmesh
 from geossl_tpu_torch.parallel.mesh import prefetch
-from geossl_tpu_torch.serve import resolve_device
 from geossl_tpu_torch.train import checkpoints, common
 from geossl_tpu_torch.train.finetune_lba import LBANet, make_net
 
@@ -67,13 +67,16 @@ def build_parser():
 
 
 def energy_and_force(net: LBANet, batch, create_graph: bool = False):
-    """(E [B], F [B,N,3] = -dE/dpos); padded atoms get a zero force.
-    ``create_graph`` keeps F differentiable (training's double
-    backward)."""
-    pos = batch.positions.detach().requires_grad_(True)
-    e = net(replace(batch, positions=pos))
-    (grad,) = torch.autograd.grad(e.sum(), pos, create_graph=create_graph)
-    return e, -grad
+    """(E [B], F [B,N,3] = -dE/dpos) of a (global) batch; padded atoms get
+    a zero force. ``create_graph`` keeps F differentiable (training's double
+    backward). On a mesh each rank computes its rows' and both are
+    gathered (``parallel/mesh.sharded``)."""
+    def rows(batch):
+        pos = batch.positions.detach().requires_grad_(True)
+        e = net.rows_forward(replace(batch, positions=pos))
+        (grad,) = torch.autograd.grad(e.sum(), pos, create_graph=create_graph)
+        return e, -grad
+    return pmesh.sharded(rows, batch)
 
 
 def make_loss_fn(e_coeff: float, f_coeff: float):
@@ -126,10 +129,14 @@ def main(argv=None):
     """Fine-tune (or, with ``--eval_only``, evaluate); returns (the net,
     the best val force MAE, the test (E, F) MAEs at the best epoch, every
     step's loss). Under ``--eval_only``: (net, val F MAE, test (E, F) MAEs,
-    [])."""
+    []). None in a launcher that started the ranks
+    (``common.start_ranks``)."""
     args = build_parser().parse_args(argv)
     common.check_ported_args(args, ported=("--steps_per_call",))
-    device = resolve_device(args.device)
+    if common.start_ranks(args, argv,
+                          "geossl_tpu_torch.train.finetune_md17"):
+        return None
+    mesh, device = common.setup_platform(args)
     cfg = common.model_config_from_args(args)
     # evaluation takes forces too: the backward kernels run either way
     if common.use_kernels(args):
@@ -137,11 +144,16 @@ def main(argv=None):
     splits = load_splits(args)
     net = make_net(args, cfg, torch.Generator().manual_seed(args.seed))
     common.load_input_model(args, net)
-    net.to(device)
+    pmesh.put_replicated(mesh, net.to(device))
     buckets = common.buckets(args)
-    loaders = [BucketedLoader(splits[0], args.MD17_train_batch_size, buckets,
+    # every rank gets at least one row (the JAX driver's sizes)
+    train_bs = common.round_batch_to_mesh(
+        max(args.MD17_train_batch_size, 1 if mesh is None else mesh.size),
+        mesh)
+    eval_bs = common.round_batch_to_mesh(args.eval_batch_size, mesh)
+    loaders = [BucketedLoader(splits[0], train_bs, buckets,
                               seed=args.seed, with_forces=True)]
-    loaders += [BucketedLoader(s, args.eval_batch_size, buckets,
+    loaders += [BucketedLoader(s, eval_bs, buckets,
                                shuffle=False, with_forces=True)
                 for s in splits[1:]]
     evaluate = make_evaluate(device)

@@ -36,8 +36,8 @@ from geossl_tpu_torch.data.bucketing import BucketedLoader
 from geossl_tpu_torch.data.qm9 import TARGET_FIELDS, load_qm9
 from geossl_tpu_torch.data.splitters import qm9_random_customized_01
 from geossl_tpu_torch.data.transforms import random_rotation_transform
+from geossl_tpu_torch.parallel import mesh as pmesh
 from geossl_tpu_torch.parallel.mesh import prefetch
-from geossl_tpu_torch.serve import resolve_device
 from geossl_tpu_torch.train import checkpoints, common
 from geossl_tpu_torch.train.finetune_lba import LBANet
 from geossl_tpu_torch.utils import metrics
@@ -133,24 +133,28 @@ def load_splits(args):
 def main(argv=None):
     """Fine-tune (or, with ``--eval_only``, evaluate); returns (the net,
     the best val MAE, the test MAE at the best epoch, every step's loss).
-    Under ``--eval_only``: (net, val MAE, test MAE, [])."""
+    Under ``--eval_only``: (net, val MAE, test MAE, []). None in a
+    launcher that started the ranks (``common.start_ranks``)."""
     args = build_parser().parse_args(argv)
     common.check_ported_args(args, ported=("--steps_per_call",))
-    device = resolve_device(args.device)
+    if common.start_ranks(args, argv, "geossl_tpu_torch.train.finetune_qm9"):
+        return None
+    mesh, device = common.setup_platform(args)
     cfg = common.model_config_from_args(args)
     common.check_driver_limits(args, cfg, device)
     splits, mean, std = load_splits(args)
     print(f"Train mean: {mean:.6f}\tTrain std: {std:.6f}")
     net = make_net(args, cfg, torch.Generator().manual_seed(args.seed))
     ckpt = common.load_input_model(args, net)
-    net.to(device)
+    pmesh.put_replicated(mesh, net.to(device))
     buckets = common.buckets(args)
     transform = random_rotation_transform if args.use_rotation_transform \
         else None
-    loaders = [BucketedLoader(splits[0], args.batch_size, buckets,
-                              seed=args.seed, transform=transform)]
-    loaders += [BucketedLoader(s, args.batch_size, buckets, seed=0,
-                               shuffle=False) for s in splits[1:]]
+    bs = common.round_batch_to_mesh(args.batch_size, mesh)
+    loaders = [BucketedLoader(splits[0], bs, buckets, seed=args.seed,
+                              transform=transform)]
+    loaders += [BucketedLoader(s, bs, buckets, seed=0, shuffle=False)
+                for s in splits[1:]]
     if args.eval_only:
         # the checkpoint's own normalization, when it carries it
         evaluate = Evaluator(device, float(ckpt.get("y_mean", mean)),
@@ -162,7 +166,7 @@ def main(argv=None):
     stats = {"y_mean": torch.tensor(mean, dtype=torch.float32),
              "y_std": torch.tensor(std, dtype=torch.float32)}
 
-    def save_predictions():
+    def save_predictions():  # rank 0's (common.run_finetune)
         (vt, vp), (tt, tp) = (evaluate.last[ld] for ld in loaders[1:])
         np.savez(os.path.join(args.output_model_dir, "evaluation_best.npz"),
                  val_target=vt, val_pred=vp, test_target=tt, test_pred=tp)

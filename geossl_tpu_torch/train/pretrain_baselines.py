@@ -64,7 +64,7 @@ from geossl_tpu_torch.objectives.infograph import (
 )
 from geossl_tpu_torch.objectives.pairs import pair_selection
 from geossl_tpu_torch.ops import geometry
-from geossl_tpu_torch.serve import resolve_device
+from geossl_tpu_torch.parallel import mesh as pmesh
 from geossl_tpu_torch.train import common
 
 NODE_CLASS = 9
@@ -126,8 +126,13 @@ class Baseline(nn.Module):
         self.hparams = hparams
 
     def encode(self, model, atom_type, batch, node_mask=None):
+        """``model`` on the (global) batch; on a mesh each rank encodes its
+        rows and the representations are gathered, so that every objective
+        sees the whole batch (``parallel/mesh.sharded``)."""
         node_mask = batch.node_mask if node_mask is None else node_mask
-        return model(atom_type, batch.positions, node_mask, plain=self.plain)
+        return pmesh.sharded(
+            lambda z, pos, m: model(z, pos, m, plain=self.plain),
+            atom_type, batch.positions, node_mask)
 
     def forward(self, batch, generator: Optional[torch.Generator] = None,
                 draw: Optional[torch.Tensor] = None):
@@ -243,10 +248,11 @@ def make_baseline(objective: str, args, cfg, store, n_max: int,
 
 
 def run(objective: str, args):
-    """Train; returns (the Baseline module, every step's loss as floats)."""
-    common.check_ported_args(args)
+    """Train; returns (the Baseline module, every step's loss as floats).
+    ``args`` come from a rank (or one process): ``main`` starts the
+    ranks."""
+    mesh, device = common.setup_platform(args)
     cfg = common.model_config_from_args(args)
-    device = resolve_device(args.device)
     common.check_driver_limits(args, cfg, device)
     subset = None
     if args.dataset.startswith("Molecule3D_"):
@@ -263,8 +269,9 @@ def run(objective: str, args):
 
         net.model.load_state_dict(
             load_model_state(args.input_model_file, cfg)["model"])
-    net.to(device)
-    loader = BucketedLoader(store, args.batch_size, buckets, seed=args.seed)
+    pmesh.put_replicated(mesh, net.to(device))
+    loader = BucketedLoader(store, common.round_batch_to_mesh(
+        args.batch_size, mesh), buckets, seed=args.seed)
     opt, sched = common.make_optimizer_from_args(
         args, net.parameters(),
         common.opt_steps_per_epoch(len(loader), args.grad_accum))
@@ -280,7 +287,12 @@ def main(argv=None):
             "usage: python -m geossl_tpu_torch.train.pretrain_baselines "
             f"{{{','.join(OBJECTIVES)}}} [options]")
     objective = argv[0]
-    return run(objective, build_parser(objective).parse_args(argv[1:]))
+    args = build_parser(objective).parse_args(argv[1:])
+    common.check_ported_args(args)
+    if common.start_ranks(args, argv,
+                          "geossl_tpu_torch.train.pretrain_baselines"):
+        return None
+    return run(objective, args)
 
 
 if __name__ == "__main__":

@@ -61,7 +61,7 @@ from geossl_tpu_torch.objectives.contrastive import (
 from geossl_tpu_torch.objectives.ncsn import NCSNv3
 from geossl_tpu_torch.objectives.pairs import pair_selection
 from geossl_tpu_torch.ops import geometry
-from geossl_tpu_torch.serve import resolve_device
+from geossl_tpu_torch.parallel import mesh as pmesh
 from geossl_tpu_torch.train import common, optim
 
 
@@ -144,17 +144,32 @@ class DDM(nn.Module):
 
     def forward(self, batch, pos2, sel, draws=None,
                 generator: Optional[torch.Generator] = None):
-        """The DDM loss of one batch. ``draws`` = (sigmas1, noise1, sigmas2,
-        noise2) replaces the heads' draws from ``generator``."""
+        """The DDM loss of one (global) batch. ``draws`` = (sigmas1, noise1,
+        sigmas2, noise2) replaces the heads' draws from ``generator``, which
+        are made for the whole batch, in the heads' order. On a mesh each
+        rank runs the backbone and the heads on its rows and the per-graph
+        losses are gathered (``parallel/mesh.sharded``)."""
+        if draws is None:
+            # the heads' distances' shape and dtype (NCSNv3.per_graph)
+            b, n = batch.node_mask.shape
+            like = ((b, n, n), torch.promote_types(torch.float32,
+                                                   batch.positions.dtype),
+                    batch.positions.device, generator)
+            draws = (*self.NCSN_01.sample(*like), *self.NCSN_02.sample(*like))
+        l1, l2 = pmesh.sharded(self.per_graph, batch, pos2, sel, *draws)
+        gm = batch.graph_mask
+        return (common.graph_masked_mean(l1, gm)
+                + common.graph_masked_mean(l2, gm)) / 2
+
+    def per_graph(self, batch, pos2, sel, s1, n1, s2, n2):
+        """The two heads' per-graph losses [B] of ``batch``'s rows."""
         (_, h1), (_, h2), d1 = encode_views(self.model, batch, pos2, self.plain)
         if self.normalize:
             h1, h2 = l2_normalize(h1), l2_normalize(h2)
         d2, _ = geometry.pairwise_distances(pos2, batch.node_mask)
-        s1, n1, s2, n2 = draws if draws is not None else (None,) * 4
         # cross terms (pretrain_GeoSSL.py:207-208)
-        l1 = self.NCSN_01(h1, d2, sel, batch.graph_mask, s1, n1, generator)
-        l2 = self.NCSN_02(h2, d1, sel, batch.graph_mask, s2, n2, generator)
-        return (l1 + l2) / 2
+        return (self.NCSN_01.per_graph(h1, d2, sel, s1, n1),
+                self.NCSN_02.per_graph(h2, d1, sel, s2, n2))
 
 
 class GraphSSL(nn.Module):
@@ -184,7 +199,11 @@ class GraphSSL(nn.Module):
             self.AE_02 = ae_02
 
     def forward(self, batch, pos2):
-        (g1, _), (g2, _), _ = encode_views(self.model, batch, pos2, self.plain)
+        """(loss, accuracy) of one (global) batch; on a mesh each rank
+        encodes its rows and the graph representations are gathered, so
+        the batch-coupled losses (the shifted negatives, the BatchNorm
+        statistics) see the whole batch (``parallel/mesh.sharded``)."""
+        g1, g2 = pmesh.sharded(self.graph_reprs, batch, pos2)
         if self.normalize:
             g1, g2 = l2_normalize(g1), l2_normalize(g2)
         gm = batch.graph_mask
@@ -194,6 +213,11 @@ class GraphSSL(nn.Module):
             return ebm_nce_loss(g1, g2, gm, num_neg=self.num_neg)
         loss = (self.AE_01(g1, g2, gm) + self.AE_02(g2, g1, gm)) / 2
         return loss, torch.zeros((), device=loss.device)
+
+    def graph_reprs(self, batch, pos2):
+        """Both views' graph representations of ``batch``'s rows."""
+        (g1, _), (g2, _), _ = encode_views(self.model, batch, pos2, self.plain)
+        return g1, g2
 
 
 def make_ddm(args, cfg, generator: torch.Generator) -> DDM:
@@ -260,7 +284,8 @@ def train_step(ddm: nn.Module, opt, sched, batches, args,
 
 def main(argv=None):
     """Train; returns (the DDM or GraphSSL module, every step's loss as
-    floats)."""
+    floats); None in a launcher that started the ranks
+    (``common.start_ranks``)."""
     args = build_parser().parse_args(argv)
     option = args.GeoSSL_option
     group_lr = None
@@ -273,8 +298,10 @@ def main(argv=None):
         f = args.gnn_2d_lr_scale / args.lr
         group_lr = {"AE_01": f, "AE_02": f}
     common.check_ported_args(args, ported=("--steps_per_call", "--profile_dir"))
+    if common.start_ranks(args, argv, "geossl_tpu_torch.train.pretrain_geossl"):
+        return None
+    mesh, device = common.setup_platform(args)
     cfg = common.model_config_from_args(args)
-    device = resolve_device(args.device)
     common.check_driver_limits(args, cfg, device, ncsn=option == "DDM")
     subset = None
     if args.dataset.startswith("Molecule3D_"):
@@ -295,9 +322,10 @@ def main(argv=None):
 
         module.model.load_state_dict(
             load_model_state(args.input_model_file, cfg)["model"])
-    module.to(device)
-    loader = BucketedLoader(store, args.batch_size, common.buckets(args),
-                            seed=args.seed, transform=transform)
+    pmesh.put_replicated(mesh, module.to(device))
+    loader = BucketedLoader(store, common.round_batch_to_mesh(
+        args.batch_size, mesh), common.buckets(args), seed=args.seed,
+        transform=transform)
     params = (module.parameters() if group_lr is None else optim.param_groups(
         dict(module.named_children()), args.lr, group_lr))
     opt, sched = common.make_optimizer_from_args(

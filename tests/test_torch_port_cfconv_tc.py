@@ -27,6 +27,11 @@ import torch
 from geossl_tpu_torch.ops import cfconv as tcf
 from geossl_tpu_torch.ops import painn as tpn
 
+# Six test workers share the machine's cores: one intra-op thread each
+# (torch's default, one per core, makes these small ops 10-50x slower
+# under that load); the ranks these tests start take the same.
+torch.set_num_threads(1)
+
 # chip_smoke.py's elementwise tolerance for ddist/denv/dx
 RTOL, ATOL = 1e-4, 1e-5
 

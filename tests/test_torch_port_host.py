@@ -41,6 +41,11 @@ from tests import test_torch_port_qm9 as Q
 from tests import test_torch_port_schnet as S
 from tests import test_torch_port_train as T
 
+# Six test workers share the machine's cores: one intra-op thread each
+# (torch's default, one per core, makes these small ops 10-50x slower
+# under that load); the ranks these tests start take the same.
+torch.set_num_threads(1)
+
 EMB = 16
 LR, DECAY = 5e-3, 0.01
 

@@ -27,6 +27,11 @@ from geossl_tpu_torch.data.store import MolStore
 from geossl_tpu_torch.native import packing as tpacking
 from tests import test_ingestion as ING
 
+# Six test workers share the machine's cores: one intra-op thread each
+# (torch's default, one per core, makes these small ops 10-50x slower
+# under that load); the ranks these tests start take the same.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module", autouse=True)
 def jax_native():

@@ -24,6 +24,11 @@ from geossl_tpu_torch.ops import ncsn as tns
 from geossl_tpu_torch.utils.torch_import import ncsn_state_dict_from_flax
 from tests import test_torch_port_schnet as S
 
+# Six test workers share the machine's cores: one intra-op thread each
+# (torch's default, one per core, makes these small ops 10-50x slower
+# under that load); the ranks these tests start take the same.
+torch.set_num_threads(1)
+
 G, F, EMB = 8, 16, 16
 
 

@@ -52,6 +52,11 @@ from geossl_tpu_torch.utils.torch_import import (
 from tests import test_torch_port_schnet as S
 from tests.test_torch_port_ncsn import close
 
+# Six test workers share the machine's cores: one intra-op thread each
+# (torch's default, one per core, makes these small ops 10-50x slower
+# under that load); the ranks these tests start take the same.
+torch.set_num_threads(1)
+
 F, R, CUT = 16, 20, 5.0
 SMALL = dict(n_atom_basis=F, n_interactions=2, n_rbf=R, cutoff=CUT)
 NAMES = ("ddist", "dgate", "ddirx", "ddiry", "ddirz", "dx", "dmu", "dwk", "dbk")

@@ -37,6 +37,11 @@ from geossl_tpu_torch.utils.torch_import import painn_state_dict_from_flax
 from tests import test_torch_port_schnet as S
 from tests.test_torch_port_painn import SMALL, _jax_params, f64_casts
 
+# Six test workers share the machine's cores: one intra-op thread each
+# (torch's default, one per core, makes these small ops 10-50x slower
+# under that load); the ranks these tests start take the same.
+torch.set_num_threads(1)
+
 N, ATOMS = 256, 200
 
 

@@ -43,6 +43,11 @@ from geossl_tpu_torch.utils.torch_import import painn_state_dict_from_flax
 from tests import test_torch_port_schnet as S
 from tests.test_torch_port_ncsn import close
 
+# Six test workers share the machine's cores: one intra-op thread each
+# (torch's default, one per core, makes these small ops 10-50x slower
+# under that load); the ranks these tests start take the same.
+torch.set_num_threads(1)
+
 F, R, CUT = 32, 20, 5.0
 SMALL = dict(n_atom_basis=F, n_interactions=2, n_rbf=R, cutoff=CUT)
 PAIR_NAMES = ("ddist", "dgate", "ddirx", "ddiry", "ddirz")
@@ -228,8 +233,10 @@ def test_stack_train_apply_matches_jax(kwargs, clean_graph):
         pos = (pos + np.random.default_rng(9).normal(scale=0.1, size=pos.shape)
                ).astype(np.float32)
     jm = JPaiNN(**SMALL, **kwargs)
-    params = jm.init(jax.random.PRNGKey(1), jnp.asarray(z), jnp.asarray(pos),
-                     jnp.asarray(mask))["params"]
+    # the JAX side jitted: its eager ops (the kernel in interpret mode
+    # among them) compile one by one
+    params = jax.jit(jm.init)(jax.random.PRNGKey(1), jnp.asarray(z),
+                              jnp.asarray(pos), jnp.asarray(mask))["params"]
     cot = np.random.default_rng(10).normal(size=(4, F)).astype(np.float32)
     jpm = None if pair_mask is None else jnp.asarray(pair_mask)
 
@@ -238,7 +245,7 @@ def test_stack_train_apply_matches_jax(kwargs, clean_graph):
                                    jpm)
         return jnp.sum(g * cot)
 
-    jv, (jgp, jgx) = jax.value_and_grad(jloss, argnums=(0, 1))(
+    jv, (jgp, jgx) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1)))(
         params, jnp.asarray(pos))
     model = PaiNN(**SMALL, **kwargs)
     model.load_state_dict(painn_state_dict_from_flax(params, 2))

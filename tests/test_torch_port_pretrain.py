@@ -58,6 +58,11 @@ from geossl_tpu_torch.utils import torch_import as TI
 from tests import test_torch_port_painn as P
 from tests import test_torch_port_schnet as S
 
+# Six test workers share the machine's cores: one intra-op thread each
+# (torch's default, one per core, makes these small ops 10-50x slower
+# under that load); the ranks these tests start take the same.
+torch.set_num_threads(1)
+
 EMB = 16
 RTOL, ATOL = 1e-10, 1e-12
 B, N, T = 4, 16, 10

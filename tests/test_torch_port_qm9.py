@@ -76,6 +76,11 @@ from tests import test_torch_port_painn as P
 from tests import test_torch_port_schnet as S
 from tests.test_torch_port_data import assert_same_store
 
+# Six test workers share the machine's cores: one intra-op thread each
+# (torch's default, one per core, makes these small ops 10-50x slower
+# under that load); the ranks these tests start take the same.
+torch.set_num_threads(1)
+
 EMB = 16
 
 # -- data: identical output -------------------------------------------------------

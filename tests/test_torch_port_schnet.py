@@ -28,6 +28,11 @@ from geossl_tpu_torch.utils.torch_import import (
     schnet_state_dict_from_flax,
 )
 
+# Six test workers share the machine's cores: one intra-op thread each
+# (torch's default, one per core, makes these small ops 10-50x slower
+# under that load); the ranks these tests start take the same.
+torch.set_num_threads(1)
+
 SMALL = dict(hidden_channels=16, num_filters=16, num_interactions=2,
              num_gaussians=8, cutoff=5.0)
 

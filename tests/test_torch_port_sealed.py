@@ -26,6 +26,11 @@ from geossl_tpu_torch.serve import Predictor
 from geossl_tpu_torch.train.common import DualHead, make_backbone, make_head
 from tests.test_torch_port_serve import _store
 
+# Six test workers share the machine's cores: one intra-op thread each
+# (torch's default, one per core, makes these small ops 10-50x slower
+# under that load); the ranks these tests start take the same.
+torch.set_num_threads(1)
+
 
 def _seal_case(model_3d, tmp_path, via_ops):
     """(live single-head Predictor, its artifact, live LEP Predictor, its

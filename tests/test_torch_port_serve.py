@@ -28,6 +28,11 @@ from geossl_tpu_torch.utils.torch_import import (
     schnet_state_dict_from_flax,
 )
 
+# Six test workers share the machine's cores: one intra-op thread each
+# (torch's default, one per core, makes these small ops 10-50x slower
+# under that load); the ranks these tests start take the same.
+torch.set_num_threads(1)
+
 SMALL = dict(num_filters=16, num_interactions=2, num_gaussians=8)
 
 
@@ -183,10 +188,11 @@ def test_headless_checkpoint_and_cli(tmp_path, capsys):
 
 
 def test_config_rejects_what_is_not_ported():
-    for kw in ({"compute_dtype": "bfloat16"},
-               {"filter_mxu": "bf16"}, {"pair_axis": "pairs"}):
+    for kw in ({"compute_dtype": "bfloat16"}, {"filter_mxu": "bf16"}):
         with pytest.raises(NotImplementedError):
             ModelConfig(**kw)
+    # pair-grid parallelism is ported (tests/test_torch_port_pair_parallel.py)
+    assert ModelConfig(pair_axis="pair").pair_axis == "pair"
     with pytest.raises(ValueError):
         ModelConfig(max_neighbors=0)
     s = ModelConfig().schnet

@@ -49,6 +49,11 @@ from geossl_tpu_torch.utils.torch_import import (
 from tests.test_torch_port_data import assert_same_store
 from tests.test_torch_port_serve import _store
 
+# Six test workers share the machine's cores: one intra-op thread each
+# (torch's default, one per core, makes these small ops 10-50x slower
+# under that load); the ranks these tests start take the same.
+torch.set_num_threads(1)
+
 SMALL = dict(num_filters=16, num_interactions=2, num_gaussians=8)
 PSMALL = dict(n_interactions=2, n_rbf=8)
 BACKBONES = ("schnet", "painn")

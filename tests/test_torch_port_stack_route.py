@@ -21,6 +21,11 @@ from geossl_tpu_torch.models.common import cosine_envelope
 from geossl_tpu_torch.ops import cfconv as tcf
 from geossl_tpu_torch.train.common import make_backbone, make_head
 
+# Six test workers share the machine's cores: one intra-op thread each
+# (torch's default, one per core, makes these small ops 10-50x slower
+# under that load); the ranks these tests start take the same.
+torch.set_num_threads(1)
+
 
 def _store(sizes, seed):
     rng = np.random.default_rng(seed)

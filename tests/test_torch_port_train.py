@@ -53,6 +53,11 @@ from geossl_tpu_torch.utils.torch_import import (
 from tests import test_torch_port_painn as P
 from tests import test_torch_port_schnet as S
 
+# Six test workers share the machine's cores: one intra-op thread each
+# (torch's default, one per core, makes these small ops 10-50x slower
+# under that load); the ranks these tests start take the same.
+torch.set_num_threads(1)
+
 EMB = 16
 TINY = ["--emb_dim", "16", "--num_filters", "16", "--num_interactions", "2",
         "--num_gaussians", "8", "--batch_size", "8"]
@@ -84,46 +89,51 @@ _BACKBONES = {
 }
 
 
-@pytest.fixture(scope="module", params=sorted(_BACKBONES))
-def ddm_case(request):
-    model_3d = request.param
+def ddm_jax_case(model_3d: str, b: int = 3) -> dict:
+    """A DDM slice in f64 on both sides: the JAX loss as ``pretrain_geossl``
+    builds it, ``jax_loss(params, *batch_arrays, pos2, draws)`` (jitted:
+    ``jax_value_and_grad``), its flax trees (``params``), the batch of
+    ``b`` graphs of up to 16 atoms (the last an empty slot) as numpy arrays
+    (``arrays``: z, pos, mask, graph mask, pair selection) and as the port's
+    batch, and ``port()``, the port's DDM with the same weights."""
     make_jax, make_port, to_port, jax_ctx = _BACKBONES[model_3d]
     painn = model_3d == "painn"
-    z, pos, mask = S.molecules(3, 16, seed=21, spread=1.2)
-    mask[2] = False  # an empty graph slot
-    z[2], pos[2] = 0, 0.0
+    z, pos, mask = S.molecules(b, 16, seed=21, spread=1.2)
+    mask[-1] = False  # an empty graph slot
+    z[-1], pos[-1] = 0, 0.0
     gm = mask.any(axis=1)
     n = pos.shape[1]
     sel = mask[:, :, None] & mask[:, None, :] & np.triu(np.ones((n, n), bool), 1)
     jm = make_jax()
     head = JNCSNv3(emb_dim=EMB)
     with S.x64():
+        # jitted: eager ops under x64 compile one by one
         k = jax.random.split(jax.random.PRNGKey(3), 3)
         params = {
-            "model": jm.init(k[0], jnp.asarray(z), jnp.asarray(pos, jnp.float32),
-                             jnp.asarray(mask))["params"]}
-        h = jnp.zeros((3, n, EMB))
+            "model": jax.jit(jm.init)(k[0], jnp.asarray(z),
+                                      jnp.asarray(pos, jnp.float32),
+                                      jnp.asarray(mask))["params"]}
+        h = jnp.zeros((b, n, EMB))
+        head_init = jax.jit(head.init)
         for name, key in (("NCSN_01", k[1]), ("NCSN_02", k[2])):
-            params[name] = head.init(key, key, h, jnp.ones((3, n, n)),
+            params[name] = head_init(key, key, h, jnp.ones((b, n, n)),
                                      jnp.asarray(sel))["params"]
         params = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64),
                                         params)
 
-    def jax_loss(p, pos2, draws):
-        zz, mm, gg = jnp.asarray(z), jnp.asarray(mask), jnp.asarray(gm)
-        d1, pm = jgeo.pairwise_distances(jnp.asarray(pos), mm)
+    def jax_loss(p, zz, xx, mm, gg, ss, pos2, draws):
+        d1, pm = jgeo.pairwise_distances(xx, mm)
         # PaiNN: the clean geometry's radius graph for both views
         extra = ((jgeo.radius_adjacency(d1, pm, P.CUT),) if painn else ())
         with jax_ctx():
-            _, h1 = jm.apply({"params": p["model"]}, zz, jnp.asarray(pos), mm,
-                             *extra)
+            _, h1 = jm.apply({"params": p["model"]}, zz, xx, mm, *extra)
             _, h2 = jm.apply({"params": p["model"]}, zz, pos2, mm, *extra)
         d2, _ = jgeo.pairwise_distances(pos2, mm)
         s1, n1, s2, n2 = draws
-        l1 = head.apply({"params": p["NCSN_01"]}, None, h1, d2,
-                        jnp.asarray(sel), gg, sigmas=s1, noise=n1)
-        l2 = head.apply({"params": p["NCSN_02"]}, None, h2, d1,
-                        jnp.asarray(sel), gg, sigmas=s2, noise=n2)
+        l1 = head.apply({"params": p["NCSN_01"]}, None, h1, d2, ss, gg,
+                        sigmas=s1, noise=n1)
+        l2 = head.apply({"params": p["NCSN_02"]}, None, h2, d1, ss, gg,
+                        sigmas=s2, noise=n2)
         return (l1 + l2) / 2
 
     def port():
@@ -143,7 +153,14 @@ def ddm_case(request):
                           node_mask=torch.from_numpy(mask),
                           graph_mask=torch.from_numpy(gm))
     return dict(params=params, jax_loss=jax_loss, port=port, batch=batch,
-                pos=pos, mask=mask, sel=torch.from_numpy(sel), to_port=to_port)
+                jax_value_and_grad=jax.jit(jax.value_and_grad(jax_loss)),
+                arrays=(z, pos, mask, gm, sel), pos=pos, mask=mask,
+                sel=torch.from_numpy(sel), to_port=to_port)
+
+
+@pytest.fixture(scope="module", params=sorted(_BACKBONES))
+def ddm_case(request):
+    return ddm_jax_case(request.param)
 
 
 def _port_loss(ddm, case, pos2, draws):
@@ -163,8 +180,9 @@ def _as_port_state(tree, to_port):
 def test_ddm_loss_and_every_gradient_match_jax_f64(ddm_case):
     pos2, draws = _step_inputs(ddm_case["pos"], ddm_case["mask"], 0)
     with S.x64():
-        want, jgrad = jax.value_and_grad(ddm_case["jax_loss"])(
-            ddm_case["params"], jnp.asarray(pos2), tuple(map(jnp.asarray, draws)))
+        want, jgrad = ddm_case["jax_value_and_grad"](
+            ddm_case["params"], *map(jnp.asarray, ddm_case["arrays"]),
+            jnp.asarray(pos2), tuple(map(jnp.asarray, draws)))
         jgrad = jax.tree_util.tree_map(np.asarray, jgrad)
     ddm = ddm_case["port"]()
     loss = _port_loss(ddm, ddm_case, pos2, draws)
@@ -187,12 +205,19 @@ def test_ddm_adam_trajectory_matches_jax_f64(ddm_case):
         tx = joptim.make_optimizer(lr, 2, 2, decay, "CosineAnnealingLR")
         params = jax.tree_util.tree_map(jnp.asarray, ddm_case["params"])
         opt_state = tx.init(params)
-        vg = jax.value_and_grad(ddm_case["jax_loss"])
-        want = []
-        for pos2, draws in steps:
-            loss, g = vg(params, jnp.asarray(pos2), tuple(map(jnp.asarray, draws)))
+        vg = ddm_case["jax_value_and_grad"]
+
+        @jax.jit
+        def adam(g, opt_state, params):
             updates, opt_state = tx.update(g, opt_state, params)
-            params = optax.apply_updates(params, updates)
+            return optax.apply_updates(params, updates), opt_state
+
+        want = []
+        arrays = tuple(map(jnp.asarray, ddm_case["arrays"]))
+        for pos2, draws in steps:
+            loss, g = vg(params, *arrays, jnp.asarray(pos2),
+                         tuple(map(jnp.asarray, draws)))
+            params, opt_state = adam(g, opt_state, params)
             want.append(float(loss))
         params = jax.tree_util.tree_map(np.asarray, params)
     ddm = ddm_case["port"]()
@@ -403,10 +428,14 @@ def test_driver_cli_on_cpu_writes_model_pth_that_serves(tmp_path, capsys,
 @pytest.mark.parametrize("extra,match", [
     (["--coordinator_address", "localhost:1"], "coordinator_address"),
     (["--num_processes", "2"], "num_processes"),
-    (["--num_devices", "4"], "num_devices"),
+    (["--num_devices", "0"], "num_devices"),
 ])
 def test_driver_refuses_unported_paths(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """The multi-device flags are ported; what the JAX package refuses
+    (one process for a multi-host run, a device count out of range) is
+    refused before any rank starts, and so is a process count without a
+    coordinator."""
+    with pytest.raises(ValueError, match=match):
         PG.main(_train_argv(tmp_path, "--epochs", "1", *extra))
 
 
