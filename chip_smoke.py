@@ -298,6 +298,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
       and DDM-SchNet with the mesh's collectives in every step, the
       gradient all_reduce captured in the CUDA graphs
       (``parallel nccl_graph_parity:``).
+   k. Tools (``tools:``, at most 120 s). (a) ``python -m geossl_tpu_torch
+      doctor --json --mesh 2`` in a subprocess: rc 0, platform cuda, every
+      kernel of the launch counters in its ``checked`` list (``doctor:``:
+      seconds, the worst kernel error). (b) A synthetic Molecule3D raw tree
+      (2,048 molecules of 4-100 atoms, an unparseable block every 17th) built
+      by ``python -m geossl_tpu_torch data molecule3d --subset 1024``
+      (``molecule3d:``: build seconds), then one DDM-SchNet epoch of
+      ``pretrain --dataset Molecule3D_1024`` on that cache: finite losses,
+      #3/#4/#6/#7 launched. (c) ``evalkit --budget smoke`` from phase 3b's
+      DDM-SchNet ``model.pth``: one finite cell per family; a second call
+      resumes in under 10 s and launches no kernel (``evalkit:``). (d)
+      ``flops:``: per backbone, one DDM step at bucket 128 (B=128) traced
+      for its device-busy ms, with ``utils/flops.ddm_step``'s dense and
+      executed counts (``executed_pair_fraction`` of the step's env or gate
+      and of its pair selection): dense-effective and executed TFLOP/s and
+      the executed share of the TF32 peak, which must stay <= 1.0. (e)
+      ``se3_basis:``: ``ops/se3_basis.get_basis`` on CUDA f32 against the
+      CPU f64 result, max relative error (per key, by the key's largest
+      magnitude) <= 1e-5.
 4. Measurements: serving mol/s per bucket (steady state, synchronized) and
    one traced pass per bucket (torch.profiler: device busy time, the
    port's kernels' share, idle share); training mol/s per bucket (median of
@@ -3079,6 +3098,253 @@ def parallel_path(dev, card, errs, lba_batch, nets, G, cutoff, cut_p):
     return pair_launches, stripe
 
 
+# -- 3k. tools ---------------------------------------------------------------------
+# the synthetic Molecule3D raw corpus of (b): molecules, their atom range and
+# the unparseable-block period (each keeps its properties row)
+M3D_RAW = dict(num_molecules=2048, min_atoms=4, max_atoms=100, bad_every=17)
+M3D_SUBSET = 1024
+TOOLS_BUDGET_S = 120.0
+
+
+def front_door(*argv, timeout=300):
+    """``python -m geossl_tpu_torch <argv>`` in a subprocess from the repo
+    root: (rc, stdout, seconds); its output is echoed."""
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "geossl_tpu_torch", *argv],
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=timeout)
+    seconds = time.time() - t0
+    for line in (r.stdout + r.stderr).splitlines():
+        print(f"  | {line}")
+    return r.returncode, r.stdout, seconds
+
+
+def doctor_check():
+    """(a): the doctor on the card, every kernel checked."""
+    from geossl_tpu_torch.ops._launch import launch_counts
+
+    rc, out, seconds = front_door("doctor", "--json", "--mesh", "2")
+    lines = out.strip().splitlines()
+    try:
+        summary = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"tools: the doctor printed no JSON summary (rc {rc})")
+    kernels = summary.get("kernels", {})
+    checked = {c["name"]: c for c in kernels.get("checked", [])}
+    if rc != 0 or not summary.get("ok") or \
+            summary.get("backend", {}).get("platform") != "cuda":
+        fail(f"tools: doctor rc {rc}, ok {summary.get('ok')}, backend "
+             f"{summary.get('backend')}")
+    missing = sorted(set(launch_counts()) - set(checked))
+    if missing or kernels.get("mode") != "cuda" or \
+            not all(c["ok"] and c["launches"] > 0 for c in checked.values()):
+        fail(f"tools: the doctor did not check every kernel on the card "
+             f"(missing {missing}, mode {kernels.get('mode')})")
+    worst = max(checked.values(), key=lambda c: c["max_abs_err"])
+    print("doctor: " + json.dumps({
+        "seconds": seconds, "rc": rc, "kernels_checked": len(checked),
+        "worst_kernel": worst["name"], "worst_max_abs_err": worst["max_abs_err"],
+        "build": summary.get("build"), "dispatch": summary.get("dispatch"),
+        "mesh": summary.get("mesh")}))
+    return seconds
+
+
+def molecule3d_check():
+    """(b): the port builds the corpus from raw shards, DDM trains on it."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from geossl_tpu_torch.data.store import MolStore
+    from geossl_tpu_torch.data.synthetic import write_synthetic_molecule3d_raw
+    from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    root = os.path.join(ROOT, "runs", "chip_smoke_molecule3d")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.time()
+    write_synthetic_molecule3d_raw(root, seed=SEED, **M3D_RAW)
+    write_s = time.time() - t0
+    rc, _, build_s = front_door("data", "molecule3d", "--root", root,
+                                "--subset", str(M3D_SUBSET))
+    cache = os.path.join(root, "processed",
+                         f"molecule3d_{M3D_SUBSET}_store.npz")
+    if rc != 0 or not os.path.exists(cache):
+        fail(f"tools: data molecule3d exited {rc}, cache {cache}")
+    store = MolStore.load(cache)
+    sizes = store.num_atoms()
+    if len(store) != M3D_SUBSET or not np.isfinite(store.y).all() or \
+            sizes.min() < M3D_RAW["min_atoms"] or \
+            sizes.max() > M3D_RAW["max_atoms"]:
+        fail(f"tools: the built cache holds {len(store)} molecules of "
+             f"{sizes.min()}-{sizes.max()} atoms")
+    out = os.path.join(ROOT, "runs", "chip_smoke_molecule3d_ddm")
+    shutil.rmtree(out, ignore_errors=True)
+    reset_launch_counts()
+    t0 = time.time()
+    _, losses = PG.main(["--GeoSSL_option", "DDM", "--dataset",
+                         f"Molecule3D_{M3D_SUBSET}", "--data_root", root,
+                         "--epochs", "1", "--output_model_dir", out])
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    launches = launch_counts()
+    for name in ("cfconv_fwd_sym", "cfconv_bwd_sym", "ncsn_score_fwd",
+                 "ncsn_score_bwd"):
+        if launches[name] == 0:
+            fail(f"tools: {name} did not launch on DDM over the built "
+                 "Molecule3D cache")
+    if not losses or not all(math.isfinite(v) for v in losses):
+        fail(f"tools: DDM losses over the built cache {losses}")
+    print("molecule3d: " + json.dumps({
+        "raw_molecules": M3D_RAW["num_molecules"],
+        "bad_every": M3D_RAW["bad_every"], "subset": M3D_SUBSET,
+        "write_raw_s": write_s, "build_s": build_s,
+        "ddm_steps": len(losses), "ddm_epoch_s": train_s,
+        "launches": {k: v for k, v in launches.items() if v}}))
+    return write_s + build_s + train_s
+
+
+def evalkit_check(pretrained):
+    """(c): one cell per family from the DDM-SchNet model.pth, then a
+    resumed call that runs nothing."""
+    import math
+
+    import torch
+
+    from geossl_tpu_torch import evalkit
+    from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
+
+    out = os.path.join(ROOT, "runs", "chip_smoke_evalkit")
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--input_model_file", pretrained, "--out_dir", out, "--budget",
+            "smoke", "--qm9_tasks", "mu", "--md17_tasks", "aspirin",
+            "--atom3d_seeds", "42"]
+    reset_launch_counts()
+    t0 = time.time()
+    results = evalkit.main(argv)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    first_launches = {k: v for k, v in launch_counts().items() if v}
+    cells = ("qm9/mu", "md17/aspirin", "lba/seed42", "lep/seed42")
+    for key in cells:
+        vals = list(results.get(key, {}).values())
+        if not vals or not all(math.isfinite(v) for v in vals):
+            fail(f"tools: evalkit cell {key} = {results.get(key)}")
+    reset_launch_counts()
+    t0 = time.time()
+    again = evalkit.main(argv)
+    second_s = time.time() - t0
+    relaunched = {k: v for k, v in launch_counts().items() if v}
+    if again != results or second_s >= 10.0 or relaunched:
+        fail(f"tools: the evalkit rerun took {second_s:.2f} s, launched "
+             f"{relaunched} or changed the results")
+    print("evalkit: " + json.dumps({
+        "first_s": first_s, "rerun_s": second_s, "launches": first_launches,
+        "cells": {k: results[k] for k in cells}}))
+    return first_s + second_s
+
+
+def flops_check(dev, batch):
+    """(d): one DDM step per backbone at bucket 128, its device-busy ms
+    with the analytic counts."""
+    import torch
+
+    from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+    from geossl_tpu_torch.utils import flops
+
+    t_all = time.time()
+    for model_3d in ("schnet", "painn"):
+        targs = PG.build_parser().parse_args(["--model_3d", model_3d])
+        ddm = PG.make_ddm(targs, common.model_config_from_args(targs),
+                          torch.Generator().manual_seed(SEED)).to(dev)
+        opt, sched = common.make_optimizer_from_args(targs, ddm.parameters(),
+                                                     100)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        with torch.no_grad():
+            pos2, sel = PG.batch_views(targs, batch, gen)
+            fracs = []
+            for pos in (batch.positions, pos2):
+                if model_3d == "schnet":
+                    dist, adj = ddm.model.geometry(pos, batch.node_mask)
+                    grid = ddm.model.envelope(dist, adj)
+                else:
+                    grid = ddm.model.geometry(pos, batch.node_mask)[2]
+                fracs.append(flops.executed_pair_fraction(grid, model_3d,
+                                                          symmetric=True))
+            pair_frac = sum(fracs) / len(fracs)
+            head_frac = flops.executed_pair_fraction(sel, "ncsn")
+
+        def step():
+            PG.train_step(ddm, opt, sched, [batch], targs, gen)
+
+        step()  # warm-up
+        device_profile(step)  # the profiler's start-up
+        wall, busy, ours = device_profile(step)
+        b, n = batch.batch_size, batch.max_atoms
+        dense = flops.ddm_step(b, n, model=model_3d).total
+        executed = flops.ddm_step(b, n, model=model_3d, pair_frac=pair_frac,
+                                  head_pair_frac=head_frac).total
+        dense_tf, _ = flops.mfu(dense, busy)
+        exec_tf, share = flops.mfu(executed, busy)
+        print("flops: " + json.dumps({
+            "model": model_3d, "bucket": n, "batch": b,
+            "device_busy_ms": busy * 1e3, "traced_wall_ms": wall * 1e3,
+            "dense_flop": dense, "executed_flop": executed,
+            "pair_frac": pair_frac, "head_pair_frac": head_frac,
+            "dense_effective_tflops": dense_tf, "executed_tflops": exec_tf,
+            "executed_share_tf32": share, "peak": flops.H100_CARD}))
+        if not 0.0 < share <= 1.0:
+            fail(f"tools: {model_3d} DDM executed share of the TF32 peak "
+                 f"{share:.3f} is not in (0, 1]")
+    return time.time() - t_all
+
+
+def se3_basis_check(dev):
+    """(e): get_basis on the card in f32 against the CPU in f64."""
+    import torch
+
+    from geossl_tpu_torch.ops import se3_basis
+
+    t0 = time.time()
+    vec = torch.randn((4096, 3), generator=torch.Generator().manual_seed(SEED),
+                      dtype=torch.float64)
+    vec[0] = 0.0  # a self-pair
+    want = se3_basis.get_basis(vec, 2)
+    got = se3_basis.get_basis(vec.to(dev, torch.float32), 2)
+    worst = 0.0
+    for key, w in want.items():
+        g = got[key]
+        if g.device.type != "cuda" or g.dtype != torch.float32 or \
+                g.shape != w.shape:
+            fail(f"tools: se3_basis {key}: {g.device} {g.dtype} {g.shape}")
+        rel = ((g.cpu().double() - w).abs().max() / w.abs().max()).item()
+        worst = max(worst, rel)
+    if not worst <= 1e-5:
+        fail(f"tools: se3_basis f32 on the card vs f64 max relative error "
+             f"{worst:.3e} > 1e-5")
+    print("se3_basis: " + json.dumps({"keys": len(want), "vectors": len(vec),
+                                      "max_rel_err": worst}))
+    return time.time() - t0
+
+
+def tools_path(dev, card, pretrained, batch128):
+    """Phase 3k: the doctor, the Molecule3D build and DDM on it, evalkit,
+    the flops shares and se3_basis, within TOOLS_BUDGET_S."""
+    t0 = time.time()
+    parts = {"doctor": doctor_check(), "molecule3d": molecule3d_check(),
+             "evalkit": evalkit_check(pretrained),
+             "flops": flops_check(dev, batch128),
+             "se3_basis": se3_basis_check(dev)}
+    total = time.time() - t0
+    print("tools: " + json.dumps({"seconds": total, "parts_s": parts,
+                                  "card": card}))
+    if total > TOOLS_BUDGET_S:
+        fail(f"tools: phase 3k took {total:.1f} s, above its "
+             f"{TOOLS_BUDGET_S:.0f} s")
+
+
 def profile_dir_check(dev):
     """``profile_dir:``: one ``pretrain_geossl --profile_dir`` epoch on a cut
     store (256 molecules) at full width; the trace must exist and not be
@@ -3906,6 +4172,9 @@ def main():
     pair_launches, stripe_rows = parallel_path(
         dev, card, errs, lba_batch, {"schnet": net0, "painn": net0_p}, G,
         cutoff, cut_lp)
+
+    # -- 3k. tools: doctor, the Molecule3D build, evalkit, flops, se3_basis
+    tools_path(dev, card, pretrained, train_batch(128))
 
     # -- 4. measurements -----------------------------------------------------------
     subs = {b: MolStore.from_records([sorted_store.get(int(i))

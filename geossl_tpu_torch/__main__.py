@@ -1,18 +1,18 @@
 """One front door for the port: ``python -m geossl_tpu_torch <command> ...``
-(counterpart of ``geossl_tpu/__main__.py``).
+(counterpart of ``geossl_tpu/__main__.py``, with the same commands).
 
 Each command delegates to its module's ``main(argv)``, so
 ``python -m geossl_tpu_torch pretrain ...`` and
 ``python -m geossl_tpu_torch.train.pretrain_geossl ...`` are the same run.
 
+    python -m geossl_tpu_torch data molecule3d --root data/Molecule3D
     python -m geossl_tpu_torch pretrain --GeoSSL_option DDM --synthetic
     python -m geossl_tpu_torch finetune-qm9 --task mu --input_model_file ckpt
     python -m geossl_tpu_torch seal --ckpt runs/x/model.pth --out m.sealed
     python -m geossl_tpu_torch serve --ckpt m.sealed --input mols.sdf
+    python -m geossl_tpu_torch doctor --json
 
-Run ``python -m geossl_tpu_torch <command> --help`` for its flags. The JAX
-package's ``data``, ``evalkit`` and ``doctor`` are not ported yet: they
-exit with code 2.
+Run ``python -m geossl_tpu_torch <command> --help`` for its flags.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ import sys
 
 # command -> (module with main(argv), one-line help)
 COMMANDS = {
+    "data": ("geossl_tpu_torch.data.__main__",
+             "build dataset caches from raw files (molecule3d/qm9/md17/lba/lep)"),
     "pretrain": ("geossl_tpu_torch.train.pretrain_geossl",
                  "GeoSSL pretraining (DDM / InfoNCE / EBM-NCE / RR)"),
     "pretrain-baseline": (
@@ -36,28 +38,26 @@ COMMANDS = {
                      "Atom3D LBA binding-affinity fine-tune"),
     "finetune-lep": ("geossl_tpu_torch.train.finetune_lep",
                      "Atom3D LEP ligand-efficacy fine-tune (dual tower)"),
+    "evalkit": ("geossl_tpu_torch.evalkit",
+                "published downstream protocol from a pretrained checkpoint "
+                "(QM9 12 targets + MD17 8 molecules + LBA/LEP, resumable)"),
     "serve": ("geossl_tpu_torch.serve",
               "batched inference on a checkpoint or a sealed artifact "
               "(predict/embed/forces/pairs)"),
     "seal": ("geossl_tpu_torch.export",
              "seal a checkpoint into a serving artifact (torch.export)"),
-}
-# the JAX package's commands that the port does not have yet
-NOT_PORTED = {
-    "data": "build dataset caches from raw files",
-    "evalkit": "published downstream protocol from a pretrained checkpoint",
-    "doctor": "environment health check",
+    "doctor": ("geossl_tpu_torch.doctor",
+               "environment health check (backend/build/dispatch/native/"
+               "kernels)"),
 }
 
 
 def _usage() -> str:
-    width = max(len(c) for c in (*COMMANDS, *NOT_PORTED))
+    width = max(len(c) for c in COMMANDS)
     lines = ["usage: python -m geossl_tpu_torch <command> [args...]", "",
              "commands:"]
     lines += [f"  {cmd:<{width}}  {help_}"
               for cmd, (_, help_) in COMMANDS.items()]
-    lines += ["", "not ported yet (run them with python -m geossl_tpu):"]
-    lines += [f"  {cmd:<{width}}  {help_}" for cmd, help_ in NOT_PORTED.items()]
     lines += ["", "per-command flags: python -m geossl_tpu_torch <command> "
               "--help"]
     return "\n".join(lines)
@@ -69,18 +69,15 @@ def main(argv=None) -> int:
         print(_usage())
         return 0
     cmd = argv[0]
-    if cmd in NOT_PORTED:
-        print(f"{cmd!r} is not ported to geossl_tpu_torch yet; run "
-              f"python -m geossl_tpu {cmd}", file=sys.stderr)
-        return 2
     if cmd not in COMMANDS:
         print(f"unknown command {cmd!r}\n\n{_usage()}", file=sys.stderr)
         return 2
     module = importlib.import_module(COMMANDS[cmd][0])
     # the drivers' mains return their results for programmatic callers; as
-    # a command, finishing without raising is success
-    module.main(argv[1:])
-    return 0
+    # a command, finishing without raising is success. An int is an exit
+    # code (the doctor's): pass it on.
+    rc = module.main(argv[1:])
+    return rc if isinstance(rc, int) else 0
 
 
 if __name__ == "__main__":

@@ -6,9 +6,9 @@ structures (the same ligand bound to an active and an inactive protein
 conformation) with a binary label (A/I -> 1/0, ``datasets_LEP.py:209``).
 The transform selects the environment within ``dist`` of ligand chain 'L'
 and caps it at ``maxnum`` atoms (``datasets_LEP.py:100-115``), with the LBA
-helpers. Raw ingestion reads the atom3d LMDB shards (gzip + JSON records);
-only the ``lmdb`` import is gated. The reference's optional hydrogen drop
-(``droph``, off by default) is not ported.
+helpers, with the reference's optional hydrogen drop (``droph``,
+``--LEP_droph``, off by default). Raw ingestion reads the atom3d LMDB shards
+(gzip + JSON records); only the ``lmdb`` import is gated.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 from geossl_tpu_torch.data.lba import (
     ELEMENT_Z,
     atomic_number_to_index,
+    drop_hydrogen,
     replace_rare_elements,
     select_env_by_dist,
     select_env_by_num,
@@ -33,10 +34,11 @@ from geossl_tpu_torch.data.store import MolRecord, MolStore
 
 def transform_lep_structure(elements: List[str], coords: np.ndarray,
                             is_ligand: np.ndarray, dist: float = 6.0,
-                            maxnum: int = 400) -> MolRecord:
+                            maxnum: int = 400, droph: bool = False
+                            ) -> MolRecord:
     """Environment selection around the ligand chain
     (``datasets_LEP.py:100-115``); ``is_ligand`` is True per atom of chain
-    'L'."""
+    'L'; ``droph`` drops the hydrogens of both parts first."""
     elements = replace_rare_elements(elements)
     lig_idx = np.where(is_ligand)[0]
     prot_idx = np.where(~is_ligand)[0]
@@ -44,6 +46,9 @@ def transform_lep_structure(elements: List[str], coords: np.ndarray,
     lig_coords = coords[lig_idx]
     prot_elements = [elements[i] for i in prot_idx]
     prot_coords = coords[prot_idx]
+    if droph:
+        lig_elements, lig_coords = drop_hydrogen(lig_elements, lig_coords)
+        prot_elements, prot_coords = drop_hydrogen(prot_elements, prot_coords)
     env = select_env_by_dist(prot_coords, lig_coords, dist)
     prot_elements = [prot_elements[i] for i in env]
     prot_coords = prot_coords[env]
@@ -96,8 +101,8 @@ def read_lmdb_items(folder: str) -> Iterator[dict]:
             yield deserialize_lmdb_item(txn.get(str(i).encode()))
 
 
-def item_to_records(item: dict, dist: float = 6.0, maxnum: int = 400
-                    ) -> Tuple[MolRecord, MolRecord, float]:
+def item_to_records(item: dict, dist: float = 6.0, maxnum: int = 400,
+                    droph: bool = False) -> Tuple[MolRecord, MolRecord, float]:
     """One decoded LEP item -> (active record, inactive record, label).
     The frames carry ``element/x/y/z/chain`` columns; ligand = chain 'L'
     (``datasets_LEP.py:100-115``); label 'A'/'I' -> 1/0 (``:209``)."""
@@ -109,19 +114,20 @@ def item_to_records(item: dict, dist: float = 6.0, maxnum: int = 400
                            for c in ("x", "y", "z")], axis=1)
         is_ligand = np.asarray([c == "L" for c in frame["chain"]], bool)
         recs.append(transform_lep_structure(elements, coords, is_ligand,
-                                            dist=dist, maxnum=maxnum))
+                                            dist=dist, maxnum=maxnum,
+                                            droph=droph))
     label = {"A": 1.0, "I": 0.0}[str(item["label"])]
     return recs[0], recs[1], label
 
 
 def build_lep_split(items: Sequence[dict], root: str, split_dir: str,
-                    dist: float = 6.0, maxnum: int = 400
+                    dist: float = 6.0, maxnum: int = 400, droph: bool = False
                     ) -> Tuple[MolStore, MolStore, np.ndarray]:
     """Transform decoded items and write the split's caches
     (``processed/lep_{split}_{active,inactive}.npz`` and the labels)."""
     act, ina, labels = [], [], []
     for item in items:
-        a, i, y = item_to_records(item, dist=dist, maxnum=maxnum)
+        a, i, y = item_to_records(item, dist=dist, maxnum=maxnum, droph=droph)
         a.y = np.asarray([y], np.float32)
         i.y = np.asarray([y], np.float32)
         act.append(a)
@@ -144,18 +150,20 @@ def _raw_dir(root: str, split_dir: str) -> str:
 
 
 def build_lep(root: str, split_dir: str = "train", dist: float = 6.0,
-              maxnum: int = 400) -> Tuple[MolStore, MolStore, np.ndarray]:
+              maxnum: int = 400, droph: bool = False
+              ) -> Tuple[MolStore, MolStore, np.ndarray]:
     """Build one split's caches from the raw atom3d LMDB shard at
     ``<root>/raw/split-by-protein/data/<split>`` (``datasets_LEP.py:180``)."""
     folder = _raw_dir(root, split_dir)
     if not os.path.isdir(folder):
         raise FileNotFoundError(f"LEP raw LMDB shard not found: {folder}")
     return build_lep_split(list(read_lmdb_items(folder)), root, split_dir,
-                           dist=dist, maxnum=maxnum)
+                           dist=dist, maxnum=maxnum, droph=droph)
 
 
 def load_lep(root: str = "", split_dir: str = "train", dist: float = 6.0,
-             maxnum: int = 400) -> Tuple[MolStore, MolStore, np.ndarray]:
+             maxnum: int = 400, droph: bool = False
+             ) -> Tuple[MolStore, MolStore, np.ndarray]:
     """(active store, inactive store, labels) of one split. LEP ships
     pre-split by protein into train/val/test LMDB directories
     (``datasets_LEP.py:180``)."""
@@ -165,7 +173,8 @@ def load_lep(root: str = "", split_dir: str = "train", dist: float = 6.0,
                 MolStore.load(prefix + "inactive.npz"),
                 np.load(prefix + "labels.npy"))
     if os.path.isdir(_raw_dir(root, split_dir)):
-        return build_lep(root, split_dir, dist=dist, maxnum=maxnum)
+        return build_lep(root, split_dir, dist=dist, maxnum=maxnum,
+                         droph=droph)
     raise FileNotFoundError(
         f"LEP: neither cache ({prefix}active.npz) nor raw LMDB shard "
         f"({_raw_dir(root, split_dir)}) found: download the atom3d LEP "

@@ -1,6 +1,7 @@
 """Synthetic molecular datasets for tests and the chip smoke run (the port's
 copy of the generators in ``geossl_tpu/data/synthetic.py``: the same seed
-gives the same arrays)."""
+gives the same arrays), and a synthetic Molecule3D raw tree for the corpus
+build (``write_synthetic_molecule3d_raw``)."""
 
 from __future__ import annotations
 
@@ -64,6 +65,61 @@ def synthetic_molecule3d(num_molecules: int = 512, seed: int = 1,
     """Molecule3D stand-in; ``max_atoms`` > 32 spans several buckets."""
     return synthetic_qm9(num_molecules, seed=seed, num_targets=8,
                          max_atoms=max_atoms)
+
+
+_INDEX_TO_SYMBOL = ["H", "C", "N", "O", "F", "P", "S", "Cl", "Zn"]
+
+
+def write_synthetic_molecule3d_raw(root: str, num_molecules: int,
+                                   seed: int = 0, min_atoms: int = 4,
+                                   max_atoms: int = 50, num_props: int = 8,
+                                   bad_every: int = 0) -> None:
+    """Write a synthetic Molecule3D raw tree under ``root/raw``: the four
+    V2000 SDF shards of ``molecule3d.SDF_SHARDS`` (the molecules split
+    across them as in the real corpus) and ``properties.csv`` with a leading
+    id column. ``bad_every`` > 0 writes an unparseable block every that
+    many molecules (each keeps its properties row: the alignment the build
+    must hold). Index-8 atoms are written as Zn, an element outside the
+    vocabulary that reads back as the unknown index. The same arguments
+    write the same bytes as the JAX package's writer."""
+    import os
+
+    from geossl_tpu_torch.data.molecule3d import SDF_SHARDS
+
+    rng = np.random.default_rng(seed)
+    raw = os.path.join(root, "raw")
+    os.makedirs(raw, exist_ok=True)
+    per_shard = [num_molecules // 4] * 4
+    per_shard[3] += num_molecules - sum(per_shard)
+    props = []
+    mol_id = 0
+    for shard, count in zip(SDF_SHARDS, per_shard):
+        with open(os.path.join(raw, shard), "w") as f:
+            for _ in range(count):
+                props.append(rng.normal(size=num_props).astype(np.float32))
+                if bad_every and mol_id % bad_every == bad_every - 1:
+                    f.write("malformed block\n$$$$\n")
+                    mol_id += 1
+                    continue
+                n = int(rng.integers(min_atoms, max_atoms + 1))
+                rec = _random_molecule(rng, n)
+                f.write(f"mol{mol_id}\n  synthetic\n\n")
+                n_bonds = rec.bond_index.shape[1] // 2
+                f.write(f"{n:3d}{n_bonds:3d}  0  0  0  0  0  0  0  0999 "
+                        "V2000\n")
+                for t, (x, y, z) in zip(rec.atom_type, rec.positions):
+                    f.write(f"{x:10.4f}{y:10.4f}{z:10.4f} "
+                            f"{_INDEX_TO_SYMBOL[t]:<3s} 0  0  0  0  0  0\n")
+                for e in range(0, rec.bond_index.shape[1], 2):
+                    i, j = rec.bond_index[0, e], rec.bond_index[1, e]
+                    order = int(rng.integers(1, 4))
+                    f.write(f"{i + 1:3d}{j + 1:3d}{order:3d}  0\n")
+                f.write("M  END\n$$$$\n")
+                mol_id += 1
+    with open(os.path.join(raw, "properties.csv"), "w") as f:
+        f.write(",".join(["cid"] + [f"p{i}" for i in range(num_props)]) + "\n")
+        for k, row in enumerate(props):
+            f.write(",".join([str(k)] + [f"{v:.6f}" for v in row]) + "\n")
 
 
 def synthetic_md17(num_frames: int = 128, n_atoms: int = 21,

@@ -100,8 +100,8 @@ def make_mesh(num_devices: Optional[int] = None,
     Without a process group a run is one process on one device and the
     result is None (``num_devices`` must then be None or 1: ranks are
     started by the launcher, ``train/common.start_ranks``). ``device``:
-    this rank's device (default: ``cuda:<LOCAL_RANK>`` or the CPU). The
-    mesh becomes :func:`current`."""
+    this rank's device (default: ``cuda:<LOCAL_RANK>``; the CPU only when
+    asked for, :func:`rank_device`). The mesh becomes :func:`current`."""
     if not dist.is_initialized():
         if num_devices is not None and num_devices != 1:
             raise ValueError(
@@ -128,14 +128,18 @@ def make_mesh(num_devices: Optional[int] = None,
 
 
 def rank_device(device=None) -> torch.device:
-    """This rank's device: ``device`` when given, else ``cuda:<LOCAL_RANK
-    mod the card count>`` when a card is visible, else the CPU."""
+    """This rank's device: ``device`` when it names one (``"cpu"``, or
+    ``cuda:<i>``), else ``cuda:<LOCAL_RANK mod the card count>``. Raises
+    when a card is wanted and none is visible: the CPU is used only when it
+    is asked for."""
     if device is not None:
         device = torch.device(device)
         if device.type != "cuda" or device.index is not None:
             return device
-    elif not torch.cuda.is_available():
-        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible: pass device='cpu' (--device cpu) to "
+            "run this rank on the CPU")
     local = int(os.environ.get("LOCAL_RANK", "0"))
     return torch.device("cuda", local % max(torch.cuda.device_count(), 1))
 

@@ -98,7 +98,7 @@ def forward_and_grads(model, apply) -> dict:
 def _rank_main(rank: int, port: int, outdir: str) -> None:
     torch.set_num_threads(1)
     multihost.initialize(f"127.0.0.1:{port}", 2, rank, device="cpu")
-    pp.make_pair_mesh(num_pair=2, num_data=1)
+    pp.make_pair_mesh(num_pair=2, num_data=1, device="cpu")
     states = torch.load(os.path.join(outdir, "states.pt"))
     out = {}
     for model_3d in ("schnet", "painn"):

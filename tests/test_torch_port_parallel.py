@@ -222,7 +222,7 @@ def run_cases(outdir) -> dict:
 def _rank_main(rank: int, world: int, port: int, outdir: str) -> None:
     torch.set_num_threads(1)
     multihost.initialize(f"127.0.0.1:{port}", world, rank, device="cpu")
-    pmesh.make_mesh(world)
+    pmesh.make_mesh(world, device="cpu")
     torch.save(run_cases(outdir), os.path.join(outdir, f"rank{rank}.pt"))
 
 
@@ -456,7 +456,7 @@ def test_refusals(tmp_path):
     with pytest.raises(ValueError, match="out of range"):
         PG.main(_pretrain_argv(tmp_path, "--num_devices", "100000"))
     with pytest.raises(ValueError, match="out of range"):
-        pmesh.make_mesh(2)
+        pmesh.make_mesh(2, device="cpu")
     cfg = ModelConfig(emb_dim=16, schnet=SchNetConfig(
         hidden_channels=16, num_filters=16, num_interactions=2,
         num_gaussians=8))
