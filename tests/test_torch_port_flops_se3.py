@@ -168,14 +168,15 @@ def test_se3_basis_matches_jax_f64():
     v[4] = 0.0  # a self-pair
     rot = _rotation(5)
     jax.config.update("jax_enable_x64", True)
-    try:  # jitted: eager x64 ops would compile one by one
-        j_sh = jax.jit(lambda x: jse3.precompute_sh(x, 6))(jnp.asarray(v))
-        j_basis = jax.jit(lambda x: jse3.get_basis(x, 2))(jnp.asarray(v))
+    try:  # one jitted program: eager x64 ops would compile one by one
+        j_sh, j_basis = jax.jit(lambda x: (jse3.precompute_sh(x, 4),
+                                           jse3.get_basis(x, 2)))(
+            jnp.asarray(v))
         j_sh = {k: np.asarray(a) for k, a in j_sh.items()}
         j_basis = {k: np.asarray(a) for k, a in j_basis.items()}
     finally:
         jax.config.update("jax_enable_x64", False)
-    t_sh = tse3.precompute_sh(torch.as_tensor(v), 6)
+    t_sh = tse3.precompute_sh(torch.as_tensor(v), 4)
     assert sorted(t_sh) == sorted(j_sh)
     for k in j_sh:
         np.testing.assert_allclose(t_sh[k].numpy(), j_sh[k], rtol=1e-10,
@@ -225,7 +226,7 @@ def test_se3_equivariance_identities_f64():
 
 
 def test_se3_basis_gradient_device_and_dtype():
-    v = torch.as_tensor(np.random.default_rng(14).normal(size=(5, 3)),
+    v = torch.as_tensor(np.random.default_rng(14).normal(size=(3, 3)),
                         dtype=torch.float64).requires_grad_(True)
     assert torch.autograd.gradcheck(
         lambda x: tuple(tse3.get_basis(x, 2).values()), (v,))
