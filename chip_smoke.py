@@ -58,8 +58,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    at the DDM buckets (B=128, N=32/64/128) and serving's N=512.
    ``cfconv_fwd`` (rtol 1e-4, atol 1e-5, gating off and on) on the
    ``max_neighbors=32`` graph at B=2 (N=128, 256 and a pad of 100; at
-   N=128 and 256 also with G=100 Gaussians, above the 64 whose RBF and
-   hidden layer fit side by side, two launches bitwise equal), in
+   N=128 and 256 also with G=100 Gaussians, above the 64 up to which W1
+   stays in shared memory, two launches bitwise equal), in
    phase 4 at serving's N=256 (two launches bitwise equal) and on the DDM
    batch at N=128 (``cfconv_fwd_ddm:``: two launches bitwise equal, its
    time, bounds and launches on the ``max_num_neighbors`` training path).
@@ -360,9 +360,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
    3xTF32 on the tensor cores and are held to the same tolerances as every
    other kernel. The NCSN rows count their launches over both DDM epochs
    (SchNet and PaiNN).
+5. Any Gaussian count (``gaussians:``, at most 150 s). The CFConv kernels
+   #1-#5 take any ``--num_gaussians``: up to 64 the instances above, above
+   64 the ones that stream W1 in chunks of 32 rows. (a) SchNet's paths at
+   full width (F=128, 6 blocks, cutoff 10) at G=100 and G=300, the launch
+   counters reset before and read after: ``pretrain_geossl
+   --num_gaussians G`` (DDM, buckets 32/64/128, batch 128) for one epoch of
+   256 molecules, the same with ``--max_num_neighbors 32``, one
+   ``finetune_lba --num_gaussians G`` step at N=512 (80 complexes), and a
+   seeded ``Predictor`` and its ``max_neighbors=32`` twin serving the store
+   over buckets 32..512 (each held to the plain path on 8 molecules per
+   bucket, rtol 1e-4 / atol 1e-5 x max); all five kernels must launch. (b)
+   At G=65, 100 and 300, each kernel at its path's shapes against its plain
+   version (chunked), gating off and on, with the tolerances of G=51 (2,
+   above): ``cfconv_fwd`` at serving's N=256 and on the DDM
+   ``max_num_neighbors 32`` batch (B=128, N=128), ``cfconv_bwd`` on that
+   batch, ``cfconv_fwd_sym`` on the DDM batch, ``cfconv_bwd_sym`` at the
+   LBA shape (B=64, N=512), ``schnet_stack`` in both modes at serving's
+   N=128 batch; a second launch bitwise equal to the first where the
+   kernel writes each output once (#1, #2, #4 but dx), within the tolerance
+   where it adds with atomics (#3, #5, #4's dx). At G=100 and 300 each is
+   timed with its plain version and bound (counted as the G=51 rows). (c)
+   One full-width DDM-SchNet step at bucket 128 with G=300 (a freshly
+   seeded module) held to the plain step (tolerances as in 3b), and the
+   device ms of one traced step at G=300 and at G=51.
 
 The line before the last is the kernel table as JSON (thirteen kernels,
-every Pallas kernel of the JAX package; ``qm9_launches``: each kernel's
+every Pallas kernel of the JAX package, then #1-#5 at G=100 and G=300 as
+``<kernel>_g100`` / ``_g300`` with their phase-5 launches and shapes;
+``qm9_launches``: each kernel's
 launches over both QM9 epochs of phase 3e; ``md17_launches``: each
 kernel's launches in one MD17 training step of phase 3f, both backbones;
 ``pretrain_launches``: each kernel's launches in one step at bucket 128 of
@@ -505,11 +531,13 @@ def pair_work(dist, env):
 
 # kernel -> (library, mangled-name prefix of its entry function)
 KERNEL_ENTRIES = {
-    "cfconv_fwd": ("cfconv_fwd", "_ZN6geossl17cfconv_fwd_kernelE"),
-    "cfconv_fwd_sym": ("cfconv_fwd", "_ZN6geossl21cfconv_fwd_sym_kernelE"),
-    "schnet_stack": ("schnet_stack", "_ZN6geossl19schnet_stack_kernelILb1E"),
-    "cfconv_bwd": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb0E"),
-    "cfconv_bwd_sym": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb1E"),
+    # the CFConv kernels' G <= 64 instances (..._g100 / _g300 below: the
+    # instances that stream W1)
+    "cfconv_fwd": ("cfconv_fwd", "_ZN6geossl17cfconv_fwd_kernelILb0E"),
+    "cfconv_fwd_sym": ("cfconv_fwd", "_ZN6geossl21cfconv_fwd_sym_kernelILb0E"),
+    "schnet_stack": ("schnet_stack", "_ZN6geossl19schnet_stack_kernelILb1ELb0E"),
+    "cfconv_bwd": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb0ELb0E"),
+    "cfconv_bwd_sym": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb1ELb0E"),
     "ncsn_score_fwd": ("ncsn_score", "_ZN6geossl15ncsn_fwd_kernel"),
     "ncsn_score_bwd": ("ncsn_score", "_ZN6geossl15ncsn_bwd_kernel"),
     "painn_fwd": ("painn_fwd", "_ZN6geossl20painn_fwd_mma_kernelILi3ELb0E"),
@@ -520,6 +548,16 @@ KERNEL_ENTRIES = {
     "painn_stack": ("painn_stack", None),
     "painn_stack_train": ("painn_stack", None),
 }
+for _g in (100, 300):
+    KERNEL_ENTRIES.update({
+        f"cfconv_fwd_g{_g}": ("cfconv_fwd", "_ZN6geossl17cfconv_fwd_kernelILb1E"),
+        f"cfconv_fwd_sym_g{_g}": ("cfconv_fwd",
+                                  "_ZN6geossl21cfconv_fwd_sym_kernelILb1E"),
+        f"schnet_stack_g{_g}": ("schnet_stack",
+                                "_ZN6geossl19schnet_stack_kernelILb1ELb1E"),
+        f"cfconv_bwd_g{_g}": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb0ELb1E"),
+        f"cfconv_bwd_sym_g{_g}": ("cfconv_bwd",
+                                  "_ZN6geossl17cfconv_bwd_kernelILb1ELb1E")})
 
 
 def stack_instance(b, n, res):
@@ -665,8 +703,10 @@ def check_weight_grads(errs, kernel, got, want, names, what):
                     f"{what} all weight gradients")
 
 
-def check_cfconv_bwd(errs, dist, env, x, g, fw, G, cutoff, what, chunk=None):
-    """cfconv_bwd against its plain version, gating off and on."""
+def check_cfconv_bwd(errs, dist, env, x, g, fw, G, cutoff, what, chunk=None,
+                     name="cfconv_bwd"):
+    """cfconv_bwd against its plain version, gating off and on (recorded
+    under ``name``); returns the kernel's outputs with gating on."""
     import torch
 
     from geossl_tpu_torch.ops import cfconv as K
@@ -680,25 +720,27 @@ def check_cfconv_bwd(errs, dist, env, x, g, fw, G, cutoff, what, chunk=None):
     occ = tile_occupied(env)
     for sp in (False, True):
         got = K.cfconv_bwd(dist, env, x, g, *fw, *args, sp)
-        for k, (name, a, w) in enumerate(zip(BWD_NAMES, got, want)):
-            tag = f"{what} sparse={sp} {name}"
-            if name == "denv" and sp:
+        for k, (out, a, w) in enumerate(zip(BWD_NAMES, got, want)):
+            tag = f"{what} sparse={sp} {out}"
+            if out == "denv" and sp:
                 if (a[~occ] != 0).any():
-                    fail(f"cfconv_bwd {tag}: nonzero on an empty tile")
+                    fail(f"{name} {tag}: nonzero on an empty tile")
                 w = torch.where(occ, w, torch.zeros_like(w))
             if k < 3:
-                errs.check_scaled("cfconv_bwd", a, w, tag)
-        check_weight_grads(errs, "cfconv_bwd", got[3:], want[3:],
-                           BWD_NAMES[3:], f"{what} sparse={sp}")
+                errs.check_scaled(name, a, w, tag)
+        check_weight_grads(errs, name, got[3:], want[3:], BWD_NAMES[3:],
+                           f"{what} sparse={sp}")
+    return got
 
 
 def check_cfconv_bwd_sym(errs, dist, env, x, g, fw, G, cutoff, what,
-                         chunk=None):
+                         chunk=None, name="cfconv_bwd_sym"):
     """cfconv_bwd_sym against its plain version, gating off and on: ddist
     and denv by the placement contract (``ops/cfconv.place_sym_cotangent``
     of the plain, unplaced cotangents; with gating also zero on empty 8x8
     tiles), elementwise with the scaled atol; dx elementwise; the weight
-    gradients by relative norm."""
+    gradients by relative norm (recorded under ``name``). Returns the
+    kernel's outputs with gating on."""
     import torch
 
     from geossl_tpu_torch.ops import cfconv as K
@@ -713,15 +755,16 @@ def check_cfconv_bwd_sym(errs, dist, env, x, g, fw, G, cutoff, what,
     occ = tile_occupied(env)
     for sp in (False, True):
         got = K.cfconv_bwd_sym(dist, env, x, g, *fw, *args, sp)
-        for k, (name, a, w) in enumerate(zip(BWD_NAMES[:3], got, want)):
-            tag = f"{what} sparse={sp} {name}"
+        for k, (out, a, w) in enumerate(zip(BWD_NAMES[:3], got, want)):
+            tag = f"{what} sparse={sp} {out}"
             if k < 2 and sp:
                 if (a[~occ] != 0).any():
-                    fail(f"cfconv_bwd_sym {tag}: nonzero on an empty tile")
+                    fail(f"{name} {tag}: nonzero on an empty tile")
                 w = torch.where(occ, w, torch.zeros_like(w))
-            errs.check_scaled("cfconv_bwd_sym", a, w, tag)
-        check_weight_grads(errs, "cfconv_bwd_sym", got[3:], want[3:],
-                           BWD_NAMES[3:], f"{what} sparse={sp}")
+            errs.check_scaled(name, a, w, tag)
+        check_weight_grads(errs, name, got[3:], want[3:], BWD_NAMES[3:],
+                           f"{what} sparse={sp}")
+    return got
 
 
 PAINN_BWD_NAMES = ("ddist", "dgate", "ddirx", "ddiry", "ddirz", "dx", "dmu",
@@ -3373,6 +3416,348 @@ def profile_dir_check(dev):
              f"{said})")
 
 
+# -- 5. any --num_gaussians ------------------------------------------------------
+# The Gaussian counts the phase holds the CFConv kernels at (above 64 they
+# stream W1), and those whose rows join the kernel table
+GAUSS_G = (65, 100, 300)
+GAUSS_ROWS = (100, 300)
+GAUSS_BUDGET_S = 150.0
+# kernel -> (source, the TPU kernel it replaces)
+GAUSS_KERNELS = {
+    "cfconv_fwd": ("geossl_tpu_torch/ops/csrc/cfconv_fwd.cu",
+                   "geossl_tpu/ops/cfconv_pallas.py:92"),
+    "cfconv_bwd": ("geossl_tpu_torch/ops/csrc/cfconv_bwd.cu",
+                   "geossl_tpu/ops/cfconv_pallas.py:150"),
+    "cfconv_fwd_sym": ("geossl_tpu_torch/ops/csrc/cfconv_fwd.cu",
+                       "geossl_tpu/ops/cfconv_pallas.py:382"),
+    "cfconv_bwd_sym": ("geossl_tpu_torch/ops/csrc/cfconv_bwd.cu",
+                       "geossl_tpu/ops/cfconv_pallas.py:464"),
+    "schnet_stack": ("geossl_tpu_torch/ops/csrc/schnet_stack.cu",
+                     "geossl_tpu/ops/cfconv_pallas.py:712"),
+}
+
+
+def schnet_at(cfg, g, max_neighbors=None):
+    """``cfg`` with ``g`` Gaussians (and ``max_neighbors``)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, max_neighbors=max_neighbors,
+        schnet=dataclasses.replace(cfg.schnet, num_gaussians=g))
+
+
+def gaussians_main_path(dev, g, store, buckets, first, layer0_inputs):
+    """SchNet's paths at ``g`` Gaussians, full width (F=128, 6 blocks,
+    cutoff 10), with the launch counters reset before and read after: a
+    DDM epoch of ``pretrain_geossl --num_gaussians g`` (buckets 32/64/128,
+    batch 128) on 256 molecules and one with ``--max_num_neighbors 32``,
+    one LBA step at N=512 (``finetune_lba``, batch 64 of 80 complexes), and
+    a seeded ``Predictor`` (and its ``max_neighbors=32`` twin) serving the
+    store over buckets 32..512, held to the plain path on 8 molecules per
+    bucket (rtol 1e-4, atol 1e-5 x max). Every kernel of #1-#5 must launch.
+    Returns the counts."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from geossl_tpu_torch.config import ModelConfig
+    from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
+    from geossl_tpu_torch.serve import Predictor
+    from geossl_tpu_torch.train import finetune_lba as FL
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+    from geossl_tpu_torch.train.common import make_backbone, make_head
+
+    flags = ["--num_gaussians", str(g)]
+    cfg = schnet_at(ModelConfig(), g)
+    gen = torch.Generator().manual_seed(SEED)
+    state = {"model": make_backbone(cfg, gen).state_dict(),
+             "graph_pred_linear": make_head("schnet", cfg.emb_dim,
+                                            gen).state_dict(),
+             "y_mean": 1.5, "y_std": 2.0}
+    preds = {"default": Predictor(cfg, state, batch_size=128,
+                                  bucket_sizes=buckets),
+             "max_neighbors=32": Predictor(schnet_at(cfg, g, 32), state,
+                                           batch_size=128,
+                                           bucket_sizes=buckets)}
+    reset_launch_counts()
+    t0 = time.time()
+    steps = []
+    for extra in ([], ["--max_num_neighbors", "32"]):
+        run_dir = os.path.join(ROOT, "runs", f"chip_smoke_g{g}")
+        shutil.rmtree(run_dir, ignore_errors=True)
+        _, losses = PG.main(["--synthetic", "--synthetic_size", "256",
+                             "--synthetic_max_atoms", "100", "--epochs", "1",
+                             "--output_model_dir", run_dir, *flags, *extra])
+        steps.append(len(losses))
+        if not losses or not all(math.isfinite(v) for v in losses):
+            fail(f"pretrain_geossl G={g} {extra}: losses {losses}")
+    run_dir = os.path.join(ROOT, "runs", f"chip_smoke_g{g}_lba")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    _, best, _, losses = FL.main(["--synthetic", "--synthetic_size", "80",
+                                  "--epochs", "1", "--output_model_dir",
+                                  run_dir, *flags])
+    if not losses or not all(math.isfinite(v) for v in losses) or \
+            not math.isfinite(best):
+        fail(f"finetune_lba G={g}: losses {losses}, best val {best}")
+    got = {what: p.predict(store) for what, p in preds.items()}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"gaussians main path G={g}: DDM {steps[0]} steps, max_neighbors "
+          f"{steps[1]} steps, LBA {len(losses)} step(s), {len(store)} "
+          f"molecules served twice in {time.time() - t0:.2f} s; launches "
+          f"{counts}")
+    for name in GAUSS_KERNELS:
+        if counts[name] == 0:
+            fail(f"kernel {name} was not launched on the G={g} paths")
+    with torch.inference_mode():
+        for what, p in preds.items():
+            if not np.isfinite(got[what]).all():
+                fail(f"Predictor G={g} {what}: non-finite output")
+            for b in buckets:
+                idx = first(b, 8)
+                batch, *_ = layer0_inputs(p.model, idx, b)
+                graph, _ = p.model(batch.atom_type, batch.positions,
+                                   batch.node_mask, plain=True)
+                want = (p.head(graph) * p.y_std + p.y_mean).cpu().numpy()
+                atol = ATOL * max(1.0, float(np.abs(want).max()))
+                if not np.allclose(got[what][idx], want, rtol=RTOL, atol=atol):
+                    fail(f"Predictor G={g} {what} bucket {b}: kernel path vs "
+                         f"plain path, max_abs_err "
+                         f"{np.abs(got[what][idx] - want).max():.3e}")
+        print(f"gaussians serve parity G={g}: buckets {list(buckets)} agree "
+              "with the plain path (default and max_neighbors=32)")
+    return counts
+
+
+def gaussians_kernels(dev, errs, g, cases, cfg, cutoff, timed):
+    """#1-#5 at ``g`` Gaussians on the shapes of their paths, each against
+    its plain version (chunked), gating off and on, a second launch against
+    the first (bitwise where the kernel writes each output once, as at
+    G=51: #1, all of #2, and #4 but dx; #3 and #5 add with atomics: within
+    the tolerance). Checks are recorded as ``<kernel>_g<g>``. With
+    ``timed``: the rows (name, source, replaces, ms, plain_ms, flops,
+    bytes) of the kernel table, bounds counted as the G=51 rows'."""
+    import torch
+
+    from geossl_tpu_torch.ops import cfconv as K
+    from geossl_tpu_torch.train.common import make_backbone
+
+    F_ = 128
+    m = make_backbone(schnet_at(cfg, g),
+                      torch.Generator().manual_seed(SEED)).to(dev)
+    with torch.no_grad():
+        fw = [t.contiguous() for t in m.interactions[0].filter_weights()]
+        stacked = m.stacked_weights()
+    args = (0.0, cutoff, g)
+    flop_pair = 2 * g * F_ + 2 * F_ * F_ + 2 * F_
+    wsize = g * F_ + 2 * F_ + F_ * F_
+    tag = f"_g{g}"
+    rows = []
+
+    def row(kernel, ms, plain_ms, flops, nbytes, **extra):
+        src, replaces = GAUSS_KERNELS[kernel]
+        rows.append((kernel + tag, src, replaces, ms, plain_ms, flops, nbytes,
+                     extra))
+
+    def same(name, a, b, what):
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            fail(f"{name}{tag} {what}: outputs differ between two launches")
+
+    # #1: serving's N=256 (max_neighbors=32 graph) and the DDM
+    # max_num_neighbors batch at N=128
+    with torch.no_grad():
+        for what, (d, e, x) in (("serving B=128 N=256", cases["serve256"]),
+                                ("DDM max_neighbors=32 B=128 N=128",
+                                 cases["ddm_mn"][:3])):
+            want = chunked(K.cfconv_fused_reference, (d, e, x), (*fw, *args), 4)
+            for sp in (False, True):
+                got = K.cfconv_fused(d, e, x, *fw, *args, sp)
+                errs.check("cfconv_fwd" + tag, got, want, f"{what} sparse={sp}")
+                same("cfconv_fwd", [got], [K.cfconv_fused(d, e, x, *fw, *args,
+                                                          sp)], what)
+        if timed:
+            times = {}
+            for what, (d, e, x) in (("serve", cases["serve256"]),
+                                    ("ddm", cases["ddm_mn"][:3])):
+                nnz, filt, cells, tiles = pair_work(d, e)
+                times[what] = (
+                    cuda_time_ms(lambda: K.cfconv_fused(d, e, x, *fw, *args,
+                                                        True)),
+                    cuda_time_ms(lambda: chunked(K.cfconv_fused_reference,
+                                                 (d, e, x), (*fw, *args), 4),
+                                 reps=3, warmup=1),
+                    (filt * (flop_pair - 2 * F_), nnz * 2 * F_),
+                    4 * (cells + tiles + 2 * x.numel() + sum(t.numel()
+                                                             for t in fw)))
+            ms, plain_ms, flops, nbytes = times["serve"]
+            row("cfconv_fwd", ms, plain_ms, flops, nbytes,
+                shape="serving B=128 N=256", ddm_shape=
+                "DDM max_neighbors=32 B=128 N=128", ddm_ms=times["ddm"][0],
+                ddm_plain_ms=times["ddm"][1], ddm_bound_ms=bound_ms(
+                    times["ddm"][2], times["ddm"][3]))
+    # #2 on the DDM max_num_neighbors batch
+    d, e, x, gr = cases["ddm_mn"]
+    first_ = check_cfconv_bwd(errs, d, e, x, gr, fw, g, cutoff,
+                              "DDM max_neighbors=32 B=128 N=128", chunk=4,
+                              name="cfconv_bwd" + tag)
+    same("cfconv_bwd", first_, K.cfconv_bwd(d, e, x, gr, *fw, *args, True),
+         "DDM max_neighbors=32")
+    if timed:
+        nnz, filt, cells, tiles = pair_work(d, e)
+        row("cfconv_bwd",
+            cuda_time_ms(lambda: K.cfconv_bwd(d, e, x, gr, *fw, *args, True)),
+            cuda_time_ms(lambda: chunked_sum(
+                K.cfconv_bwd_reference, (d, e, x, gr), (*fw, *args), 4, 3),
+                reps=3, warmup=1),
+            (filt * (2 * g * F_ + 2 * F_ * F_) + nnz * (4 * F_ * F_ + 4 * g * F_),
+             nnz * 6 * F_),
+            4 * (cells + tiles + 2 * d.numel() + 3 * x.numel() + 2 * wsize),
+            shape="DDM max_neighbors=32 B=128 N=128")
+    # #3 on the DDM batch (symmetric graph)
+    d, e, x, gr = cases["ddm"]
+    with torch.no_grad():
+        want = chunked(K.cfconv_fused_reference, (d, e, x), (*fw, *args), 16)
+        for sp in (False, True):
+            got = K.cfconv_fused_sym(d, e, x, *fw, *args, sp)
+            errs.check("cfconv_fwd_sym" + tag, got, want,
+                       f"DDM B=128 N=128 sparse={sp}")
+            errs.check("cfconv_fwd_sym" + tag, K.cfconv_fused_sym(
+                d, e, x, *fw, *args, sp), got,
+                f"DDM B=128 N=128 sparse={sp} second launch")
+        if timed:
+            nnz, filt, cells, tiles = pair_work(d, e)
+            row("cfconv_fwd_sym",
+                cuda_time_ms(lambda: K.cfconv_fused_sym(d, e, x, *fw, *args,
+                                                        True)),
+                cuda_time_ms(lambda: chunked(K.cfconv_fused_reference,
+                                             (d, e, x), (*fw, *args), 16),
+                             reps=3, warmup=1),
+                (filt * (flop_pair - 2 * F_), nnz * 2 * F_),
+                4 * (cells + tiles + 2 * x.numel() + sum(t.numel() for t in fw)),
+                shape="DDM B=128 N=128")
+    # #4 at the LBA shape
+    d, e, x, gr = cases["lba"]
+    first_ = check_cfconv_bwd_sym(errs, d, e, x, gr, fw, g, cutoff,
+                                  "LBA B=64 N=512", chunk=4,
+                                  name="cfconv_bwd_sym" + tag)
+    again = K.cfconv_bwd_sym(d, e, x, gr, *fw, *args, True)
+    # dx is added with atomics (the G=51 rows' contract): the rest bitwise
+    same("cfconv_bwd_sym", first_[:2] + first_[3:], again[:2] + again[3:],
+         "LBA (all but dx)")
+    errs.check_scaled("cfconv_bwd_sym" + tag, again[2], first_[2],
+                      "LBA B=64 N=512 dx second launch")
+    if timed:
+        nnz, filt, cells, tiles = pair_work(d, e)
+        row("cfconv_bwd_sym",
+            cuda_time_ms(lambda: K.cfconv_bwd_sym(d, e, x, gr, *fw, *args,
+                                                  True)),
+            cuda_time_ms(lambda: chunked_sum(
+                K.cfconv_bwd_sym_reference, (d, e, x, gr), (*fw, *args), 4, 3),
+                reps=3, warmup=1),
+            (filt * (6 * g * F_ + 6 * F_ * F_), nnz * 6 * F_),
+            4 * (cells + tiles + 2 * d.numel() + 3 * x.numel() + 2 * wsize),
+            shape="LBA B=64 N=512")
+    # #5 at serving's N=128 batch, both modes
+    with torch.no_grad():
+        for sym, key in ((True, "serve128"), (False, "serve128_mn")):
+            d, e, h0 = cases[key]
+            what = f"serving B=128 N=128 symmetric={sym}"
+            want = chunked(K.schnet_stack_reference, (d, e, h0),
+                           (stacked, *args), 32)
+            got = K.schnet_stack(d, e, h0, stacked, *args, sym)
+            errs.check("schnet_stack" + tag, got, want, what)
+            errs.check("schnet_stack" + tag, K.schnet_stack(
+                d, e, h0, stacked, *args, sym), got, f"{what} second launch")
+        if timed:
+            d, e, h0 = cases["serve128"]
+            nnz, filt, cells, tiles = pair_work(d, e)
+            atoms = cases["serve128_atoms"]
+            layers = stacked[0].shape[0]
+            row("schnet_stack",
+                cuda_time_ms(lambda: K.schnet_stack(d, e, h0, stacked, *args,
+                                                    True)),
+                cuda_time_ms(lambda: chunked(
+                    K.schnet_stack_reference, (d, e, h0), (stacked, *args), 32),
+                    reps=3, warmup=1),
+                (layers * (filt * (flop_pair - 2 * F_)
+                           + atoms * 3 * 2 * F_ * F_),
+                 layers * nnz * 2 * F_),
+                4 * (cells + tiles + 2 * h0.numel()
+                     + sum(t.numel() for t in stacked)),
+                shape="serving B=128 N=128")
+    return rows
+
+
+def bound_ms(flops, nbytes):
+    """The bound of a (tensor-core, elementwise) operation count and a byte
+    count, in ms: products at the TF32 peak and elementwise terms at the f32
+    peak (the two units at once), bytes at the HBM rate."""
+    return max(flops[0] / PEAK_TF32_FLOPS, flops[1] / PEAK_F32_FLOPS,
+               nbytes / PEAK_BYTES) * 1e3
+
+
+def gaussians_ddm_step(dev, g, cfg, batch):
+    """One full-width DDM-SchNet step at ``g`` Gaussians on ``batch``
+    (bucket 128, a freshly seeded module) held to the plain step (relative
+    norm 1e-3, ``step_parity``), then its device-busy ms over one traced
+    step after a warm-up. Returns (device ms, port-kernel ms)."""
+    import torch
+
+    from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    targs = PG.build_parser().parse_args(["--num_gaussians", str(g)])
+    ddm = PG.make_ddm(targs, schnet_at(cfg, g),
+                      torch.Generator().manual_seed(SEED)).to(dev)
+    step_parity(ddm, batch, targs, 128, f"SchNet G={g}")
+    opt, sched = common.make_optimizer_from_args(targs, ddm.parameters(), 100)
+    gen = torch.Generator(dev).manual_seed(SEED)
+
+    def step():
+        return PG.train_step(ddm, opt, sched, [batch], targs, gen)
+
+    step()
+    torch.cuda.synchronize()
+    _, busy, ours = device_profile(step)
+    return busy * 1e3, ours * 1e3
+
+
+def gaussians_path(dev, card, errs, cfg, cutoff, cases, store, buckets, first,
+                   layer0_inputs, ddm_batch):
+    """Phase 5: the CFConv kernels at G = 65, 100 and 300. The main paths at
+    G = 100 and 300 (their launches are the rows' counts), then each kernel
+    at its path's shapes against its plain version, timed at G = 100 and
+    300, and one DDM step at G = 300 against the plain step and beside the
+    G = 51 step's device ms. Returns the kernel table's g-rows, with their
+    launches."""
+    t0 = time.time()
+    launches = {g: gaussians_main_path(dev, g, store, buckets, first,
+                                       layer0_inputs) for g in GAUSS_ROWS}
+    rows = []
+    for g in GAUSS_G:
+        for name, src, replaces, ms, plain_ms, flops, nbytes, extra in \
+                gaussians_kernels(dev, errs, g, cases, cfg, cutoff,
+                                  g in GAUSS_ROWS):
+            base = name.rsplit("_g", 1)[0]
+            rows.append((name, src, replaces, ms, plain_ms, flops, nbytes,
+                         launches[g][base], extra))
+    step = {g: gaussians_ddm_step(dev, g, cfg, ddm_batch) for g in (300, 51)}
+    seconds = time.time() - t0
+    print("gaussians: " + json.dumps({
+        "card": card, "seconds": seconds,
+        "ddm_step_bucket_128": {f"G={g}": {"device_ms": busy,
+                                           "port_kernels_ms": ours}
+                                for g, (busy, ours) in step.items()},
+        "rows": {name: {"ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms(flops, nbytes), **extra}
+                 for name, _, _, ms, plain_ms, flops, nbytes, _, extra
+                 in rows}}))
+    if seconds > GAUSS_BUDGET_S:
+        fail(f"gaussians: {seconds:.1f} s, above its {GAUSS_BUDGET_S:.0f} s")
+    return rows
+
+
 def rel_norm(a, b):
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
@@ -3542,9 +3927,9 @@ def main():
                 for sp in (False, True):
                     errs.check(name, fn(dist, env, x, *fw, 0.0, cutoff, G, sp),
                                want, f"B=2 N={n} sparse={sp}")
-        # the plain mode above G = 64 (the first product in k steps of 32,
-        # the hidden layer in the RBF's place): G = 100 on the same
-        # max_neighbors graphs, a second launch against the first
+        # the plain mode above G = 64 (W1 streamed in chunks of 32 rows):
+        # G = 100 on the same max_neighbors graphs, a second launch against
+        # the first
         g_big = 100
         fw_big = ((torch.randn(g_big, cfg.emb_dim, generator=torch.Generator().manual_seed(SEED))
                    / 10).to(dev), *filt_mn[1:])
@@ -4778,8 +5163,25 @@ def main():
              + x.numel() // 3 + 2 * (R_ + 1) * f3),
         lba_launches_p["painn_bwd_sym"]))
 
+    # -- 5. any --num_gaussians: #1-#5 at G = 65, 100 and 300 ----------------------
+    with torch.inference_mode():
+        batch, d_, e_, h_, x_ = layer0_inputs(model_mn, first(256, 128), 256, 128)
+        b128, d128, e128, h128, _ = layer0_inputs(model, first(128, 128), 128,
+                                                  128)
+        _, d128m, e128m, h128m, _ = layer0_inputs(model_mn, first(128, 128),
+                                                  128, 128)
+    gauss_cases = {
+        "serve256": (d_, e_, x_), "serve128": (d128, e128, h128),
+        "serve128_atoms": int(b128.node_mask.sum()),
+        "serve128_mn": (d128m, e128m, h128m),
+        "ddm": ddm_case(128)[:4], "ddm_mn": ddm_case(128, ddm0_mn)[:4],
+        "lba": lba_case[:4]}
+    kernels += gaussians_path(dev, card, errs, cfg, cutoff, gauss_cases, store,
+                              buckets, first, layer0_inputs, train_batch(128))
+
     table = []
-    for name, src, replaces, ms, plain_ms, flops, nbytes, count in kernels:
+    for name, src, replaces, ms, plain_ms, flops, nbytes, count, *extra in \
+            kernels:
         if isinstance(flops, tuple):
             # (tensor-core products, elementwise): each at its own peak, the
             # two units working at once
@@ -4811,7 +5213,8 @@ def main():
             "bound_basis": basis,
             "bound_ms_f32": max(t_f32, t_bytes),
             "library_ms": None, "flop": flops, "bytes": nbytes,
-            "ptxas": ptxas_usage(_build.build_log(lib), entry)})
+            "ptxas": ptxas_usage(_build.build_log(lib), entry),
+            **(extra[0] if extra else {})})
         print(f"kernel {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
               f"{max(t_ops, t_bytes):.3f} ms) at its path's shape")
     print(card)

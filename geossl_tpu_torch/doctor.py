@@ -30,6 +30,7 @@ Exit code 0 when every check passes, 1 otherwise; ``[warn]`` does not fail.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import shutil
@@ -48,6 +49,9 @@ GRAD_RTOL = 1e-3
 # the tiny case: graphs of these sizes in B slots of N atoms (the last slot
 # is padding); the second graph is spread out, so that it has empty tiles
 SIZES, B, N = (40, 23, 9), 4, 64
+# SchNet's Gaussian counts, with the suffix of their case keys: the
+# published 51, and 100, above the 64 where the CFConv kernels stream W1
+SCHNET_G = ((51, ""), (100, "100"))
 SEED = 0
 
 
@@ -282,7 +286,8 @@ class Tally:
 
 def _case(device: torch.device):
     """The tiny batch at full kernel width: SchNet (F=128, G=51, 2 blocks)
-    on its symmetric radius graph and on a max_neighbors=8 graph, PaiNN
+    on its symmetric radius graph and on a max_neighbors=8 graph, the same
+    at G=100 (the kernels' instances that stream W1, above 64), PaiNN
     (F=128, R=20, 2 blocks), and an NCSN head (E=128) with seeded draws."""
     from dataclasses import replace
 
@@ -305,7 +310,11 @@ def _case(device: torch.device):
     gen = torch.Generator().manual_seed(SEED)
     case = {}
     with torch.no_grad():
-        for tag, c in (("sym", cfg), ("mn", replace(cfg, max_neighbors=8))):
+        runs = [(tag + g_tag, replace(c, schnet=replace(c.schnet,
+                                                         num_gaussians=g)))
+                for g, g_tag in SCHNET_G
+                for tag, c in (("sym", cfg), ("mn", replace(cfg, max_neighbors=8)))]
+        for tag, c in runs:
             m = make_backbone(c, torch.Generator().manual_seed(SEED)).to(device)
             dist, adj = m.geometry(batch.positions, batch.node_mask)
             env = m.envelope(dist, adj)
@@ -371,12 +380,13 @@ def run_kernel_checks(device: torch.device) -> dict:
             tally.failed(name, what, f"{type(e).__name__}: {e}")
 
     # SchNet: the plain-mode pair on the truncated graph, the symmetric pair
-    # on the radius graph, the stack in both modes
-    for name, bwd_name, tag, fwd, bwd in (
+    # on the radius graph, the stack in both modes; at both G
+    for (name, bwd_name, tag, fwd, bwd), (_, g_tag) in itertools.product((
             ("cfconv_fwd", "cfconv_bwd", "mn", K.cfconv_fused, K.cfconv_bwd),
             ("cfconv_fwd_sym", "cfconv_bwd_sym", "sym", K.cfconv_fused_sym,
-             K.cfconv_bwd_sym)):
-        c = case[tag]
+             K.cfconv_bwd_sym)), SCHNET_G):
+        c = case[tag + g_tag]
+        gw = f"G={c['G']} "
         args = (0.0, c["cutoff"], c["G"])
         ins = (c["dist"], c["env"], c["x"])
         occ = tile_occupied(c["env"])
@@ -389,7 +399,7 @@ def run_kernel_checks(device: torch.device) -> dict:
             def fwd_check(sp=sp):
                 with torch.no_grad():
                     tally.scaled(name, fwd(*ins, *c["fw"], *args, sp), want,
-                                 f"sparse={sp}")
+                                 f"{gw}sparse={sp}")
 
             def bwd_check(sp=sp):
                 got = bwd(*ins, case["g"], *c["fw"], *args, sp)
@@ -397,13 +407,15 @@ def run_kernel_checks(device: torch.device) -> dict:
                     # with gating the pair cotangents are zero on empty
                     # tiles (the occupancy contract)
                     w = _masked(want_b[k], occ) if sp and k < 2 else want_b[k]
-                    tally.scaled(bwd_name, got[k], w, f"sparse={sp} {what}")
-                tally.weights(bwd_name, got[3:], want_b[3:], f"sparse={sp}")
+                    tally.scaled(bwd_name, got[k], w, f"{gw}sparse={sp} {what}")
+                tally.weights(bwd_name, got[3:], want_b[3:], f"{gw}sparse={sp}")
 
-            guarded(name, f"sparse={sp}", fwd_check)
-            guarded(bwd_name, f"sparse={sp}", bwd_check)
-    for tag, sym in (("sym", True), ("mn", False)):
-        c = case[tag]
+            guarded(name, f"{gw}sparse={sp}", fwd_check)
+            guarded(bwd_name, f"{gw}sparse={sp}", bwd_check)
+    for (tag, sym), (_, g_tag) in itertools.product(
+            (("sym", True), ("mn", False)), SCHNET_G):
+        c = case[tag + g_tag]
+        gw = f"G={c['G']} "
 
         def stack_check(c=c, sym=sym):
             with torch.no_grad():
@@ -413,9 +425,9 @@ def run_kernel_checks(device: torch.device) -> dict:
                 got = K.schnet_stack(c["dist"], c["env"], c["h0"],
                                      c["stacked"], 0.0, c["cutoff"], c["G"],
                                      sym)
-            tally.scaled("schnet_stack", got, want, f"symmetric={sym}")
+            tally.scaled("schnet_stack", got, want, f"{gw}symmetric={sym}")
 
-        guarded("schnet_stack", f"symmetric={sym}", stack_check)
+        guarded("schnet_stack", f"{gw}symmetric={sym}", stack_check)
 
     # the NCSN head, forward and backward
     n = case["ncsn"]

@@ -34,14 +34,23 @@ class ShiftedSoftplus(nn.Module):
         return shifted_softplus(x)
 
 
+def rbf_offsets(start: float, stop: float, num_gaussians: int, dtype,
+                device) -> tuple:
+    """(μ_k = linspace(start, stop) [num_gaussians], -0.5/Δ² as a 0-dim
+    tensor), both of ``dtype``: the basis of :func:`gaussian_smearing`."""
+    offset = torch.linspace(start, stop, num_gaussians, dtype=dtype,
+                            device=device)
+    return offset, -0.5 / (offset[1] - offset[0]) ** 2
+
+
 def gaussian_smearing(dist: torch.Tensor, start: float, stop: float,
                       num_gaussians: int) -> torch.Tensor:
     """exp(-0.5/Δ² (d - μ_k)²) with μ_k = linspace(start, stop); appends a
     trailing axis of size ``num_gaussians``. (The kernels make the offsets as
-    start + Δ·k in f32, about 1 ulp from ``linspace``.)"""
-    offset = torch.linspace(start, stop, num_gaussians, dtype=dist.dtype,
-                            device=dist.device)
-    coeff = -0.5 / (offset[1] - offset[0]) ** 2
+    start + Δ·k in f32, about 1 ulp from ``linspace``, up to 64 Gaussians;
+    above, they read these, ``ops/cfconv._rbf_table``.)"""
+    offset, coeff = rbf_offsets(start, stop, num_gaussians, dist.dtype,
+                                dist.device)
     diff = dist[..., None] - offset
     return torch.exp(coeff * diff * diff)
 

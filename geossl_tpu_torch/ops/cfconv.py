@@ -52,7 +52,11 @@ from typing import Sequence
 import torch
 from torch import Tensor
 
-from geossl_tpu_torch.models.common import gaussian_smearing, shifted_softplus
+from geossl_tpu_torch.models.common import (
+    gaussian_smearing,
+    rbf_offsets,
+    shifted_softplus,
+)
 from geossl_tpu_torch.ops import _build
 from geossl_tpu_torch.ops._launch import (
     check_launch,
@@ -70,16 +74,12 @@ from geossl_tpu_torch.ops._launch import (
 
 # Largest N the whole-stack kernel accepts (as cfconv_pallas.STACK_MAX_N).
 STACK_MAX_N = 128
-# Feature width the kernels' register tiling is written for.
+# Feature width the kernels' register tiling is written for. The Gaussian
+# count G is free: up to SMALL_G each kernel keeps W1 and the RBF tile in
+# shared memory, above it streams W1 in chunks of 32 rows
+# (csrc/filter_mma.cuh, csrc/cfconv_bwd.cu), in the same shared memory.
 KERNEL_F = 128
-# Largest Gaussian count of the symmetric forward, both backwards and the
-# stack (their RBF tile is padded to 64 columns, csrc/filter_mma.cuh kSGP,
-# csrc/cfconv_bwd.cu kGP).
-KERNEL_MAX_G = 64
-# Largest Gaussian count of the plain-mode forward: the largest G whose
-# shared memory (cfconv_fwd_smem_bytes: G padded to a multiple of 32 above
-# 64) fits a block's 227 KB.
-PLAIN_FWD_MAX_G = 192
+SMALL_G = 64
 # Side of the kernels' square pair tiles.
 KERNEL_TILE = 8
 
@@ -198,6 +198,24 @@ def _rbf_consts(start, stop, num_g):
     return float(start), float(delta), float(-0.5 / delta**2)
 
 
+def _rbf_table(start, stop, num_g, device):
+    """Above ``SMALL_G`` Gaussians, the RBF basis the plain version uses
+    (``rbf_offsets``: linspace's f32 offsets, then -0.5/Δ²) as one [G + 1]
+    tensor on ``device``, made by the same ops on every call, for the
+    kernels to read: a Gaussian's value moves by ~2|coeff||d - μ| times an
+    offset's error, which grows with G, and start + Δk in f32 lies an ulp or
+    two from linspace. None up to ``SMALL_G`` (the kernels take start + Δk
+    there)."""
+    if num_g <= SMALL_G:
+        return None
+    offset, coeff = rbf_offsets(start, stop, num_g, torch.float32, device)
+    return torch.cat([offset, coeff.reshape(1)])
+
+
+def _ptr_or_null(t):
+    return None if t is None else ptr(t)
+
+
 def _check_filter_shapes(name, dist, env, x, w1, b1, w2, b2, num_g):
     b, _, nj = dist.shape
     f = x.shape[-1]
@@ -230,17 +248,15 @@ def _launch_cfconv(dist: Tensor, env: Tensor, x: Tensor, w1: Tensor,
     b, ni, nj = dist.shape
     f = x.shape[-1]
     _check_filter_shapes("cfconv_fwd", dist, env, x, w1, b1, w2, b2, num_g)
-    if symmetric and (ni != nj or num_g > KERNEL_MAX_G):
-        raise ValueError("cfconv_fwd: the symmetric mode needs a square grid "
-                         f"and G <= {KERNEL_MAX_G}; got dist {tuple(dist.shape)}, "
-                         f"G={num_g}")
+    if symmetric and ni != nj:
+        raise ValueError("cfconv_fwd: the symmetric mode needs a square grid; "
+                         f"got dist {tuple(dist.shape)}")
     smem = _build.kernel_fn("cfconv_fwd", "cfconv_fwd_smem_bytes",
-                            [ctypes.c_int] * 2,
-                            ctypes.c_size_t)(num_g, int(symmetric))
+                            [ctypes.c_int], ctypes.c_size_t)(int(symmetric))
     check_smem("cfconv_fwd", smem)
     fn = _build.kernel_fn(
         "cfconv_fwd", "cfconv_fwd",
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     # both modes make their work list on the device (tile flags, counts,
     # prefix sums, the tile list); the symmetric mode adds every row with
@@ -252,9 +268,10 @@ def _launch_cfconv(dist: Tensor, env: Tensor, x: Tensor, w1: Tensor,
                                ctypes.c_size_t)(b, ni, nj, int(symmetric))
     ws = torch.empty(ws_ints, dtype=torch.int32, device=dist.device)
     s0, delta, coeff = _rbf_consts(start, stop, num_g)
-    err = fn(*map(ptr, (dist, env, x, w1, b1, w2, b2, out, ws)), b, ni, nj, f,
-             num_g, s0, delta, coeff, int(symmetric), int(sparse),
-             stream(dist))
+    tab = _rbf_table(start, stop, num_g, dist.device)
+    err = fn(*map(ptr, (dist, env, x, w1)), _ptr_or_null(tab),
+             *map(ptr, (b1, w2, b2, out, ws)), b, ni, nj, f, num_g, s0, delta,
+             coeff, int(symmetric), int(sparse), stream(dist))
     check_launch("cfconv_fwd", err)
     return out
 
@@ -377,10 +394,9 @@ def _launch_cfconv_bwd(dist: Tensor, env: Tensor, x: Tensor, g: Tensor,
     b, ni, nj = dist.shape
     f = x.shape[-1]
     _check_filter_shapes(name, dist, env, x, w1, b1, w2, b2, num_g)
-    if g.shape != (b, ni, f) or num_g > KERNEL_MAX_G:
-        raise ValueError(f"{name}: kernel takes g [B,N,F] and G <= "
-                         f"{KERNEL_MAX_G}; "
-                         f"got g {tuple(g.shape)}, G={num_g}")
+    if g.shape != (b, ni, f):
+        raise ValueError(f"{name}: kernel takes g [B,N,F]; got g "
+                         f"{tuple(g.shape)}")
     if symmetric and ni != nj:
         raise ValueError(f"{name}: the symmetric mode needs a square grid")
     smem = _build.kernel_fn("cfconv_bwd", "cfconv_bwd_smem_bytes",
@@ -393,7 +409,7 @@ def _launch_cfconv_bwd(dist: Tensor, env: Tensor, x: Tensor, g: Tensor,
                                ctypes.c_size_t)(b, ni, nj)
     fn = _build.kernel_fn(
         "cfconv_bwd", "cfconv_bwd",
-        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     size = num_g * f + f + f * f + f
     ddist, denv = torch.empty_like(dist), torch.empty_like(env)
@@ -405,8 +421,9 @@ def _launch_cfconv_bwd(dist: Tensor, env: Tensor, x: Tensor, g: Tensor,
     # work list, made on the device)
     ws = torch.empty(ws_ints, dtype=torch.int32, device=dist.device)
     s0, delta, coeff = _rbf_consts(start, stop, num_g)
-    err = fn(*map(ptr, (dist, env, x, g, w1, b1, w2, b2, ddist, denv, dx,
-                        part, wgrad, ws)),
+    tab = _rbf_table(start, stop, num_g, dist.device)
+    err = fn(*map(ptr, (dist, env, x, g, w1)), _ptr_or_null(tab),
+             *map(ptr, (b1, w2, b2, ddist, denv, dx, part, wgrad, ws)),
              b, ni, nj, f, num_g, s0, delta, coeff, int(symmetric),
              int(sparse), stream(dist))
     check_launch(name, err)
@@ -529,11 +546,9 @@ def _launch_schnet_stack(dist: Tensor, env: Tensor, h0: Tensor,
     b, n, _ = dist.shape
     f = h0.shape[-1]
     n_layers = stacked[0].shape[0]
-    if f != KERNEL_F or stacked[1].shape != (n_layers, num_g, f) \
-            or num_g > KERNEL_MAX_G:
-        raise ValueError(f"schnet_stack: kernel takes F={KERNEL_F}, "
-                         f"G <= {KERNEL_MAX_G} "
-                         f"and W1 [L,G,F]; got h0 {tuple(h0.shape)}, W1 "
+    if f != KERNEL_F or stacked[1].shape != (n_layers, num_g, f):
+        raise ValueError(f"schnet_stack: kernel takes F={KERNEL_F} and W1 "
+                         f"[L,G,F]; got h0 {tuple(h0.shape)}, W1 "
                          f"{tuple(stacked[1].shape)}")
     smem = _build.kernel_fn("schnet_stack", "schnet_stack_smem_bytes",
                             [ctypes.c_int], ctypes.c_size_t)(n)
@@ -542,15 +557,17 @@ def _launch_schnet_stack(dist: Tensor, env: Tensor, h0: Tensor,
                                [ctypes.c_int] * 2, ctypes.c_size_t)(b, n)
     fn = _build.kernel_fn(
         "schnet_stack", "schnet_stack",
-        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
         + [ctypes.c_int, ctypes.c_void_p])
     out = torch.empty_like(h0)
     # x and the messages of every block, and the work list and grid barrier
     xbuf, mbuf = torch.empty_like(h0), torch.empty_like(h0)
     ws = torch.empty(ws_ints, dtype=torch.int32, device=dist.device)
     s0, delta, coeff = _rbf_consts(start, stop, num_g)
-    err = fn(*map(ptr, (dist, env, h0, *stacked, out, xbuf, mbuf, ws)), b, n,
-             f, num_g, n_layers, s0, delta, coeff, int(symmetric),
-             stream(dist))
+    tab = _rbf_table(start, stop, num_g, dist.device)
+    wl1, w1, *rest = stacked
+    err = fn(*map(ptr, (dist, env, h0, wl1, w1)), _ptr_or_null(tab),
+             *map(ptr, (*rest, out, xbuf, mbuf, ws)), b, n, f, num_g,
+             n_layers, s0, delta, coeff, int(symmetric), stream(dist))
     check_launch("schnet_stack", err)
     return out

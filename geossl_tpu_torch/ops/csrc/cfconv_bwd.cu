@@ -71,11 +71,33 @@
 // each item's j-indexed part (dx must be zero on entry). So in SYM mode dx
 // is summed in an order that changes from run to run.
 //
+// Any G (a template on the G class). G <= 64 keeps W1 [64][F] and the RBF
+// [64 pairs][64] in shared memory and dW1 in the warps' accumulators over
+// all the block's tiles. Above 64 none of the three products that involve
+// G fits: W1 [G][F] is 150 KiB at G = 300 beside the 214 KiB that the rest
+// already takes, and dW1's accumulator would need G/64 times the registers
+// of a kernel at 255. So G is walked in chunks of 32 (filter_mma.cuh's
+// W1Stream: W1's chunks through two 16 KiB buffers from L2, the next in
+// flight while the current one's product runs; the RBF 32 columns at a time
+// beside it, recomputed where a pass needs it), twice per tile:
+//   pass 1: the hidden layer's pre-activation rbf W1 summed over the chunks
+//           (each chunk's product added in f32);
+//   pass 2: per chunk drbf = dh W1_c^T, its ddist terms summed per pair
+//           over the chunks in registers (the column warps' partials then
+//           added in a fixed order, as below), and rbf_c^T dh, added in f32
+//           to the chunk's rows of this block's own dW1 partial in global
+//           memory (zeroed at the block's start; each element read and
+//           written by one thread, so no atomics; sum_partials adds the
+//           blocks in order as for G <= 64, and the result repeats bitwise).
+// Shared memory is that of G <= 64 (the chunk buffers are the W1 and RBF
+// buffers), and registers shed dW1's accumulator.
+//
 // Layout. Pair p = jl*8 + il of the tile is row p of every 64-row operand.
 // In the 64x128 products warp (wm, wn) owns rows 16*kMB*wm.. and columns
 // 32*wn..: lane (g, t) holds pairs (jl = 2*(kMB*wm + mb) + h, il = g), so a
 // sum over i is a sum over the 8 lanes of one t (rs_lanes) and a sum over f
 // a sum over t and then over the four column warps.
+#include "filter_mma.cuh"
 #include "mma_tf32.cuh"
 #include "pair_tile.cuh"
 #include "reduce.cuh"
@@ -92,9 +114,9 @@ constexpr int kRS = kF + 8;          // row stride of the 8-row tiles (bank spre
 constexpr int kTR = kTile * kRS;     // floats of one 8-row tile
 
 // shared memory of the main kernel, in floats
-constexpr int kOffW1 = 0;                         // [kGP][kF] swizzled
+constexpr int kOffW1 = 0;                         // [kGP][kF] swizzled (G > 64: 2 chunks)
 constexpr int kOffW2 = kOffW1 + kGP * kF;         // [kF][kF] swizzled
-constexpr int kOffRbf = kOffW2 + kF * kF;         // [kPairs][kGP] swizzled
+constexpr int kOffRbf = kOffW2 + kF * kF;         // [kPairs][kGP] swizzled (G > 64: 2 chunks)
 constexpr int kOffS = kOffRbf + kPairs * kGP;     // [kPairs][kF] swizzled: s, then dh
 constexpr int kOffQe = kOffS + kPairs * kF;       // [kPairs][kF] swizzled: qe
 constexpr int kOffX = kOffQe + kPairs * kF;       // [8][kRS] x rows of the item
@@ -108,19 +130,39 @@ constexpr int kOffE = kOffD + 2 * kPairs;         // [2][64] env, [il][jl]
 constexpr int kOffB1 = kOffE + 2 * kPairs;        // [kF]
 constexpr int kOffB2 = kOffB1 + kF;               // [kF]
 constexpr int kOffDen = kOffB2 + kF;              // [4][64] denv partials
-constexpr int kOffDd = kOffDen + 4 * kPairs;      // [4][64] ddist partials
+constexpr int kOffDd = kOffDen + 4 * kPairs;      // [4][64] ddist partials (G > 64: [2][64])
 constexpr int kSmemFloats = kOffDd + 4 * kPairs;  // then ints: misc[4], tile list [nti]
 
 // Floats of one block's partial weight gradients: [dW1 G*F][db1 F][dW2 F*F][db2 F]
 __host__ __device__ inline int wgrad_size(int G) { return G * kF + kF + kF * kF + kF; }
 
-template <bool SYM>
+// G > 64: the dW1 rows of chunk c that lane (g, t) of warp w owns in pass 2
+// (rows 16 mb + g + 8 h of the chunk, columns 16 w + 8 nb + 2 t + 0/1):
+// f(mb, nb, h, dst) for each whose row is < G, dst its two floats in pw1.
+template <typename Fn>
+__device__ __forceinline__ void dw1_chunk_cells(float* pw1, int c, int G, Fn f) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = c * kKC + 16 * mb + g + 8 * h;
+      if (r >= G) continue;
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+        f(mb, nb, h, reinterpret_cast<float2*>(pw1 + (size_t)r * kF + 16 * warp + 8 * nb + 2 * t));
+    }
+}
+
+// kBig: G > kGP (the header's two passes over W1's chunks).
+template <bool SYM, bool kBig>
 __global__ void __launch_bounds__(kBT, 1)
 cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
                   const float* __restrict__ x, const float* __restrict__ gr,
-                  const float* __restrict__ w1, const float* __restrict__ b1,
-                  const float* __restrict__ w2, const float* __restrict__ b2,
-                  const int* __restrict__ occ, const int* __restrict__ pre,
+                  const float* __restrict__ w1, const float* __restrict__ rbf_tab,
+                  const float* __restrict__ b1, const float* __restrict__ w2,
+                  const float* __restrict__ b2, const int* __restrict__ occ,
+                  const int* __restrict__ pre,
                   float* __restrict__ ddist, float* __restrict__ denv,
                   float* __restrict__ dx, float* __restrict__ part, int B,
                   int ni, int nj, int G, float start, float delta, float coeff) {
@@ -150,13 +192,21 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
   const int ntj = (nj + kTile - 1) / kTile, nti = (ni + kTile - 1) / kTile;
   const int n_items = B * ntj;
 
-  for (int idx = tid; idx < kGP * kF; idx += kBT) {
-    const int r = idx / kF, c = idx % kF;
-    W1_s[swz_at(kF, r, c)] = r < G ? w1[idx] : 0.f;
+  W1Stream w1s(W1_s, w1, G, rbf_tab);
+  float* pw1 = part + (size_t)blockIdx.x * wgrad_size(G);  // this block's partial dW1
+  if (kBig) {
+    load_w1_chunk(W1_s, w1, 0, G);  // the first tile's first chunk
+    for (int c = 0; c < w1s.n; ++c)
+      dw1_chunk_cells(pw1, c, G, [](int, int, int, float2* d) { *d = make_float2(0.f, 0.f); });
+  } else {
+    for (int idx = tid; idx < kGP * kF; idx += kBT) {
+      const int r = idx / kF, c = idx % kF;
+      W1_s[swz_at(kF, r, c)] = r < G ? w1[idx] : 0.f;
+    }
+    for (int idx = tid; idx < kPairs * kGP; idx += kBT) rbf_s[idx] = 0.f;  // columns >= G stay 0
   }
   for (int idx = tid; idx < kF * kF; idx += kBT)
     W2_s[swz_at(kF, idx / kF, idx % kF)] = w2[idx];
-  for (int idx = tid; idx < kPairs * kGP; idx += kBT) rbf_s[idx] = 0.f;  // columns >= G stay 0
   for (int idx = tid; idx < kTR; idx += kBT) mir_s[idx] = 0.f;
   if (tid < kF) {
     b1_s[tid] = b1[tid];
@@ -244,17 +294,9 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
       float* ddist_b = ddist + (size_t)b * ni * nj;
       float* denv_b = denv + (size_t)b * ni * nj;
 
-      // RBF of the tile's 64 pairs (row p = jl*8 + il)
-      for (int idx = tid; idx < kPairs * kGP; idx += kBT) {
-        const int p = idx / kGP, gg = idx % kGP;
-        if (gg < G) {
-          const float diff = d_t[(p & 7) * kTile + (p >> 3)] - (start + delta * (float)gg);
-          rbf_s[swz_at(kGP, p, gg)] = __expf(coeff * diff * diff);
-        }
-      }
-      __syncthreads();
-
-      // hidden s = ssp(rbf W1 + b1) into s_s
+      // hidden s = ssp(rbf W1 + b1) into s_s, with the RBF of the tile's 64
+      // pairs (row p = jl*8 + il); kBig: pass 1 over W1's chunks (chunk 0
+      // landed at the wait above), chunk 0 fetched again for pass 2
       float acc[kMB][4][4];
 #pragma unroll
       for (int mb = 0; mb < kMB; ++mb)
@@ -262,10 +304,22 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
         for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
           for (int q = 0; q < 4; ++q) acc[mb][nb][q] = 0.f;
-      if (G <= 56)
-        warp_tile_mma<kMB, 4, 56, false, false>(acc, rbf_s, kGP, 16 * kMB * wm, W1_s, kF, 32 * wn);
-      else
-        warp_tile_mma<kMB, 4, kGP, false, false>(acc, rbf_s, kGP, 16 * kMB * wm, W1_s, kF, 32 * wn);
+      if (kBig) {
+        rbf_w1_streamed<kMB, false>(w1s, rbf_s, d_t, 16 * kMB * wm, 32 * wn, true, acc);
+      } else {
+        for (int idx = tid; idx < kPairs * kGP; idx += kBT) {
+          const int p = idx / kGP, gg = idx % kGP;
+          if (gg < G) {
+            const float diff = d_t[(p & 7) * kTile + (p >> 3)] - (start + delta * (float)gg);
+            rbf_s[swz_at(kGP, p, gg)] = __expf(coeff * diff * diff);
+          }
+        }
+        __syncthreads();
+        if (G <= 56)
+          warp_tile_mma<kMB, 4, 56, false, false>(acc, rbf_s, kGP, 16 * kMB * wm, W1_s, kF, 32 * wn);
+        else
+          warp_tile_mma<kMB, 4, kGP, false, false>(acc, rbf_s, kGP, 16 * kMB * wm, W1_s, kF, 32 * wn);
+      }
 #pragma unroll
       for (int mb = 0; mb < kMB; ++mb)
 #pragma unroll
@@ -434,47 +488,111 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
                    acc[mb][nb][2 * h], acc[mb][nb][2 * h + 1]);
       __syncthreads();  // dh complete in s_s
 
-      // ddist = sum_g (dh W1^T)[g] rbf_g 2 coeff (d - off_g), columns 16*wn..
-      {
-        float ar[kMB][2][4];
-#pragma unroll
-        for (int mb = 0; mb < kMB; ++mb)
+      if (kBig) {
+        // pass 2 over W1's chunks: per chunk drbf = dh W1_c^T (warp (wr, wc)
+        // = (warp & 3, warp >> 2): rows 16 wr.., chunk columns 16 wc..) and its
+        // ddist terms, summed per pair over the chunks in dds; dW1's chunk
+        // rows += rbf_c^T dh (warp w: the chunk's 32 rows, columns 16 w..),
+        // added in f32 to this block's partial
+        const int wr = warp & 3, wc = warp >> 2;
+        float dds[2] = {0.f, 0.f};
+        cp_async_wait<0>();  // chunk 0 (fetched by pass 1's last chunk) has landed
+        for (int c = 0; c < w1s.n; ++c) {
+          if (c > 0) cp_async_wait<0>();
+          float* rb = w1s.rbf(rbf_s);
+          rbf_chunk(rb, d_t, c, G, w1s.off, w1s.coeff);
+          __syncthreads();  // chunk c and its RBF visible; every warp done with chunk c - 1
+          w1s.fetch(c + 1 < w1s.n ? c + 1 : 0);  // after the last: the next tile's pass 1
+          float ar[1][2][4];
 #pragma unroll
           for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
-            for (int q = 0; q < 4; ++q) ar[mb][nb][q] = 0.f;
-        warp_tile_mma<kMB, 2, kF, false, true>(ar, s_s, kF, 16 * kMB * wm, W1_s, kF, 16 * wn);
-#pragma unroll
-        for (int mb = 0; mb < kMB; ++mb)
+            for (int q = 0; q < 4; ++q) ar[0][nb][q] = 0.f;
+          warp_tile_mma<1, 2, kF, false, true>(ar, s_s, kF, 16 * wr, w1s.cur(), kF, 16 * wc);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const int p = 16 * (kMB * wm + mb) + g + 8 * h;
+            const int p = 16 * wr + g + 8 * h;
             const float d = d_t[(p & 7) * kTile + (p >> 3)];
-            float s = 0.f;
 #pragma unroll
             for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
-              for (int c = 0; c < 2; ++c) {
-                const int gg = 16 * wn + 8 * nb + 2 * t + c;
+              for (int cc = 0; cc < 2; ++cc) {
+                const int gl = 16 * wc + 8 * nb + 2 * t + cc, gg = c * kKC + gl;
                 if (gg < G) {
-                  const float diff = d - (start + delta * (float)gg);
-                  s = fmaf(ar[mb][nb][2 * h + c] * rbf_s[swz_at(kGP, p, gg)], 2.f * coeff * diff,
-                           s);
+                  const float diff = d - __ldg(w1s.off + gg);
+                  dds[h] = fmaf(ar[0][nb][2 * h + cc] * rb[swz_at(kKC, p, gl)],
+                                2.f * w1s.coeff * diff, dds[h]);
                 }
               }
-            s = quad_sum(s);
-            if (t == 0) dd_p[wn * kPairs + p] = s;
           }
-      }
+          // dW1 rows of chunk c: this lane's cells of the partial are read
+          // before the product and written after it
+          float2 old[2][2][2];
+          dw1_chunk_cells(pw1, c, G, [&](int mb, int nb, int h, float2* d) { old[mb][nb][h] = *d; });
+          float aw[2][2][4];
+#pragma unroll
+          for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+            for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) aw[mb][nb][q] = 0.f;
+          warp_tile_mma<2, 2, kPairs, true, false>(aw, rb, kKC, 0, s_s, kF, 16 * warp);
+          dw1_chunk_cells(pw1, c, G, [&](int mb, int nb, int h, float2* d) {
+            *d = make_float2(old[mb][nb][h].x + aw[mb][nb][2 * h],
+                             old[mb][nb][h].y + aw[mb][nb][2 * h + 1]);
+          });
+          ++w1s.k;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float v = quad_sum(dds[h]);
+          if (t == 0) dd_p[wc * kPairs + 16 * wr + g + 8 * h] = v;
+        }
+        __syncthreads();  // the tile's scratch is free; dd_p complete
+      } else {
+        // ddist = sum_g (dh W1^T)[g] rbf_g 2 coeff (d - off_g), columns 16*wn..
+        {
+          float ar[kMB][2][4];
+#pragma unroll
+          for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+            for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) ar[mb][nb][q] = 0.f;
+          warp_tile_mma<kMB, 2, kF, false, true>(ar, s_s, kF, 16 * kMB * wm, W1_s, kF, 16 * wn);
+#pragma unroll
+          for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int p = 16 * (kMB * wm + mb) + g + 8 * h;
+              const float d = d_t[(p & 7) * kTile + (p >> 3)];
+              float s = 0.f;
+#pragma unroll
+              for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                  const int gg = 16 * wn + 8 * nb + 2 * t + c;
+                  if (gg < G) {
+                    const float diff = d - (start + delta * (float)gg);
+                    s = fmaf(ar[mb][nb][2 * h + c] * rbf_s[swz_at(kGP, p, gg)], 2.f * coeff * diff,
+                             s);
+                  }
+                }
+              s = quad_sum(s);
+              if (t == 0) dd_p[wn * kPairs + p] = s;
+            }
+        }
 
-      // dW1 += rbf^T dh
-      warp_tile_mma<kMB, 4, kPairs, true, false>(aw1, rbf_s, kGP, 16 * kMB * wm, s_s, kF, 32 * wn);
-      __syncthreads();  // the tile's scratch is free; dd_p complete
+        // dW1 += rbf^T dh
+        warp_tile_mma<kMB, 4, kPairs, true, false>(aw1, rbf_s, kGP, 16 * kMB * wm, s_s, kF, 32 * wn);
+        __syncthreads();  // the tile's scratch is free; dd_p complete
+      }
 
       if (tid < kPairs) {
         const int i = i0 + (tid & 7), j = j0 + (tid >> 3);
-        const float s = dd_p[tid] + dd_p[kPairs + tid] + dd_p[2 * kPairs + tid] +
-                        dd_p[3 * kPairs + tid];
+        const float s = kBig ? dd_p[tid] + dd_p[kPairs + tid]
+                             : dd_p[tid] + dd_p[kPairs + tid] + dd_p[2 * kPairs + tid] +
+                                   dd_p[3 * kPairs + tid];
         if (i < ni && j < nj) ddist_b[(size_t)i * nj + j] = s;
       }
     }
@@ -492,9 +610,8 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
     }
   }
 
-  // this block's partial weight gradients
-  float* out = part + (size_t)blockIdx.x * wgrad_size(G);
-  float* pw1 = out;
+  // this block's partial weight gradients (kBig: dW1's are written)
+  if (kBig) cp_async_wait<0>();  // the last tile's fetch of a chunk nobody reads
   float* pb1 = pw1 + G * kF;
   float* pw2 = pb1 + kF;
   float* pb2 = pw2 + kF * kF;
@@ -512,7 +629,7 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
 #pragma unroll
       for (int mb = 0; mb < kMB; ++mb) {
         const int r = 16 * (kMB * wm + mb) + g + 8 * h;
-        if (r < G) {
+        if (!kBig && r < G) {
           pw1[r * kF + c0] = aw1[mb][nb][2 * h];
           pw1[r * kF + c0 + 1] = aw1[mb][nb][2 * h + 1];
         }
@@ -547,7 +664,7 @@ static size_t smem_bytes(int ni) {
 
 template <bool SYM>
 static cudaError_t launch(const float* dist, const float* env, const float* x,
-                          const float* g, const float* w1, const float* b1,
+                          const float* g, const float* w1, const float* rbf_tab, const float* b1,
                           const float* w2, const float* b2, float* ddist, float* denv,
                           float* dx, float* part, int* ws, int blocks, int B, int ni,
                           int nj, int G, float start, float delta, float coeff,
@@ -560,11 +677,12 @@ static cudaError_t launch(const float* dist, const float* env, const float* x,
   cudaError_t err = make_worklist<SYM, false>(env, ws, zero, B, ni, nj, sparse, s);
   if (err != cudaSuccess) return err;
   const size_t smem = smem_bytes(ni);
-  cudaFuncSetAttribute(cfconv_bwd_kernel<SYM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  cfconv_bwd_kernel<SYM><<<blocks, kBT, smem, s>>>(dist, env, x, g, w1, b1, w2, b2, occ, pre,
-                                                   ddist, denv, dx, part, B, ni, nj, G, start,
-                                                   delta, coeff);
+  // the instance of G's class
+  auto kernel = G > kGP ? cfconv_bwd_kernel<SYM, true> : cfconv_bwd_kernel<SYM, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kBT, smem, s>>>(dist, env, x, g, w1, rbf_tab, b1, w2, b2, occ, pre, ddist,
+                                   denv, dx, part, B, ni, nj, G, start, delta, coeff);
   return cudaGetLastError();
 }
 
@@ -587,26 +705,27 @@ extern "C" size_t cfconv_bwd_ws_ints(int B, int ni, int nj) {
 // Returns the cudaError_t of the launches (0 on success). `part` holds
 // cfconv_bwd_blocks(B, nj) rows of G*F + F + F*F + F floats; `wgrad` (same
 // row size) receives dW1 [G,F], db1 [F], dW2 [F,F], db2 [F]; `ws` holds
-// cfconv_bwd_ws_ints(B, ni, nj) ints. F must be 128 and G at most 64. With
+// cfconv_bwd_ws_ints(B, ni, nj) ints. F must be 128, G >= 1 (any; above
+// kGP with `rbf_tab` as cfconv_fwd's, else null). With
 // `symmetric` (square grid only) ddist/denv are placed as the header says
 // and `dx` must be zero on entry.
 extern "C" int cfconv_bwd(const float* dist, const float* env, const float* x,
-                          const float* g, const float* w1, const float* b1,
+                          const float* g, const float* w1, const float* rbf_tab, const float* b1,
                           const float* w2, const float* b2, float* ddist,
                           float* denv, float* dx, float* part, float* wgrad, int* ws,
                           int B, int ni, int nj, int F, int G, float start,
                           float delta, float coeff, int symmetric, int sparse,
                           void* stream) {
   using namespace geossl;
-  if (F != kF || G > kGP || G < 1 || (symmetric && ni != nj))
+  if (F != kF || G < 1 || (symmetric && ni != nj) || (G > kGP && !rbf_tab))
     return (int)cudaErrorInvalidValue;
   const int blocks = cfconv_bwd_blocks(B, nj);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err =
-      symmetric ? launch<true>(dist, env, x, g, w1, b1, w2, b2, ddist, denv, dx, part, ws,
-                               blocks, B, ni, nj, G, start, delta, coeff, sparse, s)
-                : launch<false>(dist, env, x, g, w1, b1, w2, b2, ddist, denv, dx, part, ws,
-                                blocks, B, ni, nj, G, start, delta, coeff, sparse, s);
+      symmetric ? launch<true>(dist, env, x, g, w1, rbf_tab, b1, w2, b2, ddist, denv, dx, part,
+                               ws, blocks, B, ni, nj, G, start, delta, coeff, sparse, s)
+                : launch<false>(dist, env, x, g, w1, rbf_tab, b1, w2, b2, ddist, denv, dx, part,
+                                ws, blocks, B, ni, nj, G, start, delta, coeff, sparse, s);
   if (err != cudaSuccess) return (int)err;
   sum_partials(part, blocks, wgrad_size(G), wgrad, s);
   return (int)cudaGetLastError();

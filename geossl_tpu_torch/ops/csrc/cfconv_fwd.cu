@@ -35,9 +35,8 @@
 //   `sparse`) are written as zeros, spread over the grid;
 // - products: both filter products of each tile on the tensor cores in the
 //   plain 3xTF32 split (filter_mma.cuh, as the symmetric mode), W1 and W2
-//   staged once per block; any G: the first product runs in k steps of 32
-//   above G = 64 (its padded rows zero), and above G = 64 the hidden layer
-//   reuses the RBF's shared memory (one barrier more per tile);
+//   staged once per block; above G = 64 (both modes) W1 streams in chunks
+//   of 32 rows (see below);
 // - loads: the next tile's dist/env and x rows with cp.async (double
 //   buffer) while the current tile's products run;
 // - rows: lane (g, t) of warp (wm, wn) sums row il = g over the warp's four
@@ -69,6 +68,18 @@
 //   Both go to `out` by global atomicAdd, so `out` must be zero on entry and
 //   the summation order varies from run to run (f32 rounding; chip_smoke.py
 //   checks that two launches agree within the kernel's tolerance).
+//
+// Any G (both modes, a template on the G class): G <= 64 keeps W1 [64][F]
+// in shared memory, staged once per block, and the RBF [64 pairs][64]. Above
+// 64, W1 [G][F] (150 KiB at G = 300) does not fit beside W2 and the tiles,
+// so it streams from L2: per tile the first product walks W1 in chunks of 32
+// rows through two 16 KiB buffers (cp.async, the next chunk in flight while
+// the current chunk's product runs, the first chunk of the next tile
+// fetched during the last one of this tile), with the RBF computed 32
+// columns at a time beside it (filter_mma.cuh's rbf_w1_streamed: one
+// barrier per chunk; each chunk's product added to the sum in f32). The
+// buffers are those of G <= 64's W1 and RBF, so shared memory, and the one
+// block per SM, do not change with G.
 #include "filter_mma.cuh"
 #include "mma_tf32.cuh"
 #include "pair_tile.cuh"
@@ -81,18 +92,16 @@ namespace geossl {
 // header says why)
 constexpr bool kPrecise = false;
 
-// shared memory of the plain-mode kernel, in floats; then W1 [gp][kF], the
-// RBF [kPairs][gp] and the hidden layer [kPairs][kF] (at G > 64 the hidden
-// layer takes the RBF's place), all swizzled
+// shared memory of the plain-mode kernel, in floats
 constexpr int kPOffW2 = 0;                          // [kF][kF] swizzled
 constexpr int kPOffX = kPOffW2 + kF * kF;           // [2][8][kSRS] x rows of the j tile
 constexpr int kPOffDE = kPOffX + 2 * kTile * kSRS;  // [2][2][64] dist, env, [il][jl]
 constexpr int kPOffB = kPOffDE + 4 * kPairs;        // [2][kF] b1, b2
 constexpr int kPOffRed = kPOffB + 2 * kF;           // [4][32][8] row sums of the warps wm = 1
-constexpr int kPOffW1 = kPOffRed + 4 * 32 * 8;
-
-// G padded: kSGP, or a multiple of 32 above it.
-__host__ __device__ inline int padded_g(int G) { return G <= kSGP ? kSGP : (G + 31) / 32 * 32; }
+constexpr int kPOffW1 = kPOffRed + 4 * 32 * 8;      // [kSGP][kF] swizzled (G > 64: 2 chunks)
+constexpr int kPOffRbf = kPOffW1 + kSGP * kF;       // [kPairs][kSGP] swizzled (G > 64: 2 chunks)
+constexpr int kPOffS = kPOffRbf + kPairs * kSGP;    // [kPairs][kF] swizzled: the hidden layer
+constexpr int kPlainFloats = kPOffS + kPairs * kF;
 
 // Block k runs listed tiles [run_begin(k), run_begin(k + 1)) of the tile
 // list (worklist.cuh: items (graph, 8-row i tile), each listing its j
@@ -100,25 +109,26 @@ __host__ __device__ inline int padded_g(int G) { return G <= kSGP ? kSGP : (G + 
 // landed, every warp done with the previous one), then filter_tile_mma's
 // two. An item that lies whole in the run goes to `out`; the run's first
 // and last item, where a run boundary splits them, go to this block's
-// partial slots 0 and 1 of `part` [blocks][2][8][kF].
+// partial slots 0 and 1 of `part` [blocks][2][8][kF]. kBig: G > kSGP.
+template <bool kBig>
 __global__ void __launch_bounds__(kThreads, 1)
 cfconv_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
                   const float* __restrict__ x, const float* __restrict__ w1,
-                  const float* __restrict__ b1, const float* __restrict__ w2,
+                  const float* __restrict__ rbf_tab, const float* __restrict__ b1, const float* __restrict__ w2,
                   const float* __restrict__ b2, float* __restrict__ out,
                   float* __restrict__ part, const int* __restrict__ pre,
                   const int* __restrict__ list, int B, int ni, int nj, int G, float start,
                   float delta, float coeff) {
   extern __shared__ float4 smem_v4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem_v4);
-  const int gp = padded_g(G);
   float* W2_s = smem + kPOffW2;
   float* b1_s = smem + kPOffB;
   float* b2_s = b1_s + kF;
   float* red_s = smem + kPOffRed;
   float* W1_s = smem + kPOffW1;
-  float* rbf_s = W1_s + gp * kF;
-  float* s_s = gp == kSGP ? rbf_s + kPairs * gp : rbf_s;
+  float* rbf_s = smem + kPOffRbf;
+  float* s_s = smem + kPOffS;
+  W1Stream w1s(W1_s, w1, G, rbf_tab);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, wm = warp & 1, wn = warp >> 1;
@@ -144,11 +154,16 @@ cfconv_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
   const int t_end = run_begin(total, gridDim.x, blockIdx.x + 1);
   if (t_begin >= t_end) return;  // block-uniform: an empty run
 
-  // the weights, once per block (W1's rows >= G zero; the RBF's padding
-  // columns zero where the hidden layer does not take its place)
-  for (int c = tid; c < gp * kF / 4; c += kThreads) {
-    const int r = c / (kF / 4), f = (c % (kF / 4)) * 4;
-    cp_async16(W1_s + swz_at(kF, r, f), w1 + (r < G ? r * kF + f : 0), r < G);
+  // the weights, once per block (W1's rows >= G and the RBF's columns >= G
+  // zero); kBig: W1's first chunk
+  if (kBig) {
+    load_w1_chunk(W1_s, w1, 0, G);
+  } else {
+    for (int c = tid; c < kSGP * kF / 4; c += kThreads) {
+      const int r = c / (kF / 4), f = (c % (kF / 4)) * 4;
+      cp_async16(W1_s + swz_at(kF, r, f), w1 + (r < G ? r * kF + f : 0), r < G);
+    }
+    for (int idx = tid; idx < kPairs * kSGP; idx += kThreads) rbf_s[idx] = 0.f;
   }
   for (int c = tid; c < kF * kF / 4; c += kThreads) {
     const int r = c / (kF / 4), f = (c % (kF / 4)) * 4;
@@ -159,8 +174,6 @@ cfconv_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
     b1_s[tid] = b1[tid];
     b2_s[tid] = b2[tid];
   }
-  if (s_s != rbf_s)
-    for (int idx = tid; idx < kPairs * gp; idx += kThreads) rbf_s[idx] = 0.f;
 
   // issues the cp.async loads of listed tile v into buffer buf: dist/env,
   // then the x rows of its j tile
@@ -237,12 +250,10 @@ cfconv_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
 
     // the filter (filter_mma.cuh), then the messages of rows i
     float acc[2][4][4];
-    if (gp == kSGP)
-      filter_tile_mma<kPrecise>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, kSGP, start, delta, coeff,
-                                acc);
-    else  // the hidden layer in the RBF's place
-      filter_tile_mma<kPrecise, true>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, gp, start, delta,
-                                      coeff, acc);
+    if (kBig)
+      filter_tile_mma_streamed<kPrecise>(d_t, rbf_s, s_s, w1s, W2_s, b1_s, k + 1 < t_end, acc);
+    else
+      filter_tile_mma<kPrecise>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, start, delta, coeff, acc);
     tile_messages<false>(acc, b2_s, e_t, xj_t, nullptr, racc, nullptr, j0, nj, false);
     v = v_next;
   }
@@ -282,9 +293,9 @@ cfconv_fwd_join_kernel(float* __restrict__ out, const float* __restrict__ part,
 // -- symmetric mode ------------------------------------------------------------
 
 // shared memory of the symmetric kernel, in floats
-constexpr int kSOffW1 = 0;                           // [kSGP][kF] swizzled
+constexpr int kSOffW1 = 0;                           // [kSGP][kF] swizzled (G > 64: 2 chunks)
 constexpr int kSOffW2 = kSOffW1 + kSGP * kF;         // [kF][kF] swizzled
-constexpr int kSOffRbf = kSOffW2 + kF * kF;          // [kPairs][kSGP] swizzled
+constexpr int kSOffRbf = kSOffW2 + kF * kF;          // [kPairs][kSGP] swizzled (G > 64: 2 chunks)
 constexpr int kSOffS = kSOffRbf + kPairs * kSGP;     // [kPairs][kF] swizzled
 constexpr int kSOffX = kSOffS + kPairs * kF;         // [2][2][8][kSRS] x rows: j tile, i tile
 constexpr int kSOffDE = kSOffX + 4 * kTile * kSRS;   // [2][2][64] dist, env, [il][jl]
@@ -296,11 +307,12 @@ constexpr int kSymFloats = kSOffB + 2 * kF;
 // order: (graph, 8-row i tile) items, and within an item its tiles pj >= pi.
 // Pair p = jl*8 + il of a tile is row p of its 64-row operands; warp (wm,
 // wn) owns rows 32*wm.. and columns 32*wn.. of each 64 x F product, so lane
-// (g, t) holds pairs (jl = 4*wm + 2*mb + h, il = g).
+// (g, t) holds pairs (jl = 4*wm + 2*mb + h, il = g). kBig: G > kSGP.
+template <bool kBig>
 __global__ void __launch_bounds__(kThreads, 1)
 cfconv_fwd_sym_kernel(const float* __restrict__ dist, const float* __restrict__ env,
                       const float* __restrict__ x, const float* __restrict__ w1,
-                      const float* __restrict__ b1, const float* __restrict__ w2,
+                      const float* __restrict__ rbf_tab, const float* __restrict__ b1, const float* __restrict__ w2,
                       const float* __restrict__ b2, float* out,
                       const int* __restrict__ list, const int* __restrict__ total_p,
                       int n, int G, float start, float delta, float coeff) {
@@ -312,6 +324,7 @@ cfconv_fwd_sym_kernel(const float* __restrict__ dist, const float* __restrict__ 
   float* s_s = smem + kSOffS;
   float* b1_s = smem + kSOffB;
   float* b2_s = b1_s + kF;
+  W1Stream w1s(W1_s, w1, G, rbf_tab);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, wn = warp >> 1;
@@ -321,10 +334,15 @@ cfconv_fwd_sym_kernel(const float* __restrict__ dist, const float* __restrict__ 
   const int t_end = run_begin(total, gridDim.x, blockIdx.x + 1);
   if (t_begin >= t_end) return;  // block-uniform: an empty run
 
-  // the weights, once per block (W1's rows >= G and rbf's columns >= G zero)
-  for (int c = tid; c < kSGP * kF / 4; c += kThreads) {
-    const int r = c / (kF / 4), f = (c % (kF / 4)) * 4;
-    cp_async16(W1_s + swz_at(kF, r, f), w1 + (r < G ? r * kF + f : 0), r < G);
+  // the weights, once per block (W1's rows >= G and rbf's columns >= G
+  // zero); kBig: W1's first chunk
+  if (kBig) {
+    load_w1_chunk(W1_s, w1, 0, G);
+  } else {
+    for (int c = tid; c < kSGP * kF / 4; c += kThreads) {
+      const int r = c / (kF / 4), f = (c % (kF / 4)) * 4;
+      cp_async16(W1_s + swz_at(kF, r, f), w1 + (r < G ? r * kF + f : 0), r < G);
+    }
   }
   for (int c = tid; c < kF * kF / 4; c += kThreads) {
     const int r = c / (kF / 4), f = (c % (kF / 4)) * 4;
@@ -335,7 +353,8 @@ cfconv_fwd_sym_kernel(const float* __restrict__ dist, const float* __restrict__ 
     b1_s[tid] = b1[tid];
     b2_s[tid] = b2[tid];
   }
-  for (int idx = tid; idx < kPairs * kSGP; idx += kThreads) rbf_s[idx] = 0.f;
+  if (!kBig)
+    for (int idx = tid; idx < kPairs * kSGP; idx += kThreads) rbf_s[idx] = 0.f;
 
   // issues the cp.async loads of listed tile v into buffer buf: dist/env,
   // then the x rows of its j tile and of its i tile
@@ -400,7 +419,10 @@ cfconv_fwd_sym_kernel(const float* __restrict__ dist, const float* __restrict__ 
 
     // the filter (filter_mma.cuh), then the messages
     float acc[2][4][4];
-    filter_tile_mma<kPrecise>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, kSGP, start, delta, coeff, acc);
+    if (kBig)
+      filter_tile_mma_streamed<kPrecise>(d_t, rbf_s, s_s, w1s, W2_s, b1_s, k + 1 < t_end, acc);
+    else
+      filter_tile_mma<kPrecise>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, start, delta, coeff, acc);
     tile_messages<true>(acc, b2_s, e_t, xj_t, xi_t, racc, out + (size_t)b * n * kF, j0, n,
                         pi != pj);
     v = v_next;
@@ -408,21 +430,50 @@ cfconv_fwd_sym_kernel(const float* __restrict__ dist, const float* __restrict__ 
   flush();
 }
 
-static size_t smem_bytes(int G, int symmetric) {
-  if (symmetric) return sizeof(float) * (size_t)kSymFloats;
-  const int gp = padded_g(G);
-  const int hidden = gp == kSGP ? kPairs * (gp + kF) : kPairs * (gp > kF ? gp : kF);
-  return sizeof(float) * ((size_t)kPOffW1 + (size_t)gp * kF + hidden);
-}
-
-extern "C" size_t cfconv_fwd_smem_bytes(int G, int symmetric) {
-  return geossl::smem_bytes(G, symmetric);
-}
-
 // The tile list's ints, rounded up to whole 16-byte groups.
 static size_t list_ints(int B, int ni, int nj) {
   const size_t n = tile_list_ints((size_t)B * ((ni + kTile - 1) / kTile), (nj + kTile - 1) / kTile);
   return (n + 3) / 4 * 4;
+}
+
+// the same for every G (W1 streams above 64)
+static size_t smem_bytes(int symmetric) {
+  return sizeof(float) * (size_t)(symmetric ? kSymFloats : kPlainFloats);
+}
+
+extern "C" size_t cfconv_fwd_smem_bytes(int symmetric) { return geossl::smem_bytes(symmetric); }
+
+template <bool kBig>
+static cudaError_t launch(const float* dist, const float* env, const float* x, const float* w1,
+                          const float* rbf_tab, const float* b1, const float* w2, const float* b2,
+                          float* out, int* ws,
+                          int B, int ni, int nj, int G, float start, float delta, float coeff,
+                          int symmetric, cudaStream_t s) {
+  const size_t smem = smem_bytes(symmetric);
+  const int nti = (ni + kTile - 1) / kTile, ntj = (nj + kTile - 1) / kTile, items = B * nti;
+  const int* pre = ws + (size_t)items * ntj + items;
+  const int* list = ws + worklist_ints(items, ntj);
+  cudaError_t err;
+  if (!symmetric) {
+    err = cudaFuncSetAttribute(cfconv_fwd_kernel<kBig>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const int blocks = persistent_blocks(items * ntj);
+    float* part = reinterpret_cast<float*>(ws + list_ints(B, ni, nj));
+    cfconv_fwd_kernel<kBig><<<blocks, kThreads, smem, s>>>(dist, env, x, w1, rbf_tab, b1, w2,
+                                                           b2, out, part, pre, list, B, ni, nj,
+                                                           G, start, delta, coeff);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    cfconv_fwd_join_kernel<<<blocks, kThreads, 0, s>>>(out, part, pre, list, B, ni, nj, blocks);
+    return cudaGetLastError();
+  }
+  err = cudaFuncSetAttribute(cfconv_fwd_sym_kernel<kBig>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cfconv_fwd_sym_kernel<kBig><<<persistent_blocks(items * ntj), kThreads, smem, s>>>(
+      dist, env, x, w1, rbf_tab, b1, w2, b2, out, list, pre + items, ni, G, start, delta, coeff);
+  return cudaGetLastError();
 }
 
 }  // namespace geossl
@@ -438,45 +489,27 @@ extern "C" size_t cfconv_fwd_ws_ints(int B, int ni, int nj, int symmetric) {
   return list_ints(B, ni, nj) + (size_t)blocks * 2 * kTile * kF;
 }
 
-// Returns the cudaError_t of the launches (0 on success). F must be 128;
-// `ws` holds cfconv_fwd_ws_ints(B, ni, nj, symmetric) ints. With symmetric != 0:
-// dist/env symmetric and square, G <= 64, `out` zero on entry; otherwise
-// any G whose shared memory fits (cfconv_fwd_smem_bytes), every row of
-// `out` written.
+// Returns the cudaError_t of the launches (0 on success). F must be 128,
+// G >= 1 (any: above kSGP W1 streams, and `rbf_tab` [G + 1] holds the RBF's
+// offsets and coefficient, filter_mma.cuh's W1Stream; null at G <= kSGP,
+// which takes start + delta k); `ws` holds cfconv_fwd_ws_ints(B, ni, nj,
+// symmetric) ints. With symmetric != 0: dist/env symmetric and square,
+// `out` zero on entry; otherwise every row of `out` is written.
 extern "C" int cfconv_fwd(const float* dist, const float* env, const float* x,
-                          const float* w1, const float* b1, const float* w2,
+                          const float* w1, const float* rbf_tab, const float* b1, const float* w2,
                           const float* b2, float* out, int* ws, int B, int ni, int nj,
                           int F, int G, float start, float delta, float coeff,
                           int symmetric, int sparse, void* stream) {
   using namespace geossl;
-  if (F != kF || G < 1 || (symmetric && (ni != nj || G > kSGP)))
+  if (F != kF || G < 1 || (symmetric && ni != nj) || (G > kSGP && !rbf_tab))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(G, symmetric);
   cudaStream_t s = (cudaStream_t)stream;
-  const int nti = (ni + kTile - 1) / kTile, ntj = (nj + kTile - 1) / kTile, items = B * nti;
   cudaError_t err = symmetric ? make_tile_list<true>(env, ws, B, ni, nj, sparse, s)
                               : make_tile_list<false>(env, ws, B, ni, nj, sparse, s);
   if (err != cudaSuccess) return (int)err;
-  const int* pre = ws + (size_t)items * ntj + items;
-  const int* list = ws + worklist_ints(items, ntj);
-  if (!symmetric) {
-    err = cudaFuncSetAttribute(cfconv_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const int blocks = persistent_blocks(items * ntj);
-    float* part = reinterpret_cast<float*>(ws + list_ints(B, ni, nj));
-    cfconv_fwd_kernel<<<blocks, kThreads, smem, s>>>(dist, env, x, w1, b1, w2, b2, out, part,
-                                                     pre, list, B, ni, nj, G, start, delta,
-                                                     coeff);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    cfconv_fwd_join_kernel<<<blocks, kThreads, 0, s>>>(out, part, pre, list, B, ni, nj, blocks);
-    return (int)cudaGetLastError();
-  }
-  err = cudaFuncSetAttribute(cfconv_fwd_sym_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cfconv_fwd_sym_kernel<<<persistent_blocks(items * ntj), kThreads, smem, s>>>(
-      dist, env, x, w1, b1, w2, b2, out, list, pre + items, ni, G, start, delta, coeff);
-  return (int)cudaGetLastError();
+  err = G > kSGP ? launch<true>(dist, env, x, w1, rbf_tab, b1, w2, b2, out, ws, B, ni, nj, G,
+                                start, delta, coeff, symmetric, s)
+                 : launch<false>(dist, env, x, w1, rbf_tab, b1, w2, b2, out, ws, B, ni, nj, G,
+                                 start, delta, coeff, symmetric, s);
+  return (int)err;
 }

@@ -52,6 +52,12 @@
 // data other blocks wrote is read through L2 (cp.async.cg, ld.global.cg).
 // Per tile, the next tile's dist/env and x rows load with cp.async (double
 // buffer) while the current tile's products run.
+//
+// Any G (a template on the G class, as cfconv_fwd.cu): G <= 64 stages W1[k]
+// [64][F] once per message phase; above 64 the message phase streams W1[k]
+// in chunks of 32 rows through the same 32 KiB (filter_mma.cuh's
+// W1Stream), the RBF 32 columns at a time, so shared memory, and with it
+// the cooperative grid of one block per SM, does not change with G.
 #include "filter_mma.cuh"
 #include "mma_tf32.cuh"
 #include "pair_tile.cuh"
@@ -63,9 +69,9 @@ constexpr int kRows = 64;       // atom rows per dense chunk
 // every product in mma_tf32.cuh's precise mode (the header says why)
 constexpr bool kPrecise = true;
 // shared memory, in floats; the dense phase reuses W2_s as W_s and s_s as A_s
-constexpr int kOffW1 = 0;                          // [kSGP][kF] swizzled
+constexpr int kOffW1 = 0;                          // [kSGP][kF] swizzled (G > 64: 2 chunks)
 constexpr int kOffW2 = kOffW1 + kSGP * kF;         // [kF][kF] swizzled
-constexpr int kOffRbf = kOffW2 + kF * kF;          // [kPairs][kSGP] swizzled
+constexpr int kOffRbf = kOffW2 + kF * kF;          // [kPairs][kSGP] swizzled (G > 64: 2 chunks)
 constexpr int kOffS = kOffRbf + kPairs * kSGP;     // [kPairs][kF] swizzled
 constexpr int kOffXj = kOffS + kPairs * kF;        // [2][8][kSRS] x rows of the j tile
 constexpr int kOffXi = kOffXj + 2 * kTile * kSRS;  // [8][kSRS] SYM: x rows of the i tile
@@ -92,20 +98,13 @@ __device__ __forceinline__ void load_weight(float* W_s, const float* __restrict_
   }
 }
 
-__device__ __forceinline__ void zero_acc(float acc[2][4][4]) {
-#pragma unroll
-  for (int mb = 0; mb < 2; ++mb)
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mb][nb][q] = 0.f;
-}
-
-template <bool SYM>
+// kBig: G > kSGP (W1 streamed).
+template <bool SYM, bool kBig>
 __global__ void __launch_bounds__(kThreads, 1)
 schnet_stack_kernel(const float* __restrict__ dist, const float* __restrict__ env,
                     const float* __restrict__ h0, const float* __restrict__ wl1,
-                    const float* __restrict__ w1, const float* __restrict__ b1,
+                    const float* __restrict__ w1, const float* __restrict__ rbf_tab,
+                    const float* __restrict__ b1,
                     const float* __restrict__ w2, const float* __restrict__ b2,
                     const float* __restrict__ wa, const float* __restrict__ ba,
                     const float* __restrict__ wb, const float* __restrict__ bb,
@@ -131,7 +130,8 @@ schnet_stack_kernel(const float* __restrict__ dist, const float* __restrict__ en
   const int nt = (n + kTile - 1) / kTile, n_items = B * nt, rows = B * n;
   const int n_chunks = (rows + kRows - 1) / kRows;
 
-  for (int idx = tid; idx < kPairs * kSGP; idx += kThreads) rbf_s[idx] = 0.f;  // columns >= G stay 0
+  if (!kBig)  // columns >= G stay 0
+    for (int idx = tid; idx < kPairs * kSGP; idx += kThreads) rbf_s[idx] = 0.f;
   // this block's run of tiles, and the item holding its first tile
   const long long total = pre[n_items];
   const int t_begin = (int)(total * blockIdx.x / gridDim.x);
@@ -167,7 +167,7 @@ schnet_stack_kernel(const float* __restrict__ dist, const float* __restrict__ en
         // t = ssp(m Wa + ba), then h += t Wb + bb
         const float* Ba = ba + (size_t)(l - 1) * kF;
         const float* Bb = bb + (size_t)(l - 1) * kF;
-        zero_acc(acc);
+        zero_frag(acc);
         warp_tile_mma<2, 4, kF, false, false, false, kPrecise>(acc, A_s, kF, 32 * wm, W_s, kF, 32 * wn);
         __syncthreads();  // every warp is done with A_s and W_s
         load_weight(W_s, wb + (size_t)(l - 1) * kF * kF);
@@ -185,7 +185,7 @@ schnet_stack_kernel(const float* __restrict__ dist, const float* __restrict__ en
             }
         cp_async_wait<0>();
         __syncthreads();
-        zero_acc(acc);
+        zero_frag(acc);
         warp_tile_mma<2, 4, kF, false, false, false, kPrecise>(acc, A_s, kF, 32 * wm, W_s, kF, 32 * wn);
         __syncthreads();  // every warp is done with A_s and W_s
         if (l < L) {
@@ -224,7 +224,7 @@ schnet_stack_kernel(const float* __restrict__ dist, const float* __restrict__ en
       if (l == L) continue;
       cp_async_wait<0>();
       __syncthreads();  // Wl1 and the new h rows in shared memory
-      zero_acc(acc);
+      zero_frag(acc);
       warp_tile_mma<2, 4, kF, false, false, false, kPrecise>(acc, A_s, kF, 32 * wm, W_s, kF, 32 * wn);
 #pragma unroll
       for (int mb = 0; mb < 2; ++mb)
@@ -245,11 +245,16 @@ schnet_stack_kernel(const float* __restrict__ dist, const float* __restrict__ en
     grid_sync(bar);  // x and the zeroed m of every row are written
 
     // -- message phase of block l over this block's run of tiles ------------
+    const float* W1 = w1 + (size_t)l * G * kF;
+    W1Stream w1s(W1_s, W1, G, rbf_tab);  // kBig: W1[l]'s chunks, from chunk 0 in buffer 0
     {
-      const float* W1 = w1 + (size_t)l * G * kF;
-      for (int c = tid; c < kSGP * kF / 4; c += kThreads) {
-        const int r = c / (kF / 4), f = (c % (kF / 4)) * 4;
-        cp_async16(W1_s + swz_at(kF, r, f), W1 + (r < G ? r * kF + f : 0), r < G);
+      if (kBig) {
+        load_w1_chunk(W1_s, W1, 0, G);
+      } else {
+        for (int c = tid; c < kSGP * kF / 4; c += kThreads) {
+          const int r = c / (kF / 4), f = (c % (kF / 4)) * 4;
+          cp_async16(W1_s + swz_at(kF, r, f), W1 + (r < G ? r * kF + f : 0), r < G);
+        }
       }
       load_weight(W2_s, w2 + (size_t)l * kF * kF);
       cp_async_commit();
@@ -313,7 +318,12 @@ schnet_stack_kernel(const float* __restrict__ dist, const float* __restrict__ en
 
         // the filter (filter_mma.cuh), then the messages
         float acc[2][4][4];
-        filter_tile_mma<kPrecise>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, kSGP, start, delta, coeff, acc);
+        if (kBig)  // another tile follows in this item or in a later one of the run
+          filter_tile_mma_streamed<kPrecise>(d_t, rbf_s, s_s, w1s, W2_s, b1_s,
+                                             k + 1 < k1 || tile < t_end, acc);
+        else
+          filter_tile_mma<kPrecise>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, start, delta, coeff,
+                                    acc);
         tile_messages<SYM>(acc, b2_s, e_t, xj_t, xi_s, racc, mb_ + (size_t)b * n * kF, j0, n,
                            pi != pj);
       }
@@ -337,21 +347,21 @@ static size_t smem_bytes(int n) {
   return sizeof(float) * (size_t)kStackFloats + sizeof(int) * (4 + (size_t)((n + kTile - 1) / kTile));
 }
 
-template <bool SYM>
+template <bool SYM, bool kBig>
 static cudaError_t launch(void** args, size_t smem, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(schnet_stack_kernel<SYM>,
+  cudaError_t err = cudaFuncSetAttribute(schnet_stack_kernel<SYM, kBig>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, (const void*)schnet_stack_kernel<SYM>, kThreads, smem);
+      &per_sm, (const void*)schnet_stack_kernel<SYM, kBig>, kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidValue;
   // every block must be resident for the grid barriers: a cooperative launch
   // refuses a grid that would not be
-  return cudaLaunchCooperativeKernel((const void*)schnet_stack_kernel<SYM>, dim3(sms * per_sm),
+  return cudaLaunchCooperativeKernel((const void*)schnet_stack_kernel<SYM, kBig>, dim3(sms * per_sm),
                                      dim3(kThreads), args, smem, s);
 }
 
@@ -366,19 +376,20 @@ extern "C" size_t schnet_stack_ws_ints(int B, int n) {
   return geossl::worklist_ints((size_t)B * nt, nt) + 2;
 }
 
-// Returns the cudaError_t of the launches (0 on success). F must be 128 and
-// G at most 64. `xbuf` and `mbuf` are [B, n, F] scratch, `ws` holds
+// Returns the cudaError_t of the launches (0 on success). F must be 128,
+// G >= 1 (any: above kSGP W1 streams, with `rbf_tab` as cfconv_fwd's). `xbuf` and `mbuf` are [B, n, F] scratch, `ws` holds
 // schnet_stack_ws_ints(B, n) ints. With `symmetric` dist and env must be
 // symmetric (the header says why).
 extern "C" int schnet_stack(const float* dist, const float* env, const float* h0,
-                            const float* wl1, const float* w1, const float* b1,
+                            const float* wl1, const float* w1, const float* rbf_tab,
+                            const float* b1,
                             const float* w2, const float* b2, const float* wa,
                             const float* ba, const float* wb, const float* bb,
                             float* out, float* xbuf, float* mbuf, int* ws, int B, int n,
                             int F, int G, int L, float start, float delta, float coeff,
                             int symmetric, void* stream) {
   using namespace geossl;
-  if (F != kF || G < 1 || G > kSGP || L < 1) return (int)cudaErrorInvalidValue;
+  if (F != kF || G < 1 || L < 1 || (G > kSGP && !rbf_tab)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int nt = (n + kTile - 1) / kTile;
   const size_t items = (size_t)B * nt;
@@ -391,11 +402,14 @@ extern "C" int schnet_stack(const float* dist, const float* env, const float* h0
   err = symmetric ? make_worklist<true, true>(env, ws, none, B, n, n, 1, s)
                   : make_worklist<false, true>(env, ws, none, B, n, n, 1, s);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {&dist, &env, &h0,  &wl1, &w1,  &b1,  &w2,  &b2, &wa,    &ba,    &wb,
-                  &bb,   &out, &xbuf, &mbuf, &occ, &pre, &bar, &B, &n,    &G,     &L,
-                  &start, &delta, &coeff};
+  void* args[] = {&dist, &env,  &h0,   &wl1, &w1,  &rbf_tab, &b1, &w2,    &b2,
+                  &wa,   &ba,   &wb,   &bb,  &out, &xbuf,    &mbuf, &occ, &pre,
+                  &bar,  &B,    &n,    &G,   &L,   &start,   &delta, &coeff};
   const size_t smem = smem_bytes(n);
-  err = symmetric ? launch<true>(args, smem, s) : launch<false>(args, smem, s);
+  if (G > kSGP)
+    err = symmetric ? launch<true, true>(args, smem, s) : launch<false, true>(args, smem, s);
+  else
+    err = symmetric ? launch<true, false>(args, smem, s) : launch<false, false>(args, smem, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -445,28 +445,15 @@ def kernel_limit_errors(cfg: ModelConfig, *, backward: bool,
                  f"the PaiNN kernels take 2 to {painn_ops.MAX_R} "
                  "(ops/painn.MAX_R)")
     else:
+        # the CFConv kernels take any --num_gaussians
         s = cfg.schnet
-        g, g_max = s.num_gaussians, cfconv_ops.KERNEL_MAX_G
         if per_block:
             need(s.num_filters == f, "num_filters", s.num_filters,
                  f"the CFConv kernels take {f} only (ops/cfconv.KERNEL_F)")
-            if cfg.max_neighbors is None or backward:
-                need(g <= g_max, "num_gaussians", g,
-                     f"the symmetric CFConv forward and both CFConv "
-                     f"backwards take at most {g_max} "
-                     "(ops/cfconv.KERNEL_MAX_G)")
-            else:
-                g_plain = cfconv_ops.PLAIN_FWD_MAX_G
-                need(g <= g_plain, "num_gaussians", g,
-                     f"the plain-mode CFConv forward takes at most {g_plain} "
-                     "(ops/cfconv.PLAIN_FWD_MAX_G)")
         # the stack serves only when h keeps one width (num_filters = emb)
         if stack and s.num_filters == cfg.emb_dim:
             need(s.num_filters == f, "num_filters", s.num_filters,
                  f"schnet_stack takes {f} only (ops/cfconv.KERNEL_F)")
-            need(g <= g_max, "num_gaussians", g,
-                 f"schnet_stack takes at most {g_max} "
-                 "(ops/cfconv.KERNEL_MAX_G)")
     if ncsn:
         e = ncsn_ops.KERNEL_E
         need(cfg.emb_dim == e, "emb_dim", cfg.emb_dim,

@@ -575,11 +575,6 @@ CUDA = torch.device("cuda")
     (_cfg(filters=64), dict(backward=True), "--num_filters 64"),
     (_cfg(emb=64, filters=64), dict(backward=False, stack=True,
                                     per_block=False), "--num_filters 64"),
-    (_cfg(g=65), dict(backward=False), "--num_gaussians 65"),
-    (_cfg(g=65, max_nb=32), dict(backward=True), "--num_gaussians 65"),
-    (_cfg(g=193, max_nb=32), dict(backward=False), "--num_gaussians 193"),
-    (_cfg(g=100, max_nb=32), dict(backward=False, stack=True),
-     "--num_gaussians 100"),
     (_cfg("painn", emb=64), dict(backward=True), "--emb_dim 64"),
     (_cfg("painn", r=32), dict(backward=False, stack=True), "--painn_n_rbf 32"),
     (_cfg("painn", r=1), dict(backward=True), "--painn_n_rbf 1"),
@@ -599,9 +594,14 @@ def test_kernel_limits_refused_on_cuda_only(cfg, routes, flag):
     # SchNet's emb_dim does not reach the per-block kernels, and a
     # num_filters != emb_dim model never takes the stack
     (_cfg(emb=64), dict(backward=True, stack=True)),
-    # the plain-mode forward takes up to 192 Gaussians
+    # any Gaussian count: above 64 the CFConv kernels stream W1 (both
+    # forwards, both backwards and the stack)
     (_cfg(g=192, max_nb=32), dict(backward=False)),
     (_cfg(g=100, max_nb=32), dict(backward=False, stack=False)),
+    (_cfg(g=65), dict(backward=False)),
+    (_cfg(g=65, max_nb=32), dict(backward=True)),
+    (_cfg(g=193, max_nb=32), dict(backward=False)),
+    (_cfg(g=100, max_nb=32), dict(backward=False, stack=True)),
 ])
 def test_kernel_limits_accept_what_the_kernels_run(cfg, routes):
     assert common.kernel_limit_errors(cfg, **routes) == []
@@ -611,7 +611,7 @@ def test_kernel_limits_accept_what_the_kernels_run(cfg, routes):
 @pytest.mark.parametrize("driver,argv,flag", [
     (FQ, ["--num_filters", "64"], "--num_filters 64"),
     (FQ, ["--model_3d", "painn", "--painn_n_rbf", "40"], "--painn_n_rbf 40"),
-    (FL, ["--num_gaussians", "80"], "--num_gaussians 80"),
+    (FL, ["--num_filters", "96"], "--num_filters 96"),
     (FE, ["--emb_dim", "32", "--model_3d", "painn"], "--emb_dim 32"),
     (PG, ["--emb_dim", "64"], "--emb_dim 64"),
 ])
@@ -635,6 +635,7 @@ def test_predictor_refuses_kernel_limits_at_startup(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="--painn_n_rbf 40"):
         serve.Predictor(cfg, state)
-    # SchNet: the stack's buckets (num_filters = emb_dim) check the stack
-    with pytest.raises(ValueError, match="schnet_stack takes at most 64"):
-        serve.Predictor(_cfg(g=100, max_nb=32), state, bucket_sizes=(32,))
+    # SchNet: the stack's buckets (num_filters = emb_dim) check the stack,
+    # which takes any Gaussian count
+    assert common.kernel_limit_errors(_cfg(g=100, max_nb=32), backward=False,
+                                      per_block=False, stack=True) == []
