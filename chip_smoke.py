@@ -385,9 +385,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
    seeded module) held to the plain step (tolerances as in 3b), and the
    device ms of one traced step at G=300 and at G=51.
 
+6. The bfloat16 modes (``bf16:``, at most 150 s). ``--filter_mxu bf16``
+   and ``--compute_dtype bfloat16`` run the bf16 instances of #1-#4 (the
+   filter products on bf16 operands, f32 accumulation; launches counted
+   as ``<kernel>_bf16``). (a) The main paths, counters reset before and
+   read after: a DDM-SchNet epoch in compute_dtype (the symmetric pair),
+   one in filter_mxu with ``--max_num_neighbors 32`` (the plain-mode pair),
+   a DDM-PaiNN epoch and one LBA epoch per backbone in compute_dtype, and a
+   seeded Predictor per mode over buckets 32..512: every bf16 instance
+   launches, no f32 CFConv instance does, no Predictor launches a stack;
+   each Predictor against its plain path on 8 molecules per bucket, one
+   seal of the compute_dtype Predictor against the live one. (b) Each bf16
+   instance against its plain bf16 version at G=51 and G=300, gating off
+   and on: #1/#2 on the DDM ``max_num_neighbors 32`` batch (B=128, N=128),
+   #3 on the DDM batch, #4 at the LBA shape (B=64, N=512; the placement
+   contract), at the JAX package's own bound for the mode: outputs within
+   rtol 2e-3 / atol 2e-3 x max, each gradient's mean error within 5% of
+   the f32 gradient's mean magnitude and its relative norm within 1e-2.
+   (c) Per mode, a DDM-SchNet step per bucket against the same step through
+   the plain bf16 versions (loss 1e-2 relative, gradients 5e-2 relative
+   norm) and against the f32 step with the same weights (the JAX package's
+   bf16 drift bounds). (d) ``bf16_step:``, the DDM-SchNet step's device ms
+   at bucket 128 in f32 and in both bf16 modes, traced in turns.
+
 The line before the last is the kernel table as JSON (thirteen kernels,
 every Pallas kernel of the JAX package, then #1-#5 at G=100 and G=300 as
-``<kernel>_g100`` / ``_g300`` with their phase-5 launches and shapes;
+``<kernel>_g100`` / ``_g300`` with their phase-5 launches and shapes,
+then #1-#4's bf16 instances at G=51 as ``<kernel>_bf16`` with their
+phase-6 launches, bounded at the bf16 tensor-core peak;
 ``qm9_launches``: each kernel's
 launches over both QM9 epochs of phase 3e; ``md17_launches``: each
 kernel's launches in one MD17 training step of phase 3f, both backbones;
@@ -421,6 +446,7 @@ ZERO_GRAD_RTOL = 1e-5
 # tensor cores (dense), HBM3 rate
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12  # bf16 on the tensor cores (dense)
 PEAK_BYTES = 3.35e12
 SEED = 0
 # the backward kernels whose Function takes a double backward, and how
@@ -531,13 +557,23 @@ def pair_work(dist, env):
 
 # kernel -> (library, mangled-name prefix of its entry function)
 KERNEL_ENTRIES = {
-    # the CFConv kernels' G <= 64 instances (..._g100 / _g300 below: the
-    # instances that stream W1)
-    "cfconv_fwd": ("cfconv_fwd", "_ZN6geossl17cfconv_fwd_kernelILb0E"),
-    "cfconv_fwd_sym": ("cfconv_fwd", "_ZN6geossl21cfconv_fwd_sym_kernelILb0E"),
+    # the CFConv kernels' G <= 64 f32 instances (..._g100 / _g300 below: the
+    # instances that stream W1; ..._bf16: the bf16 instances, phase 6)
+    "cfconv_fwd": ("cfconv_fwd", "_ZN6geossl17cfconv_fwd_kernelILb0ELb0E"),
+    "cfconv_fwd_sym": ("cfconv_fwd",
+                       "_ZN6geossl21cfconv_fwd_sym_kernelILb0ELb0E"),
     "schnet_stack": ("schnet_stack", "_ZN6geossl19schnet_stack_kernelILb1ELb0E"),
-    "cfconv_bwd": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb0ELb0E"),
-    "cfconv_bwd_sym": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb1ELb0E"),
+    "cfconv_bwd": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb0ELb0ELb0E"),
+    "cfconv_bwd_sym": ("cfconv_bwd",
+                       "_ZN6geossl17cfconv_bwd_kernelILb1ELb0ELb0E"),
+    "cfconv_fwd_bf16": ("cfconv_fwd",
+                        "_ZN6geossl17cfconv_fwd_kernelILb0ELb1E"),
+    "cfconv_fwd_sym_bf16": ("cfconv_fwd",
+                            "_ZN6geossl21cfconv_fwd_sym_kernelILb0ELb1E"),
+    "cfconv_bwd_bf16": ("cfconv_bwd",
+                        "_ZN6geossl17cfconv_bwd_kernelILb0ELb0ELb1E"),
+    "cfconv_bwd_sym_bf16": ("cfconv_bwd",
+                            "_ZN6geossl17cfconv_bwd_kernelILb1ELb0ELb1E"),
     "ncsn_score_fwd": ("ncsn_score", "_ZN6geossl15ncsn_fwd_kernel"),
     "ncsn_score_bwd": ("ncsn_score", "_ZN6geossl15ncsn_bwd_kernel"),
     "painn_fwd": ("painn_fwd", "_ZN6geossl20painn_fwd_mma_kernelILi3ELb0E"),
@@ -550,14 +586,16 @@ KERNEL_ENTRIES = {
 }
 for _g in (100, 300):
     KERNEL_ENTRIES.update({
-        f"cfconv_fwd_g{_g}": ("cfconv_fwd", "_ZN6geossl17cfconv_fwd_kernelILb1E"),
+        f"cfconv_fwd_g{_g}": ("cfconv_fwd",
+                              "_ZN6geossl17cfconv_fwd_kernelILb1ELb0E"),
         f"cfconv_fwd_sym_g{_g}": ("cfconv_fwd",
-                                  "_ZN6geossl21cfconv_fwd_sym_kernelILb1E"),
+                                  "_ZN6geossl21cfconv_fwd_sym_kernelILb1ELb0E"),
         f"schnet_stack_g{_g}": ("schnet_stack",
                                 "_ZN6geossl19schnet_stack_kernelILb1ELb1E"),
-        f"cfconv_bwd_g{_g}": ("cfconv_bwd", "_ZN6geossl17cfconv_bwd_kernelILb0ELb1E"),
+        f"cfconv_bwd_g{_g}": ("cfconv_bwd",
+                              "_ZN6geossl17cfconv_bwd_kernelILb0ELb1ELb0E"),
         f"cfconv_bwd_sym_g{_g}": ("cfconv_bwd",
-                                  "_ZN6geossl17cfconv_bwd_kernelILb1ELb1E")})
+                                  "_ZN6geossl17cfconv_bwd_kernelILb1ELb1ELb0E")})
 
 
 def stack_instance(b, n, res):
@@ -3689,11 +3727,12 @@ def gaussians_kernels(dev, errs, g, cases, cfg, cutoff, timed):
     return rows
 
 
-def bound_ms(flops, nbytes):
+def bound_ms(flops, nbytes, peak_tc=PEAK_TF32_FLOPS):
     """The bound of a (tensor-core, elementwise) operation count and a byte
-    count, in ms: products at the TF32 peak and elementwise terms at the f32
-    peak (the two units at once), bytes at the HBM rate."""
-    return max(flops[0] / PEAK_TF32_FLOPS, flops[1] / PEAK_F32_FLOPS,
+    count, in ms: products at the tensor cores' peak (TF32, or bf16 for the
+    bf16 instances) and elementwise terms at the f32 peak (the two units at
+    once), bytes at the HBM rate."""
+    return max(flops[0] / peak_tc, flops[1] / PEAK_F32_FLOPS,
                nbytes / PEAK_BYTES) * 1e3
 
 
@@ -3755,6 +3794,435 @@ def gaussians_path(dev, card, errs, cfg, cutoff, cases, store, buckets, first,
                  in rows}}))
     if seconds > GAUSS_BUDGET_S:
         fail(f"gaussians: {seconds:.1f} s, above its {GAUSS_BUDGET_S:.0f} s")
+    return rows
+
+
+# -- 6. the bfloat16 modes -------------------------------------------------------
+# --filter_mxu bf16 and --compute_dtype bfloat16: the CFConv kernels' bf16
+# instances (#1-#4, counted as <kernel>_bf16), each against its plain bf16
+# version at the JAX package's own bound for the mode
+# (tests/test_cfconv_pallas.py's test_bf16_mxu_mode): outputs elementwise
+# within rtol 2e-3 and atol 2e-3 x max|plain|; each gradient's mean
+# |kernel - plain| within 5% of the f32 gradient's mean magnitude (the f32
+# instance's output), and, tighter, its relative norm within 1e-2 (the
+# symmetric backward rounds a cell's qe with its mirror's added, the plain
+# version each cell's own: ~3e-3 apart). A bf16 step against the same step
+# through the plain bf16 versions: loss within 1e-2 relative, gradients
+# within 5e-2 relative norm; against the f32 step: the JAX package's drift
+# bounds (tests/test_schnet.py: loss as an output, rtol 0.1 / atol 0.05 in
+# compute_dtype, 0.02 / 0.01 in filter_mxu; gradients' mean |bf16 - f32|
+# within 5% of mean |f32|).
+BF16_G = (51, 300)
+BF16_BUDGET_S = 150.0
+BF16_RTOL = BF16_ATOL = 2e-3
+BF16_GRAD_MEAN = 0.05
+BF16_GRAD_NORM = 1e-2
+BF16_STEP_LOSS = 1e-2
+BF16_STEP_NORM = 5e-2
+BF16_DRIFT = {"compute_dtype": (0.1, 0.05), "filter_mxu": (0.02, 0.01)}
+BF16_FLAGS = {"filter_mxu": ["--filter_mxu", "bf16"],
+              "compute_dtype": ["--compute_dtype", "bfloat16"]}
+BF16_KERNELS = ("cfconv_fwd", "cfconv_bwd", "cfconv_fwd_sym", "cfconv_bwd_sym")
+
+
+def bf16_cfg(cfg, mode):
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, **{mode: "bf16" if mode == "filter_mxu" else "bfloat16"})
+
+
+def check_bf16_out(errs, name, got, want, what):
+    """A bf16 instance's output: rtol BF16_RTOL, atol BF16_ATOL x max|want|."""
+    err = errs._note(name, got, want, what)
+    atol = BF16_ATOL * want.abs().max().item()
+    if not (got - want).abs().le(atol + BF16_RTOL * want.abs()).all():
+        fail(f"{name} {what}: max_abs_err {err:.3e} beyond rtol {BF16_RTOL} "
+             f"atol {atol:.3e}")
+    print(f"parity {name} {what}: max_abs_err {err:.3e} (atol {atol:.2e})")
+
+
+def check_bf16_grad(errs, name, got, want, want_f32, what):
+    """A bf16 instance's gradient: mean |got - want| within BF16_GRAD_MEAN
+    of mean |want_f32|, relative norm within BF16_GRAD_NORM."""
+    err = errs._note(name, got, want, what)
+    mean = (got - want).abs().mean().item()
+    scale = want_f32.abs().mean().item() + 1e-30
+    rel = rel_norm(got, want)
+    if mean > BF16_GRAD_MEAN * scale or rel > BF16_GRAD_NORM:
+        fail(f"{name} {what}: mean_abs_err {mean:.3e} (f32 mean {scale:.3e}),"
+             f" rel_norm {rel:.3e}, beyond {BF16_GRAD_MEAN} / "
+             f"{BF16_GRAD_NORM}")
+    print(f"parity {name} {what}: mean_abs_err {mean / scale:.3e} of the f32 "
+          f"mean, rel_norm {rel:.3e}, max_abs_err {err:.3e}")
+
+
+def bf16_main_path(dev, store, buckets):
+    """The bf16 paths at full width, counters reset before and read after:
+    a DDM-SchNet epoch of ``pretrain_geossl --compute_dtype bfloat16``
+    (buckets 32/64/128, the symmetric pair) and one of ``--filter_mxu bf16
+    --max_num_neighbors 32`` (the plain-mode pair), a DDM-PaiNN epoch and
+    one ``finetune_lba`` epoch per backbone (B=64, N=512) under
+    ``--compute_dtype bfloat16``, and a seeded ``Predictor`` per mode
+    serving the store over buckets 32..512. Every bf16 instance must
+    launch; no f32 CFConv instance and, in the Predictors, no stack may.
+    Returns (counts, the Predictors)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from geossl_tpu_torch.config import ModelConfig
+    from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
+    from geossl_tpu_torch.serve import Predictor
+    from geossl_tpu_torch.train import finetune_lba as FL
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+    from geossl_tpu_torch.train.common import make_backbone, make_head
+
+    preds = {}
+    for mode in BF16_FLAGS:
+        cfg = bf16_cfg(ModelConfig(), mode)
+        gen = torch.Generator().manual_seed(SEED)
+        state = {"model": make_backbone(cfg, gen).state_dict(),
+                 "graph_pred_linear": make_head("schnet", cfg.emb_dim,
+                                                gen).state_dict(),
+                 "y_mean": 1.5, "y_std": 2.0}
+        preds[mode] = Predictor(cfg, state, batch_size=128,
+                                bucket_sizes=buckets)
+    reset_launch_counts()
+    t0 = time.time()
+    runs = []
+    for tag, argv in (
+            ("DDM-SchNet compute_dtype", ["--synthetic_size", "256",
+                                          *BF16_FLAGS["compute_dtype"]]),
+            ("DDM-SchNet filter_mxu max_neighbors=32", [
+                "--synthetic_size", "256", *BF16_FLAGS["filter_mxu"],
+                "--max_num_neighbors", "32"]),
+            ("DDM-PaiNN compute_dtype", ["--synthetic_size", "128",
+                                         "--model_3d", "painn",
+                                         *BF16_FLAGS["compute_dtype"]])):
+        run_dir = os.path.join(ROOT, "runs", "chip_smoke_bf16")
+        shutil.rmtree(run_dir, ignore_errors=True)
+        _, losses = PG.main(["--synthetic", "--synthetic_max_atoms", "100",
+                             "--epochs", "1", "--output_model_dir", run_dir,
+                             *argv])
+        runs.append(f"{tag} {len(losses)} steps")
+        if not losses or not all(math.isfinite(v) for v in losses):
+            fail(f"bf16 {tag}: losses {losses}")
+    for model_3d in ("schnet", "painn"):
+        run_dir = os.path.join(ROOT, "runs", "chip_smoke_bf16_lba")
+        shutil.rmtree(run_dir, ignore_errors=True)
+        _, best, _, losses = FL.main([
+            "--synthetic", "--synthetic_size", "80", "--epochs", "1",
+            "--model_3d", model_3d, "--output_model_dir", run_dir,
+            *BF16_FLAGS["compute_dtype"]])
+        runs.append(f"LBA-{model_3d} compute_dtype {len(losses)} step(s)")
+        if not losses or not all(math.isfinite(v) for v in losses) or \
+                not math.isfinite(best):
+            fail(f"bf16 finetune_lba {model_3d}: losses {losses}, best {best}")
+    before = launch_counts()
+    got = {mode: p.predict(store) for mode, p in preds.items()}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"bf16 main path: {', '.join(runs)}, {len(store)} molecules served "
+          f"per mode in {time.time() - t0:.2f} s; launches {counts}")
+    for name in BF16_KERNELS:
+        if counts[name + "_bf16"] == 0:
+            fail(f"kernel {name}'s bf16 instance was not launched on the "
+                 "bf16 paths")
+        if counts[name]:
+            fail(f"kernel {name}'s f32 instance launched on a bf16 path")
+    for name in ("painn_fwd", "painn_bwd", "ncsn_score_fwd", "ncsn_score_bwd"):
+        if counts[name] == 0:
+            fail(f"kernel {name} was not launched on the bf16 paths")
+    for name in ("schnet_stack", "painn_stack"):
+        if counts[name] != before[name]:
+            fail(f"a bf16 Predictor launched {name}")
+    for mode, p in preds.items():
+        if any(p.stack_route(n) for n in buckets) or \
+                not np.isfinite(got[mode]).all():
+            fail(f"bf16 Predictor {mode}: a stack route or non-finite output")
+    print("bf16 Predictors: the per-block route at every bucket, no stack "
+          "launch")
+    return counts, preds, got
+
+
+def bf16_serving(preds, got, store, buckets, first, layer0_inputs):
+    """Each bf16 Predictor against its plain path on 8 molecules per bucket
+    (filter_mxu: the kernels' output bound, rtol/atol 2e-3 x max;
+    compute_dtype: bf16 rounding flips travel through the blocks, so the
+    relative norm, within 1e-2), then one seal of the compute_dtype
+    Predictor over buckets 32 and 64, replayed against the live one (the
+    same relative norm)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from geossl_tpu_torch.export import SealedPredictor, seal
+
+    with torch.inference_mode():
+        for mode, p in preds.items():
+            worst = 0.0
+            for b in buckets:
+                idx = first(b, 8)
+                batch, *_ = layer0_inputs(p.model, idx, b)
+                graph, _ = p.model(batch.atom_type, batch.positions,
+                                   batch.node_mask, plain=True)
+                want = (p.head(graph) * p.y_std + p.y_mean).float().cpu()
+                have = torch.from_numpy(got[mode][idx])
+                if mode == "filter_mxu":
+                    atol = BF16_ATOL * want.abs().max().item()
+                    ok = (have - want).abs().le(atol + BF16_RTOL
+                                                * want.abs()).all()
+                    err = (have - want).abs().max().item()
+                else:
+                    err = rel_norm(have, want)
+                    ok = err <= BF16_GRAD_NORM
+                worst = max(worst, err)
+                if not ok:
+                    fail(f"bf16 Predictor {mode} bucket {b}: kernel path vs "
+                         f"plain path, error {err:.3e}")
+            print(f"bf16 serve parity {mode}: buckets {list(buckets)} agree "
+                  f"with the plain path (worst "
+                  f"{'max_abs_err' if mode == 'filter_mxu' else 'rel_norm'} "
+                  f"{worst:.3e})")
+    p = preds["compute_dtype"]
+    sub = store.select(np.concatenate([first(b, 16) for b in (32, 64)]))
+    live = type(p)(p.cfg, {"model": p.model.state_dict(),
+                           "graph_pred_linear": p.head.state_dict(),
+                           "y_mean": p.y_mean, "y_std": p.y_std},
+                   batch_size=16, bucket_sizes=(32, 64))
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "runs")) as d:
+        t0 = time.time()
+        path = os.path.join(d, "bf16.sealed")
+        sizes = seal(live, path, modes=("predict",))
+        sealed = SealedPredictor.load(path).predict(sub)
+    # the same kernels, but the symmetric forward sums with atomics: a
+    # message an ulp apart can round h to the other bf16 neighbour, which
+    # the later blocks carry (two live passes differ so too), so the
+    # compute_dtype serving bound, relative norm 1e-2
+    want, again = live.predict(sub), live.predict(sub)
+    err, spread = (rel_norm(torch.from_numpy(a), torch.from_numpy(want))
+                   for a in (sealed, again))
+    if err > BF16_GRAD_NORM:
+        fail(f"bf16 sealed predict vs live: rel_norm {err:.3e}")
+    print(f"bf16 sealed: {sorted(sizes)} in {time.time() - t0:.1f} s, "
+          f"{len(sub)} molecules against the live Predictor, rel_norm "
+          f"{err:.3e} (two live passes: {spread:.3e})")
+
+
+def bf16_kernels(dev, errs, g, cases, cfg, cutoff, timed):
+    """#1-#4's bf16 instances at ``g`` Gaussians on their paths' shapes,
+    each against its plain bf16 version (chunked), gating off and on: #1
+    and #2 on the DDM ``max_num_neighbors 32`` batch (B=128, N=128), #3 on
+    the DDM batch, #4 at the LBA shape (B=64, N=512; ddist/denv by the
+    placement contract). Checks are recorded as ``<kernel>_bf16`` (G=51)
+    and ``<kernel>_bf16_g<g>``. With ``timed``: the rows (name, source,
+    replaces, ms, plain_ms, flops, bytes) of the kernel table, counted as
+    the f32 rows' and bounded at the bf16 peak."""
+    import torch
+
+    from geossl_tpu_torch.ops import cfconv as K
+    from geossl_tpu_torch.train.common import make_backbone
+
+    F_ = 128
+    m = make_backbone(schnet_at(cfg, g),
+                      torch.Generator().manual_seed(SEED)).to(dev)
+    with torch.no_grad():
+        fw = [t.contiguous() for t in m.interactions[0].filter_weights()]
+    args = (0.0, cutoff, g)
+    flop_pair = 2 * g * F_ + 2 * F_ * F_ + 2 * F_
+    wsize = g * F_ + 2 * F_ + F_ * F_
+    tag = "_bf16" + ("" if g == 51 else f"_g{g}")
+    rows = []
+
+    def row(kernel, ms, plain_ms, flops, nbytes, shape):
+        src, replaces = GAUSS_KERNELS[kernel]
+        rows.append((kernel + tag, src, replaces, ms, plain_ms, flops, nbytes,
+                     {"shape": shape, "mxu": "bf16"}))
+
+    def fwd_case(kernel, fwd, d, e, x, what, chunk):
+        with torch.no_grad():
+            want = chunked(K.cfconv_fused_reference, (d, e, x),
+                           (*fw, *args, "bf16"), chunk)
+            for sp in (False, True):
+                check_bf16_out(errs, kernel + tag,
+                               fwd(d, e, x, *fw, *args, sp, "bf16"), want,
+                               f"{what} sparse={sp}")
+            if timed:
+                nnz, filt, cells, tiles = pair_work(d, e)
+                row(kernel, cuda_time_ms(lambda: fwd(d, e, x, *fw, *args,
+                                                     True, "bf16")),
+                    cuda_time_ms(lambda: chunked(K.cfconv_fused_reference,
+                                                 (d, e, x),
+                                                 (*fw, *args, "bf16"), chunk),
+                                 reps=3, warmup=1),
+                    (filt * (flop_pair - 2 * F_), nnz * 2 * F_),
+                    4 * (cells + tiles + 2 * x.numel()
+                         + sum(t.numel() for t in fw)), what)
+
+    def bwd_case(kernel, bwd, ref, d, e, x, gr, what, sym):
+        want = chunked_sum(ref, (d, e, x, gr), (*fw, *args, "bf16"), 4, 3)
+        if sym:
+            want = (*(K.place_sym_cotangent(w) for w in want[:2]), *want[2:])
+        occ = tile_occupied(e)
+        for sp in (False, True):
+            got = bwd(d, e, x, gr, *fw, *args, sp, "bf16")
+            f32 = bwd(d, e, x, gr, *fw, *args, sp)  # the scale
+            for k, (out, a, w, w32) in enumerate(zip(BWD_NAMES, got, want,
+                                                     f32)):
+                if sp and k < 2:
+                    if (a[~occ] != 0).any():
+                        fail(f"{kernel + tag} {what} {out}: nonzero on an "
+                             "empty tile")
+                    w = torch.where(occ, w, torch.zeros_like(w))
+                check_bf16_grad(errs, kernel + tag, a, w, w32,
+                                f"{what} sparse={sp} {out}")
+        if timed:
+            nnz, filt, cells, tiles = pair_work(d, e)
+            per_filt = (6 if sym else 2) * (g * F_ + F_ * F_)
+            per_pair = 0 if sym else 4 * F_ * F_ + 4 * g * F_
+            row(kernel, cuda_time_ms(lambda: bwd(d, e, x, gr, *fw, *args,
+                                                 True, "bf16")),
+                cuda_time_ms(lambda: chunked_sum(ref, (d, e, x, gr),
+                                                 (*fw, *args, "bf16"), 4, 3),
+                             reps=3, warmup=1),
+                (filt * per_filt + nnz * per_pair, nnz * 6 * F_),
+                4 * (cells + tiles + 2 * d.numel() + 3 * x.numel()
+                     + 2 * wsize), what)
+
+    d, e, x, gr = cases["ddm_mn"]
+    fwd_case("cfconv_fwd", K.cfconv_fused, d, e, x,
+             "DDM max_neighbors=32 B=128 N=128", 4)
+    bwd_case("cfconv_bwd", K.cfconv_bwd, K.cfconv_bwd_reference, d, e, x, gr,
+             "DDM max_neighbors=32 B=128 N=128", False)
+    d, e, x, gr = cases["ddm"]
+    fwd_case("cfconv_fwd_sym", K.cfconv_fused_sym, d, e, x, "DDM B=128 N=128",
+             16)
+    d, e, x, gr = cases["lba"]
+    bwd_case("cfconv_bwd_sym", K.cfconv_bwd_sym, K.cfconv_bwd_sym_reference,
+             d, e, x, gr, "LBA B=64 N=512", True)
+    return rows
+
+
+def bf16_steps(dev, cfg, train_batch, buckets):
+    """(b) Per bf16 mode, one full-width DDM-SchNet step per bucket (a
+    freshly seeded module, injected noise) against the same step through
+    the plain bf16 versions and against the f32 step with the same weights
+    (tolerances in the header of this phase)."""
+    import torch
+
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    for mode in BF16_FLAGS:
+        targs = PG.build_parser().parse_args(BF16_FLAGS[mode])
+        ddm = PG.make_ddm(targs, bf16_cfg(cfg, mode),
+                          torch.Generator().manual_seed(SEED)).to(dev)
+        ddm32 = PG.make_ddm(targs, cfg,
+                            torch.Generator().manual_seed(SEED)).to(dev)
+        ddm32.load_state_dict(ddm.state_dict())
+        rtol, atol = BF16_DRIFT[mode]
+        for b in buckets:
+            batch = train_batch(b)
+            pos2, sel, draws = step_draws(ddm, batch, targs, b)
+            loss_k, grads_k = ddm_grads(ddm, batch, pos2, sel, draws)
+            ddm.plain = True
+            loss_p, grads_p = ddm_grads(ddm, batch, pos2, sel, draws,
+                                        chunk=16)
+            ddm.plain = False
+            loss_f, grads_f = ddm_grads(ddm32, batch, pos2, sel, draws)
+            cat = lambda gs: torch.cat([t.flatten() for t in gs.values()])
+            rel_k = rel_norm(cat(grads_k), cat(grads_p))
+            if abs(loss_k - loss_p) > BF16_STEP_LOSS * abs(loss_p) or \
+                    rel_k > BF16_STEP_NORM:
+                fail(f"bf16 step {mode} bucket {b}: loss {loss_k} vs plain "
+                     f"{loss_p}, gradients rel_norm {rel_k:.3e}")
+            drift = (cat(grads_k) - cat(grads_f)).abs().mean().item() / \
+                cat(grads_f).abs().mean().item()
+            if abs(loss_k - loss_f) > atol + rtol * abs(loss_f) or \
+                    drift > BF16_GRAD_MEAN:
+                fail(f"bf16 step {mode} bucket {b}: loss {loss_k} vs f32 "
+                     f"{loss_f}, gradients' mean drift {drift:.3e}")
+            print("bf16_step_parity: " + json.dumps({
+                "mode": mode, "bucket": b, "loss": loss_k,
+                "loss_plain": loss_p, "loss_f32": loss_f,
+                "grad_rel_norm_vs_plain": rel_k,
+                "grad_mean_drift_vs_f32": drift}))
+
+
+def bf16_step_times(dev, cfg, batch, card, rounds=2):
+    """(e) The DDM-SchNet step's device ms at bucket 128 in f32, in
+    ``--filter_mxu bf16`` and in ``--compute_dtype bfloat16`` (seeded
+    modules, one optimizer each), one traced step of each mode in turns
+    (f32, filter_mxu, compute_dtype, then back), after a warm-up."""
+    import torch
+
+    from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    steps = {}
+    for mode in ("f32", *BF16_FLAGS):
+        flags = BF16_FLAGS.get(mode, [])
+        targs = PG.build_parser().parse_args(flags)
+        c = cfg if mode == "f32" else bf16_cfg(cfg, mode)
+        ddm = PG.make_ddm(targs, c, torch.Generator().manual_seed(SEED)).to(dev)
+        opt, sched = common.make_optimizer_from_args(targs, ddm.parameters(),
+                                                     100)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        steps[mode] = (lambda ddm=ddm, opt=opt, sched=sched, targs=targs,
+                       gen=gen: PG.train_step(ddm, opt, sched, [batch],
+                                              targs, gen))
+        steps[mode]()
+    torch.cuda.synchronize()
+    busy = {mode: [] for mode in steps}
+    ours = {mode: [] for mode in steps}
+    order = list(steps)
+    for r in range(rounds):
+        for mode in (order if r % 2 == 0 else order[::-1]):
+            _, b_, o_ = device_profile(steps[mode])
+            busy[mode].append(b_ * 1e3)
+            ours[mode].append(o_ * 1e3)
+    line = {"card": card, "bucket": 128, "rounds": rounds, "order":
+            "f32, filter_mxu, compute_dtype, then reversed",
+            "device_ms": {m: sum(v) / len(v) for m, v in busy.items()},
+            "port_kernels_ms": {m: sum(v) / len(v) for m, v in ours.items()},
+            "device_ms_each": busy}
+    print("bf16_step: " + json.dumps(line))
+
+
+def bf16_path(dev, card, errs, cfg, cutoff, cases, store, buckets, first,
+              layer0_inputs, train_batch, train_buckets):
+    """Phase 6: the bf16 modes. The main paths (their launches are the
+    rows' counts), each bf16 instance against its plain bf16 version at G =
+    51 and 300 (timed at 51), a DDM-SchNet step per bucket and mode against
+    the plain and the f32 steps, the bf16 Predictors against their plain
+    paths and one sealed, and the step's device ms per mode. Returns the
+    kernel table's bf16 rows, with their launches."""
+    t0 = time.time()
+    launches, preds, got = bf16_main_path(dev, store, buckets)
+    bf16_serving(preds, got, store, buckets, first, layer0_inputs)
+    del preds, got
+    rows = []
+    for g in BF16_G:
+        for name, src, replaces, ms, plain_ms, flops, nbytes, extra in \
+                bf16_kernels(dev, errs, g, cases, cfg, cutoff, g == 51):
+            base = name.split("_bf16")[0]
+            rows.append((name, src, replaces, ms, plain_ms, flops, nbytes,
+                         launches[base + "_bf16"], extra))
+    bf16_steps(dev, cfg, train_batch, train_buckets)
+    bf16_step_times(dev, cfg, train_batch(128), card)
+    seconds = time.time() - t0
+    print("bf16: " + json.dumps({
+        "card": card, "seconds": seconds,
+        "launches": {k: v for k, v in launches.items() if v},
+        "rows": {name: {"ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms(flops, nbytes, PEAK_BF16_FLOPS),
+                        "launches": count, **extra}
+                 for name, _, _, ms, plain_ms, flops, nbytes, count, extra
+                 in rows}}))
+    if seconds > BF16_BUDGET_S:
+        fail(f"bf16: {seconds:.1f} s, above its {BF16_BUDGET_S:.0f} s")
     return rows
 
 
@@ -5179,14 +5647,24 @@ def main():
     kernels += gaussians_path(dev, card, errs, cfg, cutoff, gauss_cases, store,
                               buckets, first, layer0_inputs, train_batch(128))
 
+    # -- 6. the bf16 modes: #1-#4's bf16 instances ---------------------------------
+    kernels += bf16_path(dev, card, errs, cfg, cutoff, gauss_cases, store,
+                         buckets, first, layer0_inputs, train_batch,
+                         train_buckets)
+
+    from geossl_tpu_torch.utils.flops import bound_basis
+
     table = []
     for name, src, replaces, ms, plain_ms, flops, nbytes, count, *extra in \
             kernels:
         if isinstance(flops, tuple):
-            # (tensor-core products, elementwise): each at its own peak, the
-            # two units working at once
-            t_ops = max(flops[0] / PEAK_TF32_FLOPS, flops[1] / PEAK_F32_FLOPS) * 1e3
-            basis, flops = "tf32_tensor_core+f32", sum(flops)
+            # (tensor-core products, elementwise): each at its own peak (the
+            # bf16 instances' products at the bf16 peak), the two units
+            # working at once
+            peak, basis = bound_basis((extra[0] if extra else {}).get(
+                "mxu", "f32"))
+            t_ops = max(flops[0] / peak, flops[1] / PEAK_F32_FLOPS) * 1e3
+            flops = sum(flops)
         else:
             t_ops, basis = flops / PEAK_F32_FLOPS * 1e3, "f32"
         t_bytes = nbytes / PEAK_BYTES * 1e3

@@ -2,8 +2,7 @@
 
 Same defaults as the JAX package, for both backbones (SchNet and PaiNN).
 ``use_pallas`` has no counterpart: the device of the tensors decides
-between kernel and plain version. The JAX options this port does not run
-yet (bfloat16, ``filter_mxu='bf16'``) raise ``NotImplementedError``.
+between kernel and plain version.
 """
 
 from __future__ import annotations
@@ -60,16 +59,17 @@ class ModelConfig:
     pair_axis: Optional[str] = None
 
     def __post_init__(self):
+        # argparse validates CLI input; this catches direct construction
+        # with a typo (e.g. 'bf-16'), which would otherwise run f32
+        if self.filter_mxu not in ("f32", "bf16"):
+            raise ValueError(f"filter_mxu must be 'f32' or 'bf16', got "
+                             f"{self.filter_mxu!r}")
         if self.model_3d not in ("schnet", "painn"):
             raise ValueError(f"model_3d must be 'schnet' or 'painn', "
                              f"got {self.model_3d!r}")
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r}: the port computes in "
-                "float32 only")
-        if self.filter_mxu != "f32":
-            raise NotImplementedError(
-                f"filter_mxu={self.filter_mxu!r}: the kernels compute in f32")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
+                             f"got {self.compute_dtype!r}")
         if self.sparse_tiles not in ("auto", "on", "off"):
             raise ValueError(f"sparse_tiles must be 'auto', 'on' or 'off', "
                              f"got {self.sparse_tiles!r}")

@@ -16,9 +16,11 @@ started against it:
   within 3x);
 - native: the C++ host runtime builds and loads (``radius_edges`` smoke);
 - kernels: on the card, one launch of every kernel of ``ops/csrc`` (both
-  modes where a source has two) at a tiny shape with real geometry,
-  padding and empty tiles, each held to its plain version with the
-  tolerances of ``chip_smoke.py``; each kernel's launch counter must move.
+  modes where a source has two; the CFConv kernels also in their bf16
+  instances, counted as ``<kernel>_bf16``) at a tiny shape with real
+  geometry, padding and empty tiles, each held to its plain version with
+  the tolerances of ``chip_smoke.py`` (the bf16 instances with phase 6's);
+  each kernel's launch counter must move.
   With ``--device cpu`` nothing is launched and nothing is reported as
   checked: the plain versions are not the kernels;
 - ``--mesh N``: N gloo ranks on the CPU, in fresh processes, run one
@@ -46,6 +48,17 @@ import torch
 # Frobenius norm, all together GRAD_RTOL and each tensor 10x that
 RTOL, ATOL = 1e-4, 1e-5
 GRAD_RTOL = 1e-3
+# the CFConv kernels' bf16 instances (mxu='bf16') against their plain bf16
+# versions, chip_smoke.py's phase 6: the JAX package's own bound for the
+# mode (tests/test_cfconv_pallas.py's test_bf16_mxu_mode): outputs
+# elementwise within rtol BF16_RTOL and atol BF16_ATOL times max|plain|;
+# each gradient's mean |kernel - plain| within BF16_GRAD_MEAN of the mean
+# |f32 plain gradient|, and, tighter, its relative norm within
+# BF16_GRAD_NORM (the symmetric backward rounds a cell's qe with its
+# mirror's added, the plain version each cell's own: ~3e-3 apart)
+BF16_RTOL = BF16_ATOL = 2e-3
+BF16_GRAD_MEAN = 0.05
+BF16_GRAD_NORM = 1e-2
 # the tiny case: graphs of these sizes in B slots of N atoms (the last slot
 # is padding); the second graph is spread out, so that it has empty tiles
 SIZES, B, N = (40, 23, 9), 4, 64
@@ -280,6 +293,35 @@ class Tally:
                   torch.cat([w.flatten() for w in want]),
                   f"{what} all weight gradients")
 
+    def bf16_scaled(self, name, got, want, what):
+        """A bf16 instance's output: rtol BF16_RTOL, atol BF16_ATOL times
+        max|want|."""
+        row = self._note(name, got, want, what)
+        if row is None:
+            return
+        atol = BF16_ATOL * (want.abs().max().item() if want.numel() else 0.0)
+        if not (got - want).abs().le(atol + BF16_RTOL * want.abs()).all():
+            row["failures"].append(
+                f"{what}: max_abs_err {(got - want).abs().max().item():.3e} "
+                f"beyond rtol {BF16_RTOL} atol {atol:.3e}")
+
+    def bf16_grad(self, name, got, want, want_f32, what):
+        """A bf16 instance's gradient: mean |got - want| within
+        BF16_GRAD_MEAN of mean |want_f32|, relative norm within
+        BF16_GRAD_NORM."""
+        row = self._note(name, got, want, what)
+        if row is None:
+            return
+        mean = (got - want).abs().mean().item()
+        scale = want_f32.abs().mean().item() + 1e-30
+        rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+        row["max_rel_norm"] = max(row["max_rel_norm"], rel)
+        if mean > BF16_GRAD_MEAN * scale or rel > BF16_GRAD_NORM:
+            row["failures"].append(
+                f"{what}: mean_abs_err {mean:.3e} (f32 mean {scale:.3e}), "
+                f"rel_norm {rel:.3e} beyond {BF16_GRAD_MEAN} / "
+                f"{BF16_GRAD_NORM}")
+
     def failed(self, name, what, error):
         self._row(name)["failures"].append(f"{what}: {error}")
 
@@ -412,6 +454,43 @@ def run_kernel_checks(device: torch.device) -> dict:
 
             guarded(name, f"{gw}sparse={sp}", fwd_check)
             guarded(bwd_name, f"{gw}sparse={sp}", bwd_check)
+    # the same pairs' bf16 instances (counted as <kernel>_bf16), at both G
+    for (name, bwd_name, tag, fwd, bwd), (_, g_tag) in itertools.product((
+            ("cfconv_fwd", "cfconv_bwd", "mn", K.cfconv_fused, K.cfconv_bwd),
+            ("cfconv_fwd_sym", "cfconv_bwd_sym", "sym", K.cfconv_fused_sym,
+             K.cfconv_bwd_sym)), SCHNET_G):
+        c = case[tag + g_tag]
+        gw = f"G={c['G']} bf16 "
+        args = (0.0, c["cutoff"], c["G"])
+        ins = (c["dist"], c["env"], c["x"])
+        occ = tile_occupied(c["env"])
+        with torch.no_grad():
+            want = K.cfconv_fused_reference(*ins, *c["fw"], *args, "bf16")
+        want_b = list(K.cfconv_bwd_reference(*ins, case["g"], *c["fw"], *args,
+                                             "bf16"))
+        f32_b = list(K.cfconv_bwd_reference(*ins, case["g"], *c["fw"], *args))
+        if tag == "sym":
+            for w in (want_b, f32_b):
+                w[:2] = [K.place_sym_cotangent(t) for t in w[:2]]
+        for sp in (False, True):
+            def fwd_check(sp=sp, name=name + "_bf16"):
+                with torch.no_grad():
+                    tally.bf16_scaled(name, fwd(*ins, *c["fw"], *args, sp,
+                                                "bf16"), want,
+                                      f"{gw}sparse={sp}")
+
+            def bwd_check(sp=sp, name=bwd_name + "_bf16"):
+                got = bwd(*ins, case["g"], *c["fw"], *args, sp, "bf16")
+                for k, what in enumerate(("ddist", "denv", "dx", "dW1", "db1",
+                                          "dW2", "db2")):
+                    w, w32 = want_b[k], f32_b[k]
+                    if sp and k < 2:
+                        w, w32 = _masked(w, occ), _masked(w32, occ)
+                    tally.bf16_grad(name, got[k], w, w32,
+                                    f"{gw}sparse={sp} {what}")
+
+            guarded(name + "_bf16", f"{gw}sparse={sp}", fwd_check)
+            guarded(bwd_name + "_bf16", f"{gw}sparse={sp}", bwd_check)
     for (tag, sym), (_, g_tag) in itertools.product(
             (("sym", True), ("mn", False)), SCHNET_G):
         c = case[tag + g_tag]

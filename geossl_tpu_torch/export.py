@@ -30,8 +30,14 @@ and ordering run in Python (``serve._Passes``, shared with the Predictor).
   state (``model.*``, ``head.*``) and the kernels' prepared layouts
   (``filter_weights``/``stacked_weights``); every program takes them as
   inputs (``torch.func.functional_call``), so none holds a copy.
+* **bf16.** A Predictor in a compute dtype or with bf16 filter products
+  seals as it serves: the casts are traced into the programs, its buckets
+  all take the per-block route, and the CFConv ops carry their ``mxu``
+  (``geossl_torch::cfconv_fwd``/``cfconv_bwd``'s last argument), so a
+  ``cuda`` artifact runs the kernels' bf16 instances.
 * ``meta.json``: ``format_version`` 1, modes, buckets, ``pair_buckets``,
-  ``batch_size``, ``model_3d``, ``emb_dim``, the head's kind, ``y_mean``,
+  ``batch_size``, ``model_3d``, ``emb_dim``, ``compute_dtype`` and
+  ``filter_mxu`` (for the record), the head's kind, ``y_mean``,
   ``y_std`` (also traced into the programs), ``spatial_sort``, ``device``
   (``cuda`` or ``cpu``: the Predictor's) and the torch version.
 
@@ -195,6 +201,8 @@ def seal(pred: Predictor, path: str,
         "batch_size": bs,
         "model_3d": pred.cfg.model_3d,
         "emb_dim": pred.emb_dim,
+        "compute_dtype": pred.cfg.compute_dtype,
+        "filter_mxu": pred.cfg.filter_mxu,
         "head": pred.head_kind,
         "y_mean": pred.y_mean,
         "y_std": pred.y_std,
@@ -204,7 +212,9 @@ def seal(pred: Predictor, path: str,
     }
     buf = io.BytesIO()
     torch.save({"weights": {k: v.cpu() for k, v in weights.items()},
-                "prep": pytree.tree_map(lambda t: t.detach().cpu(), prep)},
+                # a Predictor with no stack route (bf16) holds None there
+                "prep": pytree.tree_map(
+                    lambda t: None if t is None else t.detach().cpu(), prep)},
                buf)
     with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as z:
         z.writestr("meta.json", json.dumps(meta, indent=1))
@@ -243,7 +253,8 @@ class SealedPredictor(_Passes):
         self.head_kind = meta["head"]
         self.y_mean, self.y_std = float(meta["y_mean"]), float(meta["y_std"])
         self._weights = {k: v.to(self.device) for k, v in weights.items()}
-        self._prep = pytree.tree_map(lambda t: t.to(self.device), prep)
+        self._prep = pytree.tree_map(
+            lambda t: None if t is None else t.to(self.device), prep)
         self._blobs = programs
         self._loaded: Dict[str, object] = {}
 

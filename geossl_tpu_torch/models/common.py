@@ -6,6 +6,13 @@ halving-MLP head, and the reference-matching initializers (counterpart of
 Initialization follows PyTorch semantics as the JAX package does:
 Xavier-uniform weights, zero biases, N(0,1) embeddings, every draw from an
 explicit ``torch.Generator``.
+
+A compute dtype (``--compute_dtype bfloat16``) follows flax's: :func:`linear`
+casts input, weight and bias to it, takes the product (rounded once) and
+adds the bias (rounded again), as ``flax.linen.Dense(dtype=...)``; the
+activations round each elementwise op's result on a bf16 input, where
+XLA's ``jax.nn.softplus``/``jax.nn.silu`` round on a bf16 array (bitwise
+the same on the CPU). The parameters stay f32.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F_
 from torch import nn
 
 LOG2 = math.log(2.0)
@@ -23,8 +31,40 @@ def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
     """softplus(x) - log(2). ``jax.nn.softplus`` is ``logaddexp(x, 0)``;
     ``torch.nn.functional.softplus`` returns x itself above its threshold of
     20, which differs by ~2e-9 there and breaks f64 parity, so this uses
-    ``logaddexp`` too."""
+    ``logaddexp`` too. On a bf16 input it rounds where XLA rounds
+    ``jax.nn.softplus(x) - log 2`` on a bf16 array: after exp(-|x|), after
+    log1p, after max(x, 0) + that, and after subtracting log 2 rounded to
+    bf16 (0.69140625: JAX's weakly typed constant takes the array's
+    dtype)."""
+    if x.dtype == torch.bfloat16:
+        # maximum (not clamp): at x = 0 its gradient splits evenly, as
+        # jnp.maximum's, so that the derivative there is 1/2 (zero biases
+        # on padded rows put x at 0 exactly)
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        sp = torch.maximum(x, zero) + torch.log1p(torch.exp(-torch.abs(x)))
+        return sp - torch.tensor(LOG2, dtype=x.dtype, device=x.device)
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device)) - LOG2
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x). On a bf16 input rounded where XLA rounds
+    ``jax.nn.silu`` on a bf16 array (x / (1 + exp(-x)) as exp, add,
+    reciprocal and product, each rounded); else ``F.silu``."""
+    if x.dtype == torch.bfloat16:
+        return x * (1.0 / (1.0 + torch.exp(-x)))
+    return F_.silu(x)
+
+
+def linear(lin: nn.Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``lin(x)`` (``F.linear``, as ``nn.Linear.forward``); with a compute
+    ``dtype``, flax's ``Dense(dtype=...)``:
+    input, weight and bias cast to it, the product rounded to it, then the
+    bias added (a second rounding). The parameters stay in their own
+    dtype; their gradients come back through the casts."""
+    if dtype is None:
+        return F_.linear(x, lin.weight, lin.bias)  # nn.Linear.forward
+    y = F_.linear(x.to(dtype), lin.weight.to(dtype))
+    return y if lin.bias is None else y + lin.bias.to(dtype)
 
 
 class ShiftedSoftplus(nn.Module):
@@ -94,15 +134,17 @@ def cosine_cutoff(dist: torch.Tensor, cutoff: float) -> torch.Tensor:
 
 class Dense(nn.Linear):
     """Linear layer with an optional activation (the reference's
-    ``painn_utils.Dense``: state_dict keys ``weight``/``bias``)."""
+    ``painn_utils.Dense``: state_dict keys ``weight``/``bias``), in the
+    compute ``dtype`` when one is set (:func:`linear`)."""
 
     def __init__(self, n_in: int, n_out: int, bias: bool = True,
-                 activation=None):
+                 activation=None, dtype=None):
         super().__init__(n_in, n_out, bias=bias)
         self.activation = activation
+        self.dtype = dtype
 
     def forward(self, x):
-        y = super().forward(x)
+        y = linear(self, x, self.dtype)
         return y if self.activation is None else self.activation(y)
 
 

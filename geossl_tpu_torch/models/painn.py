@@ -35,6 +35,16 @@ package's kernels).
 The JAX model casts positions, offsets and its node output to f32 whatever
 the parameters' dtype; the port computes at the promoted dtype (at least
 f32), which is the same on the card.
+
+A compute ``dtype`` (``--compute_dtype bfloat16``) is the JAX model's: only
+the dense layers run in it (flax's rounding, ``models/common.linear``, and
+the bf16 silu), with the mixing block's elementwise terms on their bf16
+outputs; ``q`` and ``mu`` stay f32 (``q + dq`` promotes), and the message
+pass takes ``x`` cast to f32, so its kernels run as in f32. (The JAX
+model's XLA branch, ``use_pallas=False``, also casts its filter to bf16;
+the port's ``plain=True`` is the kernels' plain version, whose filter is
+f32, as the JAX Pallas branch's.) The stacks refuse a compute dtype, as
+the JAX package's do.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ from geossl_tpu_torch.models.common import (
     init_linear_,
     jax_linspace,
     normal_,
+    silu,
 )
 from geossl_tpu_torch.ops import geometry
 from geossl_tpu_torch.ops.cfconv import sparse_auto
@@ -71,7 +82,8 @@ class PaiNNInteraction(nn.Module):
     this layer's slice of the filter network."""
 
     def __init__(self, n_atom_basis: int, cutoff: float, sparse="auto",
-                 pair_axis: Optional[str] = None):
+                 pair_axis: Optional[str] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         f = n_atom_basis
         self.cutoff = cutoff
@@ -79,7 +91,8 @@ class PaiNNInteraction(nn.Module):
         # pair-grid model parallelism (parallel/pair_parallel.py)
         self.pair_axis = pair_axis
         self.interatomic_context_net = nn.Sequential(
-            Dense(f, f, activation=F_.silu), Dense(f, 3 * f))
+            Dense(f, f, activation=silu, dtype=dtype),
+            Dense(f, 3 * f, dtype=dtype))
 
     def forward(self, q, mu, dist, gate, dirs, wk, bk, plain=False,
                 symmetric=False):
@@ -91,6 +104,8 @@ class PaiNNInteraction(nn.Module):
         symmetric kernel pair (``ops/painn.painn_message``)."""
         b, n, f = q.shape
         x = self.interatomic_context_net(q)
+        # the message pass takes x in f32 whatever the compute dtype
+        x = x.to(torch.promote_types(torch.float32, x.dtype))
         mu_flat = mu.reshape(b, n, 3 * f)
         if self.pair_axis is not None:
             dq, dmu = self._pair_sharded_message(dist, gate, dirs, x, mu_flat,
@@ -139,19 +154,28 @@ def direction_planes(direction):
 class PaiNNMixing(nn.Module):
     """Intra-atomic mixing block."""
 
-    def __init__(self, n_atom_basis: int, epsilon: float = 1e-8):
+    def __init__(self, n_atom_basis: int, epsilon: float = 1e-8,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         f = n_atom_basis
         self.epsilon = epsilon
-        self.mu_channel_mix = Dense(f, 2 * f, bias=False)
+        self.mu_channel_mix = Dense(f, 2 * f, bias=False, dtype=dtype)
         self.intraatomic_context_net = nn.Sequential(
-            Dense(2 * f, f, activation=F_.silu), Dense(f, 3 * f))
+            Dense(2 * f, f, activation=silu, dtype=dtype),
+            Dense(f, 3 * f, dtype=dtype))
 
     def forward(self, q, mu):
+        """In a compute dtype v, w, vn and the dense outputs are in it, each
+        elementwise result rounded; ``q`` and ``mu`` stay f32 (JAX
+        ``PaiNNMixing``)."""
         f = q.shape[-1]
         v, w = torch.split(self.mu_channel_mix(mu), f, dim=-1)  # [B,N,3,F]
-        vn = torch.sqrt(torch.sum(v * v, dim=-2) + self.epsilon)
-        x = self.intraatomic_context_net(torch.cat([q, vn], dim=-1))
+        eps = self.epsilon
+        if v.dtype == torch.bfloat16:  # JAX's weakly typed constant
+            eps = torch.tensor(eps, dtype=v.dtype, device=v.device)
+        vn = torch.sqrt(torch.sum(v * v, dim=-2) + eps)
+        x = self.intraatomic_context_net(torch.cat([q, vn.to(q.dtype)],
+                                                   dim=-1))
         dq, dgate, dqmu = torch.split(x, f, dim=-1)
         q = q + dq + dqmu * torch.sum(v * w, dim=-2)
         return q, mu + dgate[:, :, None, :] * w
@@ -167,9 +191,15 @@ class PaiNN(nn.Module):
                  shared_interactions: bool = False,
                  shared_filters: bool = False, epsilon: float = 1e-8,
                  sparse="auto", pair_axis: Optional[str] = None,
+                 dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if dtype not in (None, torch.bfloat16):
+            raise ValueError(f"dtype must be None or torch.bfloat16, got "
+                             f"{dtype}")
         f = n_atom_basis
+        # the compute dtype of the dense layers (None: the parameters')
+        self.dtype = dtype
         self.n_atom_basis = f
         self.n_interactions = n_interactions
         self.n_rbf = n_rbf
@@ -184,15 +214,15 @@ class PaiNN(nn.Module):
             n_rbf, 3 * f if shared_filters else n_interactions * 3 * f)
         if shared_interactions:
             # one module repeated, as the reference's ModuleList([m] * L)
-            inter = PaiNNInteraction(f, cutoff, sparse, pair_axis)
-            mix = PaiNNMixing(f, epsilon)
+            inter = PaiNNInteraction(f, cutoff, sparse, pair_axis, dtype)
+            mix = PaiNNMixing(f, epsilon, dtype)
             self.interactions = nn.ModuleList([inter] * n_interactions)
             self.mixing = nn.ModuleList([mix] * n_interactions)
         else:
             self.interactions = nn.ModuleList(
-                PaiNNInteraction(f, cutoff, sparse, pair_axis)
+                PaiNNInteraction(f, cutoff, sparse, pair_axis, dtype)
                 for _ in range(n_interactions))
-            self.mixing = nn.ModuleList(PaiNNMixing(f, epsilon)
+            self.mixing = nn.ModuleList(PaiNNMixing(f, epsilon, dtype)
                                         for _ in range(n_interactions))
         self.reset_parameters(generator)
 
@@ -272,9 +302,13 @@ class PaiNN(nn.Module):
 
 
 def _check_stackable(name: str, model: PaiNN) -> None:
-    """The whole-stack kernels run the whole pair grid on one device."""
+    """The whole-stack kernels run the whole pair grid on one device, in
+    f32."""
     if any(inter.pair_axis is not None for inter in model.interactions):
         raise ValueError(f"{name}: default config only (no pair_axis)")
+    if model.dtype is not None:
+        raise ValueError(f"{name}: default config only (no compute dtype); "
+                         "use model.forward")
 
 
 def fused_stack_apply(model: PaiNN, atom_type, positions, node_mask,

@@ -19,6 +19,16 @@ symmetric dist/env, i.e. without ``max_neighbors``, the symmetric modes
 ``cfconv_fwd_sym``/``cfconv_bwd_sym`` at every N, else the
 ``cfconv_fwd``/``cfconv_bwd`` kernels);
 ``fused_stack_apply`` is inference only.
+
+A compute ``dtype`` (``--compute_dtype bfloat16``) is the JAX model's: the
+embedding, the residual stream ``h`` and every dense layer in bf16 with
+flax's rounding (``models/common.linear``), the geometry in f32, the CFConv
+kernels fed ``x`` in f32 with the filter products on bf16 operands, their
+messages cast back to bf16, and the output cast to f32 before the readout
+(and the heads). It implies ``filter_mxu='bf16'``, which alone runs only
+the CFConv filter products on bf16 operands (``ops/cfconv``'s ``mxu``).
+Neither runs through the whole stack (``fused_stack_apply`` refuses them,
+as the JAX package's does).
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from geossl_tpu_torch.models.common import (
     ShiftedSoftplus,
     cosine_envelope,
     init_linear_,
+    linear,
     normal_,
     shifted_softplus,
 )
@@ -39,7 +50,8 @@ from geossl_tpu_torch.ops import geometry
 from geossl_tpu_torch.ops.cfconv import (
     cfconv,
     cfconv_fused,
-    cfconv_fused_reference,
+    cfconv_plain,
+    check_mxu,
     schnet_stack,
     schnet_stack_reference,
     sparse_auto,
@@ -67,10 +79,15 @@ class InteractionBlock(nn.Module):
 
     def __init__(self, hidden_channels: int, num_filters: int,
                  num_gaussians: int, cutoff: float, symmetric: bool = True,
-                 sparse="auto", pair_axis: Optional[str] = None):
+                 sparse="auto", pair_axis: Optional[str] = None,
+                 dtype: Optional[torch.dtype] = None, mxu: str = "f32"):
         super().__init__()
         self.num_gaussians = num_gaussians
         self.cutoff = cutoff
+        # the compute dtype of the dense layers (None: the parameters') and
+        # the precision of the CFConv filter products
+        self.dtype = dtype
+        self.mxu = mxu
         # True only when dist AND adj are symmetric (a max_neighbors
         # truncated adjacency is not): lets the kernel skip mirrored tiles
         self.symmetric = symmetric
@@ -96,16 +113,21 @@ class InteractionBlock(nn.Module):
         (``SchNet.envelope``), the same for every block, so the caller makes
         it once. ``filt``: this block's ``filter_weights()`` made once by a
         caller whose weights are fixed (the Predictor); made here when
-        None."""
-        x = self.conv.lin1(h)
+        None. In a compute dtype the kernels take ``x`` in f32 and their
+        messages come back cast to it (JAX ``InteractionBlock``)."""
+        x = linear(self.conv.lin1, h, self.dtype)
+        x = x.to(torch.promote_types(torch.float32, x.dtype))
         filt = self.filter_weights() if filt is None else filt
         if self.pair_axis is not None:
             m = self._pair_sharded_conv(dist, env, x, filt, plain)
         else:
             m = cfconv(dist, env, x, *filt, 0.0, self.cutoff,
                        self.num_gaussians, symmetric=self.symmetric,
-                       sparse=self.sparse, plain=plain)
-        return self.lin(shifted_softplus(self.conv.lin2(m)))
+                       sparse=self.sparse, plain=plain, mxu=self.mxu)
+        if self.dtype is not None:
+            m = m.to(self.dtype)
+        return linear(self.lin, shifted_softplus(
+            linear(self.conv.lin2, m, self.dtype)), self.dtype)
 
     def _pair_sharded_conv(self, dist, env, x, filt, plain):
         """CFConv on this rank's j-stripe of the pair grid, the stripes'
@@ -119,9 +141,10 @@ class InteractionBlock(nn.Module):
                 pair_parallel.stripe(x, j0, nloc, 1), *filt, 0.0, self.cutoff,
                 self.num_gaussians)
         if plain:
-            m = cfconv_fused_reference(*args)
+            m = cfconv_plain(*args, self.mxu)
         else:
-            m = cfconv_fused(*args, sparse_auto(dist.shape[-2], self.sparse))
+            m = cfconv_fused(*args, sparse_auto(dist.shape[-2], self.sparse),
+                             self.mxu)
         return pair_parallel.pair_sum(m)
 
 
@@ -151,8 +174,18 @@ class SchNet(nn.Module):
                  atomref: Optional[Sequence[float]] = None,
                  dipole: bool = False, sparse="auto",
                  pair_axis: Optional[str] = None,
+                 dtype: Optional[torch.dtype] = None, filter_mxu: str = "f32",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        check_mxu(filter_mxu)
+        if dtype not in (None, torch.bfloat16):
+            raise ValueError(f"dtype must be None or torch.bfloat16, got "
+                             f"{dtype}")
+        # the compute dtype (None: the parameters'); a bf16 model implies
+        # bf16 filter products (JAX InteractionBlock's mxu)
+        self.dtype = dtype
+        self.mxu = "bf16" if dtype is not None or filter_mxu == "bf16" \
+            else "f32"
         self.hidden_channels = hidden_channels
         self.num_filters = num_filters
         self.num_gaussians = num_gaussians
@@ -166,7 +199,8 @@ class SchNet(nn.Module):
         self.interactions = nn.ModuleList(
             InteractionBlock(hidden_channels, num_filters, num_gaussians,
                              cutoff, symmetric=max_neighbors is None,
-                             sparse=sparse, pair_axis=pair_axis)
+                             sparse=sparse, pair_axis=pair_axis, dtype=dtype,
+                             mxu=self.mxu)
             for _ in range(num_interactions))
         self.lin1 = nn.Linear(hidden_channels, hidden_channels)
         self.lin2 = nn.Linear(hidden_channels, hidden_channels)
@@ -211,6 +245,8 @@ class SchNet(nn.Module):
         """``filters``: the blocks' ``filter_weights()``, made once by a
         caller whose weights are fixed; made per block when None."""
         h = self.embedding(atom_type)
+        if self.dtype is not None:
+            h = h.to(self.dtype)
         dist, adj = self.geometry(positions, node_mask)
         env = self.envelope(dist, adj)
         filters = filters or [None] * len(self.interactions)
@@ -220,15 +256,23 @@ class SchNet(nn.Module):
 
     def output(self, h, atom_type, positions, node_mask):
         """Everything after the interaction blocks: lin1 -> ssp -> lin2, then
-        the dipole branch or scaling, atomref and the readout."""
-        h = self.lin2(shifted_softplus(self.lin1(h)))
+        the dipole branch or scaling, atomref and the readout, in the
+        compute dtype up to the readout, which is f32 (or f64)."""
+        dt = self.dtype
+        h = linear(self.lin2, shifted_softplus(linear(self.lin1, h, dt)), dt)
+        up = torch.promote_types(torch.float32, h.dtype)
         if self.dipole:
-            q = self.dipole_lin(h)
-            return dipole_readout(q, atom_type, positions, node_mask), h
+            q = linear(self.dipole_lin, h, dt).to(up)
+            return dipole_readout(q, atom_type, positions, node_mask), h.to(up)
         if self.mean is not None and self.std is not None:
-            h = h * self.std + self.mean
+            if dt is None:
+                h = h * self.std + self.mean
+            else:  # JAX's weakly typed scalars take h's dtype
+                h = h * torch.tensor(self.std, dtype=dt, device=h.device) \
+                    + torch.tensor(self.mean, dtype=dt, device=h.device)
         if self.atomref is not None:
-            h = h + self.atomref(atom_type)
+            h = h + self.atomref(atom_type).to(h.dtype)
+        h = h.to(up)
         return geometry.readout(h, node_mask, self.readout), h
 
     def stacked_weights(self):
@@ -252,7 +296,12 @@ def fused_stack_apply(model: SchNet, atom_type, positions, node_mask,
     Needs a square filter width (h stays at one width) and f32 positions.
     ``plain=True`` takes the plain stack on any device. ``stacked`` is
     ``model.stacked_weights()`` made once by a caller whose weights are
-    fixed; made here when None."""
+    fixed; made here when None. A model in a compute dtype or with bf16
+    filter products raises (the stack computes in f32 only, as the JAX
+    package's ``fused_stack_apply`` refuses them)."""
+    if model.dtype is not None or model.mxu != "f32":
+        raise ValueError("fused_stack_apply: default config only (no "
+                         "compute dtype, filter_mxu f32); use model.forward")
     if model.num_filters != model.hidden_channels:
         raise ValueError("fused_stack_apply: needs num_filters == "
                          "hidden_channels")

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import torch
 
@@ -42,6 +43,16 @@ def counted(name: str):
         _WRAPPERS[name] = fn
         return fn
     return register
+
+
+def instance_counter(name: str):
+    """A launch counter of its own, registered under ``name`` beside the
+    wrappers', for a kernel instance that a wrapper launches in place of
+    its default one (the CFConv kernels' bf16 instances): the wrapper adds
+    one to it, not to its own count, where it launches that instance."""
+    counter = SimpleNamespace(launches=0)
+    _WRAPPERS[name] = counter
+    return counter
 
 
 def kernel_op(name: str, fake, plain):

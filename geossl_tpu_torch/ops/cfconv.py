@@ -31,7 +31,17 @@ package's XLA ``_cfconv_bwd_bwd`` / ``_cfconv_sym_bwd_bwd``.
 
 Every kernel runs its tile products (the stack also its dense layers) on
 the tensor cores in 3xTF32 (``csrc/mma_tf32.cuh``), within f32 rounding of
-the plain version. The plain-mode forward writes each output row once (no
+the plain version. With ``mxu='bf16'`` (``--filter_mxu bf16``, and implied
+by ``--compute_dtype bfloat16``) the four CFConv kernels run their bf16
+instances instead: every filter product on bf16 operands with f32
+accumulation (``csrc/mma_bf16.cuh``), the products that the JAX package's
+``cfconv_pallas._dot`` rounds and no others; their plain versions round the
+same operands (:func:`_dot`), and the plain bf16 backward is the JAX
+kernel's backward body written out product by product
+(:func:`cfconv_bwd_bf16_reference`). The stack has no bf16 instance (the
+JAX package routes bf16 away from it). A bf16 launch counts under the
+instance's own name, ``<kernel>_bf16`` (:data:`BF16_LAUNCHES`), and not
+under the wrapper's. The plain-mode forward writes each output row once (no
 atomics): two launches give bitwise the same output.
 ``plain_precision()`` makes the plain versions' PyTorch matmuls full f32.
 SchNet's dispatcher takes the symmetric pair whenever dist/env are
@@ -40,8 +50,8 @@ symmetric pair from N=256 (``ops/painn.sym_profitable``).
 
 Each launch is also a custom op (``ops/_launch.kernel_op``):
 ``geossl_torch::cfconv_fwd`` (both forward modes), ``cfconv_bwd`` (both
-backward modes; the weight gradients as one flat tensor) and
-``schnet_stack``.
+backward modes; the weight gradients as one flat tensor), each with its
+``mxu``, and ``schnet_stack``.
 """
 
 from __future__ import annotations
@@ -64,6 +74,7 @@ from geossl_tpu_torch.ops._launch import (
     counted,
     flat,
     fresh_thread,
+    instance_counter,
     kernel_op,
     launch,
     on_cpu,
@@ -82,6 +93,17 @@ KERNEL_F = 128
 SMALL_G = 64
 # Side of the kernels' square pair tiles.
 KERNEL_TILE = 8
+# Precisions of the filter products (JAX ``cfconv_pallas._dot``'s ``mxu``).
+MXU_MODES = ("f32", "bf16")
+# The bf16 instances' launch counters, by the wrapper's name: each counts
+# as "<name>_bf16" in ops/_launch.launch_counts()
+BF16_LAUNCHES = {name: instance_counter(f"{name}_bf16") for name in (
+    "cfconv_fwd", "cfconv_bwd", "cfconv_fwd_sym", "cfconv_bwd_sym")}
+
+
+def _count(wrapper, name, mxu):
+    """One launch of ``wrapper``'s kernel in the ``mxu`` instance."""
+    (BF16_LAUNCHES[name] if mxu == "bf16" else wrapper).launches += 1
 
 
 def plain_precision() -> None:
@@ -104,16 +126,78 @@ def sparse_auto(n: int, sparse) -> bool:
 # -- plain versions -----------------------------------------------------------
 
 
-def cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start, stop, num_g):
-    """Plain CFConv: materializes the [B,N,N,F] filter tensor."""
+def check_mxu(mxu: str) -> None:
+    if mxu not in MXU_MODES:
+        raise ValueError(f"mxu must be one of {MXU_MODES}, got {mxu!r}")
+
+
+def _dot(a, b, mxu):
+    """``a @ b`` as the kernels take a filter product (JAX
+    ``cfconv_pallas._dot``): with ``mxu='bf16'`` both operands rounded to
+    bf16 (to nearest even), then multiplied and summed in their own dtype,
+    where the products of two bf16 values are exact. Autograd through the
+    casts rounds the cotangents to bf16, as JAX's through ``astype`` (the
+    second orders); the first-order plain backward is
+    :func:`cfconv_bwd_bf16_reference`."""
+    if mxu == "bf16":
+        bf = torch.bfloat16
+        return a.to(bf).to(a.dtype) @ b.to(bf).to(b.dtype)
+    return a @ b
+
+
+def cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                           mxu="f32"):
+    """Plain CFConv: materializes the [B,N,N,F] filter tensor. ``mxu``: the
+    filter products' precision (:func:`_dot`)."""
+    check_mxu(mxu)
     rbf = gaussian_smearing(dist, start, stop, num_g)
-    w = shifted_softplus(rbf @ w1 + b1) @ w2 + b2
+    w = _dot(shifted_softplus(_dot(rbf, w1, mxu) + b1), w2, mxu) + b2
     return torch.einsum("bijf,bij,bjf->bif", w, env, x)
 
 
-def cfconv_bwd_reference(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g):
+@torch.no_grad()
+def cfconv_bwd_bf16_reference(dist, env, x, g, w1, b1, w2, b2, start, stop,
+                              num_g):
+    """The plain backward with ``mxu='bf16'``: the JAX kernel's backward body
+    (``cfconv_pallas._bwd_kernel``), product by product, each product's two
+    operands rounded to bf16 (:func:`_dot`) and everything else in the
+    working dtype: (ddist, denv, dx, dW1, db1, dW2, db2). Not autograd
+    through the casts, which would round the cotangent and each product's
+    output to bf16 as well, where the kernels do not. Its outputs carry no
+    graph, as the f32 plain backward's (its second order is
+    :func:`cfconv_bwd_bwd`)."""
+    f = x.shape[-1]
+    offset, coeff = rbf_offsets(start, stop, num_g, dist.dtype, dist.device)
+    diff = dist[..., None] - offset
+    rbf = torch.exp(coeff * diff * diff)  # [B,N,N,G]
+    pre1 = _dot(rbf, w1, "bf16") + b1
+    s = shifted_softplus(pre1)
+    w = _dot(s, w2, "bf16") + b2  # [B,N,N,F]
+    env4 = env[..., None]
+    g4 = g[:, :, None, :]
+    q = g4 * x[:, None, :, :]  # q[b,i,j,f] = g[b,i,f] x[b,j,f]
+    denv = torch.sum(w * q, dim=-1)
+    dx = torch.sum(w * env4 * g4, dim=1)
+    qe = (q * env4).reshape(-1, f)
+    dw2 = _dot(s.reshape(-1, f).t(), qe, "bf16")
+    db2 = torch.sum(qe, dim=0)
+    dh = _dot(qe, w2.t(), "bf16") * torch.sigmoid(pre1).reshape(-1, f)
+    dw1 = _dot(rbf.reshape(-1, num_g).t(), dh, "bf16")
+    db1 = torch.sum(dh, dim=0)
+    drbf = _dot(dh, w1.t(), "bf16").reshape(rbf.shape)
+    ddist = torch.sum(drbf * rbf * (2.0 * coeff) * diff, dim=-1)
+    return ddist, denv, dx, dw1, db1, dw2, db2
+
+
+def cfconv_bwd_reference(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
+                         mxu="f32"):
     """Plain backward of :func:`cfconv_fused_reference` for the cotangent
-    ``g`` [B,N,F]: (ddist, denv, dx, dW1, db1, dW2, db2), by autograd."""
+    ``g`` [B,N,F]: (ddist, denv, dx, dW1, db1, dW2, db2), by autograd; with
+    ``mxu='bf16'`` :func:`cfconv_bwd_bf16_reference`."""
+    check_mxu(mxu)
+    if mxu == "bf16":
+        return cfconv_bwd_bf16_reference(dist, env, x, g, w1, b1, w2, b2,
+                                         start, stop, num_g)
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True)
                for t in (dist, env, x, w1, b1, w2, b2)]
@@ -122,13 +206,16 @@ def cfconv_bwd_reference(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g):
 
 
 def cfconv_bwd_sym_reference(dist, env, x, g, w1, b1, w2, b2, start, stop,
-                             num_g):
+                             num_g, mxu="f32"):
     """Plain version of :func:`cfconv_bwd_sym`: the true, unplaced
     cotangents (those of :func:`cfconv_bwd_reference`).
     :func:`place_sym_cotangent` maps its ddist/denv to the kernel's
-    placement."""
+    placement. (In bf16 the kernel rounds each computed cell's qe with its
+    mirror's added, as the JAX symmetric kernel does, where this rounds
+    each cell's own: they differ at bf16 rounding of the weight
+    gradients.)"""
     return cfconv_bwd_reference(dist, env, x, g, w1, b1, w2, b2, start, stop,
-                                num_g)
+                                num_g, mxu)
 
 
 def place_sym_cotangent(c, antisymmetric=False):
@@ -230,24 +317,25 @@ def _check_filter_shapes(name, dist, env, x, w1, b1, w2, b2, num_g):
 
 
 def _cfconv_fwd_fake(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
-                     symmetric, sparse):
+                     symmetric, sparse, mxu="f32"):
     return x.new_empty((dist.shape[0], dist.shape[1], x.shape[-1]))
 
 
 def _cfconv_fwd_plain(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
-                      symmetric, sparse):
+                      symmetric, sparse, mxu="f32"):
     return cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start, stop,
-                                  num_g)
+                                  num_g, mxu)
 
 
 @kernel_op("cfconv_fwd", _cfconv_fwd_fake, _cfconv_fwd_plain)
 def _launch_cfconv(dist: Tensor, env: Tensor, x: Tensor, w1: Tensor,
                    b1: Tensor, w2: Tensor, b2: Tensor, start: float,
                    stop: float, num_g: int, symmetric: bool,
-                   sparse: bool) -> Tensor:
+                   sparse: bool, mxu: str = "f32") -> Tensor:
     b, ni, nj = dist.shape
     f = x.shape[-1]
     _check_filter_shapes("cfconv_fwd", dist, env, x, w1, b1, w2, b2, num_g)
+    check_mxu(mxu)
     if symmetric and ni != nj:
         raise ValueError("cfconv_fwd: the symmetric mode needs a square grid; "
                          f"got dist {tuple(dist.shape)}")
@@ -257,7 +345,7 @@ def _launch_cfconv(dist: Tensor, env: Tensor, x: Tensor, w1: Tensor,
     fn = _build.kernel_fn(
         "cfconv_fwd", "cfconv_fwd",
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     # both modes make their work list on the device (tile flags, counts,
     # prefix sums, the tile list); the symmetric mode adds every row with
     # atomics, the plain mode writes each row once
@@ -271,7 +359,8 @@ def _launch_cfconv(dist: Tensor, env: Tensor, x: Tensor, w1: Tensor,
     tab = _rbf_table(start, stop, num_g, dist.device)
     err = fn(*map(ptr, (dist, env, x, w1)), _ptr_or_null(tab),
              *map(ptr, (b1, w2, b2, out, ws)), b, ni, nj, f, num_g, s0, delta,
-             coeff, int(symmetric), int(sparse), stream(dist))
+             coeff, int(symmetric), int(sparse), int(mxu == "bf16"),
+             stream(dist))
     check_launch("cfconv_fwd", err)
     return out
 
@@ -279,101 +368,127 @@ def _launch_cfconv(dist: Tensor, env: Tensor, x: Tensor, w1: Tensor,
 class _CFConv(torch.autograd.Function):
     """``cfconv_fwd`` forward, ``cfconv_bwd`` backward, or with ``symmetric``
     both in symmetric mode (``cfconv_bwd_sym``: ddist/denv placed, exact
-    upstream of symmetric dist/env). The backward runs through
+    upstream of symmetric dist/env); with ``plain`` the plain versions of
+    both (the true cotangents), on any device. The backward runs through
     ``_CFConvBwd``, so a double backward reaches the second order."""
 
     @staticmethod
     def forward(ctx, dist, env, x, w1, b1, w2, b2, start, stop, num_g,
-                symmetric, sparse):
+                symmetric, sparse, mxu, plain):
         ctx.save_for_backward(dist, env, x, w1, b1, w2, b2)
-        ctx.consts = (start, stop, num_g, sparse)
-        ctx.symmetric = symmetric
+        ctx.consts = (start, stop, num_g, sparse, symmetric, mxu, plain)
+        if plain:
+            return cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start,
+                                          stop, num_g, mxu)
         return launch(_launch_cfconv, dist, env, x, w1, b1, w2,
                       b2, float(start), float(stop), num_g, symmetric,
-                      bool(sparse))
+                      bool(sparse), mxu)
 
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
         grads = _CFConvBwd.apply(*saved[:3], g.contiguous(), *saved[3:],
-                                 *ctx.consts, ctx.symmetric)
-        return (*grads, None, None, None, None, None)
+                                 *ctx.consts)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 class _CFConvBwd(torch.autograd.Function):
     """The first-order backward as a differentiable function of (dist, env,
     x, g, W1, b1, W2, b2): its forward is the ``cfconv_bwd`` kernel (with
-    ``symmetric``, ``cfconv_bwd_sym``), its backward :func:`cfconv_bwd_bwd`
-    (:func:`cfconv_bwd_sym_bwd`). It runs only where the forward ran the
-    kernel, so its tensors are on the card."""
+    ``symmetric``, ``cfconv_bwd_sym``; with ``plain``, the plain backward),
+    its backward :func:`cfconv_bwd_bwd` (:func:`cfconv_bwd_sym_bwd` after
+    the symmetric kernel). Without ``plain`` it runs only where the forward
+    ran the kernel, so its tensors are on the card."""
 
     @staticmethod
     def forward(ctx, dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
-                sparse, symmetric):
+                sparse, symmetric, mxu, plain):
         ctx.save_for_backward(dist, env, x, g, w1, b1, w2, b2)
-        ctx.consts = (start, stop, num_g)
-        ctx.symmetric = symmetric
+        ctx.consts = (start, stop, num_g, mxu)
+        ctx.placed = symmetric and not plain
+        if plain:
+            return cfconv_bwd_reference(dist, env, x, g, w1, b1, w2, b2,
+                                        start, stop, num_g, mxu)
         bwd = cfconv_bwd_sym if symmetric else cfconv_bwd
         return bwd(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
-                   sparse)
+                   sparse, mxu)
 
     @staticmethod
     def backward(ctx, *cts):
-        second = cfconv_bwd_sym_bwd if ctx.symmetric else cfconv_bwd_bwd
+        second = cfconv_bwd_sym_bwd if ctx.placed else cfconv_bwd_bwd
         grads = second(*ctx.saved_tensors, cts, *ctx.consts)
-        return (*grads, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 def cfconv_bwd_bwd(dist, env, x, g, w1, b1, w2, b2, cts, start, stop, num_g,
-                   _places=()):
+                   mxu="f32", _places=()):
     """Second order of :func:`cfconv_bwd`: for the cotangents ``cts`` of its
     seven outputs, the cotangents of (dist, env, x, g, W1, b1, W2, b2), by
-    autograd over :func:`cfconv_fused_reference` (JAX
-    ``cfconv_pallas._cfconv_bwd_bwd``). Materializes the [B,N,N,F] filter
-    grid."""
-    d = second_order(lambda *a: cfconv_fused_reference(*a, start, stop, num_g),
-                     (dist, env, x, w1, b1, w2, b2, g), 7, cts, _places)
+    autograd over :func:`cfconv_fused_reference` with ``mxu`` (JAX
+    ``cfconv_pallas._cfconv_bwd_bwd``: in bf16, autograd through the
+    operands' casts, as JAX's through ``astype``). Materializes the
+    [B,N,N,F] filter grid."""
+    d = second_order(
+        lambda *a: cfconv_fused_reference(*a, start, stop, num_g, mxu),
+        (dist, env, x, w1, b1, w2, b2, g), 7, cts, _places)
     return (*d[:3], d[7], *d[3:7])
 
 
 def cfconv_bwd_sym_bwd(dist, env, x, g, w1, b1, w2, b2, cts, start, stop,
-                       num_g):
+                       num_g, mxu="f32"):
     """Second order of :func:`cfconv_bwd_sym`, whose ddist/denv come back
     placed: :func:`cfconv_bwd_bwd` with the placement's transpose applied to
     the ddist/denv cotangents (JAX ``cfconv_pallas._cfconv_sym_bwd_bwd``).
     The two agree on the symmetric cotangents a chain through the positions
     gives."""
     return cfconv_bwd_bwd(dist, env, x, g, w1, b1, w2, b2, cts, start, stop,
-                          num_g, {0: False, 1: False})
+                          num_g, mxu, {0: False, 1: False})
+
+
+def cfconv_plain(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                 mxu="f32"):
+    """The plain version of the CFConv pair, differentiable on any device:
+    in f32 :func:`cfconv_fused_reference` (autograd is the plain backward);
+    in bf16 the same forward with the plain bf16 backward
+    (:func:`cfconv_bwd_bf16_reference`, the kernels' rounding) and, behind
+    it, the second order (:func:`cfconv_bwd_bwd`)."""
+    check_mxu(mxu)
+    if mxu == "f32":
+        return cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start,
+                                      stop, num_g)
+    return _CFConv.apply(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                         False, False, mxu, True)
 
 
 @counted("cfconv_fwd")
 def cfconv_fused(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
-                 sparse=False):
+                 sparse=False, mxu="f32"):
     """m[b,i,f] = Σ_j env·(ssp(rbf(d)W1+b1)W2+b2)[f]·x[b,j,f]; [B,N,F].
     ``sparse`` skips pair tiles whose env is all zero (same output).
-    Differentiable on both devices (on CUDA through ``cfconv_bwd``)."""
+    ``mxu='bf16'``: the filter products on bf16 operands (the kernel's bf16
+    instance). Differentiable on both devices (on CUDA through
+    ``cfconv_bwd``)."""
     if on_cpu("cfconv_fwd", dist, env, x, w1, b1, w2, b2):
-        return cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start,
-                                      stop, num_g)
+        return cfconv_plain(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                            mxu)
     out = _CFConv.apply(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
-                        False, sparse)
-    cfconv_fused.launches += 1
+                        False, sparse, mxu, False)
+    _count(cfconv_fused, "cfconv_fwd", mxu)
     return out
 
 
 def _cfconv_bwd_fake(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
-                     symmetric, sparse):
+                     symmetric, sparse, mxu="f32"):
     f = x.shape[-1]
     return (torch.empty_like(dist), torch.empty_like(env), torch.empty_like(x),
             x.new_empty((num_g * f + f + f * f + f,)))
 
 
 def _cfconv_bwd_plain(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
-                      symmetric, sparse):
+                      symmetric, sparse, mxu="f32"):
     ddist, denv, dx, *wgrads = fresh_thread(
         cfconv_bwd_reference, dist, env, x, g, w1, b1, w2, b2, start, stop,
-        num_g)
+        num_g, mxu)
     return ddist, denv, dx, flat(wgrads)
 
 
@@ -388,12 +503,14 @@ def _split_wgrad(wgrad, num_g, f):
 def _launch_cfconv_bwd(dist: Tensor, env: Tensor, x: Tensor, g: Tensor,
                        w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
                        start: float, stop: float, num_g: int, symmetric: bool,
-                       sparse: bool) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+                       sparse: bool,
+                       mxu: str = "f32") -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """(ddist, denv, dx, the flat weight gradient dW1|db1|dW2|db2)."""
     name = "cfconv_bwd_sym" if symmetric else "cfconv_bwd"
     b, ni, nj = dist.shape
     f = x.shape[-1]
     _check_filter_shapes(name, dist, env, x, w1, b1, w2, b2, num_g)
+    check_mxu(mxu)
     if g.shape != (b, ni, f):
         raise ValueError(f"{name}: kernel takes g [B,N,F]; got g "
                          f"{tuple(g.shape)}")
@@ -410,7 +527,7 @@ def _launch_cfconv_bwd(dist: Tensor, env: Tensor, x: Tensor, g: Tensor,
     fn = _build.kernel_fn(
         "cfconv_bwd", "cfconv_bwd",
         [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     size = num_g * f + f + f * f + f
     ddist, denv = torch.empty_like(dist), torch.empty_like(env)
     # the symmetric mode adds every dx row with atomics
@@ -425,32 +542,33 @@ def _launch_cfconv_bwd(dist: Tensor, env: Tensor, x: Tensor, g: Tensor,
     err = fn(*map(ptr, (dist, env, x, g, w1)), _ptr_or_null(tab),
              *map(ptr, (b1, w2, b2, ddist, denv, dx, part, wgrad, ws)),
              b, ni, nj, f, num_g, s0, delta, coeff, int(symmetric),
-             int(sparse), stream(dist))
+             int(sparse), int(mxu == "bf16"), stream(dist))
     check_launch(name, err)
     return ddist, denv, dx, wgrad
 
 
 @counted("cfconv_bwd")
 def cfconv_bwd(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
-               sparse=False):
+               sparse=False, mxu="f32"):
     """Backward of :func:`cfconv_fused` for the cotangent ``g`` [B,N,F]:
     (ddist, denv, dx, dW1, db1, dW2, db2). With ``sparse`` the kernel skips
     8x8 tiles whose env is all zero and writes ddist = denv = 0 there (exact
     downstream: env has value and slope zero on those pairs); elsewhere, and
-    on the CPU, denv is the true cotangent."""
+    on the CPU, denv is the true cotangent. ``mxu='bf16'``: the kernel's
+    bf16 instance (on the CPU :func:`cfconv_bwd_bf16_reference`)."""
     if on_cpu("cfconv_bwd", dist, env, x, g, w1, b1, w2, b2):
         return cfconv_bwd_reference(dist, env, x, g, w1, b1, w2, b2, start,
-                                    stop, num_g)
+                                    stop, num_g, mxu)
     *out, wgrad = launch(_launch_cfconv_bwd, dist, env, x, g,
                          w1, b1, w2, b2, float(start), float(stop), num_g,
-                         False, bool(sparse))
-    cfconv_bwd.launches += 1
+                         False, bool(sparse), mxu)
+    _count(cfconv_bwd, "cfconv_bwd", mxu)
     return (*out, *_split_wgrad(wgrad, num_g, x.shape[-1]))
 
 
 @counted("cfconv_bwd_sym")
 def cfconv_bwd_sym(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
-                   sparse=False):
+                   sparse=False, mxu="f32"):
     """Backward of :func:`cfconv_fused_sym` for the cotangent ``g``
     [B,N,F] and SYMMETRIC dist/env: (ddist, denv, dx, dW1, db1, dW2, db2).
     On CUDA the kernel computes the 8x8 tiles on and above the diagonal
@@ -460,52 +578,56 @@ def cfconv_bwd_sym(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
     cotangents."""
     if on_cpu("cfconv_bwd_sym", dist, env, x, g, w1, b1, w2, b2):
         return cfconv_bwd_sym_reference(dist, env, x, g, w1, b1, w2, b2,
-                                        start, stop, num_g)
+                                        start, stop, num_g, mxu)
     *out, wgrad = launch(_launch_cfconv_bwd, dist, env, x, g,
                          w1, b1, w2, b2, float(start), float(stop), num_g,
-                         True, bool(sparse))
-    cfconv_bwd_sym.launches += 1
+                         True, bool(sparse), mxu)
+    _count(cfconv_bwd_sym, "cfconv_bwd_sym", mxu)
     return (*out, *_split_wgrad(wgrad, num_g, x.shape[-1]))
 
 
 @counted("cfconv_fwd_sym")
 def cfconv_fused_sym(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
-                     sparse=False):
+                     sparse=False, mxu="f32"):
     """Same output as :func:`cfconv_fused` for SYMMETRIC dist/env only: the
     kernel computes the tiles on and above the diagonal and emits the
     mirrored messages of the ones below. Differentiable on both devices (on
     CUDA through ``cfconv_bwd_sym``)."""
     if on_cpu("cfconv_fwd_sym", dist, env, x, w1, b1, w2, b2):
-        return cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start,
-                                      stop, num_g)
+        return cfconv_plain(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                            mxu)
     out = _CFConv.apply(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
-                        True, sparse)
-    cfconv_fused_sym.launches += 1
+                        True, sparse, mxu, False)
+    _count(cfconv_fused_sym, "cfconv_fwd_sym", mxu)
     return out
 
 
 def cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g, symmetric=False,
-           sparse="auto", plain=False):
+           sparse="auto", plain=False, mxu="f32"):
     """Dispatcher, as ``cfconv_pallas.cfconv``: the symmetric kernel pair
     whenever the caller guarantees symmetric dist/env, else the plain-mode
     pair; ``plain=True`` takes the plain version on any device (the
-    counterpart of ``use_pallas=False``). The JAX package waits for N=256
-    (``cfconv_pallas.sym_profitable``, its TPU tiling's first skippable
-    tile); on the H100 the symmetric pair (forward + backward) is faster
-    than the plain pair at every DDM bucket from N=32 and at N=512
-    (``chip_smoke.py``'s ``cfconv_sym_vs_plain_kernels:`` line, PERF.md)."""
+    counterpart of ``use_pallas=False``; in bf16 with the kernels' rounding,
+    :func:`cfconv_plain`). ``mxu``: the filter products' precision. The JAX
+    package waits for N=256 (``cfconv_pallas.sym_profitable``, its TPU
+    tiling's first skippable tile); on the H100 the symmetric pair (forward
+    + backward) is faster than the plain pair at every DDM bucket from N=32
+    and at N=512 (``chip_smoke.py``'s ``cfconv_sym_vs_plain_kernels:``
+    line, PERF.md)."""
     if plain:
-        return cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start,
-                                      stop, num_g)
+        return cfconv_plain(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                            mxu)
     sp = sparse_auto(dist.shape[-1], sparse)
     if symmetric:
         return cfconv_fused_sym(dist, env, x, w1, b1, w2, b2, start, stop,
-                                num_g, sp)
-    return cfconv_fused(dist, env, x, w1, b1, w2, b2, start, stop, num_g, sp)
+                                num_g, sp, mxu)
+    return cfconv_fused(dist, env, x, w1, b1, w2, b2, start, stop, num_g, sp,
+                        mxu)
 
 
 @counted("schnet_stack")
-def schnet_stack(dist, env, h0, stacked, start, stop, num_g, symmetric=False):
+def schnet_stack(dist, env, h0, stacked, start, stop, num_g, symmetric=False,
+                 mxu="f32"):
     """Node features after all interaction blocks, [B,N,F] (inference only,
     as ``schnet_stack_infer``). ``stacked`` is the 9-tuple of per-block
     weight stacks (wl1 [L,F,F], w1 [L,G,F], b1 [L,F], w2 [L,F,F], b2 [L,F],
@@ -513,7 +635,13 @@ def schnet_stack(dist, env, h0, stacked, start, stop, num_g, symmetric=False):
     env tiles; with ``symmetric`` (the caller guarantees symmetric dist/env,
     as for ``cfconv_fused_sym``) it computes one filter per unordered pair.
     Its messages are summed with atomics, in an order that varies from run
-    to run (f32 rounding)."""
+    to run (f32 rounding). It computes in f32 only: ``mxu='bf16'`` raises,
+    as the JAX package's ``fused_stack_apply`` refuses a bf16 model (its
+    serving routes bf16 to the per-block kernels)."""
+    check_mxu(mxu)
+    if mxu != "f32":
+        raise ValueError("schnet_stack: no bf16 instance; run the per-block "
+                         "path (SchNet.forward)")
     b, n, _ = dist.shape
     if n > STACK_MAX_N:
         raise ValueError(f"schnet_stack: N={n} exceeds {STACK_MAX_N}; use "

@@ -92,6 +92,17 @@
 // Shared memory is that of G <= 64 (the chunk buffers are the W1 and RBF
 // buffers), and registers shed dW1's accumulator.
 //
+// bf16 (a template on the precision, mxu='bf16' of the JAX package's
+// kernels): the six products take bf16 operands, rounded to nearest even
+// as they are read from the f32 shared buffers, with f32 accumulation
+// (mma_bf16.cuh: one mma.sync.m16n8k16 pass; the G <= 56 RBF product's K
+// padded to 64 with zeros in both operands; above 64 each 32-row chunk is
+// two k steps). As in _dot, exactly the products' operands are rounded:
+// rbf and W1, s and W2, s and qe (dW2), qe and W2 (dh), rbf and dh (dW1),
+// dh and W1 (drbf); the RBF exp, ssp, sigmoid, qe, the envelope, dx, denv,
+// ddist's chain terms, db1/db2 and every sum stay f32, and the dW1/dW2 tile
+// products are added to their sums as in f32.
+//
 // Layout. Pair p = jl*8 + il of the tile is row p of every 64-row operand.
 // In the 64x128 products warp (wm, wn) owns rows 16*kMB*wm.. and columns
 // 32*wn..: lane (g, t) holds pairs (jl = 2*(kMB*wm + mb) + h, il = g), so a
@@ -154,8 +165,9 @@ __device__ __forceinline__ void dw1_chunk_cells(float* pw1, int c, int G, Fn f) 
     }
 }
 
-// kBig: G > kGP (the header's two passes over W1's chunks).
-template <bool SYM, bool kBig>
+// kBig: G > kGP (the header's two passes over W1's chunks); kBF16: the
+// products on bf16 operands.
+template <bool SYM, bool kBig, bool kBF16>
 __global__ void __launch_bounds__(kBT, 1)
 cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
                   const float* __restrict__ x, const float* __restrict__ gr,
@@ -305,7 +317,7 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
 #pragma unroll
           for (int q = 0; q < 4; ++q) acc[mb][nb][q] = 0.f;
       if (kBig) {
-        rbf_w1_streamed<kMB, false>(w1s, rbf_s, d_t, 16 * kMB * wm, 32 * wn, true, acc);
+        rbf_w1_streamed<kMB, false, kBF16>(w1s, rbf_s, d_t, 16 * kMB * wm, 32 * wn, true, acc);
       } else {
         for (int idx = tid; idx < kPairs * kGP; idx += kBT) {
           const int p = idx / kGP, gg = idx % kGP;
@@ -316,9 +328,9 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
         }
         __syncthreads();
         if (G <= 56)
-          warp_tile_mma<kMB, 4, 56, false, false>(acc, rbf_s, kGP, 16 * kMB * wm, W1_s, kF, 32 * wn);
+          tile_mma<kBF16, kMB, 4, 56, false, false>(acc, rbf_s, kGP, 16 * kMB * wm, W1_s, kF, 32 * wn);
         else
-          warp_tile_mma<kMB, 4, kGP, false, false>(acc, rbf_s, kGP, 16 * kMB * wm, W1_s, kF, 32 * wn);
+          tile_mma<kBF16, kMB, 4, kGP, false, false>(acc, rbf_s, kGP, 16 * kMB * wm, W1_s, kF, 32 * wn);
       }
 #pragma unroll
       for (int mb = 0; mb < kMB; ++mb)
@@ -336,7 +348,7 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
       __syncthreads();
 
       // the filter w = s W2 + b2, in registers
-      warp_tile_mma<kMB, 4, kF, false, false>(acc, s_s, kF, 16 * kMB * wm, W2_s, kF, 32 * wn);
+      tile_mma<kBF16, kMB, 4, kF, false, false>(acc, s_s, kF, 16 * kMB * wm, W2_s, kF, 32 * wn);
 #pragma unroll
       for (int mb = 0; mb < kMB; ++mb)
 #pragma unroll
@@ -443,7 +455,7 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
       }
 
       // dW2 += s^T qe
-      warp_tile_mma<2 * kMB, 4, kPairs, true, false, true>(aw2, s_s, kF, 32 * kMB * wm, qe_s,
+      tile_mma<kBF16, 2 * kMB, 4, kPairs, true, false, true>(aw2, s_s, kF, 32 * kMB * wm, qe_s,
                                                            kF, 32 * wn);
 
       // dh = (qe W2^T) ssp'(pre1), db1; ssp'(pre1) = sigmoid(pre1) =
@@ -456,7 +468,7 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
         for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
           for (int q = 0; q < 4; ++q) acc[mb][nb][q] = 0.f;
-      warp_tile_mma<kMB, 4, kF, false, true>(acc, qe_s, kF, 16 * kMB * wm, W2_s, kF, 32 * wn);
+      tile_mma<kBF16, kMB, 4, kF, false, true>(acc, qe_s, kF, 16 * kMB * wm, W2_s, kF, 32 * wn);
       {
         float v[16 * kMB];
 #pragma unroll
@@ -508,7 +520,7 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
           for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
             for (int q = 0; q < 4; ++q) ar[0][nb][q] = 0.f;
-          warp_tile_mma<1, 2, kF, false, true>(ar, s_s, kF, 16 * wr, w1s.cur(), kF, 16 * wc);
+          tile_mma<kBF16, 1, 2, kF, false, true>(ar, s_s, kF, 16 * wr, w1s.cur(), kF, 16 * wc);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int p = 16 * wr + g + 8 * h;
@@ -536,7 +548,7 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
             for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
               for (int q = 0; q < 4; ++q) aw[mb][nb][q] = 0.f;
-          warp_tile_mma<2, 2, kPairs, true, false>(aw, rb, kKC, 0, s_s, kF, 16 * warp);
+          tile_mma<kBF16, 2, 2, kPairs, true, false>(aw, rb, kKC, 0, s_s, kF, 16 * warp);
           dw1_chunk_cells(pw1, c, G, [&](int mb, int nb, int h, float2* d) {
             *d = make_float2(old[mb][nb][h].x + aw[mb][nb][2 * h],
                              old[mb][nb][h].y + aw[mb][nb][2 * h + 1]);
@@ -559,7 +571,7 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
             for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
               for (int q = 0; q < 4; ++q) ar[mb][nb][q] = 0.f;
-          warp_tile_mma<kMB, 2, kF, false, true>(ar, s_s, kF, 16 * kMB * wm, W1_s, kF, 16 * wn);
+          tile_mma<kBF16, kMB, 2, kF, false, true>(ar, s_s, kF, 16 * kMB * wm, W1_s, kF, 16 * wn);
 #pragma unroll
           for (int mb = 0; mb < kMB; ++mb)
 #pragma unroll
@@ -584,7 +596,7 @@ cfconv_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
         }
 
         // dW1 += rbf^T dh
-        warp_tile_mma<kMB, 4, kPairs, true, false>(aw1, rbf_s, kGP, 16 * kMB * wm, s_s, kF, 32 * wn);
+        tile_mma<kBF16, kMB, 4, kPairs, true, false>(aw1, rbf_s, kGP, 16 * kMB * wm, s_s, kF, 32 * wn);
         __syncthreads();  // the tile's scratch is free; dd_p complete
       }
 
@@ -662,7 +674,7 @@ static size_t smem_bytes(int ni) {
   return sizeof(float) * (size_t)kSmemFloats + sizeof(int) * (4 + (size_t)((ni + kTile - 1) / kTile));
 }
 
-template <bool SYM>
+template <bool SYM, bool kBF16>
 static cudaError_t launch(const float* dist, const float* env, const float* x,
                           const float* g, const float* w1, const float* rbf_tab, const float* b1,
                           const float* w2, const float* b2, float* ddist, float* denv,
@@ -678,7 +690,7 @@ static cudaError_t launch(const float* dist, const float* env, const float* x,
   if (err != cudaSuccess) return err;
   const size_t smem = smem_bytes(ni);
   // the instance of G's class
-  auto kernel = G > kGP ? cfconv_bwd_kernel<SYM, true> : cfconv_bwd_kernel<SYM, false>;
+  auto kernel = G > kGP ? cfconv_bwd_kernel<SYM, true, kBF16> : cfconv_bwd_kernel<SYM, false, kBF16>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, kBT, smem, s>>>(dist, env, x, g, w1, rbf_tab, b1, w2, b2, occ, pre, ddist,
@@ -708,24 +720,25 @@ extern "C" size_t cfconv_bwd_ws_ints(int B, int ni, int nj) {
 // cfconv_bwd_ws_ints(B, ni, nj) ints. F must be 128, G >= 1 (any; above
 // kGP with `rbf_tab` as cfconv_fwd's, else null). With
 // `symmetric` (square grid only) ddist/denv are placed as the header says
-// and `dx` must be zero on entry.
+// and `dx` must be zero on entry. bf16 != 0: the products on bf16 operands
+// (mxu='bf16').
 extern "C" int cfconv_bwd(const float* dist, const float* env, const float* x,
                           const float* g, const float* w1, const float* rbf_tab, const float* b1,
                           const float* w2, const float* b2, float* ddist,
                           float* denv, float* dx, float* part, float* wgrad, int* ws,
                           int B, int ni, int nj, int F, int G, float start,
-                          float delta, float coeff, int symmetric, int sparse,
+                          float delta, float coeff, int symmetric, int sparse, int bf16,
                           void* stream) {
   using namespace geossl;
   if (F != kF || G < 1 || (symmetric && ni != nj) || (G > kGP && !rbf_tab))
     return (int)cudaErrorInvalidValue;
   const int blocks = cfconv_bwd_blocks(B, nj);
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err =
-      symmetric ? launch<true>(dist, env, x, g, w1, rbf_tab, b1, w2, b2, ddist, denv, dx, part,
-                               ws, blocks, B, ni, nj, G, start, delta, coeff, sparse, s)
-                : launch<false>(dist, env, x, g, w1, rbf_tab, b1, w2, b2, ddist, denv, dx, part,
-                                ws, blocks, B, ni, nj, G, start, delta, coeff, sparse, s);
+  // the instance of the mode and the precision
+  auto run = symmetric ? (bf16 ? launch<true, true> : launch<true, false>)
+                       : (bf16 ? launch<false, true> : launch<false, false>);
+  cudaError_t err = run(dist, env, x, g, w1, rbf_tab, b1, w2, b2, ddist, denv, dx, part, ws,
+                        blocks, B, ni, nj, G, start, delta, coeff, sparse, s);
   if (err != cudaSuccess) return (int)err;
   sum_partials(part, blocks, wgrad_size(G), wgrad, s);
   return (int)cudaGetLastError();

@@ -80,6 +80,15 @@
 // barrier per chunk; each chunk's product added to the sum in f32). The
 // buffers are those of G <= 64's W1 and RBF, so shared memory, and the one
 // block per SM, do not change with G.
+//
+// bf16 (both modes, a template on the precision, mxu='bf16' of the JAX
+// package's kernels): both filter products take bf16 operands, rounded to
+// nearest even as they are read from the f32 shared buffers, with f32
+// accumulation (mma_bf16.cuh: one mma.sync.m16n8k16 pass in place of the
+// three TF32 passes; the G <= 56 product's K padded to 64 with zeros). As
+// in _dot, nothing else is rounded: the RBF, b1, ssp, b2, the envelope and
+// the messages stay f32. Shared memory, loads and work split are the f32
+// instances'.
 #include "filter_mma.cuh"
 #include "mma_tf32.cuh"
 #include "pair_tile.cuh"
@@ -109,8 +118,9 @@ constexpr int kPlainFloats = kPOffS + kPairs * kF;
 // landed, every warp done with the previous one), then filter_tile_mma's
 // two. An item that lies whole in the run goes to `out`; the run's first
 // and last item, where a run boundary splits them, go to this block's
-// partial slots 0 and 1 of `part` [blocks][2][8][kF]. kBig: G > kSGP.
-template <bool kBig>
+// partial slots 0 and 1 of `part` [blocks][2][8][kF]. kBig: G > kSGP;
+// kBF16: the filter products on bf16 operands.
+template <bool kBig, bool kBF16>
 __global__ void __launch_bounds__(kThreads, 1)
 cfconv_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
                   const float* __restrict__ x, const float* __restrict__ w1,
@@ -251,9 +261,11 @@ cfconv_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ env,
     // the filter (filter_mma.cuh), then the messages of rows i
     float acc[2][4][4];
     if (kBig)
-      filter_tile_mma_streamed<kPrecise>(d_t, rbf_s, s_s, w1s, W2_s, b1_s, k + 1 < t_end, acc);
+      filter_tile_mma_streamed<kPrecise, kBF16>(d_t, rbf_s, s_s, w1s, W2_s, b1_s, k + 1 < t_end,
+                                                acc);
     else
-      filter_tile_mma<kPrecise>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, start, delta, coeff, acc);
+      filter_tile_mma<kPrecise, kBF16>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, start, delta, coeff,
+                                       acc);
     tile_messages<false>(acc, b2_s, e_t, xj_t, nullptr, racc, nullptr, j0, nj, false);
     v = v_next;
   }
@@ -307,8 +319,9 @@ constexpr int kSymFloats = kSOffB + 2 * kF;
 // order: (graph, 8-row i tile) items, and within an item its tiles pj >= pi.
 // Pair p = jl*8 + il of a tile is row p of its 64-row operands; warp (wm,
 // wn) owns rows 32*wm.. and columns 32*wn.. of each 64 x F product, so lane
-// (g, t) holds pairs (jl = 4*wm + 2*mb + h, il = g). kBig: G > kSGP.
-template <bool kBig>
+// (g, t) holds pairs (jl = 4*wm + 2*mb + h, il = g). kBig: G > kSGP;
+// kBF16: the filter products on bf16 operands.
+template <bool kBig, bool kBF16>
 __global__ void __launch_bounds__(kThreads, 1)
 cfconv_fwd_sym_kernel(const float* __restrict__ dist, const float* __restrict__ env,
                       const float* __restrict__ x, const float* __restrict__ w1,
@@ -420,9 +433,11 @@ cfconv_fwd_sym_kernel(const float* __restrict__ dist, const float* __restrict__ 
     // the filter (filter_mma.cuh), then the messages
     float acc[2][4][4];
     if (kBig)
-      filter_tile_mma_streamed<kPrecise>(d_t, rbf_s, s_s, w1s, W2_s, b1_s, k + 1 < t_end, acc);
+      filter_tile_mma_streamed<kPrecise, kBF16>(d_t, rbf_s, s_s, w1s, W2_s, b1_s, k + 1 < t_end,
+                                                acc);
     else
-      filter_tile_mma<kPrecise>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, start, delta, coeff, acc);
+      filter_tile_mma<kPrecise, kBF16>(d_t, rbf_s, s_s, W1_s, W2_s, b1_s, G, start, delta, coeff,
+                                       acc);
     tile_messages<true>(acc, b2_s, e_t, xj_t, xi_t, racc, out + (size_t)b * n * kF, j0, n,
                         pi != pj);
     v = v_next;
@@ -443,7 +458,7 @@ static size_t smem_bytes(int symmetric) {
 
 extern "C" size_t cfconv_fwd_smem_bytes(int symmetric) { return geossl::smem_bytes(symmetric); }
 
-template <bool kBig>
+template <bool kBig, bool kBF16>
 static cudaError_t launch(const float* dist, const float* env, const float* x, const float* w1,
                           const float* rbf_tab, const float* b1, const float* w2, const float* b2,
                           float* out, int* ws,
@@ -455,23 +470,23 @@ static cudaError_t launch(const float* dist, const float* env, const float* x, c
   const int* list = ws + worklist_ints(items, ntj);
   cudaError_t err;
   if (!symmetric) {
-    err = cudaFuncSetAttribute(cfconv_fwd_kernel<kBig>,
+    err = cudaFuncSetAttribute(cfconv_fwd_kernel<kBig, kBF16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const int blocks = persistent_blocks(items * ntj);
     float* part = reinterpret_cast<float*>(ws + list_ints(B, ni, nj));
-    cfconv_fwd_kernel<kBig><<<blocks, kThreads, smem, s>>>(dist, env, x, w1, rbf_tab, b1, w2,
-                                                           b2, out, part, pre, list, B, ni, nj,
-                                                           G, start, delta, coeff);
+    cfconv_fwd_kernel<kBig, kBF16><<<blocks, kThreads, smem, s>>>(
+        dist, env, x, w1, rbf_tab, b1, w2, b2, out, part, pre, list, B, ni, nj, G, start, delta,
+        coeff);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     cfconv_fwd_join_kernel<<<blocks, kThreads, 0, s>>>(out, part, pre, list, B, ni, nj, blocks);
     return cudaGetLastError();
   }
-  err = cudaFuncSetAttribute(cfconv_fwd_sym_kernel<kBig>,
+  err = cudaFuncSetAttribute(cfconv_fwd_sym_kernel<kBig, kBF16>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  cfconv_fwd_sym_kernel<kBig><<<persistent_blocks(items * ntj), kThreads, smem, s>>>(
+  cfconv_fwd_sym_kernel<kBig, kBF16><<<persistent_blocks(items * ntj), kThreads, smem, s>>>(
       dist, env, x, w1, rbf_tab, b1, w2, b2, out, list, pre + items, ni, G, start, delta, coeff);
   return cudaGetLastError();
 }
@@ -494,12 +509,13 @@ extern "C" size_t cfconv_fwd_ws_ints(int B, int ni, int nj, int symmetric) {
 // offsets and coefficient, filter_mma.cuh's W1Stream; null at G <= kSGP,
 // which takes start + delta k); `ws` holds cfconv_fwd_ws_ints(B, ni, nj,
 // symmetric) ints. With symmetric != 0: dist/env symmetric and square,
-// `out` zero on entry; otherwise every row of `out` is written.
+// `out` zero on entry; otherwise every row of `out` is written. bf16 != 0:
+// the filter products on bf16 operands (mxu='bf16').
 extern "C" int cfconv_fwd(const float* dist, const float* env, const float* x,
                           const float* w1, const float* rbf_tab, const float* b1, const float* w2,
                           const float* b2, float* out, int* ws, int B, int ni, int nj,
                           int F, int G, float start, float delta, float coeff,
-                          int symmetric, int sparse, void* stream) {
+                          int symmetric, int sparse, int bf16, void* stream) {
   using namespace geossl;
   if (F != kF || G < 1 || (symmetric && ni != nj) || (G > kSGP && !rbf_tab))
     return (int)cudaErrorInvalidValue;
@@ -507,9 +523,10 @@ extern "C" int cfconv_fwd(const float* dist, const float* env, const float* x,
   cudaError_t err = symmetric ? make_tile_list<true>(env, ws, B, ni, nj, sparse, s)
                               : make_tile_list<false>(env, ws, B, ni, nj, sparse, s);
   if (err != cudaSuccess) return (int)err;
-  err = G > kSGP ? launch<true>(dist, env, x, w1, rbf_tab, b1, w2, b2, out, ws, B, ni, nj, G,
-                                start, delta, coeff, symmetric, s)
-                 : launch<false>(dist, env, x, w1, rbf_tab, b1, w2, b2, out, ws, B, ni, nj, G,
-                                 start, delta, coeff, symmetric, s);
+  // the instance of G's class and the precision
+  auto run = G > kSGP ? (bf16 ? launch<true, true> : launch<true, false>)
+                      : (bf16 ? launch<false, true> : launch<false, false>);
+  err = run(dist, env, x, w1, rbf_tab, b1, w2, b2, out, ws, B, ni, nj, G, start, delta, coeff,
+            symmetric, s);
   return (int)err;
 }

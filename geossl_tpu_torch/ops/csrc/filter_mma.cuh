@@ -1,7 +1,9 @@
 // The filter network and the messages of one 8x8 pair tile on the tensor
 // cores, shared by the kernels that walk a list of pair tiles with a block of
 // 8 warps (schnet_stack.cu's message phase, both modes of cfconv_fwd.cu),
-// and the streamed W1 of a G > 64 filter (also cfconv_bwd.cu's).
+// and the streamed W1 of a G > 64 filter (also cfconv_bwd.cu's). Each
+// product runs in 3xTF32 (mma_tf32.cuh), or with kBF16 on bf16 operands
+// (mma_bf16.cuh: the bf16 instances of the CFConv kernels, mxu='bf16').
 //
 // Pair p = jl*8 + il of the tile is row p of its 64-row operands. Warp
 // (wm, wn) = (warp & 1, warp >> 1) owns rows 32*wm.. and columns 32*wn.. of
@@ -9,6 +11,7 @@
 // il = g) and columns 32*wn + 8*nb + 2*t + c.
 #pragma once
 
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 #include "pair_tile.cuh"
 
@@ -85,12 +88,13 @@ struct W1Stream {
 // the streamed chunks: each chunk's product (4 k steps of 8) into a zeroed
 // fragment that is then added to acc in f32, so that the tensor core's
 // truncating accumulation runs over one chunk and not over all of G (the
-// rule for a sum over chunks, mma_tf32.cuh). On entry the stream's current chunk (chunk 0) has landed and
+// rule for a sum over chunks, mma_tf32.cuh; in bf16 a chunk is two k
+// steps of 16). On entry the stream's current chunk (chunk 0) has landed and
 // a barrier has made it visible; each later chunk is waited for (all of the
 // thread's cp.async groups) and made visible by the chunk's one barrier,
 // after which the next chunk is fetched (after the last, chunk 0 again when
 // `more`: the block's next walk). Every thread of the block calls it.
-template <int MB, bool kPrecise>
+template <int MB, bool kPrecise, bool kBF16 = false>
 __device__ __forceinline__ void rbf_w1_streamed(W1Stream& w, float* rbf_s, const float* d_t,
                                                 int m0, int n0, bool more, float acc[MB][4][4]) {
   for (int c = 0; c < w.n; ++c) {
@@ -109,7 +113,7 @@ __device__ __forceinline__ void rbf_w1_streamed(W1Stream& w, float* rbf_s, const
       for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
         for (int q = 0; q < 4; ++q) part[mb][nb][q] = 0.f;
-    warp_tile_mma<MB, 4, kKC, false, false, false, kPrecise>(part, rb, kKC, m0, w.cur(), kF, n0);
+    tile_mma<kBF16, MB, 4, kKC, false, false, false, kPrecise>(part, rb, kKC, m0, w.cur(), kF, n0);
 #pragma unroll
     for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
@@ -131,7 +135,7 @@ __device__ __forceinline__ void zero_frag(float acc[2][4][4]) {
 
 // The hidden layer s = ssp(acc + b1) into s_s, then acc = s W2 (b2 not
 // added): the rest of the filter once its first product is in acc.
-template <bool kPrecise>
+template <bool kPrecise, bool kBF16 = false>
 __device__ __forceinline__ void hidden_w2(float* s_s, const float* W2_s, const float* b1_s,
                                           float acc[2][4][4]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -151,17 +155,18 @@ __device__ __forceinline__ void hidden_w2(float* s_s, const float* W2_s, const f
 
   // the filter, s W2, in registers
   zero_frag(acc);
-  warp_tile_mma<2, 4, kF, false, false, false, kPrecise>(acc, s_s, kF, 32 * wm, W2_s, kF, 32 * wn);
+  tile_mma<kBF16, 2, 4, kF, false, false, false, kPrecise>(acc, s_s, kF, 32 * wm, W2_s, kF, 32 * wn);
 }
 
 // acc = ssp(rbf(d) W1 + b1) W2 of the tile (b2 not added), in 3xTF32
-// (kPrecise: mma_tf32.cuh's precise mode), with the RBF exp and ssp on the
+// (kPrecise: mma_tf32.cuh's precise mode) or with kBF16 on bf16 operands
+// (the G <= 56 product's K padded to 64), with the RBF exp and ssp on the
 // CUDA cores (fast intrinsics), for G <= kSGP. d_t: the tile's distances
 // [il][jl]; rbf_s [kPairs][kSGP] scratch whose columns >= G are zero; s_s
 // [kPairs][kF] scratch for the hidden layer; W1_s [kSGP][kF] (rows >= G
 // zero) and W2_s [kF][kF]; all swizzled. Every thread of the block calls it
 // (it holds two barriers; rbf_s and s_s are free on entry).
-template <bool kPrecise>
+template <bool kPrecise, bool kBF16 = false>
 __device__ __forceinline__ void filter_tile_mma(const float* d_t, float* rbf_s, float* s_s,
                                                 const float* W1_s, const float* W2_s,
                                                 const float* b1_s, int G, float start,
@@ -180,10 +185,12 @@ __device__ __forceinline__ void filter_tile_mma(const float* d_t, float* rbf_s, 
   // hidden s = ssp(rbf W1 + b1) into s_s, then s W2
   zero_frag(acc);
   if (G <= 56)
-    warp_tile_mma<2, 4, 56, false, false, false, kPrecise>(acc, rbf_s, kSGP, 32 * wm, W1_s, kF, 32 * wn);
+    tile_mma<kBF16, 2, 4, 56, false, false, false, kPrecise>(acc, rbf_s, kSGP, 32 * wm, W1_s, kF,
+                                                             32 * wn);
   else
-    warp_tile_mma<2, 4, kSGP, false, false, false, kPrecise>(acc, rbf_s, kSGP, 32 * wm, W1_s, kF, 32 * wn);
-  hidden_w2<kPrecise>(s_s, W2_s, b1_s, acc);
+    tile_mma<kBF16, 2, 4, kSGP, false, false, false, kPrecise>(acc, rbf_s, kSGP, 32 * wm, W1_s, kF,
+                                                               32 * wn);
+  hidden_w2<kPrecise, kBF16>(s_s, W2_s, b1_s, acc);
 }
 
 // filter_tile_mma for G > kSGP: the first product over W1's streamed
@@ -191,15 +198,15 @@ __device__ __forceinline__ void filter_tile_mma(const float* d_t, float* rbf_s, 
 // when the block computes another tile with the same W1 after this one.
 // On entry the stream's chunk 0 has landed and is visible. One barrier per
 // chunk, then hidden_w2's.
-template <bool kPrecise>
+template <bool kPrecise, bool kBF16 = false>
 __device__ __forceinline__ void filter_tile_mma_streamed(const float* d_t, float* rbf_s,
                                                          float* s_s, W1Stream& w1,
                                                          const float* W2_s, const float* b1_s,
                                                          bool more, float acc[2][4][4]) {
   const int warp = threadIdx.x >> 5, wm = warp & 1, wn = warp >> 1;
   zero_frag(acc);
-  rbf_w1_streamed<2, kPrecise>(w1, rbf_s, d_t, 32 * wm, 32 * wn, more, acc);
-  hidden_w2<kPrecise>(s_s, W2_s, b1_s, acc);
+  rbf_w1_streamed<2, kPrecise, kBF16>(w1, rbf_s, d_t, 32 * wm, 32 * wn, more, acc);
+  hidden_w2<kPrecise, kBF16>(s_s, W2_s, b1_s, acc);
 }
 
 // The tile's messages from its filter (acc + b2): this lane's rows i

@@ -8,8 +8,9 @@
   ``batch_size``), runs each bucket through
   the backbone's whole-stack kernel (``schnet_stack`` / ``painn_stack``) up
   to the backbone's ``*_STACK_MAX_N`` and through its per-block kernels
-  (CFConv / the PaiNN message pass) above, and returns results in input
-  order.
+  (CFConv / the PaiNN message pass) above (a bfloat16 model, and SchNet
+  with ``filter_mxu='bf16'``, at every bucket: the stacks compute in f32,
+  as the JAX package routes bf16), and returns results in input order.
   Each packed batch is uploaded once; all results come back in one
   device-to-host copy at the end of a pass.
 * ``predict`` (scalar property, denormalized with ``y_mean``/``y_std``),
@@ -45,6 +46,7 @@ as the JAX package's data mesh does.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 from typing import Optional, Sequence
 
@@ -303,15 +305,20 @@ class Predictor(_Passes):
         self.batch_size = batch_size
         self.bucket_sizes = tuple(sorted(bucket_sizes))
         self.spatial_sort = spatial_sort
+        # the stack kernels compute in f32: a bf16 model (and, for SchNet,
+        # bf16 filter products) takes the per-block kernels at every
+        # bucket, as the JAX package's serving routes bf16
+        f32 = cfg.compute_dtype == "float32"
         if cfg.model_3d == "painn":
             self._stack_apply = painn.fused_stack_apply
             self._stack_max_n = PAINN_STACK_MAX_N
-            self._stackable = True
+            self._stackable = f32
         else:
             self._stack_apply = schnet.fused_stack_apply
             self._stack_max_n = SCHNET_STACK_MAX_N
             # the stack kernel keeps h at one width
-            self._stackable = cfg.schnet.num_filters == cfg.emb_dim
+            self._stackable = (f32 and cfg.filter_mxu == "f32"
+                               and cfg.schnet.num_filters == cfg.emb_dim)
         routes = [self.stack_route(n) for n in self.bucket_sizes]
         check_kernel_limits(cfg, self.device, backward=False,
                             per_block=not all(routes), stack=any(routes))
@@ -479,6 +486,13 @@ def build_parser():
     p.add_argument("--model_3d", default="schnet", choices=["schnet", "painn"],
                    help="the backbone of the checkpoint, at its default "
                         "configuration")
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="the backbone's compute dtype (the drivers' flag; "
+                        "bfloat16 serves through the per-block kernels)")
+    p.add_argument("--filter_mxu", default="f32", choices=["f32", "bf16"],
+                   help="SchNet's CFConv filter products on bf16 operands "
+                        "(the drivers' flag)")
     p.add_argument("--input", required=True, help=".npz MolStore or .sdf")
     p.add_argument("--input_inactive", default=None,
                    help="the second (inactive-conformation) store for "
@@ -518,7 +532,9 @@ def main(argv=None):
         pred = SealedPredictor.load(args.ckpt)
     else:
         pred = Predictor.from_checkpoint(
-            args.ckpt, ModelConfig(model_3d=args.model_3d),
+            args.ckpt, dataclasses.replace(
+                ModelConfig(model_3d=args.model_3d),
+                compute_dtype=args.compute_dtype, filter_mxu=args.filter_mxu),
             batch_size=args.batch_size, bucket_sizes=args.bucket,
             spatial_sort=args.spatial_sort, device=args.device,
             num_devices=args.num_devices)

@@ -114,8 +114,11 @@ def make_head(model_3d: str, emb_dim: int,
 def make_backbone(cfg: ModelConfig,
                   generator: Optional[torch.Generator] = None) -> nn.Module:
     """SchNet or PaiNN for ``cfg``; ``forward(atom_type, positions,
-    node_mask, ...)`` -> (graph_repr [B,F], node_repr [B,N,F])."""
+    node_mask, ...)`` -> (graph_repr [B,F], node_repr [B,N,F]), computed
+    in ``cfg.compute_dtype`` (its parameters f32 either way; the outputs
+    f32) with SchNet's filter products in ``cfg.filter_mxu``."""
     sparse = {"auto": "auto", "on": True, "off": False}[cfg.sparse_tiles]
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
     if cfg.model_3d == "painn":
         p = cfg.painn
         return PaiNN(
@@ -131,6 +134,7 @@ def make_backbone(cfg: ModelConfig,
             epsilon=p.epsilon,
             sparse=sparse,
             pair_axis=cfg.pair_axis,
+            dtype=dtype,
             generator=generator,
         )
     s = cfg.schnet
@@ -145,6 +149,8 @@ def make_backbone(cfg: ModelConfig,
         max_neighbors=cfg.max_neighbors,
         sparse=sparse,
         pair_axis=cfg.pair_axis,
+        dtype=dtype,
+        filter_mxu=cfg.filter_mxu,
         generator=generator,
     )
 

@@ -21,9 +21,12 @@ Conventions (the JAX module's):
 * A training step is ``forward + backward`` with the backward 2x the
   forward: 3x the forward in all.
 * Peaks: NVIDIA H100 80GB HBM3 (SXM5), 700 W, data sheet: TF32 on the
-  tensor cores (dense) 495 TFLOP/s, f32 outside them 67 TFLOP/s, HBM3
-  3.35 TB/s. :func:`mfu` divides by the TF32 peak, because every kernel of
-  the port runs its products as 3xTF32 on the tensor cores.
+  tensor cores (dense) 495 TFLOP/s, bf16 on them 989 TFLOP/s, f32 outside
+  them 67 TFLOP/s, HBM3 3.35 TB/s. :func:`mfu` divides by the TF32 peak,
+  because every f32 kernel of the port runs its products as 3xTF32 on the
+  tensor cores; the bf16 instances of the CFConv kernels (``mxu='bf16'``)
+  run theirs on bf16 operands, whose bound takes the bf16 peak
+  (:func:`bound_basis`).
 
 Reference hot op: ``Geom3D/models/schnet.py:170-195`` (the CFConv filter
 MLP; its G·F + F² MACs per pair per block dominate).
@@ -38,6 +41,7 @@ import numpy as np
 # NVIDIA H100 80GB HBM3 (SXM5), 700 W power limit: data-sheet peaks
 H100_CARD = "NVIDIA H100 80GB HBM3 (SXM5), 700 W"
 H100_PEAK_TF32 = 495e12  # FLOP/s, tensor cores, dense
+H100_PEAK_BF16 = 989e12  # FLOP/s, tensor cores, dense
 H100_PEAK_F32 = 67e12  # FLOP/s, outside the tensor cores
 H100_PEAK_BYTES = 3.35e12  # bytes/s, HBM3
 # side of the kernels' square pair tiles (csrc/worklist.cuh, kTile)
@@ -146,6 +150,19 @@ def mfu(flops_per_step: float, step_seconds: float,
     TF32 tensor-core peak."""
     achieved = flops_per_step / step_seconds
     return achieved / 1e12, achieved / peak
+
+
+def bound_basis(mxu: str = "f32") -> tuple[float, str]:
+    """(tensor-core peak, basis) on which a kernel row's products are
+    bounded: each product counted once at the TF32 peak for the f32
+    instances (3xTF32: the bound of one pass), at the bf16 peak for the
+    bf16 ones; the row's elementwise terms at the f32 peak beside them
+    (``+f32``: the two units at once)."""
+    if mxu == "bf16":
+        return H100_PEAK_BF16, "bf16_tensor_core+f32"
+    if mxu != "f32":
+        raise ValueError(f"mxu must be 'f32' or 'bf16', got {mxu!r}")
+    return H100_PEAK_TF32, "tf32_tensor_core+f32"
 
 
 def executed_pair_fraction(env, model: str = "schnet",

@@ -277,14 +277,15 @@ def kernel_stand_ins(monkeypatch):
     orders' call counts; the launch counters start at 0."""
     second = {}
 
-    def fwd_cf(dist, env, x, w1, b1, w2, b2, start, stop, num_g, sym, sparse):
+    def fwd_cf(dist, env, x, w1, b1, w2, b2, start, stop, num_g, sym, sparse,
+               mxu="f32"):
         return tcf.cfconv_fused_reference(dist, env, x, w1, b1, w2, b2, start,
-                                          stop, num_g)
+                                          stop, num_g, mxu)
 
     def bwd_cf(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g, sym,
-               sparse):
+               sparse, mxu="f32"):
         out = list(tcf.cfconv_bwd_reference(dist, env, x, g, w1, b1, w2, b2,
-                                            start, stop, num_g))
+                                            start, stop, num_g, mxu))
         if sym:
             out[:2] = [tcf.place_sym_cotangent(c) for c in out[:2]]
         return _split_like_kernel(out, 3)

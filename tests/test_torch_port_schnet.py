@@ -370,8 +370,8 @@ def test_cfconv_function_refuses_double_backward(symmetric):
     f = tcf.KERNEL_F
     saved = [torch.zeros(s, device="meta") for s in
              ((1, 8, 8), (1, 8, 8), (1, 8, f), (8, f), (f,), (f, f), (f,))]
-    ctx = SimpleNamespace(symmetric=symmetric, saved_tensors=saved,
-                          consts=(0.0, 5.0, 8, False))
+    ctx = SimpleNamespace(saved_tensors=saved,
+                          consts=(0.0, 5.0, 8, False, symmetric, "f32", False))
     name = "cfconv_bwd_sym" if symmetric else "cfconv_bwd"
     with torch.enable_grad(), pytest.raises(
             ValueError, match=f"{name}: no kernel for device meta"):

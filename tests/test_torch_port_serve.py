@@ -188,8 +188,14 @@ def test_headless_checkpoint_and_cli(tmp_path, capsys):
 
 
 def test_config_rejects_what_is_not_ported():
+    # both bfloat16 modes are ported (tests/test_torch_port_bf16.py); a
+    # typo raises, as in the JAX package's config
     for kw in ({"compute_dtype": "bfloat16"}, {"filter_mxu": "bf16"}):
-        with pytest.raises(NotImplementedError):
+        assert getattr(ModelConfig(**kw), next(iter(kw))) == next(
+            iter(kw.values()))
+    for kw in ({"compute_dtype": "bf16"}, {"filter_mxu": "bf-16"},
+               {"compute_dtype": "float16"}):
+        with pytest.raises(ValueError):
             ModelConfig(**kw)
     # pair-grid parallelism is ported (tests/test_torch_port_pair_parallel.py)
     assert ModelConfig(pair_axis="pair").pair_axis == "pair"
