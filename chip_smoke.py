@@ -219,7 +219,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
       against their plain versions (tolerances as in 2; dist/env and
       dist/gate must stay symmetric), one ``contextpred_masks:`` line.
       Then each driver's ``main()`` for one epoch of 256 synthetic
-      Molecule3D molecules (buckets 32/64/128, batch 128): the backbone's
+      Molecule3D molecules (buckets 32/64/128, batch 128; pretrain_baselines
+      with ``--steps_per_call 8``, every step of it in a CUDA graph replay,
+      counted by ``ChainStep``'s calls): the backbone's
       kernel pair must launch, losses be finite and ``model.pth`` be
       served by a ``Predictor``; then its module's step at bucket 128:
       each kernel's launches per step, the median of 3 synchronized steps,
@@ -257,16 +259,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
       kept atoms in order and in no more pieces than the bond graph has,
       and the per-record BFS mask's relabelled bonds; ms per batch of each
       packer (host clock). ``graph_parity:``: per ported driver step and
-      backbone (QM9 and DDM at bucket 32, MD17 at batch 5, LBA at 16
-      complexes and LEP at 16 pairs of bucket 512; DDM with its device
-      generator), two calls
+      backbone (QM9, DDM and the six baseline objectives at bucket 32,
+      MD17 at batch 5, LBA at 16 complexes and LEP at 16 pairs of bucket
+      512; DDM and the baselines with their device generator; DDM-SchNet
+      once more under ``--compute_dtype bfloat16``), two calls
       of 8 steps replayed through CUDA graphs (``train/common.ChainStep``)
       against 16 eager steps from the same weights on the same batches:
       losses and every parameter by relative norm (1e-3 in all, 1e-2
-      each). ``profile_dir:``: one ``pretrain_geossl --profile_dir
+      each, or within 10x the run-to-run spread, sampled from up to five
+      pairs of eager runs and one of graph runs; the backbone's kernel
+      pair, bf16: its bf16 instances, must be
+      in the baselines' and the bf16 case's graphs; each case's seconds).
+      ``profile_dir:``: one ``pretrain_geossl --profile_dir
       --steps_per_call 8`` epoch on 256 molecules; the trace must exist and
-      not be empty. ``host_runtime:``: QM9-SchNet/PaiNN and DDM-SchNet/
-      PaiNN at bucket 32 (B=128), MD17-SchNet/PaiNN at batch 5, each in
+      not be empty. ``host_runtime:``: QM9-SchNet/PaiNN, DDM-SchNet/PaiNN
+      and contextpred-SchNet/PaiNN (the heaviest baseline: two backbones a
+      step) at bucket 32 (B=128), MD17-SchNet/PaiNN at batch 5, each in
       three modes over epochs of 16 steps: (a) the parent's loop (NumPy
       packing and BFS, a blocking upload from pageable memory, eager
       steps), (b) the C++ packer and ``parallel/mesh.prefetch`` (pinned,
@@ -418,6 +426,9 @@ launches over both QM9 epochs of phase 3e; ``md17_launches``: each
 kernel's launches in one MD17 training step of phase 3f, both backbones;
 ``pretrain_launches``: each kernel's launches in one step at bucket 128 of
 each objective of phase 3g, per ``<backbone>/<objective>``;
+``baseline_graph_launches``: each kernel's launches in phase 3g's
+``pretrain_baselines --steps_per_call 8`` epoch per ``<backbone>/<objective>``
+(the graphs' captures and their warm-up steps: replays count nothing);
 ``pairs_launches``: each kernel's launches in phase 3h's first live pairs
 pass, per backbone; ``sealed_launches``: each kernel's launches inside the
 sealed programs over phase 3h's sealed passes (the profiler's count), per
@@ -430,6 +441,7 @@ last line is
 ``runs/chip_smoke.log``.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -1927,6 +1939,27 @@ def check_holed_masks(errs, net_s, net_p, batch):
     print("contextpred_masks: " + json.dumps(line))
 
 
+@contextlib.contextmanager
+def chain_calls():
+    """The group length of every ``common.ChainStep`` call on the card made
+    inside the block (each such call is one CUDA graph replay)."""
+    from geossl_tpu_torch.train import common
+
+    calls, call = [], common.ChainStep.__call__
+
+    def counted(self, group):
+        out = call(self, group)
+        if self.device.type == "cuda":
+            calls.append(len(group))
+        return out
+
+    common.ChainStep.__call__ = counted
+    try:
+        yield calls
+    finally:
+        common.ChainStep.__call__ = call
+
+
 def pretrain_driver(dev, driver, objective, model_3d, batch, card):
     """One driver ``main()`` for one epoch on the card (the path kernels
     launched, finite losses, ``model.pth`` served by a Predictor), then its
@@ -1955,8 +1988,19 @@ def pretrain_driver(dev, driver, objective, model_3d, batch, card):
     t0 = time.time()
     if driver == "geossl":
         module, losses = PG.main(["--GeoSSL_option", objective, *flags])
+        graph_steps = None
     else:
-        module, losses = PB.main([objective, *flags])
+        # the baselines' epoch with --steps_per_call: every step must be in
+        # a CUDA graph replay (ChainStep's calls on the card replay, or
+        # raise), which the calls' group lengths count
+        with chain_calls() as calls:
+            module, losses = PB.main([objective, *flags, "--steps_per_call",
+                                      str(HOST_K)])
+        graph_steps = sum(calls)
+        if graph_steps != len(losses):
+            fail(f"pretrain {objective} {model_3d} --steps_per_call "
+                 f"{HOST_K}: {graph_steps} of {len(losses)} steps in graph "
+                 "replays")
     torch.cuda.synchronize()
     epoch_s = time.time() - t0
     counts = launch_counts()
@@ -1998,6 +2042,7 @@ def pretrain_driver(dev, driver, objective, model_3d, batch, card):
     print("pretrain: " + json.dumps({
         "objective": objective, "model": model_3d, "bucket": batch.max_atoms,
         "molecules": int(batch.graph_mask.sum()), "epoch_steps": len(losses),
+        "epoch_graph_steps": graph_steps,
         "epoch_s_first_call": epoch_s, "step_ms": step_s * 1e3,
         "mol_per_s": int(batch.graph_mask.sum()) / step_s,
         "device_ms_per_step": busy * 1e3, "port_kernels_ms": ours * 1e3,
@@ -2005,14 +2050,15 @@ def pretrain_driver(dev, driver, objective, model_3d, batch, card):
         "launches_per_step": per_step,
         "epoch_launches": {k: v for k, v in counts.items() if v},
         "card": card}))
-    return per_step
+    return per_step, None if graph_steps is None else counts
 
 
 def pretrain_path(errs, dev, card, batch_of):
     """Phase 3g: per backbone, every objective's step parity at bucket 128,
     the holed-mask kernel checks, every driver's epoch and its
-    ``pretrain:`` line. Returns {"<model>/<objective>": launches per
-    step}."""
+    ``pretrain:`` line. Returns ({"<model>/<objective>": launches per
+    step}, {"<model>/<baseline>": launches in its --steps_per_call epoch,
+    the graphs' captures and warm-ups})."""
     from geossl_tpu_torch.data.molecule3d import load_molecule3d
 
     store = load_molecule3d("", synthetic=True,
@@ -2029,12 +2075,15 @@ def pretrain_path(errs, dev, card, batch_of):
     check_holed_masks(errs, nets["schnet", "contextpred"],
                       nets["painn", "contextpred"], batch)
     del nets
-    launches = {}
+    launches, graph_launches = {}, {}
     for model_3d in ("schnet", "painn"):
         for driver, objective in PRETRAIN_RUNS:
-            launches[f"{model_3d}/{objective}"] = pretrain_driver(
+            run = f"{model_3d}/{objective}"
+            launches[run], counts = pretrain_driver(
                 dev, driver, objective, model_3d, batch, card)
-    return launches
+            if counts is not None:
+                graph_launches[run] = counts
+    return launches, graph_launches
 
 
 # -- Phase 3h: the rest of serving -------------------------------------------
@@ -2401,6 +2450,19 @@ HOST_MODES = ("a_parent_loop", "b_native_prefetch", "c_graphs_k8")
 # graph_parity: a parameter beyond 10x GRAD_RTOL must stay within this many
 # times the eager run-to-run spread of the same parameter
 NOISE_FACTOR = 10
+# graph_parity: eager pairs at most that sample a parameter's spread
+SPREAD_PAIRS = 5
+# graph_parity's cases: each ported driver step per backbone, the six
+# baseline objectives (pretrain_baselines), and DDM-SchNet under
+# --compute_dtype bfloat16 (a capture under bf16)
+BASELINE_CASES_TASKS = ("supervised", "charge", "distance", "torsion",
+                        "infograph", "contextpred")
+BASELINE_CASES = tuple(f"{t}-{m}" for t in BASELINE_CASES_TASKS
+                       for m in ("SchNet", "PaiNN"))
+GRAPH_PARITY_CASES = tuple(f"{t}-{m}" for t in ("QM9", "MD17", "DDM", "LBA",
+                                                "LEP")
+                           for m in ("SchNet", "PaiNN")) + BASELINE_CASES + (
+    "DDM-SchNet-bf16",)
 
 
 def components(n, bond_index, keep=None):
@@ -2536,10 +2598,13 @@ def cuda_free_ms(fn, reps=20):
 
 def host_path(dev, name):
     """(trainee, body, generator, loader factory, reseed) of one path of
-    ``host_runtime:`` at full width with seeded weights: QM9 and DDM at
-    bucket 32 (B=128), MD17 at batch 5. ``loader(native)`` makes a loader
-    of HOST_STEPS batches with the C++ packer on or off (MD17 packs its
-    forces in NumPy either way, as the JAX loader does)."""
+    ``host_runtime:`` at full width with seeded weights: QM9, DDM and the
+    six baseline objectives (``<objective>-<backbone>``, the
+    pretrain_baselines driver's module at its defaults) at bucket 32
+    (B=128), MD17 at batch 5; a ``-bf16`` suffix runs the path under
+    ``--compute_dtype bfloat16``. ``loader(native)`` makes a loader of
+    HOST_STEPS batches with the C++ packer on or off (MD17 packs its forces
+    in NumPy either way, as the JAX loader does)."""
     import numpy as np
     import torch
 
@@ -2550,13 +2615,27 @@ def host_path(dev, name):
     from geossl_tpu_torch.train import common
     from geossl_tpu_torch.train import finetune_md17 as FM
     from geossl_tpu_torch.train import finetune_qm9 as FQ
+    from geossl_tpu_torch.train import pretrain_baselines as PB
     from geossl_tpu_torch.train import pretrain_geossl as PG
 
-    task, model_3d = name.split("-")
+    task, model_3d, *mode = name.split("-")
     model_3d = model_3d.lower()
+    flags = ["--model_3d", model_3d, "--bucket", "32"]
+    if mode == ["bf16"]:
+        flags += ["--compute_dtype", "bfloat16"]
     gen = torch.Generator().manual_seed(SEED)
     generator = None
-    if task == "QM9":
+    if task in PB.OBJECTIVES:
+        # the driver's defaults (torsion's triples from its largest default
+        # bucket, 128), its batches at bucket 32
+        args = PB.build_parser(task).parse_args(["--model_3d", model_3d])
+        store = synthetic_molecule3d(128 * HOST_STEPS, seed=7, max_atoms=32)
+        net = PB.make_baseline(task, args, common.model_config_from_args(args),
+                               store, common.buckets(args)[-1], gen).to(dev)
+        generator = torch.Generator(dev).manual_seed(SEED)
+        body = common.pretrain_body(lambda b: net(b, generator))
+        batch, kw = 128, {}
+    elif task == "QM9":
         args = FQ.build_parser().parse_args(
             ["--model_3d", model_3d, "--lr", "5e-4", "--bucket", "32"])
         store = synthetic_qm9(128 * HOST_STEPS, seed=5)
@@ -2575,8 +2654,7 @@ def host_path(dev, name):
         body = common.finetune_body(net, FM.make_loss_fn(0.05, 0.95))
         batch, kw = 5, {"with_forces": True}
     else:
-        args = PG.build_parser().parse_args(
-            ["--model_3d", model_3d, "--bucket", "32"])
+        args = PG.build_parser().parse_args(flags)
         store = synthetic_molecule3d(128 * HOST_STEPS, seed=7, max_atoms=32)
         net = PG.make_ddm(args, common.model_config_from_args(args),
                           gen).to(dev)
@@ -2642,13 +2720,17 @@ def host_epochs(dev, name, mode, state):
     return run
 
 
-def host_runtime_path(dev, card):
+HOST_RUNTIME_PATHS = ("QM9-SchNet", "QM9-PaiNN", "MD17-SchNet", "MD17-PaiNN",
+                      "DDM-SchNet", "DDM-PaiNN", "contextpred-SchNet",
+                      "contextpred-PaiNN")
+
+
+def host_runtime_path(dev, card, names=HOST_RUNTIME_PATHS):
     """The ``host_runtime:`` lines: per path and mode, step ms (median of 3
     untraced epochs of HOST_STEPS steps, after a warm-up epoch), device busy
     ms per step and the idle share of one traced epoch."""
     rows = []
-    for name in ("QM9-SchNet", "QM9-PaiNN", "MD17-SchNet", "MD17-PaiNN",
-                 "DDM-SchNet", "DDM-PaiNN"):
+    for name in names:
         state = host_path(dev, name)
         modes = {}
         for mode in HOST_MODES:
@@ -2696,17 +2778,21 @@ def graph_parity_path(dev, cases=None, label="graph_parity"):
     which Adam amplifies in a parameter whose gradient is a sum of
     cancelling terms, as NCSN's biases are: one term of random sign per
     pair). A parameter beyond 10x GRAD_RTOL passes only within
-    NOISE_FACTOR times the larger of the two spreads."""
+    NOISE_FACTOR times the largest spread; while one is beyond that, more
+    pairs of eager runs sample the spread, SPREAD_PAIRS eager pairs in all
+    at most (a run can end in one of two states that one pair need not
+    show: ``eager_pairs`` on the line)."""
     import torch
 
     from geossl_tpu_torch.data.bucketing import BucketedLoader
     from geossl_tpu_torch.data.synthetic import synthetic_lba, synthetic_lep
+    from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
     from geossl_tpu_torch.train import common, optim
     from geossl_tpu_torch.train import finetune_lba as FL
     from geossl_tpu_torch.train import finetune_lep as FE
 
     def side(name):
-        task, model_3d = name.split("-")
+        task, model_3d = name.split("-")[:2]
         if task not in ("LBA", "LEP"):
             net, opt, sched, body, gen, make_loader = host_path(dev, name)
             return net, opt, sched, body, gen, make_loader(True)
@@ -2735,10 +2821,20 @@ def graph_parity_path(dev, cases=None, label="graph_parity"):
         per = {k: rel_norm(pb[k].detach(), pa[k].detach()) for k in pa}
         return per, rel_norm(flat(b), flat(a))
 
+    def captured_kernels(name):
+        """The launch counters that the graph side's captures must move: the
+        backbone's training pair at bucket 32 (bf16: its bf16 instances)."""
+        if name.split("-")[0] not in BASELINE_CASES_TASKS and \
+                not name.endswith("-bf16"):
+            return ()
+        pair = PATH_KERNELS[name.split("-")[1].lower()]
+        return tuple(f"{k}_bf16" for k in pair) if name.endswith("-bf16") \
+            else pair
+
     rows = []
-    cases = cases or [f"{t}-{m}" for t in ("QM9", "MD17", "DDM", "LBA", "LEP")
-                      for m in ("SchNet", "PaiNN")]
+    cases = cases or GRAPH_PARITY_CASES
     for name in cases:
+        t_case = time.time()
         same, plain_a, plain_b, graph, graph_b = (side(name)
                                                   for _ in range(5))
         optim.make_capturable(same[1])
@@ -2754,8 +2850,13 @@ def graph_parity_path(dev, cases=None, label="graph_parity"):
                 gen.manual_seed(SEED + 11)
             if net in (graph[0], graph_b[0]):
                 chain = common.ChainStep(opt, sched, body, dev, [net], gen)
+                reset_launch_counts()
                 out = [chain(batches[s:s + HOST_K])
                        for s in range(0, len(batches), HOST_K)]
+                if net is graph[0]:
+                    # the counters count captures: one graph of HOST_K
+                    # steps, its warm-up step before it
+                    captured = {k: v for k, v in launch_counts().items() if v}
             else:
                 out = [common.optimizer_step(opt, sched, body, [b])[None]
                        for b in batches]
@@ -2768,6 +2869,25 @@ def graph_parity_path(dev, cases=None, label="graph_parity"):
         per_plain, total_plain = compare(plain_a[0], graph[0])
         worst = max(per, key=per.get)
         worst_plain = max(per_plain, key=per_plain.get)
+        # one eager pair can miss a parameter's spread: a run may end in one
+        # of two states (NCSN_02.b2 of DDM-SchNet: 1.2e-2 apart or within
+        # 2e-3, PERF.md), so a parameter beyond NOISE_FACTOR times the
+        # sampled spread draws more eager pairs, SPREAD_PAIRS in all at most
+        pairs = 1
+        while pairs < SPREAD_PAIRS and any(
+                per[k] > 10 * GRAD_RTOL and per[k] > NOISE_FACTOR * spread[k]
+                for k in per):
+            extra = []
+            for net, opt, sched, body, gen, _ in (side(name), side(name)):
+                net.load_state_dict(init)
+                if gen is not None:
+                    gen.manual_seed(SEED + 11)
+                for b in batches:
+                    common.optimizer_step(opt, sched, body, [b])
+                extra.append(net)
+            more, _ = compare(*extra)
+            spread = {k: max(spread[k], more[k]) for k in spread}
+            pairs += 1
         beyond = {k: [per[k], spread[k]] for k in per if per[k] > 10 * GRAD_RTOL}
         row = {"path": name, "steps": len(batches), "k": HOST_K,
                "loss_rel_norm": rel_norm(losses[3], losses[0]),
@@ -2782,12 +2902,19 @@ def graph_parity_path(dev, cases=None, label="graph_parity"):
                                 "param_rel_norm": spread_total},
                "graph_spread": {"loss_rel_norm": rel_norm(losses[4], losses[3]),
                                 "param_rel_norm": spread_total_g},
+               "eager_pairs": pairs,
                "params_moved_rel_norm": rel_norm(
                    flat(same[0]), torch.cat([init[k].flatten()
                                              for k in dict(same[0].named_parameters())])),
                "losses_eager": losses[0].tolist()[:4],
-               "losses_graphs": losses[3].tolist()[:4]}
+               "losses_graphs": losses[3].tolist()[:4],
+               "captured_launches": captured,
+               "seconds": time.time() - t_case}
         print(f"{label}: " + json.dumps(row))
+        for k in captured_kernels(name):
+            if not captured.get(k):
+                fail(f"{label} {name}: kernel {k} was not captured in its "
+                     f"graphs ({captured})")
         bad = [k for k, (d, sp) in beyond.items() if d > NOISE_FACTOR * sp]
         if not torch.isfinite(losses[3]).all() \
                 or row["loss_rel_norm"] > GRAD_RTOL or total > GRAD_RTOL \
@@ -4988,7 +5115,8 @@ def main():
     # bucket 128 held to its plain step, contextpred's holed node masks at
     # the kernel level, each driver's epoch (the kernel table's
     # pretrain_launches: each kernel's launches per step)
-    pretrain_launches = pretrain_path(errs, dev, card, train_batch)
+    pretrain_launches, baseline_graph_launches = pretrain_path(
+        errs, dev, card, train_batch)
 
     # -- 3h. main path: the rest of serving -----------------------------------
     # LEP pairs from phase 3c's LEP-SchNet model.pth (PaiNN: the DDM-PaiNN
@@ -5678,6 +5806,9 @@ def main():
             "md17_launches": md17_launches.get(name, 0),
             "pretrain_launches": {run: per_step.get(name, 0) for run, per_step
                                   in pretrain_launches.items()},
+            "baseline_graph_launches": {
+                run: c.get(name, 0)
+                for run, c in baseline_graph_launches.items()},
             "pairs_launches": {m: c.get(name, 0)
                                for m, c in pairs_launches.items()},
             "sealed_launches": {m: c.get(name, 0)

@@ -51,18 +51,22 @@ def assign_buckets(sizes: np.ndarray, bucket_sizes: Sequence[int]) -> np.ndarray
     return ladder[slot]
 
 
-def bucket_chunks(bucket_of, batch_size, rng, shuffle=True):
+def bucket_chunks(bucket_of, batch_size, rng, shuffle=True, drop_last=False):
     """Per-bucket index chunks. With ``shuffle`` each bucket is shuffled and
     the epoch's batch order is shuffled across buckets (the reference
     DataLoader's uniform shuffle in distribution); without it the chunks
-    keep store order, bucket by bucket."""
+    keep store order, bucket by bucket. ``drop_last`` leaves out each
+    bucket's partial last chunk."""
     chunks = []
     for bucket in np.unique(bucket_of):
         idx = np.where(bucket_of == bucket)[0]
         if shuffle:
             idx = rng.permutation(idx)
         for s in range(0, len(idx), batch_size):
-            chunks.append((int(bucket), idx[s:s + batch_size]))
+            chunk = idx[s:s + batch_size]
+            if drop_last and len(chunk) < batch_size:
+                continue
+            chunks.append((int(bucket), chunk))
     if shuffle and len(chunks) > 1:
         chunks = [chunks[i] for i in rng.permutation(len(chunks))]
     return chunks

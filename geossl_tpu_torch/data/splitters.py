@@ -1,14 +1,16 @@
-"""Dataset splits as index arrays (the port's own copy of the QM9 splits,
-``random_split`` and ``atom3d_lba_split`` from
-``geossl_tpu/data/splitters.py``; reference ``examples/splitters.py``). Each
-returns (train_idx, valid_idx, test_idx) over a store. The MD17 split is
-``md17_split``; the scaffold and identity splits come with their drivers."""
+"""Dataset splits as index arrays (the port's own copy of
+``geossl_tpu/data/splitters.py``; reference ``examples/splitters.py``): the
+QM9 splits, ``random_split``, ``md17_split``, ``atom3d_lba_split``, the
+scaffold splits (RDKit imported when a scaffold is made) and the
+sequence-identity split. Each returns (train_idx, valid_idx, test_idx)
+over a store."""
 
 from __future__ import annotations
 
 import json
+import math
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -92,3 +94,126 @@ def atom3d_lba_split(data_root: str, year: int = 2020) -> Split:
         return np.asarray([pdb_id2data_id[i] for i in ids], np.int64)
 
     return load("train"), load("val"), load("test")
+
+
+def generate_scaffold(smiles: str, include_chirality: bool = True) -> str:
+    """Bemis-Murcko scaffold of a SMILES (``splitters.py:12-25``; RDKit)."""
+    from rdkit.Chem.Scaffolds import MurckoScaffold
+
+    return MurckoScaffold.MurckoScaffoldSmiles(
+        smiles=smiles, includeChirality=include_chirality)
+
+
+def _scaffold_groups(smiles_list) -> dict:
+    groups: dict = {}
+    for i, smiles in enumerate(smiles_list):
+        groups.setdefault(generate_scaffold(smiles), []).append(i)
+    return groups
+
+
+def _as_split(train, valid, test) -> Split:
+    return tuple(np.asarray(s, np.int64) for s in (train, valid, test))
+
+
+def scaffold_split(smiles_list, frac_train: float = 0.8,
+                   frac_valid: float = 0.1, frac_test: float = 0.1) -> Split:
+    """Deterministic Bemis-Murcko scaffold split (``splitters.py:28-115``):
+    scaffold groups sorted largest first (ties by their first index, the
+    later first), filled train -> valid -> test."""
+    assert abs(frac_train + frac_valid + frac_test - 1.0) < 1e-6
+    groups = sorted(_scaffold_groups(smiles_list).values(),
+                    key=lambda g: (len(g), g[0]), reverse=True)
+    n = len(smiles_list)
+    train_cutoff, valid_cutoff = frac_train * n, (frac_train + frac_valid) * n
+    train, valid, test = [], [], []
+    for group in groups:
+        if len(train) + len(group) <= train_cutoff:
+            train.extend(group)
+        elif len(train) + len(valid) + len(group) <= valid_cutoff:
+            valid.extend(group)
+        else:
+            test.extend(group)
+    return _as_split(train, valid, test)
+
+
+def random_scaffold_split(smiles_list, frac_train: float = 0.8,
+                          frac_valid: float = 0.1, frac_test: float = 0.1,
+                          seed: int = 0) -> Split:
+    """Scaffold split over a ``RandomState(seed)`` permutation of the
+    scaffold groups (``splitters.py:118-185``)."""
+    groups = list(_scaffold_groups(smiles_list).values())
+    perm = np.random.RandomState(seed).permutation(len(groups))
+    n = len(smiles_list)
+    n_train, n_valid = int(frac_train * n), int(frac_valid * n)
+    train, valid, test = [], [], []
+    for gi in perm:
+        group = groups[gi]
+        if len(train) + len(group) <= n_train:
+            train.extend(group)
+        elif len(valid) + len(group) <= n_valid:
+            valid.extend(group)
+        else:
+            test.extend(group)
+    return _as_split(train, valid, test)
+
+
+def kmer_identity_neighbors(sequences, cutoff: float, k: int = 6):
+    """An alignment-free stand-in for BLAST percent identity, the
+    similarity backend of :func:`identity_split` (the reference shells out
+    to BLAST, ``PDBBind_utils.py:146-147``). ``sequences[i]``: the chain
+    sequences of complex i. Complexes i and j are neighbours when some chain
+    pair's k-mer containment |kmers(a) ∩ kmers(b)| / min(|a|, |b|) reaches
+    ``cutoff``. Returns ``find_similar(i) -> set`` (i included); an inverted
+    k-mer index keeps each query to the complexes sharing a k-mer."""
+    kmer_sets = [[{c[j:j + k] for j in range(max(len(c) - k + 1, 0))} or {c}
+                  for c in chains] for chains in sequences]
+    posting: dict = {}
+    for idx, chains in enumerate(kmer_sets):
+        for a in chains:
+            for km in a:
+                posting.setdefault(km, set()).add(idx)
+
+    def similar(i: int, j: int) -> bool:
+        return any(min(len(a), len(b)) and
+                   len(a & b) / min(len(a), len(b)) >= cutoff
+                   for a in kmer_sets[i] for b in kmer_sets[j])
+
+    def find_similar(i: int):
+        if cutoff <= 0:
+            return set(range(len(kmer_sets)))
+        candidates = set().union(*(posting[km] for a in kmer_sets[i]
+                                   for km in a))
+        return {i} | {j for j in candidates if j != i and similar(i, j)}
+
+    return find_similar
+
+
+def identity_split(n: int, find_similar, val_split: float = 0.1,
+                   test_split: float = 0.1, min_fam_in_split: int = 5,
+                   seed: Optional[int] = None) -> Split:
+    """The greedy family split of ``PDBBind_utils.py:137-190``: draw a
+    complex not yet assigned (``np.random.default_rng(seed)``), take its
+    family ``find_similar(i)`` less the assigned ones, put at most
+    ``ceil(split_size / min_fam_in_split)`` of it (in index order) into the
+    split, and retire the whole family; val first, then test, the rest is
+    train. As in the reference, the retired members beyond that cap belong
+    to no split."""
+    rng = np.random.default_rng(seed)
+    available = np.ones(n, bool)
+
+    def create(split_size: float):
+        split = set()
+        used = set(np.flatnonzero(~available).tolist())
+        max_fam_size = int(math.ceil(split_size / min_fam_in_split))
+        while len(split) < split_size and available.any():
+            i = int(rng.choice(np.flatnonzero(available)))
+            found = set(find_similar(i)) - used
+            split.update(sorted(found)[:max_fam_size])
+            available[list(found)] = False
+            used.update(found)
+        return split
+
+    val = create(n * val_split)
+    test = create(n * test_split)
+    train = np.flatnonzero(available).tolist()
+    return _as_split(train, sorted(val), sorted(test))

@@ -42,7 +42,9 @@ def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
         # on padded rows put x at 0 exactly)
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
         sp = torch.maximum(x, zero) + torch.log1p(torch.exp(-torch.abs(x)))
-        return sp - torch.tensor(LOG2, dtype=x.dtype, device=x.device)
+        # torch.full writes the constant on the device: no host copy, so a
+        # CUDA graph can capture it
+        return sp - torch.full((), LOG2, dtype=x.dtype, device=x.device)
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device)) - LOG2
 
 

@@ -172,7 +172,7 @@ class PaiNNMixing(nn.Module):
         v, w = torch.split(self.mu_channel_mix(mu), f, dim=-1)  # [B,N,3,F]
         eps = self.epsilon
         if v.dtype == torch.bfloat16:  # JAX's weakly typed constant
-            eps = torch.tensor(eps, dtype=v.dtype, device=v.device)
+            eps = torch.full((), eps, dtype=v.dtype, device=v.device)
         vn = torch.sqrt(torch.sum(v * v, dim=-2) + eps)
         x = self.intraatomic_context_net(torch.cat([q, vn.to(q.dtype)],
                                                    dim=-1))

@@ -148,13 +148,14 @@ class InteractionBlock(nn.Module):
         return pair_parallel.pair_sum(m)
 
 
-def dipole_readout(q, atom_type, positions, node_mask):
+def dipole_readout(q, atom_type, positions, node_mask, masses):
     """Graph dipole magnitude from per-atom charges ``q [B,N,1]``: mass
-    weighted center of mass over real atoms, ``|| Σ_i q_i (pos_i − com) ||``."""
+    weighted center of mass over real atoms, ``|| Σ_i q_i (pos_i − com) ||``.
+    ``masses``: the vocabulary's atomic masses on ``q``'s device (SchNet's
+    ``atomic_masses`` buffer, so that no call copies them from the host)."""
     mask = node_mask.to(q.dtype)
     q = q * mask[..., None]
-    masses = torch.tensor(_ATOMIC_MASSES, dtype=q.dtype, device=q.device)
-    m = masses[atom_type] * mask
+    m = masses.to(q.dtype)[atom_type] * mask
     pos = positions.to(q.dtype)
     com = torch.sum(m[..., None] * pos, dim=1) / torch.clamp(
         torch.sum(m, dim=1, keepdim=True), min=1e-9)
@@ -206,6 +207,12 @@ class SchNet(nn.Module):
         self.lin2 = nn.Linear(hidden_channels, hidden_channels)
         if dipole:
             self.dipole_lin = nn.Linear(hidden_channels, 1)
+            # f64, so that .to(dtype) rounds each mass once, as the JAX
+            # constant's cast does; not in the state_dict
+            self.register_buffer(
+                "atomic_masses",
+                torch.tensor(_ATOMIC_MASSES, dtype=torch.float64),
+                persistent=False)
         self.atomref = None
         if atomref is not None:
             self.atomref = nn.Embedding(node_class, 1)
@@ -263,13 +270,14 @@ class SchNet(nn.Module):
         up = torch.promote_types(torch.float32, h.dtype)
         if self.dipole:
             q = linear(self.dipole_lin, h, dt).to(up)
-            return dipole_readout(q, atom_type, positions, node_mask), h.to(up)
+            return dipole_readout(q, atom_type, positions, node_mask,
+                                  self.atomic_masses), h.to(up)
         if self.mean is not None and self.std is not None:
             if dt is None:
                 h = h * self.std + self.mean
             else:  # JAX's weakly typed scalars take h's dtype
-                h = h * torch.tensor(self.std, dtype=dt, device=h.device) \
-                    + torch.tensor(self.mean, dtype=dt, device=h.device)
+                h = h * torch.full((), self.std, dtype=dt, device=h.device) \
+                    + torch.full((), self.mean, dtype=dt, device=h.device)
         if self.atomref is not None:
             h = h + self.atomref(atom_type).to(h.dtype)
         h = h.to(up)

@@ -26,12 +26,22 @@ def sample_centers(generator: Optional[torch.Generator],
     """One-hot [B, N] float32 centre per graph, uniform over its real atoms
     (the reference's ``random.sample(range(num_atoms), 1)``). A padded slot
     gets an arbitrary centre that the caller gates with ``graph_mask``.
-    ``index`` [B] replaces the draw from ``generator``."""
+    ``index`` [B] replaces the draw from ``generator``.
+
+    The draw is ``jax.random.categorical``'s: the argmax of Gumbel noise
+    over logits 0 on real atoms and -inf elsewhere (a graph with no real
+    atom gets a uniform row), from uniforms [B, N] of ``generator`` on the
+    mask's device. Nothing is read back to the host, so a CUDA graph
+    captures the draw with its step."""
     if index is None:
-        w = node_mask.float()
-        w = torch.where(node_mask.any(dim=-1, keepdim=True), w,
-                        torch.ones_like(w))
-        index = torch.multinomial(w, 1, generator=generator)[:, 0]
+        u = torch.rand(node_mask.shape, generator=generator,
+                       device=node_mask.device)
+        # jax.random.gumbel's open interval: u = 0 would give -inf noise
+        u = torch.clamp(u, min=torch.finfo(u.dtype).tiny)
+        gumbel = -torch.log(-torch.log(u))
+        real = node_mask | ~node_mask.any(dim=-1, keepdim=True)
+        index = torch.where(real, gumbel,
+                            torch.full_like(gumbel, float("-inf"))).argmax(-1)
     return F.one_hot(index.long(), node_mask.shape[-1]).float()
 
 

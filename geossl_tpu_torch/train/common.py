@@ -14,10 +14,8 @@ device; ``--coordinator_address/--num_processes/--process_id`` start this
 host's ranks of a multi-host run; a rank started by ``torchrun`` (its
 ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` environment) joins as it is. Each
 rank runs the driver on its rows of every global batch
-(``parallel/mesh.py``). Flags the port does not run yet raise
-``NotImplementedError`` when set away from their defaults:
-``--steps_per_call`` / ``--profile_dir`` in the drivers that do not list
-them as ported (:func:`check_ported_args`).
+(``parallel/mesh.py``). ``--profile_dir`` raises ``NotImplementedError``
+in every driver but pretrain_geossl (:func:`check_ported_args`).
 """
 
 from __future__ import annotations
@@ -232,26 +230,21 @@ def add_common_args(p: argparse.ArgumentParser):
                         "before each optimizer step")
     p.add_argument("--steps_per_call", type=int, default=1,
                    help="k optimizer steps per call, as one CUDA graph replay "
-                        "on the card (the fine-tunes and pretrain_geossl)")
+                        "on the card")
     p.add_argument("--ckpt_every", type=int, default=1)
     p.add_argument("--resume", action="store_true",
                    help="resume from <output_model_dir>/state.pth if present")
     return p
 
 
-def check_ported_args(args, ported=()) -> None:
-    """Raise for the flags whose paths the port does not run yet;
-    ``ported`` names those of ``--steps_per_call`` and ``--profile_dir``
-    that the calling driver runs. Then :func:`check_chain_args`."""
-    unported = {
-        "--steps_per_call": args.steps_per_call > 1,
-        "--profile_dir": bool(args.profile_dir),
-    }
-    bad = [k for k, v in unported.items() if v and k not in ported]
-    if bad:
+def check_ported_args(args, traces: bool = False) -> None:
+    """Raise for ``--profile_dir`` unless the calling driver ``traces`` (only
+    pretrain_geossl, as in the JAX package); check ``--grad_accum`` and
+    ``--steps_per_call``, then :func:`check_chain_args`."""
+    if args.profile_dir and not traces:
         raise NotImplementedError(
-            f"{', '.join(bad)}: not ported yet for this driver (ROADMAP.md "
-            "queue 1)")
+            "--profile_dir: only pretrain_geossl writes a trace (as in the "
+            "JAX package)")
     if args.grad_accum < 1:
         raise ValueError(f"--grad_accum must be >= 1, got {args.grad_accum}")
     if args.steps_per_call < 1:

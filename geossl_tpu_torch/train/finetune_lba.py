@@ -140,7 +140,7 @@ def main(argv=None):
     ranks, the backbone built with ``pair_axis`` (each rank's message
     passes on its j-stripe of the pair grid)."""
     args = build_parser().parse_args(argv)
-    common.check_ported_args(args, ported=("--steps_per_call",))
+    common.check_ported_args(args)
     if args.pair_devices < 1:
         raise ValueError(f"--pair_devices must be >= 1, got "
                          f"{args.pair_devices}")

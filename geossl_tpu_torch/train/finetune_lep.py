@@ -180,7 +180,7 @@ def main(argv=None):
     loss). Under ``--eval_only``: (net, val ROC-AUC, test metrics, []).
     None in a launcher that started the ranks (``common.start_ranks``)."""
     args = build_parser().parse_args(argv)
-    common.check_ported_args(args, ported=("--steps_per_call",))
+    common.check_ported_args(args)
     if common.start_ranks(args, argv, "geossl_tpu_torch.train.finetune_lep"):
         return None
     mesh, device = common.setup_platform(args)

@@ -132,7 +132,7 @@ def main(argv=None):
     []). None in a launcher that started the ranks
     (``common.start_ranks``)."""
     args = build_parser().parse_args(argv)
-    common.check_ported_args(args, ported=("--steps_per_call",))
+    common.check_ported_args(args)
     if common.start_ranks(args, argv,
                           "geossl_tpu_torch.train.finetune_md17"):
         return None

@@ -26,6 +26,11 @@ Each saves ``{"model": state_dict}`` as ``model.pth`` at the best epoch-mean
 loss and ``model_final.pth`` at the end, the checkpoint ``serve.Predictor``
 and the fine-tunes' ``--input_model_file`` load. On CUDA (the default) the
 backbone runs the port's kernels; ``--device cpu`` the plain versions.
+``--steps_per_call k`` runs k steps per call (``common.ChainStep``: one CUDA
+graph replay on the card, every objective's draw from the epoch's device
+generator inside it; eager steps on the CPU), as the JAX driver's
+``chain_step``. ``--profile_dir`` is refused, as in every driver but
+pretrain_geossl.
 
 Run: ``python -m geossl_tpu_torch.train.pretrain_baselines charge --synthetic --epochs 2``
 """

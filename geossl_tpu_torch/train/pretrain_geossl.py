@@ -297,7 +297,7 @@ def main(argv=None):
         # (pretrain_GeoSSL.py:335-337), a factor on the base lr here
         f = args.gnn_2d_lr_scale / args.lr
         group_lr = {"AE_01": f, "AE_02": f}
-    common.check_ported_args(args, ported=("--steps_per_call", "--profile_dir"))
+    common.check_ported_args(args, traces=True)
     if common.start_ranks(args, argv, "geossl_tpu_torch.train.pretrain_geossl"):
         return None
     mesh, device = common.setup_platform(args)

@@ -78,6 +78,18 @@ def pr_auc(labels: np.ndarray, scores: np.ndarray) -> float:
     return float(np.sum(precision * np.diff(np.r_[0.0, recall])))
 
 
+def concordance_index(y: np.ndarray, f: np.ndarray) -> float:
+    """The concordance index (``util.py:144-165``): over the pairs with
+    y_i > y_j, the share ordered alike by f (a tie counts 1/2); NaN without
+    such a pair. O(n²)."""
+    y, f = np.asarray(y, float), np.asarray(f, float)
+    gt = y[:, None] > y[None, :]
+    u = f[:, None] - f[None, :]
+    s = np.where(u > 0, 1.0, np.where(u == 0, 0.5, 0.0))
+    z = gt.sum()
+    return float((s * gt).sum() / z) if z > 0 else float("nan")
+
+
 # -- OC20-style energy and force metrics (``util.py:187-223``) ----------------
 # ``fixed_masks`` is 1.0 for the FREE atoms, [B, N]; forces are [B, N, 3].
 
@@ -96,3 +108,41 @@ def force_mae(pred_f: np.ndarray, f: np.ndarray,
     n_free = m.sum(axis=-1, keepdims=True)
     per_atom = np.abs(np.asarray(pred_f) - np.asarray(f)).sum(axis=-1)
     return float((per_atom / n_free)[m.astype(bool)].sum())
+
+
+def force_cosine(pred_f: np.ndarray, f: np.ndarray,
+                 fixed_masks: np.ndarray, eps: float = 1e-8) -> float:
+    """Free-atom masked, per-structure normalized sum of force cosines
+    (``util.py:198-202``; torch ``cosine_similarity``: each norm clamped at
+    ``eps``)."""
+    pred_f, f = np.asarray(pred_f, float), np.asarray(f, float)
+    m = np.asarray(fixed_masks, float)
+    na = np.maximum(np.linalg.norm(pred_f, axis=-1), eps)
+    nb = np.maximum(np.linalg.norm(f, axis=-1), eps)
+    cos = (pred_f * f).sum(axis=-1) / (na * nb)
+    n_free = m.sum(axis=-1, keepdims=True)
+    return float((cos / n_free)[m.astype(bool)].sum())
+
+
+def energy_within_threshold(pred_e: np.ndarray, e: np.ndarray,
+                            epsilon: float = 0.02) -> float:
+    """EwT (``util.py:204-210``): the share of structures with |dE| < eps."""
+    return float(np.mean(np.abs(np.asarray(pred_e) - np.asarray(e))
+                         < epsilon))
+
+
+def energy_force_within_threshold(pred_e, e, pred_f, f,
+                                  epsilon: float = 0.02,
+                                  alpha: float = 0.03) -> float:
+    """EFwT (``util.py:212-223``): the share of structures with |dE| < eps
+    whose largest per-atom |dF| (summed over xyz when forces are [B, N, 3];
+    [B, N] is taken as summed already) is below ``alpha``. As the JAX
+    package, the max runs over each structure's atoms (the OC20
+    definition), not over the batch as the reference's code does after it
+    has summed the atoms away."""
+    pred_f, f = np.asarray(pred_f, float), np.asarray(f, float)
+    e_ok = np.abs(np.asarray(pred_e) - np.asarray(e)) < epsilon
+    d = np.abs(pred_f - f)
+    if d.ndim == 3:
+        d = d.sum(axis=-1)
+    return float(np.mean(e_ok & (d.max(axis=-1) < alpha)))

@@ -405,17 +405,6 @@ def test_profiling_step_timer_keeps_the_first_step_apart():
     assert s["steady_p50_ms"] is not None and s["steady_mean_ms"] >= 0
 
 
-def test_pretrain_baselines_still_refuses_steps_per_call(tmp_path):
-    """contextpred draws with torch.multinomial and the charge head copies
-    its mass table to the device per call: neither can be captured."""
-    from geossl_tpu_torch.train import pretrain_baselines as PB
-
-    with pytest.raises(NotImplementedError, match="steps_per_call"):
-        PB.main(["charge", "--device", "cpu", "--synthetic",
-                 "--steps_per_call", "2", "--output_model_dir",
-                 str(tmp_path)])
-
-
 def test_lep_dual_batches_run_the_single_steps_trajectory():
     """LEP's DualMolBatch (two towers, nested) through ChainStep, eager on
     the CPU: three steps in one call equal three single steps."""

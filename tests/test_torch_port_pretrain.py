@@ -775,5 +775,5 @@ def test_cli_refusals():
         PB.main(["attrmask"])
     with pytest.raises(ValueError, match="no variance"):
         PB.label_stats(type("S", (), {"y": np.ones((4, 8), np.float32)}), 6)
-    with pytest.raises(NotImplementedError, match="steps_per_call"):
-        run_cli("baseline", "charge", "", "--steps_per_call", "2")
+    with pytest.raises(NotImplementedError, match="profile_dir"):
+        run_cli("baseline", "charge", "", "--profile_dir", "trace")
