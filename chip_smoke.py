@@ -416,11 +416,42 @@ Phases, in order; any failure exits non-zero and prints no result line:
    bf16 drift bounds). (d) ``bf16_step:``, the DDM-SchNet step's device ms
    at bucket 128 in f32 and in both bf16 modes, traced in turns.
 
+7. Any width (``widths:``, at most 120 s). SchNet and the DDM head at
+   emb_dim = num_filters = 256 (#1-#4 in 2 x 2 column blocks of 128, 4
+   launches a call; #6/#7 in the kE = 256 instance, counted as
+   ``<kernel>_e256``) and at 96 (#1-#7 zero-padded into their 128
+   instances). (a) Per width, counters reset before and read after: a
+   DDM-SchNet epoch of ``pretrain_geossl --emb_dim W --num_filters W``
+   (256 molecules, buckets 32/64/128, batch 128; exactly 2 x 6 x k^2
+   launches of #3 and of #4 per step, none of #1/#2, the head's launches
+   in its width's instance only), one with ``--max_num_neighbors 32`` (#1,
+   #2), and a seeded Predictor and its ``max_neighbors=32`` twin serving
+   the store over buckets 32..512 (F=256: the per-block route at every
+   bucket, no stack launch; F=96: the padded stack up to N=128), each held
+   to the plain path on 8 molecules per bucket (rtol 1e-4, atol 1e-5 x
+   max). (b) One DDM step at bucket 128 per width against the plain step
+   (as 3b). (c) #1-#5 at each width against their plain versions at the
+   shapes of phase 5 (block 0 of a seeded model at the width; x and the
+   cotangents are phase 5's projected to the width by a seeded matrix),
+   with the F=128 rows' tolerances, in f32 at G=51 (timed: the kernel
+   table's ``<kernel>_f256`` / ``_f96`` rows, bounds counted at the user's
+   width) and G=300 and in bf16 at G=51 (#5 at F=96 only; #2/#4's bf16
+   launches at F=256 must refuse: a column block would round its own
+   partial dh where the JAX kernel rounds the sum); #6/#7 at E=256
+   and E=96 on the DDM batch of a seeded DDM at the width (timed:
+   ``ncsn_score_*_e256`` / ``_e96``, with the instance's shared bytes);
+   ptxas of the kE = 256 instance. (d) The device ms of one DDM step at
+   bucket 128 at widths 256, 96 and 128. (e) The startup refusals above
+   the limits: ``pretrain_geossl --emb_dim 320``, ``pretrain_geossl
+   --emb_dim 256 --num_filters 256 --filter_mxu bf16`` and a PaiNN
+   Predictor at emb_dim 96.
+
 The line before the last is the kernel table as JSON (thirteen kernels,
 every Pallas kernel of the JAX package, then #1-#5 at G=100 and G=300 as
 ``<kernel>_g100`` / ``_g300`` with their phase-5 launches and shapes,
 then #1-#4's bf16 instances at G=51 as ``<kernel>_bf16`` with their
-phase-6 launches, bounded at the bf16 tensor-core peak;
+phase-6 launches, bounded at the bf16 tensor-core peak, then phase 7's
+rows at F = E = 256 and 96 with their launches;
 ``qm9_launches``: each kernel's
 launches over both QM9 epochs of phase 3e; ``md17_launches``: each
 kernel's launches in one MD17 training step of phase 3f, both backbones;
@@ -608,6 +639,20 @@ for _g in (100, 300):
                               "_ZN6geossl17cfconv_bwd_kernelILb0ELb1ELb0E"),
         f"cfconv_bwd_sym_g{_g}": ("cfconv_bwd",
                                   "_ZN6geossl17cfconv_bwd_kernelILb1ELb1ELb0E")})
+
+
+# phase 7's rows: the F = 128 instances (padded, or in column blocks), the
+# head's kE = 256 instance
+for _w in (256, 96):
+    KERNEL_ENTRIES.update({
+        f"{_k}_f{_w}": KERNEL_ENTRIES[_k]
+        for _k in ("cfconv_fwd", "cfconv_fwd_sym", "cfconv_bwd",
+                   "cfconv_bwd_sym", "schnet_stack")})
+KERNEL_ENTRIES.update({
+    "ncsn_score_fwd_e96": KERNEL_ENTRIES["ncsn_score_fwd"],
+    "ncsn_score_bwd_e96": KERNEL_ENTRIES["ncsn_score_bwd"],
+    "ncsn_score_fwd_e256": ("ncsn_score_e256", "_ZN6geossl15ncsn_fwd_kernel"),
+    "ncsn_score_bwd_e256": ("ncsn_score_e256", "_ZN6geossl15ncsn_bwd_kernel")})
 
 
 def stack_instance(b, n, res):
@@ -1124,8 +1169,9 @@ def ncsn_inputs(ddm, batch, targs, seed):
             weights, head.anneal_power)
 
 
-def check_ncsn(errs, grid, weights, anneal, what, chunk=None):
-    """ncsn_score_fwd/_bwd against their plain versions."""
+def check_ncsn(errs, grid, weights, anneal, what, chunk=None, tag=""):
+    """ncsn_score_fwd/_bwd against their plain versions (recorded as
+    ``ncsn_score_fwd<tag>`` / ``ncsn_score_bwd<tag>``)."""
     import torch
 
     from geossl_tpu_torch.ops import ncsn as NS
@@ -1144,14 +1190,14 @@ def check_ncsn(errs, grid, weights, anneal, what, chunk=None):
             want = chunked_sum(
                 lambda *a: NS.ncsn_score_bwd_reference(*a, anneal=anneal),
                 (*grid, g_rows), weights, chunk, 1)
-    errs.check_scaled("ncsn_score_fwd", NS.ncsn_score_fwd(
+    errs.check_scaled("ncsn_score_fwd" + tag, NS.ncsn_score_fwd(
         *grid, *weights, anneal=anneal), want_rows, f"{what} rows")
     got = NS.ncsn_score_bwd(*grid, g_rows, *weights, anneal=anneal)
     # du by norm too: relu' flips where a pre-activation lies within
     # rounding of zero, and at the DDM shape (~65M relu decisions per call)
     # a few always do, each moving some du elements by a whole term
-    errs.check_norm("ncsn_score_bwd", got[0], want[0], f"{what} du")
-    check_weight_grads(errs, "ncsn_score_bwd", got[1:], want[1:],
+    errs.check_norm("ncsn_score_bwd" + tag, got[0], want[0], f"{what} du")
+    check_weight_grads(errs, "ncsn_score_bwd" + tag, got[1:], want[1:],
                        ["d" + n for n in NS.WEIGHT_NAMES], what)
     return g_rows
 
@@ -3695,20 +3741,22 @@ def gaussians_main_path(dev, g, store, buckets, first, layer0_inputs):
     return counts
 
 
-def gaussians_kernels(dev, errs, g, cases, cfg, cutoff, timed):
+def gaussians_kernels(dev, errs, g, cases, cfg, cutoff, timed, tag=None):
     """#1-#5 at ``g`` Gaussians on the shapes of their paths, each against
     its plain version (chunked), gating off and on, a second launch against
     the first (bitwise where the kernel writes each output once, as at
     G=51: #1, all of #2, and #4 but dx; #3 and #5 add with atomics: within
-    the tolerance). Checks are recorded as ``<kernel>_g<g>``. With
-    ``timed``: the rows (name, source, replaces, ms, plain_ms, flops,
-    bytes) of the kernel table, bounds counted as the G=51 rows'."""
+    the tolerance). Checks are recorded as ``<kernel><tag>`` (by default
+    ``_g<g>``). With ``timed``: the rows (name, source, replaces, ms,
+    plain_ms, flops, bytes) of the kernel table, bounds counted as the G=51
+    rows'. The filter width is ``cfg``'s (``cases`` at that width); #5 only
+    where the stack takes it (F <= 128)."""
     import torch
 
     from geossl_tpu_torch.ops import cfconv as K
     from geossl_tpu_torch.train.common import make_backbone
 
-    F_ = 128
+    F_ = cfg.schnet.num_filters
     m = make_backbone(schnet_at(cfg, g),
                       torch.Generator().manual_seed(SEED)).to(dev)
     with torch.no_grad():
@@ -3717,7 +3765,7 @@ def gaussians_kernels(dev, errs, g, cases, cfg, cutoff, timed):
     args = (0.0, cutoff, g)
     flop_pair = 2 * g * F_ + 2 * F_ * F_ + 2 * F_
     wsize = g * F_ + 2 * F_ + F_ * F_
-    tag = f"_g{g}"
+    tag = f"_g{g}" if tag is None else tag
     rows = []
 
     def row(kernel, ms, plain_ms, flops, nbytes, **extra):
@@ -3823,6 +3871,8 @@ def gaussians_kernels(dev, errs, g, cases, cfg, cutoff, timed):
             (filt * (6 * g * F_ + 6 * F_ * F_), nnz * 6 * F_),
             4 * (cells + tiles + 2 * d.numel() + 3 * x.numel() + 2 * wsize),
             shape="LBA B=64 N=512")
+    if F_ > K.KERNEL_F:  # the stack pads up to 128 and refuses wider
+        return rows
     # #5 at serving's N=128 batch, both modes
     with torch.no_grad():
         for sym, key in ((True, "serve128"), (False, "serve128_mn")):
@@ -4139,21 +4189,22 @@ def bf16_serving(preds, got, store, buckets, first, layer0_inputs):
           f"{err:.3e} (two live passes: {spread:.3e})")
 
 
-def bf16_kernels(dev, errs, g, cases, cfg, cutoff, timed):
+def bf16_kernels(dev, errs, g, cases, cfg, cutoff, timed, tag=None):
     """#1-#4's bf16 instances at ``g`` Gaussians on their paths' shapes,
     each against its plain bf16 version (chunked), gating off and on: #1
     and #2 on the DDM ``max_num_neighbors 32`` batch (B=128, N=128), #3 on
     the DDM batch, #4 at the LBA shape (B=64, N=512; ddist/denv by the
-    placement contract). Checks are recorded as ``<kernel>_bf16`` (G=51)
-    and ``<kernel>_bf16_g<g>``. With ``timed``: the rows (name, source,
-    replaces, ms, plain_ms, flops, bytes) of the kernel table, counted as
-    the f32 rows' and bounded at the bf16 peak."""
+    placement contract). Checks are recorded as ``<kernel><tag>``, by
+    default ``_bf16`` (G=51) and ``_bf16_g<g>``. With ``timed``: the rows
+    (name, source, replaces, ms, plain_ms, flops, bytes) of the kernel
+    table, counted as the f32 rows' and bounded at the bf16 peak. The
+    filter width is ``cfg``'s (``cases`` at that width)."""
     import torch
 
     from geossl_tpu_torch.ops import cfconv as K
     from geossl_tpu_torch.train.common import make_backbone
 
-    F_ = 128
+    F_ = cfg.schnet.num_filters
     m = make_backbone(schnet_at(cfg, g),
                       torch.Generator().manual_seed(SEED)).to(dev)
     with torch.no_grad():
@@ -4161,7 +4212,8 @@ def bf16_kernels(dev, errs, g, cases, cfg, cutoff, timed):
     args = (0.0, cutoff, g)
     flop_pair = 2 * g * F_ + 2 * F_ * F_ + 2 * F_
     wsize = g * F_ + 2 * F_ + F_ * F_
-    tag = "_bf16" + ("" if g == 51 else f"_g{g}")
+    if tag is None:
+        tag = "_bf16" + ("" if g == 51 else f"_g{g}")
     rows = []
 
     def row(kernel, ms, plain_ms, flops, nbytes, shape):
@@ -4190,6 +4242,15 @@ def bf16_kernels(dev, errs, g, cases, cfg, cutoff, timed):
                          + sum(t.numel() for t in fw)), what)
 
     def bwd_case(kernel, bwd, ref, d, e, x, gr, what, sym):
+        if F_ > K.KERNEL_F:  # no bf16 column blocks: the launch refuses
+            try:
+                bwd(d, e, x, gr, *fw, *args, True, "bf16")
+            except ValueError as err:
+                if "bf16 backward takes F <=" not in str(err):
+                    raise
+                return
+            fail(f"{kernel + tag}: the bf16 backward at F={F_} was not "
+                 "refused")
         want = chunked_sum(ref, (d, e, x, gr), (*fw, *args, "bf16"), 4, 3)
         if sym:
             want = (*(K.place_sym_cotangent(w) for w in want[:2]), *want[2:])
@@ -4351,6 +4412,346 @@ def bf16_path(dev, card, errs, cfg, cutoff, cases, store, buckets, first,
     if seconds > BF16_BUDGET_S:
         fail(f"bf16: {seconds:.1f} s, above its {BF16_BUDGET_S:.0f} s")
     return rows
+
+# -- 7. any width -----------------------------------------------------------------
+# emb_dim = num_filters of the phase's paths: 256 runs #1-#4 in column blocks
+# and #6/#7 in the kE = 256 instance, 96 pads into the 128 instances
+WIDTHS = (256, 96)
+WIDTH_BUDGET_S = 120.0
+# kernel -> (source, the TPU kernel it replaces)
+WIDTH_KERNELS = {
+    **GAUSS_KERNELS,
+    "ncsn_score_fwd": ("geossl_tpu_torch/ops/csrc/ncsn_score.cu",
+                       "geossl_tpu/ops/ncsn_pallas.py:67"),
+    "ncsn_score_bwd": ("geossl_tpu_torch/ops/csrc/ncsn_score.cu",
+                       "geossl_tpu/ops/ncsn_pallas.py:135"),
+}
+
+
+def width_cfg(cfg, w, max_neighbors=None):
+    """``cfg`` at emb_dim = hidden_channels = num_filters = ``w``."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, emb_dim=w, max_neighbors=max_neighbors,
+        schnet=dataclasses.replace(cfg.schnet, hidden_channels=w,
+                                   num_filters=w))
+
+
+def head_instance(w):
+    """The launch counters' suffix of the NCSN instance a head of width w
+    runs in."""
+    from geossl_tpu_torch.ops import ncsn as NS
+
+    return "_e256" if NS.kernel_width(w) == 256 else ""
+
+
+def widths_main_path(dev, w, cfg, store, buckets, first, layer0_inputs):
+    """SchNet's paths at emb_dim = num_filters = ``w`` (6 blocks, G=51,
+    cutoff 10), counters reset before and read after: a DDM epoch of
+    ``pretrain_geossl --emb_dim w --num_filters w`` on 256 molecules (2 x 6
+    x k^2 launches of #3 and #4 per step and none of #1/#2; the heads in
+    their width's instance only), one with ``--max_num_neighbors 32``, and
+    a seeded Predictor and its ``max_neighbors=32`` twin serving the store
+    (per block at every bucket above F=128, through the padded stack up to
+    N=128 below), held to the plain path on 8 molecules per bucket (rtol
+    1e-4, atol 1e-5 x max). Returns the counts."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from geossl_tpu_torch.ops import cfconv as K
+    from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
+    from geossl_tpu_torch.serve import Predictor
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+    from geossl_tpu_torch.train.common import make_backbone, make_head
+
+    cw = width_cfg(cfg, w)
+    gen = torch.Generator().manual_seed(SEED)
+    state = {"model": make_backbone(cw, gen).state_dict(),
+             "graph_pred_linear": make_head("schnet", w, gen).state_dict(),
+             "y_mean": 1.5, "y_std": 2.0}
+    preds = {what: Predictor(width_cfg(cfg, w, mn), state, batch_size=128,
+                             bucket_sizes=buckets)
+             for what, mn in (("default", None), ("max_neighbors=32", 32))}
+    k2, layers = K.launches_per_call(w), cw.schnet.num_interactions
+    head, other = head_instance(w), head_instance(128 if w > 128 else 256)
+    reset_launch_counts()
+    t0 = time.time()
+    steps = []
+    for extra in ([], ["--max_num_neighbors", "32"]):
+        run_dir = os.path.join(ROOT, "runs", f"chip_smoke_w{w}")
+        shutil.rmtree(run_dir, ignore_errors=True)
+        _, losses = PG.main(["--synthetic", "--synthetic_size", "256",
+                             "--synthetic_max_atoms", "100", "--epochs", "1",
+                             "--output_model_dir", run_dir, "--emb_dim",
+                             str(w), "--num_filters", str(w), *extra])
+        steps.append(len(losses))
+        if not losses or not all(math.isfinite(v) for v in losses):
+            fail(f"pretrain_geossl emb=F={w} {extra}: losses {losses}")
+        if not extra:
+            c = launch_counts()
+            want = 2 * layers * k2 * len(losses)  # two views, k^2 a call
+            got = (c["cfconv_fwd_sym"], c["cfconv_bwd_sym"], c["cfconv_fwd"],
+                   c["cfconv_bwd"])
+            heads = (c["ncsn_score_fwd" + head], c["ncsn_score_bwd" + head],
+                     c["ncsn_score_fwd" + other], c["ncsn_score_bwd" + other])
+            print(f"widths launches emb=F={w}: {len(losses)} steps, #3/#4/"
+                  f"#1/#2 {got} (want {want} of #3 and #4, k^2 = {k2} a "
+                  f"call), heads {heads}")
+            if got != (want, want, 0, 0) or \
+                    heads != (2 * len(losses), 2 * len(losses), 0, 0):
+                fail(f"widths emb=F={w}: launches {got}, heads {heads}")
+    before = launch_counts()
+    got = {what: p.predict(store) for what, p in preds.items()}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    stacked = counts["schnet_stack"] - before["schnet_stack"]
+    print(f"widths main path emb=F={w}: DDM {steps[0]} steps, max_neighbors "
+          f"{steps[1]} steps, {len(store)} molecules served twice in "
+          f"{time.time() - t0:.2f} s ({stacked} stack launches); launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    for name in ("cfconv_fwd", "cfconv_bwd", "cfconv_fwd_sym",
+                 "cfconv_bwd_sym", "ncsn_score_fwd" + head,
+                 "ncsn_score_bwd" + head):
+        if counts[name] == 0:
+            fail(f"kernel {name} was not launched on the emb=F={w} paths")
+    if (stacked > 0) != (w <= K.KERNEL_F) or any(
+            p.stack_route(n) != (w <= K.KERNEL_F and n <= 128)
+            for p in preds.values() for n in buckets):
+        fail(f"Predictor emb=F={w}: stack route {stacked} launches")
+    with torch.inference_mode():
+        for what, p in preds.items():
+            if not np.isfinite(got[what]).all():
+                fail(f"Predictor emb=F={w} {what}: non-finite output")
+            for b in buckets:
+                idx = first(b, 8)
+                batch, *_ = layer0_inputs(p.model, idx, b)
+                graph, _ = p.model(batch.atom_type, batch.positions,
+                                   batch.node_mask, plain=True)
+                want = (p.head(graph) * p.y_std + p.y_mean).cpu().numpy()
+                atol = ATOL * max(1.0, float(np.abs(want).max()))
+                if not np.allclose(got[what][idx], want, rtol=RTOL, atol=atol):
+                    fail(f"Predictor emb=F={w} {what} bucket {b}: kernel path"
+                         f" vs plain path, max_abs_err "
+                         f"{np.abs(got[what][idx] - want).max():.3e}")
+        print(f"widths serve parity emb=F={w}: buckets {list(buckets)} agree "
+              "with the plain path (default and max_neighbors=32)")
+    return counts
+
+
+def widen_cases(dev, cases, w):
+    """Phase 5's kernel inputs with x, h0 and the cotangents projected to
+    width ``w`` by a seeded matrix (scaled to keep their magnitude); the
+    pair grids as they are."""
+    import torch
+
+    proj = torch.randn(128, w, generator=torch.Generator().manual_seed(
+        SEED + w)).to(dev) / 128 ** 0.5
+    out = {}
+    for key, case in cases.items():
+        if isinstance(case, int):
+            out[key] = case
+            continue
+        d, e, *feats = case
+        out[key] = (d, e, *((t @ proj).contiguous() for t in feats))
+    return out
+
+
+def widths_ncsn(dev, errs, w, cfg, batch, tag):
+    """#6/#7 at head width ``w`` on the DDM batch of bucket 128 (a seeded DDM
+    at the width), against their plain versions (recorded under
+    ``ncsn_score_*<tag>``), two launches bitwise equal; the kernel table's
+    rows, bounds counted at the user's width."""
+    import ctypes
+
+    import torch
+
+    from geossl_tpu_torch.ops import _build
+    from geossl_tpu_torch.ops import ncsn as NS
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    targs = PG.build_parser().parse_args(["--emb_dim", str(w)])
+    ddm = PG.make_ddm(targs, width_cfg(cfg, w),
+                      torch.Generator().manual_seed(SEED)).to(dev)
+    grid, weights, anneal = ncsn_inputs(ddm, batch, targs, SEED)
+    what = f"DDM B=128 N=128 E={w}"
+    g_rows = check_ncsn(errs, grid, weights, anneal, what, chunk=16, tag=tag)
+    again = [NS.ncsn_score_bwd(*grid, g_rows, *weights, anneal=anneal)
+             for _ in range(2)]
+    rows2 = [NS.ncsn_score_fwd(*grid, *weights, anneal=anneal)
+             for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*again)) or \
+            not torch.equal(*rows2):
+        fail(f"ncsn_score{tag}: outputs differ between two launches")
+    lib = "ncsn_score" + ("_e256" if NS.kernel_width(w) == 256 else "")
+    smem = {d: _build.kernel_fn(lib, "ncsn_dir_smem_bytes", [ctypes.c_int],
+                                ctypes.c_size_t)(int(d == "fwd"))
+            for d in ("fwd", "bwd")}
+    E_, H_ = w, w // 2
+    sel_pairs = int((grid[2] != 0).sum())
+    bsz, n = grid[0].shape[:2]
+    head_w = sum(t.numel() for t in weights)
+    fwd_pair = 2 * E_ * H_ + 8 * E_ + 2 * H_ + 10
+    rows = []
+    for name, fn, plain, flops, nbytes, line in (
+            ("ncsn_score_fwd",
+             lambda: NS.ncsn_score_fwd(*grid, *weights, anneal=anneal),
+             lambda: chunked(NS.ncsn_score_loss_reference, grid,
+                             (*weights, anneal), 16),
+             (sel_pairs * 2 * E_ * H_, sel_pairs * (fwd_pair - 2 * E_ * H_)),
+             4 * (3 * grid[0].numel() + grid[4].numel() + bsz + head_w
+                  + bsz * n), 67),
+            ("ncsn_score_bwd",
+             lambda: NS.ncsn_score_bwd(*grid, g_rows, *weights, anneal=anneal),
+             lambda: chunked_sum(
+                 lambda *a: NS.ncsn_score_bwd_reference(*a, anneal=anneal),
+                 (*grid, g_rows), weights, 16, 1),
+             (sel_pairs * 6 * E_ * H_,
+              sel_pairs * (fwd_pair - 2 * E_ * H_ + 12 * E_ + 4 * H_)),
+             4 * (3 * grid[0].numel() + 2 * grid[4].numel() + bsz
+                  + bsz * n + 2 * head_w), 135)):
+        rows.append((name + tag, WIDTH_KERNELS[name][0],
+                     WIDTH_KERNELS[name][1], cuda_time_ms(fn),
+                     cuda_time_ms(plain, reps=3, warmup=1), flops, nbytes,
+                     {"shape": what, "instance_width": NS.kernel_width(w),
+                      "smem_bytes": smem["fwd" if name.endswith("fwd")
+                                         else "bwd"]}))
+    return rows
+
+
+def widths_step_times(dev, cfg, batch):
+    """The device ms of one DDM-SchNet step at bucket 128 (a seeded module,
+    traced after a warm-up) at each width of the phase and at 128."""
+    import torch
+
+    from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    out = {}
+    for w in (*WIDTHS, 128):
+        targs = PG.build_parser().parse_args(["--emb_dim", str(w),
+                                              "--num_filters", str(w)])
+        ddm = PG.make_ddm(targs, width_cfg(cfg, w),
+                          torch.Generator().manual_seed(SEED)).to(dev)
+        opt, sched = common.make_optimizer_from_args(targs, ddm.parameters(),
+                                                     100)
+        gen = torch.Generator(dev).manual_seed(SEED)
+
+        def step():
+            return PG.train_step(ddm, opt, sched, [batch], targs, gen)
+
+        step()
+        torch.cuda.synchronize()
+        _, busy, ours = device_profile(step)
+        out[f"emb=F={w}"] = {"device_ms": busy * 1e3,
+                             "port_kernels_ms": ours * 1e3}
+    return out
+
+
+def widths_refusals():
+    """On the card, the startup refusals above the new limits, each naming
+    its flag: ``pretrain_geossl --emb_dim 320`` (the NCSN head takes up to
+    256), ``pretrain_geossl --num_filters 256 --filter_mxu bf16`` (the bf16
+    CFConv backwards take up to 128) and a PaiNN Predictor at emb_dim 96
+    (PaiNN keeps 128)."""
+    import dataclasses
+
+    from geossl_tpu_torch.config import ModelConfig
+    from geossl_tpu_torch.serve import Predictor
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+    from geossl_tpu_torch.train.common import make_backbone
+
+    said = {}
+    cfg_p = ModelConfig(model_3d="painn")
+    cfg_p = dataclasses.replace(cfg_p, emb_dim=96, painn=dataclasses.replace(
+        cfg_p.painn, n_atom_basis=96))
+    for flag, fn in (
+            ("--emb_dim 320", lambda: PG.main([
+                "--synthetic", "--synthetic_size", "16", "--emb_dim", "320",
+                "--output_model_dir", os.path.join(ROOT, "runs", "refused")])),
+            ("--num_filters 256", lambda: PG.main([
+                "--synthetic", "--synthetic_size", "16", "--emb_dim", "256",
+                "--num_filters", "256", "--filter_mxu", "bf16",
+                "--output_model_dir", os.path.join(ROOT, "runs", "refused")])),
+            ("--emb_dim 96", lambda: Predictor(cfg_p, {
+                "model": make_backbone(cfg_p).state_dict()}))):
+        try:
+            fn()
+        except ValueError as e:
+            if flag not in str(e):
+                fail(f"widths refusal: {e} does not name {flag}")
+            said[flag] = str(e)
+            continue
+        fail(f"widths: {flag} was not refused at startup")
+    return said
+
+
+def widths_path(dev, card, errs, cfg, cutoff, cases, store, buckets, first,
+                layer0_inputs, train_batch):
+    """Phase 7: SchNet and the DDM head at emb = F = 256 and 96. The main
+    paths (their launches are the rows' counts) and one step per width
+    against the plain step, then #1-#7 against their plain versions at
+    each width (timed in f32 at G=51), the step's device ms per width and
+    the startup refusals. Returns the
+    kernel table's width rows, with their launches."""
+    import torch
+
+    from geossl_tpu_torch.ops import cfconv as K
+    from geossl_tpu_torch.ops import _build
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    t0 = time.time()
+    batch = train_batch(128)
+    rows = []
+    for w in WIDTHS:
+        launches = widths_main_path(dev, w, cfg, store, buckets, first,
+                                    layer0_inputs)
+        targs = PG.build_parser().parse_args(["--emb_dim", str(w),
+                                              "--num_filters", str(w)])
+        ddm = PG.make_ddm(targs, width_cfg(cfg, w),
+                          torch.Generator().manual_seed(SEED)).to(dev)
+        step_parity(ddm, batch, targs, 128, f"SchNet emb=F={w}")
+        del ddm
+        wcases, cw = widen_cases(dev, cases, w), width_cfg(cfg, w)
+        gaussians_kernels(dev, errs, 300, wcases, cw, cutoff, False,
+                          tag=f"_f{w}_g300")
+        bf16_kernels(dev, errs, 51, wcases, cw, cutoff, False,
+                     tag=f"_f{w}_bf16")
+        head = head_instance(w)
+        ncsn_tag = head or f"_e{w}"
+        # (row, its launch counter, launches a call)
+        timed = [(r, r[0][:-len(f"_f{w}")], K.launches_per_call(w))
+                 for r in gaussians_kernels(dev, errs, 51, wcases, cw, cutoff,
+                                            True, tag=f"_f{w}")]
+        timed += [(r, r[0][:-len(ncsn_tag)] + head, 1)
+                  for r in widths_ncsn(dev, errs, w, cfg, batch, ncsn_tag)]
+        for (name, src, replaces, ms, plain_ms, flops, nbytes, extra), \
+                counter, per_call in timed:
+            rows.append((name, src, replaces, ms, plain_ms, flops, nbytes,
+                         launches[counter], {**extra, "width": w,
+                                             "launches_per_call": per_call}))
+    steps = widths_step_times(dev, cfg, batch)
+    refusals = widths_refusals()
+    log = _build.build_log("ncsn_score_e256")
+    ptxas = {k: ptxas_usage(log, KERNEL_ENTRIES[f"ncsn_score_{k}_e256"][1])
+             for k in ("fwd", "bwd")}
+    seconds = time.time() - t0
+    print("widths: " + json.dumps({
+        "card": card, "seconds": seconds,
+        "ddm_step_bucket_128": steps,
+        "ncsn_e256_ptxas": ptxas,
+        "refusals": refusals,
+        "rows": {name: {"ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms(flops, nbytes),
+                        "launches": count, **extra}
+                 for name, _, _, ms, plain_ms, flops, nbytes, count, extra
+                 in rows}}))
+    if seconds > WIDTH_BUDGET_S:
+        fail(f"widths: {seconds:.1f} s, above its {WIDTH_BUDGET_S:.0f} s")
+    return rows
+
 
 
 def rel_norm(a, b):
@@ -5779,6 +6180,10 @@ def main():
     kernels += bf16_path(dev, card, errs, cfg, cutoff, gauss_cases, store,
                          buckets, first, layer0_inputs, train_batch,
                          train_buckets)
+
+    # -- 7. any width: #1-#7 at emb = F = 256 and 96 -------------------------------
+    kernels += widths_path(dev, card, errs, cfg, cutoff, gauss_cases, store,
+                           buckets, first, layer0_inputs, train_batch)
 
     from geossl_tpu_torch.utils.flops import bound_basis
 

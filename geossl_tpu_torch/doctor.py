@@ -17,7 +17,8 @@ started against it:
 - native: the C++ host runtime builds and loads (``radius_edges`` smoke);
 - kernels: on the card, one launch of every kernel of ``ops/csrc`` (both
   modes where a source has two; the CFConv kernels also in their bf16
-  instances, counted as ``<kernel>_bf16``) at a tiny shape with real
+  instances, counted as ``<kernel>_bf16``, the NCSN head also in its
+  E = 256 instance, ``<kernel>_e256``) at a tiny shape with real
   geometry, padding and empty tiles, each held to its plain version with
   the tolerances of ``chip_smoke.py`` (the bf16 instances with phase 6's);
   each kernel's launch counter must move.
@@ -330,7 +331,8 @@ def _case(device: torch.device):
     """The tiny batch at full kernel width: SchNet (F=128, G=51, 2 blocks)
     on its symmetric radius graph and on a max_neighbors=8 graph, the same
     at G=100 (the kernels' instances that stream W1, above 64), PaiNN
-    (F=128, R=20, 2 blocks), and an NCSN head (E=128) with seeded draws."""
+    (F=128, R=20, 2 blocks), and an NCSN head (E=128, and E=256 on the same
+    pairs) with seeded draws."""
     from dataclasses import replace
 
     import numpy as np
@@ -393,6 +395,14 @@ def _case(device: torch.device):
     case["g"] = torch.randn((B, N, 128), generator=gen).to(device)
     case["gmu"] = torch.randn((B, N, 3 * 128), generator=gen).to(device)
     case["g_rows"] = torch.randn((B, N), generator=gen).to(device)
+    # the head's kE = 256 instance: the same pairs and draws, a 256-wide head
+    n = case["ncsn"]
+    case["ncsn_e256"] = dict(
+        grid=(*n["grid"][:4],
+              torch.randn((B, N, 256), generator=gen).to(device)),
+        weights=[torch.randn(s, generator=gen).to(device)
+                 / max(1, s[0]) ** 0.5 for s in NS.weight_shapes(256)],
+        anneal=2.0)
     return case
 
 
@@ -508,27 +518,30 @@ def run_kernel_checks(device: torch.device) -> dict:
 
         guarded("schnet_stack", f"{gw}symmetric={sym}", stack_check)
 
-    # the NCSN head, forward and backward
-    n = case["ncsn"]
+    # the NCSN head, forward and backward, in its E = 128 and 256 instances
+    # (the latter counted as <kernel>_e256)
+    for key, tag in (("ncsn", ""), ("ncsn_e256", "_e256")):
+        n = case[key]
 
-    def ncsn_fwd_check():
-        with torch.no_grad():
-            want_rows = NS.ncsn_score_loss_reference(*n["grid"], *n["weights"],
-                                                     n["anneal"])
-            got_rows = NS.ncsn_score_fwd(*n["grid"], *n["weights"],
-                                         anneal=n["anneal"])
-        tally.scaled("ncsn_score_fwd", got_rows, want_rows, "rows")
+        def ncsn_fwd_check(n=n, name="ncsn_score_fwd" + tag):
+            with torch.no_grad():
+                want_rows = NS.ncsn_score_loss_reference(
+                    *n["grid"], *n["weights"], n["anneal"])
+                got_rows = NS.ncsn_score_fwd(*n["grid"], *n["weights"],
+                                             anneal=n["anneal"])
+            tally.scaled(name, got_rows, want_rows, "rows")
 
-    def ncsn_bwd_check():
-        want = NS.ncsn_score_bwd_reference(*n["grid"], case["g_rows"],
-                                           *n["weights"], anneal=n["anneal"])
-        got = NS.ncsn_score_bwd(*n["grid"], case["g_rows"], *n["weights"],
-                                anneal=n["anneal"])
-        tally.norm("ncsn_score_bwd", got[0], want[0], "du")
-        tally.weights("ncsn_score_bwd", got[1:], want[1:], "head")
+        def ncsn_bwd_check(n=n, name="ncsn_score_bwd" + tag):
+            want = NS.ncsn_score_bwd_reference(*n["grid"], case["g_rows"],
+                                               *n["weights"],
+                                               anneal=n["anneal"])
+            got = NS.ncsn_score_bwd(*n["grid"], case["g_rows"], *n["weights"],
+                                    anneal=n["anneal"])
+            tally.norm(name, got[0], want[0], "du")
+            tally.weights(name, got[1:], want[1:], "head")
 
-    guarded("ncsn_score_fwd", "rows", ncsn_fwd_check)
-    guarded("ncsn_score_bwd", "du and weights", ncsn_bwd_check)
+        guarded("ncsn_score_fwd" + tag, "rows", ncsn_fwd_check)
+        guarded("ncsn_score_bwd" + tag, "du and weights", ncsn_bwd_check)
 
     # PaiNN: both message pairs (the symmetric pair on the radius graph's
     # symmetric grids), the stack for inference and for training

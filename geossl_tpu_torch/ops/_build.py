@@ -2,10 +2,12 @@
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library of its own with a plain C interface (no PyTorch headers, so a
-build takes seconds), under ``ops/_build/``, and loaded with ``ctypes``. The
-library's file name carries a hash of the sources and flags, so an edited
-kernel is rebuilt. All sources build at once, one ``nvcc`` each, on first
-use; nothing is built when the package is imported.
+build takes seconds), under ``ops/_build/``, and loaded with ``ctypes``. A
+source may also build into further libraries with a macro set (the NCSN
+head's E = 256 instance, ``ncsn_score_e256``). The library's file name
+carries a hash of the sources and flags, so an edited kernel is rebuilt.
+All libraries build at once, one ``nvcc`` each, on first use; nothing is
+built when the package is imported.
 """
 
 from __future__ import annotations
@@ -19,8 +21,11 @@ import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-SOURCES = ("cfconv_fwd", "cfconv_bwd", "ncsn_score", "schnet_stack",
-           "painn_fwd", "painn_bwd", "painn_stack")
+# library -> (its csrc/ source, the nvcc flags it adds)
+SOURCES = {name: (name, ()) for name in (
+    "cfconv_fwd", "cfconv_bwd", "ncsn_score", "schnet_stack", "painn_fwd",
+    "painn_bwd", "painn_stack")}
+SOURCES["ncsn_score_e256"] = ("ncsn_score", ("-DNCSN_E=256",))
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,7 +44,8 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+    h = hashlib.sha256((" ".join(FLAGS) + repr(sorted(SOURCES.items())))
+                       .encode())
     for name in sorted(os.listdir(CSRC)):
         h.update(name.encode())
         with open(os.path.join(CSRC, name), "rb") as f:
@@ -58,12 +64,12 @@ def build_all() -> dict:
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = {}
-    for name in SOURCES:
+    for name, (src, extra) in SOURCES.items():
         out = lib_path(name)
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+        cmd = [nvcc, *FLAGS, *extra, "-o", tmp, os.path.join(CSRC, src + ".cu")]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out)

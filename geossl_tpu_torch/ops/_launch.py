@@ -3,8 +3,9 @@ kernel or plain version, the ctypes argument helpers, the launch-error and
 shared-memory checks, and the launch counters.
 
 Each wrapper is registered with :func:`counted`, which gives it a
-``launches`` attribute; the wrapper adds one where it launches its kernel,
-and nowhere else. :func:`launch_counts` reads every registered wrapper.
+``launches`` attribute; the wrapper, or the launch code it calls, adds one
+where it launches its kernel, and nowhere else. :func:`launch_counts` reads
+every registered wrapper.
 
 Every kernel launch is also a ``torch.library`` custom op in the
 ``geossl_torch`` namespace (:data:`OPS`), so that ``torch.export`` can
@@ -43,6 +44,11 @@ def counted(name: str):
         _WRAPPERS[name] = fn
         return fn
     return register
+
+
+def counter(name: str):
+    """The launch counter registered under ``name``."""
+    return _WRAPPERS[name]
 
 
 def instance_counter(name: str):
@@ -151,6 +157,11 @@ def refuse_second_order(name: str) -> None:
 
 def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def ptr_or_null(t):
+    """:func:`ptr`, or a null pointer for None (an optional buffer)."""
+    return None if t is None else ptr(t)
 
 
 def stream(t):

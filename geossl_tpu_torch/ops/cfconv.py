@@ -4,8 +4,9 @@ the dispatcher (counterpart of ``geossl_tpu/ops/cfconv_pallas.py``).
 Each wrapper takes the plain PyTorch version for tensors on the CPU and
 launches its hand-written CUDA kernel (``csrc/``) for tensors on a CUDA
 device; anything else raises. There is no fallback from a kernel to the
-plain version. Each wrapper counts its launches in ``<wrapper>.launches``
-(``ops/_launch.py``).
+plain version. Each wrapper counts its kernel's launches in
+``<wrapper>.launches`` (``ops/_launch.py``), one as each launch returns
+(a call above ``KERNEL_F`` makes several: Widths, below).
 
 Kernels:
 
@@ -48,6 +49,22 @@ SchNet's dispatcher takes the symmetric pair whenever dist/env are
 symmetric, at every N (the card's measurement); PaiNN's takes its
 symmetric pair from N=256 (``ops/painn.sym_profitable``).
 
+Widths. The kernels' register tiling is written for F = ``KERNEL_F`` =
+128 filters. A narrower filter is zero-padded to 128 inside the launch
+functions (exact: a padded hidden unit's ssp(0) meets zero rows of W2, and a
+padded output column is zero); a wider one runs as column blocks
+(:func:`filter_blocks_fwd`, :func:`filter_blocks_bwd`): the output is
+linear in the filter and the filter is a sum over W2's row blocks, so k =
+ceil(F / 128) blocks of 128 make k^2 launches of the 128-wide kernels, one
+per (hidden block i, output block o), summed exactly (within f32 rounding
+of one full-width sum), k^2 counted launches per call. The bf16
+backward takes F <= 128 only: a column block would round its own partial
+dh to bf16 where the JAX kernel rounds their sum. The stack
+pads up to 128 and refuses wider F (serving routes such a model through the
+per-block kernels). The padding and the blocks stay inside the launch
+functions, so the autograd Functions, the ops' fake implementations and
+sealed programs keep the user's width.
+
 Each launch is also a custom op (``ops/_launch.kernel_op``):
 ``geossl_torch::cfconv_fwd`` (both forward modes), ``cfconv_bwd`` (both
 backward modes; the weight gradients as one flat tensor), each with its
@@ -72,6 +89,7 @@ from geossl_tpu_torch.ops._launch import (
     check_launch,
     check_smem,
     counted,
+    counter,
     flat,
     fresh_thread,
     instance_counter,
@@ -79,16 +97,18 @@ from geossl_tpu_torch.ops._launch import (
     launch,
     on_cpu,
     ptr,
+    ptr_or_null,
     refuse_grad,
     stream,
 )
 
 # Largest N the whole-stack kernel accepts (as cfconv_pallas.STACK_MAX_N).
 STACK_MAX_N = 128
-# Feature width the kernels' register tiling is written for. The Gaussian
-# count G is free: up to SMALL_G each kernel keeps W1 and the RBF tile in
-# shared memory, above it streams W1 in chunks of 32 rows
-# (csrc/filter_mma.cuh, csrc/cfconv_bwd.cu), in the same shared memory.
+# Filter width the kernels' register tiling is written for: F below it is
+# zero-padded to it, F above it runs in column blocks of it (read at call
+# time). The Gaussian count G is free: up to SMALL_G each kernel keeps W1
+# and the RBF tile in shared memory, above it streams W1 in chunks of 32
+# rows (csrc/filter_mma.cuh, csrc/cfconv_bwd.cu), in the same shared memory.
 KERNEL_F = 128
 SMALL_G = 64
 # Side of the kernels' square pair tiles.
@@ -101,9 +121,10 @@ BF16_LAUNCHES = {name: instance_counter(f"{name}_bf16") for name in (
     "cfconv_fwd", "cfconv_bwd", "cfconv_fwd_sym", "cfconv_bwd_sym")}
 
 
-def _count(wrapper, name, mxu):
-    """One launch of ``wrapper``'s kernel in the ``mxu`` instance."""
-    (BF16_LAUNCHES[name] if mxu == "bf16" else wrapper).launches += 1
+def _count(name, mxu):
+    """One launch of kernel ``name`` in the ``mxu`` instance: the wrapper's
+    count, or its bf16 instance's."""
+    (BF16_LAUNCHES[name] if mxu == "bf16" else counter(name)).launches += 1
 
 
 def plain_precision() -> None:
@@ -121,6 +142,108 @@ def sparse_auto(n: int, sparse) -> bool:
     if isinstance(sparse, bool):
         return sparse
     raise ValueError(f"sparse must be 'auto' or a bool; got {sparse!r}")
+
+
+def filter_blocks(f: int) -> int:
+    """Column blocks of ``KERNEL_F`` a filter of width ``f`` runs in."""
+    return -(-f // KERNEL_F)
+
+
+def launches_per_call(f: int) -> int:
+    """Kernel launches one CFConv call at filter width ``f`` makes: one up
+    to ``KERNEL_F`` (padded), k^2 for k column blocks above it."""
+    return filter_blocks(f) ** 2
+
+
+def _pad_filter(x, w1, b1, w2, b2, width):
+    """x [..., F], W1 [G,F], b1, W2 [F,F], b2 zero-padded to F = width."""
+    d = width - x.shape[-1]
+    pad = torch.nn.functional.pad
+    return (pad(x, (0, d)), pad(w1, (0, d)), pad(b1, (0, d)),
+            pad(w2, (0, d, 0, d)), pad(b2, (0, d)))
+
+
+def _blocks(f):
+    """(k, the padded width, the k column slices of KERNEL_F)."""
+    k = filter_blocks(f)
+    return k, k * KERNEL_F, [slice(o * KERNEL_F, (o + 1) * KERNEL_F)
+                             for o in range(k)]
+
+
+def _block_args(x, w1, b1, w2, b2, i, o, sl):
+    """The inputs of block pair (hidden block i, output block o): x[:, o],
+    W1[:, i], b1[i], W2[i, o], and b2[o] in the i = 0 call only (zero in the
+    others, so that the k calls of column block o add it once)."""
+    bias = b2[sl[o]] if i == 0 else torch.zeros_like(b2[sl[o]])
+    return (x[..., sl[o]].contiguous(), w1[:, sl[i]].contiguous(),
+            b1[sl[i]].contiguous(), w2[sl[i], sl[o]].contiguous(),
+            bias.contiguous())
+
+
+def filter_blocks_fwd(call, x, w1, b1, w2, b2):
+    """The CFConv forward at any filter width through ``call(x, w1, b1, w2,
+    b2)``, a ``KERNEL_F``-wide forward: F = KERNEL_F passes straight
+    through (no copy); F below is zero-padded to it; above, for k column
+    blocks, m[:, o] = sum over i (in order) of the call of block pair (i,
+    o) (:func:`_block_args`), k^2 calls. Returns m at width F."""
+    f = x.shape[-1]
+    if f == KERNEL_F:
+        return call(x, w1, b1, w2, b2)
+    k, width, sl = _blocks(f)
+    x, w1, b1, w2, b2 = _pad_filter(x, w1, b1, w2, b2, width)
+    if k == 1:
+        return call(x, w1, b1, w2, b2)[..., :f].contiguous()
+    cols = []
+    for o in range(k):
+        m = None
+        for i in range(k):
+            part = call(*_block_args(x, w1, b1, w2, b2, i, o, sl))
+            m = part if m is None else m + part
+        cols.append(m)
+    return torch.cat(cols, dim=-1)[..., :f].contiguous()
+
+
+def filter_blocks_bwd(call, x, g, w1, b1, w2, b2):
+    """The CFConv backward at any filter width through ``call(x, g, w1, b1,
+    w2, b2)``, a ``KERNEL_F``-wide backward returning (ddist, denv, dx,
+    dW1, db1, dW2, db2); padded or in column blocks as
+    :func:`filter_blocks_fwd` (g sliced with x). Over the k^2 calls: dx[:,
+    o] = sum over i, dW1[:, i] and db1[i] = sum over o, dW2[i, o] as it
+    comes, ddist and denv = sum over all, db2[o] from the i = 0 call only
+    (every call of column block o returns the same db2, whatever its b2)."""
+    f = x.shape[-1]
+    if f == KERNEL_F:
+        return call(x, g, w1, b1, w2, b2)
+    k, width, sl = _blocks(f)
+    x, w1, b1, w2, b2 = _pad_filter(x, w1, b1, w2, b2, width)
+    g = torch.nn.functional.pad(g, (0, width - f))
+    if k == 1:
+        ddist, denv, dx, dw1, db1, dw2, db2 = call(x, g, w1, b1, w2, b2)
+        return (ddist, denv, dx[..., :f].contiguous(), dw1[:, :f],
+                db1[:f], dw2[:f, :f], db2[:f])
+    ddist = denv = None
+    dx, db2 = [None] * k, [None] * k
+    dw1, db1 = [None] * k, [None] * k
+    dw2 = [[None] * k for _ in range(k)]
+
+    def add(a, b):
+        return b if a is None else a + b
+
+    for o in range(k):
+        for i in range(k):
+            xo, w1i, b1i, w2io, b2o = _block_args(x, w1, b1, w2, b2, i, o, sl)
+            dd, de, dxo, dw1i, db1i, dw2io, db2o = call(
+                xo, g[..., sl[o]].contiguous(), w1i, b1i, w2io, b2o)
+            ddist, denv = add(ddist, dd), add(denv, de)
+            dx[o] = add(dx[o], dxo)
+            dw1[i], db1[i] = add(dw1[i], dw1i), add(db1[i], db1i)
+            dw2[i][o] = dw2io
+            if i == 0:
+                db2[o] = db2o
+    return (ddist, denv, torch.cat(dx, -1)[..., :f].contiguous(),
+            torch.cat(dw1, -1)[:, :f], torch.cat(db1)[:f],
+            torch.cat([torch.cat(row, -1) for row in dw2])[:f, :f],
+            torch.cat(db2)[:f])
 
 
 # -- plain versions -----------------------------------------------------------
@@ -299,17 +422,14 @@ def _rbf_table(start, stop, num_g, device):
     return torch.cat([offset, coeff.reshape(1)])
 
 
-def _ptr_or_null(t):
-    return None if t is None else ptr(t)
-
-
 def _check_filter_shapes(name, dist, env, x, w1, b1, w2, b2, num_g):
+    """Any F >= 1 (padded, or in column blocks of KERNEL_F)."""
     b, _, nj = dist.shape
     f = x.shape[-1]
-    if f != KERNEL_F or w1.shape != (num_g, f) or w2.shape != (f, f) \
+    if f < 1 or w1.shape != (num_g, f) or w2.shape != (f, f) \
             or b1.shape != (f,) or b2.shape != (f,):
         raise ValueError(
-            f"{name}: kernel takes F={KERNEL_F}, W1 [G,F], W2 [F,F]; got "
+            f"{name}: kernel takes W1 [G,F], W2 [F,F], b1, b2 [F]; got "
             f"x {tuple(x.shape)}, W1 {tuple(w1.shape)}, W2 {tuple(w2.shape)}")
     if env.shape != dist.shape or x.shape != (b, nj, f):
         raise ValueError(f"{name}: shapes dist {tuple(dist.shape)}, env "
@@ -332,13 +452,30 @@ def _launch_cfconv(dist: Tensor, env: Tensor, x: Tensor, w1: Tensor,
                    b1: Tensor, w2: Tensor, b2: Tensor, start: float,
                    stop: float, num_g: int, symmetric: bool,
                    sparse: bool, mxu: str = "f32") -> Tensor:
-    b, ni, nj = dist.shape
-    f = x.shape[-1]
+    """The forward at any F: :func:`filter_blocks_fwd` over
+    :func:`_cfconv_fwd_kernel`, each launch counted as it returns."""
+    ni, nj = dist.shape[1:]
     _check_filter_shapes("cfconv_fwd", dist, env, x, w1, b1, w2, b2, num_g)
     check_mxu(mxu)
     if symmetric and ni != nj:
         raise ValueError("cfconv_fwd: the symmetric mode needs a square grid; "
                          f"got dist {tuple(dist.shape)}")
+    name = "cfconv_fwd_sym" if symmetric else "cfconv_fwd"
+
+    def call(*xw):
+        out = _cfconv_fwd_kernel(dist, env, *xw, start, stop, num_g,
+                                 symmetric, sparse, mxu)
+        _count(name, mxu)
+        return out
+
+    return filter_blocks_fwd(call, x, w1, b1, w2, b2)
+
+
+def _cfconv_fwd_kernel(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                       symmetric, sparse, mxu):
+    """One launch of csrc/cfconv_fwd.cu at F = KERNEL_F."""
+    b, ni, nj = dist.shape
+    f = x.shape[-1]
     smem = _build.kernel_fn("cfconv_fwd", "cfconv_fwd_smem_bytes",
                             [ctypes.c_int], ctypes.c_size_t)(int(symmetric))
     check_smem("cfconv_fwd", smem)
@@ -357,7 +494,7 @@ def _launch_cfconv(dist: Tensor, env: Tensor, x: Tensor, w1: Tensor,
     ws = torch.empty(ws_ints, dtype=torch.int32, device=dist.device)
     s0, delta, coeff = _rbf_consts(start, stop, num_g)
     tab = _rbf_table(start, stop, num_g, dist.device)
-    err = fn(*map(ptr, (dist, env, x, w1)), _ptr_or_null(tab),
+    err = fn(*map(ptr, (dist, env, x, w1)), ptr_or_null(tab),
              *map(ptr, (b1, w2, b2, out, ws)), b, ni, nj, f, num_g, s0, delta,
              coeff, int(symmetric), int(sparse), int(mxu == "bf16"),
              stream(dist))
@@ -471,10 +608,8 @@ def cfconv_fused(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
     if on_cpu("cfconv_fwd", dist, env, x, w1, b1, w2, b2):
         return cfconv_plain(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
                             mxu)
-    out = _CFConv.apply(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
-                        False, sparse, mxu, False)
-    _count(cfconv_fused, "cfconv_fwd", mxu)
-    return out
+    return _CFConv.apply(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                         False, sparse, mxu, False)
 
 
 def _cfconv_bwd_fake(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
@@ -505,7 +640,9 @@ def _launch_cfconv_bwd(dist: Tensor, env: Tensor, x: Tensor, g: Tensor,
                        start: float, stop: float, num_g: int, symmetric: bool,
                        sparse: bool,
                        mxu: str = "f32") -> tuple[Tensor, Tensor, Tensor, Tensor]:
-    """(ddist, denv, dx, the flat weight gradient dW1|db1|dW2|db2)."""
+    """(ddist, denv, dx, the flat weight gradient dW1|db1|dW2|db2), at any
+    F: :func:`filter_blocks_bwd` over :func:`_cfconv_bwd_kernel`, each
+    launch counted as it returns."""
     name = "cfconv_bwd_sym" if symmetric else "cfconv_bwd"
     b, ni, nj = dist.shape
     f = x.shape[-1]
@@ -516,6 +653,34 @@ def _launch_cfconv_bwd(dist: Tensor, env: Tensor, x: Tensor, g: Tensor,
                          f"{tuple(g.shape)}")
     if symmetric and ni != nj:
         raise ValueError(f"{name}: the symmetric mode needs a square grid")
+    if mxu == "bf16" and f > KERNEL_F:
+        raise ValueError(f"{name}: the bf16 backward takes F <= {KERNEL_F}; "
+                         f"got F={f} (column blocks would round each block's "
+                         "partial dh to bf16 where the JAX kernel rounds "
+                         "their sum)")
+    if f == KERNEL_F:
+        out = _cfconv_bwd_kernel(dist, env, x, g, w1, b1, w2, b2, start,
+                                 stop, num_g, symmetric, sparse, mxu)
+        _count(name, mxu)
+        return out
+
+    def call(*xw):
+        *out, wgrad = _cfconv_bwd_kernel(dist, env, *xw, start, stop, num_g,
+                                         symmetric, sparse, mxu)
+        _count(name, mxu)
+        return (*out, *_split_wgrad(wgrad, num_g, KERNEL_F))
+
+    ddist, denv, dx, *wgrads = filter_blocks_bwd(call, x, g, w1, b1, w2, b2)
+    return ddist, denv, dx, flat(wgrads)
+
+
+def _cfconv_bwd_kernel(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
+                       symmetric, sparse, mxu):
+    """One launch of csrc/cfconv_bwd.cu at F = KERNEL_F: (ddist, denv, dx,
+    the flat weight gradient)."""
+    name = "cfconv_bwd_sym" if symmetric else "cfconv_bwd"
+    b, ni, nj = dist.shape
+    f = x.shape[-1]
     smem = _build.kernel_fn("cfconv_bwd", "cfconv_bwd_smem_bytes",
                             [ctypes.c_int], ctypes.c_size_t)(ni)
     check_smem(name, smem)
@@ -539,7 +704,7 @@ def _launch_cfconv_bwd(dist: Tensor, env: Tensor, x: Tensor, g: Tensor,
     ws = torch.empty(ws_ints, dtype=torch.int32, device=dist.device)
     s0, delta, coeff = _rbf_consts(start, stop, num_g)
     tab = _rbf_table(start, stop, num_g, dist.device)
-    err = fn(*map(ptr, (dist, env, x, g, w1)), _ptr_or_null(tab),
+    err = fn(*map(ptr, (dist, env, x, g, w1)), ptr_or_null(tab),
              *map(ptr, (b1, w2, b2, ddist, denv, dx, part, wgrad, ws)),
              b, ni, nj, f, num_g, s0, delta, coeff, int(symmetric),
              int(sparse), int(mxu == "bf16"), stream(dist))
@@ -562,7 +727,6 @@ def cfconv_bwd(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
     *out, wgrad = launch(_launch_cfconv_bwd, dist, env, x, g,
                          w1, b1, w2, b2, float(start), float(stop), num_g,
                          False, bool(sparse), mxu)
-    _count(cfconv_bwd, "cfconv_bwd", mxu)
     return (*out, *_split_wgrad(wgrad, num_g, x.shape[-1]))
 
 
@@ -582,7 +746,6 @@ def cfconv_bwd_sym(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
     *out, wgrad = launch(_launch_cfconv_bwd, dist, env, x, g,
                          w1, b1, w2, b2, float(start), float(stop), num_g,
                          True, bool(sparse), mxu)
-    _count(cfconv_bwd_sym, "cfconv_bwd_sym", mxu)
     return (*out, *_split_wgrad(wgrad, num_g, x.shape[-1]))
 
 
@@ -596,10 +759,8 @@ def cfconv_fused_sym(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
     if on_cpu("cfconv_fwd_sym", dist, env, x, w1, b1, w2, b2):
         return cfconv_plain(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
                             mxu)
-    out = _CFConv.apply(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
-                        True, sparse, mxu, False)
-    _count(cfconv_fused_sym, "cfconv_fwd_sym", mxu)
-    return out
+    return _CFConv.apply(dist, env, x, w1, b1, w2, b2, start, stop, num_g,
+                         True, sparse, mxu, False)
 
 
 def cfconv(dist, env, x, w1, b1, w2, b2, start, stop, num_g, symmetric=False,
@@ -667,17 +828,45 @@ def _schnet_stack_plain(dist, env, h0, stacked, start, stop, num_g,
     return schnet_stack_reference(dist, env, h0, stacked, start, stop, num_g)
 
 
+def pad_stack(h0, stacked, width):
+    """h0 [B,N,F] and the stack's nine weight stacks zero-padded to F =
+    width: h's padded columns stay zero through every block (lin's zero rows
+    and columns; a padded unit's ssp(0) meets zero rows of W2 and of wb).
+    Nothing is copied at F = width."""
+    f = h0.shape[-1]
+    if f == width:
+        return h0, list(stacked)
+    d = width - f
+    pad = torch.nn.functional.pad
+    wl1, w1, b1, w2, b2, wa, ba, wb, bb = stacked
+    sq = lambda w: pad(w, (0, d, 0, d))  # noqa: E731
+    return pad(h0, (0, d)), [sq(wl1), pad(w1, (0, d)), pad(b1, (0, d)),
+                             sq(w2), pad(b2, (0, d)), sq(wa), pad(ba, (0, d)),
+                             sq(wb), pad(bb, (0, d))]
+
+
 @kernel_op("schnet_stack", _schnet_stack_fake, _schnet_stack_plain)
 def _launch_schnet_stack(dist: Tensor, env: Tensor, h0: Tensor,
                          stacked: Sequence[Tensor], start: float, stop: float,
                          num_g: int, symmetric: bool) -> Tensor:
+    """The stack at F <= KERNEL_F, zero-padded to it (:func:`pad_stack`)."""
+    f = h0.shape[-1]
+    n_layers = stacked[0].shape[0]
+    if not 1 <= f <= KERNEL_F or stacked[1].shape != (n_layers, num_g, f):
+        raise ValueError(f"schnet_stack: kernel takes F <= {KERNEL_F} and W1 "
+                         f"[L,G,F]; got h0 {tuple(h0.shape)}, W1 "
+                         f"{tuple(stacked[1].shape)}")
+    out = _schnet_stack_kernel(dist, env, *pad_stack(h0, stacked, KERNEL_F),
+                               start, stop, num_g, symmetric)
+    return out if f == KERNEL_F else out[..., :f].contiguous()
+
+
+def _schnet_stack_kernel(dist, env, h0, stacked, start, stop, num_g,
+                         symmetric):
+    """One launch of csrc/schnet_stack.cu at F = KERNEL_F."""
     b, n, _ = dist.shape
     f = h0.shape[-1]
     n_layers = stacked[0].shape[0]
-    if f != KERNEL_F or stacked[1].shape != (n_layers, num_g, f):
-        raise ValueError(f"schnet_stack: kernel takes F={KERNEL_F} and W1 "
-                         f"[L,G,F]; got h0 {tuple(h0.shape)}, W1 "
-                         f"{tuple(stacked[1].shape)}")
     smem = _build.kernel_fn("schnet_stack", "schnet_stack_smem_bytes",
                             [ctypes.c_int], ctypes.c_size_t)(n)
     check_smem("schnet_stack", smem)
@@ -694,7 +883,7 @@ def _launch_schnet_stack(dist: Tensor, env: Tensor, h0: Tensor,
     s0, delta, coeff = _rbf_consts(start, stop, num_g)
     tab = _rbf_table(start, stop, num_g, dist.device)
     wl1, w1, *rest = stacked
-    err = fn(*map(ptr, (dist, env, h0, wl1, w1)), _ptr_or_null(tab),
+    err = fn(*map(ptr, (dist, env, h0, wl1, w1)), ptr_or_null(tab),
              *map(ptr, (*rest, out, xbuf, mbuf, ws)), b, n, f, num_g,
              n_layers, s0, delta, coeff, int(symmetric), stream(dist))
     check_launch("schnet_stack", err)

@@ -66,15 +66,40 @@
 //   the j sides in order of the row tile that holds them;
 // - weight gradients: per-block partials in a fixed order, summed in block
 //   order by a last launch.
+//
+// Widths. The source builds once per head width, NCSN_E = 128 (the default)
+// or 256, into a library of its own (ops/_build.py); a narrower head is
+// zero-padded to the instance's width by the wrapper (ops/ncsn.py), which is
+// exact: every padded unit is relu(0) = 0 and meets zero weights. Both
+// instances walk the same tile list with the same warps, the same fixed
+// orders and the same 3xTF32 products; the 256 instance gives each warp
+// twice the columns (loops over 128-wide column groups, kC). Its W2 hi/lo
+// parts (2 kE kH floats, 256 KiB) do not fit in a block's 227 KiB beside the
+// tiles, so ncsn_split_w2_kernel splits W2 once per launch into a device
+// buffer (row-major and transposed, swizzled) that the products read
+// through L2 (warp_tile_mma's scalar B loads), and its dW2 (32k floats, 128
+// a thread) is summed over a run in the block's own row of the partials
+// buffer, each thread adding its elements tile by tile, instead of in
+// registers. Shared memory: 175,632 bytes forward (one block's l1 pair
+// buffers at 128 KiB dominate), 143,184 backward.
 #include "mma_tf32.cuh"
 #include "pair_tile.cuh"
 #include "reduce.cuh"
 #include "worklist.cuh"
 
+#ifndef NCSN_E
+#define NCSN_E 128
+#endif
+
 namespace geossl {
 
-constexpr int kE = 128;        // head width (emb)
+constexpr int kE = NCSN_E;     // head width (emb)
 constexpr int kH = kE / 2;     // second layer width
+static_assert(kE == 128 || kE == 256, "ncsn_score builds for E = 128 or 256");
+// the 256 instance: W2 read from device memory, dW2 summed in device memory
+constexpr bool kWide = kE > 128;
+constexpr int kC = kE / 128;   // 128-wide column groups of the node rows
+constexpr int kHW = kH / 2;    // pre2's columns per column-half warp
 
 struct HeadWeights {
   const float *wd1, *bd1, *wd2, *bd2, *wod, *bod, *w2, *b2, *w3, *b3;
@@ -88,7 +113,30 @@ constexpr int kOffWd1 = 0, kOffBd1 = kE, kOffWd2 = 2 * kE, kOffBd2 = 3 * kE,
               kWgrad = kOffB3 + 1;
 
 constexpr int kBS = kE + 8;     // row stride of the 8-row u tiles (bank spread)
-constexpr int kW2Lo = kE * kH;  // the backward's offset of W2's low parts in shared memory
+// the offset of W2's low parts from its high parts: in the backward's shared
+// memory, or (kWide) in the split buffer of ncsn_split_w2_kernel
+constexpr int kW2Lo = kE * kH;
+// shared memory that holds W2's parts (none in the 256 instance)
+constexpr int kW2SmemFloats = kWide ? 0 : 2 * kE * kH;
+// floats of the 256 instance's split W2 buffer: [hi][lo] of W2 [kE][kH],
+// then [hi][lo] of W2^T [kH][kE], each swizzled
+constexpr int kW2SplitFloats = kWide ? 4 * kE * kH : 0;
+
+// W2 split into its TF32 parts (split_b) for the 256 instance's products,
+// once per launch: w2s holds W2 [kE][kH] (hi, then lo kW2Lo floats on) and
+// W2^T [kH][kE] (hi, lo) after it, swizzled as warp_tile_mma reads them.
+__global__ void __launch_bounds__(kThreads)
+ncsn_split_w2_kernel(const float* __restrict__ w2, float* __restrict__ w2s) {
+  const int idx = blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= kE * kH) return;
+  const int r = idx / kH, h = idx - r * kH;
+  float hi, lo;
+  split_b(w2[idx], hi, lo);
+  w2s[swz_at(kH, r, h)] = hi;
+  w2s[kW2Lo + swz_at(kH, r, h)] = lo;
+  w2s[2 * kW2Lo + swz_at(kE, h, r)] = hi;
+  w2s[3 * kW2Lo + swz_at(kE, h, r)] = lo;
+}
 
 // -- forward -------------------------------------------------------------------
 
@@ -97,7 +145,7 @@ constexpr int kW2Lo = kE * kH;  // the backward's offset of W2's low parts in sh
 constexpr int kFwdThreads = 384;
 // shared memory of the forward, in floats
 constexpr int kFOffW2 = 0;                             // W2F: W2 in fragment order (below)
-constexpr int kFOffL1 = kFOffW2 + 2 * kE * kH;         // [2][kPairs][kE] swizzled: l1 of two tiles
+constexpr int kFOffL1 = kFOffW2 + kW2SmemFloats;       // [2][kPairs][kE] swizzled: l1 of two tiles
 constexpr int kFOffU = kFOffL1 + 2 * kPairs * kE;      // [2][2][8][kBS] u rows: j tile, i tile
 constexpr int kFOffGrid = kFOffU + 4 * kTile * kBS;    // [4][3][64] dist, noise, sel, [il][jl]
 constexpr int kFOffSig = kFOffGrid + 12 * kPairs;      // [4] sigma of the grid buffers
@@ -111,16 +159,19 @@ constexpr int kFwdFloats = kFOffSr + 4 * kPairs;
 // b0 lo, b1 lo}, b0 = W2[8 ks + t][32 wh + 8 nb + g], b1 four rows below, so
 // that a warp loads a B fragment with one 128-bit load; and the head's
 // vectors (wd1, bd1, wd2, wod, bod [kE]; b2, w3 [kH]). Every thread of the
-// block calls it.
+// block calls it. (The 256 instance stages the vectors only: its product
+// reads W2 from the split buffer.)
 __device__ __forceinline__ void stage_fwd_head(const HeadWeights& W, float* W2F, float* vec) {
   const int tid = threadIdx.x;
-  for (int e = tid; e < kE * kH / 2; e += kFwdThreads) {
-    const int lane = e & 31, nb = (e >> 5) & 3, ks = (e >> 7) & 15, wh = e >> 11;
-    const int k = 8 * ks + (lane & 3), h = 32 * wh + 8 * nb + (lane >> 2);
-    float4 f;
-    split_b(W.w2[k * kH + h], f.x, f.z);
-    split_b(W.w2[(k + 4) * kH + h], f.y, f.w);
-    reinterpret_cast<float4*>(W2F)[e] = f;
+  if constexpr (!kWide) {
+    for (int e = tid; e < kE * kH / 2; e += kFwdThreads) {
+      const int lane = e & 31, nb = (e >> 5) & 3, ks = (e >> 7) & 15, wh = e >> 11;
+      const int k = 8 * ks + (lane & 3), h = 32 * wh + 8 * nb + (lane >> 2);
+      float4 f;
+      split_b(W.w2[k * kH + h], f.x, f.z);
+      split_b(W.w2[(k + 4) * kH + h], f.y, f.w);
+      reinterpret_cast<float4*>(W2F)[e] = f;
+    }
   }
   if (tid < kE) {
     vec[tid] = W.wd1[tid];
@@ -154,9 +205,9 @@ __device__ __forceinline__ void stage_fwd_head(const HeadWeights& W, float* W2F,
 __global__ void __launch_bounds__(kFwdThreads, 1)
 ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
                 const float* __restrict__ sel, const float* __restrict__ sigma,
-                const float* __restrict__ u, HeadWeights W, const int* __restrict__ list,
-                const int* __restrict__ total_p, float* __restrict__ rpart, int n,
-                float anneal) {
+                const float* __restrict__ u, HeadWeights W, const float* __restrict__ w2s,
+                const int* __restrict__ list, const int* __restrict__ total_p,
+                float* __restrict__ rpart, int n, float anneal) {
   extern __shared__ float4 smem_v4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem_v4);
   const float* vec = smem + kFOffVec;
@@ -215,69 +266,86 @@ ncsn_fwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   };
   // warps 8-11: l1 = relu(u_i + u_j + demb w_od + b_od) of the tile whose
   // rows are in row buffer rb and demb in demb buffer db, into l1 buffer lb
+  // (lane: features 4*lane.. of each 128-wide column group)
   auto make_l1 = [&](int rb, int db, int lb) {
-    const int f = 4 * lane;
     const float* uj_t = smem + kFOffU + 2 * rb * kTile * kBS;
     const float* ui_t = uj_t + kTile * kBS;
     float* l1_s = smem + kFOffL1 + lb * kPairs * kE;
-    const float4 wo = ld4(vec + 3 * kE + f), bo = ld4(vec + 4 * kE + f);
 #pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int jl = 2 * (warp - 8) + jj;
-      const float4 bj = ld4(uj_t + jl * kBS + f);
+    for (int cc = 0; cc < kC; ++cc) {
+      const int f = 128 * cc + 4 * lane;
+      const float4 wo = ld4(vec + 3 * kE + f), bo = ld4(vec + 4 * kE + f);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int jl = 2 * (warp - 8) + jj;
+        const float4 bj = ld4(uj_t + jl * kBS + f);
 #pragma unroll 4
-      for (int il = 0; il < kTile; ++il) {
-        const int p = jl * kTile + il;
-        const float4 a = ld4(ui_t + il * kBS + f);
-        const float de = smem[kFOffDemb + db * kPairs + p];
-        *reinterpret_cast<float4*>(l1_s + swz_at(kE, p, f)) =
-            make_float4(fmaxf(a.x + bj.x + fmaf(de, wo.x, bo.x), 0.f),
-                        fmaxf(a.y + bj.y + fmaf(de, wo.y, bo.y), 0.f),
-                        fmaxf(a.z + bj.z + fmaf(de, wo.z, bo.z), 0.f),
-                        fmaxf(a.w + bj.w + fmaf(de, wo.w, bo.w), 0.f));
+        for (int il = 0; il < kTile; ++il) {
+          const int p = jl * kTile + il;
+          const float4 a = ld4(ui_t + il * kBS + f);
+          const float de = smem[kFOffDemb + db * kPairs + p];
+          *reinterpret_cast<float4*>(l1_s + swz_at(kE, p, f)) =
+              make_float4(fmaxf(a.x + bj.x + fmaf(de, wo.x, bo.x), 0.f),
+                          fmaxf(a.y + bj.y + fmaf(de, wo.y, bo.y), 0.f),
+                          fmaxf(a.z + bj.z + fmaf(de, wo.z, bo.z), 0.f),
+                          fmaxf(a.w + bj.w + fmaf(de, wo.w, bo.w), 0.f));
+        }
       }
     }
   };
   // warps 0-7: pre2 of the tile in l1 buffer lb, the score sums into sr
   // buffer sb: warp (wq, wh) = (warp & 3, warp >> 2) owns rows 16*wq.. and
-  // columns 32*wh..; a k step reads the A fragment with ldmatrix and splits
+  // columns kHW*wh..; a k step reads the A fragment with ldmatrix and splits
   // it (mma_tf32.cuh's warp_tile_mma), B's four fragments with one 128-bit
-  // load each
+  // load each (the 256 instance: warp_tile_mma over its two 32-column
+  // groups, B's parts read from the split buffer)
   auto product = [&](int lb, int sb) {
     const int wq = warp & 3, wh = warp >> 2, lr = lane & 7, lq = lane >> 3;
-    const float* A = smem + kFOffL1 + lb * kPairs * kE +
-                     (16 * wq + lr + 8 * (lq & 1)) * kE + 4 * ((lq >> 1) ^ (lr >> 2));
-    const float4* B = reinterpret_cast<const float4*>(smem + kFOffW2) + wh * 16 * 128 + lane;
-    float p2[1][4][4];
+    float p2[kC][1][4][4];
 #pragma unroll
-    for (int nb = 0; nb < 4; ++nb)
+    for (int cc = 0; cc < kC; ++cc)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) p2[0][nb][q] = 0.f;
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) p2[cc][0][nb][q] = 0.f;
+    if constexpr (kWide) {
+      const float* l1_t = smem + kFOffL1 + lb * kPairs * kE;
+#pragma unroll
+      for (int cc = 0; cc < kC; ++cc)
+        warp_tile_mma<1, 4, kE, false, false, false, false, kW2Lo>(p2[cc], l1_t, kE, 16 * wq,
+                                                                   w2s, kH, kHW * wh + 32 * cc);
+    } else {
+      const float* A = smem + kFOffL1 + lb * kPairs * kE +
+                       (16 * wq + lr + 8 * (lq & 1)) * kE + 4 * ((lq >> 1) ^ (lr >> 2));
+      const float4* B = reinterpret_cast<const float4*>(smem + kFOffW2) + wh * 16 * 128 + lane;
 #pragma unroll 2
-    for (int ks = 0; ks < kE / 8; ++ks) {
-      const int k0 = 8 * ks;
-      uint32_t v[4], ah[1][4], al[1][4], bh[4][2], bl[4][2];
-      ldsm_x4(A + (k0 & ~31) + 8 * (((k0 >> 3) & 3) ^ (lr & 3)), v);
+      for (int ks = 0; ks < kE / 8; ++ks) {
+        const int k0 = 8 * ks;
+        uint32_t v[4], ah[1][4], al[1][4], bh[4][2], bl[4][2];
+        ldsm_x4(A + (k0 & ~31) + 8 * (((k0 >> 3) & 3) ^ (lr & 3)), v);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) split_tf32(v[q], ah[0][q], al[0][q]);  // the plain split
+        for (int q = 0; q < 4; ++q) split_tf32(v[q], ah[0][q], al[0][q]);  // the plain split
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-        const float4 f = B[ks * 128 + nb * 32];
-        bh[nb][0] = __float_as_uint(f.x), bh[nb][1] = __float_as_uint(f.y);
-        bl[nb][0] = __float_as_uint(f.z), bl[nb][1] = __float_as_uint(f.w);
+        for (int nb = 0; nb < 4; ++nb) {
+          const float4 f = B[ks * 128 + nb * 32];
+          bh[nb][0] = __float_as_uint(f.x), bh[nb][1] = __float_as_uint(f.y);
+          bl[nb][0] = __float_as_uint(f.z), bl[nb][1] = __float_as_uint(f.w);
+        }
+        mma_passes<1, 4>(p2[0], ah, al, bh, bl);
       }
-      mma_passes<1, 4>(p2, ah, al, bh, bl);
     }
     const float* b2_s = vec + 5 * kE;
     const float* w3_s = b2_s + kH;
     float sr[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nb = 0; nb < 4; ++nb)
+    for (int cc = 0; cc < kC; ++cc)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int h = 32 * wh + 8 * nb + 2 * t + (q & 1);
-        sr[q >> 1] = fmaf(fmaxf(p2[0][nb][q] + b2_s[h], 0.f), w3_s[h], sr[q >> 1]);
-      }
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int h = kHW * wh + 32 * cc + 8 * nb + 2 * t + (q & 1);
+          sr[q >> 1] = fmaf(fmaxf(p2[cc][0][nb][q] + b2_s[h], 0.f), w3_s[h], sr[q >> 1]);
+        }
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const float s = quad_sum(sr[hh]);
@@ -398,7 +466,7 @@ ncsn_rows_kernel(const float* __restrict__ rpart, const int* __restrict__ pre,
 
 // shared memory of the backward, in floats
 constexpr int kBOffW2 = 0;                          // [2][kE][kH] swizzled: W2 split, hi, lo
-constexpr int kBOffL1 = kBOffW2 + 2 * kE * kH;      // [kPairs][kE] swizzled: l1
+constexpr int kBOffL1 = kBOffW2 + kW2SmemFloats;    // [kPairs][kE] swizzled: l1
 constexpr int kBOffDx2 = kBOffL1 + kPairs * kE;     // [kPairs][kH] swizzled: dx2
 constexpr int kBOffU = kBOffDx2 + kPairs * kH;      // [2][2][8][kBS] u rows: j tile, i tile
 constexpr int kBOffGrid = kBOffU + 4 * kTile * kBS; // [2][3][64] dist, noise, sel, [il][jl]
@@ -413,6 +481,8 @@ constexpr int kBwdFloats = kBOffPair + 13 * kPairs;
 // summed over the tile's rows i), the i side of every (block, item) segment
 // of the runs (8 rows i summed over the segment's tiles), in two halves.
 constexpr int kTileRows = kTile * kE;  // floats of one 8-row partial
+// the distance MLP's split over the block: threads per feature, pairs each
+constexpr int kMlpSplit = kThreads / kE, kMlpPairs = kPairs / kMlpSplit;
 
 // Backward of the head, per listed tile of the tile list (worklist.cuh:
 // the tiles where sel is not all zero, in (graph, 8-row i tile) items),
@@ -436,13 +506,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
                 const float* __restrict__ sel, const float* __restrict__ sigma,
                 const float* __restrict__ u, const float* __restrict__ grows,
-                HeadWeights W, const int* __restrict__ list,
+                HeadWeights W, const float* __restrict__ w2s, const int* __restrict__ list,
                 const int* __restrict__ total_p, float* __restrict__ dpart_j,
                 float* __restrict__ dpart_i, float* __restrict__ part, int n,
                 float anneal) {
   extern __shared__ float4 smem_v4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem_v4);
   float* W2_s = smem + kBOffW2;
+  // B of l1 W2: W2's parts in shared memory, or (kWide) the split buffer
+  const float* W2_b = kWide ? w2s : W2_s;
   float* l1_s = smem + kBOffL1;
   float* dx2_s = smem + kBOffDx2;
   float* wd1_s = smem + kBOffVec;
@@ -466,16 +538,18 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   const float bd2 = W.bd2[0], b3 = W.b3[0];
 
   // W2 split once into its TF32 parts: the B operand of l1 W2 and dx2 W2^T
-  for (int c = tid; c < kE * kH / 4; c += kThreads) {
-    const int r = c / (kH / 4), f = (c % (kH / 4)) * 4;
-    const float4 w = *reinterpret_cast<const float4*>(W.w2 + r * kH + f);
-    float4 hi, lo;
-    split_b(w.x, hi.x, lo.x);
-    split_b(w.y, hi.y, lo.y);
-    split_b(w.z, hi.z, lo.z);
-    split_b(w.w, hi.w, lo.w);
-    *reinterpret_cast<float4*>(W2_s + swz_at(kH, r, f)) = hi;
-    *reinterpret_cast<float4*>(W2_s + kW2Lo + swz_at(kH, r, f)) = lo;
+  if constexpr (!kWide) {
+    for (int c = tid; c < kE * kH / 4; c += kThreads) {
+      const int r = c / (kH / 4), f = (c % (kH / 4)) * 4;
+      const float4 w = *reinterpret_cast<const float4*>(W.w2 + r * kH + f);
+      float4 hi, lo;
+      split_b(w.x, hi.x, lo.x);
+      split_b(w.y, hi.y, lo.y);
+      split_b(w.z, hi.z, lo.z);
+      split_b(w.w, hi.w, lo.w);
+      *reinterpret_cast<float4*>(W2_s + swz_at(kH, r, f)) = hi;
+      *reinterpret_cast<float4*>(W2_s + kW2Lo + swz_at(kH, r, f)) = lo;
+    }
   }
   if (tid < kE) {
     wd1_s[tid] = W.wd1[tid];
@@ -491,21 +565,41 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
 
   // this block's share of the weight gradients over its run
   float gw2[2][4][4];  // dW2 rows 32*(warp&3) + 16*mb + 8*h + g, columns 32*(warp>>2) + 8*nb + 2*t + c
-  float gw3[4][2], gb2[4][2];  // columns h = 32*(warp>>2) + 8*nb + 2*t + c
-  float gwod[4][2], gbod[4][2];  // columns e = 32*(warp>>1) + 8*nb + 2*t + c
-  float racc[4][2];  // du rows i (il = g) of the segment, the same columns
-  // feature tid & 127: d w_d2, and d w_d1 and d b_d1 over w_d2
+  float gw3[kC][4][2], gb2[kC][4][2];  // columns h = kHW*(warp>>2) + 32*cc + 8*nb + 2*t + c
+  float gwod[kC][4][2], gbod[kC][4][2];  // columns e = 128*cc + 32*(warp>>1) + 8*nb + 2*t + c
+  float racc[kC][4][2];  // du rows i (il = g) of the segment, the same columns
+  // feature tid % kE: d w_d2, and d w_d1 and d b_d1 over w_d2
   float gwd1 = 0.f, gbd1 = 0.f, gwd2 = 0.f;
   float gb3 = 0.f, gbd2 = 0.f;
 #pragma unroll
   for (int nb = 0; nb < 4; ++nb) {
 #pragma unroll
     for (int c = 0; c < 2; ++c)
-      gw3[nb][c] = gb2[nb][c] = gwod[nb][c] = gbod[nb][c] = racc[nb][c] = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < kC; ++cc)
+        gw3[cc][nb][c] = gb2[cc][nb][c] = gwod[cc][nb][c] = gbod[cc][nb][c] = racc[cc][nb][c] = 0.f;
 #pragma unroll
     for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
       for (int q = 0; q < 4; ++q) gw2[mb][nb][q] = 0.f;
+  }
+  // the 256 instance's dW2 over the run: this block's row of the partials,
+  // warp (wq, wh) owning rows 64*wq.. and columns 64*wh.. in four 32x32
+  // blocks (rb, cb), each element added to by its one thread, tile by tile
+  float* gw2_d = part + (size_t)blockIdx.x * kWgrad + kOffW2;
+  auto gw2_at = [&](int rb, int cb, int mb, int nb, int q) {
+    const int e = 64 * (warp & 3) + 32 * rb + 16 * mb + 8 * (q >> 1) + g;
+    return e * kH + 64 * (warp >> 2) + 32 * cb + 8 * nb + 2 * t + (q & 1);
+  };
+  if constexpr (kWide) {
+#pragma unroll 1
+    for (int rc = 0; rc < 4; ++rc)
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) gw2_d[gw2_at(rc >> 1, rc & 1, mb, nb, q)] = 0.f;
   }
 
   // issues the cp.async loads of listed tile v into buffer buf: dist,
@@ -541,24 +635,26 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   auto flush = [&]() {
     float* dst = dpart_i + ((size_t)(cur + blockIdx.x) * 2 + (warp & 1)) * kTileRows + g * kE;
 #pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
-      *reinterpret_cast<float2*>(dst + 32 * (warp >> 1) + 8 * nb + 2 * t) =
-          make_float2(racc[nb][0], racc[nb][1]);
-      racc[nb][0] = racc[nb][1] = 0.f;
-    }
+    for (int cc = 0; cc < kC; ++cc)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        *reinterpret_cast<float2*>(dst + 128 * cc + 32 * (warp >> 1) + 8 * nb + 2 * t) =
+            make_float2(racc[cc][nb][0], racc[cc][nb][1]);
+        racc[cc][nb][0] = racc[cc][nb][1] = 0.f;
+      }
   };
 
-  // 5. the distance MLP of the tile in buffer pb: feature tid & 127 over
-  // pairs 32*(tid >> 7)..
+  // 5. the distance MLP of the tile in buffer pb: feature tid % kE over
+  // pairs kMlpPairs*(tid / kE)..
   // (d b_d1 and d w_d1 are w_d2 times sum_p [t1 > 0] ddemb (dp); the sums
   // are scaled once, at the end)
   auto dist_mlp = [&](int pb) {
-    const int e = tid & (kE - 1), p0 = 32 * (tid >> 7);
+    const int e = tid & (kE - 1), p0 = kMlpPairs * (tid / kE);
     const float w1e = wd1_s[e], b1e = bd1_s[e];
     const float4* dd_t = reinterpret_cast<const float4*>(dde_s) + pb * kPairs;
     const float* dp_t = dp_s + pb * kPairs;
 #pragma unroll 8
-    for (int p = p0; p < p0 + 32; ++p) {
+    for (int p = p0; p < p0 + kMlpPairs; ++p) {
       const float4 d4 = dd_t[p];
       const float dd = d4.x + d4.y + d4.z + d4.w;
       const float dp = dp_t[p];
@@ -617,8 +713,9 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
       }
     }
     __syncthreads();
-    {  // warp w: pairs p = jl*8 + w (il = w), lane: features 4*lane..
-      const int e = 4 * lane;
+#pragma unroll
+    for (int cc = 0; cc < kC; ++cc) {  // warp w: pairs p = jl*8 + w (il = w), lane: features 4*lane..
+      const int e = 128 * cc + 4 * lane;
       const float4 a = ld4(ui_t + warp * kBS + e), wo = ld4(wod_s + e), bo = ld4(bod_s + e);
 #pragma unroll 4
       for (int jl = 0; jl < kTile; ++jl) {
@@ -636,23 +733,29 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
 
     // 2. pre2 = l1 W2 + b2; the score's partial sums over this warp's columns
     const int wq = warp & 3, wh = warp >> 2;
-    float p2[1][4][4];
+    float p2[kC][1][4][4];
 #pragma unroll
-    for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) p2[0][nb][q] = 0.f;
-    warp_tile_mma<1, 4, kE, false, false, false, true, kW2Lo>(p2, l1_s, kE, 16 * wq, W2_s, kH,
-                                                              32 * wh);
-    {
-      float sr[2] = {0.f, 0.f};
+    for (int cc = 0; cc < kC; ++cc)
 #pragma unroll
       for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int h = 32 * wh + 8 * nb + 2 * t + (q & 1);
-          p2[0][nb][q] += b2_s[h];
-          sr[q >> 1] = fmaf(fmaxf(p2[0][nb][q], 0.f), w3_s[h], sr[q >> 1]);
-        }
+        for (int q = 0; q < 4; ++q) p2[cc][0][nb][q] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < kC; ++cc)
+      warp_tile_mma<1, 4, kE, false, false, false, true, kW2Lo>(p2[cc], l1_s, kE, 16 * wq, W2_b,
+                                                                kH, kHW * wh + 32 * cc);
+    {
+      float sr[2] = {0.f, 0.f};
+#pragma unroll
+      for (int cc = 0; cc < kC; ++cc)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int h = kHW * wh + 32 * cc + 8 * nb + 2 * t + (q & 1);
+            p2[cc][0][nb][q] += b2_s[h];
+            sr[q >> 1] = fmaf(fmaxf(p2[cc][0][nb][q], 0.f), w3_s[h], sr[q >> 1]);
+          }
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const float s = quad_sum(sr[hh]);
@@ -668,25 +771,46 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
       const float ds = r * (wsig * gi_t[p & 7]) * sel_t[at] / sig;
       if (wh == 0 && t == 0) gb3 += ds;
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-        const int h = 32 * wh + 8 * nb + 2 * t;
-        float dx[2];
+      for (int cc = 0; cc < kC; ++cc)
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float pre = p2[0][nb][2 * hh + c];
-          gw3[nb][c] = fmaf(fmaxf(pre, 0.f), ds, gw3[nb][c]);
-          dx[c] = pre > 0.f ? ds * w3_s[h + c] : 0.f;
-          gb2[nb][c] += dx[c];
+        for (int nb = 0; nb < 4; ++nb) {
+          const int h = kHW * wh + 32 * cc + 8 * nb + 2 * t;
+          float dx[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float pre = p2[cc][0][nb][2 * hh + c];
+            gw3[cc][nb][c] = fmaf(fmaxf(pre, 0.f), ds, gw3[cc][nb][c]);
+            dx[c] = pre > 0.f ? ds * w3_s[h + c] : 0.f;
+            gb2[cc][nb][c] += dx[c];
+          }
+          store2(dx2_s, kH, p, h, dx[0], dx[1]);
         }
-        store2(dx2_s, kH, p, h, dx[0], dx[1]);
-      }
     }
     __syncthreads();
 
     // 3. dW2 += l1^T dx2: the tile's product, added to the run's sum in f32
     // (the tensor core's truncating accumulator would drift over a run),
     // then dl1 = dx2 W2^T
-    {
+    if constexpr (kWide) {  // four 32x32 blocks, each added to the row in device memory
+#pragma unroll 1
+      for (int rc = 0; rc < 4; ++rc) {
+        float t3[2][4][4];
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) t3[mb][nb][q] = 0.f;
+        warp_tile_mma<2, 4, kPairs, true, false>(t3, l1_s, kE, 64 * wq + 32 * (rc >> 1), dx2_s,
+                                                 kH, 64 * wh + 32 * (rc & 1));
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) gw2_d[gw2_at(rc >> 1, rc & 1, mb, nb, q)] += t3[mb][nb][q];
+      }
+    } else {
       float t3[2][4][4];
 #pragma unroll
       for (int mb = 0; mb < 2; ++mb)
@@ -703,53 +827,75 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
           for (int q = 0; q < 4; ++q) gw2[mb][nb][q] += t3[mb][nb][q];
     }
     const int wm = warp & 1, wn = warp >> 1;
-    float dl[2][4][4];
+    // ddemb's partial sums over this warp's columns, per (mb, hh)
+    float sde[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
-    for (int mb = 0; mb < 2; ++mb)
+    for (int cc = 0; cc < kC; ++cc) {
+      float dl[2][4][4];
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb)
+      for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) dl[mb][nb][q] = 0.f;
-    warp_tile_mma<2, 4, kH, false, true, false, false, kW2Lo>(dl, dx2_s, kH, 32 * wm, W2_s, kH,
-                                                              32 * wn);
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) dl[mb][nb][q] = 0.f;
+      if constexpr (kWide)  // B = W2^T from the split buffer, scalar loads
+        warp_tile_mma<2, 4, kH, false, false, false, false, kW2Lo>(
+            dl, dx2_s, kH, 32 * wm, w2s + 2 * kW2Lo, kE, 128 * cc + 32 * wn);
+      else
+        warp_tile_mma<2, 4, kH, false, true, false, false, kW2Lo>(dl, dx2_s, kH, 32 * wm, W2_s, kH,
+                                                                  32 * wn);
 
-    // 4. relu'(l1); du's i side (rows il = g), the vector weight gradients,
-    // ddemb's partial sums over this warp's columns; the j side per tile
-    float vj[32];
+      // 4. relu'(l1); du's i side (rows il = g), the vector weight gradients,
+      // ddemb's partial sums over this warp's columns; the j side per tile
+      float vj[32];
 #pragma unroll
-    for (int mb = 0; mb < 2; ++mb)
+      for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int p = 32 * wm + 16 * mb + 8 * hh + g;
-        const float de = demb_s[p];
-        float s = 0.f;
+        for (int hh = 0; hh < 2; ++hh) {
+          const int p = 32 * wm + 16 * mb + 8 * hh + g;
+          const float de = demb_s[p];
+          float s = 0.f;
 #pragma unroll
-        for (int nb = 0; nb < 4; ++nb) {
-          const int e = 32 * wn + 8 * nb + 2 * t;
-          const float2 l1 = load2(l1_s, kE, p, e);
-          const float v0 = l1.x > 0.f ? dl[mb][nb][2 * hh] : 0.f;
-          const float v1 = l1.y > 0.f ? dl[mb][nb][2 * hh + 1] : 0.f;
-          racc[nb][0] += v0;
-          racc[nb][1] += v1;
-          gwod[nb][0] = fmaf(v0, de, gwod[nb][0]);
-          gwod[nb][1] = fmaf(v1, de, gwod[nb][1]);
-          gbod[nb][0] += v0;
-          gbod[nb][1] += v1;
-          s = fmaf(v0, wod_s[e], fmaf(v1, wod_s[e + 1], s));
-          vj[16 * mb + 8 * hh + 2 * nb] = v0;
-          vj[16 * mb + 8 * hh + 2 * nb + 1] = v1;
+          for (int nb = 0; nb < 4; ++nb) {
+            const int e = 128 * cc + 32 * wn + 8 * nb + 2 * t;
+            const float2 l1 = load2(l1_s, kE, p, e);
+            const float v0 = l1.x > 0.f ? dl[mb][nb][2 * hh] : 0.f;
+            const float v1 = l1.y > 0.f ? dl[mb][nb][2 * hh + 1] : 0.f;
+            racc[cc][nb][0] += v0;
+            racc[cc][nb][1] += v1;
+            gwod[cc][nb][0] = fmaf(v0, de, gwod[cc][nb][0]);
+            gwod[cc][nb][1] = fmaf(v1, de, gwod[cc][nb][1]);
+            gbod[cc][nb][0] += v0;
+            gbod[cc][nb][1] += v1;
+            s = fmaf(v0, wod_s[e], fmaf(v1, wod_s[e + 1], s));
+            vj[16 * mb + 8 * hh + 2 * nb] = v0;
+            vj[16 * mb + 8 * hh + 2 * nb + 1] = v1;
+          }
+          if constexpr (kC == 1) {
+            s = quad_sum(s);
+            if (t == 0) dde_s[(buf * kPairs + p) * 4 + wn] = s;
+          } else {
+            sde[mb][hh] = cc == 0 ? s : sde[mb][hh] + s;
+          }
         }
-        s = quad_sum(s);
-        if (t == 0) dde_s[(buf * kPairs + p) * 4 + wn] = s;
-      }
-    rs_lanes<2>(vj);  // summed over the tile's 8 rows i
-    {
-      float* dst = dpart_j + (size_t)k * kTileRows;
+      rs_lanes<2>(vj);  // summed over the tile's 8 rows i
+      {
+        float* dst = dpart_j + (size_t)k * kTileRows + 128 * cc;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int e = 4 * g + q, jl = 4 * wm + (e >> 3);
-        __stcg(dst + jl * kE + 32 * wn + 8 * ((e >> 1) & 3) + 2 * t + (e & 1), vj[q]);
+        for (int q = 0; q < 4; ++q) {
+          const int e = 4 * g + q, jl = 4 * wm + (e >> 3);
+          __stcg(dst + jl * kE + 32 * wn + 8 * ((e >> 1) & 3) + 2 * t + (e & 1), vj[q]);
+        }
       }
+    }
+    if constexpr (kC > 1) {
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float s = quad_sum(sde[mb][hh]);
+          if (t == 0) dde_s[(buf * kPairs + 32 * wm + 16 * mb + 8 * hh + g) * 4 + wn] = s;
+        }
     }
     v = v_next;
   }
@@ -762,7 +908,7 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   // this block's partial weight gradients, each a sum in a fixed order
   __syncthreads();  // the tile scratch is free
   float* out = part + (size_t)blockIdx.x * kWgrad;
-  {
+  if constexpr (!kWide) {  // (the 256 instance's dW2 is in `out` already)
     const int wq = warp & 3, wh = warp >> 2;
 #pragma unroll
     for (int mb = 0; mb < 2; ++mb)
@@ -777,7 +923,8 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   }
   // the vectors: over the 8 lanes of one t, then over the warps in order
   float* red_s = l1_s;  // [4][kH] w3, [4][kH] b2, [2][kE] wod, [2][kE] bod,
-                        // [2][kE] wd1, bd1, wd2; [4] b3; [2] bd2
+                        // [kMlpSplit][kE] (2 kE apart) wd1, bd1, wd2; [4] b3;
+                        // [kMlpSplit] bd2
   float* r_w3 = red_s;
   float* r_b2 = r_w3 + 4 * kH;
   float* r_wod = r_b2 + 4 * kH;
@@ -788,30 +935,32 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   float* r_b3 = r_wd2 + 2 * kE;
   float* r_bd2 = r_b3 + 4;
 #pragma unroll
-  for (int nb = 0; nb < 4; ++nb)
+  for (int cc = 0; cc < kC; ++cc)
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      float a[4] = {gw3[nb][c], gb2[nb][c], gwod[nb][c], gbod[nb][c]};
+    for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
+      for (int c = 0; c < 2; ++c) {
+        float a[4] = {gw3[cc][nb][c], gb2[cc][nb][c], gwod[cc][nb][c], gbod[cc][nb][c]};
 #pragma unroll
-        for (int off = 4; off < 32; off <<= 1) a[q] += __shfl_xor_sync(0xffffffffu, a[q], off);
-      if (g == 0) {
-        const int h = 32 * (warp >> 2) + 8 * nb + 2 * t + c;
-        const int e = 32 * (warp >> 1) + 8 * nb + 2 * t + c;
-        r_w3[(warp & 3) * kH + h] = a[0];
-        r_b2[(warp & 3) * kH + h] = a[1];
-        r_wod[(warp & 1) * kE + e] = a[2];
-        r_bod[(warp & 1) * kE + e] = a[3];
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) a[q] += __shfl_xor_sync(0xffffffffu, a[q], off);
+        if (g == 0) {
+          const int h = kHW * (warp >> 2) + 32 * cc + 8 * nb + 2 * t + c;
+          const int e = 128 * cc + 32 * (warp >> 1) + 8 * nb + 2 * t + c;
+          r_w3[(warp & 3) * kH + h] = a[0];
+          r_b2[(warp & 3) * kH + h] = a[1];
+          r_wod[(warp & 1) * kE + e] = a[2];
+          r_bod[(warp & 1) * kE + e] = a[3];
+        }
       }
-    }
 #pragma unroll
   for (int off = 4; off < 32; off <<= 1) gb3 += __shfl_xor_sync(0xffffffffu, gb3, off);
   if (lane == 0 && warp < 4) r_b3[warp] = gb3;
-  r_wd1[tid] = gwd1 * wd2_s[tid & (kE - 1)];  // [tid >> 7][tid & 127]
+  r_wd1[tid] = gwd1 * wd2_s[tid & (kE - 1)];  // [tid / kE][tid % kE]
   r_bd1[tid] = gbd1 * wd2_s[tid & (kE - 1)];
   r_wd2[tid] = gwd2;
-  if ((tid & (kE - 1)) == 0) r_bd2[tid >> 7] = gbd2;
+  if ((tid & (kE - 1)) == 0) r_bd2[tid / kE] = gbd2;
   __syncthreads();
   if (tid < kH) {
     out[kOffW3 + tid] = r_w3[tid] + r_w3[kH + tid] + r_w3[2 * kH + tid] + r_w3[3 * kH + tid];
@@ -820,13 +969,19 @@ ncsn_bwd_kernel(const float* __restrict__ dist, const float* __restrict__ noise,
   if (tid < kE) {
     out[kOffWod + tid] = r_wod[tid] + r_wod[kE + tid];
     out[kOffBod + tid] = r_bod[tid] + r_bod[kE + tid];
-    out[kOffWd1 + tid] = r_wd1[tid] + r_wd1[kE + tid];
-    out[kOffBd1 + tid] = r_bd1[tid] + r_bd1[kE + tid];
-    out[kOffWd2 + tid] = r_wd2[tid] + r_wd2[kE + tid];
+    if constexpr (kMlpSplit == 2) {
+      out[kOffWd1 + tid] = r_wd1[tid] + r_wd1[kE + tid];
+      out[kOffBd1 + tid] = r_bd1[tid] + r_bd1[kE + tid];
+      out[kOffWd2 + tid] = r_wd2[tid] + r_wd2[kE + tid];
+    } else {
+      out[kOffWd1 + tid] = r_wd1[tid];
+      out[kOffBd1 + tid] = r_bd1[tid];
+      out[kOffWd2 + tid] = r_wd2[tid];
+    }
   }
   if (tid == 0) {
     out[kOffB3] = r_b3[0] + r_b3[1] + r_b3[2] + r_b3[3];
-    out[kOffBd2] = r_bd2[0] + r_bd2[1];
+    out[kOffBd2] = kMlpSplit == 2 ? r_bd2[0] + r_bd2[1] : r_bd2[0];
   }
 }
 
@@ -839,15 +994,20 @@ ncsn_du_kernel(const float* __restrict__ dpart_j, const float* __restrict__ dpar
                const int* __restrict__ pre, const int* __restrict__ pos,
                float* __restrict__ du, int n, int blocks) {
   const int pi = blockIdx.x, b = blockIdx.y, nt = gridDim.x, item = b * nt + pi;
-  const int r = threadIdx.x >> 5, f = (threadIdx.x & 31) * 4;
+  const int r = threadIdx.x >> 5, f = (threadIdx.x & 31) * 4;  // (+ 128 per column group)
   const long long total = pre[gridDim.y * nt];
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 s[kC];
+#pragma unroll
+  for (int cc = 0; cc < kC; ++cc) s[cc] = make_float4(0.f, 0.f, 0.f, 0.f);
   auto add = [&](const float* src) {
-    const float4 v = __ldcg(reinterpret_cast<const float4*>(src + r * kE + f));
-    s.x += v.x;
-    s.y += v.y;
-    s.z += v.z;
-    s.w += v.w;
+#pragma unroll
+    for (int cc = 0; cc < kC; ++cc) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(src + r * kE + 128 * cc + f));
+      s[cc].x += v.x;
+      s[cc].y += v.y;
+      s[cc].z += v.z;
+      s[cc].w += v.w;
+    }
   };
   const int t0 = pre[item], t1 = pre[item + 1];
   if (t1 > t0) {
@@ -865,7 +1025,11 @@ ncsn_du_kernel(const float* __restrict__ dpart_j, const float* __restrict__ dpar
     if (p >= 0) add(dpart_j + (size_t)p * kTileRows);
   }
   const int i = pi * kTile + r;
-  if (i < n) *reinterpret_cast<float4*>(du + ((size_t)b * n + i) * kE + f) = s;
+  if (i < n) {
+#pragma unroll
+    for (int cc = 0; cc < kC; ++cc)
+      *reinterpret_cast<float4*>(du + ((size_t)b * n + i) * kE + 128 * cc + f) = s[cc];
+  }
 }
 
 static HeadWeights head(const float* wd1, const float* bd1, const float* wd2,
@@ -882,7 +1046,14 @@ extern "C" size_t ncsn_smem_bytes() {
   using namespace geossl;
   return sizeof(float) * (size_t)(kFwdFloats > kBwdFloats ? kFwdFloats : kBwdFloats);
 }
+// The forward's and the backward's own shares of it (fwd 1, bwd 0).
+extern "C" size_t ncsn_dir_smem_bytes(int fwd) {
+  return sizeof(float) * (size_t)(fwd ? geossl::kFwdFloats : geossl::kBwdFloats);
+}
 extern "C" int ncsn_wgrad_size() { return geossl::kWgrad; }
+// Floats of the split-W2 buffer either direction takes (0: the 128
+// instance keeps W2 in shared memory and takes none).
+extern "C" size_t ncsn_w2_floats() { return geossl::kW2SplitFloats; }
 // Blocks of either kernel's persistent grid, i.e. rows of the backward's
 // partials buffer.
 extern "C" int ncsn_blocks(int B, int n) {
@@ -909,18 +1080,29 @@ extern "C" size_t ncsn_bwd_dpart_floats(int B, int n) {
   return (items * nt + 2 * (items + (size_t)ncsn_blocks(B, n))) * geossl::kTileRows;
 }
 
+namespace geossl {
+// The 256 instance's W2 split into w2s (ncsn_w2_floats() floats); nothing
+// for the 128 instance.
+static cudaError_t split_w2(const float* w2, float* w2s, cudaStream_t s) {
+  if (!kWide) return cudaSuccess;
+  ncsn_split_w2_kernel<<<(kE * kH + kThreads - 1) / kThreads, kThreads, 0, s>>>(w2, w2s);
+  return cudaGetLastError();
+}
+}  // namespace geossl
+
 // Row sums of the annealed loss, rows [B, n]. `ws` holds ncsn_ws_ints(B, n)
 // ints, `rpart` ncsn_fwd_rpart_floats(B, n) floats (written only where a
-// segment is listed). Returns the cudaError_t of the launches (0 on
-// success). E must be 128. No atomics: the result is the same from run to
-// run on one card.
+// segment is listed), `w2s` ncsn_w2_floats() floats (null when 0). Returns
+// the cudaError_t of the launches (0 on success). E must be the head width
+// this library was built for (NCSN_E). No atomics: the result is the same
+// from run to run on one card.
 extern "C" int ncsn_score_fwd(const float* dist, const float* noise, const float* sel,
                               const float* sigma, const float* u, const float* wd1,
                               const float* bd1, const float* wd2, const float* bd2,
                               const float* wod, const float* bod, const float* w2,
                               const float* b2, const float* w3, const float* b3,
-                              float* rows, float* rpart, int* ws, int B, int n, int E,
-                              float anneal, void* stream) {
+                              float* rows, float* rpart, int* ws, float* w2s, int B, int n,
+                              int E, float anneal, void* stream) {
   using namespace geossl;
   if (E != kE) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)kFwdFloats;
@@ -928,14 +1110,16 @@ extern "C" int ncsn_score_fwd(const float* dist, const float* noise, const float
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = make_tile_list<false>(sel, ws, B, n, n, 1, s);
   if (err != cudaSuccess) return (int)err;
+  err = split_w2(w2, w2s, s);
+  if (err != cudaSuccess) return (int)err;
   const int* pre = ws + (size_t)items * nt + items;
   const int* list = ws + worklist_ints(items, nt);
   err = cudaFuncSetAttribute(ncsn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   ncsn_fwd_kernel<<<blocks, kFwdThreads, smem, s>>>(
-      dist, noise, sel, sigma, u, head(wd1, bd1, wd2, bd2, wod, bod, w2, b2, w3, b3), list,
-      pre + items, rpart, n, anneal);
+      dist, noise, sel, sigma, u, head(wd1, bd1, wd2, bd2, wod, bod, w2, b2, w3, b3), w2s,
+      list, pre + items, rpart, n, anneal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ncsn_rows_kernel<<<(B * n + kThreads - 1) / kThreads, kThreads, 0, s>>>(rpart, pre, rows, B, n,
@@ -947,17 +1131,17 @@ extern "C" int ncsn_score_fwd(const float* dist, const float* noise, const float
 // (ncsn_wgrad_size() floats, in the order of the offsets above). `ws` holds
 // ncsn_ws_ints(B, n) ints, `dpart` ncsn_bwd_dpart_floats(B, n) floats
 // (written only where a tile or segment is listed), `part`
-// ncsn_blocks(B, n) rows of ncsn_wgrad_size() floats. Returns the
-// cudaError_t of the launches. No atomics: the result is the same from run
-// to run on one card.
+// ncsn_blocks(B, n) rows of ncsn_wgrad_size() floats, `w2s`
+// ncsn_w2_floats() floats (null when 0). Returns the cudaError_t of the
+// launches. No atomics: the result is the same from run to run on one card.
 extern "C" int ncsn_score_bwd(const float* dist, const float* noise, const float* sel,
                               const float* sigma, const float* u, const float* grows,
                               const float* wd1, const float* bd1, const float* wd2,
                               const float* bd2, const float* wod, const float* bod,
                               const float* w2, const float* b2, const float* w3,
                               const float* b3, float* du, float* dpart, float* part,
-                              float* wgrad, int* ws, int B, int n, int E, float anneal,
-                              void* stream) {
+                              float* wgrad, int* ws, float* w2s, int B, int n, int E,
+                              float anneal, void* stream) {
   using namespace geossl;
   if (E != kE) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)kBwdFloats;
@@ -970,12 +1154,14 @@ extern "C" int ncsn_score_bwd(const float* dist, const float* noise, const float
   const int* pos = list + (size_t)items * nt;
   float* dpart_j = dpart;
   float* dpart_i = dpart + (size_t)items * nt * kTileRows;
+  err = split_w2(w2, w2s, s);
+  if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(ncsn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   ncsn_bwd_kernel<<<blocks, kThreads, smem, s>>>(
       dist, noise, sel, sigma, u, grows, head(wd1, bd1, wd2, bd2, wod, bod, w2, b2, w3, b3),
-      list, pre + items, dpart_j, dpart_i, part, n, anneal);
+      w2s, list, pre + items, dpart_j, dpart_i, part, n, anneal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ncsn_du_kernel<<<dim3(nt, B), kThreads, 0, s>>>(dpart_j, dpart_i, pre, pos, du, n, blocks);

@@ -91,8 +91,11 @@ from geossl_tpu_torch.ops._launch import (
     refuse_second_order,
     stream,
 )
-from geossl_tpu_torch.ops.cfconv import KERNEL_F, second_order, sparse_auto
+from geossl_tpu_torch.ops.cfconv import second_order, sparse_auto
 
+# Feature width the PaiNN kernels' tiling is written for (csrc/pair_tile.cuh's
+# kF; its filter is 3F wide); the PaiNN kernels take this width only.
+KERNEL_F = 128
 # Largest N the whole-stack kernel accepts (as painn_pallas.STACK_MAX_N).
 STACK_MAX_N = 128
 # PaiNN takes the symmetric kernel pair from this N up (the JAX package's

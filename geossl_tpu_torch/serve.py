@@ -62,6 +62,7 @@ from geossl_tpu_torch.data.bucketing import (
 )
 from geossl_tpu_torch.data.store import MolRecord, MolStore
 from geossl_tpu_torch.models import painn, schnet
+from geossl_tpu_torch.ops import cfconv
 from geossl_tpu_torch.train.common import (
     DualHead,
     check_kernel_limits,
@@ -316,9 +317,11 @@ class Predictor(_Passes):
         else:
             self._stack_apply = schnet.fused_stack_apply
             self._stack_max_n = SCHNET_STACK_MAX_N
-            # the stack kernel keeps h at one width
+            # the stack kernel keeps h at one width, up to its F (above
+            # it, every bucket takes the per-block kernels' column blocks)
             self._stackable = (f32 and cfg.filter_mxu == "f32"
-                               and cfg.schnet.num_filters == cfg.emb_dim)
+                               and cfg.schnet.num_filters == cfg.emb_dim
+                               and cfg.emb_dim <= cfconv.KERNEL_F)
         routes = [self.stack_route(n) for n in self.bucket_sizes]
         check_kernel_limits(cfg, self.device, backward=False,
                             per_block=not all(routes), stack=any(routes))
@@ -403,7 +406,8 @@ class Predictor(_Passes):
 
     def stack_route(self, n: int) -> bool:
         """True when a batch padded to ``n`` atoms goes through the
-        whole-stack kernel (the backbone's ``*_STACK_MAX_N``), False when
+        whole-stack kernel (the backbone's ``*_STACK_MAX_N``; SchNet's
+        stack also needs F <= ``ops/cfconv.KERNEL_F``), False when
         through the per-block kernels."""
         return self._stackable and n <= self._stack_max_n
 

@@ -434,29 +434,33 @@ def kernel_limit_errors(cfg: ModelConfig, *, backward: bool,
         if not ok:
             errors.append(f"--{flag} {value}: {limit}")
 
-    f = cfconv_ops.KERNEL_F
     if cfg.model_3d == "painn":
-        r = cfg.painn.n_rbf
+        f, r = painn_ops.KERNEL_F, cfg.painn.n_rbf
         if per_block or stack:
             need(cfg.emb_dim == f, "emb_dim", cfg.emb_dim,
-                 f"the PaiNN kernels take {f} only (ops/cfconv.KERNEL_F)")
+                 f"the PaiNN kernels take {f} only (ops/painn.KERNEL_F)")
             need(2 <= r <= painn_ops.MAX_R, "painn_n_rbf", r,
                  f"the PaiNN kernels take 2 to {painn_ops.MAX_R} "
                  "(ops/painn.MAX_R)")
     else:
-        # the CFConv kernels take any --num_gaussians
-        s = cfg.schnet
-        if per_block:
-            need(s.num_filters == f, "num_filters", s.num_filters,
-                 f"the CFConv kernels take {f} only (ops/cfconv.KERNEL_F)")
-        # the stack serves only when h keeps one width (num_filters = emb)
-        if stack and s.num_filters == cfg.emb_dim:
-            need(s.num_filters == f, "num_filters", s.num_filters,
-                 f"schnet_stack takes {f} only (ops/cfconv.KERNEL_F)")
+        # the per-block CFConv kernels take any --num_filters (padded to
+        # ops/cfconv.KERNEL_F, or in column blocks of it) and any
+        # --num_gaussians, but their bf16 backwards no column blocks; the
+        # stack pads only
+        f, nf = cfconv_ops.KERNEL_F, cfg.schnet.num_filters
+        bf16 = cfg.filter_mxu == "bf16" or cfg.compute_dtype == "bfloat16"
+        if per_block and backward and bf16:
+            need(nf <= f, "num_filters", nf,
+                 f"the bf16 CFConv backward kernels (--filter_mxu bf16, "
+                 f"--compute_dtype bfloat16) take up to {f} "
+                 "(ops/cfconv.KERNEL_F)")
+        if stack:
+            need(nf <= f, "num_filters", nf,
+                 f"schnet_stack takes up to {f} (ops/cfconv.KERNEL_F)")
     if ncsn:
-        e = ncsn_ops.KERNEL_E
-        need(cfg.emb_dim == e, "emb_dim", cfg.emb_dim,
-             f"the NCSN head kernels take {e} only (ops/ncsn.KERNEL_E)")
+        e = ncsn_ops.MAX_E
+        need(cfg.emb_dim <= e, "emb_dim", cfg.emb_dim,
+             f"the NCSN head kernels take up to {e} (ops/ncsn.MAX_E)")
     return list(dict.fromkeys(errors))
 
 

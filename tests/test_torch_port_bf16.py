@@ -276,8 +276,8 @@ def test_bf16_launches_count_under_their_own_names(monkeypatch):
                 torch.cat([t.reshape(-1) for t in tcf.cfconv_bwd_reference(
                     *a[:11], a[-1])[3:]]))
     monkeypatch.setattr(tcf, "on_cpu", lambda *a: False)
-    monkeypatch.setattr(tcf, "_launch_cfconv", fwd)
-    monkeypatch.setattr(tcf, "_launch_cfconv_bwd", bwd)
+    monkeypatch.setattr(tcf, "_cfconv_fwd_kernel", fwd)
+    monkeypatch.setattr(tcf, "_cfconv_bwd_kernel", bwd)
     d, e, x, w, ct = _pair_case(8, 2)
     ins = [torch.from_numpy(a).requires_grad_(True) for a in (d, e, x, *w)]
     _launch.reset_launch_counts()

@@ -312,7 +312,7 @@ def kernel_stand_ins(monkeypatch):
         monkeypatch.setattr(mod, name, fn)
 
     for mod, fwd, bwd, names in (
-            (tcf, fwd_cf, bwd_cf, ("_launch_cfconv", "_launch_cfconv_bwd")),
+            (tcf, fwd_cf, bwd_cf, ("_cfconv_fwd_kernel", "_cfconv_bwd_kernel")),
             (tpn, fwd_pn, bwd_pn, ("_launch_painn_fwd", "_launch_painn_bwd"))):
         monkeypatch.setattr(mod, "on_cpu", lambda *a: False)
         monkeypatch.setattr(mod, names[0], fwd)

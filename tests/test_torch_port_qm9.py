@@ -559,26 +559,36 @@ def test_serving_packs_partial_chunks_to_multiples_of_8(monkeypatch, model_3d,
                                atol=1e-7)
 
 
-def _cfg(model_3d="schnet", emb=128, filters=128, g=51, r=20, max_nb=None):
+def _cfg(model_3d="schnet", emb=128, filters=128, g=51, r=20, max_nb=None,
+         **kw):
     return ModelConfig(model_3d=model_3d, emb_dim=emb,
                        schnet=SchNetConfig(hidden_channels=emb,
                                            num_filters=filters,
                                            num_gaussians=g),
                        painn=PaiNNConfig(n_atom_basis=emb, n_rbf=r),
-                       max_neighbors=max_nb)
+                       max_neighbors=max_nb, **kw)
 
 
 CUDA = torch.device("cuda")
 
 
 @pytest.mark.parametrize("cfg,routes,flag", [
-    (_cfg(filters=64), dict(backward=True), "--num_filters 64"),
-    (_cfg(emb=64, filters=64), dict(backward=False, stack=True,
-                                    per_block=False), "--num_filters 64"),
+    # SchNet's per-block kernels take any --num_filters; the stack pads up
+    # to 128 and refuses wider
+    (_cfg(emb=192, filters=192), dict(backward=True, stack=True),
+     "--num_filters 192"),
+    (_cfg(emb=256, filters=256), dict(backward=False, stack=True,
+                                      per_block=False), "--num_filters 256"),
     (_cfg("painn", emb=64), dict(backward=True), "--emb_dim 64"),
     (_cfg("painn", r=32), dict(backward=False, stack=True), "--painn_n_rbf 32"),
     (_cfg("painn", r=1), dict(backward=True), "--painn_n_rbf 1"),
-    (_cfg(emb=64), dict(backward=True, ncsn=True), "--emb_dim 64"),
+    # the NCSN head kernels take emb up to 256
+    (_cfg(emb=320), dict(backward=True, ncsn=True), "--emb_dim 320"),
+    # the bf16 CFConv backwards take no column blocks
+    (_cfg(emb=256, filters=256, filter_mxu="bf16"), dict(backward=True),
+     "--num_filters 256"),
+    (_cfg(filters=192, compute_dtype="bfloat16"), dict(backward=True),
+     "--num_filters 192"),
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_kernel_limits_refused_on_cuda_only(cfg, routes, flag):
     """Each refusal names its flag and limit on a CUDA device (nothing is
@@ -602,6 +612,18 @@ def test_kernel_limits_refused_on_cuda_only(cfg, routes, flag):
     (_cfg(g=65, max_nb=32), dict(backward=True)),
     (_cfg(g=193, max_nb=32), dict(backward=False)),
     (_cfg(g=100, max_nb=32), dict(backward=False, stack=True)),
+    # any --num_filters per block (padded to 128, or column blocks of 128),
+    # up to 128 in the stack; the NCSN head up to --emb_dim 256
+    (_cfg(filters=64), dict(backward=True)),
+    (_cfg(filters=96), dict(backward=True, stack=True)),
+    (_cfg(emb=96, filters=96), dict(backward=True, stack=True, ncsn=True)),
+    (_cfg(emb=256, filters=256), dict(backward=True, ncsn=True)),
+    (_cfg(emb=200, filters=300, g=300), dict(backward=True, ncsn=True)),
+    (_cfg(emb=64), dict(backward=True, ncsn=True)),
+    # bf16: forwards at any width, backwards up to 128 (padded)
+    (_cfg(emb=256, filters=256, filter_mxu="bf16"), dict(backward=False)),
+    (_cfg(emb=96, filters=96, compute_dtype="bfloat16"),
+     dict(backward=True, ncsn=True)),
 ])
 def test_kernel_limits_accept_what_the_kernels_run(cfg, routes):
     assert common.kernel_limit_errors(cfg, **routes) == []
@@ -609,11 +631,16 @@ def test_kernel_limits_accept_what_the_kernels_run(cfg, routes):
 
 
 @pytest.mark.parametrize("driver,argv,flag", [
-    (FQ, ["--num_filters", "64"], "--num_filters 64"),
+    # a SchNet driver's per-block kernels take any width: the refusals left
+    # are PaiNN's widths, the NCSN head's above 256 and the bf16 backwards'
+    # above 128
+    (FQ, ["--model_3d", "painn", "--emb_dim", "256"], "--emb_dim 256"),
     (FQ, ["--model_3d", "painn", "--painn_n_rbf", "40"], "--painn_n_rbf 40"),
-    (FL, ["--num_filters", "96"], "--num_filters 96"),
+    (FL, ["--model_3d", "painn", "--emb_dim", "96"], "--emb_dim 96"),
     (FE, ["--emb_dim", "32", "--model_3d", "painn"], "--emb_dim 32"),
-    (PG, ["--emb_dim", "64"], "--emb_dim 64"),
+    (PG, ["--emb_dim", "320"], "--emb_dim 320"),
+    (PG, ["--emb_dim", "256", "--num_filters", "256", "--filter_mxu",
+          "bf16"], "--num_filters 256"),
 ])
 def test_drivers_refuse_kernel_limits_at_startup(monkeypatch, tmp_path, driver,
                                                  argv, flag):

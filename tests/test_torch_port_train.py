@@ -82,20 +82,24 @@ def _step_inputs(pos, mask, step):
 # per backbone: (JAX module, port module, flax tree -> port state_dict,
 # extra x64 context for the JAX side)
 _BACKBONES = {
-    "schnet": (lambda: JSchNet(**S.SMALL), lambda: SchNet(**S.SMALL),
+    "schnet": (lambda **kw: JSchNet(**{**S.SMALL, **kw}),
+               lambda **kw: SchNet(**{**S.SMALL, **kw}),
                schnet_state_dict_from_flax, contextlib.nullcontext),
     "painn": (lambda: JPaiNN(**P.SMALL), lambda: PaiNN(**P.SMALL),
               painn_state_dict_from_flax, P.f64_casts),
 }
 
 
-def ddm_jax_case(model_3d: str, b: int = 3) -> dict:
+def ddm_jax_case(model_3d: str, b: int = 3, emb: int = EMB,
+                 **widths) -> dict:
     """A DDM slice in f64 on both sides: the JAX loss as ``pretrain_geossl``
     builds it, ``jax_loss(params, *batch_arrays, pos2, draws)`` (jitted:
     ``jax_value_and_grad``), its flax trees (``params``), the batch of
     ``b`` graphs of up to 16 atoms (the last an empty slot) as numpy arrays
     (``arrays``: z, pos, mask, graph mask, pair selection) and as the port's
-    batch, and ``port()``, the port's DDM with the same weights."""
+    batch, and ``port()``, the port's DDM with the same weights. ``emb`` is
+    the heads' width; ``widths`` override the backbone's small config
+    (SchNet's hidden_channels, num_filters)."""
     make_jax, make_port, to_port, jax_ctx = _BACKBONES[model_3d]
     painn = model_3d == "painn"
     z, pos, mask = S.molecules(b, 16, seed=21, spread=1.2)
@@ -104,8 +108,8 @@ def ddm_jax_case(model_3d: str, b: int = 3) -> dict:
     gm = mask.any(axis=1)
     n = pos.shape[1]
     sel = mask[:, :, None] & mask[:, None, :] & np.triu(np.ones((n, n), bool), 1)
-    jm = make_jax()
-    head = JNCSNv3(emb_dim=EMB)
+    jm = make_jax(**widths)
+    head = JNCSNv3(emb_dim=emb)
     with S.x64():
         # jitted: eager ops under x64 compile one by one
         k = jax.random.split(jax.random.PRNGKey(3), 3)
@@ -113,7 +117,7 @@ def ddm_jax_case(model_3d: str, b: int = 3) -> dict:
             "model": jax.jit(jm.init)(k[0], jnp.asarray(z),
                                       jnp.asarray(pos, jnp.float32),
                                       jnp.asarray(mask))["params"]}
-        h = jnp.zeros((b, n, EMB))
+        h = jnp.zeros((b, n, emb))
         head_init = jax.jit(head.init)
         for name, key in (("NCSN_01", k[1]), ("NCSN_02", k[2])):
             params[name] = head_init(key, key, h, jnp.ones((b, n, n)),
@@ -140,8 +144,8 @@ def ddm_jax_case(model_3d: str, b: int = 3) -> dict:
         # PaiNN: the JAX loss runs the model's XLA path, whose port is
         # plain=True (the kernels' plain versions use the kernels' RBF
         # coefficient, ~1e-8 apart in f64)
-        ddm = PG.DDM(make_port(), NCSNv3(emb_dim=EMB), NCSNv3(emb_dim=EMB),
-                     plain=painn).double()
+        ddm = PG.DDM(make_port(**widths), NCSNv3(emb_dim=emb),
+                     NCSNv3(emb_dim=emb), plain=painn).double()
         ddm.model.load_state_dict(to_port(params["model"]))
         for name in ("NCSN_01", "NCSN_02"):
             getattr(ddm, name).load_state_dict(
