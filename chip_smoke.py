@@ -441,17 +441,42 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and E=96 on the DDM batch of a seeded DDM at the width (timed:
    ``ncsn_score_*_e256`` / ``_e96``, with the instance's shared bytes);
    ptxas of the kE = 256 instance. (d) The device ms of one DDM step at
-   bucket 128 at widths 256, 96 and 128. (e) The startup refusals above
-   the limits: ``pretrain_geossl --emb_dim 320``, ``pretrain_geossl
-   --emb_dim 256 --num_filters 256 --filter_mxu bf16`` and a PaiNN
-   Predictor at emb_dim 96.
+   bucket 128 at widths 256, 96 and 128. (e) The refusals above the
+   limits: ``pretrain_geossl --emb_dim 320``, ``pretrain_geossl
+   --emb_dim 256 --num_filters 256 --filter_mxu bf16``, ``pretrain_geossl
+   --model_3d painn --painn_n_rbf 1`` and ``models/painn.stack_train_apply``
+   at F = 256, each naming its flag or width.
+
+8. PaiNN at any width and any RBF count (``painn_widths:``, at most 240
+   s). #8-#11 at emb_dim = n_atom_basis = 256 (k = 2 column blocks of
+   128, 2 launches a message call), #8-#12 at 96 (zero-padded into the
+   128 kernels; the stack up to N=128) and at n_rbf 32 and 64 with emb_dim
+   128 (the streamed instances: the filter product in 2 and 3 passes of
+   at most 32 K rows). (a) Per setting, counters reset before and read
+   after: a seeded Predictor serving the store over buckets 32..512 (F =
+   256: the per-block route at every bucket, no stack launch) held to the
+   plain path on 8 molecules per bucket (rtol 1e-4, atol 1e-5 x max), and
+   its forces on two LBA complexes at N=512 (#10/#11) held to the plain
+   forces; k launches per message call. (b) One DDM-PaiNN step at bucket
+   128 per setting against the plain step (2 x 3 x k launches of #8 and
+   #9), and at F = 256 one LBA-PaiNN step at N=512 (#10/#11) against the
+   plain step computed in chunks of 2 complexes. (c) #8-#12 per setting
+   against their plain versions with the F = 128 rows' tolerances (#8/#9
+   on the DDM batch, #10/#11 on the LBA batch, #12 at serving's N=32 and
+   in residual mode on the DDM batch), each a second launch against the
+   first; timed at 256/20, 96/20 and 128/64: the kernel table's rows
+   ``<kernel>_f256`` / ``_f96`` / ``_r64``, bounds counted at the user's F
+   and R, launches from (a) and (b), ptxas of the instance each runs. (d)
+   The device ms of one DDM-PaiNN step at bucket 128 at 128/20, 256/20,
+   96/20 and 128/64.
 
 The line before the last is the kernel table as JSON (thirteen kernels,
 every Pallas kernel of the JAX package, then #1-#5 at G=100 and G=300 as
 ``<kernel>_g100`` / ``_g300`` with their phase-5 launches and shapes,
 then #1-#4's bf16 instances at G=51 as ``<kernel>_bf16`` with their
 phase-6 launches, bounded at the bf16 tensor-core peak, then phase 7's
-rows at F = E = 256 and 96 with their launches;
+rows at F = E = 256 and 96 with their launches, then phase 8's PaiNN rows
+at F = 256, F = 96 and R = 64 with theirs;
 ``qm9_launches``: each kernel's
 launches over both QM9 epochs of phase 3e; ``md17_launches``: each
 kernel's launches in one MD17 training step of phase 3f, both backbones;
@@ -541,7 +566,9 @@ def device_profile(fn):
     torch.profiler; busy sums every device activity (kernels and copies),
     not the user annotations on the device's timeline (Adam's
     ``Optimizer.step`` range spans its own kernels: counting it would count
-    them twice)."""
+    them twice). The sums read the profiler's raw events: ``prof.events()``
+    would first build an event for every CPU op as well (seconds a call on
+    an eager epoch; the same sums, checked on the H100)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -552,12 +579,17 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and not e.is_user_annotation]
-    busy = sum(e.time_range.elapsed_us() for e in dev) * 1e-6
-    ours = sum(e.time_range.elapsed_us() for e in dev
-               if "geossl::" in e.name) * 1e-6
-    return wall, busy, ours
+    busy = ours = 0
+    for e in prof.profiler.kineto_results.events():
+        # the events prof.events() drops: memory records, hidden events
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation() \
+                or e.is_hidden_event() \
+                or e.name() in ("[memory]", "[OutOfMemory]"):
+            continue
+        busy += e.end_ns() - e.start_ns()
+        if "geossl::" in e.name():
+            ours += e.end_ns() - e.start_ns()
+    return wall, busy * 1e-9, ours * 1e-9
 
 
 def print_top_ops(fn, model_3d, path, bucket, top=10, also=None):
@@ -619,10 +651,14 @@ KERNEL_ENTRIES = {
                             "_ZN6geossl17cfconv_bwd_kernelILb1ELb0ELb1E"),
     "ncsn_score_fwd": ("ncsn_score", "_ZN6geossl15ncsn_fwd_kernel"),
     "ncsn_score_bwd": ("ncsn_score", "_ZN6geossl15ncsn_bwd_kernel"),
-    "painn_fwd": ("painn_fwd", "_ZN6geossl20painn_fwd_mma_kernelILi3ELb0E"),
-    "painn_fwd_sym": ("painn_fwd", "_ZN6geossl20painn_fwd_mma_kernelILi3ELb1E"),
-    "painn_bwd": ("painn_bwd", "_ZN6geossl20painn_bwd_mma_kernelILb0E"),
-    "painn_bwd_sym": ("painn_bwd", "_ZN6geossl20painn_bwd_mma_kernelILb1E"),
+    # PaiNN's one-pass instances (R <= 31; ..._r64 below: the streamed ones)
+    "painn_fwd": ("painn_fwd",
+                  "_ZN6geossl20painn_fwd_mma_kernelILi3ELb0ELb0E"),
+    "painn_fwd_sym": ("painn_fwd",
+                      "_ZN6geossl20painn_fwd_mma_kernelILi3ELb1ELb0E"),
+    "painn_bwd": ("painn_bwd", "_ZN6geossl20painn_bwd_mma_kernelILb0ELb0E"),
+    "painn_bwd_sym": ("painn_bwd",
+                      "_ZN6geossl20painn_bwd_mma_kernelILb1ELb0E"),
     # the stack: the instance its row's shape runs (stack_instance)
     "painn_stack": ("painn_stack", None),
     "painn_stack_train": ("painn_stack", None),
@@ -648,6 +684,19 @@ for _w in (256, 96):
         f"{_k}_f{_w}": KERNEL_ENTRIES[_k]
         for _k in ("cfconv_fwd", "cfconv_fwd_sym", "cfconv_bwd",
                    "cfconv_bwd_sym", "schnet_stack")})
+# phase 8's rows: PaiNN at F = 256 and 96 (the one-pass instances, in
+# column blocks or padded) and at R = 64 (the streamed instances); the
+# forward's and the stack's instances by their rows' R and shape, as the
+# library chooses them (painn_fwd_instance, stack_instance)
+for _tag, _stream in (("_f256", 0), ("_f96", 0), ("_r64", 1)):
+    KERNEL_ENTRIES.update({
+        f"painn_fwd{_tag}": ("painn_fwd", None),
+        f"painn_fwd_sym{_tag}": ("painn_fwd", None),
+        f"painn_bwd{_tag}": (
+            "painn_bwd", f"_ZN6geossl20painn_bwd_mma_kernelILb0ELb{_stream}E"),
+        f"painn_bwd_sym{_tag}": (
+            "painn_bwd", f"_ZN6geossl20painn_bwd_mma_kernelILb1ELb{_stream}E"),
+        f"painn_stack{_tag}": ("painn_stack", None)})
 KERNEL_ENTRIES.update({
     "ncsn_score_fwd_e96": KERNEL_ENTRIES["ncsn_score_fwd"],
     "ncsn_score_bwd_e96": KERNEL_ENTRIES["ncsn_score_bwd"],
@@ -655,24 +704,82 @@ KERNEL_ENTRIES.update({
     "ncsn_score_bwd_e256": ("ncsn_score_e256", "_ZN6geossl15ncsn_bwd_kernel")})
 
 
-def stack_instance(b, n, res):
+def stack_instance(b, n, res, num_r=20):
     """(rows per dense chunk, mangled-name prefix) of the painn_stack_kernel
-    instance that a launch over b graphs of n atoms runs on this card (the
-    library's own rule; KS = 3: R = 20), with ``res`` the residual mode."""
+    instance that a launch over b graphs of n atoms at ``num_r`` RBF rows
+    runs on this card (the library's own choice: ``painn_stack_chunk_rows``,
+    ``painn_stack_ks``; streamed above ``ops/painn.ONE_PASS_R``, which
+    ``check_rbf_layout`` holds to the library), with ``res`` the residual
+    mode."""
+    import ctypes
+
+    from geossl_tpu_torch.ops import _build
+    from geossl_tpu_torch.ops import painn as P
+
+    rows = _build.kernel_fn("painn_stack", "painn_stack_chunk_rows",
+                            [ctypes.c_int] * 2)(b, n)
+    ks = _build.kernel_fn("painn_stack", "painn_stack_ks",
+                          [ctypes.c_int])(num_r)
+    stream = int(num_r > P.ONE_PASS_R)
+    return rows, (f"_ZN6geossl18painn_stack_kernelILb{int(res)}ELi{ks}"
+                  f"ELi{rows}ELb{stream}E")
+
+
+def painn_fwd_instance(sym, num_r):
+    """Mangled-name prefix of the painn_fwd_mma_kernel instance that a
+    launch at ``num_r`` RBF rows runs (the library's ``painn_fwd_ks``;
+    streamed above ``ops/painn.ONE_PASS_R``), ``sym`` the mode."""
+    import ctypes
+
+    from geossl_tpu_torch.ops import _build
+    from geossl_tpu_torch.ops import painn as P
+
+    ks = _build.kernel_fn("painn_fwd", "painn_fwd_ks", [ctypes.c_int])(num_r)
+    return (f"_ZN6geossl20painn_fwd_mma_kernelILi{ks}ELb{int(sym)}"
+            f"ELb{int(num_r > P.ONE_PASS_R)}E")
+
+
+def painn_passes(num_r):
+    """Filter passes (kernel launches a call of the message-pass entries)
+    at ``num_r`` RBF rows, as the library counts its chunks."""
     import ctypes
 
     from geossl_tpu_torch.ops import _build
 
-    rows = _build.kernel_fn("painn_stack", "painn_stack_chunk_rows",
-                            [ctypes.c_int] * 2)(b, n)
-    return rows, f"_ZN6geossl18painn_stack_kernelILb{int(res)}ELi3ELi{rows}E"
+    return _build.kernel_fn("painn_fwd", "painn_rbf_chunks",
+                            [ctypes.c_int, ctypes.c_void_p])(num_r, None)
 
 
-def stack_ptxas(b, n, res):
+def check_rbf_layout(max_r=300):
+    """Holds ``ops/painn.rbf_chunks`` (the copy the CPU tests exercise) and
+    ``ONE_PASS_R`` to the library's ``painn_rbf_chunks`` (pair_tile.cuh's
+    ``rbf_chunk``, which the kernels run) at every R from 2 to ``max_r``;
+    fails on any difference."""
+    import ctypes
+
+    from geossl_tpu_torch.ops import _build
+    from geossl_tpu_torch.ops import painn as P
+
+    fn = _build.kernel_fn("painn_fwd", "painn_rbf_chunks",
+                          [ctypes.c_int, ctypes.c_void_p])
+    for r in range(P.MIN_R, max_r + 1):
+        out = (ctypes.c_int * (3 * fn(r, None)))()
+        n = fn(r, out)
+        lib = [(out[3 * c], out[3 * c + 1], bool(out[3 * c + 2]))
+               for c in range(n)]
+        if lib != P.rbf_chunks(r) or (n > 1) != (r > P.ONE_PASS_R):
+            fail(f"rbf layout at R={r}: the library's chunks {lib}, "
+                 f"ops/painn's {P.rbf_chunks(r)} (ONE_PASS_R "
+                 f"{P.ONE_PASS_R})")
+    print(f"rbf layout: ops/painn.rbf_chunks and ONE_PASS_R agree with the "
+          f"library's painn_rbf_chunks at R = {P.MIN_R}..{max_r}")
+
+
+def stack_ptxas(b, n, res, num_r=20):
     """{"chunk_rows", "ptxas"} of the instance stack_instance names."""
     from geossl_tpu_torch.ops import _build
 
-    rows, entry = stack_instance(b, n, res)
+    rows, entry = stack_instance(b, n, res, num_r)
     return {"chunk_rows": rows,
             "ptxas": ptxas_usage(_build.build_log("painn_stack"), entry)}
 
@@ -885,7 +992,7 @@ def painn_inputs(m, batch, seed=SEED, pair_mask=None):
 
 
 def check_painn_bwd(errs, grids, x, mu, wk, bk, gq, gmu, cutoff, what,
-                    chunk=None, symmetric=False, want=None):
+                    chunk=None, symmetric=False, want=None, tag=""):
     """painn_bwd (with ``symmetric``, painn_bwd_sym) against its plain
     version, gating off and on: the seven per-pair and per-node cotangents
     elementwise (scaled), dWk and dbk by relative norm; with gating, the
@@ -893,7 +1000,8 @@ def check_painn_bwd(errs, grids, x, mu, wk, bk, gq, gmu, cutoff, what,
     on the occupied ones). painn_bwd_sym's pair cotangents are held to the
     plain ones placed (``ops/cfconv.place_sym_cotangent``: ddist and dgate
     symmetric, the three ddir antisymmetric). ``want``: the plain version's
-    output on these inputs, if made already. Returns it."""
+    output on these inputs, if made already. Checks are recorded as
+    ``<kernel><tag>``. Returns it."""
     import torch
 
     from geossl_tpu_torch.ops import cfconv as K
@@ -906,9 +1014,9 @@ def check_painn_bwd(errs, grids, x, mu, wk, bk, gq, gmu, cutoff, what,
     if want is None:
         want = (plain(*grids, x, mu, gq, gmu) if chunk is None else
                 chunked_sum(plain, (*grids, x, mu, gq, gmu), (), chunk, 7))
-    name_k, bwd, ref = "painn_bwd", P.painn_bwd, want
+    name_k, bwd, ref = "painn_bwd" + tag, P.painn_bwd, want
     if symmetric:
-        name_k, bwd = "painn_bwd_sym", P.painn_bwd_sym
+        name_k, bwd = "painn_bwd_sym" + tag, P.painn_bwd_sym
         ref = (*(K.place_sym_cotangent(w, antisymmetric=k >= 2)
                  for k, w in enumerate(want[:5])), *want[5:])
     occ = tile_occupied(grids[1])
@@ -927,13 +1035,14 @@ def check_painn_bwd(errs, grids, x, mu, wk, bk, gq, gmu, cutoff, what,
 
 
 def check_painn_sym(errs, grids, x, mu, wk, bk, gq, gmu, cutoff, what,
-                    want_fwd=None, want_bwd=None):
+                    want_fwd=None, want_bwd=None, tag=""):
     """The symmetric PaiNN pair on symmetric grids against its plain
     versions, gating off and on (``painn_fwd_sym`` elementwise,
     ``painn_bwd_sym`` through ``check_painn_bwd``), then a second launch of
     each against the first: the five pair cotangents and dWk/dbk bitwise,
     the rows summed with atomics (dq, dmu; dx, dmu) within the tolerances.
-    ``want_fwd`` / ``want_bwd``: the plain versions' outputs, if made."""
+    ``want_fwd`` / ``want_bwd``: the plain versions' outputs, if made.
+    Checks are recorded as ``<kernel><tag>``."""
     import torch
 
     from geossl_tpu_torch.ops import painn as P
@@ -945,20 +1054,22 @@ def check_painn_sym(errs, grids, x, mu, wk, bk, gq, gmu, cutoff, what,
         for sp in (False, True):
             got = torch.cat(P.painn_message_fused_sym(
                 *grids, x, mu, wk, bk, cutoff, sp), dim=-1)
-            errs.check("painn_fwd_sym", got, want_fwd, f"{what} sparse={sp}")
-            errs.check("painn_fwd_sym", torch.cat(P.painn_message_fused_sym(
+            errs.check("painn_fwd_sym" + tag, got, want_fwd,
+                       f"{what} sparse={sp}")
+            errs.check("painn_fwd_sym" + tag, torch.cat(P.painn_message_fused_sym(
                 *grids, x, mu, wk, bk, cutoff, sp), dim=-1), got,
                 f"{what} sparse={sp} second launch")
     check_painn_bwd(errs, grids, x, mu, wk, bk, gq, gmu, cutoff, what,
-                    chunk=8, symmetric=True, want=want_bwd)
+                    chunk=8, symmetric=True, want=want_bwd, tag=tag)
     one, two = (P.painn_bwd_sym(*grids, x, mu, wk, bk, gq, gmu, cutoff, True)
                 for _ in range(2))
     for k, (name, a, b) in enumerate(zip(PAINN_BWD_NAMES, one, two)):
         if k in (5, 6):
-            errs.check_scaled("painn_bwd_sym", b, a, f"{what} {name} second "
-                              "launch")
+            errs.check_scaled("painn_bwd_sym" + tag, b, a, f"{what} {name} "
+                              "second launch")
         elif not torch.equal(a, b):
-            fail(f"painn_bwd_sym {what}: {name} differs between two launches")
+            fail(f"painn_bwd_sym{tag} {what}: {name} differs between two "
+                 "launches")
     print(f"painn_bwd_sym {what}: pair cotangents and weight gradients "
           "repeat bitwise")
 
@@ -1497,8 +1608,9 @@ def plain_forces(pred, store, chunk=128):
         recs = [store.get(i) for i in range(s, min(s + chunk, len(store)))]
         batch = pack_batch(recs, pred.bucket_sizes[0]).to(pred.device)
         e, f = FM.energy_and_force(net, batch)
+        # the Predictor's forces are those of its denormalized energy
         es.append(e.detach() * pred.y_std + pred.y_mean)
-        fs.append(f[batch.node_mask])
+        fs.append(f[batch.node_mask] * pred.y_std)
     return torch.cat(es), torch.cat(fs)
 
 
@@ -4650,23 +4762,27 @@ def widths_step_times(dev, cfg, batch):
     return out
 
 
-def widths_refusals():
-    """On the card, the startup refusals above the new limits, each naming
-    its flag: ``pretrain_geossl --emb_dim 320`` (the NCSN head takes up to
-    256), ``pretrain_geossl --num_filters 256 --filter_mxu bf16`` (the bf16
-    CFConv backwards take up to 128) and a PaiNN Predictor at emb_dim 96
-    (PaiNN keeps 128)."""
-    import dataclasses
+def widths_refusals(dev):
+    """On the card, the refusals above the kernels' limits, each naming
+    its flag or width: ``pretrain_geossl --emb_dim 320`` (the NCSN head
+    takes up to 256), ``pretrain_geossl --num_filters 256 --filter_mxu
+    bf16`` (the bf16 CFConv backwards take up to 128), ``pretrain_geossl
+    --model_3d painn --painn_n_rbf 1`` (the PaiNN kernels take R >= 2) and
+    ``models/painn.stack_train_apply`` at F = 256 (the PaiNN stack takes up
+    to 128)."""
+    import torch
 
-    from geossl_tpu_torch.config import ModelConfig
-    from geossl_tpu_torch.serve import Predictor
+    from geossl_tpu_torch.models.painn import stack_train_apply
     from geossl_tpu_torch.train import pretrain_geossl as PG
     from geossl_tpu_torch.train.common import make_backbone
 
     said = {}
-    cfg_p = ModelConfig(model_3d="painn")
-    cfg_p = dataclasses.replace(cfg_p, emb_dim=96, painn=dataclasses.replace(
-        cfg_p.painn, n_atom_basis=96))
+    wide = make_backbone(painn_cfg(256, 20),
+                         torch.Generator().manual_seed(SEED)).to(dev)
+    z = torch.ones((2, 16), dtype=torch.long, device=dev)
+    pos = torch.randn((2, 16, 3), generator=torch.Generator().manual_seed(
+        SEED)).to(dev)
+    mask = torch.ones((2, 16), dtype=torch.bool, device=dev)
     for flag, fn in (
             ("--emb_dim 320", lambda: PG.main([
                 "--synthetic", "--synthetic_size", "16", "--emb_dim", "320",
@@ -4675,8 +4791,11 @@ def widths_refusals():
                 "--synthetic", "--synthetic_size", "16", "--emb_dim", "256",
                 "--num_filters", "256", "--filter_mxu", "bf16",
                 "--output_model_dir", os.path.join(ROOT, "runs", "refused")])),
-            ("--emb_dim 96", lambda: Predictor(cfg_p, {
-                "model": make_backbone(cfg_p).state_dict()}))):
+            ("--painn_n_rbf 1", lambda: PG.main([
+                "--synthetic", "--synthetic_size", "16", "--model_3d",
+                "painn", "--painn_n_rbf", "1", "--output_model_dir",
+                os.path.join(ROOT, "runs", "refused")])),
+            ("F=256", lambda: stack_train_apply(wide, z, pos, mask))):
         try:
             fn()
         except ValueError as e:
@@ -4733,7 +4852,7 @@ def widths_path(dev, card, errs, cfg, cutoff, cases, store, buckets, first,
                          launches[counter], {**extra, "width": w,
                                              "launches_per_call": per_call}))
     steps = widths_step_times(dev, cfg, batch)
-    refusals = widths_refusals()
+    refusals = widths_refusals(dev)
     log = _build.build_log("ncsn_score_e256")
     ptxas = {k: ptxas_usage(log, KERNEL_ENTRIES[f"ncsn_score_{k}_e256"][1])
              for k in ("fwd", "bwd")}
@@ -4750,6 +4869,477 @@ def widths_path(dev, card, errs, cfg, cutoff, cases, store, buckets, first,
                  in rows}}))
     if seconds > WIDTH_BUDGET_S:
         fail(f"widths: {seconds:.1f} s, above its {WIDTH_BUDGET_S:.0f} s")
+    return rows
+
+
+# -- Phase 8: PaiNN at any width and any RBF count ------------------------------
+
+PAINN_WIDTH_BUDGET_S = 240.0
+# (emb_dim = n_atom_basis, n_rbf): two column blocks, padded, and the
+# streamed filter product in two and in three passes
+PAINN_SETTINGS = ((256, 20), (96, 20), (128, 32), (128, 64))
+# the kernel table's row tag of each timed setting
+PAINN_ROW_TAGS = {(256, 20): "_f256", (96, 20): "_f96", (128, 64): "_r64"}
+# kernel -> (source, the TPU kernel it replaces)
+PAINN_KERNELS = {
+    "painn_fwd": ("geossl_tpu_torch/ops/csrc/painn_fwd.cu",
+                  "geossl_tpu/ops/painn_pallas.py:86"),
+    "painn_bwd": ("geossl_tpu_torch/ops/csrc/painn_bwd.cu",
+                  "geossl_tpu/ops/painn_pallas.py:164"),
+    "painn_fwd_sym": ("geossl_tpu_torch/ops/csrc/painn_fwd.cu",
+                      "geossl_tpu/ops/painn_pallas.py:435"),
+    "painn_bwd_sym": ("geossl_tpu_torch/ops/csrc/painn_bwd.cu",
+                      "geossl_tpu/ops/painn_pallas.py:540"),
+    "painn_stack": ("geossl_tpu_torch/ops/csrc/painn_stack.cu",
+                    "geossl_tpu/ops/painn_pallas.py:829"),
+}
+
+
+def painn_cfg(w, r):
+    """PaiNN's published configuration (3 blocks, cutoff 5) at emb_dim =
+    n_atom_basis = ``w`` and n_rbf = ``r``."""
+    import dataclasses
+
+    from geossl_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig(model_3d="painn")
+    return dataclasses.replace(cfg, emb_dim=w, painn=dataclasses.replace(
+        cfg.painn, n_atom_basis=w, n_rbf=r))
+
+
+def painn_flags(w, r):
+    return ["--model_3d", "painn", "--emb_dim", str(w), "--painn_n_rbf",
+            str(r)]
+
+
+@contextlib.contextmanager
+def message_calls():
+    """{"fwd": calls, "bwd": calls} of the message-pass launch functions
+    while inside (a call makes k launches of its kernel at F > 128)."""
+    from geossl_tpu_torch.ops import painn as P
+
+    calls = {"fwd": 0, "bwd": 0}
+    real = {k: getattr(P, f"_launch_painn_{k}") for k in calls}
+
+    def counting(k):
+        def fn(*args):
+            calls[k] += 1
+            return real[k](*args)
+        return fn
+
+    for k in calls:
+        setattr(P, f"_launch_painn_{k}", counting(k))
+    try:
+        yield calls
+    finally:
+        for k in calls:
+            setattr(P, f"_launch_painn_{k}", real[k])
+
+
+def painn_widths_main_path(dev, w, r, store, buckets, first, packed):
+    """(a) A seeded PaiNN Predictor at emb_dim = ``w``, n_rbf = ``r`` serving
+    the store over buckets 32..512 (F > 128: the per-block route at every
+    bucket, no stack launch; F <= 128: the padded stack up to N = 128,
+    streamed at R > 31), held to the plain path on 8 molecules per bucket
+    (rtol 1e-4, atol 1e-5 x max), and its forces on two LBA complexes at
+    N = 512 (the symmetric pair and its backward) held to the plain forces.
+    Counters reset before and read after: k calls of the kernel entry a
+    message call, each making one launch a filter pass (the library's
+    count). Returns (the counts, the message calls)."""
+    import numpy as np
+    import torch
+
+    from geossl_tpu_torch.ops import painn as P
+    from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
+    from geossl_tpu_torch.serve import Predictor
+    from geossl_tpu_torch.train.common import make_backbone, make_head
+
+    cfg = painn_cfg(w, r)
+    gen = torch.Generator().manual_seed(SEED)
+    state = {"model": make_backbone(cfg, gen).state_dict(),
+             "graph_pred_linear": make_head("painn", w, gen).state_dict(),
+             "y_mean": 1.5, "y_std": 2.0}
+    pred = Predictor(cfg, state, batch_size=128, bucket_sizes=buckets)
+    pred_f = Predictor(cfg, state, batch_size=128, bucket_sizes=(512,))
+    forces_store = store.select(first(512, 2))
+    k, stack = P.feature_blocks(w), w <= P.KERNEL_F
+    per_call = k * painn_passes(r)
+    what = f"emb={w} R={r}"
+    reset_launch_counts()
+    t0 = time.time()
+    with message_calls() as calls:
+        got = pred.predict(store)
+        energies, forces = pred_f.predict_forces(forces_store)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    fwd = counts["painn_fwd"] + counts["painn_fwd_sym"]
+    bwd = counts["painn_bwd"] + counts["painn_bwd_sym"]
+    print(f"painn_widths main path {what}: {len(store)} molecules served, "
+          f"forces of 2 complexes at N=512 in {time.time() - t0:.2f} s; "
+          f"message calls {calls} (k = {k}, {per_call} launches a call); "
+          f"launches { {n: v for n, v in counts.items() if v} }")
+    if (fwd, bwd) != (per_call * calls["fwd"], per_call * calls["bwd"]) \
+            or not calls["bwd"]:
+        fail(f"painn_widths {what}: {fwd} / {bwd} launches for {calls} "
+             f"message calls, not {per_call} a call")
+    if (counts["painn_stack"] > 0) != stack or any(
+            pred.stack_route(n) != (stack and n <= 128) for n in buckets):
+        fail(f"Predictor {what}: stack route, {counts['painn_stack']} stack "
+             "launches")
+    for name in ("painn_fwd_sym", "painn_bwd_sym",
+                 "painn_stack" if stack else "painn_fwd"):
+        if counts[name] == 0:
+            fail(f"kernel {name} was not launched on the PaiNN {what} paths")
+    with torch.inference_mode():
+        if not np.isfinite(got).all():
+            fail(f"Predictor {what}: non-finite output")
+        for b in buckets:
+            idx = first(b, 8)
+            batch = packed(idx, b)
+            graph, _ = pred.model(batch.atom_type, batch.positions,
+                                  batch.node_mask, plain=True)
+            want = (pred.head(graph) * pred.y_std + pred.y_mean).cpu().numpy()
+            atol = ATOL * max(1.0, float(np.abs(want).max()))
+            if not np.allclose(got[idx], want, rtol=RTOL, atol=atol):
+                fail(f"Predictor {what} bucket {b}: kernel path vs plain "
+                     f"path, max_abs_err {np.abs(got[idx] - want).max():.3e}")
+    e_p, f_p = plain_forces(pred_f, forces_store)
+    check_forces(f"painn_widths {what} energies", energies, e_p)
+    check_forces(f"painn_widths {what} forces", forces, f_p)
+    print(f"painn_widths serve parity {what}: buckets {list(buckets)} agree "
+          "with the plain path")
+    return counts, calls
+
+
+def painn_widths_steps(dev, w, r, batch, lba_batch):
+    """(b) One DDM-PaiNN step at bucket 128 against the plain step (as 3b,
+    2 views x 3 blocks x k calls of #8 and of #9, each one launch a filter
+    pass) and, at F > 128, one LBA-PaiNN step at B=64, N=512 (the symmetric
+    pair) against the plain step computed in chunks of 2 complexes. Returns
+    (the steps' counts, their message calls)."""
+    import torch
+
+    from geossl_tpu_torch.ops import painn as P
+    from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
+    from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.train import finetune_lba as FL
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    k, what = P.feature_blocks(w), f"emb={w} R={r}"
+    per_call = k * painn_passes(r)
+    targs = PG.build_parser().parse_args(painn_flags(w, r))
+    ddm = PG.make_ddm(targs, painn_cfg(w, r),
+                      torch.Generator().manual_seed(SEED)).to(dev)
+    layers = ddm.model.n_interactions
+    reset_launch_counts()
+    with message_calls() as calls:
+        step_parity(ddm, batch, targs, 128, f"PaiNN {what}")
+    counts = launch_counts()
+    want = 2 * layers * per_call
+    if (counts["painn_fwd"], counts["painn_bwd"]) != (want, want) or \
+            calls != {"fwd": 2 * layers, "bwd": 2 * layers}:
+        fail(f"DDM-PaiNN {what} step: launches {counts['painn_fwd']} / "
+             f"{counts['painn_bwd']} for {calls} calls, want {want}")
+    del ddm
+    if w <= P.KERNEL_F:
+        return counts, calls
+    lba_args = FL.build_parser().parse_args(lba_flags("painn")
+                                            + painn_flags(w, r)[2:])
+    net = FL.make_net(lba_args, common.model_config_from_args(lba_args),
+                      torch.Generator().manual_seed(SEED)).to(dev)
+
+    def loss(sb, sl):
+        return FL.loss_fn(net, sb)
+
+    reset_launch_counts()
+    with message_calls() as lba_calls:
+        loss_k, grads_k = grads_in_chunks(net, lba_batch, loss)
+    lba_counts = launch_counts()
+    net.plain = True
+    loss_p, grads_p = grads_in_chunks(net, lba_batch, loss, chunk=2)
+    check_step_parity(f"LBA-PaiNN {what} step parity bucket 512", loss_k,
+                      grads_k, loss_p, grads_p)
+    if (lba_counts["painn_fwd_sym"], lba_counts["painn_bwd_sym"]) != \
+            (layers * per_call, layers * per_call):
+        fail(f"LBA-PaiNN {what} step: launches {lba_counts}")
+    return ({n: counts[n] + lba_counts[n] for n in counts},
+            {d: calls[d] + lba_calls[d] for d in calls})
+
+
+def painn_work(kind, grids, x, f, r, layers=3, stacked=None, atoms=0,
+               residuals=False):
+    """((tensor-core, CUDA-core) operations, bytes) of PaiNN kernel ``kind``
+    on these inputs at width ``f`` and ``r`` RBFs. Forwards: the filter
+    2R*3F once per needed pair (``pair_work``: one triangle of symmetric
+    grids) on the tensor cores, the message sums (dq 2F, dmu 12F) and gating
+    3F per ordered pair on the CUDA cores. Backwards: the filter recomputed
+    and dWk/dbk once per needed pair, dphi = dwg Wk^T (per ordered pair in
+    the plain mode, once per unordered pair in the symmetric one) and ~40F
+    elementwise per ordered pair. The stack (``x`` is q0): per block the
+    filter, the dense layers (x-MLP 8F^2, mixing 12F^2, context MLP 10F^2
+    per atom of ``atoms``) on the tensor cores, the message sums, gating
+    and ~20F elementwise per atom on the CUDA cores. Bytes: the gate read
+    whole, dist and the directions on its occupied tiles; x and mu (the
+    backwards also gq, gmu) read, the outputs written (the backwards' five
+    pair cotangents; the stack's q, mu and with ``residuals`` its four
+    residual stacks)."""
+    nnz, filt, cells, tiles = pair_work(grids[0], grids[1])
+    f3 = 3 * f
+    fwd_pair, fwd_elem = 2 * r * f3, 17 * f
+    if kind == "painn_fwd":
+        return ((filt * fwd_pair, nnz * fwd_elem),
+                4 * (cells + 4 * tiles + 2 * x.numel() + (r + 1) * f3
+                     + x.numel() // 3 + x.numel()))
+    if kind == "painn_fwd_sym":
+        return ((filt * fwd_pair, nnz * fwd_elem),
+                4 * (cells + 4 * tiles + 2 * x.numel() + (r + 1) * f3
+                     + 4 * x.numel() // 3))
+    if kind == "painn_bwd":
+        return ((filt * (2 * r * f3 + 2 * (r + 1) * f3) + nnz * 2 * r * f3,
+                 nnz * 40 * f),
+                4 * (cells + 4 * tiles + 5 * grids[0].numel() + 5 * x.numel()
+                     + x.numel() // 3 + 2 * (r + 1) * f3))
+    if kind == "painn_bwd_sym":
+        return ((filt * (2 * r * f3 + 2 * (r + 1) * f3 + 2 * r * f3),
+                 nnz * 40 * f),
+                4 * (cells + 4 * tiles + 5 * grids[0].numel() + 5 * x.numel()
+                     + x.numel() // 3 + 2 * (r + 1) * f3))
+    t_ops = layers * (filt * fwd_pair + atoms * 30 * f * f)
+    e_ops = layers * (nnz * fwd_elem + atoms * 20 * f)
+    return ((t_ops, e_ops),
+            4 * (cells + 4 * tiles + 5 * x.numel()
+                 + sum(t.numel() for t in stacked)
+                 + (8 * layers * x.numel() if residuals else 0)))
+
+
+def painn_widths_kernels(dev, errs, w, r, ddm_batch, lba_batch, serve_batch,
+                         timed):
+    """(c) #8-#12 at emb_dim = ``w``, n_rbf = ``r`` (block 0 of a seeded
+    model) against their plain versions with the F = 128 rows'
+    tolerances: #8/#9 on the DDM batch (B=128, N=128, the clean graph,
+    gated), #10/#11 on the LBA batch (B=64, N=512; ``check_painn_sym``), #12
+    (F <= 128) at serving's first batch at N=32 and, in residual mode, on
+    the DDM batch; every kernel a second launch bitwise equal to the first
+    (the symmetric pair's atomically summed rows within the tolerance).
+    Recorded as ``<kernel><tag>``; with ``timed`` the kernel table's rows
+    (name, source, replaces, ms, plain_ms, flops, bytes, extra; extra
+    holds the dynamic shared bytes of the launch)."""
+    import ctypes
+
+    import torch
+
+    from geossl_tpu_torch.ops import _build
+    from geossl_tpu_torch.ops import geometry
+    from geossl_tpu_torch.ops import painn as P
+    from geossl_tpu_torch.train.common import make_backbone
+
+    tag = PAINN_ROW_TAGS.get((w, r), f"_f{w}_r{r}")
+    cfg = painn_cfg(w, r)
+    m = make_backbone(cfg, torch.Generator().manual_seed(SEED)).to(dev)
+    cut, layers = cfg.painn.cutoff, cfg.painn.n_interactions
+    big = w > P.KERNEL_F
+    with torch.no_grad():
+        wk0, bk0 = (t.contiguous() for t in m.filter_weights()[0])
+        d1, pm = geometry.pairwise_distances(ddm_batch.positions,
+                                             ddm_batch.node_mask)
+        clean = geometry.radius_adjacency(d1, pm, cut)
+        stacked = [t.contiguous() for t in m.stacked_weights()]
+    grids, q0, x, mu = painn_inputs(m, ddm_batch, pair_mask=clean)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    gq = torch.randn(q0.shape, generator=gen, device=dev)
+    gmu = torch.randn(mu.shape, generator=gen, device=dev)
+    what = f"DDM B=128 N=128 emb={w} R={r}"
+    rows = []
+
+    def smem(kernel, n):
+        """The dynamic shared bytes of ``kernel``'s launch at N = n."""
+        lib = kernel.replace("_sym", "")
+        if lib == "painn_stack":
+            return _build.kernel_fn(lib, "painn_stack_smem_bytes", [],
+                                    ctypes.c_size_t)()
+        if lib == "painn_fwd":
+            return _build.kernel_fn(lib, "painn_fwd_smem_bytes",
+                                    [ctypes.c_int], ctypes.c_size_t)(
+                int(kernel.endswith("_sym")))
+        return _build.kernel_fn(lib, "painn_bwd_smem_bytes",
+                                [ctypes.c_int] * 2, ctypes.c_size_t)(
+            n, int(kernel.endswith("_sym")))
+
+    def row(kernel, fn, plain, work, **extra):
+        if timed:
+            extra["smem_bytes"] = smem(kernel, 512 if "sym" in kernel else
+                                       (32 if "stack" in kernel else 128))
+            src, replaces = PAINN_KERNELS[kernel]
+            rows.append((kernel + tag, src, replaces, cuda_time_ms(fn),
+                         cuda_time_ms(plain, reps=2, warmup=1), *work,
+                         {"width": w, "n_rbf": r, **extra}))
+
+    def plain_fwd(grids_, x_, mu_, chunk):
+        return chunked(lambda *a: torch.cat(P.painn_message_reference(
+            *a, wk0, bk0, cut), dim=-1), (*grids_, x_, mu_), (), chunk)
+
+    def plain_bwd(grids_, x_, mu_, gq_, gmu_, chunk):
+        return chunked_sum(
+            lambda d, g, a, b_, c, xx, mm, gq2, gmu2: P.painn_bwd_reference(
+                d, g, a, b_, c, xx, mm, wk0, bk0, gq2, gmu2, cut),
+            (*grids_, x_, mu_, gq_, gmu_), (), chunk, 7)
+
+    # #8, #9 on the DDM batch
+    with torch.no_grad():
+        fwd_args = (*grids, x, mu, wk0, bk0, cut, True)
+        got = torch.cat(P.painn_message_fused(*fwd_args), dim=-1)
+        errs.check("painn_fwd" + tag, got, plain_fwd(grids, x, mu, 16),
+                   f"{what} sparse=True")
+        if not torch.equal(got, torch.cat(P.painn_message_fused(*fwd_args),
+                                          dim=-1)):
+            fail(f"painn_fwd{tag}: outputs differ between two launches")
+        row("painn_fwd", lambda: P.painn_message_fused(*fwd_args),
+            lambda: plain_fwd(grids, x, mu, 16),
+            painn_work("painn_fwd", grids, x, w, r), shape=what)
+    check_painn_bwd(errs, grids, x, mu, wk0, bk0, gq, gmu, cut, what,
+                    chunk=4 if big else 8, tag=tag)
+    bwd_args = (*grids, x, mu, wk0, bk0, gq, gmu, cut, True)
+    if not all(torch.equal(a, b) for a, b in zip(P.painn_bwd(*bwd_args),
+                                                 P.painn_bwd(*bwd_args))):
+        fail(f"painn_bwd{tag}: outputs differ between two launches")
+    row("painn_bwd", lambda: P.painn_bwd(*bwd_args),
+        lambda: plain_bwd(grids, x, mu, gq, gmu, 4 if big else 8),
+        painn_work("painn_bwd", grids, x, w, r), shape=what)
+    # #10, #11 on the LBA batch
+    grids_l, q0_l, x_l, mu_l = painn_inputs(m, lba_batch)
+    gq_l = torch.randn(q0_l.shape, generator=gen, device=dev)
+    gmu_l = torch.randn(mu_l.shape, generator=gen, device=dev)
+    chunk_l = 2 if big else 4
+    with torch.no_grad():
+        want_fwd = plain_fwd(grids_l, x_l, mu_l, chunk_l)
+    want_bwd = plain_bwd(grids_l, x_l, mu_l, gq_l, gmu_l, chunk_l)
+    check_painn_sym(errs, grids_l, x_l, mu_l, wk0, bk0, gq_l, gmu_l, cut,
+                    f"LBA B=64 N=512 emb={w} R={r}", want_fwd, want_bwd,
+                    tag=tag)
+    del want_fwd, want_bwd
+    row("painn_fwd_sym", lambda: P.painn_message_fused_sym(
+        *grids_l, x_l, mu_l, wk0, bk0, cut, True),
+        lambda: plain_fwd(grids_l, x_l, mu_l, chunk_l),
+        painn_work("painn_fwd_sym", grids_l, x_l, w, r),
+        shape=f"LBA B=64 N=512 emb={w} R={r}")
+    row("painn_bwd_sym", lambda: P.painn_bwd_sym(
+        *grids_l, x_l, mu_l, wk0, bk0, gq_l, gmu_l, cut, True),
+        lambda: plain_bwd(grids_l, x_l, mu_l, gq_l, gmu_l, chunk_l),
+        painn_work("painn_bwd_sym", grids_l, x_l, w, r),
+        shape=f"LBA B=64 N=512 emb={w} R={r}")
+    if big:
+        return rows
+    # #12: serving's first batch at N=32 (the row) and the DDM batch in
+    # residual mode
+    grids_s, q0_s, _, _ = painn_inputs(m, serve_batch)
+    with torch.no_grad():
+        got = P.painn_stack_infer(*grids_s, q0_s, stacked, cut)
+        want = chunked_sum(lambda *a: P.painn_stack_reference(
+            *a, stacked, cut), (*grids_s, q0_s), (), 32, 2)
+        for name, a, b in zip(("q", "mu"), got, want):
+            errs.check_scaled("painn_stack" + tag, a, b,
+                              f"serving B=128 N=32 emb={w} R={r} {name}")
+        if not all(torch.equal(a, b) for a, b in zip(
+                got, P.painn_stack_infer(*grids_s, q0_s, stacked, cut))):
+            fail(f"painn_stack{tag}: outputs differ between two launches")
+        got = P._launch_painn_stack("painn_stack_train", grids, q0, stacked,
+                                    cut, m.epsilon, True)
+        want = chunked_sum(lambda *a: P.painn_stack_reference(
+            *a, stacked, cut, save_residuals=True), (*grids, q0), (), 32, 6)
+        for name, a, b in zip(("q", "mu", "qs", "mus", "qps", "mups"), got,
+                              want):
+            errs.check_scaled("painn_stack" + tag, a, b,
+                              f"{what} residual mode {name}")
+        del got, want
+        b_s, n_s = q0_s.shape[:2]
+        row("painn_stack", lambda: P.painn_stack_infer(*grids_s, q0_s,
+                                                       stacked, cut),
+            lambda: chunked_sum(lambda *a: P.painn_stack_reference(
+                *a, stacked, cut), (*grids_s, q0_s), (), 32, 2),
+            painn_work("painn_stack", grids_s, q0_s, w, r, layers, stacked,
+                       int(serve_batch.node_mask.sum())),
+            shape=f"serving B=128 N=32 emb={w} R={r}",
+            stack_shape=(b_s, n_s, False, r))
+    return rows
+
+
+def painn_widths_step_times(dev, batch):
+    """(d) The device ms of one DDM-PaiNN step at bucket 128 (a seeded
+    module, traced after a warm-up) at 128/20 and each timed setting."""
+    import torch
+
+    from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    out = {}
+    for w, r in ((128, 20), *PAINN_ROW_TAGS):
+        targs = PG.build_parser().parse_args(painn_flags(w, r))
+        ddm = PG.make_ddm(targs, painn_cfg(w, r),
+                          torch.Generator().manual_seed(SEED)).to(dev)
+        opt, sched = common.make_optimizer_from_args(targs, ddm.parameters(),
+                                                     100)
+        gen = torch.Generator(dev).manual_seed(SEED)
+
+        def step():
+            return PG.train_step(ddm, opt, sched, [batch], targs, gen)
+
+        step()
+        torch.cuda.synchronize()
+        _, busy, ours = device_profile(step)
+        out[f"emb={w} R={r}"] = {"device_ms": busy * 1e3,
+                                 "port_kernels_ms": ours * 1e3}
+        del ddm, opt
+    return out
+
+
+def painn_widths_path(dev, card, errs, store, buckets, first, packed,
+                      train_batch, lba_batch):
+    """Phase 8: PaiNN at emb_dim 256 (k = 2 column blocks) and 96 (padded)
+    at R = 20, and at n_rbf 32 and 64 (streamed, 2 and 3 passes) at emb_dim
+    128: (a) the main paths, (b) the steps against their plain steps, (c)
+    #8-#12 against their plain versions (timed at 256/20, 96/20 and
+    128/64: the kernel table's ``<kernel>_f256`` / ``_f96`` / ``_r64``
+    rows, their launches (a)'s and (b)'s, bounds at the user's F and R,
+    ptxas of the instance), (d) the DDM step's device ms. The layout of
+    the filter passes is first held to the library's
+    (``check_rbf_layout``). Returns the rows."""
+    import torch
+
+    t0 = time.time()
+    check_rbf_layout()
+    batch = train_batch(128)
+    serve_batch = packed(first(32, 128), 32, 128)
+    rows, launches, calls = [], {}, {}
+    for w, r in PAINN_SETTINGS:
+        counts, main_calls = painn_widths_main_path(dev, w, r, store,
+                                                    buckets, first, packed)
+        steps, step_calls = painn_widths_steps(dev, w, r, batch, lba_batch)
+        launches[(w, r)] = {n: counts[n] + steps[n] for n in counts}
+        calls[(w, r)] = {d: main_calls[d] + step_calls[d]
+                         for d in main_calls}
+        for name, src, replaces, ms, plain_ms, flops, nbytes, extra in \
+                painn_widths_kernels(dev, errs, w, r, batch, lba_batch,
+                                     serve_batch, (w, r) in PAINN_ROW_TAGS):
+            kernel = name[:-len(PAINN_ROW_TAGS[(w, r)])]
+            rows.append((name, src, replaces, ms, plain_ms, flops, nbytes,
+                         launches[(w, r)][kernel], extra))
+        torch.cuda.empty_cache()
+    steps = painn_widths_step_times(dev, batch)
+    seconds = time.time() - t0
+    print("painn_widths: " + json.dumps({
+        "card": card, "seconds": seconds,
+        "ddm_step_bucket_128": steps,
+        "launches": {f"emb={w} R={r}": {k: v for k, v in c.items() if v}
+                     for (w, r), c in launches.items()},
+        "message_calls": {f"emb={w} R={r}": c for (w, r), c in calls.items()},
+        "rows": {name: {"ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms(flops, nbytes),
+                        "launches": count, **extra}
+                 for name, _, _, ms, plain_ms, flops, nbytes, count, extra
+                 in rows}}))
+    if seconds > PAINN_WIDTH_BUDGET_S:
+        fail(f"painn_widths: {seconds:.1f} s, above its "
+             f"{PAINN_WIDTH_BUDGET_S:.0f} s")
     return rows
 
 
@@ -5890,24 +6480,6 @@ def main():
     # backward at the DDM shape (B=128 of the N=128 bucket, the clean graph
     # of view 1)
     R_, L_ = cfg_p.painn.n_rbf, cfg_p.painn.n_interactions
-    # filter 2R*3F, message sums (dq 2F, dmu 12F), gating 3F
-    fwd_pair, fwd_elem = 2 * R_ * 3 * F_, 17 * F_
-
-    def stack_work(grids_, q0_, atoms_, stacked_, residuals):
-        """painn_stack's (tensor-core, CUDA-core) operations and bytes on
-        these inputs: per block the filter once per needed pair and the dense
-        layers (x-MLP 8F^2, mixing 12F^2, context MLP 10F^2 per atom) on the
-        tensor cores; the message sums and gating per ordered pair and the
-        elementwise dense terms (~20F per atom) on the CUDA cores; the gate
-        read whole, dist and the directions on its occupied tiles, q0 read,
-        q and mu written (and with ``residuals`` qs, mus, qps, mups)."""
-        nnz_, filt_, cells_, tiles_ = pair_work(grids_[0], grids_[1])
-        t_ops = L_ * (filt_ * fwd_pair + atoms_ * 30 * F_ * F_)
-        e_ops = L_ * (nnz_ * fwd_elem + atoms_ * 20 * F_)
-        nbytes_ = 4 * (cells_ + 4 * tiles_ + 5 * q0_.numel()
-                       + sum(t.numel() for t in stacked_)
-                       + (8 * L_ * q0_.numel() if residuals else 0))
-        return (t_ops, e_ops), nbytes_
 
     def bounds(ops, nbytes_):
         """(tensor-core basis, f32 basis) bound in ms."""
@@ -5934,8 +6506,8 @@ def main():
             if not all(torch.equal(a, b_) for a, b_ in zip(
                     got, P.painn_stack_infer(*grids, q0, stacked_p, cut_p))):
                 fail(f"painn_stack {what}: outputs differ between two launches")
-            ops, nbytes = stack_work(grids, q0, int(batch.node_mask.sum()),
-                                     stacked_p, False)
+            ops, nbytes = painn_work("painn_stack", grids, q0, F_, R_, L_,
+                                     stacked_p, int(batch.node_mask.sum()))
             bound_tc, bound_f32 = bounds(ops, nbytes)
             stack_shapes[what] = {
                 "ms": cuda_time_ms(lambda: P.painn_stack_infer(
@@ -5985,18 +6557,6 @@ def main():
                     torch.randn(q5.shape, generator=gen_d, device=dev),
                     torch.randn(mu5.shape, generator=gen_d, device=dev), cut_p,
                     "DDM partial B=128 (5 graphs) N=128", chunk=8)
-    f3 = 3 * F_
-
-    def painn_fwd_work(g_, x_):
-        """painn_fwd's (tensor-core, CUDA-core) operations and bytes on
-        these inputs: the filter once per needed pair on the tensor cores,
-        gating and the message sums per ordered pair; the gate read whole,
-        dist and the directions on its occupied tiles, x and mu read, dq
-        and dmu written."""
-        nnz_, filt_, cells_, tiles_ = pair_work(g_[0], g_[1])
-        return ((filt_ * fwd_pair, nnz_ * fwd_elem),
-                4 * (cells_ + 4 * tiles_ + 2 * x_.numel() + (R_ + 1) * f3
-                     + x_.numel() // 3 + x_.numel()))
 
     # painn_fwd at every shape its paths give it: the DDM batches (B=128,
     # the clean graph, gating as the dispatcher sets it: off at N=32/64, on
@@ -6035,13 +6595,14 @@ def main():
             if not torch.equal(got, torch.cat(P.painn_message_fused(*args_),
                                               dim=-1)):
                 fail(f"painn_fwd {what}: outputs differ between two launches")
-            (t_ops, e_ops), nbytes = painn_fwd_work(g_, x_)
+            (t_ops, e_ops), nbytes = painn_work("painn_fwd", g_, x_, F_, R_)
             fwd_shapes[what] = {
                 "ms": cuda_time_ms(lambda: P.painn_message_fused(*args_)),
                 "bound_ms": max(t_ops / PEAK_TF32_FLOPS, e_ops / PEAK_F32_FLOPS,
                                 nbytes / PEAK_BYTES) * 1e3,
                 "sparse": sp}
-        (t_ops, e_ops), nbytes = painn_fwd_work(sym_case[0], sym_case[1])
+        (t_ops, e_ops), nbytes = painn_work("painn_fwd", sym_case[0],
+                                            sym_case[1], F_, R_)
         fwd_shapes["LBA B=64 N=512"] = {
             "ms": sym_ms["painn_fwd"],
             "bound_ms": max(t_ops / PEAK_TF32_FLOPS, e_ops / PEAK_F32_FLOPS,
@@ -6049,7 +6610,6 @@ def main():
     print("painn_fwd repeats bitwise at every shape above")
     print("painn_fwd_shapes: " + json.dumps(fwd_shapes))
 
-    nnz, filt_pairs, cells, tiles = pair_work(grids[0], grids[1])
     with torch.no_grad():
         fwd_args = (*grids, x, mu, wk0, bk0, cut_p, True)
         for name, fn, plain, flops, nbytes, line in (
@@ -6058,11 +6618,7 @@ def main():
                  lambda: chunked(lambda *a: torch.cat(
                      P.painn_message_reference(*a, wk0, bk0, cut_p), dim=-1),
                      (*grids, x, mu), (), 16),
-                 *painn_fwd_work(grids, x), 86),
-                # filter recomputed and dWk/dbk once per needed pair (both
-                # directions' dwg summed first); dphi = dwg Wk^T, which
-                # ddist needs in each direction, and the elementwise D, M,
-                # dw, dx, dmu, ddir, dgate terms (~40F) per ordered pair
+                 *painn_work("painn_fwd", grids, x, F_, R_), 86),
                 ("painn_bwd",
                  lambda: P.painn_bwd(*grids, x, mu, wk0, bk0, gq, gmu, cut_p,
                                      True),
@@ -6071,14 +6627,7 @@ def main():
                      P.painn_bwd_reference(d, g, a, b_, c, xx, m, wk0, bk0,
                                            gq_, gmu_, cut_p),
                      (*grids, x, mu, gq, gmu), (), 8, 7),
-                 # tensor cores: the three products; CUDA cores: the rest
-                 (filt_pairs * (2 * R_ * f3 + 2 * (R_ + 1) * f3)
-                  + nnz * 2 * R_ * f3, nnz * 40 * F_),
-                 # the pair grids read, the five pair cotangents written;
-                 # x, mu, gmu, gq read and dx, dmu written
-                 4 * (cells + 4 * tiles + 5 * grids[0].numel()
-                      + 5 * x.numel() + q0.numel() + 2 * (R_ + 1) * f3),
-                 164)):
+                 *painn_work("painn_bwd", grids, x, F_, R_), 164)):
             kernels.append((name, f"geossl_tpu_torch/ops/csrc/{name}.cu",
                             f"geossl_tpu/ops/painn_pallas.py:{line}",
                             cuda_time_ms(fn), cuda_time_ms(plain, reps=3,
@@ -6116,7 +6665,8 @@ def main():
             cuda_time_ms(lambda: chunked_sum(lambda *a: P.painn_stack_reference(
                 *a, stacked0, cut_p, save_residuals=True), (*grids, q0), (),
                 32, 6), reps=3, warmup=1),
-            *stack_work(grids, q0, atoms, stacked0, True),
+            *painn_work("painn_stack", grids, q0, F_, R_, L_, stacked0, atoms,
+                        True),
             stack_launches["painn_stack_train"]))
 
         # the symmetric pair at the LBA shape (phase 3d's inputs), on the
@@ -6126,8 +6676,7 @@ def main():
         # filter, dWk/dbk and dphi once per unordered pair (the placed pair
         # cotangents), its elementwise terms per ordered pair
         grids, x, mu, wk0, bk0, gq, gmu = sym_case
-        nnz, filt_pairs, cells, tiles = pair_work(grids[0], grids[1])
-        if cells == grids[0].numel():
+        if pair_work(grids[0], grids[1])[2] == grids[0].numel():
             fail("painn_fwd_sym: the LBA pair grids are not symmetric")
         kernels.append((
             "painn_fwd_sym", "geossl_tpu_torch/ops/csrc/painn_fwd.cu",
@@ -6137,11 +6686,7 @@ def main():
             cuda_time_ms(lambda: chunked(lambda *a: torch.cat(
                 P.painn_message_fused_sym_reference(*a, wk0, bk0, cut_lp),
                 dim=-1), (*grids, x, mu), (), 4), reps=3, warmup=1),
-            (filt_pairs * fwd_pair, nnz * fwd_elem),
-            # gate's triangle, dist and the directions on its occupied upper
-            # tiles; x, mu read and dq, dmu written
-            4 * (cells + 4 * tiles + 2 * x.numel() + (R_ + 1) * f3
-                 + 4 * x.numel() // 3),
+            *painn_work("painn_fwd_sym", grids, x, F_, R_),
             lba_launches_p["painn_fwd_sym"]))
     kernels.append((
         "painn_bwd_sym", "geossl_tpu_torch/ops/csrc/painn_bwd.cu",
@@ -6153,11 +6698,7 @@ def main():
             P.painn_bwd_sym_reference(d, g, a, b_, c, xx, m, wk0, bk0, gq_,
                                       gmu_, cut_lp),
             (*grids, x, mu, gq, gmu), (), 2, 7), reps=2, warmup=1),
-        (filt_pairs * (2 * R_ * f3 + 2 * (R_ + 1) * f3 + 2 * R_ * f3),
-         nnz * 40 * F_),
-        # as painn_bwd's, the pair grids on the upper triangle
-        4 * (cells + 4 * tiles + 5 * grids[0].numel() + 5 * x.numel()
-             + x.numel() // 3 + 2 * (R_ + 1) * f3),
+        *painn_work("painn_bwd_sym", grids, x, F_, R_),
         lba_launches_p["painn_bwd_sym"]))
 
     # -- 5. any --num_gaussians: #1-#5 at G = 65, 100 and 300 ----------------------
@@ -6185,6 +6726,14 @@ def main():
     kernels += widths_path(dev, card, errs, cfg, cutoff, gauss_cases, store,
                            buckets, first, layer0_inputs, train_batch)
 
+    # -- 8. PaiNN at any width and any RBF count: #8-#12 -------------------------
+    painn_rows = painn_widths_path(dev, card, errs, store, buckets, first,
+                                   packed, train_batch, lba_batch)
+    for row in painn_rows:
+        if "stack_shape" in row[-1]:
+            stack_shape[row[0]] = row[-1]["stack_shape"]
+    kernels += painn_rows
+
     from geossl_tpu_torch.utils.flops import bound_basis
 
     table = []
@@ -6203,8 +6752,10 @@ def main():
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_f32 = flops / PEAK_F32_FLOPS * 1e3
         lib, entry = KERNEL_ENTRIES[name]
-        if entry is None:  # the stack: the instance of the row's shape
-            entry = stack_instance(*stack_shape[name])[1]
+        if entry is None:  # the instance of the row's shape and R
+            entry = (stack_instance(*stack_shape[name])[1]
+                     if lib == "painn_stack" else
+                     painn_fwd_instance("_sym" in name, extra[0]["n_rbf"]))
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": count, "qm9_launches": qm9_launches.get(name, 0),

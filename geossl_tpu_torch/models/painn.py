@@ -316,8 +316,11 @@ def fused_stack_apply(model: PaiNN, atom_type, positions, node_mask,
     """Inference-only forward with all interaction and mixing blocks in one
     kernel launch (``ops/painn.painn_stack_infer``); the math of
     ``model.forward`` with the kernels' RBF. Needs f32 positions and
-    N <= STACK_MAX_N. ``stacked`` is ``model.stacked_weights()`` made once
-    by a caller whose weights are fixed; made here when None."""
+    N <= STACK_MAX_N; on CUDA F up to ``ops/painn.KERNEL_F`` (the kernel
+    runs a narrower model zero-padded and cuts its outputs back, and
+    refuses a wider one, naming F). ``stacked`` is
+    ``model.stacked_weights()`` made once by a caller whose weights are
+    fixed; made here when None."""
     _check_stackable("fused_stack_apply", model)
     if positions.dtype != torch.float32:
         raise ValueError(f"fused_stack_apply: positions must be float32 (got "
@@ -340,7 +343,8 @@ def stack_train_apply(model: PaiNN, atom_type, positions, node_mask,
     ``painn_bwd`` kernel for the message passes. Gradients flow to the
     parameters and the positions. Returns ``(graph_repr, node_repr)``, as
     ``model.forward``. Needs f32 positions, N <= STACK_MAX_N and no
-    ``pair_axis`` (as the JAX function)."""
+    ``pair_axis`` (as the JAX function); on CUDA F up to
+    ``ops/painn.KERNEL_F``, as :func:`fused_stack_apply`."""
     _check_stackable("stack_train_apply", model)
     if positions.dtype != torch.float32:
         raise ValueError(f"stack_train_apply: positions must be float32 (got "

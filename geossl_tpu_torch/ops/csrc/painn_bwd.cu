@@ -84,6 +84,21 @@
 // rows; the i tile's x and mu rows are read from global memory (L1/L2) at
 // their use, and its gq/gmu rows have one buffer, loaded while the tile's
 // ddist and dWk products run, so that shared memory holds one block.
+//
+// R above kOnePassR (pair_tile.cuh): the streamed instances
+// (painn_bwd_mma_kernel<SYM, true>) run in passes over chunks of at most 32
+// of the filter product's K rows (rbf_chunk), one launch a chunk over the
+// one work list. A pass stages its chunk's rows of Wk (the bias row in the
+// last chunk only) and its rows of phi^T, with the offsets read from the
+// plain version's offset table, so its filter is the chunk's share of
+// w_raw. Every cotangent but dWk/dbk is linear in the filter or a sum over
+// the RBF rows: each pass adds its ddist, dgate, ddir, dx and dmu to the
+// previous passes' (read back and rewritten by the thread that wrote them;
+// SYM's atomics as always), and writes its own rows of the block's dWk/dbk
+// partial (still in the precise mode), which the last launch sums. Each
+// pass repeats the elementwise part (dwg, the dx/dmu sums), so R = 64
+// (three passes) costs about three R = 20 launches. Up to R = 31 the
+// instances are the one-pass code.
 #include "mma_tf32.cuh"
 #include "pair_tile.cuh"
 #include "reduce.cuh"
@@ -147,7 +162,8 @@ __device__ __forceinline__ void filter_chunk_sym(float acc[4][2][4], const float
 }
 
 // The elementwise part of one tile in plain mode: warp (wm, wn) owns pairs
-// 32*wm.. and features 32*wn.. of each chunk. dwg into dwg_s, the dgate and
+// 32*wm.. and features 32*wn.. of each chunk; R < 24: the filter product's
+// K rows (R and the bias row) fit 24. dwg into dwg_s, the dgate and
 // ddir partials of the column warps into pg_p / pd_p, the item's dx and dmu
 // sums (rows j) into dxa / dma.
 __device__ __forceinline__ void tile_plain(const float* pr, const float* gq_t,
@@ -423,7 +439,12 @@ __device__ __forceinline__ void tile_sym(const float* pr, const float* gq_t,
   }
 }
 
-template <bool SYM>
+// STREAM: a pass of a streamed filter product (the header): wk holds the
+// chunk's R rows and offs their offsets, bk and the row of ones come only
+// with `bias`, `accum` adds the pair cotangents and the plain mode's dx/dmu
+// rows to the previous passes', and the block's partial rows (rows R..
+// of the chunk at `part`, rows part_ld floats apart) are the chunk's.
+template <bool SYM, bool STREAM = false>
 __global__ void __launch_bounds__(kThreads, 1)
 painn_bwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
                      const float* __restrict__ dirx, const float* __restrict__ diry,
@@ -436,8 +457,14 @@ painn_bwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
                      float* __restrict__ ddy, float* __restrict__ ddz,
                      const int* __restrict__ occ, const int* __restrict__ pre,
                      float* __restrict__ part, int B, int ni, int nj, int R, float delta,
-                     float coeff) {
+                     float coeff, const float* __restrict__ offs, bool bias, bool accum,
+                     int part_ld) {
   using L = BwdSmem<SYM>;
+  bias = !STREAM || bias;
+  accum = STREAM && accum;
+  // the tile functions' K choice: R < 24 when R rows and the bias row fit
+  // 24 (a streamed chunk without the bias row: R <= 24)
+  const int kr = bias ? R : R - 1;
   extern __shared__ float4 smem_v4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem_v4);
   float* Wk_s = smem + L::Wk;
@@ -460,11 +487,11 @@ painn_bwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
 
   for (int idx = tid; idx < kRP * kF3; idx += kThreads) {
     const int r = idx / kF3, c = idx % kF3;
-    Wk_s[swz_at(kF3, r, c)] = r < R ? wk[idx] : (r == R ? bk[c] : 0.f);
+    Wk_s[swz_at(kF3, r, c)] = r < R ? wk[idx] : (r == R && bias ? bk[c] : 0.f);
   }
   for (int idx = tid; idx < (kRP - R) * kPairs; idx += kThreads) {
     const int r = R + idx / kPairs, p = idx % kPairs;
-    phi_s[swz_at(kPairs, r, p)] = r == R ? 1.f : 0.f;
+    phi_s[swz_at(kPairs, r, p)] = r == R && bias ? 1.f : 0.f;
   }
   if (tid == 0) {
     misc[0] = first_item(pre, n_items, gridDim.x, blockIdx.x);
@@ -562,7 +589,8 @@ painn_bwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
       // phi^T of the tile's 64 pairs (pair p = jl*8 + il)
       for (int idx = tid; idx < R * kPairs; idx += kThreads) {
         const int r = idx / kPairs, p = idx % kPairs;
-        const float diff = pr[(p & 7) * kTile + (p >> 3)] - delta * (float)r;
+        const float diff =
+            pr[(p & 7) * kTile + (p >> 3)] - (STREAM ? __ldg(offs + r) : delta * (float)r);
         phi_s[swz_at(kPairs, r, p)] = __expf(coeff * diff * diff);
       }
       __syncthreads();
@@ -571,10 +599,10 @@ painn_bwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
         // a mirror tile lies above the diagonal, so all its i rows are < ni
         const size_t row_i = ((size_t)b * nj + i0 + g) * kF3;
         tile_sym(pr, gq_t, gmu_t, xj_s, muj_s, smem + L::Gqj, smem + L::Gmuj, phi_s, Wk_s,
-                 dwg_s, pg_p, pd_p, R, pi != pj, x + row_i, mu + row_i, dx + row_i,
+                 dwg_s, pg_p, pd_p, kr, pi != pj, x + row_i, mu + row_i, dx + row_i,
                  dmu + row_i, dxa, dma);
       } else {
-        tile_plain(pr, gq_t, gmu_t, xj_s, muj_s, phi_s, Wk_s, dwg_s, pg_p, pd_p, R, dxa, dma);
+        tile_plain(pr, gq_t, gmu_t, xj_s, muj_s, phi_s, Wk_s, dwg_s, pg_p, pd_p, kr, dxa, dma);
       }
       __syncthreads();  // dwg_s and the dgate/ddir partials complete
       if (SYM && k + 1 < n_t) load_tile(tl_s[k + 1], buf ^ 1);  // the row buffer is free
@@ -590,7 +618,10 @@ painn_bwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
             float s = 0.f;
 #pragma unroll
             for (int w = 0; w < L::kColWarps; ++w) s += src[w * st + tid];
-            pair_out[k2][off] = s;
+            if (accum)
+              pair_out[k2][off] += s;
+            else
+              pair_out[k2][off] = s;
           }
         }
       }
@@ -620,7 +651,7 @@ painn_bwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
             for (int c = 0; c < 2; ++c) {
               const int r = 8 * nb + 2 * t + c;
               if (r < R) {
-                const float diff = d - delta * (float)r;
+                const float diff = d - (STREAM ? __ldg(offs + r) : delta * (float)r);
                 s = fmaf(ar[0][nb][2 * h + c] * phi_s[swz_at(kPairs, r, p)], 2.f * coeff * diff,
                          s);
               }
@@ -641,7 +672,10 @@ painn_bwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
 
       if (tid < kPairs) {
         const int i = i0 + (tid & 7), j = j0 + (tid >> 3);
-        if (i < ni && j < nj) ddist[((size_t)b * ni + i) * nj + j] = dd_p[tid] + dd_p[kPairs + tid];
+        if (i < ni && j < nj) {
+          float* o = ddist + ((size_t)b * ni + i) * nj + j;
+          *o = accum ? *o + (dd_p[tid] + dd_p[kPairs + tid]) : dd_p[tid] + dd_p[kPairs + tid];
+        }
       }
     }
 
@@ -669,15 +703,21 @@ painn_bwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
         const size_t row = ((size_t)b * nj + j) * kF3;
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          dx[row + c * kF + col] = dxa[c][q];
-          dmu[row + c * kF + col] = dma[c][q];
+          if (accum) {
+            dx[row + c * kF + col] += dxa[c][q];
+            dmu[row + c * kF + col] += dma[c][q];
+          } else {
+            dx[row + c * kF + col] = dxa[c][q];
+            dmu[row + c * kF + col] = dma[c][q];
+          }
         }
       }
     }
   }
 
-  // this block's partial [dWk; dbk], rows 0..R
-  float* out = part + (size_t)blockIdx.x * (R + 1) * kF3;
+  // this block's partial [dWk; dbk], rows 0..R (STREAM: the chunk's rows,
+  // and the bias row with `bias`)
+  float* out = part + (size_t)blockIdx.x * (STREAM ? part_ld : (R + 1) * kF3);
 #pragma unroll
   for (int q = 0; q < 3; ++q)
 #pragma unroll
@@ -685,7 +725,7 @@ painn_bwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = 16 * (warp & 1) + g + 8 * h, col = 96 * (warp >> 1) + 32 * q + 8 * nb + 2 * t;
-        if (r <= R) {
+        if (r < R || (r == R && bias)) {
           out[r * kF3 + col] = aw[q][0][nb][2 * h];
           out[r * kF3 + col + 1] = aw[q][0][nb][2 * h + 1];
         }
@@ -701,24 +741,44 @@ static size_t smem_bytes(int ni, int symmetric) {
 template <bool SYM>
 static cudaError_t launch(const float* dist, const float* gate, const float* dirx,
                           const float* diry, const float* dirz, const float* x,
-                          const float* mu, const float* wk, const float* bk, const float* gq,
-                          const float* gmu, float* dx, float* dmu_in, float* ddist,
-                          float* dgate, float* ddx, float* ddy, float* ddz, float* part,
-                          int* ws, int blocks, int B, int ni, int nj, int R, float delta,
-                          float coeff, int sparse, cudaStream_t s) {
+                          const float* mu, const float* wk, const float* bk, const float* offs,
+                          const float* gq, const float* gmu, float* dx, float* dmu_in,
+                          float* ddist, float* dgate, float* ddx, float* ddy, float* ddz,
+                          float* part, int* ws, int blocks, int B, int ni, int nj, int R,
+                          float delta, float coeff, int sparse, cudaStream_t s, int* launches) {
   const int ntj = (nj + kTile - 1) / kTile, nti = (ni + kTile - 1) / kTile;
   const size_t items = (size_t)B * ntj;
   ZeroGrids zero = {{ddist, dgate, ddx, ddy, ddz}, 5};
   cudaError_t err = make_worklist<SYM, false>(gate, ws, zero, B, ni, nj, sparse, s);
   if (err != cudaSuccess) return err;
+  const int* occ = ws;
+  const int* pre = ws + items * nti + items;
   const size_t smem = smem_bytes(ni, SYM);
-  err = cudaFuncSetAttribute(painn_bwd_mma_kernel<SYM>,
+  if (R <= kOnePassR) {
+    err = cudaFuncSetAttribute(painn_bwd_mma_kernel<SYM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    painn_bwd_mma_kernel<SYM><<<blocks, kThreads, smem, s>>>(
+        dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu, dx, dmu_in, ddist, dgate, ddx, ddy,
+        ddz, occ, pre, part, B, ni, nj, R, delta, coeff, nullptr, true, false, 0);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) ++*launches;
+    return err;
+  }
+  err = cudaFuncSetAttribute(painn_bwd_mma_kernel<SYM, true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  painn_bwd_mma_kernel<SYM><<<blocks, kThreads, smem, s>>>(
-      dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu, dx, dmu_in, ddist, dgate, ddx, ddy,
-      ddz, ws, ws + items * nti + items, part, B, ni, nj, R, delta, coeff);
-  return cudaGetLastError();
+  for (int c = 0; c < rbf_chunks(R); ++c) {
+    const RbfChunk ch = rbf_chunk(R, c);
+    painn_bwd_mma_kernel<SYM, true><<<blocks, kThreads, smem, s>>>(
+        dist, gate, dirx, diry, dirz, x, mu, wk + (size_t)ch.r0 * kF3, bk, gq, gmu, dx, dmu_in,
+        ddist, dgate, ddx, ddy, ddz, occ, pre, part + (size_t)ch.r0 * kF3, B, ni, nj, ch.rows,
+        delta, coeff, offs + ch.r0, ch.bias, c > 0, (R + 1) * kF3);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launches;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace geossl
@@ -739,32 +799,35 @@ extern "C" size_t painn_bwd_ws_ints(int B, int ni, int nj) {
                                (ni + geossl::kTile - 1) / geossl::kTile);
 }
 
-// Returns the cudaError_t of the launches (0 on success). `part` holds
+// Returns the cudaError_t of the launches (0 on success) and adds to
+// `*launches` one for each launch of painn_bwd_mma_kernel it made (one a
+// filter pass: one up to R = kOnePassR, painn_rbf_chunks(R) above). `part` holds
 // painn_bwd_blocks(B, nj) rows of (R+1)*3F floats; `wgrad` (one such row)
 // receives dWk [R,3F] and then dbk [3F]; `ws` holds painn_bwd_ws_ints(B, ni,
-// nj) ints. F must be 128 and 2 <= R <= 31. With `symmetric` (square grid
-// only) the five pair cotangents are placed as the header says and dx and
-// dmu_in must be zero on entry.
+// nj) ints. F must be 128 and R >= 2; above R = kOnePassR `offs` holds the
+// R RBF offsets (else it is not read and may be null). With `symmetric`
+// (square grid only) the five pair cotangents are placed as the header says
+// and dx and dmu_in must be zero on entry.
 extern "C" int painn_bwd(const float* dist, const float* gate, const float* dirx,
                          const float* diry, const float* dirz, const float* x,
-                         const float* mu, const float* wk, const float* bk,
+                         const float* mu, const float* wk, const float* bk, const float* offs,
                          const float* gq, const float* gmu, float* dx, float* dmu_in,
                          float* ddist, float* dgate, float* ddx, float* ddy, float* ddz,
                          float* part, float* wgrad, int* ws, int B, int ni, int nj, int F,
                          int R, float delta, float coeff, int symmetric, int sparse,
-                         void* stream) {
+                         void* stream, int* launches) {
   using namespace geossl;
-  if (F != kF || R < 2 || R > 31 || (symmetric && ni != nj))
+  if (F != kF || R < 2 || (R > kOnePassR && !offs) || (symmetric && ni != nj) || !launches)
     return (int)cudaErrorInvalidValue;
   const int blocks = painn_bwd_blocks(B, nj);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err =
-      symmetric ? launch<true>(dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu, dx, dmu_in,
-                               ddist, dgate, ddx, ddy, ddz, part, ws, blocks, B, ni, nj, R,
-                               delta, coeff, sparse, s)
-                : launch<false>(dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu, dx,
+      symmetric ? launch<true>(dist, gate, dirx, diry, dirz, x, mu, wk, bk, offs, gq, gmu, dx,
+                               dmu_in, ddist, dgate, ddx, ddy, ddz, part, ws, blocks, B, ni, nj,
+                               R, delta, coeff, sparse, s, launches)
+                : launch<false>(dist, gate, dirx, diry, dirz, x, mu, wk, bk, offs, gq, gmu, dx,
                                 dmu_in, ddist, dgate, ddx, ddy, ddz, part, ws, blocks, B, ni,
-                                nj, R, delta, coeff, sparse, s);
+                                nj, R, delta, coeff, sparse, s, launches);
   if (err != cudaSuccess) return (int)err;
   sum_partials(part, blocks, (R + 1) * kF3, wgrad, s);
   return (int)cudaGetLastError();

@@ -66,14 +66,28 @@
 // orders of its pairs and emits no mirror. The item's x and mu rows (the
 // mirror's sending side) are staged once per item: ~221 KB of shared
 // memory.
+//
+// R above kOnePassR (pair_tile.cuh): the streamed instances
+// (painn_fwd_mma_kernel<KS, SYM, true>) run the filter product in passes
+// over chunks of at most 32 of its K rows (rbf_chunk), one launch a chunk
+// over the one work list. Each pass stages its chunk's rows of Wk (and, in
+// the last, bk) in WkF, reads its offsets from the plain version's offset
+// table (an ulp of an offset weighs more as the RBF narrows with R), and
+// adds its messages to the previous passes' (the messages are linear in the
+// filter): the plain mode's rows are read back and rewritten by the thread
+// that wrote them, the symmetric mode's added with atomics as always. Each
+// pass repeats the message sums, so R = 64 (three passes) costs about three
+// R = 20 launches. Up to R = 31 the instances are the one-pass code.
 #include "painn_mma.cuh"
 #include "reduce.cuh"
 
 namespace geossl {
 
 // Block k runs items [first_item(k), first_item(k + 1)) of the tile list
-// (painn_fwd_items). KS k steps: K = 8 KS >= R + 1; SYM the symmetric mode.
-template <int KS, bool SYM>
+// (painn_fwd_items). KS k steps: K = 8 KS >= R + 1; SYM the symmetric mode;
+// STREAM a pass of a streamed filter product (painn_fwd_items: R the
+// chunk's rows, offs their offsets, bias, accum).
+template <int KS, bool SYM, bool STREAM = false>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
                      const float* __restrict__ dirx, const float* __restrict__ diry,
@@ -82,10 +96,29 @@ painn_fwd_mma_kernel(const float* __restrict__ dist, const float* __restrict__ g
                      const float* __restrict__ bk, float* __restrict__ dq,
                      float* __restrict__ dmu, const int* __restrict__ pre,
                      const int* __restrict__ list, int B, int ni, int nj, int R, float delta,
-                     float coeff) {
+                     float coeff, const float* __restrict__ offs, bool bias, bool accum) {
   extern __shared__ float4 smem_v4[];  // 16-byte aligned
-  painn_fwd_items<KS, SYM>(reinterpret_cast<float*>(smem_v4), dist, gate, dirx, diry, dirz, x,
-                           mu, wk, bk, dq, dmu, pre, list, B, ni, nj, R, delta, coeff);
+  painn_fwd_items<KS, SYM, STREAM>(reinterpret_cast<float*>(smem_v4), dist, gate, dirx, diry,
+                                   dirz, x, mu, wk, bk, dq, dmu, pre, list, B, ni, nj, R, delta,
+                                   coeff, offs, bias, accum);
+}
+
+// One launch of `kernel` (its dynamic shared memory set first).
+template <typename Kernel>
+static cudaError_t launch(Kernel kernel, size_t smem, cudaStream_t s, int items,
+                          const float* dist, const float* gate, const float* dirx,
+                          const float* diry, const float* dirz, const float* x, const float* mu,
+                          const float* wk, const float* bk, float* dq, float* dmu, const int* pre,
+                          const int* list, int B, int ni, int nj, int R, float delta, float coeff,
+                          const float* offs, bool bias, bool accum) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<persistent_blocks(items), kFwdThreads, smem, s>>>(dist, gate, dirx, diry, dirz, x, mu,
+                                                             wk, bk, dq, dmu, pre, list, B, ni,
+                                                             nj, R, delta, coeff, offs, bias,
+                                                             accum);
+  return cudaGetLastError();
 }
 
 static size_t smem_bytes(int symmetric) {
@@ -103,16 +136,45 @@ extern "C" size_t painn_fwd_ws_ints(int B, int ni, int nj) {
   return tile_list_ints((size_t)B * ((ni + kTile - 1) / kTile), (nj + kTile - 1) / kTile);
 }
 
-// Returns the cudaError_t of the launches (0 on success). F must be 128 and
-// 2 <= R <= 31; `ws` holds painn_fwd_ws_ints(B, ni, nj) ints. With
+// The chunks of an R-row filter product that every PaiNN kernel runs
+// (pair_tile.cuh's rbf_chunk): writes (first RBF row, RBF rows, 1 if the
+// bias row follows) for each into `out` (3 ints a chunk; null: nothing is
+// written) and returns their count.
+extern "C" int painn_rbf_chunks(int R, int* out) {
+  using namespace geossl;
+  if (R < 1) return 0;
+  const int n = rbf_chunks(R);
+  for (int c = 0; out && c < n; ++c) {
+    const RbfChunk ch = rbf_chunk(R, c);
+    out[3 * c] = ch.r0;
+    out[3 * c + 1] = ch.rows;
+    out[3 * c + 2] = ch.bias ? 1 : 0;
+  }
+  return n;
+}
+
+// K steps (KS: K = 8 KS) of the painn_fwd_mma_kernel instance that a launch
+// at R RBF rows runs.
+extern "C" int painn_fwd_ks(int R) {
+  using namespace geossl;
+  return (R > kOnePassR ? rbf_chunk_size(R) <= 24 : R < 24) ? 3 : kKS;
+}
+
+// Returns the cudaError_t of the launches (0 on success) and adds to
+// `*launches` one for each kernel launch it made (one a filter pass: one up
+// to R = kOnePassR, painn_rbf_chunks(R) above). F must be 128 and R >= 2;
+// above R = kOnePassR `offs` holds the R RBF offsets (else it is not read
+// and may be null). `ws` holds painn_fwd_ws_ints(B, ni, nj) ints. With
 // `symmetric` (square grid only) dq and dmu must be zero on entry.
 extern "C" int painn_fwd(const float* dist, const float* gate, const float* dirx,
                          const float* diry, const float* dirz, const float* x,
-                         const float* mu, const float* wk, const float* bk, float* dq,
-                         float* dmu, int* ws, int B, int ni, int nj, int F, int R, float delta,
-                         float coeff, int symmetric, int sparse, void* stream) {
+                         const float* mu, const float* wk, const float* bk, const float* offs,
+                         float* dq, float* dmu, int* ws, int B, int ni, int nj, int F, int R,
+                         float delta, float coeff, int symmetric, int sparse, void* stream,
+                         int* launches) {
   using namespace geossl;
-  if (F != kF || R < 2 || R > kRP - 1 || (symmetric && ni != nj))
+  const bool streamed = R > kOnePassR;
+  if (F != kF || R < 2 || (streamed && !offs) || (symmetric && ni != nj) || !launches)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(symmetric);
   cudaStream_t s = (cudaStream_t)stream;
@@ -123,13 +185,28 @@ extern "C" int painn_fwd(const float* dist, const float* gate, const float* dirx
   if (err != cudaSuccess) return (int)err;
   const int* pre = ws + (size_t)items * ntj + items;
   const int* list = ws + worklist_ints(items, ntj);
-  auto kernel = symmetric
-                    ? (R < 24 ? painn_fwd_mma_kernel<3, true> : painn_fwd_mma_kernel<kKS, true>)
-                    : (R < 24 ? painn_fwd_mma_kernel<3, false> : painn_fwd_mma_kernel<kKS, false>);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<persistent_blocks(items), kFwdThreads, smem, s>>>(dist, gate, dirx, diry, dirz, x, mu,
-                                                             wk, bk, dq, dmu, pre, list, B, ni,
-                                                             nj, R, delta, coeff);
-  return (int)cudaGetLastError();
+  // K = 24 when the product's rows (a streamed pass's chunk) fit it
+  const bool ks3 = painn_fwd_ks(R) == 3;
+  if (!streamed) {
+    auto kernel =
+        symmetric ? (ks3 ? painn_fwd_mma_kernel<3, true> : painn_fwd_mma_kernel<kKS, true>)
+                  : (ks3 ? painn_fwd_mma_kernel<3, false> : painn_fwd_mma_kernel<kKS, false>);
+    err = launch(kernel, smem, s, items, dist, gate, dirx, diry, dirz, x, mu, wk, bk, dq, dmu,
+                 pre, list, B, ni, nj, R, delta, coeff, nullptr, true, false);
+    if (err == cudaSuccess) ++*launches;
+    return (int)err;
+  }
+  auto kernel = symmetric ? (ks3 ? painn_fwd_mma_kernel<3, true, true>
+                                 : painn_fwd_mma_kernel<kKS, true, true>)
+                          : (ks3 ? painn_fwd_mma_kernel<3, false, true>
+                                 : painn_fwd_mma_kernel<kKS, false, true>);
+  for (int c = 0; c < rbf_chunks(R); ++c) {
+    const RbfChunk ch = rbf_chunk(R, c);
+    err = launch(kernel, smem, s, items, dist, gate, dirx, diry, dirz, x, mu,
+                 wk + (size_t)ch.r0 * kF3, bk, dq, dmu, pre, list, B, ni, nj, ch.rows, delta,
+                 coeff, offs + ch.r0, ch.bias, c > 0);
+    if (err != cudaSuccess) return (int)err;
+    ++*launches;
+  }
+  return (int)cudaSuccess;
 }

@@ -48,6 +48,12 @@ constexpr int kS3 = kF3 + 8;  // row stride of the 8-row x/mu tiles (bank spread
 
 constexpr int kFwdThreads = 512;
 
+// *p += (a, b, c, d), read through L2 (a row that an earlier pass wrote).
+__device__ __forceinline__ void add4(float* p, float a, float b, float c, float d) {
+  const float4 o = __ldcg(reinterpret_cast<const float4*>(p));
+  st4(p, o.x + a, o.y + b, o.z + c, o.w + d);
+}
+
 // The feature (within the warp's 16) of C column n = 8*nb + j.
 __host__ __device__ constexpr int fwd_col(int n) {
   return 4 * ((n & 7) >> 1) + 2 * (n >> 3) + (n & 1);
@@ -57,9 +63,12 @@ constexpr int kWkFFloats = 3 * 16 * kKS * 32 * 4;
 constexpr int kPhiFLo = 4 * kKS * 32 * 4;    // the low parts' offset in a phi buffer
 constexpr int kPhiFFloats = 2 * kPhiFLo;
 
-// Stages WkF (split_b: both parts rounded). Every thread of the block calls it.
+// Stages WkF (split_b: both parts rounded): R rows of wk, then bk if
+// `bias` (a streamed chunk: its rows of Wk, the bias in the last chunk only).
+// Every thread of the block calls it.
 __device__ __forceinline__ void painn_stage_wkf(float* WkF, const float* __restrict__ wk,
-                                                const float* __restrict__ bk, int R) {
+                                                const float* __restrict__ bk, int R,
+                                                bool bias) {
   for (int e = threadIdx.x; e < kWkFFloats / 4; e += kFwdThreads) {
     const int lane = e & 31, ks = (e >> 5) % kKS, cg = (e >> 5) / kKS;  // cg = 16 c + grp
     const int k0 = 8 * ks + (lane & 3);
@@ -68,7 +77,7 @@ __device__ __forceinline__ void painn_stage_wkf(float* WkF, const float* __restr
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int k = k0 + 4 * u;
-      v[u] = k < R ? wk[k * kF3 + n] : (k == R ? bk[n] : 0.f);
+      v[u] = k < R ? wk[k * kF3 + n] : (k == R && bias ? bk[n] : 0.f);
     }
     float4 f;
     split_b(v[0], f.x, f.z);
@@ -79,11 +88,14 @@ __device__ __forceinline__ void painn_stage_wkf(float* WkF, const float* __restr
 
 // The A fragments [phi; 1] gate of a tile into phi buffer phiF, split into
 // their TF32 parts (split_tf32: the plain split). d_t and g_t: the tile's
-// distances and gates [il][jl]. KS k steps (K = 8 KS >= R+1). Every thread
-// of the block calls it.
-template <int KS>
+// distances and gates [il][jl]. KS k steps (K = 8 KS >= R+1). STREAM (a
+// chunk of a streamed filter product): the R offsets are read from `offs`
+// (the plain version's), and the row of ones follows them only with `bias`.
+// Every thread of the block calls it.
+template <int KS, bool STREAM = false>
 __device__ __forceinline__ void painn_phi_frags(const float* d_t, const float* g_t, float* phiF,
-                                                int R, float delta, float coeff) {
+                                                int R, float delta, float coeff,
+                                                const float* __restrict__ offs, bool bias) {
   for (int e = threadIdx.x; e < 4 * KS * 32; e += kFwdThreads) {
     const int lane = e & 31, ks = (e >> 5) % KS, blk = (e >> 5) / KS;
     const int g = lane >> 2, t = lane & 3;
@@ -92,8 +104,9 @@ __device__ __forceinline__ void painn_phi_frags(const float* d_t, const float* g
     for (int q = 0; q < 4; ++q) {
       const int p = 16 * blk + g + 8 * (q & 1), r = 8 * ks + t + 4 * (q >> 1);
       const int at = (p & 7) * kTile + (p >> 3);
-      const float gp = g_t[at], diff = d_t[at] - delta * (float)r;
-      const float v = r < R ? gp * __expf(coeff * diff * diff) : (r == R ? gp : 0.f);
+      const float off = STREAM ? (r < R ? __ldg(offs + r) : 0.f) : delta * (float)r;
+      const float gp = g_t[at], diff = d_t[at] - off;
+      const float v = r < R ? gp * __expf(coeff * diff * diff) : (r == R && bias ? gp : 0.f);
       split_tf32(__float_as_uint(v), hi[q], lo[q]);
     }
     const int at4 = (blk * kKS + ks) * 32 + lane;
@@ -225,14 +238,24 @@ constexpr int kFwdSymFloats = kFOffXi + 2 * kTile * kS3;
 // added to dq/dmu with float2 atomics; the item's own rows are added with
 // float4 atomics when it ends. dq and dmu must be zero on entry, and their
 // summation order varies from run to run.
-template <int KS, bool SYM = false>
+//
+// STREAM (a pass of a streamed filter product, pair_tile.cuh's RbfChunk):
+// wk holds the chunk's R rows, offs their R offsets, and bk is added only
+// with `bias`; with `accum` (every pass but the first) the plain mode adds
+// its rows to what the previous pass wrote there (each row is written by
+// the same thread in every pass over one work list) instead of storing
+// them; SYM adds with atomics in every pass.
+template <int KS, bool SYM = false, bool STREAM = false>
 __device__ __forceinline__ void painn_fwd_items(
     float* smem, const float* __restrict__ dist, const float* __restrict__ gate,
     const float* __restrict__ dirx, const float* __restrict__ diry,
     const float* __restrict__ dirz, const float* x, const float* mu,
     const float* __restrict__ wk, const float* __restrict__ bk, float* dq, float* dmu,
     const int* __restrict__ pre, const int* __restrict__ list, int B, int ni, int nj, int R,
-    float delta, float coeff) {
+    float delta, float coeff, const float* __restrict__ offs = nullptr, bool bias = true,
+    bool accum = false) {
+  bias = !STREAM || bias;
+  accum = STREAM && accum;
   const float* WkF = smem + kFOffWk;
   float* red_s = smem + kFOffRed;
 
@@ -294,8 +317,8 @@ __device__ __forceinline__ void painn_fwd_items(
   // 3) into phi buffer q & 1
   auto make_phi = [&](int q) {
     const float* pr = smem + kFOffPr + q % 3 * 5 * kPairs;
-    painn_phi_frags<KS>(pr, pr + kPairs, smem + kFOffPhi + (q & 1) * kPhiFFloats, R,
-                                     delta, coeff);
+    painn_phi_frags<KS, STREAM>(pr, pr + kPairs, smem + kFOffPhi + (q & 1) * kPhiFFloats, R,
+                                delta, coeff, offs, bias);
   };
 
   // SYM: the x and mu rows of item `it` (its i tile) into the row buffer,
@@ -341,6 +364,8 @@ __device__ __forceinline__ void painn_fwd_items(
       float* row_q = dq + ((size_t)b * ni + i) * kF + f;
       if (SYM)  // mirrors of other items' tiles land on these rows too
         atomic_add4(row_q, make_float4(aq[0] + r.x, aq[1] + r.y, aq[2] + r.z, aq[3] + r.w));
+      else if (accum)  // the previous passes' sums, written by this thread
+        add4(row_q, aq[0] + r.x, aq[1] + r.y, aq[2] + r.z, aq[3] + r.w);
       else
         st4(row_q, aq[0] + r.x, aq[1] + r.y, aq[2] + r.z, aq[3] + r.w);
 #pragma unroll
@@ -350,6 +375,8 @@ __device__ __forceinline__ void painn_fwd_items(
         if (SYM)
           atomic_add4(row_m, make_float4(am[cc][0] + rm.x, am[cc][1] + rm.y, am[cc][2] + rm.z,
                                          am[cc][3] + rm.w));
+        else if (accum)
+          add4(row_m, am[cc][0] + rm.x, am[cc][1] + rm.y, am[cc][2] + rm.z, am[cc][3] + rm.w);
         else
           st4(row_m, am[cc][0] + rm.x, am[cc][1] + rm.y, am[cc][2] + rm.z, am[cc][3] + rm.w);
       }
@@ -365,7 +392,7 @@ __device__ __forceinline__ void painn_fwd_items(
   load_rows(v0, 0);
   cp_async_commit();
   if (SYM) load_irows(cur);
-  painn_stage_wkf(smem + kFOffWk, wk, bk, R);  // while the first tile's loads fly
+  painn_stage_wkf(smem + kFOffWk, wk, bk, R, bias);  // while the first tile's loads fly
   cp_async_wait<0>();
   __syncthreads();
   make_phi(0);

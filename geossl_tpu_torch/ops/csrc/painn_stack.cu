@@ -71,6 +71,18 @@
 // [B, L, N, F or 3F]: qs and mus (q and mu at block entry, mus[:, 0] = 0),
 // where the dense phase writes the new q and mu, and qps and mups (q + dq
 // and mu + dmu at mixing entry), where the mixing loads them.
+//
+// STREAM (R above kOnePassR, pair_tile.cuh): each message phase runs
+// painn_fwd_items's streamed passes, one per chunk of at most 32 of the
+// filter product's K rows (rbf_chunk), one after another in the same
+// block over the same run of items, each adding its dq/dmu rows to the
+// previous passes' in the workspaces (a block barrier between passes; every
+// pass reads the same x and old mu). The chunks fit the one-pass shared
+// memory, so the budget (painn_stack_smem_bytes) is unchanged. F stays 128:
+// a narrower model is zero-padded by the caller (exact: a padded feature's
+// x, filter, message, v and w are zero, and its vn = sqrt(eps) meets zero
+// rows of W1), a wider one is refused (one F x F f32 weight piece at F =
+// 256 is 256 KiB, beyond shared memory).
 #include "painn_mma.cuh"
 
 namespace geossl {
@@ -150,7 +162,7 @@ struct Dense {
   }
 };
 
-template <bool RES, int KS, int ROWS>
+template <bool RES, int KS, int ROWS, bool STREAM>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gate,
                    const float* __restrict__ dirx, const float* __restrict__ diry,
@@ -163,7 +175,7 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
                    const float* __restrict__ b2, float* q, float* mu, float* work, float* qs,
                    float* mus, float* qps, float* mups, const int* __restrict__ pre,
                    const int* __restrict__ list, unsigned* bar, int B, int n, int R, int L,
-                   float delta, float coeff, float eps) {
+                   float delta, float coeff, float eps, const float* __restrict__ offs) {
   extern __shared__ float4 smem_v4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem_v4);
   float* W0 = smem + kDW0;
@@ -407,8 +419,20 @@ painn_stack_kernel(const float* __restrict__ dist, const float* __restrict__ gat
     }
     if (l == L) break;
     grid_sync(bar);  // x and mu of every row are written
-    painn_fwd_items<KS>(smem, dist, gate, dirx, diry, dirz, xw, mu, wk + (size_t)l * R * kF3,
-                        bk + (size_t)l * kF3, dqw, dmuw, pre, list, B, n, n, R, delta, coeff);
+    if (STREAM) {
+      for (int c = 0; c < rbf_chunks(R); ++c) {
+        const RbfChunk ch = rbf_chunk(R, c);
+        if (c > 0) __syncthreads();  // the previous pass is done with shared memory
+        painn_fwd_items<KS, false, true>(smem, dist, gate, dirx, diry, dirz, xw, mu,
+                                         wk + ((size_t)l * R + ch.r0) * kF3,
+                                         bk + (size_t)l * kF3, dqw, dmuw, pre, list, B, n, n,
+                                         ch.rows, delta, coeff, offs + ch.r0, ch.bias, c > 0);
+      }
+      __syncthreads();
+    } else {
+      painn_fwd_items<KS>(smem, dist, gate, dirx, diry, dirz, xw, mu, wk + (size_t)l * R * kF3,
+                          bk + (size_t)l * kF3, dqw, dmuw, pre, list, B, n, n, R, delta, coeff);
+    }
     grid_sync(bar);  // dq and dmu of every row are written
   }
 }
@@ -428,12 +452,12 @@ static int sm_count() {
   return sms;
 }
 
-template <bool RES, int KS>
+template <bool RES, int KS, bool STREAM>
 static cudaError_t launch(void** args, int rows, cudaStream_t s) {
   const int sms = sm_count();
   int per_sm = 0;
-  const auto kernel = chunk_rows(rows, sms) == 32 ? painn_stack_kernel<RES, KS, 32>
-                                                  : painn_stack_kernel<RES, KS, 64>;
+  const auto kernel = chunk_rows(rows, sms) == 32 ? painn_stack_kernel<RES, KS, 32, STREAM>
+                                                  : painn_stack_kernel<RES, KS, 64, STREAM>;
   const size_t smem = sizeof(float) * (size_t)kStackFloats;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -458,6 +482,11 @@ extern "C" int painn_stack_chunk_rows(int B, int n) {
   return geossl::chunk_rows(B * n, geossl::sm_count());
 }
 
+// K steps (KS: K = 8 KS) of the painn_stack_kernel instance that a launch
+// at R RBF rows runs: 3 up to R = 23, kKS above (the streamed instances'
+// passes: kKS).
+extern "C" int painn_stack_ks(int R) { return R < 24 ? 3 : geossl::kKS; }
+
 // Ints of the workspace: the tile list over the gate (worklist.cuh), then
 // the grid barrier's two counters.
 extern "C" size_t painn_stack_ws_ints(int B, int n) {
@@ -466,7 +495,9 @@ extern "C" size_t painn_stack_ws_ints(int B, int n) {
 }
 
 // Returns the cudaError_t of the launches (0 on success). F must be 128,
-// 2 <= R <= 31, n <= 128, L >= 1. `work` holds B*n*7F floats of scratch,
+// R >= 2, n <= 128, L >= 1; above R = kOnePassR `offs` holds the R RBF
+// offsets (else it is not read and may be null). `work` holds B*n*7F floats
+// of scratch,
 // `ws` painn_stack_ws_ints(B, n) ints. With `save_residuals`, qs/qps hold
 // B*L*n*F floats and mus/mups B*L*n*3F each (else they are not read and
 // may be null).
@@ -474,13 +505,15 @@ extern "C" int painn_stack(const float* dist, const float* gate, const float* di
                            const float* diry, const float* dirz, const float* q0,
                            const float* wd1, const float* bd1, const float* wd2,
                            const float* bd2, const float* wk, const float* bk,
-                           const float* wmix, const float* w1, const float* b1,
+                           const float* offs, const float* wmix, const float* w1,
+                           const float* b1,
                            const float* w2, const float* b2, float* q, float* mu,
                            float* work, float* qs, float* mus, float* qps, float* mups, int* ws,
                            int B, int n, int F, int R, int L, float delta, float coeff,
                            float eps, int save_residuals, void* stream) {
   using namespace geossl;
-  if (F != kF || R < 2 || R > kRP - 1 || n < 1 || n > 128 || L < 1 || B < 1)
+  const bool streamed = R > kOnePassR;
+  if (F != kF || R < 2 || (streamed && !offs) || n < 1 || n > 128 || L < 1 || B < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int nt = (n + kTile - 1) / kTile;
@@ -495,13 +528,17 @@ extern "C" int painn_stack(const float* dist, const float* gate, const float* di
   void* args[] = {&dist, &gate, &dirx, &diry, &dirz, &q0,  &wd1, &bd1,  &wd2,  &bd2,
                   &wk,   &bk,   &wmix, &w1,   &b1,   &w2,  &b2,  &q,    &mu,   &work,
                   &qs,   &mus,  &qps,  &mups, &pre,  &list, &bar, &B,   &n,    &R,
-                  &L,    &delta, &coeff, &eps};
-  const bool ks3 = R < 24;
+                  &L,    &delta, &coeff, &eps, &offs};
+  const bool ks3 = painn_stack_ks(R) == 3;
   const int rows = B * n;
-  if (save_residuals)
-    err = ks3 ? launch<true, 3>(args, rows, s) : launch<true, kKS>(args, rows, s);
+  // the streamed instances: K = 32 a chunk (kKS k steps)
+  if (streamed)
+    err = save_residuals ? launch<true, kKS, true>(args, rows, s)
+                         : launch<false, kKS, true>(args, rows, s);
+  else if (save_residuals)
+    err = ks3 ? launch<true, 3, false>(args, rows, s) : launch<true, kKS, false>(args, rows, s);
   else
-    err = ks3 ? launch<false, 3>(args, rows, s) : launch<false, kKS>(args, rows, s);
+    err = ks3 ? launch<false, 3, false>(args, rows, s) : launch<false, kKS, false>(args, rows, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

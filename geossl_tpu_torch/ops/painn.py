@@ -15,8 +15,11 @@ passes them.
 
 Each wrapper takes the plain PyTorch version for tensors on the CPU and
 launches its hand-written CUDA kernel (``csrc/``) for tensors on a CUDA
-device; anything else raises. Each counts its launches in
-``<wrapper>.launches`` (``ops/_launch.py``).
+device; anything else raises. There is no fallback from a kernel to the
+plain version. Each counts its kernel's launches in ``<wrapper>.launches``
+(``ops/_launch.py``): the message-pass kernels one as each launch returns
+(a call above ``KERNEL_F`` makes several: Widths, below), the stack one a
+call.
 
 Kernels:
 
@@ -60,6 +63,34 @@ trusts the caller, as the JAX one does. Its pair cotangents are exact only
 upstream of the positions (a gradient to dist, gate or a direction grid
 itself is the placed one).
 
+Widths. The kernels' tiling is written for F = ``KERNEL_F`` = 128 features
+(a 3F = 384-wide filter). PaiNN's message is per feature: output feature f
+of dq and dmu reads feature f of each third of x, of mu, of Wk and of bk,
+and the gate is one scalar per pair. So a narrower F is zero-padded to 128
+inside the launch functions (exact: zero columns of Wk and bk give zero
+filters), and a wider one runs as k = ceil(F / 128) column blocks
+(:func:`message_blocks_fwd`, :func:`message_blocks_bwd`): one call of the
+128-wide kernel entry per block on that block's columns of every third, gathered
+into a contiguous copy (the last block's zero-padded). Each block's dq, dmu,
+dx, dmu-cotangent, dWk and dbk are its columns of the full result, exact;
+only the pair cotangents (ddist, dgate, ddir x/y/z) are sums over the
+blocks, taken in block order. The stack pads up to 128 and refuses wider F
+(its dense layers mix features; serving routes such a model per block).
+The padding and the blocks stay inside the launch functions, so the
+autograd Functions, the ops' fake implementations and sealed programs keep
+the user's width.
+
+RBF counts. Every kernel takes any R >= 2. Up to ``ONE_PASS_R`` = 31 it
+holds the filter product's K = R + 1 rows (the bias row last) at once;
+above, its streamed instances run the product in passes over chunks of at
+most 32 K rows (``csrc/pair_tile.cuh``'s ``rbf_chunk``), each pass adding
+its outputs to the previous ones' (#8-#11: one kernel launch a pass, made
+by the C entry, which reports how many it made; #12: a loop in the
+kernel), and read
+their RBF offsets from the plain version's table (:func:`_rbf_offsets`)
+rather than making them as ``delta * r``: an ulp of an offset weighs more
+as the RBF narrows with R.
+
 Each launch is also a custom op (``ops/_launch.kernel_op``):
 ``geossl_torch::painn_fwd`` and ``painn_bwd`` (both modes; the backward's
 weight gradients as one flat tensor), ``painn_stack`` (inference) and
@@ -81,12 +112,14 @@ from geossl_tpu_torch.ops._launch import (
     check_launch,
     check_smem,
     counted,
+    counter,
     flat,
     fresh_thread,
     kernel_op,
     launch,
     on_cpu,
     ptr,
+    ptr_or_null,
     refuse_grad,
     refuse_second_order,
     stream,
@@ -94,7 +127,8 @@ from geossl_tpu_torch.ops._launch import (
 from geossl_tpu_torch.ops.cfconv import second_order, sparse_auto
 
 # Feature width the PaiNN kernels' tiling is written for (csrc/pair_tile.cuh's
-# kF; its filter is 3F wide); the PaiNN kernels take this width only.
+# kF; its filter is 3F wide): F below it is zero-padded to it, F above it
+# runs in column blocks of it (read at call time); the stack takes up to it.
 KERNEL_F = 128
 # Largest N the whole-stack kernel accepts (as painn_pallas.STACK_MAX_N).
 STACK_MAX_N = 128
@@ -111,9 +145,36 @@ def sym_profitable(n: int) -> bool:
     return n >= _SYM_MIN_N
 
 
-# The backward kernel keeps the R filter rows and the bias row in one
-# 32-row thread layout.
-MAX_R = 31
+# The kernels take any RBF count from MIN_R; up to ONE_PASS_R their filter
+# product's K rows (R RBF rows and the bias row) fit one 32-row layout, above
+# it the streamed instances run it in passes over 32-row chunks
+# (csrc/pair_tile.cuh's kOnePassR).
+MIN_R = 2
+ONE_PASS_R = 31
+
+
+def feature_blocks(f: int) -> int:
+    """Calls of the ``KERNEL_F``-wide kernel entries per message-pass call
+    at width ``f``: one up to ``KERNEL_F`` (padded), k = ceil(f /
+    KERNEL_F) column blocks above. Each call makes one kernel launch a
+    filter pass (:func:`rbf_chunks`)."""
+    return -(-f // KERNEL_F)
+
+
+def rbf_chunks(num_r: int) -> list:
+    """The chunks of the filter product's K = num_r + 1 rows that the
+    kernels run at ``num_r`` RBF rows, as (first RBF row, RBF rows, bias
+    row follows): csrc/pair_tile.cuh's ``rbf_chunk``, which the library
+    exports as ``painn_rbf_chunks`` (``chip_smoke.py`` holds this copy to
+    it). One chunk up to ``ONE_PASS_R``; above, ceil(K / 32) of
+    near-equal size, at most 32 rows each, the bias row at the end of the
+    last."""
+    k = num_r + 1
+    size = -(-k // -(-k // 32))
+    return [(k0, min(k0 + size, k) - k0 - (k0 + size >= k), k0 + size >= k)
+            for k0 in range(0, k, size)]
+
+
 # -- plain versions -----------------------------------------------------------
 
 
@@ -216,15 +277,93 @@ def _rbf_consts(cutoff, num_r):
     return float(delta), float(-0.5 / delta**2)
 
 
+def _rbf_offsets(cutoff, num_r, device):
+    """The plain version's f32 RBF offsets (:func:`_rbf`), which the
+    streamed instances read (R > ONE_PASS_R); None below (the one-pass
+    instances make them as delta * r)."""
+    if num_r <= ONE_PASS_R:
+        return None
+    return jax_linspace(cutoff, num_r, torch.float32, device)
+
+
+def _pad_parts(t, f, width, parts=3):
+    """t [..., parts*f] with each of its ``parts`` equal column groups (x's
+    thirds, mu's channels, Wmix's halves) zero-padded to ``width``."""
+    if f == width:
+        return t
+    lead = t.shape[:-1]
+    return F_.pad(t.reshape(*lead, parts, f), (0, width - f)).reshape(
+        *lead, parts * width)
+
+
+def _block(t, f, o, parts=3):
+    """Column block ``o`` (``KERNEL_F`` wide) of each of the ``parts``
+    groups of t [..., parts*f], as one copy [..., parts*KERNEL_F]: the
+    block's columns, zero-padded where they run past f."""
+    lead = t.shape[:-1]
+    cols = t.reshape(*lead, parts, f)[..., o * KERNEL_F:(o + 1) * KERNEL_F]
+    return F_.pad(cols, (0, KERNEL_F - cols.shape[-1])).reshape(
+        *lead, parts * KERNEL_F).contiguous()
+
+
+def _join(blocks, f, parts=3):
+    """The blocks' outputs [..., parts*KERNEL_F], in block order, as one
+    [..., parts*f] tensor (the padding cut)."""
+    lead = blocks[0].shape[:-1]
+    t = torch.cat([b.reshape(*lead, parts, KERNEL_F) for b in blocks], -1)
+    return t[..., :f].reshape(*lead, parts * f)
+
+
+def message_blocks_fwd(call, x, mu, wk, bk):
+    """The message pass at any width through ``call(x, mu, wk, bk)``, a
+    ``KERNEL_F``-wide forward returning (dq, dmu): F = KERNEL_F passes
+    straight through (no copy); otherwise, for k = ``feature_blocks(F)``
+    column blocks, block o's call takes columns o*128.. of every third of
+    x, mu, Wk and bk (:func:`_block`: zero-padded past F, so F below 128 is
+    one padded call), and its dq and dmu are those columns of the result,
+    k calls. Returns (dq [.., F], dmu [.., 3F])."""
+    f = x.shape[-1] // 3
+    if f == KERNEL_F:
+        return call(x, mu, wk, bk)
+    outs = [call(*(_block(t, f, o) for t in (x, mu, wk, bk)))
+            for o in range(feature_blocks(f))]
+    return (_join([o[0] for o in outs], f, 1),
+            _join([o[1] for o in outs], f))
+
+
+def message_blocks_bwd(call, x, mu, wk, bk, gq, gmu):
+    """The message pass's backward at any width through ``call(x, mu, wk,
+    bk, gq, gmu)``, a ``KERNEL_F``-wide backward returning the five pair
+    cotangents (ddist, dgate, ddirx, ddiry, ddirz) and then column
+    gradients [..., 3 * KERNEL_F] (dx, dmu, the weight gradients); padded
+    or in column blocks as :func:`message_blocks_fwd` (gq and gmu sliced
+    with dq and dmu). Over the k calls: the pair cotangents are summed in
+    block order, each column gradient is block o's columns as it comes."""
+    f = x.shape[-1] // 3
+    if f == KERNEL_F:
+        return call(x, mu, wk, bk, gq, gmu)
+    parts = (3, 3, 3, 3, 1, 3)  # x, mu, wk, bk, gq, gmu
+    pair = None
+    cols = []
+    for o in range(feature_blocks(f)):
+        out = call(*(_block(t, f, o, p)
+                     for t, p in zip((x, mu, wk, bk, gq, gmu), parts)))
+        pair = out[:5] if pair is None else [a + d for a, d in
+                                             zip(pair, out[:5])]
+        cols.append(out[5:])
+    return (*pair, *(_join(list(c), f) for c in zip(*cols)))
+
+
 def _check(name, dist, gate, dirs, x, mu, wk, bk):
+    """Any F >= 1 (padded, or in column blocks of KERNEL_F), R >= MIN_R."""
     b, ni, nj = dist.shape
     f3 = x.shape[-1]
     num_r = wk.shape[0]
-    if f3 != 3 * KERNEL_F or wk.shape != (num_r, f3) or bk.shape != (f3,) \
-            or not 2 <= num_r <= MAX_R:
+    if f3 < 3 or f3 % 3 or wk.shape != (num_r, f3) or bk.shape != (f3,) \
+            or num_r < MIN_R:
         raise ValueError(
-            f"{name}: kernel takes F={KERNEL_F}, Wk [R,3F] with 2 <= R <= "
-            f"{MAX_R}; got x {tuple(x.shape)}, Wk {tuple(wk.shape)}")
+            f"{name}: kernel takes x [B,N,3F], Wk [R,3F] with R >= {MIN_R}, "
+            f"bk [3F]; got x {tuple(x.shape)}, Wk {tuple(wk.shape)}")
     if any(t.shape != dist.shape for t in (gate, *dirs)) \
             or x.shape != (b, nj, f3) or mu.shape != (b, nj, f3):
         raise ValueError(f"{name}: shapes dist {tuple(dist.shape)}, x "
@@ -249,19 +388,39 @@ def _launch_painn_fwd(dist: Tensor, gate: Tensor, dirx: Tensor, diry: Tensor,
                       dirz: Tensor, x: Tensor, mu: Tensor, wk: Tensor,
                       bk: Tensor, cutoff: float, symmetric: bool,
                       sparse: bool) -> tuple[Tensor, Tensor]:
+    """The forward at any F and R: :func:`message_blocks_fwd` over
+    :func:`_painn_fwd_kernel`, counting the kernel launches each call
+    made."""
     name = "painn_fwd_sym" if symmetric else "painn_fwd"
     _check(name, dist, gate, (dirx, diry, dirz), x, mu, wk, bk)
-    b, ni, nj = dist.shape
+    ni, nj = dist.shape[1:]
     if symmetric and ni != nj:
         raise ValueError(f"{name}: the symmetric mode needs a square grid")
+
+    def call(*xw):
+        dq, dmu, launches = _painn_fwd_kernel(dist, gate, dirx, diry, dirz,
+                                              *xw, cutoff, symmetric, sparse)
+        counter(name).launches += launches
+        return dq, dmu
+
+    return message_blocks_fwd(call, x, mu, wk, bk)
+
+
+def _painn_fwd_kernel(dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
+                      symmetric, sparse):
+    """One call of csrc/painn_fwd.cu at F = KERNEL_F (any R): (dq, dmu,
+    the kernel launches it made: one a filter pass)."""
+    name = "painn_fwd_sym" if symmetric else "painn_fwd"
+    b, ni, nj = dist.shape
     num_r = wk.shape[0]
     check_smem(name, _build.kernel_fn(
         "painn_fwd", "painn_fwd_smem_bytes", [ctypes.c_int],
         ctypes.c_size_t)(int(symmetric)))
     fn = _build.kernel_fn(
         "painn_fwd", "painn_fwd",
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+           ctypes.POINTER(ctypes.c_int)])
     dev = dist.device
     # the symmetric mode adds every output row with atomics; the plain mode
     # writes each row once. Both take a work list made on the device (tile
@@ -273,12 +432,14 @@ def _launch_painn_fwd(dist: Tensor, gate: Tensor, dirx: Tensor, diry: Tensor,
         "painn_fwd", "painn_fwd_ws_ints", [ctypes.c_int] * 3,
         ctypes.c_size_t)(b, ni, nj), dtype=torch.int32, device=dev)
     delta, coeff = _rbf_consts(cutoff, num_r)
-    err = fn(*map(ptr, (dist, gate, dirx, diry, dirz, x, mu, wk, bk, dq, dmu,
-                        ws)),
-             b, ni, nj, KERNEL_F, num_r, delta, coeff, int(symmetric),
-             int(sparse), stream(dist))
+    offs = _rbf_offsets(cutoff, num_r, dev)
+    launches = ctypes.c_int(0)
+    err = fn(*map(ptr, (dist, gate, dirx, diry, dirz, x, mu, wk, bk)),
+             ptr_or_null(offs), *map(ptr, (dq, dmu, ws)), b, ni, nj, KERNEL_F,
+             num_r, delta, coeff, int(symmetric), int(sparse), stream(dist),
+             ctypes.byref(launches))
     check_launch(name, err)
-    return dq, dmu
+    return dq, dmu, launches.value
 
 
 class _PaiNNMessage(torch.autograd.Function):
@@ -361,9 +522,7 @@ def painn_message_fused(dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff,
     args = (dist, gate, dirx, diry, dirz, x, mu, wk, bk)
     if on_cpu("painn_fwd", *args):
         return painn_message_reference(*args, cutoff)
-    out = _PaiNNMessage.apply(*args, cutoff, False, sparse)
-    painn_message_fused.launches += 1
-    return out
+    return _PaiNNMessage.apply(*args, cutoff, False, sparse)
 
 
 @counted("painn_fwd_sym")
@@ -377,9 +536,7 @@ def painn_message_fused_sym(dist, gate, dirx, diry, dirz, x, mu, wk, bk,
     args = (dist, gate, dirx, diry, dirz, x, mu, wk, bk)
     if on_cpu("painn_fwd_sym", *args):
         return painn_message_fused_sym_reference(*args, cutoff)
-    out = _PaiNNMessage.apply(*args, cutoff, True, sparse)
-    painn_message_fused_sym.launches += 1
-    return out
+    return _PaiNNMessage.apply(*args, cutoff, True, sparse)
 
 
 def _painn_bwd_fake(dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu,
@@ -410,16 +567,37 @@ def _launch_painn_bwd(dist: Tensor, gate: Tensor, dirx: Tensor, diry: Tensor,
                       ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor,
                                  Tensor, Tensor, Tensor]:
     """(ddist, dgate, ddirx, ddiry, ddirz, dx, dmu, the flat weight
-    gradient dWk|dbk)."""
+    gradient dWk|dbk), at any F and R: :func:`message_blocks_bwd` over
+    :func:`_painn_bwd_kernel`, counting the kernel launches each call
+    made."""
     name = "painn_bwd_sym" if symmetric else "painn_bwd"
     _check(name, dist, gate, (dirx, diry, dirz), x, mu, wk, bk)
     b, ni, nj = dist.shape
-    num_r, f3 = wk.shape
-    if gq.shape != (b, ni, KERNEL_F) or gmu.shape != (b, ni, f3):
+    f3 = wk.shape[1]
+    if gq.shape != (b, ni, f3 // 3) or gmu.shape != (b, ni, f3):
         raise ValueError(f"{name}: cotangents gq {tuple(gq.shape)}, gmu "
                          f"{tuple(gmu.shape)} do not match [B,Ni,F], [B,Ni,3F]")
     if symmetric and ni != nj:
         raise ValueError(f"{name}: the symmetric mode needs a square grid")
+    def call(*xw):
+        *out, wgrad, launches = _painn_bwd_kernel(
+            dist, gate, dirx, diry, dirz, *xw, cutoff, symmetric, sparse)
+        counter(name).launches += launches
+        # dWk's rows and dbk as one [R+1, 3F] column gradient
+        return (*out, wgrad.view(wk.shape[0] + 1, -1))
+
+    *out, wgrad = message_blocks_bwd(call, x, mu, wk, bk, gq, gmu)
+    return (*out, wgrad.reshape(-1))
+
+
+def _painn_bwd_kernel(dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu,
+                      cutoff, symmetric, sparse):
+    """One call of csrc/painn_bwd.cu at F = KERNEL_F (any R): (ddist,
+    dgate, ddirx, ddiry, ddirz, dx, dmu, the flat weight gradient, the
+    kernel launches it made: one a filter pass)."""
+    name = "painn_bwd_sym" if symmetric else "painn_bwd"
+    b, ni, nj = dist.shape
+    num_r, f3 = wk.shape
     check_smem(name, _build.kernel_fn(
         "painn_bwd", "painn_bwd_smem_bytes", [ctypes.c_int] * 2,
         ctypes.c_size_t)(ni, int(symmetric)))
@@ -427,8 +605,9 @@ def _launch_painn_bwd(dist: Tensor, gate: Tensor, dirx: Tensor, diry: Tensor,
                               [ctypes.c_int, ctypes.c_int])(b, nj)
     fn = _build.kernel_fn(
         "painn_bwd", "painn_bwd",
-        [ctypes.c_void_p] * 21 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        [ctypes.c_void_p] * 22 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+           ctypes.POINTER(ctypes.c_int)])
     dev = dist.device
     ddist, dgate, ddx, ddy, ddz = (torch.empty_like(dist) for _ in range(5))
     # the symmetric mode adds every dx and dmu row with atomics
@@ -443,13 +622,16 @@ def _launch_painn_bwd(dist: Tensor, gate: Tensor, dirx: Tensor, diry: Tensor,
         "painn_bwd", "painn_bwd_ws_ints", [ctypes.c_int] * 3,
         ctypes.c_size_t)(b, ni, nj), dtype=torch.int32, device=dev)
     delta, coeff = _rbf_consts(cutoff, num_r)
-    err = fn(*map(ptr, (dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu,
-                        dx, dmu, ddist, dgate, ddx, ddy, ddz, part, wgrad,
-                        ws)),
+    offs = _rbf_offsets(cutoff, num_r, dev)
+    launches = ctypes.c_int(0)
+    err = fn(*map(ptr, (dist, gate, dirx, diry, dirz, x, mu, wk, bk)),
+             ptr_or_null(offs),
+             *map(ptr, (gq, gmu, dx, dmu, ddist, dgate, ddx, ddy, ddz, part,
+                        wgrad, ws)),
              b, ni, nj, KERNEL_F, num_r, delta, coeff, int(symmetric),
-             int(sparse), stream(dist))
+             int(sparse), stream(dist), ctypes.byref(launches))
     check_launch(name, err)
-    return ddist, dgate, ddx, ddy, ddz, dx, dmu, wgrad
+    return ddist, dgate, ddx, ddy, ddz, dx, dmu, wgrad, launches.value
 
 
 @counted("painn_bwd")
@@ -466,7 +648,6 @@ def painn_bwd(dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu, cutoff,
         return painn_bwd_reference(*args, gq, gmu, cutoff)
     *out, wgrad = launch(_launch_painn_bwd, *args, gq, gmu,
                          float(cutoff), False, bool(sparse))
-    painn_bwd.launches += 1
     return (*out, *_split_wgrad(wgrad, wk))
 
 
@@ -487,7 +668,6 @@ def painn_bwd_sym(dist, gate, dirx, diry, dirz, x, mu, wk, bk, gq, gmu,
         return painn_bwd_sym_reference(*args, gq, gmu, cutoff)
     *out, wgrad = launch(_launch_painn_bwd, *args, gq, gmu,
                          float(cutoff), True, bool(sparse))
-    painn_bwd_sym.launches += 1
     return (*out, *_split_wgrad(wgrad, wk))
 
 
@@ -560,12 +740,36 @@ def _launch_painn_stack_train(dist: Tensor, gate: Tensor, dirx: Tensor,
                                cutoff, epsilon, True)
 
 
-def _launch_painn_stack(name, pair, q0, stacked, cutoff, epsilon,
-                        save_residuals):
-    """The whole-stack kernel: (q, mu), then with ``save_residuals`` the
-    four residual stacks (qs, mus, qps, mups)."""
-    dist = pair[0]
-    b, n, _ = dist.shape
+def pad_painn_stack(q0, stacked, width):
+    """q0 [B,N,F] and the stack's 11 weight stacks zero-padded to F =
+    ``width``, each per the feature groups its rows and columns hold (Wd2,
+    Wk, bk, bd2, W2, b2: thirds; Wmix's columns: the v and w halves; W1's
+    rows: the q and vn halves). Exact: a padded feature's q, x, filter,
+    messages, v and w stay zero through every block, and its vn = sqrt(eps)
+    meets zero rows of W1. Nothing is copied at F = width."""
+    f = q0.shape[-1]
+    if f == width:
+        return q0, list(stacked)
+    d = width - f
+    wd1, bd1, wd2, bd2, wk, bk, wmix, w1, b1, w2, b2 = stacked
+
+    def rows(t):  # [L, F, ...] -> [L, width, ...]
+        return F_.pad(t, (0, 0, 0, d))
+
+    n_layers = w1.shape[0]
+    w1 = F_.pad(w1.reshape(n_layers, 2, f, f), (0, d, 0, d)).reshape(
+        n_layers, 2 * width, width)
+    return F_.pad(q0, (0, d)), [
+        F_.pad(wd1, (0, d, 0, d)), F_.pad(bd1, (0, d)),
+        _pad_parts(rows(wd2), f, width), _pad_parts(bd2, f, width),
+        _pad_parts(wk, f, width), _pad_parts(bk, f, width),
+        _pad_parts(rows(wmix), f, width, 2), w1, F_.pad(b1, (0, d)),
+        _pad_parts(rows(w2), f, width), _pad_parts(b2, f, width)]
+
+
+def _check_stack_widths(name, pair, q0, stacked):
+    """The stack's shapes; F up to KERNEL_F (padded), R >= MIN_R."""
+    b, n, _ = pair[0].shape
     f = q0.shape[-1]
     n_layers, num_r = stacked[4].shape[:2]
     want = ((n_layers, f, f), (n_layers, f), (n_layers, f, 3 * f),
@@ -573,17 +777,45 @@ def _launch_painn_stack(name, pair, q0, stacked, cutoff, epsilon,
             (n_layers, f, 2 * f), (n_layers, 2 * f, f), (n_layers, f),
             (n_layers, f, 3 * f), (n_layers, 3 * f))
     got = tuple(tuple(t.shape) for t in stacked)
-    if f != KERNEL_F or got != want or not 2 <= num_r <= MAX_R \
-            or q0.shape != (b, n, f) or any(t.shape != dist.shape
-                                            for t in pair[1:]):
-        raise ValueError(f"{name}: kernel takes F={KERNEL_F} and the "
-                         f"weight stacks {want}; got q0 {tuple(q0.shape)}, "
-                         f"stacks {got}")
+    if f > KERNEL_F:
+        raise ValueError(f"{name}: the stack kernel takes F <= {KERNEL_F} "
+                         f"(its dense layers' F x F pieces in shared memory); "
+                         f"got F={f}: use the per-block path")
+    if f < 1 or got != want or num_r < MIN_R or q0.shape != (b, n, f) \
+            or any(t.shape != pair[0].shape for t in pair[1:]):
+        raise ValueError(f"{name}: kernel takes the weight stacks {want} with "
+                         f"R >= {MIN_R}; got q0 {tuple(q0.shape)}, stacks "
+                         f"{got}")
+
+
+def _launch_painn_stack(name, pair, q0, stacked, cutoff, epsilon,
+                        save_residuals):
+    """The whole-stack kernel at F <= KERNEL_F, zero-padded to it
+    (:func:`pad_painn_stack`) and cut back: (q, mu), then with
+    ``save_residuals`` the four residual stacks (qs, mus, qps, mups)."""
+    _check_stack_widths(name, pair, q0, stacked)
+    f = q0.shape[-1]
+    out = _painn_stack_kernel(name, pair, *pad_painn_stack(q0, stacked,
+                                                           KERNEL_F),
+                              cutoff, epsilon, save_residuals)
+    if f == KERNEL_F:
+        return out
+    return tuple(t[..., :f].contiguous() if k % 2 == 0 else
+                 _join([t], f).contiguous() for k, t in enumerate(out))
+
+
+def _painn_stack_kernel(name, pair, q0, stacked, cutoff, epsilon,
+                        save_residuals):
+    """One launch of csrc/painn_stack.cu at F = KERNEL_F (any R)."""
+    dist = pair[0]
+    b, n, _ = dist.shape
+    f = q0.shape[-1]
+    n_layers, num_r = stacked[4].shape[:2]
     check_smem(name, _build.kernel_fn(
         "painn_stack", "painn_stack_smem_bytes", [], ctypes.c_size_t)())
     fn = _build.kernel_fn(
         "painn_stack", "painn_stack",
-        [ctypes.c_void_p] * 25 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+        [ctypes.c_void_p] * 26 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
         + [ctypes.c_int, ctypes.c_void_p])
     dev = q0.device
     q = torch.empty_like(q0)
@@ -599,7 +831,9 @@ def _launch_painn_stack(name, pair, q0, stacked, cutoff, epsilon,
            for w in (f, 3 * f, f, 3 * f)] if save_residuals else []
     res_ptrs = map(ptr, res) if save_residuals else [ctypes.c_void_p(None)] * 4
     delta, coeff = _rbf_consts(cutoff, num_r)
-    err = fn(*map(ptr, (*pair, q0, *stacked, q, mu, work)), *res_ptrs, ptr(ws),
+    offs = _rbf_offsets(cutoff, num_r, dev)
+    err = fn(*map(ptr, (*pair, q0, *stacked[:6])), ptr_or_null(offs),
+             *map(ptr, (*stacked[6:], q, mu, work)), *res_ptrs, ptr(ws),
              b, n, f, num_r, n_layers, delta, coeff, float(epsilon),
              int(save_residuals), stream(dist))
     check_launch(name, err)

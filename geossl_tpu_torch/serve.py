@@ -8,9 +8,10 @@
   ``batch_size``), runs each bucket through
   the backbone's whole-stack kernel (``schnet_stack`` / ``painn_stack``) up
   to the backbone's ``*_STACK_MAX_N`` and through its per-block kernels
-  (CFConv / the PaiNN message pass) above (a bfloat16 model, and SchNet
-  with ``filter_mxu='bf16'``, at every bucket: the stacks compute in f32,
-  as the JAX package routes bf16), and returns results in input order.
+  (CFConv / the PaiNN message pass) above (a bfloat16 model, SchNet
+  with ``filter_mxu='bf16'``, and a model wider than its stack kernel's
+  128 features, at every bucket: the stacks compute in f32, as the JAX
+  package routes bf16), and returns results in input order.
   Each packed batch is uploaded once; all results come back in one
   device-to-host copy at the end of a pass.
 * ``predict`` (scalar property, denormalized with ``y_mean``/``y_std``),
@@ -63,6 +64,7 @@ from geossl_tpu_torch.data.bucketing import (
 from geossl_tpu_torch.data.store import MolRecord, MolStore
 from geossl_tpu_torch.models import painn, schnet
 from geossl_tpu_torch.ops import cfconv
+from geossl_tpu_torch.ops import painn as painn_ops
 from geossl_tpu_torch.train.common import (
     DualHead,
     check_kernel_limits,
@@ -313,7 +315,9 @@ class Predictor(_Passes):
         if cfg.model_3d == "painn":
             self._stack_apply = painn.fused_stack_apply
             self._stack_max_n = PAINN_STACK_MAX_N
-            self._stackable = f32
+            # the stack takes F up to its width (padded); above it every
+            # bucket takes the per-block kernels' column blocks
+            self._stackable = f32 and cfg.emb_dim <= painn_ops.KERNEL_F
         else:
             self._stack_apply = schnet.fused_stack_apply
             self._stack_max_n = SCHNET_STACK_MAX_N
@@ -406,8 +410,8 @@ class Predictor(_Passes):
 
     def stack_route(self, n: int) -> bool:
         """True when a batch padded to ``n`` atoms goes through the
-        whole-stack kernel (the backbone's ``*_STACK_MAX_N``; SchNet's
-        stack also needs F <= ``ops/cfconv.KERNEL_F``), False when
+        whole-stack kernel (the backbone's ``*_STACK_MAX_N``; each stack
+        also needs F <= its ``ops/*.KERNEL_F``), False when
         through the per-block kernels."""
         return self._stackable and n <= self._stack_max_n
 

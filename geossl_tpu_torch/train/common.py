@@ -435,13 +435,18 @@ def kernel_limit_errors(cfg: ModelConfig, *, backward: bool,
             errors.append(f"--{flag} {value}: {limit}")
 
     if cfg.model_3d == "painn":
+        # the per-block PaiNN kernels take any --emb_dim (padded to
+        # ops/painn.KERNEL_F, or in column blocks of it) and any
+        # --painn_n_rbf from MIN_R (above ONE_PASS_R in streamed passes);
+        # the stack pads only
         f, r = painn_ops.KERNEL_F, cfg.painn.n_rbf
         if per_block or stack:
-            need(cfg.emb_dim == f, "emb_dim", cfg.emb_dim,
-                 f"the PaiNN kernels take {f} only (ops/painn.KERNEL_F)")
-            need(2 <= r <= painn_ops.MAX_R, "painn_n_rbf", r,
-                 f"the PaiNN kernels take 2 to {painn_ops.MAX_R} "
-                 "(ops/painn.MAX_R)")
+            need(r >= painn_ops.MIN_R, "painn_n_rbf", r,
+                 f"the PaiNN kernels take {painn_ops.MIN_R} or more "
+                 "(ops/painn.MIN_R)")
+        if stack:
+            need(cfg.emb_dim <= f, "emb_dim", cfg.emb_dim,
+                 f"painn_stack takes up to {f} (ops/painn.KERNEL_F)")
     else:
         # the per-block CFConv kernels take any --num_filters (padded to
         # ops/cfconv.KERNEL_F, or in column blocks of it) and any

@@ -1,9 +1,13 @@
 """Time SchNet's CFConv kernels (#1-#5) and the DDM head's kernels (#6/#7)
 at their paths' shapes for lists of Gaussian counts and widths (emb_dim =
-num_filters), on the card, for the tree first on ``PYTHONPATH``.
+num_filters), or with ``--model_3d painn`` PaiNN's kernels (#8-#12) for
+lists of RBF counts and widths (emb_dim = n_atom_basis), on the card, for
+the tree first on ``PYTHONPATH``.
 
     env PYTHONPATH=<tree> python geossl_tpu_torch/utils/probe_gaussians.py \\
         --tag T [--g 51 100 300] [--width 128 256 96]
+    env PYTHONPATH=<tree> python geossl_tpu_torch/utils/probe_gaussians.py \\
+        --tag T --model_3d painn [--rbf 20 64] [--width 128 256 96]
 
 Run it by path, with an earlier tree unpacked under ``_local/`` first on
 ``PYTHONPATH`` to time that tree, in turns with the current one (parent,
@@ -25,6 +29,12 @@ device tile list), the ``worklist.cuh`` kernels' ms, all of the port's
 kernels' ms and the worklist launches, from one call traced after a
 warm-up. Inputs are seeded synthetic molecules and complexes and seeded
 weights (6 blocks, cutoff 10).
+
+PaiNN (3 blocks, cutoff 5): #8 and #9 on the DDM batch (B=128, N=128,
+the clean graph, gating on), #10 and #11 at the LBA shape (B=64, N=512),
+#12 at serving's N=32 and N=128, block 0's inputs of a seeded model (x
+from its x-MLP, a seeded mu of unit scale, seeded cotangents), each the
+median of 3 runs of 10 launches; ``host_us``: #8 on one graph of 32 atoms.
 """
 
 from __future__ import annotations
@@ -167,6 +177,10 @@ def main(argv=None):
     p.add_argument("--tag", required=True)
     p.add_argument("--g", type=int, nargs="+", default=[51])
     p.add_argument("--width", type=int, nargs="+", default=[128])
+    p.add_argument("--model_3d", choices=("schnet", "painn"),
+                   default="schnet")
+    p.add_argument("--rbf", type=int, nargs="+", default=[20],
+                   help="PaiNN's RBF counts (--model_3d painn)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("probe_gaussians times the card's kernels: no card")
@@ -201,6 +215,9 @@ def main(argv=None):
     lba_batch = next(iter(BucketedLoader(FL.load_splits(lba_args)[0], 64,
                                          (512,), seed=SEED).epoch(1))).to(dev)
 
+    if args.model_3d == "painn":
+        _painn(args, store, serving, ddm, lba_batch, dev)
+        return
     base = ModelConfig()
     for g, w in itertools.product(args.g, args.width):
         cfg = dataclasses.replace(base, emb_dim=w, schnet=dataclasses.replace(
@@ -263,6 +280,74 @@ def main(argv=None):
         print("probe_gaussians: " + json.dumps({
             "tag": args.tag, "G": g, "width": w, "ms": ms, "host_us": host,
             "tile_list": tile}), flush=True)
+
+@torch.no_grad()
+def _painn_inputs(model, batch, pair_mask=None):
+    """The five pair grids, q0, block 0's x and a seeded mu of unit scale
+    (``chip_smoke.painn_inputs``' recipe)."""
+    dist, direction, gate = model.geometry(batch.positions, batch.node_mask,
+                                           pair_mask)
+    q0 = model.embed(batch.atom_type).contiguous()
+    x = model.interactions[0].interatomic_context_net(q0).contiguous()
+    gen = torch.Generator(x.device).manual_seed(SEED)
+    mu = torch.randn(x.shape, generator=gen, device=x.device)
+    grids = (dist.contiguous(), gate.contiguous(),
+             *(direction[..., c].contiguous() for c in range(3)))
+    return grids, q0, x, mu
+
+
+def _painn(args, store, serving, ddm, lba_batch, dev):
+    """PaiNN's kernels #8-#12 per (RBF count, width): one JSON line each."""
+    from geossl_tpu_torch.config import ModelConfig
+    from geossl_tpu_torch.data.bucketing import assign_buckets, pack_batch
+    from geossl_tpu_torch.ops import geometry
+    from geossl_tpu_torch.ops import painn as P
+    from geossl_tpu_torch.train.common import make_backbone
+
+    base = ModelConfig(model_3d="painn")
+    bucket = assign_buckets(store.num_atoms(), (32, 64, 128, 256, 512))
+    for r, w in itertools.product(args.rbf, args.width):
+        cfg = dataclasses.replace(base, emb_dim=w, painn=dataclasses.replace(
+            base.painn, n_atom_basis=w, n_rbf=r))
+        m = make_backbone(cfg, torch.Generator().manual_seed(SEED)).to(dev)
+        cut = cfg.painn.cutoff
+        gen = torch.Generator(dev).manual_seed(SEED)
+        with torch.no_grad():
+            wk, bk = (t.contiguous() for t in m.filter_weights()[0])
+            stacked = [t.contiguous() for t in m.stacked_weights()]
+            d1, pm = geometry.pairwise_distances(ddm.positions, ddm.node_mask)
+            clean = geometry.radius_adjacency(d1, pm, cut)
+        ms = {}
+        grids, q0, x, mu = _painn_inputs(m, ddm, clean)
+        gq = torch.randn(q0.shape, generator=gen, device=dev)
+        gmu = torch.randn(mu.shape, generator=gen, device=dev)
+        with torch.no_grad():
+            ms["painn_fwd DDM N=128"] = _ms(lambda: P.painn_message_fused(
+                *grids, x, mu, wk, bk, cut, True))
+            ms["painn_bwd DDM N=128"] = _ms(lambda: P.painn_bwd(
+                *grids, x, mu, wk, bk, gq, gmu, cut, True))
+            grids, q0, x, mu = _painn_inputs(m, lba_batch)
+            gq = torch.randn(q0.shape, generator=gen, device=dev)
+            gmu = torch.randn(mu.shape, generator=gen, device=dev)
+            ms["painn_fwd_sym LBA N=512"] = _ms(
+                lambda: P.painn_message_fused_sym(*grids, x, mu, wk, bk, cut,
+                                                  True))
+            ms["painn_bwd_sym LBA N=512"] = _ms(lambda: P.painn_bwd_sym(
+                *grids, x, mu, wk, bk, gq, gmu, cut, True))
+            for n in (32, 128):
+                grids, q0, _, _ = _painn_inputs(m, serving(n))
+                ms[f"painn_stack serving N={n}"] = _ms(
+                    lambda: P.painn_stack_infer(*grids, q0, stacked, cut))
+            one = pack_batch([store.get(int(np.nonzero(bucket == 32)[0][0]))],
+                             32, 1).to(dev)
+            grids, _, x, mu = _painn_inputs(m, one)
+            host = {"painn_fwd B=1 N=32": _host_us(
+                lambda: P.painn_message_fused(*grids, x, mu, wk, bk, cut,
+                                              False))}
+        print("probe_gaussians: " + json.dumps({
+            "tag": args.tag, "model_3d": "painn", "R": r, "width": w,
+            "ms": ms, "host_us": host}), flush=True)
+
 
 if __name__ == "__main__":
     main()

@@ -292,8 +292,9 @@ def kernel_stand_ins(monkeypatch):
 
     def fwd_pn(dist, gate, dirx, diry, dirz, x, mu, wk, bk, cutoff, sym,
                sparse):
-        return tpn.painn_message_reference(dist, gate, dirx, diry, dirz, x, mu,
-                                           wk, bk, cutoff)
+        # the C entry's results and its count of kernel launches
+        return (*tpn.painn_message_reference(dist, gate, dirx, diry, dirz, x,
+                                             mu, wk, bk, cutoff), 1)
 
     def bwd_pn(*args):
         *args, cutoff, sym, sparse = args
@@ -301,7 +302,7 @@ def kernel_stand_ins(monkeypatch):
         if sym:
             out[:5] = [tcf.place_sym_cotangent(c, k >= 2)
                        for k, c in enumerate(out[:5])]
-        return _split_like_kernel(out, 7)
+        return (*_split_like_kernel(out, 7), 1)
 
     def counting(mod, name):
         real = getattr(mod, name)
@@ -313,7 +314,7 @@ def kernel_stand_ins(monkeypatch):
 
     for mod, fwd, bwd, names in (
             (tcf, fwd_cf, bwd_cf, ("_cfconv_fwd_kernel", "_cfconv_bwd_kernel")),
-            (tpn, fwd_pn, bwd_pn, ("_launch_painn_fwd", "_launch_painn_bwd"))):
+            (tpn, fwd_pn, bwd_pn, ("_painn_fwd_kernel", "_painn_bwd_kernel"))):
         monkeypatch.setattr(mod, "on_cpu", lambda *a: False)
         monkeypatch.setattr(mod, names[0], fwd)
         monkeypatch.setattr(mod, names[1], bwd)

@@ -61,8 +61,6 @@ from geossl_tpu_torch.models import schnet as tschnet
 from geossl_tpu_torch.models.painn import PaiNN
 from geossl_tpu_torch.models.schnet import SchNet
 from geossl_tpu_torch.train import checkpoints, common, optim
-from geossl_tpu_torch.train import finetune_lba as FL
-from geossl_tpu_torch.train import finetune_lep as FE
 from geossl_tpu_torch.train import finetune_qm9 as FQ
 from geossl_tpu_torch.train import pretrain_geossl as PG
 from geossl_tpu_torch.utils import metrics as tmetrics
@@ -579,9 +577,13 @@ CUDA = torch.device("cuda")
      "--num_filters 192"),
     (_cfg(emb=256, filters=256), dict(backward=False, stack=True,
                                       per_block=False), "--num_filters 256"),
-    (_cfg("painn", emb=64), dict(backward=True), "--emb_dim 64"),
-    (_cfg("painn", r=32), dict(backward=False, stack=True), "--painn_n_rbf 32"),
+    # the PaiNN kernels take any width and R >= 2; the stack pads up to
+    # 128 and refuses wider
     (_cfg("painn", r=1), dict(backward=True), "--painn_n_rbf 1"),
+    (_cfg("painn", r=1), dict(backward=False, per_block=False, stack=True),
+     "--painn_n_rbf 1"),
+    (_cfg("painn", emb=256), dict(backward=False, per_block=False,
+                                  stack=True), "--emb_dim 256"),
     # the NCSN head kernels take emb up to 256
     (_cfg(emb=320), dict(backward=True, ncsn=True), "--emb_dim 320"),
     # the bf16 CFConv backwards take no column blocks
@@ -601,6 +603,12 @@ def test_kernel_limits_refused_on_cuda_only(cfg, routes, flag):
 @pytest.mark.parametrize("cfg,routes", [
     (_cfg(), dict(backward=True, stack=True, ncsn=True)),
     (_cfg("painn", r=31), dict(backward=True, stack=True, ncsn=True)),
+    # PaiNN at any width per block (padded to 128, or column blocks of
+    # 128), up to 128 in the stack, and any R >= 2 (streamed above 31)
+    (_cfg("painn", emb=64), dict(backward=True)),
+    (_cfg("painn", r=32), dict(backward=False, stack=True)),
+    (_cfg("painn", emb=96, r=64), dict(backward=True, stack=True, ncsn=True)),
+    (_cfg("painn", emb=256, r=2), dict(backward=True, ncsn=True)),
     # SchNet's emb_dim does not reach the per-block kernels, and a
     # num_filters != emb_dim model never takes the stack
     (_cfg(emb=64), dict(backward=True, stack=True)),
@@ -631,13 +639,10 @@ def test_kernel_limits_accept_what_the_kernels_run(cfg, routes):
 
 
 @pytest.mark.parametrize("driver,argv,flag", [
-    # a SchNet driver's per-block kernels take any width: the refusals left
-    # are PaiNN's widths, the NCSN head's above 256 and the bf16 backwards'
-    # above 128
-    (FQ, ["--model_3d", "painn", "--emb_dim", "256"], "--emb_dim 256"),
-    (FQ, ["--model_3d", "painn", "--painn_n_rbf", "40"], "--painn_n_rbf 40"),
-    (FL, ["--model_3d", "painn", "--emb_dim", "96"], "--emb_dim 96"),
-    (FE, ["--emb_dim", "32", "--model_3d", "painn"], "--emb_dim 32"),
+    # the per-block kernels take any width and any RBF count from 2: the
+    # refusals left are PaiNN's R below 2, the NCSN head's above 256 and
+    # the bf16 backwards' above 128
+    (PG, ["--model_3d", "painn", "--painn_n_rbf", "1"], "--painn_n_rbf 1"),
     (PG, ["--emb_dim", "320"], "--emb_dim 320"),
     (PG, ["--emb_dim", "256", "--num_filters", "256", "--filter_mxu",
           "bf16"], "--num_filters 256"),
@@ -655,13 +660,56 @@ def test_drivers_refuse_kernel_limits_at_startup(monkeypatch, tmp_path, driver,
     common.check_driver_limits(args, common.model_config_from_args(args), CUDA)
 
 
+def _driver_limits(driver, argv):
+    """The startup limit check of ``driver`` (a module name of
+    ``geossl_tpu_torch.train``) for ``argv`` on a CUDA device, as its
+    ``main`` runs it."""
+    import importlib
+
+    mod = importlib.import_module(f"geossl_tpu_torch.train.{driver}")
+    base = ["--synthetic", "--output_model_dir", "unused"]
+    if driver == "pretrain_baselines":
+        args = mod.build_parser("supervised").parse_args(base + argv)
+    else:
+        args = mod.build_parser().parse_args(base + argv)
+    cfg = common.model_config_from_args(args)
+    if driver == "finetune_md17":
+        common.check_kernel_limits(cfg, CUDA, backward=True)
+    else:
+        common.check_driver_limits(args, cfg, CUDA,
+                                   ncsn=driver == "pretrain_geossl")
+    return cfg
+
+
+@pytest.mark.parametrize("argv", [
+    ["--emb_dim", "32"], ["--emb_dim", "96"], ["--emb_dim", "256"],
+    ["--painn_n_rbf", "32"], ["--painn_n_rbf", "40"], ["--painn_n_rbf", "64"],
+], ids=lambda v: " ".join(v))
+@pytest.mark.parametrize("driver", [
+    "finetune_qm9", "finetune_lba", "finetune_lep", "finetune_md17",
+    "pretrain_geossl", "pretrain_baselines"])
+def test_drivers_accept_painn_widths_and_rbf_counts(driver, argv):
+    """Every driver starts PaiNN on CUDA at any --emb_dim (the per-block
+    kernels padded or in column blocks) and any --painn_n_rbf from 2
+    (streamed above 31): its startup check passes, and the kernels' limits
+    name nothing (no card needed)."""
+    cfg = _driver_limits(driver, ["--model_3d", "painn", *argv])
+    assert common.kernel_limit_errors(cfg, backward=True, ncsn=True) == []
+
+
 def test_predictor_refuses_kernel_limits_at_startup(monkeypatch):
-    cfg = _cfg("painn", r=40)
+    cfg = _cfg("painn", r=1)
     state = {"model": common.make_backbone(cfg).state_dict()}
     serve.Predictor(cfg, state, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match="--painn_n_rbf 40"):
+    with pytest.raises(ValueError, match="--painn_n_rbf 1"):
         serve.Predictor(cfg, state)
+    # PaiNN at other widths and RBF counts: the per-block kernels beyond
+    # the stack's 128, the padded stack below it
+    for wide in (_cfg("painn", emb=256, r=64), _cfg("painn", emb=96, r=40)):
+        assert common.kernel_limit_errors(wide, backward=False,
+                                          per_block=True,
+                                          stack=wide.emb_dim <= 128) == []
     # SchNet: the stack's buckets (num_filters = emb_dim) check the stack,
     # which takes any Gaussian count
     assert common.kernel_limit_errors(_cfg(g=100, max_nb=32), backward=False,

@@ -85,13 +85,14 @@ _BACKBONES = {
     "schnet": (lambda **kw: JSchNet(**{**S.SMALL, **kw}),
                lambda **kw: SchNet(**{**S.SMALL, **kw}),
                schnet_state_dict_from_flax, contextlib.nullcontext),
-    "painn": (lambda: JPaiNN(**P.SMALL), lambda: PaiNN(**P.SMALL),
+    "painn": (lambda **kw: JPaiNN(**{**P.SMALL, **kw}),
+              lambda **kw: PaiNN(**{**P.SMALL, **kw}),
               painn_state_dict_from_flax, P.f64_casts),
 }
 
 
 def ddm_jax_case(model_3d: str, b: int = 3, emb: int = EMB,
-                 **widths) -> dict:
+                 kernels: bool = False, **widths) -> dict:
     """A DDM slice in f64 on both sides: the JAX loss as ``pretrain_geossl``
     builds it, ``jax_loss(params, *batch_arrays, pos2, draws)`` (jitted:
     ``jax_value_and_grad``), its flax trees (``params``), the batch of
@@ -99,7 +100,12 @@ def ddm_jax_case(model_3d: str, b: int = 3, emb: int = EMB,
     (``arrays``: z, pos, mask, graph mask, pair selection) and as the port's
     batch, and ``port()``, the port's DDM with the same weights. ``emb`` is
     the heads' width; ``widths`` override the backbone's small config
-    (SchNet's hidden_channels, num_filters)."""
+    (SchNet's hidden_channels, num_filters; PaiNN's n_atom_basis, n_rbf).
+    ``kernels`` (PaiNN): the JAX model with ``use_pallas`` (its message
+    pass through ``painn_pallas.painn_message``, which the caller
+    monkeypatches to its plain reference while the JAX side traces) and the
+    port's DDM on its kernel route (``plain=False``): both sides then use
+    the kernels' RBF."""
     make_jax, make_port, to_port, jax_ctx = _BACKBONES[model_3d]
     painn = model_3d == "painn"
     z, pos, mask = S.molecules(b, 16, seed=21, spread=1.2)
@@ -108,7 +114,7 @@ def ddm_jax_case(model_3d: str, b: int = 3, emb: int = EMB,
     gm = mask.any(axis=1)
     n = pos.shape[1]
     sel = mask[:, :, None] & mask[:, None, :] & np.triu(np.ones((n, n), bool), 1)
-    jm = make_jax(**widths)
+    jm = make_jax(**widths, **({"use_pallas": True} if kernels else {}))
     head = JNCSNv3(emb_dim=emb)
     with S.x64():
         # jitted: eager ops under x64 compile one by one
@@ -145,7 +151,7 @@ def ddm_jax_case(model_3d: str, b: int = 3, emb: int = EMB,
         # plain=True (the kernels' plain versions use the kernels' RBF
         # coefficient, ~1e-8 apart in f64)
         ddm = PG.DDM(make_port(**widths), NCSNv3(emb_dim=emb),
-                     NCSNv3(emb_dim=emb), plain=painn).double()
+                     NCSNv3(emb_dim=emb), plain=painn and not kernels).double()
         ddm.model.load_state_dict(to_port(params["model"]))
         for name in ("NCSN_01", "NCSN_02"):
             getattr(ddm, name).load_state_dict(
