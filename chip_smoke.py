@@ -436,16 +436,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    with the F=128 rows' tolerances, in f32 at G=51 (timed: the kernel
    table's ``<kernel>_f256`` / ``_f96`` rows, bounds counted at the user's
    width) and G=300 and in bf16 at G=51 (#5 at F=96 only; #2/#4's bf16
-   launches at F=256 must refuse: a column block would round its own
-   partial dh where the JAX kernel rounds the sum); #6/#7 at E=256
+   backwards at F=96 only: above 128 they are phase 9's); #6/#7 at E=256
    and E=96 on the DDM batch of a seeded DDM at the width (timed:
    ``ncsn_score_*_e256`` / ``_e96``, with the instance's shared bytes);
    ptxas of the kE = 256 instance. (d) The device ms of one DDM step at
    bucket 128 at widths 256, 96 and 128. (e) The refusals above the
-   limits: ``pretrain_geossl --emb_dim 320``, ``pretrain_geossl
-   --emb_dim 256 --num_filters 256 --filter_mxu bf16``, ``pretrain_geossl
-   --model_3d painn --painn_n_rbf 1`` and ``models/painn.stack_train_apply``
-   at F = 256, each naming its flag or width.
+   limits: ``pretrain_geossl --model_3d painn --painn_n_rbf 1`` and
+   ``models/painn.stack_train_apply`` at F = 256, each naming its flag or
+   width.
 
 8. PaiNN at any width and any RBF count (``painn_widths:``, at most 240
    s). #8-#11 at emb_dim = n_atom_basis = 256 (k = 2 column blocks of
@@ -470,13 +468,45 @@ Phases, in order; any failure exits non-zero and prints no result line:
    The device ms of one DDM-PaiNN step at bucket 128 at 128/20, 256/20,
    96/20 and 128/64.
 
+9. The last width refusals (``widths_final:``, at most 120 s): the two
+   settings the training drivers once refused on CUDA, the bf16
+   CFConv backwards (#2/#4) above F = 128, in their hidden-block instance
+   (``csrc/cfconv_bwd_bf16w.cu``, counted as ``<kernel>_bf16w``, k =
+   ceil(F / 128) launches a call), and the DDM head (#6/#7) above E = 256,
+   in its streamed instance (``csrc/ncsn_score_wide.cu``, counted as
+   ``<kernel>_wide``). (a) Counters reset before each and read after: one
+   epoch of ``pretrain_geossl`` at emb_dim = num_filters = 512, of
+   ``pretrain_geossl --model_3d painn --emb_dim 384``, of ``pretrain_geossl
+   --emb_dim 256 --num_filters 256`` with ``--compute_dtype bfloat16`` and
+   with ``--filter_mxu bf16 --max_num_neighbors 32`` (128 synthetic
+   molecules, buckets 32/64/128, batch 128), one step of ``finetune_lba
+   --num_filters 384 --filter_mxu bf16`` (B=64, N=512): each new instance
+   exactly its launches a call per call, the instances it replaces none;
+   and ``Predictor.predict_forces`` of a seeded bf16 F = 256 model on two
+   complexes at N=512 against the plain forces (phase 6's bounds). (b)
+   Each command's step at bucket 128 (LBA: B=64, N=512) against its plain
+   step computed in graph chunks (f32: RTOL / GRAD_RTOL; bf16: phase 6's
+   step tolerance). (c) #2/#4's hidden-block instance against its plain
+   version (``cfconv_bwd_bf16_blocks_reference``) at F = 256 and 384, G =
+   51 and 300 (#2 on the DDM ``max_num_neighbors 32`` batch, #4 at the LBA
+   shape: all 64 complexes at F = 256 / G = 51, 8 of them otherwise), with
+   phase 6's bf16 tolerances, timed at F = 256 / G = 51 (the kernel
+   table's ``<kernel>_bf16w_f256`` rows, bounded at the bf16 peak); #6/#7's
+   streamed instance at E = 300, 384 and 512 on the DDM batch with phase
+   2's tolerances, two launches bitwise equal, timed at 384 and 512
+   (``ncsn_score_*_wide_e384`` / ``_e512``). (d) The device ms of one DDM
+   step at bucket 128 per DDM command; the new instances' shared memory
+   (the C query: constant in F and E) and ptxas.
+
 The line before the last is the kernel table as JSON (thirteen kernels,
 every Pallas kernel of the JAX package, then #1-#5 at G=100 and G=300 as
 ``<kernel>_g100`` / ``_g300`` with their phase-5 launches and shapes,
 then #1-#4's bf16 instances at G=51 as ``<kernel>_bf16`` with their
 phase-6 launches, bounded at the bf16 tensor-core peak, then phase 7's
 rows at F = E = 256 and 96 with their launches, then phase 8's PaiNN rows
-at F = 256, F = 96 and R = 64 with theirs;
+at F = 256, F = 96 and R = 64 with theirs, then phase 9's rows (#2/#4's
+hidden-block instance at F = 256, #6/#7's streamed instance at E = 384 and
+512) with theirs;
 ``qm9_launches``: each kernel's
 launches over both QM9 epochs of phase 3e; ``md17_launches``: each
 kernel's launches in one MD17 training step of phase 3f, both backbones;
@@ -697,6 +727,16 @@ for _tag, _stream in (("_f256", 0), ("_f96", 0), ("_r64", 1)):
         f"painn_bwd_sym{_tag}": (
             "painn_bwd", f"_ZN6geossl20painn_bwd_mma_kernelILb1ELb{_stream}E"),
         f"painn_stack{_tag}": ("painn_stack", None)})
+# phase 9's rows: the bf16 backwards' hidden-block instance at F = 256 and
+# the head's streamed instance at E = 384 and 512
+KERNEL_ENTRIES.update({
+    "cfconv_bwd_bf16w_f256": (
+        "cfconv_bwd_bf16w", "_ZN6geossl5bf16w23cfconv_bwd_bf16w_kernelILb0ELb0E"),
+    "cfconv_bwd_sym_bf16w_f256": (
+        "cfconv_bwd_bf16w", "_ZN6geossl5bf16w23cfconv_bwd_bf16w_kernelILb1ELb0E"),
+    **{f"ncsn_score_{d}_wide_e{e}": (
+        "ncsn_score_wide", f"_ZN6geossl5nwide20ncsn_wide_{d}_kernel")
+       for d in ("fwd", "bwd") for e in (384, 512)}})
 KERNEL_ENTRIES.update({
     "ncsn_score_fwd_e96": KERNEL_ENTRIES["ncsn_score_fwd"],
     "ncsn_score_bwd_e96": KERNEL_ENTRIES["ncsn_score_bwd"],
@@ -4301,20 +4341,25 @@ def bf16_serving(preds, got, store, buckets, first, layer0_inputs):
           f"{err:.3e} (two live passes: {spread:.3e})")
 
 
-def bf16_kernels(dev, errs, g, cases, cfg, cutoff, timed, tag=None):
+def bf16_kernels(dev, errs, g, cases, cfg, cutoff, timed, tag=None,
+                 forward=True, backward=True):
     """#1-#4's bf16 instances at ``g`` Gaussians on their paths' shapes,
     each against its plain bf16 version (chunked), gating off and on: #1
     and #2 on the DDM ``max_num_neighbors 32`` batch (B=128, N=128), #3 on
     the DDM batch, #4 at the LBA shape (B=64, N=512; ddist/denv by the
-    placement contract). Checks are recorded as ``<kernel><tag>``, by
-    default ``_bf16`` (G=51) and ``_bf16_g<g>``. With ``timed``: the rows
-    (name, source, replaces, ms, plain_ms, flops, bytes) of the kernel
-    table, counted as the f32 rows' and bounded at the bf16 peak. The
-    filter width is ``cfg``'s (``cases`` at that width)."""
+    placement contract); ``forward`` / ``backward``: #1/#3, #2/#4. Above
+    F = 128 the backwards run their hidden-block instance, held to its
+    plain version (``cfconv_bwd_bf16_blocks_reference``). Checks are
+    recorded as ``<kernel><tag>``, by default ``_bf16`` (G=51) and
+    ``_bf16_g<g>``. With ``timed``: the rows (name, source, replaces, ms,
+    plain_ms, flops, bytes) of the kernel table, counted as the f32 rows'
+    and bounded at the bf16 peak. The filter width is ``cfg``'s (``cases``
+    at that width)."""
     import torch
 
     from geossl_tpu_torch.ops import cfconv as K
     from geossl_tpu_torch.train.common import make_backbone
+    from geossl_tpu_torch.utils import flops
 
     F_ = cfg.schnet.num_filters
     m = make_backbone(schnet_at(cfg, g),
@@ -4328,9 +4373,11 @@ def bf16_kernels(dev, errs, g, cases, cfg, cutoff, timed, tag=None):
         tag = "_bf16" + ("" if g == 51 else f"_g{g}")
     rows = []
 
-    def row(kernel, ms, plain_ms, flops, nbytes, shape):
+    def row(kernel, ms, plain_ms, work, nbytes, shape):
         src, replaces = GAUSS_KERNELS[kernel]
-        rows.append((kernel + tag, src, replaces, ms, plain_ms, flops, nbytes,
+        if F_ > K.KERNEL_F and kernel in FINAL_KERNELS:
+            src, replaces = FINAL_KERNELS[kernel]
+        rows.append((kernel + tag, src, replaces, ms, plain_ms, work, nbytes,
                      {"shape": shape, "mxu": "bf16"}))
 
     def fwd_case(kernel, fwd, d, e, x, what, chunk):
@@ -4354,16 +4401,12 @@ def bf16_kernels(dev, errs, g, cases, cfg, cutoff, timed, tag=None):
                          + sum(t.numel() for t in fw)), what)
 
     def bwd_case(kernel, bwd, ref, d, e, x, gr, what, sym):
-        if F_ > K.KERNEL_F:  # no bf16 column blocks: the launch refuses
-            try:
-                bwd(d, e, x, gr, *fw, *args, True, "bf16")
-            except ValueError as err:
-                if "bf16 backward takes F <=" not in str(err):
-                    raise
-                return
-            fail(f"{kernel + tag}: the bf16 backward at F={F_} was not "
-                 "refused")
-        want = chunked_sum(ref, (d, e, x, gr), (*fw, *args, "bf16"), 4, 3)
+        chunk = 4
+        if F_ > K.KERNEL_F:  # the hidden-block instance's plain version,
+            # in chunks of F = 128's cells at N = 512
+            ref = lambda *a: K.cfconv_bwd_bf16_blocks_reference(*a[:-1])  # noqa: E731
+            chunk = max(1, 4 * 512 * 512 * K.KERNEL_F // (d[0].numel() * F_))
+        want = chunked_sum(ref, (d, e, x, gr), (*fw, *args, "bf16"), chunk, 3)
         if sym:
             want = (*(K.place_sym_cotangent(w) for w in want[:2]), *want[2:])
         occ = tile_occupied(e)
@@ -4381,28 +4424,35 @@ def bf16_kernels(dev, errs, g, cases, cfg, cutoff, timed, tag=None):
                                 f"{what} sparse={sp} {out}")
         if timed:
             nnz, filt, cells, tiles = pair_work(d, e)
-            per_filt = (6 if sym else 2) * (g * F_ + F_ * F_)
-            per_pair = 0 if sym else 4 * F_ * F_ + 4 * g * F_
+            # the plain version once: it repeats the kernel's arithmetic
+            # and is no yardstick (above F = 128 it takes seconds at N=512)
+            reps = (3, 1) if F_ <= K.KERNEL_F else (1, 0)
             row(kernel, cuda_time_ms(lambda: bwd(d, e, x, gr, *fw, *args,
                                                  True, "bf16")),
                 cuda_time_ms(lambda: chunked_sum(ref, (d, e, x, gr),
-                                                 (*fw, *args, "bf16"), 4, 3),
-                             reps=3, warmup=1),
-                (filt * per_filt + nnz * per_pair, nnz * 6 * F_),
+                                                 (*fw, *args, "bf16"), chunk,
+                                                 3),
+                             reps=reps[0], warmup=reps[1]),
+                flops.cfconv_bwd_kernel(g, F_, filt, nnz, sym),
                 4 * (cells + tiles + 2 * d.numel() + 3 * x.numel()
                      + 2 * wsize), what)
 
     d, e, x, gr = cases["ddm_mn"]
-    fwd_case("cfconv_fwd", K.cfconv_fused, d, e, x,
-             "DDM max_neighbors=32 B=128 N=128", 4)
-    bwd_case("cfconv_bwd", K.cfconv_bwd, K.cfconv_bwd_reference, d, e, x, gr,
-             "DDM max_neighbors=32 B=128 N=128", False)
+    if forward:
+        fwd_case("cfconv_fwd", K.cfconv_fused, d, e, x,
+                 "DDM max_neighbors=32 B=128 N=128", 4)
+    if backward:
+        bwd_case("cfconv_bwd", K.cfconv_bwd, K.cfconv_bwd_reference, d, e, x,
+                 gr, "DDM max_neighbors=32 B=128 N=128", False)
     d, e, x, gr = cases["ddm"]
-    fwd_case("cfconv_fwd_sym", K.cfconv_fused_sym, d, e, x, "DDM B=128 N=128",
-             16)
+    if forward:
+        fwd_case("cfconv_fwd_sym", K.cfconv_fused_sym, d, e, x,
+                 "DDM B=128 N=128", 16)
     d, e, x, gr = cases["lba"]
-    bwd_case("cfconv_bwd_sym", K.cfconv_bwd_sym, K.cfconv_bwd_sym_reference,
-             d, e, x, gr, "LBA B=64 N=512", True)
+    if backward:
+        bwd_case("cfconv_bwd_sym", K.cfconv_bwd_sym,
+                 K.cfconv_bwd_sym_reference, d, e, x, gr, "LBA B=64 N=512",
+                 True)
     return rows
 
 
@@ -4555,7 +4605,8 @@ def head_instance(w):
     runs in."""
     from geossl_tpu_torch.ops import ncsn as NS
 
-    return "_e256" if NS.kernel_width(w) == 256 else ""
+    width = NS.instance_width(w)
+    return "_wide" if NS.streamed(width) else "_e256" if width == 256 else ""
 
 
 def widths_main_path(dev, w, cfg, store, buckets, first, layer0_inputs):
@@ -4671,11 +4722,12 @@ def widen_cases(dev, cases, w):
     return out
 
 
-def widths_ncsn(dev, errs, w, cfg, batch, tag):
+def widths_ncsn(dev, errs, w, cfg, batch, tag, timed=True):
     """#6/#7 at head width ``w`` on the DDM batch of bucket 128 (a seeded DDM
     at the width), against their plain versions (recorded under
-    ``ncsn_score_*<tag>``), two launches bitwise equal; the kernel table's
-    rows, bounds counted at the user's width."""
+    ``ncsn_score_*<tag>``), two launches bitwise equal; with ``timed`` the
+    kernel table's rows, bounds counted at the user's width
+    (``utils/flops.ncsn_head_kernel``)."""
     import ctypes
 
     import torch
@@ -4683,6 +4735,7 @@ def widths_ncsn(dev, errs, w, cfg, batch, tag):
     from geossl_tpu_torch.ops import _build
     from geossl_tpu_torch.ops import ncsn as NS
     from geossl_tpu_torch.train import pretrain_geossl as PG
+    from geossl_tpu_torch.utils import flops
 
     targs = PG.build_parser().parse_args(["--emb_dim", str(w)])
     ddm = PG.make_ddm(targs, width_cfg(cfg, w),
@@ -4697,37 +4750,42 @@ def widths_ncsn(dev, errs, w, cfg, batch, tag):
     if not all(torch.equal(a, b) for a, b in zip(*again)) or \
             not torch.equal(*rows2):
         fail(f"ncsn_score{tag}: outputs differ between two launches")
-    lib = "ncsn_score" + ("_e256" if NS.kernel_width(w) == 256 else "")
-    smem = {d: _build.kernel_fn(lib, "ncsn_dir_smem_bytes", [ctypes.c_int],
-                                ctypes.c_size_t)(int(d == "fwd"))
-            for d in ("fwd", "bwd")}
-    E_, H_ = w, w // 2
+    if not timed:
+        return []
+    width = NS.instance_width(w)
+    if NS.streamed(width):  # one layout for both directions, at any E
+        smem = dict.fromkeys(("fwd", "bwd"), _build.kernel_fn(
+            "ncsn_score_wide", "ncsn_wide_smem_bytes", [], ctypes.c_size_t)())
+    else:
+        lib = "ncsn_score" + ("_e256" if width == 256 else "")
+        smem = {d: _build.kernel_fn(lib, "ncsn_dir_smem_bytes", [ctypes.c_int],
+                                    ctypes.c_size_t)(int(d == "fwd"))
+                for d in ("fwd", "bwd")}
     sel_pairs = int((grid[2] != 0).sum())
     bsz, n = grid[0].shape[:2]
     head_w = sum(t.numel() for t in weights)
-    fwd_pair = 2 * E_ * H_ + 8 * E_ + 2 * H_ + 10
     rows = []
-    for name, fn, plain, flops, nbytes, line in (
+    kernels = FINAL_KERNELS if NS.streamed(width) else WIDTH_KERNELS
+    for name, fn, plain, work, nbytes in (
             ("ncsn_score_fwd",
              lambda: NS.ncsn_score_fwd(*grid, *weights, anneal=anneal),
              lambda: chunked(NS.ncsn_score_loss_reference, grid,
                              (*weights, anneal), 16),
-             (sel_pairs * 2 * E_ * H_, sel_pairs * (fwd_pair - 2 * E_ * H_)),
+             flops.ncsn_head_kernel(w, sel_pairs),
              4 * (3 * grid[0].numel() + grid[4].numel() + bsz + head_w
-                  + bsz * n), 67),
+                  + bsz * n)),
             ("ncsn_score_bwd",
              lambda: NS.ncsn_score_bwd(*grid, g_rows, *weights, anneal=anneal),
              lambda: chunked_sum(
                  lambda *a: NS.ncsn_score_bwd_reference(*a, anneal=anneal),
                  (*grid, g_rows), weights, 16, 1),
-             (sel_pairs * 6 * E_ * H_,
-              sel_pairs * (fwd_pair - 2 * E_ * H_ + 12 * E_ + 4 * H_)),
+             flops.ncsn_head_kernel(w, sel_pairs, backward=True),
              4 * (3 * grid[0].numel() + 2 * grid[4].numel() + bsz
-                  + bsz * n + 2 * head_w), 135)):
-        rows.append((name + tag, WIDTH_KERNELS[name][0],
-                     WIDTH_KERNELS[name][1], cuda_time_ms(fn),
-                     cuda_time_ms(plain, reps=3, warmup=1), flops, nbytes,
-                     {"shape": what, "instance_width": NS.kernel_width(w),
+                  + bsz * n + 2 * head_w))):
+        rows.append((name + tag, kernels[name][0], kernels[name][1],
+                     cuda_time_ms(fn), cuda_time_ms(plain, reps=3, warmup=1),
+                     work, nbytes,
+                     {"shape": what, "instance_width": width,
                       "smem_bytes": smem["fwd" if name.endswith("fwd")
                                          else "bwd"]}))
     return rows
@@ -4764,12 +4822,10 @@ def widths_step_times(dev, cfg, batch):
 
 def widths_refusals(dev):
     """On the card, the refusals above the kernels' limits, each naming
-    its flag or width: ``pretrain_geossl --emb_dim 320`` (the NCSN head
-    takes up to 256), ``pretrain_geossl --num_filters 256 --filter_mxu
-    bf16`` (the bf16 CFConv backwards take up to 128), ``pretrain_geossl
-    --model_3d painn --painn_n_rbf 1`` (the PaiNN kernels take R >= 2) and
-    ``models/painn.stack_train_apply`` at F = 256 (the PaiNN stack takes up
-    to 128)."""
+    its flag or width: ``pretrain_geossl --model_3d painn --painn_n_rbf 1``
+    (the PaiNN kernels take R >= 2) and ``models/painn.stack_train_apply``
+    at F = 256 (the PaiNN stack takes up to 128). (The NCSN head at any
+    --emb_dim and the bf16 backwards at any --num_filters: phase 9.)"""
     import torch
 
     from geossl_tpu_torch.models.painn import stack_train_apply
@@ -4784,13 +4840,6 @@ def widths_refusals(dev):
         SEED)).to(dev)
     mask = torch.ones((2, 16), dtype=torch.bool, device=dev)
     for flag, fn in (
-            ("--emb_dim 320", lambda: PG.main([
-                "--synthetic", "--synthetic_size", "16", "--emb_dim", "320",
-                "--output_model_dir", os.path.join(ROOT, "runs", "refused")])),
-            ("--num_filters 256", lambda: PG.main([
-                "--synthetic", "--synthetic_size", "16", "--emb_dim", "256",
-                "--num_filters", "256", "--filter_mxu", "bf16",
-                "--output_model_dir", os.path.join(ROOT, "runs", "refused")])),
             ("--painn_n_rbf 1", lambda: PG.main([
                 "--synthetic", "--synthetic_size", "16", "--model_3d",
                 "painn", "--painn_n_rbf", "1", "--output_model_dir",
@@ -4836,8 +4885,9 @@ def widths_path(dev, card, errs, cfg, cutoff, cases, store, buckets, first,
         wcases, cw = widen_cases(dev, cases, w), width_cfg(cfg, w)
         gaussians_kernels(dev, errs, 300, wcases, cw, cutoff, False,
                           tag=f"_f{w}_g300")
+        # (the bf16 backwards above F = 128: phase 9)
         bf16_kernels(dev, errs, 51, wcases, cw, cutoff, False,
-                     tag=f"_f{w}_bf16")
+                     tag=f"_f{w}_bf16", backward=w <= K.KERNEL_F)
         head = head_instance(w)
         ncsn_tag = head or f"_e{w}"
         # (row, its launch counter, launches a call)
@@ -5340,6 +5390,339 @@ def painn_widths_path(dev, card, errs, store, buckets, first, packed,
     if seconds > PAINN_WIDTH_BUDGET_S:
         fail(f"painn_widths: {seconds:.1f} s, above its "
              f"{PAINN_WIDTH_BUDGET_S:.0f} s")
+    return rows
+
+
+# -- Phase 9: the last width refusals ---------------------------------------------
+# The two settings a training driver refused on CUDA until their kernels took
+# them: the bf16 CFConv backwards (#2/#4) above F = 128, in their
+# hidden-block instance (csrc/cfconv_bwd_bf16w.cu, counted as
+# <kernel>_bf16w, k = ceil(F / 128) launches a call), and the DDM head
+# (#6/#7) above E = 256, in its streamed instance (csrc/ncsn_score_wide.cu,
+# counted as <kernel>_wide). Tolerances: phase 6's for the bf16 instances and
+# the bf16 steps, phase 2's for the head, 1e-3 (GRAD_RTOL) for the f32 steps.
+FINAL_BUDGET_S = 120.0
+FINAL_KERNELS = {
+    "cfconv_bwd": ("geossl_tpu_torch/ops/csrc/cfconv_bwd_bf16w.cu",
+                   "geossl_tpu/ops/cfconv_pallas.py:150"),
+    "cfconv_bwd_sym": ("geossl_tpu_torch/ops/csrc/cfconv_bwd_bf16w.cu",
+                       "geossl_tpu/ops/cfconv_pallas.py:464"),
+    "ncsn_score_fwd": ("geossl_tpu_torch/ops/csrc/ncsn_score_wide.cu",
+                       "geossl_tpu/ops/ncsn_pallas.py:67"),
+    "ncsn_score_bwd": ("geossl_tpu_torch/ops/csrc/ncsn_score_wide.cu",
+                       "geossl_tpu/ops/ncsn_pallas.py:135"),
+}
+# the slice's commands: (tag, driver, flags, {counter: launches a call}) of
+# the new instances each must launch (a DDM step makes 2 views x L calls of
+# the backward and 2 head calls each way; an LBA step L calls)
+FINAL_COMMANDS = (
+    ("DDM-SchNet emb=F=512", "pretrain_geossl",
+     ["--emb_dim", "512", "--num_filters", "512"],
+     {"ncsn_score_fwd_wide": 0, "ncsn_score_bwd_wide": 0}),
+    ("DDM-PaiNN emb=384", "pretrain_geossl",
+     ["--model_3d", "painn", "--emb_dim", "384"],
+     {"ncsn_score_fwd_wide": 0, "ncsn_score_bwd_wide": 0}),
+    ("DDM-SchNet emb=F=256 compute_dtype", "pretrain_geossl",
+     ["--emb_dim", "256", "--num_filters", "256", *BF16_FLAGS["compute_dtype"]],
+     {"cfconv_bwd_sym_bf16w": 2}),
+    ("DDM-SchNet emb=F=256 filter_mxu max_neighbors=32", "pretrain_geossl",
+     ["--emb_dim", "256", "--num_filters", "256", *BF16_FLAGS["filter_mxu"],
+      "--max_num_neighbors", "32"],
+     {"cfconv_bwd_bf16w": 2}),
+    ("LBA-SchNet F=384 filter_mxu", "finetune_lba",
+     ["--num_filters", "384", *BF16_FLAGS["filter_mxu"]],
+     {"cfconv_bwd_sym_bf16w": 3}),
+)
+# the DDM commands' synthetic epoch: molecules, their most atoms
+FINAL_SYNTHETIC = (128, 100)
+# (F, G, timed) of #2/#4's hidden-block instance against its plain version
+FINAL_BF16W = ((256, 51, True), (256, 300, False), (384, 51, False),
+               (384, 300, False))
+# (E, timed) of #6/#7's streamed instance against its plain version
+FINAL_HEADS = ((300, False), (384, True), (512, True))
+
+
+def final_run(dev, tag, driver, flags, per_call):
+    """One epoch of ``driver`` with ``flags`` (DDM: 128 synthetic molecules
+    over buckets 32/64/128, batch 128; LBA: one step at B=64, N=512),
+    counters reset before and read after: each counter of ``per_call``
+    moves by its launches a call (0: two head calls a step each way) times
+    the step's calls, and the replaced instances do not launch. Returns
+    (the counts, the steps)."""
+    import math
+
+    from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
+    from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.train import finetune_lba as FL
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    run_dir = os.path.join(ROOT, "runs", "chip_smoke_final")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    reset_launch_counts()
+    if driver == "pretrain_geossl":
+        argv = ["--synthetic", "--synthetic_size", str(FINAL_SYNTHETIC[0]),
+                "--synthetic_max_atoms", str(FINAL_SYNTHETIC[1]),
+                "--epochs", "1", "--output_model_dir", run_dir, *flags]
+        _, losses = PG.main(argv)
+        args = PG.build_parser().parse_args(argv)
+        calls = 2 * common.model_config_from_args(args).schnet.num_interactions
+    else:
+        argv = [*lba_flags("schnet"), "--output_model_dir", run_dir, *flags]
+        _, best, _, losses = FL.main(argv)
+        args = FL.build_parser().parse_args(argv)
+        calls = common.model_config_from_args(args).schnet.num_interactions
+        if not math.isfinite(best):
+            fail(f"{tag}: best {best}")
+    counts = launch_counts()
+    if not losses or not all(math.isfinite(v) for v in losses):
+        fail(f"{tag}: losses {losses}")
+    steps = len(losses)
+    for name, k in per_call.items():
+        want = (k * calls if k else 2) * steps
+        if counts[name] != want:
+            fail(f"{tag}: {counts[name]} launches of {name}, want {want}")
+    # the instances the new ones stand in for at these widths
+    replaced = [n[:-1] for n in per_call if n.endswith("_bf16w")]
+    if "ncsn_score_fwd_wide" in per_call:
+        replaced += [n + e for n in ("ncsn_score_fwd", "ncsn_score_bwd")
+                     for e in ("", "_e256")]
+    for old in replaced:
+        if counts[old]:
+            fail(f"{tag}: {counts[old]} launches of {old}")
+    print(f"widths_final run {tag}: {steps} steps, launches "
+          f"{ {n: v for n, v in counts.items() if v} }")
+    return counts, steps
+
+
+def final_steps(dev, batch, lba_batch):
+    """(b) One step per command at bucket 128 (LBA: B=64, N=512) against
+    the same step through the plain versions, in graph chunks: the f32
+    steps within RTOL / GRAD_RTOL, the bf16 steps within phase 6's step
+    tolerance."""
+    import torch
+
+    from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.train import finetune_lba as FL
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    cat = lambda gs: torch.cat([t.flatten() for t in gs.values()])  # noqa: E731
+    for tag, driver, flags, _ in FINAL_COMMANDS:
+        bf16 = any(f in flags for f in ("bf16", "bfloat16"))
+        if driver == "pretrain_geossl":
+            targs = PG.build_parser().parse_args(flags)
+            cfg = common.model_config_from_args(targs)
+            net = PG.make_ddm(targs, cfg,
+                              torch.Generator().manual_seed(SEED)).to(dev)
+            pos2, sel, draws = step_draws(net, batch, targs, 128)
+            loss_k, grads_k = ddm_grads(net, batch, pos2, sel, draws)
+            net.plain = True
+            loss_p, grads_p = ddm_grads(net, batch, pos2, sel, draws,
+                                        chunk=max(2, 16 * 128 // cfg.emb_dim))
+        else:
+            args = FL.build_parser().parse_args([*lba_flags("schnet"),
+                                                 *flags])
+            net = FL.make_net(args, common.model_config_from_args(args),
+                              torch.Generator().manual_seed(SEED)).to(dev)
+
+            def loss(sb, sl):
+                return FL.loss_fn(net, sb)
+
+            loss_k, grads_k = grads_in_chunks(net, lba_batch, loss)
+            net.plain = True
+            loss_p, grads_p = grads_in_chunks(net, lba_batch, loss, chunk=2)
+        what = f"widths_final {tag} step parity"
+        if not bf16:
+            check_step_parity(what, loss_k, grads_k, loss_p, grads_p)
+        else:
+            rel = rel_norm(cat(grads_k), cat(grads_p))
+            if abs(loss_k - loss_p) > BF16_STEP_LOSS * abs(loss_p) or \
+                    rel > BF16_STEP_NORM:
+                fail(f"{what}: loss {loss_k} vs plain {loss_p}, gradients "
+                     f"rel_norm {rel:.3e}")
+            print(f"{what}: loss {loss_k:.6f} vs {loss_p:.6f}, gradient "
+                  f"rel_norm {rel:.3e}")
+        del net
+        torch.cuda.empty_cache()
+
+
+def final_forces(dev, cfg, store, first):
+    """(a) ``Predictor.predict_forces`` on a seeded bf16 (``--filter_mxu
+    bf16``) SchNet at num_filters 256, two complexes at N=512 (the
+    symmetric pair's bf16 backward in its hidden-block instance), against
+    the plain forces: energies within phase 6's output bound, forces
+    within its gradient bound."""
+    import torch
+
+    from geossl_tpu_torch.serve import Predictor
+    from geossl_tpu_torch.train.common import make_backbone, make_head
+
+    cw = bf16_cfg(width_cfg(cfg, 256), "filter_mxu")
+    gen = torch.Generator().manual_seed(SEED)
+    state = {"model": make_backbone(cw, gen).state_dict(),
+             "graph_pred_linear": make_head("schnet", 256, gen).state_dict(),
+             "y_mean": 1.5, "y_std": 2.0}
+    pred = Predictor(cw, state, batch_size=128, bucket_sizes=(512,))
+    forces_store = store.select(first(512, 2))
+    energies, forces = pred.predict_forces(forces_store)
+    torch.cuda.synchronize()
+    e_p, f_p = plain_forces(pred, forces_store)
+    e = torch.as_tensor(energies, device=e_p.device)
+    f = torch.as_tensor(forces, device=f_p.device)
+    atol = BF16_ATOL * e_p.abs().max().item()
+    rel = rel_norm(f, f_p)
+    mean = (f - f_p).abs().mean().item() / (f_p.abs().mean().item() + 1e-30)
+    if not torch.isfinite(f).all() or f.shape != f_p.shape or \
+            not (e - e_p).abs().le(atol + BF16_RTOL * e_p.abs()).all() or \
+            rel > BF16_GRAD_NORM or mean > BF16_GRAD_MEAN:
+        fail(f"widths_final predict_forces bf16 F=256: energies max_abs_err "
+             f"{(e - e_p).abs().max().item():.3e}, forces rel_norm {rel:.3e},"
+             f" mean {mean:.3e}")
+    print(f"widths_final predict_forces bf16 F=256 (2 complexes, N=512): "
+          f"energies max_abs_err {(e - e_p).abs().max().item():.3e}, forces "
+          f"rel_norm {rel:.3e}, mean_abs_err {mean:.3e} of the mean")
+
+
+def final_step_times(dev, batch):
+    """(d) The device ms of one DDM step at bucket 128 per DDM command of
+    the phase (a seeded module, traced after a warm-up)."""
+    import torch
+
+    from geossl_tpu_torch.train import common
+    from geossl_tpu_torch.train import pretrain_geossl as PG
+
+    out = {}
+    for tag, driver, flags, _ in FINAL_COMMANDS:
+        if driver != "pretrain_geossl":
+            continue
+        targs = PG.build_parser().parse_args(flags)
+        ddm = PG.make_ddm(targs, common.model_config_from_args(targs),
+                          torch.Generator().manual_seed(SEED)).to(dev)
+        opt, sched = common.make_optimizer_from_args(targs, ddm.parameters(),
+                                                     100)
+        gen = torch.Generator(dev).manual_seed(SEED)
+
+        def step():
+            return PG.train_step(ddm, opt, sched, [batch], targs, gen)
+
+        step()
+        torch.cuda.synchronize()
+        _, busy, ours = device_profile(step)
+        out[tag] = {"device_ms": busy * 1e3, "port_kernels_ms": ours * 1e3}
+        del ddm, opt
+    return out
+
+
+def final_widths_path(dev, card, errs, cfg, cutoff, cases, store, first,
+                      train_batch, lba_batch):
+    """Phase 9: the slice's five commands at the widths the drivers once
+    refused (counters reset before each and read after: their sums are the
+    rows' launches), ``predict_forces`` on a bf16 F = 256 model, each
+    command's step against its plain step, the new instances against their
+    plain versions (#2/#4 bf16 at F = 256 and 384, G = 51 and 300; #6/#7 at
+    E = 300, 384 and 512, two launches bitwise equal; timed at F = 256 and
+    E = 384 / 512: the kernel table's ``<kernel>_bf16w_f256`` and
+    ``<kernel>_wide_e384`` / ``_e512`` rows), their shared memory (the
+    query, constant in F and E, and ptxas), and the DDM step's device ms
+    per command. Returns the rows."""
+    import ctypes
+
+    import torch
+
+    from geossl_tpu_torch.ops import _build
+    from geossl_tpu_torch.ops._launch import launch_counts, reset_launch_counts
+    from geossl_tpu_torch.utils import flops
+
+    t0 = time.time()
+    batch = train_batch(128)
+    launches = {}
+    runs = {}
+    for tag, driver, flags, per_call in FINAL_COMMANDS:
+        counts, steps = final_run(dev, tag, driver, flags, per_call)
+        runs[tag] = steps
+        for n, v in counts.items():
+            launches[n] = launches.get(n, 0) + v
+    reset_launch_counts()
+    final_forces(dev, cfg, store, first)
+    forces_counts = launch_counts()
+    if forces_counts["cfconv_bwd_sym_bf16w"] == 0:
+        fail("widths_final predict_forces: cfconv_bwd_sym_bf16w not launched")
+    for n, v in forces_counts.items():
+        launches[n] = launches.get(n, 0) + v
+    for name in ("cfconv_bwd_bf16w", "cfconv_bwd_sym_bf16w",
+                 "ncsn_score_fwd_wide", "ncsn_score_bwd_wide"):
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on phase 9's paths")
+    t_main = time.time() - t0
+    final_steps(dev, batch, lba_batch)
+    t_steps = time.time() - t0 - t_main
+    rows = []
+    for w, g, timed in FINAL_BF16W:
+        wcases, cw = widen_cases(dev, cases, w), width_cfg(cfg, w)
+        if not timed:  # the LBA shape on 8 of its 64 complexes
+            wcases["lba"] = tuple(t[:8] for t in wcases["lba"])
+        tag = f"_bf16w_f{w}" + ("" if g == 51 else f"_g{g}")
+        for name, src, replaces, ms, plain_ms, work, nbytes, extra in \
+                bf16_kernels(dev, errs, g, wcases, cw, cutoff, timed, tag=tag,
+                             forward=False):
+            counter = name[:-len(tag)] + "_bf16w"
+            rows.append((name, src, replaces, ms, plain_ms, work, nbytes,
+                         launches[counter], {
+                             **extra, "width": w, "launches_per_call":
+                             flops.cfconv_launches(w, True, "bf16")}))
+        del wcases
+        torch.cuda.empty_cache()
+    for e, timed in FINAL_HEADS:
+        tag = f"_wide_e{e}"
+        for name, src, replaces, ms, plain_ms, work, nbytes, extra in \
+                widths_ncsn(dev, errs, e, cfg, batch, tag, timed):
+            counter = name[:-len(tag)] + "_wide"
+            rows.append((name, src, replaces, ms, plain_ms, work, nbytes,
+                         launches[counter], {**extra, "width": e,
+                                             "launches_per_call": 1}))
+        torch.cuda.empty_cache()
+    t_kernels = time.time() - t0 - t_main - t_steps
+    steps = final_step_times(dev, batch)
+    smem = {
+        "cfconv_bwd_bf16w": {
+            f"N={n}": _build.kernel_fn("cfconv_bwd_bf16w",
+                                       "cfconv_bwd_bf16w_smem_bytes",
+                                       [ctypes.c_int], ctypes.c_size_t)(n)
+            for n in (128, 512)},
+        "ncsn_score_wide": _build.kernel_fn(
+            "ncsn_score_wide", "ncsn_wide_smem_bytes", [],
+            ctypes.c_size_t)()}
+    ptxas = {
+        **{f"cfconv_bwd{'_sym' if sym else ''}_bf16w"
+           f"{'_g300' if big else ''}": ptxas_usage(
+               _build.build_log("cfconv_bwd_bf16w"),
+               f"_ZN6geossl5bf16w23cfconv_bwd_bf16w_kernelILb{int(sym)}"
+               f"ELb{int(big)}E")
+           for sym in (False, True) for big in (False, True)},
+        **{f"ncsn_score_{d}_wide": ptxas_usage(
+            _build.build_log("ncsn_score_wide"),
+            f"_ZN6geossl5nwide20ncsn_wide_{d}_kernel")
+           for d in ("fwd", "bwd")}}
+    seconds = time.time() - t0
+    print("widths_final: " + json.dumps({
+        "card": card, "seconds": seconds,
+        "seconds_by_part": {"commands": t_main, "steps": t_steps,
+                            "kernels": t_kernels,
+                            "step_times": seconds - t_main - t_steps
+                            - t_kernels},
+        "commands": runs, "ddm_step_bucket_128": steps,
+        "smem_bytes": smem, "ptxas": ptxas,
+        "launches": {n: v for n, v in launches.items()
+                     if v and ("bf16w" in n or "wide" in n)},
+        "rows": {name: {"ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms(work, nbytes, PEAK_BF16_FLOPS
+                                             if extra.get("mxu") == "bf16"
+                                             else PEAK_TF32_FLOPS),
+                        "launches": count, **extra}
+                 for name, _, _, ms, plain_ms, work, nbytes, count, extra
+                 in rows}}))
+    if seconds > FINAL_BUDGET_S:
+        fail(f"widths_final: {seconds:.1f} s, above its "
+             f"{FINAL_BUDGET_S:.0f} s")
     return rows
 
 
@@ -6733,6 +7116,10 @@ def main():
         if "stack_shape" in row[-1]:
             stack_shape[row[0]] = row[-1]["stack_shape"]
     kernels += painn_rows
+
+    # -- 9. the last width refusals: #2/#4 bf16 above F = 128, #6/#7 above 256 --
+    kernels += final_widths_path(dev, card, errs, cfg, cutoff, gauss_cases,
+                                 store, first, train_batch, lba_batch)
 
     from geossl_tpu_torch.utils.flops import bound_basis
 

@@ -17,8 +17,10 @@ started against it:
 - native: the C++ host runtime builds and loads (``radius_edges`` smoke);
 - kernels: on the card, one launch of every kernel of ``ops/csrc`` (both
   modes where a source has two; the CFConv kernels also in their bf16
-  instances, counted as ``<kernel>_bf16``, the NCSN head also in its
-  E = 256 instance, ``<kernel>_e256``) at a tiny shape with real
+  instances, counted as ``<kernel>_bf16``, the bf16 backwards also at F =
+  256 in their hidden-block instance, ``<kernel>_bf16w``, the NCSN head
+  also in its E = 256 instance, ``<kernel>_e256``, and at E = 384 in its
+  streamed instance, ``<kernel>_wide``) at a tiny shape with real
   geometry, padding and empty tiles, each held to its plain version with
   the tolerances of ``chip_smoke.py`` (the bf16 instances with phase 6's);
   each kernel's launch counter must move.
@@ -330,9 +332,10 @@ class Tally:
 def _case(device: torch.device):
     """The tiny batch at full kernel width: SchNet (F=128, G=51, 2 blocks)
     on its symmetric radius graph and on a max_neighbors=8 graph, the same
-    at G=100 (the kernels' instances that stream W1, above 64), PaiNN
-    (F=128, R=20, 2 blocks), and an NCSN head (E=128, and E=256 on the same
-    pairs) with seeded draws."""
+    at G=100 (the kernels' instances that stream W1, above 64), with
+    seeded F = 256 inputs for the bf16 backwards' hidden-block instance,
+    PaiNN (F=128, R=20, 2 blocks), and an NCSN head (E=128, and E=256 and
+    E=384 on the same pairs) with seeded draws."""
     from dataclasses import replace
 
     import numpy as np
@@ -403,6 +406,23 @@ def _case(device: torch.device):
         weights=[torch.randn(s, generator=gen).to(device)
                  / max(1, s[0]) ** 0.5 for s in NS.weight_shapes(256)],
         anneal=2.0)
+    # the head's streamed instance: the same pairs, a 384-wide head
+    case["ncsn_wide"] = dict(
+        grid=(*n["grid"][:4],
+              torch.randn((B, N, 384), generator=gen).to(device)),
+        weights=[torch.randn(s, generator=gen).to(device)
+                 / max(1, s[0]) ** 0.5 for s in NS.weight_shapes(384)],
+        anneal=2.0)
+    # the bf16 backwards' hidden-block instance: F = 256 filters (x, its
+    # cotangent and the filter weights seeded) on each SchNet case's graph
+    for tag, c in runs:
+        f, g = 256, case[tag]["G"]
+        case[tag]["wide"] = dict(
+            x=torch.randn((B, N, f), generator=gen).to(device),
+            g=torch.randn((B, N, f), generator=gen).to(device),
+            fw=[(torch.randn(shape, generator=gen) * scale).to(device)
+                for shape, scale in (((g, f), 0.3), ((f,), 0.1),
+                                     ((f, f), f ** -0.5), ((f,), 0.1))])
     return case
 
 
@@ -501,6 +521,34 @@ def run_kernel_checks(device: torch.device) -> dict:
 
             guarded(name + "_bf16", f"{gw}sparse={sp}", fwd_check)
             guarded(bwd_name + "_bf16", f"{gw}sparse={sp}", bwd_check)
+    # the bf16 backwards at F = 256 (their hidden-block instances, counted
+    # as <kernel>_bf16w), at both G, against the hidden blocks' plain version
+    for (bwd_name, tag, bwd), (_, g_tag) in itertools.product((
+            ("cfconv_bwd", "mn", K.cfconv_bwd),
+            ("cfconv_bwd_sym", "sym", K.cfconv_bwd_sym)), SCHNET_G):
+        c = case[tag + g_tag]
+        wc = c["wide"]
+        gw = f"G={c['G']} F=256 bf16 "
+        args = (0.0, c["cutoff"], c["G"])
+        ins = (c["dist"], c["env"], wc["x"], wc["g"], *wc["fw"])
+        occ = tile_occupied(c["env"])
+        want_b = list(K.cfconv_bwd_bf16_blocks_reference(*ins, *args))
+        f32_b = list(K.cfconv_bwd_reference(*ins, *args))
+        if tag == "sym":
+            for w in (want_b, f32_b):
+                w[:2] = [K.place_sym_cotangent(t) for t in w[:2]]
+        for sp in (False, True):
+            def wide_check(sp=sp, name=bwd_name + "_bf16w"):
+                got = bwd(*ins, *args, sp, "bf16")
+                for k, what in enumerate(("ddist", "denv", "dx", "dW1", "db1",
+                                          "dW2", "db2")):
+                    w, w32 = want_b[k], f32_b[k]
+                    if sp and k < 2:
+                        w, w32 = _masked(w, occ), _masked(w32, occ)
+                    tally.bf16_grad(name, got[k], w, w32,
+                                    f"{gw}sparse={sp} {what}")
+
+            guarded(bwd_name + "_bf16w", f"{gw}sparse={sp}", wide_check)
     for (tag, sym), (_, g_tag) in itertools.product(
             (("sym", True), ("mn", False)), SCHNET_G):
         c = case[tag + g_tag]
@@ -519,8 +567,9 @@ def run_kernel_checks(device: torch.device) -> dict:
         guarded("schnet_stack", f"{gw}symmetric={sym}", stack_check)
 
     # the NCSN head, forward and backward, in its E = 128 and 256 instances
-    # (the latter counted as <kernel>_e256)
-    for key, tag in (("ncsn", ""), ("ncsn_e256", "_e256")):
+    # and its streamed one at E = 384 (counted as <kernel>_e256, _wide)
+    for key, tag in (("ncsn", ""), ("ncsn_e256", "_e256"),
+                     ("ncsn_wide", "_wide")):
         n = case[key]
 
         def ncsn_fwd_check(n=n, name="ncsn_score_fwd" + tag):

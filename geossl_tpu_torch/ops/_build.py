@@ -23,8 +23,9 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 # library -> (its csrc/ source, the nvcc flags it adds)
 SOURCES = {name: (name, ()) for name in (
-    "cfconv_fwd", "cfconv_bwd", "ncsn_score", "schnet_stack", "painn_fwd",
-    "painn_bwd", "painn_stack")}
+    "cfconv_fwd", "cfconv_bwd", "cfconv_bwd_bf16w", "ncsn_score",
+    "ncsn_score_wide", "schnet_stack", "painn_fwd", "painn_bwd",
+    "painn_stack")}
 SOURCES["ncsn_score_e256"] = ("ncsn_score", ("-DNCSN_E=256",))
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -57,9 +57,14 @@ padded output column is zero); a wider one runs as column blocks
 linear in the filter and the filter is a sum over W2's row blocks, so k =
 ceil(F / 128) blocks of 128 make k^2 launches of the 128-wide kernels, one
 per (hidden block i, output block o), summed exactly (within f32 rounding
-of one full-width sum), k^2 counted launches per call. The bf16
-backward takes F <= 128 only: a column block would round its own partial
-dh to bf16 where the JAX kernel rounds their sum. The stack
+of one full-width sum), k^2 counted launches per call. The bf16 backward
+above 128 does not split so: a (i, o) launch would round its own partial dh
+to bf16 where the JAX kernel rounds their sum. It runs its own instance
+(``csrc/cfconv_bwd_bf16w.cu``, :func:`_cfconv_bwd_bf16w_kernel`): one
+launch per hidden block i that walks every output block o inside the
+launch and rounds dh_i once, k launches a call, counted as
+``<kernel>_bf16w`` (:data:`BF16W_LAUNCHES`); its plain version is
+:func:`cfconv_bwd_bf16_blocks_reference`. The stack
 pads up to 128 and refuses wider F (serving routes such a model through the
 per-block kernels). The padding and the blocks stay inside the launch
 functions, so the autograd Functions, the ops' fake implementations and
@@ -119,6 +124,10 @@ MXU_MODES = ("f32", "bf16")
 # as "<name>_bf16" in ops/_launch.launch_counts()
 BF16_LAUNCHES = {name: instance_counter(f"{name}_bf16") for name in (
     "cfconv_fwd", "cfconv_bwd", "cfconv_fwd_sym", "cfconv_bwd_sym")}
+# The bf16 backwards' hidden-block instances above KERNEL_F (one launch per
+# hidden block): each counts as "<name>_bf16w"
+BF16W_LAUNCHES = {name: instance_counter(f"{name}_bf16w")
+                  for name in ("cfconv_bwd", "cfconv_bwd_sym")}
 
 
 def _count(name, mxu):
@@ -151,7 +160,8 @@ def filter_blocks(f: int) -> int:
 
 def launches_per_call(f: int) -> int:
     """Kernel launches one CFConv call at filter width ``f`` makes: one up
-    to ``KERNEL_F`` (padded), k^2 for k column blocks above it."""
+    to ``KERNEL_F`` (padded), k^2 for k column blocks above it (the bf16
+    backward's hidden-block instance makes k)."""
     return filter_blocks(f) ** 2
 
 
@@ -310,6 +320,56 @@ def cfconv_bwd_bf16_reference(dist, env, x, g, w1, b1, w2, b2, start, stop,
     drbf = _dot(dh, w1.t(), "bf16").reshape(rbf.shape)
     ddist = torch.sum(drbf * rbf * (2.0 * coeff) * diff, dim=-1)
     return ddist, denv, dx, dw1, db1, dw2, db2
+
+
+@torch.no_grad()
+def cfconv_bwd_bf16_blocks_reference(dist, env, x, g, w1, b1, w2, b2, start,
+                                     stop, num_g):
+    """The plain version of the bf16 backward's hidden-block instance
+    (``csrc/cfconv_bwd_bf16w.cu``): :func:`cfconv_bwd_bf16_reference`'s
+    body over k = ceil(F / KERNEL_F) hidden blocks i (W1's and b1's
+    columns, W2's rows of block i), each walking the output blocks o:
+    w_o = s_i W2[i, o] (+ b2[o] for i = 0), dW2[i, o] = s_i^T qe_o, and dh_i
+    summed over o in the working dtype before it is rounded once, as the
+    operand of dW1[:, i] and drbf_i; ddist, denv and dx summed over the
+    blocks in order. F is zero-padded to k KERNEL_F and cut back. The same
+    rounded operands as the full-width body: they differ only in the order
+    of their sums."""
+    f = x.shape[-1]
+    k, width, sl = _blocks(f)
+    x, w1, b1, w2, b2 = _pad_filter(x, w1, b1, w2, b2, width)
+    g = torch.nn.functional.pad(g, (0, width - f))
+    offset, coeff = rbf_offsets(start, stop, num_g, dist.dtype, dist.device)
+    diff = dist[..., None] - offset
+    rbf = torch.exp(coeff * diff * diff)  # [B,N,N,G]
+    env4 = env[..., None]
+    q = g[:, :, None, :] * x[:, None, :, :]
+    qe = q * env4
+    ddist = denv = dx = 0
+    dw1, db1, dw2 = [], [], []
+    for i in range(k):
+        pre1 = _dot(rbf, w1[:, sl[i]], "bf16") + b1[sl[i]]
+        s = shifted_softplus(pre1)
+        dh, dxs, dw2_i = 0, [], []
+        for o in range(k):
+            w = _dot(s, w2[sl[i], sl[o]], "bf16")
+            if i == 0:
+                w = w + b2[sl[o]]
+            denv = denv + torch.sum(w * q[..., sl[o]], dim=-1)
+            dxs.append(torch.sum(w * env4 * g[:, :, None, sl[o]], dim=1))
+            qe_o = qe[..., sl[o]].reshape(-1, KERNEL_F)
+            dw2_i.append(_dot(s.reshape(-1, KERNEL_F).t(), qe_o, "bf16"))
+            dh = dh + _dot(qe_o, w2[sl[i], sl[o]].t(), "bf16")
+        dx = dx + torch.cat(dxs, -1)
+        dh = dh * torch.sigmoid(pre1).reshape(-1, KERNEL_F)
+        dw1.append(_dot(rbf.reshape(-1, num_g).t(), dh, "bf16"))
+        db1.append(torch.sum(dh, dim=0))
+        dw2.append(torch.cat(dw2_i, -1))
+        drbf = _dot(dh, w1[:, sl[i]].t(), "bf16").reshape(rbf.shape)
+        ddist = ddist + torch.sum(drbf * rbf * (2.0 * coeff) * diff, dim=-1)
+    db2 = torch.sum(qe.reshape(-1, width), dim=0)
+    return (ddist, denv, dx[..., :f].contiguous(), torch.cat(dw1, -1)[:, :f],
+            torch.cat(db1)[:f], torch.cat(dw2)[:f, :f], db2[:f])
 
 
 def cfconv_bwd_reference(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
@@ -654,10 +714,16 @@ def _launch_cfconv_bwd(dist: Tensor, env: Tensor, x: Tensor, g: Tensor,
     if symmetric and ni != nj:
         raise ValueError(f"{name}: the symmetric mode needs a square grid")
     if mxu == "bf16" and f > KERNEL_F:
-        raise ValueError(f"{name}: the bf16 backward takes F <= {KERNEL_F}; "
-                         f"got F={f} (column blocks would round each block's "
-                         "partial dh to bf16 where the JAX kernel rounds "
-                         "their sum)")
+        # one launch per hidden block (dh rounded once, as the JAX kernel)
+        k, width, _ = _blocks(f)
+        x, w1, b1, w2, b2 = _pad_filter(x, w1, b1, w2, b2, width)
+        g = torch.nn.functional.pad(g, (0, width - f))
+        ddist, denv, dx, wblocks = _cfconv_bwd_bf16w_kernel(
+            dist, env, x, g, w1, b1, w2, b2, start, stop, num_g, symmetric,
+            sparse)
+        BF16W_LAUNCHES[name].launches += k
+        return (ddist, denv, dx[..., :f].contiguous(),
+                flat(_unpack_hidden_blocks(wblocks, num_g, f)))
     if f == KERNEL_F:
         out = _cfconv_bwd_kernel(dist, env, x, g, w1, b1, w2, b2, start,
                                  stop, num_g, symmetric, sparse, mxu)
@@ -710,6 +776,91 @@ def _cfconv_bwd_kernel(dist, env, x, g, w1, b1, w2, b2, start, stop, num_g,
              int(sparse), int(mxu == "bf16"), stream(dist))
     check_launch(name, err)
     return ddist, denv, dx, wgrad
+
+
+def _hidden_block_size(num_g, width):
+    """Floats of one hidden block's share of the weight gradients: dW1[:, i]
+    [G, KERNEL_F], db1[i], dW2[i, :] [KERNEL_F, width] and db2 as 8 rows of
+    width (row 0 the sum; the same in every share)."""
+    return num_g * KERNEL_F + KERNEL_F + KERNEL_F * width + 8 * width
+
+
+def _unpack_hidden_blocks(wblocks, num_g, f):
+    """(dW1, db1, dW2, db2) at width ``f`` from the hidden blocks' shares
+    ``wblocks`` [k, :func:`_hidden_block_size`] at the padded width."""
+    k = wblocks.shape[0]
+    width = k * KERNEL_F
+    parts = [torch.split(row, [num_g * KERNEL_F, KERNEL_F, KERNEL_F * width,
+                               8 * width]) for row in wblocks]
+    dw1 = torch.cat([p[0].view(num_g, KERNEL_F) for p in parts], -1)
+    dw2 = torch.cat([p[2].view(KERNEL_F, width) for p in parts])
+    return (dw1[:, :f], torch.cat([p[1] for p in parts])[:f], dw2[:f, :f],
+            parts[0][3][:f])
+
+
+def _pack_hidden_blocks(dw1, db1, dw2, db2):
+    """The layout of :func:`_unpack_hidden_blocks` from full-width weight
+    gradients at a multiple of KERNEL_F (the plain version's)."""
+    width = dw2.shape[-1]
+    db2_rows = torch.cat([db2, db2.new_zeros(7 * width)])
+    return torch.stack([torch.cat([
+        dw1[:, sl].reshape(-1), db1[sl], dw2[sl].reshape(-1), db2_rows])
+        for sl in _blocks(width)[2]])
+
+
+def _cfconv_bwd_bf16w_plain(dist, env, x, g, w1, b1, w2, b2, start, stop,
+                            num_g, symmetric, sparse):
+    """The plain version of :func:`_cfconv_bwd_bf16w_kernel` (its inputs and
+    its outputs' layout): :func:`cfconv_bwd_bf16_blocks_reference`, ddist /
+    denv placed in the symmetric mode as the kernel writes them."""
+    ddist, denv, dx, *wgrads = cfconv_bwd_bf16_blocks_reference(
+        dist, env, x, g, w1, b1, w2, b2, start, stop, num_g)
+    if symmetric:
+        ddist, denv = place_sym_cotangent(ddist), place_sym_cotangent(denv)
+    return ddist, denv, dx, _pack_hidden_blocks(*wgrads)
+
+
+def _cfconv_bwd_bf16w_kernel(dist, env, x, g, w1, b1, w2, b2, start, stop,
+                             num_g, symmetric, sparse):
+    """The bf16 backward's hidden-block instance (csrc/cfconv_bwd_bf16w.cu)
+    at F = k KERNEL_F (k >= 2): one C call, k launches (one per hidden
+    block) after one work list. Returns (ddist, denv, dx, the k hidden
+    blocks' weight-gradient shares [k, :func:`_hidden_block_size`])."""
+    name = "cfconv_bwd_sym" if symmetric else "cfconv_bwd"
+    lib = "cfconv_bwd_bf16w"
+    b, ni, nj = dist.shape
+    f = x.shape[-1]
+    k = f // KERNEL_F
+    smem = _build.kernel_fn(lib, "cfconv_bwd_bf16w_smem_bytes",
+                            [ctypes.c_int], ctypes.c_size_t)(ni)
+    check_smem(name, smem)
+    blocks = _build.kernel_fn(lib, "cfconv_bwd_bf16w_blocks",
+                              [ctypes.c_int, ctypes.c_int])(b, nj)
+    ws_ints = _build.kernel_fn(lib, "cfconv_bwd_bf16w_ws_ints",
+                               [ctypes.c_int] * 3, ctypes.c_size_t)(b, ni, nj)
+    size = _build.kernel_fn(lib, "cfconv_bwd_bf16w_wgrad_size",
+                            [ctypes.c_int] * 2, ctypes.c_size_t)(num_g, f)
+    fn = _build.kernel_fn(
+        lib, "cfconv_bwd_bf16w",
+        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    dev = dist.device
+    ddist, denv = torch.empty_like(dist), torch.empty_like(env)
+    # every launch adds its dx terms to the earlier launches'
+    dx = torch.zeros_like(x)
+    part = torch.empty((blocks, size), dtype=torch.float32, device=dev)
+    wblocks = torch.empty((k, size), dtype=torch.float32, device=dev)
+    ws = torch.empty(ws_ints, dtype=torch.int32, device=dev)
+    # W1's column blocks, each [G, KERNEL_F] contiguous
+    w1b = w1.view(num_g, k, KERNEL_F).transpose(0, 1).contiguous()
+    s0, delta, coeff = _rbf_consts(start, stop, num_g)
+    tab = _rbf_table(start, stop, num_g, dev)
+    err = fn(*map(ptr, (dist, env, x, g, w1b)), ptr_or_null(tab),
+             *map(ptr, (b1, w2, b2, ddist, denv, dx, part, wblocks, ws)),
+             b, ni, nj, f, num_g, s0, delta, coeff, int(symmetric),
+             int(sparse), stream(dist))
+    check_launch(name, err)
+    return ddist, denv, dx, wblocks
 
 
 @counted("cfconv_bwd")

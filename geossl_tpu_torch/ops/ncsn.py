@@ -9,18 +9,22 @@ forward and ``ncsn_score_bwd`` (replaces ``_bwd_kernel``) backward, first
 order only. Gradients flow to the node projections ``u`` and the ten head
 weights; dist, noise, sel and sigma are data and get none.
 
-The kernels take emb up to 256 (``MAX_E``): the source builds once per
-width in ``KERNEL_WIDTHS`` (128, 256), and a head runs in the narrowest
-instance that holds it, zero-padded to that width inside the launch
-functions (exact: every padded unit is relu(0) = 0 and meets zero weights;
-outputs are sliced back, so the autograd Function, the ops' fake
-implementations and sealed programs keep the user's width). The 256
-instance's launches count as ``<kernel>_e256`` (:data:`E256_LAUNCHES`), not
-under the wrapper's name. Both instances run the head's products on the
-tensor cores in 3xTF32 (``csrc/mma_tf32.cuh``; the forward l1 W2, the
-backward also dl1 and dW2), within f32 rounding of the plain version, over
-a tile list made on the device, and sum everything in a fixed order
-(bitwise repeatable).
+Widths. The source builds once per width in ``KERNEL_WIDTHS`` (128, 256),
+and a head up to 256 runs in the narrowest instance that holds it,
+zero-padded to that width inside the launch functions (exact: every padded
+unit is relu(0) = 0 and meets zero weights; outputs are sliced back, so the
+autograd Function, the ops' fake implementations and sealed programs keep
+the user's width). The 256 instance's launches count as ``<kernel>_e256``
+(:data:`E256_LAUNCHES`). A wider head runs the streamed instance
+(``csrc/ncsn_score_wide.cu``), whose width is a runtime value: E padded to
+a multiple of ``WIDE_CHUNK`` = 128 and streamed in chunks of it (H in
+groups of half of it), so that its shared memory does not grow with E; its
+launches count as ``<kernel>_wide`` (:data:`WIDE_LAUNCHES`) and its plain
+version is :func:`ncsn_streamed_reference`. :func:`instance_width` picks
+the width. Every instance runs the head's products on the tensor cores in
+3xTF32 (``csrc/mma_tf32.cuh``; the forward l1 W2, the backward also dl1
+and dW2), within f32 rounding of the plain version, over a tile list made
+on the device, and sums everything in a fixed order (bitwise repeatable).
 
 Each launch is also a custom op (``ops/_launch.kernel_op``):
 ``geossl_torch::ncsn_score_fwd`` and ``ncsn_score_bwd`` (the weight
@@ -55,14 +59,21 @@ from geossl_tpu_torch.ops._launch import (
     stream,
 )
 
-# Head widths of the kernels' instances (csrc/ncsn_score.cu built with
-# NCSN_E = each): a head of width emb runs in the narrowest that holds it.
+# Head widths of the fixed-width instances (csrc/ncsn_score.cu built with
+# NCSN_E = each): a head up to the last runs in the narrowest that holds it
+# (read at call time).
 KERNEL_WIDTHS = (128, 256)
 KERNEL_E = KERNEL_WIDTHS[0]
-MAX_E = KERNEL_WIDTHS[-1]
-# The wider instance's launch counters, by the wrapper's name: each counts as
-# "<name>_e256" in ops/_launch.launch_counts()
+# The streamed instance's chunk of E (csrc/ncsn_score_wide.cu: kEC; H
+# streams in groups of half of it): a wider head is padded to a multiple
+# of it (read at call time).
+WIDE_CHUNK = 128
+# The 256 instance's and the streamed instance's launch counters, by the
+# wrapper's name: "<name>_e256" and "<name>_wide" in
+# ops/_launch.launch_counts()
 E256_LAUNCHES = {name: instance_counter(f"{name}_e256")
+                 for name in ("ncsn_score_fwd", "ncsn_score_bwd")}
+WIDE_LAUNCHES = {name: instance_counter(f"{name}_wide")
                  for name in ("ncsn_score_fwd", "ncsn_score_bwd")}
 WEIGHT_NAMES = ("w_d1", "b_d1", "w_d2", "b_d2", "w_od", "b_od", "w2", "b2",
                 "w3", "b3")
@@ -108,23 +119,100 @@ def ncsn_score_bwd_reference(dist, noise, sel, sigma, u, g_rows, *weights,
         return torch.autograd.grad(rows, ins, g_rows)
 
 
+@torch.no_grad()
+def ncsn_streamed_reference(dist, noise, sel, sigma, u, weights, anneal,
+                            g_rows=None):
+    """The plain version of the streamed instance (``csrc/ncsn_score_wide.cu``)
+    at a width E that is a multiple of ``WIDE_CHUNK``: demb over all of E;
+    per H group of ``WIDE_CHUNK // 2`` columns, pre2 summed over E chunks of
+    ``WIDE_CHUNK`` (l1 made chunk by chunk), then the score over the groups.
+    Returns the row sums; with ``g_rows`` (their cotangent [B,N]) du and the
+    ten weight gradients instead, the backward written out as the kernel
+    streams it: per group dx2, its column sums, then per chunk dW2[ec, hg]
+    and the masked dl1's terms of du, w_od, b_od and ddemb, then the
+    distance MLP. The same function as :func:`ncsn_score_loss_reference`
+    (its sums in another order)."""
+    w_d1, b_d1, w_d2, b_d2, w_od, b_od, w2, b2, w3, b3 = weights
+    emb = u.shape[-1]
+    hid = emb // 2
+    cs, gs = WIDE_CHUNK, WIDE_CHUNK // 2
+    ecs = [slice(c, c + cs) for c in range(0, emb, cs)]
+    hgs = [slice(h, h + gs) for h in range(0, hid, gs)]
+    used = sigma[:, None, None]
+    dp = dist + noise * used
+    t1 = dp[..., None] * w_d1[0] + b_d1
+    demb = torch.relu(t1) @ w_d2 + b_d2  # [B,N,N,1]
+
+    def l1(ec):
+        return torch.relu(u[:, :, None, ec] + u[:, None, :, ec]
+                          + demb * w_od[0, ec] + b_od[ec])
+
+    pre2 = []
+    for hg in hgs:
+        p = 0
+        for ec in ecs:
+            p = p + l1(ec) @ w2[ec, hg]
+        pre2.append(p + b2[hg])
+    score = b3[0]
+    for hg, p in zip(hgs, pre2):
+        score = score + (torch.relu(p) @ w3[hg])[..., 0]
+    r = score / used + noise / used  # scores - target
+    wsig = used ** anneal
+    if g_rows is None:
+        return (0.5 * r * r * wsig * sel).sum(dim=2)
+    ds = r * wsig * sel * g_rows[:, :, None] / used
+    du = torch.zeros_like(u)
+    ddemb = torch.zeros_like(dist)
+    gw_od, gb_od = torch.zeros_like(w_od), torch.zeros_like(b_od)
+    gw2, gb2, gw3 = (torch.zeros_like(w) for w in (w2, b2, w3))
+    for hg, p in zip(hgs, pre2):
+        dx2 = (p > 0) * ds[..., None] * w3[hg, 0]
+        gw3[hg, 0] = (torch.relu(p) * ds[..., None]).sum((0, 1, 2))
+        gb2[hg] = dx2.sum((0, 1, 2))
+        for ec in ecs:
+            a = l1(ec)
+            gw2[ec, hg] += a.reshape(-1, a.shape[-1]).t() @ dx2.reshape(
+                -1, dx2.shape[-1])
+            dl = (dx2 @ w2[ec, hg].t()) * (a > 0)
+            du[..., ec] += dl.sum(2) + dl.sum(1)
+            gw_od[0, ec] += (dl * demb).sum((0, 1, 2))
+            gb_od[ec] += dl.sum((0, 1, 2))
+            ddemb = ddemb + (dl * w_od[0, ec]).sum(-1)
+    on = (t1 > 0).to(t1.dtype) * ddemb[..., None]
+    gw_d2 = (torch.relu(t1) * ddemb[..., None]).sum((0, 1, 2))[:, None]
+    gw_d1 = ((on * dp[..., None]).sum((0, 1, 2)) * w_d2[:, 0])[None]
+    gb_d1 = on.sum((0, 1, 2)) * w_d2[:, 0]
+    return (du, gw_d1, gb_d1, gw_d2, ddemb.sum().reshape(1), gw_od, gb_od,
+            gw2, gb2, gw3, ds.sum().reshape(1))
+
+
 # -- kernel wrappers ------------------------------------------------------------
 
 
-def kernel_width(emb: int) -> int:
-    """The width of the kernel instance that runs a head of width ``emb``
-    (zero-padded up to it); ValueError above :data:`MAX_E`."""
+def instance_width(emb: int) -> int:
+    """The width of the kernel instance that runs a head of width ``emb``,
+    which is zero-padded up to it: the narrowest of ``KERNEL_WIDTHS`` that
+    holds it, above them the next multiple of ``WIDE_CHUNK`` (the streamed
+    instance)."""
     for width in KERNEL_WIDTHS:
         if emb <= width:
             return width
-    raise ValueError(f"ncsn_score: the kernels take emb up to {MAX_E}; got "
-                     f"{emb}")
+    return -(-emb // WIDE_CHUNK) * WIDE_CHUNK
+
+
+def streamed(width: int) -> bool:
+    """Whether an instance of ``width`` is the streamed one."""
+    return width > KERNEL_WIDTHS[-1]
 
 
 def _count(name, width):
     """One launch of kernel ``name`` in the instance of head width
-    ``width``: the wrapper's count, or the 256 instance's."""
-    (E256_LAUNCHES[name] if width == 256 else counter(name)).launches += 1
+    ``width``: the wrapper's count, the 256 instance's or the streamed
+    instance's."""
+    if streamed(width):
+        WIDE_LAUNCHES[name].launches += 1
+    else:
+        (E256_LAUNCHES[name] if width == 256 else counter(name)).launches += 1
 
 
 def pad_head(u, weights, width):
@@ -163,10 +251,9 @@ def unpad_wgrad(wgrad, emb, width):
 def _check(name, dist, noise, sel, sigma, u, weights):
     b, n, n2 = dist.shape
     emb = u.shape[-1]
-    if emb > MAX_E or u.shape != (b, n, emb) or n2 != n:
-        raise ValueError(f"{name}: kernel takes emb <= {MAX_E} and square "
-                         f"grids; got dist {tuple(dist.shape)}, u "
-                         f"{tuple(u.shape)}")
+    if u.shape != (b, n, emb) or n2 != n:
+        raise ValueError(f"{name}: kernel takes u [B,N,emb] and square grids; "
+                         f"got dist {tuple(dist.shape)}, u {tuple(u.shape)}")
     if noise.shape != dist.shape or sel.shape != dist.shape \
             or sigma.shape != (b,):
         raise ValueError(f"{name}: noise/sel must be [B,N,N] and sigma [B]")
@@ -220,9 +307,9 @@ def _w2_split(lib, dev):
 def _launch_ncsn_fwd(dist: Tensor, noise: Tensor, sel: Tensor, sigma: Tensor,
                      u: Tensor, weights: Sequence[Tensor],
                      anneal: float) -> Tensor:
-    width = kernel_width(u.shape[-1])
-    rows = _ncsn_fwd_kernel(dist, noise, sel, sigma,
-                            *pad_head(u, weights, width), anneal)
+    width = instance_width(u.shape[-1])
+    run = _ncsn_wide_fwd_kernel if streamed(width) else _ncsn_fwd_kernel
+    rows = run(dist, noise, sel, sigma, *pad_head(u, weights, width), anneal)
     _count("ncsn_score_fwd", width)
     return rows
 
@@ -292,10 +379,10 @@ def _launch_ncsn_bwd(dist: Tensor, noise: Tensor, sel: Tensor, sigma: Tensor,
     """(du, the flat weight gradient in ``WEIGHT_NAMES`` order), from the
     instance that holds emb (:func:`pad_head`), cut back to emb."""
     emb = u.shape[-1]
-    width = kernel_width(emb)
+    width = instance_width(emb)
     pu, pw = pad_head(u, weights, width)
-    du, wgrad = _ncsn_bwd_kernel(dist, noise, sel, sigma, pu, g_rows, pw,
-                                 anneal)
+    run = _ncsn_wide_bwd_kernel if streamed(width) else _ncsn_bwd_kernel
+    du, wgrad = run(dist, noise, sel, sigma, pu, g_rows, pw, anneal)
     _count("ncsn_score_bwd", width)
     if emb == width:
         return du, wgrad
@@ -332,6 +419,86 @@ def _ncsn_bwd_kernel(dist, noise, sel, sigma, u, g_rows, weights, anneal):
     err = fn(*map(ptr, (dist, noise, sel, sigma, u, g_rows, *weights, du,
                         dpart, part, wgrad, ws)), ptr_or_null(w2s),
              b, n, width, float(anneal), stream(dist))
+    check_launch("ncsn_score_bwd", err)
+    return du, wgrad
+
+
+def _ncsn_wide_fwd_plain(dist, noise, sel, sigma, u, weights, anneal):
+    """The plain version of :func:`_ncsn_wide_fwd_kernel`: the row sums of
+    :func:`ncsn_streamed_reference`."""
+    return ncsn_streamed_reference(dist, noise, sel, sigma, u, weights,
+                                   anneal)
+
+
+def _ncsn_wide_bwd_plain(dist, noise, sel, sigma, u, g_rows, weights,
+                         anneal):
+    """The plain version of :func:`_ncsn_wide_bwd_kernel`: du and the flat
+    weight gradient of :func:`ncsn_streamed_reference`."""
+    du, *grads = ncsn_streamed_reference(dist, noise, sel, sigma, u, weights,
+                                         anneal, g_rows)
+    return du, flat(grads)
+
+
+def _wide(name, *ints, restype=ctypes.c_size_t):
+    """The streamed instance's C query ``name`` of ``ints``."""
+    return _build.kernel_fn("ncsn_score_wide", name,
+                            [ctypes.c_int] * len(ints), restype)(*ints)
+
+
+def _wide_entry(name, n_ptrs):
+    """The streamed instance's C entry ``name``: pointers, B, N, E, anneal,
+    the stream."""
+    return _build.kernel_fn(
+        "ncsn_score_wide", name,
+        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _ncsn_wide_fwd_kernel(dist, noise, sel, sigma, u, weights, anneal):
+    """One launch of the streamed instance (csrc/ncsn_score_wide.cu) at u's
+    width, a multiple of WIDE_CHUNK: the row sums."""
+    b, n, _ = dist.shape
+    width = u.shape[-1]
+    check_smem("ncsn_score_fwd", _wide("ncsn_wide_smem_bytes"))
+    dev = dist.device
+    rows = torch.empty((b, n), dtype=torch.float32, device=dev)
+    # the work list, the rows' segment partials, W2's split pieces
+    ws = torch.empty(_wide("ncsn_wide_ws_ints", b, n), dtype=torch.int32,
+                     device=dev)
+    rpart, w2s = (torch.empty(size, dtype=torch.float32, device=dev)
+                  for size in (_wide("ncsn_wide_rpart_floats", b, n),
+                               _wide("ncsn_wide_w2_floats", width)))
+    err = _wide_entry("ncsn_wide_fwd", 19)(
+        *map(ptr, (dist, noise, sel, sigma, u, *weights, rows, rpart, ws,
+                   w2s)), b, n, width, float(anneal), stream(dist))
+    check_launch("ncsn_score_fwd", err)
+    return rows
+
+
+def _ncsn_wide_bwd_kernel(dist, noise, sel, sigma, u, g_rows, weights,
+                          anneal):
+    """One launch of the streamed instance's backward at u's width: (du,
+    the flat weight gradient)."""
+    b, n, _ = dist.shape
+    width = u.shape[-1]
+    check_smem("ncsn_score_bwd", _wide("ncsn_wide_smem_bytes"))
+    blocks = _wide("ncsn_wide_blocks", b, n, restype=ctypes.c_int)
+    size = _wide("ncsn_wide_wgrad_size", width, restype=ctypes.c_int)
+    dev = dist.device
+    du = torch.empty_like(u)
+    # the work list; the du partials, the per-block weight gradients and
+    # their sum, each thread's kept pre2, W2's split pieces
+    ws = torch.empty(_wide("ncsn_wide_ws_ints", b, n), dtype=torch.int32,
+                     device=dev)
+    dpart, part, wgrad, keep, w2s = (
+        torch.empty(shape, dtype=torch.float32, device=dev) for shape in (
+            _wide("ncsn_wide_dpart_floats", b, n, width), (blocks, size),
+            size, _wide("ncsn_wide_keep_floats", b, n, width),
+            _wide("ncsn_wide_w2_floats", width)))
+    err = _wide_entry("ncsn_wide_bwd", 23)(
+        *map(ptr, (dist, noise, sel, sigma, u, g_rows, *weights, du, dpart,
+                   part, wgrad, keep, ws, w2s)),
+        b, n, width, float(anneal), stream(dist))
     check_launch("ncsn_score_bwd", err)
     return du, wgrad
 

@@ -39,7 +39,6 @@ from geossl_tpu_torch.models.common import HalvingMLP, init_linear_
 from geossl_tpu_torch.models.painn import PaiNN
 from geossl_tpu_torch.models.schnet import SchNet
 from geossl_tpu_torch.ops import cfconv as cfconv_ops
-from geossl_tpu_torch.ops import ncsn as ncsn_ops
 from geossl_tpu_torch.ops import painn as painn_ops
 from geossl_tpu_torch.ops._launch import launch_counts
 from geossl_tpu_torch.parallel import mesh as pmesh
@@ -422,12 +421,13 @@ def host_agreement(name: str, value: float) -> None:
 
 
 def kernel_limit_errors(cfg: ModelConfig, *, backward: bool,
-                        per_block: bool = True, stack: bool = False,
-                        ncsn: bool = False) -> list:
+                        per_block: bool = True, stack: bool = False) -> list:
     """Each setting of ``cfg`` that a CUDA kernel of the named routes would
     refuse at its first launch, as one line naming the flag and the limit:
-    the per-block kernels (``backward``: and their backwards), the backbone's
-    whole-stack kernel, DDM's NCSN head kernels. Empty when they all fit."""
+    the per-block kernels (``backward``: and their backwards) and the
+    backbone's whole-stack kernel. Empty when they all fit. (DDM's NCSN
+    head kernels take any --emb_dim: up to 256 in a fixed-width instance,
+    above it in the streamed one.)"""
     errors = []
 
     def need(ok, flag, value, limit):
@@ -447,25 +447,14 @@ def kernel_limit_errors(cfg: ModelConfig, *, backward: bool,
         if stack:
             need(cfg.emb_dim <= f, "emb_dim", cfg.emb_dim,
                  f"painn_stack takes up to {f} (ops/painn.KERNEL_F)")
-    else:
+    elif stack:
         # the per-block CFConv kernels take any --num_filters (padded to
-        # ops/cfconv.KERNEL_F, or in column blocks of it) and any
-        # --num_gaussians, but their bf16 backwards no column blocks; the
+        # ops/cfconv.KERNEL_F, or in column blocks of it; the bf16
+        # backwards in hidden blocks of it) and any --num_gaussians; the
         # stack pads only
         f, nf = cfconv_ops.KERNEL_F, cfg.schnet.num_filters
-        bf16 = cfg.filter_mxu == "bf16" or cfg.compute_dtype == "bfloat16"
-        if per_block and backward and bf16:
-            need(nf <= f, "num_filters", nf,
-                 f"the bf16 CFConv backward kernels (--filter_mxu bf16, "
-                 f"--compute_dtype bfloat16) take up to {f} "
-                 "(ops/cfconv.KERNEL_F)")
-        if stack:
-            need(nf <= f, "num_filters", nf,
-                 f"schnet_stack takes up to {f} (ops/cfconv.KERNEL_F)")
-    if ncsn:
-        e = ncsn_ops.MAX_E
-        need(cfg.emb_dim <= e, "emb_dim", cfg.emb_dim,
-             f"the NCSN head kernels take up to {e} (ops/ncsn.MAX_E)")
+        need(nf <= f, "num_filters", nf,
+             f"schnet_stack takes up to {f} (ops/cfconv.KERNEL_F)")
     return list(dict.fromkeys(errors))
 
 
@@ -484,15 +473,14 @@ def check_kernel_limits(cfg: ModelConfig, device: torch.device,
             "driver also with --use_pallas off)")
 
 
-def check_driver_limits(args, cfg: ModelConfig, device: torch.device,
-                        ncsn: bool = False) -> None:
+def check_driver_limits(args, cfg: ModelConfig,
+                        device: torch.device) -> None:
     """:func:`check_kernel_limits` for a driver: its per-block kernels, with
     their backwards unless ``--eval_only``; nothing under ``--use_pallas
     off``."""
     if use_kernels(args):
         check_kernel_limits(cfg, device,
-                            backward=not getattr(args, "eval_only", False),
-                            ncsn=ncsn)
+                            backward=not getattr(args, "eval_only", False))
 
 
 def model_config_from_args(args) -> ModelConfig:

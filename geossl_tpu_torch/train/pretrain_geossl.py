@@ -302,7 +302,7 @@ def main(argv=None):
         return None
     mesh, device = common.setup_platform(args)
     cfg = common.model_config_from_args(args)
-    common.check_driver_limits(args, cfg, device, ncsn=option == "DDM")
+    common.check_driver_limits(args, cfg, device)
     subset = None
     if args.dataset.startswith("Molecule3D_"):
         subset = int(args.dataset.split("_")[-1])

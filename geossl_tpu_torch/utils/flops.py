@@ -113,6 +113,49 @@ def ncsn_head_forward(n: int, emb: int = 128,
     return FlopCount(mm, ew, ts)
 
 
+def cfconv_bwd_kernel(g: int, f: int, filtered: int, live: int,
+                      symmetric: bool) -> tuple[float, float]:
+    """(products, elementwise) FLOPs of one CFConv backward call (#2/#4,
+    either precision) at G Gaussians and F filters, over the pairs its
+    kernels compute: ``filtered`` pairs whose filter is formed (symmetric:
+    each unordered pair once) of which ``live`` have a nonzero env. Per
+    filtered pair the filter recomputed (rbf W1, s W2) and, symmetric, the
+    four backward products (dW2, dh, dW1, drbf) of the pair and its mirror
+    at once; plain, those four per live pair. The count is the same in the
+    F <= 128 instances, the k^2 column blocks and the bf16 backward's k
+    hidden blocks (each splits the same products)."""
+    per_filt = (6 if symmetric else 2) * (g * f + f * f)
+    per_pair = 0 if symmetric else 4 * f * f + 4 * g * f
+    return float(filtered * per_filt + live * per_pair), float(live * 6 * f)
+
+
+def ncsn_head_kernel(emb: int, selected: int,
+                     backward: bool = False) -> tuple[float, float]:
+    """(products, elementwise) FLOPs of one NCSN head kernel call (#6 /
+    #7) at head width ``emb`` (H = emb // 2) over its ``selected`` pairs:
+    the forward's l1 W2 (2 E H), the backward's recomputed l1 W2, dW2 and
+    dl1 (6 E H), beside the distance MLP, l1, the relus and the score. The
+    same at every instance width: the padding the kernels run is not
+    counted."""
+    h = emb // 2
+    elementwise = 8 * emb + 2 * h + 10
+    if backward:
+        return float(selected * 6 * emb * h), \
+            float(selected * (elementwise + 12 * emb + 4 * h))
+    return float(selected * 2 * emb * h), float(selected * elementwise)
+
+
+def cfconv_launches(f: int, backward: bool = False, mxu: str = "f32") -> int:
+    """Kernel launches of one CFConv call at F filters: one up to 128, k^2
+    over column blocks above it (``ops/cfconv.launches_per_call``), the
+    bf16 backward's k hidden blocks (``csrc/cfconv_bwd_bf16w.cu``)."""
+    from geossl_tpu_torch.ops.cfconv import filter_blocks, launches_per_call
+
+    if backward and mxu == "bf16":
+        return filter_blocks(f)
+    return launches_per_call(f)
+
+
 def train_step(fwd: FlopCount) -> FlopCount:
     """forward + backward ~= 3x the forward (see the module docstring)."""
     return fwd.scale(3.0)

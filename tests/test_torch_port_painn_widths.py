@@ -476,7 +476,7 @@ def test_predictor_routes_by_the_stack_width(width, stacked):
     routes = [pred.stack_route(n) for n in pred.bucket_sizes]
     assert common.kernel_limit_errors(cfg, backward=True,
                                       per_block=not all(routes),
-                                      stack=any(routes), ncsn=True) == []
+                                      stack=any(routes)) == []
 
 
 def test_streamed_probe_copy_routes_every_r_through_the_streamed_instances(

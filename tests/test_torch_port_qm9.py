@@ -584,13 +584,6 @@ CUDA = torch.device("cuda")
      "--painn_n_rbf 1"),
     (_cfg("painn", emb=256), dict(backward=False, per_block=False,
                                   stack=True), "--emb_dim 256"),
-    # the NCSN head kernels take emb up to 256
-    (_cfg(emb=320), dict(backward=True, ncsn=True), "--emb_dim 320"),
-    # the bf16 CFConv backwards take no column blocks
-    (_cfg(emb=256, filters=256, filter_mxu="bf16"), dict(backward=True),
-     "--num_filters 256"),
-    (_cfg(filters=192, compute_dtype="bfloat16"), dict(backward=True),
-     "--num_filters 192"),
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_kernel_limits_refused_on_cuda_only(cfg, routes, flag):
     """Each refusal names its flag and limit on a CUDA device (nothing is
@@ -601,14 +594,14 @@ def test_kernel_limits_refused_on_cuda_only(cfg, routes, flag):
 
 
 @pytest.mark.parametrize("cfg,routes", [
-    (_cfg(), dict(backward=True, stack=True, ncsn=True)),
-    (_cfg("painn", r=31), dict(backward=True, stack=True, ncsn=True)),
+    (_cfg(), dict(backward=True, stack=True)),
+    (_cfg("painn", r=31), dict(backward=True, stack=True)),
     # PaiNN at any width per block (padded to 128, or column blocks of
     # 128), up to 128 in the stack, and any R >= 2 (streamed above 31)
     (_cfg("painn", emb=64), dict(backward=True)),
     (_cfg("painn", r=32), dict(backward=False, stack=True)),
-    (_cfg("painn", emb=96, r=64), dict(backward=True, stack=True, ncsn=True)),
-    (_cfg("painn", emb=256, r=2), dict(backward=True, ncsn=True)),
+    (_cfg("painn", emb=96, r=64), dict(backward=True, stack=True)),
+    (_cfg("painn", emb=256, r=2), dict(backward=True)),
     # SchNet's emb_dim does not reach the per-block kernels, and a
     # num_filters != emb_dim model never takes the stack
     (_cfg(emb=64), dict(backward=True, stack=True)),
@@ -624,14 +617,19 @@ def test_kernel_limits_refused_on_cuda_only(cfg, routes, flag):
     # up to 128 in the stack; the NCSN head up to --emb_dim 256
     (_cfg(filters=64), dict(backward=True)),
     (_cfg(filters=96), dict(backward=True, stack=True)),
-    (_cfg(emb=96, filters=96), dict(backward=True, stack=True, ncsn=True)),
-    (_cfg(emb=256, filters=256), dict(backward=True, ncsn=True)),
-    (_cfg(emb=200, filters=300, g=300), dict(backward=True, ncsn=True)),
-    (_cfg(emb=64), dict(backward=True, ncsn=True)),
-    # bf16: forwards at any width, backwards up to 128 (padded)
+    (_cfg(emb=96, filters=96), dict(backward=True, stack=True)),
+    (_cfg(emb=256, filters=256), dict(backward=True)),
+    (_cfg(emb=200, filters=300, g=300), dict(backward=True)),
+    (_cfg(emb=64), dict(backward=True)),
+    # bf16: forwards at any width; backwards padded up to 128, in hidden
+    # blocks of 128 above it
     (_cfg(emb=256, filters=256, filter_mxu="bf16"), dict(backward=False)),
     (_cfg(emb=96, filters=96, compute_dtype="bfloat16"),
-     dict(backward=True, ncsn=True)),
+     dict(backward=True)),
+    (_cfg(emb=256, filters=256, filter_mxu="bf16"), dict(backward=True)),
+    (_cfg(filters=192, compute_dtype="bfloat16"), dict(backward=True)),
+    # the NCSN head at any emb_dim (above 256 the streamed instance)
+    (_cfg(emb=320), dict(backward=True)),
 ])
 def test_kernel_limits_accept_what_the_kernels_run(cfg, routes):
     assert common.kernel_limit_errors(cfg, **routes) == []
@@ -639,13 +637,9 @@ def test_kernel_limits_accept_what_the_kernels_run(cfg, routes):
 
 
 @pytest.mark.parametrize("driver,argv,flag", [
-    # the per-block kernels take any width and any RBF count from 2: the
-    # refusals left are PaiNN's R below 2, the NCSN head's above 256 and
-    # the bf16 backwards' above 128
+    # the per-block kernels take any width and any RBF count from 2, and
+    # the NCSN head any emb_dim: the refusal left is PaiNN's R below 2
     (PG, ["--model_3d", "painn", "--painn_n_rbf", "1"], "--painn_n_rbf 1"),
-    (PG, ["--emb_dim", "320"], "--emb_dim 320"),
-    (PG, ["--emb_dim", "256", "--num_filters", "256", "--filter_mxu",
-          "bf16"], "--num_filters 256"),
 ])
 def test_drivers_refuse_kernel_limits_at_startup(monkeypatch, tmp_path, driver,
                                                  argv, flag):
@@ -658,6 +652,27 @@ def test_drivers_refuse_kernel_limits_at_startup(monkeypatch, tmp_path, driver,
     args = driver.build_parser().parse_args(base + argv + ["--use_pallas",
                                                            "off"])
     common.check_driver_limits(args, common.model_config_from_args(args), CUDA)
+
+
+@pytest.mark.parametrize("driver,argv", [
+    ("pretrain_geossl", ["--emb_dim", "320"]),
+    ("pretrain_geossl", ["--emb_dim", "512", "--num_filters", "512"]),
+    ("pretrain_geossl", ["--model_3d", "painn", "--emb_dim", "384"]),
+    ("pretrain_geossl", ["--emb_dim", "256", "--num_filters", "256",
+                         "--filter_mxu", "bf16"]),
+    ("pretrain_geossl", ["--emb_dim", "256", "--num_filters", "256",
+                         "--compute_dtype", "bfloat16"]),
+    ("finetune_lba", ["--num_filters", "384", "--filter_mxu", "bf16"]),
+    ("pretrain_baselines", ["--num_filters", "192", "--filter_mxu", "bf16"]),
+    ("finetune_md17", ["--num_filters", "256", "--filter_mxu", "bf16"]),
+], ids=lambda v: " ".join(v) if isinstance(v, list) else v)
+def test_drivers_start_at_the_widths_they_once_refused(driver, argv):
+    """The DDM head at any --emb_dim and the bf16 CFConv backwards at any
+    --num_filters pass every driver's startup check on CUDA (no card
+    needed): the head's streamed instance and the backwards' hidden-block
+    instance run them."""
+    cfg = _driver_limits(driver, argv)
+    assert common.kernel_limit_errors(cfg, backward=True) == []
 
 
 def _driver_limits(driver, argv):
@@ -676,8 +691,7 @@ def _driver_limits(driver, argv):
     if driver == "finetune_md17":
         common.check_kernel_limits(cfg, CUDA, backward=True)
     else:
-        common.check_driver_limits(args, cfg, CUDA,
-                                   ncsn=driver == "pretrain_geossl")
+        common.check_driver_limits(args, cfg, CUDA)
     return cfg
 
 
@@ -694,7 +708,7 @@ def test_drivers_accept_painn_widths_and_rbf_counts(driver, argv):
     (streamed above 31): its startup check passes, and the kernels' limits
     name nothing (no card needed)."""
     cfg = _driver_limits(driver, ["--model_3d", "painn", *argv])
-    assert common.kernel_limit_errors(cfg, backward=True, ncsn=True) == []
+    assert common.kernel_limit_errors(cfg, backward=True) == []
 
 
 def test_predictor_refuses_kernel_limits_at_startup(monkeypatch):

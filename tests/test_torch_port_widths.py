@@ -6,14 +6,16 @@ padding into its 128 and 256 instances (#6/#7).
 * The helpers, with the plain versions as the per-block callable, against
   the plain version at the full width in f64 at rtol 1e-12, in f32 and in
   bf16 (each forward block rounds the same operands as the full width).
-  The bf16 backward is not split into blocks: a block would round its own
-  partial dh to bf16 where the full width rounds their sum, so the launch
-  refuses bf16 above the kernels' width (padded below it, exact).
-  ``KERNEL_F`` is monkeypatched to 16, so F = 40 runs 3 blocks and 9
-  calls.
+  The bf16 backward is not split into (i, o) blocks: a block would round
+  its own partial dh to bf16 where the full width rounds their sum; above
+  the kernels' width it runs its hidden-block instance (one launch per
+  hidden block, dh summed over the output blocks before it is rounded),
+  here through that instance's plain version. ``KERNEL_F`` is
+  monkeypatched to 16, so F = 40 runs 3 blocks and 9 calls (3 for the
+  bf16 backward).
 * The bf16 launches against the JAX package's bf16 kernels
   (``test_torch_port_bf16``'s criterion): the forwards in column blocks
-  and padded, the backwards padded.
+  and padded, the backwards padded and in hidden blocks.
 * The real launch functions with plain stand-ins monkeypatched in for the
   ctypes launches (``_cfconv_fwd_kernel``, ``_cfconv_bwd_kernel``,
   ``_schnet_stack_kernel``, ``_ncsn_fwd_kernel``, ``_ncsn_bwd_kernel``):
@@ -90,13 +92,19 @@ def block16(monkeypatch):
 @pytest.mark.parametrize("mxu", ["f32", "bf16"])
 @pytest.mark.parametrize("g", [51, 65])
 @pytest.mark.parametrize("f", [40, 12])
-def test_filter_blocks_equal_the_full_width_plain_version(block16, f, g, mxu):
+def test_filter_blocks_equal_the_full_width_plain_version(block16,
+                                                          monkeypatch, f, g,
+                                                          mxu):
     """#1/#3's forward and #2/#4's backward (the plain and the symmetric
     backward's plain versions are one function: the true cotangents)
     through the helpers, F = 40 (3 blocks) and F = 12 (padded to 16). In
     bf16 the forward's blocks round the same operands as the full width;
-    the backward's would round their partial dh, so the launch refuses bf16
-    above the kernels' width and only the padded backward runs."""
+    the backward's (i, o) blocks would round their partial dh, so above
+    the kernels' width the bf16 backward launch runs its hidden-block
+    instance (here its plain version, 3 calls' worth of launches), which
+    rounds the same operands as the full width: the symmetric launch's
+    placed cotangents and weight gradients equal the full-width plain
+    version's."""
     d, env = pair_grid(seed=f + g)
     rng = np.random.default_rng(g)
     x = torch.from_numpy(rng.normal(size=(2, 12, f)))
@@ -118,9 +126,19 @@ def test_filter_blocks_equal_the_full_width_plain_version(block16, f, g, mxu):
                  EXACT, "m")
     k = -(-f // BLOCK)
     if mxu == "bf16" and k > 1:
-        with pytest.raises(ValueError, match="bf16 backward takes F <= 16"):
-            tcf._launch_cfconv_bwd(d, env, x, gr, *fw, *args, True, False,
-                                   mxu)
+        monkeypatch.setattr(tcf, "_cfconv_bwd_bf16w_kernel",
+                            tcf._cfconv_bwd_bf16w_plain)
+        _launch.reset_launch_counts()
+        *got, wgrad = tcf._launch_cfconv_bwd(d, env, x, gr, *fw, *args, True,
+                                             False, mxu)
+        got += tcf._split_wgrad(wgrad, g, f)
+        want = list(tcf.cfconv_bwd_reference(d, env, x, gr, *fw, *args, mxu))
+        want[:2] = [tcf.place_sym_cotangent(c) for c in want[:2]]
+        for name, a, w in zip(("ddist", "denv", "dx", "dW1", "db1", "dW2",
+                               "db2"), got, want):
+            assert a.shape == w.shape, name
+            assert_close(a, w, EXACT, name)
+        assert _launch.launch_counts()["cfconv_bwd_sym_bf16w"] == k
         assert calls == [BLOCK] * (k * k)
         return
     got = tcf.filter_blocks_bwd(bwd, x, gr, *fw)
@@ -175,7 +193,7 @@ def test_head_padding_equals_the_full_width_plain_head(emb):
     and the ten weight gradients of the padded plain head, cut back, are
     the plain head's at E."""
     grid, weights, g_rows = head_inputs(emb, emb)
-    width = tns.kernel_width(emb)
+    width = tns.instance_width(emb)
     assert width == (128 if emb <= 128 else 256)
     pu, pw = tns.pad_head(grid[4], weights, width)
     assert [tuple(w.shape) for w in pw] == list(tns.weight_shapes(width))
@@ -191,8 +209,12 @@ def test_head_padding_equals_the_full_width_plain_head(emb):
 
 
 def test_head_width_limit():
-    with pytest.raises(ValueError, match="up to 256"):
-        tns.kernel_width(257)
+    """No head width is refused: up to 256 the fixed instances, above it
+    the streamed one at the next multiple of its chunk."""
+    got = [tns.instance_width(e) for e in (1, 128, 129, 256, 257, 300, 384,
+                                           385, 512, 1000)]
+    assert got == [128, 128, 256, 256, 384, 384, 384, 512, 512, 1024]
+    assert [tns.streamed(w) for w in (128, 256, 384)] == [False, False, True]
 
 
 # -- the real launch functions with plain stand-ins ---------------------------------
@@ -210,9 +232,12 @@ class StandIns:
             monkeypatch.setattr(mod, "on_cpu", lambda *a: False)
         for name, fn in (("_cfconv_fwd_kernel", self.cf_fwd),
                          ("_cfconv_bwd_kernel", self.cf_bwd),
+                         ("_cfconv_bwd_bf16w_kernel", self.cf_bwd_bf16w),
                          ("_schnet_stack_kernel", self.stack),
                          ("_ncsn_fwd_kernel", self.ncsn_fwd),
-                         ("_ncsn_bwd_kernel", self.ncsn_bwd)):
+                         ("_ncsn_bwd_kernel", self.ncsn_bwd),
+                         ("_ncsn_wide_fwd_kernel", self.ncsn_wide_fwd),
+                         ("_ncsn_wide_bwd_kernel", self.ncsn_wide_bwd)):
             mod = tns if name.startswith("_ncsn") else tcf
             monkeypatch.setattr(mod, name, fn)
         _launch.reset_launch_counts()
@@ -234,6 +259,21 @@ class StandIns:
         if sym:
             out[:2] = [tcf.place_sym_cotangent(c) for c in out[:2]]
         return (*out[:3], _launch.flat(out[3:]))
+
+    def cf_bwd_bf16w(self, dist, env, x, *rest):
+        self.saw("cfconv_bwd_bf16w", x.shape[-1])
+        return tcf._cfconv_bwd_bf16w_plain(dist, env, x, *rest)
+
+    def ncsn_wide_fwd(self, dist, noise, sel, sigma, u, weights, anneal):
+        self.saw("ncsn_wide_fwd", u.shape[-1])
+        return tns._ncsn_wide_fwd_plain(dist, noise, sel, sigma, u, weights,
+                                        anneal)
+
+    def ncsn_wide_bwd(self, dist, noise, sel, sigma, u, g_rows, weights,
+                      anneal):
+        self.saw("ncsn_wide_bwd", u.shape[-1])
+        return tns._ncsn_wide_bwd_plain(dist, noise, sel, sigma, u, g_rows,
+                                        weights, anneal)
 
     def stack(self, dist, env, h0, stacked, start, stop, num_g, sym):
         self.saw("schnet_stack", h0.shape[-1])
@@ -318,8 +358,8 @@ def test_bf16_column_blocks_match_jax_bf16(block16, monkeypatch, kernel, f):
     bf16 kernel bound (rtol/atol 2e-3 x max; the symmetric pair cotangents
     folded) and nearer to JAX's bf16 result than that is to JAX's f32 one.
     The forwards at F = 40 (3 column blocks of 16) and F = 12 (padded), the
-    backwards padded at F = 12; at F = 40 the backward launch refuses bf16
-    (a block would round its own partial dh, where JAX rounds the sum)."""
+    backwards padded at F = 12 and at F = 40 in the hidden-block instance
+    (3 launches, dh rounded once, as JAX's), ddist included."""
     StandIns(monkeypatch)
     sym = kernel.endswith("sym")
     g = 8
@@ -338,11 +378,11 @@ def test_bf16_column_blocks_match_jax_bf16(block16, monkeypatch, kernel, f):
         return
     bwd_args = (*tin[:3], torch.from_numpy(ct), *tin[3:], *args, sym, False,
                 "bf16")
-    if f > BLOCK:
-        with pytest.raises(ValueError, match="bf16 backward takes F <= 16"):
-            tcf._launch_cfconv_bwd(*bwd_args)
-        return
     *got, wgrad = tcf._launch_cfconv_bwd(*bwd_args)
+    name = "cfconv_bwd" + ("_sym" if sym else "")
+    counts = _launch.launch_counts()
+    assert (counts[name + "_bf16"], counts[name + "_bf16w"]) == \
+        ((0, 3) if f > BLOCK else (1, 0))
     got += tcf._split_wgrad(wgrad, g, f)
     jbwd = jcf._cfconv_sym_bwd if sym else jcf._cfconv_bwd
     want, want32 = (jbwd(*jin, jnp.asarray(ct), *args, m, False)
@@ -366,7 +406,7 @@ def test_ncsn_launches_pad_into_their_instance(monkeypatch, emb):
     ws = [w.clone().requires_grad_(True) for w in weights]
     rows = tns.ncsn_score_loss(*grid[:4], u, *ws, 2.0)
     grads = torch.autograd.grad(rows, [u, *ws], g_rows)
-    width = tns.kernel_width(emb)
+    width = tns.instance_width(emb)
     assert stand.widths == {"ncsn_fwd": [width], "ncsn_bwd": [width]}
     counts = _launch.launch_counts()
     tag = "_e256" if width == 256 else ""
@@ -488,4 +528,4 @@ def test_predictor_routes_by_the_stack_width(width, stacked):
     routes = [pred.stack_route(n) for n in pred.bucket_sizes]
     assert common.kernel_limit_errors(cfg, backward=True,
                                       per_block=not all(routes),
-                                      stack=any(routes), ncsn=True) == []
+                                      stack=any(routes)) == []
